@@ -6,23 +6,35 @@
 Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit, turn TF32
      off, build the CUDA kernels from point_cloud_reid_tpu_torch/csrc;
-  2. kernels: every kernel of the serving path against its plain PyTorch
-     version at the flagship shapes (SA stages at B=128 crops, the 128 x 128
-     grid, a 512-pair list), with errors, tolerances and CUDA-event times;
-  3. main path: the flagship model (full widths, seeded random weights)
+  2. kernels: every kernel against its plain PyTorch version at the shapes
+     its main path gives it, with errors, tolerances and CUDA-event times:
+     the serving path's (SA stages at B=128 crops, the 128 x 128 grid, a
+     512-pair list) and the training path's (kNN at the three SA shapes of
+     512 crops, linear attention at 256 pairs with its gradients);
+  3. serving path: the flagship model (full widths, seeded random weights)
      behind TrackingManager.step over two synthetic scenes of 10 frames
      (96 objects x 600 points): gated sparse scoring ('auto', pair kernel)
      and dense scoring ('never', 128 x 128 grid kernel). Checks finite
      logits, launch counts, and one frame's logits against the plain
-     composition.
-The line before the last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
-prints no result.
+     composition;
+  4. training path: the flagship with knn_method 'pallas' and both cross
+     stages 'linear-pallas' (the CUDA kernels), losses match + kl + triplet,
+     256 pairs of 128 points a step through Trainer.fit. Checks finite
+     losses and gradient norms, that weights and BatchNorm statistics moved,
+     3 kNN and 4 attention launches per forward, and step 1 against the same
+     step with both knobs off.
+Each kernel's bound is the least time the card could take for the call: the
+larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (float32 outside the tensor cores), the H100's
+published peaks. The line before the last is a JSON summary of the kernels;
+the last line is {"ok": true, "device": {...}}. Without a CUDA device it
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import copy
 import json
+import os
 import sys
 import time
 
@@ -35,7 +47,24 @@ N_OBJ, PTS_PER_OBJ, FRAMES = 96, 600, 10
 SA_TOL = 1e-4          # max |kernel - plain| / max(1, max |plain|)
 MATCH_TOL = 5e-4       # the same for the match chain (two LayerNorm stacks)
 FRAME_TOL = 1e-3       # frame logits vs the plain composition, abs + rel
+ATTN_TOL = 1e-4        # linear attention and its gradients, as SA_TOL
+KNN_TIE = 1e-6         # kNN: a swap needs plain distances this close (rel.)
+TRAIN_TOL = 1e-3       # step 1, kernels on vs off: loss and grad norm, rel.
+TRAIN_PAIRS, TRAIN_STEPS = 256, 6
 DEVICE = "cuda"
+PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(flops: float, nbyte: float) -> tuple:
+    """(least ms the card could take, what bounds it)."""
+    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbyte / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                              "bytes")
 
 
 def rel_err(got, want) -> tuple:
@@ -91,7 +120,7 @@ def phase_kernels(model):
     # SA stages at B=128 crops: each stage's inputs are the previous
     # stage's outputs, as in the backbone
     xyz, points = crops, None
-    sa_err, sa_ms, sa_plain_ms = 0.0, 0.0, 0.0
+    sa_err, sa_ms, sa_plain_ms, sa_bound, sa_by = 0.0, 0.0, 0.0, 0.0, []
     for i, (mod, S) in enumerate(zip(model.backbone.SA_modules,
                                      model.backbone_list)):
         cidx = torch.arange(S, device=DEVICE).clamp(max=xyz.shape[1] - 1)
@@ -107,18 +136,27 @@ def phase_kernels(model):
         k_ms = time_ms(lambda: sa.fused_sa_convmax(*args), 10)
         p_ms = time_ms(lambda: sa.sa_convmax_reference(*args), 5)
         B, N, C = args[0].shape
+        # two C x C convs over B*S*K rows; the first layer's gather and the
+        # affines are O(rows * C)
+        b_ms, b_by = bound_ms(4.0 * B * S * mod.nsample * C * C,
+                              nbytes(*args, got))
         print(f"[sa_stage] SA{i + 1} B={B} N={N} S={S} K={mod.nsample} C={C}:"
               f" max_abs_err={err:.3e} rel={rel:.3e} (tol {SA_TOL:g})"
-              f" kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms", flush=True)
+              f" kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by})", flush=True)
         if not rel <= SA_TOL:
             raise RuntimeError(f"sa_stage SA{i + 1} disagrees: rel {rel}")
         sa_err, sa_ms, sa_plain_ms = max(sa_err, err), sa_ms + k_ms, \
             sa_plain_ms + p_ms
+        sa_bound += b_ms
+        sa_by.append((b_ms, b_by))
         xyz, points = mod(xyz, points, S)
     rows.append(dict(name="fused_sa_convmax", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/sa_stage.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/sa_stage.py:78",
-                     max_abs_err=sa_err, ms=sa_ms, plain_ms=sa_plain_ms))
+                     max_abs_err=sa_err, ms=sa_ms, plain_ms=sa_plain_ms,
+                     bound_ms=sa_bound, bound_by=max(sa_by)[1],
+                     library_ms=None))
 
     # grid 128 x 128 and a 512-pair list, on flagship embeddings
     with torch.no_grad():
@@ -128,6 +166,15 @@ def phase_kernels(model):
         xyz_d, h_d = model.embed(crops_d)
         t, d, w1, w2, nhead = mg.match_factors(model, h_t, xyz_t, h_d, xyz_d)
     nt, nd = h_t.shape[0], h_d.shape[0]
+    n_pts, width = h_t.shape[1], h_t.shape[2]
+    weights = list(w1.values()) + list(w2.values())
+
+    def match_bound(n_pairs, *extra):
+        # per pair and direction 14 N C^2 (stage 1) + 26 N C^2 (stage 2)
+        # multiply-adds' worth of products, two directions
+        return bound_ms(80.0 * n_pairs * n_pts * width * width,
+                        nbytes(*t, *d, *weights, *extra))
+
     ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
     di = torch.arange(nd, device=DEVICE).repeat(nt)
     grid = mg.fused_match_grid(t, d, w1, w2, nhead)
@@ -138,15 +185,18 @@ def phase_kernels(model):
     g_ms = time_ms(lambda: mg.fused_match_grid(t, d, w1, w2, nhead), 5)
     g_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, ti, di), 2, warmup=1)
+    g_bound, g_by = match_bound(nt * nd, grid)
     print(f"[match_grid] grid {nt}x{nd} N={h_t.shape[1]} C={h_t.shape[2]}: "
           f"max_abs_err={g_err:.3e} rel={g_rel:.3e} (tol {MATCH_TOL:g}) "
-          f"kernel {g_ms:.3f} ms, plain {g_plain:.3f} ms", flush=True)
+          f"kernel {g_ms:.3f} ms, plain {g_plain:.3f} ms, bound "
+          f"{g_bound:.3f} ms ({g_by})", flush=True)
     if not g_rel <= MATCH_TOL:
         raise RuntimeError(f"fused_match_grid disagrees: rel {g_rel}")
     rows.append(dict(name="fused_match_grid", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:250",
-                     max_abs_err=g_err, ms=g_ms, plain_ms=g_plain))
+                     max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
+                     bound_ms=g_bound, bound_by=g_by, library_ms=None))
 
     P = 512
     t_idx = torch.randint(0, nt, (P,), generator=gen, device=DEVICE,
@@ -163,16 +213,153 @@ def phase_kernels(model):
                                                 d_idx), 10)
     p_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, t_idx, d_idx), 3)
+    p_bound, p_by = match_bound(P, t_idx, d_idx, pairs)
     print(f"[match_grid] pairs P={P}: max_abs_err={p_err:.3e} rel={p_rel:.3e}"
           f" vs plain, {pg_err:.3e} rel={pg_rel:.3e} vs the grid kernel at "
           f"the same indices (tol {MATCH_TOL:g}); kernel {p_ms:.3f} ms, "
-          f"plain {p_plain:.3f} ms", flush=True)
+          f"plain {p_plain:.3f} ms, bound {p_bound:.3f} ms ({p_by})",
+          flush=True)
     if not (p_rel <= MATCH_TOL and pg_rel <= MATCH_TOL):
         raise RuntimeError(f"fused_match_pairs disagrees: {p_rel}, {pg_rel}")
     rows.append(dict(name="fused_match_pairs", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:355",
-                     max_abs_err=p_err, ms=p_ms, plain_ms=p_plain))
+                     max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
+                     bound_ms=p_bound, bound_by=p_by, library_ms=None))
+    return rows
+
+
+def knn_cloud(kind: str, B: int, N: int, seed: int):
+    """Crops for the kNN check. 'exact': coordinates are multiples of 1/64
+    in [-2, 2), so every product and sum is exact in float32 and both sides
+    see identical distances, full of ties; 'duplicates': 'exact' points
+    resampled with replacement, as crops are; 'random': Gaussian floats."""
+    import torch
+    rs = np.random.RandomState(seed)
+    if kind == "random":
+        xyz = (rs.randn(B, N, 3) * 0.6).astype(np.float32)
+    else:
+        xyz = rs.randint(-128, 128, (B, N, 3)).astype(np.float32) / 64.0
+        if kind == "duplicates":
+            xyz = xyz[np.arange(B)[:, None], rs.randint(0, N // 3, (B, N))]
+    return torch.from_numpy(xyz).to(DEVICE)
+
+
+def phase_train_kernels(model):
+    """The training path's two kernels against their plain versions."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    rows = []
+
+    # kNN at the three SA stages' shapes for 256 pairs = 512 crops
+    B = 2 * TRAIN_PAIRS
+    shapes = [(s, n, mod.nsample) for s, n, mod in zip(
+        model.backbone_list, [128] + list(model.backbone_list),
+        model.backbone.SA_modules)]
+    k_ms = k_plain = k_lib = k_bound = 0.0
+    k_by, k_err, exact_bad, swaps_total = [], 0.0, 0, 0
+    for i, (S, N, k) in enumerate(shapes):
+        swaps = {}
+        for kind in ("exact", "duplicates", "random"):
+            xyz = knn_cloud(kind, B, N, SEED + i)
+            q = xyz[:, :S].contiguous()
+            got, want = kk.knn(q, xyz, k), kk.knn_reference(q, xyz, k)
+            torch.cuda.synchronize()
+            bad = got != want
+            swaps[kind] = int(bad.sum().item())
+            # the error of an index is the plain distance between the point
+            # chosen and the point wanted at that rank
+            dist = kk.square_distance(q, xyz)
+            dg, dw = dist.gather(-1, got), dist.gather(-1, want)
+            k_err = max(k_err, (dg - dw).abs().max().item())
+            if kind != "random":
+                exact_bad += swaps[kind]
+                if swaps[kind]:
+                    raise RuntimeError(f"knn {kind} S={S} N={N} k={k}: "
+                                       f"{swaps[kind]} indices differ")
+                continue
+            far = (dg - dw).abs()[bad] > KNN_TIE * dw.abs()[bad].clamp(min=1.0)
+            if bool(far.any()):
+                raise RuntimeError(f"knn random S={S} N={N} k={k}: "
+                                   f"{int(far.sum())} indices differ beyond "
+                                   "a near-tie")
+        ms = time_ms(lambda: kk.knn(q, xyz, k), 20)
+        plain = time_ms(lambda: kk.knn_reference(q, xyz, k), 10)
+        # one PyTorch call pair for the same function, but not tie-stable
+        lib = time_ms(lambda: torch.cdist(q, xyz).topk(
+            k, dim=-1, largest=False).indices, 10)
+        # 8 flops a distance; the selection (about N + k log N comparisons
+        # a row) is not counted, the k rounds of this kernel are its own
+        b_ms, b_by = bound_ms(8.0 * B * S * N,
+                              nbytes(q, xyz) + B * S * k * 4)
+        print(f"[knn] B={B} S={S} N={N} k={k}: indices equal on exact and "
+              f"duplicated inputs; random floats: {swaps['random']} of "
+              f"{got.numel()} differ, all near-ties (< {KNN_TIE:g} rel.; "
+              f"largest distance gap so far {k_err:.3e}); "
+              f"kernel {ms:.3f} ms, plain {plain:.3f} ms, cdist+topk (not "
+              f"tie-stable) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        k_ms, k_plain, k_lib = k_ms + ms, k_plain + plain, k_lib + lib
+        k_bound += b_ms
+        k_by.append((b_ms, b_by))
+        swaps_total += swaps["random"]
+    rows.append(dict(name="knn", route="cuda",
+                     source="point_cloud_reid_tpu_torch/csrc/knn.cu",
+                     replaces="point_cloud_reid_tpu/ops/pallas/knn.py:51",
+                     max_abs_err=k_err, mismatches_exact=exact_bad,
+                     near_tie_swaps=swaps_total, ms=k_ms,
+                     plain_ms=k_plain, bound_ms=k_bound,
+                     bound_by=max(k_by)[1], library_ms=k_lib))
+
+    # linear attention: the cross stages' shape and one with L != S
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    a_err = 0.0
+    for (Bp, L, S, H, D, V) in ((TRAIN_PAIRS, 128, 128, 2, 32, 32),
+                                (64, 128, 48, 2, 32, 16)):
+        # several input sets, more than the 50 MB L2 together, as views of
+        # fused projections (non-contiguous) like the model's
+        sets = []
+        for _ in range(3):
+            q = torch.randn((Bp, L, H, D), generator=gen, device=DEVICE,
+                            requires_grad=True)
+            kv = torch.randn((Bp, S, H, D + V), generator=gen, device=DEVICE)
+            sets.append((q, kv[..., :D].detach().requires_grad_(True),
+                         kv[..., D:].detach().requires_grad_(True)))
+        q, k, v = sets[0]
+        got = la.fused_linear_attention(q, k, v)
+        want = la.linear_attention_reference(q, k, v)
+        go = torch.randn(got.shape, generator=gen, device=DEVICE)
+        g_got = torch.autograd.grad(got, (q, k, v), go)
+        g_want = torch.autograd.grad(want, (q, k, v), go)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got.detach(), want.detach())
+        g_rel = max(rel_err(a, b)[1] for a, b in zip(g_got, g_want))
+        turn = iter(range(10 ** 9))
+
+        def run(fn):
+            with torch.no_grad():
+                fn(*sets[next(turn) % 3])
+        ms = time_ms(lambda: run(la.linear_attention_forward), 30)
+        plain = time_ms(lambda: run(la.linear_attention_reference), 30)
+        flops = Bp * H * (2.0 * S * D * V + 2.0 * L * D * V + 2.0 * L * D
+                          + S * D)
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got))
+        print(f"[linear_attention] B={Bp} L={L} S={S} H={H} D={D} V={V}: "
+              f"max_abs_err={err:.3e} rel={rel:.3e}, gradients rel="
+              f"{g_rel:.3e} (tol {ATTN_TOL:g}); forward kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if not (rel <= ATTN_TOL and g_rel <= ATTN_TOL):
+            raise RuntimeError(f"linear_attention disagrees: {rel}, {g_rel}")
+        a_err = max(a_err, err)
+        if L == S:      # the main path's shape gives the row its times
+            row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+    rows.append(dict(
+        name="linear_attention", route="cuda",
+        source="point_cloud_reid_tpu_torch/csrc/linear_attention.cu",
+        replaces="point_cloud_reid_tpu/ops/pallas/linear_attention.py:107",
+        max_abs_err=a_err, library_ms=None, **row))
     return rows
 
 
@@ -235,17 +422,30 @@ def check_frame(model, rec, label: str):
         raise RuntimeError(f"frame check failed in scene '{label}'")
 
 
-def phase_main_path(model, card: str):
+def all_counters() -> dict:
+    """name in the kernels line -> the wrapper that carries `launches`."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
-    counters = (sa.fused_sa_convmax, mg.fused_match_grid,
-                mg.fused_match_pairs)
-    for fn in counters:
+    return dict(fused_sa_convmax=sa.fused_sa_convmax,
+                fused_match_grid=mg.fused_match_grid,
+                fused_match_pairs=mg.fused_match_pairs, knn=kk.knn,
+                linear_attention=la.linear_attention_forward)
+
+
+def phase_main_path(model, card: str):
+    every = all_counters()
+    counters = tuple(every[k] for k in ("fused_sa_convmax",
+                                        "fused_match_grid",
+                                        "fused_match_pairs"))
+    for fn in every.values():
         fn.launches = 0
     sparse_ms, sparse_rec, sparse_mgr = run_scene(model, "auto")
     after_sparse = [fn.launches for fn in counters]
     dense_ms, dense_rec, dense_mgr = run_scene(model, "never")
     launches = [fn.launches for fn in counters]
+    scenes = {name: fn.launches for name, fn in every.items()}
     in_dense = [b - a for a, b in zip(after_sparse, launches)]
     print(f"[main] launches sparse scene (sa, grid, pairs) = {after_sparse}, "
           f"dense scene = {in_dense}", flush=True)
@@ -260,8 +460,120 @@ def phase_main_path(model, card: str):
               flush=True)
     check_frame(model, sparse_rec.last_frame, "sparse")
     check_frame(model, dense_rec.last_frame, "dense")
-    return dict(zip(("fused_sa_convmax", "fused_match_grid",
-                     "fused_match_pairs"), launches))
+    return scenes
+
+
+def train_flagship(kernels: bool, pairs: int, steps: int, work_dir):
+    """`steps` optimizer steps of the flagship through Trainer.fit on seeded
+    synthetic pair batches. Returns (per-step logs, per-step ms, which
+    weights and statistics changed, peak bytes)."""
+    import torch
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.tools.profile_train import (
+        LOSSES, flagship_train_cfg)
+    from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
+                                                  SyntheticPairLoader,
+                                                  Trainer, TrainState)
+    from point_cloud_reid_tpu_torch.utils.logging import MetricLogger
+    model = build_model(flagship_train_cfg(kernels), device=DEVICE,
+                        generator=torch.Generator().manual_seed(SEED))
+    loader = SyntheticPairLoader(pairs, steps, num_points=128, seed=SEED)
+    runtime = dict(work_dir=work_dir, seed=SEED, max_epochs=1,
+                   eval_interval=0, checkpoint_interval=0, log_interval=1,
+                   losses_to_use=LOSSES, alpha={})
+    trainer = Trainer(model, loader, loader, runtime,
+                      logger=MetricLogger(None, quiet=True))
+    state = TrainState.create(model, ScheduleConfig(max_epochs=1), steps)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    logs, times = [], []
+    step = trainer.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        logs.append({k: float(v) for k, v in out[1].items()})
+        torch.cuda.synchronize()      # the optimizer runs after the logs
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.fit(state)
+    if state.step != steps:
+        raise RuntimeError(f"trainer took {state.step} steps, not {steps}")
+    changed = {k for k, v in model.state_dict().items()
+               if not torch.equal(v, before[k])}
+    return logs, times, changed, torch.cuda.max_memory_allocated()
+
+
+def phase_training(card: str):
+    import tempfile
+
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    counters = all_counters()
+    with tempfile.TemporaryDirectory() as work_dir:
+        for pairs in (TRAIN_PAIRS, TRAIN_PAIRS // 2):
+            for fn in counters.values():
+                fn.launches = 0
+            try:
+                logs, times, changed, peak = train_flagship(
+                    True, pairs, TRAIN_STEPS, work_dir)
+                break
+            except torch.cuda.OutOfMemoryError:
+                # retried below, outside the handler, which keeps the failed
+                # step's tensors alive
+                pass
+            print(f"[train] {pairs} pairs do not fit in float32 (peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB): "
+                  f"halving", flush=True)
+            torch.cuda.empty_cache()
+        else:
+            raise RuntimeError("the flagship does not train at "
+                               f"{TRAIN_PAIRS // 2} pairs either")
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if not os.path.exists(os.path.join(work_dir, "ckpt_final.pt")):
+            raise RuntimeError("the trainer wrote no final checkpoint")
+    for i, log in enumerate(logs):
+        if not all(np.isfinite(v) for v in log.values()):
+            raise RuntimeError(f"step {i + 1}: non-finite value in {log}")
+    if not (any(k.endswith("running_var") for k in changed)
+            and any(k.endswith("q_proj.weight") for k in changed)
+            and any("mlp_convs" in k for k in changed)):
+        raise RuntimeError("training left weights or BatchNorm statistics "
+                           "unchanged")
+    if (launches["knn"] != 3 * TRAIN_STEPS
+            or launches["linear_attention"] != 4 * TRAIN_STEPS):
+        raise RuntimeError(f"want 3 kNN and 4 attention launches per "
+                           f"forward over {TRAIN_STEPS} steps, got {launches}")
+    print(f"[train] kernels on: {TRAIN_STEPS} steps of {pairs} pairs x 128 "
+          f"points; launches {launches}; loss "
+          f"{[round(x['reid_loss'], 4) for x in logs]}; grad_norm "
+          f"{[round(x['grad_norm'], 3) for x in logs]}", flush=True)
+    print(f"[train] median step {np.median(times[2:]):.1f} ms (steps 3-"
+          f"{TRAIN_STEPS}; all: {[round(x, 1) for x in times]}), peak memory "
+          f"{peak / 2 ** 30:.2f} GiB on {card}", flush=True)
+
+    # the same first step with both knobs off: plain kNN and attention
+    torch.cuda.empty_cache()
+    plain_logs, plain_times, _, plain_peak = train_flagship(False, pairs, 3,
+                                                            None)
+    if kk.knn.launches != launches["knn"] or (
+            la.linear_attention_forward.launches
+            != launches["linear_attention"]):
+        raise RuntimeError("the plain run launched a kernel")
+    for key in ("reid_loss", "grad_norm"):
+        a, b = logs[0][key], plain_logs[0][key]
+        rel = abs(a - b) / max(abs(b), 1e-12)
+        print(f"[train] step 1 {key}: kernels {a:.6f}, plain {b:.6f}, rel "
+              f"{rel:.2e} (tol {TRAIN_TOL:g})", flush=True)
+        if not rel <= TRAIN_TOL:
+            raise RuntimeError(f"step 1 {key} differs with the kernels on")
+    print(f"[train] knobs off: step 3 {plain_times[2]:.1f} ms, peak memory "
+          f"{plain_peak / 2 ** 30:.2f} GiB on {card}", flush=True)
+    return launches
 
 
 def main():
@@ -271,10 +583,16 @@ def main():
     from point_cloud_reid_tpu_torch.models import build_model
     model = build_model(point_transformer_point_cat(), device=DEVICE,
                         generator=torch.Generator().manual_seed(SEED))
-    rows = phase_kernels(model)
-    launches = phase_main_path(model, card)
+    rows = phase_kernels(model) + phase_train_kernels(model)
+    serving = phase_main_path(model, card)
+    del model
+    torch.cuda.empty_cache()
+    training = phase_training(card)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = serving[row["name"]] + training[row["name"]]
+        if row["launches"] <= 0:
+            raise RuntimeError(f"{row['name']} was never launched on a "
+                               "main path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

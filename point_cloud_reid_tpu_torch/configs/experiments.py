@@ -1,0 +1,131 @@
+"""Experiment leaves: 4-axis composition + named experiment registry.
+
+Port of point_cloud_reid_tpu/configs/experiments.py for the flagship leaf
+and its testing_ twin: compose(dataset, model, schedule, runtime),
+schedule('cyclic_500e_lr3e-4_norm1_accum2') parsing the reference's
+schedule-file names, and the dotted-path --set overrides.
+"""
+from __future__ import annotations
+
+import ast
+import re
+from typing import Any, Callable, Dict, Optional
+
+from ..train.schedules import ScheduleConfig
+from . import datasets as D
+from . import models as M
+
+
+def schedule(name: str) -> ScheduleConfig:
+    """Parse 'cyclic_{E}e_lr{LR}[_norm1][_accumN]' / 'cosine' names."""
+    if name.startswith("cosine"):
+        return ScheduleConfig(policy="cosine")
+    m = re.match(r"cyclic_(\d+)e_lr([0-9.e-]+?)(_norm1)?(_accum(\d+))?$", name)
+    if not m:
+        raise ValueError(f"unknown schedule name: {name}")
+    return ScheduleConfig(
+        policy="cyclic",
+        max_epochs=int(m.group(1)),
+        lr=float(m.group(2)),
+        grad_clip_norm=1.0 if m.group(3) else 35.0,
+        cumulative_iters=int(m.group(5)) if m.group(5) else 1,
+    )
+
+
+def runtime(work_dir: Optional[str] = None, seed: int = 66,
+            eval_interval: int = 25, checkpoint_interval: int = 5,
+            log_interval: int = 50, validate: bool = False,
+            deterministic: bool = False) -> Dict[str, Any]:
+    """Runtime axis (reidentification_runtime.py: interval=5 ckpt, seed 66;
+    *_testing.py flips validate/deterministic)."""
+    return dict(work_dir=work_dir, seed=seed, eval_interval=eval_interval,
+                checkpoint_interval=checkpoint_interval,
+                log_interval=log_interval, validate=validate,
+                deterministic=deterministic)
+
+
+def compose(dataset: Dict[str, Any], model: Dict[str, Any],
+            sched: ScheduleConfig, rt: Optional[Dict[str, Any]] = None,
+            losses_to_use: Optional[Dict[str, bool]] = None,
+            alpha: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
+    """One experiment dict: the unit tools/train.py consumes. Released
+    configs train with the match loss only."""
+    return dict(dataset=dataset, model=model, schedule=sched,
+                runtime=rt or runtime(),
+                losses_to_use=losses_to_use or dict(match=True),
+                alpha=alpha or {})
+
+
+def _nus_pts_flagship(**kw) -> Dict[str, Any]:
+    return compose(D.nuscenes_pts(**kw), M.point_transformer_point_cat(),
+                   schedule("cyclic_500e_lr3e-4"))
+
+
+def _testing(train_fn):
+    """testing_* leaf: same composition, eval-only runtime."""
+    def fn(**kw):
+        cfg = train_fn(**kw)
+        cfg["runtime"] = dict(cfg["runtime"], validate=True,
+                              deterministic=True, eval_only=True)
+        return cfg
+    return fn
+
+
+_FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
+EXPERIMENTS: Dict[str, Callable[..., Dict[str, Any]]] = {
+    _FLAGSHIP: _nus_pts_flagship,
+    "testing_" + _FLAGSHIP: _testing(_nus_pts_flagship),
+}
+
+
+def _parse_value(v: str):
+    low = v.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("none", "null"):
+        return None
+    try:
+        r = ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        return v
+    # bare comma lists ('64,32,16') literal-eval to tuples; configs use lists
+    return list(r) if isinstance(r, tuple) else r
+
+
+def apply_overrides(cfg: Dict[str, Any], assignments) -> Dict[str, Any]:
+    """In-place dotted-path config overrides ('key.sub=val' with
+    literal-eval values), through nested dicts and the ScheduleConfig
+    dataclass: `losses_to_use.match=false`, `schedule.lr=1e-4`,
+    `model.backbone.mul=2`, `model.knn_method=pallas`.
+
+    Existing keys are replaced; a new leaf key is allowed only on a
+    component dict (one with a 'type'), whose factory reads optional knobs
+    with cfg.get(). Anything else unknown raises."""
+    for assignment in assignments or ():
+        if "=" not in assignment:
+            raise ValueError(f"override must be key.path=value, "
+                             f"got {assignment!r}")
+        path, _, raw = assignment.partition("=")
+        keys = path.strip().split(".")
+        node = cfg
+        for k in keys[:-1]:
+            node = node[k] if isinstance(node, dict) else getattr(node, k)
+        leaf = keys[-1]
+        val = _parse_value(raw.strip())
+        if isinstance(node, dict):
+            if leaf not in node and "type" not in node:
+                raise KeyError(f"unknown config key {path!r} "
+                               f"(no {leaf!r} in {sorted(node)})")
+            node[leaf] = val
+        else:
+            if not hasattr(node, leaf):
+                raise AttributeError(f"unknown config key {path!r}")
+            setattr(node, leaf, val)
+    return cfg
+
+
+def get_experiment(name: str, set_options=None, **overrides) -> Dict[str, Any]:
+    if name not in EXPERIMENTS:
+        raise KeyError(f"unknown experiment {name}; known: "
+                       f"{sorted(EXPERIMENTS)}")
+    return apply_overrides(EXPERIMENTS[name](**overrides), set_options)

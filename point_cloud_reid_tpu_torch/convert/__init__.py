@@ -1,3 +1,3 @@
-from .jax_variables import from_jax_variables, port_key
+from .jax_variables import from_jax_variables, port_key, to_jax_variables
 
-__all__ = ["from_jax_variables", "port_key"]
+__all__ = ["from_jax_variables", "port_key", "to_jax_variables"]

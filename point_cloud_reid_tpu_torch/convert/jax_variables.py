@@ -1,4 +1,5 @@
-"""Load the JAX package's flax variables into the port's modules.
+"""Move weights between the JAX package's flax variables and the port's
+modules, both ways (from_jax_variables, to_jax_variables).
 
 The inverse of the rewrite documented at
 point_cloud_reid_tpu/convert/torch_checkpoint.py:20-29: flax paths track the
@@ -11,7 +12,9 @@ rewrite plus a layout change:
     sa_{i}/mlp_{j}/conv|bn           -> SA_modules.{i}.mlp_convs|mlp_bns.{j}
     fp_{i}                           -> FP_modules.{i}
     pos_mlp[2]/fc1|fc2, mlp_fc1|2    -> pos_mlp[2].0|2, mlp.0|2
-    match_head/{j}_<Type>            -> match_head.{j}
+    <name>_head/{j}_<Type>           -> <name>_head.{j}   (match, cls, fp,
+                                                          shape)
+    Conv kernel (k, in, out)         -> Conv1d weight (out, in, k)
     transform_linear|transform_norm  -> transform.0|1
 
 The variables come as (nested dicts of) numpy arrays; nothing here imports
@@ -30,7 +33,7 @@ _RULES = (
     (r"^backbone/fp_(\d+)/", r"backbone/FP_modules/\1/"),
     (r"/SA_modules/(\d+)/mlp_(\d+)/conv/", r"/SA_modules/\1/mlp_convs/\2/"),
     (r"/SA_modules/(\d+)/mlp_(\d+)/bn/", r"/SA_modules/\1/mlp_bns/\2/"),
-    (r"^match_head/(\d+)_[A-Za-z]+/", r"match_head/\1/"),
+    (r"^(match|cls|fp|shape)_head/(\d+)_[A-Za-z0-9]+/", r"\1_head/\2/"),
     (r"pos_mlp(2?)/fc1/", r"pos_mlp\1/0/"),
     (r"pos_mlp(2?)/fc2/", r"pos_mlp\1/2/"),
     (r"(^|/)mlp_fc1/", r"\1mlp/0/"),
@@ -90,3 +93,54 @@ def from_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]
                          + "\n  unset port tensors:\n    "
                          + "\n    ".join(missing[:20]))
     return model
+
+
+_INVERSE = (
+    (r"^backbone\.SA_modules\.(\d+)\.mlp_convs\.(\d+)\.",
+     r"backbone/sa_\1/mlp_\2/conv/"),
+    (r"^backbone\.SA_modules\.(\d+)\.mlp_bns\.(\d+)\.",
+     r"backbone/sa_\1/mlp_\2/bn/"),
+    (r"^backbone\.SA_modules\.(\d+)\.", r"backbone/sa_\1/"),
+    (r"^backbone\.FP_modules\.(\d+)\.", r"backbone/fp_\1/"),
+    (r"pos_mlp(2?)\.0\.", r"pos_mlp\1/fc1/"),
+    (r"pos_mlp(2?)\.2\.", r"pos_mlp\1/fc2/"),
+    (r"(^|\.)mlp\.0\.", r"\1mlp_fc1/"),
+    (r"(^|\.)mlp\.2\.", r"\1mlp_fc2/"),
+    (r"(^|[./])transform\.0\.", r"\1transform_linear/"),
+    (r"(^|[./])transform\.1\.", r"\1transform_norm/"),
+)
+
+
+def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
+    """The port's weights as a flax {'params', 'batch_stats'} tree of numpy
+    arrays: the inverse of from_jax_variables, so both packages can start
+    from one init."""
+    tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
+    modules = dict(model.named_modules())
+    for key, value in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        owner, leaf = key.rsplit(".", 1)
+        mod = modules[owner]
+        path = owner + "."
+        m = re.match(r"^([a-z]+_head)\.(\d+)\.", path)
+        if m:
+            head, j = m.group(1), int(m.group(2))
+            path = f"{head}/{j}_{modules[head].types[j]}/" + path[m.end():]
+        for pat, rep in _INVERSE:
+            path = re.sub(pat, rep, path)
+        path = path.replace(".", "/").strip("/")
+        v = value.detach().cpu().numpy()
+        coll = "params"
+        if leaf == "weight" and isinstance(mod, (torch.nn.Linear,
+                                                 torch.nn.Conv1d)):
+            leaf, v = "kernel", v.T
+        elif leaf == "weight":
+            leaf = "scale"
+        elif leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        node = tree[coll]
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return tree

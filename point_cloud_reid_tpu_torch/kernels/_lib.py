@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of csrc/ (nvcc + a plain C interface).
 
-At first use, every csrc/*.cu is compiled with
+At first use, every csrc/*.cu is compiled to an object file with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
          -Xcompiler -fPIC
 
+(one nvcc per source, all started together), and the objects are linked
 into build/kernels-<hash of the sources>/libpcr_kernels.so at the root of
 the checkout (build/ is git-ignored), then loaded with ctypes. Nothing is
 compiled or loaded when the package is imported. A failed build raises.
@@ -25,10 +26,11 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: name -> argtypes (restype is int, a cudaError_t)
 _SIGNATURES = {
     # A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, out, B, N, S, K, C, stream
@@ -36,6 +38,12 @@ _SIGNATURES = {
     # 10 per-object factor pointers (track h,q,kvz,a1,pv then det), 16
     # weight pointers, t_idx, d_idx, out, nt, nd, P, N, C, H, stream
     "pcr_match_pooled": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 6 + [_P],
+    # q, db, out, B, S, N, k, stream
+    "pcr_knn": [_P] * 3 + [_I] * 4 + [_P],
+    # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
+    # in elements), eps, stream
+    "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9
+                            + [ctypes.c_float, _P],
 }
 
 
@@ -73,14 +81,30 @@ class _Library:
         if lib_path.exists():
             return lib_path
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libpcr_kernels.{os.getpid()}.so"
-        cmd = [self._nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in srcs if p.suffix == ".cu"]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        nvcc = self._nvcc()
+        tag = os.getpid()
+        units = [p for p in srcs if p.suffix == ".cu"]
+        objs = [out_dir / f"{p.stem}.{tag}.o" for p in units]
+        procs = [subprocess.Popen(
+            [nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(p)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for o, p in zip(objs, units)]
+        logs = [proc.communicate()[0] for proc in procs]
+        self.build_log = "".join(logs)
+        failed = [p.returncode for p in procs if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
                                + self.build_log[-8000:])
+        tmp = out_dir / f"libpcr_kernels.{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]],
+            capture_output=True, text=True)
+        self.build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               + self.build_log[-8000:])
+        for o in objs:
+            o.unlink()
         (out_dir / "build.log").write_text(self.build_log)
         os.replace(tmp, lib_path)
         return lib_path

@@ -1,0 +1,85 @@
+"""Fused multi-head linear attention with a gradient.
+
+Port of point_cloud_reid_tpu/ops/pallas/linear_attention.py.
+`linear_attention_forward` launches the CUDA kernel of
+csrc/linear_attention.cu on CUDA tensors and runs the plain composite
+(ops.attention.linear_attention) on CPU tensors; any other device raises.
+`fused_linear_attention` wraps it in an autograd Function whose backward
+recomputes through the plain composite on the saved q, k, v, as the JAX
+package's custom VJP does: there is no backward kernel in either package.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.attention import linear_attention as linear_attention_reference
+from . import _lib
+
+
+def _row_strided(t: torch.Tensor) -> torch.Tensor:
+    """The kernel reads 4-D views with any batch / row / head strides but
+    wants unit stride along the last axis."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
+def linear_attention_forward(queries: torch.Tensor, keys: torch.Tensor,
+                             values: torch.Tensor, eps: float = 1e-6
+                             ) -> torch.Tensor:
+    """queries (B, L, H, D), keys (B, S, H, D), values (B, S, H, V), float32
+    -> (B, L, H, V). No autograd graph is recorded."""
+    if queries.device.type == "cpu":
+        with torch.no_grad():
+            return linear_attention_reference(queries, keys, values, eps)
+    if queries.device.type != "cuda":
+        raise RuntimeError(f"linear_attention: no kernel for {queries.device}")
+    if queries.dim() != 4 or keys.dim() != 4 or values.dim() != 4:
+        raise ValueError("linear_attention: want 4-D q, k, v")
+    B, L, H, D = queries.shape
+    S, V = values.shape[1], values.shape[3]
+    if (tuple(keys.shape) != (B, S, H, D)
+            or tuple(values.shape) != (B, S, H, V) or D > 128 or V > 128):
+        raise ValueError(
+            f"linear_attention: want q (B, L, H, D), k (B, S, H, D), "
+            f"v (B, S, H, V) with D, V <= 128, got {tuple(queries.shape)}, "
+            f"{tuple(keys.shape)}, {tuple(values.shape)}")
+    for t in (queries, keys, values):
+        if t.dtype != torch.float32 or t.device != queries.device:
+            raise ValueError("linear_attention: want float32 tensors on one "
+                             "device")
+    q, k, v = (_row_strided(t.detach()) for t in (queries, keys, values))
+    out = torch.empty((B, L, H, V), dtype=torch.float32, device=q.device)
+    strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
+    lib = _lib.LIBRARY.get()
+    err = lib.pcr_linear_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, L, S, H, D, V, *strides, float(eps), _lib.stream_ptr(q.device))
+    _lib.check(err, "pcr_linear_attention")
+    linear_attention_forward.launches += 1
+    return out
+
+
+linear_attention_forward.launches = 0
+
+
+class _LinearAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, queries, keys, values, eps):
+        ctx.save_for_backward(queries, keys, values)
+        ctx.eps = eps
+        return linear_attention_forward(queries, keys, values, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = linear_attention_reference(q, k, v, ctx.eps)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out.contiguous())
+        return dq, dk, dv, None
+
+
+def fused_linear_attention(queries: torch.Tensor, keys: torch.Tensor,
+                           values: torch.Tensor, eps: float = 1e-6
+                           ) -> torch.Tensor:
+    """Drop-in for ops.attention.linear_attention (no masks), usable in
+    training."""
+    return _LinearAttention.apply(queries, keys, values, eps)

@@ -278,7 +278,11 @@ def match_factors(model, h_t, xyz_t, h_d, xyz_d):
 
 def grid_logits(model, h_t, xyz_t, h_d, xyz_d) -> torch.Tensor:
     """Factors -> fused grid kernel -> match head: (nt, nd) logits. Drop-in
-    equivalent of ReIDNet.match_logits_grid for the flagship head."""
+    equivalent of ReIDNet.match_logits_grid for the flagship head. The
+    kernel hard-codes plain linear attention: a model whose cross stages
+    use another primitive is scored by match_logits_grid itself."""
+    if model.cross_stage1.attention != "linear":
+        return model.match_logits_grid(h_t, xyz_t, h_d, xyz_d)
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_grid(t, d, w1, w2, nhead)
     nt, nd = pooled.shape[:2]
@@ -288,6 +292,9 @@ def grid_logits(model, h_t, xyz_t, h_d, xyz_d) -> torch.Tensor:
 def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
     """Gated sparse scoring: (P,) logits of the listed (track, det) pairs,
     equal to grid_logits(...)[t_idx, d_idx]."""
+    if model.cross_stage1.attention != "linear":
+        return model.match_logits(h_t[t_idx.long()], xyz_t[t_idx.long()],
+                                  h_d[d_idx.long()], xyz_d[d_idx.long()])[0]
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]

@@ -18,6 +18,25 @@ from ..ops.attention import elu_feature_map, linear_attention
 from .layers import pos_mlp
 
 
+def _attn_fn(kind: str):
+    """The attention primitive of a config string: 'linear' is the plain
+    composite; 'linear-pallas' (the JAX package's name for its fused kernel,
+    kept so one config drives both packages) is the hand-written CUDA kernel
+    of kernels/linear_attention.py. No block of the point path passes masks;
+    they and 'full' (softmax attention) come with the models that use
+    them."""
+    if kind == "linear":
+        return linear_attention
+    if kind == "linear-pallas":
+        from ..kernels.linear_attention import fused_linear_attention
+        return fused_linear_attention
+    if kind == "full":
+        raise NotImplementedError(
+            "attention 'full' (softmax) is not ported yet: it comes with "
+            "the image branch and the rest of the model zoo (M5, M7)")
+    raise ValueError(f"unknown attention {kind!r}")
+
+
 def _split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
     B, N, C = x.shape
     return x.reshape(B, N, nhead, C // nhead)
@@ -37,10 +56,13 @@ class SelfAttentionBlock(nn.Module):
     """feat (B,N,C), xyz (B,N,3) -> feat + LN(FFN([feat || LN(merge(
     linattn(q,k,v)))])), with q, k, v all from feat + pos_mlp(xyz)."""
 
-    def __init__(self, d_model: int, nhead: int = 2):
+    def __init__(self, d_model: int, nhead: int = 2,
+                 attention: str = "linear"):
         super().__init__()
         d = d_model
         self.nhead = nhead
+        self.attention = attention
+        self.attn = _attn_fn(attention)
         self.pos_mlp = pos_mlp(d)
         self.q_proj = nn.Linear(d, d, bias=False)
         self.k_proj = nn.Linear(d, d, bias=False)
@@ -55,7 +77,7 @@ class SelfAttentionBlock(nn.Module):
         q = _split_heads(self.q_proj(feat_pos), self.nhead)
         k = _split_heads(self.k_proj(feat_pos), self.nhead)
         v = _split_heads(self.v_proj(feat_pos), self.nhead)
-        msg = self.norm1(self.merge(_merge_heads(linear_attention(q, k, v))))
+        msg = self.norm1(self.merge(_merge_heads(self.attn(q, k, v))))
         msg = self.norm2(self.mlp(torch.cat([feat, msg], dim=-1)))
         return feat + msg
 
@@ -71,10 +93,13 @@ class CrossAttentionBlock(nn.Module):
                           merge / LN / FFN tail                  per pair
     """
 
-    def __init__(self, d_model: int, nhead: int = 2):
+    def __init__(self, d_model: int, nhead: int = 2,
+                 attention: str = "linear"):
         super().__init__()
         d = d_model
         self.nhead = nhead
+        self.attention = attention
+        self.attn = _attn_fn(attention)
         self.pos_mlp = pos_mlp(d)
         self.q_proj = nn.Linear(d, d, bias=False)
         self.k_proj = nn.Linear(d, d, bias=False)
@@ -98,7 +123,7 @@ class CrossAttentionBlock(nn.Module):
         q = _split_heads(self.q_proj(search_feat), self.nhead)
         k = _split_heads(self.k_proj(template_feat), self.nhead)
         v = _split_heads(self.v_proj(template_pos), self.nhead)
-        return self._ffn(search_feat, _merge_heads(linear_attention(q, k, v)))
+        return self._ffn(search_feat, _merge_heads(self.attn(q, k, v)))
 
     def query_features(self, search_feat: torch.Tensor) -> torch.Tensor:
         """(B, N, H, D) = elu(q_proj(search)) + 1."""

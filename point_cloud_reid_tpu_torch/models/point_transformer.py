@@ -1,10 +1,12 @@
 """The "point-transformer" backbone: PointNet++ SSG with linear self-attention.
 
-Port of point_cloud_reid_tpu/models/point_transformer.py, eval mode:
+Port of point_cloud_reid_tpu/models/point_transformer.py:
 
   3x SetAbstractionEdgeSA  RANDOM (first-n) centres, kNN grouping, the edge
-     MLP + max over neighbours through kernels/sa_stage (the CUDA kernel on
-     the card), then a linear self-attention block.
+     MLP (3x Conv-BN-ReLU) + max over neighbours, then a linear
+     self-attention block. In eval mode the MLP and the max run through
+     kernels/sa_stage (the CUDA kernel on the card); in train mode they are
+     plain autograd code with batch statistics.
   3x FeaturePropagationSA  attention upsampling from coarse to fine.
   cov_final                pointwise Linear -> (B, N, conv_out).
 
@@ -21,36 +23,68 @@ import torch
 import torch.nn as nn
 
 from ..kernels.sa_stage import sa_stage_inference
-from ..ops.geometry import knn_indices
+from ..ops.geometry import (conv1_edge_factors, index_points, knn_indices,
+                            sample_and_group_edge)
 from .attention_blocks import FPSA, SelfAttentionBlock
+from .layers import BatchNorm
 
 
 class SetAbstractionEdgeSA(nn.Module):
     """One SA stage. mlp = [in, h1, h2, h3], where `in` is the edge-feature
     width 3 + 2D (3 when the stage has no input features)."""
 
-    def __init__(self, mlp: Sequence[int], nsample: int):
+    def __init__(self, mlp: Sequence[int], nsample: int,
+                 knn_method: str = "argsort"):
         super().__init__()
         self.nsample = nsample
+        self.knn_method = knn_method
         self.mlp_convs = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(mlp[:-1], mlp[1:]))
-        self.mlp_bns = nn.ModuleList(nn.BatchNorm1d(b, eps=1e-5)
-                                     for b in mlp[1:])
+        self.mlp_bns = nn.ModuleList(BatchNorm(b) for b in mlp[1:])
         self.self_attention = SelfAttentionBlock(mlp[-1], nhead=2)
 
     def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor],
-                numpoints: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                numpoints: int, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz (B, N, 3); points (B, N, D) or None -> (B, S, 3), (B, S, C)."""
+        if train:
+            new_xyz, h = self._train_chain(xyz, points, numpoints)
+            return new_xyz, self.self_attention(h, new_xyz)
         cidx = torch.arange(numpoints, device=xyz.device).clamp(
             max=xyz.shape[1] - 1)
         new_xyz = xyz[:, cidx]
-        idx = knn_indices(self.nsample, xyz, new_xyz)
+        idx = knn_indices(self.nsample, xyz, new_xyz, self.knn_method)
         convs = [(c.weight, c.bias) for c in self.mlp_convs]
         bns = [(b.weight, b.bias, b.running_mean, b.running_var)
                for b in self.mlp_bns]
         h = sa_stage_inference(xyz, points, idx, convs, bns,
                                eps=self.mlp_bns[0].eps)
         return new_xyz, self.self_attention(h, new_xyz)
+
+    def _train_chain(self, xyz, points, numpoints):
+        """Train-mode edge MLP with batch statistics and the max over K.
+        With input features the first conv runs in factored form
+        (conv1_edge_factors: one C-wide gather, the edge tensor is never
+        built); without them (the first stage) the 3-wide edge tensor is
+        built and convolved, as in the JAX stage."""
+        conv1, bn1 = self.mlp_convs[0], self.mlp_bns[0]
+        if points is None:
+            new_xyz, edges = sample_and_group_edge(
+                self.nsample, xyz, None, numpoints,
+                knn_method=self.knn_method)
+            h = conv1(edges)
+        else:
+            cidx = torch.arange(numpoints, device=xyz.device).clamp(
+                max=xyz.shape[1] - 1)
+            new_xyz = xyz[:, cidx]
+            idx = knn_indices(self.nsample, xyz, new_xyz, self.knn_method)
+            A, Ct = conv1_edge_factors(conv1.weight.t(), conv1.bias, xyz,
+                                       points, new_xyz, points[:, cidx])
+            h = index_points(A, idx) + Ct[:, :, None, :]
+        h = torch.relu_(bn1(h, True))
+        for conv, bn in zip(self.mlp_convs[1:], self.mlp_bns[1:]):
+            h = torch.relu_(bn(conv(h), True))
+        return new_xyz, h.amax(dim=2)
 
 
 class FeaturePropagationSA(nn.Module):
@@ -71,14 +105,17 @@ class PointTransformerBackbone(nn.Module):
     feats (B, N, conv_out))."""
 
     def __init__(self, input_channels: int = 0, conv_out: int = 32,
-                 mul: int = 1, nsample: Sequence[int] = (32, 48, 48)):
+                 mul: int = 1, nsample: Sequence[int] = (32, 48, 48),
+                 knn_method: str = "argsort"):
         super().__init__()
         sa1, sa2, sa3 = 32 * mul, 64 * mul, 128 * mul
         self.SA_modules = nn.ModuleList([
             SetAbstractionEdgeSA([input_channels + 3, sa1, sa1, sa1],
-                                 nsample[0]),
-            SetAbstractionEdgeSA([sa2 + 3, sa2, sa2, sa2], nsample[1]),
-            SetAbstractionEdgeSA([sa3 + 3, sa3, sa3, sa3], nsample[2]),
+                                 nsample[0], knn_method),
+            SetAbstractionEdgeSA([sa2 + 3, sa2, sa2, sa2], nsample[1],
+                                 knn_method),
+            SetAbstractionEdgeSA([sa3 + 3, sa3, sa3, sa3], nsample[2],
+                                 knn_method),
         ])
         # widths as in the reference (backbone_net.py:84-86)
         self.FP_modules = nn.ModuleList([
@@ -88,13 +125,13 @@ class PointTransformerBackbone(nn.Module):
         ])
         self.cov_final = nn.Linear(sa1, conv_out)
 
-    def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int],
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         xyz = pointcloud[..., :3]
         features = pointcloud[..., 3:] if pointcloud.shape[-1] > 3 else None
         l_xyz, l_feats = [xyz], [features]
         for i, sa in enumerate(self.SA_modules):
-            li_xyz, li_feats = sa(l_xyz[i], l_feats[i], numpoints[i])
+            li_xyz, li_feats = sa(l_xyz[i], l_feats[i], numpoints[i], train)
             l_xyz.append(li_xyz)
             l_feats.append(li_feats)
         l_feats[0] = xyz

@@ -1,0 +1,123 @@
+"""Config dicts -> modules (port of point_cloud_reid_tpu/models/registry.py).
+
+Head configs are lists of dicts like [{'type': 'LinearRes', ...}, {'type':
+'Linear', ...}], as in the reidentifier config files. Only the flagship's
+backbone and stage types are ported; the others raise and wait for the rest
+of the model zoo (M7).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import torch
+import torch.nn as nn
+
+from .attention_blocks import CrossAttentionBlock, SelfAttentionBlock
+from .layers import BatchNorm, LinearRes, group_norm
+from .point_transformer import PointTransformerBackbone
+
+Spec = Dict[str, Any]
+
+
+class _Conv1d(nn.Conv1d):
+    """Conv1d over a channel-last (B, L, C) input, stride 1, no padding."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+
+
+class SequentialHead(nn.ModuleList):
+    """Sequential stack built from config specs; threads `train` to the
+    BatchNorm layers. Layer j is `{j}` in the state dict and
+    `{j}_{type}` in the JAX package's variable tree.
+
+    Types: LinearRes, Linear, Conv1d (real 1-D conv, no padding),
+    BatchNorm1d, GroupNorm, LayerNorm, ReLU, Sigmoid. PostRes and Res1d
+    (conv residual blocks no point-model head uses) wait for M7."""
+
+    def __init__(self, specs: Sequence[Spec], n_in: int):
+        layers: List[nn.Module] = []
+        width = n_in
+        for spec in specs:
+            t = spec["type"]
+            if t == "LinearRes":
+                layers.append(LinearRes(spec["n_in"], spec["n_out"],
+                                        norm=spec.get("norm", "GN"),
+                                        ng=spec.get("ng", 32)))
+                width = spec["n_out"]
+            elif t == "Linear":
+                layers.append(nn.Linear(width, spec["out_features"]))
+                width = spec["out_features"]
+            elif t == "Conv1d":
+                layers.append(_Conv1d(width, spec["out_channels"],
+                                      spec.get("kernel_size", 1)))
+                width = spec["out_channels"]
+            elif t == "BatchNorm1d":
+                layers.append(BatchNorm(width))
+            elif t == "GroupNorm":
+                layers.append(nn.GroupNorm(spec["num_groups"], width,
+                                           eps=1e-5))
+            elif t == "LayerNorm":
+                layers.append(nn.LayerNorm(width, eps=1e-5))
+            elif t == "ReLU":
+                layers.append(nn.ReLU())
+            elif t == "Sigmoid":
+                layers.append(nn.Sigmoid())
+            elif t in ("PostRes", "Res1d"):
+                raise NotImplementedError(
+                    f"SequentialHead type {t} is not ported yet (M7)")
+            else:
+                raise NotImplementedError(f"SequentialHead type {t}")
+        super().__init__(layers)
+        self.types = [spec["type"] for spec in specs]
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        for layer in self:
+            if isinstance(layer, (LinearRes, BatchNorm)):
+                x = layer(x, train)
+            elif isinstance(layer, nn.GroupNorm):
+                x = group_norm(layer, x)
+            else:
+                x = layer(x)
+        return x
+
+
+def build_backbone(cfg: Spec, knn_method: str = "argsort"
+                   ) -> PointTransformerBackbone:
+    t = cfg["type"]
+    if t in ("Pointnet_Backbone", "point_transformer"):
+        for knob in ("fused_train", "remat_stages"):
+            if cfg.get(knob):
+                raise NotImplementedError(
+                    f"backbone {knob} is not ported (measured negative in "
+                    "the JAX package)")
+        return PointTransformerBackbone(
+            input_channels=cfg.get("input_channels", 0),
+            conv_out=cfg.get("conv_out", 32), mul=cfg.get("mul", 1),
+            nsample=tuple(cfg.get("nsample", (32, 48, 48))),
+            knn_method=knn_method)
+    raise NotImplementedError(f"backbone type {t} is not ported yet (M7)")
+
+
+def build_stage(cfg: Optional[Spec]) -> Optional[nn.Module]:
+    """Attention-stage factory (cross_stageN / local_stageN entries)."""
+    if not cfg:
+        return None
+    t = cfg["type"]
+    kw = dict(d_model=cfg["d_model"], nhead=cfg["nhead"],
+              attention=cfg.get("attention", "linear"))
+    if t == "corss_attention":
+        return CrossAttentionBlock(**kw)
+    if t == "Self_Attention":
+        return SelfAttentionBlock(**kw)
+    raise NotImplementedError(f"stage type {t} is not ported yet (M7)")
+
+
+def build_head(cfg: Union[None, Spec, List[Spec]], n_in: int
+               ) -> Optional[SequentialHead]:
+    """None | single spec | list of specs -> SequentialHead or None. `n_in`
+    is the input width (torch layers are sized when they are built)."""
+    if not cfg:
+        return None
+    specs = cfg if isinstance(cfg, (list, tuple)) else [cfg]
+    return SequentialHead([dict(s) for s in specs], n_in)

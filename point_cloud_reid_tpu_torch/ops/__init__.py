@@ -1,10 +1,11 @@
 from .attention import elu_feature_map, linear_attention
 from .boxes import points_in_rboxes
 from .geometry import (conv1_edge_factors, index_points, knn_indices,
-                       random_point_sample, square_distance)
+                       random_point_sample, sample_and_group_edge,
+                       square_distance)
 
 __all__ = [
     "elu_feature_map", "linear_attention", "points_in_rboxes",
     "conv1_edge_factors", "index_points", "knn_indices",
-    "random_point_sample", "square_distance",
+    "random_point_sample", "sample_and_group_edge", "square_distance",
 ]

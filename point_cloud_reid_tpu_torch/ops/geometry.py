@@ -37,14 +37,25 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(idx.shape) + (C,))
 
 
-def knn_indices(nsample: int, xyz: torch.Tensor,
-                new_xyz: torch.Tensor) -> torch.Tensor:
+def knn_indices(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                method: str = "argsort") -> torch.Tensor:
     """(B, S, nsample) int64 indices of each query's nearest points.
 
-    A stable argsort keeps first-occurrence order among equal distances,
-    which the duplicate points of resample-with-replacement rely on."""
+    method: 'argsort' is a stable argsort, which keeps first-occurrence
+    order among equal distances (the duplicate points of
+    resample-with-replacement rely on it); 'topk' is torch.topk, which may
+    order ties differently; 'pallas' (the JAX package's name for its fused
+    kernel, kept so one config drives both packages) is the hand-written
+    CUDA kernel of kernels/knn.py, with the tie order of 'argsort'."""
+    if method == "pallas":
+        from ..kernels.knn import knn
+        return knn(new_xyz, xyz, nsample)
     d = square_distance(new_xyz, xyz)
-    return torch.argsort(d, dim=-1, stable=True)[..., :nsample]
+    if method == "argsort":
+        return torch.argsort(d, dim=-1, stable=True)[..., :nsample]
+    if method == "topk":
+        return torch.topk(-d, nsample, dim=-1).indices
+    raise ValueError(f"unknown knn method: {method}")
 
 
 def random_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -81,3 +92,35 @@ def conv1_edge_factors(kernel: torch.Tensor, bias: Optional[torch.Tensor],
     if bias is not None:
         Ct = Ct + bias
     return A, Ct
+
+
+def sample_and_group_edge(nsample: int, xyz: torch.Tensor,
+                          points: Optional[torch.Tensor], numpoints: int,
+                          sampling: str = "RANDOM", use_knn: bool = True,
+                          knn_method: str = "argsort"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample centres, group kNN neighbourhoods and build the edge features
+    [grouped_xyz - centre_xyz || centre_feat || grouped_feat - centre_feat].
+
+    xyz (B, N, 3); points (B, N, D) or None -> new_xyz (B, S, 3),
+    new_points (B, S, K, 3 [+ 2D]). Only RANDOM sampling with kNN grouping
+    is ported; FPS and the ball query wait for the rest of the ops (M7).
+    """
+    if sampling == "FPS":
+        raise NotImplementedError("FPS sampling is not ported yet (M7)")
+    if sampling != "RANDOM":
+        raise ValueError(f"unknown sampling {sampling}")
+    if not use_knn:
+        raise NotImplementedError("ball query is not ported yet (M7)")
+    fps_idx = random_point_sample(xyz, numpoints)
+    new_xyz = index_points(xyz, fps_idx)
+    idx = knn_indices(nsample, xyz, new_xyz, method=knn_method)
+    grouped_xyz_norm = index_points(xyz, idx) - new_xyz[:, :, None, :]
+    if points is None:
+        return new_xyz, grouped_xyz_norm
+    center = index_points(points, fps_idx)
+    grouped = index_points(points, idx)
+    new_points = torch.cat(
+        [grouped_xyz_norm, center[:, :, None, :].expand_as(grouped),
+         grouped - center[:, :, None, :]], dim=-1)
+    return new_xyz, new_points

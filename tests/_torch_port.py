@@ -4,67 +4,20 @@ model on both sides (JAX reference and PyTorch port) with the same weights.
 Widths as tests/test_convert_full_model.py: mul=1, conv_out=16, N=32-point
 crops, backbone_list=[16, 8, 4], nsample=[8, 8, 8]. The weights are the
 port's seeded init (BatchNorm running statistics are not the identity),
-handed to JAX as a flax tree by to_jax_tree, so no flax init is traced.
+handed to JAX as a flax tree by convert.to_jax_variables, so no flax init is
+traced.
 """
 from __future__ import annotations
 
 import functools
-import re
 
 import numpy as np
 import torch
 
+from point_cloud_reid_tpu_torch.convert import to_jax_variables as to_jax_tree
+
 TINY = dict(conv_out=16, mul=1, nsample=(8, 8, 8), backbone_list=(16, 8, 4))
 N_PTS = 32
-
-_INVERSE = (
-    (r"^backbone\.SA_modules\.(\d+)\.mlp_convs\.(\d+)\.",
-     r"backbone/sa_\1/mlp_\2/conv/"),
-    (r"^backbone\.SA_modules\.(\d+)\.mlp_bns\.(\d+)\.",
-     r"backbone/sa_\1/mlp_\2/bn/"),
-    (r"^backbone\.SA_modules\.(\d+)\.", r"backbone/sa_\1/"),
-    (r"^backbone\.FP_modules\.(\d+)\.", r"backbone/fp_\1/"),
-    (r"pos_mlp(2?)\.0\.", r"pos_mlp\1/fc1/"),
-    (r"pos_mlp(2?)\.2\.", r"pos_mlp\1/fc2/"),
-    (r"(^|\.)mlp\.0\.", r"\1mlp_fc1/"),
-    (r"(^|\.)mlp\.2\.", r"\1mlp_fc2/"),
-    (r"\.transform\.0\.", r"/transform_linear/"),
-    (r"\.transform\.1\.", r"/transform_norm/"),
-)
-
-
-def to_jax_tree(model) -> dict:
-    """The port's weights as a flax {'params', 'batch_stats'} numpy tree:
-    the inverse of from_jax_variables."""
-    tree = {"params": {}, "batch_stats": {}}
-    modules = dict(model.named_modules())
-    for key, value in model.state_dict().items():
-        if key.endswith("num_batches_tracked"):
-            continue
-        owner, leaf = key.rsplit(".", 1)
-        mod = modules[owner]
-        path = owner + "."
-        m = re.match(r"^match_head\.(\d+)\.", path)
-        if m:
-            j = m.group(1)
-            kind = type(modules[f"match_head.{j}"]).__name__
-            path = f"match_head/{j}_{kind}/" + path[m.end():]
-        for pat, rep in _INVERSE:
-            path = re.sub(pat, rep, path)
-        path = path.replace(".", "/").strip("/")
-        v = value.detach().cpu().numpy()
-        coll = "params"
-        if leaf == "weight" and isinstance(mod, torch.nn.Linear):
-            leaf, v = "kernel", v.T
-        elif leaf == "weight":
-            leaf = "scale"
-        elif leaf in ("running_mean", "running_var"):
-            coll, leaf = "batch_stats", leaf[len("running_"):]
-        node = tree[coll]
-        for part in path.split("/"):
-            node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(v)
-    return tree
 
 
 def tiny_torch_model(seed: int = 0):
@@ -106,3 +59,165 @@ def jax_uniform_crops(monkeypatch):
         return torch.from_numpy(np.array(jax.random.uniform(key, (M, S))))
 
     monkeypatch.setattr(tcrops, "_crop_uniforms", uniforms)
+
+
+# ---- training parity: one init on both sides, knobs on -----------------------
+
+KNOBS = dict(knn_method="pallas", attention="linear-pallas")
+# jax.jit(f).lower(*a).compile(compiler_options=NO_ALGSIMP): on this CPU
+# backend the default compilation of the training gradient is wrong (it
+# fails a finite-difference check that the same function run op by op
+# passes); with XLA's algebraic simplifier off it is right.
+# `python -m tests._torch_grad_reference` shows both.
+NO_ALGSIMP = {"xla_disable_hlo_passes": "algsimp"}
+
+
+def tiny_cfg(knn_method="argsort", attention="linear", aux=True) -> dict:
+    """The tiny flagship config with the training knobs; the same dict
+    builds the JAX model and the port's."""
+    from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
+    cfg = point_transformer_point_cat(**TINY, with_aux_heads=aux)
+    if aux:
+        # the flagship's 16 groups would hold 2 channels each at this width,
+        # and a GroupNorm over 2 values amplifies rounding without bound
+        cfg["cls_head"][0]["ng"] = cfg["fp_head"][0]["ng"] = 4
+    cfg["knn_method"] = knn_method
+    cfg["cross_stage1"]["attention"] = attention
+    cfg["cross_stage2"]["attention"] = attention
+    return cfg
+
+
+def train_models(seed: int = 0, jax_dtype=np.float32, **knobs):
+    """(jax_model, jax_variables, torch_model): fresh on every call, since
+    training mutates the port's model. The JAX Pallas kernels the knobs
+    select run in interpret mode on the CPU.
+
+    jax_dtype=np.float64 (inside `with jax.enable_x64():`) builds the JAX
+    side in float64. Gradient tests use it: through the whole backbone the
+    JAX package's float32 gradients on the CPU are 3.6e-3 of the largest
+    entry off its own float64 ones, the port's float32 ones 5e-6
+    (`python -m tests._torch_grad_reference`), so only the float64
+    reference can hold the port to 1e-4, and the port run in float64 too
+    is held to it far tighter."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    from point_cloud_reid_tpu.models import build_model as jax_build
+    from point_cloud_reid_tpu_torch.models import build_model
+    cfg = tiny_cfg(**knobs)
+    tmodel = build_model(copy.deepcopy(cfg),
+                         generator=torch.Generator().manual_seed(seed))
+    jvars = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jax_dtype),
+                                   to_jax_tree(tmodel))
+    return jax_build(copy.deepcopy(cfg), dtype=jax_dtype), jvars, tmodel
+
+
+def jax_batch(batch: dict, dtype=np.float32) -> dict:
+    """A numpy batch as jnp arrays, its float arrays in `dtype`."""
+    import jax.numpy as jnp
+    return {k: jnp.asarray(v, dtype) if v.dtype.kind == "f"
+            else jnp.asarray(v) for k, v in batch.items()}
+
+
+def port_flat(tree) -> dict:
+    """A flax collection (params, batch_stats or gradients shaped like
+    params) as {port state-dict key: numpy array in the port's layout}."""
+    from point_cloud_reid_tpu_torch.convert import port_key
+    from point_cloud_reid_tpu_torch.convert.jax_variables import _flatten
+    out = {}
+    for path, value in _flatten(tree).items():
+        key, transpose = port_key(path)
+        out[key] = value.T if transpose else value
+    return out
+
+
+def pair_batch(seed: int, B: int = 6, n_pts: int = N_PTS, dense: int = 0,
+               dups: bool = True) -> dict:
+    """A numpy training batch: sparse crops with duplicated points (as
+    resample-with-replacement makes them; dups=False keeps every point
+    distinct), ids with matches and non-matches, labels on both sides of
+    the false-positive threshold."""
+    rs = np.random.RandomState(seed)
+
+    def crop():
+        if not dups:
+            return (rs.randn(B, n_pts, 3) * 0.6).astype(np.float32)
+        base = (rs.randn(B, n_pts - 6, 3) * 0.6).astype(np.float32)
+        dup = base[:, rs.randint(0, n_pts - 6, 6)]
+        return np.concatenate([base, dup], axis=1)
+
+    id_1 = np.arange(B, dtype=np.int32)
+    id_2 = np.where(np.arange(B) % 2 == 0, id_1, (id_1 + 1) % B).astype(
+        np.int32)
+    id_2[-1] = -1
+    batch = dict(sparse_1=crop(), sparse_2=crop(), id_1=id_1, id_2=id_2,
+                 label_1=rs.randint(0, 20, B).astype(np.int32),
+                 label_2=rs.randint(0, 20, B).astype(np.int32),
+                 size_1=rs.randint(1, 500, B).astype(np.int32),
+                 size_2=rs.randint(1, 500, B).astype(np.int32),
+                 vis_1=rs.randint(0, 4, B).astype(np.int32),
+                 vis_2=rs.randint(0, 4, B).astype(np.int32),
+                 dist_1=(rs.rand(B) * 60).astype(np.float32),
+                 dist_2=(rs.rand(B) * 60).astype(np.float32))
+    if dense:
+        batch["dense_1"] = (rs.randn(B, dense, 3) * 0.6).astype(np.float32)
+        batch["dense_2"] = (rs.randn(B, dense, 3) * 0.6).astype(np.float32)
+    return batch
+
+
+def torch_batch(batch: dict) -> dict:
+    from point_cloud_reid_tpu_torch.train import to_device
+    return to_device(batch, "cpu")
+
+
+def jax_negatives(key, id_1, id_2, sample_num: int) -> np.ndarray:
+    """The (B, sample_num) negatives that the JAX package's triplet_loss
+    draws from `key` for these ids (train/losses.py: one categorical draw
+    over the rows of [h1; h2] whose id differs from the anchor's)."""
+    import jax
+    import jax.numpy as jnp
+    id_1, id_2 = jnp.asarray(id_1), jnp.asarray(id_2)
+    id_cat = jnp.concatenate([id_1, id_2], axis=0)
+    logits = jnp.where(id_cat[None, :] != id_1[:, None], 0.0, -jnp.inf)
+    neg = jax.random.categorical(key, logits[:, None, :], axis=-1,
+                                 shape=(id_1.shape[0], sample_num))
+    return np.asarray(neg).astype(np.int64)
+
+
+# A bias in front of a BatchNorm has a gradient that is zero but for
+# rounding, and that rounding follows the layer's other gradients: 5 % of the
+# largest entry of all leaves is the least scale at which the port's float32
+# gradients meet 1e-4 there. In float64 the floor is 1e-3.
+F32_LEAF_FLOOR = 0.05
+
+
+def assert_grads_close(got: dict, want: dict, tol: float,
+                       floor: float = 1e-3) -> None:
+    """Two {name: tensor} dicts with the same keys (gradients, or weight
+    updates), each tensor within tol of its own scale: the largest |entry|
+    of that tensor in `want`, but no less than `floor` times the largest
+    entry of the whole set (a bias in front of a BatchNorm has a gradient
+    that is zero but for rounding, so its own scale says nothing)."""
+    assert set(got) == set(want)
+    top = max(float(np.max(np.abs(np.asarray(v))))
+              for v in want.values() if np.size(v))
+    for k in sorted(want):
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        assert g.shape == w.shape, (k, g.shape, w.shape)
+        if not g.size:
+            continue
+        scale = max(float(np.max(np.abs(w))), floor * top)
+        err = float(np.max(np.abs(g - w)))
+        assert err <= tol * scale, (
+            f"{k}: err {err:.3e} > {tol:g} x {scale:.3e}")
+
+
+def assert_close_scaled(got, want, tol: float, what: str = "") -> None:
+    """max |got - want| <= tol * max(1, max |want|): a tolerance relative
+    to the tensor's scale (single entries near zero carry no relative
+    information in float32)."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    bound = tol * max(1.0, float(np.max(np.abs(want))) if want.size else 0.0)
+    assert err <= bound, f"{what}: err {err:.3e} > {bound:.3e}"

@@ -1,9 +1,12 @@
 """Import hygiene of the PyTorch port, checked in a fresh interpreter (this
-suite's conftest imports jax): no module of point_cloud_reid_tpu_torch pulls
-in jax or flax, and the CPU path of every kernel wrapper runs without
-building or loading the CUDA library."""
+suite's conftest imports jax): no module of point_cloud_reid_tpu_torch, nor
+chip_smoke.py, pulls in jax, flax, optax or the JAX package; the CPU path of
+every kernel wrapper runs without building or loading the CUDA library; and
+every entry point runs on the CUDA device by default, so without a card it
+exits with an error instead of running on the CPU."""
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -19,8 +22,9 @@ import point_cloud_reid_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
 for n in names:
     importlib.import_module(n)
-print(json.dumps(dict(n=len(names), jax='jax' in sys.modules,
+print(json.dumps(dict(n=len(names), names=names, jax='jax' in sys.modules,
                       flax='flax' in sys.modules,
+                      optax='optax' in sys.modules,
                       jax_pkg=any(m.startswith('point_cloud_reid_tpu.')
                                   for m in sys.modules))))
 """
@@ -50,12 +54,37 @@ with torch.no_grad():
     xyz, h = model.embed(torch.from_numpy(
         rs.randn(8, 32, 3).astype(np.float32)))
     match_grid.grid_logits(model, h, xyz, h, xyz)
+# one train step with both kernel knobs on
+from point_cloud_reid_tpu_torch.kernels import knn, linear_attention
+from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
+    SyntheticPairLoader, TrainState, make_train_step, to_device)
+cfg = point_transformer_point_cat(
+    conv_out=16, mul=1, nsample=(8, 8, 8), backbone_list=(16, 8, 4))
+cfg['knn_method'] = 'pallas'
+cfg['cross_stage1']['attention'] = cfg['cross_stage2']['attention'] = \
+    'linear-pallas'
+model = build_model(cfg)
+state = TrainState.create(model, ScheduleConfig(max_epochs=1), 1)
+step = make_train_step(model, dict(match=True, kl=True, triplet=True), {})
+batch = next(iter(SyntheticPairLoader(4, 1, num_points=32, num_objects=8)))
+_, log = step(state, to_device(batch, 'cpu'),
+              torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(log['reid_loss']))
 print(json.dumps(dict(
     loaded=_lib.LIBRARY._lib is not None,
     launches=[sa_stage.fused_sa_convmax.launches,
               match_grid.fused_match_grid.launches,
-              match_grid.fused_match_pairs.launches])))
+              match_grid.fused_match_pairs.launches,
+              knn.knn.launches,
+              linear_attention.linear_attention_forward.launches])))
 """
+
+FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
+NEW_MODULES = {
+    "configs.datasets", "configs.experiments", "evaluation.matching",
+    "kernels.knn", "kernels.linear_attention", "models.registry",
+    "tools.train", "tools.profile_train", "train.loop", "train.losses",
+    "train.schedules", "train.state", "train.synthetic", "utils.logging"}
 
 
 def _run(code: str) -> dict:
@@ -68,10 +97,48 @@ def _run(code: str) -> dict:
 
 def test_port_imports_no_jax_or_flax():
     out = _run(_IMPORT_ALL)
-    assert out["n"] >= 20
-    assert not out["jax"] and not out["flax"] and not out["jax_pkg"]
+    assert out["n"] >= 40
+    have = {n.split(".", 1)[1] for n in out["names"]}
+    assert NEW_MODULES <= have, NEW_MODULES - have
+    assert not (out["jax"] or out["flax"] or out["optax"] or out["jax_pkg"])
+
+
+def test_no_source_file_of_the_port_names_a_jax_import():
+    """The same as text, chip_smoke.py included (it cannot be imported
+    here: it stops without a CUDA device)."""
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|"
+                     r"point_cloud_reid_tpu)\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO,
+                                               "point_cloud_reid_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 45
+    for path in files:
+        with open(path) as f:
+            hit = pat.search(f.read())
+        assert hit is None, (path, hit.group(0))
 
 
 def test_cpu_wrappers_never_touch_the_cuda_library():
     out = _run(_CPU_PATH)
-    assert out == dict(loaded=False, launches=[0, 0, 0])
+    assert out == dict(loaded=False, launches=[0, 0, 0, 0, 0])
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "point_cloud_reid_tpu_torch.tools.train", FLAGSHIP, "--epochs",
+     "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.profile_train", "--batch", "4"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.track", "--frames", "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.profile_tracker"],
+    ["chip_smoke.py"],
+], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke"])
+def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "cuda" in proc.stderr.lower()
+    assert '"ok"' not in proc.stdout

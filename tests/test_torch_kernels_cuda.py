@@ -77,3 +77,90 @@ def test_match_kernels_match_plain(cuda):
     with pytest.raises(IndexError, match="out of range"):
         mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
     assert mg.fused_match_pairs.launches == before
+
+
+def _knn_inputs(kind, B, S, N, seed=0):
+    rs = np.random.RandomState(seed)
+    if kind == "exact":
+        # multiples of 1/64 in [-2, 2): every product and sum is exact in
+        # float32, so both sides compute identical distances, full of ties
+        xyz = rs.randint(-128, 128, (B, N, 3)).astype(np.float32) / 64.0
+    elif kind == "duplicates":
+        base = rs.randn(B, max(N // 4, 1), 3).astype(np.float32)
+        xyz = base[:, rs.randint(0, base.shape[1], N)]
+    else:
+        xyz = (rs.randn(B, N, 3) * 0.6).astype(np.float32)
+    return torch.from_numpy(xyz)
+
+
+@pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
+@pytest.mark.parametrize("B,S,N,k", [(16, 128, 128, 32), (16, 64, 128, 48),
+                                     (16, 32, 64, 48), (3, 5, 33, 33),
+                                     (2, 7, 100, 40)])
+def test_knn_kernel_matches_plain(cuda, kind, B, S, N, k):
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    xyz = _knn_inputs(kind, B, S, N).to(cuda)
+    q = xyz[:, :S].contiguous()
+    before = kk.knn.launches
+    got = kk.knn(q, xyz, k)
+    assert kk.knn.launches == before + 1
+    want = kk.knn_reference(q, xyz, k)
+    assert got.dtype == torch.int64 and got.shape == (B, S, k)
+    if kind == "exact":
+        assert torch.equal(got, want)
+        return
+    # same neighbours in the same order, except where two distances differ
+    # in the last bits (the matmul's rounding is not the kernel's)
+    d = kk.square_distance(q, xyz)
+    dg, dw = d.gather(-1, got), d.gather(-1, want)
+    bad = got != want
+    assert ((dg - dw).abs()[bad] <= 1e-6 * dw.abs()[bad].clamp(min=1.0)).all()
+    if kind == "duplicates":
+        # the same point twice is an exact tie on both sides: lower index
+        # first
+        pts = xyz[torch.arange(B, device=cuda)[:, None, None], got]
+        same = (pts[:, :, 1:] == pts[:, :, :-1]).all(-1)
+        assert same.any()
+        assert (got[..., 1:][same] > got[..., :-1][same]).all()
+
+
+@pytest.mark.parametrize("B,L,S,H,D,V", [(256, 128, 128, 2, 32, 32),
+                                         (3, 50, 37, 2, 8, 12),
+                                         (2, 200, 64, 4, 64, 16)])
+def test_linear_attention_kernel_matches_plain(cuda, B, L, S, H, D, V):
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((B, L, H, D), generator=g, device=cuda, requires_grad=True)
+    # non-contiguous views, as a fused qkv projection would hand them over
+    kv = torch.randn((B, S, H, D + V), generator=g, device=cuda)
+    k = kv[..., :D].detach().requires_grad_(True)
+    v = kv[..., D:].detach().requires_grad_(True)
+    before = la.linear_attention_forward.launches
+    got = la.fused_linear_attention(q, k, v)
+    assert la.linear_attention_forward.launches == before + 1
+    want = la.linear_attention_reference(q, k, v)
+    _close(got.detach(), want.detach())
+    go = torch.randn(got.shape, generator=g, device=cuda)
+    grads = torch.autograd.grad(got, (q, k, v), go.transpose(1, 2).contiguous(
+        ).transpose(1, 2))                       # a non-contiguous cotangent
+    assert la.linear_attention_forward.launches == before + 1
+    for a, b in zip(grads, torch.autograd.grad(want, (q, k, v), go)):
+        _close(a, b)
+
+
+def test_kernel_wrappers_raise_on_bad_input(cuda):
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    x = torch.zeros((2, 8, 3), device=cuda)
+    with pytest.raises(ValueError):
+        kk.knn(x, x, 9)
+    with pytest.raises(ValueError):
+        kk.knn(x.double(), x.double(), 4)
+    big = torch.zeros((1, 129, 3), device=cuda)
+    with pytest.raises(ValueError, match="N <= 128"):
+        kk.knn(big, big, 4)
+    q = torch.zeros((2, 8, 2, 4), device=cuda)
+    with pytest.raises(ValueError):
+        la.linear_attention_forward(q, q[:, :, :1], q)
+    with pytest.raises(ValueError):
+        la.linear_attention_forward(q.half(), q.half(), q.half())

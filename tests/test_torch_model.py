@@ -96,7 +96,7 @@ def test_match_logits_and_grid_match_jax():
         xt, ht = tmodel.embed(torch.from_numpy(crops(2, nt)))
         xd, hd = tmodel.embed(torch.from_numpy(crops(3, nd)))
         grid = tmodel.match_logits_grid(ht, xt, hd, xd)
-        aligned = tmodel.match_logits(ht, xt, hd[:nt], xd[:nt])
+        aligned, _ = tmodel.match_logits(ht, xt, hd[:nt], xd[:nt])
     j = [jnp.asarray(a.numpy()) for a in (ht, xt, hd, xd)]
     jgrid = jmodel.apply(jvars, *j, train=False, method="match_logits_grid")
     jaligned, _ = jmodel.apply(jvars, j[0], j[1], j[2][:nt], j[3][:nt],
