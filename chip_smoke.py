@@ -22,7 +22,21 @@ Phases, each of which raises on failure:
      256 pairs of 128 points a step through Trainer.fit. Checks finite
      losses and gradient norms, that weights and BatchNorm statistics moved,
      3 kNN and 4 attention launches per forward, and step 1 against the same
-     step with both knobs off.
+     step with both knobs off;
+  5. image kernels and image path: the image instantiation of the match
+     kernel (no position term, S tokens) on a 64 x 64 grid at S=197 and
+     S=198 and on a 512-pair list, and farthest point sampling at the three
+     SA shapes of 128 crops, each against its plain version; then the image
+     model (deit-tiny-no-pt at full width) behind TrackingManager.step over
+     the bench's six-camera scene (64 objects, six 900 x 1600 uint8 frames,
+     10 frames), dense ('never', image grid kernel) and sparse ('always',
+     image pair kernel), the frame's upload inside the clock. Checks launch
+     counts, finite logits, one frame's logits against plain scoring and a
+     CPU plain crop + embed of 4 detections;
+  6. FPS path: 128 crops of 128 points through three SetAbstractionEdgeSA
+     stages of the flagship's widths built with sampling="FPS" and
+     knn_method="pallas". Checks 3 FPS and 3 kNN launches and no SA-kernel
+     launch, and centres and features against the same stages on plain FPS.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over 67 TFLOP/s (float32 outside the tensor cores), the H100's
@@ -51,6 +65,8 @@ ATTN_TOL = 1e-4        # linear attention and its gradients, as SA_TOL
 KNN_TIE = 1e-6         # kNN: a swap needs plain distances this close (rel.)
 TRAIN_TOL = 1e-3       # step 1, kernels on vs off: loss and grad norm, rel.
 TRAIN_PAIRS, TRAIN_STEPS = 256, 6
+IMG_OBJ, IMG_FRAMES = 64, 10
+FPS_CROPS = 128
 DEVICE = "cuda"
 PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
@@ -424,6 +440,7 @@ def check_frame(model, rec, label: str):
 
 def all_counters() -> dict:
     """name in the kernels line -> the wrapper that carries `launches`."""
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
@@ -431,16 +448,24 @@ def all_counters() -> dict:
     return dict(fused_sa_convmax=sa.fused_sa_convmax,
                 fused_match_grid=mg.fused_match_grid,
                 fused_match_pairs=mg.fused_match_pairs, knn=kk.knn,
-                linear_attention=la.linear_attention_forward)
+                linear_attention=la.linear_attention_forward,
+                fused_image_match_grid=mg.fused_image_match_grid,
+                fused_image_match_pairs=mg.fused_image_match_pairs,
+                fps=kf.fps)
+
+
+def zero_counters() -> dict:
+    every = all_counters()
+    for fn in every.values():
+        fn.launches = 0
+    return every
 
 
 def phase_main_path(model, card: str):
-    every = all_counters()
+    every = zero_counters()
     counters = tuple(every[k] for k in ("fused_sa_convmax",
                                         "fused_match_grid",
                                         "fused_match_pairs"))
-    for fn in every.values():
-        fn.launches = 0
     sparse_ms, sparse_rec, sparse_mgr = run_scene(model, "auto")
     after_sparse = [fn.launches for fn in counters]
     dense_ms, dense_rec, dense_mgr = run_scene(model, "never")
@@ -513,11 +538,9 @@ def phase_training(card: str):
     import torch
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
-    counters = all_counters()
     with tempfile.TemporaryDirectory() as work_dir:
         for pairs in (TRAIN_PAIRS, TRAIN_PAIRS // 2):
-            for fn in counters.values():
-                fn.launches = 0
+            counters = zero_counters()
             try:
                 logs, times, changed, peak = train_flagship(
                     True, pairs, TRAIN_STEPS, work_dir)
@@ -576,6 +599,299 @@ def phase_training(card: str):
     return launches
 
 
+def image_model(variant: str):
+    """The image model of the tools (deit-tiny-no-pt, 197 tokens) or its
+    distilled twin (deit-tiny, 198 tokens), full width, seeded weights."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import image_deit_point_cat
+    from point_cloud_reid_tpu_torch.models import build_model
+    return build_model(image_deit_point_cat(variant), device=DEVICE,
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def phase_image_kernels():
+    """The image instantiation of the match kernel against its plain
+    version, on the model's own token features: a 64 x 64 grid at S=197
+    (deit-tiny-no-pt, the main path's model) and S=198 (deit-tiny), and a
+    512-pair list at S=197."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    n = IMG_OBJ
+    for variant, want_s in (("deit-tiny", 198), ("deit-tiny-no-pt", 197)):
+        model = image_model(variant)
+        with torch.no_grad():
+            crops = torch.rand((2 * n, 3, 224, 224), generator=gen,
+                               device=DEVICE)
+            h = model.downsample_tokens(model.embed(crops))
+            h_t, h_d = h[:n].contiguous(), h[n:].contiguous()
+            t, d, w1, w2, nhead = mg.image_match_factors(model, h_t, h_d)
+        S, width = h_t.shape[1], h_t.shape[2]
+        if S != want_s:
+            raise RuntimeError(f"{variant}: {S} tokens, want {want_s}")
+        weights = list(w1.values()) + list(w2.values())
+
+        def match_bound(n_pairs, *extra):
+            # the point head's count: 80 S C^2 operations a pair
+            return bound_ms(80.0 * n_pairs * S * width * width,
+                            nbytes(*t, *d, *weights, *extra))
+
+        ti = torch.arange(n, device=DEVICE).repeat_interleave(n)
+        di = torch.arange(n, device=DEVICE).repeat(n)
+        grid = mg.fused_image_match_grid(t, d, w1, w2, nhead)
+        want = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                         ).reshape(n, n, -1)
+        torch.cuda.synchronize()
+        g_err, g_rel = rel_err(grid, want)
+        g_ms = time_ms(lambda: mg.fused_image_match_grid(t, d, w1, w2, nhead),
+                       5)
+        g_plain = time_ms(lambda: mg.match_pooled_reference(
+            t, d, w1, w2, nhead, ti, di), 3, warmup=1)
+        g_bound, g_by = match_bound(n * n, grid)
+        print(f"[image_match] grid {n}x{n} S={S} C={width} ({variant}): "
+              f"max_abs_err={g_err:.3e} rel={g_rel:.3e} (tol {MATCH_TOL:g}) "
+              f"kernel {g_ms:.3f} ms, plain {g_plain:.3f} ms, bound "
+              f"{g_bound:.3f} ms ({g_by})", flush=True)
+        if not g_rel <= MATCH_TOL:
+            raise RuntimeError(f"fused_image_match_grid disagrees at S={S}: "
+                               f"rel {g_rel}")
+    # the rows carry the main path's shape, S=197
+    # no one PyTorch call computes the chain (two attention stages, three
+    # LayerNorms and two FFNs a direction): no library time
+    rows.append(dict(name="fused_image_match_grid", route="cuda",
+                     source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
+                     replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:686",
+                     max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
+                     bound_ms=g_bound, bound_by=g_by, library_ms=None))
+
+    P = 512
+    t_idx = torch.randint(0, n, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    d_idx = torch.randint(0, n, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    pairs = mg.fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    want = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
+    torch.cuda.synchronize()
+    p_err, p_rel = rel_err(pairs, want)
+    pg_err, pg_rel = rel_err(pairs, grid[t_idx.long(), d_idx.long()])
+    p_ms = time_ms(lambda: mg.fused_image_match_pairs(
+        t, d, w1, w2, nhead, t_idx, d_idx), 10)
+    p_plain = time_ms(lambda: mg.match_pooled_reference(
+        t, d, w1, w2, nhead, t_idx, d_idx), 3)
+    p_bound, p_by = match_bound(P, t_idx, d_idx, pairs)
+    print(f"[image_match] pairs P={P} S={S}: max_abs_err={p_err:.3e} "
+          f"rel={p_rel:.3e} vs plain, {pg_err:.3e} rel={pg_rel:.3e} vs the "
+          f"grid kernel at the same indices (tol {MATCH_TOL:g}); kernel "
+          f"{p_ms:.3f} ms, plain {p_plain:.3f} ms, bound {p_bound:.3f} ms "
+          f"({p_by})", flush=True)
+    if not (p_rel <= MATCH_TOL and pg_rel <= MATCH_TOL):
+        raise RuntimeError(f"fused_image_match_pairs disagrees: {p_rel}, "
+                           f"{pg_rel}")
+    rows.append(dict(name="fused_image_match_pairs", route="cuda",
+                     source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
+                     replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:514",
+                     max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
+                     bound_ms=p_bound, bound_by=p_by, library_ms=None))
+    return rows, model
+
+
+def phase_fps_kernel():
+    """Farthest point sampling at the three SA shapes of 128 crops, from
+    random start indices: indices equal to the plain loop's on
+    exact-arithmetic, duplicated and random inputs."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    B = FPS_CROPS
+    ms = plain = bound = 0.0
+    by, mismatches = [], 0
+    for i, (N, npoint) in enumerate(((128, 128), (128, 64), (64, 32))):
+        for kind in ("exact", "duplicates", "random"):
+            xyz = knn_cloud(kind, B, N, SEED + i)
+            start = torch.from_numpy(np.random.RandomState(SEED + i).randint(
+                0, N, B)).to(DEVICE)
+            got = kf.fps(xyz, npoint, start)
+            want = kf.fps_reference(xyz, npoint, start)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum().item())
+            mismatches += bad
+            if bad or not torch.equal(got[:, 0], start):
+                raise RuntimeError(f"fps {kind} N={N} npoint={npoint}: {bad} "
+                                   "indices differ from the plain loop")
+        k_ms = time_ms(lambda: kf.fps(xyz, npoint, start), 20)
+        p_ms = time_ms(lambda: kf.fps_reference(xyz, npoint, start), 3,
+                       warmup=1)
+        # 8 flops a distance, N distances a round; the arg-max is not counted
+        b_ms, b_by = bound_ms(8.0 * B * npoint * N,
+                              nbytes(xyz) + B * 4 + B * npoint * 4)
+        print(f"[fps] B={B} N={N} npoint={npoint}: indices equal on exact, "
+              f"duplicated and random inputs; kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
+        by.append((b_ms, b_by))
+    # PyTorch has no farthest-point-sampling call: no library time
+    return [dict(name="fps", route="cuda",
+                 source="point_cloud_reid_tpu_torch/csrc/fps.cu",
+                 replaces="point_cloud_reid_tpu/ops/pallas/fps.py:58",
+                 max_abs_err=0.0, mismatches=mismatches, ms=ms,
+                 plain_ms=plain, bound_ms=bound, bound_by=max(by)[1],
+                 library_ms=None)]
+
+
+def run_image_scene(model, sparse: str):
+    """10 frames of the bench's six-camera scene; the frame's images are
+    uploaded inside the step's clock. Returns (per-frame ms, scorer,
+    manager, the last frame's inputs)."""
+    import torch
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.tools.scenes import image_scene
+    from point_cloud_reid_tpu_torch.tracking import TrackingManager
+    scorer = PairScorer(model, image_mode=True)
+    mgr = TrackingManager(scorer, match_threshold=1.0, seed=SEED,
+                          sparse_scoring=sparse)
+    times, frame = [], None
+    for frame in image_scene(IMG_OBJ, IMG_FRAMES, SEED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.step(*frame)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        last = scorer.last_frame
+        if last is not None and not bool(torch.isfinite(last["logits"]).all()):
+            raise RuntimeError(f"non-finite logits in image scene '{sparse}'")
+    return times, scorer, mgr, frame
+
+
+def check_image_frame(model, rec, frame, label: str):
+    """Last frame's logits vs plain hoisted scoring
+    (ImageReIDNet.match_logits_grid, no kernel) on the card over the frame's
+    own token features, plus a CPU plain crop + embed of 4 detections."""
+    import torch
+    from point_cloud_reid_tpu_torch.tracking.image_crops import (
+        crops_per_frame)
+    (images, l2cs, Ks), boxes = frame[0], frame[1]
+    with torch.no_grad():
+        plain = model.match_logits_grid(rec["h_t"], rec["h_d"])
+        if rec["pairs"] is not None:
+            pt, pd = rec["pairs"]
+            plain = plain[pt.long(), pd.long()]
+        got = rec["logits"]
+        err = (got - plain).abs().max().item()
+        bound = FRAME_TOL * (1.0 + plain.abs().max().item())
+        n = 4
+        cpu = copy.deepcopy(model).cpu()
+        crops, valid = crops_per_frame(
+            torch.from_numpy(images), torch.from_numpy(l2cs),
+            torch.from_numpy(Ks), torch.from_numpy(boxes[:n]),
+            image_size=(images.shape[3], images.shape[2]))
+        h_cpu = cpu.downsample_tokens(cpu.embed(crops))
+        e_err = (h_cpu - rec["h_d"][:n].cpu()).abs().max().item()
+        e_bound = FRAME_TOL * (1.0 + h_cpu.abs().max().item())
+    print(f"[image_frame:{label}] logits vs plain scoring: max_abs_err="
+          f"{err:.3e} (bound {bound:.3e}); CPU plain crop + embed of {n} "
+          f"detections ({int(valid.sum())} visible): {e_err:.3e} (bound "
+          f"{e_bound:.3e})", flush=True)
+    if not (err <= bound and e_err <= e_bound and bool(valid.all())):
+        raise RuntimeError(f"image frame check failed in scene '{label}'")
+
+
+def phase_image_path(model, card: str):
+    every = zero_counters()
+    names = ("fused_image_match_grid", "fused_image_match_pairs")
+    dense_ms, dense_rec, dense_mgr, dense_frame = run_image_scene(model,
+                                                                  "never")
+    after_dense = [every[k].launches for k in names]
+    sparse_ms, sparse_rec, sparse_mgr, sparse_frame = run_image_scene(
+        model, "always")
+    launches = {name: fn.launches for name, fn in every.items()}
+    in_sparse = [launches[k] - a for k, a in zip(names, after_dense)]
+    print(f"[image] launches dense scene (grid, pairs) = {after_dense}, "
+          f"sparse scene = {in_sparse}", flush=True)
+    # one launch per frame with tracks (all but the first), nothing rerouted
+    if after_dense != [IMG_FRAMES - 1, 0] or in_sparse != [0, IMG_FRAMES - 1]:
+        raise RuntimeError("the image scenes did not launch the image grid "
+                           "kernel (dense) and the image pair kernel (sparse) "
+                           "once per frame with tracks")
+    other = {k: v for k, v in launches.items() if k not in names and v}
+    if other:
+        raise RuntimeError(f"the image path launched {other}")
+    for label, ms, mgr in (("dense", dense_ms, dense_mgr),
+                           ("sparse", sparse_ms, sparse_mgr)):
+        print(f"[image] {label}: {len(mgr.store.active())} active tracks, "
+              f"median steady-state step {np.median(ms[3:]):.3f} ms "
+              f"(frames 4-10, upload of "
+              f"{dense_frame[0][0].nbytes / 1e6:.1f} MB of uint8 frames "
+              f"inside; all: {[round(x, 1) for x in ms]}) on {card}",
+              flush=True)
+    check_image_frame(model, dense_rec.last_frame, dense_frame, "dense")
+    check_image_frame(model, sparse_rec.last_frame, sparse_frame, "sparse")
+    return launches
+
+
+def phase_fps_path():
+    """Three SA stages of the flagship's widths with FPS-sampled centres,
+    eval mode, on 128 crops of 128 points; against the same stages with the
+    plain FPS loop in the kernel's place."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    from point_cloud_reid_tpu_torch.models.build import init_weights
+    from point_cloud_reid_tpu_torch.models.point_transformer import (
+        SetAbstractionEdgeSA)
+    specs = (([3, 128, 128, 128], 32, 128), ([259, 256, 256, 256], 48, 64),
+             ([515, 512, 512, 512], 48, 32))
+    stages = torch.nn.ModuleList(
+        SetAbstractionEdgeSA(mlp, k, knn_method="pallas", sampling="FPS")
+        for mlp, k, _ in specs)
+    init_weights(stages, torch.Generator().manual_seed(SEED))
+    stages.to(DEVICE).eval().requires_grad_(False)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    crops = torch.randn((FPS_CROPS, 128, 3), generator=gen,
+                        device=DEVICE) * 0.6
+
+    def run():
+        xyz, points, outs = crops, None, []
+        with torch.no_grad():
+            for stage, (_, _, S) in zip(stages, specs):
+                xyz, points = stage(xyz, points, S)
+                outs.append((xyz, points))
+        torch.cuda.synchronize()
+        return outs
+
+    every = zero_counters()
+    got = run()
+    launches = {name: fn.launches for name, fn in every.items()}
+    want_launches = dict(fps=3, knn=3)
+    if {k: v for k, v in launches.items() if v} != want_launches:
+        raise RuntimeError(f"FPS path: want launches {want_launches} and no "
+                           f"other, got {launches}")
+    kernel = kf.fps
+    try:     # the same stages with the plain loop in the kernel's place
+        kf.fps = kf.fps_reference
+        want = run()
+    finally:
+        kf.fps = kernel
+    if kernel.launches != 3:
+        raise RuntimeError("the plain FPS run launched the kernel")
+    worst = 0.0
+    for i, ((gx, gh), (wx, wh)) in enumerate(zip(got, want)):
+        if not torch.equal(gx, wx):
+            raise RuntimeError(f"FPS stage {i + 1}: centres differ")
+        err, rel = rel_err(gh, wh)
+        worst = max(worst, rel)
+        if not (rel <= SA_TOL and bool(torch.isfinite(gh).all())):
+            raise RuntimeError(f"FPS stage {i + 1}: features differ, rel "
+                               f"{rel}")
+    first = not torch.equal(got[0][0][:, :8], crops[:, :8])
+    print(f"[fps_path] {FPS_CROPS} crops x 128 points through 3 FPS-sampled "
+          f"SA stages: launches fps=3 knn=3 sa_convmax=0; centres equal "
+          f"plain FPS (and are not the first points: {first}); features "
+          f"rel {worst:.3e} (tol {SA_TOL:g}); shapes "
+          f"{[tuple(h.shape) for _, h in got]}", flush=True)
+    if not first:
+        raise RuntimeError("FPS centres are the first points")
+    return launches
+
+
 def main():
     import torch
     card = phase_device()
@@ -588,8 +904,17 @@ def main():
     del model
     torch.cuda.empty_cache()
     training = phase_training(card)
+    torch.cuda.empty_cache()
+    image_rows, image = phase_image_kernels()
+    rows += image_rows + phase_fps_kernel()
+    image_path = phase_image_path(image, card)
+    del image
+    torch.cuda.empty_cache()
+    fps_path = phase_fps_path()
     for row in rows:
-        row["launches"] = serving[row["name"]] + training[row["name"]]
+        # each path was driven with every count at 0 just before it
+        row["launches"] = sum(path[row["name"]] for path in (
+            serving, training, image_path, fps_path))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")

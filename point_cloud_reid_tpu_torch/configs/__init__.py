@@ -1,6 +1,7 @@
 from .experiments import (EXPERIMENTS, apply_overrides, compose,
                           get_experiment, runtime, schedule)
-from .models import point_transformer_point_cat
+from .models import image_deit_point_cat, point_transformer_point_cat
 
 __all__ = ["EXPERIMENTS", "apply_overrides", "compose", "get_experiment",
-           "runtime", "schedule", "point_transformer_point_cat"]
+           "runtime", "schedule", "image_deit_point_cat",
+           "point_transformer_point_cat"]

@@ -1,7 +1,8 @@
 """Experiment leaves: 4-axis composition + named experiment registry.
 
-Port of point_cloud_reid_tpu/configs/experiments.py for the flagship leaf
-and its testing_ twin: compose(dataset, model, schedule, runtime),
+Port of point_cloud_reid_tpu/configs/experiments.py for the point flagship
+leaf, the image (rgb_*) leaves, their testing_ twins and the three image_*
+aliases: compose(dataset, model, schedule, runtime),
 schedule('cyclic_500e_lr3e-4_norm1_accum2') parsing the reference's
 schedule-file names, and the dotted-path --set overrides.
 """
@@ -76,6 +77,40 @@ EXPERIMENTS: Dict[str, Callable[..., Dict[str, Any]]] = {
     _FLAGSHIP: _nus_pts_flagship,
     "testing_" + _FLAGSHIP: _testing(_nus_pts_flagship),
 }
+
+
+def _image_leaf(variant: str, dataset_fn, num_classes: int, epochs: int):
+    def fn(**kw):
+        cfg = compose(
+            dataset_fn(**kw),
+            M.image_deit_point_cat(variant, num_classes=num_classes,
+                                   pretrained="no-pt" not in variant),
+            schedule(f"cyclic_{epochs}e_lr1e-5"),
+            losses_to_use=dict(match=True, cls=True, fp=True, vis=True,
+                               triplet=True))
+        # image leaves set triplet_loss=dict(margin=10, p=2); points use 0.2
+        cfg["triplet_margin"] = 10.0
+        return cfg
+    return fn
+
+
+# image leaves (reid_nuscenes_image/, reid_waymo_image/)
+for _ds, _ds_fn, _nc in (("nus", D.nuscenes_image, 10),
+                         ("waymo", D.waymo_image, 6)):
+    for _v, _tag in (("deit-tiny", "deit-tiny_point-cat_pt"),
+                     ("deit-base", "deit-base_point-cat_pt"),
+                     ("deit-tiny-no-pt", "deit-tiny_point-cat_r"),
+                     ("deit-base-no-pt", "deit-base_point-cat_r"),
+                     ("beit", "beit-base-lin-xcorr")):
+        _name = f"rgb_{_tag}_{_ds}_det_4x60_200e"
+        EXPERIMENTS[_name] = _image_leaf(_v, _ds_fn, _nc, 200)
+        EXPERIMENTS["testing_" + _name] = _testing(EXPERIMENTS[_name])
+for _alias, _name in (
+        ("image_deit-tiny_point-cat", "rgb_deit-tiny_point-cat_pt"),
+        ("image_deit-base_point-cat", "rgb_deit-base_point-cat_pt"),
+        ("image_beit-base", "rgb_beit-base-lin-xcorr")):
+    EXPERIMENTS[f"{_alias}_nus_det_4x60_200e"] = EXPERIMENTS[
+        f"{_name}_nus_det_4x60_200e"]
 
 
 def _parse_value(v: str):

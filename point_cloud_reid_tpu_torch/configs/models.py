@@ -1,10 +1,11 @@
-"""Model config factory for the flagship point ReID model.
+"""Model config factories: the flagship point ReID model and the image model.
 
-A copy of point_cloud_reid_tpu/configs/models.py::point_transformer_point_cat
-(the JAX package's config modules import jax through experiments.py, so the
-port cannot import them). The dict is value-for-value the JAX one:
-reid_pts_point-transformer_point-cat.py (mul=4, conv_out=64, two linear
-cross-attention stages, combine='point-cat', pool 'both').
+Copies of point_cloud_reid_tpu/configs/models.py::point_transformer_point_cat
+and ::image_deit_point_cat (the JAX package's config modules import jax
+through experiments.py, so the port cannot import them). The dicts are
+value-for-value the JAX ones: reid_pts_point-transformer_point-cat.py (mul=4,
+conv_out=64, two linear cross-attention stages, combine='point-cat', pool
+'both') and image/reid_image_deit-{tiny,base}_point-cat.py.
 """
 from __future__ import annotations
 
@@ -48,3 +49,36 @@ def point_transformer_point_cat(conv_out: int = 64, mul: int = 4,
         cfg["fp_head"] = _linear_res_head(hs, hs, 16, 1)
         cfg["shape_head"] = [dict(type="Linear", out_features=3)]
     return cfg
+
+
+def image_deit_point_cat(variant: str = "deit-tiny",
+                         num_classes: int = 10,
+                         pretrained: bool = False) -> Dict[str, Any]:
+    """Image branch (image/reid_image_deit-tiny_point-cat.py:1-45)."""
+    dims = {"deit-tiny": 192, "deit-small": 384, "deit-base": 768,
+            "deit-tiny-no-pt": 192, "deit-base-no-pt": 768, "beit": 768}
+    # DeiT-distilled = 198 tokens (cls + dist + 196); plain ViT / BEiT = 197
+    seq = 198 if variant.startswith("deit") and "no-pt" not in variant else 197
+    hidden = dims[variant]
+    hp = hidden * 2
+    downsample_dim = 64
+    hm = 2 * downsample_dim
+    return dict(
+        type="ImageReIDNet",
+        backbone=variant,
+        pretrained=pretrained,
+        dim=hidden,
+        downsample_dim=downsample_dim,
+        combine="point-cat", match_type="xcorr_eff", pool_type="both",
+        downsample=[
+            dict(type="LinearRes", n_in=hidden, n_out=256, norm="GN", ng=32),
+            dict(type="LinearRes", n_in=256, n_out=128, norm="GN", ng=16),
+            dict(type="Linear", out_features=downsample_dim)],
+        cross_lin_attn=dict(type="cross_lin_attn", d_model=downsample_dim,
+                            nhead=2, attention="linear"),
+        cls_head=_linear_res_head(hp, hp, 64, 2 * num_classes),
+        fp_head=_linear_res_head(hp, hp, 64, 1),
+        vis_head=_linear_res_head(hp, hp, 64, 4),
+        match_head=_linear_res_head(hm, hm, 16, 1),
+        output_sequence_size=seq,
+    )

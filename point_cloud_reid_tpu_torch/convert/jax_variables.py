@@ -13,9 +13,19 @@ rewrite plus a layout change:
     fp_{i}                           -> FP_modules.{i}
     pos_mlp[2]/fc1|fc2, mlp_fc1|2    -> pos_mlp[2].0|2, mlp.0|2
     <name>_head/{j}_<Type>           -> <name>_head.{j}   (match, cls, fp,
-                                                          shape)
+                                                          shape, vis)
+    downsample/{j}_<Type>            -> downsample.{j}
     Conv kernel (k, in, out)         -> Conv1d weight (out, in, k)
     transform_linear|transform_norm  -> transform.0|1
+
+and for the image model's ViT (the rules above cover its Dense and
+LayerNorm leaves, block_i/mlp_fc1|2 included):
+
+    backbone/block_{i}/              -> backbone.blocks.{i}.
+    patch_embed kernel (p, p, 3, d)  -> Conv2d weight (d, 3, p, p)
+    cls_token, dist_token, pos_embed, rel_pos_table, gamma_1|2 are bare
+    parameters and keep their names. The flax 'consts' collection (BEiT's
+    rel_pos_index) is not read: the port recomputes it as a buffer.
 
 The variables come as (nested dicts of) numpy arrays; nothing here imports
 jax.
@@ -33,7 +43,9 @@ _RULES = (
     (r"^backbone/fp_(\d+)/", r"backbone/FP_modules/\1/"),
     (r"/SA_modules/(\d+)/mlp_(\d+)/conv/", r"/SA_modules/\1/mlp_convs/\2/"),
     (r"/SA_modules/(\d+)/mlp_(\d+)/bn/", r"/SA_modules/\1/mlp_bns/\2/"),
-    (r"^(match|cls|fp|shape)_head/(\d+)_[A-Za-z0-9]+/", r"\1_head/\2/"),
+    (r"^backbone/block_(\d+)/", r"backbone/blocks/\1/"),
+    (r"^((?:match|cls|fp|shape|vis)_head|downsample)/(\d+)_[A-Za-z0-9]+/",
+     r"\1/\2/"),
     (r"pos_mlp(2?)/fc1/", r"pos_mlp\1/0/"),
     (r"pos_mlp(2?)/fc2/", r"pos_mlp\1/2/"),
     (r"(^|/)mlp_fc1/", r"\1mlp/0/"),
@@ -43,6 +55,19 @@ _RULES = (
 )
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
+# bare parameters of the ViT: same name, same layout on both sides
+_BARE = ("cls_token", "dist_token", "pos_embed", "rel_pos_table", "gamma_1",
+         "gamma_2")
+
+
+def _port_layout(kernel: np.ndarray) -> np.ndarray:
+    """flax kernel -> torch weight: (in, out) -> (out, in), Conv1d (k, in,
+    out) -> (out, in, k), Conv2d (h, w, in, out) -> (out, in, h, w)."""
+    return kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else kernel.T
+
+
+def _flax_layout(weight: np.ndarray) -> np.ndarray:
+    return weight.transpose(2, 3, 1, 0) if weight.ndim == 4 else weight.T
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -55,11 +80,14 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def port_key(flax_path: str) -> Tuple[str, bool]:
-    """flax collection-relative path -> (port state-dict key, transpose?)."""
+    """flax collection-relative path -> (port state-dict key, whether the
+    leaf is a kernel, whose layout _port_layout changes)."""
     path = flax_path
     for pat, rep in _RULES:
         path = re.sub(pat, rep, path)
     head, leaf = path.rsplit("/", 1)
+    if leaf in _BARE:
+        return path.replace("/", "."), False
     if leaf not in _LEAVES:
         raise ValueError(f"unknown flax leaf {flax_path}")
     return head.replace("/", ".") + "." + _LEAVES[leaf], leaf == "kernel"
@@ -80,7 +108,7 @@ def from_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]
         for path, value in _flatten(variables.get(collection, {})).items():
             key, transpose = port_key(path)
             if transpose:
-                value = value.T
+                value = _port_layout(value)
             if key not in want or tuple(state[key].shape) != value.shape:
                 unused.append(f"{collection}:{path} -> {key} {value.shape}")
                 continue
@@ -102,10 +130,11 @@ _INVERSE = (
      r"backbone/sa_\1/mlp_\2/bn/"),
     (r"^backbone\.SA_modules\.(\d+)\.", r"backbone/sa_\1/"),
     (r"^backbone\.FP_modules\.(\d+)\.", r"backbone/fp_\1/"),
+    (r"^backbone\.blocks\.(\d+)\.", r"backbone/block_\1/"),
     (r"pos_mlp(2?)\.0\.", r"pos_mlp\1/fc1/"),
     (r"pos_mlp(2?)\.2\.", r"pos_mlp\1/fc2/"),
-    (r"(^|\.)mlp\.0\.", r"\1mlp_fc1/"),
-    (r"(^|\.)mlp\.2\.", r"\1mlp_fc2/"),
+    (r"(^|[./])mlp\.0\.", r"\1mlp_fc1/"),
+    (r"(^|[./])mlp\.2\.", r"\1mlp_fc2/"),
     (r"(^|[./])transform\.0\.", r"\1transform_linear/"),
     (r"(^|[./])transform\.1\.", r"\1transform_norm/"),
 )
@@ -123,7 +152,7 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
         owner, leaf = key.rsplit(".", 1)
         mod = modules[owner]
         path = owner + "."
-        m = re.match(r"^([a-z]+_head)\.(\d+)\.", path)
+        m = re.match(r"^([a-z]+_head|downsample)\.(\d+)\.", path)
         if m:
             head, j = m.group(1), int(m.group(2))
             path = f"{head}/{j}_{modules[head].types[j]}/" + path[m.end():]
@@ -133,8 +162,9 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
         v = value.detach().cpu().numpy()
         coll = "params"
         if leaf == "weight" and isinstance(mod, (torch.nn.Linear,
-                                                 torch.nn.Conv1d)):
-            leaf, v = "kernel", v.T
+                                                 torch.nn.Conv1d,
+                                                 torch.nn.Conv2d)):
+            leaf, v = "kernel", _flax_layout(v)
         elif leaf == "weight":
             leaf = "scale"
         elif leaf in ("running_mean", "running_var"):

@@ -20,6 +20,18 @@
 // The TPU kernel's branch-free elu and (n, 1, C) layouts are Mosaic
 // workarounds and are dropped.
 //
+// The image head (CrossLinAttn, match_grid.py pallas_image_grid_logits and
+// pallas_image_pair_logits: the same _kernel with with_pos=False, n_true=S)
+// is a second instantiation of the same kernel, POS=false: no pv term in
+// stage 2 and no pv pointer among its arguments. The TPU kernel zero-pads
+// the S=198 (197) tokens to a multiple of Mosaic's 8-row sublane tile and
+// masks the pad rows out of the stage-2 template keys and the pooling
+// (_pad_tokens, n_true, live3). Nothing here needs that: the block loops
+// over the true S rows (the tail tile handles rows < R, the 4-row register
+// groups are guarded), and the pooled mean divides by 2S. The padding and
+// the mask are dropped. At S=198, C=64 the R=64 layout below would need
+// 259.8 KB, so the image instantiation streams R=32-row tiles (211.8 KB).
+//
 // What bounds it on the H100: about 42 MFLOP per pair at N=128, C=64 (a
 // 128 x 128 grid is ~0.69 TFLOP), on the float32 CUDA cores. Stage 2 needs
 // each direction's whole template side for its k^T v summary, so both
@@ -32,7 +44,7 @@
 // H100: 15 % faster than reading the weights through the read-only cache).
 // A thread owns a 4-row x 2-column register tile. Nothing per pair touches
 // device memory except the 2C pooled outputs. Shared memory at N=128,
-// C=64: ~225 KB (dynamic, above the 48 KB default): one 512-thread block
+// C=64, R=64: ~225 KB (dynamic, above the 48 KB default): one 512-thread block
 // per SM. The message contractions of both stages are products with a
 // [KV | Z] matrix (block-diagonal per head, zeros included), so they run on
 // the same register-tiled product as the projections and the FFN.
@@ -42,19 +54,27 @@
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int R = 64;         // rows per streamed tile
+constexpr int R_POINT = 64;   // rows per streamed tile, point head (N=128)
+constexpr int R_IMAGE = 32;   // the same for the image head (S=198 fits)
+constexpr size_t SMEM_LIMIT = 227 * 1024;   // dynamic shared memory a block may take
 constexpr int TR = 4;         // rows per thread in a dense product
 constexpr int TC = 2;         // columns per thread in a dense product
 constexpr float EPS = 1e-6f;
 constexpr float LN_EPS = 1e-5f;
 
-struct Side {
+struct Side {         // per-object factors of one side, image head
   const float* h;     // (n, N, C)
   const float* q;     // (n, N, C)   elu+1 stage-1 queries
   const float* kvz;   // (n, C, 2C)  [KV | diag(ksum) @ head mask]
   const float* a1;    // (n, N, 2C)  h @ stage1.fc1[:C]
+};
+
+struct SidePos : Side {   // point head: the same plus the position term
   const float* pv;    // (n, N, C)   stage-2 pos-MLP @ v_proj
 };
+
+template <bool POS> struct SideOf { using type = Side; };
+template <> struct SideOf<true> { using type = SidePos; };
 
 struct Tail {         // merge -> LN -> FFN -> LN weights of one stage
   const float* merge; const float* ln1s; const float* ln1b;
@@ -196,6 +216,7 @@ __device__ void split_norm(const Scratch& s, int rows, int C) {
 // Stage 1, one direction: search side (h, q, a1) against the template's kvz.
 // q @ [KV | Z] gives each head's message and its normalizer in one product
 // (KV is block-diagonal per head, Z = diag(ksum) @ head mask).
+template <int R>
 __device__ void stage1(const float* hS, const float* qS, const float* aS,
                        const float* __restrict__ kvzT, const Tail& w,
                        float* O, const Scratch& s, int N, int C) {
@@ -219,6 +240,8 @@ __device__ void stage1(const float* hS, const float* qS, const float* aS,
 // The template side is summarised into KVZ = [KV | Z] ([C][2C], shared),
 // KV[c'][c] = sum_n k[n][c'] v[n][c] within a head, Z[c'][c] = sum_n k[n][c']
 // within a head, so that the search side is one product as in stage 1.
+// pvT is the template side's position term (POS) or unused (null).
+template <int R, bool POS>
 __device__ void stage2(const float* OS, const float* OT,
                        const float* __restrict__ pvT, const Weights& w,
                        float* KVZ, float* KS, float* mx, float* sm,
@@ -231,10 +254,17 @@ __device__ void stage2(const float* OS, const float* OT,
     const int rows = min(R, N - n0);
     dense<false>(OT + n0 * C, C, C, w.kv2, C2, C2, s.Hd, C2, rows);
     __syncthreads();
-    for (int e = threadIdx.x; e < rows * C2; e += blockDim.x) {
-      const int r = e / C2, j = e - r * C2;
-      s.Hd[e] = j < C ? elu1(s.Hd[e])
-                      : s.Hd[e] + __ldg(pvT + (size_t)(n0 + r) * C + (j - C));
+    if constexpr (POS) {
+      for (int e = threadIdx.x; e < rows * C2; e += blockDim.x) {
+        const int r = e / C2, j = e - r * C2;
+        s.Hd[e] = j < C ? elu1(s.Hd[e])
+                        : s.Hd[e] + __ldg(pvT + (size_t)(n0 + r) * C + (j - C));
+      }
+    } else {            // k = elu1(.), v as it is
+      for (int e = threadIdx.x; e < rows * C; e += blockDim.x) {
+        const int r = e / C, j = e - r * C;
+        s.Hd[r * C2 + j] = elu1(s.Hd[r * C2 + j]);
+      }
     }
     __syncthreads();
     for (int e = threadIdx.x; e < C * D; e += blockDim.x) {
@@ -280,13 +310,15 @@ __device__ void stage2(const float* OS, const float* OT,
   }
 }
 
-__host__ __device__ inline size_t smem_floats(int N, int C) {
+inline size_t smem_floats(int N, int C, int R) {
   return (size_t)2 * N * C + (size_t)2 * C * C + 3 * (size_t)C + (size_t)6 * R * C
          + (size_t)2 * C * C;   // staged weights, up to C x 2C
 }
 
+template <int R, bool POS>
 __global__ void __launch_bounds__(THREADS)
-match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
+match_pooled_kernel(typename SideOf<POS>::type T, typename SideOf<POS>::type Dt,
+                    Weights w, const int* __restrict__ t_idx,
                     const int* __restrict__ d_idx, float* __restrict__ out,
                     int nt, int nd, int N, int C, int H) {
   extern __shared__ __align__(16) float smem[];
@@ -319,22 +351,26 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
   const float* qt = T.q + ti * nc;
   const float* kvzt = T.kvz + (size_t)ti * 2 * C * C;
   const float* at = T.a1 + ti * 2 * nc;
-  const float* pvt = T.pv + ti * nc;
   const float* hd = Dt.h + dj * nc;
   const float* qd = Dt.q + dj * nc;
   const float* kvzd = Dt.kvz + (size_t)dj * 2 * C * C;
   const float* ad = Dt.a1 + dj * 2 * nc;
-  const float* pvd = Dt.pv + dj * nc;
+  const float* pvt = nullptr;
+  const float* pvd = nullptr;
+  if constexpr (POS) {
+    pvt = T.pv + ti * nc;
+    pvd = Dt.pv + dj * nc;
+  }
 
-  stage1(ht, qt, at, kvzd, w.s1, O1, s, N, C);      // track -> det
-  stage1(hd, qd, ad, kvzt, w.s1, O2, s, N, C);      // det -> track
+  stage1<R>(ht, qt, at, kvzd, w.s1, O1, s, N, C);   // track -> det
+  stage1<R>(hd, qd, ad, kvzt, w.s1, O2, s, N, C);   // det -> track
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     mx[c] = -__int_as_float(0x7f800000);  // -inf
     sm[c] = 0.f;
   }
   __syncthreads();
-  stage2(O1, O2, pvd, w, KVZ, KS, mx, sm, s, N, C, D);
-  stage2(O2, O1, pvt, w, KVZ, KS, mx, sm, s, N, C, D);
+  stage2<R, POS>(O1, O2, pvd, w, KVZ, KS, mx, sm, s, N, C, D);
+  stage2<R, POS>(O2, O1, pvt, w, KVZ, KS, mx, sm, s, N, C, D);
 
   float* o = out + (size_t)p * 2 * C;
   const float inv = 1.f / (2.f * N);
@@ -344,8 +380,43 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
   }
 }
 
+Weights make_weights(const void* const* p) {
+  auto tail = [](const void* const* q) {
+    return Tail{(const float*)q[0], (const float*)q[1], (const float*)q[2],
+                (const float*)q[3], (const float*)q[4], (const float*)q[5],
+                (const float*)q[6]};
+  };
+  Weights w;
+  w.s1 = tail(p);
+  w.q2 = (const float*)p[7];
+  w.kv2 = (const float*)p[8];
+  w.s2 = tail(p + 9);
+  return w;
+}
+
+// Refuses (cudaErrorInvalidValue) a shape whose layout does not fit the
+// block's shared memory; the wrapper raises.
+template <int R, bool POS>
+int launch(typename SideOf<POS>::type T, typename SideOf<POS>::type Dt,
+           const Weights& w, const void* t_idx, const void* d_idx, void* out,
+           int nt, int nd, int P, int N, int C, int H, void* stream) {
+  if (H <= 0 || C % H != 0 || C % 4 != 0 || P <= 0 || N <= 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats(N, C, R) * sizeof(float);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      match_pooled_kernel<R, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  match_pooled_kernel<R, POS><<<P, THREADS, smem, (cudaStream_t)stream>>>(
+      T, Dt, w, (const int*)t_idx, (const int*)d_idx, (float*)out, nt, nd, N, C, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Point head: 5 factors a side (h, q, kvz, a1, pv), then the 16 weights in
+// the order s1 {merge, ln1s, ln1b, fc1, fc2, ln2s, ln2b}, q2, kv2, s2 {...}.
 extern "C" int pcr_match_pooled(
     const void* ht, const void* qt, const void* kvzt, const void* at, const void* pvt,
     const void* hd, const void* qd, const void* kvzd, const void* ad, const void* pvd,
@@ -355,26 +426,35 @@ extern "C" int pcr_match_pooled(
     const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
     const void* t_idx, const void* d_idx, void* out,
     int nt, int nd, int P, int N, int C, int H, void* stream) {
-  if (H <= 0 || C % H != 0 || C % 4 != 0 || P <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(N, C) * sizeof(float);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      match_pooled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const Side T{(const float*)ht, (const float*)qt, (const float*)kvzt,
-               (const float*)at, (const float*)pvt};
-  const Side Dt{(const float*)hd, (const float*)qd, (const float*)kvzd,
-                (const float*)ad, (const float*)pvd};
-  Weights w;
-  w.s1 = Tail{(const float*)merge1, (const float*)ln1s1, (const float*)ln1b1,
-              (const float*)fc1_1, (const float*)fc2_1, (const float*)ln2s1,
-              (const float*)ln2b1};
-  w.s2 = Tail{(const float*)merge2, (const float*)ln1s2, (const float*)ln1b2,
-              (const float*)fc1_2, (const float*)fc2_2, (const float*)ln2s2,
-              (const float*)ln2b2};
-  w.q2 = (const float*)q2;
-  w.kv2 = (const float*)kv2;
-  match_pooled_kernel<<<P, THREADS, smem, (cudaStream_t)stream>>>(
-      T, Dt, w, (const int*)t_idx, (const int*)d_idx, (float*)out, nt, nd, N, C, H);
-  return (int)cudaGetLastError();
+  SidePos T, Dt;
+  T.h = (const float*)ht; T.q = (const float*)qt; T.kvz = (const float*)kvzt;
+  T.a1 = (const float*)at; T.pv = (const float*)pvt;
+  Dt.h = (const float*)hd; Dt.q = (const float*)qd; Dt.kvz = (const float*)kvzd;
+  Dt.a1 = (const float*)ad; Dt.pv = (const float*)pvd;
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<R_POINT, true>(T, Dt, make_weights(ws), t_idx, d_idx, out,
+                               nt, nd, P, N, C, H, stream);
+}
+
+// Image head: 4 factors a side (h, q, kvz, a1), no position term; N is the
+// true token count S. The same weights in the same order.
+extern "C" int pcr_match_pooled_image(
+    const void* ht, const void* qt, const void* kvzt, const void* at,
+    const void* hd, const void* qd, const void* kvzd, const void* ad,
+    const void* merge1, const void* ln1s1, const void* ln1b1, const void* fc1_1,
+    const void* fc2_1, const void* ln2s1, const void* ln2b1, const void* q2,
+    const void* kv2, const void* merge2, const void* ln1s2, const void* ln1b2,
+    const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
+    const void* t_idx, const void* d_idx, void* out,
+    int nt, int nd, int P, int N, int C, int H, void* stream) {
+  Side T, Dt;
+  T.h = (const float*)ht; T.q = (const float*)qt; T.kvz = (const float*)kvzt;
+  T.a1 = (const float*)at;
+  Dt.h = (const float*)hd; Dt.q = (const float*)qd; Dt.kvz = (const float*)kvzd;
+  Dt.a1 = (const float*)ad;
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<R_IMAGE, false>(T, Dt, make_weights(ws), t_idx, d_idx, out,
+                                nt, nd, P, N, C, H, stream);
 }

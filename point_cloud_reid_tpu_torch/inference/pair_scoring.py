@@ -1,13 +1,18 @@
 """Track x detection pair scoring against a device-resident track cache.
 
 Port of point_cloud_reid_tpu/inference/pair_scoring.py (DeviceTrackCache,
-_round_up, PairScorer's embed / cost_matrix / cached frame functions). A
-tracking frame is one call:
+_round_up, PairScorer's embed / cost_matrix / cached frame functions, point
+and image branch). A tracking frame is one call:
 
   scatter last frame's detection features into their track slots ->
   gather this frame's track rows by slot -> crop + embed the detections ->
   score the dense grid (make_cached_frame_fn) or a gated pair list
   (make_cached_pair_frame_fn).
+
+With image_mode the crops are camera crops of the frame's images
+(tracking/image_crops.py), the embedding is the ViT's tokens through the
+per-token downsample, and there is no xyz anywhere
+(make_cached_image_frame_fn, make_cached_image_pair_frame_fn).
 
 Only the logits leave the device. The kernels run whenever the tensors are
 on CUDA (kernels/). The frame functions take their shapes from their
@@ -21,7 +26,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..kernels.match_grid import grid_logits, pair_logits
+from ..kernels.match_grid import (check_image_head, grid_logits,
+                                  image_grid_logits, image_pair_logits,
+                                  pair_logits)
 
 
 class DeviceTrackCache:
@@ -45,12 +52,16 @@ class DeviceTrackCache:
         self.xyz_buf: Optional[torch.Tensor] = None    # (cap+1, N, 3)
         self._pending: list = []
 
-    def ensure(self, n: int, c: int, dtype, device) -> None:
+    def ensure(self, n: int, c: int, dtype, device,
+               with_xyz: bool = True) -> None:
+        """Allocate the buffers at first use; the image branch keeps no
+        xyz (with_xyz=False)."""
         if self.h_buf is None:
             self.h_buf = torch.zeros((self.capacity + 1, n, c), dtype=dtype,
                                      device=device)
-            self.xyz_buf = torch.zeros((self.capacity + 1, n, 3),
-                                       dtype=torch.float32, device=device)
+            if with_xyz:
+                self.xyz_buf = torch.zeros((self.capacity + 1, n, 3),
+                                           dtype=torch.float32, device=device)
 
     def slot(self, track_id: int) -> int:
         return self._slots[int(track_id)]
@@ -117,25 +128,38 @@ def _round_up(n: int, sizes=(8, 16, 32, 64, 128, 256, 512)) -> int:
 
 
 class PairScorer:
-    """N x M match scoring on top of the flagship ReIDNet.
+    """N x M match scoring on top of the flagship ReIDNet or, with
+    image_mode, of an ImageReIDNet.
 
     Args:
-        model: an eval-mode ReIDNet (models.build_model). The frame's
-            tensors live on its device: CUDA runs the kernels, the CPU their
-            plain versions.
+        model: an eval-mode ReIDNet or ImageReIDNet (models.build_model).
+            The frame's tensors live on its device: CUDA runs the kernels,
+            the CPU their plain versions.
+        image_mode: score camera crops; no xyz anywhere. The model's match
+            head must be the chain the image kernel computes
+            (kernels.match_grid.check_image_head raises otherwise: nothing
+            is rerouted).
     """
 
-    def __init__(self, model):
+    def __init__(self, model, image_mode: bool = False):
         self.model = model
+        self.image_mode = image_mode
+        if image_mode:
+            check_image_head(model)
         self.device = next(model.parameters()).device
         # the last cached frame's scoring inputs and output: h_t, xyz_t,
-        # h_d, xyz_d, logits, and pairs ((pair_t, pair_d) or None for a
-        # dense frame), so a caller can check a frame against plain scoring
+        # h_d, xyz_d (xyz None in image mode), logits, and pairs ((pair_t,
+        # pair_d) or None for a dense frame), so a caller can check a frame
+        # against plain scoring
         self.last_frame: Optional[dict] = None
 
     @torch.no_grad()
     def embed(self, crops: torch.Tensor):
-        """(B, N, 3) crops -> (xyz (B, N, 3), h (B, N, C))."""
+        """(B, N, 3) crops -> (xyz (B, N, 3), h (B, N, C)); image mode:
+        (B, 3, H, W) crops -> (None, h (B, S, C)), the ViT's tokens through
+        the per-token downsample."""
+        if self.image_mode:
+            return None, self.model.downsample_tokens(self.model.embed(crops))
         return self.model.embed(crops)
 
     @torch.no_grad()
@@ -144,7 +168,8 @@ class PairScorer:
                     det_classes: Optional[np.ndarray] = None
                     ) -> torch.Tensor:
         """(n_tracks, n_dets) logits; class-mismatched pairs get -inf.
-        Both sides are zero-padded to _round_up buckets first."""
+        Both sides are zero-padded to _round_up buckets first. In image mode
+        xyz_tracks and xyz_dets are None."""
         nt, nd = h_tracks.shape[0], h_dets.shape[0]
         nt_p, nd_p = _round_up(nt), _round_up(nd)
 
@@ -154,9 +179,13 @@ class PairScorer:
             return torch.cat([x, x.new_zeros((n - x.shape[0],)
                                              + tuple(x.shape[1:]))])
 
-        mat = grid_logits(self.model, pad0(h_tracks, nt_p),
-                          pad0(xyz_tracks, nt_p), pad0(h_dets, nd_p),
-                          pad0(xyz_dets, nd_p))[:nt, :nd]
+        if self.image_mode:
+            mat = image_grid_logits(self.model, pad0(h_tracks, nt_p),
+                                    pad0(h_dets, nd_p))[:nt, :nd]
+        else:
+            mat = grid_logits(self.model, pad0(h_tracks, nt_p),
+                              pad0(xyz_tracks, nt_p), pad0(h_dets, nd_p),
+                              pad0(xyz_dets, nd_p))[:nt, :nd]
         if track_classes is not None and det_classes is not None:
             ok = torch.as_tensor(np.asarray(track_classes)[:, None]
                                  == np.asarray(det_classes)[None, :],
@@ -219,4 +248,81 @@ class PairScorer:
             logits = pair_logits(model, *inputs, pair_t, pair_d)
             self._record(inputs, logits, (pair_t, pair_d))
             return h_buf, xyz_buf, logits, inputs[2], inputs[3]
+        return frame
+
+    # ---- image branch ---------------------------------------------------------
+
+    @staticmethod
+    def _device_crops(images, l2cams, intrins, boxes, image_size,
+                      output_size):
+        """Camera crops of a frame's boxes on the images' device. uint8
+        frames are taken as they are: the crops gather uint8 rows and
+        convert only the picked pixels."""
+        # tracking/ imports this module: import its crops at call time
+        from ..tracking.image_crops import crops_per_frame
+        crops, _ = crops_per_frame(images, l2cams, intrins, boxes,
+                                   image_size=image_size,
+                                   output_size=output_size)
+        return crops
+
+    def _image_frame_inputs(self, h_buf, prev_h, upd_src, upd_dst, slot_idx,
+                            images, l2cams, intrins, boxes, image_size,
+                            output_size):
+        """Scatter / gather / camera crops / embed of both image frame
+        functions. The cache buffer is updated in place."""
+        h_buf[upd_dst] = prev_h[upd_src]
+        h_t = h_buf[slot_idx]
+        crops = self._device_crops(images, l2cams, intrins, boxes,
+                                   image_size, output_size)
+        _, h_d = self.embed(crops)
+        return h_t, h_d
+
+    def _record_image(self, h_t, h_d, logits, pairs):
+        self.last_frame = dict(h_t=h_t, xyz_t=None, h_d=h_d, xyz_d=None,
+                               logits=logits, pairs=pairs)
+
+    def make_cached_image_frame_fn(self, image_size, output_size):
+        """Dense image frame against a DeviceTrackCache: scatter last
+        frame's detection tokens into their track slots, gather this frame's
+        track rows, project the boxes into the cameras, crop, embed, score
+        the grid.
+
+        Returns fn(h_buf, prev_h, upd_src (d_prev_pad,), upd_dst, slot_idx
+        (t_pad,), images (ncam, 3, H, W) float32 or uint8, lidar2cams
+        (ncam, 4, 4), intrinsics (ncam, 3, 3), boxes (d_pad, 7)) ->
+        (h_buf, logits (t_pad, d_pad), h_dets). image_size is (W, H)."""
+        if not self.image_mode:
+            raise RuntimeError("image frame functions need image_mode=True")
+        sizes = tuple(image_size), tuple(output_size)
+
+        @torch.no_grad()
+        def frame(h_buf, prev_h, upd_src, upd_dst, slot_idx, images, l2cams,
+                  intrins, boxes):
+            h_t, h_d = self._image_frame_inputs(
+                h_buf, prev_h, upd_src, upd_dst, slot_idx, images, l2cams,
+                intrins, boxes, *sizes)
+            logits = image_grid_logits(self.model, h_t, h_d)
+            self._record_image(h_t, h_d, logits, None)
+            return h_buf, logits, h_d
+        return frame
+
+    def make_cached_image_pair_frame_fn(self, image_size, output_size):
+        """Gated sparse image frame: the same plumbing, but only an explicit
+        pair list is scored. Returns fn(h_buf, prev_h, upd_src, upd_dst,
+        slot_idx, pair_t (p_pad,), pair_d (p_pad,), images, lidar2cams,
+        intrinsics, boxes) -> (h_buf, logits (p_pad,), h_dets). Padded pairs
+        point at (0, 0); the caller drops them."""
+        if not self.image_mode:
+            raise RuntimeError("image frame functions need image_mode=True")
+        sizes = tuple(image_size), tuple(output_size)
+
+        @torch.no_grad()
+        def frame(h_buf, prev_h, upd_src, upd_dst, slot_idx, pair_t, pair_d,
+                  images, l2cams, intrins, boxes):
+            h_t, h_d = self._image_frame_inputs(
+                h_buf, prev_h, upd_src, upd_dst, slot_idx, images, l2cams,
+                intrins, boxes, *sizes)
+            logits = image_pair_logits(self.model, h_t, h_d, pair_t, pair_d)
+            self._record_image(h_t, h_d, logits, (pair_t, pair_d))
+            return h_buf, logits, h_d
         return frame

@@ -38,12 +38,17 @@ _SIGNATURES = {
     # 10 per-object factor pointers (track h,q,kvz,a1,pv then det), 16
     # weight pointers, t_idx, d_idx, out, nt, nd, P, N, C, H, stream
     "pcr_match_pooled": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 6 + [_P],
+    # the same for the image head: 8 factor pointers (h,q,kvz,a1 a side)
+    "pcr_match_pooled_image": [_P] * 8 + [_P] * 16 + [_P] * 3 + [_I] * 6
+                              + [_P],
     # q, db, out, B, S, N, k, stream
     "pcr_knn": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
     # in elements), eps, stream
     "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9
                             + [ctypes.c_float, _P],
+    # xyz, start, out, B, N, npoint, stream
+    "pcr_fps": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -9,6 +9,14 @@ cross linear attention in both directions, point-cat max+avg pooling -- is
 one CUDA kernel (csrc/match_grid.cu) that serves both index modes. The match
 head on the pooled features stays plain torch, as in JAX.
 
+The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
+image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
+pallas_image_pair_logits) is the same chain without any position term: a
+side is four tensors (h, q, kvz, a1), not five, and the kernel's second
+instantiation scores it over the true token count S. The TPU kernel's
+8-row token padding and its in-kernel mask (_pad_tokens, n_true) are
+Mosaic workarounds and are dropped.
+
 On CPU tensors the wrappers run `match_pooled_reference`, the plain version
 of the kernel; on CUDA tensors they launch the kernel; any other device
 raises. The 1/N value pre-scale and the xN message rescale of
@@ -33,12 +41,34 @@ _WEIGHT_ORDER = (("w1", "merge"), ("w1", "ln1_scale"), ("w1", "ln1_bias"),
                  ("w2", "fc1"), ("w2", "fc2"), ("w2", "ln2_scale"),
                  ("w2", "ln2_bias"))
 
-Side = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-             torch.Tensor]
+# (h, q, kvz, a1, pv) for the point head, (h, q, kvz, a1) for the image head
+Side = Tuple[torch.Tensor, ...]
+_PARTS = ("h", "q", "kvz", "a1", "pv")
+# rows per streamed tile of the kernel's two instantiations (csrc/match_grid.cu)
+_TILE_ROWS = {5: 64, 4: 32}
+_SMEM_LIMIT = 227 * 1024
 
 
 def _elu1(x: torch.Tensor) -> torch.Tensor:
     return F.elu(x) + 1.0
+
+
+def _stage1_factors(stage1, h: torch.Tensor, v_in: torch.Tensor, nhead: int):
+    """Per-object stage-1 factors (q, kvz, a1); the point and the image head
+    differ only in what feeds v_proj: h + pos_mlp(xyz) or plain h."""
+    n, N, C = h.shape
+    D = C // nhead
+    q = _elu1(stage1.q_proj(h))
+    k = _elu1(stage1.k_proj(h))
+    v = stage1.v_proj(v_in)
+    kv = torch.einsum("bnc,bnd->bcd", k, v)
+    heads = torch.arange(C, device=h.device) // D
+    gmask = (heads[:, None] == heads[None, :]).to(h.dtype)
+    kv = kv * gmask
+    zmat = k.sum(dim=1)[:, :, None] * gmask[None]
+    kvz = torch.cat([kv, zmat], dim=-1)
+    a1 = h @ stage1.mlp[0].weight[:, :C].t()
+    return q, kvz, a1
 
 
 def grid_factors(stage1, stage2, h: torch.Tensor, xyz: torch.Tensor,
@@ -53,20 +83,16 @@ def grid_factors(stage1, stage2, h: torch.Tensor, xyz: torch.Tensor,
              FFN's first layer;
         pv:  (n, N, C)  stage-2 pos-MLP(xyz) @ v_proj.
     """
-    n, N, C = h.shape
-    D = C // nhead
-    q = _elu1(stage1.q_proj(h))
-    k = _elu1(stage1.k_proj(h))
-    v = stage1.v_proj(h + stage1.pos_mlp(xyz))
-    kv = torch.einsum("bnc,bnd->bcd", k, v)
-    heads = torch.arange(C, device=h.device) // D
-    gmask = (heads[:, None] == heads[None, :]).to(h.dtype)
-    kv = kv * gmask
-    zmat = k.sum(dim=1)[:, :, None] * gmask[None]
-    kvz = torch.cat([kv, zmat], dim=-1)
-    a1 = h @ stage1.mlp[0].weight[:, :C].t()
+    q, kvz, a1 = _stage1_factors(stage1, h, h + stage1.pos_mlp(xyz), nhead)
     pv = stage2.v_proj(stage2.pos_mlp(xyz))
     return tuple(x.contiguous() for x in (h, q, kvz, a1, pv))
+
+
+def image_grid_factors(stage1, h: torch.Tensor, nhead: int) -> Side:
+    """Per-object factors of the image head (CrossLinAttn has no pos-MLP):
+    (h, q, kvz, a1) as in grid_factors, over the true token count."""
+    q, kvz, a1 = _stage1_factors(stage1, h, h, nhead)
+    return tuple(x.contiguous() for x in (h, q, kvz, a1))
 
 
 def stage_weights(stage1, stage2) -> Tuple[Dict[str, torch.Tensor],
@@ -113,7 +139,7 @@ def _stage2(search, template, pv, w, nhead):
     q = _elu1(search @ w["q"])
     tkv = template @ w["kv"]
     k = _elu1(tkv[..., :C])
-    v = tkv[..., C:] + pv
+    v = tkv[..., C:] if pv is None else tkv[..., C:] + pv
     heads = torch.arange(C, device=search.device) // D
     gmask = (heads[:, None] == heads[None, :]).to(search.dtype)
     kv = torch.einsum("pnc,pnd->pcd", k, v) * gmask
@@ -122,8 +148,10 @@ def _stage2(search, template, pv, w, nhead):
 
 
 def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
-    ht, qt, kvzt, at, pvt = t
-    hd, qd, kvzd, ad, pvd = d
+    ht, qt, kvzt, at = t[:4]
+    hd, qd, kvzd, ad = d[:4]
+    pvt = t[4] if len(t) == 5 else None      # image head: no position term
+    pvd = d[4] if len(d) == 5 else None
     C = ht.shape[-1]
     o1a = _ffn(ht, _split_norm(qt @ kvzd, C), at, w1)
     o2a = _ffn(hd, _split_norm(qd @ kvzt, C), ad, w1)
@@ -160,7 +188,11 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
                            t_idx: torch.Tensor, d_idx: torch.Tensor
                            ) -> torch.Tensor:
     """Plain version of the kernel: (P, 2C) pooled [max || avg] features of
-    the pairs (t_idx[p], d_idx[p]), computed in chunks of pairs."""
+    the pairs (t_idx[p], d_idx[p]), computed in chunks of pairs. Sides of
+    five tensors are the point head's, sides of four the image head's."""
+    if len(t) != len(d) or len(t) not in _TILE_ROWS:
+        raise ValueError(f"sides of {len(t)} and {len(d)} tensors: want 5 "
+                         "(point head) or 4 (image head) on both")
     check_pair_range(t_idx, d_idx, t[0].shape[0], d[0].shape[0])
     outs = []
     for lo in range(0, t_idx.shape[0], _PLAIN_CHUNK):
@@ -176,7 +208,7 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
 def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
     n = side[0].shape[0]
     shapes = ((n, N, C), (n, N, C), (n, C, 2 * C), (n, N, 2 * C), (n, N, C))
-    for x, want, part in zip(side, shapes, ("h", "q", "kvz", "a1", "pv")):
+    for x, want, part in zip(side, shapes, _PARTS):
         if (tuple(x.shape) != want or x.dtype != torch.float32
                 or not x.is_contiguous() or x.device != device
                 or x.data_ptr() % 16):
@@ -186,16 +218,23 @@ def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
     return n
 
 
-def _launch(counter, t: Side, d: Side, w1, w2, nhead: int,
+def _launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
             t_idx: Optional[torch.Tensor], d_idx: Optional[torch.Tensor]):
-    """Check the inputs, launch the kernel and add one to
-    `counter.launches` once the launch succeeded."""
+    """Check the inputs, launch the kernel's instantiation for sides of
+    `parts` tensors and add one to `counter.launches` once the launch
+    succeeded."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
     if C % nhead or C % 4:
         raise ValueError(f"C={C} must be a multiple of 4 and of nhead={nhead}")
     nt = _check_side(t, N, C, device, "track")
     nd = _check_side(d, N, C, device, "det")
+    # the kernel's shared-memory layout (smem_floats in csrc/match_grid.cu)
+    smem = 4 * (2 * N * C + 4 * C * C + 3 * C + 6 * _TILE_ROWS[parts] * C)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"{N} rows x {C} channels need {smem} bytes of shared memory a "
+            f"block, more than the {_SMEM_LIMIT} the kernel may take")
     ws = {"w1": w1, "w2": w2}
     weights = [ws[g][k] for g, k in _WEIGHT_ORDER]
     for (g, k), x in zip(_WEIGHT_ORDER, weights):
@@ -220,17 +259,24 @@ def _launch(counter, t: Side, d: Side, w1, w2, nhead: int,
     if P == 0:
         return out
     lib = _lib.LIBRARY.get()
-    err = lib.pcr_match_pooled(
+    entry = "pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image"
+    err = getattr(lib, entry)(
         *[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
         *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr(),
         nt, nd, P, N, C, nhead, _lib.stream_ptr(device))
-    _lib.check(err, "pcr_match_pooled")
+    _lib.check(err, entry)
     counter.launches += 1
     return out
 
 
-def fused_match_grid(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
-    """All-pairs pooled match features: (nt, nd, 2C)."""
+def _check_parts(parts: int, t: Side, d: Side) -> None:
+    if len(t) != parts or len(d) != parts:
+        raise ValueError(f"want sides of {parts} tensors {_PARTS[:parts]}, "
+                         f"got {len(t)} and {len(d)}")
+
+
+def _grid(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int):
+    _check_parts(parts, t, d)
     device = t[0].device
     if device.type == "cpu":
         nt, nd = t[0].shape[0], d[0].shape[0]
@@ -239,28 +285,57 @@ def fused_match_grid(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
         return match_pooled_reference(t, d, w1, w2, nhead, ti, di
                                       ).reshape(nt, nd, -1)
     if device.type != "cuda":
-        raise RuntimeError(f"fused_match_grid: no kernel for {device}")
-    return _launch(fused_match_grid, t, d, w1, w2, nhead, None, None)
+        raise RuntimeError(f"{counter.__name__}: no kernel for {device}")
+    return _launch(counter, parts, t, d, w1, w2, nhead, None, None)
+
+
+def _pairs(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
+           t_idx: torch.Tensor, d_idx: torch.Tensor):
+    _check_parts(parts, t, d)
+    device = t[0].device
+    if device.type == "cpu":
+        return match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
+    if device.type != "cuda":
+        raise RuntimeError(f"{counter.__name__}: no kernel for {device}")
+    return _launch(counter, parts, t, d, w1, w2, nhead,
+                   t_idx.to(torch.int32).contiguous(),
+                   d_idx.to(torch.int32).contiguous())
+
+
+def fused_match_grid(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
+    """All-pairs pooled match features of the point head: (nt, nd, 2C)."""
+    return _grid(fused_match_grid, 5, t, d, w1, w2, nhead)
 
 
 def fused_match_pairs(t: Side, d: Side, w1, w2, nhead: int,
                       t_idx: torch.Tensor, d_idx: torch.Tensor
                       ) -> torch.Tensor:
-    """Pair-list pooled match features: row p scores (t_idx[p], d_idx[p]),
-    read straight from the per-object factors. Returns (P, 2C). Indices
-    outside [0, nt) x [0, nd) raise IndexError on either device."""
-    device = t[0].device
-    if device.type == "cpu":
-        return match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
-    if device.type != "cuda":
-        raise RuntimeError(f"fused_match_pairs: no kernel for {device}")
-    return _launch(fused_match_pairs, t, d, w1, w2, nhead,
-                   t_idx.to(torch.int32).contiguous(),
-                   d_idx.to(torch.int32).contiguous())
+    """Pair-list pooled match features of the point head: row p scores
+    (t_idx[p], d_idx[p]), read straight from the per-object factors. Returns
+    (P, 2C). Indices outside [0, nt) x [0, nd) raise IndexError on either
+    device."""
+    return _pairs(fused_match_pairs, 5, t, d, w1, w2, nhead, t_idx, d_idx)
+
+
+def fused_image_match_grid(t: Side, d: Side, w1, w2, nhead: int
+                           ) -> torch.Tensor:
+    """fused_match_grid for the image head: sides of four tensors
+    (image_grid_factors), S tokens a side, no position term."""
+    return _grid(fused_image_match_grid, 4, t, d, w1, w2, nhead)
+
+
+def fused_image_match_pairs(t: Side, d: Side, w1, w2, nhead: int,
+                            t_idx: torch.Tensor, d_idx: torch.Tensor
+                            ) -> torch.Tensor:
+    """fused_match_pairs for the image head."""
+    return _pairs(fused_image_match_pairs, 4, t, d, w1, w2, nhead, t_idx,
+                  d_idx)
 
 
 fused_match_grid.launches = 0
 fused_match_pairs.launches = 0
+fused_image_match_grid.launches = 0
+fused_image_match_pairs.launches = 0
 
 
 # ---- model-level scorers ---------------------------------------------------------
@@ -297,4 +372,51 @@ def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
                                   h_d[d_idx.long()], xyz_d[d_idx.long()])[0]
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    return model.match_head(pooled)[:, 0]
+
+
+def check_image_head(model) -> None:
+    """Raise unless `model` is an ImageReIDNet whose match head is the chain
+    the kernel computes: xcorr_eff over two linear cross_lin_attn stages,
+    point-cat, max+avg pooling."""
+    if type(model).__name__ != "ImageReIDNet":
+        raise TypeError(f"image scoring needs an ImageReIDNet, got "
+                        f"{type(model).__name__}")
+    head = (model.match_type, model.combine, model.pool_type,
+            type(model.cross_stage1).__name__, model.cross_stage1.attention)
+    want = ("xcorr_eff", "point-cat", "both", "CrossLinAttn", "linear")
+    if head != want:
+        raise NotImplementedError(
+            f"the image match kernel computes {want}, this model is {head}; "
+            "score it with ImageReIDNet.match_logits_grid")
+
+
+def image_match_factors(model, h_t, h_d):
+    """(track factors, det factors, w1, w2, nhead) of an ImageReIDNet's
+    cross stages: the image kernel's inputs."""
+    s1, s2 = model.cross_stage1, model.cross_stage2
+    nhead = s1.nhead
+    t = image_grid_factors(s1, h_t, nhead)
+    d = image_grid_factors(s1, h_d, nhead)
+    w1, w2 = stage_weights(s1, s2)
+    return t, d, w1, w2, nhead
+
+
+def image_grid_logits(model, h_t, h_d) -> torch.Tensor:
+    """Factors -> fused image grid kernel -> match head: (nt, nd) logits of
+    (nt/nd, S, C) downsampled token features. Drop-in equivalent of
+    ImageReIDNet.match_logits_grid for the head check_image_head accepts."""
+    check_image_head(model)
+    t, d, w1, w2, nhead = image_match_factors(model, h_t, h_d)
+    pooled = fused_image_match_grid(t, d, w1, w2, nhead)
+    nt, nd = pooled.shape[:2]
+    return model.match_head(pooled.reshape(nt * nd, -1))[:, 0].reshape(nt, nd)
+
+
+def image_pair_logits(model, h_t, h_d, t_idx, d_idx) -> torch.Tensor:
+    """Gated sparse image scoring: (P,) logits of the listed (track, det)
+    pairs, equal to image_grid_logits(...)[t_idx, d_idx]."""
+    check_image_head(model)
+    t, d, w1, w2, nhead = image_match_factors(model, h_t, h_d)
+    pooled = fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]

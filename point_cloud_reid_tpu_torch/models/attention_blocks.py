@@ -2,6 +2,7 @@
 
   SelfAttentionBlock   <- Self_Attention        (pointnet2_utils.py:55-114)
   CrossAttentionBlock  <- corss_attention [sic] (attention.py:157-219)
+  CrossLinAttn         <- cross_lin_attn        (attention.py:312-370)
   FPSA                 <- FP_SA                 (pointnet2_utils.py:362-437)
 
 Attribute names are the reference state-dict names (pos_mlp.{0,2},
@@ -23,8 +24,8 @@ def _attn_fn(kind: str):
     composite; 'linear-pallas' (the JAX package's name for its fused kernel,
     kept so one config drives both packages) is the hand-written CUDA kernel
     of kernels/linear_attention.py. No block of the point path passes masks;
-    they and 'full' (softmax attention) come with the models that use
-    them."""
+    nor does the image head's; they and 'full' (softmax attention) come
+    with the models that use them."""
     if kind == "linear":
         return linear_attention
     if kind == "linear-pallas":
@@ -33,7 +34,7 @@ def _attn_fn(kind: str):
     if kind == "full":
         raise NotImplementedError(
             "attention 'full' (softmax) is not ported yet: it comes with "
-            "the image branch and the rest of the model zoo (M5, M7)")
+            "the rest of the model zoo (M7)")
     raise ValueError(f"unknown attention {kind!r}")
 
 
@@ -82,25 +83,22 @@ class SelfAttentionBlock(nn.Module):
         return feat + msg
 
 
-class CrossAttentionBlock(nn.Module):
-    """Cross-attention whose positional encoding enters through the template
-    VALUES only (the reference's asymmetry, attention.py:203-209).
-
-    Besides forward, the decomposed pair-grid path of the JAX block:
-      query_features     Q' = elu(q_proj(search)) + 1           per object
-      template_summary   KV = K'^T (V / S), Ksum = sum_s K'      per object
-      finish_from_summary msg = (Q' KV) / (Q' Ksum + eps) * S, then the
-                          merge / LN / FFN tail                  per pair
-    """
+class _CrossDecomposable(nn.Module):
+    """What the two cross-attention blocks share: the projections, the
+    merge / LN / FFN tail, and the pair-grid decomposition of linear
+    attention (queries and the finish-from-summary step; only
+    template_summary differs, the point block adds the pos-MLP to the
+    values)."""
 
     def __init__(self, d_model: int, nhead: int = 2,
-                 attention: str = "linear"):
+                 attention: str = "linear", with_pos: bool = False):
         super().__init__()
         d = d_model
         self.nhead = nhead
         self.attention = attention
         self.attn = _attn_fn(attention)
-        self.pos_mlp = pos_mlp(d)
+        if with_pos:     # first, so a seeded init draws in the same order
+            self.pos_mlp = pos_mlp(d)
         self.q_proj = nn.Linear(d, d, bias=False)
         self.k_proj = nn.Linear(d, d, bias=False)
         self.v_proj = nn.Linear(d, d, bias=False)
@@ -114,30 +112,16 @@ class CrossAttentionBlock(nn.Module):
         h = self.mlp(torch.cat([search_feat, msg], dim=-1))
         return search_feat + self.norm2(h)
 
-    def forward(self, search_feat, search_xyz, template_feat, template_xyz,
-                template_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """template_pos: optional precomputed pos_mlp(template_xyz)."""
-        if template_pos is None:
-            template_pos = self.pos_mlp(template_xyz)
-        template_pos = template_feat + template_pos
-        q = _split_heads(self.q_proj(search_feat), self.nhead)
-        k = _split_heads(self.k_proj(template_feat), self.nhead)
-        v = _split_heads(self.v_proj(template_pos), self.nhead)
-        return self._ffn(search_feat, _merge_heads(self.attn(q, k, v)))
-
     def query_features(self, search_feat: torch.Tensor) -> torch.Tensor:
         """(B, N, H, D) = elu(q_proj(search)) + 1."""
         return elu_feature_map(_split_heads(self.q_proj(search_feat),
                                             self.nhead))
 
-    def template_summary(self, template_feat: torch.Tensor,
-                         template_xyz: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """KV (B, H, D, V) with the 1/S value pre-scale, Ksum (B, H, D)."""
-        template_pos = template_feat + self.pos_mlp(template_xyz)
+    def _summary(self, template_feat: torch.Tensor, value_in: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         k = elu_feature_map(_split_heads(self.k_proj(template_feat),
                                          self.nhead))
-        v = _split_heads(self.v_proj(template_pos), self.nhead)
+        v = _split_heads(self.v_proj(value_in), self.nhead)
         s = v.shape[1]
         kv = torch.einsum("nshd,nshv->nhdv", k, v / s)
         return kv, k.sum(dim=1)
@@ -149,6 +133,57 @@ class CrossAttentionBlock(nn.Module):
         z = 1.0 / (torch.einsum("nlhd,nhd->nlh", queries, ksum) + eps)
         msg = torch.einsum("nlhd,nhdv,nlh->nlhv", queries, kv, z) * v_length
         return self._ffn(search_feat, _merge_heads(msg))
+
+
+class CrossAttentionBlock(_CrossDecomposable):
+    """Cross-attention whose positional encoding enters through the template
+    VALUES only (the reference's asymmetry, attention.py:203-209).
+
+    Besides forward, the decomposed pair-grid path of the JAX block:
+      query_features     Q' = elu(q_proj(search)) + 1           per object
+      template_summary   KV = K'^T (V / S), Ksum = sum_s K'      per object
+      finish_from_summary msg = (Q' KV) / (Q' Ksum + eps) * S, then the
+                          merge / LN / FFN tail                  per pair
+    """
+
+    def __init__(self, d_model: int, nhead: int = 2,
+                 attention: str = "linear"):
+        super().__init__(d_model, nhead, attention, with_pos=True)
+
+    def forward(self, search_feat, search_xyz, template_feat, template_xyz,
+                template_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """template_pos: optional precomputed pos_mlp(template_xyz)."""
+        if template_pos is None:
+            template_pos = self.pos_mlp(template_xyz)
+        template_pos = template_feat + template_pos
+        q = _split_heads(self.q_proj(search_feat), self.nhead)
+        k = _split_heads(self.k_proj(template_feat), self.nhead)
+        v = _split_heads(self.v_proj(template_pos), self.nhead)
+        return self._ffn(search_feat, _merge_heads(self.attn(q, k, v)))
+
+    def template_summary(self, template_feat: torch.Tensor,
+                         template_xyz: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """KV (B, H, D, V) with the 1/S value pre-scale, Ksum (B, H, D)."""
+        return self._summary(template_feat,
+                             template_feat + self.pos_mlp(template_xyz))
+
+
+class CrossLinAttn(_CrossDecomposable):
+    """Cross-attention without positions, for image token sequences (the
+    reference builds a pos_mlp here and never uses it; it is left out). The
+    same decomposed pair-grid path as CrossAttentionBlock."""
+
+    def forward(self, search_feat, template_feat) -> torch.Tensor:
+        q = _split_heads(self.q_proj(search_feat), self.nhead)
+        k = _split_heads(self.k_proj(template_feat), self.nhead)
+        v = _split_heads(self.v_proj(template_feat), self.nhead)
+        return self._ffn(search_feat, _merge_heads(self.attn(q, k, v)))
+
+    def template_summary(self, template_feat: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """KV (B, H, D, V) with the 1/S value pre-scale, Ksum (B, H, D)."""
+        return self._summary(template_feat, template_feat)
 
 
 class FPSA(nn.Module):

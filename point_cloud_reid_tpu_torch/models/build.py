@@ -1,6 +1,7 @@
 """Model factory: config dict -> eval-mode nn.Module on a device.
 
-Port of point_cloud_reid_tpu/models/build.py for type 'ReIDNet'. Weights
+Port of point_cloud_reid_tpu/models/build.py for the types 'ReIDNet' (points)
+and 'ImageReIDNet' (camera crops). Weights
 are drawn from an explicit torch.Generator on the CPU and then moved, so a
 seed gives the same model on every device.
 """
@@ -12,7 +13,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
+from .image_reid import ImageReIDNet
 from .reid_net import ReIDNet
+from .vit import ViT
 
 
 @torch.no_grad()
@@ -20,7 +23,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: Linear weights and biases U(-1/sqrt(in),
     1/sqrt(in)) (PyTorch's default bounds); norm scales 1 + 0.1 N(0, 1) and
     shifts 0.1 N(0, 1); BatchNorm running means 0.1 N(0, 1) and variances
-    U(0.5, 1.5), so the folded BN affines are not the identity."""
+    U(0.5, 1.5), so the folded BN affines are not the identity. A ViT's
+    patch embedding is drawn like a Linear over its fan-in, its tokens,
+    position embedding and relative-position table 0.02 N(0, 1); its
+    LayerScale factors keep their 0.1."""
     def normal(t):
         return torch.randn(t.shape, generator=generator, dtype=t.dtype)
 
@@ -29,11 +35,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                            dtype=t.dtype)
 
     for m in model.modules():
-        if isinstance(m, nn.Linear):
-            bound = 1.0 / math.sqrt(m.in_features)
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.copy_(uniform(m.weight, -bound, bound))
             if m.bias is not None:
                 m.bias.copy_(uniform(m.bias, -bound, bound))
+        elif isinstance(m, ViT):
+            for p in (m.cls_token, m.dist_token, m.pos_embed,
+                      m.rel_pos_table):
+                if p is not None:
+                    p.copy_(0.02 * normal(p))
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
             m.weight.copy_(1.0 + 0.1 * normal(m.weight))
             m.bias.copy_(0.1 * normal(m.bias))
@@ -42,15 +53,18 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.copy_(uniform(m.running_var, 0.5, 1.5))
 
 
+_TYPES = {"ReIDNet": ReIDNet, "ImageReIDNet": ImageReIDNet}
+
+
 def build_model(cfg: Dict[str, Any], device: Optional[torch.device] = None,
-                generator: Optional[torch.Generator] = None) -> ReIDNet:
+                generator: Optional[torch.Generator] = None) -> nn.Module:
     """Build the model of `cfg` in float32 eval mode on `device`, with
     weights from `generator` (a CPU generator; seed 0 when omitted)."""
     cfg = dict(cfg)
     t = cfg.pop("type", "ReIDNet")
-    if t != "ReIDNet":
+    if t not in _TYPES:
         raise NotImplementedError(f"model type {t}")
-    model = ReIDNet(**cfg)
+    model = _TYPES[t](**cfg)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -6,7 +6,10 @@ Port of point_cloud_reid_tpu/models/point_transformer.py:
      MLP (3x Conv-BN-ReLU) + max over neighbours, then a linear
      self-attention block. In eval mode the MLP and the max run through
      kernels/sa_stage (the CUDA kernel on the card); in train mode they are
-     plain autograd code with batch statistics.
+     plain autograd code with batch statistics. A stage built with
+     sampling="FPS" picks its centres by farthest point sampling
+     (kernels/fps on the card) and, as in the JAX module, runs the plain
+     chain in both modes: the fused SA kernel's centres are the first n.
   3x FeaturePropagationSA  attention upsampling from coarse to fine.
   cov_final                pointwise Linear -> (B, N, conv_out).
 
@@ -24,7 +27,7 @@ import torch.nn as nn
 
 from ..kernels.sa_stage import sa_stage_inference
 from ..ops.geometry import (conv1_edge_factors, index_points, knn_indices,
-                            sample_and_group_edge)
+                            sample_and_group_edge, sample_centers)
 from .attention_blocks import FPSA, SelfAttentionBlock
 from .layers import BatchNorm
 
@@ -34,10 +37,13 @@ class SetAbstractionEdgeSA(nn.Module):
     width 3 + 2D (3 when the stage has no input features)."""
 
     def __init__(self, mlp: Sequence[int], nsample: int,
-                 knn_method: str = "argsort"):
+                 knn_method: str = "argsort", sampling: str = "RANDOM"):
         super().__init__()
+        if sampling not in ("RANDOM", "FPS"):
+            raise ValueError(f"unknown sampling {sampling}")
         self.nsample = nsample
         self.knn_method = knn_method
+        self.sampling = sampling
         self.mlp_convs = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(mlp[:-1], mlp[1:]))
         self.mlp_bns = nn.ModuleList(BatchNorm(b) for b in mlp[1:])
@@ -47,8 +53,8 @@ class SetAbstractionEdgeSA(nn.Module):
                 numpoints: int, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz (B, N, 3); points (B, N, D) or None -> (B, S, 3), (B, S, C)."""
-        if train:
-            new_xyz, h = self._train_chain(xyz, points, numpoints)
+        if train or self.sampling != "RANDOM":
+            new_xyz, h = self._plain_chain(xyz, points, numpoints, train)
             return new_xyz, self.self_attention(h, new_xyz)
         cidx = torch.arange(numpoints, device=xyz.device).clamp(
             max=xyz.shape[1] - 1)
@@ -61,29 +67,30 @@ class SetAbstractionEdgeSA(nn.Module):
                                eps=self.mlp_bns[0].eps)
         return new_xyz, self.self_attention(h, new_xyz)
 
-    def _train_chain(self, xyz, points, numpoints):
-        """Train-mode edge MLP with batch statistics and the max over K.
-        With input features the first conv runs in factored form
-        (conv1_edge_factors: one C-wide gather, the edge tensor is never
-        built); without them (the first stage) the 3-wide edge tensor is
-        built and convolved, as in the JAX stage."""
+    def _plain_chain(self, xyz, points, numpoints, train: bool):
+        """The unfused edge MLP (conv + BatchNorm + ReLU, with batch
+        statistics when train) and the max over K. With input features the
+        first conv runs in factored form (conv1_edge_factors: one C-wide
+        gather, the edge tensor is never built); without them (the first
+        stage) the 3-wide edge tensor is built and convolved, as in the JAX
+        stage."""
         conv1, bn1 = self.mlp_convs[0], self.mlp_bns[0]
         if points is None:
             new_xyz, edges = sample_and_group_edge(
-                self.nsample, xyz, None, numpoints,
+                self.nsample, xyz, None, numpoints, sampling=self.sampling,
                 knn_method=self.knn_method)
             h = conv1(edges)
         else:
-            cidx = torch.arange(numpoints, device=xyz.device).clamp(
-                max=xyz.shape[1] - 1)
-            new_xyz = xyz[:, cidx]
+            cidx = sample_centers(xyz, numpoints, self.sampling)
+            new_xyz = index_points(xyz, cidx)
             idx = knn_indices(self.nsample, xyz, new_xyz, self.knn_method)
             A, Ct = conv1_edge_factors(conv1.weight.t(), conv1.bias, xyz,
-                                       points, new_xyz, points[:, cidx])
+                                       points, new_xyz,
+                                       index_points(points, cidx))
             h = index_points(A, idx) + Ct[:, :, None, :]
-        h = torch.relu_(bn1(h, True))
+        h = torch.relu_(bn1(h, train))
         for conv, bn in zip(self.mlp_convs[1:], self.mlp_bns[1:]):
-            h = torch.relu_(bn(conv(h), True))
+            h = torch.relu_(bn(conv(h), train))
         return new_xyz, h.amax(dim=2)
 
 

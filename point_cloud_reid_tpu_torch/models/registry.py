@@ -1,9 +1,9 @@
 """Config dicts -> modules (port of point_cloud_reid_tpu/models/registry.py).
 
 Head configs are lists of dicts like [{'type': 'LinearRes', ...}, {'type':
-'Linear', ...}], as in the reidentifier config files. Only the flagship's
-backbone and stage types are ported; the others raise and wait for the rest
-of the model zoo (M7).
+'Linear', ...}], as in the reidentifier config files. The point flagship's
+backbone and the stage types of the point and image heads are ported; the
+others raise and wait for the rest of the model zoo (M7).
 """
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
-from .attention_blocks import CrossAttentionBlock, SelfAttentionBlock
+from .attention_blocks import (CrossAttentionBlock, CrossLinAttn,
+                               SelfAttentionBlock)
 from .layers import BatchNorm, LinearRes, group_norm
 from .point_transformer import PointTransformerBackbone
 
@@ -108,6 +109,8 @@ def build_stage(cfg: Optional[Spec]) -> Optional[nn.Module]:
               attention=cfg.get("attention", "linear"))
     if t == "corss_attention":
         return CrossAttentionBlock(**kw)
+    if t == "cross_lin_attn":
+        return CrossLinAttn(**kw)
     if t == "Self_Attention":
         return SelfAttentionBlock(**kw)
     raise NotImplementedError(f"stage type {t} is not ported yet (M7)")

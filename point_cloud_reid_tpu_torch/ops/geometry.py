@@ -1,8 +1,9 @@
 """Point-set ops on the tracker's path.
 
 Port of the parts of point_cloud_reid_tpu/ops/geometry.py the flagship
-embedding uses: squared distances, stable-argsort kNN, RANDOM (first-n)
-centre sampling, the gather, and the SA stage's conv1 factors. The JAX
+embedding uses: squared distances, stable-argsort kNN, RANDOM (first-n) and
+FPS (farthest point) centre sampling, the gather, and the SA stage's conv1
+factors. The JAX
 package's one-hot-matmul gather is a TPU workaround; here the gather is
 torch.gather.
 """
@@ -65,6 +66,40 @@ def random_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     return torch.arange(npoint, device=xyz.device).expand(B, npoint)
 
 
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          start: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """Iterative farthest point sampling: xyz (B, N, 3) -> (B, npoint) int64
+    indices, the first of which is the start point.
+
+    start: (B,) start indices in [0, N); else, with a generator (on xyz's
+    device), a uniform draw per cloud, as the reference's randint start;
+    else every cloud starts at point 0. On CUDA tensors the loop is the
+    hand-written kernel of kernels/fps.py, on CPU tensors its plain version;
+    both take the first of equally far points."""
+    from ..kernels.fps import fps
+    B, N, _ = xyz.shape
+    if start is None:
+        if generator is None:
+            start = torch.zeros((B,), dtype=torch.int64, device=xyz.device)
+        else:
+            start = torch.randint(0, N, (B,), generator=generator,
+                                  device=xyz.device)
+    return fps(xyz, npoint, start)
+
+
+def sample_centers(xyz: torch.Tensor, numpoints: int, sampling: str,
+                   fps_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, numpoints) centre indices: 'RANDOM' (the first numpoints) or
+    'FPS' (from fps_start, or from point 0)."""
+    if sampling == "FPS":
+        return farthest_point_sample(xyz, numpoints, start=fps_start)
+    if sampling == "RANDOM":
+        return random_point_sample(xyz, numpoints)
+    raise ValueError(f"unknown sampling {sampling}")
+
+
 def conv1_edge_factors(kernel: torch.Tensor, bias: Optional[torch.Tensor],
                        xyz: torch.Tensor, points: Optional[torch.Tensor],
                        center_xyz: torch.Tensor,
@@ -97,22 +132,20 @@ def conv1_edge_factors(kernel: torch.Tensor, bias: Optional[torch.Tensor],
 def sample_and_group_edge(nsample: int, xyz: torch.Tensor,
                           points: Optional[torch.Tensor], numpoints: int,
                           sampling: str = "RANDOM", use_knn: bool = True,
-                          knn_method: str = "argsort"
+                          knn_method: str = "argsort",
+                          fps_start: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample centres, group kNN neighbourhoods and build the edge features
     [grouped_xyz - centre_xyz || centre_feat || grouped_feat - centre_feat].
 
     xyz (B, N, 3); points (B, N, D) or None -> new_xyz (B, S, 3),
-    new_points (B, S, K, 3 [+ 2D]). Only RANDOM sampling with kNN grouping
-    is ported; FPS and the ball query wait for the rest of the ops (M7).
+    new_points (B, S, K, 3 [+ 2D]). sampling is 'RANDOM' (first-n) or 'FPS'
+    (from fps_start (B,), or from point 0, as the JAX function without a
+    key); the ball query waits for the rest of the ops (M7).
     """
-    if sampling == "FPS":
-        raise NotImplementedError("FPS sampling is not ported yet (M7)")
-    if sampling != "RANDOM":
-        raise ValueError(f"unknown sampling {sampling}")
     if not use_knn:
         raise NotImplementedError("ball query is not ported yet (M7)")
-    fps_idx = random_point_sample(xyz, numpoints)
+    fps_idx = sample_centers(xyz, numpoints, sampling, fps_start)
     new_xyz = index_points(xyz, fps_idx)
     idx = knn_indices(nsample, xyz, new_xyz, method=knn_method)
     grouped_xyz_norm = index_points(xyz, idx) - new_xyz[:, :, None, :]

@@ -5,12 +5,19 @@ _bench_tracker_e2e: n objects x pts-per-obj points, 2 m boxes, 0.2 m/frame
 drift) with the flagship model at full width and seeded random weights,
 then profiles the steady-state frames with torch.profiler and prints one
 JSON line: median step ms (host clock around a synchronised step), device
-time per kernel name, the share of the profiled window the device was busy,
-and the card's name and power limit.
+time per kernel name, the device's copy time (host to device uploads and the
+logits coming back), the share of the profiled window the device was busy
+with kernels, and the card's name and power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.profile_tracker
         [--objects 96] [--pts-per-obj 600] [--frames 10] [--warmup 4]
         [--sparse auto|never|always] [--trace build/profile_trace.json]
+        [--image]
+
+With --image the frame is the image tracker's: the image model
+(deit-tiny-no-pt at full width) on the bench's six-camera scene (bench.py
+_bench_image_tracker_e2e: --objects boxes, default 64, six 900 x 1600 uint8
+cameras), the frame's upload inside the step's clock.
 
 Needs a CUDA device. match_threshold is 1.0: random weights give arbitrary
 logits, and accepting every gated pair keeps the track set at the scene's
@@ -27,7 +34,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from .scenes import bench_scene, card_name
+from .scenes import (bench_scene, build_tracker_model, card_name,
+                     image_scene)
 
 
 def _busy_us(events) -> float:
@@ -45,7 +53,10 @@ def _busy_us(events) -> float:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--objects", type=int, default=96)
+    p.add_argument("--image", action="store_true",
+                   help="profile the image tracker's frame")
+    p.add_argument("--objects", type=int, default=None,
+                   help="default 96, with --image 64")
     p.add_argument("--pts-per-obj", type=int, default=600)
     p.add_argument("--frames", type=int, default=10)
     p.add_argument("--warmup", type=int, default=4)
@@ -54,22 +65,26 @@ def main(argv=None):
     p.add_argument("--trace", default="build/profile_trace.json",
                    help="where the profiled window's chrome trace goes")
     args = p.parse_args(argv)
+    if args.objects is None:
+        args.objects = 64 if args.image else 96
     if not torch.cuda.is_available():
         raise SystemExit("profile_tracker needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from torch.profiler import ProfilerActivity, profile
 
-    from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
     from point_cloud_reid_tpu_torch.inference import PairScorer
-    from point_cloud_reid_tpu_torch.models import build_model
     from point_cloud_reid_tpu_torch.tracking import TrackingManager
 
-    model = build_model(point_transformer_point_cat(), device="cuda",
-                        generator=torch.Generator().manual_seed(0))
-    mgr = TrackingManager(PairScorer(model), subsample_number=128,
-                          match_threshold=1.0, sparse_scoring=args.sparse)
-    frames = list(bench_scene(args.objects, args.pts_per_obj, args.frames))
+    model = build_tracker_model(args.image, "cuda")
+    mgr = TrackingManager(PairScorer(model, image_mode=args.image),
+                          subsample_number=128, match_threshold=1.0,
+                          sparse_scoring=args.sparse)
+    if args.image:
+        frames = list(image_scene(args.objects, args.frames))
+    else:
+        frames = list(bench_scene(args.objects, args.pts_per_obj,
+                                  args.frames))
     times = []
 
     def step(frame):
@@ -94,19 +109,24 @@ def main(argv=None):
         trace = json.load(f)
     per_kernel = defaultdict(float)
     intervals = []
+    memcpy_ms = 0.0
     for ev in trace.get("traceEvents", []):
         if ev.get("cat") == "kernel":
             per_kernel[ev["name"][:80]] += ev["dur"] / 1e3 / n_prof
             intervals.append((ev["ts"], ev["dur"]))
+        elif ev.get("cat") == "gpu_memcpy":
+            memcpy_ms += ev["dur"] / 1e3 / n_prof
     if not intervals:
         raise RuntimeError("the profiler recorded no device kernels")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps(dict(
-        card=card_name(), sparse=args.sparse, objects=args.objects,
+        card=card_name(), image=args.image, sparse=args.sparse,
+        objects=args.objects,
         active_tracks=len(mgr.store.active()),
         step_ms=times, median_steady_step_ms=float(np.median(times[
             args.warmup:])),
         device_ms_per_frame=sum(per_kernel.values()),
+        memcpy_ms_per_frame=memcpy_ms,
         device_busy_share=_busy_us(intervals) / window_us,
         kernels_ms_per_frame={k: v for k, v in top})))
 

@@ -1,4 +1,5 @@
-"""Scene generator and card label shared by chip_smoke.py and the tools."""
+"""Scene generators, the image model of the tools and the card label,
+shared by chip_smoke.py and the tools."""
 from __future__ import annotations
 
 import subprocess
@@ -21,6 +22,63 @@ def bench_scene(n_obj: int, pts_per_obj: int, frames: int, seed: int = 0):
         pts = (np.repeat(centers, pts_per_obj, axis=0)
                + rs.randn(n_obj * pts_per_obj, 3).astype(np.float32) * 0.5)
         yield pts, boxes, np.ones(n_obj, np.float32), np.zeros(n_obj, np.int64)
+
+
+IMAGE_EXPERIMENT = "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"
+
+
+def camera_ring():
+    """Six cameras in a ring (nuScenes geometry: 1600 x 900, 60 degrees
+    apart): (lidar2cams (6, 4, 4), intrinsics (6, 3, 3)), as bench.py
+    camera_ring."""
+    l2cs, Ks = [], []
+    for k in range(6):
+        a = k * np.pi / 3
+        fwd = np.array([np.cos(a), np.sin(a), 0.0])
+        right = np.array([np.sin(a), -np.cos(a), 0.0])
+        down = np.array([0.0, 0.0, -1.0])
+        l2c = np.eye(4, dtype=np.float32)
+        l2c[:3, :3] = np.stack([right, down, fwd])
+        l2cs.append(l2c)
+        Ks.append(np.array([[800, 0, 800], [0, 800, 450], [0, 0, 1]],
+                           np.float32))
+    return np.stack(l2cs), np.stack(Ks)
+
+
+def image_scene(n_obj: int, frames: int, seed: int = 0,
+                image_hw=(900, 1600)):
+    """Yields ((images, lidar2cams, intrinsics), boxes, scores, labels) per
+    frame: the bench's image scene (bench.py _bench_image_tracker_e2e: six
+    uint8 cameras of random pixels, n_obj 2 m boxes 8-28 m around the ring,
+    0.2 m/frame drift, one class). The images are the same every frame."""
+    l2cs, Ks = camera_ring()
+    rs = np.random.RandomState(seed)
+    images = rs.randint(0, 256, (6, 3) + tuple(image_hw), dtype=np.uint8)
+    ang = rs.rand(n_obj) * 2 * np.pi
+    rad = 8.0 + rs.rand(n_obj) * 20.0
+    centers = np.stack([rad * np.cos(ang), rad * np.sin(ang),
+                        np.zeros(n_obj)], axis=1).astype(np.float32)
+    for _ in range(frames):
+        centers[:, :2] += rs.randn(n_obj, 2).astype(np.float32) * 0.2
+        boxes = np.concatenate(
+            [centers, np.full((n_obj, 3), 2.0, np.float32),
+             np.zeros((n_obj, 1), np.float32)], axis=1)
+        yield ((images, l2cs, Ks), boxes, np.ones(n_obj, np.float32),
+               np.zeros(n_obj, np.int64))
+
+
+def build_tracker_model(image: bool, device, seed: int = 0):
+    """The model a tool tracks with, at full width with seeded random
+    weights: the point flagship, or the image model of IMAGE_EXPERIMENT
+    (deit-tiny-no-pt, 197 tokens)."""
+    import torch
+
+    from ..configs import get_experiment, point_transformer_point_cat
+    from ..models import build_model
+    cfg = (get_experiment(IMAGE_EXPERIMENT)["model"] if image
+           else point_transformer_point_cat())
+    return build_model(cfg, device=device,
+                       generator=torch.Generator().manual_seed(seed))
 
 
 def card_name() -> str:

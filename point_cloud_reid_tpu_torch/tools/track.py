@@ -7,8 +7,12 @@ exercise the pipeline, not a trained model.
 
     python -m point_cloud_reid_tpu_torch.tools.track
         [--scenes 2 --frames 10 --objects 16] [--sparse auto|always|never]
+        [--image]
 
 Runs the flagship at full width on the CUDA device; without one it exits.
+With --image it tracks with the image model (deit-tiny-no-pt at full width)
+on the bench's six-camera scene (tools/scenes.py image_scene: --objects
+boxes around a ring of 900 x 1600 uint8 cameras).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ def parse_args(argv=None):
     p.add_argument("--sparse", default="auto",
                    choices=("auto", "always", "never"))
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--image", action="store_true",
+                   help="track camera crops with the image model")
     return p.parse_args(argv)
 
 
@@ -74,9 +80,9 @@ def synth_scene(rs: np.random.RandomState, args):
 
 def main(argv=None):
     args = parse_args(argv)
-    from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
     from point_cloud_reid_tpu_torch.inference import PairScorer
-    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.tools.scenes import (build_tracker_model,
+                                                         image_scene)
     from point_cloud_reid_tpu_torch.tracking import TrackingManager
 
     if not torch.cuda.is_available():
@@ -84,14 +90,16 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    model = build_model(point_transformer_point_cat(), device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
-    mgr = TrackingManager(PairScorer(model), subsample_number=128,
-                          seed=args.seed, sparse_scoring=args.sparse)
+    model = build_tracker_model(args.image, device, args.seed)
+    mgr = TrackingManager(PairScorer(model, image_mode=args.image),
+                          subsample_number=128, seed=args.seed,
+                          sparse_scoring=args.sparse)
     rs = np.random.RandomState(args.seed)
     times = []
     for s in range(args.scenes):
-        for t, (pts, boxes, scores, labels) in enumerate(synth_scene(rs, args)):
+        scene = (image_scene(args.objects, args.frames, args.seed + s)
+                 if args.image else synth_scene(rs, args))
+        for t, (pts, boxes, scores, labels) in enumerate(scene):
             t0 = time.perf_counter()
             tracks = mgr.step(pts, boxes, scores, labels)
             times.append(time.perf_counter() - t0)

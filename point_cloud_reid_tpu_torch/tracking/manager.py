@@ -1,11 +1,14 @@
-"""Per-frame tracking orchestration, point branch with the device cache.
+"""Per-frame tracking orchestration with the device cache, point and image
+branch.
 
 Port of point_cloud_reid_tpu/tracking/manager.py::TrackingManager. Per frame:
 pad the sweep and the boxes to static buckets, gate track x detection pairs
 by class and BEV distance on the host, run ONE frame function (scatter last
 frame's features, gather track rows, crop + embed detections, score the
 dense grid or the gated pair list) and fetch only the logits, then
-associate and update track lifecycles on the host.
+associate and update track lifecycles on the host. Over a PairScorer in
+image mode the frame is (images, lidar2cams, intrinsics) instead of a lidar
+sweep, the crops are camera crops, and no xyz is kept.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ class TrackingManager:
     """ReID-driven 3D MOT.
 
     Args:
-        scorer: inference.PairScorer over a ReIDNet.
-        subsample_number: points per crop (128 in released configs).
+        scorer: inference.PairScorer over a ReIDNet, or over an
+            ImageReIDNet with image_mode=True.
+        subsample_number: points per crop (128 in released configs); not
+            read in image mode.
         match_threshold: max association cost; cost = 1 - sigmoid(logit).
         max_distance: BEV centre gate radius.
         method: 'greedy' | 'hungarian'.
@@ -63,9 +68,15 @@ class TrackingManager:
         # per-frame crop seed stream; the constructor seed offsets it
         self._seed = seed * 1_000_003
         self._dc = DeviceTrackCache(cache_capacity)
-        self._frame_fn = scorer.make_cached_frame_fn(subsample_number)
-        self._pair_frame_fn = scorer.make_cached_pair_frame_fn(
-            subsample_number)
+        self._image_mode = bool(getattr(scorer, "image_mode", False))
+        # image mode: ((W, H), (out, out)) and the frame functions, set from
+        # the first frame's image shapes (a deployment's cameras are fixed)
+        self._image_sizes = None
+        self._frame_fn = self._pair_frame_fn = None
+        if not self._image_mode:
+            self._frame_fn = scorer.make_cached_frame_fn(subsample_number)
+            self._pair_frame_fn = scorer.make_cached_pair_frame_fn(
+                subsample_number)
         self._prev_h = None
         self._prev_xyz = None
         self._prev_d_pad = 8
@@ -114,6 +125,80 @@ class TrackingManager:
     def _to_device(self, *arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, non_blocking=True) for a in arrays]
+
+    def _ensure_image_sizes(self, images: np.ndarray):
+        """((W, H), (out, out)) from the first (ncam, 3, H, W) frame, and
+        the image frame functions built for them."""
+        if self._image_sizes is None:
+            out = int(getattr(self.scorer.model, "image_size", 224))
+            self._image_sizes = ((images.shape[3], images.shape[2]),
+                                 (out, out))
+            self._frame_fn = self.scorer.make_cached_image_frame_fn(
+                *self._image_sizes)
+            self._pair_frame_fn = self.scorer.make_cached_image_pair_frame_fn(
+                *self._image_sizes)
+        return self._image_sizes
+
+    def _step_device_cached_image(self, frame, boxes_p: np.ndarray, D: int,
+                                  active,
+                                  pairs: Optional[np.ndarray] = None):
+        """One device frame of the image branch: box projection + camera
+        crops + ViT embed + grid (or gated pair-list) scoring against the
+        device-resident track tokens. Only the logits come back; the frame's
+        images go up as they are (uint8 frames at a quarter of the float32
+        bytes). `frame` is (images (ncam, 3, H, W), lidar2cams (ncam, 4, 4),
+        intrinsics (ncam, 3, 3)). Returns (T, D) float64 logits or None."""
+        images, l2cams, intrins = frame
+        images = np.asarray(images)
+        l2cams = np.asarray(l2cams, np.float32)
+        intrins = np.asarray(intrins, np.float32)
+        self._ensure_image_sizes(images)
+        dc = self._dc
+        d_pad = boxes_p.shape[0]
+        if dc.h_buf is None:
+            # first frame of the scene: embed only
+            img_d, l2c_d, k_d, boxes_d = self._to_device(images, l2cams,
+                                                         intrins, boxes_p)
+            with torch.no_grad():
+                crops = self.scorer._device_crops(img_d, l2c_d, k_d, boxes_d,
+                                                  *self._image_sizes)
+                _, h_d = self.scorer.embed(crops)
+            dc.ensure(h_d.shape[1], h_d.shape[2], h_d.dtype, h_d.device,
+                      with_xyz=False)
+            self._prev_h, self._prev_d_pad = h_d, d_pad
+            return None
+        T = len(active)
+        t_pad = _round_up(max(T, 1))
+        slot_idx = np.full((t_pad,), dc.capacity, np.int64)
+        for i, t in enumerate(active):
+            slot_idx[i] = dc.slot(t.track_id)
+        upd_src, upd_dst = dc.take_updates(self._prev_d_pad)
+        if pairs is None:
+            (upd_src_d, upd_dst_d, slot_idx_d, img_d, l2c_d, k_d,
+             boxes_d) = self._to_device(upd_src, upd_dst, slot_idx, images,
+                                        l2cams, intrins, boxes_p)
+            dc.h_buf, logits_dev, h_d = self._frame_fn(
+                dc.h_buf, self._prev_h, upd_src_d, upd_dst_d, slot_idx_d,
+                img_d, l2c_d, k_d, boxes_d)
+            self._prev_h, self._prev_d_pad = h_d, d_pad
+            if not T:
+                return None
+            return logits_dev.cpu().numpy().astype(np.float64)[:T, :D]
+        P = len(pairs)
+        pair_t, pair_d = self._pad_pairs(pairs)
+        (upd_src_d, upd_dst_d, slot_idx_d, pair_t_d, pair_d_d, img_d, l2c_d,
+         k_d, boxes_d) = self._to_device(upd_src, upd_dst, slot_idx, pair_t,
+                                         pair_d, images, l2cams, intrins,
+                                         boxes_p)
+        dc.h_buf, logits_dev, h_d = self._pair_frame_fn(
+            dc.h_buf, self._prev_h, upd_src_d, upd_dst_d, slot_idx_d,
+            pair_t_d, pair_d_d, img_d, l2c_d, k_d, boxes_d)
+        self._prev_h, self._prev_d_pad = h_d, d_pad
+        logits = np.full((T, D), -np.inf, np.float64)
+        if P:
+            logits[pairs[:, 0], pairs[:, 1]] = (
+                logits_dev.cpu().numpy().astype(np.float64)[:P])
+        return logits
 
     def _step_device_cached(self, pts: np.ndarray, boxes_p: np.ndarray,
                             D: int, active, pairs: Optional[np.ndarray] = None):
@@ -170,8 +255,10 @@ class TrackingManager:
              det_scores: np.ndarray, det_labels: np.ndarray) -> List[Track]:
         """Process one frame; returns the confirmed tracks.
 
-        points (N, 3+) lidar sweep; det_boxes (D, 7) [cx cy cz dx dy dz yaw];
-        det_scores (D,); det_labels (D,) int class ids."""
+        points (N, 3+) lidar sweep, or in image mode the camera frame
+        (images (ncam, 3, H, W), lidar2cams (ncam, 4, 4), intrinsics
+        (ncam, 3, 3)); det_boxes (D, 7) [cx cy cz dx dy dz yaw]; det_scores
+        (D,); det_labels (D,) int class ids."""
         self.timestep += 1
         det_boxes = np.asarray(det_boxes, np.float32).reshape(-1, 7)
         det_scores = np.asarray(det_scores, np.float32).reshape(-1)
@@ -184,9 +271,12 @@ class TrackingManager:
             self._record_prune()
             return self.store.outputs()
 
-        n_pad = _round_up(max(len(points), 1), sizes=SWEEP_SIZES)
-        pts = np.full((n_pad, 3), 1e6, np.float32)    # padding far from boxes
-        pts[:len(points)] = np.asarray(points, np.float32)[:, :3]
+        if self._image_mode:
+            pts = points                              # the camera frame
+        else:
+            n_pad = _round_up(max(len(points), 1), sizes=SWEEP_SIZES)
+            pts = np.full((n_pad, 3), 1e6, np.float32)   # far from any box
+            pts[:len(points)] = np.asarray(points, np.float32)[:, :3]
         d_pad = _round_up(D)
         boxes_p = np.full((d_pad, 7), 1e6, np.float32)
         boxes_p[:D] = det_boxes
@@ -205,8 +295,9 @@ class TrackingManager:
             pairs = np.argwhere(gate & ok).astype(np.int32)
             if 4 * len(pairs) > _round_up(len(active)) * d_pad:
                 pairs = None            # dense gate: the grid kernel wins
-        logits = self._step_device_cached(pts, boxes_p, D, active,
-                                          pairs=pairs)
+        step_fn = (self._step_device_cached_image if self._image_mode
+                   else self._step_device_cached)
+        logits = step_fn(pts, boxes_p, D, active, pairs=pairs)
         if active and logits is not None:
             ok = (np.array([t.cls for t in active])[:, None]
                   == det_labels[None, :])

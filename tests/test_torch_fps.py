@@ -1,0 +1,133 @@
+"""Farthest point sampling of the port against the JAX package on the CPU:
+the plain loop against farthest_point_sample and against fps_pallas in
+interpret mode (indices equal, not close), FPS-sampled grouping, and one
+SetAbstractionEdgeSA stage built with sampling="FPS" in eval and in train
+mode."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from point_cloud_reid_tpu.models.point_transformer import (  # noqa: E402
+    SetAbstractionEdgeSA as JaxStage)
+from point_cloud_reid_tpu.ops import geometry as jgeo  # noqa: E402
+from point_cloud_reid_tpu.ops.pallas.fps import fps_pallas  # noqa: E402
+from point_cloud_reid_tpu_torch.convert.jax_variables import (  # noqa: E402
+    to_jax_variables)
+from point_cloud_reid_tpu_torch.kernels import fps as kfps  # noqa: E402
+from point_cloud_reid_tpu_torch.models.build import init_weights  # noqa: E402
+from point_cloud_reid_tpu_torch.models.point_transformer import (  # noqa: E402
+    SetAbstractionEdgeSA)
+from point_cloud_reid_tpu_torch.ops import geometry as tgeo  # noqa: E402
+
+TOL = 1e-4
+
+
+def _cloud(kind: str, B: int, N: int, seed: int = 0) -> np.ndarray:
+    """'grid': integer coordinates, so every distance is exact in float32
+    and full of ties; 'duplicates': such points resampled with replacement,
+    as crops are; 'random': Gaussian floats."""
+    rs = np.random.RandomState(seed)
+    if kind == "random":
+        return (rs.randn(B, N, 3) * 0.6).astype(np.float32)
+    xyz = rs.randint(-4, 5, (B, N, 3)).astype(np.float32)
+    if kind == "duplicates":
+        xyz = xyz[np.arange(B)[:, None], rs.randint(0, N // 3, (B, N))]
+    return xyz
+
+
+@pytest.mark.parametrize("kind", ["grid", "duplicates", "random"])
+@pytest.mark.parametrize("B,N,npoint", [(4, 32, 32), (3, 40, 16)])
+def test_fps_indices_equal_jax(kind, B, N, npoint):
+    xyz = _cloud(kind, B, N)
+    start = np.random.RandomState(1).randint(0, N, B).astype(np.int32)
+    # the JAX loop starts at point 0; its Pallas kernel takes start indices
+    want0 = np.asarray(jgeo.farthest_point_sample(jnp.asarray(xyz), npoint))
+    got0 = tgeo.farthest_point_sample(torch.from_numpy(xyz), npoint)
+    assert got0.dtype == torch.int64 and got0.shape == (B, npoint)
+    np.testing.assert_array_equal(got0.numpy(), want0)
+    want = np.asarray(fps_pallas(jnp.asarray(xyz), npoint,
+                                 start=jnp.asarray(start), interpret=True))
+    got = tgeo.farthest_point_sample(torch.from_numpy(xyz), npoint,
+                                     start=torch.from_numpy(start))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy()[:, 0], start)
+    assert kfps.fps.launches == 0
+
+
+def test_fps_start_from_generator_and_bad_input():
+    xyz = torch.from_numpy(_cloud("random", 5, 20))
+    a = tgeo.farthest_point_sample(xyz, 4,
+                                   generator=torch.Generator().manual_seed(3))
+    b = tgeo.farthest_point_sample(xyz, 4,
+                                   generator=torch.Generator().manual_seed(3))
+    assert torch.equal(a, b) and len(set(a[:, 0].tolist())) > 1
+    with pytest.raises(ValueError, match="npoint"):
+        kfps.fps(xyz, 21, torch.zeros(5, dtype=torch.long))
+    with pytest.raises(ValueError, match="start"):
+        kfps.fps(xyz, 4, torch.zeros(4, dtype=torch.long))
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        kfps.fps(xyz[..., :2], 4, torch.zeros(5, dtype=torch.long))
+    with pytest.raises(ValueError, match="unknown sampling"):
+        tgeo.sample_and_group_edge(4, xyz, None, 4, sampling="GRID")
+
+
+@pytest.mark.parametrize("with_points", [False, True])
+def test_sample_and_group_edge_fps_matches_jax(with_points):
+    xyz = _cloud("random", 3, 24, seed=2)
+    pts = (np.random.RandomState(3).randn(3, 24, 5).astype(np.float32)
+           if with_points else None)
+    jx, jp = jgeo.sample_and_group_edge(
+        6, jnp.asarray(xyz), None if pts is None else jnp.asarray(pts), 8,
+        sampling="FPS")
+    tx, tp = tgeo.sample_and_group_edge(
+        6, torch.from_numpy(xyz), None if pts is None
+        else torch.from_numpy(pts), 8, sampling="FPS",
+        fps_start=torch.zeros(3, dtype=torch.long))
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_sa_stage_with_fps_matches_jax(train):
+    """A stage with input features, sampling='FPS': the same centres and the
+    same features as the JAX stage (which starts FPS at point 0), and in
+    train mode the same running statistics."""
+    D, C, K, S = 8, 16, 6, 8
+    stage = SetAbstractionEdgeSA([3 + 2 * D, C, C, C], K, sampling="FPS")
+    init_weights(stage, torch.Generator().manual_seed(0))
+    tree = to_jax_variables(torch.nn.ModuleDict(
+        {"backbone": torch.nn.ModuleDict(
+            {"SA_modules": torch.nn.ModuleList([stage])})}))
+    jvars = jax.tree_util.tree_map(
+        jnp.asarray, {k: v["backbone"]["sa_0"] for k, v in tree.items()})
+    jstage = JaxStage(mlp=[3 + 2 * D, C, C, C], nsample=K, sampling="FPS")
+    xyz = _cloud("random", 4, 24, seed=5)
+    pts = np.random.RandomState(6).randn(4, 24, D).astype(np.float32)
+    if train:
+        (jxyz, jh), upd = jstage.apply(jvars, jnp.asarray(xyz),
+                                       jnp.asarray(pts), S, True,
+                                       mutable=["batch_stats"])
+    else:
+        jxyz, jh = jstage.apply(jvars, jnp.asarray(xyz), jnp.asarray(pts), S,
+                                False)
+    with torch.no_grad():
+        txyz, th = stage(torch.from_numpy(xyz), torch.from_numpy(pts), S,
+                         train)
+    np.testing.assert_array_equal(txyz.numpy(), np.asarray(jxyz))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=TOL, atol=TOL)
+    # the centres are FPS's, not the first S points
+    assert not np.array_equal(txyz.numpy(), xyz[:, :S])
+    if train:
+        for j, bn in enumerate(stage.mlp_bns):
+            stats = upd["batch_stats"][f"mlp_{j}"]["bn"]
+            np.testing.assert_allclose(bn.running_mean.numpy(),
+                                       np.asarray(stats["mean"]), rtol=TOL,
+                                       atol=TOL)
+            np.testing.assert_allclose(bn.running_var.numpy(),
+                                       np.asarray(stats["var"]), rtol=TOL,
+                                       atol=TOL)

@@ -70,13 +70,40 @@ batch = next(iter(SyntheticPairLoader(4, 1, num_points=32, num_objects=8)))
 _, log = step(state, to_device(batch, 'cpu'),
               torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(log['reid_loss']))
+# the image tracker (dense and gated sparse) and an FPS-sampled SA stage
+from point_cloud_reid_tpu_torch.kernels import fps
+from point_cloud_reid_tpu_torch.models import vit
+from point_cloud_reid_tpu_torch.models.point_transformer import (
+    SetAbstractionEdgeSA)
+from point_cloud_reid_tpu_torch.tools.scenes import image_scene
+vit.VIT_PRESETS['tiny'] = dict(dim=32, depth=1, heads=2, dist_token=True,
+                               final_norm=False, mlp_ratio=2.0)
+head = lambda n, out: [dict(type='LinearRes', n_in=n, n_out=n, ng=8),
+                       dict(type='Linear', out_features=out)]
+image = build_model(dict(
+    type='ImageReIDNet', backbone='tiny', dim=32, downsample_dim=16,
+    image_size=32, downsample=head(32, 16), match_head=head(32, 1),
+    cross_lin_attn=dict(type='cross_lin_attn', d_model=16, nhead=2)))
+for sparse in ('never', 'always'):
+    mgr = TrackingManager(PairScorer(image, image_mode=True),
+                          sparse_scoring=sparse)
+    for frame in image_scene(4, 2, image_hw=(90, 160)):
+        mgr.step(*frame)
+    assert len(mgr.store.active()) >= 4
+stage = SetAbstractionEdgeSA([3, 8, 8, 8], 4, knn_method='pallas',
+                             sampling='FPS')
+with torch.no_grad():
+    stage(torch.from_numpy(rs.randn(2, 16, 3).astype(np.float32)), None, 8)
 print(json.dumps(dict(
     loaded=_lib.LIBRARY._lib is not None,
     launches=[sa_stage.fused_sa_convmax.launches,
               match_grid.fused_match_grid.launches,
               match_grid.fused_match_pairs.launches,
               knn.knn.launches,
-              linear_attention.linear_attention_forward.launches])))
+              linear_attention.linear_attention_forward.launches,
+              match_grid.fused_image_match_grid.launches,
+              match_grid.fused_image_match_pairs.launches,
+              fps.fps.launches])))
 """
 
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
@@ -84,7 +111,9 @@ NEW_MODULES = {
     "configs.datasets", "configs.experiments", "evaluation.matching",
     "kernels.knn", "kernels.linear_attention", "models.registry",
     "tools.train", "tools.profile_train", "train.loop", "train.losses",
-    "train.schedules", "train.state", "train.synthetic", "utils.logging"}
+    "train.schedules", "train.state", "train.synthetic", "utils.logging",
+    "convert.hf_vit", "kernels.fps", "models.image_reid", "models.vit",
+    "tracking.image_crops"}
 
 
 def _run(code: str) -> dict:
@@ -97,7 +126,7 @@ def _run(code: str) -> dict:
 
 def test_port_imports_no_jax_or_flax():
     out = _run(_IMPORT_ALL)
-    assert out["n"] >= 40
+    assert out["n"] >= 45
     have = {n.split(".", 1)[1] for n in out["names"]}
     assert NEW_MODULES <= have, NEW_MODULES - have
     assert not (out["jax"] or out["flax"] or out["optax"] or out["jax_pkg"])
@@ -112,7 +141,7 @@ def test_no_source_file_of_the_port_names_a_jax_import():
     for root, _, names in os.walk(os.path.join(REPO,
                                                "point_cloud_reid_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 45
+    assert len(files) >= 50
     for path in files:
         with open(path) as f:
             hit = pat.search(f.read())
@@ -121,7 +150,7 @@ def test_no_source_file_of_the_port_names_a_jax_import():
 
 def test_cpu_wrappers_never_touch_the_cuda_library():
     out = _run(_CPU_PATH)
-    assert out == dict(loaded=False, launches=[0, 0, 0, 0, 0])
+    assert out == dict(loaded=False, launches=[0] * 8)
 
 
 @pytest.mark.parametrize("argv", [
@@ -131,7 +160,11 @@ def test_cpu_wrappers_never_touch_the_cuda_library():
     ["-m", "point_cloud_reid_tpu_torch.tools.track", "--frames", "1"],
     ["-m", "point_cloud_reid_tpu_torch.tools.profile_tracker"],
     ["chip_smoke.py"],
-], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke"])
+    ["-m", "point_cloud_reid_tpu_torch.tools.track", "--image", "--frames",
+     "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.profile_tracker", "--image"],
+], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke",
+        "track_image", "profile_tracker_image"])
 def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():

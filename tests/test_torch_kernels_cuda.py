@@ -79,6 +79,76 @@ def test_match_kernels_match_plain(cuda):
     assert mg.fused_match_pairs.launches == before
 
 
+def _image_factors(cuda, nt, nd, S, C=16, nhead=2, seed=0):
+    """Image-head factors and weights from seeded random token features and
+    two seeded CrossLinAttn stages."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.models.attention_blocks import (
+        CrossLinAttn)
+    from point_cloud_reid_tpu_torch.models.build import init_weights
+    stages = torch.nn.ModuleList(CrossLinAttn(C, nhead) for _ in range(2))
+    init_weights(stages, torch.Generator().manual_seed(seed))
+    stages.to(cuda).requires_grad_(False)
+    rs = np.random.RandomState(seed)
+    h_t = torch.from_numpy(rs.randn(nt, S, C).astype(np.float32)).to(cuda)
+    h_d = torch.from_numpy(rs.randn(nd, S, C).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        t = mg.image_grid_factors(stages[0], h_t, nhead)
+        d = mg.image_grid_factors(stages[0], h_d, nhead)
+        w1, w2 = mg.stage_weights(stages[0], stages[1])
+    return t, d, w1, w2, nhead
+
+
+# S below, at and above one 32-row tile, with tails of 1 to 3 rows of a
+# 4-row register group, and the released token counts at C=64
+@pytest.mark.parametrize("S,C", [(6, 16), (33, 16), (70, 16), (197, 64),
+                                 (198, 64)])
+def test_image_match_kernels_match_plain(cuda, S, C):
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    nt, nd = 3, 5
+    t, d, w1, w2, nhead = _image_factors(cuda, nt, nd, S, C)
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    before = mg.fused_image_match_grid.launches, mg.fused_match_grid.launches
+    grid = mg.fused_image_match_grid(t, d, w1, w2, nhead)
+    assert (mg.fused_image_match_grid.launches,
+            mg.fused_match_grid.launches) == (before[0] + 1, before[1])
+    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                           ).reshape(nt, nd, -1))
+    t_idx = torch.tensor([2, 0, 1, 1], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([4, 1, 0, 3], dtype=torch.int32, device=cuda)
+    before = mg.fused_image_match_pairs.launches
+    pairs = mg.fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert mg.fused_image_match_pairs.launches == before + 1
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    with pytest.raises(IndexError, match="out of range"):
+        mg.fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
+    assert mg.fused_image_match_pairs.launches == before + 1
+
+
+def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
+    """260 tokens x 64 channels need 242 KB of shared memory with 32-row
+    tiles, more than a block may take: the wrapper raises and nothing is
+    launched; so does the C entry point when it is called past the
+    wrapper's own check."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 260, 64)
+    before = mg.fused_image_match_grid.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        mg.fused_image_match_grid(t, d, w1, w2, nhead)
+    assert mg.fused_image_match_grid.launches == before
+    weights = [{"w1": w1, "w2": w2}[g][k] for g, k in mg._WEIGHT_ORDER]
+    out = torch.empty((2, 2, 128), device=cuda)
+    err = _lib.LIBRARY.get().pcr_match_pooled_image(
+        *[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
+        *[x.data_ptr() for x in weights], None, None, out.data_ptr(),
+        2, 2, 4, 260, 64, nhead, _lib.stream_ptr(cuda))
+    assert err != 0
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _lib.check(err, "pcr_match_pooled_image")
+
+
 def _knn_inputs(kind, B, S, N, seed=0):
     rs = np.random.RandomState(seed)
     if kind == "exact":
@@ -122,6 +192,40 @@ def test_knn_kernel_matches_plain(cuda, kind, B, S, N, k):
         same = (pts[:, :, 1:] == pts[:, :, :-1]).all(-1)
         assert same.any()
         assert (got[..., 1:][same] > got[..., :-1][same]).all()
+
+
+@pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
+@pytest.mark.parametrize("B,N,npoint", [(128, 128, 128), (128, 128, 64),
+                                        (128, 64, 32), (3, 33, 33),
+                                        (2, 1000, 40), (5, 7, 1)])
+def test_fps_kernel_indices_equal_plain(cuda, kind, B, N, npoint):
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    xyz = _knn_inputs(kind, B, N, N).to(cuda)
+    start = torch.from_numpy(np.random.RandomState(1).randint(0, N, B)
+                             ).to(cuda)
+    before = kf.fps.launches
+    got = kf.fps(xyz, npoint, start)
+    assert kf.fps.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (B, npoint)
+    assert torch.equal(got, kf.fps_reference(xyz, npoint, start))
+    assert torch.equal(got[:, 0], start)
+
+
+def test_fps_wrapper_raises_on_bad_input(cuda):
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    x = torch.zeros((2, 8, 3), device=cuda)
+    start = torch.zeros(2, dtype=torch.long, device=cuda)
+    with pytest.raises(ValueError, match="npoint"):
+        kf.fps(x, 9, start)
+    with pytest.raises(ValueError, match="float32"):
+        kf.fps(x.double(), 4, start)
+    with pytest.raises(ValueError, match="one device"):
+        kf.fps(x, 4, start.cpu())
+    big = torch.zeros((1, 1025, 3), device=cuda)
+    before = kf.fps.launches
+    with pytest.raises(ValueError, match="N <= 1024"):
+        kf.fps(big, 4, start[:1])
+    assert kf.fps.launches == before
 
 
 @pytest.mark.parametrize("B,L,S,H,D,V", [(256, 128, 128, 2, 32, 32),

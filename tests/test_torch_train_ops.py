@@ -101,7 +101,7 @@ def test_attention_config_strings():
     from point_cloud_reid_tpu_torch.models.attention_blocks import _attn_fn
     assert _attn_fn("linear") is tatt.linear_attention
     assert _attn_fn("linear-pallas") is la.fused_linear_attention
-    with pytest.raises(NotImplementedError, match="M5"):
+    with pytest.raises(NotImplementedError, match="M7"):
         _attn_fn("full")
     with pytest.raises(ValueError, match="unknown attention"):
         _attn_fn("softmax")
@@ -125,7 +125,7 @@ def test_sample_and_group_edge_matches_jax(with_points):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(sampling="FPS"), NotImplementedError),
+    (dict(sampling="FPS", use_knn=False), NotImplementedError),
     (dict(use_knn=False), NotImplementedError),
     (dict(sampling="GRID"), ValueError)])
 def test_sample_and_group_edge_unported_modes_raise(kw, err):
