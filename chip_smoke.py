@@ -24,8 +24,9 @@ Phases, each of which raises on failure:
      3 kNN and 4 attention launches per forward, and step 1 against the same
      step with both knobs off;
   5. image kernels and image path: the image instantiation of the match
-     kernel (no position term, S tokens) on a 64 x 64 grid at S=197 and
-     S=198 and on a 512-pair list, and farthest point sampling at the three
+     kernel (no position term, S tokens) on 64 x 64 grids at S=197 and
+     S=198, on the dense frame's 128 x 64 grid at S=197 and on a 512-pair
+     list, and farthest point sampling at the three
      SA shapes of 128 crops, each against its plain version; then the image
      model (deit-tiny-no-pt at full width) behind TrackingManager.step over
      the bench's six-camera scene (64 objects, six 900 x 1600 uint8 frames,
@@ -39,10 +40,13 @@ Phases, each of which raises on failure:
      launch, and centres and features against the same stages on plain FPS.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
-operations over 67 TFLOP/s (float32 outside the tensor cores), the H100's
-published peaks. The line before the last is a JSON summary of the kernels;
-the last line is {"ok": true, "device": {...}}. Without a CUDA device it
-exits non-zero and prints no result.
+operations over the peak of the unit that runs them, the H100's published
+peaks: 67 TFLOP/s for float32 outside the tensor cores; for the match
+kernel, whose products run on the tensor cores in three TF32 passes, their
+operations x 3 over 495 TFLOP/s (its rows keep the float32 CUDA-core bound
+of earlier versions as `simt_fp32_bound_ms`). The line before the last is a
+JSON summary of the kernels; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -59,7 +63,10 @@ N_OBJ, PTS_PER_OBJ, FRAMES = 96, 600, 10
 # float32 kernels vs float32 plain versions: only the summation order
 # differs, so the error is bounded relative to the output's magnitude
 SA_TOL = 1e-4          # max |kernel - plain| / max(1, max |plain|)
-MATCH_TOL = 5e-4       # the same for the match chain (two LayerNorm stacks)
+# the same for the match chain (two LayerNorm stacks): three TF32 passes
+# read 1.1e-6 to 1.7e-6 on the card, one pass 2.7e-4 / 3.2e-4 (emulated,
+# tests/test_torch_match_tf32.py)
+MATCH_TOL = 1e-5
 FRAME_TOL = 1e-3       # frame logits vs the plain composition, abs + rel
 ATTN_TOL = 1e-4        # linear attention and its gradients, as SA_TOL
 KNN_TIE = 1e-6         # kNN: a swap needs plain distances this close (rel.)
@@ -69,18 +76,34 @@ IMG_OBJ, IMG_FRAMES = 64, 10
 FPS_CROPS = 128
 DEVICE = "cuda"
 PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
+# the match kernel runs each product in three TF32 passes (3xTF32)
+TF32_PASSES = 3
 
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound_ms(flops: float, nbyte: float) -> tuple:
+def bound_ms(flops: float, nbyte: float, peak: float = PEAK_FLOPS) -> tuple:
     """(least ms the card could take, what bounds it)."""
-    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbyte / PEAK_BYTES * 1e3
+    by_ops, by_bytes = flops / peak * 1e3, nbyte / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
                                                               "bytes")
+
+
+def match_bound(n_pairs: int, n_rows: int, width: int, nbyte: float
+                ) -> tuple:
+    """(bound ms, what bounds it, float32 CUDA-core bound ms) of the match
+    kernel. Its products are 80 N C^2 operations a pair (per direction
+    14 N C^2 in stage 1 and 26 N C^2 in stage 2, the head-masked zeros of
+    k^T v included, as the kernel computes them), run on the tensor cores
+    in three TF32 passes; the elementwise work beside them is not
+    counted."""
+    flops = 80.0 * n_pairs * n_rows * width * width
+    ms, by = bound_ms(flops * TF32_PASSES, nbyte, PEAK_TF32)
+    return ms, by, bound_ms(flops, nbyte)[0]
 
 
 def rel_err(got, want) -> tuple:
@@ -116,9 +139,12 @@ def phase_device():
     _lib.LIBRARY.get()
     print(f"[device] {torch.cuda.get_device_name(0)}; kernels built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    entry = ""
     for line in _lib.LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("[ptxas]", line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print("[ptxas]", entry, line.strip())
     return card
 
 
@@ -185,11 +211,9 @@ def phase_kernels(model):
     n_pts, width = h_t.shape[1], h_t.shape[2]
     weights = list(w1.values()) + list(w2.values())
 
-    def match_bound(n_pairs, *extra):
-        # per pair and direction 14 N C^2 (stage 1) + 26 N C^2 (stage 2)
-        # multiply-adds' worth of products, two directions
-        return bound_ms(80.0 * n_pairs * n_pts * width * width,
-                        nbytes(*t, *d, *weights, *extra))
+    def bounds(n_pairs, *extra):
+        return match_bound(n_pairs, n_pts, width,
+                           nbytes(*t, *d, *weights, *extra))
 
     ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
     di = torch.arange(nd, device=DEVICE).repeat(nt)
@@ -201,18 +225,20 @@ def phase_kernels(model):
     g_ms = time_ms(lambda: mg.fused_match_grid(t, d, w1, w2, nhead), 5)
     g_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, ti, di), 2, warmup=1)
-    g_bound, g_by = match_bound(nt * nd, grid)
+    g_bound, g_by, g_simt = bounds(nt * nd, grid)
     print(f"[match_grid] grid {nt}x{nd} N={h_t.shape[1]} C={h_t.shape[2]}: "
           f"max_abs_err={g_err:.3e} rel={g_rel:.3e} (tol {MATCH_TOL:g}) "
           f"kernel {g_ms:.3f} ms, plain {g_plain:.3f} ms, bound "
-          f"{g_bound:.3f} ms ({g_by})", flush=True)
+          f"{g_bound:.3f} ms ({g_by}; float32 CUDA-core bound "
+          f"{g_simt:.3f} ms)", flush=True)
     if not g_rel <= MATCH_TOL:
         raise RuntimeError(f"fused_match_grid disagrees: rel {g_rel}")
     rows.append(dict(name="fused_match_grid", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:250",
                      max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
-                     bound_ms=g_bound, bound_by=g_by, library_ms=None))
+                     bound_ms=g_bound, bound_by=g_by,
+                     simt_fp32_bound_ms=g_simt, library_ms=None))
 
     P = 512
     t_idx = torch.randint(0, nt, (P,), generator=gen, device=DEVICE,
@@ -224,24 +250,25 @@ def phase_kernels(model):
     torch.cuda.synchronize()
     p_err, p_rel = rel_err(pairs, want)
     at_grid = grid[t_idx.long(), d_idx.long()]
-    pg_err, pg_rel = rel_err(pairs, at_grid)
+    pg_err, _ = rel_err(pairs, at_grid)
     p_ms = time_ms(lambda: mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx,
                                                 d_idx), 10)
     p_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, t_idx, d_idx), 3)
-    p_bound, p_by = match_bound(P, t_idx, d_idx, pairs)
+    p_bound, p_by, p_simt = bounds(P, t_idx, d_idx, pairs)
     print(f"[match_grid] pairs P={P}: max_abs_err={p_err:.3e} rel={p_rel:.3e}"
-          f" vs plain, {pg_err:.3e} rel={pg_rel:.3e} vs the grid kernel at "
-          f"the same indices (tol {MATCH_TOL:g}); kernel {p_ms:.3f} ms, "
-          f"plain {p_plain:.3f} ms, bound {p_bound:.3f} ms ({p_by})",
-          flush=True)
-    if not (p_rel <= MATCH_TOL and pg_rel <= MATCH_TOL):
-        raise RuntimeError(f"fused_match_pairs disagrees: {p_rel}, {pg_rel}")
+          f" vs plain (tol {MATCH_TOL:g}), {pg_err:.3e} vs the grid kernel at "
+          f"the same indices (want 0); kernel {p_ms:.3f} ms, "
+          f"plain {p_plain:.3f} ms, bound {p_bound:.3f} ms ({p_by}; float32 "
+          f"CUDA-core bound {p_simt:.3f} ms)", flush=True)
+    if not (p_rel <= MATCH_TOL and torch.equal(pairs, at_grid)):
+        raise RuntimeError(f"fused_match_pairs disagrees: {p_rel}, {pg_err}")
     rows.append(dict(name="fused_match_pairs", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:355",
                      max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
-                     bound_ms=p_bound, bound_by=p_by, library_ms=None))
+                     bound_ms=p_bound, bound_by=p_by,
+                     simt_fp32_bound_ms=p_simt, library_ms=None))
     return rows
 
 
@@ -611,62 +638,67 @@ def image_model(variant: str):
 
 def phase_image_kernels():
     """The image instantiation of the match kernel against its plain
-    version, on the model's own token features: a 64 x 64 grid at S=197
-    (deit-tiny-no-pt, the main path's model) and S=198 (deit-tiny), and a
-    512-pair list at S=197."""
+    version, on the model's own token features: grids of 64 x 64 at S=198
+    (deit-tiny) and of 64 x 64 and 128 x 64 (the dense frame's shape once
+    its tracks pad to 128) at S=197 (deit-tiny-no-pt, the main path's
+    model), and a 512-pair list at S=197, equal to the grid at the same
+    indices bit for bit."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    rows = []
     n = IMG_OBJ
+    sizes = {198: ((n, n),), 197: ((n, n), (2 * n, n))}
     for variant, want_s in (("deit-tiny", 198), ("deit-tiny-no-pt", 197)):
         model = image_model(variant)
+        nt_max = max(a for a, _ in sizes[want_s])
         with torch.no_grad():
-            crops = torch.rand((2 * n, 3, 224, 224), generator=gen,
+            crops = torch.rand((nt_max + n, 3, 224, 224), generator=gen,
                                device=DEVICE)
             h = model.downsample_tokens(model.embed(crops))
-            h_t, h_d = h[:n].contiguous(), h[n:].contiguous()
-            t, d, w1, w2, nhead = mg.image_match_factors(model, h_t, h_d)
-        S, width = h_t.shape[1], h_t.shape[2]
+            t, d, w1, w2, nhead = mg.image_match_factors(
+                model, h[:nt_max].contiguous(), h[nt_max:].contiguous())
+        S, width = h.shape[1], h.shape[2]
         if S != want_s:
             raise RuntimeError(f"{variant}: {S} tokens, want {want_s}")
         weights = list(w1.values()) + list(w2.values())
-
-        def match_bound(n_pairs, *extra):
-            # the point head's count: 80 S C^2 operations a pair
-            return bound_ms(80.0 * n_pairs * S * width * width,
-                            nbytes(*t, *d, *weights, *extra))
-
-        ti = torch.arange(n, device=DEVICE).repeat_interleave(n)
-        di = torch.arange(n, device=DEVICE).repeat(n)
-        grid = mg.fused_image_match_grid(t, d, w1, w2, nhead)
-        want = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
-                                         ).reshape(n, n, -1)
-        torch.cuda.synchronize()
-        g_err, g_rel = rel_err(grid, want)
-        g_ms = time_ms(lambda: mg.fused_image_match_grid(t, d, w1, w2, nhead),
-                       5)
-        g_plain = time_ms(lambda: mg.match_pooled_reference(
-            t, d, w1, w2, nhead, ti, di), 3, warmup=1)
-        g_bound, g_by = match_bound(n * n, grid)
-        print(f"[image_match] grid {n}x{n} S={S} C={width} ({variant}): "
-              f"max_abs_err={g_err:.3e} rel={g_rel:.3e} (tol {MATCH_TOL:g}) "
-              f"kernel {g_ms:.3f} ms, plain {g_plain:.3f} ms, bound "
-              f"{g_bound:.3f} ms ({g_by})", flush=True)
-        if not g_rel <= MATCH_TOL:
-            raise RuntimeError(f"fused_image_match_grid disagrees at S={S}: "
-                               f"rel {g_rel}")
-    # the rows carry the main path's shape, S=197
-    # no one PyTorch call computes the chain (two attention stages, three
-    # LayerNorms and two FFNs a direction): no library time
-    rows.append(dict(name="fused_image_match_grid", route="cuda",
-                     source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
-                     replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:686",
-                     max_abs_err=g_err, ms=g_ms, plain_ms=g_plain,
-                     bound_ms=g_bound, bound_by=g_by, library_ms=None))
+        for nt, nd in sizes[S]:
+            ts = tuple(x[:nt].contiguous() for x in t)
+            ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+            di = torch.arange(nd, device=DEVICE).repeat(nt)
+            grid = mg.fused_image_match_grid(ts, d, w1, w2, nhead)
+            want = mg.match_pooled_reference(ts, d, w1, w2, nhead, ti, di
+                                             ).reshape(nt, nd, -1)
+            torch.cuda.synchronize()
+            g_err, g_rel = rel_err(grid, want)
+            g_ms = time_ms(lambda: mg.fused_image_match_grid(
+                ts, d, w1, w2, nhead), 5)
+            g_plain = time_ms(lambda: mg.match_pooled_reference(
+                ts, d, w1, w2, nhead, ti, di), 3, warmup=1)
+            g_bound, g_by, g_simt = match_bound(
+                nt * nd, S, width, nbytes(*ts, *d, *weights, grid))
+            print(f"[image_match] grid {nt}x{nd} S={S} C={width} ({variant}):"
+                  f" max_abs_err={g_err:.3e} rel={g_rel:.3e} (tol "
+                  f"{MATCH_TOL:g}) kernel {g_ms:.3f} ms, plain {g_plain:.3f}"
+                  f" ms, bound {g_bound:.3f} ms ({g_by}; float32 CUDA-core "
+                  f"bound {g_simt:.3f} ms)", flush=True)
+            if not g_rel <= MATCH_TOL:
+                raise RuntimeError(f"fused_image_match_grid disagrees at "
+                                   f"{nt}x{nd}, S={S}: rel {g_rel}")
+            if nt == n:
+                ms_square = g_ms
+    # the grid row carries the main path's shape, 128 x 64 at S=197, and the
+    # 64 x 64 time beside it; no one PyTorch call computes the chain (two
+    # attention stages, three LayerNorms and two FFNs a direction): no
+    # library time
+    rows = [dict(name="fused_image_match_grid", route="cuda",
+                 source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
+                 replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:686",
+                 max_abs_err=g_err, ms=g_ms, ms_64x64=ms_square,
+                 plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
+                 simt_fp32_bound_ms=g_simt, library_ms=None)]
 
     P = 512
-    t_idx = torch.randint(0, n, (P,), generator=gen, device=DEVICE,
+    t_idx = torch.randint(0, 2 * n, (P,), generator=gen, device=DEVICE,
                           dtype=torch.int32)
     d_idx = torch.randint(0, n, (P,), generator=gen, device=DEVICE,
                           dtype=torch.int32)
@@ -674,25 +706,28 @@ def phase_image_kernels():
     want = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
     torch.cuda.synchronize()
     p_err, p_rel = rel_err(pairs, want)
-    pg_err, pg_rel = rel_err(pairs, grid[t_idx.long(), d_idx.long()])
+    at_grid = grid[t_idx.long(), d_idx.long()]
+    pg_err, _ = rel_err(pairs, at_grid)
     p_ms = time_ms(lambda: mg.fused_image_match_pairs(
         t, d, w1, w2, nhead, t_idx, d_idx), 10)
     p_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, t_idx, d_idx), 3)
-    p_bound, p_by = match_bound(P, t_idx, d_idx, pairs)
+    p_bound, p_by, p_simt = match_bound(
+        P, S, width, nbytes(*t, *d, *weights, t_idx, d_idx, pairs))
     print(f"[image_match] pairs P={P} S={S}: max_abs_err={p_err:.3e} "
-          f"rel={p_rel:.3e} vs plain, {pg_err:.3e} rel={pg_rel:.3e} vs the "
-          f"grid kernel at the same indices (tol {MATCH_TOL:g}); kernel "
+          f"rel={p_rel:.3e} vs plain (tol {MATCH_TOL:g}), {pg_err:.3e} vs "
+          f"the grid kernel at the same indices (want 0); kernel "
           f"{p_ms:.3f} ms, plain {p_plain:.3f} ms, bound {p_bound:.3f} ms "
-          f"({p_by})", flush=True)
-    if not (p_rel <= MATCH_TOL and pg_rel <= MATCH_TOL):
+          f"({p_by}; float32 CUDA-core bound {p_simt:.3f} ms)", flush=True)
+    if not (p_rel <= MATCH_TOL and torch.equal(pairs, at_grid)):
         raise RuntimeError(f"fused_image_match_pairs disagrees: {p_rel}, "
-                           f"{pg_rel}")
+                           f"{pg_err}")
     rows.append(dict(name="fused_image_match_pairs", route="cuda",
                      source="point_cloud_reid_tpu_torch/csrc/match_grid.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:514",
                      max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
-                     bound_ms=p_bound, bound_by=p_by, library_ms=None))
+                     bound_ms=p_bound, bound_by=p_by,
+                     simt_fp32_bound_ms=p_simt, library_ms=None))
     return rows, model
 
 

@@ -41,6 +41,8 @@ _SIGNATURES = {
     # the same for the image head: 8 factor pointers (h,q,kvz,a1 a side)
     "pcr_match_pooled_image": [_P] * 8 + [_P] * 16 + [_P] * 3 + [_I] * 6
                               + [_P],
+    # N, C, H, out bytes, out limit
+    "pcr_match_pooled_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # q, db, out, B, S, N, k, stream
     "pcr_knn": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
@@ -52,15 +54,21 @@ _SIGNATURES = {
 }
 
 
-class _Library:
-    """The loaded shared library; built once per process at first use."""
+class Library:
+    """A shared library built from `sources` (by default every csrc/*.cu)
+    and loaded once per process at first use. Another set of sources, such
+    as an older version of one kernel, builds into a directory of its own
+    and binds the entry points it defines."""
 
-    def __init__(self):
+    def __init__(self, sources=None):
         self._lock = threading.Lock()
         self._lib = None
+        self._sources = sources
         self.build_log = ""
 
     def sources(self):
+        if self._sources is not None:
+            return [Path(p).resolve() for p in self._sources]
         return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
 
     def _nvcc(self) -> str:
@@ -119,6 +127,8 @@ class _Library:
             if self._lib is None:
                 lib = ctypes.CDLL(str(self._build()))
                 for name, argtypes in _SIGNATURES.items():
+                    if self._sources is not None and not hasattr(lib, name):
+                        continue
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
@@ -126,7 +136,7 @@ class _Library:
             return self._lib
 
 
-LIBRARY = _Library()
+LIBRARY = Library()
 
 
 def check(err: int, what: str) -> None:

@@ -24,6 +24,7 @@ linear_attention cancel and are both dropped, as in the TPU kernel.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -44,9 +45,6 @@ _WEIGHT_ORDER = (("w1", "merge"), ("w1", "ln1_scale"), ("w1", "ln1_bias"),
 # (h, q, kvz, a1, pv) for the point head, (h, q, kvz, a1) for the image head
 Side = Tuple[torch.Tensor, ...]
 _PARTS = ("h", "q", "kvz", "a1", "pv")
-# rows per streamed tile of the kernel's two instantiations (csrc/match_grid.cu)
-_TILE_ROWS = {5: 64, 4: 32}
-_SMEM_LIMIT = 227 * 1024
 
 
 def _elu1(x: torch.Tensor) -> torch.Tensor:
@@ -114,6 +112,12 @@ def stage_weights(stage1, stage2) -> Tuple[Dict[str, torch.Tensor],
 
 # ---- plain version of the kernel ---------------------------------------------
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Every matrix product of the plain chain: the products the kernel runs
+    on the tensor cores, in one place."""
+    return a @ b
+
+
 def _layer_norm(x, scale, bias):
     return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
 
@@ -122,11 +126,12 @@ def _ffn(search, msg, a, w):
     """merge -> LN -> FFN([search || msg]) -> LN -> residual, with the FFN's
     first layer split into search and message halves."""
     C = search.shape[-1]
-    m = _layer_norm(msg @ w["merge"], w["ln1_scale"], w["ln1_bias"])
+    m = _layer_norm(_mm(msg, w["merge"]), w["ln1_scale"], w["ln1_bias"])
     if a is None:
-        a = search @ w["fc1"][:C]
-    h = torch.relu(a + m @ w["fc1"][C:])
-    return search + _layer_norm(h @ w["fc2"], w["ln2_scale"], w["ln2_bias"])
+        a = _mm(search, w["fc1"][:C])
+    h = torch.relu(a + _mm(m, w["fc1"][C:]))
+    return search + _layer_norm(_mm(h, w["fc2"]), w["ln2_scale"],
+                                w["ln2_bias"])
 
 
 def _split_norm(mz, C):
@@ -136,15 +141,15 @@ def _split_norm(mz, C):
 def _stage2(search, template, pv, w, nhead):
     C = search.shape[-1]
     D = C // nhead
-    q = _elu1(search @ w["q"])
-    tkv = template @ w["kv"]
+    q = _elu1(_mm(search, w["q"]))
+    tkv = _mm(template, w["kv"])
     k = _elu1(tkv[..., :C])
     v = tkv[..., C:] if pv is None else tkv[..., C:] + pv
     heads = torch.arange(C, device=search.device) // D
     gmask = (heads[:, None] == heads[None, :]).to(search.dtype)
-    kv = torch.einsum("pnc,pnd->pcd", k, v) * gmask
+    kv = _mm(k.transpose(1, 2), v) * gmask
     ks = k.sum(dim=1, keepdim=True)
-    return (q @ kv) / ((q * ks) @ gmask + EPS)
+    return _mm(q, kv) / (_mm(q * ks, gmask) + EPS)
 
 
 def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
@@ -153,8 +158,8 @@ def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
     pvt = t[4] if len(t) == 5 else None      # image head: no position term
     pvd = d[4] if len(d) == 5 else None
     C = ht.shape[-1]
-    o1a = _ffn(ht, _split_norm(qt @ kvzd, C), at, w1)
-    o2a = _ffn(hd, _split_norm(qd @ kvzt, C), ad, w1)
+    o1a = _ffn(ht, _split_norm(_mm(qt, kvzd), C), at, w1)
+    o2a = _ffn(hd, _split_norm(_mm(qd, kvzt), C), ad, w1)
     o1b = _ffn(o1a, _stage2(o1a, o2a, pvd, w2, nhead), None, w2)
     o2b = _ffn(o2a, _stage2(o2a, o1a, pvt, w2, nhead), None, w2)
     mx = torch.maximum(o1b.amax(dim=1), o2b.amax(dim=1))
@@ -190,7 +195,7 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
     """Plain version of the kernel: (P, 2C) pooled [max || avg] features of
     the pairs (t_idx[p], d_idx[p]), computed in chunks of pairs. Sides of
     five tensors are the point head's, sides of four the image head's."""
-    if len(t) != len(d) or len(t) not in _TILE_ROWS:
+    if len(t) != len(d) or len(t) not in (4, 5):
         raise ValueError(f"sides of {len(t)} and {len(d)} tensors: want 5 "
                          "(point head) or 4 (image head) on both")
     check_pair_range(t_idx, d_idx, t[0].shape[0], d[0].shape[0])
@@ -218,23 +223,31 @@ def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
     return n
 
 
-def _launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
-            t_idx: Optional[torch.Tensor], d_idx: Optional[torch.Tensor]):
+def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
+           t_idx: Optional[torch.Tensor], d_idx: Optional[torch.Tensor],
+           library: Optional[_lib.Library] = None) -> torch.Tensor:
     """Check the inputs, launch the kernel's instantiation for sides of
-    `parts` tensors and add one to `counter.launches` once the launch
-    succeeded."""
+    `parts` tensors (grid mode when t_idx is None) and add one to
+    `counter.launches` once the launch succeeded. `library` is another build
+    of csrc/match_grid.cu's entry points, as tools/ab_match.py times
+    versions of the kernel; it passes no counter."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
-    if C % nhead or C % 4:
-        raise ValueError(f"C={C} must be a multiple of 4 and of nhead={nhead}")
     nt = _check_side(t, N, C, device, "track")
     nd = _check_side(d, N, C, device, "det")
-    # the kernel's shared-memory layout (smem_floats in csrc/match_grid.cu)
-    smem = 4 * (2 * N * C + 4 * C * C + 3 * C + 6 * _TILE_ROWS[parts] * C)
-    if smem > _SMEM_LIMIT:
+    lib = (library or _lib.LIBRARY).get()
+    smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    status = lib.pcr_match_pooled_layout(N, C, nhead, ctypes.byref(smem),
+                                         ctypes.byref(limit))
+    if status == 1:
         raise ValueError(
-            f"{N} rows x {C} channels need {smem} bytes of shared memory a "
-            f"block, more than the {_SMEM_LIMIT} the kernel may take")
+            f"N={N}, C={C}, nhead={nhead}: the kernel's tensor-core tiles "
+            "take C in (16, 64), a multiple of nhead, and N >= 1")
+    if status:
+        raise ValueError(
+            f"{N} rows x {C} channels need {smem.value} bytes of shared "
+            f"memory a block, more than the {limit.value} the kernel may "
+            "take")
     ws = {"w1": w1, "w2": w2}
     weights = [ws[g][k] for g, k in _WEIGHT_ORDER]
     for (g, k), x in zip(_WEIGHT_ORDER, weights):
@@ -258,14 +271,14 @@ def _launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         idx_ptrs = [t_idx.data_ptr(), d_idx.data_ptr()]
     if P == 0:
         return out
-    lib = _lib.LIBRARY.get()
     entry = "pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image"
     err = getattr(lib, entry)(
         *[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
         *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr(),
         nt, nd, P, N, C, nhead, _lib.stream_ptr(device))
     _lib.check(err, entry)
-    counter.launches += 1
+    if counter is not None:
+        counter.launches += 1
     return out
 
 
@@ -286,7 +299,7 @@ def _grid(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int):
                                       ).reshape(nt, nd, -1)
     if device.type != "cuda":
         raise RuntimeError(f"{counter.__name__}: no kernel for {device}")
-    return _launch(counter, parts, t, d, w1, w2, nhead, None, None)
+    return launch(counter, parts, t, d, w1, w2, nhead, None, None)
 
 
 def _pairs(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
@@ -297,9 +310,9 @@ def _pairs(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         return match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
     if device.type != "cuda":
         raise RuntimeError(f"{counter.__name__}: no kernel for {device}")
-    return _launch(counter, parts, t, d, w1, w2, nhead,
-                   t_idx.to(torch.int32).contiguous(),
-                   d_idx.to(torch.int32).contiguous())
+    return launch(counter, parts, t, d, w1, w2, nhead,
+                  t_idx.to(torch.int32).contiguous(),
+                  d_idx.to(torch.int32).contiguous())
 
 
 def fused_match_grid(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:

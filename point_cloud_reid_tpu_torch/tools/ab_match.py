@@ -1,0 +1,157 @@
+"""A/B timing of versions of the match kernel (csrc/match_grid.cu) in one
+process on one card.
+
+Each SOURCE is a copy of csrc/match_grid.cu with the same C entry points
+(`pcr_match_pooled`, `pcr_match_pooled_image`, `pcr_match_pooled_layout`),
+for example the parent commit's file unpacked from `git archive`. Each is
+built as a kernels/_lib.Library of its own (all built together) and
+launched through kernels/match_grid.launch, the wrappers' checked launch
+path; then every version scores the same seeded inputs at the main paths'
+shapes: the point grid 128 x 128 (N=128, C=64, 2 heads), the
+image grid 128 x 64 (S=197), and 512-pair lists of both. Versions are timed
+in turns (first to last, then last to first, `--rounds` times) with CUDA
+events, and each output is compared with the first version's and with the
+plain version. Prints one JSON line per version with the card's name and
+power limit.
+
+    python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
+        [--rounds 2] [--iters 5]
+
+Needs a CUDA device and nvcc. Float32, TF32 off.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..kernels import _lib
+from ..kernels import match_grid as mg
+from .scenes import card_name
+
+
+def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
+           nhead: int = 2, seed: int = 0, device="cuda"):
+    """Factors and weights of the match kernel for `head` ("point" or
+    "image"): two cross stages with seeded weights over seeded random
+    features of nt tracks and nd detections, n_rows points or tokens each.
+    Returns (t, d, w1, w2, nhead)."""
+    from ..models.attention_blocks import CrossAttentionBlock, CrossLinAttn
+    from ..models.build import init_weights
+    block = CrossAttentionBlock if head == "point" else CrossLinAttn
+    stages = torch.nn.ModuleList(block(C, nhead) for _ in range(2))
+    init_weights(stages, torch.Generator().manual_seed(seed))
+    stages.to(device).requires_grad_(False)
+    rs = np.random.RandomState(seed)
+
+    def r(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
+    with torch.no_grad():
+        if head == "point":
+            t = mg.grid_factors(stages[0], stages[1], r(nt, n_rows, C),
+                                r(nt, n_rows, 3), nhead)
+            d = mg.grid_factors(stages[0], stages[1], r(nd, n_rows, C),
+                                r(nd, n_rows, 3), nhead)
+        else:
+            t = mg.image_grid_factors(stages[0], r(nt, n_rows, C), nhead)
+            d = mg.image_grid_factors(stages[0], r(nd, n_rows, C), nhead)
+        w1, w2 = mg.stage_weights(stages[0], stages[1])
+    return t, d, w1, w2, nhead
+
+
+def build(sources):
+    """One loaded library per source, built together; prints ptxas's
+    register and spill lines of each."""
+    libs = [_lib.Library([src]) for src in sources]
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.get(), libs))
+    for lib, src in zip(libs, sources):
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {src}: {line.strip()}")
+    return libs
+
+
+def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None):
+    """(P, 2C) pooled features from one version of the kernel."""
+    out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib)
+    return out.reshape(-1, out.shape[-1])
+
+
+def time_ms(fn, iters: int) -> float:
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sources", nargs="+")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--iters", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_match needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    libs = build(args.sources)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for label, head, nt, nd, n_rows in (("point_grid_128x128", "point", 128,
+                                         128, 128),
+                                        ("image_grid_128x64", "image", 128,
+                                         64, 197)):
+        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows)
+        ti = torch.randint(0, nt, (512,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        di = torch.randint(0, nd, (512,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        pairs = label.split("_")[0] + "_pairs_512"
+        cases[label] = (t, d, w1, w2, nhead, None, None)
+        cases[pairs] = (t, d, w1, w2, nhead, ti, di)
+    errs = [{} for _ in libs]
+    for label, (t, d, w1, w2, nhead, ti, di) in cases.items():
+        if ti is None:
+            nt, nd = t[0].shape[0], d[0].shape[0]
+            ti_all = torch.arange(nt, device="cuda").repeat_interleave(nd)
+            di_all = torch.arange(nd, device="cuda").repeat(nt)
+        else:
+            ti_all, di_all = ti, di
+        plain = mg.match_pooled_reference(t, d, w1, w2, nhead, ti_all,
+                                          di_all)
+        first = None
+        for i, lib in enumerate(libs):
+            got = call(lib, t, d, w1, w2, nhead, ti, di)
+            torch.cuda.synchronize()
+            first = got if first is None else first
+            scale = max(1.0, plain.abs().max().item())
+            errs[i][label] = dict(
+                rel_plain=(got - plain).abs().max().item() / scale,
+                vs_first=(got - first).abs().max().item())
+    times = [{k: [] for k in cases} for _ in libs]
+    for rnd in range(args.rounds):
+        order = list(range(len(libs)))
+        for i in order + order[::-1]:
+            for label, (t, d, w1, w2, nhead, ti, di) in cases.items():
+                times[i][label].append(time_ms(
+                    lambda: call(libs[i], t, d, w1, w2, nhead, ti, di),
+                    args.iters))
+    for i, src in enumerate(args.sources):
+        print(json.dumps(dict(
+            source=src, card=card,
+            ms={k: float(np.median(v)) for k, v in times[i].items()},
+            ms_all=times[i], errors=errs[i])))
+
+
+if __name__ == "__main__":
+    main()

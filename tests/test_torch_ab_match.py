@@ -1,0 +1,36 @@
+"""tools/ab_match.py on the CPU: its seeded inputs, its libraries of other
+kernel versions, and its refusal to run without a card."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from point_cloud_reid_tpu_torch.kernels import _lib  # noqa: E402
+from point_cloud_reid_tpu_torch.tools import ab_match  # noqa: E402
+
+
+@pytest.mark.parametrize("head,parts", [("point", 5), ("image", 4)])
+def test_inputs_are_the_kernels_inputs(head, parts):
+    nt, nd, n_rows, C = 2, 3, 7, 16
+    t, d, w1, w2, nhead = ab_match.inputs(head, nt, nd, n_rows, C,
+                                          device="cpu")
+    assert len(t) == len(d) == parts and nhead == 2
+    for side, n in ((t, nt), (d, nd)):
+        assert tuple(side[2].shape) == (n, C, 2 * C)
+        assert all(x.is_contiguous() and x.shape[0] == n for x in side)
+    again = ab_match.inputs(head, nt, nd, n_rows, C, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(t + d, again[0] + again[1]))
+    assert set(w2) - set(w1) == {"q", "kv"}
+
+
+def test_a_library_of_other_sources_builds_apart(tmp_path):
+    src = tmp_path / "older.cu"
+    src.write_text("// another version\n")
+    lib = _lib.Library([src])
+    assert lib.sources() == [src.resolve()]
+    assert src.resolve() not in _lib.LIBRARY.sources()
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_grid.cu"])

@@ -71,7 +71,8 @@ def test_match_kernels_match_plain(cuda):
     t_idx = torch.tensor([4, 0, 2, 2], dtype=torch.int32, device=cuda)
     d_idx = torch.tensor([6, 1, 0, 3], dtype=torch.int32, device=cuda)
     pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
-    _close(pairs, grid[t_idx.long(), d_idx.long()])
+    # one per-pair code in both index modes: the same bits
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
     # out-of-range pairs raise before the launch, as the plain version does
     before = mg.fused_match_pairs.launches
     with pytest.raises(IndexError, match="out of range"):
@@ -79,30 +80,38 @@ def test_match_kernels_match_plain(cuda):
     assert mg.fused_match_pairs.launches == before
 
 
+def test_match_kernels_at_the_flagship_width(cuda):
+    """The point kernel at the flagship's width: N=128 points, C=64, 2
+    heads, two seeded CrossAttentionBlock stages."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt, nd = 3, 5
+    t, d, w1, w2, nhead = inputs("point", nt, nd, 128, device=cuda)
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    before = mg.fused_match_grid.launches
+    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
+    assert mg.fused_match_grid.launches == before + 1
+    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                           ).reshape(nt, nd, -1))
+    t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([4, 1, 0, 3, 4], dtype=torch.int32, device=cuda)
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+
+
 def _image_factors(cuda, nt, nd, S, C=16, nhead=2, seed=0):
     """Image-head factors and weights from seeded random token features and
     two seeded CrossLinAttn stages."""
-    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
-    from point_cloud_reid_tpu_torch.models.attention_blocks import (
-        CrossLinAttn)
-    from point_cloud_reid_tpu_torch.models.build import init_weights
-    stages = torch.nn.ModuleList(CrossLinAttn(C, nhead) for _ in range(2))
-    init_weights(stages, torch.Generator().manual_seed(seed))
-    stages.to(cuda).requires_grad_(False)
-    rs = np.random.RandomState(seed)
-    h_t = torch.from_numpy(rs.randn(nt, S, C).astype(np.float32)).to(cuda)
-    h_d = torch.from_numpy(rs.randn(nd, S, C).astype(np.float32)).to(cuda)
-    with torch.no_grad():
-        t = mg.image_grid_factors(stages[0], h_t, nhead)
-        d = mg.image_grid_factors(stages[0], h_d, nhead)
-        w1, w2 = mg.stage_weights(stages[0], stages[1])
-    return t, d, w1, w2, nhead
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    return inputs("image", nt, nd, S, C, nhead, seed, device=cuda)
 
 
-# S below, at and above one 32-row tile, with tails of 1 to 3 rows of a
-# 4-row register group, and the released token counts at C=64
-@pytest.mark.parametrize("S,C", [(6, 16), (33, 16), (70, 16), (197, 64),
-                                 (198, 64)])
+# S below one 16-row slab, one row past two slabs, ragged slabs past the
+# 8 warps' first round, and the released token counts (more than one
+# 128-row summary chunk), at the smallest and the released C
+@pytest.mark.parametrize("C", [16, 64])
+@pytest.mark.parametrize("S", [6, 33, 70, 197, 198])
 def test_image_match_kernels_match_plain(cuda, S, C):
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     nt, nd = 3, 5
@@ -127,12 +136,25 @@ def test_image_match_kernels_match_plain(cuda, S, C):
 
 
 def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
-    """260 tokens x 64 channels need 242 KB of shared memory with 32-row
-    tiles, more than a block may take: the wrapper raises and nothing is
-    launched; so does the C entry point when it is called past the
-    wrapper's own check."""
+    """260 tokens x 64 channels need 242,688 bytes of shared memory a block
+    (weights 8 C^2 + 272 padded rows of O at C + 4 + the peer's [KV | Z]
+    2 C^2 + pooling 1,216 floats), more than the 232,448 a block may take:
+    the wrapper raises and nothing is launched; so does the C entry point
+    when it is called past the wrapper's own check."""
+    import ctypes
+
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    lib = _lib.LIBRARY.get()
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    for (N, C), (status, want) in {(128, 64): (0, 203520),
+                                   (198, 64): (0, 225280),
+                                   (224, 64): (0, 229632),
+                                   (225, 64): (2, 233984),
+                                   (260, 64): (2, 242688)}.items():
+        assert lib.pcr_match_pooled_layout(
+            N, C, 2, ctypes.byref(need), ctypes.byref(limit)) == status
+        assert (need.value, limit.value) == (want, 232448)
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 260, 64)
     before = mg.fused_image_match_grid.launches
     with pytest.raises(ValueError, match="shared memory"):
@@ -147,6 +169,17 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
     assert err != 0
     with pytest.raises(RuntimeError, match="CUDA error"):
         _lib.check(err, "pcr_match_pooled_image")
+
+
+def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
+    """C=12 is not a multiple of the tensor-core tiles' 8 columns: the
+    wrapper raises before any launch."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 12)
+    before = mg.fused_image_match_grid.launches
+    with pytest.raises(ValueError, match="tensor-core tiles"):
+        mg.fused_image_match_grid(t, d, w1, w2, nhead)
+    assert mg.fused_image_match_grid.launches == before
 
 
 def _knn_inputs(kind, B, S, N, seed=0):
