@@ -1,4 +1,5 @@
-// Eval-mode SA stage of the point backbone: gather + edge MLP + max over K.
+// Eval-mode SA stage of the point backbone: gather + edge MLP + max over K,
+// on Hopper's tensor cores with float32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel point_cloud_reid_tpu/ops/pallas/sa_stage.py
 // (fused_sa_convmax, _kernel). Per crop b and centre s it computes
@@ -10,127 +11,254 @@
 //
 // with BN folded into the (C,) affines by the wrapper. The TPU kernel's
 // one-hot gather matmul and k-major row layout are Mosaic workarounds;
-// here a block reads its own K neighbour rows straight from A.
+// here a block reads its neighbour rows straight from A.
 //
-// What bounds it on the H100: the two C x C products, 2*K*C*C*2 FLOP per
-// centre (SA3 at B=128: 4096 centres x 48 x 512 x 512 x 4 ~ 206 GFLOP),
-// run here on the float32 CUDA cores (67 TFLOP/s peak, no tensor cores;
-// wgmma/bf16 is later work). The weights are shared by every block and
-// stay in L2 (1 MB each at C=512); the per-centre rows never leave
-// shared memory.
+// Products: the two C x C products run as mma.sync m16n8k8 TF32 in three
+// passes (tf32_mma.cuh: hi truncated, hi*hi + hi*lo + lo*hi, float32
+// accumulation), which keeps the stage within a few 1e-6 of the float32
+// plain version; one pass would read ~2e-4 (tests/test_torch_sa_tf32.py).
+// The gather, the affines, ReLU and the max stay float32 on the CUDA cores.
 //
-// Design: one block per (crop, centre). The K neighbour rows are processed
-// in chunks of KC=16 rows; each chunk's h1 and h2 tiles live in shared
-// memory transposed ([C][KC]) so that a thread owning two adjacent output
-// columns reads one float2 of weights per input channel (coalesced across
-// the warp) and four float4 broadcasts of the tile, which feed 32 FMAs into
-// 2*KC register accumulators (C is even). The block has C/2 threads (64
-// to 256), so every thread owns columns at all three stages. Measured on
-// the H100: one column per thread was 1.4x slower at every stage; four
-// columns, 4-row tiles or 32-row chunks were slower still.
-// The max over K is a running max per column in shared memory, started at
-// 0: every h3 value is a relu output, so 0 is the exact identity.
-// Shared memory: 2*C*KC + C floats (66 KB at C=512), set above the 48 KB
-// default with cudaFuncSetAttribute.
+// Row tiles. The rows (b, s, k) are one list of R = B S K rows, and a block
+// of W warps owns M consecutive rows of it. The block
+//  1. gathers its M rows of A, adds the centre term, applies BN1 + ReLU into
+//     buffer 1 (M x (C + 4) floats: the padding keeps the ldmatrix loads of
+//     the A fragments free of bank conflicts); barrier;
+//  2. conv2: each warp computes its own columns of h1 @ w2 for all M rows
+//     in registers, then the affine + ReLU into buffer 2; barrier;
+//  3. conv3 the same from buffer 2 into buffer 1, which is free; barrier;
+//  4. takes the max over each centre's rows of buffer 1 and stores it.
+// In 2 and 3 a warp owns NT n-tiles (8 NT columns) and reads their B
+// fragments straight from device memory (L2 hits: w2 and w3 are shared by
+// every block), PF k-steps ahead in registers, and splits each weight
+// element into hi and lo once: no other warp of the block reads it, so each
+// weight is read and split once per block of M rows. Each warp loads its A
+// fragments from shared memory with ldmatrix and splits them itself.
+// M is set per C by registers and shared memory: 4 MT NT accumulators a
+// thread (MT = M / 16) with the whole thread under 128 registers, so that
+// an SM holds 16 warps (two 8-warp blocks, or one 16-warp block where C
+// gives 16 column chunks), and the two buffers within that SM's share:
+//   C = 128 (SA1): 8 warps, NT 2, M 64 (2 centres at K = 32), 68 KB, two
+//                  blocks a SM;
+//   C = 256 (SA2): 8 warps, NT 4, M 48 (1 centre at K = 48), 100 KB, two
+//                  blocks a SM;
+//   C = 512 (SA3): 16 warps, NT 4, M 48 (1 centre), 198 KB, one block;
+//   C = 1024:      16 warps, NT 4, M 16, 132 KB; each warp takes two column
+//                  chunks in turn.
+// Weight reads per call at B = 128: 1.07 / 4.3 / 8.6 GB for SA1/2/3, from
+// L2 (the SIMT kernel before this one read 4.3 / 12.9 / 25.8 GB). Larger
+// tiles with one 8-warp block a SM (M = 128 / 96 / 48, up to 236
+// registers) read half as much and were 1.4x / 1.1x slower at SA1 / SA2:
+// with one block a SM nothing overlaps its gather and its barriers.
+// Any C that is a multiple of 32, 32 to 1024, is taken: NT is 1, 2 or 4,
+// the largest that still gives every warp a chunk of columns (C = 32: two
+// row groups of 4 warps, each reading the weights); where the chunks do not
+// divide among the warps, some warps take one more.
+// The max: every h3 is a ReLU output >= 0, so 0 is the identity and the
+// float order is the order of the bits as integers. Where M is a multiple
+// of K every centre lies whole in one block and its max is stored plainly;
+// otherwise (C = 1024 at K = 48, or K = 12 at M = 128) a block's edge
+// centres are partial and go out by atomicMax on the bits into an `out`
+// that the entry point zero-fills first. The max is exact, so the result
+// does not depend on the order.
+//
+// What bounds it on the H100: the products, 4 R C^2 operations, three TF32
+// passes each, on the tensor cores: at 495 TFLOP/s 0.208 / 0.625 / 1.249
+// ms for SA1/2/3 at B = 128; the bytes (A, Ct, idx, out, weights once),
+// ~36 MB, take 0.011 ms. Measured (H100 80GB HBM3, 700 W), SA3 runs its
+// tensor work at 196-204 TFLOP/s in three layouts (one 8-warp block of 8
+// n-tiles, one 16-warp block of 4) and SA2 at 197: 2.4-2.5x their bound,
+// which reads as the rate at which mma.sync issues three-pass TF32 products
+// on this card; wgmma, with B in shared memory, is the way past it. SA1
+// (C = 128) reaches 144 TFLOP/s: its gather and max are a larger share.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#include <algorithm>
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int KC = 16;        // neighbour rows per chunk
-constexpr int THREADS = 256;
+constexpr int WARPS = 8;      // warps a block; 16 where there are 16 column chunks
+constexpr int PF = 4;         // k-steps a warp's B fragments are loaded ahead
+constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
 
-// acc[t][r] = sum_ci hin[ci][r] * w[ci][co + t] for r < KC, t < 2, hin
-// transposed [C][KC]
-__device__ __forceinline__ void column_product(const float* __restrict__ hin,
-                                               const float* __restrict__ w,
-                                               int C, int co, float acc[2][KC]) {
+struct Args {
+  const float* A;     // (B, N, C)
+  const float* Ct;    // (B, S, C)
+  const int* idx;     // (B, S, K): row r of the list is idx[r]
+  const float* w2;    // (C, C) (in, out)
+  const float* w3;
+  const float* s1; const float* t1; const float* s2; const float* t2;
+  const float* s3; const float* t3;
+  float* out;         // (B, S, C)
+  int N, S, K, C, R;  // R = B S K rows
+  int mt, groups, chunks;   // m-tiles per row group, row groups, column chunks
+};
+
+// The most m-tiles a warp carries for NT n-tiles (4 MT NT accumulators), so
+// that a thread stays within 128 registers.
+constexpr int max_mt(int nt) { return nt == 1 ? 8 : nt == 2 ? 4 : 3; }
+
+// dst[r][c] = relu((src @ w)[r][c] * sc[c] + sh[c]) for the block's rows, a
+// warp per (row group, column chunk) job; src and dst padded to C + 4.
+template <int NT, int MT, int W>
+__device__ __forceinline__ void conv_layer(const float* src, float* dst,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ sc,
+                                           const float* __restrict__ sh,
+                                           const Args& p) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int C = p.C, LD = C + 4, ksteps = C / 8, mt = p.mt;
+  for (int job = warp; job < p.groups * p.chunks; job += W) {
+    const int row0 = (job / p.chunks) * mt * 16;
+    const int col0 = (job % p.chunks) * NT * 8;
+    float acc[MT][NT][4];
 #pragma unroll
-  for (int r = 0; r < KC; ++r) acc[0][r] = acc[1][r] = 0.f;
-  for (int ci = 0; ci < C; ++ci) {
-    const float2 wv = __ldg(reinterpret_cast<const float2*>(w + (size_t)ci * C + co));
-    const float4* hp = reinterpret_cast<const float4*>(hin + ci * KC);
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int q = 0; q < KC / 4; ++q) {
-      const float4 h = hp[q];
-      acc[0][4 * q + 0] = fmaf(h.x, wv.x, acc[0][4 * q + 0]);
-      acc[0][4 * q + 1] = fmaf(h.y, wv.x, acc[0][4 * q + 1]);
-      acc[0][4 * q + 2] = fmaf(h.z, wv.x, acc[0][4 * q + 2]);
-      acc[0][4 * q + 3] = fmaf(h.w, wv.x, acc[0][4 * q + 3]);
-      acc[1][4 * q + 0] = fmaf(h.x, wv.y, acc[1][4 * q + 0]);
-      acc[1][4 * q + 1] = fmaf(h.y, wv.y, acc[1][4 * q + 1]);
-      acc[1][4 * q + 2] = fmaf(h.z, wv.y, acc[1][4 * q + 2]);
-      acc[1][4 * q + 3] = fmaf(h.w, wv.y, acc[1][4 * q + 3]);
+      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    // B fragment of k-step kk, n-tile j: w[8 kk + t][col0 + 8 j + g] and
+    // w[8 kk + t + 4][...], loaded PF k-steps ahead (ksteps = C / 8 is a
+    // multiple of PF)
+    const float* wp = w + (size_t)t * C + col0 + g;
+    float bn[PF][NT][2];
+#pragma unroll
+    for (int q = 0; q < PF; ++q)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        bn[q][j][0] = __ldg(wp + (size_t)q * 8 * C + 8 * j);
+        bn[q][j][1] = __ldg(wp + (size_t)q * 8 * C + 4 * C + 8 * j);
+      }
+    // ldmatrix .x4: lanes 0-7 / 8-15 / 16-23 / 24-31 give the rows of the
+    // four 8 x 4 float blocks a[0] (rows 0-7, cols 0-3), a[1] (8-15, 0-3),
+    // a[2] (0-7, 4-7), a[3] (8-15, 4-7); lane 4g + t receives (g, t) of each
+    const uint32_t abase = (uint32_t)__cvta_generic_to_shared(
+        src + (row0 + (lane & 15)) * LD + (lane >> 4) * 4);
+    for (int k0 = 0; k0 < ksteps; k0 += PF) {
+#pragma unroll
+      for (int q = 0; q < PF; ++q) {
+        const int kk = k0 + q;
+        tf32::BFrag bf[NT];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) bf[j] = tf32::split_b(bn[q][j][0], bn[q][j][1]);
+        if (kk + PF < ksteps) {
+          const float* wn = wp + (size_t)(kk + PF) * 8 * C;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            bn[q][j][0] = __ldg(wn + 8 * j);
+            bn[q][j][1] = __ldg(wn + 4 * C + 8 * j);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (i < mt) {
+            uint32_t r[4];
+            asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+                         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                         : "r"(abase + (uint32_t)(i * 16 * LD + kk * 8) * 4u));
+            const float av[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
+                                 __uint_as_float(r[2]), __uint_as_float(r[3])};
+            const tf32::AFrag af = tf32::split_a(av);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) tf32::mma3(acc[i][j], af, bf[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = col0 + 8 * j + 2 * t;
+      const float2 s = *reinterpret_cast<const float2*>(sc + col);
+      const float2 h = *reinterpret_cast<const float2*>(sh + col);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i < mt) {
+          float* d = dst + (row0 + 16 * i + g) * LD + col;
+          *reinterpret_cast<float2*>(d) = make_float2(
+              fmaxf(acc[i][j][0] * s.x + h.x, 0.f), fmaxf(acc[i][j][1] * s.y + h.y, 0.f));
+          *reinterpret_cast<float2*>(d + 8 * LD) = make_float2(
+              fmaxf(acc[i][j][2] * s.x + h.x, 0.f), fmaxf(acc[i][j][3] * s.y + h.y, 0.f));
+        }
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-sa_convmax_kernel(const float* __restrict__ A, const float* __restrict__ Ct,
-                  const int* __restrict__ idx, const float* __restrict__ w2,
-                  const float* __restrict__ w3, const float* __restrict__ s1,
-                  const float* __restrict__ t1, const float* __restrict__ s2,
-                  const float* __restrict__ t2, const float* __restrict__ s3,
-                  const float* __restrict__ t3, float* __restrict__ out,
-                  int N, int S, int K, int C) {
+// Registers held to 128 a thread: two 8-warp blocks or one 16-warp block a SM.
+template <int NT, int MT, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W) sa_convmax_kernel(const Args p) {
   extern __shared__ __align__(16) float smem[];
-  float* h1 = smem;                 // [C][KC]
-  float* h2 = h1 + C * KC;          // [C][KC]
-  float* mx = h2 + C * KC;          // [C]
+  const int C = p.C, LD = C + 4, M = p.groups * p.mt * 16;
+  float* buf1 = smem;
+  float* buf2 = smem + M * LD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * M;
+  const int rows = min(M, p.R - r0);
 
-  const int bs = blockIdx.x;        // b * S + s
-  const int b = bs / S;
-  const float* a_b = A + (size_t)b * N * C;
-  const float* ct = Ct + (size_t)bs * C;
-  const int* nbr = idx + (size_t)bs * K;
-
-  for (int c = threadIdx.x; c < C; c += blockDim.x) mx[c] = 0.f;
-
-  float acc[2][KC];
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();                // the previous chunk's readers are done
-    // conv1 (factored): gather + centre term + BN1 + relu -> h1[c][r]
-    for (int e = threadIdx.x; e < KC * C; e += blockDim.x) {
-      const int r = e / C, c = e - r * C;
-      float v = 0.f;
-      if (r < kc) {
-        const int n = nbr[k0 + r];
-        v = fmaxf((a_b[(size_t)n * C + c] + ct[c]) * s1[c] + t1[c], 0.f);
+  // 1. gather + centre term + BN1 + relu -> buf1; padded rows are 0
+  const float4* s1 = reinterpret_cast<const float4*>(p.s1);
+  const float4* t1 = reinterpret_cast<const float4*>(p.t1);
+  // lane j of a warp holds the source offsets of row warp + W j, so the
+  // rows' loads do not wait on each other's index
+  const int per = M / W;
+  long long src = -1, ctr = 0;
+  if (lane < per && warp + W * lane < rows) {
+    const int row = r0 + warp + W * lane, centre = row / p.K;
+    src = ((long long)(centre / p.S) * p.N + __ldg(p.idx + row)) * C;
+    ctr = (long long)centre * C;
+  }
+#pragma unroll 4
+  for (int j = 0; j < per; ++j) {
+    const long long sj = __shfl_sync(0xffffffffu, src, j);
+    const long long cj = __shfl_sync(0xffffffffu, ctr, j);
+    float4* dst = reinterpret_cast<float4*>(buf1 + (warp + W * j) * LD);
+    const float4* a = reinterpret_cast<const float4*>(p.A + sj);
+    const float4* ct = reinterpret_cast<const float4*>(p.Ct + cj);
+    for (int c = lane; c < C / 4; c += 32) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (sj >= 0) {
+        const float4 x = __ldg(a + c), y = __ldg(ct + c), s = __ldg(s1 + c),
+                     h = __ldg(t1 + c);
+        v = make_float4(fmaxf((x.x + y.x) * s.x + h.x, 0.f),
+                        fmaxf((x.y + y.y) * s.y + h.y, 0.f),
+                        fmaxf((x.z + y.z) * s.z + h.z, 0.f),
+                        fmaxf((x.w + y.w) * s.w + h.w, 0.f));
       }
-      h1[c * KC + r] = v;
-    }
-    __syncthreads();
-    // conv2 + BN2 + relu -> h2[co][r]
-    for (int co = 2 * threadIdx.x; co < C; co += 2 * blockDim.x) {
-      column_product(h1, w2, C, co, acc);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float sc = s2[co + t], sh = t2[co + t];
-#pragma unroll
-        for (int r = 0; r < KC; ++r)
-          h2[(co + t) * KC + r] = fmaxf(acc[t][r] * sc + sh, 0.f);
-      }
-    }
-    __syncthreads();
-    // conv3 + BN3 + relu, running max over this chunk's valid rows
-    for (int co = 2 * threadIdx.x; co < C; co += 2 * blockDim.x) {
-      column_product(h2, w3, C, co, acc);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float sc = s3[co + t], sh = t3[co + t];
-        float m = mx[co + t];
-#pragma unroll
-        for (int r = 0; r < KC; ++r)
-          if (r < kc) m = fmaxf(m, fmaxf(acc[t][r] * sc + sh, 0.f));
-        mx[co + t] = m;
-      }
+      dst[c] = v;
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < C; c += blockDim.x) out[(size_t)bs * C + c] = mx[c];
+  // 2, 3. the two convs, each warp its own columns
+  conv_layer<NT, MT, W>(buf1, buf2, p.w2, p.s2, p.t2, p);
+  __syncthreads();
+  conv_layer<NT, MT, W>(buf2, buf1, p.w3, p.s3, p.t3, p);
+  __syncthreads();
+
+  // 4. max over each centre's rows in this block
+  const int first = r0 / p.K, centres = (r0 + rows - 1) / p.K - first + 1;
+  for (int e = threadIdx.x; e < centres * C; e += 32 * W) {
+    const int centre = first + e / C, c = e % C;
+    const int lo = max(centre * p.K, r0), hi = min((centre + 1) * p.K, r0 + rows);
+    float m = 0.f;
+    for (int r = lo - r0; r < hi - r0; ++r) m = fmaxf(m, buf1[r * LD + c]);
+    float* o = p.out + (size_t)centre * C + c;
+    if (lo == centre * p.K && hi == (centre + 1) * p.K)
+      *o = m;
+    else
+      atomicMax(reinterpret_cast<int*>(o), __float_as_int(m));
+  }
+}
+
+template <int NT, int W>
+int launch(const Args& p, size_t smem, int blocks, cudaStream_t stream) {
+  constexpr int MT = max_mt(NT);
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_convmax_kernel<NT, MT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sa_convmax_kernel<NT, MT, W><<<blocks, 32 * W, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -140,17 +268,37 @@ extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
                               const void* t1, const void* s2, const void* t2,
                               const void* s3, const void* t3, void* out,
                               int B, int N, int S, int K, int C, void* stream) {
-  const size_t smem = (size_t)(2 * C * KC + C) * sizeof(float);
-  if (C % 2 != 0) return (int)cudaErrorInvalidValue;   // column pairs
-  // C / 2 threads (64..THREADS): every thread owns column pairs
-  const int threads = std::min(THREADS, std::max(64, C / 2));
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_convmax_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sa_convmax_kernel<<<B * S, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)A, (const float*)Ct, (const int*)idx, (const float*)w2,
-      (const float*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
-      (const float*)t2, (const float*)s3, (const float*)t3, (float*)out,
-      N, S, K, C);
-  return (int)cudaGetLastError();
+  const long long R = (long long)B * S * K;
+  if (C < 32 || C > 1024 || C % 32 != 0 || K < 1 || R >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (R == 0) return (int)cudaSuccess;
+  // NT: the largest of 1, 2, 4 that leaves at least 8 column chunks
+  const int ntiles = C / 8;
+  int nt = 1;
+  for (int d = 2; d <= 4; d *= 2)
+    if (ntiles % d == 0 && ntiles / d >= WARPS) nt = d;
+  Args p{(const float*)A, (const float*)Ct, (const int*)idx, (const float*)w2,
+         (const float*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
+         (const float*)t2, (const float*)s3, (const float*)t3, (float*)out,
+         N, S, K, C, (int)R, 0, 0, 0};
+  p.chunks = ntiles / nt;
+  const int warps = p.chunks >= 2 * WARPS ? 2 * WARPS : WARPS;
+  p.groups = p.chunks < warps ? warps / p.chunks : 1;
+  p.mt = max_mt(nt);
+  while (p.mt > 1 && (size_t)2 * p.groups * p.mt * 16 * (C + 4) * sizeof(float) > SMEM_LIMIT)
+    --p.mt;
+  const int M = p.groups * p.mt * 16;
+  const size_t smem = (size_t)2 * M * (C + 4) * sizeof(float);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (M % K != 0) {     // partial centres: atomicMax into zeros
+    cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R / K * C * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (int)((R + M - 1) / M);
+  if (warps == 2 * WARPS) return launch<4, 2 * WARPS>(p, smem, blocks, st);
+  switch (nt) {
+    case 1: return launch<1, WARPS>(p, smem, blocks, st);
+    case 2: return launch<2, WARPS>(p, smem, blocks, st);
+    default: return launch<4, WARPS>(p, smem, blocks, st);
+  }
 }

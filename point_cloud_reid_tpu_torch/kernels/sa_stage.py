@@ -1,7 +1,8 @@
 """Eval-mode SA stage: gather + edge-MLP + max over neighbours.
 
 Port of point_cloud_reid_tpu/ops/pallas/sa_stage.py. `fused_sa_convmax`
-launches the CUDA kernel of csrc/sa_stage.cu on CUDA tensors and runs its
+launches the CUDA kernel of csrc/sa_stage.cu (its two products on the tensor
+cores in three TF32 passes) on CUDA tensors and runs its
 plain PyTorch version, `sa_convmax_reference`, on CPU tensors; any other
 device raises. `sa_stage_inference` folds BatchNorm into per-channel affines
 exactly as the JAX wrapper does (conv1's bias enters Ct through
@@ -17,6 +18,12 @@ from ..ops.geometry import conv1_edge_factors
 from . import _lib
 
 
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version's two C x C products: the products the kernel runs
+    on the tensor cores, in one place."""
+    return a @ b
+
+
 def sa_convmax_reference(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
                          w2: torch.Tensor, w3: torch.Tensor,
                          s1, t1, s2, t2, s3, t3) -> torch.Tensor:
@@ -27,8 +34,8 @@ def sa_convmax_reference(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
     g = torch.gather(A, 1, idx.reshape(B, S * K, 1).long().expand(-1, -1, C))
     h = g.reshape(B, S, K, C) + Ct[:, :, None, :]
     h = torch.relu(h * s1 + t1)
-    h = torch.relu((h @ w2) * s2 + t2)
-    h = torch.relu((h @ w3) * s3 + t3)
+    h = torch.relu(_mm(h, w2) * s2 + t2)
+    h = torch.relu(_mm(h, w3) * s3 + t3)
     return h.amax(dim=2)
 
 
@@ -39,12 +46,23 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
 
     A (B, N, C) per-point conv1 factor; Ct (B, S, C) per-centre term;
     idx (B, S, K) neighbour indices into N; w2/w3 (C, C) in (in, out)
-    layout; s*/t* (C,) folded BN affines. Returns (B, S, C) float32.
+    layout; s*/t* (C,) folded BN affines. Returns (B, S, C) float32. On
+    CUDA, C must be a multiple of 32 from 32 to 1024 (ValueError otherwise).
     """
     if A.device.type == "cpu":
         return sa_convmax_reference(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
     if A.device.type != "cuda":
         raise RuntimeError(f"fused_sa_convmax: no kernel for {A.device}")
+    out = launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
+    fused_sa_convmax.launches += 1
+    return out
+
+
+def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
+           library: Optional[_lib.Library] = None) -> torch.Tensor:
+    """Check CUDA inputs as fused_sa_convmax takes them and launch the
+    kernel. `library` is another build of csrc/sa_stage.cu's entry point, as
+    tools/ab_sa.py times versions of the kernel."""
     B, N, C = A.shape
     S, K = idx.shape[1], idx.shape[2]
     vecs = (s1, t1, s2, t2, s3, t3)
@@ -58,16 +76,21 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
     for t in (Ct, idx, w2, w3) + vecs:
         if t.device != A.device:
             raise ValueError("fused_sa_convmax: inputs on different devices")
-    if C % 2 or w2.data_ptr() % 16 or w3.data_ptr() % 16:
-        raise ValueError("fused_sa_convmax: C must be even and w2/w3 16-byte "
-                         "aligned (the kernel reads weight column pairs)")
+    if C % 32 or not 32 <= C <= 1024:
+        raise ValueError(f"fused_sa_convmax: C={C}; the kernel takes C a "
+                         "multiple of 32 from 32 to 1024 (the widths 32, 64 "
+                         "and 128 x mul of the port's configs)")
+    if B * S * K >= 2 ** 31:
+        raise ValueError("fused_sa_convmax: B * S * K must be below 2^31")
+    if any(t.data_ptr() % 16 for t in (A, Ct, w2, w3) + vecs):
+        raise ValueError("fused_sa_convmax: float inputs must be 16-byte "
+                         "aligned (the kernel reads them in float4 / float2)")
     out = torch.empty((B, S, C), dtype=torch.float32, device=A.device)
-    lib = _lib.LIBRARY.get()
+    lib = (library or _lib.LIBRARY).get()
     err = lib.pcr_sa_convmax(
         *[t.data_ptr() for t in (A, Ct, idx, w2, w3) + vecs + (out,)],
         B, N, S, K, C, _lib.stream_ptr(A.device))
     _lib.check(err, "pcr_sa_convmax")
-    fused_sa_convmax.launches += 1
     return out
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,9 +64,10 @@ def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
 
 
 def build(sources):
-    """One loaded library per source, built together; prints ptxas's
-    register and spill lines of each."""
-    libs = [_lib.Library([src]) for src in sources]
+    """One loaded library per source and the headers beside it, built
+    together; prints ptxas's register and spill lines of each."""
+    libs = [_lib.Library([src, *sorted(Path(src).parent.glob("*.cuh"))])
+            for src in sources]
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.get(), libs))
     for lib, src in zip(libs, sources):

@@ -1,0 +1,29 @@
+"""tools/ab_sa.py on the CPU: its seeded inputs, which are
+fused_sa_convmax's arguments at the flagship's three stages, and its
+refusal to run without a card."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from point_cloud_reid_tpu_torch.kernels import sa_stage as sa  # noqa: E402
+from point_cloud_reid_tpu_torch.tools import ab_sa  # noqa: E402
+
+
+def test_stage_inputs_are_the_flagship_stages():
+    stages = ab_sa.stage_inputs(2, device="cpu")
+    shapes = [(a[0].shape[1:], a[2].shape[1:]) for a in stages]
+    assert shapes == [((128, 128), (128, 32)), ((128, 256), (64, 48)),
+                      ((64, 512), (32, 48))]
+    again = ab_sa.stage_inputs(2, device="cpu")
+    for a, b in zip(stages, again):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert all(x.is_contiguous() for x in a)
+        out = sa.fused_sa_convmax(*a)
+        assert out.shape == (2, a[2].shape[1], a[0].shape[2])
+        assert torch.isfinite(out).all()
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_sa.main(["point_cloud_reid_tpu_torch/csrc/sa_stage.cu"])

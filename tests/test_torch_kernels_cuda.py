@@ -30,23 +30,50 @@ def _close(got, want):
     assert err <= TOL * max(1.0, want.abs().max().item()), err
 
 
-@pytest.mark.parametrize("B,N,S,K,C", [(3, 40, 20, 12, 64),
-                                       (1, 30, 7, 16, 128),
-                                       (2, 64, 32, 48, 512)])
-def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
-    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+def _sa_args(cuda, B, N, S, K, C):
     g = torch.Generator(device=cuda).manual_seed(0)
 
     def r(*shape):
         return torch.randn(shape, generator=g, device=cuda)
     idx = torch.randint(0, N, (B, S, K), generator=g, device=cuda,
                         dtype=torch.int32)
-    args = (r(B, N, C), r(B, S, C), idx, r(C, C) / C ** 0.5,
+    return (r(B, N, C), r(B, S, C), idx, r(C, C) / C ** 0.5,
             r(C, C) / C ** 0.5) + tuple(r(C) for _ in range(6))
+
+
+# The kernel's row tile M is 128 rows at C = 32 (x 2 row groups), 64, 96,
+# 128; 96 at C = 256, 48 at C = 512, 16 at C = 1024. Where K does not divide
+# M, centres straddle blocks and their maxima meet by atomicMax.
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (3, 40, 20, 12, 64),            # K = 12 does not divide M = 128
+    (1, 30, 7, 16, 128),
+    (2, 64, 32, 48, 512),
+    (4, 128, 128, 32, 128),         # the flagship's SA1, SA2, SA3 at B = 4
+    (4, 128, 64, 48, 256),
+    (4, 64, 32, 48, 512),
+    (2, 64, 32, 48, 1024),          # mul = 8's SA3: M = 16 < K, atomicMax
+    (3, 50, 25, 20, 96),            # odd S, K = 20 does not divide M; 12
+                                    # column chunks over 8 warps
+    (2, 16, 9, 7, 32),              # two row groups of 4 warps
+])
+def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    args = _sa_args(cuda, B, N, S, K, C)
     before = sa.fused_sa_convmax.launches
     got = sa.fused_sa_convmax(*args)
     assert sa.fused_sa_convmax.launches == before + 1
     _close(got, sa.sa_convmax_reference(*args))
+
+
+def test_sa_convmax_kernel_refuses_other_widths(cuda):
+    """The kernel takes C a multiple of 32 from 32 to 1024; the wrapper
+    raises before any launch on another width."""
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    before = sa.fused_sa_convmax.launches
+    for C in (48, 16, 1056):
+        with pytest.raises(ValueError, match="multiple of 32"):
+            sa.fused_sa_convmax(*_sa_args(cuda, 1, 8, 4, 4, C))
+    assert sa.fused_sa_convmax.launches == before
 
 
 def test_match_kernels_match_plain(cuda):

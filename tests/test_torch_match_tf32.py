@@ -15,40 +15,13 @@ torch = pytest.importorskip("torch")
 
 from point_cloud_reid_tpu_torch.kernels import match_grid as mg  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.ab_match import inputs  # noqa: E402
+from tests._tf32 import (mm_one_pass, mm_three_pass, rel,  # noqa: E402
+                         tf32_round, tf32_truncate)
 
 # the kernel's bar against the plain version, chip_smoke.py's MATCH_TOL:
 # float32 level
 THREE_PASS_TOL = 1e-5
 ONE_PASS_FACTOR = 10.0
-
-
-def _bits(x: torch.Tensor) -> torch.Tensor:
-    return x.contiguous().view(torch.int32)
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """cvt.rna.tf32.f32: round the magnitude half up at bit 13, keep 10
-    mantissa bits."""
-    return ((_bits(x) + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
-    """What the tensor core reads of a float32 operand: the low 13 bits
-    dropped."""
-    return (_bits(x) & ~0x1FFF).view(torch.float32)
-
-
-def mm_one_pass(a, b):
-    return tf32_round(a) @ tf32_round(b)
-
-
-def mm_three_pass(hi):
-    """3xTF32 with `hi` splitting off the high part."""
-    def mm(a, b):
-        ah, bh = hi(a), hi(b)
-        al, bl = tf32_truncate(a - ah), tf32_truncate(b - bh)
-        return al @ bh + ah @ bl + ah @ bh
-    return mm
 
 
 def test_tf32_rounding_is_round_to_nearest_ties_away():
@@ -62,13 +35,9 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     # hi + lo keeps 21 of float32's 24 bits when hi is rounded, 20 when it
     # is truncated
     for hi, bits in ((tf32_round, 20), (tf32_truncate, 19)):
-        rel = ((hi(x) + tf32_truncate(x - hi(x)) - x).abs()
+        err = ((hi(x) + tf32_truncate(x - hi(x)) - x).abs()
                / x.abs()).max().item()
-        assert rel < 2.0 ** -bits
-
-
-def _rel(got, want) -> float:
-    return ((got - want).abs().max() / want.abs().max().clamp(min=1.0)).item()
+        assert err < 2.0 ** -bits
 
 
 @pytest.mark.parametrize("split", ["truncate", "round"])
@@ -86,7 +55,7 @@ def test_three_tf32_passes_keep_float32_accuracy(monkeypatch, head, split):
         monkeypatch.setattr(mg, "_mm", mm_one_pass)
         one = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
     assert torch.isfinite(three).all() and three.shape == want.shape
-    err3, err1 = _rel(three, want), _rel(one, want)
+    err3, err1 = rel(three, want), rel(one, want)
     assert err3 <= THREE_PASS_TOL, err3
     assert err1 >= ONE_PASS_FACTOR * err3, (err1, err3)
     # one pass is worse than the kernel tests' own bar allows for
