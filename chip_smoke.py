@@ -7,10 +7,15 @@ Phases, each of which raises on failure:
   1. device: require CUDA, print the card's name and power limit, turn TF32
      off, build the CUDA kernels from point_cloud_reid_tpu_torch/csrc;
   2. kernels: every kernel against its plain PyTorch version at the shapes
-     its main path gives it, with errors, tolerances and CUDA-event times:
+     its main path gives it, with errors, tolerances and times (`ms`:
+     CUDA events around calls from Python, tools/timing.time_ms, for every
+     row; the kNN and attention rows, which the host paces, also give the
+     device time of a CUDA graph of calls, `device_ms`):
      the serving path's (SA stages at B=128 crops, the 128 x 128 grid, a
      512-pair list) and the training path's (kNN at the three SA shapes of
-     512 crops, linear attention at 256 pairs with its gradients);
+     512 crops, linear attention at 256 pairs with its gradients), and kNN
+     at the serving shapes (B=128 and 256 crops) beside the tracker's
+     knn_indices(..., "argsort");
   3. serving path: the flagship model (full widths, seeded random weights)
      behind TrackingManager.step over two synthetic scenes of 10 frames
      (96 objects x 600 points): gated sparse scoring ('auto', pair kernel)
@@ -118,20 +123,6 @@ def rel_err(got, want) -> tuple:
     return err, err / max(1.0, want.abs().max().item())
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -161,6 +152,7 @@ def phase_kernels(model):
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     crops = torch.randn((128, 128, 3), generator=gen, device=DEVICE) * 0.6
@@ -282,19 +274,53 @@ def phase_kernels(model):
 
 
 def knn_cloud(kind: str, B: int, N: int, seed: int):
-    """Crops for the kNN check. 'exact': coordinates are multiples of 1/64
-    in [-2, 2), so every product and sum is exact in float32 and both sides
-    see identical distances, full of ties; 'duplicates': 'exact' points
-    resampled with replacement, as crops are; 'random': Gaussian floats."""
+    """tools/scenes.knn_cloud on the card: crops for the kNN and FPS checks,
+    'exact' (multiples of 1/64, every distance exact and full of ties),
+    'duplicates' (those resampled with replacement, as crops are) or
+    'random' (Gaussian floats)."""
     import torch
-    rs = np.random.RandomState(seed)
-    if kind == "random":
-        xyz = (rs.randn(B, N, 3) * 0.6).astype(np.float32)
-    else:
-        xyz = rs.randint(-128, 128, (B, N, 3)).astype(np.float32) / 64.0
-        if kind == "duplicates":
-            xyz = xyz[np.arange(B)[:, None], rs.randint(0, N // 3, (B, N))]
-    return torch.from_numpy(xyz).to(DEVICE)
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud as cloud
+    return torch.from_numpy(cloud(kind, B, N, seed)).to(DEVICE)
+
+
+def knn_serving(shapes) -> dict:
+    """The tracker's embed at B=128 and B=256 crops runs
+    knn_indices(..., "argsort") at each SA stage: its time beside the
+    kernel's at those shapes on random clouds, both as a call from Python
+    (CUDA events around back-to-back calls, which the host can pace), and
+    the kernel's device time; indices equal on exact inputs. Returns {B:
+    times} summed over the three stages."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    out = {}
+    for B in (128, 256):
+        ms = [0.0, 0.0, 0.0]
+        for i, (S, N, k) in enumerate(shapes):
+            xyz = knn_cloud("exact", B, N, SEED + i)
+            q = xyz[:, :S].contiguous()
+            if not torch.equal(kk.knn(q, xyz, k),
+                               knn_indices(k, xyz, q, "argsort")):
+                raise RuntimeError(f"knn B={B} S={S}: indices differ from "
+                                   "the argsort path on exact inputs")
+            xyz = knn_cloud("random", B, N, SEED + i)
+            q = xyz[:, :S].contiguous()
+            k_ms = time_ms(lambda: kk.knn(q, xyz, k), 20)
+            a_ms = time_ms(lambda: knn_indices(k, xyz, q, "argsort"), 20)
+            d_ms = graph_ms(lambda: kk.knn(q, xyz, k), 20)
+            print(f"[knn:serving] B={B} S={S} N={N} k={k}: a call from "
+                  f"Python: kernel {k_ms:.4f} ms, knn_indices(argsort) "
+                  f"{a_ms:.4f} ms; kernel device time {d_ms:.4f} ms",
+                  flush=True)
+            ms = [ms[0] + k_ms, ms[1] + a_ms, ms[2] + d_ms]
+        print(f"[knn:serving] B={B}, three SA stages: kernel {ms[0]:.4f} ms "
+              f"(device {ms[2]:.4f}), argsort {ms[1]:.4f} ms: "
+              f"{ms[1] - ms[0]:.4f} ms a point frame with "
+              "knn_method='pallas'", flush=True)
+        out[B] = dict(kernel_ms=ms[0], argsort_ms=ms[1],
+                      kernel_device_ms=ms[2])
+    return out
 
 
 def phase_train_kernels(model):
@@ -302,6 +328,7 @@ def phase_train_kernels(model):
     import torch
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
     rows = []
 
     # kNN at the three SA stages' shapes for 256 pairs = 512 crops
@@ -309,7 +336,7 @@ def phase_train_kernels(model):
     shapes = [(s, n, mod.nsample) for s, n, mod in zip(
         model.backbone_list, [128] + list(model.backbone_list),
         model.backbone.SA_modules)]
-    k_ms = k_plain = k_lib = k_bound = 0.0
+    k_ms = k_plain = k_lib = k_bound = k_device = 0.0
     k_by, k_err, exact_bad, swaps_total = [], 0.0, 0, 0
     for i, (S, N, k) in enumerate(shapes):
         swaps = {}
@@ -336,23 +363,29 @@ def phase_train_kernels(model):
                 raise RuntimeError(f"knn random S={S} N={N} k={k}: "
                                    f"{int(far.sum())} indices differ beyond "
                                    "a near-tie")
+        # a call from Python, as every row, and the device time (a CUDA
+        # graph of calls: the host's enqueue of a call takes longer than
+        # the kernel)
         ms = time_ms(lambda: kk.knn(q, xyz, k), 20)
+        device = graph_ms(lambda: kk.knn(q, xyz, k), 20)
         plain = time_ms(lambda: kk.knn_reference(q, xyz, k), 10)
         # one PyTorch call pair for the same function, but not tie-stable
         lib = time_ms(lambda: torch.cdist(q, xyz).topk(
             k, dim=-1, largest=False).indices, 10)
         # 8 flops a distance; the selection (about N + k log N comparisons
-        # a row) is not counted, the k rounds of this kernel are its own
-        b_ms, b_by = bound_ms(8.0 * B * S * N,
-                              nbytes(q, xyz) + B * S * k * 4)
+        # a row) is not counted, the k rounds of this kernel are its own;
+        # the output is the int64 the function returns
+        b_ms, b_by = bound_ms(8.0 * B * S * N, nbytes(q, xyz, got))
         print(f"[knn] B={B} S={S} N={N} k={k}: indices equal on exact and "
               f"duplicated inputs; random floats: {swaps['random']} of "
               f"{got.numel()} differ, all near-ties (< {KNN_TIE:g} rel.; "
               f"largest distance gap so far {k_err:.3e}); "
-              f"kernel {ms:.3f} ms, plain {plain:.3f} ms, cdist+topk (not "
+              f"kernel {ms:.4f} ms (device time {device:.4f}), plain "
+              f"{plain:.3f} ms, cdist+topk (not "
               f"tie-stable) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         k_ms, k_plain, k_lib = k_ms + ms, k_plain + plain, k_lib + lib
+        k_device += device
         k_bound += b_ms
         k_by.append((b_ms, b_by))
         swaps_total += swaps["random"]
@@ -362,7 +395,8 @@ def phase_train_kernels(model):
                      max_abs_err=k_err, mismatches_exact=exact_bad,
                      near_tie_swaps=swaps_total, ms=k_ms,
                      plain_ms=k_plain, bound_ms=k_bound,
-                     bound_by=max(k_by)[1], library_ms=k_lib))
+                     bound_by=max(k_by)[1], library_ms=k_lib,
+                     device_ms=k_device, serving=knn_serving(shapes)))
 
     # linear attention: the cross stages' shape and one with L != S
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
@@ -393,20 +427,23 @@ def phase_train_kernels(model):
             with torch.no_grad():
                 fn(*sets[next(turn) % 3])
         ms = time_ms(lambda: run(la.linear_attention_forward), 30)
+        device = graph_ms(lambda: run(la.linear_attention_forward), 30)
         plain = time_ms(lambda: run(la.linear_attention_reference), 30)
         flops = Bp * H * (2.0 * S * D * V + 2.0 * L * D * V + 2.0 * L * D
                           + S * D)
         b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got))
         print(f"[linear_attention] B={Bp} L={L} S={S} H={H} D={D} V={V}: "
               f"max_abs_err={err:.3e} rel={rel:.3e}, gradients rel="
-              f"{g_rel:.3e} (tol {ATTN_TOL:g}); forward kernel {ms:.4f} ms, "
+              f"{g_rel:.3e} (tol {ATTN_TOL:g}); forward kernel {ms:.4f} ms "
+              f"(device time {device:.4f}), "
               f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         if not (rel <= ATTN_TOL and g_rel <= ATTN_TOL):
             raise RuntimeError(f"linear_attention disagrees: {rel}, {g_rel}")
         a_err = max(a_err, err)
         if L == S:      # the main path's shape gives the row its times
-            row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+            row = dict(ms=ms, device_ms=device, plain_ms=plain,
+                       bound_ms=b_ms, bound_by=b_by)
     rows.append(dict(
         name="linear_attention", route="cuda",
         source="point_cloud_reid_tpu_torch/csrc/linear_attention.cu",
@@ -654,6 +691,7 @@ def phase_image_kernels():
     indices bit for bit."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     n = IMG_OBJ
     sizes = {198: ((n, n),), 197: ((n, n), (2 * n, n))}
@@ -746,6 +784,7 @@ def phase_fps_kernel():
     exact-arithmetic, duplicated and random inputs."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import fps as kf
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
     B = FPS_CROPS
     ms = plain = bound = 0.0
     by, mismatches = [], 0

@@ -1,7 +1,8 @@
 """Stratified matching metrics (MatchingEval) + results aggregation.
 
-A copy of point_cloud_reid_tpu/evaluation/matching.py (numpy only; that
-package's __init__ imports jax, so the port cannot import it).
+A copy of point_cloud_reid_tpu/evaluation/matching.py (numpy only). The
+port imports nothing of the JAX package, not even its numpy-only modules,
+so it carries its own copy.
 
 Behavioral rebuild of the reference metrics engine:
   f1_precision_recall            <- datasets/utils.py:254-276

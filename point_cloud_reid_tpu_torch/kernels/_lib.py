@@ -43,8 +43,8 @@ _SIGNATURES = {
                               + [_P],
     # N, C, H, out bytes, out limit
     "pcr_match_pooled_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
-    # q, db, out, B, S, N, k, stream
-    "pcr_knn": [_P] * 3 + [_I] * 4 + [_P],
+    # q, db, out (int64), B, S, N, k, stream
+    "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
     # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
     # in elements), eps, stream
     "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9

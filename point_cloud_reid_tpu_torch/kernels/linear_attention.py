@@ -10,6 +10,8 @@ package's custom VJP does: there is no backward kernel in either package.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops.attention import linear_attention as linear_attention_reference
@@ -32,6 +34,21 @@ def linear_attention_forward(queries: torch.Tensor, keys: torch.Tensor,
             return linear_attention_reference(queries, keys, values, eps)
     if queries.device.type != "cuda":
         raise RuntimeError(f"linear_attention: no kernel for {queries.device}")
+    out = launch(queries, keys, values, eps)
+    linear_attention_forward.launches += 1
+    return out
+
+
+linear_attention_forward.launches = 0
+
+
+def launch(queries: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+           eps: float = 1e-6, library: Optional[_lib.Library] = None
+           ) -> torch.Tensor:
+    """Check CUDA inputs as linear_attention_forward takes them and launch
+    the kernel. `library` is another build of csrc/linear_attention.cu's
+    entry point, as tools/ab_train_kernels.py times versions of the
+    kernel."""
     if queries.dim() != 4 or keys.dim() != 4 or values.dim() != 4:
         raise ValueError("linear_attention: want 4-D q, k, v")
     B, L, H, D = queries.shape
@@ -49,16 +66,12 @@ def linear_attention_forward(queries: torch.Tensor, keys: torch.Tensor,
     q, k, v = (_row_strided(t.detach()) for t in (queries, keys, values))
     out = torch.empty((B, L, H, V), dtype=torch.float32, device=q.device)
     strides = [t.stride(i) for t in (q, k, v) for i in (0, 1, 2)]
-    lib = _lib.LIBRARY.get()
+    lib = (library or _lib.LIBRARY).get()
     err = lib.pcr_linear_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, L, S, H, D, V, *strides, float(eps), _lib.stream_ptr(q.device))
     _lib.check(err, "pcr_linear_attention")
-    linear_attention_forward.launches += 1
     return out
-
-
-linear_attention_forward.launches = 0
 
 
 class _LinearAttention(torch.autograd.Function):

@@ -32,6 +32,7 @@ import torch
 from ..kernels import _lib
 from ..kernels import match_grid as mg
 from .scenes import card_name
+from .timing import time_ms
 
 
 def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
@@ -81,18 +82,6 @@ def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None):
     """(P, 2C) pooled features from one version of the kernel."""
     out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib)
     return out.reshape(-1, out.shape[-1])
-
-
-def time_ms(fn, iters: int) -> float:
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv=None):

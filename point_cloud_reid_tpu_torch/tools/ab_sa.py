@@ -32,8 +32,9 @@ import time
 import torch
 
 from ..kernels import sa_stage as sa
-from .ab_match import build, time_ms
+from .ab_match import build
 from .scenes import card_name
+from .timing import time_ms
 
 
 def stage_inputs(B: int = 128, seed: int = 0, device="cuda") -> list:

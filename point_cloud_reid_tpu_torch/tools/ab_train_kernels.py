@@ -1,0 +1,225 @@
+"""A/B timing of versions of the kNN kernel (csrc/knn.cu) and the
+linear-attention kernel (csrc/linear_attention.cu) in one process on one
+card.
+
+Each SOURCE is a version of one of the two files, for example the parent
+commit's from `git show`. Each is built as a kernels/_lib.Library of its own
+from that one source (seconds; all built together, ptxas's register and
+spill lines printed) and launched as the wrapper launches it:
+kernels/knn.launch for a version with the int64 entry point
+`pcr_knn_i64`, and for an older one with the int32 `pcr_knn` its launch
+plus the wrapper's cast to int64, which is then inside the clock;
+kernels/linear_attention.launch for attention. The training path's shapes:
+kNN at the flagship's three SA stages on 512 crops (S, N, k = 128, 128, 32
+/ 64, 128, 48 / 32, 64, 48) on exact-arithmetic, duplicated and random
+seeded clouds, timed on the random ones; attention at the cross stages'
+(B, L, S, H, D, V) = (256, 128, 128, 2, 32, 32), q and k / v views of
+fused projections as the model hands them over, three input sets (more
+than the 50 MB L2) in rotation. Versions are timed in turns (first to last,
+then last to first, `--rounds` times), as chip_smoke.py times them
+(tools/timing): `median_ms` by CUDA events around `--iters` calls made one
+after another from Python, which the host can pace, and `device_ms` by a
+CUDA graph of as many calls. Every output is
+compared with the plain version: kNN index mismatches on exact and
+duplicated inputs (want 0) and near-tie swaps on random ones, attention's
+error relative to max(1, |plain|). Prints one JSON line per version with
+the card's name and power limit.
+
+    python -m point_cloud_reid_tpu_torch.tools.ab_train_kernels
+        [--knn SOURCE ...] [--attention SOURCE ...] [--rounds 5]
+        [--iters 20]
+
+Needs a CUDA device and nvcc. Float32, TF32 off.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+
+import numpy as np
+import torch
+
+from ..kernels import _lib
+from ..kernels import knn as kk
+from ..kernels import linear_attention as la
+from .ab_match import build
+from .scenes import card_name, knn_cloud
+from .timing import graph_ms, time_ms
+
+KNN_KINDS = ("exact", "duplicates", "random")
+KNN_TIE = 1e-6         # a swap needs plain distances this close (relative)
+
+
+def knn_stages():
+    """(S, N, k) of the flagship's three SA stages: S centres among the
+    previous stage's points (128 for SA1), k neighbours."""
+    from ..configs import point_transformer_point_cat
+    cfg = point_transformer_point_cat()
+    centres = cfg["backbone_list"]
+    points = [128] + centres[:-1]
+    return list(zip(centres, points, cfg["backbone"]["nsample"]))
+
+
+def knn_inputs(B: int = 512, seed: int = 0, device="cuda") -> list:
+    """Per SA stage (S, N, k, {kind: (queries, points)}): the first S points
+    of each seeded cloud are its queries."""
+    out = []
+    for i, (S, N, k) in enumerate(knn_stages()):
+        clouds = {}
+        for kind in KNN_KINDS:
+            xyz = torch.from_numpy(knn_cloud(kind, B, N, seed + i)).to(device)
+            clouds[kind] = (xyz[:, :S].contiguous(), xyz)
+        out.append((S, N, k, clouds))
+    return out
+
+
+def attention_inputs(B: int = 256, L: int = 128, S: int = 128, H: int = 2,
+                     D: int = 32, V: int = 32, sets: int = 3, seed: int = 0,
+                     device="cuda") -> list:
+    """`sets` seeded (q, k, v): q contiguous, k and v the two halves of one
+    (B, S, H, D + V) projection, as the cross stages' fused kv gives
+    them."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(sets):
+        q = torch.from_numpy(rs.randn(B, L, H, D).astype(np.float32))
+        kv = torch.from_numpy(rs.randn(B, S, H, D + V).astype(np.float32))
+        q, kv = q.to(device), kv.to(device)
+        out.append((q, kv[..., :D], kv[..., D:]))
+    return out
+
+
+def knn_call(lib):
+    """kNN as the wrapper calls one version: int64 straight from a kernel
+    with `pcr_knn_i64`; from an older int32 `pcr_knn`, its launch and the
+    cast the wrapper then made."""
+    handle = lib.get()
+    if hasattr(handle, "pcr_knn_i64"):
+        return lambda q, xyz, k: kk.launch(q, xyz, k, library=lib)
+    fn = handle.pcr_knn
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(q, xyz, k):
+        B, S, _ = q.shape
+        out = torch.empty((B, S, k), dtype=torch.int32, device=q.device)
+        _lib.check(fn(q.data_ptr(), xyz.data_ptr(), out.data_ptr(), B, S,
+                      xyz.shape[1], k, _lib.stream_ptr(q.device)), "pcr_knn")
+        return out.long()
+    return call
+
+
+def knn_check(got, q, xyz, k) -> tuple:
+    """(mismatches, swaps beyond a near-tie, largest plain-distance gap)
+    against the plain stable argsort."""
+    want = kk.knn_reference(q, xyz, k)
+    bad = got != want
+    dist = kk.square_distance(q, xyz)
+    dg, dw = dist.gather(-1, got), dist.gather(-1, want)
+    gap = (dg - dw).abs()
+    far = gap[bad] > KNN_TIE * dw.abs()[bad].clamp(min=1.0)
+    return int(bad.sum()), int(far.sum()), float(gap.max())
+
+
+def run_knn(sources, rounds: int, iters: int, card: str) -> None:
+    libs = build(sources)
+    calls = [knn_call(lib) for lib in libs]
+    stages = knn_inputs()
+    checks = []
+    for call in calls:
+        res = {}
+        for S, N, k, clouds in stages:
+            for kind, (q, xyz) in clouds.items():
+                got = call(q, xyz, k)
+                torch.cuda.synchronize()
+                if got.dtype != torch.int64 or got.shape != (q.shape[0], S, k):
+                    raise RuntimeError(f"knn gave {got.dtype} {got.shape}")
+                res[f"S{S}_N{N}_k{k}_{kind}"] = knn_check(got, q, xyz, k)
+        checks.append(res)
+    times = [[[] for _ in stages] for _ in libs]
+    device = [[[] for _ in stages] for _ in libs]
+    for r in range(rounds):
+        order = list(range(len(libs)))
+        for i in (order if r % 2 == 0 else order[::-1]):
+            for j, (S, N, k, clouds) in enumerate(stages):
+                q, xyz = clouds["random"]
+                times[i][j].append(time_ms(
+                    lambda: calls[i](q, xyz, k), iters))
+                device[i][j].append(graph_ms(
+                    lambda: calls[i](q, xyz, k), iters))
+    for i, src in enumerate(sources):
+        med = [statistics.median(t) for t in times[i]]
+        dev = [statistics.median(t) for t in device[i]]
+        res = checks[i]
+        print(json.dumps(dict(
+            kernel="knn", source=src, card=card, crops=512,
+            stages=[f"S{S}_N{N}_k{k}" for S, N, k, _ in stages],
+            median_ms=med, sum_ms=sum(med), all_ms=times[i],
+            device_ms=dev, device_sum_ms=sum(dev), device_all_ms=device[i],
+            exact_mismatches=sum(v[0] for key, v in res.items()
+                                 if not key.endswith("random")),
+            random_swaps=sum(v[0] for key, v in res.items()
+                             if key.endswith("random")),
+            beyond_near_tie=sum(v[1] for v in res.values()),
+            max_gap=max(v[2] for v in res.values()), checks=res)),
+            flush=True)
+
+
+def run_attention(sources, rounds: int, iters: int, card: str) -> None:
+    libs = build(sources)
+    sets = attention_inputs()
+    errs = []
+    for lib in libs:
+        err = 0.0
+        for q, k, v in sets:
+            got = la.launch(q, k, v, library=lib)
+            want = la.linear_attention_reference(q, k, v)
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item()
+                      / max(1.0, want.abs().max().item()))
+        errs.append(err)
+    times = [[] for _ in libs]
+    device = [[] for _ in libs]
+    for r in range(rounds):
+        order = list(range(len(libs)))
+        for i in (order if r % 2 == 0 else order[::-1]):
+            turn = iter(range(10 ** 9))
+
+            def call():
+                la.launch(*sets[next(turn) % len(sets)], library=libs[i])
+            times[i].append(time_ms(call, iters))
+            device[i].append(graph_ms(call, iters))
+    for i, src in enumerate(sources):
+        print(json.dumps(dict(
+            kernel="linear_attention", source=src, card=card,
+            shape=dict(B=256, L=128, S=128, H=2, D=32, V=32),
+            median_ms=statistics.median(times[i]), all_ms=times[i],
+            device_ms=statistics.median(device[i]), device_all_ms=device[i],
+            rel_err=errs[i])), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--knn", nargs="*", default=[])
+    ap.add_argument("--attention", nargs="*", default=[])
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--iters", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_train_kernels needs a CUDA device")
+    if not (args.knn or args.attention):
+        raise SystemExit("give --knn and/or --attention sources")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name()
+    if args.knn:
+        run_knn(args.knn, args.rounds, args.iters, card)
+    if args.attention:
+        run_attention(args.attention, args.rounds, args.iters, card)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,8 +7,9 @@ hand-written CUDA kernels), then with both off (plain PyTorch kNN and
 attention), in one process on one card. For each it prints one JSON line:
 median step ms (host clock around a synchronised step), forward / backward /
 optimizer ms (CUDA events), peak memory, and from one torch.profiler window
-the device time per kernel name and the share of the window the device was
-busy; with the card's name and power limit.
+the device time per kernel name (the 14 longest, and the training path's
+two hand-written kernels, kNN and attention, apart) and the share of the
+window the device was busy; with the card's name and power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.profile_train
         [--batch 256] [--steps 6] [--warmup 3] [--trace-dir build]
@@ -124,7 +125,10 @@ def profile_config(kernels: bool, args) -> dict:
         device_ms_per_step=sum(per_kernel.values()),
         device_kernels_per_step=len(intervals) / args.steps,
         device_busy_share=_busy_us(intervals) / window_us,
-        kernels_ms_per_step={k: v for k, v in top})
+        kernels_ms_per_step={k: v for k, v in top},
+        hand_kernels_ms_per_step={
+            k: v for k, v in per_kernel.items()
+            if "knn_kernel" in k or "lin_attn_kernel" in k})
 
 
 def main(argv=None):

@@ -1,5 +1,5 @@
-"""Scene generators, the image model of the tools and the card label,
-shared by chip_smoke.py and the tools."""
+"""Scene generators, seeded kNN clouds, the image model of the tools and
+the card label, shared by chip_smoke.py and the tools."""
 from __future__ import annotations
 
 import subprocess
@@ -22,6 +22,21 @@ def bench_scene(n_obj: int, pts_per_obj: int, frames: int, seed: int = 0):
         pts = (np.repeat(centers, pts_per_obj, axis=0)
                + rs.randn(n_obj * pts_per_obj, 3).astype(np.float32) * 0.5)
         yield pts, boxes, np.ones(n_obj, np.float32), np.zeros(n_obj, np.int64)
+
+
+def knn_cloud(kind: str, B: int, N: int, seed: int) -> np.ndarray:
+    """(B, N, 3) float32 crops for the kNN and FPS checks. 'exact':
+    multiples of 1/64 in [-2, 2), so every product and sum is exact in
+    float32 and the kernel and the plain version see identical distances,
+    full of ties; 'duplicates': 'exact' points resampled with replacement,
+    as crops are; 'random': Gaussian floats."""
+    rs = np.random.RandomState(seed)
+    if kind == "random":
+        return (rs.randn(B, N, 3) * 0.6).astype(np.float32)
+    xyz = rs.randint(-128, 128, (B, N, 3)).astype(np.float32) / 64.0
+    if kind == "duplicates":
+        xyz = xyz[np.arange(B)[:, None], rs.randint(0, N // 3, (B, N))]
+    return xyz
 
 
 IMAGE_EXPERIMENT = "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"

@@ -1,0 +1,81 @@
+"""tools/ab_train_kernels.py on the CPU: its seeded inputs, which are the
+training path's kNN and attention calls, and its refusal to run without a
+card."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from point_cloud_reid_tpu_torch.kernels import knn as kk  # noqa: E402
+from point_cloud_reid_tpu_torch.kernels import (  # noqa: E402
+    linear_attention as la)
+from point_cloud_reid_tpu_torch.tools import (  # noqa: E402
+    ab_train_kernels as ab)
+
+
+def test_knn_inputs_are_the_flagship_stages():
+    assert ab.knn_stages() == [(128, 128, 32), (64, 128, 48), (32, 64, 48)]
+    stages = ab.knn_inputs(4, device="cpu")
+    again = ab.knn_inputs(4, device="cpu")
+    for (S, N, k, clouds), (_, _, _, clouds2) in zip(stages, again):
+        assert set(clouds) == set(ab.KNN_KINDS)
+        for kind, (q, xyz) in clouds.items():
+            assert q.shape == (4, S, 3) and xyz.shape == (4, N, 3)
+            assert q.is_contiguous() and q.dtype == torch.float32
+            assert torch.equal(q, xyz[:, :S])
+            assert all(torch.equal(a, b) for a, b in zip((q, xyz),
+                                                         clouds2[kind]))
+        exact = clouds["exact"][1]
+        assert torch.equal(exact * 64, torch.round(exact * 64))
+        dup = clouds["duplicates"][1]
+        assert len(torch.unique(dup[0], dim=0)) < N
+
+
+def test_knn_check_counts_mismatches_against_plain():
+    S, N, k, clouds = ab.knn_inputs(2, device="cpu")[2]
+    q, xyz = clouds["duplicates"]
+    want = kk.knn_reference(q, xyz, k)
+    assert ab.knn_check(want, q, xyz, k) == (0, 0, 0.0)
+    wrong = want.flip(-1)
+    bad, far, gap = ab.knn_check(wrong, q, xyz, k)
+    assert bad > 0 and far > 0 and gap > 0
+
+
+def test_attention_inputs_are_fused_projection_views():
+    sets = ab.attention_inputs(3, 10, 7, 2, 4, 6, device="cpu")
+    again = ab.attention_inputs(3, 10, 7, 2, 4, 6, device="cpu")
+    assert len(sets) == 3
+    for (q, k, v), other in zip(sets, again):
+        assert q.shape == (3, 10, 2, 4) and k.shape == (3, 7, 2, 4)
+        assert v.shape == (3, 7, 2, 6)
+        assert not k.is_contiguous() and k.stride(-1) == 1
+        assert v.data_ptr() == k.data_ptr() + 4 * k.element_size()
+        assert all(torch.equal(a, b) for a, b in zip((q, k, v), other))
+        out = la.linear_attention_forward(q, k, v)
+        assert out.shape == (3, 10, 2, 6) and torch.isfinite(out).all()
+    assert not torch.equal(sets[0][0], sets[1][0])
+    default = ab.attention_inputs(sets=1, device="cpu")[0]
+    assert [tuple(t.shape) for t in default] == [(256, 128, 2, 32),
+                                                 (256, 128, 2, 32),
+                                                 (256, 128, 2, 32)]
+
+
+def test_knn_cloud_is_seeded():
+    for kind in ab.KNN_KINDS:
+        a, b = ab.knn_cloud(kind, 2, 9, 5), ab.knn_cloud(kind, 2, 9, 5)
+        assert a.dtype == np.float32 and np.array_equal(a, b)
+
+
+def test_main_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab.main(["--knn", "point_cloud_reid_tpu_torch/csrc/knn.cu"])
+
+
+def test_tools_share_the_timing_helpers_and_clouds():
+    from point_cloud_reid_tpu_torch.tools import (ab_match, ab_sa, scenes,
+                                                  timing)
+    assert ab_match.time_ms is timing.time_ms
+    assert ab_sa.time_ms is timing.time_ms
+    assert ab.time_ms is timing.time_ms and ab.graph_ms is timing.graph_ms
+    assert ab.knn_cloud is scenes.knn_cloud

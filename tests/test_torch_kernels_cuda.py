@@ -223,19 +223,25 @@ def _knn_inputs(kind, B, S, N, seed=0):
     return torch.from_numpy(xyz)
 
 
+# the SA stages' shapes, N not a multiple of 32 (33, 100, 127), k == N at
+# both instantiations (64, 128) and N = 1
 @pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
 @pytest.mark.parametrize("B,S,N,k", [(16, 128, 128, 32), (16, 64, 128, 48),
                                      (16, 32, 64, 48), (3, 5, 33, 33),
-                                     (2, 7, 100, 40)])
+                                     (2, 7, 100, 40), (2, 9, 127, 50),
+                                     (2, 64, 64, 64), (2, 128, 128, 128),
+                                     (3, 1, 1, 1)])
 def test_knn_kernel_matches_plain(cuda, kind, B, S, N, k):
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     xyz = _knn_inputs(kind, B, S, N).to(cuda)
     q = xyz[:, :S].contiguous()
     before = kk.knn.launches
     got = kk.knn(q, xyz, k)
+    # one launch: the kernel writes the int64 indices itself
     assert kk.knn.launches == before + 1
     want = kk.knn_reference(q, xyz, k)
     assert got.dtype == torch.int64 and got.shape == (B, S, k)
+    assert got.is_contiguous()
     if kind == "exact":
         assert torch.equal(got, want)
         return
@@ -245,13 +251,76 @@ def test_knn_kernel_matches_plain(cuda, kind, B, S, N, k):
     dg, dw = d.gather(-1, got), d.gather(-1, want)
     bad = got != want
     assert ((dg - dw).abs()[bad] <= 1e-6 * dw.abs()[bad].clamp(min=1.0)).all()
-    if kind == "duplicates":
+    if kind == "duplicates" and k > 1:
         # the same point twice is an exact tie on both sides: lower index
-        # first
+        # first (one neighbour, N = 1, has no pair to order)
         pts = xyz[torch.arange(B, device=cuda)[:, None, None], got]
         same = (pts[:, :, 1:] == pts[:, :, :-1]).all(-1)
         assert same.any()
         assert (got[..., 1:][same] > got[..., :-1][same]).all()
+
+
+@pytest.mark.parametrize("N,k", [(7, 7), (64, 48), (128, 128)])
+def test_knn_kernel_all_points_identical(cuda, N, k):
+    """An all-way tie: every query's neighbours are 0 .. k-1 in order."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    xyz = torch.full((3, N, 3), 0.37, device=cuda)
+    q = torch.randn((3, 5, 3), generator=torch.Generator(device=cuda
+                                                         ).manual_seed(0),
+                    device=cuda)
+    want = torch.arange(k, device=cuda).expand(3, 5, k)
+    assert torch.equal(kk.knn(q, xyz, k), want)
+    assert torch.equal(kk.knn(xyz[:, :4], xyz, k), want[:, :4])
+
+
+def _f32(x):
+    """The float32 nearest the exact rational x, ties to even."""
+    from fractions import Fraction
+    best = np.float32(float(x))
+    for y in (np.nextafter(best, np.float32(-np.inf)),
+              np.nextafter(best, np.float32(np.inf))):
+        dy, db = abs(Fraction(float(y)) - x), abs(Fraction(float(best)) - x)
+        if dy < db or (dy == db and int(y.view(np.int32)) % 2 == 0):
+            best = y
+    return best
+
+
+def _kernel_distances(q, xyz):
+    """The kernel's distances, rounding for rounding: |q|^2 - 2 q.p + |p|^2
+    with the products and sums rounded one at a time and q.p as the FMA
+    chain fma(qz, pz, fma(qy, py, qx px)), each FMA rounded once."""
+    from fractions import Fraction
+
+    def fma(a, b, c):
+        return _f32(Fraction(float(a)) * Fraction(float(b))
+                    + Fraction(float(c)))
+
+    def norm(p):
+        return (p[0] * p[0] + p[1] * p[1]) + p[2] * p[2]
+    out = np.empty((q.shape[0], xyz.shape[0]), np.float32)
+    for s, a in enumerate(q):
+        for n, p in enumerate(xyz):
+            inner = fma(a[2], p[2], fma(a[1], p[1], a[0] * p[0]))
+            out[s, n] = (norm(a) - np.float32(2) * inner) + norm(p)
+    return out
+
+
+def test_knn_kernel_orders_negative_distances_as_floats(cuda):
+    """Queries that are points of a crop far from the origin: |q|^2 ~ 3e6
+    swamps the distances of close points, rounding makes some slightly
+    negative (and some -0), and the kernel's keys must order them as the
+    floats order, ties by index."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    rs = np.random.RandomState(3)
+    xyz = (1000.0 + rs.randn(1, 128, 3) * 0.05).astype(np.float32)
+    xyz[0, 100:] = xyz[0, 3]                  # duplicates of a query
+    q = xyz[:, [3, 17, 60, 101]]
+    d = _kernel_distances(q[0], xyz[0])
+    assert (d < 0).any() and (d > 0).any()
+    want = np.argsort(d, axis=-1, kind="stable")
+    got = kk.knn(torch.from_numpy(q).to(cuda), torch.from_numpy(xyz).to(cuda),
+                 128)
+    assert np.array_equal(got[0].cpu().numpy(), want)
 
 
 @pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
@@ -288,9 +357,18 @@ def test_fps_wrapper_raises_on_bad_input(cuda):
     assert kf.fps.launches == before
 
 
+# the cross stages' shape; D = V = 128 (chunks of 32 rows, four tiles a
+# thread); S = 1; L and S past a 64-row chunk; one and four heads; D and V
+# not multiples of 4 (4-byte copies)
 @pytest.mark.parametrize("B,L,S,H,D,V", [(256, 128, 128, 2, 32, 32),
                                          (3, 50, 37, 2, 8, 12),
-                                         (2, 200, 64, 4, 64, 16)])
+                                         (2, 200, 64, 4, 64, 16),
+                                         (2, 40, 33, 2, 128, 128),
+                                         (3, 17, 1, 2, 32, 32),
+                                         (2, 129, 65, 2, 32, 32),
+                                         (3, 50, 37, 1, 32, 32),
+                                         (2, 64, 48, 4, 32, 32),
+                                         (2, 30, 20, 3, 5, 7)])
 def test_linear_attention_kernel_matches_plain(cuda, B, L, S, H, D, V):
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
     g = torch.Generator(device=cuda).manual_seed(0)
