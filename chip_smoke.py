@@ -9,8 +9,8 @@ Phases, each of which raises on failure:
   2. kernels: every kernel against its plain PyTorch version at the shapes
      its main path gives it, with errors, tolerances and times (`ms`:
      CUDA events around calls from Python, tools/timing.time_ms, for every
-     row; the kNN and attention rows, which the host paces, also give the
-     device time of a CUDA graph of calls, `device_ms`):
+     row; the kNN, attention and FPS rows, which the host paces, also give
+     the device time of a CUDA graph of calls, `device_ms`):
      the serving path's (SA stages at B=128 crops, the 128 x 128 grid, a
      512-pair list) and the training path's (kNN at the three SA shapes of
      512 crops, linear attention at 256 pairs with its gradients), and kNN
@@ -31,8 +31,10 @@ Phases, each of which raises on failure:
   5. image kernels and image path: the image instantiation of the match
      kernel (no position term, S tokens) on 64 x 64 grids at S=197 and
      S=198, on the dense frame's 128 x 64 grid at S=197 and on a 512-pair
-     list, and farthest point sampling at the three
-     SA shapes of 128 crops, each against its plain version; then the image
+     list, each against its plain version, and farthest point sampling
+     at FPS_SHAPES (the three SA shapes of 128 and 512 crops, N = 1024 and
+     1025, dense crops of 2048 points, 16,384 and 20,000 points), indices
+     equal to the plain loop's, one device kernel a call; then the image
      model (deit-tiny-no-pt at full width) behind TrackingManager.step over
      the bench's six-camera scene (64 objects, six 900 x 1600 uint8 frames,
      10 frames), dense ('never', image grid kernel) and sparse ('always',
@@ -83,6 +85,14 @@ TRAIN_TOL = 1e-3       # step 1, kernels on vs off: loss and grad norm, rel.
 TRAIN_PAIRS, TRAIN_STEPS = 256, 6
 IMG_OBJ, IMG_FRAMES = 64, 10
 FPS_CROPS = 128
+# (B, N, npoint) of the FPS kernel's checks: the FPS path's three SA stages
+# at 128 crops (the kernels line's sums), the same at 512 (the train batch),
+# past the first kernel's 1024 points, dense crops of 2048 points, and raw
+# sweep-sized clouds
+FPS_SHAPES = ((128, 128, 128), (128, 128, 64), (128, 64, 32),
+              (512, 128, 128), (512, 128, 64), (512, 64, 32),
+              (2, 1025, 64), (128, 1024, 256), (512, 2048, 512),
+              (4, 16384, 256), (4, 20000, 1024))
 DEVICE = "cuda"
 PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
@@ -779,46 +789,76 @@ def phase_image_kernels():
 
 
 def phase_fps_kernel():
-    """Farthest point sampling at the three SA shapes of 128 crops, from
-    random start indices: indices equal to the plain loop's on
-    exact-arithmetic, duplicated and random inputs."""
+    """Farthest point sampling from random start indices at FPS_SHAPES:
+    indices equal to the plain loop's on exact-arithmetic, duplicated and
+    random inputs, int64 and int32 start indices; a call's time from Python
+    and its device time (a CUDA graph of calls) and time a round; one
+    device kernel a call. The row's sums are the FPS path's three SA
+    shapes."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import fps as kf
-    from point_cloud_reid_tpu_torch.tools.timing import time_ms
-    B = FPS_CROPS
-    ms = plain = bound = 0.0
-    by, mismatches = [], 0
-    for i, (N, npoint) in enumerate(((128, 128), (128, 64), (64, 32))):
+    from point_cloud_reid_tpu_torch.tools.timing import (device_kernels,
+                                                         graph_ms, time_ms)
+    shapes, mismatches = {}, 0
+    for i, (B, N, npoint) in enumerate(FPS_SHAPES):
+        start = torch.from_numpy(np.random.RandomState(SEED + i).randint(
+            0, N, B)).to(DEVICE)
         for kind in ("exact", "duplicates", "random"):
             xyz = knn_cloud(kind, B, N, SEED + i)
-            start = torch.from_numpy(np.random.RandomState(SEED + i).randint(
-                0, N, B)).to(DEVICE)
-            got = kf.fps(xyz, npoint, start)
             want = kf.fps_reference(xyz, npoint, start)
-            torch.cuda.synchronize()
-            bad = int((got != want).sum().item())
-            mismatches += bad
-            if bad or not torch.equal(got[:, 0], start):
-                raise RuntimeError(f"fps {kind} N={N} npoint={npoint}: {bad} "
-                                   "indices differ from the plain loop")
+            for first in (start, start.int()):
+                got = kf.fps(xyz, npoint, first)
+                torch.cuda.synchronize()
+                bad = int((got != want).sum().item())
+                mismatches += bad
+                if bad or got.dtype != torch.int64 or not torch.equal(
+                        got[:, 0], start):
+                    raise RuntimeError(
+                        f"fps {kind} B={B} N={N} npoint={npoint} start "
+                        f"{first.dtype}: {bad} indices differ from the plain "
+                        "loop")
         k_ms = time_ms(lambda: kf.fps(xyz, npoint, start), 20)
+        d_ms = graph_ms(lambda: kf.fps(xyz, npoint, start), 20)
         p_ms = time_ms(lambda: kf.fps_reference(xyz, npoint, start), 3,
                        warmup=1)
         # 8 flops a distance, N distances a round; the arg-max is not counted
         b_ms, b_by = bound_ms(8.0 * B * npoint * N,
-                              nbytes(xyz) + B * 4 + B * npoint * 4)
-        print(f"[fps] B={B} N={N} npoint={npoint}: indices equal on exact, "
-              f"duplicated and random inputs; kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
-        ms, plain, bound = ms + k_ms, plain + p_ms, bound + b_ms
-        by.append((b_ms, b_by))
+                              nbytes(xyz, start) + B * npoint * 8)
+        plan = kf.plan(N)
+        shapes[f"B{B}_N{N}_np{npoint}"] = dict(
+            tier=kf.TIER_NAMES[plan.tier], ms=k_ms, device_ms=d_ms,
+            round_us=d_ms / max(npoint - 1, 1) * 1e3, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"[fps] B={B} N={N} npoint={npoint} (tier "
+              f"{kf.TIER_NAMES[plan.tier]}): indices equal on exact, "
+              f"duplicated and random inputs, int64 and int32 starts; a call "
+              f"{k_ms:.4f} ms, device {d_ms:.5f} ms "
+              f"({d_ms / max(npoint - 1, 1) * 1e3:.4f} us a round), plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    B, N, npoint = FPS_SHAPES[0]
+    xyz = knn_cloud("random", B, N, SEED)
+    start = torch.zeros(B, dtype=torch.int64, device=DEVICE)
+    names = device_kernels(lambda: kf.fps(xyz, npoint, start))
+    print(f"[fps] device kernels in one call: {len(names)} {names}",
+          flush=True)
+    if len(names) != 1:
+        raise RuntimeError(f"an FPS call ran {len(names)} device kernels")
+    path = [shapes[f"B{B}_N{N}_np{npoint}"] for B, N, npoint in
+            FPS_SHAPES[:3]]
+
+    def total(key):
+        return sum(r[key] for r in path)
     # PyTorch has no farthest-point-sampling call: no library time
     return [dict(name="fps", route="cuda",
                  source="point_cloud_reid_tpu_torch/csrc/fps.cu",
                  replaces="point_cloud_reid_tpu/ops/pallas/fps.py:58",
-                 max_abs_err=0.0, mismatches=mismatches, ms=ms,
-                 plain_ms=plain, bound_ms=bound, bound_by=max(by)[1],
-                 library_ms=None)]
+                 max_abs_err=0.0, mismatches=mismatches, ms=total("ms"),
+                 device_ms=total("device_ms"),
+                 round_us=[r["round_us"] for r in path],
+                 plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                 bound_by=max((r["bound_ms"], r["bound_by"])
+                              for r in path)[1],
+                 kernels_a_call=len(names), library_ms=None, shapes=shapes)]
 
 
 def run_image_scene(model, sparse: str):

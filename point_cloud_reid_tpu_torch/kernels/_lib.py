@@ -49,8 +49,9 @@ _SIGNATURES = {
     # in elements), eps, stream
     "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9
                             + [ctypes.c_float, _P],
-    # xyz, start, out, B, N, npoint, stream
-    "pcr_fps": [_P] * 3 + [_I] * 3 + [_P],
+    # xyz, start, out, scratch, B, N, npoint, start64, then the plan: tier,
+    # points, threads, clouds, smem; stream
+    "pcr_fps_plan": [_P] * 4 + [_I] * 9 + [_P],
 }
 
 

@@ -7,8 +7,11 @@ and ctypes) is the host's pace, not the kernel's.
 
 graph_ms: the device time of one call, `iters` calls captured in one CUDA
 graph and replayed between CUDA events, so the host's enqueue is not in
-the clock. It is the `device_ms` beside `ms` where the two differ (kNN and
-linear attention).
+the clock. It is the `device_ms` beside `ms` where the two differ (kNN,
+linear attention and FPS).
+
+device_kernels: the names of the device kernels one call runs, from
+torch.profiler, as chip_smoke.py and the CUDA tests count FPS's.
 """
 from __future__ import annotations
 
@@ -53,3 +56,16 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * replays)
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels (and copies) that one fn() runs, traced
+    by torch.profiler after one call outside the trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]

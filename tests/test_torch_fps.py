@@ -1,8 +1,9 @@
 """Farthest point sampling of the port against the JAX package on the CPU:
 the plain loop against farthest_point_sample and against fps_pallas in
-interpret mode (indices equal, not close), FPS-sampled grouping, and one
-SetAbstractionEdgeSA stage built with sampling="FPS" in eval and in train
-mode."""
+interpret mode (indices equal, not close), also past the 1024 points the
+first kernel took, FPS-sampled grouping, and one SetAbstractionEdgeSA stage
+built with sampling="FPS" in eval and in train mode; and the kernel's
+launch plan for every cloud size, and how the wrapper hands it over."""
 import numpy as np
 import pytest
 
@@ -56,6 +57,121 @@ def test_fps_indices_equal_jax(kind, B, N, npoint):
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy()[:, 0], start)
     assert kfps.fps.launches == 0
+
+
+@pytest.mark.parametrize("kind", ["grid", "duplicates", "random"])
+@pytest.mark.parametrize("N", [1025, 2048])
+def test_fps_indices_equal_jax_large_clouds(kind, N):
+    """Dense crops have 2048 points; the JAX loop and kernel take any N,
+    and so does the port."""
+    B, npoint = 2, 64
+    xyz = _cloud(kind, B, N, seed=N)
+    start = np.random.RandomState(N).randint(0, N, B).astype(np.int32)
+    want0 = np.asarray(jgeo.farthest_point_sample(jnp.asarray(xyz), npoint))
+    got0 = tgeo.farthest_point_sample(torch.from_numpy(xyz), npoint)
+    np.testing.assert_array_equal(got0.numpy(), want0)
+    want = np.asarray(fps_pallas(jnp.asarray(xyz), npoint,
+                                 start=jnp.asarray(start), interpret=True))
+    for first in (torch.from_numpy(start), torch.from_numpy(start).long()):
+        got = kfps.fps(torch.from_numpy(xyz), npoint, first)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if kind == "random":
+        assert len(np.unique(want[0])) == npoint
+
+
+def test_fps_plan_within_the_card_limits_for_every_n():
+    """Every N from 1 to 70,000 gets a launch the kernel takes: at most 1024
+    threads and 227 KB of shared memory a block, room for every point, and
+    the shared memory its tier keeps the cloud in."""
+    seen = set()
+    for N in range(1, 70001):
+        p = kfps.plan(N)
+        seen.add(p.tier)
+        assert 0 < p.threads <= kfps.MAX_THREADS and p.threads % 32 == 0
+        assert 0 <= p.smem <= kfps.MAX_SMEM
+        if p.tier == kfps.WARP:
+            assert p.points in kfps.WARP_POINTS and 32 * p.points >= N
+            assert p.threads == 32 * p.clouds and p.smem == 0
+            assert p.points == 1 or 16 * p.points < N    # no idle half
+        else:
+            assert p.clouds == 1 and p.threads * p.points >= N
+            if p.tier == kfps.BLOCK:
+                assert p.points == kfps.BLOCK_P
+                assert p.smem == kfps.SLOT_BYTES + 12 * N
+            else:
+                assert p.smem == kfps.SLOT_BYTES + (4 * N if p.tier == kfps.L2
+                                                    else 0)
+                assert p.threads * (p.points - 1) < N    # no idle thread
+    assert seen == set(range(4))
+
+
+def test_fps_plan_tier_boundaries():
+    top = {kfps.WARP: kfps.WARP_MAX_N,
+           kfps.BLOCK: kfps.BLOCK_P * kfps.MAX_THREADS,
+           kfps.L2: (kfps.MAX_SMEM - kfps.SLOT_BYTES) // 4}
+    assert top[kfps.BLOCK] == 8192 and top[kfps.L2] == 57984
+    for tier, n in top.items():
+        assert kfps.plan(n).tier == tier
+        assert kfps.plan(n + 1).tier == tier + 1
+    assert kfps.plan(128) == kfps.Plan(kfps.WARP, 4, 32 * kfps.WARP_CLOUDS,
+                                       kfps.WARP_CLOUDS, 0)
+    assert kfps.plan(2048) == kfps.Plan(kfps.BLOCK, 8, 256, 1,
+                                        kfps.SLOT_BYTES + 12 * 2048)
+    assert kfps.plan(20000) == kfps.Plan(kfps.L2, 20, 1024, 1,
+                                         kfps.SLOT_BYTES + 4 * 20000)
+    # forced plans, as tools/ab_fps.py times them; past a tier's reach, none
+    assert kfps.plan(512, kfps.WARP) == kfps.Plan(
+        kfps.WARP, 16, 32 * kfps.WARP_CLOUDS, kfps.WARP_CLOUDS, 0)
+    assert kfps.plan(1024, kfps.BLOCK) == kfps.Plan(
+        kfps.BLOCK, 8, 128, 1, kfps.SLOT_BYTES + 12 * 1024)
+    assert kfps.plan(100, kfps.SCRATCH).points == 1
+    assert kfps.plan(1024, kfps.WARP).points == 32
+    for args in ((0,), (1025, kfps.WARP), (8193, kfps.BLOCK),
+                 (57985, kfps.L2)):
+        with pytest.raises(ValueError):
+            kfps.plan(*args)
+
+
+class _FakeLibrary:
+    """Records the C call that kernels/fps.launch makes."""
+
+    def __init__(self):
+        self.calls = []
+
+    def get(self):
+        return self
+
+    def pcr_fps_plan(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("N,dtype", [(128, torch.int32), (64, torch.int64),
+                                     (60000, torch.int64)])
+def test_fps_launch_hands_over_the_plan(monkeypatch, N, dtype):
+    """One C call a launch: the points and start indices as given (int32 or
+    int64, flagged), an int64 output, a scratch only for tier SCRATCH, and
+    plan(N) in the entry point's order."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    monkeypatch.setattr(_lib, "stream_ptr", lambda device: 7)
+    lib = _FakeLibrary()
+    xyz = torch.zeros((3, N, 3))
+    start = torch.tensor([0, 1, 2], dtype=dtype)
+    out = kfps.launch(xyz, 5, start, library=lib)
+    assert out.dtype == torch.int64 and out.shape == (3, 5)
+    (args,) = lib.calls
+    p = kfps.plan(N)
+    assert args[0] == xyz.data_ptr() and args[1] == start.data_ptr()
+    assert args[2] == out.data_ptr()
+    assert (args[3] is None) == (p.tier != kfps.SCRATCH)
+    assert args[4:8] == (3, N, 5, int(dtype == torch.int64))
+    assert args[8:13] == tuple(p) and args[13] == 7
+    forced = kfps.plan(N, kfps.SCRATCH)
+    kfps.launch(xyz, 5, start, forced, library=lib)
+    assert lib.calls[1][3] is not None and lib.calls[1][8:13] == tuple(forced)
+    with pytest.raises(ValueError, match="float32"):
+        kfps.launch(xyz.double(), 5, start, library=lib)
+    assert len(lib.calls) == 2 and kfps.fps.launches == 0
 
 
 def test_fps_start_from_generator_and_bad_input():

@@ -323,38 +323,82 @@ def test_knn_kernel_orders_negative_distances_as_floats(cuda):
     assert np.array_equal(got[0].cpu().numpy(), want)
 
 
+def _fps_boundaries():
+    """(B, N, npoint) at the largest N of each tier that kernels/fps.plan
+    sets and at that N + 1."""
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    tops = (kf.WARP_MAX_N, kf.BLOCK_P * kf.MAX_THREADS,
+            (kf.MAX_SMEM - kf.SLOT_BYTES) // 4)
+    return [(2, n, 48) for top in tops for n in (top, top + 1)]
+
+
+@pytest.mark.parametrize("start_dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
-@pytest.mark.parametrize("B,N,npoint", [(128, 128, 128), (128, 128, 64),
-                                        (128, 64, 32), (3, 33, 33),
-                                        (2, 1000, 40), (5, 7, 1)])
-def test_fps_kernel_indices_equal_plain(cuda, kind, B, N, npoint):
+@pytest.mark.parametrize("B,N,npoint", [
+    (128, 128, 128), (128, 128, 64), (128, 64, 32), (3, 33, 33),
+    (2, 1000, 40), (5, 7, 1), (2, 1025, 64), (512, 2048, 512),
+    (4, 16384, 256), (2, 20000, 128)] + _fps_boundaries())
+def test_fps_kernel_indices_equal_plain(cuda, kind, B, N, npoint,
+                                        start_dtype):
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     xyz = _knn_inputs(kind, B, N, N).to(cuda)
     start = torch.from_numpy(np.random.RandomState(1).randint(0, N, B)
-                             ).to(cuda)
+                             ).to(cuda, start_dtype)
     before = kf.fps.launches
     got = kf.fps(xyz, npoint, start)
     assert kf.fps.launches == before + 1
     assert got.dtype == torch.int64 and got.shape == (B, npoint)
     assert torch.equal(got, kf.fps_reference(xyz, npoint, start))
-    assert torch.equal(got[:, 0], start)
+    assert torch.equal(got[:, 0], start.long())
+
+
+@pytest.mark.parametrize("tier", range(4))
+@pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
+def test_fps_every_tier_equal_plain(cuda, kind, tier):
+    """Every tier, forced, at one N that all of them reach (tier W with its
+    32 points a lane, as tools/ab_fps.py --sweep forces it)."""
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    B, N, npoint = 6, 1000, 300
+    xyz = _knn_inputs(kind, B, N, N).to(cuda)
+    start = torch.from_numpy(np.random.RandomState(2).randint(0, N, B)
+                             ).to(cuda)
+    got = kf.launch(xyz, npoint, start, kf.plan(N, tier))
+    assert torch.equal(got, kf.fps_reference(xyz, npoint, start))
+
+
+@pytest.mark.parametrize("N", [128, 2048, 20000, 60000])
+def test_fps_call_is_one_device_kernel(cuda, N):
+    """The kernel reads int64 starts and writes int64 indices itself: no
+    cast, no copy, one kernel a call, whatever the tier."""
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    from point_cloud_reid_tpu_torch.tools.timing import device_kernels
+    xyz = _knn_inputs("random", 2, N, N).to(cuda)
+    start = torch.tensor([0, N - 1], device=cuda)
+    names = device_kernels(lambda: kf.fps(xyz, 16, start))
+    assert len(names) == 1 and "fps" in names[0], names
 
 
 def test_fps_wrapper_raises_on_bad_input(cuda):
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     x = torch.zeros((2, 8, 3), device=cuda)
     start = torch.zeros(2, dtype=torch.long, device=cuda)
+    before = kf.fps.launches
     with pytest.raises(ValueError, match="npoint"):
         kf.fps(x, 9, start)
     with pytest.raises(ValueError, match="float32"):
         kf.fps(x.double(), 4, start)
     with pytest.raises(ValueError, match="one device"):
         kf.fps(x, 4, start.cpu())
-    big = torch.zeros((1, 1025, 3), device=cuda)
-    before = kf.fps.launches
-    with pytest.raises(ValueError, match="N <= 1024"):
-        kf.fps(big, 4, start[:1])
+    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
+        kf.fps(x[..., :2], 4, start)
+    with pytest.raises(ValueError, match="start"):
+        kf.fps(x, 4, start.float())
+    with pytest.raises(ValueError, match="start"):
+        kf.fps(x, 4, start[:1])
     assert kf.fps.launches == before
+    # a plan the kernel cannot run (tier BLOCK without its shared memory)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kf.launch(x, 4, start, kf.Plan(kf.BLOCK, kf.BLOCK_P, 32, 1, 0))
 
 
 # the cross stages' shape; D = V = 128 (chunks of 32 rows, four tiles a
