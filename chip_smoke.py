@@ -44,7 +44,16 @@ Phases, each of which raises on failure:
   6. FPS path: 128 crops of 128 points through three SetAbstractionEdgeSA
      stages of the flagship's widths built with sampling="FPS" and
      knn_method="pallas". Checks 3 FPS and 3 kNN launches and no SA-kernel
-     launch, and centres and features against the same stages on plain FPS.
+     launch, and centres and features against the same stages on plain FPS;
+  7. tracker host path: the flagship behind TrackingManager(device_cache=
+     False) over the serving scene (the host FeatureCache frame, timed
+     beside phase 3's device-cache frame); tools/track.py over an .npz
+     scene with gt ids and near-duplicate detections, from a checkpoint
+     written by Trainer.save_checkpoint, with BEV NMS (timed), Hungarian
+     matching and sparse 'auto'; 10 frames of the image tracker on the host
+     cache. Checks SA, grid and image-grid launches, the last host frames'
+     logits against plain scoring, that NMS dropped exactly the duplicates,
+     one tracks.jsonl line a frame.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -84,6 +93,12 @@ KNN_TIE = 1e-6         # kNN: a swap needs plain distances this close (rel.)
 TRAIN_TOL = 1e-3       # step 1, kernels on vs off: loss and grad norm, rel.
 TRAIN_PAIRS, TRAIN_STEPS = 256, 6
 IMG_OBJ, IMG_FRAMES = 64, 10
+# the CLI scene of the tracker host phase: a 12 x 8 grid of objects 5 m
+# apart, a near-duplicate (lower score, IoU about 0.62) of every fifth
+N_CLI, CLI_FRAMES, CLI_DUP_EVERY, NMS_THRESHOLD = 96, 6, 5, 0.5
+HOST_IMG_FRAMES = 10
+# median steady-state step ms of the serving scenes, by phase_main_path
+STEP_MS = {}
 FPS_CROPS = 128
 # (B, N, npoint) of the FPS kernel's checks: the FPS path's three SA stages
 # at 128 crops (the kernels line's sums), the same at 512 (the train batch),
@@ -462,7 +477,7 @@ def phase_train_kernels(model):
     return rows
 
 
-def run_scene(model, sparse: str):
+def run_scene(model, sparse: str, **manager_kw):
     """10 frames of the bench's drifting-objects scene; returns (per-frame
     ms, the scorer, which holds the last frame, the manager)."""
     import torch
@@ -473,7 +488,7 @@ def run_scene(model, sparse: str):
     # random weights give arbitrary logits: accept every gated pair so the
     # track set stays at the scene's objects (96 -> a 128 x 128 grid)
     mgr = TrackingManager(scorer, subsample_number=128, match_threshold=1.0,
-                          seed=SEED, sparse_scoring=sparse)
+                          seed=SEED, sparse_scoring=sparse, **manager_kw)
     times = []
     for frame in bench_scene(N_OBJ, PTS_PER_OBJ, FRAMES, SEED):
         torch.cuda.synchronize()
@@ -562,6 +577,7 @@ def phase_main_path(model, card: str):
         raise RuntimeError("a kernel of the main path was not launched")
     for label, ms, mgr in (("sparse", sparse_ms, sparse_mgr),
                            ("dense", dense_ms, dense_mgr)):
+        STEP_MS[label] = float(np.median(ms[3:]))
         print(f"[main] {label}: {len(mgr.store.active())} active tracks, "
               f"median steady-state step {np.median(ms[3:]):.3f} ms "
               f"(frames 4-10; all: {[round(x, 1) for x in ms]}) on {card}",
@@ -1015,6 +1031,199 @@ def phase_fps_path():
     return launches
 
 
+def check_host_logits(model, rec, label: str):
+    """A host-cache frame's logits (the padded grid) against plain hoisted
+    scoring of the same inputs: rel_err within MATCH_TOL."""
+    import torch
+    with torch.no_grad():
+        if rec["xyz_t"] is None:
+            plain = model.match_logits_grid(rec["h_t"], rec["h_d"])
+        else:
+            plain = model.match_logits_grid(rec["h_t"], rec["xyz_t"],
+                                            rec["h_d"], rec["xyz_d"])
+    err, rel = rel_err(rec["logits"], plain)
+    print(f"[tracker_host:{label}] {tuple(plain.shape)} logits vs plain "
+          f"scoring: max_abs_err={err:.3e} rel={rel:.3e} (tol {MATCH_TOL:g})",
+          flush=True)
+    if not (rel <= MATCH_TOL and bool(torch.isfinite(rec["logits"]).all())):
+        raise RuntimeError(f"host-cache logits disagree ({label}): {rel}")
+
+
+def cli_scene(path: str):
+    """Write the CLI's .npz scene (tools/track.py format) of CLI_FRAMES
+    frames; returns the per-frame indices of the original detections."""
+    rs = np.random.RandomState(SEED + 1)
+    gx, gy = np.meshgrid(np.arange(12) * 5.0 - 27.5, np.arange(8) * 5.0 - 17.5)
+    centers = np.stack([gx.ravel(), gy.ravel(), np.zeros(N_CLI)],
+                       axis=1).astype(np.float32)
+    n = N_CLI
+    dup_of = np.arange(0, n, CLI_DUP_EVERY)
+    scene, originals = {}, []
+    for t in range(CLI_FRAMES):
+        centers[:, :2] += rs.randn(n, 2).astype(np.float32) * 0.2
+        boxes = np.concatenate([centers, np.full((n, 3), 2.0, np.float32),
+                                np.zeros((n, 1), np.float32)], axis=1)
+        dups = boxes[dup_of] + np.array([0.3, 0.2, 0, 0, 0, 0, 0.05],
+                                        np.float32)
+        # duplicates interleaved at seeded places among the originals
+        order = rs.permutation(n + len(dup_of))
+        all_boxes = np.concatenate([boxes, dups])[order]
+        scene[f"boxes_{t}"] = all_boxes
+        scene[f"scores_{t}"] = np.where(order < n, 1.0, 0.5).astype(
+            np.float32)
+        scene[f"labels_{t}"] = np.zeros(len(order), np.int64)
+        scene[f"gt_ids_{t}"] = np.where(order < n, order, -1)
+        scene[f"points_{t}"] = (np.repeat(centers, PTS_PER_OBJ, axis=0)
+                                + rs.randn(n * PTS_PER_OBJ, 3).astype(
+                                    np.float32) * 0.5)
+        originals.append(np.flatnonzero(order < n))
+    np.savez(path, **scene)
+    return originals
+
+
+def phase_tracker_host(card: str, image):
+    """The rest of the tracker on the card: the host-cache point frame, the
+    CLI over an .npz scene from a port checkpoint, and the image tracker on
+    the host cache. Returns the launch counts."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.ops.boxes import boxes_iou_bev, nms_bev
+    from point_cloud_reid_tpu_torch.tools import track
+    from point_cloud_reid_tpu_torch.tools.scenes import image_scene
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    from point_cloud_reid_tpu_torch.tracking import TrackingManager
+    from point_cloud_reid_tpu_torch.train import (ScheduleConfig, Trainer,
+                                                  TrainState)
+    t_phase = time.perf_counter()
+    every = zero_counters()
+    sa, grid = every["fused_sa_convmax"], every["fused_match_grid"]
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_tracker")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # 1. point frames on the host FeatureCache
+    model = build_model(point_transformer_point_cat(), device=DEVICE,
+                        generator=torch.Generator().manual_seed(SEED))
+    host_ms, scorer, mgr = run_scene(model, "never", device_cache=False)
+    print(f"[tracker_host] point host cache: {len(mgr.store.active())} "
+          f"active tracks, launches sa={sa.launches} grid={grid.launches}; "
+          f"median steady-state step {np.median(host_ms[3:]):.3f} ms against "
+          f"the device cache's {STEP_MS['dense']:.3f} ms (dense) / "
+          f"{STEP_MS['sparse']:.3f} ms (sparse) (frames 4-10; all: "
+          f"{[round(x, 1) for x in host_ms]}) on {card}", flush=True)
+    if not (sa.launches > 0 and grid.launches == FRAMES - 1
+            and len(mgr.cache) == len(mgr.store) and mgr._dc.h_buf is None):
+        raise RuntimeError("the host-cache scene did not run the SA and grid "
+                           "kernels on the FeatureCache path")
+    check_host_logits(model, scorer.last_frame, "point")
+    check_frame(model, scorer.last_frame, "host")
+
+    # 2. the CLI from a Trainer checkpoint over an .npz scene, with NMS
+    state = TrainState.create(model, ScheduleConfig(max_epochs=1), 1)
+    ckpt = Trainer(model, None, None, dict(work_dir=work)).save_checkpoint(
+        state, tag="best")
+    del state, model, scorer, mgr
+    os.makedirs(os.path.join(work, "scenes"))
+    originals = cli_scene(os.path.join(work, "scenes", "scene0.npz"))
+    kept, nms_ms = [], []
+    nms = TrackingManager._nms
+
+    def counted_nms(self, boxes, scores):
+        t0 = time.perf_counter()
+        keep = nms(self, boxes, scores)      # ends in a fetch: synchronous
+        nms_ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append(np.sort(keep))
+        return keep
+    before = {k: fn.launches for k, fn in every.items()}
+    out = io.StringIO()
+    TrackingManager._nms = counted_nms
+    try:
+        with contextlib.redirect_stdout(out):
+            track.main(["--checkpoint", ckpt, "--scene-dir",
+                        os.path.join(work, "scenes"), "--nms-threshold",
+                        str(NMS_THRESHOLD), "--method", "hungarian",
+                        "--sparse", "auto", "--match-threshold", "1.0",
+                        "--work-dir", os.path.join(work, "out")])
+    finally:
+        TrackingManager._nms = nms
+    headline = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(headline["outputs"]["tracks"]) as f:
+        lines = [json.loads(line) for line in f]
+    cli = {k: fn.launches - before[k] for k, fn in every.items()}
+    n_det = N_CLI + len(range(0, N_CLI, CLI_DUP_EVERY))
+    print(f"[tracker_host:cli] NMS at {NMS_THRESHOLD} kept "
+          f"{[len(k) for k in kept]} of {n_det} detections a frame "
+          f"(removed {sum(n_det - len(k) for k in kept)}) in "
+          f"{[round(x, 2) for x in nms_ms]} ms; launches {cli}; "
+          f"{len(lines)} tracks.jsonl lines; headline "
+          f"{json.dumps(headline)}", flush=True)
+    if not (len(kept) == CLI_FRAMES and all(
+            np.array_equal(k, o) for k, o in zip(kept, originals))):
+        raise RuntimeError("NMS did not drop exactly the duplicates")
+    if not (len(lines) == CLI_FRAMES and headline["frames"] == CLI_FRAMES
+            and all(len(r["tracks"]) == N_CLI for r in lines)
+            and cli["fused_sa_convmax"] > 0 and cli["fused_match_pairs"] > 0):
+        raise RuntimeError("the CLI run did not track the scene through the "
+                           "SA and pair kernels")
+
+    # BEV NMS alone at larger frames: a call ends in its fetch
+    rs = np.random.RandomState(SEED)
+    nms_at, same = {}, {}
+    for D in (128, 256, 512):
+        b = np.concatenate([rs.rand(D, 2) * 60 - 30, np.zeros((D, 1)),
+                            rs.rand(D, 3) * 2 + 1, rs.rand(D, 1) * 3],
+                           axis=1).astype(np.float32)
+        bt = torch.from_numpy(b).to(DEVICE)
+        st = torch.from_numpy(rs.rand(D).astype(np.float32)).to(DEVICE)
+        keep = nms_bev(bt, st, NMS_THRESHOLD, D)
+        want = nms_bev(bt.cpu(), st.cpu(), NMS_THRESHOLD, D)
+        # rounding may flip only an IoU within 1e-5 of the threshold
+        margin = (boxes_iou_bev(bt.cpu(), bt.cpu()) - NMS_THRESHOLD).abs()
+        same[D] = torch.equal(keep, want)
+        if not (same[D] or margin.min() < 1e-5):
+            raise RuntimeError(f"nms_bev at D={D}: card and CPU keep lists "
+                               "differ")
+        nms_at[D] = time_ms(lambda: nms_bev(bt, st, NMS_THRESHOLD, D), 5)
+    print(f"[tracker_host:nms] nms_bev ms a call "
+          f"{({d: round(v, 3) for d, v in nms_at.items()})}, keep list equal "
+          f"to the CPU's {same} on {card}", flush=True)
+
+    # 3. the image tracker on the host cache (camera crops + cost_matrix)
+    iscorer = PairScorer(image, image_mode=True)
+    imgr = TrackingManager(iscorer, match_threshold=1.0, seed=SEED,
+                           device_cache=False)
+    img_grid = every["fused_image_match_grid"]
+    g0, img_ms = img_grid.launches, []
+    for frame in image_scene(IMG_OBJ, HOST_IMG_FRAMES, SEED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgr.step(*frame)
+        torch.cuda.synchronize()
+        img_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[tracker_host:image] host cache, {HOST_IMG_FRAMES} frames of "
+          f"{IMG_OBJ} objects: {len(imgr.store.active())} active tracks, "
+          f"image grid launches {img_grid.launches - g0}, median "
+          f"steady-state step {np.median(img_ms[3:]):.3f} ms (frames 4-10, "
+          f"upload inside; all: {[round(x, 1) for x in img_ms]}) on {card}",
+          flush=True)
+    if not (img_grid.launches - g0 == HOST_IMG_FRAMES - 1
+            and len(imgr.cache) == len(imgr.store) >= IMG_OBJ):
+        raise RuntimeError("the image host cache did not run the image grid "
+                           "kernel once per frame with tracks")
+    check_host_logits(image, iscorer.last_frame, "image")
+    check_image_frame(image, iscorer.last_frame, frame, "host")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[tracker_host] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {name: fn.launches for name, fn in every.items()}
+
+
 def main():
     import torch
     card = phase_device()
@@ -1031,13 +1240,14 @@ def main():
     image_rows, image = phase_image_kernels()
     rows += image_rows + phase_fps_kernel()
     image_path = phase_image_path(image, card)
+    tracker_host = phase_tracker_host(card, image)
     del image
     torch.cuda.empty_cache()
     fps_path = phase_fps_path()
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path[row["name"]] for path in (
-            serving, training, image_path, fps_path))
+            serving, training, image_path, tracker_host, fps_path))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")

@@ -27,6 +27,16 @@ LayerNorm leaves, block_i/mlp_fc1|2 included):
     parameters and keep their names. The flax 'consts' collection (BEiT's
     rel_pos_index) is not read: the port recomputes it as a buffer.
 
+and for an LSTM (flax OptimizedLSTMCell, the motion model's `lstm`; both
+sides order the gates i, f, g, o):
+
+    lstm/{ii,if,ig,io}/kernel (F, H)   -> lstm.weight_ih_l0 = cat(...).T
+    lstm/{hi,hf,hg,ho}/kernel (H, H)   -> lstm.weight_hh_l0 = cat(...).T
+    lstm/{hi,hf,hg,ho}/bias            -> lstm.bias_hh_l0 = cat(...);
+                                          lstm.bias_ih_l0 = 0
+    (flax has no input-side bias: back to flax, bias_ih_l0 is folded into
+    the h-side biases.)
+
 The variables come as (nested dicts of) numpy arrays; nothing here imports
 jax.
 """
@@ -79,6 +89,59 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
+_GATES_I = ("ii", "if", "ig", "io")
+_GATES_H = ("hi", "hf", "hg", "ho")
+_LSTM_LEAF = re.compile(r"^(.*/)?lstm/(ii|if|ig|io|hi|hf|hg|ho)/(kernel|bias)$")
+
+
+def _lstm_tensors(flat: Dict[str, np.ndarray]):
+    """Split the LSTM leaves out of a flattened flax collection: (the other
+    leaves, {port key: value} of the torch LSTMs' four tensors)."""
+    groups: Dict[str, Dict[str, np.ndarray]] = {}
+    rest = {}
+    for path, value in flat.items():
+        m = _LSTM_LEAF.match(path)
+        if m is None:
+            rest[path] = value
+            continue
+        owner = (m.group(1) or "") + "lstm"
+        groups.setdefault(owner, {})[f"{m.group(2)}/{m.group(3)}"] = value
+    out = {}
+    for owner, g in groups.items():
+        key = owner.replace("/", ".")
+        out[key + ".weight_ih_l0"] = np.concatenate(
+            [g[f"{k}/kernel"] for k in _GATES_I], axis=1).T
+        out[key + ".weight_hh_l0"] = np.concatenate(
+            [g[f"{k}/kernel"] for k in _GATES_H], axis=1).T
+        out[key + ".bias_hh_l0"] = np.concatenate(
+            [g[f"{k}/bias"] for k in _GATES_H])
+        out[key + ".bias_ih_l0"] = np.zeros_like(out[key + ".bias_hh_l0"])
+    return rest, out
+
+
+def _flax_lstm_leaves(lstm: torch.nn.LSTM, state: Dict[str, torch.Tensor],
+                      owner: str) -> Dict[str, np.ndarray]:
+    """A one-layer torch LSTM as flax OptimizedLSTMCell leaves, {path under
+    the collection: value}."""
+    if (lstm.num_layers != 1 or lstm.bidirectional or lstm.proj_size
+            or not lstm.bias):
+        raise ValueError(f"{owner}: only a one-layer unidirectional LSTM "
+                         "with biases has a flax OptimizedLSTMCell twin")
+    get = {k: state[f"{owner}.{k}"].detach().cpu().numpy()
+           for k in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0",
+                     "bias_hh_l0")}
+    H = lstm.hidden_size
+    base = owner.replace(".", "/")
+    out = {}
+    for j, (gi, gh) in enumerate(zip(_GATES_I, _GATES_H)):
+        rows = slice(j * H, (j + 1) * H)
+        out[f"{base}/{gi}/kernel"] = get["weight_ih_l0"][rows].T
+        out[f"{base}/{gh}/kernel"] = get["weight_hh_l0"][rows].T
+        out[f"{base}/{gh}/bias"] = (get["bias_hh_l0"][rows]
+                                    + get["bias_ih_l0"][rows])
+    return out
+
+
 def port_key(flax_path: str) -> Tuple[str, bool]:
     """flax collection-relative path -> (port state-dict key, whether the
     leaf is a kernel, whose layout _port_layout changes)."""
@@ -105,7 +168,14 @@ def from_jax_variables(model: torch.nn.Module, variables: Dict[str, Any]
     want = {k for k in state if not k.endswith("num_batches_tracked")}
     unused, filled = [], set()
     for collection in ("params", "batch_stats"):
-        for path, value in _flatten(variables.get(collection, {})).items():
+        flat, lstm = _lstm_tensors(_flatten(variables.get(collection, {})))
+        for key, value in lstm.items():
+            if key not in want or tuple(state[key].shape) != value.shape:
+                unused.append(f"{collection}:{key} {value.shape}")
+                continue
+            state[key].copy_(torch.tensor(value))
+            filled.add(key)
+        for path, value in flat.items():
             key, transpose = port_key(path)
             if transpose:
                 value = _port_layout(value)
@@ -146,11 +216,25 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     from one init."""
     tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     modules = dict(model.named_modules())
-    for key, value in model.state_dict().items():
+    state = model.state_dict()
+
+    def put(coll, path, leaf, v):
+        node = tree[coll]
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(v)
+
+    for key, value in state.items():
         if key.endswith("num_batches_tracked"):
             continue
         owner, leaf = key.rsplit(".", 1)
         mod = modules[owner]
+        if isinstance(mod, torch.nn.LSTM):
+            if leaf == "weight_ih_l0":      # once per LSTM
+                for path, v in _flax_lstm_leaves(mod, state, owner).items():
+                    head, name = path.rsplit("/", 1)
+                    put("params", head, name, v)
+            continue
         path = owner + "."
         m = re.match(r"^([a-z]+_head|downsample)\.(\d+)\.", path)
         if m:
@@ -169,8 +253,5 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
             leaf = "scale"
         elif leaf in ("running_mean", "running_var"):
             coll, leaf = "batch_stats", leaf[len("running_"):]
-        node = tree[coll]
-        for part in path.split("/"):
-            node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(v)
+        put(coll, path, leaf, v)
     return tree

@@ -1,3 +1,3 @@
-from .pair_scoring import DeviceTrackCache, PairScorer
+from .pair_scoring import DeviceTrackCache, FeatureCache, PairScorer
 
-__all__ = ["DeviceTrackCache", "PairScorer"]
+__all__ = ["DeviceTrackCache", "FeatureCache", "PairScorer"]

@@ -1,8 +1,10 @@
-"""Track x detection pair scoring against a device-resident track cache.
+"""Track x detection pair scoring against a device-resident or a host track
+cache.
 
-Port of point_cloud_reid_tpu/inference/pair_scoring.py (DeviceTrackCache,
-_round_up, PairScorer's embed / cost_matrix / cached frame functions, point
-and image branch). A tracking frame is one call:
+Port of point_cloud_reid_tpu/inference/pair_scoring.py (FeatureCache,
+DeviceTrackCache, _round_up, PairScorer's embed / cost_matrix / frame
+functions / score_frame, point and image branch). A device-cache tracking
+frame is one call:
 
   scatter last frame's detection features into their track slots ->
   gather this frame's track rows by slot -> crop + embed the detections ->
@@ -14,8 +16,12 @@ With image_mode the crops are camera crops of the frame's images
 per-token downsample, and there is no xyz anywhere
 (make_cached_image_frame_fn, make_cached_image_pair_frame_fn).
 
-Only the logits leave the device. The kernels run whenever the tensors are
-on CUDA (kernels/). The frame functions take their shapes from their
+Only the logits leave the device. The host-cache frame (FeatureCache,
+make_frame_fn, score_frame) is the other deployment: track features live in
+host memory, go up with every frame and the detections' features come back
+down, on purpose (a caller that crops its own inputs, or keeps features
+between processes). The kernels run whenever the tensors are on CUDA
+(kernels/). The frame functions take their shapes from their
 arguments, which TrackingManager pads to static buckets; unlike JAX's they
 need no bucket sizes of their own until frames are captured as CUDA graphs.
 """
@@ -29,6 +35,47 @@ import torch
 from ..kernels.match_grid import (check_image_head, grid_logits,
                                   image_grid_logits, image_pair_logits,
                                   pair_logits)
+
+
+def _host(x) -> Optional[np.ndarray]:
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class FeatureCache:
+    """Per-track embedding cache in host memory: numpy rows keyed by track
+    id, written when a track is born or matched, stacked per frame."""
+
+    def __init__(self):
+        self._h: Dict[int, np.ndarray] = {}
+        self._xyz: Dict[int, np.ndarray] = {}
+
+    def update(self, track_ids, h, xyz=None) -> None:
+        """h (n, N, C) and xyz (n, N, 3) or None, numpy or tensors (fetched
+        once, not per row)."""
+        h, xyz = _host(h), _host(xyz)
+        for i, tid in enumerate(track_ids):
+            self._h[int(tid)] = h[i]
+            if xyz is not None:
+                self._xyz[int(tid)] = xyz[i]
+
+    def gather(self, track_ids):
+        """(h (T, N, C), xyz (T, N, 3) or None when no xyz was stored)."""
+        h = np.stack([self._h[int(t)] for t in track_ids])
+        xyz = (np.stack([self._xyz[int(t)] for t in track_ids])
+               if self._xyz else None)
+        return h, xyz
+
+    def drop(self, track_ids) -> None:
+        for tid in track_ids:
+            self._h.pop(int(tid), None)
+            self._xyz.pop(int(tid), None)
+
+    def __len__(self):
+        return len(self._h)
 
 
 class DeviceTrackCache:
@@ -147,9 +194,9 @@ class PairScorer:
         if image_mode:
             check_image_head(model)
         self.device = next(model.parameters()).device
-        # the last cached frame's scoring inputs and output: h_t, xyz_t,
+        # the last scored frame's (padded) inputs and output: h_t, xyz_t,
         # h_d, xyz_d (xyz None in image mode), logits, and pairs ((pair_t,
-        # pair_d) or None for a dense frame), so a caller can check a frame
+        # pair_d) or None for a dense grid), so a caller can check a frame
         # against plain scoring
         self.last_frame: Optional[dict] = None
 
@@ -168,30 +215,92 @@ class PairScorer:
                     det_classes: Optional[np.ndarray] = None
                     ) -> torch.Tensor:
         """(n_tracks, n_dets) logits; class-mismatched pairs get -inf.
-        Both sides are zero-padded to _round_up buckets first. In image mode
-        xyz_tracks and xyz_dets are None."""
+        Both sides are zero-padded to _round_up buckets first, and the
+        padded grid is kept in last_frame. In image mode xyz_tracks and
+        xyz_dets are None."""
         nt, nd = h_tracks.shape[0], h_dets.shape[0]
         nt_p, nd_p = _round_up(nt), _round_up(nd)
 
         def pad0(x, n):
-            if x.shape[0] == n:
+            if x is None or x.shape[0] == n:
                 return x
             return torch.cat([x, x.new_zeros((n - x.shape[0],)
                                              + tuple(x.shape[1:]))])
 
+        h_t, h_d = pad0(h_tracks, nt_p), pad0(h_dets, nd_p)
+        x_t, x_d = pad0(xyz_tracks, nt_p), pad0(xyz_dets, nd_p)
         if self.image_mode:
-            mat = image_grid_logits(self.model, pad0(h_tracks, nt_p),
-                                    pad0(h_dets, nd_p))[:nt, :nd]
+            grid = image_grid_logits(self.model, h_t, h_d)
         else:
-            mat = grid_logits(self.model, pad0(h_tracks, nt_p),
-                              pad0(xyz_tracks, nt_p), pad0(h_dets, nd_p),
-                              pad0(xyz_dets, nd_p))[:nt, :nd]
+            grid = grid_logits(self.model, h_t, x_t, h_d, x_d)
+        self.last_frame = dict(h_t=h_t, xyz_t=x_t, h_d=h_d, xyz_d=x_d,
+                               logits=grid, pairs=None)
+        mat = grid[:nt, :nd]
         if track_classes is not None and det_classes is not None:
             ok = torch.as_tensor(np.asarray(track_classes)[:, None]
                                  == np.asarray(det_classes)[None, :],
                                  device=mat.device)
             mat = torch.where(ok, mat, torch.full_like(mat, -float("inf")))
         return mat
+
+    def make_frame_fn(self, n_tracks: int, n_dets: int,
+                      crop_points: Optional[int] = None):
+        """Host-cache frame for one (track, det) bucket: [crop +] embed the
+        detections and score the full n_tracks x n_dets grid in one call.
+
+        Returns fn(h_t (n_tracks, N, C), xyz_t (n_tracks, N, 3) or None,
+        dets) -> (logits (n_tracks, n_dets), h_dets, xyz_dets). With
+        crop_points (point branch only) `dets` is (seed, sweep (n_pts, 3),
+        boxes (n_dets, 7)) and the crops are cut on the device from a
+        generator seeded with `seed`; otherwise `dets` is the crop batch.
+        Every tensor lives on the model's device; a shape off the bucket
+        raises."""
+        if self.image_mode and crop_points:
+            raise ValueError("on-device box crops are a point-branch path")
+        model = self.model
+
+        @torch.no_grad()
+        def frame(h_t, xyz_t, dets):
+            if crop_points is not None:
+                # tracking/ imports this module: import its crops at call time
+                from ..tracking.crops import extract_box_crops
+                seed, pts, boxes = dets
+                gen = torch.Generator(device=pts.device).manual_seed(
+                    int(seed))
+                det_crops, _ = extract_box_crops(gen, pts, boxes,
+                                                 crop_points)
+            else:
+                det_crops = dets
+            if h_t.shape[0] != n_tracks or det_crops.shape[0] != n_dets:
+                raise ValueError(
+                    f"frame bucket ({n_tracks}, {n_dets}) got "
+                    f"({h_t.shape[0]}, {det_crops.shape[0]})")
+            xyz_d, h_d = self.embed(det_crops)
+            if self.image_mode:
+                logits = image_grid_logits(model, h_t, h_d)
+            else:
+                logits = grid_logits(model, h_t, xyz_t, h_d, xyz_d)
+            self.last_frame = dict(h_t=h_t, xyz_t=xyz_t, h_d=h_d,
+                                   xyz_d=xyz_d, logits=logits, pairs=None)
+            return logits, h_d, xyz_d
+        return frame
+
+    def score_frame(self, cache: FeatureCache, track_ids, det_crops,
+                    track_classes=None, det_classes=None):
+        """One host-cache frame: embed the detections' crops, score them
+        against the cached track features. Returns (logits (n_tracks,
+        n_dets), h_dets, xyz_dets); with no tracks (a scene's start) the
+        matrix is (0, n_dets)."""
+        xyz_d, h_d = self.embed(det_crops)
+        if len(track_ids) == 0:
+            return h_d.new_zeros((0, h_d.shape[0])), h_d, xyz_d
+        h_t, xyz_t = cache.gather(track_ids)
+        dev = self.device
+        mat = self.cost_matrix(
+            torch.from_numpy(h_t).to(dev),
+            None if xyz_t is None else torch.from_numpy(xyz_t).to(dev),
+            h_d, xyz_d, track_classes, det_classes)
+        return mat, h_d, xyz_d
 
     def _frame_inputs(self, h_buf, xyz_buf, prev_h, prev_xyz, upd_src,
                       upd_dst, slot_idx, seed, pts, boxes, crop_points):

@@ -12,12 +12,14 @@ with kernels, and the card's name and power limit.
     python -m point_cloud_reid_tpu_torch.tools.profile_tracker
         [--objects 96] [--pts-per-obj 600] [--frames 10] [--warmup 4]
         [--sparse auto|never|always] [--trace build/profile_trace.json]
-        [--image]
+        [--image] [--host-cache]
 
 With --image the frame is the image tracker's: the image model
 (deit-tiny-no-pt at full width) on the bench's six-camera scene (bench.py
 _bench_image_tracker_e2e: --objects boxes, default 64, six 900 x 1600 uint8
-cameras), the frame's upload inside the step's clock.
+cameras), the frame's upload inside the step's clock. With --host-cache the
+manager keeps track features in its host FeatureCache (device_cache=False):
+they go up every frame and the detections' features come back.
 
 Needs a CUDA device. match_threshold is 1.0: random weights give arbitrary
 logits, and accepting every gated pair keeps the track set at the scene's
@@ -62,6 +64,8 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=4)
     p.add_argument("--sparse", default="auto",
                    choices=("auto", "always", "never"))
+    p.add_argument("--host-cache", action="store_true",
+                   help="device_cache=False: the host FeatureCache frame")
     p.add_argument("--trace", default="build/profile_trace.json",
                    help="where the profiled window's chrome trace goes")
     args = p.parse_args(argv)
@@ -79,7 +83,8 @@ def main(argv=None):
     model = build_tracker_model(args.image, "cuda")
     mgr = TrackingManager(PairScorer(model, image_mode=args.image),
                           subsample_number=128, match_threshold=1.0,
-                          sparse_scoring=args.sparse)
+                          sparse_scoring=args.sparse,
+                          device_cache=not args.host_cache)
     if args.image:
         frames = list(image_scene(args.objects, args.frames))
     else:
@@ -121,6 +126,7 @@ def main(argv=None):
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     print(json.dumps(dict(
         card=card_name(), image=args.image, sparse=args.sparse,
+        host_cache=args.host_cache,
         objects=args.objects,
         active_tracks=len(mgr.store.active()),
         step_ms=times, median_steady_step_ms=float(np.median(times[
