@@ -54,6 +54,19 @@ Phases, each of which raises on failure:
      cache. Checks SA, grid and image-grid launches, the last host frames'
      logits against plain scoring, that NMS dropped exactly the duplicates,
      one tracks.jsonl line a frame.
+  8. data path: the native crop loader built (g++) from the port's copy and
+     its 512-crop batch equal to the plain numpy version bit for bit; an
+     on-disk store written by tools/make_synthetic_data.py (nuScenes
+     classes, 2,500 objects x 6 frames); tools/train.py --root for one epoch
+     (5 steps of 256 pairs, the three kernel knobs set by --set) and
+     tools/test.py over the store's ValEvenPairs from its checkpoint. Checks
+     that every train batch came through PairDataset.sample_batch and the
+     native reader, 3 kNN and 4 attention launches a step, finite losses,
+     moved weights and BatchNorm statistics, the checkpoint, the eval
+     report's metrics and strata, 3 SA launches an eval batch, and the val
+     logits against the same checkpoint's plain run on the card (knobs off,
+     the SA stages' plain version) to EVAL_TOL; prints the step time, the
+     loader waits, the loader's own pairs/s and the eval's.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -61,7 +74,8 @@ peaks: 67 TFLOP/s for float32 outside the tensor cores; for the SA and
 match kernels, whose products run on the tensor cores in three TF32 passes,
 their operations x 3 over 495 TFLOP/s (their rows keep the float32
 CUDA-core bound of earlier versions as `simt_fp32_bound_ms`). The line
-before the last is a JSON summary of the kernels; the last line is
+before the last is a JSON summary of the kernels and of phase 8; the last
+line is
 {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -108,6 +122,23 @@ FPS_SHAPES = ((128, 128, 128), (128, 128, 64), (128, 64, 32),
               (512, 128, 128), (512, 128, 64), (512, 64, 32),
               (2, 1025, 64), (128, 1024, 256), (512, 2048, 512),
               (4, 16384, 256), (4, 20000, 1024))
+# phase 8: an on-disk store of nuScenes classes, 6 frames an object, 8-400
+# points a frame. Three of the ten classes (construction_vehicle, barrier,
+# traffic_cone) are not in the tracking map, so the sampler trains on 7/10
+# of the 75 % TP objects: 2,500 objects give 1,313, 5 steps of 256 pairs
+# (2,000 would give 1,050: 4 steps)
+FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
+KNOBS = ("model.knn_method=pallas",
+         "model.cross_stage1.attention=linear-pallas",
+         "model.cross_stage2.attention=linear-pallas")
+PLAIN_KNOBS = ("model.knn_method=argsort",
+               "model.cross_stage1.attention=linear",
+               "model.cross_stage2.attention=linear")
+STORE_OBJECTS, STORE_FRAMES, STORE_STEPS, DATA_PAIRS = 2500, 6, 5, 256
+# eval logits with the kernels vs the plain run, max |d| / max(1, max |plain|)
+EVAL_TOL = 1e-4
+# median train-step ms of phase 4, by phase_training
+TRAIN_MS = {}
 DEVICE = "cuda"
 PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
@@ -674,6 +705,7 @@ def phase_training(card: str):
           f"points; launches {launches}; loss "
           f"{[round(x['reid_loss'], 4) for x in logs]}; grad_norm "
           f"{[round(x['grad_norm'], 3) for x in logs]}", flush=True)
+    TRAIN_MS["median"] = float(np.median(times[2:]))
     print(f"[train] median step {np.median(times[2:]):.1f} ms (steps 3-"
           f"{TRAIN_STEPS}; all: {[round(x, 1) for x in times]}), peak memory "
           f"{peak / 2 ** 30:.2f} GiB on {card}", flush=True)
@@ -1224,6 +1256,321 @@ def phase_tracker_host(card: str, image):
     return {name: fn.launches for name, fn in every.items()}
 
 
+def data_path_hooks():
+    """Wrap what the CLIs run, to watch them: sample_batch and the native
+    strided read (counted), the train step (timed around a synchronise,
+    its kernel launches and losses kept, the weights before step 1 kept)
+    and the eval step and Trainer.evaluate (logits and wall time kept).
+    Returns (record dict, undo)."""
+    import torch
+    from point_cloud_reid_tpu_torch import native
+    from point_cloud_reid_tpu_torch.data import PairDataset
+    from point_cloud_reid_tpu_torch.train import loop
+    rec = dict(sample_batch=[], native=0, steps=[], logits=[], evals=[],
+               before=None)
+    counters = all_counters()
+    saved = (PairDataset.sample_batch, native.load_point_batch_strided,
+             loop.make_train_step, loop.make_eval_step,
+             loop.Trainer.evaluate)
+
+    def sample_batch(self, indices):
+        rec["sample_batch"].append(type(self).__name__)
+        return saved[0](self, indices)
+
+    def strided(*args, **kw):
+        rec["native"] += 1
+        return saved[1](*args, **kw)
+
+    def make_train_step(*args, **kw):
+        step = saved[2](*args, **kw)
+
+        def timed(state, *a, **k):
+            if rec["before"] is None:
+                rec["before"] = {n: v.clone() for n, v in
+                                 state.model.state_dict().items()}
+            torch.cuda.synchronize()
+            n0 = {n: fn.launches for n, fn in counters.items()}
+            t0 = time.perf_counter()
+            out = step(state, *a, **k)
+            log = {n: float(v) for n, v in out[1].items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["steps"].append(dict(t0=t0, t1=t1, log=log, launches={
+                n: fn.launches - n0[n] for n, fn in counters.items()}))
+            return out
+        return timed
+
+    def make_eval_step(*args, **kw):
+        step = saved[3](*args, **kw)
+
+        def kept(*a, **k):
+            res = step(*a, **k)
+            rec["logits"].append(res["val_match_preds"])
+            return res
+        return kept
+
+    def evaluate(self, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = saved[4](self, state)
+        rec["evals"].append(dict(s=time.perf_counter() - t0,
+                                 batches=len(self.val_loader),
+                                 pairs=len(self.val_loader)
+                                 * self.val_loader.batch_size))
+        return metrics
+
+    PairDataset.sample_batch = sample_batch
+    native.load_point_batch_strided = strided
+    loop.make_train_step, loop.make_eval_step = make_train_step, \
+        make_eval_step
+    loop.Trainer.evaluate = evaluate
+
+    def undo():
+        (PairDataset.sample_batch, native.load_point_batch_strided,
+         loop.make_train_step, loop.make_eval_step,
+         loop.Trainer.evaluate) = saved
+    return rec, undo
+
+
+def quiet(fn, *args):
+    """fn(*args) with its standard output (the CLIs' metric dumps) held."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def check_native_batch(root: str) -> dict:
+    """The train set's first batch of 2 x 256 crops: the native read equal
+    to the plain numpy version bit for bit, both timed."""
+    from point_cloud_reid_tpu_torch import native
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.data import CropStore, build_pair_dataset
+    from point_cloud_reid_tpu_torch.native import plain
+    from point_cloud_reid_tpu_torch.tools.profile_loader import crop_reads
+    spec = get_experiment(FLAGSHIP)["dataset"]["train"]
+    ds = build_pair_dataset(spec, CropStore(root))
+    rows, seeds = crop_reads(ds, np.arange(DATA_PAIRS))
+    k = spec["subsample_sparse"]
+    t0 = time.perf_counter()
+    got = native.load_point_batch_strided(rows, k, seeds)
+    t1 = time.perf_counter()
+    want = plain.load_point_batch([r.decode() for r in rows], k, seeds)
+    t2 = time.perf_counter()
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    out = dict(crops=len(rows), equal=same, native_ms=(t1 - t0) * 1e3,
+               plain_ms=(t2 - t1) * 1e3)
+    print(f"[data:native] {len(rows)} crops x {k} points: native "
+          f"{out['native_ms']:.2f} ms, plain numpy {out['plain_ms']:.1f} ms, "
+          f"equal bit for bit: {same}", flush=True)
+    if not same:
+        raise RuntimeError("the native loader's batch differs from the plain "
+                           "numpy version")
+    return out
+
+
+def loader_rate(root: str, card: str) -> dict:
+    """The BatchLoaders of tools/train.py with no model: pairs/s over the
+    train set's epochs 0-2 and over one pass of the val set."""
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.data import (BatchLoader, CropStore,
+                                                 build_pair_dataset)
+    from point_cloud_reid_tpu_torch.train import pin_batch
+    dcfg = get_experiment(FLAGSHIP)["dataset"]
+    store = CropStore(root)
+    out = {}
+    for split in ("train", "val"):
+        ds = build_pair_dataset(dcfg[split], store)
+        loader = BatchLoader(ds, DATA_PAIRS, shuffle=split == "train",
+                             seed=66, num_threads=2, transform=pin_batch)
+        rates = []
+        for epoch in range(3 if split == "train" else 1):
+            loader.set_epoch(epoch)
+            t0 = time.perf_counter()
+            n = sum(len(b["id_1"]) for b in loader)
+            rates.append(n / (time.perf_counter() - t0))
+        out[split] = dict(batches=len(loader), pairs_per_s=rates)
+    print(f"[data:loader] BatchLoader alone (2 threads, pinned): train "
+          f"{out['train']['batches']} batches of {DATA_PAIRS} pairs, "
+          f"{[round(r) for r in out['train']['pairs_per_s']]} pairs/s "
+          f"(epochs 0-2); val {out['val']['batches']} batches, "
+          f"{round(out['val']['pairs_per_s'][0])} pairs/s; on {card}",
+          flush=True)
+    return out
+
+
+def phase_data_path(card: str):
+    """Phase 8: the native loader, an on-disk store, tools/train.py --root
+    for one epoch and tools/test.py from its checkpoint, at full width.
+    Returns (launch counts, summary)."""
+    import shutil
+
+    import torch
+    from point_cloud_reid_tpu_torch import native
+    from point_cloud_reid_tpu_torch.kernels import sa_stage
+    from point_cloud_reid_tpu_torch.models import point_transformer
+    from point_cloud_reid_tpu_torch.tools import make_synthetic_data
+    from point_cloud_reid_tpu_torch.tools import test as test_cli
+    from point_cloud_reid_tpu_torch.tools import train as train_cli
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_data")
+    shutil.rmtree(work, ignore_errors=True)
+    root = os.path.join(work, "store")
+    t0 = time.perf_counter()
+    if not native.available():
+        native.LOADER.get()               # raises with the compiler's output
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quiet(make_synthetic_data.main, [root, "--objects", str(STORE_OBJECTS),
+                                     "--frames", str(STORE_FRAMES), "--seed",
+                                     str(SEED)])
+    print(f"[data] native loader built in {build_s:.1f} s; store of "
+          f"{STORE_OBJECTS} objects x {STORE_FRAMES} frames written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    summary = dict(native=check_native_batch(root))
+    sets, plain_sets = [], []
+    for knob in KNOBS:
+        sets += ["--set", knob]
+    for knob in PLAIN_KNOBS:
+        plain_sets += ["--set", knob]
+
+    # train one epoch through the CLI
+    rec, undo = data_path_hooks()
+    every = zero_counters()
+    try:
+        train_dir = os.path.join(work, "train")
+        quiet(train_cli.main, [FLAGSHIP, "--root", root, "--epochs", "1",
+                               "--work-dir", train_dir, *sets])
+        ckpt = os.path.join(train_dir, "ckpt_final.pt")
+        trained = dict(rec)
+        n_train = rec["sample_batch"].count("PairDataset")
+        steps = rec["steps"]
+        rec.update(sample_batch=[], native=0, logits=[], evals=[])
+        after_train = {name: fn.launches for name, fn in every.items()}
+        test_dir = os.path.join(work, "test")
+        quiet(test_cli.main, ["testing_" + FLAGSHIP, "--root", root,
+                              "--checkpoint", ckpt, "--work-dir", test_dir,
+                              *sets])
+        launches = {name: fn.launches for name, fn in every.items()}
+        in_eval = {n: launches[n] - after_train[n] for n in launches}
+        kernel_logits = torch.cat(rec["logits"]).cpu()
+        kernel_eval = rec["evals"][-1]
+        n_val = rec["sample_batch"].count("ValEvenPairs")
+        with open(os.path.join(test_dir, "eval_results_full.json")) as f:
+            report = json.load(f)
+        # the same checkpoint's plain run on the card: knobs off and the SA
+        # stages' plain version
+        rec.update(logits=[], evals=[])
+        stage = point_transformer.sa_stage_inference
+        point_transformer.sa_stage_inference = sa_stage.sa_stage_reference
+        try:
+            quiet(test_cli.main, ["testing_" + FLAGSHIP, "--root", root,
+                                  "--checkpoint", ckpt, "--work-dir",
+                                  os.path.join(work, "plain"), *plain_sets])
+        finally:
+            point_transformer.sa_stage_inference = stage
+        plain_logits = torch.cat(rec["logits"]).cpu()
+        plain_eval = rec["evals"][-1]
+        with open(os.path.join(work, "plain",
+                               "eval_results_full.json")) as f:
+            plain_report = json.load(f)
+        if {n: fn.launches for n, fn in every.items()} != launches:
+            raise RuntimeError("the plain eval launched a kernel")
+    finally:
+        undo()
+
+    # the training run
+    n_steps = len(steps)
+    logs = [s["log"] for s in steps]
+    waits = [(b["t0"] - a["t1"]) * 1e3 for a, b in zip(steps, steps[1:])]
+    step_ms = [(s["t1"] - s["t0"]) * 1e3 for s in steps]
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)["model"]
+    moved = {k for k, v in trained["before"].items()
+             if not torch.equal(v.cpu(), saved[k])}
+    print(f"[data:train] tools/train.py --root, 1 epoch: {n_steps} steps of "
+          f"{DATA_PAIRS} pairs x 128 points; {n_train} train batches through "
+          f"PairDataset.sample_batch, {trained['native']} native reads in the "
+          f"train command (train + its closing eval); launches a step "
+          f"{[s['launches'] for s in steps][:1]}; loss "
+          f"{[round(x['reid_loss'], 4) for x in logs]}", flush=True)
+    if not (n_steps == STORE_STEPS and n_train == n_steps
+            and trained["native"] == len(trained["sample_batch"])):
+        raise RuntimeError(f"want {STORE_STEPS} train batches through "
+                           "sample_batch and the native reader")
+    for s in steps:
+        if (s["launches"]["knn"], s["launches"]["linear_attention"]) != (3, 4):
+            raise RuntimeError(f"want 3 kNN and 4 attention launches a "
+                               f"train step, got {s['launches']}")
+        if not all(np.isfinite(v) for v in s["log"].values()):
+            raise RuntimeError(f"non-finite value in {s['log']}")
+    if not (any(k.endswith("running_var") for k in moved)
+            and any(k.endswith("q_proj.weight") for k in moved)
+            and any("mlp_convs" in k for k in moved)):
+        raise RuntimeError("training left weights or BatchNorm statistics "
+                           "unchanged")
+    train = dict(steps=n_steps, step_ms=step_ms,
+                 median_step_ms=float(np.median(step_ms[2:])),
+                 loader_wait_ms=waits,
+                 mean_loader_wait_ms=float(np.mean(waits)),
+                 phase4_median_step_ms=TRAIN_MS.get("median"))
+    print(f"[data:train] median step {train['median_step_ms']:.1f} ms (steps "
+          f"3-{n_steps}; all {[round(x, 1) for x in step_ms]}) against phase "
+          f"4's {TRAIN_MS.get('median', float('nan')):.1f} ms on synthetic "
+          f"batches; waited on the loader {[round(x, 2) for x in waits]} ms "
+          f"between steps (mean {train['mean_loader_wait_ms']:.2f}); on "
+          f"{card}", flush=True)
+    summary["train"] = train
+    summary["loader"] = loader_rate(root, card)
+
+    # the evaluation
+    keys = {"val_match_acc", "val_match_f1_pos", "val_match_precision_pos",
+            "val_match_recall_pos"}
+    strata = {"per_class", "results_per_points", "results_per_visibility",
+              "results_per_distance"}
+    if not (keys <= set(report) and strata == set(report["stratified"])):
+        raise RuntimeError(f"eval_results_full.json lacks metrics: "
+                           f"{sorted(report)}")
+    nb = kernel_eval["batches"]
+    if not (n_val == nb and in_eval["fused_sa_convmax"] == 3 * nb
+            and in_eval["knn"] == 3 * nb
+            and in_eval["linear_attention"] == 4 * nb):
+        raise RuntimeError(f"want {nb} val batches through sample_batch "
+                           f"and 3 SA, 3 kNN, 4 attention launches each, got "
+                           f"{n_val} and {in_eval}")
+    err = (kernel_logits - plain_logits).abs().max().item()
+    bound = EVAL_TOL * max(1.0, plain_logits.abs().max().item())
+    near = plain_logits.abs() <= bound
+    flips = ((kernel_logits > 0) != (plain_logits > 0)) & ~near
+    same_acc = report["val_match_acc"] == plain_report["val_match_acc"]
+    evaluation = dict(
+        batches=nb, pairs=kernel_eval["pairs"],
+        ms_per_batch=kernel_eval["s"] * 1e3 / nb,
+        pairs_per_s=kernel_eval["pairs"] / kernel_eval["s"],
+        plain_ms_per_batch=plain_eval["s"] * 1e3 / nb,
+        max_abs_err=err, bound=bound, near_zero_pairs=int(near.sum()),
+        val_match_acc=report["val_match_acc"],
+        plain_val_match_acc=plain_report["val_match_acc"])
+    print(f"[data:eval] tools/test.py: {nb} batches of {DATA_PAIRS} pairs "
+          f"(ValEvenPairs), launches {in_eval}; "
+          f"{evaluation['ms_per_batch']:.1f} ms a batch, "
+          f"{evaluation['pairs_per_s']:.0f} pairs/s (plain on the card "
+          f"{evaluation['plain_ms_per_batch']:.1f} ms a batch); logits vs "
+          f"plain max_abs_err {err:.3e} (bound {bound:.3e}), "
+          f"{int(near.sum())} pairs with |plain logit| within it; "
+          f"val_match_acc {report['val_match_acc']:.6f} (plain "
+          f"{plain_report['val_match_acc']:.6f}); on {card}", flush=True)
+    if not (err <= bound and not bool(flips.any())
+            and (same_acc or int(near.sum()) > 0)):
+        raise RuntimeError("eval logits or accuracy differ from the plain "
+                           "run")
+    summary["eval"] = evaluation
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[data] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -1244,14 +1591,17 @@ def main():
     del image
     torch.cuda.empty_cache()
     fps_path = phase_fps_path()
+    torch.cuda.empty_cache()
+    data_path, data_summary = phase_data_path(card)
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path[row["name"]] for path in (
-            serving, training, image_path, tracker_host, fps_path))
+            serving, training, image_path, tracker_host, fps_path,
+            data_path))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "data_path": data_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

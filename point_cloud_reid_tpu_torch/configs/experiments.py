@@ -1,8 +1,8 @@
 """Experiment leaves: 4-axis composition + named experiment registry.
 
 Port of point_cloud_reid_tpu/configs/experiments.py for the point flagship
-leaf, the image (rgb_*) leaves, their testing_ twins and the three image_*
-aliases: compose(dataset, model, schedule, runtime),
+leaves (nuScenes and Waymo), the image (rgb_*) leaves, their testing_
+twins and the three image_* aliases: compose(dataset, model, schedule, runtime),
 schedule('cyclic_500e_lr3e-4_norm1_accum2') parsing the reference's
 schedule-file names, and the dotted-path --set overrides.
 """
@@ -57,9 +57,16 @@ def compose(dataset: Dict[str, Any], model: Dict[str, Any],
                 alpha=alpha or {})
 
 
-def _nus_pts_flagship(**kw) -> Dict[str, Any]:
-    return compose(D.nuscenes_pts(**kw), M.point_transformer_point_cat(),
-                   schedule("cyclic_500e_lr3e-4"))
+def _pts_flagship(dataset_fn, num_classes: int, max_epochs: int):
+    """pts_point-transformer_point-cat_{nus,waymo} leaf: the JAX registry's
+    point-leaf factory (experiments.py:154-166) without accumulation."""
+    def fn(pts=None, epochs=None, **kw) -> Dict[str, Any]:
+        if pts:
+            kw["subsample_sparse"] = pts
+        return compose(dataset_fn(**kw),
+                       M.point_transformer_point_cat(num_classes=num_classes),
+                       schedule(f"cyclic_{epochs or max_epochs}e_lr3e-4"))
+    return fn
 
 
 def _testing(train_fn):
@@ -72,11 +79,12 @@ def _testing(train_fn):
     return fn
 
 
-_FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
-EXPERIMENTS: Dict[str, Callable[..., Dict[str, Any]]] = {
-    _FLAGSHIP: _nus_pts_flagship,
-    "testing_" + _FLAGSHIP: _testing(_nus_pts_flagship),
-}
+EXPERIMENTS: Dict[str, Callable[..., Dict[str, Any]]] = {}
+for _ds, _ds_fn, _nc, _e in (("nus", D.nuscenes_pts, 10, 500),
+                             ("waymo", D.waymo_pts, 6, 400)):
+    _name = f"pts_point-transformer_point-cat_{_ds}_det_4x256_{_e}e"
+    EXPERIMENTS[_name] = _pts_flagship(_ds_fn, _nc, _e)
+    EXPERIMENTS["testing_" + _name] = _testing(EXPERIMENTS[_name])
 
 
 def _image_leaf(variant: str, dataset_fn, num_classes: int, epochs: int):

@@ -148,3 +148,11 @@ def sa_stage_inference(xyz, points, idx, convs, bns, eps: float = 1e-5
     features after the max over neighbours, the input of the stage's
     self-attention block."""
     return fused_sa_convmax(*sa_stage_args(xyz, points, idx, convs, bns, eps))
+
+
+def sa_stage_reference(xyz, points, idx, convs, bns, eps: float = 1e-5
+                       ) -> torch.Tensor:
+    """sa_stage_inference through the plain version on any device: what
+    the card's eval is held against."""
+    return sa_convmax_reference(*sa_stage_args(xyz, points, idx, convs, bns,
+                                               eps))

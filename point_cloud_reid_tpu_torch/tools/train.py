@@ -1,16 +1,30 @@
 """Training CLI of the port (the JAX package's tools/train.py).
 
     python -m point_cloud_reid_tpu_torch.tools.train \
-        pts_point-transformer_point-cat_nus_det_4x256_500e --epochs 1 \
-        --work-dir runs/exp1 --seed 66 \
+        pts_point-transformer_point-cat_nus_det_4x256_500e \
+        --root /data/nuscenes-reid --epochs 1 --work-dir runs/exp1 \
         --set model.knn_method=pallas \
         --set model.cross_stage1.attention=linear-pallas \
         --set model.cross_stage2.attention=linear-pallas
 
-Trains on the CUDA device; without one it exits. The data pipeline is not
-ported yet: with no --root the run trains on 8 and evaluates on 2 seeded
-synthetic pair batches an epoch (train/synthetic.py), and --root raises.
-Float32, TF32 off.
+--root opens a crop store (objects.pkl beside the {obj}/{frame}/pts_xyz.bin
+tree, as tools/make_synthetic_data.py, tools/import_reference_store.py or
+the JAX package write it) and its CompleteStore; without it a
+SyntheticStore of --synthetic-objects objects stands in. Either goes
+through the samplers of the experiment's train and val specs
+(data/samplers.py) and two BatchLoaders: train shuffled per epoch, val in
+order with drop_last, as in the JAX CLI, since the metric depends on which
+pairs are kept. An on-disk store reads each batch through the native
+loader (native/). Trains on the CUDA device, each batch pinned in the
+loader's threads; without a card it exits, unless --device cpu asks for
+the CPU (every kernel's plain version; the tests). Float32, TF32 off.
+Checkpoints are the port's ckpt_{tag}.pt (Trainer.save_checkpoint), which
+--checkpoint, --resume and tools/test.py read; not orbax directories.
+
+Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 6), --remat (item
+7 leaves rematerialisation out) and --profile (tools/profile_train.py
+profiles a train step). Training an image (rgb_*) leaf raises: image
+training is item 5; tools/test.py evaluates one.
 """
 from __future__ import annotations
 
@@ -25,12 +39,12 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("experiment", help="experiment name (configs.EXPERIMENTS)")
     p.add_argument("--root", default=None,
-                   help="crop-store root (not ported yet: raises); synthetic "
-                        "data when omitted")
+                   help="crop-store root; synthetic data when omitted")
     p.add_argument("--work-dir", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="checkpoint to load weights from (optimizer and step "
-                        "start fresh)")
+                   help="port checkpoint (ckpt_{tag}.pt or a model "
+                        "state_dict) to load weights from; optimizer and "
+                        "step start fresh")
     p.add_argument("--resume", default=None,
                    help="checkpoint to resume the full training state from "
                         "(weights + optimizer + step)")
@@ -39,6 +53,12 @@ def parse_args(argv=None):
     p.add_argument("--batch-size", type=int, default=None,
                    help="pairs per step; default samples_per_device")
     p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--synthetic-objects", type=int, default=60)
+    p.add_argument("--loader-threads", type=int, default=2,
+                   help="BatchLoader worker threads; each batch's crop reads "
+                        "run in the native loader's own pool")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cpu runs every kernel's plain version (tests)")
     p.add_argument("--set", dest="set_options", action="append", default=[],
                    metavar="KEY.PATH=VALUE",
                    help="dotted-path config override (repeatable), e.g. "
@@ -47,26 +67,60 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def select_device(name: str, tool: str) -> torch.device:
+    """The run's device, float32 with TF32 off; without a card, a run that
+    did not ask for the CPU exits."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{tool} needs a CUDA device (--device cpu "
+                             "runs the plain versions on the CPU)")
+        print(f"device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def is_image(cfg) -> bool:
+    return cfg["dataset"]["train"]["mode"] == "image"
+
+
 def build_all(cfg, args, device):
-    """(trainer, state) of an experiment dict on `device`."""
+    """(trainer, state) of an experiment dict on `device`: the JAX CLI's
+    build_all (stores, samplers, loaders, model, trainer) on one device."""
+    from point_cloud_reid_tpu_torch.data import (BatchLoader, CompleteStore,
+                                                 CropStore, SyntheticStore,
+                                                 build_pair_dataset)
     from point_cloud_reid_tpu_torch.models import build_model
-    from point_cloud_reid_tpu_torch.train import (SyntheticPairLoader,
-                                                  Trainer, TrainState)
-    if args.root:
-        raise NotImplementedError(
-            "--root: the crop store and the pair samplers are not ported "
-            "yet (the data slice); omit it to train on synthetic batches")
+    from point_cloud_reid_tpu_torch.train import Trainer, TrainState, pin_batch
+
     dcfg = cfg["dataset"]
     losses = cfg.get("losses_to_use", {})
-    dense = (dcfg["subsample_dense"]
-             if losses.get("shape") or losses.get("dense") else 0)
+    with_dense = bool(losses.get("shape") or losses.get("dense"))
+    dcfg = dict(dcfg,
+                train=dict(dcfg["train"], with_dense=with_dense),
+                val=dict(dcfg["val"], with_dense=with_dense))
+    if args.root:
+        store = CropStore(args.root)
+        complete_store = CompleteStore(
+            args.root, subsample_num=dcfg.get("subsample_dense", 2048))
+    else:
+        image = is_image(cfg)
+        store = SyntheticStore(
+            num_objects=args.synthetic_objects,
+            class_names=list(dcfg["train"]["classes"]), with_images=image,
+            crop_size=(224, 224) if image else (32, 32))
+        complete_store = store              # synthetic store carries shapes
+    train_ds = build_pair_dataset(dcfg["train"], store, complete_store)
+    val_ds = build_pair_dataset(dcfg["val"], store, complete_store)
+
     batch = args.batch_size or dcfg["samples_per_device"]
-    common = dict(batch_size=batch, num_points=dcfg["subsample_sparse"],
-                  num_classes=dcfg["num_classes"], dense_points=dense)
-    train_loader = SyntheticPairLoader(num_batches=8, seed=args.seed,
-                                       **common)
-    val_loader = SyntheticPairLoader(num_batches=2, seed=args.seed + 1,
-                                     **common)
+    batch = max(1, min(batch, max(len(train_ds) // 2, 1)))
+    loader = dict(batch_size=batch, num_threads=args.loader_threads,
+                  transform=pin_batch if device.type == "cuda" else None)
+    train_loader = BatchLoader(train_ds, shuffle=True, seed=args.seed,
+                               **loader)
+    val_loader = BatchLoader(val_ds, shuffle=False, drop_last=True, **loader)
 
     model = build_model(cfg["model"], device=device,
                         generator=torch.Generator().manual_seed(args.seed))
@@ -91,26 +145,30 @@ def build_all(cfg, args, device):
     return trainer, state
 
 
+def scalars(metrics) -> str:
+    return json.dumps({k: v for k, v in metrics.items()
+                       if not isinstance(v, dict)}, indent=1)
+
+
 def main(argv=None):
     args = parse_args(argv)
     from point_cloud_reid_tpu_torch.configs import get_experiment
     cfg = get_experiment(args.experiment, set_options=args.set_options)
-    if not torch.cuda.is_available():
-        raise SystemExit("tools.train needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda")
-    print(f"device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
-
+    train = not (args.eval_only or cfg["runtime"].get("eval_only"))
+    if train and is_image(cfg):
+        raise NotImplementedError(
+            "training an image (rgb_*) leaf is not ported (ROADMAP.md §1 "
+            "item 5); tools/test.py evaluates one")
+    device = select_device(args.device, "tools.train")
     trainer, state = build_all(cfg, args, device)
     trainer.logger.log_config(dict(experiment=args.experiment, seed=args.seed,
                                    schedule=str(cfg["schedule"]),
                                    model=cfg["model"]))
-    if not (args.eval_only or cfg["runtime"].get("eval_only")):
+    if train:
         state = trainer.fit(state)
     metrics = trainer.evaluate(state)
-    print(json.dumps({k: v for k, v in metrics.items()
-                      if not isinstance(v, dict)}, indent=1))
+    print(scalars(metrics))
+    return metrics
 
 
 if __name__ == "__main__":

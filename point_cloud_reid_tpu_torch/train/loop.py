@@ -1,5 +1,7 @@
 """Training loop: train step + epoch loop + eval (port of train/loop.py).
 
+  to_device, pin_batch  a loader's batch on the device; pinned in the
+                        loader's worker thread for a CUDA run.
   make_train_step(...)  forward + losses + backward + optimizer update on
                         the model's device: (state, batch, generator) ->
                         (state, log_vars).
@@ -27,16 +29,26 @@ from .schedules import global_norm
 from .state import TrainState
 
 
+def _host_tensor(v) -> torch.Tensor:
+    t = torch.as_tensor(v)
+    if not t.is_floating_point() and t.dtype != torch.bool:
+        t = t.long()
+    return t
+
+
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A loader's batch dict (numpy arrays or tensors) on `device`; integer
-    arrays become int64."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        if not t.is_floating_point() and t.dtype != torch.bool:
-            t = t.long()
-        out[k] = t.to(device, non_blocking=True)
-    return out
+    arrays become int64. A pinned batch (pin_batch) is copied without
+    blocking the host."""
+    return {k: _host_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def pin_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A loader's batch as pinned host tensors in to_device's dtypes: the
+    BatchLoader transform of a run on CUDA, so that the pinning happens in
+    the loader's worker thread and the upload does not wait on the host."""
+    return {k: _host_tensor(v).pin_memory() for k, v in batch.items()}
 
 
 def make_train_step(model, losses_to_use: Dict[str, bool],
@@ -137,7 +149,7 @@ class Trainer:
     Args:
         model: ReIDNet (models.build_model), on the device it trains on.
         train_loader / val_loader: iterables of batch dicts with __len__
-            and set_epoch (train/synthetic.py has one).
+            and set_epoch (data.BatchLoader, train/synthetic.py).
         cfg: runtime dict: max_epochs, eval_interval, checkpoint_interval,
             max_keep_ckpts, save_last, save_best, log_interval, work_dir,
             seed, losses_to_use, alpha, cls_to_idx, num_classes,
@@ -210,10 +222,14 @@ class Trainer:
         return state
 
     def load_weights(self, state: TrainState, path: str) -> TrainState:
-        """Weights-only restore: params + batch stats; the optimizer and the
+        """Weights-only restore: params + batch stats from a checkpoint (its
+        'model' entry) or a bare model state_dict; the optimizer and the
         step stay as they are in `state` (fine-tuning must not resume the
         old LR position or Adam moments)."""
-        state.model.load_state_dict(self._read(path)["model"])
+        saved = self._read(path)
+        if isinstance(saved.get("model"), dict):
+            saved = saved["model"]
+        state.model.load_state_dict(saved)
         return state
 
     # ---- loops ---------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Seeded synthetic pair batches in the training batch-dict format.
 
-A small in-memory stand-in for the data pipeline (which is not ported yet):
-`num_objects` random shapes, each a cloud of points around a few random
-blobs; a pair is two noisy resamplings, of one object (positive) or of two
-(negative). The batches exercise the trainer; nothing can be learned from
+A small in-memory stand-in for the data pipeline, for chip_smoke.py's
+train-step phase and tools/profile_train.py: `num_objects` random shapes,
+each a cloud of points around a few random blobs; a pair is two noisy
+resamplings, of one object (positive) or of two (negative). The batches exercise the trainer; nothing can be learned from
 them that transfers.
 """
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port, checked in a fresh interpreter (this
 suite's conftest imports jax): no module of point_cloud_reid_tpu_torch, nor
-chip_smoke.py, pulls in jax, flax, optax or the JAX package; the CPU path of
+chip_smoke.py, pulls in jax, flax, optax or the JAX package, nor does
+reading a store that the JAX package wrote; the CPU path of
 every kernel wrapper runs without building or loading the CUDA library; and
 every entry point runs on the CUDA device by default, so without a card it
 exits with an error instead of running on the CPU."""
@@ -113,7 +114,11 @@ NEW_MODULES = {
     "tools.train", "tools.profile_train", "train.loop", "train.losses",
     "train.schedules", "train.state", "train.synthetic", "utils.logging",
     "convert.hf_vit", "kernels.fps", "models.image_reid", "models.vit",
-    "tracking.image_crops"}
+    "tracking.image_crops", "data", "data.store", "data.buckets",
+    "data.pipeline", "data.samplers", "data.import_reference", "native",
+    "native.plain", "tools.test", "tools.make_synthetic_data",
+    "tools.dump_val_pairs", "tools.import_reference_store",
+    "tools.profile_loader"}
 
 
 def _run(code: str) -> dict:
@@ -148,6 +153,47 @@ def test_no_source_file_of_the_port_names_a_jax_import():
         assert hit is None, (path, hit.group(0))
 
 
+_READ_JAX_STORE = """
+import json, sys
+from point_cloud_reid_tpu_torch import data, native
+from point_cloud_reid_tpu_torch.tools import test, train
+from point_cloud_reid_tpu_torch.configs import get_experiment
+root = sys.argv[1]
+store = data.CropStore(root)
+complete = data.CompleteStore(root)
+spec = get_experiment('pts_point-transformer_point-cat_nus_det_4x256_500e')
+ds = data.build_pair_dataset(dict(spec['dataset']['val'],
+                                  subsample_sparse=16), store, complete)
+batch = next(iter(data.BatchLoader(ds, 8, shuffle=False)))
+print(json.dumps(dict(
+    records=type(next(iter(store.objects.values()))).__module__,
+    n=len(store.objects), native=native.available(),
+    batch=list(batch['sparse_1'].shape), jax='jax' in sys.modules,
+    jax_pkg=any(m == 'point_cloud_reid_tpu' or
+                m.startswith('point_cloud_reid_tpu.') for m in sys.modules))))
+"""
+
+
+def test_reading_a_store_the_jax_package_wrote_imports_no_jax(tmp_path):
+    """The port's data, native loader and data CLIs, reading a store whose
+    objects.pkl names the JAX package's ObjectRecord, in a fresh
+    interpreter: neither jax nor the JAX package is imported."""
+    from point_cloud_reid_tpu.data import SyntheticStore
+    SyntheticStore(num_objects=20, seed=1, class_names=[
+        "car", "truck", "pedestrian"]).save(str(tmp_path))
+    with open(tmp_path / "objects.pkl", "rb") as f:
+        assert b"point_cloud_reid_tpu.data.store" in f.read()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", _READ_JAX_STORE,
+                           str(tmp_path)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == dict(records="point_cloud_reid_tpu_torch.data.store", n=20,
+                       native=True, batch=[8, 16, 3], jax=False,
+                       jax_pkg=False)
+
+
 def test_cpu_wrappers_never_touch_the_cuda_library():
     out = _run(_CPU_PATH)
     assert out == dict(loaded=False, launches=[0] * 8)
@@ -163,8 +209,14 @@ def test_cpu_wrappers_never_touch_the_cuda_library():
     ["-m", "point_cloud_reid_tpu_torch.tools.track", "--image", "--frames",
      "1"],
     ["-m", "point_cloud_reid_tpu_torch.tools.profile_tracker", "--image"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.test", "testing_" + FLAGSHIP],
+    ["-m", "point_cloud_reid_tpu_torch.tools.train", FLAGSHIP, "--root",
+     "no-such-store"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.profile_loader", "--root",
+     "no-such-store"],
 ], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke",
-        "track_image", "profile_tracker_image"])
+        "track_image", "profile_tracker_image", "test", "train_root",
+        "profile_loader"])
 def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():
