@@ -67,14 +67,35 @@ Phases, each of which raises on failure:
      logits against the same checkpoint's plain run on the card (knobs off,
      the SA stages' plain version) to EVAL_TOL; prints the step time, the
      loader waits, the loader's own pairs/s and the eval's.
+  9. the rest of the flagship family: kNN past 128 points (tiers S and G
+     of csrc/knn.cu) at FAMILY_KNN on exact, duplicated and random clouds
+     beside cdist + topk; the match chain's rows tier (csrc/match_rows.cu)
+     at C = 128 (a 128 x 128 grid and 512 pairs of the 7M model's
+     embeddings) and at C = 64, N = 2048 (a 16 x 16 grid and 512 pairs of
+     the 2048-point ablation's), pairs equal to their grid cells; the SA
+     kernel at SA1 of 512 crops of 2048 points and at the 7M model's
+     widths; linear attention at L = S = 2048 and at d_model 128. Then,
+     with every count at 0: the 7M leaf behind TrackingManager.step over
+     the serving scene, dense ('never', the 128 x 128 grid at C = 128) and
+     sparse ('auto'), step ms, device ms and busy share of two profiled
+     frames, one frame against plain scoring; tools/track.py serving the
+     2048-point ablation with --subsample 2048 (sparse 'auto', the rows
+     tier), one frame against plain scoring; FAMILY_STEPS train steps of
+     the ablation and of the 7M leaf with both kernel knobs on, at the
+     largest pair count up to 256 that fits, 3 kNN and 4 attention
+     launches a step, step 1 against the knobs off to TRAIN_TOL, step ms
+     and peak memory.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
 peaks: 67 TFLOP/s for float32 outside the tensor cores; for the SA and
 match kernels, whose products run on the tensor cores in three TF32 passes,
 their operations x 3 over 495 TFLOP/s (their rows keep the float32
-CUDA-core bound of earlier versions as `simt_fp32_bound_ms`). The line
-before the last is a JSON summary of the kernels and of phase 8; the last
+CUDA-core bound of earlier versions as `simt_fp32_bound_ms`). Rows named
+`kernel/tier` are a kernel's tiers past its first shapes, with launches of
+those tiers alone; a row's `shapes` lists its measurements at further
+shapes. The line before the last is a JSON summary of the kernels and of
+phases 8 and 9; the last
 line is
 {"ok": true, "device": {...}}.
 Without a CUDA device it exits non-zero and prints no result.
@@ -145,6 +166,17 @@ PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the SA and match kernels run each product in three TF32 passes (3xTF32)
 TF32_PASSES = 3
+# phase 9, the rest of the flagship family: the 2048-point ablation and the
+# 7M model (C = 128, mul 8), each trained FAMILY_STEPS steps and served
+ABLATION = "pts_point-transformer_point-cat_waymo_det_4x256_400e_2048pts"
+SCALED = "pts_point-transformer-7M_point-cat_nus_det_4x256_500e"
+FAMILY_STEPS = 3
+# kNN past 128 points, (B, N) at S = 128 queries and k = 32: 512 crops (256
+# pairs) up to SA1 of the 2048-point ablation, and clouds past the shared
+# tier's 14,528 points
+FAMILY_KNN = ((512, 129), (512, 256), (512, 1024), (512, 2048), (8, 20000))
+# the N <= 128 tier at SA1-3 of 512 crops in PR 7 (PERF.md section 6, kNN)
+PR7_KNN_MS = (0.0602, 0.0441, 0.0350)
 
 
 def nbytes(*tensors) -> int:
@@ -438,8 +470,8 @@ def phase_train_kernels(model):
               f"largest distance gap so far {k_err:.3e}); "
               f"kernel {ms:.4f} ms (device time {device:.4f}), plain "
               f"{plain:.3f} ms, cdist+topk (not "
-              f"tie-stable) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"tie-stable) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"tier R in PR 7: {PR7_KNN_MS[i]:.4f} ms", flush=True)
         k_ms, k_plain, k_lib = k_ms + ms, k_plain + plain, k_lib + lib
         k_device += device
         k_bound += b_ms
@@ -567,8 +599,29 @@ def check_frame(model, rec, label: str):
         raise RuntimeError(f"frame check failed in scene '{label}'")
 
 
+class TierCount:
+    """The launches of some of a wrapper's tiers (its `tier_launches`), read
+    and zeroed as a wrapper's `launches` are."""
+
+    def __init__(self, fn, tiers):
+        self.fn, self.tiers = fn, tiers
+
+    @property
+    def launches(self) -> int:
+        return sum(self.fn.tier_launches[t] for t in self.tiers)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("a tier count is only ever reset to 0")
+        for t in self.tiers:
+            self.fn.tier_launches[t] = 0
+
+
 def all_counters() -> dict:
-    """name in the kernels line -> the wrapper that carries `launches`."""
+    """name in the kernels line -> the wrapper that carries `launches`; the
+    tiers past the first kernels' shapes count on their own: kNN past 128
+    points and the match chain's rows tier."""
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
@@ -580,7 +633,12 @@ def all_counters() -> dict:
                 linear_attention=la.linear_attention_forward,
                 fused_image_match_grid=mg.fused_image_match_grid,
                 fused_image_match_pairs=mg.fused_image_match_pairs,
-                fps=kf.fps)
+                fps=kf.fps,
+                **{"knn/scan": TierCount(kk.knn, ("shared", "global")),
+                   "fused_match_grid/rows": TierCount(mg.fused_match_grid,
+                                                      ("rows",)),
+                   "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
+                                                       ("rows",))})
 
 
 def zero_counters() -> dict:
@@ -618,9 +676,11 @@ def phase_main_path(model, card: str):
     return scenes
 
 
-def train_flagship(kernels: bool, pairs: int, steps: int, work_dir):
-    """`steps` optimizer steps of the flagship through Trainer.fit on seeded
-    synthetic pair batches. Returns (per-step logs, per-step ms, which
+def train_flagship(kernels: bool, pairs: int, steps: int, work_dir,
+                   cfg=None, num_points: int = 128, num_classes: int = 10):
+    """`steps` optimizer steps of the flagship (or of the model config
+    `cfg`) through Trainer.fit on seeded synthetic pair batches of
+    `num_points`-point crops. Returns (per-step logs, per-step ms, which
     weights and statistics changed, peak bytes)."""
     import torch
     from point_cloud_reid_tpu_torch.models import build_model
@@ -630,9 +690,10 @@ def train_flagship(kernels: bool, pairs: int, steps: int, work_dir):
                                                   SyntheticPairLoader,
                                                   Trainer, TrainState)
     from point_cloud_reid_tpu_torch.utils.logging import MetricLogger
-    model = build_model(flagship_train_cfg(kernels), device=DEVICE,
+    model = build_model(cfg or flagship_train_cfg(kernels), device=DEVICE,
                         generator=torch.Generator().manual_seed(SEED))
-    loader = SyntheticPairLoader(pairs, steps, num_points=128, seed=SEED)
+    loader = SyntheticPairLoader(pairs, steps, num_points=num_points,
+                                 num_classes=num_classes, seed=SEED)
     runtime = dict(work_dir=work_dir, seed=SEED, max_epochs=1,
                    eval_interval=0, checkpoint_interval=0, log_interval=1,
                    losses_to_use=LOSSES, alpha={})
@@ -1571,6 +1632,456 @@ def phase_data_path(card: str):
     return launches, summary
 
 
+def family_knn() -> dict:
+    """kNN past 128 points (tiers S and G) against its plain version at
+    FAMILY_KNN: indices equal on exact and duplicated clouds, only near-tie
+    swaps on random ones; times on the random ones. The row's own numbers
+    are SA1's of the 2048-point ablation (512 crops)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    S, k = 128, 32
+    shapes, err, swaps_total = [], 0.0, 0
+    for i, (B, N) in enumerate(FAMILY_KNN):
+        how = kk.plan(N, k)
+        swaps = {}
+        for kind in ("exact", "duplicates", "random"):
+            xyz = knn_cloud(kind, B, N, SEED + 10 + i)
+            q = xyz[:, :S].contiguous()
+            got, want = kk.knn(q, xyz, k), kk.knn_reference(q, xyz, k)
+            torch.cuda.synchronize()
+            bad = got != want
+            swaps[kind] = int(bad.sum().item())
+            dist = kk.square_distance(q, xyz)
+            dg, dw = dist.gather(-1, got), dist.gather(-1, want)
+            err = max(err, (dg - dw).abs().max().item())
+            if kind != "random":
+                if swaps[kind]:
+                    raise RuntimeError(f"knn {kind} B={B} N={N}: "
+                                       f"{swaps[kind]} indices differ")
+                continue
+            far = (dg - dw).abs()[bad] > KNN_TIE * dw.abs()[bad].clamp(min=1.0)
+            if bool(far.any()):
+                raise RuntimeError(f"knn random B={B} N={N}: {int(far.sum())}"
+                                   " indices differ beyond a near-tie")
+            del dist, dg, dw
+        ms = time_ms(lambda: kk.knn(q, xyz, k), 10)
+        device = graph_ms(lambda: kk.knn(q, xyz, k), 10)
+        plain = time_ms(lambda: kk.knn_reference(q, xyz, k), 3)
+        lib = time_ms(lambda: torch.cdist(q, xyz).topk(
+            k, dim=-1, largest=False).indices, 3)
+        b_ms, b_by = bound_ms(8.0 * B * S * N, nbytes(q, xyz, got))
+        swaps_total += swaps["random"]
+        shapes.append(dict(B=B, S=S, N=N, k=k, tier=kk.TIER_NAMES[how.tier],
+                           ms=ms, device_ms=device, plain_ms=plain,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                           near_tie_swaps=swaps["random"]))
+        print(f"[family:knn] B={B} S={S} N={N} k={k} tier "
+              f"{kk.TIER_NAMES[how.tier]}: indices equal on exact and "
+              f"duplicated inputs; random floats: {swaps['random']} of "
+              f"{got.numel()} differ, all near-ties; kernel "
+              f"{ms:.4f} ms (device {device:.4f}), plain {plain:.3f} ms, "
+              f"cdist+topk {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+    sa1 = next(s for s in shapes if (s["B"], s["N"]) == (512, 2048))
+    return dict(name="knn/scan", route="cuda",
+                source="point_cloud_reid_tpu_torch/csrc/knn.cu",
+                replaces="point_cloud_reid_tpu/ops/pallas/knn.py:51",
+                max_abs_err=err, mismatches_exact=0,
+                near_tie_swaps=swaps_total,
+                **{key: sa1[key] for key in ("ms", "device_ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "library_ms")},
+                shapes=shapes)
+
+
+def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
+    """The match chain's rows tier at `model`'s width on n_obj x n_obj
+    embeddings of n_pts-point crops: the grid and a P-pair list against the
+    plain version, pairs equal to their grid cells bit for bit. Returns the
+    grid's and the pairs' measurements."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + n_pts)
+    with torch.no_grad():
+        xyz_t, h_t = model.embed(torch.randn((n_obj, n_pts, 3), generator=gen,
+                                             device=DEVICE) * 0.6)
+        xyz_d, h_d = model.embed(torch.randn((n_obj, n_pts, 3), generator=gen,
+                                             device=DEVICE) * 0.6)
+        t, d, w1, w2, nhead = mg.match_factors(model, h_t, xyz_t, h_d, xyz_d)
+    C = h_t.shape[2]
+    how = mg.plan(n_pts, C, nhead)
+    if how.tier != mg.ROWS:
+        raise RuntimeError(f"N={n_pts} C={C}: plan {how}, not the rows tier")
+    weights = list(w1.values()) + list(w2.values())
+    ti = torch.arange(n_obj, device=DEVICE).repeat_interleave(n_obj)
+    di = torch.arange(n_obj, device=DEVICE).repeat(n_obj)
+    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
+    want = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                     ).reshape(n_obj, n_obj, -1)
+    torch.cuda.synchronize()
+    g_err, g_rel = rel_err(grid, want)
+    del want
+    g_ms = time_ms(lambda: mg.fused_match_grid(t, d, w1, w2, nhead), 2,
+                   warmup=1)
+    g_plain = time_ms(lambda: mg.match_pooled_reference(
+        t, d, w1, w2, nhead, ti, di), 1, warmup=0)
+    g_bound, g_by, g_simt = match_bound(n_obj * n_obj, n_pts, C, nbytes(
+        *t, *d, *weights, grid))
+    t_idx = torch.randint(0, n_obj, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    d_idx = torch.randint(0, n_obj, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    want = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
+    torch.cuda.synchronize()
+    p_err, p_rel = rel_err(pairs, want)
+    same = torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    p_ms = time_ms(lambda: mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx,
+                                                d_idx), 3, warmup=1)
+    p_plain = time_ms(lambda: mg.match_pooled_reference(
+        t, d, w1, w2, nhead, t_idx, d_idx), 1, warmup=0)
+    p_bound, p_by, p_simt = match_bound(P, n_pts, C, nbytes(
+        *t, *d, *weights, t_idx, d_idx, pairs))
+    print(f"[family:match] rows tier, C={C} N={n_pts} nhead={nhead}: grid "
+          f"{n_obj}x{n_obj} max_abs_err={g_err:.3e} rel={g_rel:.3e}, pairs "
+          f"P={P} max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol "
+          f"{MATCH_TOL:g}), pairs equal to their grid cells: {same}; grid "
+          f"{g_ms:.3f} ms (plain {g_plain:.3f}, bound {g_bound:.3f} {g_by}, "
+          f"float32 CUDA-core bound {g_simt:.3f}), pairs {p_ms:.3f} ms "
+          f"(plain {p_plain:.3f}, bound {p_bound:.3f} {p_by}, float32 "
+          f"CUDA-core bound {p_simt:.3f})", flush=True)
+    if not (g_rel <= MATCH_TOL and p_rel <= MATCH_TOL and same):
+        raise RuntimeError(f"the rows tier disagrees at C={C} N={n_pts}: "
+                           f"{g_rel}, {p_rel}, pairs equal {same}")
+    shape = dict(C=C, N=n_pts, nhead=nhead)
+    return (dict(shape, grid=f"{n_obj}x{n_obj}", max_abs_err=g_err, ms=g_ms,
+                 plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
+                 simt_fp32_bound_ms=g_simt, library_ms=None),
+            dict(shape, P=P, max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
+                 bound_ms=p_bound, bound_by=p_by, simt_fp32_bound_ms=p_simt,
+                 library_ms=None))
+
+
+def family_sa(model, B: int, n_pts: int, stages: int) -> list:
+    """The SA kernel at the family's shapes: the first `stages` SA stages of
+    `model` on B crops of n_pts points, each against its plain version."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    xyz = torch.randn((B, n_pts, 3), generator=gen, device=DEVICE) * 0.6
+    points, out = None, []
+    for i, (mod, S) in enumerate(zip(model.backbone.SA_modules[:stages],
+                                     model.backbone_list)):
+        cidx = torch.arange(S, device=DEVICE).clamp(max=xyz.shape[1] - 1)
+        idx = knn_indices(mod.nsample, xyz, xyz[:, cidx])
+        args = sa.sa_stage_args(
+            xyz, points, idx, [(c.weight, c.bias) for c in mod.mlp_convs],
+            [(b.weight, b.bias, b.running_mean, b.running_var)
+             for b in mod.mlp_bns], mod.mlp_bns[0].eps)
+        got = sa.fused_sa_convmax(*args)
+        want = sa.sa_convmax_reference(*args)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        ms = time_ms(lambda: sa.fused_sa_convmax(*args), 5)
+        plain = time_ms(lambda: sa.sa_convmax_reference(*args), 2)
+        N, C = args[0].shape[1:]
+        b_ms, b_by, b_simt = tensor_core_bound(
+            4.0 * B * S * mod.nsample * C * C, nbytes(*args, got))
+        print(f"[family:sa] SA{i + 1} B={B} N={N} S={S} K={mod.nsample} "
+              f"C={C}: max_abs_err={err:.3e} rel={rel:.3e} (tol {SA_TOL:g}) "
+              f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms "
+              f"({b_by}; float32 CUDA-core bound {b_simt:.3f} ms)",
+              flush=True)
+        if not rel <= SA_TOL:
+            raise RuntimeError(f"sa_stage SA{i + 1} at B={B} N={N} C={C} "
+                               f"disagrees: rel {rel}")
+        out.append(dict(stage=i + 1, B=B, N=N, S=S, K=mod.nsample, C=C,
+                        max_abs_err=err, ms=ms, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by))
+        with torch.no_grad():
+            xyz, points = mod(xyz, points, S)
+    return out
+
+
+def family_attention() -> list:
+    """Linear attention at the family's training shapes: 256 pairs of the
+    2048-point ablation (L = S = 2048, D = 32) and of the 1.5M / 7M models'
+    cross stages (d_model 128: D = 64), forward and gradients against the
+    plain version."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    out = []
+    for (B, L, S, H, D, V) in ((TRAIN_PAIRS, 2048, 2048, 2, 32, 32),
+                               (TRAIN_PAIRS, 128, 128, 2, 64, 64)):
+        q = torch.randn((B, L, H, D), generator=gen, device=DEVICE,
+                        requires_grad=True)
+        kv = torch.randn((B, S, H, D + V), generator=gen, device=DEVICE)
+        k = kv[..., :D].detach().requires_grad_(True)
+        v = kv[..., D:].detach().requires_grad_(True)
+        got = la.fused_linear_attention(q, k, v)
+        want = la.linear_attention_reference(q, k, v)
+        go = torch.randn(got.shape, generator=gen, device=DEVICE)
+        g_got = torch.autograd.grad(got, (q, k, v), go)
+        g_want = torch.autograd.grad(want, (q, k, v), go)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got.detach(), want.detach())
+        g_rel = max(rel_err(a, b)[1] for a, b in zip(g_got, g_want))
+        with torch.no_grad():
+            ms = time_ms(lambda: la.linear_attention_forward(q, k, v), 10)
+            device = graph_ms(lambda: la.linear_attention_forward(q, k, v),
+                              10)
+            plain = time_ms(lambda: la.linear_attention_reference(q, k, v),
+                            5)
+        flops = B * H * (2.0 * S * D * V + 2.0 * L * D * V + 2.0 * L * D
+                         + S * D)
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got))
+        print(f"[family:linear_attention] B={B} L={L} S={S} H={H} D={D} "
+              f"V={V}: max_abs_err={err:.3e} rel={rel:.3e}, gradients rel="
+              f"{g_rel:.3e} (tol {ATTN_TOL:g}); forward kernel {ms:.4f} ms "
+              f"(device {device:.4f}), plain {plain:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        if not (rel <= ATTN_TOL and g_rel <= ATTN_TOL):
+            raise RuntimeError(f"linear_attention disagrees: {rel}, {g_rel}")
+        out.append(dict(B=B, L=L, S=S, H=H, D=D, V=V, max_abs_err=err,
+                        ms=ms, device_ms=device, plain_ms=plain,
+                        bound_ms=b_ms, bound_by=b_by))
+    return out
+
+
+def serve_profiled(model, sparse: str, label: str, card: str,
+                   profiled: int = 2) -> tuple:
+    """FRAMES frames of the serving scene behind TrackingManager.step, the
+    last `profiled` of them under torch.profiler. Returns (step ms, the
+    scorer, device ms a profiled frame, the device's busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.tools.profile_tracker import _busy_us
+    from point_cloud_reid_tpu_torch.tools.scenes import bench_scene
+    from point_cloud_reid_tpu_torch.tracking import TrackingManager
+    scorer = PairScorer(model)
+    mgr = TrackingManager(scorer, subsample_number=128, match_threshold=1.0,
+                          seed=SEED, sparse_scoring=sparse)
+    frames = list(bench_scene(N_OBJ, PTS_PER_OBJ, FRAMES, SEED))
+    times = []
+
+    def step(frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.step(*frame)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        last = scorer.last_frame
+        if last is not None and not bool(torch.isfinite(last["logits"]).all()):
+            raise RuntimeError(f"non-finite logits in scene '{label}'")
+
+    for frame in frames[:-profiled]:
+        step(frame)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for frame in frames[-profiled:]:
+            step(frame)
+        window_us = (time.perf_counter() - t0) * 1e6
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         f"chip_smoke_{label}.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(trace)
+    spans = [(ev["ts"], ev["dur"]) for ev in events
+             if ev.get("cat") == "kernel"]
+    if not spans:
+        raise RuntimeError("the profiler recorded no device kernels")
+    device_ms = sum(dur for _, dur in spans) / 1e3 / profiled
+    busy = _busy_us(spans) / window_us
+    print(f"[family:serve] {label}: {len(mgr.store.active())} active tracks, "
+          f"median steady-state step {np.median(times[3:]):.3f} ms (frames "
+          f"4-{FRAMES}; all: {[round(x, 1) for x in times]}), device "
+          f"{device_ms:.3f} ms a frame and busy {100 * busy:.1f} % over the "
+          f"last {profiled} (profiled) on {card}", flush=True)
+    return times, scorer, device_ms, busy
+
+
+def serve_ablation(card: str, every: dict) -> dict:
+    """tools/track.py serves the 2048-point ablation at its crop size
+    (--subsample 2048, sparse 'auto') over a small synthetic scene; one
+    frame is held against plain scoring."""
+    import contextlib
+    import io
+    import shutil
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.tools import track
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ablation")
+    shutil.rmtree(work, ignore_errors=True)
+    scorers, init = [], PairScorer.__init__
+
+    def kept_init(self, *a, **k):
+        init(self, *a, **k)
+        scorers.append(self)
+    before = {k: fn.launches for k, fn in every.items()}
+    out = io.StringIO()
+    PairScorer.__init__ = kept_init
+    try:
+        with contextlib.redirect_stdout(out):
+            track.main([ABLATION, "--subsample", "2048", "--sparse", "auto",
+                        "--scenes", "1", "--frames", "5", "--objects", "16",
+                        "--pts-per-obj", "2400", "--match-threshold", "1.0",
+                        "--work-dir", work])
+    finally:
+        PairScorer.__init__ = init
+    headline = json.loads(out.getvalue().strip().splitlines()[-1])
+    cli = {k: fn.launches - before[k] for k, fn in every.items()}
+    print(f"[family:ablation] tools/track.py {ABLATION} --subsample 2048: "
+          f"launches {cli}; headline {json.dumps(headline)} on {card}",
+          flush=True)
+    if not (cli["fused_sa_convmax"] > 0 and cli["fused_match_pairs/rows"]
+            + cli["fused_match_grid/rows"] > 0):
+        raise RuntimeError("the ablation was not served through the SA "
+                           "kernel and the match chain's rows tier")
+    scorer = scorers[-1]
+    if scorer.last_frame["h_t"].shape[1] != 2048:
+        raise RuntimeError("the CLI did not score 2048 rows a side")
+    check_frame(scorer.model, scorer.last_frame, "ablation")
+    shutil.rmtree(work, ignore_errors=True)
+    return headline
+
+
+def train_leaf(card: str, name: str) -> dict:
+    """FAMILY_STEPS steps of a leaf through Trainer.fit with the kernel
+    knobs on, at the largest pair count up to TRAIN_PAIRS that fits; step
+    1 against the same step with the knobs off."""
+    import tempfile
+
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+
+    def run(kernels, pairs, steps, work_dir):
+        cfg = get_experiment(name, set_options=list(
+            KNOBS if kernels else PLAIN_KNOBS))
+        return train_flagship(
+            kernels, pairs, steps, work_dir, cfg=cfg["model"],
+            num_points=cfg["dataset"]["train"]["subsample_sparse"],
+            num_classes=cfg["dataset"]["num_classes"])
+
+    knn0, attn0 = kk.knn.launches, la.linear_attention_forward.launches
+    with tempfile.TemporaryDirectory() as work_dir:
+        pairs = TRAIN_PAIRS
+        while True:
+            try:
+                logs, times, changed, peak = run(True, pairs, FAMILY_STEPS,
+                                                 work_dir)
+                break
+            except torch.cuda.OutOfMemoryError:
+                pass
+            print(f"[family:train] {name}: {pairs} pairs do not fit (peak "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB): "
+                  "halving", flush=True)
+            torch.cuda.empty_cache()
+            pairs //= 2
+            if pairs < 16:
+                raise RuntimeError(f"{name} does not train at 16 pairs")
+    knn_n = kk.knn.launches - knn0
+    attn_n = la.linear_attention_forward.launches - attn0
+    if (knn_n != 3 * FAMILY_STEPS or attn_n != 4 * FAMILY_STEPS
+            or not all(np.isfinite(v) for log in logs for v in log.values())
+            or not any("mlp_convs" in k for k in changed)):
+        raise RuntimeError(f"{name}: want 3 kNN and 4 attention launches a "
+                           f"step, finite logs and moved weights; got "
+                           f"{knn_n}, {attn_n}, {logs}")
+    torch.cuda.empty_cache()
+    plain_logs, _, _, plain_peak = run(False, pairs, 1, None)
+    rels = {}
+    for key in ("reid_loss", "grad_norm"):
+        a, b = logs[0][key], plain_logs[0][key]
+        rels[key] = abs(a - b) / max(abs(b), 1e-12)
+    print(f"[family:train] {name}: {FAMILY_STEPS} steps of {pairs} pairs, "
+          f"launches knn {knn_n} attention {attn_n}; step ms "
+          f"{[round(x, 1) for x in times]}, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (knobs off: "
+          f"{plain_peak / 2 ** 30:.2f} GiB); step 1 against the knobs off: "
+          f"reid_loss {logs[0]['reid_loss']:.6f} / "
+          f"{plain_logs[0]['reid_loss']:.6f}, grad_norm "
+          f"{logs[0]['grad_norm']:.4f} / {plain_logs[0]['grad_norm']:.4f}, "
+          f"rel {rels} (tol {TRAIN_TOL:g}) on {card}", flush=True)
+    if not all(r <= TRAIN_TOL for r in rels.values()):
+        raise RuntimeError(f"{name}: step 1 differs with the kernels on")
+    torch.cuda.empty_cache()
+    return dict(leaf=name, pairs=pairs, step_ms=times,
+                peak_gib=peak / 2 ** 30, step1_rel=rels)
+
+
+def phase_family(card: str):
+    """Phase 9: the rest of the flagship family. The new kernel tiers and
+    the kernels at the family's shapes against their plain versions; then,
+    with every count at 0, the 7M leaf served dense and sparse, the
+    2048-point ablation served by tools/track.py at its crop size, and both
+    trained. Returns (rows of the new tiers, extra shapes of earlier rows
+    by name, the path's launches, a summary)."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.models import build_model
+    t_phase = time.perf_counter()
+
+    def build(name):
+        return build_model(get_experiment(name)["model"], device=DEVICE,
+                           generator=torch.Generator().manual_seed(SEED))
+    rows = [family_knn()]
+    scaled, ablation = build(SCALED), build(ABLATION)
+    grid128, pairs128 = family_match(scaled, 128, 128, 512)
+    grid64, pairs64 = family_match(ablation, 16, 2048, 512)
+    for name, head, extra in (("fused_match_grid/rows", grid128, grid64),
+                              ("fused_match_pairs/rows", pairs64, pairs128)):
+        rows.append(dict(
+            name=name, route="cuda",
+            source="point_cloud_reid_tpu_torch/csrc/match_rows.cu",
+            replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
+                     + ("250" if "grid" in name else "355"),
+            **head, shapes=[head, extra]))
+    extra = dict(fused_sa_convmax=family_sa(ablation, 512, 2048, 1)
+                 + family_sa(scaled, 128, 128, 3),
+                 linear_attention=family_attention())
+    del ablation
+    torch.cuda.empty_cache()
+    print(f"[family] kernel checks took {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+
+    every = zero_counters()
+    summary = {}
+    for sparse, label in (("never", "7M dense"), ("auto", "7M sparse")):
+        grid0 = every["fused_match_grid/rows"].launches
+        pairs0 = every["fused_match_pairs/rows"].launches
+        times, scorer, device_ms, busy = serve_profiled(scaled, sparse,
+                                                        label, card)
+        grid_n = every["fused_match_grid/rows"].launches - grid0
+        pairs_n = every["fused_match_pairs/rows"].launches - pairs0
+        if (grid_n if sparse == "never" else pairs_n) <= 0:
+            raise RuntimeError(f"{label}: the rows tier was not launched")
+        check_frame(scaled, scorer.last_frame, label)
+        summary[label] = dict(median_step_ms=float(np.median(times[3:])),
+                              device_ms=device_ms, busy=busy,
+                              rows_launches=grid_n + pairs_n)
+    del scaled, scorer
+    torch.cuda.empty_cache()
+    summary["ablation_cli"] = serve_ablation(card, every)
+    torch.cuda.empty_cache()
+    summary["train"] = [train_leaf(card, ABLATION), train_leaf(card, SCALED)]
+    launches = {name: fn.launches for name, fn in every.items()}
+    print(f"[family] launches {launches}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows, extra, launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -1593,15 +2104,21 @@ def main():
     fps_path = phase_fps_path()
     torch.cuda.empty_cache()
     data_path, data_summary = phase_data_path(card)
+    torch.cuda.empty_cache()
+    family_rows, family_shapes, family, family_summary = phase_family(card)
+    for row in rows:
+        row["shapes"] = family_shapes.get(row["name"], [])
+    rows += family_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path[row["name"]] for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path))
+            data_path, family))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
-    print(json.dumps({"kernels": rows, "data_path": data_summary}))
+    print(json.dumps({"kernels": rows, "data_path": data_summary,
+                      "family": family_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

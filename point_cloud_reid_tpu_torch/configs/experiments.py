@@ -1,8 +1,11 @@
 """Experiment leaves: 4-axis composition + named experiment registry.
 
-Port of point_cloud_reid_tpu/configs/experiments.py for the point flagship
-leaves (nuScenes and Waymo), the image (rgb_*) leaves, their testing_
-twins and the three image_* aliases: compose(dataset, model, schedule, runtime),
+Port of point_cloud_reid_tpu/configs/experiments.py for the point-transformer
+family (the flagship on nuScenes and Waymo with its _accumN, point-count
+ablation and scaling_ leaves and the ablations' aliases, and the scaled 1.5M
+and 7M models with their testing_ and _accumN twins), the image (rgb_*)
+leaves, their testing_ twins and the three image_* aliases:
+compose(dataset, model, schedule, runtime),
 schedule('cyclic_500e_lr3e-4_norm1_accum2') parsing the reference's
 schedule-file names, and the dotted-path --set overrides.
 """
@@ -57,15 +60,18 @@ def compose(dataset: Dict[str, Any], model: Dict[str, Any],
                 alpha=alpha or {})
 
 
-def _pts_flagship(dataset_fn, num_classes: int, max_epochs: int):
-    """pts_point-transformer_point-cat_{nus,waymo} leaf: the JAX registry's
-    point-leaf factory (experiments.py:154-166) without accumulation."""
+def _pts_leaf(dataset_fn, model_fn, num_classes: int, max_epochs: int,
+              accum: int = 1):
+    """A point leaf of the JAX registry's point-leaf factory
+    (experiments.py:154-166): dataset (subsample_sparse from `pts`), model,
+    'cyclic_{E}e_lr3e-4[_accumN]'."""
     def fn(pts=None, epochs=None, **kw) -> Dict[str, Any]:
         if pts:
             kw["subsample_sparse"] = pts
-        return compose(dataset_fn(**kw),
-                       M.point_transformer_point_cat(num_classes=num_classes),
-                       schedule(f"cyclic_{epochs or max_epochs}e_lr3e-4"))
+        sname = f"cyclic_{epochs or max_epochs}e_lr3e-4" + (
+            f"_accum{accum}" if accum > 1 else "")
+        return compose(dataset_fn(**kw), model_fn(num_classes),
+                       schedule(sname))
     return fn
 
 
@@ -79,12 +85,63 @@ def _testing(train_fn):
     return fn
 
 
+def _fixed(dataset_fn, model_cfg, sched, **dataset_kw):
+    """A leaf of one dataset setting, model and schedule (the ablations,
+    scaling runs and aliases)."""
+    def fn(**kw):
+        return compose(dataset_fn(**dataset_kw, **kw), model_cfg(), sched())
+    return fn
+
+
+# the point-transformer family's models; as in JAX, the scaled ones ignore
+# the class count (they have no aux heads)
+_PTS_MODELS = {
+    "point-transformer_point-cat": lambda nc: M.point_transformer_point_cat(
+        num_classes=nc),
+    "point-transformer-1.5M_point-cat":
+        lambda nc: M.point_transformer_scaled("1.5M"),
+    "point-transformer-7M_point-cat":
+        lambda nc: M.point_transformer_scaled("7M"),
+}
+_FLAGSHIP = "point-transformer_point-cat"
+
 EXPERIMENTS: Dict[str, Callable[..., Dict[str, Any]]] = {}
+# point leaves: nuScenes (500e grid) and Waymo (400e grid)
 for _ds, _ds_fn, _nc, _e in (("nus", D.nuscenes_pts, 10, 500),
                              ("waymo", D.waymo_pts, 6, 400)):
-    _name = f"pts_point-transformer_point-cat_{_ds}_det_4x256_{_e}e"
-    EXPERIMENTS[_name] = _pts_flagship(_ds_fn, _nc, _e)
-    EXPERIMENTS["testing_" + _name] = _testing(EXPERIMENTS[_name])
+    for _m, _m_fn in _PTS_MODELS.items():
+        _name = f"pts_{_m}_{_ds}_det_4x256_{_e}e"
+        EXPERIMENTS[_name] = _pts_leaf(_ds_fn, _m_fn, _nc, _e)
+        EXPERIMENTS["testing_" + _name] = _testing(EXPERIMENTS[_name])
+        for _a in (2, 4, 8):
+            EXPERIMENTS[f"{_name}_accum{_a}"] = _pts_leaf(_ds_fn, _m_fn, _nc,
+                                                         _e, _a)
+    # point-count ablations (reid_{waymo,nuscenes}_pts/num_point_ablation/*)
+    for _n in (160, 192, 224, 256, 512, 1024, 2048):
+        EXPERIMENTS[f"pts_{_FLAGSHIP}_{_ds}_det_4x256_{_e}e_{_n}pts"] = _fixed(
+            _ds_fn, lambda nc=_nc: _PTS_MODELS[_FLAGSHIP](nc),
+            lambda e=_e: schedule(f"cyclic_{e}e_lr3e-4"),
+            subsample_sparse=_n)
+
+# scaling runs (waymo 800/1600/3200e, nuScenes 1000/2000/4000e); the
+# nuScenes ones build a bare ScheduleConfig, as JAX does
+for _e in (800, 1600, 3200):
+    EXPERIMENTS[f"scaling_pts_{_FLAGSHIP}_waymo_det_4x256_{_e}e"] = _fixed(
+        D.waymo_pts, lambda: M.point_transformer_point_cat(num_classes=6),
+        lambda e=_e: schedule(f"cyclic_{e}e_lr3e-4"))
+for _e in (1000, 2000, 4000):
+    EXPERIMENTS[f"scaling_pts_{_FLAGSHIP}_nus_det_4x256_{_e}e"] = _fixed(
+        D.nuscenes_pts, M.point_transformer_point_cat,
+        lambda e=_e: ScheduleConfig(policy="cyclic", max_epochs=e, lr=3e-4))
+
+# the round-1 names of the ablations
+for _n in (256, 512):
+    EXPERIMENTS[f"pts_{_FLAGSHIP}_{_n}pts_nus_det_4x256_500e"] = _fixed(
+        D.nuscenes_pts, M.point_transformer_point_cat,
+        lambda: schedule("cyclic_500e_lr3e-4"), subsample_sparse=_n)
+for _n in (160, 256, 512, 1024, 2048):
+    EXPERIMENTS[f"pts_{_FLAGSHIP}_waymo_{_n}pts"] = EXPERIMENTS[
+        f"pts_{_FLAGSHIP}_waymo_det_4x256_400e_{_n}pts"]
 
 
 def _image_leaf(variant: str, dataset_fn, num_classes: int, epochs: int):

@@ -1,7 +1,9 @@
-"""Model config factories: the flagship point ReID model and the image model.
+"""Model config factories: the flagship point ReID model, its scaled
+variants and the image model.
 
-Copies of point_cloud_reid_tpu/configs/models.py::point_transformer_point_cat
-and ::image_deit_point_cat (the JAX package's config modules import jax
+Copies of point_cloud_reid_tpu/configs/models.py::point_transformer_point_cat,
+::point_transformer_scaled and ::image_deit_point_cat (the JAX package's
+config modules import jax
 through experiments.py, so the port cannot import them). The dicts are
 value-for-value the JAX ones: reid_pts_point-transformer_point-cat.py (mul=4,
 conv_out=64, two linear cross-attention stages, combine='point-cat', pool
@@ -49,6 +51,14 @@ def point_transformer_point_cat(conv_out: int = 64, mul: int = 4,
         cfg["fp_head"] = _linear_res_head(hs, hs, 16, 1)
         cfg["shape_head"] = [dict(type="Linear", out_features=3)]
     return cfg
+
+
+def point_transformer_scaled(size: str = "1.5M") -> Dict[str, Any]:
+    """Scaled variants (reid_pts_point-transformer-1.5M/-7M_point-cat.py:
+    output_sequence_size=128, mul 4 for 1.5M and 8 for 7M)."""
+    conv_out = 128
+    mul = 4 if size == "1.5M" else 8
+    return point_transformer_point_cat(conv_out=conv_out, mul=mul)
 
 
 def image_deit_point_cat(variant: str = "deit-tiny",

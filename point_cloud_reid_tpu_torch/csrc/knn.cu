@@ -18,7 +18,26 @@
 // that owns the winner pops its head. Ordering (key, index) is
 // first-occurrence, so duplicated points (crops are resampled with
 // replacement) come out lower index first, exactly as a stable argsort
-// gives them. Inputs must be finite and k <= N <= 128.
+// gives them. Inputs must be finite and k <= N. That is tier R (registers),
+// N <= 128.
+//
+// Beyond 128 points (the point-count ablations train at up to 2048) a
+// lane's sorted keys no longer fit in registers, and k (up to 48) is too
+// many slots for a per-lane top-k list. Tiers S (shared) and G (global)
+// keep no keys at all: lane l owns the contiguous slice [l L, (l + 1) L) of
+// the points, L = ceil(N / 32), and holds only the head of its slice, the
+// least (key, index) it has not yet given up. A round is the same two
+// redux.sync over the heads; the winner's slice is known from its index
+// (w / L), and the whole warp then rescans that slice, L / 32 points a
+// lane, for its least (key, index) after the winner's, followed by two more
+// redux.sync: since a slice gives up its points in (key, index) order, the
+// points after the last one given up are exactly the ones left, so nothing
+// is marked and nothing but the heads is stored. Tier S stages the crop's
+// points in shared memory as in tier R (16 bytes a point: N <= 14,528);
+// tier G reads them from device memory (L2) on every scan, for any N. Both
+// compute each distance with the same intrinsics in the same order as tier
+// R, so every tier orders near-ties alike. kernels/knn.py's plan(N, k)
+// picks the tier; pcr_knn_plan launches the plan it is given.
 //
 // Rounding: every sum is written with the round-to-nearest intrinsics in a
 // fixed order (products, then x + y + z; the inner product as an FMA
@@ -38,6 +57,9 @@
 // itself, 16 of a row at a time and coalesced, so no cast pass follows. The
 // crop's points are staged once per block in shared memory as (x, y, z,
 // |p|^2), one 16-byte load a point, and shared by the block's query rows.
+// Tiers S and G are bound the same way, by their rounds, each of which
+// rescans L points: at (512, 128, 2048, 32) the function needs 0.016 ms of
+// operations (8 flops a distance) against 30 rescans of 64 points a query.
 
 #include <cuda_runtime.h>
 
@@ -170,18 +192,181 @@ cudaError_t launch(const float* q, const float* db, long long* out, int B,
   return cudaGetLastError();
 }
 
+
+// ---- tiers S and G: a head a lane, rescans of the winner's slice -------------
+
+constexpr int SCAN_WARPS = 16;   // query rows a block in tiers S and G
+
+// the distance key of point j, as tier R computes it
+template <bool SHARED>
+__device__ __forceinline__ unsigned point_key(const float4* pts,
+                                              const float* dbb, int j,
+                                              float qx, float qy, float qz,
+                                              float qn) {
+  float4 p;
+  if constexpr (SHARED) {
+    p = pts[j];
+  } else {
+    const float x = dbb[3 * j], y = dbb[3 * j + 1], z = dbb[3 * j + 2];
+    p = make_float4(x, y, z,
+                    __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
+                              __fmul_rn(z, z)));
+  }
+  const float inner = __fmaf_rn(qz, p.z,
+                                __fmaf_rn(qy, p.y, __fmul_rn(qx, p.x)));
+  return order_key(__fadd_rn(__fsub_rn(qn, __fmul_rn(2.f, inner)), p.w));
+}
+
+// The least (key, index) of points [lo, hi) after (lk, li), over the warp,
+// on every lane; (UINT_MAX, UINT_MAX) when none is left. Each lane scans
+// its points in increasing index, so equal keys keep the lower index.
+template <bool SHARED>
+__device__ __forceinline__ void least_after(const float4* pts,
+                                            const float* dbb, int lo, int hi,
+                                            unsigned lk, unsigned li,
+                                            float qx, float qy, float qz,
+                                            float qn, unsigned& mk,
+                                            unsigned& mi) {
+  const int lane = threadIdx.x & 31;
+  unsigned bk = UINT_MAX, bi = UINT_MAX;
+  for (int j = lo + lane; j < hi; j += 32) {
+    const unsigned kj = point_key<SHARED>(pts, dbb, j, qx, qy, qz, qn);
+    const bool after = kj > lk || (kj == lk && (unsigned)j > li);
+    if (after && kj < bk) {
+      bk = kj;
+      bi = j;
+    }
+  }
+  mk = __reduce_min_sync(FULL, bk);
+  mi = __reduce_min_sync(FULL, bk == mk ? bi : UINT_MAX);
+}
+
+template <bool SHARED>
+__global__ void __launch_bounds__(SCAN_WARPS * 32)
+knn_scan_kernel(const float* __restrict__ q, const float* __restrict__ db,
+                long long* __restrict__ out, int S, int N, int k) {
+  extern __shared__ float4 pts[];    // tier S: [N] (x, y, z, |p|^2)
+  const int warps = blockDim.x >> 5;
+  const int row_blocks = (S + warps - 1) / warps;
+  const int b = blockIdx.x / row_blocks;
+  const float* dbb = db + (size_t)b * N * 3;
+  if constexpr (SHARED) {
+    for (int j = threadIdx.x; j < N; j += blockDim.x) {
+      const float x = dbb[3 * j], y = dbb[3 * j + 1], z = dbb[3 * j + 2];
+      pts[j] = make_float4(x, y, z,
+                           __fadd_rn(__fadd_rn(__fmul_rn(x, x),
+                                               __fmul_rn(y, y)),
+                                     __fmul_rn(z, z)));
+    }
+    __syncthreads();
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int s = (blockIdx.x % row_blocks) * warps + warp;
+  if (s >= S) return;
+  const float* qp = q + ((size_t)b * S + s) * 3;
+  const float qx = qp[0], qy = qp[1], qz = qp[2];
+  const float qn = __fadd_rn(__fadd_rn(__fmul_rn(qx, qx), __fmul_rn(qy, qy)),
+                             __fmul_rn(qz, qz));
+  const int L = (N + 31) / 32;         // lane l's slice: [l L, (l + 1) L)
+
+  // every lane's head: its slice's least (key, index); a finite distance's
+  // key is at least 0x00800000, so every point comes after (0, 0)
+  unsigned hk = UINT_MAX, hi = UINT_MAX;
+  for (int sl = 0; sl < 32; ++sl) {
+    unsigned mk, mi;
+    least_after<SHARED>(pts, dbb, sl * L, min(N, (sl + 1) * L), 0u, 0u, qx,
+                        qy, qz, qn, mk, mi);
+    if (lane == sl) {
+      hk = mk;
+      hi = mi;
+    }
+  }
+
+  long long* o = out + ((size_t)b * S + s) * k;
+  unsigned keep = 0;
+  for (int r = 0; r < k; ++r) {
+    const unsigned m = __reduce_min_sync(FULL, hk);
+    const unsigned w = __reduce_min_sync(FULL, hk == m ? hi : UINT_MAX);
+    const int owner = (int)w / L;
+    unsigned mk, mi;
+    least_after<SHARED>(pts, dbb, owner * L, min(N, (owner + 1) * L), m, w,
+                        qx, qy, qz, qn, mk, mi);
+    if (lane == owner) {
+      hk = mk;
+      hi = mi;
+    }
+    // lane c keeps the c-th winner of a run of 16, stored as one 128 bytes
+    if (lane == (r & 15)) keep = w;
+    if ((r & 15) == 15 || r + 1 == k) {
+      const int r0 = r & ~15;
+      if (r0 + lane <= r && lane < 16) o[r0 + lane] = keep;
+    }
+  }
+}
+
+template <bool SHARED>
+cudaError_t launch_scan(const float* q, const float* db, long long* out,
+                        int B, int S, int N, int k, int warps, size_t smem,
+                        cudaStream_t stream) {
+  if (smem > 0) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_scan_kernel<SHARED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int grid = ((S + warps - 1) / warps) * B;
+  knn_scan_kernel<SHARED><<<grid, warps * 32, smem, stream>>>(q, db, out, S,
+                                                              N, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q (B, S, 3), db (B, N <= 128, 3) float32 contiguous -> out (B, S, k)
-// int64 contiguous.
-extern "C" int pcr_knn_i64(const void* q, const void* db, void* out, int B,
-                           int S, int N, int k, void* stream) {
-  if (B <= 0 || S <= 0 || k <= 0 || k > N || N > 128)
-    return (int)cudaErrorInvalidValue;
+// Tiers, as kernels/knn.py numbers them, and the most dynamic shared
+// memory a block may take on sm_90.
+constexpr int TIER_R = 0, TIER_S = 1, TIER_G = 2;
+constexpr size_t MAX_SMEM = 232448;
+
+// q (B, S, 3), db (B, N, 3) float32 contiguous -> out (B, S, k) int64
+// contiguous, launched as the plan (tier, points a lane, warps a block,
+// dynamic shared bytes) says: tier R takes points 2 or 4 (N <= 32 points)
+// and 8 warps; tier S 16 N bytes; tier G none. A plan that does not fit
+// the shape is refused with cudaErrorInvalidValue.
+extern "C" int pcr_knn_plan(const void* q, const void* db, void* out, int B,
+                            int S, int N, int k, int tier, int points,
+                            int warps, int smem, void* stream) {
+  if (B <= 0 || S <= 0 || k <= 0 || k > N) return (int)cudaErrorInvalidValue;
   const float* qf = (const float*)q;
   const float* df = (const float*)db;
   long long* of = (long long*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 64) return (int)launch<2>(qf, df, of, B, S, N, k, st);
-  return (int)launch<4>(qf, df, of, B, S, N, k, st);
+  switch (tier) {
+    case TIER_R:
+      if (warps != WARPS || smem != N * (int)sizeof(float4) || N > 32 * points)
+        return (int)cudaErrorInvalidValue;
+      if (points == 2) return (int)launch<2>(qf, df, of, B, S, N, k, st);
+      if (points == 4) return (int)launch<4>(qf, df, of, B, S, N, k, st);
+      return (int)cudaErrorInvalidValue;
+    case TIER_S:
+      if (warps < 1 || warps > SCAN_WARPS || smem != N * (int)sizeof(float4)
+          || (size_t)smem > MAX_SMEM)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_scan<true>(qf, df, of, B, S, N, k, warps, smem, st);
+    case TIER_G:
+      if (warps < 1 || warps > SCAN_WARPS || smem != 0)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_scan<false>(qf, df, of, B, S, N, k, warps, 0, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The entry point of earlier versions, N <= 128 (tier R); tools/ab_train_
+// kernels.py times older builds through it.
+extern "C" int pcr_knn_i64(const void* q, const void* db, void* out, int B,
+                           int S, int N, int k, void* stream) {
+  if (N > 128) return (int)cudaErrorInvalidValue;
+  return pcr_knn_plan(q, db, out, B, S, N, k, TIER_R, N <= 64 ? 2 : 4, WARPS,
+                      N * (int)sizeof(float4), stream);
 }

@@ -43,8 +43,14 @@ _SIGNATURES = {
                               + [_P],
     # N, C, H, out bytes, out limit
     "pcr_match_pooled_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    # the rows tier: the point head's pointers, then the scratch; nt, nd,
+    # P, N, C, H, blocks, stream
+    "pcr_match_rows": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],
+    "pcr_match_rows_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # q, db, out (int64), B, S, N, k, stream
     "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
+    # the same, then the plan: tier, points, warps, smem; stream
+    "pcr_knn_plan": [_P] * 3 + [_I] * 8 + [_P],
     # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
     # in elements), eps, stream
     "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9

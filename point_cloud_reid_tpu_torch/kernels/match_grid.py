@@ -6,8 +6,15 @@ stage_weights). Everything that depends on one object is computed once per
 object in plain torch (`grid_factors`); the per-pair chain -- stage-1 linear
 attention finish in both directions, merge + LN + FFN + LN, stage-2 full
 cross linear attention in both directions, point-cat max+avg pooling -- is
-one CUDA kernel (csrc/match_grid.cu) that serves both index modes. The match
-head on the pooled features stays plain torch, as in JAX.
+one CUDA kernel that serves both index modes. The match head on the pooled
+features stays plain torch, as in JAX.
+
+`plan(N, C, H)` picks the kernel's tier: CLUSTER (csrc/match_grid.cu, a
+two-block cluster a pair with the weights and a side's rows in shared
+memory: C = 16 or 64, as many rows as fit, 224 at C = 64) wherever it fits,
+else ROWS (csrc/match_rows.cu, point head only: C = 16, 64 or 128, any N;
+a block a pair at a time, the stage-1 outputs in a device scratch, the
+weights read from L2).
 
 The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
 image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
@@ -25,7 +32,7 @@ linear_attention cancel and are both dropped, as in the TPU kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -210,6 +217,76 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
 
 # ---- kernel wrappers ------------------------------------------------------------
 
+# tiers
+CLUSTER, ROWS = range(2)
+TIER_NAMES = ("cluster", "rows")
+MAX_SMEM = 232448       # 227 KB: a block's most dynamic shared memory, sm_90
+SM_SMEM = 233472        # 228 KB: an SM's shared memory, 1 KB of it per block
+CLUSTER_WIDTHS = (16, 64)
+ROWS_WIDTHS = (16, 64, 128)
+ROWS_MAX_HEADS = 8
+ROWS_WARPS = 4
+ROWS_BLOCKS_PER_SM = 4
+
+
+class Plan(NamedTuple):
+    tier: int           # CLUSTER or ROWS
+    smem: int           # dynamic shared bytes a block
+
+
+def cluster_bytes(N: int, C: int) -> int:
+    """Shared bytes of the cluster tier's layout (csrc/match_grid.cu
+    Layout<C>::floats): weights 8 C^2 (and the 128-row k|v chunk where it
+    does not fit among them), own O at Np x (C + 4), the peer's [KV | Z]
+    2 C^2, pooling 8 x 2C + C + 2C."""
+    c2, chunk = C * C, 128 * (2 * C + 8)
+    weights = 8 * c2 + (0 if c2 + chunk <= 6 * c2 else chunk)
+    Np = -(-N // 16) * 16
+    return 4 * (weights + Np * (C + 4) + 2 * c2 + 8 * 2 * C + 3 * C)
+
+
+def rows_bytes(C: int) -> int:
+    """Shared bytes of the rows tier's layout (csrc/match_rows.cu
+    Layout<C>::FLOATS): 4 warps x 16 rows x (2C + 4 + 2 (C + 4)) strips, the
+    summary C x (C + 8), ksum C, denominators 4 x 16 x 8, pooling 4 x 2C,
+    two weight tiles of 32 x 72."""
+    return 4 * (ROWS_WARPS * 16 * (4 * C + 12) + C * (C + 8) + C
+                + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C
+                + 2 * 32 * 72)
+
+
+def plan(N: int, C: int, H: int, pos: bool = True) -> Plan:
+    """The tier for sides of N rows and C channels in H heads: CLUSTER where
+    its layout fits in a block's shared memory, else ROWS for the point
+    head (`pos`); the image head (no position term) has the cluster tier
+    only. Raises ValueError for a shape that neither takes."""
+    if N < 1 or H < 1 or C % H:
+        raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
+                         "dividing C")
+    widths = ROWS_WIDTHS if pos else CLUSTER_WIDTHS
+    if C not in widths:
+        raise ValueError(f"N={N}, C={C}, nhead={H}: the kernel's tensor-core "
+                         f"tiles take C in {widths}")
+    if C in CLUSTER_WIDTHS and cluster_bytes(N, C) <= MAX_SMEM:
+        return Plan(CLUSTER, cluster_bytes(N, C))
+    if not pos:
+        raise ValueError(
+            f"{N} rows x {C} channels need {cluster_bytes(N, C)} bytes of "
+            f"shared memory a block, more than the {MAX_SMEM} the kernel may "
+            "take (the image head has no rows tier)")
+    if H > ROWS_MAX_HEADS:
+        raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
+                         f"most {ROWS_MAX_HEADS} heads")
+    return Plan(ROWS, rows_bytes(C))
+
+
+def rows_blocks(P: int, smem: int, device) -> int:
+    """Blocks of a rows-tier launch: as many as the card holds at once (by
+    shared memory, at most ROWS_BLOCKS_PER_SM an SM), at most one a pair."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = max(1, min(ROWS_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
+    return max(1, min(P, sms * per_sm))
+
 def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
     n = side[0].shape[0]
     shapes = ((n, N, C), (n, N, C), (n, C, 2 * C), (n, N, 2 * C), (n, N, C))
@@ -226,28 +303,26 @@ def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
 def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
            t_idx: Optional[torch.Tensor], d_idx: Optional[torch.Tensor],
            library: Optional[_lib.Library] = None) -> torch.Tensor:
-    """Check the inputs, launch the kernel's instantiation for sides of
-    `parts` tensors (grid mode when t_idx is None) and add one to
-    `counter.launches` once the launch succeeded. `library` is another build
-    of csrc/match_grid.cu's entry points, as tools/ab_match.py times
-    versions of the kernel; it passes no counter."""
+    """Check the inputs, launch the tier plan(N, C, nhead) picks for sides
+    of `parts` tensors (grid mode when t_idx is None) and add one to
+    `counter.launches`, and to its tier's count, once the launch succeeded.
+    `library` is another build of the kernels' entry points, as
+    tools/ab_match.py times versions of them; it passes no counter."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
     nt = _check_side(t, N, C, device, "track")
     nd = _check_side(d, N, C, device, "det")
+    how = plan(N, C, nhead, pos=parts == 5)
     lib = (library or _lib.LIBRARY).get()
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    status = lib.pcr_match_pooled_layout(N, C, nhead, ctypes.byref(smem),
-                                         ctypes.byref(limit))
-    if status == 1:
+    layout = (lib.pcr_match_pooled_layout if how.tier == CLUSTER
+              else lib.pcr_match_rows_layout)
+    status = layout(N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
+    if status:          # a build whose layout differs from the plan's
         raise ValueError(
-            f"N={N}, C={C}, nhead={nhead}: the kernel's tensor-core tiles "
-            "take C in (16, 64), a multiple of nhead, and N >= 1")
-    if status:
-        raise ValueError(
-            f"{N} rows x {C} channels need {smem.value} bytes of shared "
-            f"memory a block, more than the {limit.value} the kernel may "
-            "take")
+            f"{TIER_NAMES[how.tier]} tier, N={N}, C={C}, nhead={nhead}: the "
+            f"kernel's layout check says {status} ({smem.value} bytes of "
+            f"{limit.value})")
     ws = {"w1": w1, "w2": w2}
     weights = [ws[g][k] for g, k in _WEIGHT_ORDER]
     for (g, k), x in zip(_WEIGHT_ORDER, weights):
@@ -271,14 +346,24 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         idx_ptrs = [t_idx.data_ptr(), d_idx.data_ptr()]
     if P == 0:
         return out
-    entry = "pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image"
-    err = getattr(lib, entry)(
-        *[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
-        *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr(),
-        nt, nd, P, N, C, nhead, _lib.stream_ptr(device))
+    ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
+            *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
+    if how.tier == CLUSTER:
+        entry = "pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image"
+        err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead,
+                                  _lib.stream_ptr(device))
+    else:
+        entry = "pcr_match_rows"
+        blocks = rows_blocks(P, smem.value, device)
+        Np = -(-N // 16) * 16
+        scratch = torch.empty((blocks, 2, Np, C), dtype=torch.float32,
+                              device=device)
+        err = lib.pcr_match_rows(*ptrs, scratch.data_ptr(), nt, nd, P, N, C,
+                                 nhead, blocks, _lib.stream_ptr(device))
     _lib.check(err, entry)
     if counter is not None:
         counter.launches += 1
+        counter.tier_launches[TIER_NAMES[how.tier]] += 1
     return out
 
 
@@ -345,10 +430,11 @@ def fused_image_match_pairs(t: Side, d: Side, w1, w2, nhead: int,
                   d_idx)
 
 
-fused_match_grid.launches = 0
-fused_match_pairs.launches = 0
-fused_image_match_grid.launches = 0
-fused_image_match_pairs.launches = 0
+for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
+            fused_image_match_pairs):
+    _fn.launches = 0
+    # launches by tier, beside the total
+    _fn.tier_launches = dict.fromkeys(TIER_NAMES, 0)
 
 
 # ---- model-level scorers ---------------------------------------------------------

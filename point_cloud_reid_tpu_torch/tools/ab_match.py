@@ -1,21 +1,28 @@
-"""A/B timing of versions of the match kernel (csrc/match_grid.cu) in one
-process on one card.
+"""A/B timing of versions of the match kernel (csrc/match_grid.cu, or
+csrc/match_rows.cu for the rows tier) in one process on one card.
 
 Each SOURCE is a copy of csrc/match_grid.cu with the same C entry points
 (`pcr_match_pooled`, `pcr_match_pooled_image`, `pcr_match_pooled_layout`),
-for example the parent commit's file unpacked from `git archive`. Each is
+for example the parent commit's file unpacked from `git archive`; with
+--C / --N at a shape that kernels/match_grid.plan gives the rows tier, a
+copy of csrc/match_rows.cu (`pcr_match_rows`, `pcr_match_rows_layout`).
+Each is
 built as a kernels/_lib.Library of its own (all built together) and
 launched through kernels/match_grid.launch, the wrappers' checked launch
 path; then every version scores the same seeded inputs at the main paths'
 shapes: the point grid 128 x 128 (N=128, C=64, 2 heads), the
-image grid 128 x 64 (S=197), and 512-pair lists of both. Versions are timed
+image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
+--N N instead the point head alone at that width and row count, a --grid x
+--grid grid and a 512-pair list (the 7M model's dense frame: --C 128 --N
+128; a 2048-point ablation served at its crop size: --C 64 --N 2048 --grid
+16). Versions are timed
 in turns (first to last, then last to first, `--rounds` times) with CUDA
 events, and each output is compared with the first version's and with the
 plain version. Prints one JSON line per version with the card's name and
 power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
-        [--rounds 2] [--iters 5]
+        [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
 
 Needs a CUDA device and nvcc. Float32, TF32 off.
 """
@@ -89,7 +96,15 @@ def main(argv=None):
     ap.add_argument("sources", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--C", type=int, default=None,
+                    help="channels of a point-head shape (with --N)")
+    ap.add_argument("--N", type=int, default=None,
+                    help="rows a side of a point-head shape (with --C)")
+    ap.add_argument("--grid", type=int, default=128,
+                    help="tracks and detections of that shape's grid")
     args = ap.parse_args(argv)
+    if (args.C is None) != (args.N is None):
+        raise SystemExit("ab_match: give --C and --N together")
     if not torch.cuda.is_available():
         raise SystemExit("ab_match needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,16 +113,18 @@ def main(argv=None):
     libs = build(args.sources)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {}
-    for label, head, nt, nd, n_rows in (("point_grid_128x128", "point", 128,
-                                         128, 128),
-                                        ("image_grid_128x64", "image", 128,
-                                         64, 197)):
-        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows)
+    shapes = ((("point_grid_128x128", "point", 128, 128, 128, 64),
+               ("image_grid_128x64", "image", 128, 64, 197, 64))
+              if args.C is None else
+              ((f"point_C{args.C}_N{args.N}_grid_{args.grid}x{args.grid}",
+                "point", args.grid, args.grid, args.N, args.C),))
+    for label, head, nt, nd, n_rows, C in shapes:
+        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C)
         ti = torch.randint(0, nt, (512,), generator=gen, device="cuda",
                            dtype=torch.int32)
         di = torch.randint(0, nd, (512,), generator=gen, device="cuda",
                            dtype=torch.int32)
-        pairs = label.split("_")[0] + "_pairs_512"
+        pairs = label.split("_grid")[0] + "_pairs_512"
         cases[label] = (t, d, w1, w2, nhead, None, None)
         cases[pairs] = (t, d, w1, w2, nhead, ti, di)
     errs = [{} for _ in libs]

@@ -15,7 +15,11 @@ kNN at the flagship's three SA stages on 512 crops (S, N, k = 128, 128, 32
 seeded clouds, timed on the random ones; attention at the cross stages'
 (B, L, S, H, D, V) = (256, 128, 128, 2, 32, 32), q and k / v views of
 fused projections as the model hands them over, three input sets (more
-than the 50 MB L2) in rotation. Versions are timed in turns (first to last,
+than the 50 MB L2) in rotation. `--N` sets the crop size (SA1's kNN over N
+points, attention at L = S = N: a point-count ablation's shapes; kNN
+versions from before the tiers take N <= 128 only) and `--C` the cross
+stages' width (D = V = C / 2: --C 128 for the 1.5M and 7M models).
+Versions are timed in turns (first to last,
 then last to first, `--rounds` times), as chip_smoke.py times them
 (tools/timing): `median_ms` by CUDA events around `--iters` calls made one
 after another from Python, which the host can pace, and `device_ms` by a
@@ -27,7 +31,7 @@ the card's name and power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.ab_train_kernels
         [--knn SOURCE ...] [--attention SOURCE ...] [--rounds 5]
-        [--iters 20]
+        [--iters 20] [--N 128] [--C 64]
 
 Needs a CUDA device and nvcc. Float32, TF32 off.
 """
@@ -52,21 +56,23 @@ KNN_KINDS = ("exact", "duplicates", "random")
 KNN_TIE = 1e-6         # a swap needs plain distances this close (relative)
 
 
-def knn_stages():
-    """(S, N, k) of the flagship's three SA stages: S centres among the
-    previous stage's points (128 for SA1), k neighbours."""
+def knn_stages(crop: int = 128):
+    """(S, N, k) of the flagship's three SA stages on crops of `crop`
+    points: S centres among the previous stage's points (the crop's for
+    SA1), k neighbours."""
     from ..configs import point_transformer_point_cat
     cfg = point_transformer_point_cat()
     centres = cfg["backbone_list"]
-    points = [128] + centres[:-1]
+    points = [crop] + centres[:-1]
     return list(zip(centres, points, cfg["backbone"]["nsample"]))
 
 
-def knn_inputs(B: int = 512, seed: int = 0, device="cuda") -> list:
+def knn_inputs(B: int = 512, seed: int = 0, device="cuda",
+               crop: int = 128) -> list:
     """Per SA stage (S, N, k, {kind: (queries, points)}): the first S points
     of each seeded cloud are its queries."""
     out = []
-    for i, (S, N, k) in enumerate(knn_stages()):
+    for i, (S, N, k) in enumerate(knn_stages(crop)):
         clouds = {}
         for kind in KNN_KINDS:
             xyz = torch.from_numpy(knn_cloud(kind, B, N, seed + i)).to(device)
@@ -124,10 +130,11 @@ def knn_check(got, q, xyz, k) -> tuple:
     return int(bad.sum()), int(far.sum()), float(gap.max())
 
 
-def run_knn(sources, rounds: int, iters: int, card: str) -> None:
+def run_knn(sources, rounds: int, iters: int, card: str,
+            crop: int = 128) -> None:
     libs = build(sources)
     calls = [knn_call(lib) for lib in libs]
-    stages = knn_inputs()
+    stages = knn_inputs(crop=crop)
     checks = []
     for call in calls:
         res = {}
@@ -168,9 +175,11 @@ def run_knn(sources, rounds: int, iters: int, card: str) -> None:
             flush=True)
 
 
-def run_attention(sources, rounds: int, iters: int, card: str) -> None:
+def run_attention(sources, rounds: int, iters: int, card: str,
+                  rows: int = 128, width: int = 64) -> None:
     libs = build(sources)
-    sets = attention_inputs()
+    shape = dict(B=256, L=rows, S=rows, H=2, D=width // 2, V=width // 2)
+    sets = attention_inputs(**shape)
     errs = []
     for lib in libs:
         err = 0.0
@@ -195,7 +204,7 @@ def run_attention(sources, rounds: int, iters: int, card: str) -> None:
     for i, src in enumerate(sources):
         print(json.dumps(dict(
             kernel="linear_attention", source=src, card=card,
-            shape=dict(B=256, L=128, S=128, H=2, D=32, V=32),
+            shape=shape,
             median_ms=statistics.median(times[i]), all_ms=times[i],
             device_ms=statistics.median(device[i]), device_all_ms=device[i],
             rel_err=errs[i])), flush=True)
@@ -207,6 +216,10 @@ def main(argv=None):
     ap.add_argument("--attention", nargs="*", default=[])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--N", type=int, default=128,
+                    help="points a crop (SA1's kNN, attention's rows)")
+    ap.add_argument("--C", type=int, default=64,
+                    help="the cross stages' width (attention D = V = C / 2)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_train_kernels needs a CUDA device")
@@ -216,9 +229,10 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
     if args.knn:
-        run_knn(args.knn, args.rounds, args.iters, card)
+        run_knn(args.knn, args.rounds, args.iters, card, args.N)
     if args.attention:
-        run_attention(args.attention, args.rounds, args.iters, card)
+        run_attention(args.attention, args.rounds, args.iters, card, args.N,
+                      args.C)
 
 
 if __name__ == "__main__":

@@ -21,10 +21,11 @@ the CPU (every kernel's plain version; the tests). Float32, TF32 off.
 Checkpoints are the port's ckpt_{tag}.pt (Trainer.save_checkpoint), which
 --checkpoint, --resume and tools/test.py read; not orbax directories.
 
-Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 6), --remat (item
-7 leaves rematerialisation out) and --profile (tools/profile_train.py
-profiles a train step). Training an image (rgb_*) leaf raises: image
-training is item 5; tools/test.py evaluates one.
+Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 3), --remat (item
+5 ports it only if a leaf's peak exceeds the card, which none does) and
+--profile (tools/profile_train.py profiles a train step). Training an image
+(rgb_*) leaf raises: image training is item 2; tools/test.py evaluates
+one.
 """
 from __future__ import annotations
 
@@ -158,7 +159,7 @@ def main(argv=None):
     if train and is_image(cfg):
         raise NotImplementedError(
             "training an image (rgb_*) leaf is not ported (ROADMAP.md §1 "
-            "item 5); tools/test.py evaluates one")
+            "item 2); tools/test.py evaluates one")
     device = select_device(args.device, "tools.train")
     trainer, state = build_all(cfg, args, device)
     trainer.logger.log_config(dict(experiment=args.experiment, seed=args.seed,

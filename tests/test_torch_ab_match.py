@@ -34,3 +34,10 @@ def test_main_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_grid.cu"])
+
+
+def test_main_wants_width_and_rows_together(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="--C and --N together"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu",
+                       "--C", "128"])

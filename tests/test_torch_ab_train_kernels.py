@@ -79,3 +79,13 @@ def test_tools_share_the_timing_helpers_and_clouds():
     assert ab_sa.time_ms is timing.time_ms
     assert ab.time_ms is timing.time_ms and ab.graph_ms is timing.graph_ms
     assert ab.knn_cloud is scenes.knn_cloud
+
+
+def test_knn_stages_take_the_crop_size():
+    """--N sets SA1's cloud (a point-count ablation's crops); SA2 and SA3
+    search the fixed centres as before."""
+    assert ab.knn_stages(2048) == [(128, 2048, 32), (64, 128, 48),
+                                   (32, 64, 48)]
+    S, N, k, clouds = ab.knn_inputs(2, device="cpu", crop=300)[0]
+    assert (S, N, k) == (128, 300, 32)
+    assert clouds["random"][1].shape == (2, 300, 3)

@@ -225,7 +225,7 @@ def test_image_leaf_evaluates_and_does_not_train(tmp_path):
     make_synthetic_data.main([root, "--objects", "12", "--frames", "4",
                               "--images", "--seed", "4"])
     leaf = IMAGE_LEAF.replace("testing_", "")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 2"):
         train_cli.main([leaf, *_cli_args(root, IMAGE_SET)])
     tmodel = build_model(copy.deepcopy(IMAGE_CFG),
                          generator=torch.Generator().manual_seed(1))

@@ -55,6 +55,10 @@ def _sa_args(cuda, B, N, S, K, C):
     (3, 50, 25, 20, 96),            # odd S, K = 20 does not divide M; 12
                                     # column chunks over 8 warps
     (2, 16, 9, 7, 32),              # two row groups of 4 warps
+    (4, 2048, 128, 32, 128),        # SA1 of a 2048-point ablation's crops
+    (4, 128, 128, 32, 256),         # the 7M model's (mul = 8) SA1, SA2, SA3
+    (4, 128, 64, 48, 512),
+    (4, 64, 32, 48, 1024),
 ])
 def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
@@ -127,6 +131,60 @@ def test_match_kernels_at_the_flagship_width(cuda):
     assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
 
 
+# the rows tier: past the cluster tier's 224 rows at C = 64 (the ablations
+# served at their crop size), and C = 128 (the 1.5M and 7M models) from one
+# row to the 197 of a ragged last slab; C = 16 past its cluster layout
+@pytest.mark.parametrize("N,C,nhead", [(225, 64, 2), (256, 64, 2),
+                                       (512, 64, 2), (2048, 64, 2),
+                                       (1, 128, 2), (100, 128, 2),
+                                       (128, 128, 2), (197, 128, 2),
+                                       (128, 128, 8), (2600, 16, 2)])
+def test_match_rows_tier_matches_plain(cuda, N, C, nhead):
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt, nd = 3, 4
+    t, d, w1, w2, _ = inputs("point", nt, nd, N, C, nhead, device=cuda)
+    assert mg.plan(N, C, nhead).tier == mg.ROWS
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    before = (mg.fused_match_grid.launches,
+              mg.fused_match_grid.tier_launches["rows"])
+    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
+    assert (mg.fused_match_grid.launches,
+            mg.fused_match_grid.tier_launches["rows"]) == (before[0] + 1,
+                                                           before[1] + 1)
+    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                           ).reshape(nt, nd, -1))
+    t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32, device=cuda)
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    # one per-pair code in both modes, whatever block scores a pair
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    with pytest.raises(IndexError, match="out of range"):
+        mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
+
+
+def test_match_rows_tier_walks_more_pairs_than_blocks(cuda):
+    """More pairs than the card's blocks at once: each block scores pairs
+    in turn in its own slot of the scratch."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt = nd = 40
+    t, d, w1, w2, nhead = inputs("point", nt, nd, 240, 64, device=cuda)
+    how = mg.plan(240, 64, nhead)
+    assert how.tier == mg.ROWS and mg.rows_blocks(nt * nd, how.smem,
+                                                  cuda) < nt * nd
+    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
+    t_idx = torch.arange(nt, device=cuda, dtype=torch.int32).flip(0)
+    d_idx = torch.arange(nd, device=cuda, dtype=torch.int32)
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    sel = torch.tensor([0, 617, 1599], device=cuda)
+    ti, di = sel // nd, sel % nd
+    _close(grid.reshape(nt * nd, -1)[sel],
+           mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di))
+
+
 def _image_factors(cuda, nt, nd, S, C=16, nhead=2, seed=0):
     """Image-head factors and weights from seeded random token features and
     two seeded CrossLinAttn stages."""
@@ -164,10 +222,13 @@ def test_image_match_kernels_match_plain(cuda, S, C):
 
 def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
     """260 tokens x 64 channels need 242,688 bytes of shared memory a block
-    (weights 8 C^2 + 272 padded rows of O at C + 4 + the peer's [KV | Z]
-    2 C^2 + pooling 1,216 floats), more than the 232,448 a block may take:
-    the wrapper raises and nothing is launched; so does the C entry point
-    when it is called past the wrapper's own check."""
+    in the cluster tier (weights 8 C^2 + 272 padded rows of O at C + 4 + the
+    peer's [KV | Z] 2 C^2 + pooling 1,216 floats), more than the 232,448 a
+    block may take. The point head scores such shapes in the rows tier,
+    whose layout does not grow with N; the image head has no rows tier: its
+    wrapper raises and nothing is launched, and so does the C entry point
+    when it is called past the wrapper's own check. The plan's bytes are
+    the layout checks' own."""
     import ctypes
 
     from point_cloud_reid_tpu_torch.kernels import _lib
@@ -182,6 +243,16 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
         assert lib.pcr_match_pooled_layout(
             N, C, 2, ctypes.byref(need), ctypes.byref(limit)) == status
         assert (need.value, limit.value) == (want, 232448)
+        assert mg.cluster_bytes(N, C) == want
+    for (N, C, H), status in {(225, 64, 2): 0, (2048, 16, 2): 0,
+                              (1, 128, 2): 0, (128, 128, 8): 0,
+                              (128, 128, 16): 1, (128, 32, 2): 1,
+                              (128, 128, 3): 1, (0, 64, 2): 1}.items():
+        assert lib.pcr_match_rows_layout(
+            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == status
+        if status == 0:
+            assert need.value == mg.rows_bytes(C)
+    assert mg.plan(225, 64, 2) == mg.Plan(mg.ROWS, mg.rows_bytes(64))
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 260, 64)
     before = mg.fused_image_match_grid.launches
     with pytest.raises(ValueError, match="shared memory"):
@@ -271,6 +342,56 @@ def test_knn_kernel_all_points_identical(cuda, N, k):
     want = torch.arange(k, device=cuda).expand(3, 5, k)
     assert torch.equal(kk.knn(q, xyz, k), want)
     assert torch.equal(kk.knn(xyz[:, :4], xyz, k), want[:, :4])
+
+
+def _knn_tier_edges():
+    """(N, k) on both sides of each tier edge that kernels/knn.plan sets."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    top = kk.MAX_SMEM // kk.POINT_BYTES
+    return [(kk.REG_MAX_N, 32), (kk.REG_MAX_N + 1, 32), (top, 32),
+            (top + 1, 32)]
+
+
+# past the register tier: the ablations' crop sizes, k = 32 and 48 (the SA
+# stages'), k = N, a cloud past the shared tier, and the tier edges
+@pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
+@pytest.mark.parametrize("B,N,k", [(4, 129, 32), (4, 160, 48), (4, 256, 32),
+                                   (4, 256, 256), (8, 2048, 32),
+                                   (8, 2048, 48), (2, 2048, 2048),
+                                   (2, 20000, 32), (3, 1000, 1)]
+                         + [(2, n, k) for n, k in _knn_tier_edges()])
+def test_knn_kernel_matches_plain_at_any_cloud_size(cuda, kind, B, N, k):
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud
+    xyz = torch.from_numpy(knn_cloud(kind, B, N, N + k)).to(cuda)
+    q = xyz[:, :min(N, 128)].contiguous()
+    before = kk.knn.launches, dict(kk.knn.tier_launches)
+    got = kk.knn(q, xyz, k)
+    tier = kk.TIER_NAMES[kk.plan(N, k).tier]
+    assert kk.knn.launches == before[0] + 1
+    assert kk.knn.tier_launches[tier] == before[1][tier] + 1
+    want = kk.knn_reference(q, xyz, k)
+    assert got.dtype == torch.int64 and got.shape == want.shape
+    if kind != "random":
+        assert torch.equal(got, want)
+        return
+    d = kk.square_distance(q, xyz)
+    dg, dw = d.gather(-1, got), d.gather(-1, want)
+    bad = got != want
+    assert ((dg - dw).abs()[bad] <= 1e-6 * dw.abs()[bad].clamp(min=1.0)).all()
+
+
+@pytest.mark.parametrize("kind", ["exact", "duplicates"])
+@pytest.mark.parametrize("tier", [0, 1, 2])
+def test_knn_every_tier_equal_plain(cuda, kind, tier):
+    """Each tier forced at a cloud that every tier takes gives the plain
+    version's indices."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud
+    xyz = torch.from_numpy(knn_cloud(kind, 3, 100, tier)).to(cuda)
+    q = xyz[:, :37].contiguous()
+    got = kk.launch(q, xyz, 40, kk.plan(100, 40, tier))
+    assert torch.equal(got, kk.knn_reference(q, xyz, 40))
 
 
 def _f32(x):
@@ -442,9 +563,10 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
         kk.knn(x, x, 9)
     with pytest.raises(ValueError):
         kk.knn(x.double(), x.double(), 4)
-    big = torch.zeros((1, 129, 3), device=cuda)
-    with pytest.raises(ValueError, match="N <= 128"):
-        kk.knn(big, big, 4)
+    with pytest.raises(ValueError):
+        kk.knn(x[..., :2], x, 4)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kk.launch(x, x, 4, kk.Plan(kk.REG, 3, 8, 8 * 16))
     q = torch.zeros((2, 8, 2, 4), device=cuda)
     with pytest.raises(ValueError):
         la.linear_attention_forward(q, q[:, :, :1], q)

@@ -103,22 +103,24 @@ def test_load_weights_reads_trainer_and_bare_checkpoints(tmp_path):
         assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-def _jax_cli(scene_dir, model, monkeypatch):
+def _jax_cli(scene_dir, model, monkeypatch, jax_cfg=None, subsample=N_PTS):
     """What the JAX CLI would write for these scenes if its nms_bev call
     passed max_out (tests/test_torch_boxes.py): the JAX manager with the
-    port's weights, frame by frame. Returns (tracks.jsonl rows, summary)."""
+    port's weights (a JAX model of the config `jax_cfg`, by default the
+    tiny flagship), frame by frame, crops of `subsample` points. Returns
+    (tracks.jsonl rows, summary)."""
     monkeypatch.setattr(
         jax_manager, "nms_bev",
         lambda b, s, t: jax_nms_bev(b, s, t, max_out=b.shape[0]))
-    from point_cloud_reid_tpu.configs.models import (
-        point_transformer_point_cat as jax_cfg)
+    from point_cloud_reid_tpu.configs.models import point_transformer_point_cat
     from point_cloud_reid_tpu.models import build_model as jax_build
     import jax
     jvars = jax.tree_util.tree_map(jnp.asarray, to_jax_variables(model))
     rec = JaxRecorder()
     mgr = jax_manager.TrackingManager(
-        JaxScorer(jax_build(jax_cfg(**TINY)), jvars),
-        subsample_number=N_PTS, match_threshold=1.0, method="hungarian",
+        JaxScorer(jax_build(jax_cfg or point_transformer_point_cat(**TINY)),
+                  jvars),
+        subsample_number=subsample, match_threshold=1.0, method="hungarian",
         nms_threshold=0.5, seed=0, eval_recorder=rec, sparse_scoring="auto")
     rows = []
     for name in sorted(os.listdir(scene_dir)):
