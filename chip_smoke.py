@@ -85,13 +85,25 @@ Phases, each of which raises on failure:
      largest pair count up to 256 that fits, 3 kNN and 4 attention
      launches a step, step 1 against the knobs off to TRAIN_TOL, step ms
      and peak memory.
+ 10. bf16 serving: the flagship and the DeiT-tiny leaf built at a bf16
+     compute dtype from the same seeded float32 weights; the bf16 kernels
+     (csrc/sa_stage_bf16.cu, csrc/match_grid_bf16.cu) against their bf16
+     plain versions to BF16_TOL at the serving shapes (SA1-3 at B=128, the
+     128 x 128 grid, 512 pairs, the image grid 128 x 64 at S=197, 512
+     image pairs; pairs equal to their grid cells bit for bit) and the
+     rows tier's refusal at bf16; then, with every count at 0, the point
+     scene dense and sparse and the image scene dense and sparse through
+     TrackingManager at bf16, step ms, the bf16 kernels launched, and each
+     scene's last frame against the float32 port on the same crops
+     (BF16_LOGIT_TOL).
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
 peaks: 67 TFLOP/s for float32 outside the tensor cores; for the SA and
 match kernels, whose products run on the tensor cores in three TF32 passes,
 their operations x 3 over 495 TFLOP/s (their rows keep the float32
-CUDA-core bound of earlier versions as `simt_fp32_bound_ms`). Rows named
+CUDA-core bound of earlier versions as `simt_fp32_bound_ms`); the bf16
+kernels' rows (`kernel/bf16`), one pass over 989 TFLOP/s. Rows named
 `kernel/tier` are a kernel's tiers past its first shapes, with launches of
 those tiers alone; a row's `shapes` lists its measurements at further
 shapes. The line before the last is a JSON summary of the kernels and of
@@ -166,6 +178,19 @@ PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12   # H100 SXM, HBM3
 # the SA and match kernels run each product in three TF32 passes (3xTF32)
 TF32_PASSES = 3
+# phase 10, bf16 serving: the bf16 kernels against their bf16 plain versions
+# (the same bf16-rounded operands, float32 accumulation: only the summation
+# order differs, and a value next to a rounding boundary may round one ulp
+# apart), relative to max(1, |plain|). One bf16 ulp is at most 2^-7 = 7.8e-3
+# of that; the card read 3.9e-3 to 7.2e-3 at the serving shapes (first set
+# at 2e-2, two ulps at order-1 values)
+BF16_TOL = 1e-2
+# a bf16 frame's logits against the float32 port's on the same crops,
+# relative to max(1, |logit|): on the CPU at the flagship's width JAX's bf16
+# logits lie 0.030 from its float32 ones and its two bf16 routes 0.043 apart
+BF16_LOGIT_TOL = 6e-2
+PEAK_BF16 = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+BF16_STEP_MS = {}
 # phase 9, the rest of the flagship family: the 2048-point ablation and the
 # 7M model (C = 128, mul 8), each trained FAMILY_STEPS steps and served
 ABLATION = "pts_point-transformer_point-cat_waymo_det_4x256_400e_2048pts"
@@ -599,6 +624,24 @@ def check_frame(model, rec, label: str):
         raise RuntimeError(f"frame check failed in scene '{label}'")
 
 
+class Bf16Count:
+    """The bf16 kernel's launches of a wrapper (its `bf16_launches`), read
+    and zeroed as a wrapper's `launches` are."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.bf16_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("a bf16 count is only ever reset to 0")
+        self.fn.bf16_launches = 0
+
+
 class TierCount:
     """The launches of some of a wrapper's tiers (its `tier_launches`), read
     and zeroed as a wrapper's `launches` are."""
@@ -638,7 +681,11 @@ def all_counters() -> dict:
                    "fused_match_grid/rows": TierCount(mg.fused_match_grid,
                                                       ("rows",)),
                    "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
-                                                       ("rows",))})
+                                                       ("rows",))},
+                **{f"{fn.__name__}/bf16": Bf16Count(fn) for fn in (
+                    sa.fused_sa_convmax, mg.fused_match_grid,
+                    mg.fused_match_pairs, mg.fused_image_match_grid,
+                    mg.fused_image_match_pairs)})
 
 
 def zero_counters() -> dict:
@@ -2082,6 +2129,274 @@ def phase_family(card: str):
     return rows, extra, launches, summary
 
 
+def bf16_bound(flops: float, nbyte: float) -> tuple:
+    """(bound ms, what bounds it) of a bf16 kernel: its products in one
+    bf16 pass on the tensor cores, or its bytes."""
+    return bound_ms(flops, nbyte, PEAK_BF16)
+
+
+def bf16_row(name: str, source: str, replaces: str, got, want, ms: float,
+             plain_ms: float, bound: tuple, label: str) -> dict:
+    """Check a bf16 kernel's output against its bf16 plain version to
+    BF16_TOL, print the measurements and return the kernels-line row."""
+    err, rel = rel_err(got.float(), want.float())
+    print(f"[bf16] {label}: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{BF16_TOL:g}) kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}, one bf16 pass)", flush=True)
+    if not (got.dtype == want.dtype and rel <= BF16_TOL):
+        raise RuntimeError(f"{name} disagrees with its bf16 plain version: "
+                           f"rel {rel}, {got.dtype} vs {want.dtype}")
+    return dict(name=name, route="cuda",
+                source=f"point_cloud_reid_tpu_torch/csrc/{source}",
+                replaces=f"point_cloud_reid_tpu/ops/pallas/{replaces}",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=None)
+
+
+def bf16_match_rows(model, t, d, w1, w2, nhead, head: str, gen) -> list:
+    """The bf16 match kernel's grid and a 512-pair list on `model`'s
+    factors against the plain version; pairs equal to their grid cells bit
+    for bit."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    grid_fn, pairs_fn = ((mg.fused_match_grid, mg.fused_match_pairs)
+                         if head == "point" else
+                         (mg.fused_image_match_grid,
+                          mg.fused_image_match_pairs))
+    nt, nd = t[0].shape[0], d[0].shape[0]
+    S, C = t[0].shape[1], t[0].shape[2]
+    weights = list(w1.values()) + list(w2.values())
+    ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+    di = torch.arange(nd, device=DEVICE).repeat(nt)
+    grid = grid_fn(t, d, w1, w2, nhead)
+    want = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                     ).reshape(nt, nd, -1)
+    torch.cuda.synchronize()
+    g_ms = time_ms(lambda: grid_fn(t, d, w1, w2, nhead), 5)
+    g_plain = time_ms(lambda: mg.match_pooled_reference(
+        t, d, w1, w2, nhead, ti, di), 2, warmup=1)
+    flops = 80.0 * S * C * C
+    rows = [bf16_row(
+        f"{grid_fn.__name__}/bf16", "match_grid_bf16.cu",
+        "match_grid.py:" + ("250" if head == "point" else "686"), grid, want,
+        g_ms, g_plain, bf16_bound(flops * nt * nd,
+                                  nbytes(*t, *d, *weights, grid)),
+        f"{head} grid {nt}x{nd} N={S} C={C}")]
+    P = 512
+    t_idx = torch.randint(0, nt, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    d_idx = torch.randint(0, nd, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    pairs = pairs_fn(t, d, w1, w2, nhead, t_idx, d_idx)
+    want = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
+    torch.cuda.synchronize()
+    if not torch.equal(pairs, grid[t_idx.long(), d_idx.long()]):
+        raise RuntimeError(f"{pairs_fn.__name__} at bf16: pairs differ from "
+                           "their grid cells")
+    p_ms = time_ms(lambda: pairs_fn(t, d, w1, w2, nhead, t_idx, d_idx), 10)
+    p_plain = time_ms(lambda: mg.match_pooled_reference(
+        t, d, w1, w2, nhead, t_idx, d_idx), 3)
+    rows.append(bf16_row(
+        f"{pairs_fn.__name__}/bf16", "match_grid_bf16.cu",
+        "match_grid.py:" + ("355" if head == "point" else "514"), pairs,
+        want, p_ms, p_plain,
+        bf16_bound(flops * P, nbytes(*t, *d, *weights, t_idx, d_idx, pairs)),
+        f"{head} pairs P={P} (equal to their grid cells bit for bit)"))
+    return rows
+
+
+def phase_bf16_kernels(model, image):
+    """The bf16 kernels at the serving shapes against their bf16 plain
+    versions (kernels line rows `kernel/bf16`), and the rows tier's
+    NotImplementedError at bf16."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    crops = torch.randn((128, 128, 3), generator=gen, device=DEVICE) * 0.6
+    # SA1-3 at B=128 crops, each stage's input the previous stage's output
+    xyz, points = crops, None
+    ms = plain = flops = nbyte = 0.0
+    got_all, want_all = [], []
+    with torch.no_grad():
+        for i, (mod, S) in enumerate(zip(model.backbone.SA_modules,
+                                         model.backbone_list)):
+            cidx = torch.arange(S, device=DEVICE).clamp(max=xyz.shape[1] - 1)
+            idx = knn_indices(mod.nsample, xyz, xyz[:, cidx])
+            args = sa.sa_stage_args(
+                xyz, points, idx, [(c.weight, c.bias) for c in mod.mlp_convs],
+                [(b.weight, b.bias, b.running_mean, b.running_var)
+                 for b in mod.mlp_bns], mod.mlp_bns[0].eps, torch.bfloat16)
+            got = sa.fused_sa_convmax(*args)
+            want = sa.sa_convmax_reference(*args)
+            torch.cuda.synchronize()
+            got_all.append(got.flatten())
+            want_all.append(want.flatten())
+            k_ms = time_ms(lambda: sa.fused_sa_convmax(*args), 10)
+            p_ms = time_ms(lambda: sa.sa_convmax_reference(*args), 5)
+            B, N, C = args[0].shape
+            f = 4.0 * B * S * mod.nsample * C * C
+            b_ms, b_by = bf16_bound(f, nbytes(*args, got))
+            print(f"[bf16] SA{i + 1} B={B} N={N} S={S} K={mod.nsample} "
+                  f"C={C}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+            ms, plain = ms + k_ms, plain + p_ms
+            flops, nbyte = flops + f, nbyte + nbytes(*args, got)
+            xyz, points = mod(xyz, points, S)
+    rows = [bf16_row("fused_sa_convmax/bf16", "sa_stage_bf16.cu",
+                     "sa_stage.py:78", torch.cat(got_all),
+                     torch.cat(want_all), ms, plain,
+                     bf16_bound(flops, nbyte), "SA1-3 at B=128 in all")]
+    # the point grid 128 x 128 and 512 pairs on the flagship's embeddings
+    with torch.no_grad():
+        xyz_t, h_t = model.embed(crops)
+        xyz_d, h_d = model.embed(torch.randn((128, 128, 3), generator=gen,
+                                             device=DEVICE) * 0.6)
+        factors = mg.match_factors(model, h_t, xyz_t, h_d, xyz_d)
+    rows += bf16_match_rows(model, *factors, "point", gen)
+    # the image grid 128 x 64 at S=197 and 512 pairs on the leaf's tokens
+    with torch.no_grad():
+        images = torch.rand((192, 3, 224, 224), generator=gen, device=DEVICE)
+        h = image.downsample_tokens(image.embed(images.to(torch.bfloat16)))
+        factors = mg.image_match_factors(image, h[:128].contiguous(),
+                                         h[128:].contiguous())
+    rows += bf16_match_rows(image, *factors, "image", gen)
+    # the rows tier has no bf16 form: a shape it would take raises
+    t, d, w1, w2, nhead = inputs("point", 2, 2, 128, 128, device=DEVICE,
+                                 dtype=torch.bfloat16)
+    n0 = mg.fused_match_grid.launches, mg.fused_match_grid.bf16_launches
+    try:
+        mg.fused_match_grid(t, d, w1, w2, nhead)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError("a C = 128 grid at bf16 did not raise")
+    if (mg.fused_match_grid.launches,
+            mg.fused_match_grid.bf16_launches) != n0:
+        raise RuntimeError("the refused bf16 shape launched a kernel")
+    print(f"[bf16] rows-tier shape at bf16 raises NotImplementedError: "
+          f"{refusal}", flush=True)
+    return rows
+
+
+def bf16_point_gap(model32, rec, label: str) -> float:
+    """A bf16 point frame's logits against the float32 port's on the same
+    crops (a frame's xyz are its crops)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    with torch.no_grad():
+        xyz_t, h_t = model32.embed(rec["xyz_t"])
+        xyz_d, h_d = model32.embed(rec["xyz_d"])
+        if rec["pairs"] is None:
+            want = mg.grid_logits(model32, h_t, xyz_t, h_d, xyz_d)
+        else:
+            want = mg.pair_logits(model32, h_t, xyz_t, h_d, xyz_d,
+                                  *rec["pairs"])
+    return bf16_logit_gap(rec["logits"], want, label)
+
+
+def bf16_image_gap(image16, image32, frame, label: str) -> float:
+    """A frame's detections cropped once (float32), embedded by the bf16
+    and the float32 image models and scored against each other by the
+    image grid kernel of each dtype."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tracking.image_crops import (
+        crops_per_frame)
+    (images, l2cs, Ks), boxes = frame[0], frame[1]
+    with torch.no_grad():
+        crops, _ = crops_per_frame(
+            *[torch.from_numpy(np.asarray(x)).to(DEVICE)
+              for x in (images, l2cs, Ks, boxes)],
+            image_size=(images.shape[3], images.shape[2]))
+        h16 = image16.downsample_tokens(image16.embed(crops.to(
+            torch.bfloat16)))
+        h32 = image32.downsample_tokens(image32.embed(crops))
+        got = mg.image_grid_logits(image16, h16, h16)
+        want = mg.image_grid_logits(image32, h32, h32)
+    return bf16_logit_gap(got, want, label)
+
+
+def bf16_logit_gap(got, want, label: str) -> float:
+    import torch
+    if got.dtype != torch.bfloat16 or want.dtype != torch.float32:
+        raise RuntimeError(f"{label}: logits {got.dtype}, float32 port's "
+                           f"{want.dtype}")
+    err, rel = rel_err(got.float(), want)
+    print(f"[bf16:{label}] logits vs the float32 port on the same crops: "
+          f"max_abs_err={err:.4f} rel={rel:.4f} (bar {BF16_LOGIT_TOL}; "
+          f"|logits| up to {want.abs().max().item():.3f})", flush=True)
+    if not rel <= BF16_LOGIT_TOL:
+        raise RuntimeError(f"{label}: bf16 logits {rel} from float32")
+    return rel
+
+
+def phase_bf16(card: str):
+    """Phase 10: bf16 serving. Returns (kernels-line rows, the path's
+    launches, a summary)."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import (image_deit_point_cat,
+                                                    point_transformer_point_cat)
+    from point_cloud_reid_tpu_torch.models import build_model
+    t_phase = time.perf_counter()
+
+    def build(cfg, dtype):
+        return build_model(cfg, device=DEVICE, dtype=dtype,
+                           generator=torch.Generator().manual_seed(SEED))
+    point16 = build(point_transformer_point_cat(), torch.bfloat16)
+    image16 = build(image_deit_point_cat("deit-tiny-no-pt"), torch.bfloat16)
+    rows = phase_bf16_kernels(point16, image16)
+    print(f"[bf16] kernel checks took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # the four scenes with every count at 0; the comparisons after
+    every = zero_counters()
+    names = [n for n in every if n.endswith("/bf16")]
+    scenes = (("point dense", "never", ("fused_sa_convmax/bf16",
+                                        "fused_match_grid/bf16")),
+              ("point sparse", "auto", ("fused_sa_convmax/bf16",
+                                        "fused_match_pairs/bf16")),
+              ("image dense", "never", ("fused_image_match_grid/bf16",)),
+              ("image sparse", "always", ("fused_image_match_pairs/bf16",)))
+    runs, summary = {}, {}
+    for label, sparse, want in scenes:
+        before = {n: every[n].launches for n in names}
+        if label.startswith("point"):
+            ms, scorer, mgr = run_scene(point16, sparse)
+            frame = None
+        else:
+            ms, scorer, mgr, frame = run_image_scene(image16, sparse)
+        used = {n: every[n].launches - before[n] for n in names}
+        if not all(used[n] > 0 for n in want):
+            raise RuntimeError(f"bf16 {label}: launches {used}")
+        runs[label] = (scorer.last_frame, frame)
+        BF16_STEP_MS[label] = float(np.median(ms[3:]))
+        summary[label] = dict(median_step_ms=BF16_STEP_MS[label],
+                              launches={n: v for n, v in used.items() if v})
+        print(f"[bf16] {label}: {len(mgr.store.active())} active tracks, "
+              f"median steady-state step {BF16_STEP_MS[label]:.3f} ms "
+              f"(frames 4-10; all: {[round(x, 1) for x in ms]}) on {card}; "
+              f"bf16 launches {summary[label]['launches']}", flush=True)
+    launches = {name: fn.launches for name, fn in every.items()}
+    f32 = {k: v for k, v in launches.items() if v and not k.endswith("/bf16")}
+    if f32:
+        raise RuntimeError(f"the bf16 path launched float32 kernels {f32}")
+    point32 = build(point_transformer_point_cat(), torch.float32)
+    image32 = build(image_deit_point_cat("deit-tiny-no-pt"), torch.float32)
+    for label, (rec, frame) in runs.items():
+        summary[label]["logit_gap"] = (
+            bf16_point_gap(point32, rec, label) if frame is None
+            else bf16_image_gap(image16, image32, frame, label))
+    print(f"[bf16] path launches {launches}; float32 steps of phases 3 and 5:"
+          f" {STEP_MS}; phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rows, launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -2109,16 +2424,19 @@ def main():
     for row in rows:
         row["shapes"] = family_shapes.get(row["name"], [])
     rows += family_rows
+    torch.cuda.empty_cache()
+    bf16_rows, bf16_path, bf16_summary = phase_bf16(card)
+    rows += bf16_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path[row["name"]] for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path, family))
+            data_path, family, bf16_path))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
     print(json.dumps({"kernels": rows, "data_path": data_summary,
-                      "family": family_summary}))
+                      "family": family_summary, "bf16": bf16_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -37,17 +37,26 @@ from ..kernels.match_grid import (check_image_head, grid_logits,
                                   pair_logits)
 
 
-def _host(x) -> Optional[np.ndarray]:
+def host(x):
+    """A fetched copy in host memory: numpy, or a CPU tensor for bf16, which
+    numpy has no type for (the bits are kept: never through float32)."""
     if x is None:
         return None
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return x if x.dtype == torch.bfloat16 else x.numpy()
     return np.asarray(x)
 
 
+def host_logits(x: torch.Tensor) -> np.ndarray:
+    """float32 or bf16 logits as float64 numpy (an exact widening)."""
+    return x.detach().cpu().to(torch.float64).numpy()
+
+
 class FeatureCache:
-    """Per-track embedding cache in host memory: numpy rows keyed by track
-    id, written when a track is born or matched, stacked per frame."""
+    """Per-track embedding cache in host memory: rows keyed by track id,
+    written when a track is born or matched, stacked per frame. Rows are
+    numpy, or CPU tensors for a bf16 model's features (`host`)."""
 
     def __init__(self):
         self._h: Dict[int, np.ndarray] = {}
@@ -56,7 +65,7 @@ class FeatureCache:
     def update(self, track_ids, h, xyz=None) -> None:
         """h (n, N, C) and xyz (n, N, 3) or None, numpy or tensors (fetched
         once, not per row)."""
-        h, xyz = _host(h), _host(xyz)
+        h, xyz = host(h), host(xyz)
         for i, tid in enumerate(track_ids):
             self._h[int(tid)] = h[i]
             if xyz is not None:
@@ -64,7 +73,9 @@ class FeatureCache:
 
     def gather(self, track_ids):
         """(h (T, N, C), xyz (T, N, 3) or None when no xyz was stored)."""
-        h = np.stack([self._h[int(t)] for t in track_ids])
+        rows = [self._h[int(t)] for t in track_ids]
+        h = (torch.stack(rows) if isinstance(rows[0], torch.Tensor)
+             else np.stack(rows))
         xyz = (np.stack([self._xyz[int(t)] for t in track_ids])
                if self._xyz else None)
         return h, xyz
@@ -297,7 +308,7 @@ class PairScorer:
         h_t, xyz_t = cache.gather(track_ids)
         dev = self.device
         mat = self.cost_matrix(
-            torch.from_numpy(h_t).to(dev),
+            torch.as_tensor(h_t).to(dev),
             None if xyz_t is None else torch.from_numpy(xyz_t).to(dev),
             h_d, xyz_d, track_classes, det_classes)
         return mat, h_d, xyz_d
@@ -361,17 +372,17 @@ class PairScorer:
 
     # ---- image branch ---------------------------------------------------------
 
-    @staticmethod
-    def _device_crops(images, l2cams, intrins, boxes, image_size,
+    def _device_crops(self, images, l2cams, intrins, boxes, image_size,
                       output_size):
-        """Camera crops of a frame's boxes on the images' device. uint8
-        frames are taken as they are: the crops gather uint8 rows and
-        convert only the picked pixels."""
+        """Camera crops of a frame's boxes on the images' device, in the
+        model's compute dtype. uint8 frames are taken as they are: the crops
+        gather uint8 rows and convert only the picked pixels."""
         # tracking/ imports this module: import its crops at call time
         from ..tracking.image_crops import crops_per_frame
         crops, _ = crops_per_frame(images, l2cams, intrins, boxes,
                                    image_size=image_size,
-                                   output_size=output_size)
+                                   output_size=output_size,
+                                   dtype=self.model.dtype)
         return crops
 
     def _image_frame_inputs(self, h_buf, prev_h, upd_src, upd_dst, slot_idx,

@@ -35,6 +35,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, out, B, N, S, K, C, stream
     "pcr_sa_convmax": [_P] * 12 + [_I] * 5 + [_P],
+    # the same at bf16 (csrc/sa_stage_bf16.cu)
+    "pcr_sa_convmax_bf16": [_P] * 12 + [_I] * 5 + [_P],
     # 10 per-object factor pointers (track h,q,kvz,a1,pv then det), 16
     # weight pointers, t_idx, d_idx, out, nt, nd, P, N, C, H, stream
     "pcr_match_pooled": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 6 + [_P],
@@ -43,6 +45,12 @@ _SIGNATURES = {
                               + [_P],
     # N, C, H, out bytes, out limit
     "pcr_match_pooled_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    # the three at bf16 (csrc/match_grid_bf16.cu)
+    "pcr_match_pooled_bf16": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 6
+                             + [_P],
+    "pcr_match_pooled_image_bf16": [_P] * 8 + [_P] * 16 + [_P] * 3
+                                   + [_I] * 6 + [_P],
+    "pcr_match_pooled_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # the rows tier: the point head's pointers, then the scratch; nt, nd,
     # P, N, C, H, blocks, stream
     "pcr_match_rows": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],

@@ -70,11 +70,15 @@ def knn_reference(new_xyz: torch.Tensor, xyz: torch.Tensor, k: int
 
 @torch.no_grad()
 def knn(new_xyz: torch.Tensor, xyz: torch.Tensor, k: int) -> torch.Tensor:
-    """new_xyz (B, S, 3) queries, xyz (B, N, 3) database, both float32 ->
+    """new_xyz (B, S, 3) queries, xyz (B, N, 3) database ->
     (B, S, k) int64 indices into N, which the kernel writes itself. Any
-    N >= k; on the card one launch of plan(N, k)."""
+    N >= k; on the card one launch of plan(N, k). bf16 or float16 points
+    are cast to float32 first, as knn_pallas casts them (serving passes
+    float32 xyz at every compute dtype)."""
     if k > xyz.shape[1]:
         raise ValueError(f"knn: k={k} > N={xyz.shape[1]}")
+    if new_xyz.dtype in (torch.bfloat16, torch.float16):
+        new_xyz, xyz = new_xyz.float(), xyz.float()
     if new_xyz.device.type == "cpu":
         return knn_reference(new_xyz, xyz, k)
     if new_xyz.device.type != "cuda":

@@ -7,6 +7,9 @@ csrc/linear_attention.cu on CUDA tensors and runs the plain composite
 `fused_linear_attention` wraps it in an autograd Function whose backward
 recomputes through the plain composite on the saved q, k, v, as the JAX
 package's custom VJP does: there is no backward kernel in either package.
+bf16 or float16 inputs (a bf16 model's) are cast to float32 on the way in
+and the output back to their dtype, as linear_attention_pallas does: the
+kernel is float32 only.
 """
 from __future__ import annotations
 
@@ -94,5 +97,10 @@ def fused_linear_attention(queries: torch.Tensor, keys: torch.Tensor,
                            values: torch.Tensor, eps: float = 1e-6
                            ) -> torch.Tensor:
     """Drop-in for ops.attention.linear_attention (no masks), usable in
-    training."""
-    return _LinearAttention.apply(queries, keys, values, eps)
+    training; bf16 / float16 inputs run in float32, the output in their
+    dtype."""
+    dt = queries.dtype
+    if dt not in (torch.bfloat16, torch.float16):
+        return _LinearAttention.apply(queries, keys, values, eps)
+    return _LinearAttention.apply(queries.float(), keys.float(),
+                                  values.float(), eps).to(dt)

@@ -28,19 +28,36 @@ On CPU tensors the wrappers run `match_pooled_reference`, the plain version
 of the kernel; on CUDA tensors they launch the kernel; any other device
 raises. The 1/N value pre-scale and the xN message rescale of
 linear_attention cancel and are both dropped, as in the TPU kernel.
+
+Under a bf16 model the factors are computed in float32 from the bf16
+embeddings and cast to bf16, as JAX's grid_factors does; the weights stay
+float32 and every product of the chain multiplies bf16-rounded operands with
+float32 accumulation, the pooled output in bf16 (the TPU kernel's _make_dot).
+On CUDA that is csrc/match_grid_bf16.cu, the cluster tier only (C = 16 or
+64, up to 496 rows at C = 64: `plan(..., dtype=torch.bfloat16)`); a shape
+the float32 kernels send to the rows tier raises NotImplementedError at
+bf16 (ROADMAP_ROWS_BF16), it never falls back to float32. The wrapper hands
+the kernel bf16 copies of the weights made once (utils/cache.py). bf16
+launches count in each wrapper's `bf16_launches`, float32 ones in
+`launches` (and `tier_launches`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.cache import derived
 from . import _lib
+from .sa_stage import BF16, rounded_mm
 
 EPS = 1e-6
 LN_EPS = 1e-5
+ROADMAP_ROWS_BF16 = ("ROADMAP.md section 2, 'K4. Still to port: the rows "
+                     "tier (csrc/match_rows.cu) at bf16'")
 
 _WEIGHT_ORDER = (("w1", "merge"), ("w1", "ln1_scale"), ("w1", "ln1_bias"),
                  ("w1", "fc1"), ("w1", "fc2"), ("w1", "ln2_scale"),
@@ -58,14 +75,28 @@ def _elu1(x: torch.Tensor) -> torch.Tensor:
     return F.elu(x) + 1.0
 
 
+def _linear(m, x: torch.Tensor) -> torch.Tensor:
+    """A Linear in its weights' dtype whatever the model's compute dtype:
+    the factors' products are float32, as JAX's grid_factors multiplies
+    the raw float32 weights."""
+    return F.linear(x, m.weight, m.bias)
+
+
+def _pos_mlp(seq, xyz: torch.Tensor) -> torch.Tensor:
+    return _linear(seq[2], torch.relu(_linear(seq[0], xyz)))
+
+
 def _stage1_factors(stage1, h: torch.Tensor, v_in: torch.Tensor, nhead: int):
-    """Per-object stage-1 factors (q, kvz, a1); the point and the image head
-    differ only in what feeds v_proj: h + pos_mlp(xyz) or plain h."""
+    """Per-object stage-1 factors (q, kvz, a1) in float32 (h promoted);
+    the point and the image head differ only in what feeds v_proj:
+    h + pos_mlp(xyz) or plain h."""
     n, N, C = h.shape
     D = C // nhead
-    q = _elu1(stage1.q_proj(h))
-    k = _elu1(stage1.k_proj(h))
-    v = stage1.v_proj(v_in)
+    wide = torch.promote_types(h.dtype, torch.float32)
+    h, v_in = h.to(wide), v_in.to(wide)
+    q = _elu1(_linear(stage1.q_proj, h))
+    k = _elu1(_linear(stage1.k_proj, h))
+    v = _linear(stage1.v_proj, v_in)
     kv = torch.einsum("bnc,bnd->bcd", k, v)
     heads = torch.arange(C, device=h.device) // D
     gmask = (heads[:, None] == heads[None, :]).to(h.dtype)
@@ -78,9 +109,11 @@ def _stage1_factors(stage1, h: torch.Tensor, v_in: torch.Tensor, nhead: int):
 
 def grid_factors(stage1, stage2, h: torch.Tensor, xyz: torch.Tensor,
                  nhead: int) -> Side:
-    """Per-object factors of the pair chain from the two cross stages.
+    """Per-object factors of the pair chain from the two cross stages,
+    computed in float32 and returned in h's dtype (float32, or bf16 under
+    a bf16 model, as in JAX).
 
-    Returns (h, q, kvz, a1, pv), all contiguous float32:
+    Returns (h, q, kvz, a1, pv), all contiguous:
         q:   (n, N, C)  elu+1 stage-1 queries;
         kvz: (n, C, 2C) [KV | Z]: KV = k^T v, block-diagonal per head (no
              1/N), Z = diag(ksum) @ head mask;
@@ -88,21 +121,29 @@ def grid_factors(stage1, stage2, h: torch.Tensor, xyz: torch.Tensor,
              FFN's first layer;
         pv:  (n, N, C)  stage-2 pos-MLP(xyz) @ v_proj.
     """
-    q, kvz, a1 = _stage1_factors(stage1, h, h + stage1.pos_mlp(xyz), nhead)
-    pv = stage2.v_proj(stage2.pos_mlp(xyz))
-    return tuple(x.contiguous() for x in (h, q, kvz, a1, pv))
+    q, kvz, a1 = _stage1_factors(stage1, h, h + _pos_mlp(stage1.pos_mlp, xyz),
+                                 nhead)
+    pv = _linear(stage2.v_proj, _pos_mlp(stage2.pos_mlp, xyz))
+    return tuple(x.to(h.dtype).contiguous() for x in (h, q, kvz, a1, pv))
 
 
 def image_grid_factors(stage1, h: torch.Tensor, nhead: int) -> Side:
     """Per-object factors of the image head (CrossLinAttn has no pos-MLP):
     (h, q, kvz, a1) as in grid_factors, over the true token count."""
     q, kvz, a1 = _stage1_factors(stage1, h, h, nhead)
-    return tuple(x.contiguous() for x in (h, q, kvz, a1))
+    return tuple(x.to(h.dtype).contiguous() for x in (h, q, kvz, a1))
 
 
 def stage_weights(stage1, stage2) -> Tuple[Dict[str, torch.Tensor],
                                            Dict[str, torch.Tensor]]:
-    """The kernel's weight dicts, matrices in (in, out) layout."""
+    """The kernel's weight dicts, matrices in (in, out) layout, float32
+    (the weights' own dtype); made once per set of weights."""
+    params = tuple(stage1.parameters()) + tuple(stage2.parameters())
+    return derived(params, "match_stage_weights",
+                   lambda: _stage_weights(stage1, stage2))
+
+
+def _stage_weights(stage1, stage2):
     def common(s):
         return dict(merge=s.merge.weight.t(),
                     ln1_scale=s.norm1.weight, ln1_bias=s.norm1.bias,
@@ -129,15 +170,17 @@ def _layer_norm(x, scale, bias):
     return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
 
 
-def _ffn(search, msg, a, w):
+def _ffn(search, msg, a, w, mm=None):
     """merge -> LN -> FFN([search || msg]) -> LN -> residual, with the FFN's
-    first layer split into search and message halves."""
+    first layer split into search and message halves; `mm` the products
+    (_mm by default)."""
+    mm = mm or _mm
     C = search.shape[-1]
-    m = _layer_norm(_mm(msg, w["merge"]), w["ln1_scale"], w["ln1_bias"])
+    m = _layer_norm(mm(msg, w["merge"]), w["ln1_scale"], w["ln1_bias"])
     if a is None:
-        a = _mm(search, w["fc1"][:C])
-    h = torch.relu(a + _mm(m, w["fc1"][C:]))
-    return search + _layer_norm(_mm(h, w["fc2"]), w["ln2_scale"],
+        a = mm(search, w["fc1"][:C])
+    h = torch.relu(a + mm(m, w["fc1"][C:]))
+    return search + _layer_norm(mm(h, w["fc2"]), w["ln2_scale"],
                                 w["ln2_bias"])
 
 
@@ -145,33 +188,42 @@ def _split_norm(mz, C):
     return mz[..., :C] / (mz[..., C:] + EPS)
 
 
-def _stage2(search, template, pv, w, nhead):
+def _stage2(search, template, pv, w, nhead, mm=None):
+    mm = mm or _mm
     C = search.shape[-1]
     D = C // nhead
-    q = _elu1(_mm(search, w["q"]))
-    tkv = _mm(template, w["kv"])
+    q = _elu1(mm(search, w["q"]))
+    tkv = mm(template, w["kv"])
     k = _elu1(tkv[..., :C])
     v = tkv[..., C:] if pv is None else tkv[..., C:] + pv
     heads = torch.arange(C, device=search.device) // D
     gmask = (heads[:, None] == heads[None, :]).to(search.dtype)
-    kv = _mm(k.transpose(1, 2), v) * gmask
+    kv = mm(k.transpose(1, 2), v) * gmask
     ks = k.sum(dim=1, keepdim=True)
-    return _mm(q, kv) / (_mm(q * ks, gmask) + EPS)
+    return mm(q, kv) / (mm(q * ks, gmask) + EPS)
 
 
 def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
+    """The chain in the factors' dtype: float32, or bf16 factors whose
+    chain runs in float32 with bf16 operands to every product and a bf16
+    result (the TPU kernel under a bf16 model)."""
+    dt = t[0].dtype
+    mm = _mm
+    if dt == BF16:
+        t, d = tuple(x.float() for x in t), tuple(x.float() for x in d)
+        mm = functools.partial(rounded_mm, dtype=dt)
     ht, qt, kvzt, at = t[:4]
     hd, qd, kvzd, ad = d[:4]
     pvt = t[4] if len(t) == 5 else None      # image head: no position term
     pvd = d[4] if len(d) == 5 else None
     C = ht.shape[-1]
-    o1a = _ffn(ht, _split_norm(_mm(qt, kvzd), C), at, w1)
-    o2a = _ffn(hd, _split_norm(_mm(qd, kvzt), C), ad, w1)
-    o1b = _ffn(o1a, _stage2(o1a, o2a, pvd, w2, nhead), None, w2)
-    o2b = _ffn(o2a, _stage2(o2a, o1a, pvt, w2, nhead), None, w2)
+    o1a = _ffn(ht, _split_norm(mm(qt, kvzd), C), at, w1, mm)
+    o2a = _ffn(hd, _split_norm(mm(qd, kvzt), C), ad, w1, mm)
+    o1b = _ffn(o1a, _stage2(o1a, o2a, pvd, w2, nhead, mm), None, w2, mm)
+    o2b = _ffn(o2a, _stage2(o2a, o1a, pvt, w2, nhead, mm), None, w2, mm)
     mx = torch.maximum(o1b.amax(dim=1), o2b.amax(dim=1))
     av = 0.5 * (o1b.mean(dim=1) + o2b.mean(dim=1))
-    return torch.cat([mx, av], dim=-1)
+    return torch.cat([mx, av], dim=-1).to(dt)
 
 
 def check_pair_range(t_idx: torch.Tensor, d_idx: torch.Tensor, nt: int,
@@ -245,6 +297,21 @@ def cluster_bytes(N: int, C: int) -> int:
     return 4 * (weights + Np * (C + 4) + 2 * c2 + 8 * 2 * C + 3 * C)
 
 
+def cluster_bytes_bf16(N: int, C: int) -> int:
+    """Shared bytes of the bf16 cluster tier's layout
+    (csrc/match_grid_bf16.cu Layout<C>::bytes): bf16 weights in (n, k + 8)
+    rows, Wq beside the largest of stage 1's (5C (C + 8) + C (2C + 8)), the
+    summary's (2C (C + 8) + 2C (128 + 8)) and stage 2's (C (C + 8) + 3C
+    (2C + 8)); own O at Np x (C + 8) float32; the peer's KV C x (C + 8)
+    bf16; ksum, pooling partials and the peer's pooling, (C + 16C + 2C)
+    float32."""
+    l1, l2 = C + 8, 2 * C + 8
+    phase = max(5 * C * l1 + C * l2, 2 * C * l1 + 2 * C * (128 + 8),
+                C * l1 + 3 * C * l2)
+    Np = -(-N // 16) * 16
+    return 2 * (C * l1 + phase) + 4 * Np * l1 + 2 * C * l1 + 4 * 19 * C
+
+
 def rows_bytes(C: int) -> int:
     """Shared bytes of the rows tier's layout (csrc/match_rows.cu
     Layout<C>::FLOATS): 4 warps x 16 rows x (2C + 4 + 2 (C + 4)) strips, the
@@ -255,11 +322,15 @@ def rows_bytes(C: int) -> int:
                 + 2 * 32 * 72)
 
 
-def plan(N: int, C: int, H: int, pos: bool = True) -> Plan:
+def plan(N: int, C: int, H: int, pos: bool = True,
+         dtype: torch.dtype = torch.float32) -> Plan:
     """The tier for sides of N rows and C channels in H heads: CLUSTER where
     its layout fits in a block's shared memory, else ROWS for the point
     head (`pos`); the image head (no position term) has the cluster tier
-    only. Raises ValueError for a shape that neither takes."""
+    only. Raises ValueError for a shape that neither takes. At bf16 the
+    cluster tier has its own layout (cluster_bytes_bf16) and a shape past it
+    that the float32 kernels would send to ROWS raises NotImplementedError:
+    the rows tier has no bf16 form yet."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
@@ -267,6 +338,19 @@ def plan(N: int, C: int, H: int, pos: bool = True) -> Plan:
     if C not in widths:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the kernel's tensor-core "
                          f"tiles take C in {widths}")
+    if dtype == BF16:
+        if C in CLUSTER_WIDTHS and cluster_bytes_bf16(N, C) <= MAX_SMEM:
+            return Plan(CLUSTER, cluster_bytes_bf16(N, C))
+        if not pos:
+            raise ValueError(
+                f"{N} rows x {C} channels need {cluster_bytes_bf16(N, C)} "
+                f"bytes of shared memory a block at bf16, more than the "
+                f"{MAX_SMEM} the kernel may take (the image head has no rows "
+                "tier)")
+        raise NotImplementedError(
+            f"N={N}, C={C}, nhead={H} at bf16: this shape needs the match "
+            f"chain's rows tier, which has no bf16 kernel yet "
+            f"({ROADMAP_ROWS_BF16})")
     if C in CLUSTER_WIDTHS and cluster_bytes(N, C) <= MAX_SMEM:
         return Plan(CLUSTER, cluster_bytes(N, C))
     if not pos:
@@ -287,15 +371,16 @@ def rows_blocks(P: int, smem: int, device) -> int:
     per_sm = max(1, min(ROWS_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
     return max(1, min(P, sms * per_sm))
 
-def _check_side(side: Side, N: int, C: int, device, name: str) -> int:
+def _check_side(side: Side, N: int, C: int, device, name: str,
+                dtype: torch.dtype = torch.float32) -> int:
     n = side[0].shape[0]
     shapes = ((n, N, C), (n, N, C), (n, C, 2 * C), (n, N, 2 * C), (n, N, C))
     for x, want, part in zip(side, shapes, _PARTS):
-        if (tuple(x.shape) != want or x.dtype != torch.float32
+        if (tuple(x.shape) != want or x.dtype != dtype
                 or not x.is_contiguous() or x.device != device
                 or x.data_ptr() % 16):
             raise ValueError(f"{name}.{part}: want contiguous, 16-byte "
-                             f"aligned float32 {want} on {device}, got "
+                             f"aligned {dtype} {want} on {device}, got "
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
     return n
 
@@ -306,16 +391,22 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     """Check the inputs, launch the tier plan(N, C, nhead) picks for sides
     of `parts` tensors (grid mode when t_idx is None) and add one to
     `counter.launches`, and to its tier's count, once the launch succeeded.
+    bf16 sides launch csrc/match_grid_bf16.cu (the weights as stage_weights
+    gives them, handed to the kernel converted once: the matrices bf16 in
+    (out, in) layout; out bf16) and count in `counter.bf16_launches`.
     `library` is another build of the kernels' entry points, as
     tools/ab_match.py times versions of them; it passes no counter."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
-    nt = _check_side(t, N, C, device, "track")
-    nd = _check_side(d, N, C, device, "det")
-    how = plan(N, C, nhead, pos=parts == 5)
+    bf16 = t[0].dtype == BF16
+    dt = BF16 if bf16 else torch.float32
+    nt = _check_side(t, N, C, device, "track", dt)
+    nd = _check_side(d, N, C, device, "det", dt)
+    how = plan(N, C, nhead, pos=parts == 5, dtype=dt)
     lib = (library or _lib.LIBRARY).get()
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    layout = (lib.pcr_match_pooled_layout if how.tier == CLUSTER
+    layout = (lib.pcr_match_pooled_bf16_layout if bf16
+              else lib.pcr_match_pooled_layout if how.tier == CLUSTER
               else lib.pcr_match_rows_layout)
     status = layout(N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
     if status:          # a build whose layout differs from the plan's
@@ -330,9 +421,16 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
                 or x.device != device or x.data_ptr() % 16):
             raise ValueError(f"{g}.{k}: want contiguous, 16-byte aligned "
                              f"float32 on {device}")
+    if bf16:
+        weights = [x if x.dim() == 1 else derived(
+            (x,), "match_bf16", lambda x=x: x.t().to(BF16).contiguous())
+            for x in weights]
+        # [KV | Z] is a B operand of the kernel: (n, 2C, C)
+        t, d = (s[:2] + (s[2].transpose(1, 2).contiguous(),) + s[3:]
+                for s in (t, d))
     if t_idx is None:
         P = nt * nd
-        out = torch.empty((nt, nd, 2 * C), dtype=torch.float32, device=device)
+        out = torch.empty((nt, nd, 2 * C), dtype=dt, device=device)
         idx_ptrs = [None, None]
     else:
         P = t_idx.shape[0]
@@ -342,14 +440,15 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
                 raise ValueError("pair indices: want contiguous int32 (P,) "
                                  f"on {device}")
         check_pair_range(t_idx, d_idx, nt, nd)
-        out = torch.empty((P, 2 * C), dtype=torch.float32, device=device)
+        out = torch.empty((P, 2 * C), dtype=dt, device=device)
         idx_ptrs = [t_idx.data_ptr(), d_idx.data_ptr()]
     if P == 0:
         return out
     ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
             *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
     if how.tier == CLUSTER:
-        entry = "pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image"
+        entry = ("pcr_match_pooled" if parts == 5 else
+                 "pcr_match_pooled_image") + ("_bf16" if bf16 else "")
         err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead,
                                   _lib.stream_ptr(device))
     else:
@@ -361,7 +460,9 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         err = lib.pcr_match_rows(*ptrs, scratch.data_ptr(), nt, nd, P, N, C,
                                  nhead, blocks, _lib.stream_ptr(device))
     _lib.check(err, entry)
-    if counter is not None:
+    if counter is not None and bf16:
+        counter.bf16_launches += 1
+    elif counter is not None:
         counter.launches += 1
         counter.tier_launches[TIER_NAMES[how.tier]] += 1
     return out
@@ -435,6 +536,7 @@ for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
     _fn.launches = 0
     # launches by tier, beside the total
     _fn.tier_launches = dict.fromkeys(TIER_NAMES, 0)
+    _fn.bf16_launches = 0
 
 
 # ---- model-level scorers ---------------------------------------------------------

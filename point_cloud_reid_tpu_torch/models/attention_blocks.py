@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention import elu_feature_map, linear_attention
-from .layers import pos_mlp
+from .layers import Dense, LayerNorm, pos_mlp
 
 
 def _attn_fn(kind: str):
@@ -49,8 +49,8 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def _ffn_mlp(d_in: int, d_hidden: int, d_out: int) -> nn.Sequential:
-    return nn.Sequential(nn.Linear(d_in, d_hidden, bias=False), nn.ReLU(),
-                         nn.Linear(d_hidden, d_out, bias=False))
+    return nn.Sequential(Dense(d_in, d_hidden, bias=False), nn.ReLU(),
+                         Dense(d_hidden, d_out, bias=False))
 
 
 class SelfAttentionBlock(nn.Module):
@@ -65,13 +65,13 @@ class SelfAttentionBlock(nn.Module):
         self.attention = attention
         self.attn = _attn_fn(attention)
         self.pos_mlp = pos_mlp(d)
-        self.q_proj = nn.Linear(d, d, bias=False)
-        self.k_proj = nn.Linear(d, d, bias=False)
-        self.v_proj = nn.Linear(d, d, bias=False)
-        self.merge = nn.Linear(d, d, bias=False)
+        self.q_proj = Dense(d, d, bias=False)
+        self.k_proj = Dense(d, d, bias=False)
+        self.v_proj = Dense(d, d, bias=False)
+        self.merge = Dense(d, d, bias=False)
         self.mlp = _ffn_mlp(2 * d, 2 * d, d)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d, eps=1e-5)
 
     def forward(self, feat: torch.Tensor, xyz: torch.Tensor) -> torch.Tensor:
         feat_pos = feat + self.pos_mlp(xyz)
@@ -99,13 +99,13 @@ class _CrossDecomposable(nn.Module):
         self.attn = _attn_fn(attention)
         if with_pos:     # first, so a seeded init draws in the same order
             self.pos_mlp = pos_mlp(d)
-        self.q_proj = nn.Linear(d, d, bias=False)
-        self.k_proj = nn.Linear(d, d, bias=False)
-        self.v_proj = nn.Linear(d, d, bias=False)
-        self.merge = nn.Linear(d, d, bias=False)
+        self.q_proj = Dense(d, d, bias=False)
+        self.k_proj = Dense(d, d, bias=False)
+        self.v_proj = Dense(d, d, bias=False)
+        self.merge = Dense(d, d, bias=False)
         self.mlp = _ffn_mlp(2 * d, 2 * d, d)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d, eps=1e-5)
 
     def _ffn(self, search_feat: torch.Tensor, msg: torch.Tensor) -> torch.Tensor:
         msg = self.norm1(self.merge(msg))
@@ -197,13 +197,13 @@ class FPSA(nn.Module):
         d = d_model
         self.nhead = nhead
         self.pos_mlp2 = pos_mlp(d, feat2_dim)
-        self.q_proj = nn.Linear(feat1_dim, d, bias=False)
-        self.k_proj = nn.Linear(feat2_dim, d, bias=False)
-        self.v_proj = nn.Linear(feat2_dim, d, bias=False)
-        self.merge = nn.Linear(d, d, bias=False)
+        self.q_proj = Dense(feat1_dim, d, bias=False)
+        self.k_proj = Dense(feat2_dim, d, bias=False)
+        self.v_proj = Dense(feat2_dim, d, bias=False)
+        self.merge = Dense(d, d, bias=False)
         self.mlp = _ffn_mlp(feat1_dim + d, 2 * d, out_dim)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(out_dim, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(out_dim, eps=1e-5)
 
     def forward(self, feat1, xyz1, feat2, xyz2) -> torch.Tensor:
         feat2_pos = feat2 + self.pos_mlp2(xyz2)

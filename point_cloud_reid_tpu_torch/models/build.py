@@ -57,14 +57,18 @@ _TYPES = {"ReIDNet": ReIDNet, "ImageReIDNet": ImageReIDNet}
 
 
 def build_model(cfg: Dict[str, Any], device: Optional[torch.device] = None,
-                generator: Optional[torch.Generator] = None) -> nn.Module:
-    """Build the model of `cfg` in float32 eval mode on `device`, with
-    weights from `generator` (a CPU generator; seed 0 when omitted)."""
+                generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Build the model of `cfg` in eval mode on `device`, with weights from
+    `generator` (a CPU generator; seed 0 when omitted). The parameters are
+    float32 at every `dtype`; with dtype=torch.bfloat16 the model computes
+    in bf16 where the JAX package's build_model(cfg, dtype=bfloat16) does
+    (models/layers.py), from the same seeded weights."""
     cfg = dict(cfg)
     t = cfg.pop("type", "ReIDNet")
     if t not in _TYPES:
         raise NotImplementedError(f"model type {t}")
-    model = _TYPES[t](**cfg)
+    model = _TYPES[t](**cfg, dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)

@@ -13,6 +13,8 @@ token tensors (B, S, C) throughout.
                            (plain torch; the fused CUDA scorer in
                            kernels/match_grid.py is its drop-in equivalent);
   forward(batch, train)    everything the losses and metrics need.
+
+`dtype` is the compute dtype (models/layers.py), as the JAX model's.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import pooled_feats
+from .layers import pooled_feats, set_compute_dtype
 from .registry import build_head, build_stage
 from .vit import build_vit
 
@@ -35,7 +37,7 @@ class ImageReIDNet(nn.Module):
                  combine: str = "point-cat", match_type: str = "xcorr_eff",
                  pool_type: str = "both", output_sequence_size: int = 198,
                  freeze_backbone: bool = False, pretrained: bool = False,
-                 image_size: int = 224):
+                 image_size: int = 224, dtype: torch.dtype = torch.float32):
         super().__init__()
         if combine not in ("add", "minus", "cat", "point-cat"):
             raise NotImplementedError(combine)
@@ -46,7 +48,8 @@ class ImageReIDNet(nn.Module):
         self.freeze_backbone = freeze_backbone
         self.image_size = image_size
         self.downsample_dim = downsample_dim
-        self.backbone = build_vit(backbone, image_size=image_size)
+        self.backbone = build_vit(backbone, image_size=image_size,
+                                  dtype=dtype)
         self.cross_stage1 = build_stage(cross_lin_attn)
         self.cross_stage2 = build_stage(cross_lin_attn)
         pooled = 2 if pool_type == "both" else 1
@@ -59,6 +62,8 @@ class ImageReIDNet(nn.Module):
         self.fp_head = build_head(fp_head, pooled * dim)
         self.vis_head = build_head(vis_head, pooled * dim)
         self.downsample = build_head(downsample, dim)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     # ---- embedding ---------------------------------------------------------
 

@@ -29,12 +29,16 @@ from ..kernels.sa_stage import sa_stage_inference
 from ..ops.geometry import (conv1_edge_factors, index_points, knn_indices,
                             sample_and_group_edge, sample_centers)
 from .attention_blocks import FPSA, SelfAttentionBlock
-from .layers import BatchNorm
+from .layers import BatchNorm, Dense
 
 
 class SetAbstractionEdgeSA(nn.Module):
     """One SA stage. mlp = [in, h1, h2, h3], where `in` is the edge-feature
-    width 3 + 2D (3 when the stage has no input features)."""
+    width 3 + 2D (3 when the stage has no input features). With a compute
+    dtype (bf16) the conv1 factors A and Ct are computed in it, as the JAX
+    stage computes them, and the stage's output is in it."""
+
+    compute_dtype = None
 
     def __init__(self, mlp: Sequence[int], nsample: int,
                  knn_method: str = "argsort", sampling: str = "RANDOM"):
@@ -45,7 +49,7 @@ class SetAbstractionEdgeSA(nn.Module):
         self.knn_method = knn_method
         self.sampling = sampling
         self.mlp_convs = nn.ModuleList(
-            nn.Linear(a, b) for a, b in zip(mlp[:-1], mlp[1:]))
+            Dense(a, b) for a, b in zip(mlp[:-1], mlp[1:]))
         self.mlp_bns = nn.ModuleList(BatchNorm(b) for b in mlp[1:])
         self.self_attention = SelfAttentionBlock(mlp[-1], nhead=2)
 
@@ -64,7 +68,8 @@ class SetAbstractionEdgeSA(nn.Module):
         bns = [(b.weight, b.bias, b.running_mean, b.running_var)
                for b in self.mlp_bns]
         h = sa_stage_inference(xyz, points, idx, convs, bns,
-                               eps=self.mlp_bns[0].eps)
+                               eps=self.mlp_bns[0].eps,
+                               dtype=self.compute_dtype)
         return new_xyz, self.self_attention(h, new_xyz)
 
     def _plain_chain(self, xyz, points, numpoints, train: bool):
@@ -86,7 +91,8 @@ class SetAbstractionEdgeSA(nn.Module):
             idx = knn_indices(self.nsample, xyz, new_xyz, self.knn_method)
             A, Ct = conv1_edge_factors(conv1.weight.t(), conv1.bias, xyz,
                                        points, new_xyz,
-                                       index_points(points, cidx))
+                                       index_points(points, cidx),
+                                       self.compute_dtype)
             h = index_points(A, idx) + Ct[:, :, None, :]
         h = torch.relu_(bn1(h, train))
         for conv, bn in zip(self.mlp_convs[1:], self.mlp_bns[1:]):
@@ -130,7 +136,7 @@ class PointTransformerBackbone(nn.Module):
             FeaturePropagationSA(sa1, sa3, sa2, sa2),
             FeaturePropagationSA(sa2, sa3, sa2, sa3),
         ])
-        self.cov_final = nn.Linear(sa1, conv_out)
+        self.cov_final = Dense(sa1, conv_out)
 
     def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int],
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

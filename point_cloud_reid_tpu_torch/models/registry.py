@@ -12,19 +12,29 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
+from ..utils.cache import cast
 from .attention_blocks import (CrossAttentionBlock, CrossLinAttn,
                                SelfAttentionBlock)
-from .layers import BatchNorm, LinearRes, group_norm
+from .layers import (BatchNorm, Dense, GroupNorm, LayerNorm, LinearRes,
+                     add_bias, group_norm)
 from .point_transformer import PointTransformerBackbone
 
 Spec = Dict[str, Any]
 
 
 class _Conv1d(nn.Conv1d):
-    """Conv1d over a channel-last (B, L, C) input, stride 1, no padding."""
+    """Conv1d over a channel-last (B, L, C) input, stride 1, no padding;
+    with a compute dtype, as flax's Conv(dtype=...)."""
+
+    compute_dtype = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        x = x.transpose(1, 2)
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x).transpose(1, 2)
+        return add_bias(self._conv_forward(x.to(dt), cast(self.weight, dt),
+                                           None).transpose(1, 2), self.bias)
 
 
 class SequentialHead(nn.ModuleList):
@@ -47,7 +57,7 @@ class SequentialHead(nn.ModuleList):
                                         ng=spec.get("ng", 32)))
                 width = spec["n_out"]
             elif t == "Linear":
-                layers.append(nn.Linear(width, spec["out_features"]))
+                layers.append(Dense(width, spec["out_features"]))
                 width = spec["out_features"]
             elif t == "Conv1d":
                 layers.append(_Conv1d(width, spec["out_channels"],
@@ -56,10 +66,10 @@ class SequentialHead(nn.ModuleList):
             elif t == "BatchNorm1d":
                 layers.append(BatchNorm(width))
             elif t == "GroupNorm":
-                layers.append(nn.GroupNorm(spec["num_groups"], width,
-                                           eps=1e-5))
+                layers.append(GroupNorm(spec["num_groups"], width,
+                                        eps=1e-5))
             elif t == "LayerNorm":
-                layers.append(nn.LayerNorm(width, eps=1e-5))
+                layers.append(LayerNorm(width, eps=1e-5))
             elif t == "ReLU":
                 layers.append(nn.ReLU())
             elif t == "Sigmoid":

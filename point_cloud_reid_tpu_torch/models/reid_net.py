@@ -13,6 +13,9 @@ combine 'point-cat', pool 'both'), for serving and for training:
   forward(batch, train)  everything the losses and metrics need.
 
 Other match types, combines and backbones of the JAX model wait for M7.
+`dtype` is the compute dtype (models/layers.py): float32 parameters at
+every dtype; at bf16 the embeddings and logits are bf16 and xyz float32, as
+in the JAX model.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Any, Dict, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import pooled_feats
+from .layers import pooled_feats, set_compute_dtype
 from .registry import build_backbone, build_head, build_stage
 
 
@@ -34,7 +37,8 @@ class ReIDNet(nn.Module):
                  combine: str = "point-cat",
                  backbone_list: Sequence[int] = (128, 64, 32),
                  output_sequence_size: int = 32,
-                 knn_method: str = "argsort", **unused):
+                 knn_method: str = "argsort",
+                 dtype: torch.dtype = torch.float32, **unused):
         super().__init__()
         for s in (cross_stage1, cross_stage2):
             if not s or s.get("type") != "corss_attention":
@@ -55,6 +59,8 @@ class ReIDNet(nn.Module):
         self.cls_head = build_head(cls_head, 2 * conv_out)
         self.fp_head = build_head(fp_head, 2 * conv_out)
         self.shape_head = build_head(shape_head, conv_out)
+        self.dtype = dtype
+        set_compute_dtype(self, dtype)
 
     def embed(self, pts: torch.Tensor, train: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -15,19 +15,25 @@ hidden_states[-1]). The softmax attention is a library call
 Held to the JAX module, so the MLP's gelu is the tanh approximation (flax's
 nn.gelu default), LayerNorm eps is 1e-12, and the fused qkv projection's
 output is [q | k | v], each head-major. Images come (B, 3, H, W) and the
-patch embedding is a Conv2d with an (out, in, p, p) weight. Names follow the
+patch embedding is a Conv2d with an (out, in, p, p) weight. At a bf16
+compute dtype the layers cast as flax's do (models/layers.py): the float32
+class and position tokens promote the residual stream to float32, as in the
+JAX module, and every block's output is float32. Names follow the
 JAX tree (cls_token, dist_token, pos_embed, rel_pos_table, patch_embed,
 blocks.{i}.{norm1, attn.qkv, attn.proj, gamma_1, norm2, mlp.{0,2}, gamma_2},
 norm).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .layers import Conv2d, Dense, LayerNorm, set_compute_dtype
 
 VIT_PRESETS = {
     # dim, depth, heads: facebook/deit-*-distilled-patch16-224 configs.
@@ -55,16 +61,23 @@ class Attention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, 3 * dim)
+        self.proj = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor,
                 rel_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, N, C = x.shape
         qkv = self.qkv(x).reshape(B, N, 3, self.heads, C // self.heads)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(dim=2))  # (B,h,N,d)
-        bias = None if rel_bias is None else rel_bias[None]
-        out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+        if rel_bias is not None and rel_bias.dtype != q.dtype:
+            # bf16 scores plus the float32 bias: the softmax and the values'
+            # product promote to float32, as in the JAX module
+            s = q @ k.transpose(-1, -2) / math.sqrt(C // self.heads)
+            out = torch.softmax(s + rel_bias[None], dim=-1) @ v.to(
+                rel_bias.dtype)
+        else:
+            bias = None if rel_bias is None else rel_bias[None]
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
@@ -72,12 +85,12 @@ class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: float = 4.0,
                  layer_scale: bool = False):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-12)
+        self.norm1 = LayerNorm(dim, eps=1e-12)
         self.attn = Attention(dim, heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-12)
-        self.mlp = nn.Sequential(nn.Linear(dim, int(dim * mlp_ratio)),
+        self.norm2 = LayerNorm(dim, eps=1e-12)
+        self.mlp = nn.Sequential(Dense(dim, int(dim * mlp_ratio)),
                                  nn.GELU(approximate="tanh"),
-                                 nn.Linear(int(dim * mlp_ratio), dim))
+                                 Dense(int(dim * mlp_ratio), dim))
         if layer_scale:
             self.gamma_1 = nn.Parameter(torch.full((dim,), 0.1))
             self.gamma_2 = nn.Parameter(torch.full((dim,), 0.1))
@@ -99,12 +112,12 @@ class ViT(nn.Module):
                  patch: int = 16, image_size: int = 224,
                  dist_token: bool = True, rel_pos_bias: bool = False,
                  layer_scale: bool = False, final_norm: bool = True,
-                 mlp_ratio: float = 4.0):
+                 mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.heads = dim, heads
         side = image_size // patch
         n_tok = side * side + 1 + int(dist_token)
-        self.patch_embed = nn.Conv2d(3, dim, patch, stride=patch)
+        self.patch_embed = Conv2d(3, dim, patch, stride=patch)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
         self.dist_token = (nn.Parameter(torch.zeros(1, 1, dim))
                            if dist_token else None)
@@ -121,7 +134,8 @@ class ViT(nn.Module):
             self.rel_pos_table = None
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, layer_scale) for _ in range(depth))
-        self.norm = nn.LayerNorm(dim, eps=1e-12) if final_norm else None
+        self.norm = LayerNorm(dim, eps=1e-12) if final_norm else None
+        set_compute_dtype(self, dtype)
 
     def forward(self, images: torch.Tensor, train: bool = False
                 ) -> torch.Tensor:
@@ -160,5 +174,6 @@ def _relative_position_index(side: int) -> torch.Tensor:
     return torch.from_numpy(full)
 
 
-def build_vit(variant: str, image_size: int = 224) -> ViT:
-    return ViT(image_size=image_size, **VIT_PRESETS[variant])
+def build_vit(variant: str, image_size: int = 224,
+              dtype: torch.dtype = torch.float32) -> ViT:
+    return ViT(image_size=image_size, dtype=dtype, **VIT_PRESETS[variant])

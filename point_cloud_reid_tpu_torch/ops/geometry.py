@@ -103,7 +103,8 @@ def sample_centers(xyz: torch.Tensor, numpoints: int, sampling: str,
 def conv1_edge_factors(kernel: torch.Tensor, bias: Optional[torch.Tensor],
                        xyz: torch.Tensor, points: Optional[torch.Tensor],
                        center_xyz: torch.Tensor,
-                       center_points: Optional[torch.Tensor]
+                       center_points: Optional[torch.Tensor],
+                       dtype: Optional[torch.dtype] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-point / per-centre factors of the SA stage's first conv over the
     edge features [dxyz || centre_feat || grouped_feat - centre_feat].
@@ -114,18 +115,25 @@ def conv1_edge_factors(kernel: torch.Tensor, bias: Optional[torch.Tensor],
         A  = xyz @ W_d + points @ W_g                    (B, N, C1)
         Ct = -centre_xyz @ W_d + centre_points @ (W_c - W_g) + bias
                                                          (B, S, C1)
+
+    With `dtype` (a model's compute dtype, bf16) every operand is cast to it
+    and the factors come out in it, as in the JAX function; W_c - W_g is
+    taken before the cast.
     """
-    w_d = kernel[:3]
-    A = xyz @ w_d
-    Ct = -(center_xyz @ w_d)
+    def c(t):
+        return t if dtype is None else t.to(dtype)
+
+    w_d = c(kernel[:3])
+    A = c(xyz) @ w_d
+    Ct = -(c(center_xyz) @ w_d)
     if points is not None:
         D = points.shape[-1]
         w_c = kernel[3:3 + D]
         w_g = kernel[3 + D:]
-        A = A + points @ w_g
-        Ct = Ct + center_points @ (w_c - w_g)
+        A = A + c(points) @ c(w_g)
+        Ct = Ct + c(center_points) @ c(w_c - w_g)
     if bias is not None:
-        Ct = Ct + bias
+        Ct = Ct + c(bias)
     return A, Ct
 
 

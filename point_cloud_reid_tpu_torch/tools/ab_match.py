@@ -43,11 +43,13 @@ from .timing import time_ms
 
 
 def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
-           nhead: int = 2, seed: int = 0, device="cuda"):
+           nhead: int = 2, seed: int = 0, device="cuda",
+           dtype: torch.dtype = torch.float32):
     """Factors and weights of the match kernel for `head` ("point" or
     "image"): two cross stages with seeded weights over seeded random
-    features of nt tracks and nd detections, n_rows points or tokens each.
-    Returns (t, d, w1, w2, nhead)."""
+    features of nt tracks and nd detections, n_rows points or tokens each,
+    the features (and so the factors) in `dtype`. Returns (t, d, w1, w2,
+    nhead)."""
     from ..models.attention_blocks import CrossAttentionBlock, CrossLinAttn
     from ..models.build import init_weights
     block = CrossAttentionBlock if head == "point" else CrossLinAttn
@@ -58,15 +60,18 @@ def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
 
     def r(*shape):
         return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(device)
+
+    def h(*shape):
+        return r(*shape).to(dtype)
     with torch.no_grad():
         if head == "point":
-            t = mg.grid_factors(stages[0], stages[1], r(nt, n_rows, C),
+            t = mg.grid_factors(stages[0], stages[1], h(nt, n_rows, C),
                                 r(nt, n_rows, 3), nhead)
-            d = mg.grid_factors(stages[0], stages[1], r(nd, n_rows, C),
+            d = mg.grid_factors(stages[0], stages[1], h(nd, n_rows, C),
                                 r(nd, n_rows, 3), nhead)
         else:
-            t = mg.image_grid_factors(stages[0], r(nt, n_rows, C), nhead)
-            d = mg.image_grid_factors(stages[0], r(nd, n_rows, C), nhead)
+            t = mg.image_grid_factors(stages[0], h(nt, n_rows, C), nhead)
+            d = mg.image_grid_factors(stages[0], h(nd, n_rows, C), nhead)
         w1, w2 = mg.stage_weights(stages[0], stages[1])
     return t, d, w1, w2, nhead
 

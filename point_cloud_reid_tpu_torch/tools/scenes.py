@@ -82,10 +82,11 @@ def image_scene(n_obj: int, frames: int, seed: int = 0,
                np.zeros(n_obj, np.int64))
 
 
-def build_tracker_model(image: bool, device, seed: int = 0):
+def build_tracker_model(image: bool, device, seed: int = 0, dtype=None):
     """The model a tool tracks with, at full width with seeded random
     weights: the point flagship, or the image model of IMAGE_EXPERIMENT
-    (deit-tiny-no-pt, 197 tokens)."""
+    (deit-tiny-no-pt, 197 tokens); `dtype` its compute dtype (float32 by
+    default)."""
     import torch
 
     from ..configs import get_experiment, point_transformer_point_cat
@@ -93,7 +94,8 @@ def build_tracker_model(image: bool, device, seed: int = 0):
     cfg = (get_experiment(IMAGE_EXPERIMENT)["model"] if image
            else point_transformer_point_cat())
     return build_model(cfg, device=device,
-                       generator=torch.Generator().manual_seed(seed))
+                       generator=torch.Generator().manual_seed(seed),
+                       dtype=dtype or torch.float32)
 
 
 def card_name() -> str:

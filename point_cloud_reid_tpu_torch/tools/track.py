@@ -31,14 +31,16 @@ Usage:
         [--checkpoint ckpt_best.pt] [--scene-dir scenes/]
         [--scenes 2 --frames 40 --objects 16] [--nms-threshold 0.5]
         [--sparse auto|always|never] [--work-dir out/] [--set KEY=VAL]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--bf16]
 
 The experiment defaults to the point flagship (--image: the image model,
 deit-tiny-no-pt). --checkpoint reads what the port's Trainer.save_checkpoint
 writes (ckpt_{tag}.pt; its 'model' entry) or a bare model state_dict;
 without one the weights are the seeded init (pipeline smoke only). Runs on
 the CUDA device; without one it exits, unless --device cpu asks for the
-plain versions on the CPU.
+plain versions on the CPU. --bf16 builds the model at a bf16 compute dtype
+(float32 weights, bf16 embeddings and logits, the bf16 kernels), as the JAX
+CLI's --bf16 does; a checkpoint loads into it unchanged.
 """
 from __future__ import annotations
 
@@ -95,6 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--max-age", type=int, default=3)
     p.add_argument("--min-hits", type=int, default=1)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bf16", action="store_true",
+                   help="compute in bf16 (the weights stay float32)")
     p.add_argument("--work-dir", default=".")
     p.add_argument("--set", dest="set_options", action="append", default=[],
                    metavar="KEY=VAL", help="config override (dotted path)")
@@ -212,7 +216,8 @@ def main(argv=None):
     if args.image and not image_mode:
         raise SystemExit(f"--image: {experiment} is not an image model")
     model = build_model(cfg["model"], device=device,
-                        generator=torch.Generator().manual_seed(0))
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     load_weights(model, args.checkpoint, device)
 
     recorder = TrackingEvalAccumulator()

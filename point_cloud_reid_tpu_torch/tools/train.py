@@ -21,10 +21,11 @@ the CPU (every kernel's plain version; the tests). Float32, TF32 off.
 Checkpoints are the port's ckpt_{tag}.pt (Trainer.save_checkpoint), which
 --checkpoint, --resume and tools/test.py read; not orbax directories.
 
-Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 3), --remat (item
-5 ports it only if a leaf's peak exceeds the card, which none does) and
+Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 2a: training
+stays float32; tools/track.py --bf16 serves at bf16), --remat (item 5
+ports it only if a leaf's peak exceeds the card, which none does) and
 --profile (tools/profile_train.py profiles a train step). Training an image
-(rgb_*) leaf raises: image training is item 2; tools/test.py evaluates
+(rgb_*) leaf raises: image training is item 2b; tools/test.py evaluates
 one.
 """
 from __future__ import annotations

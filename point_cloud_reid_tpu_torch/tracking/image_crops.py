@@ -130,7 +130,8 @@ def _crops_from_best(images: torch.Tensor, best_cam: torch.Tensor,
 def crops_per_frame(images: torch.Tensor, lidar2cams: torch.Tensor,
                     intrinsics: torch.Tensor, boxes: torch.Tensor,
                     image_size: Tuple[int, int] = (1600, 900),
-                    output_size: Tuple[int, int] = (224, 224)
+                    output_size: Tuple[int, int] = (224, 224),
+                    dtype: torch.dtype = torch.float32
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The best camera's crop of every box of one frame.
 
@@ -141,7 +142,10 @@ def crops_per_frame(images: torch.Tensor, lidar2cams: torch.Tensor,
 
     images (ncam, 3, H, W) float32 or uint8; lidar2cams (ncam, 4, 4);
     intrinsics (ncam, 3, 3); boxes (M, 7) gravity-centred. Returns crops
-    (M, 3, out_h, out_w) float32 and valid (M,) bool."""
+    (M, 3, out_h, out_w) and valid (M,) bool. The crops are computed in
+    float32 and handed over in `dtype`, the ViT's compute dtype (its patch
+    embedding would cast them to it: bf16 crops are the same numbers at
+    half the bytes)."""
     uv, vis = project_boxes(boxes, lidar2cams, intrinsics, image_size)
     b2_all = boxes_2d(uv, image_size)                    # (ncam, M, 4)
     area = (b2_all[..., 2] - b2_all[..., 0]) * (b2_all[..., 3]
@@ -156,4 +160,4 @@ def crops_per_frame(images: torch.Tensor, lidar2cams: torch.Tensor,
         crops = crops * (1.0 / 255.0)
     crops = torch.where(valid[:, None, None, None], crops,
                         crops.new_zeros(()))
-    return crops, valid
+    return crops.to(dtype), valid

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from ..inference.pair_scoring import (DeviceTrackCache, FeatureCache,
-                                      PairScorer, _round_up)
+                                      PairScorer, _round_up, host,
+                                      host_logits)
 from ..ops.boxes import nms_bev
 from .association import associate, center_distance_gate
 from .crops import extract_box_crops
@@ -192,9 +193,7 @@ class TrackingManager:
                 crops, _ = extract_box_crops(self._next_rng(), pts_d,
                                              boxes_d, self.subsample_number)
             xyz_d, h_d = self.scorer.embed(crops)
-        h_d = h_d[:D].cpu().numpy()
-        xyz_d = xyz_d[:D].cpu().numpy() if xyz_d is not None else None
-        return h_d, xyz_d
+        return host(h_d[:D]), host(None if xyz_d is None else xyz_d[:D])
 
     def _step_host_cache(self, frame, boxes_p: np.ndarray, D: int, active):
         """One host-cache frame with tracks: the tracks' features go up,
@@ -208,15 +207,19 @@ class TrackingManager:
             fn = self._full_frame_fn(t_pad, boxes_p.shape[0])
 
             def pad(x):
+                if isinstance(x, torch.Tensor):     # bf16 rows
+                    return torch.cat([x, x.new_zeros(
+                        (t_pad - T,) + tuple(x.shape[1:]))])
                 return np.pad(x, [(0, t_pad - T)] + [(0, 0)] * (x.ndim - 1))
             self._seed += 1
+            # the features go up in the model's dtype as the cache holds
+            # them (float32, or bf16)
             h_tp, xyz_tp, pts_d, boxes_d = self._to_device(
-                pad(h_t).astype(np.float32), pad(xyz_t).astype(np.float32),
-                frame, boxes_p)
+                pad(h_t), pad(xyz_t).astype(np.float32), frame, boxes_p)
             logits, h_d, xyz_d = fn(h_tp, xyz_tp, (self._seed, pts_d,
                                                    boxes_d))
-            logits = logits[:T, :D].cpu().numpy()
-            h_d, xyz_d = h_d[:D].cpu().numpy(), xyz_d[:D].cpu().numpy()
+            logits = host_logits(logits[:T, :D])
+            h_d, xyz_d = host(h_d[:D]), host(xyz_d[:D])
         else:
             h_d, xyz_d = self._embed_dets(frame, boxes_p, D)
             if xyz_d is None:                       # image mode: no xyz
@@ -225,9 +228,9 @@ class TrackingManager:
             else:
                 h_t_d, xyz_t_d, h_d_d, xyz_d_d = self._to_device(
                     h_t, xyz_t, h_d, xyz_d)
-            logits = self.scorer.cost_matrix(
-                h_t_d, xyz_t_d, h_d_d, xyz_d_d).cpu().numpy()
-        return logits.astype(np.float64), h_d, xyz_d
+            logits = host_logits(self.scorer.cost_matrix(
+                h_t_d, xyz_t_d, h_d_d, xyz_d_d))
+        return logits, h_d, xyz_d
 
     def _sparse_on(self, n_tracks: int, d_pad: int) -> bool:
         if self.sparse_scoring == "never":
@@ -255,7 +258,9 @@ class TrackingManager:
         return pair_t, pair_d
 
     def _to_device(self, *arrays):
-        return [torch.from_numpy(np.ascontiguousarray(a)).to(
+        """numpy arrays (or bf16 CPU tensors) to the model's device."""
+        return [(a if isinstance(a, torch.Tensor)
+                 else torch.from_numpy(np.ascontiguousarray(a))).to(
             self.device, non_blocking=True) for a in arrays]
 
     def _ensure_image_sizes(self, images: np.ndarray):
@@ -315,7 +320,7 @@ class TrackingManager:
             self._prev_h, self._prev_d_pad = h_d, d_pad
             if not T:
                 return None
-            return logits_dev.cpu().numpy().astype(np.float64)[:T, :D]
+            return host_logits(logits_dev)[:T, :D]
         P = len(pairs)
         pair_t, pair_d = self._pad_pairs(pairs)
         (upd_src_d, upd_dst_d, slot_idx_d, pair_t_d, pair_d_d, img_d, l2c_d,
@@ -329,7 +334,7 @@ class TrackingManager:
         logits = np.full((T, D), -np.inf, np.float64)
         if P:
             logits[pairs[:, 0], pairs[:, 1]] = (
-                logits_dev.cpu().numpy().astype(np.float64)[:P])
+                host_logits(logits_dev)[:P])
         return logits
 
     def _step_device_cached(self, pts: np.ndarray, boxes_p: np.ndarray,
@@ -366,7 +371,7 @@ class TrackingManager:
             self._prev_h, self._prev_xyz, self._prev_d_pad = h_d, xyz_d, d_pad
             if not T:
                 return None
-            return logits_dev.cpu().numpy().astype(np.float64)[:T, :D]
+            return host_logits(logits_dev)[:T, :D]
         P = len(pairs)
         pair_t, pair_d = self._pad_pairs(pairs)
         (upd_src_d, upd_dst_d, slot_idx_d, pair_t_d, pair_d_d, pts_d,
@@ -380,7 +385,7 @@ class TrackingManager:
         logits = np.full((T, D), -np.inf, np.float64)
         if P:
             logits[pairs[:, 0], pairs[:, 1]] = (
-                logits_dev.cpu().numpy().astype(np.float64)[:P])
+                host_logits(logits_dev)[:P])
         return logits
 
     def _cache_row(self, track_id: int, h_d: np.ndarray,

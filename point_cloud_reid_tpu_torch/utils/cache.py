@@ -1,0 +1,50 @@
+"""Derived copies of weights, made once and reused while the weights stand.
+
+A bf16 model keeps float32 parameters (as the JAX package does) and casts
+them at each product. `derived(sources, tag, fn)` returns fn() computed once
+for these source tensors: the key is each source's address, shape, strides,
+device and in-place version, and the entry holds the sources themselves, so
+no other tensor can take their addresses while it is cached. An in-place
+update of a source (an optimizer step, load_state_dict) bumps its version
+and misses. Under autograd, with a source that requires grad, nothing is
+cached: the copy must stay in the graph.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Sequence
+
+import torch
+
+_MAX_ENTRIES = 4096
+_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+
+
+def _key(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.device),
+            t.dtype, t._version)
+
+
+def derived(sources: Sequence[torch.Tensor], tag, fn: Callable[[], torch.Tensor]
+            ) -> torch.Tensor:
+    """fn(), a tensor derived from `sources`, cached under `tag`."""
+    if torch.is_grad_enabled() and any(s.requires_grad for s in sources):
+        return fn()
+    key = (tag,) + tuple(_key(s) for s in sources)
+    hit = _CACHE.get(key)
+    if hit is not None:
+        _CACHE.move_to_end(key)
+        return hit[1]
+    with torch.no_grad():
+        out = fn()
+    _CACHE[key] = (tuple(sources), out)
+    if len(_CACHE) > _MAX_ENTRIES:
+        _CACHE.popitem(last=False)
+    return out
+
+
+def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in `dtype`; a parameter's copy is made once (see `derived`)."""
+    if t.dtype == dtype:
+        return t
+    return derived((t,), ("cast", dtype), lambda: t.to(dtype))

@@ -118,7 +118,9 @@ NEW_MODULES = {
     "data.pipeline", "data.samplers", "data.import_reference", "native",
     "native.plain", "tools.test", "tools.make_synthetic_data",
     "tools.dump_val_pairs", "tools.import_reference_store",
-    "tools.profile_loader"}
+    "tools.profile_loader", "utils.cache"}
+# the CUDA sources the bf16 serving path adds beside the float32 ones
+BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 
 
 def _run(code: str) -> dict:
@@ -135,6 +137,66 @@ def test_port_imports_no_jax_or_flax():
     have = {n.split(".", 1)[1] for n in out["names"]}
     assert NEW_MODULES <= have, NEW_MODULES - have
     assert not (out["jax"] or out["flax"] or out["optax"] or out["jax_pkg"])
+
+
+def test_bf16_kernel_sources_are_built_with_the_others():
+    """The bf16 kernels' translation units are csrc/ sources of the one
+    library (one nvcc each), plain C entry points, and name nothing of
+    JAX."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    names = {p.name for p in _lib.Library().sources()}
+    assert BF16_SOURCES <= names
+    for fn in ("pcr_sa_convmax_bf16", "pcr_match_pooled_bf16",
+               "pcr_match_pooled_image_bf16",
+               "pcr_match_pooled_bf16_layout"):
+        assert fn in _lib._SIGNATURES
+    for name in BF16_SOURCES:
+        with open(os.path.join(REPO, "point_cloud_reid_tpu_torch", "csrc",
+                               name)) as f:
+            text = f.read()
+        assert 'extern "C"' in text and "#include <cuda_bf16.h>" in text
+        assert not re.search(r"#include\s*[<\"](jax|xla|pallas)", text)
+
+
+_CPU_PATH_BF16 = """
+import ctypes, json, numpy as np, torch
+def refuse(*a, **k):
+    raise AssertionError('ctypes library touched on the CPU path')
+ctypes.CDLL = refuse
+from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
+from point_cloud_reid_tpu_torch.inference import PairScorer
+from point_cloud_reid_tpu_torch.kernels import _lib, match_grid, sa_stage
+from point_cloud_reid_tpu_torch.models import build_model
+from point_cloud_reid_tpu_torch.tracking import TrackingManager
+model = build_model(point_transformer_point_cat(
+    conv_out=16, mul=1, nsample=(8, 8, 8), backbone_list=(16, 8, 4)),
+    dtype=torch.bfloat16)
+rs = np.random.RandomState(0)
+c = (rs.rand(4, 3) * 10).astype(np.float32); c[:, 2] = 0
+boxes = np.concatenate([c, np.full((4, 3), 2, np.float32),
+                        np.zeros((4, 1), np.float32)], 1)
+for sparse, dc in (('always', True), ('never', True), ('never', False)):
+    mgr = TrackingManager(PairScorer(model), subsample_number=32,
+                          sparse_scoring=sparse, device_cache=dc)
+    for _ in range(2):
+        pts = np.repeat(c, 30, 0) + rs.randn(120, 3).astype(np.float32) * 0.4
+        mgr.step(pts, boxes, np.ones(4, np.float32), np.zeros(4, np.int64))
+    assert len(mgr.store.active()) >= 4
+print(json.dumps(dict(
+    loaded=_lib.LIBRARY._lib is not None,
+    launches=[f.bf16_launches for f in (
+        sa_stage.fused_sa_convmax, match_grid.fused_match_grid,
+        match_grid.fused_match_pairs, match_grid.fused_image_match_grid,
+        match_grid.fused_image_match_pairs)],
+    dtype=str(model.dtype))))
+"""
+
+
+def test_cpu_wrappers_at_bf16_never_touch_the_cuda_library():
+    """The bf16 tracker on the CPU (device cache dense and sparse, host
+    cache) runs the plain versions: no bf16 kernel counted, no library."""
+    out = _run(_CPU_PATH_BF16)
+    assert out == dict(loaded=False, launches=[0] * 5, dtype="torch.bfloat16")
 
 
 def test_no_source_file_of_the_port_names_a_jax_import():
@@ -214,9 +276,13 @@ def test_cpu_wrappers_never_touch_the_cuda_library():
      "no-such-store"],
     ["-m", "point_cloud_reid_tpu_torch.tools.profile_loader", "--root",
      "no-such-store"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.track", "--bf16", "--frames",
+     "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.track", "--image", "--bf16",
+     "--frames", "1"],
 ], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke",
         "track_image", "profile_tracker_image", "test", "train_root",
-        "profile_loader"])
+        "profile_loader", "track_bf16", "track_image_bf16"])
 def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():

@@ -572,3 +572,122 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
         la.linear_attention_forward(q, q[:, :, :1], q)
     with pytest.raises(ValueError):
         la.linear_attention_forward(q.half(), q.half(), q.half())
+
+
+# ---- the bf16 kernels (csrc/sa_stage_bf16.cu, csrc/match_grid_bf16.cu) ----
+#
+# Against their bf16 plain versions: the same bf16-rounded operands and
+# float32 accumulation on both sides, so only the summation order differs;
+# where a float32 value lies next to a bf16 rounding boundary, an operand or
+# an output may round one ulp apart. Relative to max(1, |plain|): one bf16
+# ulp is at most 2^-7 = 7.8e-3 of it (chip_smoke.py's BF16_TOL, measured).
+BF16_TOL = 1e-2
+
+
+def _close_bf16(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= BF16_TOL * max(1.0, want.float().abs().max().item()), err
+
+
+def _sa_args_bf16(cuda, B, N, S, K, C):
+    A, Ct, *rest = _sa_args(cuda, B, N, S, K, C)
+    return (A.to(torch.bfloat16), Ct.to(torch.bfloat16), *rest)
+
+
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (3, 40, 20, 12, 64),            # K = 12 does not divide M: CAS maxima
+    (4, 128, 128, 32, 128),         # the flagship's SA1, SA2, SA3 at B = 4
+    (4, 128, 64, 48, 256),
+    (4, 64, 32, 48, 512),
+    (2, 64, 32, 48, 1024),          # M = 16 < K
+    (3, 50, 25, 20, 96),
+    (2, 16, 9, 7, 32),
+])
+def test_sa_convmax_bf16_kernel_matches_plain(cuda, B, N, S, K, C):
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    args = _sa_args_bf16(cuda, B, N, S, K, C)
+    before = sa.fused_sa_convmax.launches, sa.fused_sa_convmax.bf16_launches
+    got = sa.fused_sa_convmax(*args)
+    assert (sa.fused_sa_convmax.launches,
+            sa.fused_sa_convmax.bf16_launches) == (before[0], before[1] + 1)
+    _close_bf16(got, sa.sa_convmax_reference(*args))
+
+
+def test_sa_convmax_bf16_kernel_refuses_other_widths(cuda):
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    before = sa.fused_sa_convmax.bf16_launches
+    for C in (48, 16, 1056):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sa.fused_sa_convmax(*_sa_args_bf16(cuda, 1, 8, 4, 4, C))
+    assert sa.fused_sa_convmax.bf16_launches == before
+
+
+# the serving shapes (the flagship's N = 128 at C = 64, DeiT's 197 / 198
+# tokens), the tiny models' C = 16, rows short of one slab, ragged slabs, and
+# the most rows the bf16 layout takes at C = 64
+@pytest.mark.parametrize("head,N,C", [
+    ("point", 128, 64), ("point", 40, 16), ("point", 33, 64),
+    ("point", 496, 64), ("image", 197, 64), ("image", 198, 64),
+    ("image", 6, 16), ("image", 70, 16)])
+def test_match_bf16_kernels_match_plain(cuda, head, N, C):
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt, nd = 3, 5
+    t, d, w1, w2, nhead = inputs(head, nt, nd, N, C, device=cuda,
+                                 dtype=torch.bfloat16)
+    grid_fn, pairs_fn = ((mg.fused_match_grid, mg.fused_match_pairs)
+                         if head == "point" else
+                         (mg.fused_image_match_grid,
+                          mg.fused_image_match_pairs))
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    before = grid_fn.launches, grid_fn.bf16_launches
+    grid = grid_fn(t, d, w1, w2, nhead)
+    assert (grid_fn.launches, grid_fn.bf16_launches) == (before[0],
+                                                         before[1] + 1)
+    _close_bf16(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                                ).reshape(nt, nd, -1))
+    t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([4, 1, 0, 3, 4], dtype=torch.int32, device=cuda)
+    before = pairs_fn.bf16_launches
+    pairs = pairs_fn(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert pairs_fn.bf16_launches == before + 1
+    # one per-pair code in both index modes: the same bits
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    with pytest.raises(IndexError, match="out of range"):
+        pairs_fn(t, d, w1, w2, nhead, t_idx, d_idx + 5)
+
+
+def test_match_bf16_kernels_refuse_the_rows_tier(cuda):
+    """At bf16 a shape the float32 kernels send to the rows tier (C = 128,
+    or more rows than the bf16 cluster layout holds) raises
+    NotImplementedError naming the ROADMAP item, before any launch; the
+    layout check's bytes are the plan's."""
+    import ctypes
+
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    lib = _lib.LIBRARY.get()
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    for (N, C), (status, want) in {(128, 64): (0, 123648),
+                                   (197, 64): (0, 146688),
+                                   (496, 64): (0, 229632),
+                                   (497, 64): (2, 234240),
+                                   (40, 16): (0, mg.cluster_bytes_bf16(40, 16)),
+                                   (128, 128): (1, 0)}.items():
+        assert lib.pcr_match_pooled_bf16_layout(
+            N, C, 2, ctypes.byref(need), ctypes.byref(limit)) == status
+        assert (need.value, limit.value) == (want, 232448)
+        if status != 1:
+            assert mg.cluster_bytes_bf16(N, C) == want
+    for N, C in ((128, 128), (497, 64)):
+        t, d, w1, w2, nhead = inputs("point", 2, 2, N, C, device=cuda,
+                                     dtype=torch.bfloat16)
+        before = (mg.fused_match_grid.launches,
+                  mg.fused_match_grid.bf16_launches)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*rows tier"):
+            mg.fused_match_grid(t, d, w1, w2, nhead)
+        assert (mg.fused_match_grid.launches,
+                mg.fused_match_grid.bf16_launches) == before
