@@ -85,15 +85,20 @@ Phases, each of which raises on failure:
      largest pair count up to 256 that fits, 3 kNN and 4 attention
      launches a step, step 1 against the knobs off to TRAIN_TOL, step ms
      and peak memory.
- 10. bf16 serving: the flagship and the DeiT-tiny leaf built at a bf16
-     compute dtype from the same seeded float32 weights; the bf16 kernels
-     (csrc/sa_stage_bf16.cu, csrc/match_grid_bf16.cu) against their bf16
+ 10. bf16 serving: the flagship, the DeiT-tiny leaf, the 7M leaf and the
+     2048-point ablation built at a bf16 compute dtype from the same seeded
+     float32 weights; the bf16 kernels (csrc/sa_stage_bf16.cu,
+     csrc/match_grid_bf16.cu, csrc/match_rows_bf16.cu) against their bf16
      plain versions to BF16_TOL at the serving shapes (SA1-3 at B=128, the
      128 x 128 grid, 512 pairs, the image grid 128 x 64 at S=197, 512
-     image pairs; pairs equal to their grid cells bit for bit) and the
-     rows tier's refusal at bf16; then, with every count at 0, the point
-     scene dense and sparse and the image scene dense and sparse through
-     TrackingManager at bf16, step ms, the bf16 kernels launched, and each
+     image pairs; the rows tier's 128 x 128 grid and 512 pairs at C = 128
+     and its 16 x 16 grid and 512 pairs at C = 64, N = 2048; pairs equal
+     to their grid cells bit for bit); then, with every count at 0, the
+     point scene dense and sparse and the image scene dense and sparse
+     through TrackingManager at bf16 (step ms), the 7M leaf two frames
+     dense and two sparse, and tools/track.py --bf16 serving the 2048-point
+     ablation at --subsample 2048 (5 frames, 16 objects): the bf16 kernels
+     launched (the rows tier by the last two), no float32 kernel, and each
      scene's last frame against the float32 port on the same crops
      (BF16_LOGIT_TOL).
 Each kernel's bound is the least time the card could take for the call: the
@@ -565,9 +570,9 @@ def phase_train_kernels(model):
     return rows
 
 
-def run_scene(model, sparse: str, **manager_kw):
-    """10 frames of the bench's drifting-objects scene; returns (per-frame
-    ms, the scorer, which holds the last frame, the manager)."""
+def run_scene(model, sparse: str, frames: int = FRAMES, **manager_kw):
+    """`frames` frames of the bench's drifting-objects scene; returns
+    (per-frame ms, the scorer, which holds the last frame, the manager)."""
     import torch
     from point_cloud_reid_tpu_torch.inference import PairScorer
     from point_cloud_reid_tpu_torch.tools.scenes import bench_scene
@@ -578,7 +583,7 @@ def run_scene(model, sparse: str, **manager_kw):
     mgr = TrackingManager(scorer, subsample_number=128, match_threshold=1.0,
                           seed=SEED, sparse_scoring=sparse, **manager_kw)
     times = []
-    for frame in bench_scene(N_OBJ, PTS_PER_OBJ, FRAMES, SEED):
+    for frame in bench_scene(N_OBJ, PTS_PER_OBJ, frames, SEED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mgr.step(*frame)
@@ -664,7 +669,9 @@ class TierCount:
 def all_counters() -> dict:
     """name in the kernels line -> the wrapper that carries `launches`; the
     tiers past the first kernels' shapes count on their own: kNN past 128
-    points and the match chain's rows tier."""
+    points and the match chain's rows tier; the bf16 kernels count apart
+    from the float32 ones, the match chain's by tier (`/bf16` the cluster
+    tier, `/rows_bf16` the rows tier)."""
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
@@ -682,10 +689,13 @@ def all_counters() -> dict:
                                                       ("rows",)),
                    "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
                                                        ("rows",))},
-                **{f"{fn.__name__}/bf16": Bf16Count(fn) for fn in (
-                    sa.fused_sa_convmax, mg.fused_match_grid,
-                    mg.fused_match_pairs, mg.fused_image_match_grid,
-                    mg.fused_image_match_pairs)})
+                **{"fused_sa_convmax/bf16": Bf16Count(sa.fused_sa_convmax)},
+                **{f"{fn.__name__}/bf16": TierCount(fn, ("cluster_bf16",))
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs,
+                              mg.fused_image_match_grid,
+                              mg.fused_image_match_pairs)},
+                **{f"{fn.__name__}/rows_bf16": TierCount(fn, ("rows_bf16",))
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs)})
 
 
 def zero_counters() -> dict:
@@ -1743,10 +1753,11 @@ def family_knn() -> dict:
 
 
 def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
-    """The match chain's rows tier at `model`'s width on n_obj x n_obj
-    embeddings of n_pts-point crops: the grid and a P-pair list against the
-    plain version, pairs equal to their grid cells bit for bit. Returns the
-    grid's and the pairs' measurements."""
+    """The match chain's rows tier at `model`'s width and compute dtype on
+    n_obj x n_obj embeddings of n_pts-point crops: the grid and a P-pair
+    list against the plain version (MATCH_TOL; a bf16 model's against the
+    bf16 plain version, BF16_TOL), pairs equal to their grid cells bit for
+    bit. Returns the grid's and the pairs' measurements."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.tools.timing import time_ms
@@ -1758,9 +1769,17 @@ def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
                                              device=DEVICE) * 0.6)
         t, d, w1, w2, nhead = mg.match_factors(model, h_t, xyz_t, h_d, xyz_d)
     C = h_t.shape[2]
-    how = mg.plan(n_pts, C, nhead)
+    bf16 = h_t.dtype == torch.bfloat16
+    how = mg.plan(n_pts, C, nhead, dtype=h_t.dtype)
     if how.tier != mg.ROWS:
         raise RuntimeError(f"N={n_pts} C={C}: plan {how}, not the rows tier")
+    tol = BF16_TOL if bf16 else MATCH_TOL
+
+    def bound(pairs, nbyte):
+        """(bound ms, what bounds it, float32 CUDA-core bound or None)."""
+        if bf16:
+            return (*bf16_bound(80.0 * pairs * n_pts * C * C, nbyte), None)
+        return match_bound(pairs, n_pts, C, nbyte)
     weights = list(w1.values()) + list(w2.values())
     ti = torch.arange(n_obj, device=DEVICE).repeat_interleave(n_obj)
     di = torch.arange(n_obj, device=DEVICE).repeat(n_obj)
@@ -1768,14 +1787,14 @@ def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
     want = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
                                      ).reshape(n_obj, n_obj, -1)
     torch.cuda.synchronize()
-    g_err, g_rel = rel_err(grid, want)
+    g_err, g_rel = rel_err(grid.float(), want.float())
     del want
     g_ms = time_ms(lambda: mg.fused_match_grid(t, d, w1, w2, nhead), 2,
                    warmup=1)
     g_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, ti, di), 1, warmup=0)
-    g_bound, g_by, g_simt = match_bound(n_obj * n_obj, n_pts, C, nbytes(
-        *t, *d, *weights, grid))
+    g_bound, g_by, g_simt = bound(n_obj * n_obj, nbytes(*t, *d, *weights,
+                                                        grid))
     t_idx = torch.randint(0, n_obj, (P,), generator=gen, device=DEVICE,
                           dtype=torch.int32)
     d_idx = torch.randint(0, n_obj, (P,), generator=gen, device=DEVICE,
@@ -1783,32 +1802,35 @@ def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
     pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     want = mg.match_pooled_reference(t, d, w1, w2, nhead, t_idx, d_idx)
     torch.cuda.synchronize()
-    p_err, p_rel = rel_err(pairs, want)
+    p_err, p_rel = rel_err(pairs.float(), want.float())
     same = torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
     p_ms = time_ms(lambda: mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx,
                                                 d_idx), 3, warmup=1)
     p_plain = time_ms(lambda: mg.match_pooled_reference(
         t, d, w1, w2, nhead, t_idx, d_idx), 1, warmup=0)
-    p_bound, p_by, p_simt = match_bound(P, n_pts, C, nbytes(
-        *t, *d, *weights, t_idx, d_idx, pairs))
-    print(f"[family:match] rows tier, C={C} N={n_pts} nhead={nhead}: grid "
+    p_bound, p_by, p_simt = bound(P, nbytes(*t, *d, *weights, t_idx, d_idx,
+                                            pairs))
+    tag = "bf16 rows tier" if bf16 else "rows tier"
+    simt = ("" if bf16 else f", float32 CUDA-core bounds {g_simt:.3f} / "
+            f"{p_simt:.3f}")
+    print(f"[family:match] {tag}, C={C} N={n_pts} nhead={nhead}: grid "
           f"{n_obj}x{n_obj} max_abs_err={g_err:.3e} rel={g_rel:.3e}, pairs "
-          f"P={P} max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol "
-          f"{MATCH_TOL:g}), pairs equal to their grid cells: {same}; grid "
-          f"{g_ms:.3f} ms (plain {g_plain:.3f}, bound {g_bound:.3f} {g_by}, "
-          f"float32 CUDA-core bound {g_simt:.3f}), pairs {p_ms:.3f} ms "
-          f"(plain {p_plain:.3f}, bound {p_bound:.3f} {p_by}, float32 "
-          f"CUDA-core bound {p_simt:.3f})", flush=True)
-    if not (g_rel <= MATCH_TOL and p_rel <= MATCH_TOL and same):
-        raise RuntimeError(f"the rows tier disagrees at C={C} N={n_pts}: "
+          f"P={P} max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol {tol:g}), "
+          f"pairs equal to their grid cells: {same}; grid {g_ms:.3f} ms "
+          f"(plain {g_plain:.3f}, bound {g_bound:.4f} {g_by}), pairs "
+          f"{p_ms:.3f} ms (plain {p_plain:.3f}, bound {p_bound:.4f} {p_by})"
+          f"{simt}", flush=True)
+    if not (g_rel <= tol and p_rel <= tol and same):
+        raise RuntimeError(f"the {tag} disagrees at C={C} N={n_pts}: "
                            f"{g_rel}, {p_rel}, pairs equal {same}")
     shape = dict(C=C, N=n_pts, nhead=nhead)
     return (dict(shape, grid=f"{n_obj}x{n_obj}", max_abs_err=g_err, ms=g_ms,
                  plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
-                 simt_fp32_bound_ms=g_simt, library_ms=None),
+                 library_ms=None,
+                 **({} if bf16 else dict(simt_fp32_bound_ms=g_simt))),
             dict(shape, P=P, max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
-                 bound_ms=p_bound, bound_by=p_by, simt_fp32_bound_ms=p_simt,
-                 library_ms=None))
+                 bound_ms=p_bound, bound_by=p_by, library_ms=None,
+                 **({} if bf16 else dict(simt_fp32_bound_ms=p_simt))))
 
 
 def family_sa(model, B: int, n_pts: int, stages: int) -> list:
@@ -1957,10 +1979,11 @@ def serve_profiled(model, sparse: str, label: str, card: str,
     return times, scorer, device_ms, busy
 
 
-def serve_ablation(card: str, every: dict) -> dict:
+def serve_ablation(card: str, every: dict, bf16: bool = False) -> tuple:
     """tools/track.py serves the 2048-point ablation at its crop size
-    (--subsample 2048, sparse 'auto') over a small synthetic scene; one
-    frame is held against plain scoring."""
+    (--subsample 2048, sparse 'auto'; with `bf16`, --bf16) over a small
+    synthetic scene; a float32 run's last frame is held against plain
+    scoring. Returns (the CLI's headline, its scorer)."""
     import contextlib
     import io
     import shutil
@@ -1982,24 +2005,28 @@ def serve_ablation(card: str, every: dict) -> dict:
             track.main([ABLATION, "--subsample", "2048", "--sparse", "auto",
                         "--scenes", "1", "--frames", "5", "--objects", "16",
                         "--pts-per-obj", "2400", "--match-threshold", "1.0",
-                        "--work-dir", work])
+                        "--work-dir", work] + (["--bf16"] if bf16 else []))
     finally:
         PairScorer.__init__ = init
     headline = json.loads(out.getvalue().strip().splitlines()[-1])
     cli = {k: fn.launches - before[k] for k, fn in every.items()}
-    print(f"[family:ablation] tools/track.py {ABLATION} --subsample 2048: "
-          f"launches {cli}; headline {json.dumps(headline)} on {card}",
-          flush=True)
-    if not (cli["fused_sa_convmax"] > 0 and cli["fused_match_pairs/rows"]
-            + cli["fused_match_grid/rows"] > 0):
-        raise RuntimeError("the ablation was not served through the SA "
-                           "kernel and the match chain's rows tier")
+    flag = " --bf16" if bf16 else ""
+    print(f"[family:ablation] tools/track.py {ABLATION} --subsample 2048"
+          f"{flag}: launches { {k: v for k, v in cli.items() if v} }; "
+          f"headline {json.dumps(headline)} on {card}", flush=True)
+    sa, rows = (("fused_sa_convmax/bf16", "rows_bf16") if bf16
+                else ("fused_sa_convmax", "rows"))
+    if not (cli[sa] > 0 and cli[f"fused_match_pairs/{rows}"]
+            + cli[f"fused_match_grid/{rows}"] > 0):
+        raise RuntimeError(f"the ablation{flag} was not served through the "
+                           f"SA kernel and the match chain's {rows} tier")
     scorer = scorers[-1]
     if scorer.last_frame["h_t"].shape[1] != 2048:
         raise RuntimeError("the CLI did not score 2048 rows a side")
-    check_frame(scorer.model, scorer.last_frame, "ablation")
+    if not bf16:
+        check_frame(scorer.model, scorer.last_frame, "ablation")
     shutil.rmtree(work, ignore_errors=True)
-    return headline
+    return headline, scorer
 
 
 def train_leaf(card: str, name: str) -> dict:
@@ -2068,6 +2095,21 @@ def train_leaf(card: str, name: str) -> dict:
                 peak_gib=peak / 2 ** 30, step1_rel=rels)
 
 
+def rows_tier_rows(scaled, ablation, tier: str, source: str) -> list:
+    """Kernels-line rows of a rows tier (`tier` "rows" or "rows_bf16"): the
+    grid row's numbers are the 7M model's 128 x 128 grid, the pairs row's
+    the 2048-point ablation's 512 pairs; each lists both shapes."""
+    grid128, pairs128 = family_match(scaled, 128, 128, 512)
+    grid64, pairs64 = family_match(ablation, 16, 2048, 512)
+    return [dict(name=f"{name}/{tier}", route="cuda",
+                 source=f"point_cloud_reid_tpu_torch/csrc/{source}",
+                 replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
+                          + line, **head, shapes=[head, extra])
+            for name, line, head, extra in (
+                ("fused_match_grid", "250", grid128, grid64),
+                ("fused_match_pairs", "355", pairs64, pairs128))]
+
+
 def phase_family(card: str):
     """Phase 9: the rest of the flagship family. The new kernel tiers and
     the kernels at the family's shapes against their plain versions; then,
@@ -2085,16 +2127,7 @@ def phase_family(card: str):
                            generator=torch.Generator().manual_seed(SEED))
     rows = [family_knn()]
     scaled, ablation = build(SCALED), build(ABLATION)
-    grid128, pairs128 = family_match(scaled, 128, 128, 512)
-    grid64, pairs64 = family_match(ablation, 16, 2048, 512)
-    for name, head, extra in (("fused_match_grid/rows", grid128, grid64),
-                              ("fused_match_pairs/rows", pairs64, pairs128)):
-        rows.append(dict(
-            name=name, route="cuda",
-            source="point_cloud_reid_tpu_torch/csrc/match_rows.cu",
-            replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
-                     + ("250" if "grid" in name else "355"),
-            **head, shapes=[head, extra]))
+    rows += rows_tier_rows(scaled, ablation, "rows", "match_rows.cu")
     extra = dict(fused_sa_convmax=family_sa(ablation, 512, 2048, 1)
                  + family_sa(scaled, 128, 128, 3),
                  linear_attention=family_attention())
@@ -2120,7 +2153,7 @@ def phase_family(card: str):
                               rows_launches=grid_n + pairs_n)
     del scaled, scorer
     torch.cuda.empty_cache()
-    summary["ablation_cli"] = serve_ablation(card, every)
+    summary["ablation_cli"] = serve_ablation(card, every)[0]
     torch.cuda.empty_cache()
     summary["train"] = [train_leaf(card, ABLATION), train_leaf(card, SCALED)]
     launches = {name: fn.launches for name, fn in every.items()}
@@ -2206,15 +2239,15 @@ def bf16_match_rows(model, t, d, w1, w2, nhead, head: str, gen) -> list:
     return rows
 
 
-def phase_bf16_kernels(model, image):
+def phase_bf16_kernels(model, image, scaled, ablation):
     """The bf16 kernels at the serving shapes against their bf16 plain
-    versions (kernels line rows `kernel/bf16`), and the rows tier's
-    NotImplementedError at bf16."""
+    versions (kernels line rows `kernel/bf16`), and the bf16 rows tier at
+    the 7M model's and the 2048-point ablation's shapes (rows
+    `kernel/rows_bf16`)."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
-    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
     from point_cloud_reid_tpu_torch.tools.timing import time_ms
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
     crops = torch.randn((128, 128, 3), generator=gen, device=DEVICE) * 0.6
@@ -2265,21 +2298,10 @@ def phase_bf16_kernels(model, image):
         factors = mg.image_match_factors(image, h[:128].contiguous(),
                                          h[128:].contiguous())
     rows += bf16_match_rows(image, *factors, "image", gen)
-    # the rows tier has no bf16 form: a shape it would take raises
-    t, d, w1, w2, nhead = inputs("point", 2, 2, 128, 128, device=DEVICE,
-                                 dtype=torch.bfloat16)
-    n0 = mg.fused_match_grid.launches, mg.fused_match_grid.bf16_launches
-    try:
-        mg.fused_match_grid(t, d, w1, w2, nhead)
-    except NotImplementedError as e:
-        refusal = str(e)
-    else:
-        raise RuntimeError("a C = 128 grid at bf16 did not raise")
-    if (mg.fused_match_grid.launches,
-            mg.fused_match_grid.bf16_launches) != n0:
-        raise RuntimeError("the refused bf16 shape launched a kernel")
-    print(f"[bf16] rows-tier shape at bf16 raises NotImplementedError: "
-          f"{refusal}", flush=True)
+    # the bf16 rows tier: the 7M model (C = 128) and the 2048-point ablation
+    # (past the bf16 cluster tier's 208 rows at C = 64)
+    rows += rows_tier_rows(scaled, ablation, "rows_bf16",
+                           "match_rows_bf16.cu")
     return rows
 
 
@@ -2339,7 +2361,8 @@ def phase_bf16(card: str):
     """Phase 10: bf16 serving. Returns (kernels-line rows, the path's
     launches, a summary)."""
     import torch
-    from point_cloud_reid_tpu_torch.configs import (image_deit_point_cat,
+    from point_cloud_reid_tpu_torch.configs import (get_experiment,
+                                                    image_deit_point_cat,
                                                     point_transformer_point_cat)
     from point_cloud_reid_tpu_torch.models import build_model
     t_phase = time.perf_counter()
@@ -2349,13 +2372,17 @@ def phase_bf16(card: str):
                            generator=torch.Generator().manual_seed(SEED))
     point16 = build(point_transformer_point_cat(), torch.bfloat16)
     image16 = build(image_deit_point_cat("deit-tiny-no-pt"), torch.bfloat16)
-    rows = phase_bf16_kernels(point16, image16)
+    scaled16 = build(get_experiment(SCALED)["model"], torch.bfloat16)
+    ablation16 = build(get_experiment(ABLATION)["model"], torch.bfloat16)
+    rows = phase_bf16_kernels(point16, image16, scaled16, ablation16)
+    del ablation16
+    torch.cuda.empty_cache()
     print(f"[bf16] kernel checks took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
-    # the four scenes with every count at 0; the comparisons after
+    # the scenes with every count at 0; the comparisons after
     every = zero_counters()
-    names = [n for n in every if n.endswith("/bf16")]
+    names = [n for n in every if n.endswith("bf16")]
     scenes = (("point dense", "never", ("fused_sa_convmax/bf16",
                                         "fused_match_grid/bf16")),
               ("point sparse", "auto", ("fused_sa_convmax/bf16",
@@ -2381,16 +2408,40 @@ def phase_bf16(card: str):
               f"median steady-state step {BF16_STEP_MS[label]:.3f} ms "
               f"(frames 4-10; all: {[round(x, 1) for x in ms]}) on {card}; "
               f"bf16 launches {summary[label]['launches']}", flush=True)
+    # the 7M leaf (C = 128: the bf16 rows tier), two frames dense and two
+    # sparse, and the 2048-point ablation served by tools/track.py --bf16
+    for label, sparse, want in (
+            ("7M dense", "never", "fused_match_grid/rows_bf16"),
+            ("7M sparse", "auto", "fused_match_pairs/rows_bf16")):
+        before = {n: every[n].launches for n in names}
+        ms, scorer, mgr = run_scene(scaled16, sparse, frames=2)
+        used = {n: every[n].launches - before[n] for n in names}
+        if not (used[want] > 0 and used["fused_sa_convmax/bf16"] > 0):
+            raise RuntimeError(f"bf16 {label}: launches {used}")
+        runs[label] = (scorer.last_frame, None)
+        summary[label] = dict(step_ms=ms, launches={
+            n: v for n, v in used.items() if v})
+        print(f"[bf16] {label}: {len(mgr.store.active())} active tracks, "
+              f"steps {[round(x, 1) for x in ms]} ms on {card}; bf16 "
+              f"launches {summary[label]['launches']}", flush=True)
+    headline, ablation_scorer = serve_ablation(card, every, bf16=True)
+    summary["ablation_cli"] = headline
     launches = {name: fn.launches for name, fn in every.items()}
-    f32 = {k: v for k, v in launches.items() if v and not k.endswith("/bf16")}
+    f32 = {k: v for k, v in launches.items() if v and not k.endswith("bf16")}
     if f32:
         raise RuntimeError(f"the bf16 path launched float32 kernels {f32}")
     point32 = build(point_transformer_point_cat(), torch.float32)
     image32 = build(image_deit_point_cat("deit-tiny-no-pt"), torch.float32)
+    scaled32 = build(get_experiment(SCALED)["model"], torch.float32)
+    ablation32 = build(get_experiment(ABLATION)["model"], torch.float32)
+    ablation32.load_state_dict(ablation_scorer.model.state_dict())
     for label, (rec, frame) in runs.items():
         summary[label]["logit_gap"] = (
-            bf16_point_gap(point32, rec, label) if frame is None
+            bf16_point_gap(scaled32 if label.startswith("7M") else point32,
+                           rec, label) if frame is None
             else bf16_image_gap(image16, image32, frame, label))
+    summary["ablation_cli"]["logit_gap"] = bf16_point_gap(
+        ablation32, ablation_scorer.last_frame, "ablation")
     print(f"[bf16] path launches {launches}; float32 steps of phases 3 and 5:"
           f" {STEP_MS}; phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)

@@ -1,14 +1,15 @@
-// Fused per-pair match chain at bf16, grid or pair list, on Hopper's bf16
-// tensor cores: the cluster tier of the match chain for a bf16 model.
+// Fused per-pair match chain at bf16, grid or pair list, on Hopper's
+// warpgroup tensor-core products (wgmma): the cluster tier of the match
+// chain for a bf16 model.
 //
 // Replaces the bf16 instances of the TPU kernels
-// point_cloud_reid_tpu/ops/pallas/match_grid.py fused_match_grid,
-// fused_match_pairs and the image head's pallas_image_grid_logits /
-// pallas_image_pair_logits (_kernel under a bf16 model). There the per-object
-// factors (h, q, kvz, a1, pv) and the pooled output are bf16, the weights
-// float32, and every product casts both operands to bf16 and accumulates in
-// float32 (_make_dot, bdot); the rest of the chain is float32. This kernel
-// rounds at the same places and nowhere else:
+// point_cloud_reid_tpu/ops/pallas/match_grid.py fused_match_grid (:250),
+// fused_match_pairs (:355) and the image head's pallas_image_grid_logits
+// (:686) / pallas_image_pair_logits (:514) (_kernel under a bf16 model).
+// There the per-object factors (h, q, kvz, a1, pv) and the pooled output are
+// bf16, the weights float32, and every product casts both operands to bf16
+// and accumulates in float32 (_make_dot, bdot); the rest of the chain is
+// float32. This kernel rounds at the same places and nowhere else:
 //
 //   stage 1, both directions (from the hoisted per-object factors):
 //     mz  = q @ bf16([KV | Z] of the other object)          float32
@@ -23,54 +24,89 @@
 //     then the stage-1 tail with fc1[:C] applied to bf16(o_search)
 //   point-cat pooling: max and mean over the 2N rows, out in bf16.
 //
-// Design: the float32 kernel's (csrc/match_grid.cu): a cluster of two blocks
-// a pair, block 0 the track side and block 1 the det side; each computes its
-// side's stage-1 output O (float32, in its shared memory), summarises it as
-// the template of the other block's stage-2 direction and writes [KV | ksum]
-// into the peer's shared memory, then runs its own stage-2 rows and pools
-// them; block 1 sends its pooled max and sum to block 0. Grid and pair mode
-// run the same per-pair code, so a pair's result is its grid cell's bit for
-// bit. Without POS (the image head) there is no position term and N is the
-// true token count.
-// What changes at bf16: every product is one mma.sync m16n8k16 bf16 pass.
-// The m16n8k16 A fragment of a 16-column k-step is exactly the accumulator
-// fragment of two 8-column n-tiles, so one product's output becomes the next
-// one's operand by packing register pairs (no shuffles). Every B operand is
-// stored in shared memory as (n, k) rows of bf16 (the weights' own (out,
-// in) layout, which the wrapper hands over once converted), padded by 8, so
-// that a fragment is two 32-bit loads free of bank conflicts. The k | v rows
-// of the summary are stored transposed (channel-major) for the same reason.
-// The stage-2 normaliser's head mask is generated in registers.
+// What bounds it on the H100: 80 N C^2 operations a pair in one bf16 pass
+// at 989 TFLOP/s (0.69 ms for the 128 x 128 grid at N = 128, C = 64; the
+// image grid at S = 197 pads its rows to 16 and its products to 64-row
+// tiles, which the bound does not count). Its first version (PR 12: one
+// two-block cluster a pair on mma.sync, 8.8 ms for that grid) restaged ~134
+// KB of weights for every pair, read its A operands from L2 inside the
+// k-loops, ran one block of 8 warps an SM and issued m16n8k16 products from
+// registers with B by 32-bit shared loads.
 //
-// Layout, bytes per block, C = 64, Np = N rounded up to 16:
-//   Wq (C x (C + 8) bf16)                         9,216
-//   then one of: stage 1's [KV | Z], merge, fc1[C:], fc2  63,488
-//                the kv projection and the 128-row k | v chunk  53,248
-//                stage 2's merge, fc1, fc2          61,440
-//   own O (Np x (C + 8) float32)                  36,864 at N = 128
-//   the peer's KV (C x (C + 8) bf16) and ksum      9,472
-//   pooling (8 warps x 2C + 2C float32)            4,608
-// 123,648 bytes at N = 128, 146,688 at S = 197 / 198: N up to 496 fits at
-// C = 64. C = 128 does not fit a block (the float32 kernel's rows tier,
-// csrc/match_rows.cu, has no bf16 form yet).
+// Design:
+//  - a persistent two-block cluster (block 0 the track side, block 1 the
+//    det side) walks the pairs p = cluster, cluster + clusters, ...; as many
+//    clusters as the card holds at once. The cluster is kept: a side's
+//    stage-1 output O (float32) beside the resident weights leaves no room
+//    for the other side's, so one block cannot hold a pair;
+//  - all 15 C^2 bf16 weights (122,880 bytes at C = 64; stage 1 keeps only
+//    the fc1[C:] half) and the stage-2 normaliser's head mask are staged
+//    once a block, in the K-major 128-byte-swizzle layout wgmma reads
+//    (csrc/bf16_mma.cuh), and stay for the block's lifetime;
+//  - the next pair's [KV | Z] of the other side (2C x C bf16) is copied by
+//    cp.async into a buffer that the summary's staging shares, once the
+//    summary is done, so the copy overlaps stage 2 (one buffer, not a
+//    two-stage ring: stage 1 alone reads it, and a second 16 KB does not
+//    fit beside the resident weights at S = 198); the next pair's q (the
+//    first product's A) is loaded into registers at the end of a pair, so
+//    its latency overlaps the pooling and the cluster barrier; a1, h and pv
+//    are loaded at the start of a row tile, ahead of the products that
+//    wait on them (more prefetched registers spill: 255 is the most a
+//    thread has);
+//  - every product is wgmma m64nNk16 (N = C or 2C, float32 accumulators).
+//    Two warpgroups a block take 64-row tiles of the side in turn (one
+//    each at N = 128; two each at S = 197 / 198, the last tile padded).
+//    A comes from registers: the previous product's accumulator packed to
+//    bf16, or O's rows read from shared memory; B from the resident
+//    weights. Products that do not wait on each other share a commit group
+//    (q @ KV and the normaliser; merge and the search half of fc1);
+//  - the template summary: each warpgroup projects its tile's [k | v],
+//    stores bf16(k) and bf16(v) channel-major with stmatrix's transposing
+//    store (K-major for KV = k^T v: the tile's rows are the contraction;
+//    so every product reads one descriptor form) and adds k^T v with both
+//    operands from shared memory; the two warpgroups' sums meet in shared
+//    memory, the head mask is applied in registers, and KV^T (K-major, the
+//    B operand of q @ KV, staged by stmatrix) goes to the peer block's
+//    shared memory 16 bytes a store, with sum k;
+//  - LayerNorm, elu+1, split-norm, ReLU and the max + mean pooling stay
+//    float32 on the CUDA cores, on the accumulator fragments (a row's
+//    columns lie in one quad); the divisions are __fdividef and elu+1's
+//    exponential __expf (a few float32 ulps, far inside a bf16 ulp).
+// Measured on the H100 (PERF.md section 6): about 2.3x PR 12's kernel and
+// 5.3x its bound. A phase profile (clock64) reads it latency-bound: two
+// warpgroups an SM, each a chain of dependent products and epilogues with
+// block and cluster barriers between the phases, at 252-255 registers a
+// thread, so nothing more can be prefetched or kept in flight.
+// Grid and pair mode run the same per-pair code, and no sum depends on the
+// cluster or order a pair is scored in, so a pair's result is its grid
+// cell's bit for bit. Without POS (the image head) there is no position term
+// and N is the true token count.
 //
-// What bounds it on the H100: 80 N C^2 operations a pair in one bf16 pass at
-// 989 TFLOP/s (0.69 ms for the 128 x 128 grid at N = 128, C = 64).
+// Layout, bytes a block, C = 64, Np = N rounded up to 16:
+//   1,024 alignment, weights 122,880, mask 8,192, the peer's KV^T 8,192,
+//   the [KV | Z] buffer / the summary's staging / the KV sum 32,768,
+//   own O (Np x C float32, columns XOR-swizzled) 32,768 at N = 128,
+//   sum k, partials and the peer's pooling 4,864:
+// 210,688 bytes at N = 128, 231,168 at S = 197 / 198: N up to 208 fits at
+// C = 64. Larger point-head shapes go to the rows tier
+// (csrc/match_rows_bf16.cu).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace bf16mma;
 
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int CHUNK = 128;                  // rows of the k|v summary chunk
+constexpr int THREADS = 256;                // two warpgroups
+constexpr int WARPS = THREADS / 32;
+constexpr int TILE = 64;                    // rows of a warpgroup's tile
 constexpr size_t SMEM_LIMIT = 232448;       // dynamic shared memory a block may take
 constexpr float EPS = 1e-6f;
 constexpr float LN_EPS = 1e-5f;
@@ -97,99 +133,55 @@ struct Weights {
   const bf16* kv2;    // (2C, C) = [Wk | Wv] in (out, in) layout
 };
 
-// Shared-memory layout for channel count C, in bf16 elements (weights) and
-// bytes (the regions). A B operand of k-extent K is stored as (n, K + 8).
+// Bytes of a K-major operand of R rows and K columns (panels of 64).
+constexpr int op_bytes(int R, int K) { return R * 128 * ((K + 63) / 64); }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// Shared-memory layout for channel count C, byte offsets from the
+// 1024-aligned base; every operand region is a multiple of 1024 bytes.
 template <int C> struct Layout {
-  static constexpr int LD1 = C + 8, LD2 = 2 * C + 8, LDK = CHUNK + 8;
-  static constexpr int Q2 = 0, REST = C * LD1;          // Wq, then one phase's
-  // stage 1
-  static constexpr int KVZ1 = REST, MERGE1 = KVZ1 + 2 * C * LD1,
-                       FC1B1 = MERGE1 + C * LD1, FC2_1 = FC1B1 + 2 * C * LD1,
-                       END1 = FC2_1 + C * LD2;
-  // the summary
-  static constexpr int KV2 = REST, CHUNKT = KV2 + 2 * C * LD1,
-                       END_S = CHUNKT + 2 * C * LDK;
-  // stage 2
-  static constexpr int MERGE2 = REST, FC1_2 = MERGE2 + C * LD1,
-                       FC2_2 = FC1_2 + 2 * C * LD2, END2 = FC2_2 + C * LD2;
-  static constexpr int WELEMS = END1 > END_S ? (END1 > END2 ? END1 : END2)
-                                             : (END_S > END2 ? END_S : END2);
-  static constexpr size_t W_BYTES = (size_t)WELEMS * 2;
-  static constexpr size_t KV_BYTES = (size_t)C * LD1 * 2;
-  static constexpr size_t TAIL_BYTES = (size_t)(C + WARPS * 2 * C + 2 * C) * 4;
+  static constexpr int MERGE1 = 0;
+  static constexpr int FC1B1 = MERGE1 + op_bytes(C, C);          // fc1[C:]: (2C, C)
+  static constexpr int FC2_1 = FC1B1 + op_bytes(2 * C, C);        // (C, 2C)
+  static constexpr int Q2 = FC2_1 + op_bytes(C, 2 * C);
+  static constexpr int KV2 = Q2 + op_bytes(C, C);                 // (2C, C)
+  static constexpr int MERGE2 = KV2 + op_bytes(2 * C, C);
+  static constexpr int FC1_2 = MERGE2 + op_bytes(C, C);           // (2C, 2C)
+  static constexpr int FC2_2 = FC1_2 + op_bytes(2 * C, 2 * C);
+  static constexpr int MASK = FC2_2 + op_bytes(C, 2 * C);         // (C, C)
+  static constexpr int KVT = MASK + op_bytes(C, C);               // the peer's KV^T
+  // the summary's staging a warpgroup: k^T (64 rows: wgmma's M, C of them
+  // valid) and v^T (C rows), K = the tile's 64 rows
+  static constexpr int KT_BYTES = op_bytes(TILE, TILE);
+  static constexpr int STAGE_BYTES = KT_BYTES + op_bytes(C, TILE);
+  static constexpr int RING = KVT + op_bytes(C, C);
+  static constexpr int RING_BYTES =
+      cmax(cmax(op_bytes(2 * C, C), 2 * STAGE_BYTES), 128 * (C / 2) * 4 + op_bytes(C, C));
+  // KV^T staged for the copy to the peer, after the KV sum in the ring
+  static constexpr int KV_SUM_BYTES = 128 * (C / 2) * 4;
+  static constexpr int KVT_OUT = RING + KV_SUM_BYTES;
+  static_assert(KV_SUM_BYTES + op_bytes(C, C) <= RING_BYTES, "KV^T staging");
+  static constexpr int O = RING + RING_BYTES;
+  // after O: sum k of the peer (C), partials (8 warps x 2C), the peer's
+  // pooling (2C), float32
+  static constexpr int SMALL = (C + WARPS * 2 * C + 2 * C) * 4;
   static size_t bytes(int N) {
     const int Np = (N + 15) / 16 * 16;
-    return W_BYTES + (size_t)Np * LD1 * 4 + KV_BYTES + TAIL_BYTES;
+    return 1024 + (size_t)O + (size_t)Np * C * 4 + SMALL;
   }
 };
 
-__device__ __forceinline__ float elu1(float x) { return x > 0.f ? x + 1.f : expf(x); }
+__device__ __forceinline__ float elu1(float x) { return x > 0.f ? x + 1.f : __expf(x); }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
+// Column index of O's element (r, c) in its row: 8-float groups XOR r % (C / 8),
+// so the A-fragment reads of 8 rows meet no bank twice.
+template <int C>
+__device__ __forceinline__ int ocol(int r, int c) {
+  return c ^ ((r & (C / 8 - 1)) << 3);
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[j] += A (16 x 16 NK) @ B (16 NK x 8 NN) for one warp. B is stored in
-// shared memory as (n, k) rows of leading dimension ld, from column kofs;
-// getA(kk, a) fills the bf16 A fragment of k-step kk: a[0] (row g, cols 2t,
-// 2t + 1), a[1] (g + 8, 2t..), a[2] (g, 2t + 8..), a[3] (g + 8, 2t + 8..),
-// g = lane / 4, t = lane % 4 (PTX m16n8k16 .bf16).
-template <int NK, int NN, class GetA>
-__device__ __forceinline__ void warp_gemm(float (&acc)[NN][4], GetA getA, const bf16* B,
-                                          int ld, int kofs, int ncol0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < NK; ++kk) {
-    uint32_t a[4];
-    getA(kk, a);
-#pragma unroll
-    for (int j = 0; j < NN; ++j) {
-      const bf16* b = B + (ncol0 + j * 8 + g) * ld + kofs + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a, ld32(b), ld32(b + 8));
-    }
-  }
-}
-
-template <int NN>
-__device__ __forceinline__ void zero(float (&acc)[NN][4]) {
-#pragma unroll
-  for (int j = 0; j < NN; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-}
-
-// The A fragment of k-step kk from a warp's accumulator (16 rows x 8 NN
-// columns in n-tiles of 8): n-tiles 2 kk and 2 kk + 1, rounded to bf16.
-template <int NN>
-__device__ __forceinline__ void a_from_acc(const float (&acc)[NN][4], int kk,
-                                           uint32_t (&a)[4]) {
-  a[0] = pack_bf16(acc[2 * kk][0], acc[2 * kk][1]);
-  a[1] = pack_bf16(acc[2 * kk][2], acc[2 * kk][3]);
-  a[2] = pack_bf16(acc[2 * kk + 1][0], acc[2 * kk + 1][1]);
-  a[3] = pack_bf16(acc[2 * kk + 1][2], acc[2 * kk + 1][3]);
-}
-
-// LayerNorm of the 16 rows of a C-wide accumulator, in registers: a row's
-// columns lie in one quad, so two xor-shuffles finish each sum.
+// LayerNorm of the rows of a C-wide accumulator (rows g and g + 8 of the
+// warp), in registers: a row's columns lie in one quad.
 template <int NT>
 __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
                                                const float* __restrict__ s,
@@ -197,7 +189,7 @@ __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
   constexpr float invC = 1.f / (8 * NT);
   const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {   // rows g and g + 8
+  for (int half = 0; half < 2; ++half) {
     float sum = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) sum += acc[j][2 * half] + acc[j][2 * half + 1];
@@ -224,71 +216,90 @@ __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
   }
 }
 
-// ---- staging ------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Copy `rows` x `cols` bf16 (leading dimension lds in device memory) to rows
-// of leading dimension ldd in shared memory, 16 bytes a copy, whole block.
-__device__ __forceinline__ void stage(bf16* dst, int ldd, const bf16* __restrict__ src,
-                                      int rows, int cols, int lds) {
-  const int per = cols / 8;
+// Copy a rows x K bf16 matrix (row stride ld, from column koff) into a
+// K-major 128-byte-swizzle region, 16 bytes a cp.async, whole block.
+__device__ __forceinline__ void stage_sw(uint32_t dst, const bf16* __restrict__ src, int rows,
+                                         int K, int ld, int koff) {
+  const int per = K / 8;
   for (int e = threadIdx.x; e < rows * per; e += THREADS) {
-    const int r = e / per, c = (e - r * per) * 8;
-    cp_async16(dst + r * ldd + c, src + (size_t)r * lds + c);
+    const int r = e / per, c = e - r * per;
+    cp_async16(dst + sw128(r, c * 8, rows), src + (size_t)r * ld + koff + c * 8);
   }
 }
 
-// ---- one warp's 16-row slab -------------------------------------------------------
+// acc += A @ B for a warpgroup: KS k-steps of the A fragments `a`, B the
+// K-major operand of R rows at `base`, columns from k0.
+template <int N, int KS>
+__device__ __forceinline__ void issue(float (&acc)[N / 8][4], const uint32_t (&a)[KS][4],
+                                      uint32_t base, int R, int k0) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) Wgmma<N>::rs(acc, a[kk], desc_at(base, R, 0, k0 + 16 * kk));
+}
 
-// y = LN2(relu(hid + LN1(msg @ merge) @ fc1[kofs:kofs + C]) @ fc2) for a
-// slab, where hid arrives holding the search half of the FFN's first layer.
+template <int N>
+__device__ __forceinline__ void finish(float (&acc)[N / 8][4]) {
+  wg_commit();
+  wg_wait<0>();
+  wg_pin(acc);
+}
+
+// The A fragments of bf16(O) for a warp's rows r (g) and r + 8, or zeros
+// past the rows O holds.
 template <int C>
-__device__ __forceinline__ void ffn_tail(const float (&msg)[C / 8][4],
-                                         float (&hid)[C / 4][4], const Tail& w,
-                                         const bf16* merge, const bf16* fc1, int ld_fc1,
-                                         int kofs, const bf16* fc2, float (&y)[C / 8][4]) {
-  constexpr int NT = C / 8, KS = C / 16;
-  float m[NT][4];
-  zero(m);
-  warp_gemm<KS, NT>(m, [&](int kk, uint32_t (&a)[4]) { a_from_acc(msg, kk, a); },
-                    merge, C + 8, 0, 0);
-  layer_norm_acc(m, w.ln1s, w.ln1b);
-  warp_gemm<KS, 2 * NT>(hid, [&](int kk, uint32_t (&a)[4]) { a_from_acc(m, kk, a); },
-                        fc1, ld_fc1, kofs, 0);
+__device__ __forceinline__ void o_frags(const float* O, int r, bool held,
+                                        uint32_t (&a)[C / 16][4]) {
+  const int t = threadIdx.x & 3;
+  if (!held) r &= 7;                           // a row O holds; zeros below
 #pragma unroll
-  for (int j = 0; j < 2 * NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
-  zero(y);
-  warp_gemm<2 * KS, NT>(y, [&](int kk, uint32_t (&a)[4]) { a_from_acc(hid, kk, a); },
-                        fc2, 2 * C + 8, 0, 0);
-  layer_norm_acc(y, w.ln2s, w.ln2b);
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    const float2 x0 = *reinterpret_cast<const float2*>(O + r * C + ocol<C>(r, c));
+    const float2 x1 = *reinterpret_cast<const float2*>(O + (r + 8) * C + ocol<C>(r + 8, c));
+    const float2 x2 = *reinterpret_cast<const float2*>(O + r * C + ocol<C>(r, c + 8));
+    const float2 x3 = *reinterpret_cast<const float2*>(O + (r + 8) * C + ocol<C>(r + 8, c + 8));
+    a[kk][0] = held ? pack_bf16(x0.x, x0.y) : 0u;
+    a[kk][1] = held ? pack_bf16(x1.x, x1.y) : 0u;
+    a[kk][2] = held ? pack_bf16(x2.x, x2.y) : 0u;
+    a[kk][3] = held ? pack_bf16(x3.x, x3.y) : 0u;
+  }
 }
 
-// A fragment from float32 rows in shared memory (leading dimension ld),
-// rows g and g + 8 of the slab at p, rounded to bf16.
-struct RowsA {
-  const float* p; int ld;
-  __device__ __forceinline__ void operator()(int kk, uint32_t (&a)[4]) const {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const float* r = p + g * ld + kk * 16 + 2 * t;
-    const float2 x0 = *reinterpret_cast<const float2*>(r);
-    const float2 x1 = *reinterpret_cast<const float2*>(r + 8 * ld);
-    const float2 x2 = *reinterpret_cast<const float2*>(r + 8);
-    const float2 x3 = *reinterpret_cast<const float2*>(r + 8 * ld + 8);
-    a[0] = pack_bf16(x0.x, x0.y);
-    a[1] = pack_bf16(x1.x, x1.y);
-    a[2] = pack_bf16(x2.x, x2.y);
-    a[3] = pack_bf16(x3.x, x3.y);
+// A 32-bit load of row r (clamped into the N rows, read as 0 when `valid`
+// is false): unconditional, so that no wgmma operand is defined on a
+// divergent path.
+__device__ __forceinline__ uint32_t row_ld(const bf16* p, int r, int ld, int N, int c,
+                                           bool valid) {
+  const uint32_t x = ldg32(p + (size_t)min(r, N - 1) * ld + c);
+  return valid ? x : 0u;
+}
+
+// The A fragments of q for a warp's rows r0 (16-row slab + g) and r0 + 8.
+template <int C>
+__device__ __forceinline__ void load_q(uint32_t (&aq)[C / 16][4], const bf16* qX, int r0,
+                                       int N) {
+  const int t = threadIdx.x & 3, r1 = r0 + 8;
+#pragma unroll
+  for (int kk = 0; kk < C / 16; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    aq[kk][0] = row_ld(qX, r0, C, N, c, r0 < N);
+    aq[kk][1] = row_ld(qX, r1, C, N, c, r1 < N);
+    aq[kk][2] = row_ld(qX, r0, C, N, c + 8, r0 < N);
+    aq[kk][3] = row_ld(qX, r1, C, N, c + 8, r1 < N);
   }
-};
+}
+
+// A (N, W) bf16 matrix's elements of a warp's rows r0, r0 + 8 by 8-column
+// n-tile, as bf16 pairs: the layout of an accumulator.
+template <int W>
+__device__ __forceinline__ void load_rows(uint32_t (&x)[W / 8][2], const bf16* p, int r0,
+                                          int N) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    x[j][0] = row_ld(p, r0, W, N, j * 8 + 2 * t, r0 < N);
+    x[j][1] = row_ld(p, r0 + 8, W, N, j * 8 + 2 * t, r0 + 8 < N);
+  }
+}
 
 // ---- the kernel ---------------------------------------------------------------------
 
@@ -296,339 +307,438 @@ template <int C, bool POS>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
 match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
                          const int* __restrict__ d_idx, bf16* __restrict__ out,
-                         int nt, int nd, int N, int H) {
+                         int nt, int nd, int P, int N, int H) {
   using L = Layout<C>;
   constexpr int NT = C / 8, KS = C / 16;
-  constexpr int LD1 = L::LD1, LD2 = L::LD2, LDK = L::LDK, LDO = C + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(smem);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int Np = (N + 15) / 16 * 16;
-  const int slabs = Np / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // warpgroup and warp within it, broadcast so that the compiler sees them
+  // uniform across a warp (a wgmma's operands are then never defined on a
+  // divergent path)
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int wq = __shfl_sync(0xffffffffu, warp & 3, 0);
+  const int Np = (N + 15) / 16 * 16, ntiles = (N + TILE - 1) / TILE;
   const int D = C / H;
-
-  bf16* Wr = reinterpret_cast<bf16*>(smem);                          // weights
-  float* O = reinterpret_cast<float*>(smem + L::W_BYTES);            // [Np][C + 8]
-  bf16* KVT = reinterpret_cast<bf16*>(O + Np * LDO);                 // [C][C + 8] peer's KV^T
-  float* ksp = reinterpret_cast<float*>(smem + L::W_BYTES + (size_t)Np * LDO * 4 + L::KV_BYTES);
-  float* part = ksp + C;                                             // [WARPS][2C]
-  float* pool = part + WARPS * 2 * C;                                // [2C] the peer's max | sum
-  bf16* chunk = Wr + L::CHUNKT;                                      // [2C][CHUNK + 8] k | v, transposed
-
-  const int p = blockIdx.x >> 1;
-  int ti, dj;
-  if (t_idx != nullptr) {              // pair list, range-checked by the wrapper;
-                                       // the clamp only bounds the reads
-    ti = min(max(t_idx[p], 0), nt - 1);
-    dj = min(max(d_idx[p], 0), nd - 1);
-  } else {
-    ti = p / nd;
-    dj = p - ti * nd;
-  }
-  // own side X (block 0: the track, block 1: the det) and the other side Y
-  const Side X = rank == 0 ? T : Dt;
-  const int xi = rank == 0 ? ti : dj, yi = rank == 0 ? dj : ti;
   const size_t nc = (size_t)N * C;
-  const bf16* hX = X.h + xi * nc;
-  const bf16* qX = X.q + xi * nc;
-  const bf16* aX = X.a1 + xi * 2 * nc;
-  const bf16* kvzY = (rank == 0 ? Dt.kvz : T.kvz) + (size_t)yi * 2 * C * C;
 
-  // stage 1's weights and Wq
-  stage(Wr + L::Q2, LD1, w.q2, C, C, C);
-  stage(Wr + L::KVZ1, LD1, kvzY, 2 * C, C, C);
-  stage(Wr + L::MERGE1, LD1, w.s1.merge, C, C, C);
-  stage(Wr + L::FC1B1, LD1, w.s1.fc1 + C, 2 * C, C, 2 * C);
-  stage(Wr + L::FC2_1, LD2, w.s1.fc2, C, 2 * C, 2 * C);
-  cp_commit();
-  // the peer must have started before its shared memory is written
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  cp_wait<0>();
-  __syncthreads();
+  float* O = reinterpret_cast<float*>(smem + L::O);                 // [Np][C]
+  float* ksp = O + (size_t)Np * C;                                  // [C] the peer's sum k
+  float* part = ksp + C;                                            // [WARPS][2C]
+  float* pool = part + WARPS * 2 * C;                               // [2C] the peer's max | sum
+  float* scratch = reinterpret_cast<float*>(smem + L::RING);        // the KV sum
+  const uint32_t ring = sb + L::RING;
+  const uint32_t kt_buf = ring + wg * L::STAGE_BYTES, vt_buf = kt_buf + L::KT_BYTES;
 
-  // ---- stage 1: O = h + LN2(relu(a1 + LN1(split_norm(q @ kvzY) @ merge) @ fc1[C:]) @ fc2)
-  for (int s = warp; s < slabs; s += WARPS) {
-    const int r0 = s * 16 + g, r1 = r0 + 8;
-    const bool v0 = r0 < N, v1 = r1 < N;
-    float mz[2 * NT][4];
-    zero(mz);
-    warp_gemm<KS, 2 * NT>(mz, [&](int kk, uint32_t (&a)[4]) {
-      const int c = kk * 16 + 2 * t;
-      a[0] = v0 ? ldg32(qX + (size_t)r0 * C + c) : 0u;
-      a[1] = v1 ? ldg32(qX + (size_t)r1 * C + c) : 0u;
-      a[2] = v0 ? ldg32(qX + (size_t)r0 * C + c + 8) : 0u;
-      a[3] = v1 ? ldg32(qX + (size_t)r1 * C + c + 8) : 0u;
-    }, Wr + L::KVZ1, LD1, 0, 0);
-    float msg[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) msg[j][i] = mz[j][i] / (mz[NT + j][i] + EPS);
-    float hid[2 * NT][4];
-#pragma unroll
-    for (int j = 0; j < 2 * NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float2 x0 = v0 ? unpack_bf16(ldg32(aX + (size_t)r0 * 2 * C + c))
-                           : make_float2(0.f, 0.f);
-      const float2 x1 = v1 ? unpack_bf16(ldg32(aX + (size_t)r1 * 2 * C + c))
-                           : make_float2(0.f, 0.f);
-      hid[j][0] = x0.x; hid[j][1] = x0.y; hid[j][2] = x1.x; hid[j][3] = x1.y;
-    }
-    float y[NT][4];
-    ffn_tail<C>(msg, hid, w.s1, Wr + L::MERGE1, Wr + L::FC1B1, LD1, 0, Wr + L::FC2_1, y);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      float2 o0 = make_float2(0.f, 0.f), o1 = make_float2(0.f, 0.f);
-      if (v0) {
-        const float2 h = unpack_bf16(ldg32(hX + (size_t)r0 * C + c));
-        o0 = make_float2(h.x + y[j][0], h.y + y[j][1]);
-      }
-      if (v1) {
-        const float2 h = unpack_bf16(ldg32(hX + (size_t)r1 * C + c));
-        o1 = make_float2(h.x + y[j][2], h.y + y[j][3]);
-      }
-      *reinterpret_cast<float2*>(O + r0 * LDO + c) = o0;
-      *reinterpret_cast<float2*>(O + r1 * LDO + c) = o1;
-    }
+  // the weights, once
+  stage_sw(sb + L::MERGE1, w.s1.merge, C, C, C, 0);
+  stage_sw(sb + L::FC1B1, w.s1.fc1, 2 * C, C, 2 * C, C);
+  stage_sw(sb + L::FC2_1, w.s1.fc2, C, 2 * C, 2 * C, 0);
+  stage_sw(sb + L::Q2, w.q2, C, C, C, 0);
+  stage_sw(sb + L::KV2, w.kv2, 2 * C, C, C, 0);
+  stage_sw(sb + L::MERGE2, w.s2.merge, C, C, C, 0);
+  stage_sw(sb + L::FC1_2, w.s2.fc1, 2 * C, 2 * C, 2 * C, 0);
+  stage_sw(sb + L::FC2_2, w.s2.fc2, C, 2 * C, 2 * C, 0);
+  // the head mask (symmetric): 1.0 in bf16 is 0x3f80
+  for (int e = tid; e < C * C; e += THREADS) {
+    const int n = e / C, k = e - n * C;
+    *reinterpret_cast<uint16_t*>(smem + L::MASK + sw128(n, k, C)) =
+        n / D == k / D ? (uint16_t)0x3f80u : (uint16_t)0u;
   }
-  __syncthreads();                             // O complete, stage-1 weights free
-  stage(Wr + L::KV2, LD1, w.kv2, 2 * C, C, C);
-  cp_commit();
-  cp_wait<0>();
-  __syncthreads();
 
-  // ---- the template summary of the peer's direction: k = elu1(O Wk),
-  // v = O Wv + pv, KV = bf16(k)^T bf16(v) and ksum, in chunks of 128 rows
-  constexpr int MT = C / 16;                   // 16-row tiles of KV's C rows
-  constexpr int TPW = (MT * NT + WARPS - 1) / WARPS;
-  const bf16* pvX = POS ? X.pv + xi * nc : nullptr;
-  float kv[TPW][4];
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) kv[i][0] = kv[i][1] = kv[i][2] = kv[i][3] = 0.f;
-  float kp[NT][2];                             // this thread's part of sum k
-#pragma unroll
-  for (int j = 0; j < NT; ++j) kp[j][0] = kp[j][1] = 0.f;
-  for (int cb = 0; cb < Np; cb += CHUNK) {
-    const int s = cb / 16 + warp;
-    if (s < slabs) {
-      const int r0 = s * 16 + g, r1 = r0 + 8;
-      const bool v0 = r0 < N, v1 = r1 < N;
-      float kvr[2 * NT][4];
-      zero(kvr);
-      warp_gemm<KS, 2 * NT>(kvr, RowsA{O + s * 16 * LDO, LDO}, Wr + L::KV2, LD1, 0, 0);
-      const int rr = warp * 16 + g;            // the slab's rows in the chunk
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-        const int c = j * 8 + 2 * t;
-        float2 e0, e1;
-        if (j < NT) {
-          e0 = make_float2(elu1(kvr[j][0]), elu1(kvr[j][1]));
-          e1 = make_float2(elu1(kvr[j][2]), elu1(kvr[j][3]));
-        } else {
-          e0 = make_float2(kvr[j][0], kvr[j][1]);
-          e1 = make_float2(kvr[j][2], kvr[j][3]);
-          if constexpr (POS) {
-            const int cv = c - C;
-            if (v0) {
-              const float2 q = unpack_bf16(ldg32(pvX + (size_t)r0 * C + cv));
-              e0.x += q.x; e0.y += q.y;
-            }
-            if (v1) {
-              const float2 q = unpack_bf16(ldg32(pvX + (size_t)r1 * C + cv));
-              e1.x += q.x; e1.y += q.y;
-            }
-          }
-        }
-        if (!v0) e0 = make_float2(0.f, 0.f);   // rows past N add nothing
-        if (!v1) e1 = make_float2(0.f, 0.f);
-        if (j < NT) {
-          kp[j][0] += e0.x + e1.x;
-          kp[j][1] += e0.y + e1.y;
-        }
-        chunk[c * LDK + rr] = __float2bfloat16_rn(e0.x);
-        chunk[(c + 1) * LDK + rr] = __float2bfloat16_rn(e0.y);
-        chunk[c * LDK + rr + 8] = __float2bfloat16_rn(e1.x);
-        chunk[(c + 1) * LDK + rr + 8] = __float2bfloat16_rn(e1.y);
-      }
+  const int cid = blockIdx.x >> 1, ncl = gridDim.x >> 1;
+  auto pair_of = [&](int p, int& ti, int& dj) {
+    if (t_idx != nullptr) {            // pair list, range-checked by the wrapper;
+                                       // the clamp only bounds the reads
+      ti = min(max(t_idx[p], 0), nt - 1);
+      dj = min(max(d_idx[p], 0), nd - 1);
+    } else {
+      ti = p / nd;
+      dj = p - ti * nd;
     }
-    __syncthreads();
-    // KV tiles of this warp: A (m, r) = k[r][m] = chunk[m][r], B (r, n) =
-    // v[r][n] = chunk[C + n][r]
-    const int rows = min(CHUNK, Np - cb);
-    for (int k0 = 0; k0 < rows; k0 += 16) {
-#pragma unroll
-      for (int i = 0; i < TPW; ++i) {
-        const int tau = warp + WARPS * i;
-        if (tau < MT * NT) {
-          const int mi = tau / NT, nj = tau - mi * NT;
-          const bf16* ka = chunk + (mi * 16 + g) * LDK + k0 + 2 * t;
-          const bf16* vb = chunk + (C + nj * 8 + g) * LDK + k0 + 2 * t;
-          const uint32_t a[4] = {ld32(ka), ld32(ka + 8 * LDK), ld32(ka + 8),
-                                 ld32(ka + 8 * LDK + 8)};
-          mma_bf16(kv[i], a, ld32(vb), ld32(vb + 8));
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // sum k: over the warp's row groups, then over the warps
+  };
+  // [KV | Z] of the other side of pair p, into the ring
+  auto fetch_kvz = [&](int p) {
+    int ti, dj;
+    pair_of(p, ti, dj);
+    const bf16* src = rank == 0 ? Dt.kvz + (size_t)dj * 2 * C * C : T.kvz + (size_t)ti * 2 * C * C;
+    stage_sw(ring, src, 2 * C, C, C, 0);
+  };
+  // own side's object of pair p
+  auto own = [&](int p) {
+    int ti, dj;
+    pair_of(p, ti, dj);
+    return rank == 0 ? ti : dj;
+  };
+  const Side X = rank == 0 ? T : Dt;           // own side
+  // the head mask of this thread's KV accumulator elements, one bit each
+  uint32_t kv_heads = 0;
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) kp[j][e] += __shfl_xor_sync(0xffffffffu, kp[j][e], o);
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      part[warp * C + j * 8 + 2 * t] = kp[j][0];
-      part[warp * C + j * 8 + 2 * t + 1] = kp[j][1];
+    for (int i = 0; i < 4; ++i) {
+      const int m = wq * 16 + g + 8 * (i >> 1), n = j * 8 + 2 * t + (i & 1);
+      kv_heads |= (m / D == n / D ? 1u : 0u) << (j * 4 + i);
     }
+  // q of the first pair's first tile of this warpgroup
+  uint32_t pre_q[KS][4];
+  if (cid < P) {
+    load_q<C>(pre_q, X.q + own(cid) * nc, wg * TILE + wq * 16 + g, N);
+    fetch_kvz(cid);
   }
-  __syncthreads();
-
-  // KV^T (masked per head, rounded to bf16) and ksum into the peer's shared
-  // memory
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  bf16* peer_kv = cluster.map_shared_rank(KVT, rank ^ 1);
-  float* peer_ks = cluster.map_shared_rank(ksp, rank ^ 1);
-#pragma unroll
-  for (int i = 0; i < TPW; ++i) {
-    const int tau = warp + WARPS * i;
-    if (tau < MT * NT) {
-      const int mi = tau / NT, nj = tau - mi * NT;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int cr = mi * 16 + g + 8 * (e >> 1), cc = nj * 8 + 2 * t + (e & 1);
-        peer_kv[cc * LD1 + cr] = __float2bfloat16_rn(cr / D == cc / D ? kv[i][e] : 0.f);
-      }
-    }
-  }
-  if (threadIdx.x < C) {
-    float sum = 0.f;
-    for (int v = 0; v < WARPS; ++v) sum += part[v * C + threadIdx.x];
-    peer_ks[threadIdx.x] = sum;
-  }
-  __syncthreads();                             // part and the chunk are read
-  // stage 2's tail weights, over the chunk and the kv projection
-  stage(Wr + L::MERGE2, LD1, w.s2.merge, C, C, C);
-  stage(Wr + L::FC1_2, LD2, w.s2.fc1, 2 * C, 2 * C, 2 * C);
-  stage(Wr + L::FC2_2, LD2, w.s2.fc2, C, 2 * C, 2 * C);
   cp_commit();
-  cluster.sync();                              // the peer's summary has landed
-  cp_wait<0>();
-  __syncthreads();
+  cluster.sync();                              // the peer has started
 
-  // ---- stage 2: own O searches the peer's summary, then pooling
-  float pm[NT][2], ps[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    pm[j][0] = pm[j][1] = -__int_as_float(0x7f800000);
-    ps[j][0] = ps[j][1] = 0.f;
-  }
-  for (int s = warp; s < slabs; s += WARPS) {
-    const int r0 = s * 16 + g, r1 = r0 + 8;
-    const bool v0 = r0 < N, v1 = r1 < N;
-    const RowsA rowsO{O + s * 16 * LDO, LDO};
-    float q[NT][4];
-    zero(q);
-    warp_gemm<KS, NT>(q, rowsO, Wr + L::Q2, LD1, 0, 0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) q[j][i] = elu1(q[j][i]);
-    float msg[NT][4];
-    {
-      float mm[NT][4], zz[NT][4];
-      zero(mm);
-      zero(zz);
-      warp_gemm<KS, NT>(mm, [&](int kk, uint32_t (&a)[4]) { a_from_acc(q, kk, a); },
-                        KVT, LD1, 0, 0);
-      // the normaliser: bf16(q * ksum) @ head mask, the mask's B fragment
-      // made in registers (1.0 in bf16 is 0x3f80)
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const int c0 = kk * 16 + 2 * t, c1 = c0 + 8;
-        const uint32_t a[4] = {
-            pack_bf16(q[2 * kk][0] * ksp[c0], q[2 * kk][1] * ksp[c0 + 1]),
-            pack_bf16(q[2 * kk][2] * ksp[c0], q[2 * kk][3] * ksp[c0 + 1]),
-            pack_bf16(q[2 * kk + 1][0] * ksp[c1], q[2 * kk + 1][1] * ksp[c1 + 1]),
-            pack_bf16(q[2 * kk + 1][2] * ksp[c1], q[2 * kk + 1][3] * ksp[c1 + 1])};
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int hn = (j * 8 + g) / D;
-          const uint32_t b0 = (c0 / D == hn ? 0x3f80u : 0u) | ((c0 + 1) / D == hn ? 0x3f800000u : 0u);
-          const uint32_t b1 = (c1 / D == hn ? 0x3f80u : 0u) | ((c1 + 1) / D == hn ? 0x3f800000u : 0u);
-          mma_bf16(zz[j], a, b0, b1);
-        }
-      }
+  for (int p = cid; p < P; p += ncl) {
+    const int xi = own(p);
+    const bf16* hX = X.h + xi * nc;
+    const bf16* qX = X.q + xi * nc;
+    const bf16* aX = X.a1 + xi * 2 * nc;
+    const bf16* pvX = POS ? X.pv + xi * nc : nullptr;
+    cp_wait<0>();                              // [KV | Z] (and, first, the weights)
+    fence_async_shared();
+    __syncthreads();
+
+    // ---- stage 1: O = h + LN2(relu(a1 + LN1(split_norm(q @ kvzY) @ merge) @ fc1[C:]) @ fc2)
+    for (int tile = wg; tile < ntiles; tile += 2) {
+      const int r0 = tile * TILE + wq * 16 + g, r1 = r0 + 8;
+      const bool v0 = r0 < N, v1 = r1 < N;
+      const bool held = tile * TILE + wq * 16 < Np;
+      if (tile != wg) load_q<C>(pre_q, qX, r0, N);   // the first tile's came ahead
+      uint32_t a1r[2 * NT][2], hr[NT][2];            // used after two products
+      load_rows<2 * C>(a1r, aX, r0, N);
+      load_rows<C>(hr, hX, r0, N);
+      float mz[2 * NT][4];
+      zero(mz);
+      wg_fence();
+      issue<2 * C, KS>(mz, pre_q, ring, 2 * C, 0);
+      finish<2 * C>(mz);
+      float msg[NT][4];
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) msg[j][i] = mm[j][i] / (zz[j][i] + EPS);
-    }
-    float hid[2 * NT][4];
-    zero(hid);
-    warp_gemm<KS, 2 * NT>(hid, rowsO, Wr + L::FC1_2, LD2, 0, 0);
-    float y[NT][4];
-    ffn_tail<C>(msg, hid, w.s2, Wr + L::MERGE2, Wr + L::FC1_2, LD2, C, Wr + L::FC2_2, y);
+        for (int i = 0; i < 4; ++i) msg[j][i] = __fdividef(mz[j][i], mz[NT + j][i] + EPS);
+      uint32_t am[KS][4];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float2 o0 = *reinterpret_cast<const float2*>(O + r0 * LDO + c);
-      const float2 o1 = *reinterpret_cast<const float2*>(O + r1 * LDO + c);
-      const float a0 = o0.x + y[j][0], a1 = o0.y + y[j][1];
-      const float b0 = o1.x + y[j][2], b1 = o1.y + y[j][3];
-      const float ninf = -__int_as_float(0x7f800000);
-      pm[j][0] = fmaxf(pm[j][0], fmaxf(v0 ? a0 : ninf, v1 ? b0 : ninf));
-      pm[j][1] = fmaxf(pm[j][1], fmaxf(v0 ? a1 : ninf, v1 ? b1 : ninf));
-      ps[j][0] += (v0 ? a0 : 0.f) + (v1 ? b0 : 0.f);
-      ps[j][1] += (v0 ? a1 : 0.f) + (v1 ? b1 : 0.f);
-    }
-  }
-  // reduce over the 8 row groups g of the warp, then over the warps
+      for (int kk = 0; kk < KS; ++kk) a_from_acc(msg, kk, am[kk]);
+      float m[NT][4];
+      zero(m);
+      wg_fence();
+      issue<C, KS>(m, am, sb + L::MERGE1, C, 0);
+      finish<C>(m);
+      layer_norm_acc(m, w.s1.ln1s, w.s1.ln1b);
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+      for (int kk = 0; kk < KS; ++kk) a_from_acc(m, kk, am[kk]);
+      float hid[2 * NT][4];                    // a1, then + bf16(m) @ fc1[C:]
 #pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int o = 4; o < 32; o <<= 1) {
-        pm[j][e] = fmaxf(pm[j][e], __shfl_xor_sync(0xffffffffu, pm[j][e], o));
-        ps[j][e] += __shfl_xor_sync(0xffffffffu, ps[j][e], o);
+      for (int j = 0; j < 2 * NT; ++j) {
+        const float2 x0 = unpack_bf16(a1r[j][0]), x1 = unpack_bf16(a1r[j][1]);
+        hid[j][0] = x0.x; hid[j][1] = x0.y; hid[j][2] = x1.x; hid[j][3] = x1.y;
       }
-  if (g == 0) {
+      wg_fence();
+      issue<2 * C, KS>(hid, am, sb + L::FC1B1, 2 * C, 0);
+      finish<2 * C>(hid);
+      uint32_t ah[2 * KS][4];
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < 2 * KS; ++kk) a_from_acc(hid, kk, ah[kk]);
+      float y[NT][4];
+      zero(y);
+      wg_fence();
+      issue<C, 2 * KS>(y, ah, sb + L::FC2_1, C, 0);
+      finish<C>(y);
+      layer_norm_acc(y, w.s1.ln2s, w.s1.ln2b);
+      if (held) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = j * 8 + 2 * t;
+          const float2 h0 = unpack_bf16(hr[j][0]), h1 = unpack_bf16(hr[j][1]);
+          // rows past N hold zeros, which nothing reads as data
+          *reinterpret_cast<float2*>(O + r0 * C + ocol<C>(r0, c)) =
+              v0 ? make_float2(h0.x + y[j][0], h0.y + y[j][1]) : make_float2(0.f, 0.f);
+          *reinterpret_cast<float2*>(O + r1 * C + ocol<C>(r1, c)) =
+              v1 ? make_float2(h1.x + y[j][2], h1.y + y[j][3]) : make_float2(0.f, 0.f);
+        }
+      }
+    }
+    __syncthreads();                           // O complete, [KV | Z] read out
+
+    // ---- the template summary of the peer's direction: k = elu1(O Wk),
+    // v = O Wv + pv, KV = bf16(k)^T bf16(v) and sum k
+    float kv[NT][4];
+    zero(kv);
+    float kp[NT][2];                           // this thread's part of sum k
+#pragma unroll
+    for (int j = 0; j < NT; ++j) kp[j][0] = kp[j][1] = 0.f;
+    for (int tile = wg; tile < ntiles; tile += 2) {
+      const int r0 = tile * TILE + wq * 16 + g, r1 = r0 + 8;
+      const bool v0 = r0 < N, v1 = r1 < N;
+      const bool held = tile * TILE + wq * 16 < Np;
+      uint32_t ao[KS][4];
+      o_frags<C>(O, r0, held, ao);
+      uint32_t pq[NT][2];
+      if (POS) load_rows<C>(pq, pvX, r0, N);
+      float kvr[2 * NT][4];
+      uint32_t pk[2 * NT][2];                  // bf16(k) | bf16(v), packed
+      zero(kvr);
+      wg_fence();
+      issue<2 * C, KS>(kvr, ao, sb + L::KV2, 2 * C, 0);
+      finish<2 * C>(kvr);
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        float e[4];
+        if (j < NT) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) e[i] = elu1(kvr[j][i]);
+        } else {
+          e[0] = kvr[j][0]; e[1] = kvr[j][1]; e[2] = kvr[j][2]; e[3] = kvr[j][3];
+          if (POS) {
+            const float2 q0 = unpack_bf16(pq[j - NT][0]), q1 = unpack_bf16(pq[j - NT][1]);
+            e[0] += q0.x; e[1] += q0.y; e[2] += q1.x; e[3] += q1.y;
+          }
+        }
+        if (!v0) e[0] = e[1] = 0.f;            // rows past N add nothing
+        if (!v1) e[2] = e[3] = 0.f;
+        if (j < NT) {
+          kp[j][0] += e[0] + e[2];
+          kp[j][1] += e[1] + e[3];
+        }
+        pk[j][0] = pack_bf16(e[0], e[1]);
+        pk[j][1] = pack_bf16(e[2], e[3]);
+      }
+      // channel-major (row = channel, k = the tile's row): the fragments'
+      // 8 x 8 blocks stored transposed, four a stmatrix; lane l gives the
+      // row address of row l % 8 of block l / 8
+#pragma unroll
+      for (int j = 0; j < 2 * NT; j += 2) {
+        const int m = lane >> 3;
+        const int c = (j < NT ? j : j - NT) * 8 + 8 * (m >> 1) + (lane & 7);
+        const uint32_t buf = j < NT ? kt_buf : vt_buf;
+        stmatrix_x4_trans(buf + c * 128 + (((2 * wq + (m & 1)) ^ (c & 7)) << 4), pk[j][0],
+                          pk[j][1], pk[j + 1][0], pk[j + 1][1]);
+      }
+      fence_async_shared();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        Wgmma<C>::ss(kv, desc_at(kt_buf, TILE, 0, 16 * kk), desc_at(vt_buf, C, 0, 16 * kk));
+      finish<C>(kv);
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // staging free
+    }
+    // sum k: over the warp's row groups, then over the warps
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) kp[j][e] += __shfl_xor_sync(0xffffffffu, kp[j][e], o);
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        part[warp * C + j * 8 + 2 * t] = kp[j][0];
+        part[warp * C + j * 8 + 2 * t + 1] = kp[j][1];
+      }
+    }
+    __syncthreads();                           // both warpgroups' staging read out
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) scratch[(j * 4 + i) * 128 + tid - 128] = kv[j][i];
+    }
+    __syncthreads();
+    // KV^T (masked per head, rounded to bf16) and sum k into the peer's
+    // shared memory (free: the last cluster barrier followed its stage 2)
+    unsigned char* peer = cluster.map_shared_rank(smem, rank ^ 1);
+    if (wg == 0) {
+      // KV^T staged locally (K-major, as the peer's KVT): the accumulator's
+      // 8 x 8 blocks stored transposed, then copied 16 bytes a thread
+      uint32_t pk[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = kv[j][i] + scratch[(j * 4 + i) * 128 + tid];
+          v[i] = (kv_heads >> (j * 4 + i)) & 1u ? v[i] : 0.f;
+        }
+        pk[j][0] = pack_bf16(v[0], v[1]);
+        pk[j][1] = pack_bf16(v[2], v[3]);
+      }
+      if (wq * 16 < C) {                       // the warp holds rows of KV
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          const int mb = lane >> 3, n = j * 8 + 8 * (mb >> 1) + (lane & 7);
+          stmatrix_x4_trans(sb + L::KVT_OUT + n * 128 + (((2 * wq + (mb & 1)) ^ (n & 7)) << 4),
+                            pk[j][0], pk[j][1], pk[j + 1][0], pk[j + 1][1]);
+        }
+      }
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      for (int e = tid; e < C * 8; e += 128)
+        reinterpret_cast<uint4*>(peer + L::KVT)[e] =
+            reinterpret_cast<const uint4*>(smem + L::KVT_OUT)[e];
+    }
+    if (tid < C) {
+      float sum = 0.f;
+      for (int v = 0; v < WARPS; ++v) sum += part[v * C + tid];
+      reinterpret_cast<float*>(peer + ((unsigned char*)ksp - smem))[tid] = sum;
+    }
+    fence_async_cluster();
+    __syncthreads();                           // the scratch and part are read out
+    if (p + ncl < P) fetch_kvz(p + ncl);       // the next pair's, during stage 2
+    cp_commit();
+    cluster.sync();                            // the peer's KV^T and sum k have landed
+    fence_async_shared();
+
+    // ---- stage 2: own O searches the peer's summary, then pooling
+    float pm[NT][2], ps[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const int c = j * 8 + 2 * t;
-      part[warp * 2 * C + c] = pm[j][0];
-      part[warp * 2 * C + c + 1] = pm[j][1];
-      part[warp * 2 * C + C + c] = ps[j][0];
-      part[warp * 2 * C + C + c + 1] = ps[j][1];
+      pm[j][0] = pm[j][1] = -__int_as_float(0x7f800000);
+      ps[j][0] = ps[j][1] = 0.f;
+    }
+    for (int tile = wg; tile < ntiles; tile += 2) {
+      const int r0 = tile * TILE + wq * 16 + g, r1 = r0 + 8;
+      const bool v0 = r0 < N, v1 = r1 < N;
+      const bool held = tile * TILE + wq * 16 < Np;
+      uint32_t ao[KS][4];
+      o_frags<C>(O, r0, held, ao);
+      float q[NT][4];
+      zero(q);
+      wg_fence();
+      issue<C, KS>(q, ao, sb + L::Q2, C, 0);
+      finish<C>(q);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q[j][i] = elu1(q[j][i]);
+      uint32_t aq[KS][4], az[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        a_from_acc(q, kk, aq[kk]);
+        const int c0 = 2 * kk, c1 = 2 * kk + 1;   // n-tiles of the k-step
+        const float2 k0 = *reinterpret_cast<const float2*>(ksp + c0 * 8 + 2 * t);
+        const float2 k1 = *reinterpret_cast<const float2*>(ksp + c1 * 8 + 2 * t);
+        az[kk][0] = pack_bf16(q[c0][0] * k0.x, q[c0][1] * k0.y);
+        az[kk][1] = pack_bf16(q[c0][2] * k0.x, q[c0][3] * k0.y);
+        az[kk][2] = pack_bf16(q[c1][0] * k1.x, q[c1][1] * k1.y);
+        az[kk][3] = pack_bf16(q[c1][2] * k1.x, q[c1][3] * k1.y);
+      }
+      float mm[NT][4], zz[NT][4];
+      zero(mm);
+      zero(zz);
+      wg_fence();
+      issue<C, KS>(mm, aq, sb + L::KVT, C, 0);
+      issue<C, KS>(zz, az, sb + L::MASK, C, 0);
+      wg_commit();
+      wg_wait<0>();
+      wg_pin(mm);
+      wg_pin(zz);
+      float msg[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) msg[j][i] = __fdividef(mm[j][i], zz[j][i] + EPS);
+      uint32_t am[KS][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) a_from_acc(msg, kk, am[kk]);
+      float m[NT][4], hid[2 * NT][4];
+      zero(m);
+      zero(hid);
+      wg_fence();
+      issue<C, KS>(m, am, sb + L::MERGE2, C, 0);
+      issue<2 * C, KS>(hid, ao, sb + L::FC1_2, 2 * C, 0);          // fc1[:C] on bf16(O)
+      wg_commit();
+      wg_wait<0>();
+      wg_pin(m);
+      wg_pin(hid);
+      layer_norm_acc(m, w.s2.ln1s, w.s2.ln1b);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) a_from_acc(m, kk, am[kk]);
+      wg_fence();
+      issue<2 * C, KS>(hid, am, sb + L::FC1_2, 2 * C, C);          // fc1[C:] on bf16(m)
+      finish<2 * C>(hid);
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
+      uint32_t ah[2 * KS][4];
+#pragma unroll
+      for (int kk = 0; kk < 2 * KS; ++kk) a_from_acc(hid, kk, ah[kk]);
+      float y[NT][4];
+      zero(y);
+      wg_fence();
+      issue<C, 2 * KS>(y, ah, sb + L::FC2_2, C, 0);
+      finish<C>(y);
+      layer_norm_acc(y, w.s2.ln2s, w.s2.ln2b);
+      if (held) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = j * 8 + 2 * t;
+          const float2 o0 = *reinterpret_cast<const float2*>(O + r0 * C + ocol<C>(r0, c));
+          const float2 o1 = *reinterpret_cast<const float2*>(O + r1 * C + ocol<C>(r1, c));
+          const float a0 = o0.x + y[j][0], a1 = o0.y + y[j][1];
+          const float b0 = o1.x + y[j][2], b1 = o1.y + y[j][3];
+          const float ninf = -__int_as_float(0x7f800000);
+          pm[j][0] = fmaxf(pm[j][0], fmaxf(v0 ? a0 : ninf, v1 ? b0 : ninf));
+          pm[j][1] = fmaxf(pm[j][1], fmaxf(v0 ? a1 : ninf, v1 ? b1 : ninf));
+          ps[j][0] += (v0 ? a0 : 0.f) + (v1 ? b0 : 0.f);
+          ps[j][1] += (v0 ? a1 : 0.f) + (v1 ? b1 : 0.f);
+        }
+      }
+    }
+    if (p + ncl < P)                           // q of the next pair's first tile, ahead
+      load_q<C>(pre_q, X.q + own(p + ncl) * nc, wg * TILE + wq * 16 + g, N);
+    // reduce over the 8 row groups g of the warp, then over the warps
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          pm[j][e] = fmaxf(pm[j][e], __shfl_xor_sync(0xffffffffu, pm[j][e], o));
+          ps[j][e] += __shfl_xor_sync(0xffffffffu, ps[j][e], o);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int c = j * 8 + 2 * t;
+        part[warp * 2 * C + c] = pm[j][0];
+        part[warp * 2 * C + c + 1] = pm[j][1];
+        part[warp * 2 * C + C + c] = ps[j][0];
+        part[warp * 2 * C + C + c + 1] = ps[j][1];
+      }
+    }
+    __syncthreads();
+    float mx = 0.f, sm = 0.f;
+    if (tid < C) {
+      mx = part[tid];
+      sm = part[C + tid];
+      for (int v = 1; v < WARPS; ++v) {
+        mx = fmaxf(mx, part[v * 2 * C + tid]);
+        sm += part[v * 2 * C + C + tid];
+      }
+      if (rank == 1) {
+        float* dst = cluster.map_shared_rank(pool, 0);
+        dst[tid] = mx;
+        dst[C + tid] = sm;
+      }
+    }
+    cluster.sync();                            // the det side's pooling has landed
+    if (rank == 0 && tid < C) {
+      bf16* o = out + (size_t)p * 2 * C;
+      o[tid] = __float2bfloat16_rn(fmaxf(mx, pool[tid]));
+      o[C + tid] = __float2bfloat16_rn((sm + pool[C + tid]) * (1.f / (2.f * N)));
     }
   }
-  __syncthreads();
-  float mx = 0.f, sm = 0.f;
-  if (threadIdx.x < C) {
-    mx = part[threadIdx.x];
-    sm = part[C + threadIdx.x];
-    for (int v = 1; v < WARPS; ++v) {
-      mx = fmaxf(mx, part[v * 2 * C + threadIdx.x]);
-      sm += part[v * 2 * C + C + threadIdx.x];
-    }
-    if (rank == 1) {
-      float* dst = cluster.map_shared_rank(pool, 0);
-      dst[threadIdx.x] = mx;
-      dst[C + threadIdx.x] = sm;
-    }
-  }
-  cluster.sync();                              // the det side's pooling has landed
-  if (rank == 0 && threadIdx.x < C) {
-    bf16* o = out + (size_t)p * 2 * C;
-    o[threadIdx.x] = __float2bfloat16_rn(fmaxf(mx, pool[threadIdx.x]));
-    o[C + threadIdx.x] = __float2bfloat16_rn((sm + pool[C + threadIdx.x]) * (1.f / (2.f * N)));
-  }
+  cp_wait<0>();
 }
 
 Weights make_weights(const void* const* p) {
@@ -673,11 +783,23 @@ int launch_c(const Side& T, const Side& Dt, const Weights& w, const int* t_idx,
              const int* d_idx, bf16* out, int nt, int nd, int P, int N, int H,
              cudaStream_t stream) {
   const size_t smem = smem_bytes(N, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      match_pooled_bf16_kernel<C, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = match_pooled_bf16_kernel<C, POS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  match_pooled_bf16_kernel<C, POS><<<2 * P, THREADS, smem, stream>>>(
-      T, Dt, w, t_idx, d_idx, out, nt, nd, N, H);
+  // as many clusters as the card holds at once, at most one a pair
+  int clusters = 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * P, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  err = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  clusters = clusters < P ? clusters : P;
+  match_pooled_bf16_kernel<C, POS><<<2 * clusters, THREADS, smem, stream>>>(
+      T, Dt, w, t_idx, d_idx, out, nt, nd, P, N, H);
   return (int)cudaGetLastError();
 }
 

@@ -55,6 +55,9 @@ _SIGNATURES = {
     # P, N, C, H, blocks, stream
     "pcr_match_rows": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],
     "pcr_match_rows_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    # the two at bf16 (csrc/match_rows_bf16.cu)
+    "pcr_match_rows_bf16": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],
+    "pcr_match_rows_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # q, db, out (int64), B, S, N, k, stream
     "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
     # the same, then the plan: tier, points, warps, smem; stream

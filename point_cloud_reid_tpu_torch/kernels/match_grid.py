@@ -9,8 +9,8 @@ cross linear attention in both directions, point-cat max+avg pooling -- is
 one CUDA kernel that serves both index modes. The match head on the pooled
 features stays plain torch, as in JAX.
 
-`plan(N, C, H)` picks the kernel's tier: CLUSTER (csrc/match_grid.cu, a
-two-block cluster a pair with the weights and a side's rows in shared
+`plan(N, C, H)` picks the float32 kernel's tier: CLUSTER (csrc/match_grid.cu,
+a two-block cluster a pair with the weights and a side's rows in shared
 memory: C = 16 or 64, as many rows as fit, 224 at C = 64) wherever it fits,
 else ROWS (csrc/match_rows.cu, point head only: C = 16, 64 or 128, any N;
 a block a pair at a time, the stage-1 outputs in a device scratch, the
@@ -33,13 +33,16 @@ Under a bf16 model the factors are computed in float32 from the bf16
 embeddings and cast to bf16, as JAX's grid_factors does; the weights stay
 float32 and every product of the chain multiplies bf16-rounded operands with
 float32 accumulation, the pooled output in bf16 (the TPU kernel's _make_dot).
-On CUDA that is csrc/match_grid_bf16.cu, the cluster tier only (C = 16 or
-64, up to 496 rows at C = 64: `plan(..., dtype=torch.bfloat16)`); a shape
-the float32 kernels send to the rows tier raises NotImplementedError at
-bf16 (ROADMAP_ROWS_BF16), it never falls back to float32. The wrapper hands
-the kernel bf16 copies of the weights made once (utils/cache.py). bf16
-launches count in each wrapper's `bf16_launches`, float32 ones in
-`launches` (and `tier_launches`).
+On CUDA `plan(..., dtype=torch.bfloat16)` picks the bf16 tiers:
+CLUSTER (csrc/match_grid_bf16.cu: a persistent two-block cluster on wgmma
+with the weights resident in shared memory, C = 16 or 64, up to 208 rows at
+C = 64), else ROWS for the point head (csrc/match_rows_bf16.cu: the rows
+tier's structure on bf16 mma.sync, C = 16, 64 or 128 at any N); a bf16
+model never runs a float32 kernel. The wrapper hands the kernels bf16
+copies of the weights made once (utils/cache.py). bf16 launches count in
+each wrapper's `bf16_launches`, float32 ones in `launches`; both count by
+tier in `tier_launches` (keys "cluster", "rows", "cluster_bf16",
+"rows_bf16").
 """
 from __future__ import annotations
 
@@ -56,8 +59,6 @@ from .sa_stage import BF16, rounded_mm
 
 EPS = 1e-6
 LN_EPS = 1e-5
-ROADMAP_ROWS_BF16 = ("ROADMAP.md section 2, 'K4. Still to port: the rows "
-                     "tier (csrc/match_rows.cu) at bf16'")
 
 _WEIGHT_ORDER = (("w1", "merge"), ("w1", "ln1_scale"), ("w1", "ln1_bias"),
                  ("w1", "fc1"), ("w1", "fc2"), ("w1", "ln2_scale"),
@@ -281,6 +282,17 @@ ROWS_WARPS = 4
 ROWS_BLOCKS_PER_SM = 4
 
 
+def tier_key(tier: int, bf16: bool) -> str:
+    """The key of a tier's launches in a wrapper's `tier_launches`."""
+    return TIER_NAMES[tier] + ("_bf16" if bf16 else "")
+
+
+def layout_entry(tier: int, bf16: bool) -> str:
+    """The C entry point of a tier's layout check at a dtype."""
+    return (("pcr_match_pooled" if tier == CLUSTER else "pcr_match_rows")
+            + ("_bf16" if bf16 else "") + "_layout")
+
+
 class Plan(NamedTuple):
     tier: int           # CLUSTER or ROWS
     smem: int           # dynamic shared bytes a block
@@ -299,17 +311,21 @@ def cluster_bytes(N: int, C: int) -> int:
 
 def cluster_bytes_bf16(N: int, C: int) -> int:
     """Shared bytes of the bf16 cluster tier's layout
-    (csrc/match_grid_bf16.cu Layout<C>::bytes): bf16 weights in (n, k + 8)
-    rows, Wq beside the largest of stage 1's (5C (C + 8) + C (2C + 8)), the
-    summary's (2C (C + 8) + 2C (128 + 8)) and stage 2's (C (C + 8) + 3C
-    (2C + 8)); own O at Np x (C + 8) float32; the peer's KV C x (C + 8)
-    bf16; ksum, pooling partials and the peer's pooling, (C + 16C + 2C)
-    float32."""
-    l1, l2 = C + 8, 2 * C + 8
-    phase = max(5 * C * l1 + C * l2, 2 * C * l1 + 2 * C * (128 + 8),
-                C * l1 + 3 * C * l2)
+    (csrc/match_grid_bf16.cu Layout<C>::bytes): 1 KB to align the base, the
+    15 C^2 weights and the C x C head mask and the peer's KV^T as K-major
+    operands (rows of 128 bytes a 64-column panel), the buffer that holds
+    [KV | Z] (2C x C), the summary's staging of two warpgroups (k^T 64 x 64
+    and v^T C x 64 each) or the KV sum (128 x C / 2 floats), whichever is
+    largest; own O at Np x C float32; sum k, the partials (8 x 2C) and the
+    peer's pooling (2C), float32."""
+    def op(rows, k):
+        return rows * 128 * (-(-k // 64))
+    weights = (op(C, C) + op(2 * C, C) + op(C, 2 * C) + op(C, C)
+               + op(2 * C, C) + op(C, C) + op(2 * C, 2 * C) + op(C, 2 * C))
+    ring = max(op(2 * C, C), 2 * (op(64, 64) + op(C, 64)), 128 * C // 2 * 4)
     Np = -(-N // 16) * 16
-    return 2 * (C * l1 + phase) + 4 * Np * l1 + 2 * C * l1 + 4 * 19 * C
+    return (1024 + weights + 2 * op(C, C) + ring + 4 * Np * C
+            + 4 * (C + 8 * 2 * C + 2 * C))
 
 
 def rows_bytes(C: int) -> int:
@@ -322,15 +338,25 @@ def rows_bytes(C: int) -> int:
                 + 2 * 32 * 72)
 
 
+def rows_bytes_bf16(C: int) -> int:
+    """Shared bytes of the bf16 rows tier's layout (csrc/match_rows_bf16.cu
+    Layout<C>::BYTES): float32 strips of 4 warps x 16 rows x (2C + 8 + 2
+    (C + 8)), the summary C x (C + 8), ksum C, denominators 4 x 16 x 8,
+    pooling 4 x 2C; two bf16 weight tiles of 64 x 72."""
+    return (4 * (ROWS_WARPS * 16 * (4 * C + 24) + C * (C + 8) + C
+                 + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C)
+            + 2 * 64 * 72 * 2)
+
+
 def plan(N: int, C: int, H: int, pos: bool = True,
          dtype: torch.dtype = torch.float32) -> Plan:
     """The tier for sides of N rows and C channels in H heads: CLUSTER where
     its layout fits in a block's shared memory, else ROWS for the point
     head (`pos`); the image head (no position term) has the cluster tier
-    only. Raises ValueError for a shape that neither takes. At bf16 the
-    cluster tier has its own layout (cluster_bytes_bf16) and a shape past it
-    that the float32 kernels would send to ROWS raises NotImplementedError:
-    the rows tier has no bf16 form yet."""
+    only. Raises ValueError for a shape that neither takes. Each dtype has
+    its own kernels: at bf16 the cluster tier's layout is cluster_bytes_bf16
+    (up to 208 rows at C = 64) and the rows tier's rows_bytes_bf16; the
+    rows tier takes the same widths and heads at both."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
@@ -338,30 +364,19 @@ def plan(N: int, C: int, H: int, pos: bool = True,
     if C not in widths:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the kernel's tensor-core "
                          f"tiles take C in {widths}")
-    if dtype == BF16:
-        if C in CLUSTER_WIDTHS and cluster_bytes_bf16(N, C) <= MAX_SMEM:
-            return Plan(CLUSTER, cluster_bytes_bf16(N, C))
-        if not pos:
-            raise ValueError(
-                f"{N} rows x {C} channels need {cluster_bytes_bf16(N, C)} "
-                f"bytes of shared memory a block at bf16, more than the "
-                f"{MAX_SMEM} the kernel may take (the image head has no rows "
-                "tier)")
-        raise NotImplementedError(
-            f"N={N}, C={C}, nhead={H} at bf16: this shape needs the match "
-            f"chain's rows tier, which has no bf16 kernel yet "
-            f"({ROADMAP_ROWS_BF16})")
-    if C in CLUSTER_WIDTHS and cluster_bytes(N, C) <= MAX_SMEM:
-        return Plan(CLUSTER, cluster_bytes(N, C))
+    bf16 = dtype == BF16
+    cluster = (cluster_bytes_bf16 if bf16 else cluster_bytes)(N, C)
+    if C in CLUSTER_WIDTHS and cluster <= MAX_SMEM:
+        return Plan(CLUSTER, cluster)
     if not pos:
         raise ValueError(
-            f"{N} rows x {C} channels need {cluster_bytes(N, C)} bytes of "
-            f"shared memory a block, more than the {MAX_SMEM} the kernel may "
-            "take (the image head has no rows tier)")
+            f"{N} rows x {C} channels need {cluster} bytes of shared memory "
+            f"a block{' at bf16' if bf16 else ''}, more than the {MAX_SMEM} "
+            "the kernel may take (the image head has no rows tier)")
     if H > ROWS_MAX_HEADS:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
                          f"most {ROWS_MAX_HEADS} heads")
-    return Plan(ROWS, rows_bytes(C))
+    return Plan(ROWS, (rows_bytes_bf16 if bf16 else rows_bytes)(C))
 
 
 def rows_blocks(P: int, smem: int, device) -> int:
@@ -391,9 +406,11 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     """Check the inputs, launch the tier plan(N, C, nhead) picks for sides
     of `parts` tensors (grid mode when t_idx is None) and add one to
     `counter.launches`, and to its tier's count, once the launch succeeded.
-    bf16 sides launch csrc/match_grid_bf16.cu (the weights as stage_weights
-    gives them, handed to the kernel converted once: the matrices bf16 in
-    (out, in) layout; out bf16) and count in `counter.bf16_launches`.
+    bf16 sides launch the bf16 tier (csrc/match_grid_bf16.cu or
+    csrc/match_rows_bf16.cu; the weights as stage_weights gives them,
+    handed to the kernel converted once: the matrices bf16 in (out, in)
+    layout; out bf16) and count in `counter.bf16_launches` and in the
+    tier's `<tier>_bf16` count.
     `library` is another build of the kernels' entry points, as
     tools/ab_match.py times versions of them; it passes no counter."""
     device = t[0].device
@@ -405,10 +422,11 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     how = plan(N, C, nhead, pos=parts == 5, dtype=dt)
     lib = (library or _lib.LIBRARY).get()
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    layout = (lib.pcr_match_pooled_bf16_layout if bf16
-              else lib.pcr_match_pooled_layout if how.tier == CLUSTER
-              else lib.pcr_match_rows_layout)
-    status = layout(N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
+    entry = (("pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image")
+             if how.tier == CLUSTER else "pcr_match_rows") + (
+                 "_bf16" if bf16 else "")
+    status = getattr(lib, layout_entry(how.tier, bf16))(
+        N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
     if status:          # a build whose layout differs from the plan's
         raise ValueError(
             f"{TIER_NAMES[how.tier]} tier, N={N}, C={C}, nhead={nhead}: the "
@@ -447,24 +465,22 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
             *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
     if how.tier == CLUSTER:
-        entry = ("pcr_match_pooled" if parts == 5 else
-                 "pcr_match_pooled_image") + ("_bf16" if bf16 else "")
         err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead,
                                   _lib.stream_ptr(device))
     else:
-        entry = "pcr_match_rows"
         blocks = rows_blocks(P, smem.value, device)
         Np = -(-N // 16) * 16
         scratch = torch.empty((blocks, 2, Np, C), dtype=torch.float32,
                               device=device)
-        err = lib.pcr_match_rows(*ptrs, scratch.data_ptr(), nt, nd, P, N, C,
-                                 nhead, blocks, _lib.stream_ptr(device))
+        err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), nt, nd, P, N, C,
+                                  nhead, blocks, _lib.stream_ptr(device))
     _lib.check(err, entry)
-    if counter is not None and bf16:
-        counter.bf16_launches += 1
-    elif counter is not None:
-        counter.launches += 1
-        counter.tier_launches[TIER_NAMES[how.tier]] += 1
+    if counter is not None:
+        if bf16:
+            counter.bf16_launches += 1
+        else:
+            counter.launches += 1
+        counter.tier_launches[tier_key(how.tier, bf16)] += 1
     return out
 
 
@@ -534,8 +550,9 @@ def fused_image_match_pairs(t: Side, d: Side, w1, w2, nhead: int,
 for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
             fused_image_match_pairs):
     _fn.launches = 0
-    # launches by tier, beside the total
-    _fn.tier_launches = dict.fromkeys(TIER_NAMES, 0)
+    # launches by tier and dtype, beside the totals
+    _fn.tier_launches = {tier_key(t, b): 0 for b in (False, True)
+                         for t in range(len(TIER_NAMES))}
     _fn.bf16_launches = 0
 
 

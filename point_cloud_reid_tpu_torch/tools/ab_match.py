@@ -1,12 +1,19 @@
 """A/B timing of versions of the match kernel (csrc/match_grid.cu, or
-csrc/match_rows.cu for the rows tier) in one process on one card.
+csrc/match_rows.cu for the rows tier; with --bf16 their bf16 forms,
+csrc/match_grid_bf16.cu and csrc/match_rows_bf16.cu) in one process on one
+card.
 
 Each SOURCE is a copy of csrc/match_grid.cu with the same C entry points
 (`pcr_match_pooled`, `pcr_match_pooled_image`, `pcr_match_pooled_layout`),
 for example the parent commit's file unpacked from `git archive`; with
 --C / --N at a shape that kernels/match_grid.plan gives the rows tier, a
 copy of csrc/match_rows.cu (`pcr_match_rows`, `pcr_match_rows_layout`).
-Each is
+With --bf16 the inputs are a bf16 model's (bf16 factors, the weights
+converted once) and a SOURCE is a copy of the bf16 kernel of that tier
+(`pcr_match_pooled_bf16`, `pcr_match_pooled_image_bf16`,
+`pcr_match_pooled_bf16_layout`; `pcr_match_rows_bf16`,
+`pcr_match_rows_bf16_layout`), compared with the bf16 plain version. Each
+is
 built as a kernels/_lib.Library of its own (all built together) and
 launched through kernels/match_grid.launch, the wrappers' checked launch
 path; then every version scores the same seeded inputs at the main paths'
@@ -18,17 +25,19 @@ image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
 16). Versions are timed
 in turns (first to last, then last to first, `--rounds` times) with CUDA
 events, and each output is compared with the first version's and with the
-plain version. Prints one JSON line per version with the card's name and
-power limit.
+plain version. Prints ptxas's registers and spills of each version, then
+one JSON line per version with the card's name and power limit and, per
+shape, the shared bytes a block of that version's layout.
 
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
-        [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
+        [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]] [--bf16]
 
-Needs a CUDA device and nvcc. Float32, TF32 off.
+Needs a CUDA device and nvcc. TF32 off.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -90,6 +99,18 @@ def build(sources):
     return libs
 
 
+def layout_bytes(lib, t, nhead) -> int:
+    """Shared bytes a block of one version's layout for the tier that
+    kernels/match_grid.plan picks for these factors."""
+    N, C = t[0].shape[1], t[0].shape[2]
+    how = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype)
+    entry = mg.layout_entry(how.tier, t[0].dtype == torch.bfloat16)
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    getattr(lib.get(), entry)(N, C, nhead, ctypes.byref(need),
+                              ctypes.byref(limit))
+    return need.value
+
+
 def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None):
     """(P, 2C) pooled features from one version of the kernel."""
     out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib)
@@ -107,6 +128,8 @@ def main(argv=None):
                     help="rows a side of a point-head shape (with --C)")
     ap.add_argument("--grid", type=int, default=128,
                     help="tracks and detections of that shape's grid")
+    ap.add_argument("--bf16", action="store_true",
+                    help="a bf16 model's inputs and the bf16 kernels")
     args = ap.parse_args(argv)
     if (args.C is None) != (args.N is None):
         raise SystemExit("ab_match: give --C and --N together")
@@ -123,8 +146,12 @@ def main(argv=None):
               if args.C is None else
               ((f"point_C{args.C}_N{args.N}_grid_{args.grid}x{args.grid}",
                 "point", args.grid, args.grid, args.N, args.C),))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    smem = [{} for _ in libs]
     for label, head, nt, nd, n_rows, C in shapes:
-        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C)
+        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C, dtype=dtype)
+        for i, lib in enumerate(libs):
+            smem[i][label] = layout_bytes(lib, t, nhead)
         ti = torch.randint(0, nt, (512,), generator=gen, device="cuda",
                            dtype=torch.int32)
         di = torch.randint(0, nd, (512,), generator=gen, device="cuda",
@@ -147,10 +174,11 @@ def main(argv=None):
             got = call(lib, t, d, w1, w2, nhead, ti, di)
             torch.cuda.synchronize()
             first = got if first is None else first
-            scale = max(1.0, plain.abs().max().item())
+            scale = max(1.0, plain.float().abs().max().item())
             errs[i][label] = dict(
-                rel_plain=(got - plain).abs().max().item() / scale,
-                vs_first=(got - first).abs().max().item())
+                rel_plain=(got.float() - plain.float()).abs().max().item()
+                / scale,
+                vs_first=(got.float() - first.float()).abs().max().item())
     times = [{k: [] for k in cases} for _ in libs]
     for rnd in range(args.rounds):
         order = list(range(len(libs)))
@@ -161,9 +189,9 @@ def main(argv=None):
                     args.iters))
     for i, src in enumerate(args.sources):
         print(json.dumps(dict(
-            source=src, card=card,
+            source=src, card=card, dtype=str(dtype).split(".")[-1],
             ms={k: float(np.median(v)) for k, v in times[i].items()},
-            ms_all=times[i], errors=errs[i])))
+            ms_all=times[i], errors=errs[i], smem_bytes=smem[i])))
 
 
 if __name__ == "__main__":

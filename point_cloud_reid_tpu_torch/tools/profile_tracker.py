@@ -12,7 +12,7 @@ with kernels, and the card's name and power limit.
     python -m point_cloud_reid_tpu_torch.tools.profile_tracker
         [--objects 96] [--pts-per-obj 600] [--frames 10] [--warmup 4]
         [--sparse auto|never|always] [--trace build/profile_trace.json]
-        [--image] [--host-cache] [--bf16]
+        [--image] [--host-cache] [--bf16] [--experiment LEAF]
 
 With --image the frame is the image tracker's: the image model
 (deit-tiny-no-pt at full width) on the bench's six-camera scene (bench.py
@@ -21,6 +21,8 @@ cameras), the frame's upload inside the step's clock. With --host-cache the
 manager keeps track features in its host FeatureCache (device_cache=False):
 they go up every frame and the detections' features come back. With --bf16
 the model computes in bf16 (the bf16 kernels), as tools/track.py --bf16.
+With --experiment a registered point leaf stands in for the flagship (the
+7M model: pts_point-transformer-7M_point-cat_nus_det_4x256_500e).
 
 Needs a CUDA device. match_threshold is 1.0: random weights give arbitrary
 logits, and accepting every gated pair keeps the track set at the scene's
@@ -69,6 +71,8 @@ def main(argv=None):
                    help="device_cache=False: the host FeatureCache frame")
     p.add_argument("--bf16", action="store_true",
                    help="the model at a bf16 compute dtype")
+    p.add_argument("--experiment", default=None,
+                   help="a point leaf in place of the flagship")
     p.add_argument("--trace", default="build/profile_trace.json",
                    help="where the profiled window's chrome trace goes")
     args = p.parse_args(argv)
@@ -84,7 +88,8 @@ def main(argv=None):
     from point_cloud_reid_tpu_torch.tracking import TrackingManager
 
     model = build_tracker_model(args.image, "cuda", dtype=(
-        torch.bfloat16 if args.bf16 else torch.float32))
+        torch.bfloat16 if args.bf16 else torch.float32),
+        experiment=args.experiment)
     mgr = TrackingManager(PairScorer(model, image_mode=args.image),
                           subsample_number=128, match_threshold=1.0,
                           sparse_scoring=args.sparse,
@@ -131,6 +136,7 @@ def main(argv=None):
     print(json.dumps(dict(
         card=card_name(), image=args.image, sparse=args.sparse,
         host_cache=args.host_cache, dtype=str(model.dtype),
+        experiment=args.experiment,
         objects=args.objects,
         active_tracks=len(mgr.store.active()),
         step_ms=times, median_steady_step_ms=float(np.median(times[

@@ -82,16 +82,18 @@ def image_scene(n_obj: int, frames: int, seed: int = 0,
                np.zeros(n_obj, np.int64))
 
 
-def build_tracker_model(image: bool, device, seed: int = 0, dtype=None):
+def build_tracker_model(image: bool, device, seed: int = 0, dtype=None,
+                        experiment=None):
     """The model a tool tracks with, at full width with seeded random
     weights: the point flagship, or the image model of IMAGE_EXPERIMENT
-    (deit-tiny-no-pt, 197 tokens); `dtype` its compute dtype (float32 by
-    default)."""
+    (deit-tiny-no-pt, 197 tokens), or the leaf `experiment` names; `dtype`
+    its compute dtype (float32 by default)."""
     import torch
 
     from ..configs import get_experiment, point_transformer_point_cat
     from ..models import build_model
-    cfg = (get_experiment(IMAGE_EXPERIMENT)["model"] if image
+    cfg = (get_experiment(experiment)["model"] if experiment
+           else get_experiment(IMAGE_EXPERIMENT)["model"] if image
            else point_transformer_point_cat())
     return build_model(cfg, device=device,
                        generator=torch.Generator().manual_seed(seed),

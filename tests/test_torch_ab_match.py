@@ -41,3 +41,22 @@ def test_main_wants_width_and_rows_together(monkeypatch):
     with pytest.raises(SystemExit, match="--C and --N together"):
         ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu",
                        "--C", "128"])
+
+
+def test_bf16_flag_takes_a_bf16_models_inputs(monkeypatch):
+    """--bf16 is a flag beside the shape options: it needs a card like the
+    float32 A/B, and --C / --N still come together; its inputs are a bf16
+    model's (bf16 factors, float32 weights)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_grid_bf16.cu",
+                       "--bf16"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="--C and --N together"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows_bf16.cu",
+                       "--bf16", "--N", "2048"])
+    t, d, w1, w2, _ = ab_match.inputs("point", 2, 3, 7, 16, device="cpu",
+                                      dtype=torch.bfloat16)
+    assert all(x.dtype == torch.bfloat16 for x in t + d)
+    assert all(x.dtype == torch.float32 for x in (*w1.values(),
+                                                   *w2.values()))

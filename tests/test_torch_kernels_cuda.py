@@ -624,11 +624,13 @@ def test_sa_convmax_bf16_kernel_refuses_other_widths(cuda):
 
 
 # the serving shapes (the flagship's N = 128 at C = 64, DeiT's 197 / 198
-# tokens), the tiny models' C = 16, rows short of one slab, ragged slabs, and
-# the most rows the bf16 layout takes at C = 64
+# tokens), the tiny models' C = 16, rows short of one slab, ragged slabs and
+# 64-row tiles (65, 129), and the most rows the bf16 cluster layout takes at
+# C = 64 (208)
 @pytest.mark.parametrize("head,N,C", [
     ("point", 128, 64), ("point", 40, 16), ("point", 33, 64),
-    ("point", 496, 64), ("image", 197, 64), ("image", 198, 64),
+    ("point", 208, 64), ("point", 65, 64), ("point", 129, 16),
+    ("image", 197, 64), ("image", 198, 64), ("image", 129, 64),
     ("image", 6, 16), ("image", 70, 16)])
 def test_match_bf16_kernels_match_plain(cuda, head, N, C):
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
@@ -636,16 +638,20 @@ def test_match_bf16_kernels_match_plain(cuda, head, N, C):
     nt, nd = 3, 5
     t, d, w1, w2, nhead = inputs(head, nt, nd, N, C, device=cuda,
                                  dtype=torch.bfloat16)
+    assert mg.plan(N, C, nhead, pos=head == "point",
+                   dtype=torch.bfloat16).tier == mg.CLUSTER
     grid_fn, pairs_fn = ((mg.fused_match_grid, mg.fused_match_pairs)
                          if head == "point" else
                          (mg.fused_image_match_grid,
                           mg.fused_image_match_pairs))
     ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
     di = torch.arange(nd, device=cuda).repeat(nt)
-    before = grid_fn.launches, grid_fn.bf16_launches
+    before = (grid_fn.launches, grid_fn.bf16_launches,
+              grid_fn.tier_launches["cluster_bf16"])
     grid = grid_fn(t, d, w1, w2, nhead)
-    assert (grid_fn.launches, grid_fn.bf16_launches) == (before[0],
-                                                         before[1] + 1)
+    assert (grid_fn.launches, grid_fn.bf16_launches,
+            grid_fn.tier_launches["cluster_bf16"]) == (
+                before[0], before[1] + 1, before[2] + 1)
     _close_bf16(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
                                                 ).reshape(nt, nd, -1))
     t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
@@ -659,35 +665,97 @@ def test_match_bf16_kernels_match_plain(cuda, head, N, C):
         pairs_fn(t, d, w1, w2, nhead, t_idx, d_idx + 5)
 
 
-def test_match_bf16_kernels_refuse_the_rows_tier(cuda):
-    """At bf16 a shape the float32 kernels send to the rows tier (C = 128,
-    or more rows than the bf16 cluster layout holds) raises
-    NotImplementedError naming the ROADMAP item, before any launch; the
-    layout check's bytes are the plan's."""
+def test_match_bf16_cluster_walks_more_pairs_than_clusters(cuda):
+    """More pairs than the card holds clusters at once: each cluster scores
+    pairs in turn with its resident weights; the pairs are their grid
+    cells whatever cluster and turn score them."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt = nd = 24
+    t, d, w1, w2, nhead = inputs("point", nt, nd, 128, 64, device=cuda,
+                                 dtype=torch.bfloat16)
+    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
+    t_idx = torch.arange(nt, device=cuda, dtype=torch.int32).flip(0)
+    d_idx = torch.arange(nd, device=cuda, dtype=torch.int32)
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    sel = torch.tensor([0, 301, 575], device=cuda)
+    ti, di = sel // nd, sel % nd
+    _close_bf16(grid.reshape(nt * nd, -1)[sel],
+                mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di))
+
+
+# the bf16 rows tier: the 1.5M / 7M models' C = 128 from one row to a ragged
+# last slab and DeiT-sized 197, C = 64 from one row past the bf16 cluster
+# layout to the 2048-point ablation, C = 16 past its cluster layout, and the
+# rows tier's most heads
+@pytest.mark.parametrize("N,C,nhead", [(1, 128, 2), (16, 128, 2),
+                                       (33, 128, 2), (128, 128, 2),
+                                       (197, 128, 2), (128, 128, 8),
+                                       (209, 64, 2), (1024, 64, 2),
+                                       (2048, 64, 2), (2849, 16, 2)])
+def test_match_rows_bf16_matches_plain(cuda, N, C, nhead):
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    nt, nd = 3, 4
+    t, d, w1, w2, _ = inputs("point", nt, nd, N, C, nhead, device=cuda,
+                             dtype=torch.bfloat16)
+    assert mg.plan(N, C, nhead, dtype=torch.bfloat16).tier == mg.ROWS
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    fn = mg.fused_match_grid
+    before = (fn.launches, fn.bf16_launches, dict(fn.tier_launches))
+    grid = fn(t, d, w1, w2, nhead)
+    assert (fn.launches, fn.bf16_launches) == (before[0], before[1] + 1)
+    assert fn.tier_launches == dict(before[2], rows_bf16=before[2][
+        "rows_bf16"] + 1)
+    _close_bf16(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                                ).reshape(nt, nd, -1))
+    t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32, device=cuda)
+    before = mg.fused_match_pairs.tier_launches["rows_bf16"]
+    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    assert mg.fused_match_pairs.tier_launches["rows_bf16"] == before + 1
+    # one per-pair code in both modes, whatever block scores a pair
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    with pytest.raises(IndexError, match="out of range"):
+        mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
+
+
+def test_match_bf16_layouts_equal_the_plan(cuda):
+    """The bf16 tiers' layout entry points give the status and the bytes
+    that plan(..., dtype=torch.bfloat16) reckons: the cluster tier up to its
+    edge (208 rows at C = 64), the rows tier past it and at C = 128, and
+    what neither takes."""
     import ctypes
 
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
-    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
     lib = _lib.LIBRARY.get()
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    for (N, C), (status, want) in {(128, 64): (0, 123648),
-                                   (197, 64): (0, 146688),
-                                   (496, 64): (0, 229632),
-                                   (497, 64): (2, 234240),
-                                   (40, 16): (0, mg.cluster_bytes_bf16(40, 16)),
+    for (N, C), (status, want) in {(128, 64): (0, 210688),
+                                   (197, 64): (0, 231168),
+                                   (208, 64): (0, 231168),
+                                   (209, 64): (2, 235264),
+                                   (40, 16): (0, 52416),
+                                   (2848, 16): (0, 231616),
+                                   (2849, 16): (2, 232640),
                                    (128, 128): (1, 0)}.items():
         assert lib.pcr_match_pooled_bf16_layout(
             N, C, 2, ctypes.byref(need), ctypes.byref(limit)) == status
         assert (need.value, limit.value) == (want, 232448)
         if status != 1:
             assert mg.cluster_bytes_bf16(N, C) == want
-    for N, C in ((128, 128), (497, 64)):
-        t, d, w1, w2, nhead = inputs("point", 2, 2, N, C, device=cuda,
-                                     dtype=torch.bfloat16)
-        before = (mg.fused_match_grid.launches,
-                  mg.fused_match_grid.bf16_launches)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*rows tier"):
-            mg.fused_match_grid(t, d, w1, w2, nhead)
-        assert (mg.fused_match_grid.launches,
-                mg.fused_match_grid.bf16_launches) == before
+        if status == 0:
+            assert mg.plan(N, C, 2, dtype=torch.bfloat16) == mg.Plan(
+                mg.CLUSTER, want)
+    for (N, C, H), status in {(209, 64, 2): 0, (2849, 16, 2): 0,
+                              (1, 128, 2): 0, (128, 128, 8): 0,
+                              (128, 128, 16): 1, (128, 32, 2): 1,
+                              (128, 128, 3): 1, (0, 64, 2): 1}.items():
+        assert lib.pcr_match_rows_bf16_layout(
+            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == status
+        if status == 0:
+            assert need.value == mg.rows_bytes_bf16(C)
+            assert mg.plan(N, C, H, dtype=torch.bfloat16) == mg.Plan(
+                mg.ROWS, need.value)
