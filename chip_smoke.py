@@ -648,22 +648,22 @@ class Bf16Count:
 
 
 class TierCount:
-    """The launches of some of a wrapper's tiers (its `tier_launches`), read
-    and zeroed as a wrapper's `launches` are."""
+    """The launches of some of a wrapper's tiers (its `tier_launches`, or
+    the dict named `attr`), read and zeroed as a wrapper's `launches` are."""
 
-    def __init__(self, fn, tiers):
-        self.fn, self.tiers = fn, tiers
+    def __init__(self, fn, tiers, attr: str = "tier_launches"):
+        self.fn, self.tiers, self.attr = fn, tiers, attr
 
     @property
     def launches(self) -> int:
-        return sum(self.fn.tier_launches[t] for t in self.tiers)
+        return sum(getattr(self.fn, self.attr)[t] for t in self.tiers)
 
     @launches.setter
     def launches(self, value: int) -> None:
         if value != 0:
             raise ValueError("a tier count is only ever reset to 0")
         for t in self.tiers:
-            self.fn.tier_launches[t] = 0
+            getattr(self.fn, self.attr)[t] = 0
 
 
 def all_counters() -> dict:
@@ -671,7 +671,8 @@ def all_counters() -> dict:
     tiers past the first kernels' shapes count on their own: kNN past 128
     points and the match chain's rows tier; the bf16 kernels count apart
     from the float32 ones, the match chain's by tier (`/bf16` the cluster
-    tier, `/rows_bf16` the rows tier)."""
+    tier, `/rows_bf16` the rows tier), the SA kernel's in all (`/bf16`) and
+    by tier (`/wgmma_bf16`, `/mma_sync_bf16`)."""
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
@@ -690,6 +691,9 @@ def all_counters() -> dict:
                    "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
                                                        ("rows",))},
                 **{"fused_sa_convmax/bf16": Bf16Count(sa.fused_sa_convmax)},
+                **{f"fused_sa_convmax/{tier}_bf16": TierCount(
+                    sa.fused_sa_convmax, (tier,), "bf16_tiers")
+                   for tier in sa.BF16_TIERS},
                 **{f"{fn.__name__}/bf16": TierCount(fn, ("cluster_bf16",))
                    for fn in (mg.fused_match_grid, mg.fused_match_pairs,
                               mg.fused_image_match_grid,
@@ -2239,22 +2243,18 @@ def bf16_match_rows(model, t, d, w1, w2, nhead, head: str, gen) -> list:
     return rows
 
 
-def phase_bf16_kernels(model, image, scaled, ablation):
-    """The bf16 kernels at the serving shapes against their bf16 plain
-    versions (kernels line rows `kernel/bf16`), and the bf16 rows tier at
-    the 7M model's and the 2048-point ablation's shapes (rows
-    `kernel/rows_bf16`)."""
+def bf16_sa_row(model, crops, name: str, label: str) -> dict:
+    """The bf16 SA kernel at `model`'s three eval SA stages on the B = 128
+    crops, each stage's input the previous stage's output: each stage's
+    kernel ms, plain ms, one-pass bound and plan tier, and the kernels-line
+    row of the three in all against their bf16 plain versions."""
     import torch
-    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     from point_cloud_reid_tpu_torch.ops.geometry import knn_indices
     from point_cloud_reid_tpu_torch.tools.timing import time_ms
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
-    crops = torch.randn((128, 128, 3), generator=gen, device=DEVICE) * 0.6
-    # SA1-3 at B=128 crops, each stage's input the previous stage's output
     xyz, points = crops, None
     ms = plain = flops = nbyte = 0.0
-    got_all, want_all = [], []
+    got_all, want_all, stages = [], [], []
     with torch.no_grad():
         for i, (mod, S) in enumerate(zip(model.backbone.SA_modules,
                                          model.backbone_list)):
@@ -2272,18 +2272,40 @@ def phase_bf16_kernels(model, image, scaled, ablation):
             k_ms = time_ms(lambda: sa.fused_sa_convmax(*args), 10)
             p_ms = time_ms(lambda: sa.sa_convmax_reference(*args), 5)
             B, N, C = args[0].shape
-            f = 4.0 * B * S * mod.nsample * C * C
+            K = mod.nsample
+            f = 4.0 * B * S * K * C * C
             b_ms, b_by = bf16_bound(f, nbytes(*args, got))
-            print(f"[bf16] SA{i + 1} B={B} N={N} S={S} K={mod.nsample} "
-                  f"C={C}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+            how = sa.plan_bf16(C, K, B * S * K)
+            print(f"[bf16] {label} SA{i + 1} B={B} N={N} S={S} K={K} C={C}: "
+                  f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); tier {how.tier} ({how.tile_rows} "
+                  f"rows a weight tile, {how.warpgroups} warpgroups, ring "
+                  f"{how.ring}, {how.smem} shared bytes)", flush=True)
+            stages.append(dict(C=C, K=K, ms=k_ms, plain_ms=p_ms,
+                               bound_ms=b_ms, tier=how.tier))
             ms, plain = ms + k_ms, plain + p_ms
             flops, nbyte = flops + f, nbyte + nbytes(*args, got)
             xyz, points = mod(xyz, points, S)
-    rows = [bf16_row("fused_sa_convmax/bf16", "sa_stage_bf16.cu",
-                     "sa_stage.py:78", torch.cat(got_all),
-                     torch.cat(want_all), ms, plain,
-                     bf16_bound(flops, nbyte), "SA1-3 at B=128 in all")]
+    row = bf16_row(name, "sa_stage_bf16.cu", "sa_stage.py:78",
+                   torch.cat(got_all), torch.cat(want_all), ms, plain,
+                   bf16_bound(flops, nbyte), f"{label} SA1-3 at B=128 in all")
+    row["stages"] = stages
+    return row
+
+
+def phase_bf16_kernels(model, image, scaled, ablation):
+    """The bf16 kernels at the serving shapes against their bf16 plain
+    versions (kernels line rows `kernel/bf16`; the SA kernel at the 7M
+    model's widths too, row `fused_sa_convmax/7M_bf16`), and the bf16 rows
+    tier at the 7M model's and the 2048-point ablation's shapes (rows
+    `kernel/rows_bf16`)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    crops = torch.randn((128, 128, 3), generator=gen, device=DEVICE) * 0.6
+    # SA1-3 at B=128 crops: the flagship's widths, then the 7M model's
+    rows = [bf16_sa_row(model, crops, "fused_sa_convmax/bf16", "flagship"),
+            bf16_sa_row(scaled, crops, "fused_sa_convmax/7M_bf16", "7M")]
     # the point grid 128 x 128 and 512 pairs on the flagship's embeddings
     with torch.no_grad():
         xyz_t, h_t = model.embed(crops)
@@ -2383,9 +2405,12 @@ def phase_bf16(card: str):
     # the scenes with every count at 0; the comparisons after
     every = zero_counters()
     names = [n for n in every if n.endswith("bf16")]
+    # the SA stages of every leaf here on the wgmma tier alone
     scenes = (("point dense", "never", ("fused_sa_convmax/bf16",
+                                        "fused_sa_convmax/wgmma_bf16",
                                         "fused_match_grid/bf16")),
               ("point sparse", "auto", ("fused_sa_convmax/bf16",
+                                        "fused_sa_convmax/wgmma_bf16",
                                         "fused_match_pairs/bf16")),
               ("image dense", "never", ("fused_image_match_grid/bf16",)),
               ("image sparse", "always", ("fused_image_match_pairs/bf16",)))
@@ -2398,7 +2423,8 @@ def phase_bf16(card: str):
         else:
             ms, scorer, mgr, frame = run_image_scene(image16, sparse)
         used = {n: every[n].launches - before[n] for n in names}
-        if not all(used[n] > 0 for n in want):
+        if not (all(used[n] > 0 for n in want)
+                and used["fused_sa_convmax/mma_sync_bf16"] == 0):
             raise RuntimeError(f"bf16 {label}: launches {used}")
         runs[label] = (scorer.last_frame, frame)
         BF16_STEP_MS[label] = float(np.median(ms[3:]))
@@ -2410,14 +2436,17 @@ def phase_bf16(card: str):
               f"bf16 launches {summary[label]['launches']}", flush=True)
     # the 7M leaf (C = 128: the bf16 rows tier), two frames dense and two
     # sparse, and the 2048-point ablation served by tools/track.py --bf16
+    sa_7m = 0
     for label, sparse, want in (
             ("7M dense", "never", "fused_match_grid/rows_bf16"),
             ("7M sparse", "auto", "fused_match_pairs/rows_bf16")):
         before = {n: every[n].launches for n in names}
         ms, scorer, mgr = run_scene(scaled16, sparse, frames=2)
         used = {n: every[n].launches - before[n] for n in names}
-        if not (used[want] > 0 and used["fused_sa_convmax/bf16"] > 0):
+        if not (used[want] > 0 and used["fused_sa_convmax/wgmma_bf16"] > 0
+                and used["fused_sa_convmax/mma_sync_bf16"] == 0):
             raise RuntimeError(f"bf16 {label}: launches {used}")
+        sa_7m += used["fused_sa_convmax/bf16"]
         runs[label] = (scorer.last_frame, None)
         summary[label] = dict(step_ms=ms, launches={
             n: v for n, v in used.items() if v})
@@ -2430,6 +2459,8 @@ def phase_bf16(card: str):
     f32 = {k: v for k, v in launches.items() if v and not k.endswith("bf16")}
     if f32:
         raise RuntimeError(f"the bf16 path launched float32 kernels {f32}")
+    # the 7M row's launches: the bf16 SA kernel's in the 7M leaf's frames
+    launches["fused_sa_convmax/7M_bf16"] = sa_7m
     point32 = build(point_transformer_point_cat(), torch.float32)
     image32 = build(image_deit_point_cat("deit-tiny-no-pt"), torch.float32)
     scaled32 = build(get_experiment(SCALED)["model"], torch.float32)
@@ -2480,7 +2511,7 @@ def main():
     rows += bf16_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
-        row["launches"] = sum(path[row["name"]] for path in (
+        row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path))
         if row["launches"] <= 0:

@@ -11,15 +11,22 @@ conv1_edge_factors; conv2/conv3's biases enter t2/t3) and calls it.
 Under a bf16 model (the JAX kernel with A and Ct in the model dtype) A, Ct
 and the output are bf16 and the weights and affines float32; each product
 multiplies bf16-rounded operands with float32 accumulation. On CUDA that is
-csrc/sa_stage_bf16.cu (one mma.sync bf16 pass a product; the wrapper
-converts w2 and w3 to bf16 once per weight tensor, utils/cache.py); its
-launches count in `fused_sa_convmax.bf16_launches`, the float32 kernel's in
+csrc/sa_stage_bf16.cu, whose tier `plan_bf16(C, K, R)` names: "wgmma" (C =
+32, 64, 128, 256, 512, 1024: a persistent grid, weights through a
+shared-memory ring, every product on wgmma) or "mma_sync" (the first
+version's row tiles, for the other multiples of 32 up to 1024, which no
+registered leaf reaches). The wrapper converts w2 and w3 to bf16 once per
+weight tensor (utils/cache.py): into the wgmma tier's stage layout
+(stage_weights), or (out, in) for the mma_sync tier. bf16 launches count in
+`fused_sa_convmax.bf16_launches` and by tier in
+`fused_sa_convmax.bf16_tiers`, the float32 kernel's in
 `fused_sa_convmax.launches`.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +38,149 @@ BF16 = torch.bfloat16
 # where the SA kernels' missing widths are queued
 ROADMAP_SA_WIDTHS = ("ROADMAP.md section 2, 'K5. Row 1 at widths neither SA "
                      "kernel takes'")
+
+
+# ---- the bf16 kernel's launch plan (csrc/sa_stage_bf16.cu, make_plan) ----
+
+MAX_SMEM = 232448               # dynamic shared memory a block may take
+WGMMA, MMA_SYNC = "wgmma", "mma_sync"
+BF16_TIERS = (WGMMA, MMA_SYNC)
+WGMMA_WIDTHS = (32, 64, 128, 256, 512, 1024)
+
+
+class SaPlan(NamedTuple):
+    tier: str            # WGMMA or MMA_SYNC
+    tile_rows: int       # rows a weight tile serves at once (a block's tile)
+    warpgroups: int      # consumer warpgroups a block (0: mma_sync)
+    cluster: int         # blocks a cluster
+    ring: int            # weight stages in shared memory (0: mma_sync)
+    smem: int            # shared bytes a block
+    whole_centres: bool  # every centre's K rows lie in one tile
+
+
+def _wgmma_tiles(C: int) -> Tuple[int, int, int, int]:
+    """csrc/sa_stage_bf16.cu Cfg<C>: consumer warpgroups (3 at C <= 128, 2
+    above), conv2's and conv3's output columns a stage (NC2, NC3) and
+    conv3's 64-column k-panels a stage (conv2's: 1)."""
+    return (3 if C <= 128 else 2, min(C, 128), 64 if C == 512 else min(C, 128),
+            2 if C == 512 else 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_plan(C: int) -> SaPlan:
+    """csrc/sa_stage_bf16.cu Cfg<C>: warpgroups of 64 rows each (at C =
+    1024 two share one m-tile); stages of NC output rows x 64 or 128 input
+    columns (4-16 KB); each m-tile's h1 (64 rows x 64-column panels) and
+    running maxima (4 x C floats) beside as many stages as fit (all of w2
+    and w3 where they fit: resident). tile_rows: the rows a stage serves."""
+    nwg, nc2, nc3, kp3 = _wgmma_tiles(C)
+    split = C == 1024           # the two warpgroups share one m-tile
+    bufs = 1 if split else nwg
+    panels = (C + 63) // 64
+    sb = nc2 * 128
+    stages = (C // nc2) * panels + (C // nc3) * (panels // kp3)
+    per_buf = 64 * panels * 128 + 16 * C
+    fit = (MAX_SMEM - 1024 - bufs * per_buf - 256) // sb
+    ring = stages if fit >= stages else fit
+    smem = 1024 + ring * sb + bufs * per_buf + 16 * ring
+    return SaPlan(WGMMA, 64 * bufs, nwg, 1, ring, smem, True)
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_sync_plan(C: int, K: int) -> SaPlan:
+    """The mma_sync tier's row tiles (mma_sync_tier::tiles): M rows a block, two bf16
+    buffers of M x (C + 8)."""
+    ntiles = C // 8
+    nt = 1
+    for d in (2, 4):
+        if ntiles % d == 0 and ntiles // d >= 8:
+            nt = d
+    chunks = ntiles // nt
+    warps = 16 if chunks >= 16 else 8
+    groups = warps // chunks if chunks < warps else 1
+    mt = {1: 8, 2: 4}.get(nt, 3)
+
+    def smem(m):
+        return 2 * groups * m * 16 * (C + 8) * 2
+    while mt > 1 and smem(mt) > MAX_SMEM:
+        mt -= 1
+    M = groups * mt * 16
+    return SaPlan(MMA_SYNC, M, 0, 1, 0, smem(mt), M % K == 0)
+
+
+def plan_bf16(C: int, K: int, R: int = 0) -> SaPlan:
+    """The bf16 kernel's launch plan for width C, K neighbours and R = B S K
+    rows, as csrc/sa_stage_bf16.cu's make_plan: the wgmma tier at C in
+    WGMMA_WIDTHS, the mma_sync tier at the other multiples of 32 up to
+    1024. Raises NotImplementedError on a width neither takes and
+    ValueError on K < 1 or R >= 2^31."""
+    if C % 32 or not 32 <= C <= 1024:
+        raise NotImplementedError(
+            f"fused_sa_convmax at bf16: C={C}; the bf16 kernel takes C "
+            f"a multiple of 32 from 32 to 1024 ({ROADMAP_SA_WIDTHS})")
+    if K < 1 or R >= 2 ** 31:
+        raise ValueError(f"fused_sa_convmax at bf16: K={K}, R={R}; want "
+                         "K >= 1 and B * S * K below 2^31")
+    return _wgmma_plan(C) if C in WGMMA_WIDTHS else _mma_sync_plan(C, K)
+
+
+def stage_layout(w: torch.Tensor, nr: int, kp: int) -> torch.Tensor:
+    """The wgmma tier's weight stages of one product, in the order the
+    kernel takes them and as each lies in shared memory: w (C, C) bf16 in
+    (out, in) layout cut into NR output rows x KP 64-column k-panels (in
+    input columns past C, zeros), chunk-major; within a stage panel, row,
+    then the row's eight 16-byte units, unit u of row r at u ^ (r % 8) (the
+    128-byte swizzle of csrc/bf16_mma.cuh). Returns a flat bf16 tensor of
+    C / NR * ceil(C / 64 / KP) stages of NR * KP * 64 values."""
+    C = w.shape[0]
+    panels = -(-C // 64)
+    stages = -(-panels // kp)
+    wp = w.new_zeros((C, stages * kp * 64))
+    wp[:, :C] = w
+    t = wp.view(C // nr, nr, stages, kp, 8, 8)
+    r = torch.arange(nr, device=w.device)
+    unit = torch.arange(8, device=w.device)[None, :] ^ (r[:, None] & 7)
+    t = torch.gather(t, 4, unit.view(1, nr, 1, 1, 8, 1).expand(t.shape))
+    return t.permute(0, 2, 3, 1, 4, 5).reshape(-1).contiguous()
+
+
+def stage_weights(w2: torch.Tensor, w3: torch.Tensor) -> tuple:
+    """w2, w3 as fused_sa_convmax takes them ((in, out) float32) in the
+    wgmma tier's stage layout, made once per weight tensor: conv2's stages
+    of NC2 rows x 1 panel, conv3's of NC3 rows x KP3 panels."""
+    C = w2.shape[0]
+    _, nc2, nc3, kp3 = _wgmma_tiles(C)
+    return tuple(derived((w,), ("sa_stages_bf16", nr, kp),
+                         lambda w=w, nr=nr, kp=kp: stage_layout(
+                             w.t().to(BF16), nr, kp))
+                 for w, nr, kp in ((w2, nc2, 1), (w3, nc3, kp3)))
+
+
+def kernel_plan_bf16(C: int, K: int, lib) -> Optional[SaPlan]:
+    """The plan csrc/sa_stage_bf16.cu's pcr_sa_bf16_layout reports for
+    (C, K) in library `lib`, or None where it refuses the shape."""
+    vals = (ctypes.c_longlong * 7)()
+    if lib.pcr_sa_bf16_layout(C, K, vals):
+        return None
+    tier, rows, wgs, cluster, ring, smem, whole = vals
+    return SaPlan(BF16_TIERS[tier], rows, wgs, cluster, ring, smem,
+                  bool(whole))
+
+
+_CHECKED_PLANS = set()
+
+
+def _check_kernel_plan(how: SaPlan, C: int, K: int, lib) -> None:
+    """Raise where the build's own plan differs from plan_bf16's (once per
+    library and shape)."""
+    key = (id(lib), C, K)
+    if key in _CHECKED_PLANS:
+        return
+    got = kernel_plan_bf16(C, K, lib)
+    if got != how:
+        raise ValueError(f"fused_sa_convmax at bf16, C={C}, K={K}: the "
+                         f"kernel's plan {got} differs from plan_bf16's {how}")
+    _CHECKED_PLANS.add(key)
 
 
 def rounded_mm(a: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
@@ -85,6 +235,8 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
     out = launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
     if A.dtype == BF16:
         fused_sa_convmax.bf16_launches += 1
+        fused_sa_convmax.bf16_tiers[plan_bf16(
+            A.shape[2], idx.shape[2]).tier] += 1
     else:
         fused_sa_convmax.launches += 1
     return out
@@ -95,9 +247,11 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
     """Check CUDA inputs as fused_sa_convmax takes them and launch the
     kernel of their dtype: csrc/sa_stage.cu (float32), or
     csrc/sa_stage_bf16.cu (A and Ct bf16; w2, w3 float32 in any strides,
-    handed to the kernel converted once, bf16 in (out, in) layout).
+    handed to the kernel converted once, bf16 in (out, in) layout; the tier
+    plan_bf16 names, which must be the build's own plan).
     `library` is another build of the entry points, as tools/ab_sa.py times
-    versions of the kernel."""
+    versions of the kernel (an earlier one without pcr_sa_bf16_layout is
+    launched unchecked, with (out, in) weights)."""
     B, N, C = A.shape
     S, K = idx.shape[1], idx.shape[2]
     vecs = (s1, t1, s2, t2, s3, t3)
@@ -113,17 +267,20 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
     for t in (Ct, idx, w2, w3) + vecs:
         if t.device != A.device:
             raise ValueError("fused_sa_convmax: inputs on different devices")
+    how = plan_bf16(C, K, B * S * K) if bf16 else None
     if C % 32 or not 32 <= C <= 1024:
-        if bf16:
-            raise NotImplementedError(
-                f"fused_sa_convmax at bf16: C={C}; the bf16 kernel takes C "
-                f"a multiple of 32 from 32 to 1024 ({ROADMAP_SA_WIDTHS})")
         raise ValueError(f"fused_sa_convmax: C={C}; the kernel takes C a "
                          "multiple of 32 from 32 to 1024 (the widths 32, 64 "
                          "and 128 x mul of the port's configs)")
     if B * S * K >= 2 ** 31:
         raise ValueError("fused_sa_convmax: B * S * K must be below 2^31")
-    if bf16:
+    lib = (library or _lib.LIBRARY).get()
+    # a build with the plan entry takes the wgmma tier's weights in its
+    # stage layout; the mma_sync tier (and an earlier build) in (out, in)
+    staged = bf16 and how.tier == WGMMA and hasattr(lib, "pcr_sa_bf16_layout")
+    if staged:
+        w2, w3 = stage_weights(w2, w3)
+    elif bf16:
         w2, w3 = (derived((w,), "sa_stage_bf16",
                           lambda w=w: w.t().to(BF16).contiguous())
                   for w in (w2, w3))
@@ -131,8 +288,9 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
         raise ValueError("fused_sa_convmax: float inputs must be 16-byte "
                          "aligned (the kernel reads them in float4 / float2)")
     out = torch.empty((B, S, C), dtype=dt, device=A.device)
-    lib = (library or _lib.LIBRARY).get()
     entry = "pcr_sa_convmax_bf16" if bf16 else "pcr_sa_convmax"
+    if bf16 and (library is None or hasattr(lib, "pcr_sa_bf16_layout")):
+        _check_kernel_plan(how, C, K, lib)
     err = getattr(lib, entry)(
         *[t.data_ptr() for t in (A, Ct, idx, w2, w3) + vecs + (out,)],
         B, N, S, K, C, _lib.stream_ptr(A.device))
@@ -142,6 +300,7 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
 
 fused_sa_convmax.launches = 0
 fused_sa_convmax.bf16_launches = 0
+fused_sa_convmax.bf16_tiers = dict.fromkeys(BF16_TIERS, 0)
 
 
 def _expect(t: torch.Tensor, shape, dtype, name: str,

@@ -68,11 +68,14 @@ def test_sa_stage_bf16_plain_matches_pallas(with_points):
     _close(got, want)
 
 
-def test_sa_convmax_bf16_plain_matches_pallas():
+@pytest.mark.parametrize("C", [32, 128, 512, 1024])
+@pytest.mark.parametrize("K", [8, 48])
+def test_sa_convmax_bf16_plain_matches_pallas(C, K):
     """The kernel's own inputs: bf16 A and Ct, float32 weights and
-    affines."""
+    affines, at the widths of both bf16 tiers (C = 32 ... 512 wgmma, 1024
+    mma_sync) and K in and past one 16-row slot group."""
     rs = np.random.RandomState(1)
-    B, N, S, K, C = 3, 32, 16, 8, 32
+    B, N, S = (3, 32, 16) if C == 32 else (2, 48, 4)
     A = torch.from_numpy(rs.randn(B, N, C).astype(np.float32)).to(BF16)
     Ct = torch.from_numpy(rs.randn(B, S, C).astype(np.float32)).to(BF16)
     idx = torch.from_numpy(rs.randint(0, N, (B, S, K)).astype(np.int32))

@@ -146,7 +146,8 @@ def test_bf16_kernel_sources_are_built_with_the_others():
     from point_cloud_reid_tpu_torch.kernels import _lib
     names = {p.name for p in _lib.Library().sources()}
     assert BF16_SOURCES <= names
-    for fn in ("pcr_sa_convmax_bf16", "pcr_match_pooled_bf16",
+    for fn in ("pcr_sa_convmax_bf16", "pcr_sa_bf16_layout",
+               "pcr_match_pooled_bf16",
                "pcr_match_pooled_image_bf16",
                "pcr_match_pooled_bf16_layout"):
         assert fn in _lib._SIGNATURES

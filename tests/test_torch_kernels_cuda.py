@@ -59,6 +59,8 @@ def _sa_args(cuda, B, N, S, K, C):
     (4, 128, 128, 32, 256),         # the 7M model's (mul = 8) SA1, SA2, SA3
     (4, 128, 64, 48, 512),
     (4, 64, 32, 48, 1024),
+    (3, 64, 25, 20, 1024),          # a ragged last group, slots past K
+    (128, 64, 32, 48, 1024),        # the 7M SA3 at B = 128: many rounds
 ])
 def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
@@ -595,23 +597,63 @@ def _sa_args_bf16(cuda, B, N, S, K, C):
     return (A.to(torch.bfloat16), Ct.to(torch.bfloat16), *rest)
 
 
+# Every branch of plan_bf16: the wgmma tier (C = 32, 64, ..., 1024) groups 4
+# centres and takes a centre's K rows in ceil(K / 16) 64-row m-tiles,
+# repeating neighbour K - 1 in the slots past K; weights resident at
+# C <= 128, through the ring above; at C = 1024 two warpgroups split each
+# m-tile's columns. The mma_sync tier (the other multiples of 32) keeps
+# the first version's row tiles of M rows, with CAS maxima where M is not a
+# multiple of K.
 @pytest.mark.parametrize("B,N,S,K,C", [
-    (3, 40, 20, 12, 64),            # K = 12 does not divide M: CAS maxima
-    (4, 128, 128, 32, 128),         # the flagship's SA1, SA2, SA3 at B = 4
-    (4, 128, 64, 48, 256),
+    (3, 40, 20, 12, 64),            # K = 12: slots past K, whole centres
+    (4, 128, 128, 32, 128),         # the flagship's SA1, SA2, SA3 at B = 4:
+    (4, 128, 64, 48, 256),          # K = 32 and 48 fill their m-tiles
     (4, 64, 32, 48, 512),
-    (2, 64, 32, 48, 1024),          # M = 16 < K
-    (3, 50, 25, 20, 96),
-    (2, 16, 9, 7, 32),
+    (2, 64, 32, 48, 1024),          # two warpgroups an m-tile
+    (2, 64, 32, 32, 1024),
+    (3, 50, 25, 20, 96),            # mma_sync tier, K does not divide M:
+    (2, 40, 16, 32, 992),           # CAS maxima; M = 48 at C = 992
+    (2, 16, 9, 7, 32),              # C = 32 in half a swizzle row
+    (3, 50, 25, 20, 128),           # 75 centres: a ragged last group
+    (1, 30, 7, 16, 256),            # fewer centres than one block's groups
+    (2, 256, 6, 200, 128),          # K = 200: a centre past a block's rows
+    (1, 96, 5, 70, 512),            # K = 70 through the ring
+    (4, 128, 128, 32, 256),         # the 7M model's (mul = 8) SA1, SA2, SA3
+    (4, 128, 64, 48, 512),
+    (4, 64, 32, 48, 1024),
+    (3, 64, 25, 20, 1024),          # a ragged last group, slots past K
+    (128, 64, 32, 48, 1024),        # the 7M SA3 at B = 128: many rounds
+    (256, 128, 128, 32, 128),       # more groups than resident blocks
+    (128, 64, 32, 48, 512),         # the ring over several rounds a block
 ])
 def test_sa_convmax_bf16_kernel_matches_plain(cuda, B, N, S, K, C):
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     args = _sa_args_bf16(cuda, B, N, S, K, C)
-    before = sa.fused_sa_convmax.launches, sa.fused_sa_convmax.bf16_launches
-    got = sa.fused_sa_convmax(*args)
-    assert (sa.fused_sa_convmax.launches,
-            sa.fused_sa_convmax.bf16_launches) == (before[0], before[1] + 1)
+    tier = sa.plan_bf16(C, K, B * S * K).tier
+    assert tier == (sa.WGMMA if C in sa.WGMMA_WIDTHS else sa.MMA_SYNC)
+    fn = sa.fused_sa_convmax
+    before = fn.launches, fn.bf16_launches, dict(fn.bf16_tiers)
+    got = fn(*args)
+    assert (fn.launches, fn.bf16_launches) == (before[0], before[1] + 1)
+    assert fn.bf16_tiers == dict(before[2], **{tier: before[2][tier] + 1})
     _close_bf16(got, sa.sa_convmax_reference(*args))
+
+
+def test_sa_bf16_layout_equals_the_plan(cuda):
+    """pcr_sa_bf16_layout gives the plan that plan_bf16 reckons at every
+    width either tier takes, and refuses what neither takes."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    lib = _lib.LIBRARY.get()
+    for C in range(32, 1025, 32):
+        for K in (1, 7, 16, 32, 48, 200):
+            want = sa.plan_bf16(C, K)
+            assert sa.kernel_plan_bf16(C, K, lib) == want, (C, K)
+            assert want.smem <= sa.MAX_SMEM
+    assert sa.plan_bf16(128, 32) == sa.SaPlan(sa.WGMMA, 192, 3, 1, 4,
+                                              121920, True)
+    for C, K in ((16, 8), (48, 8), (1056, 8), (128, 0)):
+        assert sa.kernel_plan_bf16(C, K, lib) is None
 
 
 def test_sa_convmax_bf16_kernel_refuses_other_widths(cuda):
