@@ -69,10 +69,12 @@ Phases, each of which raises on failure:
      loader waits, the loader's own pairs/s and the eval's.
   9. the rest of the flagship family: kNN past 128 points (tiers S and G
      of csrc/knn.cu) at FAMILY_KNN on exact, duplicated and random clouds
-     beside cdist + topk; the match chain's rows tier (csrc/match_rows.cu)
-     at C = 128 (a 128 x 128 grid and 512 pairs of the 7M model's
-     embeddings) and at C = 64, N = 2048 (a 16 x 16 grid and 512 pairs of
-     the 2048-point ablation's), pairs equal to their grid cells; the SA
+     beside cdist + topk; the match chain's rows tier (csrc/match_rows.cu:
+     the wgmma tier of csrc/match_rows_wg.cuh) at C = 128 (a 128 x 128 grid
+     and 512 pairs of the 7M model's embeddings) and at C = 64, N = 2048 (a
+     16 x 16 grid and 512 pairs of the 2048-point ablation's), pairs equal
+     to their grid cells, with the tier's name, shared bytes a block and
+     ptxas's registers and spills; the SA
      kernel at SA1 of 512 crops of 2048 points and at the 7M model's
      widths; linear attention at L = S = 2048 and at d_model 128. Then,
      with every count at 0: the 7M leaf behind TrackingManager.step over
@@ -80,7 +82,8 @@ Phases, each of which raises on failure:
      sparse ('auto'), step ms, device ms and busy share of two profiled
      frames, one frame against plain scoring; tools/track.py serving the
      2048-point ablation with --subsample 2048 (sparse 'auto', the rows
-     tier), one frame against plain scoring; FAMILY_STEPS train steps of
+     tier), one frame against plain scoring; no launch of the first rows
+     kernel (tier rows_mma, kept for C = 16); FAMILY_STEPS train steps of
      the ablation and of the 7M leaf with both kernel knobs on, at the
      largest pair count up to 256 that fits, 3 kNN and 4 attention
      launches a step, step 1 against the knobs off to TRAIN_TOL, step ms
@@ -98,7 +101,8 @@ Phases, each of which raises on failure:
      through TrackingManager at bf16 (step ms), the 7M leaf two frames
      dense and two sparse, and tools/track.py --bf16 serving the 2048-point
      ablation at --subsample 2048 (5 frames, 16 objects): the bf16 kernels
-     launched (the rows tier by the last two), no float32 kernel, and each
+     launched (the wgmma rows tier by the last two), no float32 kernel and
+     no first rows kernel, and each
      scene's last frame against the float32 port on the same crops
      (BF16_LOGIT_TOL).
 Each kernel's bound is the least time the card could take for the call: the
@@ -690,6 +694,10 @@ def all_counters() -> dict:
                                                       ("rows",)),
                    "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
                                                        ("rows",))},
+                # the first rows kernel, kept for C = 16: off every path here
+                **{f"{fn.__name__}/rows_mma{b}": TierCount(fn, (f"rows_mma{b}",))
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs)
+                   for b in ("", "_bf16")},
                 **{"fused_sa_convmax/bf16": Bf16Count(sa.fused_sa_convmax)},
                 **{f"fused_sa_convmax/{tier}_bf16": TierCount(
                     sa.fused_sa_convmax, (tier,), "bf16_tiers")
@@ -1817,17 +1825,20 @@ def family_match(model, n_obj: int, n_pts: int, P: int) -> tuple:
     tag = "bf16 rows tier" if bf16 else "rows tier"
     simt = ("" if bf16 else f", float32 CUDA-core bounds {g_simt:.3f} / "
             f"{p_simt:.3f}")
+    usage = rows_kernel_usage(C, nhead, bf16)
     print(f"[family:match] {tag}, C={C} N={n_pts} nhead={nhead}: grid "
           f"{n_obj}x{n_obj} max_abs_err={g_err:.3e} rel={g_rel:.3e}, pairs "
           f"P={P} max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol {tol:g}), "
           f"pairs equal to their grid cells: {same}; grid {g_ms:.3f} ms "
           f"(plain {g_plain:.3f}, bound {g_bound:.4f} {g_by}), pairs "
           f"{p_ms:.3f} ms (plain {p_plain:.3f}, bound {p_bound:.4f} {p_by})"
-          f"{simt}", flush=True)
+          f"{simt}; tier {mg.TIER_NAMES[how.tier]}, {how.smem} shared bytes "
+          f"a block, ptxas {usage}", flush=True)
     if not (g_rel <= tol and p_rel <= tol and same):
         raise RuntimeError(f"the {tag} disagrees at C={C} N={n_pts}: "
                            f"{g_rel}, {p_rel}, pairs equal {same}")
-    shape = dict(C=C, N=n_pts, nhead=nhead)
+    shape = dict(C=C, N=n_pts, nhead=nhead, tier=mg.TIER_NAMES[how.tier],
+                 smem_bytes=how.smem, ptxas=usage)
     return (dict(shape, grid=f"{n_obj}x{n_obj}", max_abs_err=g_err, ms=g_ms,
                  plain_ms=g_plain, bound_ms=g_bound, bound_by=g_by,
                  library_ms=None,
@@ -2099,6 +2110,21 @@ def train_leaf(card: str, name: str) -> dict:
                 peak_gib=peak / 2 ** 30, step1_rel=rels)
 
 
+def rows_kernel_usage(C: int, nhead: int, bf16: bool) -> dict:
+    """ptxas's registers and spills of the wgmma rows tier's instantiation
+    for width C in nhead heads (csrc/match_rows_wg.cuh rows_wg_kernel<policy,
+    C, KVN>), from the kernels' build log."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    kvn = mg.rows_layout(C, nhead).kvn
+    want = f"rows_wg_kernelINS_4{'Bf16' if bf16 else 'Tf32'}ELi{C}ELi{kvn}E"
+    found = [v for k, v in _lib.ptxas_usage(_lib.LIBRARY.build_log).items()
+             if want in k]
+    if len(found) != 1:
+        raise RuntimeError(f"no ptxas account of {want} in the build log")
+    return found[0]
+
+
 def rows_tier_rows(scaled, ablation, tier: str, source: str) -> list:
     """Kernels-line rows of a rows tier (`tier` "rows" or "rows_bf16"): the
     grid row's numbers are the 7M model's 128 x 128 grid, the pairs row's
@@ -2161,6 +2187,9 @@ def phase_family(card: str):
     torch.cuda.empty_cache()
     summary["train"] = [train_leaf(card, ABLATION), train_leaf(card, SCALED)]
     launches = {name: fn.launches for name, fn in every.items()}
+    if any(v for k, v in launches.items() if "/rows_mma" in k):
+        raise RuntimeError(f"the first rows kernel ran at C = 64 / 128: "
+                           f"{launches}")
     print(f"[family] launches {launches}; phase took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return rows, extra, launches, summary
@@ -2459,6 +2488,9 @@ def phase_bf16(card: str):
     f32 = {k: v for k, v in launches.items() if v and not k.endswith("bf16")}
     if f32:
         raise RuntimeError(f"the bf16 path launched float32 kernels {f32}")
+    if any(v for k, v in launches.items() if "/rows_mma" in k):
+        raise RuntimeError(f"the first bf16 rows kernel ran at C = 64 / 128: "
+                           f"{launches}")
     # the 7M row's launches: the bf16 SA kernel's in the 7M leaf's frames
     launches["fused_sa_convmax/7M_bf16"] = sa_7m
     point32 = build(point_transformer_point_cat(), torch.float32)

@@ -1,5 +1,6 @@
-// bf16 products on Hopper's tensor cores, shared by the bf16 match chain's
-// two tiers (csrc/match_grid_bf16.cu, csrc/match_rows_bf16.cu): one bf16
+// bf16 products on Hopper's tensor cores, shared by the bf16 kernels
+// (csrc/match_grid_bf16.cu, csrc/match_rows_wg.cuh, csrc/sa_stage_bf16.cu;
+// the descriptors, fences and rings also by the float32 rows tier): one bf16
 // pass a product with float32 accumulation, as JAX's bf16 dots
 // (preferred_element_type=float32).
 //
@@ -98,6 +99,42 @@ __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, ui
                                                   uint32_t r2, uint32_t r3) {
   asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
                "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// ---- mbarriers and bulk copies: the weight rings of csrc/sa_stage_bf16.cu and
+// csrc/match_rows_wg.cuh -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// One bulk copy (the async proxy, as wgmma reads) of `bytes` from global
+// memory into shared memory, its arrival counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
 

@@ -13,16 +13,34 @@
 //
 // It replaces the same TPU kernels, point_cloud_reid_tpu/ops/pallas/
 // match_grid.py fused_match_grid (:250) and fused_match_pairs (:355), for
-// C = 128 (the 1.5M and 7M models, any N) and for C = 16 / 64 past the
-// cluster tier's rows (a model served on crops of N points scores N rows a
+// C = 128 (the 1.5M and 7M models, any N) and for C = 64 past the cluster
+// tier's 224 rows (a model served on crops of N points scores N rows a
 // side: the point-count ablations serve up to 2048). kernels/match_grid.py's
 // plan(N, C, H) picks the tier.
 //
-// Why another tier. The cluster tier stages 8 C^2 floats of weights and a
-// side's stage-1 output O (N x (C + 4)) in one block's shared memory: at
-// C = 128 the weights alone are 512 KB, and at C = 64 O outgrows 227 KB past
-// 224 rows. Here nothing that grows with N or with C^2 beyond one C x C
-// summary stays in shared memory:
+// What bounds it on the H100: 80 N C^2 flops a pair, three TF32 passes
+// each, against 495 TFLOP/s (16.7 ms for a 128 x 128 grid at C = 128,
+// N = 128; 2.0 ms for 512 pairs at C = 64, N = 2048).
+//
+// Tier "rows" (C = 64, 128): csrc/match_rows_wg.cuh with policy Tf32, every
+// product three wgmma m64n64k8 TF32 passes (hi*hi + hi*lo + lo*hi): A split
+// in registers once a k-panel as csrc/tf32_mma.cuh splits, B's hi and lo
+// halves from the stage (the wrapper splits the weights once, the kernel its
+// own KV). What held its first version (below) back and what the
+// new structure does, in the header's four points: four warps an SM -> two
+// consumer warpgroups (a side each) and a producer; two block barriers a
+// 32 x 64 weight tile serving 64 rows -> a ring of 16 KB cp.async.bulk
+// stages (hi and lo) with mbarriers, each serving 128 rows; every fragment
+// split anew and B packed from a float32 C x C summary -> A split once a
+// panel in registers, the summary's diagonal band split once into stages;
+// LayerNorm row by row from shared memory -> in registers on the
+// accumulators.
+//
+// Tier "rows_mma" (C = 16, which no registered leaf reaches here: the
+// cluster tier holds 2,048 rows at C = 16): the first version, kept.
+// The cluster tier stages 8 C^2 floats of weights and a side's stage-1
+// output O (N x (C + 4)) in one block's shared memory; here nothing that
+// grows with N or with C^2 beyond one C x C summary stays in shared memory:
 //  - a block scores one pair at a time, both directions in turn, and walks
 //    over the pairs (p = block, block + grid, ...); each block owns a slot
 //    of a device scratch that holds the pair's two stage-1 outputs
@@ -54,17 +72,14 @@
 // cluster tier. LayerNorm, elu+1, split-norm, ReLU and pooling stay float32
 // on the CUDA cores.
 //
-// What bounds it on the H100: the same 80 N C^2 flops a pair, three TF32
-// passes each, against 495 TFLOP/s (16.7 ms for a 128 x 128 grid at
-// C = 128, N = 128; 2.0 ms for 512 pairs at C = 64, N = 2048). Its first
-// version read every B fragment from L2 for every 16-row slab (184 ms for
-// that grid, PERF.md); the shared tiles cut those loads 4x. With 4 warps a
-// block and one or two blocks an SM, the block barriers of each tile and
-// the split of every fragment bound it, not the tensor cores.
+// With 4 warps a block and one or two blocks an SM, the block barriers of
+// each tile and the split of every fragment bound it, not the tensor cores
+// (122.5 ms for the 7M model's grid, PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "match_rows_wg.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -510,16 +525,9 @@ match_rows_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
 }
 
 // Bytes of shared memory for C, or 0 when the tier has no instantiation.
-size_t smem_bytes(int C) {
-  switch (C) {
-    case 16: return Layout<16>::FLOATS * sizeof(float);
-    case 64: return Layout<64>::FLOATS * sizeof(float);
-    case 128: return Layout<128>::FLOATS * sizeof(float);
-    default: return 0;
-  }
-}
+size_t smem_bytes(int C) { return C == 16 ? Layout<16>::FLOATS * sizeof(float) : 0; }
 
-// 0: the tier takes the shape; 1: no instantiation for C (16, 64, 128), or
+// 0: the tier takes the shape; 1: no instantiation for C (16), or
 // H does not divide C, or more than HMAX heads, or N < 1.
 int layout_status(int N, int C, int H) {
   if (N < 1 || H < 1 || H > HMAX || C % H != 0 || smem_bytes(C) == 0) return 1;
@@ -551,7 +559,7 @@ Side make_side(const void* h, const void* q, const void* kvz, const void* a1, co
 
 }  // namespace
 
-// The layout check of the tier: writes the bytes of shared memory the shape
+// The layout check of tier rows_mma: writes the bytes of shared memory the shape
 // needs and the most a block may take, and returns layout_status.
 extern "C" int pcr_match_rows_layout(int N, int C, int H, long long* bytes, long long* limit) {
   *bytes = (long long)smem_bytes(C);
@@ -559,7 +567,7 @@ extern "C" int pcr_match_rows_layout(int N, int C, int H, long long* bytes, long
   return layout_status(N, C, H);
 }
 
-// Point head: 5 factors a side (h, q, kvz, a1, pv), the 16 weights in
+// Tier rows_mma, point head: 5 factors a side (h, q, kvz, a1, pv), the 16 weights in
 // pcr_match_pooled's order, the pair lists (null in grid mode), the output,
 // and a scratch of blocks x 2 x Np x C floats; `blocks` blocks walk over
 // the P pairs.
@@ -586,9 +594,7 @@ extern "C" int pcr_match_rows(
   float* o = (float*)out;
   float* sc = (float*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 16: return launch_c<16>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-    case 64: return launch_c<64>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-    default: return launch_c<128>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-  }
+  return launch_c<16>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
 }
+
+ROWS_WG_ENTRIES(rowswg::Tf32, )

@@ -1,46 +1,46 @@
 // Fused per-pair match chain at bf16, tier ROWS: a bf16 point head at the
 // widths and row counts the bf16 cluster tier (csrc/match_grid_bf16.cu)
-// does not hold in shared memory. The same function, grid or pair list, as
-// the float32 rows tier (csrc/match_rows.cu), with every product one
-// mma.sync m16n8k16 bf16 pass (csrc/bf16_mma.cuh) and float32 accumulation.
-//
-// It replaces the bf16 instances of point_cloud_reid_tpu/ops/pallas/
-// match_grid.py fused_match_grid (:250) and fused_match_pairs (:355) for
-// C = 128 (the 1.5M and 7M models, any N) and for C = 16 / 64 past the
-// bf16 cluster tier's rows (the point-count ablations served at their crop
-// size). kernels/match_grid.plan(N, C, H, dtype=torch.bfloat16) picks the
-// tier. It rounds where JAX's bf16 kernel (_make_dot) rounds and nowhere
-// else (csrc/match_grid_bf16.cu lists the places): each product reads its A
-// operand from a float32 strip and rounds it to bf16 as it forms the
-// fragment; the factors (h, q, kvz, a1, pv) and the weights arrive bf16, the
-// stage-1 outputs O stay float32 in the device scratch, KV = bf16(k)^T
-// bf16(v) is summed in float32 and rounded where stage 2 reads it, the
-// stage-2 normaliser is bf16(q * ksum) summed per head in float32, and the
-// pooled output is bf16.
-//
-// Structure (the float32 rows tier's): a block scores one pair at a time,
-// both directions in turn, and walks over the pairs; each block owns a slot
-// of a device scratch with the pair's two stage-1 outputs (2 x Np x C
-// floats); 4 warps carry 16-row slabs through the chain in float32 strips
-// of shared memory; the weights stay in device memory (in L2 for every
-// block) and a product stages one weight through a cp.async double buffer
-// of tiles shared by the block's warps. At bf16 a tile is 64 output
-// columns x 64 of K ((n, k) rows, the weights' (out, in) layout, padded by
-// 8: a B fragment is two 32-bit loads free of bank conflicts), twice the
-// float32 tier's 32 rows of K in the same 9,216 bytes, so a product crosses
-// half as many block barriers.
+// does not hold in shared memory. It replaces the bf16 instances of
+// point_cloud_reid_tpu/ops/pallas/match_grid.py fused_match_grid (:250) and
+// fused_match_pairs (:355) for C = 128 (the 1.5M and 7M models, any N) and
+// for C = 64 past the bf16 cluster tier's 208 rows (the point-count
+// ablations served at their crop size). kernels/match_grid.plan(N, C, H,
+// dtype=torch.bfloat16) picks the tier. It rounds where JAX's bf16 kernel
+// (_make_dot) rounds and nowhere else (csrc/match_grid_bf16.cu lists the
+// places).
 //
 // What bounds it on the H100: 80 N C^2 operations a pair in one bf16 pass
 // at 989 TFLOP/s (2.78 ms for a 128 x 128 grid at C = 128, N = 128; 0.35 ms
-// for 512 pairs at C = 64, N = 2048). Like its float32 form it is bound by
-// the block barriers of each tile and the mma.sync issue of 4 warps a block,
-// not by the tensor cores.
+// for 512 pairs at C = 64, N = 2048).
+//
+// Tier "rows" (C = 64, 128): csrc/match_rows_wg.cuh with policy Bf16, every
+// product one wgmma m64n64k16 pass. What held its first version
+// (below) back and what the new structure does, in the header's four points:
+// four warps an SM -> two consumer warpgroups (a side each) and a producer;
+// two block barriers a 64 x 64 weight tile serving 64 rows -> a ring of
+// 8 KB cp.async.bulk stages with mbarriers, each serving 128 rows; bf16
+// fragments re-formed from float32 strips and a float32 C x C summary ->
+// A from the last accumulator in registers, the summary's diagonal band
+// rounded once into bf16 stages; LayerNorm row by row from shared memory ->
+// in registers on the accumulators.
+//
+// Tier "rows_mma" (C = 16, which no registered leaf reaches here: the bf16
+// cluster tier holds 2,848 rows at C = 16): the first version, kept. The
+// float32 rows tier's structure (csrc/match_rows.cu) with every product one
+// mma.sync m16n8k16 bf16 pass: a block scores one pair at a time, both
+// directions in turn; each block owns a slot of a device scratch with the
+// pair's two stage-1 outputs; 4 warps carry 16-row slabs through the chain
+// in float32 strips of shared memory; a product stages one weight through a
+// cp.async double buffer of 64 x 64 tiles shared by the block's warps. It
+// is bound by the block barriers of each tile and the mma.sync issue of 4
+// warps a block, not by the tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "match_rows_wg.cuh"
 
 namespace {
 
@@ -515,16 +515,9 @@ match_rows_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx
 }
 
 // Bytes of shared memory for C, or 0 when the tier has no instantiation.
-size_t smem_bytes(int C) {
-  switch (C) {
-    case 16: return Layout<16>::BYTES;
-    case 64: return Layout<64>::BYTES;
-    case 128: return Layout<128>::BYTES;
-    default: return 0;
-  }
-}
+size_t smem_bytes(int C) { return C == 16 ? Layout<16>::BYTES : 0; }
 
-// 0: the tier takes the shape; 1: no instantiation for C (16, 64, 128), or
+// 0: the tier takes the shape; 1: no instantiation for C (16), or
 // H does not divide C, or more than HMAX heads, or N < 1.
 int layout_status(int N, int C, int H) {
   if (N < 1 || H < 1 || H > HMAX || C % H != 0 || smem_bytes(C) == 0) return 1;
@@ -556,7 +549,7 @@ Side make_side(const void* h, const void* q, const void* kvz, const void* a1, co
 
 }  // namespace
 
-// The layout check of the tier: writes the bytes of shared memory the shape
+// The layout check of tier rows_mma: writes the bytes of shared memory the shape
 // needs and the most a block may take, and returns layout_status.
 extern "C" int pcr_match_rows_bf16_layout(int N, int C, int H, long long* bytes,
                                           long long* limit) {
@@ -565,7 +558,7 @@ extern "C" int pcr_match_rows_bf16_layout(int N, int C, int H, long long* bytes,
   return layout_status(N, C, H);
 }
 
-// Point head at bf16: 5 bf16 factors a side (h, q, kvz transposed to (n,
+// Tier rows_mma, point head at bf16: 5 bf16 factors a side (h, q, kvz transposed to (n,
 // 2C, C), a1, pv), the 16 weights in pcr_match_pooled's order (the matrices
 // bf16 in (out, in) layout, the LayerNorm vectors float32), the pair lists
 // (null in grid mode), the output (P, 2C) bf16, and a float32 scratch of
@@ -593,9 +586,7 @@ extern "C" int pcr_match_rows_bf16(
   bf16* o = (bf16*)out;
   float* sc = (float*)scratch;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 16: return launch_c<16>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-    case 64: return launch_c<64>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-    default: return launch_c<128>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
-  }
+  return launch_c<16>(T, Dt, w, ti, di, o, sc, nt, nd, P, N, H, blocks, s);
 }
+
+ROWS_WG_ENTRIES(rowswg::Bf16, _bf16)

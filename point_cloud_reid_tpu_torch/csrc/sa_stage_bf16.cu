@@ -155,25 +155,6 @@ template <int C> struct Cfg {
   static_assert(RING >= 2 && BYTES <= (int)SMEM_LIMIT, "shared memory");
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 // Column of a lane's i-th n-tile of the running max in conv3's chunk c
 // (after reduce_scatter: lane g owns n-tiles g OWN ..; where a chunk has
 // fewer than 8, lane g < NT3 owns n-tile g), or -1.
@@ -224,20 +205,6 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[NT][2], int g) {
   keep_half<NT / 2>(v, 16, (g >> 2) & 1);
   keep_half<NT / 4>(v, 8, (g >> 1) & 1);
   keep_half<NT / 8>(v, 4, g & 1);
-}
-
-// One bulk copy (the async proxy, as wgmma reads) of `bytes` from global
-// memory into shared memory, its arrival counted on the mbarrier `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
 }
 
 // Ring position j of an m-tile's sequence: SB contiguous bytes of the

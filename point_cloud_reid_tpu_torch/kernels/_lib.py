@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -53,13 +54,23 @@ _SIGNATURES = {
     "pcr_match_pooled_image_bf16": [_P] * 8 + [_P] * 16 + [_P] * 3
                                    + [_I] * 6 + [_P],
     "pcr_match_pooled_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
-    # the rows tier: the point head's pointers, then the scratch; nt, nd,
-    # P, N, C, H, blocks, stream
+    # the first rows kernel (tier rows_mma): the point head's pointers, then
+    # the scratch; nt, nd, P, N, C, H, blocks, stream
     "pcr_match_rows": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],
     "pcr_match_rows_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # the two at bf16 (csrc/match_rows_bf16.cu)
     "pcr_match_rows_bf16": [_P] * 10 + [_P] * 16 + [_P] * 4 + [_I] * 7 + [_P],
     "pcr_match_rows_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    # the wgmma rows tier (csrc/match_rows_wg.cuh): 6 side pointers a side
+    # (h, q, a1, pv, KV message stages, sum k), the weight stages, 8
+    # LayerNorm vectors, t_idx, d_idx, out, scratch; nt, nd, P, N, C, H,
+    # blocks, the scratch bytes a block, stream
+    "pcr_match_rows_wg": [_P] * 12 + [_P] * 9 + [_P] * 4 + [_I] * 7 + [_L]
+                         + [_P],
+    "pcr_match_rows_wg_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    "pcr_match_rows_wg_bf16": [_P] * 12 + [_P] * 9 + [_P] * 4 + [_I] * 7
+                              + [_L] + [_P],
+    "pcr_match_rows_wg_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
     # q, db, out (int64), B, S, N, k, stream
     "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
     # the same, then the plan: tier, points, warps, smem; stream
@@ -112,6 +123,8 @@ class Library:
         out_dir = _BUILD_ROOT / f"kernels-{digest.hexdigest()[:16]}"
         lib_path = out_dir / "libpcr_kernels.so"
         if lib_path.exists():
+            log = out_dir / "build.log"
+            self.build_log = log.read_text() if log.exists() else ""
             return lib_path
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = self._nvcc()
@@ -157,6 +170,32 @@ class Library:
 
 
 LIBRARY = Library()
+
+
+def ptxas_usage(log: str) -> dict:
+    """ptxas's account of each kernel in a build log (nvcc -Xptxas -v):
+    mangled entry name -> dict(registers, stack, spill_stores,
+    spill_loads), in bytes but registers."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = dict(registers=0, stack=0, spill_stores=0,
+                              spill_loads=0)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[entry].update(stack=int(m.group(1)),
+                              spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
 
 
 def check(err: int, what: str) -> None:

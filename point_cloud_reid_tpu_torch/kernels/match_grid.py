@@ -12,9 +12,12 @@ features stays plain torch, as in JAX.
 `plan(N, C, H)` picks the float32 kernel's tier: CLUSTER (csrc/match_grid.cu,
 a two-block cluster a pair with the weights and a side's rows in shared
 memory: C = 16 or 64, as many rows as fit, 224 at C = 64) wherever it fits,
-else ROWS (csrc/match_rows.cu, point head only: C = 16, 64 or 128, any N;
-a block a pair at a time, the stage-1 outputs in a device scratch, the
-weights read from L2).
+else, for the point head only, ROWS (csrc/match_rows.cu instantiating
+csrc/match_rows_wg.cuh: C = 64 or 128, any N; two warpgroups on wgmma, a
+side each, the weights streamed through a ring of shared-memory stages from
+a stage copy made once, `rows_stage_weights`, the stage-1 outputs in a
+device scratch) or, at C = 16, ROWS_MMA (the first rows kernel, kept in the
+same file: a block a pair at a time on mma.sync).
 
 The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
 image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
@@ -36,13 +39,14 @@ float32 accumulation, the pooled output in bf16 (the TPU kernel's _make_dot).
 On CUDA `plan(..., dtype=torch.bfloat16)` picks the bf16 tiers:
 CLUSTER (csrc/match_grid_bf16.cu: a persistent two-block cluster on wgmma
 with the weights resident in shared memory, C = 16 or 64, up to 208 rows at
-C = 64), else ROWS for the point head (csrc/match_rows_bf16.cu: the rows
-tier's structure on bf16 mma.sync, C = 16, 64 or 128 at any N); a bf16
-model never runs a float32 kernel. The wrapper hands the kernels bf16
-copies of the weights made once (utils/cache.py). bf16 launches count in
-each wrapper's `bf16_launches`, float32 ones in `launches`; both count by
-tier in `tier_launches` (keys "cluster", "rows", "cluster_bf16",
-"rows_bf16").
+C = 64), else for the point head ROWS (csrc/match_rows_bf16.cu: the same
+wgmma structure as the float32 rows tier, one bf16 pass a product, C = 64
+or 128 at any N) or ROWS_MMA at C = 16; a bf16 model never runs a float32
+kernel. The wrapper hands the kernels bf16 copies of the weights made once
+(utils/cache.py): the rows tier's in its stage layout. bf16 launches count
+in each wrapper's `bf16_launches`, float32 ones in `launches`; both count
+by tier in `tier_launches` (keys "cluster", "rows", "rows_mma", each also
+with "_bf16").
 """
 from __future__ import annotations
 
@@ -271,14 +275,15 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
 # ---- kernel wrappers ------------------------------------------------------------
 
 # tiers
-CLUSTER, ROWS = range(2)
-TIER_NAMES = ("cluster", "rows")
+CLUSTER, ROWS, ROWS_MMA = range(3)
+TIER_NAMES = ("cluster", "rows", "rows_mma")
 MAX_SMEM = 232448       # 227 KB: a block's most dynamic shared memory, sm_90
 SM_SMEM = 233472        # 228 KB: an SM's shared memory, 1 KB of it per block
 CLUSTER_WIDTHS = (16, 64)
-ROWS_WIDTHS = (16, 64, 128)
+ROWS_WIDTHS = (64, 128)             # the wgmma rows tier
+ROWS_MMA_WIDTHS = (16,)             # the first rows kernel
 ROWS_MAX_HEADS = 8
-ROWS_WARPS = 4
+ROWS_WARPS = 4                      # warps a block of the first rows kernel
 ROWS_BLOCKS_PER_SM = 4
 
 
@@ -287,14 +292,16 @@ def tier_key(tier: int, bf16: bool) -> str:
     return TIER_NAMES[tier] + ("_bf16" if bf16 else "")
 
 
+_ENTRIES = ("pcr_match_pooled", "pcr_match_rows_wg", "pcr_match_rows")
+
+
 def layout_entry(tier: int, bf16: bool) -> str:
     """The C entry point of a tier's layout check at a dtype."""
-    return (("pcr_match_pooled" if tier == CLUSTER else "pcr_match_rows")
-            + ("_bf16" if bf16 else "") + "_layout")
+    return _ENTRIES[tier] + ("_bf16" if bf16 else "") + "_layout"
 
 
 class Plan(NamedTuple):
-    tier: int           # CLUSTER or ROWS
+    tier: int           # CLUSTER, ROWS or ROWS_MMA
     smem: int           # dynamic shared bytes a block
 
 
@@ -328,21 +335,85 @@ def cluster_bytes_bf16(N: int, C: int) -> int:
             + 4 * (C + 8 * 2 * C + 2 * C))
 
 
+# ---- the wgmma rows tier's layout (csrc/match_rows_wg.cuh Cfg) ----
+
+RING_MAX = 16           # most weight stages in shared memory
+STAGE_ROWS = 64         # output columns (B rows) a stage
+
+
+class RowsLayout(NamedTuple):
+    pk: int             # K columns a stage (one 128-byte panel)
+    stage_bytes: int    # 64 rows x 128 bytes (bf16), or hi and lo (TF32)
+    kvn: int            # columns of a KV m-tile's band: 64, or 128 where
+                        # a head has 128 channels
+    kv_stages: int      # message stages of a side's KV
+    weight_stages: Tuple[int, int, int]   # a tile of stage 1, summary, stage 2
+    ring: int           # stages in shared memory
+    smem: int           # shared bytes a block
+
+
+def rows_layout(C: int, H: int, dtype: torch.dtype = torch.float32
+                ) -> RowsLayout:
+    """The wgmma rows tier's layout for width C in H heads at `dtype`
+    (bf16: one pass, 8 KB stages; float32: TF32 hi and lo, 16 KB): 1 KB to
+    align the base, the ring, the summary staging of two warpgroups (C
+    channels x 128 bytes of rows, k^T and v^T, at TF32 each with its lo
+    array), sum k of each side and its partials (8 warps), the pooling
+    partials (8 x 2C) and the normalisers (2 x 64 rows x 8 heads), float32,
+    and the ring's mbarriers with one more for the summary's hand-off."""
+    bf16 = dtype == BF16
+    pk, sb, arrays = (64, 8192, 2) if bf16 else (32, 16384, 4)
+    kvn = 64 if C // H <= 64 else 128
+    nb, ch2, ppc, pph = C // 64, 2 * C // 64, C // pk, 64 // pk
+    s1 = nb * pph * nb + ch2 * (ppc + pph * nb)
+    fixed = 2 * arrays * C * 128 + 4 * (2 * C + 8 * C + 8 * 2 * C
+                                        + 2 * 64 * ROWS_MAX_HEADS)
+    ring = min(RING_MAX, (MAX_SMEM - 1024 - fixed - 8 * (2 * RING_MAX + 1))
+               // sb)
+    return RowsLayout(pk, sb, kvn, nb * (kvn // pk),
+                      (s1, ch2 * ppc, ppc * nb + ch2 * ppc + s1), ring,
+                      1024 + ring * sb + fixed + 8 * (2 * ring + 1))
+
+
 def rows_bytes(C: int) -> int:
-    """Shared bytes of the rows tier's layout (csrc/match_rows.cu
-    Layout<C>::FLOATS): 4 warps x 16 rows x (2C + 4 + 2 (C + 4)) strips, the
-    summary C x (C + 8), ksum C, denominators 4 x 16 x 8, pooling 4 x 2C,
-    two weight tiles of 32 x 72."""
+    """Shared bytes of the float32 rows tier's layout (rows_layout; the
+    heads do not change them)."""
+    return rows_layout(C, 1).smem
+
+
+def rows_bytes_bf16(C: int) -> int:
+    """Shared bytes of the bf16 rows tier's layout (rows_layout)."""
+    return rows_layout(C, 1, BF16).smem
+
+
+def rows_scratch_bytes(N: int, C: int, H: int,
+                       dtype: torch.dtype = torch.float32) -> int:
+    """Device scratch a block of the rows tier: both sides' KV as message
+    stages, the stage-2 a = O fc1[:C] of an m-tile a side (2 x 64 x 2C
+    float32) and both sides' stage-1 outputs O (2 x Np x C float32, Np = N
+    rounded up to 64)."""
+    lay = rows_layout(C, H, dtype)
+    Np = -(-N // 64) * 64
+    return (2 * lay.kv_stages * lay.stage_bytes + 2 * 64 * 2 * C * 4
+            + 2 * Np * C * 4)
+
+
+def rows_mma_bytes(C: int) -> int:
+    """Shared bytes of the first rows kernel's layout (csrc/match_rows.cu
+    Layout<C>::FLOATS, tier ROWS_MMA): 4 warps x 16 rows x (2C + 4 + 2 (C +
+    4)) strips, the summary C x (C + 8), ksum C, denominators 4 x 16 x 8,
+    pooling 4 x 2C, two weight tiles of 32 x 72."""
     return 4 * (ROWS_WARPS * 16 * (4 * C + 12) + C * (C + 8) + C
                 + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C
                 + 2 * 32 * 72)
 
 
-def rows_bytes_bf16(C: int) -> int:
-    """Shared bytes of the bf16 rows tier's layout (csrc/match_rows_bf16.cu
-    Layout<C>::BYTES): float32 strips of 4 warps x 16 rows x (2C + 8 + 2
-    (C + 8)), the summary C x (C + 8), ksum C, denominators 4 x 16 x 8,
-    pooling 4 x 2C; two bf16 weight tiles of 64 x 72."""
+def rows_mma_bytes_bf16(C: int) -> int:
+    """Shared bytes of the first bf16 rows kernel's layout
+    (csrc/match_rows_bf16.cu Layout<C>::BYTES): float32 strips of 4 warps x
+    16 rows x (2C + 8 + 2 (C + 8)), the summary C x (C + 8), ksum C,
+    denominators 4 x 16 x 8, pooling 4 x 2C; two bf16 weight tiles of 64 x
+    72."""
     return (4 * (ROWS_WARPS * 16 * (4 * C + 24) + C * (C + 8) + C
                  + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C)
             + 2 * 64 * 72 * 2)
@@ -351,16 +422,17 @@ def rows_bytes_bf16(C: int) -> int:
 def plan(N: int, C: int, H: int, pos: bool = True,
          dtype: torch.dtype = torch.float32) -> Plan:
     """The tier for sides of N rows and C channels in H heads: CLUSTER where
-    its layout fits in a block's shared memory, else ROWS for the point
-    head (`pos`); the image head (no position term) has the cluster tier
-    only. Raises ValueError for a shape that neither takes. Each dtype has
-    its own kernels: at bf16 the cluster tier's layout is cluster_bytes_bf16
-    (up to 208 rows at C = 64) and the rows tier's rows_bytes_bf16; the
-    rows tier takes the same widths and heads at both."""
+    its layout fits in a block's shared memory, else for the point head
+    (`pos`) ROWS at C = 64 or 128 and ROWS_MMA at C = 16; the image head (no
+    position term) has the cluster tier only. Raises ValueError for a shape
+    that none takes. Each dtype has its own kernels: at bf16 the cluster
+    tier's layout is cluster_bytes_bf16 (up to 208 rows at C = 64) and the
+    rows tiers' rows_bytes_bf16 / rows_mma_bytes_bf16; the rows tiers take
+    the same widths and heads at both."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
-    widths = ROWS_WIDTHS if pos else CLUSTER_WIDTHS
+    widths = ROWS_MMA_WIDTHS + ROWS_WIDTHS if pos else CLUSTER_WIDTHS
     if C not in widths:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the kernel's tensor-core "
                          f"tiles take C in {widths}")
@@ -376,7 +448,9 @@ def plan(N: int, C: int, H: int, pos: bool = True,
     if H > ROWS_MAX_HEADS:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
                          f"most {ROWS_MAX_HEADS} heads")
-    return Plan(ROWS, (rows_bytes_bf16 if bf16 else rows_bytes)(C))
+    if C in ROWS_WIDTHS:
+        return Plan(ROWS, rows_layout(C, H, dtype).smem)
+    return Plan(ROWS_MMA, (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
 
 
 def rows_blocks(P: int, smem: int, device) -> int:
@@ -385,6 +459,139 @@ def rows_blocks(P: int, smem: int, device) -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = max(1, min(ROWS_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
     return max(1, min(P, sms * per_sm))
+
+
+# ---- the rows tier's stage copies ----
+
+def _k_order(pk: int) -> torch.Tensor:
+    """The real K column at each k position of a stage: identity at bf16;
+    at TF32 columns 2t, 2t + 1 of each 8-group at positions t, t + 4 (the A
+    fragments of csrc/tf32_mma.cuh a_from_acc)."""
+    p = torch.arange(pk)
+    if pk == 64:
+        return p
+    q = p % 8
+    return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_index(blocks: Tuple[Tuple[int, int], ...], pk: int, device):
+    rows = torch.tensor([b[0] for b in blocks])[:, None] + torch.arange(
+        STAGE_ROWS)
+    cols = torch.tensor([b[1] for b in blocks])[:, None] + _k_order(pk)
+    # unit u (16 bytes) of row r lies at unit u ^ (r % 8): read unit v ^ (r % 8)
+    swz = torch.arange(8)[None, :] ^ (torch.arange(STAGE_ROWS)[:, None] % 8)
+    return rows.to(device), cols.to(device), swz.to(device)
+
+
+def b_stages(mat: torch.Tensor, blocks, bf16: bool) -> torch.Tensor:
+    """B-operand stages of the rows tier cut from mat (..., R, K) float32,
+    R the product's output columns and K its contraction: block (r0, k0)
+    is rows r0 .. r0 + 63 and one k-panel from k0 (64 columns at bf16, 32
+    at TF32), K-major with the 128-byte swizzle of csrc/bf16_mma.cuh (16-byte
+    unit u of row r at u ^ (r % 8)). bf16: the panel rounded to bf16, 4,096
+    values a stage. TF32: K in the order of _k_order, then hi (the value
+    with TF32's low 13 mantissa bits cleared) and lo = value - hi, 2,048
+    floats each. Returns (..., blocks x 4,096) in bf16 or float32."""
+    pk = 64 if bf16 else 32
+    rows, cols, swz = _stage_index(tuple(blocks), pk, mat.device)
+    x = mat[..., rows[:, :, None], cols[:, None, :]]   # (..., nb, 64, pk)
+    unit = 8 if bf16 else 4
+    x = x.reshape(*x.shape[:-1], 8, unit)
+    x = torch.gather(x, -2, swz[:, :, None].expand(x.shape[-3:]).expand(
+        x.shape).contiguous())
+    lead = x.shape[:-4]
+    nb = len(blocks)
+    if bf16:
+        return x.to(BF16).reshape(*lead, nb * 4096)
+    x = x.reshape(*lead, nb, 2048).contiguous()
+    hi = (x.view(torch.int32) & -8192).view(torch.float32)
+    return torch.cat([hi, x - hi], dim=-1).reshape(*lead, nb * 4096)
+
+
+def _tail_blocks(C: int, pk: int, merge: str, fc1b: str, fc2: str) -> list:
+    """A tile's weight stages of the chain's tail in the order the rows
+    tier takes them: for each 64-column message chunk j its merge stages
+    (k-panels of the chunk, each for the 64-column blocks of the output);
+    then for each 64-column hidden chunk h its fc1[C:] stages (k-panels
+    over C) and fc2 stages (k-panels of the chunk x output blocks)."""
+    nb, pph = C // 64, 64 // pk
+    seq = [(merge, 64 * rb, 64 * j + qq * pk) for j in range(nb)
+           for qq in range(pph) for rb in range(nb)]
+    for h in range(2 * C // 64):
+        seq += [(fc1b, 64 * h, p * pk) for p in range(C // pk)]
+        seq += [(fc2, 64 * rb, 64 * h + qq * pk) for qq in range(pph)
+                for rb in range(nb)]
+    return seq
+
+
+def weight_blocks(C: int, pk: int) -> list:
+    """(matrix, row0, k0) of every weight stage of the rows tier in the
+    order its producer streams them (csrc/match_rows_wg.cuh): a stage-1
+    tile (the tail of stage 1), a summary tile ([Wk | Wv], 64-column chunks
+    x k-panels), a stage-2 tile (Wq by k-panel x output block, fc1[:C] by
+    hidden chunk x k-panel, the tail of stage 2)."""
+    nb, ch2, ppc = C // 64, 2 * C // 64, C // pk
+    seq = _tail_blocks(C, pk, "merge1", "fc1b1", "fc2_1")
+    seq += [("kv2", 64 * i, p * pk) for i in range(ch2) for p in range(ppc)]
+    seq += [("q2", 64 * rb, p * pk) for p in range(ppc) for rb in range(nb)]
+    seq += [("fc1a2", 64 * h, p * pk) for h in range(ch2)
+            for p in range(ppc)]
+    return seq + _tail_blocks(C, pk, "merge2", "fc1b2", "fc2_2")
+
+
+def _weight_matrices(w1, w2) -> Dict[str, torch.Tensor]:
+    """The rows tier's B operands in (out, in) layout from the (in, out)
+    weight dicts of stage_weights."""
+    C = w1["merge"].shape[0]
+    return dict(merge1=w1["merge"].t(), fc1b1=w1["fc1"][C:].t(),
+                fc2_1=w1["fc2"].t(), kv2=w2["kv"].t(), q2=w2["q"].t(),
+                fc1a2=w2["fc1"][:C].t(), merge2=w2["merge"].t(),
+                fc1b2=w2["fc1"][C:].t(), fc2_2=w2["fc2"].t())
+
+
+def rows_stage_weights(w1, w2, bf16: bool) -> torch.Tensor:
+    """The rows tier's weight stages (weight_blocks' order, b_stages'
+    layout) made once per weight set: bf16 for a bf16 model, TF32 hi / lo
+    float32 for a float32 one."""
+    srcs = [w1[k] for k in sorted(w1)] + [w2[k] for k in sorted(w2)]
+    return derived(srcs, ("match_rows_stages", bf16),
+                   lambda: _rows_stage_weights(w1, w2, bf16))
+
+
+def _rows_stage_weights(w1, w2, bf16: bool) -> torch.Tensor:
+    C = w1["merge"].shape[0]
+    mats = _weight_matrices(w1, w2)
+    seq = weight_blocks(C, 64 if bf16 else 32)
+    cut = {name: b_stages(m.float(), [(r, k) for n, r, k in seq if n == name],
+                          bf16).reshape(-1, 4096)
+           for name, m in mats.items()}
+    taken = dict.fromkeys(mats, 0)
+    out = []
+    for name, _, _ in seq:
+        out.append(cut[name][taken[name]])
+        taken[name] += 1
+    return torch.stack(out).reshape(-1).contiguous()
+
+
+def message_blocks(C: int, H: int, pk: int) -> list:
+    """(row0, k0) of a side's KV message stages: for each 64-column output
+    chunk j, the k-panels of its heads' band (64 columns from 64 j, or all
+    128 where a head has 128 channels)."""
+    kvn = 64 if C // H <= 64 else 128
+    return [(64 * j, (64 * j if kvn == 64 else 0) + b * pk)
+            for j in range(C // 64) for b in range(kvn // pk)]
+
+
+def message_stages(kvz: torch.Tensor, H: int, bf16: bool):
+    """The stage-1 message operands of a side from its [KV | Z] factor (n,
+    C, 2C): KV^T's band as message stages (n, stages x 4,096) and sum k,
+    Z's diagonal, (n, C) float32."""
+    C = kvz.shape[1]
+    kvt = kvz[:, :, :C].transpose(1, 2).float()
+    stages = b_stages(kvt, message_blocks(C, H, 64 if bf16 else 32), bf16)
+    ks = torch.diagonal(kvz[:, :, C:], dim1=1, dim2=2).float().contiguous()
+    return stages.contiguous(), ks
 
 def _check_side(side: Side, N: int, C: int, device, name: str,
                 dtype: torch.dtype = torch.float32) -> int:
@@ -402,36 +609,53 @@ def _check_side(side: Side, N: int, C: int, device, name: str,
 
 def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
            t_idx: Optional[torch.Tensor], d_idx: Optional[torch.Tensor],
-           library: Optional[_lib.Library] = None) -> torch.Tensor:
+           library: Optional[_lib.Library] = None,
+           tier: Optional[int] = None) -> torch.Tensor:
     """Check the inputs, launch the tier plan(N, C, nhead) picks for sides
     of `parts` tensors (grid mode when t_idx is None) and add one to
     `counter.launches`, and to its tier's count, once the launch succeeded.
     bf16 sides launch the bf16 tier (csrc/match_grid_bf16.cu or
     csrc/match_rows_bf16.cu; the weights as stage_weights gives them,
-    handed to the kernel converted once: the matrices bf16 in (out, in)
-    layout; out bf16) and count in `counter.bf16_launches` and in the
-    tier's `<tier>_bf16` count.
+    handed to the kernel converted once; out bf16) and count in
+    `counter.bf16_launches` and in the tier's `<tier>_bf16` count. The rows
+    tier takes its weights as rows_stage_weights lays them out and each
+    side's [KV | Z] as message_stages; the others the matrices in (out, in)
+    layout at bf16, (in, out) at float32.
     `library` is another build of the kernels' entry points, as
-    tools/ab_match.py times versions of them; it passes no counter."""
+    tools/ab_match.py times versions of them; it passes no counter. A build
+    without the rows tier's entry points (an earlier csrc/match_rows*.cu)
+    is launched through the first rows kernel's, at its own layout. `tier`
+    (ROWS) drives the rows tier at a shape the plan gives the cluster tier,
+    as the card's tests and tools/ab_match.py do; the wrappers never pass
+    it."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
     bf16 = t[0].dtype == BF16
     dt = BF16 if bf16 else torch.float32
+    sfx = "_bf16" if bf16 else ""
     nt = _check_side(t, N, C, device, "track", dt)
     nd = _check_side(d, N, C, device, "det", dt)
     how = plan(N, C, nhead, pos=parts == 5, dtype=dt)
+    if tier == ROWS and how.tier == CLUSTER and C in ROWS_WIDTHS and parts == 5:
+        how = Plan(ROWS, rows_layout(C, nhead, dt).smem)
+    elif tier not in (None, how.tier):
+        raise ValueError(f"N={N}, C={C}, nhead={nhead}: the {TIER_NAMES[tier]}"
+                         f" tier does not take this shape")
     lib = (library or _lib.LIBRARY).get()
+    tier = how.tier
+    if tier == ROWS and not hasattr(lib, layout_entry(ROWS, bf16)):
+        tier = ROWS_MMA     # an earlier build: its one rows kernel
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    entry = (("pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image")
-             if how.tier == CLUSTER else "pcr_match_rows") + (
-                 "_bf16" if bf16 else "")
-    status = getattr(lib, layout_entry(how.tier, bf16))(
+    entry = ((("pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image")
+              if tier == CLUSTER else _ENTRIES[tier]) + sfx)
+    status = getattr(lib, layout_entry(tier, bf16))(
         N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
-    if status:          # a build whose layout differs from the plan's
+    if status or (tier == how.tier and smem.value != how.smem):
+        # a build whose layout differs from the plan's
         raise ValueError(
-            f"{TIER_NAMES[how.tier]} tier, N={N}, C={C}, nhead={nhead}: the "
+            f"{TIER_NAMES[tier]} tier, N={N}, C={C}, nhead={nhead}: the "
             f"kernel's layout check says {status} ({smem.value} bytes of "
-            f"{limit.value})")
+            f"{limit.value}; the plan's {how.smem})")
     ws = {"w1": w1, "w2": w2}
     weights = [ws[g][k] for g, k in _WEIGHT_ORDER]
     for (g, k), x in zip(_WEIGHT_ORDER, weights):
@@ -439,13 +663,6 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
                 or x.device != device or x.data_ptr() % 16):
             raise ValueError(f"{g}.{k}: want contiguous, 16-byte aligned "
                              f"float32 on {device}")
-    if bf16:
-        weights = [x if x.dim() == 1 else derived(
-            (x,), "match_bf16", lambda x=x: x.t().to(BF16).contiguous())
-            for x in weights]
-        # [KV | Z] is a B operand of the kernel: (n, 2C, C)
-        t, d = (s[:2] + (s[2].transpose(1, 2).contiguous(),) + s[3:]
-                for s in (t, d))
     if t_idx is None:
         P = nt * nd
         out = torch.empty((nt, nd, 2 * C), dtype=dt, device=device)
@@ -462,25 +679,49 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         idx_ptrs = [t_idx.data_ptr(), d_idx.data_ptr()]
     if P == 0:
         return out
-    ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
-            *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
-    if how.tier == CLUSTER:
-        err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead,
-                                  _lib.stream_ptr(device))
-    else:
+    stream = _lib.stream_ptr(device)
+    if tier == ROWS:
+        sides = []
+        for s in (t, d):
+            kvs, ks = message_stages(s[2], nhead, bf16)
+            sides += [s[0], s[1], s[3], s[4], kvs, ks]
+        stages = rows_stage_weights(w1, w2, bf16)
+        ln = [w[k] for w in (w1, w2) for k in ("ln1_scale", "ln1_bias",
+                                               "ln2_scale", "ln2_bias")]
         blocks = rows_blocks(P, smem.value, device)
-        Np = -(-N // 16) * 16
-        scratch = torch.empty((blocks, 2, Np, C), dtype=torch.float32,
+        stride = rows_scratch_bytes(N, C, nhead, dt)
+        scratch = torch.empty((blocks, stride), dtype=torch.uint8,
                               device=device)
-        err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), nt, nd, P, N, C,
-                                  nhead, blocks, _lib.stream_ptr(device))
+        err = getattr(lib, entry)(
+            *[x.data_ptr() for x in sides + [stages] + ln], *idx_ptrs,
+            out.data_ptr(), scratch.data_ptr(), nt, nd, P, N, C, nhead,
+            blocks, stride, stream)
+    else:
+        if bf16:
+            weights = [x if x.dim() == 1 else derived(
+                (x,), "match_bf16", lambda x=x: x.t().to(BF16).contiguous())
+                for x in weights]
+            # [KV | Z] is a B operand of the kernel: (n, 2C, C)
+            t, d = (s[:2] + (s[2].transpose(1, 2).contiguous(),) + s[3:]
+                    for s in (t, d))
+        ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
+                *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
+        if tier == CLUSTER:
+            err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead, stream)
+        else:
+            blocks = rows_blocks(P, smem.value, device)
+            Np = -(-N // 16) * 16
+            scratch = torch.empty((blocks, 2, Np, C), dtype=torch.float32,
+                                  device=device)
+            err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), nt, nd, P,
+                                      N, C, nhead, blocks, stream)
     _lib.check(err, entry)
     if counter is not None:
         if bf16:
             counter.bf16_launches += 1
         else:
             counter.launches += 1
-        counter.tier_launches[tier_key(how.tier, bf16)] += 1
+        counter.tier_launches[tier_key(tier, bf16)] += 1
     return out
 
 

@@ -22,15 +22,21 @@ image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
 --N N instead the point head alone at that width and row count, a --grid x
 --grid grid and a 512-pair list (the 7M model's dense frame: --C 128 --N
 128; a 2048-point ablation served at its crop size: --C 64 --N 2048 --grid
-16). Versions are timed
+16), or several such shapes at once with --shapes C:N:GRID,... (one build
+for all). The versions of csrc/match_rows*.cu from before the wgmma rows
+tier export only the first rows kernel's entry points (`pcr_match_rows`,
+`pcr_match_rows_layout`); kernels/match_grid.launch gives them that
+kernel's arguments. Versions are timed
 in turns (first to last, then last to first, `--rounds` times) with CUDA
 events, and each output is compared with the first version's and with the
 plain version. Prints ptxas's registers and spills of each version, then
-one JSON line per version with the card's name and power limit and, per
-shape, the shared bytes a block of that version's layout.
+one JSON line per version with the card's name and power limit, ptxas's
+registers and spills of its kernels and, per shape, the shared bytes a
+block of that version's layout.
 
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
-        [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]] [--bf16]
+        [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
+        [--shapes 128:128:128,64:2048:16] [--bf16]
 
 Needs a CUDA device and nvcc. TF32 off.
 """
@@ -101,14 +107,29 @@ def build(sources):
 
 def layout_bytes(lib, t, nhead) -> int:
     """Shared bytes a block of one version's layout for the tier that
-    kernels/match_grid.plan picks for these factors."""
+    kernels/match_grid.plan picks for these factors (a version without the
+    wgmma rows tier: its first rows kernel's)."""
     N, C = t[0].shape[1], t[0].shape[2]
+    bf16 = t[0].dtype == torch.bfloat16
     how = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype)
-    entry = mg.layout_entry(how.tier, t[0].dtype == torch.bfloat16)
+    entry = mg.layout_entry(how.tier, bf16)
+    if not hasattr(lib.get(), entry) and how.tier == mg.ROWS:
+        entry = mg.layout_entry(mg.ROWS_MMA, bf16)
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
     getattr(lib.get(), entry)(N, C, nhead, ctypes.byref(need),
                               ctypes.byref(limit))
     return need.value
+
+
+def parse_shapes(text: str) -> list:
+    """--shapes "C:N:GRID,..." as [(C, N, GRID), ...]."""
+    out = []
+    for item in text.split(","):
+        parts = [int(x) for x in item.split(":")]
+        if len(parts) != 3 or min(parts) < 1:
+            raise SystemExit(f"ab_match: --shapes wants C:N:GRID, got {item!r}")
+        out.append(tuple(parts))
+    return out
 
 
 def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None):
@@ -128,11 +149,15 @@ def main(argv=None):
                     help="rows a side of a point-head shape (with --C)")
     ap.add_argument("--grid", type=int, default=128,
                     help="tracks and detections of that shape's grid")
+    ap.add_argument("--shapes", default=None,
+                    help="point-head shapes C:N:GRID,... (instead of --C/--N)")
     ap.add_argument("--bf16", action="store_true",
                     help="a bf16 model's inputs and the bf16 kernels")
     args = ap.parse_args(argv)
     if (args.C is None) != (args.N is None):
         raise SystemExit("ab_match: give --C and --N together")
+    point = ([(args.C, args.N, args.grid)] if args.C is not None else []) + (
+        parse_shapes(args.shapes) if args.shapes else [])
     if not torch.cuda.is_available():
         raise SystemExit("ab_match needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -143,9 +168,9 @@ def main(argv=None):
     cases = {}
     shapes = ((("point_grid_128x128", "point", 128, 128, 128, 64),
                ("image_grid_128x64", "image", 128, 64, 197, 64))
-              if args.C is None else
-              ((f"point_C{args.C}_N{args.N}_grid_{args.grid}x{args.grid}",
-                "point", args.grid, args.grid, args.N, args.C),))
+              if not point else
+              tuple((f"point_C{C}_N{N}_grid_{g}x{g}", "point", g, g, N, C)
+                    for C, N, g in point))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     smem = [{} for _ in libs]
     for label, head, nt, nd, n_rows, C in shapes:
@@ -191,7 +216,8 @@ def main(argv=None):
         print(json.dumps(dict(
             source=src, card=card, dtype=str(dtype).split(".")[-1],
             ms={k: float(np.median(v)) for k, v in times[i].items()},
-            ms_all=times[i], errors=errs[i], smem_bytes=smem[i])))
+            ms_all=times[i], errors=errs[i], smem_bytes=smem[i],
+            ptxas=_lib.ptxas_usage(libs[i].build_log))))
 
 
 if __name__ == "__main__":

@@ -60,3 +60,35 @@ def test_bf16_flag_takes_a_bf16_models_inputs(monkeypatch):
     assert all(x.dtype == torch.bfloat16 for x in t + d)
     assert all(x.dtype == torch.float32 for x in (*w1.values(),
                                                    *w2.values()))
+
+
+def test_shapes_name_several_point_shapes(monkeypatch):
+    """--shapes C:N:GRID,... names several point-head shapes for one build
+    (the four rows-tier shapes of the A/B in two calls); a malformed item
+    exits, and without a card the tool exits before it builds."""
+    assert ab_match.parse_shapes("128:128:128,64:2048:16") == [
+        (128, 128, 128), (64, 2048, 16)]
+    for bad in ("128:128", "128:0:16", "a:b:c"):
+        with pytest.raises((SystemExit, ValueError)):
+            ab_match.parse_shapes(bad)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu",
+                       "--shapes", "128:128:128,64:2048:16", "--bf16"])
+
+
+def test_ptxas_usage_reads_a_build_log():
+    """The registers and spills ab_match and chip_smoke.py report come from
+    nvcc's -Xptxas -v lines, a kernel at a time."""
+    log = """ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'
+ptxas info    : Function properties for _Z1kv
+    568 bytes stack frame, 1140 bytes spill stores, 1440 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'
+ptxas info    : Function properties for _Z1jv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers"""
+    assert _lib.ptxas_usage(log) == {
+        "_Z1kv": dict(registers=168, stack=568, spill_stores=1140,
+                      spill_loads=1440),
+        "_Z1jv": dict(registers=40, stack=0, spill_stores=0, spill_loads=0)}

@@ -113,11 +113,13 @@ def test_bf16_launch_counts_by_tier():
     version counts none."""
     for fn in (tmg.fused_match_grid, tmg.fused_match_pairs,
                tmg.fused_image_match_grid, tmg.fused_image_match_pairs):
-        assert set(fn.tier_launches) == {"cluster", "rows", "cluster_bf16",
-                                         "rows_bf16"}
+        assert set(fn.tier_launches) == {"cluster", "rows", "rows_mma",
+                                         "cluster_bf16", "rows_bf16",
+                                         "rows_mma_bf16"}
     assert [tmg.tier_key(t, b) for b in (False, True)
-            for t in (tmg.CLUSTER, tmg.ROWS)] == [
-                "cluster", "rows", "cluster_bf16", "rows_bf16"]
+            for t in (tmg.CLUSTER, tmg.ROWS, tmg.ROWS_MMA)] == [
+                "cluster", "rows", "rows_mma", "cluster_bf16", "rows_bf16",
+                "rows_mma_bf16"]
 
 
 def test_match_chain_bf16_plain_matches_pallas_at_c128():

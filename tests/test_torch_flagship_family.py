@@ -232,12 +232,14 @@ def test_match_plan_picks_the_tier():
         assert tmg.plan(N, C, 2) == tmg.Plan(tmg.CLUSTER, smem)
         assert tmg.plan(N, C, 2, pos=False) == tmg.Plan(tmg.CLUSTER, smem)
     assert tmg.cluster_bytes(225, 64) == 233984 > tmg.MAX_SMEM
-    # the rows tier for the rest of the point head: one layout a width
-    for N, C, smem in ((225, 64, 109824), (2048, 64, 109824),
-                       (1, 128, 228864), (128, 128, 228864),
-                       (197, 128, 228864), (2600, 16, 42048),
-                       (20000, 16, 42048)):
+    # the rows tier for the rest of the point head: one layout a width, the
+    # wgmma tier's at C = 64 / 128, the first rows kernel's at C = 16
+    for N, C, smem in ((225, 64, 224920), (2048, 64, 224920),
+                       (1, 128, 231512), (128, 128, 231512),
+                       (197, 128, 231512)):
         assert tmg.plan(N, C, 2) == tmg.Plan(tmg.ROWS, smem)
+    for N in (2600, 20000):
+        assert tmg.plan(N, 16, 2) == tmg.Plan(tmg.ROWS_MMA, 42048)
     assert tmg.plan(128, 128, 8).tier == tmg.ROWS
     # what still raises: widths no tile takes, the image head past the
     # cluster tier, more heads than the rows tier holds, bad shapes

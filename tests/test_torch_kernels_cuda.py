@@ -133,47 +133,82 @@ def test_match_kernels_at_the_flagship_width(cuda):
     assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
 
 
-# the rows tier: past the cluster tier's 224 rows at C = 64 (the ablations
-# served at their crop size), and C = 128 (the 1.5M and 7M models) from one
-# row to the 197 of a ragged last slab; C = 16 past its cluster layout
-@pytest.mark.parametrize("N,C,nhead", [(225, 64, 2), (256, 64, 2),
-                                       (512, 64, 2), (2048, 64, 2),
-                                       (1, 128, 2), (100, 128, 2),
-                                       (128, 128, 2), (197, 128, 2),
-                                       (128, 128, 8), (2600, 16, 2)])
-def test_match_rows_tier_matches_plain(cuda, N, C, nhead):
+def _rows_case(cuda, N, C, nhead, dtype):
+    """The point head's rows tier (the wgmma tier at C = 64 / 128, where the
+    plan gives the cluster tier driven through launch(tier=ROWS); the first
+    rows kernel at C = 16) on a 3 x 4 grid and a pair list with repeated
+    and out-of-order pairs: each against the plain version (TOL; bf16:
+    BF16_TOL), pairs equal to their grid cells bit for bit, one launch of
+    the tier counted a call."""
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    bf16 = dtype == torch.bfloat16
     nt, nd = 3, 4
-    t, d, w1, w2, _ = inputs("point", nt, nd, N, C, nhead, device=cuda)
-    assert mg.plan(N, C, nhead).tier == mg.ROWS
+    t, d, w1, w2, _ = inputs("point", nt, nd, N, C, nhead, device=cuda,
+                             dtype=dtype)
+    how = mg.plan(N, C, nhead, dtype=dtype)
+    tier = mg.ROWS if C in mg.ROWS_WIDTHS else mg.ROWS_MMA
+    key = mg.tier_key(tier, bf16)
     ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
     di = torch.arange(nd, device=cuda).repeat(nt)
-    before = (mg.fused_match_grid.launches,
-              mg.fused_match_grid.tier_launches["rows"])
-    grid = mg.fused_match_grid(t, d, w1, w2, nhead)
-    assert (mg.fused_match_grid.launches,
-            mg.fused_match_grid.tier_launches["rows"]) == (before[0] + 1,
-                                                           before[1] + 1)
-    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
-                                           ).reshape(nt, nd, -1))
     t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
     d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32, device=cuda)
-    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+    close = _close_bf16 if bf16 else _close
+    if how.tier == tier:
+        fn = mg.fused_match_grid
+        before = (fn.launches, fn.bf16_launches, dict(fn.tier_launches))
+        grid = fn(t, d, w1, w2, nhead)
+        assert (fn.launches, fn.bf16_launches) == (before[0] + (not bf16),
+                                                   before[1] + bf16)
+        assert fn.tier_launches == dict(before[2], **{key: before[2][key]
+                                                      + 1})
+        before = mg.fused_match_pairs.tier_launches[key]
+        pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
+        assert mg.fused_match_pairs.tier_launches[key] == before + 1
+        with pytest.raises(IndexError, match="out of range"):
+            mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
+    else:
+        assert how.tier == mg.CLUSTER and tier == mg.ROWS
+        grid = mg.launch(None, 5, t, d, w1, w2, nhead, None, None,
+                         tier=mg.ROWS).reshape(nt, nd, -1)
+        pairs = mg.launch(None, 5, t, d, w1, w2, nhead, t_idx, d_idx,
+                          tier=mg.ROWS)
+    close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                          ).reshape(nt, nd, -1))
     # one per-pair code in both modes, whatever block scores a pair
     assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
-    with pytest.raises(IndexError, match="out of range"):
-        mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
 
 
-def test_match_rows_tier_walks_more_pairs_than_blocks(cuda):
+# the rows tier's edges: C = 128 (the 1.5M and 7M models) from one row
+# through a 16-row slab, a 64-row m-tile and a ragged second and third
+# m-tile; C = 64 past the cluster tier's 224 rows (the ablations served at
+# their crop size, 2048) and, driven past the plan, from one row; 1, 2 and 8
+# heads (1 head at C = 128: 128-channel heads, the KV band of 128 columns);
+# C = 16 past its cluster layout on the first rows kernel
+@pytest.mark.parametrize("N,C,nhead", [
+    (1, 128, 2), (15, 128, 2), (16, 128, 2), (17, 128, 2), (64, 128, 2),
+    (127, 128, 2), (128, 128, 2), (129, 128, 2), (225, 128, 2),
+    (128, 128, 8), (128, 128, 1), (17, 128, 1), (1, 128, 8),
+    (225, 64, 2), (2048, 64, 2), (1, 64, 2), (15, 64, 8), (64, 64, 1),
+    (129, 64, 2), (2600, 16, 2)])
+def test_match_rows_tier_matches_plain(cuda, N, C, nhead):
+    _rows_case(cuda, N, C, nhead, torch.float32)
+
+
+@pytest.mark.parametrize("N,C,dtype", [(240, 64, torch.float32),
+                                       (130, 128, torch.float32),
+                                       (240, 64, torch.bfloat16),
+                                       (130, 128, torch.bfloat16)])
+def test_match_rows_tier_walks_more_pairs_than_blocks(cuda, N, C, dtype):
     """More pairs than the card's blocks at once: each block scores pairs
-    in turn in its own slot of the scratch."""
+    in turn in its own slot of the scratch, and a pair list in reverse
+    order meets its grid cells bit for bit."""
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.tools.ab_match import inputs
     nt = nd = 40
-    t, d, w1, w2, nhead = inputs("point", nt, nd, 240, 64, device=cuda)
-    how = mg.plan(240, 64, nhead)
+    t, d, w1, w2, nhead = inputs("point", nt, nd, N, C, device=cuda,
+                                 dtype=dtype)
+    how = mg.plan(N, C, nhead, dtype=dtype)
     assert how.tier == mg.ROWS and mg.rows_blocks(nt * nd, how.smem,
                                                   cuda) < nt * nd
     grid = mg.fused_match_grid(t, d, w1, w2, nhead)
@@ -183,8 +218,9 @@ def test_match_rows_tier_walks_more_pairs_than_blocks(cuda):
     assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
     sel = torch.tensor([0, 617, 1599], device=cuda)
     ti, di = sel // nd, sel % nd
-    _close(grid.reshape(nt * nd, -1)[sel],
-           mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di))
+    (_close_bf16 if dtype == torch.bfloat16 else _close)(
+        grid.reshape(nt * nd, -1)[sel],
+        mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di))
 
 
 def _image_factors(cuda, nt, nd, S, C=16, nhead=2, seed=0):
@@ -246,14 +282,7 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
             N, C, 2, ctypes.byref(need), ctypes.byref(limit)) == status
         assert (need.value, limit.value) == (want, 232448)
         assert mg.cluster_bytes(N, C) == want
-    for (N, C, H), status in {(225, 64, 2): 0, (2048, 16, 2): 0,
-                              (1, 128, 2): 0, (128, 128, 8): 0,
-                              (128, 128, 16): 1, (128, 32, 2): 1,
-                              (128, 128, 3): 1, (0, 64, 2): 1}.items():
-        assert lib.pcr_match_rows_layout(
-            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == status
-        if status == 0:
-            assert need.value == mg.rows_bytes(C)
+    _rows_layouts_equal_the_plan(lib, torch.float32)
     assert mg.plan(225, 64, 2) == mg.Plan(mg.ROWS, mg.rows_bytes(64))
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 260, 64)
     before = mg.fused_image_match_grid.launches
@@ -727,41 +756,55 @@ def test_match_bf16_cluster_walks_more_pairs_than_clusters(cuda):
                 mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di))
 
 
-# the bf16 rows tier: the 1.5M / 7M models' C = 128 from one row to a ragged
-# last slab and DeiT-sized 197, C = 64 from one row past the bf16 cluster
-# layout to the 2048-point ablation, C = 16 past its cluster layout, and the
-# rows tier's most heads
-@pytest.mark.parametrize("N,C,nhead", [(1, 128, 2), (16, 128, 2),
-                                       (33, 128, 2), (128, 128, 2),
-                                       (197, 128, 2), (128, 128, 8),
-                                       (209, 64, 2), (1024, 64, 2),
-                                       (2048, 64, 2), (2849, 16, 2)])
+# the bf16 rows tier at the float32 tier's edges; C = 64 past the bf16
+# cluster layout's 208 rows and, driven past the plan, below it; C = 16 past
+# its cluster layout on the first rows kernel
+@pytest.mark.parametrize("N,C,nhead", [
+    (1, 128, 2), (15, 128, 2), (16, 128, 2), (17, 128, 2), (64, 128, 2),
+    (127, 128, 2), (128, 128, 2), (129, 128, 2), (225, 128, 2),
+    (128, 128, 8), (128, 128, 1), (17, 128, 1), (1, 128, 8),
+    (209, 64, 2), (1024, 64, 2), (2048, 64, 2), (1, 64, 2), (15, 64, 8),
+    (64, 64, 1), (129, 64, 2), (2849, 16, 2)])
 def test_match_rows_bf16_matches_plain(cuda, N, C, nhead):
+    _rows_case(cuda, N, C, nhead, torch.bfloat16)
+
+
+def _rows_layouts_equal_the_plan(lib, dtype):
+    """The rows tiers' layout entry points at `dtype` give the status and
+    the bytes plan reckons: the wgmma tier at C = 64 / 128 (1 to 8 heads,
+    any N), the first rows kernel at C = 16; what neither takes is 1."""
+    import ctypes
+
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
-    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
-    nt, nd = 3, 4
-    t, d, w1, w2, _ = inputs("point", nt, nd, N, C, nhead, device=cuda,
-                             dtype=torch.bfloat16)
-    assert mg.plan(N, C, nhead, dtype=torch.bfloat16).tier == mg.ROWS
-    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
-    di = torch.arange(nd, device=cuda).repeat(nt)
-    fn = mg.fused_match_grid
-    before = (fn.launches, fn.bf16_launches, dict(fn.tier_launches))
-    grid = fn(t, d, w1, w2, nhead)
-    assert (fn.launches, fn.bf16_launches) == (before[0], before[1] + 1)
-    assert fn.tier_launches == dict(before[2], rows_bf16=before[2][
-        "rows_bf16"] + 1)
-    _close_bf16(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
-                                                ).reshape(nt, nd, -1))
-    t_idx = torch.tensor([2, 0, 1, 1, 2], dtype=torch.int32, device=cuda)
-    d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32, device=cuda)
-    before = mg.fused_match_pairs.tier_launches["rows_bf16"]
-    pairs = mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
-    assert mg.fused_match_pairs.tier_launches["rows_bf16"] == before + 1
-    # one per-pair code in both modes, whatever block scores a pair
-    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
-    with pytest.raises(IndexError, match="out of range"):
-        mg.fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx + 4)
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    need, limit = ctypes.c_longlong(), ctypes.c_longlong()
+    for (N, C, H), (wg, mma) in {
+            (225, 64, 2): (0, 1), (1, 64, 1): (0, 1), (2048, 64, 8): (0, 1),
+            (1, 128, 2): (0, 1), (128, 128, 8): (0, 1), (129, 128, 1): (0, 1),
+            (2849, 16, 2): (1, 0), (128, 128, 16): (1, 1),
+            (128, 32, 2): (1, 1), (128, 128, 3): (1, 1),
+            (0, 64, 2): (1, 1)}.items():
+        assert getattr(lib, f"pcr_match_rows_wg{sfx}_layout")(
+            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == wg
+        assert limit.value == mg.MAX_SMEM
+        if wg == 0:
+            assert need.value == mg.rows_layout(C, H, dtype).smem
+            assert mg.plan(max(N, 225), C, H, dtype=dtype) == mg.Plan(
+                mg.ROWS, need.value)
+        assert getattr(lib, f"pcr_match_rows{sfx}_layout")(
+            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == mma
+        if mma == 0:
+            want = (mg.rows_mma_bytes_bf16 if sfx else mg.rows_mma_bytes)(C)
+            assert need.value == want
+            assert mg.plan(N, C, H, dtype=dtype) == mg.Plan(mg.ROWS_MMA,
+                                                            want)
+
+
+def test_match_rows_layouts_equal_the_plan(cuda):
+    """The float32 twin of test_match_bf16_layouts_equal_the_plan's rows
+    part: csrc/match_rows.cu's two layout checks against plan."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    _rows_layouts_equal_the_plan(_lib.LIBRARY.get(), torch.float32)
 
 
 def test_match_bf16_layouts_equal_the_plan(cuda):
@@ -791,13 +834,4 @@ def test_match_bf16_layouts_equal_the_plan(cuda):
         if status == 0:
             assert mg.plan(N, C, 2, dtype=torch.bfloat16) == mg.Plan(
                 mg.CLUSTER, want)
-    for (N, C, H), status in {(209, 64, 2): 0, (2849, 16, 2): 0,
-                              (1, 128, 2): 0, (128, 128, 8): 0,
-                              (128, 128, 16): 1, (128, 32, 2): 1,
-                              (128, 128, 3): 1, (0, 64, 2): 1}.items():
-        assert lib.pcr_match_rows_bf16_layout(
-            N, C, H, ctypes.byref(need), ctypes.byref(limit)) == status
-        if status == 0:
-            assert need.value == mg.rows_bytes_bf16(C)
-            assert mg.plan(N, C, H, dtype=torch.bfloat16) == mg.Plan(
-                mg.ROWS, need.value)
+    _rows_layouts_equal_the_plan(lib, torch.bfloat16)
