@@ -105,6 +105,20 @@ Phases, each of which raises on failure:
      no first rows kernel, and each
      scene's last frame against the float32 port on the same crops
      (BF16_LOGIT_TOL).
+ 11. training at bf16 and the image leaves, with every count at 0: the
+     flagship at bf16 with the knobs on, TRAIN_STEPS steps of phase 4's
+     pairs (finite logs, moved weights and statistics, float32 parameters,
+     3 kNN and 4 attention launches a step; median step ms and peak memory
+     beside phase 4's float32 ones; step 1 against the same bf16 step with
+     the knobs off to BF16_TRAIN_TOL and against phase 4's float32 step 1
+     to BF16_F32_TRAIN_TOL); the rgb_ DeiT-tiny leaf at the JAX bench's 60
+     pairs, float32 and bf16, with its full loss set (step ms, peak);
+     tools/train.py --bf16 for one epoch on phase 8's store and
+     tools/test.py --bf16 from its checkpoint (the bf16 SA kernel 3 times
+     an eval batch, no float32 SA launch), then the image leaf through
+     tools/train.py --root on an image store at --bf16; one --remat step
+     of the flagship (its peak below phase 4's, its step-1 logs phase 4's
+     to REMAT_TOL).
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -177,6 +191,8 @@ PLAIN_KNOBS = ("model.knn_method=argsort",
                "model.cross_stage1.attention=linear",
                "model.cross_stage2.attention=linear")
 STORE_OBJECTS, STORE_FRAMES, STORE_STEPS, DATA_PAIRS = 2500, 6, 5, 256
+DATA_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_data")
 # eval logits with the kernels vs the plain run, max |d| / max(1, max |plain|)
 EVAL_TOL = 1e-4
 # median train-step ms of phase 4, by phase_training
@@ -211,6 +227,24 @@ FAMILY_STEPS = 3
 FAMILY_KNN = ((512, 129), (512, 256), (512, 1024), (512, 2048), (8, 20000))
 # the N <= 128 tier at SA1-3 of 512 crops in PR 7 (PERF.md section 6, kNN)
 PR7_KNN_MS = (0.0602, 0.0441, 0.0350)
+# phase 11, training at bf16 and the image leaves. Step 1 of the bf16
+# flagship against the same step with both knobs off (the attention's
+# rounding differs: the kernel computes in float32, the composite in bf16),
+# relative, at the JAX suite's bf16 bar; and against phase 4's float32 step
+# 1: on the CPU at tiny widths the JAX package's own bf16 step 1 lies 5e-4
+# (loss) and 1.8e-2 (grad_norm) from its float32 one
+BF16_TRAIN_TOL = 3e-2
+BF16_F32_TRAIN_TOL = 1e-1
+# the image leaf the JAX bench trains (image_train_step_ms), at its batch,
+# and the on-disk image store of the CLI run (240 objects x 4 frames of
+# 224 x 224 crops: two train steps of 60 pairs; its eval at 2 combinations
+# an object)
+IMAGE_LEAF = "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"
+IMAGE_PAIRS, IMAGE_STEPS = 60, 6
+IMAGE_STORE_OBJECTS, IMAGE_STORE_FRAMES = 240, 4
+# a remat step against phase 4's first step: the same kernels, so float32
+# summation order alone (the backward's scatter-adds are atomic on the card)
+REMAT_TOL = 1e-5
 
 
 def nbytes(*tensors) -> int:
@@ -746,11 +780,15 @@ def phase_main_path(model, card: str):
 
 
 def train_flagship(kernels: bool, pairs: int, steps: int, work_dir,
-                   cfg=None, num_points: int = 128, num_classes: int = 10):
+                   cfg=None, num_points: int = 128, num_classes: int = 10,
+                   spec=None, dtype=None, remat: bool = False):
     """`steps` optimizer steps of the flagship (or of the model config
-    `cfg`) through Trainer.fit on seeded synthetic pair batches of
-    `num_points`-point crops. Returns (per-step logs, per-step ms, which
-    weights and statistics changed, peak bytes)."""
+    `cfg`, or of what a profile_train.train_spec `spec` trains: its model,
+    losses, triplet margin and batch shape, images included) through
+    Trainer.fit on seeded synthetic pair batches of `num_points`-point
+    crops, at compute dtype `dtype` (float32 when None), with or without
+    remat. Returns (per-step logs, per-step ms, which weights and
+    statistics changed, peak bytes)."""
     import torch
     from point_cloud_reid_tpu_torch.models import build_model
     from point_cloud_reid_tpu_torch.tools.profile_train import (
@@ -759,13 +797,20 @@ def train_flagship(kernels: bool, pairs: int, steps: int, work_dir,
                                                   SyntheticPairLoader,
                                                   Trainer, TrainState)
     from point_cloud_reid_tpu_torch.utils.logging import MetricLogger
-    model = build_model(cfg or flagship_train_cfg(kernels), device=DEVICE,
-                        generator=torch.Generator().manual_seed(SEED))
-    loader = SyntheticPairLoader(pairs, steps, num_points=num_points,
-                                 num_classes=num_classes, seed=SEED)
+    if spec is None:
+        spec = dict(model=cfg or flagship_train_cfg(kernels), losses=LOSSES,
+                    alpha={}, triplet_margin=0.2, num_points=num_points,
+                    num_classes=num_classes, image_size=0)
+    model = build_model(spec["model"], device=DEVICE,
+                        generator=torch.Generator().manual_seed(SEED),
+                        dtype=dtype or torch.float32)
+    loader = SyntheticPairLoader(pairs, steps, num_points=spec["num_points"],
+                                 num_classes=spec["num_classes"], seed=SEED,
+                                 image_size=spec["image_size"])
     runtime = dict(work_dir=work_dir, seed=SEED, max_epochs=1,
                    eval_interval=0, checkpoint_interval=0, log_interval=1,
-                   losses_to_use=LOSSES, alpha={})
+                   losses_to_use=spec["losses"], alpha=spec["alpha"],
+                   triplet_margin=spec["triplet_margin"], remat=remat)
     trainer = Trainer(model, loader, loader, runtime,
                       logger=MetricLogger(None, quiet=True))
     state = TrainState.create(model, ScheduleConfig(max_epochs=1), steps)
@@ -789,6 +834,8 @@ def train_flagship(kernels: bool, pairs: int, steps: int, work_dir,
         raise RuntimeError(f"trainer took {state.step} steps, not {steps}")
     changed = {k for k, v in model.state_dict().items()
                if not torch.equal(v, before[k])}
+    if any(p.dtype != torch.float32 for p in model.parameters()):
+        raise RuntimeError("training left a parameter outside float32")
     return logs, times, changed, torch.cuda.max_memory_allocated()
 
 
@@ -835,7 +882,8 @@ def phase_training(card: str):
           f"points; launches {launches}; loss "
           f"{[round(x['reid_loss'], 4) for x in logs]}; grad_norm "
           f"{[round(x['grad_norm'], 3) for x in logs]}", flush=True)
-    TRAIN_MS["median"] = float(np.median(times[2:]))
+    TRAIN_MS.update(median=float(np.median(times[2:])), step1=logs[0],
+                    peak_gib=peak / 2 ** 30, pairs=pairs)
     print(f"[train] median step {np.median(times[2:]):.1f} ms (steps 3-"
           f"{TRAIN_STEPS}; all: {[round(x, 1) for x in times]}), peak memory "
           f"{peak / 2 ** 30:.2f} GiB on {card}", flush=True)
@@ -1543,8 +1591,7 @@ def phase_data_path(card: str):
     from point_cloud_reid_tpu_torch.tools import test as test_cli
     from point_cloud_reid_tpu_torch.tools import train as train_cli
     t_phase = time.perf_counter()
-    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_data")
+    work = DATA_WORK
     shutil.rmtree(work, ignore_errors=True)
     root = os.path.join(work, "store")
     t0 = time.perf_counter()
@@ -1695,7 +1742,10 @@ def phase_data_path(card: str):
         raise RuntimeError("eval logits or accuracy differ from the plain "
                            "run")
     summary["eval"] = evaluation
-    shutil.rmtree(work, ignore_errors=True)
+    # the store stays for phase 11's bf16 CLI run, which removes it
+    for name in os.listdir(work):
+        if name != "store":
+            shutil.rmtree(os.path.join(work, name), ignore_errors=True)
     print(f"[data] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches, summary
@@ -2511,6 +2561,198 @@ def phase_bf16(card: str):
     return rows, launches, summary
 
 
+def train_rel(a: dict, b: dict) -> dict:
+    """Relative gaps of step-1 reid_loss and grad_norm between two runs."""
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+            for k in ("reid_loss", "grad_norm")}
+
+
+def check_trained(label: str, logs, changed, want) -> None:
+    """Finite logs and, for each name fragment in `want`, a changed entry."""
+    if not all(np.isfinite(v) for log in logs for v in log.values()):
+        raise RuntimeError(f"{label}: non-finite value in {logs}")
+    missing = [w for w in want if not any(w in k for k in changed)]
+    if missing:
+        raise RuntimeError(f"{label}: training left {missing} unchanged")
+
+
+def cli_bf16_runs(every: dict, card: str) -> dict:
+    """tools/train.py --bf16 for one epoch on phase 8's store, tools/test.py
+    --bf16 from its checkpoint, and an image leaf through tools/train.py
+    --root on an image store. Returns what each command launched and
+    measured."""
+    import shutil
+
+    import torch
+    from point_cloud_reid_tpu_torch.tools import make_synthetic_data
+    from point_cloud_reid_tpu_torch.tools import test as test_cli
+    from point_cloud_reid_tpu_torch.tools import train as train_cli
+    root = os.path.join(DATA_WORK, "store")
+    sets = [a for knob in KNOBS for a in ("--set", knob)]
+    out = {}
+
+    def run(label, fn, argv):
+        before = {n: c.launches for n, c in every.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = quiet(fn, argv)
+        torch.cuda.synchronize()
+        used = {n: c.launches - before[n] for n, c in every.items()
+                if c.launches - before[n]}
+        out[label] = dict(s=time.perf_counter() - t0, launches=used,
+                          val_match_acc=metrics["val_match_acc"])
+        if not np.isfinite(metrics["val_match_acc"]):
+            raise RuntimeError(f"{label}: no val_match_acc")
+        print(f"[bf16-train:cli] {label}: {out[label]['s']:.1f} s, "
+              f"val_match_acc {metrics['val_match_acc']:.4f}, launches "
+              f"{used} on {card}", flush=True)
+        return used
+
+    train_dir = os.path.join(DATA_WORK, "train_bf16")
+    for label, fn, argv in (
+            ("tools/train.py --bf16", train_cli.main,
+             [FLAGSHIP, "--root", root, "--epochs", "1", "--bf16",
+              "--work-dir", train_dir, *sets]),
+            ("tools/test.py --bf16", test_cli.main,
+             ["testing_" + FLAGSHIP, "--root", root, "--bf16",
+              "--checkpoint", os.path.join(train_dir, "ckpt_final.pt"),
+              "--work-dir", os.path.join(DATA_WORK, "test_bf16"), *sets])):
+        used = run(label, fn, argv)
+        sa = used.get("fused_sa_convmax/bf16", 0)
+        if not (sa > 0 and sa % 3 == 0 and "fused_sa_convmax" not in used):
+            raise RuntimeError(f"{label}: want the bf16 SA kernel 3 times "
+                               f"an eval batch and no float32 one, got "
+                               f"{used}")
+    saved = torch.load(os.path.join(train_dir, "ckpt_final.pt"),
+                       map_location="cpu", weights_only=True)
+    if any(v.dtype != torch.float32 for v in saved["model"].values()
+           if v.is_floating_point()):
+        raise RuntimeError("the bf16 CLI run saved non-float32 weights")
+
+    image_root = os.path.join(DATA_WORK, "image_store")
+    t0 = time.perf_counter()
+    quiet(make_synthetic_data.main, [
+        image_root, "--objects", str(IMAGE_STORE_OBJECTS), "--frames",
+        str(IMAGE_STORE_FRAMES), "--images", "--seed", str(SEED)])
+    print(f"[bf16-train:cli] image store of {IMAGE_STORE_OBJECTS} objects x "
+          f"{IMAGE_STORE_FRAMES} frames written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    image_dir = os.path.join(DATA_WORK, "train_image")
+    run("tools/train.py <rgb_ leaf> --root --bf16", train_cli.main,
+        [IMAGE_LEAF, "--root", image_root, "--epochs", "1", "--bf16",
+         "--work-dir", image_dir, "--set", "dataset.val.max_combinations=2"])
+    with open(os.path.join(image_dir, "metrics.jsonl")) as f:
+        steps = [json.loads(line) for line in f]
+    steps = [r for r in steps if r["kind"] == "train"]
+    if not (steps and all(np.isfinite(r["vis_loss"])
+                          and np.isfinite(r["triplet_loss"]) for r in steps)):
+        raise RuntimeError(f"the image leaf's CLI run logged {steps}")
+    shutil.rmtree(DATA_WORK, ignore_errors=True)
+    return out
+
+
+def phase_bf16_training(card: str):
+    """Phase 11: training at bf16 and the image leaves, with every count at
+    0 before it. Returns (the path's launches, a summary)."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools.profile_train import train_spec
+    t_phase = time.perf_counter()
+    every = zero_counters()
+    summary = {}
+    pairs = TRAIN_MS["pairs"]
+    f32 = dict(median_step_ms=TRAIN_MS["median"],
+               peak_gib=TRAIN_MS["peak_gib"])
+
+    # a) the flagship at bf16, knobs on, then its first step with them off
+    knn0, attn0 = every["knn"].launches, every["linear_attention"].launches
+    logs, times, changed, peak = train_flagship(
+        True, pairs, TRAIN_STEPS, None, dtype=torch.bfloat16)
+    knn_n = every["knn"].launches - knn0
+    attn_n = every["linear_attention"].launches - attn0
+    check_trained("bf16 flagship", logs, changed,
+                  ("running_var", "q_proj.weight", "mlp_convs"))
+    if (knn_n, attn_n) != (3 * TRAIN_STEPS, 4 * TRAIN_STEPS):
+        raise RuntimeError(f"bf16 flagship: want 3 kNN and 4 attention "
+                           f"launches a step, got {knn_n}, {attn_n}")
+    torch.cuda.empty_cache()
+    plain_logs, _, _, _ = train_flagship(False, pairs, 1, None,
+                                         dtype=torch.bfloat16)
+    if (every["knn"].launches - knn0, every["linear_attention"].launches
+            - attn0) != (knn_n, attn_n):
+        raise RuntimeError("the bf16 run with the knobs off launched a "
+                           "kernel")
+    vs_plain = train_rel(logs[0], plain_logs[0])
+    vs_f32 = train_rel(logs[0], TRAIN_MS["step1"])
+    bf16 = dict(median_step_ms=float(np.median(times[2:])),
+                peak_gib=peak / 2 ** 30, step_ms=times, step1=logs[0],
+                step1_rel_knobs_off=vs_plain, step1_rel_float32=vs_f32)
+    summary["flagship"] = dict(pairs=pairs, bf16=bf16, float32=f32)
+    print(f"[bf16-train] flagship, {TRAIN_STEPS} steps of {pairs} pairs at "
+          f"bf16, knobs on: launches knn {knn_n} attention {attn_n}; median "
+          f"step {bf16['median_step_ms']:.1f} ms (all "
+          f"{[round(x, 1) for x in times]}), peak {bf16['peak_gib']:.2f} GiB"
+          f" against phase 4's float32 {f32['median_step_ms']:.1f} ms, "
+          f"{f32['peak_gib']:.2f} GiB; step 1 reid_loss "
+          f"{logs[0]['reid_loss']:.5f} grad_norm {logs[0]['grad_norm']:.4f}: "
+          f"rel to knobs off {vs_plain} (tol {BF16_TRAIN_TOL:g}), to float32 "
+          f"{vs_f32} (tol {BF16_F32_TRAIN_TOL:g}) on {card}", flush=True)
+    if not (all(v <= BF16_TRAIN_TOL for v in vs_plain.values())
+            and all(v <= BF16_F32_TRAIN_TOL for v in vs_f32.values())):
+        raise RuntimeError("bf16 step 1 is off the knobs-off or float32 run")
+    torch.cuda.empty_cache()
+
+    # b) the image leaf at the JAX bench's batch, float32 and bf16
+    spec = train_spec(IMAGE_LEAF, kernels=False)
+    summary["image"] = {}
+    for name, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        logs, times, changed, peak = train_flagship(
+            False, IMAGE_PAIRS, IMAGE_STEPS, None, spec=spec, dtype=dtype)
+        check_trained(f"image {name}", logs, changed,
+                      ("backbone.blocks.0.attn.qkv.weight",
+                       "backbone.patch_embed", "match_head", "vis_head"))
+        run = dict(median_step_ms=float(np.median(times[2:])),
+                   peak_gib=peak / 2 ** 30, step_ms=times,
+                   step1={k: logs[0][k] for k in (
+                       "reid_loss", "grad_norm", "vis_loss",
+                       "triplet_loss")})
+        summary["image"][name] = run
+        print(f"[bf16-train] {IMAGE_LEAF} at {name}: {IMAGE_STEPS} steps of "
+              f"{IMAGE_PAIRS} pairs (match, cls, fp, vis, triplet margin "
+              f"{spec['triplet_margin']:g}); median step "
+              f"{run['median_step_ms']:.1f} ms (all "
+              f"{[round(x, 1) for x in times]}), peak {run['peak_gib']:.2f} "
+              f"GiB; step 1 {run['step1']} on {card}", flush=True)
+        torch.cuda.empty_cache()
+
+    # c) the CLIs at bf16, the image leaf from an image store
+    summary["cli"] = cli_bf16_runs(every, card)
+    torch.cuda.empty_cache()
+
+    # d) one remat step of the flagship against phase 4's first step
+    knn0 = every["knn"].launches
+    logs, times, _, peak = train_flagship(True, pairs, 1, None, remat=True)
+    rel = train_rel(logs[0], TRAIN_MS["step1"])
+    summary["remat"] = dict(step_ms=times[0], peak_gib=peak / 2 ** 30,
+                            knn_launches=every["knn"].launches - knn0,
+                            step1_rel=rel,
+                            plain_peak_gib=TRAIN_MS["peak_gib"])
+    print(f"[bf16-train] remat: one step of {pairs} pairs, {times[0]:.1f} ms "
+          f"(cold), peak {peak / 2 ** 30:.2f} GiB against phase 4's "
+          f"{TRAIN_MS['peak_gib']:.2f} GiB; kNN launches "
+          f"{summary['remat']['knn_launches']} (forward and recompute); "
+          f"step 1 rel to phase 4 {rel} (tol {REMAT_TOL:g}) on {card}",
+          flush=True)
+    if not (peak / 2 ** 30 < TRAIN_MS["peak_gib"]
+            and all(v <= REMAT_TOL for v in rel.values())):
+        raise RuntimeError("the remat step is not the plain step in less "
+                           "memory")
+    launches = {name: fn.launches for name, fn in every.items()}
+    print(f"[bf16-train] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -2541,16 +2783,19 @@ def main():
     torch.cuda.empty_cache()
     bf16_rows, bf16_path, bf16_summary = phase_bf16(card)
     rows += bf16_rows
+    torch.cuda.empty_cache()
+    bf16_training, bf16_training_summary = phase_bf16_training(card)
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path, family, bf16_path))
+            data_path, family, bf16_path, bf16_training))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
     print(json.dumps({"kernels": rows, "data_path": data_summary,
-                      "family": family_summary, "bf16": bf16_summary}))
+                      "family": family_summary, "bf16": bf16_summary,
+                      "bf16_training": bf16_training_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -213,7 +213,8 @@ _INVERSE = (
 def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
     """The port's weights as a flax {'params', 'batch_stats'} tree of numpy
     arrays: the inverse of from_jax_variables, so both packages can start
-    from one init."""
+    from one init. The arrays are copies: training the model afterwards
+    leaves the tree as it was."""
     tree: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     modules = dict(model.named_modules())
     state = model.state_dict()
@@ -222,7 +223,7 @@ def to_jax_variables(model: torch.nn.Module) -> Dict[str, Any]:
         node = tree[coll]
         for part in path.split("/"):
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(v)
+        node[leaf] = np.array(v, copy=True, order="C")
 
     for key, value in state.items():
         if key.endswith("num_batches_tracked"):

@@ -7,9 +7,10 @@ csrc/linear_attention.cu on CUDA tensors and runs the plain composite
 `fused_linear_attention` wraps it in an autograd Function whose backward
 recomputes through the plain composite on the saved q, k, v, as the JAX
 package's custom VJP does: there is no backward kernel in either package.
-bf16 or float16 inputs (a bf16 model's) are cast to float32 on the way in
+bf16 or float16 inputs (a bf16 model's) are cast to float32 for the kernel
 and the output back to their dtype, as linear_attention_pallas does: the
-kernel is float32 only.
+kernel is float32 only. The backward recomputes in the inputs' own dtype,
+with the incoming gradient cast to it, as JAX's `_lin_attn_bwd` does.
 """
 from __future__ import annotations
 
@@ -82,14 +83,19 @@ class _LinearAttention(torch.autograd.Function):
     def forward(ctx, queries, keys, values, eps):
         ctx.save_for_backward(queries, keys, values)
         ctx.eps = eps
-        return linear_attention_forward(queries, keys, values, eps)
+        dt = queries.dtype
+        if dt not in (torch.bfloat16, torch.float16):
+            return linear_attention_forward(queries, keys, values, eps)
+        return linear_attention_forward(queries.float(), keys.float(),
+                                        values.float(), eps).to(dt)
 
     @staticmethod
     def backward(ctx, grad_out):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
             out = linear_attention_reference(q, k, v, ctx.eps)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad_out.contiguous())
+        dq, dk, dv = torch.autograd.grad(
+            out, (q, k, v), grad_out.to(q.dtype).contiguous())
         return dq, dk, dv, None
 
 
@@ -97,10 +103,6 @@ def fused_linear_attention(queries: torch.Tensor, keys: torch.Tensor,
                            values: torch.Tensor, eps: float = 1e-6
                            ) -> torch.Tensor:
     """Drop-in for ops.attention.linear_attention (no masks), usable in
-    training; bf16 / float16 inputs run in float32, the output in their
-    dtype."""
-    dt = queries.dtype
-    if dt not in (torch.bfloat16, torch.float16):
-        return _LinearAttention.apply(queries, keys, values, eps)
-    return _LinearAttention.apply(queries.float(), keys.float(),
-                                  values.float(), eps).to(dt)
+    training; bf16 / float16 inputs run the kernel in float32 and return
+    their dtype, and their gradients are the composite's in that dtype."""
+    return _LinearAttention.apply(queries, keys, values, eps)

@@ -21,7 +21,9 @@ parameters' dtype and nothing is cast.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import Iterator
 
 import torch
 import torch.nn as nn
@@ -109,9 +111,12 @@ class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over all leading axes of a channel-last (..., C) tensor,
     with flax's running statistics: ra = 0.9 ra + 0.1 batch, where the batch
     variance is the BIASED one (torch.nn.BatchNorm1d stores the unbiased
-    one), eps 1e-5. State-dict names are BatchNorm1d's."""
+    one), eps 1e-5. State-dict names are BatchNorm1d's. A train-mode call
+    updates the running statistics unless `update_stats` is False
+    (frozen_statistics)."""
 
     compute_dtype = None
+    update_stats = True
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -135,11 +140,29 @@ class BatchNorm(nn.BatchNorm1d):
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(flat, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
+        if not self.update_stats:
+            return y.reshape(x.shape)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(mean, alpha=m)
             self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
         return y.reshape(x.shape)
+
+
+@contextlib.contextmanager
+def frozen_statistics(model: nn.Module) -> Iterator[None]:
+    """Train-mode BatchNorm calls of `model` inside the block normalise
+    with batch statistics but leave the running statistics as they are:
+    the recompute of a checkpointed forward (train/loop.py, remat) must not
+    move them a second time."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.update_stats
 
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:

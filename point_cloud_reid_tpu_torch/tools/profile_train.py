@@ -13,8 +13,17 @@ window the device was busy; with the card's name and power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.profile_train
         [--batch 256] [--steps 6] [--warmup 3] [--trace-dir build]
+        [--bf16] [--remat] [--experiment NAME]
 
-Needs a CUDA device. Float32, TF32 off.
+--bf16 builds the model at a bf16 compute dtype (float32 parameters and
+optimizer state), as tools/train.py --bf16 trains it; --remat recomputes
+each stage's forward in the backward, as tools/train.py --remat. --experiment
+trains a leaf of configs.EXPERIMENTS with its own losses and triplet
+margin instead: a point leaf on crops of its subsample_sparse points (the
+knobs on, then off), an image (rgb_*) leaf on seeded 224 x 224 image
+pairs (its path has no hand-written kernel: one line), e.g.
+`--experiment rgb_deit-tiny_point-cat_r_nus_det_4x60_200e --batch 60`.
+Needs a CUDA device. TF32 off.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..utils.profiling import StepTimer
+from .profile_loader import KNOBS
 from .profile_tracker import _busy_us
 from .scenes import card_name
 
@@ -44,18 +55,74 @@ def flagship_train_cfg(kernels: bool) -> dict:
     return cfg
 
 
-def _phases_ms(model, state, batch, generator):
+def train_spec(experiment, kernels: bool) -> dict:
+    """What one profiled configuration trains: the model config, losses,
+    loss weights, triplet margin and the synthetic batches' shape (points
+    a crop, classes, image side or 0). `experiment` None is the flagship
+    with LOSSES."""
+    if experiment is None:
+        return dict(model=flagship_train_cfg(kernels), losses=LOSSES,
+                    alpha={}, triplet_margin=0.2, num_points=128,
+                    num_classes=10, image_size=0)
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    cfg = get_experiment(experiment)
+    image = cfg["model"].get("type") == "ImageReIDNet"
+    if kernels and not image:
+        cfg = get_experiment(experiment, set_options=list(KNOBS))
+    data = cfg["dataset"]
+    return dict(model=cfg["model"], losses=cfg["losses_to_use"],
+                alpha=cfg["alpha"],
+                triplet_margin=cfg.get("triplet_margin", 0.2),
+                num_points=data["train"].get("subsample_sparse", 128),
+                num_classes=data["num_classes"],
+                image_size=cfg["model"].get("image_size", 224) if image
+                else 0)
+
+
+def train_setup(spec: dict, device, batch: int, n_batches: int,
+                bf16: bool = False, remat: bool = False) -> dict:
+    """The model, train state, train step, generator and `n_batches`
+    synthetic batches on `device` of one configuration (train_spec), and
+    loss(batch), its forward and losses alone."""
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
+                                                  SyntheticPairLoader,
+                                                  TrainState, make_train_step,
+                                                  reid_losses, to_device,
+                                                  train_forward)
+    model = build_model(spec["model"], device=device,
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=torch.bfloat16 if bf16 else torch.float32)
+    state = TrainState.create(model, ScheduleConfig(max_epochs=1),
+                              n_batches)
+    kw = dict(triplet_margin=spec["triplet_margin"])
+    step = make_train_step(model, spec["losses"], spec["alpha"], remat=remat,
+                           **kw)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batches = [to_device(b, device) for b in SyntheticPairLoader(
+        batch, n_batches, num_points=spec["num_points"],
+        num_classes=spec["num_classes"], image_size=spec["image_size"],
+        seed=0)]
+
+    def loss(b):
+        return reid_losses(train_forward(model, b, remat), b, spec["losses"],
+                           spec["alpha"], generator=gen,
+                           pool_type=model.pool_type, **kw)[0]
+
+    return dict(model=model, state=state, step=step, generator=gen,
+                batches=batches, loss=loss)
+
+
+def _phases_ms(run: dict, batch):
     """One step split by CUDA events: forward + losses, backward, update."""
-    from point_cloud_reid_tpu_torch.train.losses import reid_losses
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
-    loss, _ = reid_losses(model(batch, train=True), batch, LOSSES, {},
-                          generator=generator, pool_type=model.pool_type)
+    loss = run["loss"](batch)
     ev[1].record()
-    state.optimizer.zero_grad()
+    run["state"].optimizer.zero_grad()
     loss.backward()
     ev[2].record()
-    state.optimizer.step()
+    run["state"].optimizer.step()
     ev[3].record()
     torch.cuda.synchronize()
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
@@ -64,42 +131,34 @@ def _phases_ms(model, state, batch, generator):
 def profile_config(kernels: bool, args) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
-    from point_cloud_reid_tpu_torch.models import build_model
-    from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
-                                                  SyntheticPairLoader,
-                                                  TrainState, make_train_step,
-                                                  to_device)
-    device = torch.device("cuda")
-    model = build_model(flagship_train_cfg(kernels), device=device,
-                        generator=torch.Generator().manual_seed(0))
+    spec = train_spec(args.experiment, kernels)
     n = args.warmup + 2 * args.steps + 1
-    state = TrainState.create(model, ScheduleConfig(max_epochs=1), n)
-    step = make_train_step(model, LOSSES, {})
-    gen = torch.Generator(device=device).manual_seed(0)
-    batches = [to_device(b, device) for b in
-               SyntheticPairLoader(args.batch, n, num_points=128, seed=0)]
+    run = train_setup(spec, torch.device("cuda"), args.batch, n,
+                      bf16=args.bf16, remat=args.remat)
+    batches = run["batches"]
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    timer = StepTimer()
 
-    def run(batch):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, log = step(state, batch, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+    def step(batch):
+        timer.start()
+        _, log = run["step"](run["state"], batch, run["generator"])
+        timer.stop()
         return log
 
     for batch in batches[:args.warmup + args.steps]:
-        log = run(batch)
-    phases = _phases_ms(model, state, batches[args.warmup + args.steps], gen)
+        log = step(batch)
+    phases = _phases_ms(run, batches[args.warmup + args.steps])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for batch in batches[args.warmup + args.steps + 1:]:
-            log = run(batch)
+            log = step(batch)
         window_us = (time.perf_counter() - t0) * 1e6
-    trace_path = os.path.join(
-        args.trace_dir, f"train_trace_{'kernels' if kernels else 'plain'}.json")
+    times = [t * 1e3 for t in timer.times]
+    label = "_".join([args.experiment or "flagship",
+                      "kernels" if kernels else "plain"]
+                     + ["bf16"] * args.bf16 + ["remat"] * args.remat)
+    trace_path = os.path.join(args.trace_dir, f"train_trace_{label}.json")
     os.makedirs(args.trace_dir, exist_ok=True)
     prof.export_chrome_trace(trace_path)
     with open(trace_path) as f:
@@ -114,7 +173,9 @@ def profile_config(kernels: bool, args) -> dict:
         raise RuntimeError("the profiler recorded no device kernels")
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:14]
     return dict(
-        card=card_name(), kernels=kernels, batch_pairs=args.batch,
+        card=card_name(), experiment=args.experiment or "flagship",
+        kernels=kernels, dtype="bfloat16" if args.bf16 else "float32",
+        remat=args.remat, batch_pairs=args.batch,
         loss=float(log["reid_loss"]), grad_norm=float(log["grad_norm"]),
         step_ms=times[args.warmup:args.warmup + args.steps],
         median_step_ms=float(np.median(
@@ -138,12 +199,20 @@ def main(argv=None):
     p.add_argument("--warmup", type=int, default=3)
     p.add_argument("--trace-dir", default="build",
                    help="where the profiled windows' chrome traces go")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute, float32 parameters")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each stage's forward in the backward")
+    p.add_argument("--experiment", default=None,
+                   help="a leaf of configs.EXPERIMENTS (default: the "
+                        "flagship with losses match + kl + triplet)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for kernels in (True, False):
+    image = train_spec(args.experiment, False)["image_size"] > 0
+    for kernels in (False,) if image else (True, False):
         print(json.dumps(profile_config(kernels, args)), flush=True)
         torch.cuda.empty_cache()
 

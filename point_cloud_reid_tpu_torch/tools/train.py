@@ -17,16 +17,22 @@ order with drop_last, as in the JAX CLI, since the metric depends on which
 pairs are kept. An on-disk store reads each batch through the native
 loader (native/). Trains on the CUDA device, each batch pinned in the
 loader's threads; without a card it exits, unless --device cpu asks for
-the CPU (every kernel's plain version; the tests). Float32, TF32 off.
-Checkpoints are the port's ckpt_{tag}.pt (Trainer.save_checkpoint), which
+the CPU (every kernel's plain version; the tests). TF32 off. Checkpoints
+are the port's ckpt_{tag}.pt (Trainer.save_checkpoint), which
 --checkpoint, --resume and tools/test.py read; not orbax directories.
 
-Not ported from the JAX CLI: --bf16 (ROADMAP.md §1 item 2a: training
-stays float32; tools/track.py --bf16 serves at bf16), --remat (item 5
-ports it only if a leaf's peak exceeds the card, which none does) and
---profile (tools/profile_train.py profiles a train step). Training an image
-(rgb_*) leaf raises: image training is item 2b; tools/test.py evaluates
-one.
+Trains and evaluates the point leaves and the image (rgb_*) leaves, as the
+JAX CLI does: an image leaf reads 224 x 224 crops from an image store
+(tools/make_synthetic_data.py --images) or a SyntheticStore with images;
+its ViT starts from the seeded init, as the JAX model's does (--checkpoint
+loads other weights). The JAX CLI's flags:
+  --bf16     bf16 compute, float32 parameters and optimizer state (the
+             closing eval of a point leaf runs the bf16 SA kernel);
+             tools/test.py --bf16 evaluates at bf16;
+  --remat    the backward recomputes each stage's forward (SA, FP and
+             cross stages, heads, ViT blocks; torch.utils.checkpoint):
+             one stage's activations live at a time, for a second forward;
+  --profile DIR  a torch.profiler trace of Trainer.fit, DIR/trace.json.
 """
 from __future__ import annotations
 
@@ -50,6 +56,9 @@ def parse_args(argv=None):
     p.add_argument("--resume", default=None,
                    help="checkpoint to resume the full training state from "
                         "(weights + optimizer + step)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the training run "
+                        "to DIR/trace.json (chrome://tracing, Perfetto)")
     p.add_argument("--seed", type=int, default=66)       # reference default
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
@@ -59,6 +68,12 @@ def parse_args(argv=None):
     p.add_argument("--loader-threads", type=int, default=2,
                    help="BatchLoader worker threads; each batch's crop reads "
                         "run in the native loader's own pool")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each stage's forward in the backward "
+                        "(torch.utils.checkpoint): less activation memory")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute; parameters and optimizer state "
+                        "stay float32")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="cpu runs every kernel's plain version (tests)")
     p.add_argument("--set", dest="set_options", action="append", default=[],
@@ -70,8 +85,8 @@ def parse_args(argv=None):
 
 
 def select_device(name: str, tool: str) -> torch.device:
-    """The run's device, float32 with TF32 off; without a card, a run that
-    did not ask for the CPU exits."""
+    """The run's device, with TF32 off; without a card, a run that did not
+    ask for the CPU exits."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -125,7 +140,8 @@ def build_all(cfg, args, device):
     val_loader = BatchLoader(val_ds, shuffle=False, drop_last=True, **loader)
 
     model = build_model(cfg["model"], device=device,
-                        generator=torch.Generator().manual_seed(args.seed))
+                        generator=torch.Generator().manual_seed(args.seed),
+                        dtype=torch.bfloat16 if args.bf16 else torch.float32)
     sched = cfg["schedule"]
     if args.epochs:
         sched.max_epochs = args.epochs
@@ -136,7 +152,8 @@ def build_all(cfg, args, device):
         cls_to_idx=dcfg["cls_to_idx"], num_classes=dcfg["num_classes"],
         fp_label_threshold=dcfg["fp_label_threshold"],
         triplet_margin=cfg.get("triplet_margin", 0.2),
-        triplet_sample_num=cfg.get("triplet_sample_num", 5))
+        triplet_sample_num=cfg.get("triplet_sample_num", 5),
+        remat=args.remat)
     trainer = Trainer(model, train_loader, val_loader, runtime)
     state = TrainState.create(model, sched,
                               steps_per_epoch=max(len(train_loader), 1))
@@ -157,17 +174,15 @@ def main(argv=None):
     from point_cloud_reid_tpu_torch.configs import get_experiment
     cfg = get_experiment(args.experiment, set_options=args.set_options)
     train = not (args.eval_only or cfg["runtime"].get("eval_only"))
-    if train and is_image(cfg):
-        raise NotImplementedError(
-            "training an image (rgb_*) leaf is not ported (ROADMAP.md §1 "
-            "item 2); tools/test.py evaluates one")
     device = select_device(args.device, "tools.train")
     trainer, state = build_all(cfg, args, device)
     trainer.logger.log_config(dict(experiment=args.experiment, seed=args.seed,
                                    schedule=str(cfg["schedule"]),
                                    model=cfg["model"]))
     if train:
-        state = trainer.fit(state)
+        from point_cloud_reid_tpu_torch.utils.profiling import trace_context
+        with trace_context(args.profile):
+            state = trainer.fit(state)
     metrics = trainer.evaluate(state)
     print(scalars(metrics))
     return metrics

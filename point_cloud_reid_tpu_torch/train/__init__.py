@@ -1,5 +1,5 @@
 from .loop import (Trainer, make_eval_step, make_train_step, pin_batch,
-                   to_device)
+                   to_device, train_forward)
 from .losses import reid_losses
 from .schedules import (ScheduleConfig, ScheduledAdamW, build_optimizer,
                         cyclic_schedule)
@@ -7,6 +7,7 @@ from .state import TrainState, param_count
 from .synthetic import SyntheticPairLoader
 
 __all__ = ["Trainer", "make_eval_step", "make_train_step", "pin_batch",
-           "to_device", "reid_losses", "ScheduleConfig", "ScheduledAdamW",
+           "to_device", "train_forward", "reid_losses", "ScheduleConfig",
+           "ScheduledAdamW",
            "build_optimizer", "cyclic_schedule", "TrainState", "param_count",
            "SyntheticPairLoader"]

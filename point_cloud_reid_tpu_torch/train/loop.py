@@ -4,7 +4,9 @@
                         loader's worker thread for a CUDA run.
   make_train_step(...)  forward + losses + backward + optimizer update on
                         the model's device: (state, batch, generator) ->
-                        (state, log_vars).
+                        (state, log_vars). remat=True recomputes each
+                        stage's forward in the backward
+                        (torch.utils.checkpoint).
   make_eval_step(...)   eval forward: per-pair tensors for the stratified
                         evaluator (evaluation/matching.py).
   Trainer               epoch loop: per-epoch loader reseed, interval eval,
@@ -12,17 +14,29 @@
                         logging (utils/logging.py).
 
 One device, no mesh: data-parallel training waits for the multi-GPU slice.
+A model built at a bf16 compute dtype (models.build_model(dtype=...))
+trains as the JAX package's does: float32 parameters, gradients, AdamW
+moments and accumulator, bf16 compute where flax casts.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..evaluation import evaluate_results
+from ..models.attention_blocks import CrossAttentionBlock, CrossLinAttn
+from ..models.layers import frozen_statistics
+from ..models.point_transformer import (FeaturePropagationSA,
+                                        SetAbstractionEdgeSA)
+from ..models.registry import SequentialHead
+from ..models.vit import Block
 from ..utils.logging import MetricLogger
 from .losses import reid_losses
 from .schedules import global_norm
@@ -34,6 +48,12 @@ def _host_tensor(v) -> torch.Tensor:
     if not t.is_floating_point() and t.dtype != torch.bool:
         t = t.long()
     return t
+
+
+def _numpy(t: torch.Tensor):
+    if t.dtype in (torch.bfloat16, torch.float16):
+        t = t.float()
+    return t.cpu().numpy()
 
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -51,20 +71,62 @@ def pin_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: _host_tensor(v).pin_memory() for k, v in batch.items()}
 
 
+# the stages whose forward remat recomputes one at a time
+_REMAT_STAGES = (SetAbstractionEdgeSA, FeaturePropagationSA,
+                 CrossAttentionBlock, CrossLinAttn, Block, SequentialHead)
+
+
+@contextlib.contextmanager
+def _checkpointed_stages(model) -> Iterator[None]:
+    """Inside the block, each stage of `model` runs under non-reentrant
+    torch.utils.checkpoint: it keeps its inputs and outputs, and the
+    backward recomputes its forward when it reaches the stage, with the
+    BatchNorm running statistics frozen (the forward moved them)."""
+    stages = [m for m in model.modules() if isinstance(m, _REMAT_STAGES)]
+    for m in stages:
+        m.forward = functools.partial(
+            checkpoint, m.forward, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(),
+                                frozen_statistics(model)))
+    try:
+        yield
+    finally:
+        for m in stages:
+            del m.forward
+
+
+def train_forward(model, batch: Dict[str, torch.Tensor], remat: bool = False
+                  ) -> Dict[str, torch.Tensor]:
+    """The model's train-mode forward; with remat, each stage (SA, FP and
+    cross stages, heads, ViT blocks) under torch.utils.checkpoint
+    (_checkpointed_stages), so that the backward holds one stage's
+    activations at a time besides the stages' outputs."""
+    if not remat:
+        return model(batch, train=True)
+    with _checkpointed_stages(model):
+        return model(batch, train=True)
+
+
 def make_train_step(model, losses_to_use: Dict[str, bool],
                     alpha: Dict[str, float], fp_label_threshold: int = 9,
                     use_o: bool = False, triplet_sample_num: int = 5,
-                    triplet_margin: float = 0.2, monitor: bool = False
-                    ) -> Callable:
+                    triplet_margin: float = 0.2, monitor: bool = False,
+                    remat: bool = False) -> Callable:
     """Build the train step: (state, batch, generator, neg_idx=None) ->
     (state, log_vars). `batch` is a dict of tensors on the model's device;
     `generator` draws the triplet negatives unless `neg_idx` supplies them.
     log_vars are 0-d tensors (no host sync); `grad_norm` is the global norm
-    of this step's raw gradients."""
+    of this step's raw gradients.
+
+    remat=True is the JAX step's jax.checkpoint: the backward runs the
+    forward again (train_forward), for less memory at the cost of a second
+    forward. The recompute leaves the BatchNorm running statistics where
+    the forward moved them (frozen_statistics), and the triplet negatives
+    are drawn outside it, from `generator`."""
     need_dense = losses_to_use.get("dense", False)
 
     def train_step(state: TrainState, batch, generator=None, neg_idx=None):
-        out = model(batch, train=True)
+        out = train_forward(model, batch, remat)
         dense_feats = None
         if need_dense:
             # the dense branch is a target, not a path for gradients, and
@@ -154,7 +216,7 @@ class Trainer:
             max_keep_ckpts, save_last, save_best, log_interval, work_dir,
             seed, losses_to_use, alpha, cls_to_idx, num_classes,
             fp_label_threshold, use_o, triplet_sample_num, triplet_margin,
-            monitor.
+            monitor, remat.
     """
 
     def __init__(self, model, train_loader, val_loader, cfg: Dict[str, Any],
@@ -173,7 +235,8 @@ class Trainer:
             use_o=cfg.get("use_o", False),
             triplet_sample_num=cfg.get("triplet_sample_num", 5),
             triplet_margin=cfg.get("triplet_margin", 0.2),
-            monitor=cfg.get("monitor", False))
+            monitor=cfg.get("monitor", False),
+            remat=cfg.get("remat", False))
         self.eval_step = make_eval_step(
             model, dict(lcfg, triplet=False, dense=False), alpha,
             fp_label_threshold=fp_thr)
@@ -294,8 +357,9 @@ class Trainer:
                                  generator)
             for k, v in res.items():
                 accum.setdefault(k, []).append(v)
-        results = {k: torch.cat(v, dim=0).cpu().numpy()
-                   for k, v in accum.items()}
+        # numpy has no bf16: a bf16 model's logits go to the host in
+        # float32, which holds each bf16 value exactly
+        results = {k: _numpy(torch.cat(v, dim=0)) for k, v in accum.items()}
         metrics = evaluate_results(
             results, cls_to_idx=self.cfg.get("cls_to_idx", {}),
             num_classes=self.cfg.get("num_classes", 10))

@@ -2,8 +2,15 @@
 
 Port of point_cloud_reid_tpu/train/losses.py, formula for formula: fixed
 shapes and masked means in place of the reference's filtered gathers, so
-values are identical and nothing depends on how many rows are valid. All
-functions take float32 tensors and return scalar float32 losses.
+values are identical and nothing depends on how many rows are valid.
+
+Nothing is cast: a bf16 model's outputs go through the same operations in
+the same dtypes as in the JAX losses, since torch promotes as jnp does here
+(a bf16 tensor with a float32 one gives float32; a Python number keeps the
+tensor's dtype). So bce_with_logits of bf16 logits computes max(x, 0) and
+log1p(exp(-|x|)) in bf16 and x * t in float32; softmax_ce, kl_pair_loss and
+triplet_loss of bf16 inputs run and return bf16; the total in reid_losses
+starts float32.
 """
 from __future__ import annotations
 

@@ -3,7 +3,11 @@
 Replaces the JAX package's immutable TrainState pytree: the model (params
 and BatchNorm running statistics) and the optimizer are updated in place by
 the train step; the state object groups them for the Trainer and the
-checkpoints.
+checkpoints. As in the JAX package, the parameters and the optimizer state
+(AdamW moments, the accumulated gradient) are in the parameters' dtype,
+float32, whatever the model's compute dtype: a model built with
+dtype=torch.bfloat16 casts its float32 weights where it computes, and
+their gradients come back float32.
 """
 from __future__ import annotations
 

@@ -3,8 +3,11 @@
 A small in-memory stand-in for the data pipeline, for chip_smoke.py's
 train-step phase and tools/profile_train.py: `num_objects` random shapes,
 each a cloud of points around a few random blobs; a pair is two noisy
-resamplings, of one object (positive) or of two (negative). The batches exercise the trainer; nothing can be learned from
-them that transfers.
+resamplings, of one object (positive) or of two (negative). With
+image_size, the crops are images instead: each object a coarse random
+pattern scaled up to image_size x image_size, a pair two noisy copies. The
+batches exercise the trainer; nothing can be learned from them that
+transfers.
 """
 from __future__ import annotations
 
@@ -14,14 +17,15 @@ import numpy as np
 
 
 class SyntheticPairLoader:
-    """Iterable of batch dicts: sparse_1/2 (B, N, 3) float32, id_1/2,
-    label_1/2, size_1/2, vis_1/2 (B,) int32, dist_1/2 (B,) float32 and, with
+    """Iterable of batch dicts: sparse_1/2 (B, N, 3) float32 (with
+    image_size, (B, 3, image_size, image_size) images), id_1/2, label_1/2,
+    size_1/2, vis_1/2 (B,) int32, dist_1/2 (B,) float32 and, with
     dense_points, dense_1/2 (B, dense_points, 3). set_epoch reseeds the
     draw; the same (seed, epoch) gives the same batches."""
 
     def __init__(self, batch_size: int, num_batches: int, num_points: int = 128,
                  num_objects: int = 60, num_classes: int = 10,
-                 dense_points: int = 0, seed: int = 0):
+                 dense_points: int = 0, seed: int = 0, image_size: int = 0):
         self.batch_size = batch_size
         self.num_batches = num_batches
         self.num_points = num_points
@@ -32,6 +36,10 @@ class SyntheticPairLoader:
         rs = np.random.RandomState(seed)
         self.blobs = rs.randn(num_objects, 6, 3).astype(np.float32) * 0.6
         self.labels = rs.randint(0, num_classes, num_objects)
+        self.image_size = image_size
+        if image_size:
+            self.patterns = rs.randn(num_objects, 3, 14, 14).astype(
+                np.float32)
 
     def __len__(self) -> int:
         return self.num_batches
@@ -40,6 +48,12 @@ class SyntheticPairLoader:
         self.epoch = epoch
 
     def _crops(self, rs, ids, n) -> np.ndarray:
+        if self.image_size:
+            size = self.image_size
+            up = -(-size // 14)
+            img = self.patterns[ids].repeat(up, axis=2).repeat(up, axis=3)
+            img = img[:, :, :size, :size]
+            return img + rs.randn(*img.shape).astype(np.float32) * 0.1
         which = rs.randint(0, self.blobs.shape[1], (len(ids), n))
         centres = self.blobs[ids[:, None], which]
         return (centres + rs.randn(len(ids), n, 3) * 0.15).astype(np.float32)

@@ -3,10 +3,12 @@
 A bf16 model keeps float32 parameters (as the JAX package does) and casts
 them at each product. `derived(sources, tag, fn)` returns fn() computed once
 for these source tensors: the key is each source's address, shape, strides,
-device and in-place version, and the entry holds the sources themselves, so
-no other tensor can take their addresses while it is cached. An in-place
-update of a source (an optimizer step, load_state_dict) bumps its version
-and misses. Under autograd, with a source that requires grad, nothing is
+device and dtype, and the entry holds the sources themselves, so no other
+tensor can take their addresses while it is cached, and their in-place
+versions. An in-place update of a source (an optimizer step,
+load_state_dict) bumps its version: the next call recomputes and replaces
+the entry, so a weight keeps one copy of each kind however often it is
+updated. Under autograd, with a source that requires grad, nothing is
 cached: the copy must stay in the graph.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ _CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 def _key(t: torch.Tensor) -> tuple:
     return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), str(t.device),
-            t.dtype, t._version)
+            t.dtype)
 
 
 def derived(sources: Sequence[torch.Tensor], tag, fn: Callable[[], torch.Tensor]
@@ -31,13 +33,15 @@ def derived(sources: Sequence[torch.Tensor], tag, fn: Callable[[], torch.Tensor]
     if torch.is_grad_enabled() and any(s.requires_grad for s in sources):
         return fn()
     key = (tag,) + tuple(_key(s) for s in sources)
+    versions = tuple(s._version for s in sources)
     hit = _CACHE.get(key)
-    if hit is not None:
+    if hit is not None and hit[1] == versions:
         _CACHE.move_to_end(key)
-        return hit[1]
+        return hit[2]
     with torch.no_grad():
         out = fn()
-    _CACHE[key] = (tuple(sources), out)
+    _CACHE[key] = (tuple(sources), versions, out)
+    _CACHE.move_to_end(key)
     if len(_CACHE) > _MAX_ENTRIES:
         _CACHE.popitem(last=False)
     return out

@@ -123,11 +123,12 @@ def port_flat(tree) -> dict:
     """A flax collection (params, batch_stats or gradients shaped like
     params) as {port state-dict key: numpy array in the port's layout}."""
     from point_cloud_reid_tpu_torch.convert import port_key
-    from point_cloud_reid_tpu_torch.convert.jax_variables import _flatten
+    from point_cloud_reid_tpu_torch.convert.jax_variables import (
+        _flatten, _port_layout)
     out = {}
     for path, value in _flatten(tree).items():
         key, transpose = port_key(path)
-        out[key] = value.T if transpose else value
+        out[key] = _port_layout(value) if transpose else value
     return out
 
 
@@ -221,3 +222,46 @@ def assert_close_scaled(got, want, tol: float, what: str = "") -> None:
     err = float(np.max(np.abs(got - want))) if got.size else 0.0
     bound = tol * max(1.0, float(np.max(np.abs(want))) if want.size else 0.0)
     assert err <= bound, f"{what}: err {err:.3e} > {bound:.3e}"
+
+
+# ---- bf16 training parity ---------------------------------------------------
+
+# the JAX suite's bf16 bar (tests/test_torch_bf16_modules.py)
+BF16_TOL = 3e-2
+# After the first step a bf16 run follows a trajectory of its own: a bf16
+# gradient is rounding on many entries (a sum of bf16 products that
+# cancels, through each BatchNorm and LayerNorm), Adam turns each such
+# entry into a move of the learning rate's size with the rounding's sign,
+# and the next gradients move with them. On the tiny image model the bf16
+# grad_norm reads 112.3 (port) and 115.4 (JAX) at step 1 against float32's
+# 184.1, and 32.9 and 51.0 at step 3 against 130.3; the JAX package's own
+# bf16 grad_norm on it differs by 6 % at step 2 between two compilations of
+# the same program. So after step 1 grad_norm is not compared; the total
+# loss stays at BF16_TOL, and the loss terms and update_norm (which Adam
+# normalises) are held at BF16_DRIFT: they lie up to 4.3e-2 apart after
+# three steps on the tiny models.
+BF16_DRIFT = 0.1
+
+
+def assert_bf16_logs_close(got: dict, want: dict, step: int):
+    """A bf16 train step's logs (`got`) against the JAX package's bf16 step
+    (`want`), relative to max(1, |want|): every entry at BF16_TOL at the
+    first step; after it reid_loss and param_norm at BF16_TOL, the loss
+    terms and update_norm at BF16_DRIFT, and neither grad_norm nor the
+    accuracies and counts (functions of logits next to a decision
+    boundary)."""
+    assert set(got) == set(want)
+    for k, w in want.items():
+        if step == 1 or k in ("reid_loss", "param_norm"):
+            tol = BF16_TOL
+        elif k.endswith("_loss") or k == "update_norm":
+            tol = BF16_DRIFT
+        else:
+            continue
+        assert abs(got[k] - w) <= tol * max(1.0, abs(w)), (step, k, got[k], w)
+
+
+def flat_grads(grads: dict) -> np.ndarray:
+    """A {leaf: gradient} dict as one vector, in key order."""
+    return np.concatenate([np.asarray(v, np.float64).ravel()
+                           for _, v in sorted(grads.items())])

@@ -221,12 +221,17 @@ def test_test_cli_equals_jax_trainer_evaluate(point_run):
 
 
 def test_image_leaf_evaluates_and_does_not_train(tmp_path):
+    """tools/test.py on an image leaf against the JAX evaluator. (The name
+    is older than image training: tools/train.py now trains the leaf, one
+    epoch here, where it used to raise; test_torch_train_cli_flags.py
+    checks what the training run writes.)"""
     root = str(tmp_path / "img")
     make_synthetic_data.main([root, "--objects", "12", "--frames", "4",
                               "--images", "--seed", "4"])
     leaf = IMAGE_LEAF.replace("testing_", "")
-    with pytest.raises(NotImplementedError, match="item 2"):
-        train_cli.main([leaf, *_cli_args(root, IMAGE_SET)])
+    trained = train_cli.main([leaf, "--epochs", "1", *_cli_args(
+        root, IMAGE_SET, "--work-dir", str(tmp_path / "train"))])
+    assert np.isfinite(trained["val_match_acc"])
     tmodel = build_model(copy.deepcopy(IMAGE_CFG),
                          generator=torch.Generator().manual_seed(1))
     ckpt = str(tmp_path / "image.pt")

@@ -118,7 +118,7 @@ NEW_MODULES = {
     "data.pipeline", "data.samplers", "data.import_reference", "native",
     "native.plain", "tools.test", "tools.make_synthetic_data",
     "tools.dump_val_pairs", "tools.import_reference_store",
-    "tools.profile_loader", "utils.cache"}
+    "tools.profile_loader", "utils.cache", "utils.profiling"}
 # the CUDA sources the bf16 serving path adds beside the float32 ones
 BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 
@@ -183,8 +183,31 @@ for sparse, dc in (('always', True), ('never', True), ('never', False)):
         pts = np.repeat(c, 30, 0) + rs.randn(120, 3).astype(np.float32) * 0.4
         mgr.step(pts, boxes, np.ones(4, np.float32), np.zeros(4, np.int64))
     assert len(mgr.store.active()) >= 4
+# a bf16 train step with both kernel knobs on, with and without remat, and
+# its eval step (the bf16 SA kernel's plain version)
+from point_cloud_reid_tpu_torch.kernels import knn, linear_attention
+from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
+    SyntheticPairLoader, TrainState, make_eval_step, make_train_step,
+    to_device)
+cfg = point_transformer_point_cat(
+    conv_out=16, mul=1, nsample=(8, 8, 8), backbone_list=(16, 8, 4))
+cfg['knn_method'] = 'pallas'
+cfg['cross_stage1']['attention'] = cfg['cross_stage2']['attention'] = \
+    'linear-pallas'
+model = build_model(cfg, dtype=torch.bfloat16)
+state = TrainState.create(model, ScheduleConfig(max_epochs=1), 2)
+batch = to_device(next(iter(SyntheticPairLoader(4, 1, num_points=32,
+                                                num_objects=8))), 'cpu')
+for remat in (False, True):
+    step = make_train_step(model, dict(match=True, kl=True, triplet=True),
+                           {}, remat=remat)
+    _, log = step(state, batch, torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(log['reid_loss']))
+make_eval_step(model, dict(match=True), {})(state, batch)
 print(json.dumps(dict(
     loaded=_lib.LIBRARY._lib is not None,
+    train_launches=[knn.knn.launches,
+                    linear_attention.linear_attention_forward.launches],
     launches=[f.bf16_launches for f in (
         sa_stage.fused_sa_convmax, match_grid.fused_match_grid,
         match_grid.fused_match_pairs, match_grid.fused_image_match_grid,
@@ -195,9 +218,12 @@ print(json.dumps(dict(
 
 def test_cpu_wrappers_at_bf16_never_touch_the_cuda_library():
     """The bf16 tracker on the CPU (device cache dense and sparse, host
-    cache) runs the plain versions: no bf16 kernel counted, no library."""
+    cache), and bf16 train steps with the kernel knobs on (with and
+    without remat) and an eval step, run the plain versions: no kernel
+    counted, no library."""
     out = _run(_CPU_PATH_BF16)
-    assert out == dict(loaded=False, launches=[0] * 5, dtype="torch.bfloat16")
+    assert out == dict(loaded=False, train_launches=[0, 0],
+                       launches=[0] * 5, dtype="torch.bfloat16")
 
 
 def test_no_source_file_of_the_port_names_a_jax_import():
@@ -281,9 +307,17 @@ def test_cpu_wrappers_never_touch_the_cuda_library():
      "1"],
     ["-m", "point_cloud_reid_tpu_torch.tools.track", "--image", "--bf16",
      "--frames", "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.train",
+     "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e", "--bf16", "--remat",
+     "--epochs", "1"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.test", "testing_" + FLAGSHIP,
+     "--bf16"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.profile_train", "--bf16",
+     "--experiment", "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"],
 ], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke",
         "track_image", "profile_tracker_image", "test", "train_root",
-        "profile_loader", "track_bf16", "track_image_bf16"])
+        "profile_loader", "track_bf16", "track_image_bf16",
+        "train_image_bf16", "test_bf16", "profile_train_image_bf16"])
 def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():
