@@ -119,6 +119,26 @@ Phases, each of which raises on failure:
      tools/train.py --root on an image store at --bf16; one --remat step
      of the flagship (its peak below phase 4's, its step-1 logs phase 4's
      to REMAT_TOL).
+ 12. the rest of the registry, with every count at 0: the PointNet and
+     DGCNN leaves (seed-0 weights, float32 and bf16) behind
+     TrackingManager.step over ZOO_FRAMES frames of the serving scene,
+     dense ('never') and sparse ('auto'): one match-kernel launch a scored
+     frame on the cluster tier (C = 64, N = 128) and none of another tier;
+     tools/track.py serving the PointNet 2048-point ablation at
+     --subsample 2048 (the rows tier); one dense frame of each baseline
+     leaf (concat, xcorr-baseline) with no match-kernel launch (the gate,
+     kernels/match_grid.fused_head_ok, sends them to plain torch);
+     ZOO_TRAIN_STEPS train steps of each of the four families at 256 pairs,
+     float32 and bf16, with the kernel knobs each takes (step ms, forward /
+     backward / optimizer ms, peak GiB). Then the checks: each PointNet /
+     DGCNN frame's logits against the model's plain match_logits_grid /
+     match_logits on the same padded inputs (MATCH_TOL) at float32; at
+     bf16 the kernel's pooled features on the frame's inputs against the
+     chain's plain version (BF16_TOL), the frame's logits equal to them
+     through the head, and its logits against the float32 port's on the
+     same crops (BF16_LOGIT_TOL); each baseline
+     frame's logits against match_logits on all its pairs (MATCH_TOL); the
+     grid kernel's and the embed's ms on the dense frames' inputs.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -245,6 +265,17 @@ IMAGE_STORE_OBJECTS, IMAGE_STORE_FRAMES = 240, 4
 # a remat step against phase 4's first step: the same kernels, so float32
 # summation order alone (the backward's scatter-adds are atomic on the card)
 REMAT_TOL = 1e-5
+# phase 12, the rest of the registry: the PointNet and DGCNN leaves (their
+# xcorr_eff head on the match kernels at d = 64), the PointNet 2048-point
+# ablation, the two baselines (plain torch by design) and a train step of
+# each family
+ZOO = {"PointNet": "pts_pointnet_point-cat_nus_det_4x256_500e",
+       "DGCNN": "pts_dgcnn_point-cat_nus_det_4x256_500e"}
+BASELINES = {
+    "concat": "pts_point-transformer_baseline_nus_det_4x256_500e",
+    "xcorr-baseline": "pts_point-transformer_baseline-stnet_nus_det_4x256_500e"}
+ZOO_ABLATION = "pts_pointnet_point-cat_waymo_det_4x256_400e_2048pts"
+ZOO_FRAMES, ZOO_TRAIN_STEPS = 4, 3
 
 
 def nbytes(*tensors) -> int:
@@ -2044,10 +2075,11 @@ def serve_profiled(model, sparse: str, label: str, card: str,
     return times, scorer, device_ms, busy
 
 
-def serve_ablation(card: str, every: dict, bf16: bool = False) -> tuple:
-    """tools/track.py serves the 2048-point ablation at its crop size
-    (--subsample 2048, sparse 'auto'; with `bf16`, --bf16) over a small
-    synthetic scene; a float32 run's last frame is held against plain
+def serve_ablation(card: str, every: dict, bf16: bool = False,
+                   leaf: str = ABLATION) -> tuple:
+    """tools/track.py serves a 2048-point ablation (`leaf`) at its crop
+    size (--subsample 2048, sparse 'auto'; with `bf16`, --bf16) over a
+    small synthetic scene; a float32 run's last frame is held against plain
     scoring. Returns (the CLI's headline, its scorer)."""
     import contextlib
     import io
@@ -2067,7 +2099,7 @@ def serve_ablation(card: str, every: dict, bf16: bool = False) -> tuple:
     PairScorer.__init__ = kept_init
     try:
         with contextlib.redirect_stdout(out):
-            track.main([ABLATION, "--subsample", "2048", "--sparse", "auto",
+            track.main([leaf, "--subsample", "2048", "--sparse", "auto",
                         "--scenes", "1", "--frames", "5", "--objects", "16",
                         "--pts-per-obj", "2400", "--match-threshold", "1.0",
                         "--work-dir", work] + (["--bf16"] if bf16 else []))
@@ -2076,14 +2108,16 @@ def serve_ablation(card: str, every: dict, bf16: bool = False) -> tuple:
     headline = json.loads(out.getvalue().strip().splitlines()[-1])
     cli = {k: fn.launches - before[k] for k, fn in every.items()}
     flag = " --bf16" if bf16 else ""
-    print(f"[family:ablation] tools/track.py {ABLATION} --subsample 2048"
+    print(f"[family:ablation] tools/track.py {leaf} --subsample 2048"
           f"{flag}: launches { {k: v for k, v in cli.items() if v} }; "
           f"headline {json.dumps(headline)} on {card}", flush=True)
     sa, rows = (("fused_sa_convmax/bf16", "rows_bf16") if bf16
                 else ("fused_sa_convmax", "rows"))
-    if not (cli[sa] > 0 and cli[f"fused_match_pairs/{rows}"]
+    # PointNet and DGCNN embed without the SA kernel
+    with_sa = "point-transformer" in leaf
+    if not ((cli[sa] > 0 or not with_sa) and cli[f"fused_match_pairs/{rows}"]
             + cli[f"fused_match_grid/{rows}"] > 0):
-        raise RuntimeError(f"the ablation{flag} was not served through the "
+        raise RuntimeError(f"{leaf}{flag} was not served through the "
                            f"SA kernel and the match chain's {rows} tier")
     scorer = scorers[-1]
     if scorer.last_frame["h_t"].shape[1] != 2048:
@@ -2753,6 +2787,270 @@ def phase_bf16_training(card: str):
     return launches, summary
 
 
+def zoo_model(leaf: str, dtype):
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.models import build_model
+    return build_model(get_experiment(leaf)["model"], device=DEVICE,
+                       dtype=dtype,
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def match_tier_counts() -> dict:
+    """{(wrapper name, tier key): launches} of the point match kernels."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    return {(fn.__name__, tier): n
+            for fn in (mg.fused_match_grid, mg.fused_match_pairs)
+            for tier, n in fn.tier_launches.items()}
+
+
+def zoo_frames(card: str) -> tuple:
+    """The PointNet and DGCNN leaves behind TrackingManager.step, float32
+    and bf16, dense and sparse: one launch a scored frame on the cluster
+    tier of the frame's dtype. Returns (summary, [(label, family, dtype,
+    the last frame)], {family: {dtype: model}})."""
+    import torch
+    summary, records, models = {}, [], {}
+    for family, leaf in ZOO.items():
+        models[family] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            model = models[family][dtype] = zoo_model(leaf, dtype)
+            name = "bf16" if dtype == torch.bfloat16 else "float32"
+            tier = "cluster_bf16" if dtype == torch.bfloat16 else "cluster"
+            for sparse, kind in (("never", "dense"), ("auto", "sparse")):
+                label = f"{family} {name} {kind}"
+                before = match_tier_counts()
+                ms, scorer, mgr = run_scene(model, sparse, frames=ZOO_FRAMES)
+                used = {k: v - before[k]
+                        for k, v in match_tier_counts().items()
+                        if v != before[k]}
+                want = ("fused_match_grid" if sparse == "never"
+                        else "fused_match_pairs", tier)
+                ours = sum(v for (_, t), v in used.items() if t == tier)
+                if not (scorer.fused and ours == ZOO_FRAMES - 1
+                        and used.get(want, 0) > 0
+                        and set(used) <= {("fused_match_grid", tier),
+                                          ("fused_match_pairs", tier)}):
+                    raise RuntimeError(f"{label}: want one {tier} launch a "
+                                       f"scored frame, got {used}")
+                records.append((label, family, dtype, scorer.last_frame))
+                summary[label] = dict(step_ms=ms, launches={
+                    f"{fn}/{t}": v for (fn, t), v in used.items()})
+                print(f"[zoo] {label}: {len(mgr.store.active())} active "
+                      f"tracks, h {tuple(scorer.last_frame['h_d'].shape)} "
+                      f"{scorer.last_frame['h_d'].dtype}; steps "
+                      f"{[round(x, 1) for x in ms]} ms; launches "
+                      f"{summary[label]['launches']} on {card}", flush=True)
+    return summary, records, models
+
+
+def bf16_chain_check(model, rec) -> tuple:
+    """A bf16 frame against the fused chain's plain version on its padded
+    inputs: the kernel's pooled features again (a comparison launch) and
+    the plain version's, their rel_err (the kernel's bar, BF16_TOL: a bf16
+    logit after the head may sit two ulps from the plain one), and whether
+    the frame's logits are the kernel's pooled features through the head
+    bit for bit. Returns (max_abs_err, rel_err, equal)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    h_t, xyz_t, h_d, xyz_d = (rec[k] for k in ("h_t", "xyz_t", "h_d",
+                                               "xyz_d"))
+    nt, nd = h_t.shape[0], h_d.shape[0]
+    with torch.no_grad():
+        t, d, w1, w2, nhead = mg.match_factors(model, h_t, xyz_t, h_d, xyz_d)
+        if rec["pairs"] is None:
+            ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+            di = torch.arange(nd, device=DEVICE).repeat(nt)
+            pooled = mg.fused_match_grid(t, d, w1, w2, nhead).reshape(
+                nt * nd, -1)
+        else:
+            ti, di = rec["pairs"]
+            pooled = mg.fused_match_pairs(t, d, w1, w2, nhead, ti, di)
+        plain = mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di)
+        logits = model.match_head(pooled)[:, 0]
+    err, rel = rel_err(pooled.float(), plain.float())
+    return err, rel, torch.equal(logits, rec["logits"].reshape(-1))
+
+
+def model_plain_logits(model, rec):
+    """A frame's logits by the model itself over its padded inputs:
+    match_logits_grid for a dense frame, match_logits on the listed pairs
+    for a sparse one."""
+    import torch
+    h_t, xyz_t, h_d, xyz_d = (rec[k] for k in ("h_t", "xyz_t", "h_d",
+                                               "xyz_d"))
+    with torch.no_grad():
+        if rec["pairs"] is None:
+            return model.match_logits_grid(h_t, xyz_t, h_d, xyz_d)
+        pt, pd = (p.long() for p in rec["pairs"])
+        return model.match_logits(h_t[pt], xyz_t[pt], h_d[pd], xyz_d[pd])[0]
+
+
+def zoo_baselines(card: str, every: dict) -> tuple:
+    """One dense frame of each baseline leaf: no match-kernel launch.
+    Returns (summary, [(label, model, the frame)])."""
+    import torch
+    summary, records = {}, []
+    match = [k for k in every if k.startswith(("fused_match_",
+                                               "fused_image_match_"))]
+    for name, leaf in BASELINES.items():
+        model = zoo_model(leaf, torch.float32)
+        before = {k: every[k].launches for k in every}
+        ms, scorer, _ = run_scene(model, "never", frames=2)
+        used = {k: every[k].launches - before[k] for k in every}
+        if scorer.fused or any(used[k] for k in match):
+            raise RuntimeError(f"{name}: the baseline head reached the match "
+                               f"kernels: {used}")
+        records.append((name, model, scorer.last_frame))
+        summary[name] = dict(step_ms=ms, launches={k: v for k, v in
+                                                   used.items() if v})
+        print(f"[zoo] {name} ({leaf}): a dense frame of "
+              f"{tuple(scorer.last_frame['logits'].shape)} pairs on plain "
+              f"torch, steps {[round(x, 1) for x in ms]} ms; launches "
+              f"{summary[name]['launches']} (no match kernel) on {card}",
+              flush=True)
+    return summary, records
+
+
+def zoo_train(card: str, every: dict) -> dict:
+    """ZOO_TRAIN_STEPS steps of each family's leaf at TRAIN_PAIRS pairs,
+    float32 and bf16, with the kernel knobs it takes (profile_train.
+    model_knobs), then one step split by CUDA events."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools.profile_train import (
+        _phases_ms, train_setup, train_spec)
+    summary = {}
+    families = dict(ZOO, **BASELINES)
+    for family, leaf in families.items():
+        spec = train_spec(leaf, kernels=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "bf16" if dtype == torch.bfloat16 else "float32"
+            knn0 = every["knn"].launches
+            attn0 = every["linear_attention"].launches
+            run = train_setup(spec, torch.device(DEVICE), TRAIN_PAIRS,
+                              ZOO_TRAIN_STEPS + 1,
+                              bf16=dtype == torch.bfloat16)
+            torch.cuda.reset_peak_memory_stats()
+            times, logs = [], []
+            for batch in run["batches"][:ZOO_TRAIN_STEPS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, log = run["step"](run["state"], batch, run["generator"])
+                logs.append({k: float(v) for k, v in log.items()})
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            fwd, bwd, opt = _phases_ms(run, run["batches"][ZOO_TRAIN_STEPS])
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            knn_n = every["knn"].launches - knn0
+            attn_n = every["linear_attention"].launches - attn0
+            # the point-transformer backbone (the baselines) runs kNN, and
+            # every leaf but concat has cross stages
+            want_knn = family in BASELINES
+            want_attn = family != "concat"
+            if not (all(np.isfinite(v) for log in logs for v in log.values())
+                    and (knn_n > 0) == want_knn
+                    and (attn_n > 0) == want_attn):
+                raise RuntimeError(f"{family} {name} training: logs {logs}, "
+                                   f"kNN {knn_n}, attention {attn_n}")
+            summary[f"{family} {name}"] = dict(
+                leaf=leaf, pairs=TRAIN_PAIRS, step_ms=times,
+                forward_ms=fwd, backward_ms=bwd, optimizer_ms=opt,
+                peak_gib=peak, step1_loss=logs[0]["reid_loss"],
+                knn_launches=knn_n, attention_launches=attn_n)
+            print(f"[zoo:train] {family} {name}, {TRAIN_PAIRS} pairs: steps "
+                  f"{[round(x, 1) for x in times]} ms, fwd / bwd / opt "
+                  f"{fwd:.1f} / {bwd:.1f} / {opt:.1f} ms, peak {peak:.2f} "
+                  f"GiB, loss {[round(x['reid_loss'], 4) for x in logs]}, "
+                  f"launches knn {knn_n} attention {attn_n} on {card}",
+                  flush=True)
+            del run
+            torch.cuda.empty_cache()
+    return summary
+
+
+def zoo_checks(frames, models, baselines, summary: dict) -> None:
+    """The phase's comparisons, after its launches were read: the launches
+    they make do not count."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    for label, family, dtype, rec in frames:
+        out = summary["frames"][label]
+        if dtype == torch.float32:
+            err, rel = rel_err(rec["logits"], model_plain_logits(
+                models[family][dtype], rec))
+            out.update(max_abs_err=err, rel_err=rel)
+            ok = rel <= MATCH_TOL
+            bar = f"tol {MATCH_TOL:g} against the model's plain scoring"
+        else:
+            err, rel, equal = bf16_chain_check(models[family][dtype], rec)
+            out.update(pooled_max_abs_err=err, pooled_rel_err=rel,
+                       logits_are_the_kernels=equal,
+                       logit_gap=bf16_point_gap(
+                           models[family][torch.float32], rec, label))
+            ok = rel <= BF16_TOL and equal
+            bar = (f"the kernel's pooled features against the chain's bf16 "
+                   f"plain version, tol {BF16_TOL:g}; the frame's logits "
+                   f"are the kernel's through the head bit for bit: "
+                   f"{equal}")
+        print(f"[zoo:{label}] logits {tuple(rec['logits'].shape)}: "
+              f"max_abs_err={err:.3e} rel={rel:.3e} ({bar})", flush=True)
+        if not (ok and bool(torch.isfinite(rec["logits"]).all())):
+            raise RuntimeError(f"{label}: off plain scoring ({rel})")
+        if rec["pairs"] is None:
+            # the dense frame's grid kernel and the embed, on its inputs
+            model = models[family][dtype]
+            t, d, w1, w2, nhead = mg.match_factors(
+                model, rec["h_t"], rec["xyz_t"], rec["h_d"], rec["xyz_d"])
+            with torch.no_grad():
+                out["grid_ms"] = time_ms(
+                    lambda: mg.fused_match_grid(t, d, w1, w2, nhead), 5)
+                out["embed_ms"] = time_ms(
+                    lambda: model.embed(rec["xyz_d"]), 5)
+            print(f"[zoo:{label}] grid kernel {out['grid_ms']:.3f} ms "
+                  f"({t[0].shape[0]} x {d[0].shape[0]}, N={t[0].shape[1]}, "
+                  f"C={t[0].shape[2]}), embed of {rec['xyz_d'].shape[0]} "
+                  f"crops {out['embed_ms']:.3f} ms", flush=True)
+    for name, model, rec in baselines:
+        nt, nd = rec["logits"].shape
+        ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+        di = torch.arange(nd, device=DEVICE).repeat(nt)
+        with torch.no_grad():
+            want = model.match_logits(rec["h_t"][ti], rec["xyz_t"][ti],
+                                      rec["h_d"][di], rec["xyz_d"][di])[0]
+        err, rel = rel_err(rec["logits"].reshape(-1), want)
+        summary["baselines"][name].update(max_abs_err=err, rel_err=rel)
+        print(f"[zoo:{name}] {nt} x {nd} logits against match_logits on its "
+              f"{nt * nd} pairs: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{MATCH_TOL:g})", flush=True)
+        if not rel <= MATCH_TOL:
+            raise RuntimeError(f"{name}: logits off match_logits ({rel})")
+
+
+def phase_zoo(card: str):
+    """Phase 12: the rest of the registry. Returns (the path's launches, a
+    summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    every = zero_counters()
+    summary = {}
+    summary["frames"], frames, models = zoo_frames(card)
+    headline, scorer = serve_ablation(card, every, leaf=ZOO_ABLATION)
+    summary["ablation_cli"] = headline
+    del scorer
+    torch.cuda.empty_cache()
+    summary["baselines"], baselines = zoo_baselines(card, every)
+    torch.cuda.empty_cache()
+    summary["train"] = zoo_train(card, every)
+    launches = {name: fn.launches for name, fn in every.items()}
+    zoo_checks(frames, models, baselines, summary)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[zoo] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase took "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -2785,17 +3083,20 @@ def main():
     rows += bf16_rows
     torch.cuda.empty_cache()
     bf16_training, bf16_training_summary = phase_bf16_training(card)
+    torch.cuda.empty_cache()
+    zoo, zoo_summary = phase_zoo(card)
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path, family, bf16_path, bf16_training))
+            data_path, family, bf16_path, bf16_training, zoo))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
     print(json.dumps({"kernels": rows, "data_path": data_summary,
                       "family": family_summary, "bf16": bf16_summary,
-                      "bf16_training": bf16_training_summary}))
+                      "bf16_training": bf16_training_summary,
+                      "zoo": zoo_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

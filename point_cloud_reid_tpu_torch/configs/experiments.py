@@ -1,10 +1,12 @@
 """Experiment leaves: 4-axis composition + named experiment registry.
 
-Port of point_cloud_reid_tpu/configs/experiments.py for the point-transformer
-family (the flagship on nuScenes and Waymo with its _accumN, point-count
-ablation and scaling_ leaves and the ablations' aliases, and the scaled 1.5M
-and 7M models with their testing_ and _accumN twins), the image (rgb_*)
-leaves, their testing_ twins and the three image_* aliases:
+Port of point_cloud_reid_tpu/configs/experiments.py, every leaf of its
+registry: the point families on nuScenes and Waymo (the point-transformer
+flagship, PointNet, DGCNN, the concat and xcorr-baseline baselines and the
+scaled 1.5M and 7M models) with their testing_ and _accumN twins, the
+point-count ablations of the flagship, PointNet and DGCNN, the flagship's
+scaling_ leaves and the ablations' aliases, the image (rgb_*) leaves, their
+testing_ twins and the three image_* aliases:
 compose(dataset, model, schedule, runtime),
 schedule('cyclic_500e_lr3e-4_norm1_accum2') parsing the reference's
 schedule-file names, and the dotted-path --set overrides.
@@ -93,11 +95,16 @@ def _fixed(dataset_fn, model_cfg, sched, **dataset_kw):
     return fn
 
 
-# the point-transformer family's models; as in JAX, the scaled ones ignore
-# the class count (they have no aux heads)
+# the point models; as in JAX, the baselines and the scaled ones ignore the
+# class count (they have no aux heads)
 _PTS_MODELS = {
     "point-transformer_point-cat": lambda nc: M.point_transformer_point_cat(
         num_classes=nc),
+    "pointnet_point-cat": lambda nc: M.pointnet_point_cat(num_classes=nc),
+    "dgcnn_point-cat": lambda nc: M.dgcnn_point_cat(num_classes=nc),
+    "point-transformer_baseline": lambda nc: M.point_transformer_baseline(),
+    "point-transformer_baseline-stnet":
+        lambda nc: M.point_transformer_baseline(stnet=True),
     "point-transformer-1.5M_point-cat":
         lambda nc: M.point_transformer_scaled("1.5M"),
     "point-transformer-7M_point-cat":
@@ -116,12 +123,14 @@ for _ds, _ds_fn, _nc, _e in (("nus", D.nuscenes_pts, 10, 500),
         for _a in (2, 4, 8):
             EXPERIMENTS[f"{_name}_accum{_a}"] = _pts_leaf(_ds_fn, _m_fn, _nc,
                                                          _e, _a)
-    # point-count ablations (reid_{waymo,nuscenes}_pts/num_point_ablation/*)
-    for _n in (160, 192, 224, 256, 512, 1024, 2048):
-        EXPERIMENTS[f"pts_{_FLAGSHIP}_{_ds}_det_4x256_{_e}e_{_n}pts"] = _fixed(
-            _ds_fn, lambda nc=_nc: _PTS_MODELS[_FLAGSHIP](nc),
-            lambda e=_e: schedule(f"cyclic_{e}e_lr3e-4"),
-            subsample_sparse=_n)
+    # point-count ablations (reid_{waymo,nuscenes}_pts/num_point_ablation/*;
+    # three backbone families)
+    for _m in (_FLAGSHIP, "pointnet_point-cat", "dgcnn_point-cat"):
+        for _n in (160, 192, 224, 256, 512, 1024, 2048):
+            EXPERIMENTS[f"pts_{_m}_{_ds}_det_4x256_{_e}e_{_n}pts"] = _fixed(
+                _ds_fn, lambda m=_PTS_MODELS[_m], nc=_nc: m(nc),
+                lambda e=_e: schedule(f"cyclic_{e}e_lr3e-4"),
+                subsample_sparse=_n)
 
 # scaling runs (waymo 800/1600/3200e, nuScenes 1000/2000/4000e); the
 # nuScenes ones build a bare ScheduleConfig, as JAX does

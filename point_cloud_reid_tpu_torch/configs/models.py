@@ -1,13 +1,20 @@
-"""Model config factories: the flagship point ReID model, its scaled
-variants and the image model.
+"""Model config factories: every released model family.
 
-Copies of point_cloud_reid_tpu/configs/models.py::point_transformer_point_cat,
-::point_transformer_scaled and ::image_deit_point_cat (the JAX package's
-config modules import jax
-through experiments.py, so the port cannot import them). The dicts are
-value-for-value the JAX ones: reid_pts_point-transformer_point-cat.py (mul=4,
-conv_out=64, two linear cross-attention stages, combine='point-cat', pool
-'both') and image/reid_image_deit-{tiny,base}_point-cat.py.
+Copies of point_cloud_reid_tpu/configs/models.py (the JAX package's config
+modules import jax through experiments.py, so the port cannot import them).
+The dicts are value-for-value the JAX ones:
+  point_transformer_point_cat  <- reid_pts_point-transformer_point-cat.py
+                                  (mul=4, conv_out=64, two linear
+                                  cross-attention stages, combine
+                                  'point-cat', pool 'both')
+  point_transformer_scaled     <- *-1.5M / -7M (output_sequence_size=128)
+  point_transformer_baseline   <- reid_pts_point-transformer_baseline.py
+                                  (match_type 'concat'), _stnet
+                                  (match_type 'xcorr-baseline')
+  pointnet_point_cat           <- reid_pts_pointnet_point-cat.py
+  dgcnn_point_cat              <- reid_pts_dgcnn_point-cat.py
+  image_deit_point_cat         <- image/reid_image_deit-{tiny,base}_
+                                  point-cat.py
 """
 from __future__ import annotations
 
@@ -59,6 +66,39 @@ def point_transformer_scaled(size: str = "1.5M") -> Dict[str, Any]:
     conv_out = 128
     mul = 4 if size == "1.5M" else 8
     return point_transformer_point_cat(conv_out=conv_out, mul=mul)
+
+
+def point_transformer_baseline(stnet: bool = False) -> Dict[str, Any]:
+    """No-attention baselines: match_type 'concat'
+    (reid_pts_point-transformer_baseline.py) or 'xcorr-baseline' (_stnet)."""
+    cfg = point_transformer_point_cat(
+        match_type="xcorr-baseline" if stnet else "concat")
+    if not stnet:
+        cfg["cross_stage1"] = cfg["cross_stage2"] = None
+        # the concat head sees [pool(h1) || pool(h2)] = 4 * conv_out
+        cfg["match_head"] = _linear_res_head(4 * 64, 4 * 64, 8, 1)
+    return cfg
+
+
+def pointnet_point_cat(num_classes: int = 10) -> Dict[str, Any]:
+    """PointNet backbone family (reid_pts_pointnet_point-cat.py): 1024-wide
+    per-point features, downsampled to the match stages' d = 64."""
+    d = 64
+    cfg = point_transformer_point_cat(conv_out=d, num_classes=num_classes)
+    cfg["backbone"] = dict(type="PointNet", normal_channel=False)
+    cfg["downsample"] = [dict(type="Linear", out_features=d)]
+    cfg["use_dgcnn"] = True   # route the per-point feats through downsample
+    return cfg
+
+
+def dgcnn_point_cat(num_classes: int = 10, k: int = 20) -> Dict[str, Any]:
+    """DGCNN backbone family (reid_pts_dgcnn_point-cat.py)."""
+    d = 64
+    cfg = point_transformer_point_cat(conv_out=d, num_classes=num_classes)
+    cfg["backbone"] = dict(type="dgcnn", emb_dims=1024, k=k)
+    cfg["downsample"] = [dict(type="Linear", out_features=d)]
+    cfg["use_dgcnn"] = True
+    return cfg
 
 
 def image_deit_point_cat(variant: str = "deit-tiny",

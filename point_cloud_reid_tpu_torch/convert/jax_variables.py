@@ -12,6 +12,12 @@ rewrite plus a layout change:
     sa_{i}/mlp_{j}/conv|bn           -> SA_modules.{i}.mlp_convs|mlp_bns.{j}
     fp_{i}                           -> FP_modules.{i}
     pos_mlp[2]/fc1|fc2, mlp_fc1|2    -> pos_mlp[2].0|2, mlp.0|2
+    feat/(f)stn/convK|fcK/conv       -> feat.(f)stn.convK|fcK   (PointNet)
+    feat/(f)stn/convK/bn             -> feat.(f)stn.bnK
+    feat/(f)stn/fc1|fc2/bn           -> feat.(f)stn.bn4|bn5
+    feat/conv1|2/conv, feat/conv1|2/bn -> feat.conv1|2, feat.bn1|2
+    backbone/convK/conv|bn (K <= 4)  -> backbone.convK.0, backbone.bnK (DGCNN)
+    backbone/conv5                   -> backbone.conv5.0
     <name>_head/{j}_<Type>           -> <name>_head.{j}   (match, cls, fp,
                                                           shape, vis)
     downsample/{j}_<Type>            -> downsample.{j}
@@ -62,6 +68,18 @@ _RULES = (
     (r"(^|/)mlp_fc2/", r"\1mlp/2/"),
     (r"/transform_linear/", r"/transform/0/"),
     (r"/transform_norm/", r"/transform/1/"),
+    # the inverse of the JAX converter's PointNet and DGCNN prefix rules
+    # (point_cloud_reid_tpu/convert/torch_checkpoint.py _PREFIX_RULES)
+    (r"/(stn|fstn)/conv([123])/conv/", r"/\1/conv\2/"),
+    (r"/(stn|fstn)/conv([123])/bn/", r"/\1/bn\2/"),
+    (r"/(stn|fstn)/fc1/bn/", r"/\1/bn4/"),
+    (r"/(stn|fstn)/fc2/bn/", r"/\1/bn5/"),
+    (r"/(stn|fstn)/fc([12])/conv/", r"/\1/fc\2/"),
+    (r"/feat/conv([12])/conv/", r"/feat/conv\1/"),
+    (r"/feat/conv([12])/bn/", r"/feat/bn\1/"),
+    (r"^backbone/conv([1-4])/conv/", r"backbone/conv\1/0/"),
+    (r"^backbone/conv([1-4])/bn/", r"backbone/bn\1/"),
+    (r"^backbone/conv5/", r"backbone/conv5/0/"),
 )
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
@@ -207,6 +225,18 @@ _INVERSE = (
     (r"(^|[./])mlp\.2\.", r"\1mlp_fc2/"),
     (r"(^|[./])transform\.0\.", r"\1transform_linear/"),
     (r"(^|[./])transform\.1\.", r"\1transform_norm/"),
+    # PointNet and DGCNN; a transform's convK / fcK first, so that the
+    # BatchNorms' new paths are not rewritten again
+    (r"\.(stn|fstn)\.conv([123])\.", r".\1.conv\2.conv."),
+    (r"\.(stn|fstn)\.fc([12])\.", r".\1.fc\2.conv."),
+    (r"\.(stn|fstn)\.bn([123])\.", r".\1.conv\2.bn."),
+    (r"\.(stn|fstn)\.bn4\.", r".\1.fc1.bn."),
+    (r"\.(stn|fstn)\.bn5\.", r".\1.fc2.bn."),
+    (r"\.feat\.conv([12])\.", r".feat.conv\1.conv."),
+    (r"\.feat\.bn([12])\.", r".feat.conv\1.bn."),
+    (r"^backbone\.conv([1-4])\.0\.", r"backbone.conv\1.conv."),
+    (r"^backbone\.bn([1-4])\.", r"backbone.conv\1.bn."),
+    (r"^backbone\.conv5\.0\.", r"backbone.conv5."),
 )
 
 

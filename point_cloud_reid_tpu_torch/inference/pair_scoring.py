@@ -32,9 +32,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..kernels.match_grid import (check_image_head, grid_logits,
-                                  image_grid_logits, image_pair_logits,
-                                  pair_logits)
+from ..kernels.match_grid import (check_image_head, fused_head_ok,
+                                  grid_logits, image_grid_logits,
+                                  image_pair_logits, pair_logits)
 
 
 def host(x):
@@ -186,13 +186,18 @@ def _round_up(n: int, sizes=(8, 16, 32, 64, 128, 256, 512)) -> int:
 
 
 class PairScorer:
-    """N x M match scoring on top of the flagship ReIDNet or, with
-    image_mode, of an ImageReIDNet.
+    """N x M match scoring on top of a ReIDNet or, with image_mode, of an
+    ImageReIDNet.
 
     Args:
         model: an eval-mode ReIDNet or ImageReIDNet (models.build_model).
             The frame's tensors live on its device: CUDA runs the kernels,
-            the CPU their plain versions.
+            the CPU their plain versions. A ReIDNet whose match head the
+            fused kernels compute (kernels.match_grid.fused_head_ok: the
+            xcorr_eff heads of the point-transformer, PointNet and DGCNN
+            leaves) is scored through them; any other (the concat and
+            xcorr-baseline leaves, or another attention primitive) by its
+            own match_logits_grid / match_logits, as JAX's scorer does.
         image_mode: score camera crops; no xyz anywhere. The model's match
             head must be the chain the image kernel computes
             (kernels.match_grid.check_image_head raises otherwise: nothing
@@ -204,6 +209,9 @@ class PairScorer:
         self.image_mode = image_mode
         if image_mode:
             check_image_head(model)
+        # whether frames run the fused match kernels (grid_logits and
+        # pair_logits decide with the same gate)
+        self.fused = fused_head_ok(model, image_mode)
         self.device = next(model.parameters()).device
         # the last scored frame's (padded) inputs and output: h_t, xyz_t,
         # h_d, xyz_d (xyz None in image mode), logits, and pairs ((pair_t,

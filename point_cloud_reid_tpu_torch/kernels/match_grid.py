@@ -810,12 +810,34 @@ def match_factors(model, h_t, xyz_t, h_d, xyz_d):
     return t, d, w1, w2, nhead
 
 
+def fused_head_ok(model, image_mode: bool = False) -> bool:
+    """Whether the fused kernels compute `model`'s match head: the chain
+    they hard-code, xcorr_eff over two plain linear cross stages, combine
+    'point-cat', max+avg pooling; corss_attention stages on a ReIDNet,
+    cross_lin_attn (the same chain without positions) on an ImageReIDNet
+    with image_mode. The port of the JAX scorer's _pallas_grid_ok
+    (inference/pair_scoring.py) without its backend clause: on the CPU the
+    wrappers run their plain versions. Every head it refuses is scored by
+    the model's own match_logits_grid / match_logits, as in JAX."""
+    name, stage = (("ImageReIDNet", "CrossLinAttn") if image_mode
+                   else ("ReIDNet", "CrossAttentionBlock"))
+    if type(model).__name__ != name:
+        return False
+    stages = (model.cross_stage1, model.cross_stage2)
+    return (model.match_type == "xcorr_eff"
+            and model.combine == "point-cat"
+            and model.pool_type == "both"
+            and all(type(s).__name__ == stage and s.attention == "linear"
+                    for s in stages))
+
+
 def grid_logits(model, h_t, xyz_t, h_d, xyz_d) -> torch.Tensor:
     """Factors -> fused grid kernel -> match head: (nt, nd) logits. Drop-in
-    equivalent of ReIDNet.match_logits_grid for the flagship head. The
-    kernel hard-codes plain linear attention: a model whose cross stages
-    use another primitive is scored by match_logits_grid itself."""
-    if model.cross_stage1.attention != "linear":
+    equivalent of ReIDNet.match_logits_grid for the heads fused_head_ok
+    accepts; any other head (another match type, another attention
+    primitive) is scored by match_logits_grid itself and launches no match
+    kernel."""
+    if not fused_head_ok(model):
         return model.match_logits_grid(h_t, xyz_t, h_d, xyz_d)
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_grid(t, d, w1, w2, nhead)
@@ -825,10 +847,13 @@ def grid_logits(model, h_t, xyz_t, h_d, xyz_d) -> torch.Tensor:
 
 def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
     """Gated sparse scoring: (P,) logits of the listed (track, det) pairs,
-    equal to grid_logits(...)[t_idx, d_idx]."""
-    if model.cross_stage1.attention != "linear":
-        return model.match_logits(h_t[t_idx.long()], xyz_t[t_idx.long()],
-                                  h_d[d_idx.long()], xyz_d[d_idx.long()])[0]
+    equal to grid_logits(...)[t_idx, d_idx]; a head fused_head_ok refuses
+    is scored by match_logits over the gathered pairs, as JAX's
+    xla_pair_logits."""
+    if not fused_head_ok(model):
+        t_idx, d_idx = t_idx.long(), d_idx.long()
+        return model.match_logits(h_t[t_idx], xyz_t[t_idx], h_d[d_idx],
+                                  xyz_d[d_idx])[0]
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]
@@ -836,15 +861,15 @@ def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
 
 def check_image_head(model) -> None:
     """Raise unless `model` is an ImageReIDNet whose match head is the chain
-    the kernel computes: xcorr_eff over two linear cross_lin_attn stages,
-    point-cat, max+avg pooling."""
+    the kernel computes (fused_head_ok with image_mode)."""
     if type(model).__name__ != "ImageReIDNet":
         raise TypeError(f"image scoring needs an ImageReIDNet, got "
                         f"{type(model).__name__}")
-    head = (model.match_type, model.combine, model.pool_type,
-            type(model.cross_stage1).__name__, model.cross_stage1.attention)
-    want = ("xcorr_eff", "point-cat", "both", "CrossLinAttn", "linear")
-    if head != want:
+    if not fused_head_ok(model, image_mode=True):
+        head = (model.match_type, model.combine, model.pool_type,
+                type(model.cross_stage1).__name__,
+                getattr(model.cross_stage1, "attention", None))
+        want = ("xcorr_eff", "point-cat", "both", "CrossLinAttn", "linear")
         raise NotImplementedError(
             f"the image match kernel computes {want}, this model is {head}; "
             "score it with ImageReIDNet.match_logits_grid")

@@ -137,6 +137,7 @@ class PointTransformerBackbone(nn.Module):
             FeaturePropagationSA(sa2, sa3, sa2, sa3),
         ])
         self.cov_final = Dense(sa1, conv_out)
+        self.out_channels = conv_out
 
     def forward(self, pointcloud: torch.Tensor, numpoints: Sequence[int],
                 train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:

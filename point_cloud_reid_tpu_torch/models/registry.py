@@ -1,9 +1,11 @@
 """Config dicts -> modules (port of point_cloud_reid_tpu/models/registry.py).
 
 Head configs are lists of dicts like [{'type': 'LinearRes', ...}, {'type':
-'Linear', ...}], as in the reidentifier config files. The point flagship's
-backbone and the stage types of the point and image heads are ported; the
-others raise and wait for the rest of the model zoo (M7).
+'Linear', ...}], as in the reidentifier config files. The point backbones of
+the registered leaves (point-transformer, PointNet, DGCNN) and the stage
+types of the point and image heads are ported; VNDGCNN, the
+local_self_attention and loftr stages and the PostRes / Res1d head layers
+raise and wait for the rest of the model zoo (M7).
 """
 from __future__ import annotations
 
@@ -15,9 +17,11 @@ import torch.nn as nn
 from ..utils.cache import cast
 from .attention_blocks import (CrossAttentionBlock, CrossLinAttn,
                                SelfAttentionBlock)
+from .dgcnn import DGCNNBackbone
 from .layers import (BatchNorm, Dense, GroupNorm, LayerNorm, LinearRes,
                      add_bias, group_norm)
 from .point_transformer import PointTransformerBackbone
+from .pointnet import PointNetBackbone
 
 Spec = Dict[str, Any]
 
@@ -81,6 +85,7 @@ class SequentialHead(nn.ModuleList):
                 raise NotImplementedError(f"SequentialHead type {t}")
         super().__init__(layers)
         self.types = [spec["type"] for spec in specs]
+        self.out_width = width
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for layer in self:
@@ -93,8 +98,11 @@ class SequentialHead(nn.ModuleList):
         return x
 
 
-def build_backbone(cfg: Spec, knn_method: str = "argsort"
-                   ) -> PointTransformerBackbone:
+def build_backbone(cfg: Spec, knn_method: str = "argsort") -> nn.Module:
+    """Backbone factory. Every backbone has `out_channels`, the width of
+    its per-point features. knn_method reaches the point-transformer's SA
+    stages alone: DGCNN's kNN in feature space is a stable sort, as JAX's
+    lax.top_k."""
     t = cfg["type"]
     if t in ("Pointnet_Backbone", "point_transformer"):
         for knob in ("fused_train", "remat_stages"):
@@ -107,6 +115,12 @@ def build_backbone(cfg: Spec, knn_method: str = "argsort"
             conv_out=cfg.get("conv_out", 32), mul=cfg.get("mul", 1),
             nsample=tuple(cfg.get("nsample", (32, 48, 48))),
             knn_method=knn_method)
+    if t in ("PointNet", "pointnet"):
+        return PointNetBackbone(
+            channel=6 if cfg.get("normal_channel", True) else 3)
+    if t in ("dgcnn", "DGCNN"):
+        return DGCNNBackbone(emb_dims=cfg.get("emb_dims", 1024),
+                             k=cfg.get("k", 20))
     raise NotImplementedError(f"backbone type {t} is not ported yet (M7)")
 
 

@@ -1,9 +1,9 @@
 """Point-set ops on the tracker's path.
 
-Port of the parts of point_cloud_reid_tpu/ops/geometry.py the flagship
-embedding uses: squared distances, stable-argsort kNN, RANDOM (first-n) and
-FPS (farthest point) centre sampling, the gather, and the SA stage's conv1
-factors. The JAX
+Port of the parts of point_cloud_reid_tpu/ops/geometry.py the point models
+use: squared distances, stable-argsort kNN, RANDOM (first-n) and FPS
+(farthest point) centre sampling, the gather, the SA stage's conv1 factors,
+and DGCNN's feature-space kNN and edge features. The JAX
 package's one-hot-matmul gather is a TPU workaround; here the gather is
 torch.gather.
 """
@@ -57,6 +57,40 @@ def knn_indices(nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
     if method == "topk":
         return torch.topk(-d, nsample, dim=-1).indices
     raise ValueError(f"unknown knn method: {method}")
+
+
+def knn_feature_space(x: torch.Tensor, k: int) -> torch.Tensor:
+    """kNN in feature space on channel-first input: x (B, C, N) -> (B, N, k)
+    int64 indices, nearest first, each point its own first neighbour.
+
+    Distances are square_distance's expanded form in x's dtype, as JAX's;
+    the order is lax.top_k's (the lower index first among equal
+    distances), which a stable ascending sort gives and torch.topk does not
+    promise. Resampled crops repeat points, so exact ties are the normal
+    case."""
+    xt = x.transpose(-1, -2)
+    d = square_distance(xt, xt)
+    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+
+
+def edge_features(xt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """DGCNN's EdgeConv input on channel-last features: xt (B, N, C), idx
+    (B, N, k) -> (B, N, k, 2C) = [neighbour - centre || centre]."""
+    feature = index_points(xt, idx)
+    center = xt[:, :, None, :].expand_as(feature)
+    return torch.cat([feature - center, center], dim=-1)
+
+
+def get_graph_feature(x: torch.Tensor, k: int,
+                      idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DGCNN's edge-feature builder on channel-first input x (B, C, N):
+    (B, 2C, N, k) = [neighbour - centre || centre] over the k nearest
+    neighbours in feature space (knn_feature_space, unless idx (B, N, k) is
+    given). The JAX function's edge=False (plain gathered neighbours) has
+    no caller in either package and is not carried."""
+    if idx is None:
+        idx = knn_feature_space(x, k)
+    return edge_features(x.transpose(-1, -2), idx).permute(0, 3, 1, 2)
 
 
 def random_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:

@@ -20,8 +20,8 @@ optimizer state), as tools/train.py --bf16 trains it; --remat recomputes
 each stage's forward in the backward, as tools/train.py --remat. --experiment
 trains a leaf of configs.EXPERIMENTS with its own losses and triplet
 margin instead: a point leaf on crops of its subsample_sparse points (the
-knobs on, then off), an image (rgb_*) leaf on seeded 224 x 224 image
-pairs (its path has no hand-written kernel: one line), e.g.
+knobs it takes on, then off: model_knobs), an image (rgb_*) leaf on seeded
+224 x 224 image pairs (its path has no hand-written kernel: one line), e.g.
 `--experiment rgb_deit-tiny_point-cat_r_nus_det_4x60_200e --batch 60`.
 Needs a CUDA device. TF32 off.
 """
@@ -55,6 +55,14 @@ def flagship_train_cfg(kernels: bool) -> dict:
     return cfg
 
 
+def model_knobs(model_cfg: dict) -> list:
+    """The KNOBS a point model config takes: the cross stages' only where
+    it has them (the concat baseline has none). knn_method reaches the
+    point-transformer's SA stages alone; PointNet and DGCNN ignore it."""
+    return [k for k in KNOBS if not k.startswith("model.cross_stage")
+            or model_cfg.get(k.split(".")[1])]
+
+
 def train_spec(experiment, kernels: bool) -> dict:
     """What one profiled configuration trains: the model config, losses,
     loss weights, triplet margin and the synthetic batches' shape (points
@@ -68,7 +76,8 @@ def train_spec(experiment, kernels: bool) -> dict:
     cfg = get_experiment(experiment)
     image = cfg["model"].get("type") == "ImageReIDNet"
     if kernels and not image:
-        cfg = get_experiment(experiment, set_options=list(KNOBS))
+        cfg = get_experiment(experiment,
+                             set_options=model_knobs(cfg["model"]))
     data = cfg["dataset"]
     return dict(model=cfg["model"], losses=cfg["losses_to_use"],
                 alpha=cfg["alpha"],

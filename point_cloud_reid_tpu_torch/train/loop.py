@@ -32,9 +32,11 @@ from torch.utils.checkpoint import checkpoint
 
 from ..evaluation import evaluate_results
 from ..models.attention_blocks import CrossAttentionBlock, CrossLinAttn
+from ..models.dgcnn import EdgeConv
 from ..models.layers import frozen_statistics
 from ..models.point_transformer import (FeaturePropagationSA,
                                         SetAbstractionEdgeSA)
+from ..models.pointnet import PointNetEncoder
 from ..models.registry import SequentialHead
 from ..models.vit import Block
 from ..utils.logging import MetricLogger
@@ -71,9 +73,14 @@ def pin_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return {k: _host_tensor(v).pin_memory() for k, v in batch.items()}
 
 
-# the stages whose forward remat recomputes one at a time
+# the stages whose forward remat recomputes one at a time. None holds
+# another: a checkpoint inside a checkpointed stage makes torch's recompute
+# save tensors in another order than the forward did, and the backward
+# refuses it (seen with torch 2.13), so PointNet's transforms (STN) are
+# recomputed with their encoder
 _REMAT_STAGES = (SetAbstractionEdgeSA, FeaturePropagationSA,
-                 CrossAttentionBlock, CrossLinAttn, Block, SequentialHead)
+                 PointNetEncoder, EdgeConv, CrossAttentionBlock, CrossLinAttn,
+                 Block, SequentialHead)
 
 
 @contextlib.contextmanager
@@ -98,7 +105,8 @@ def _checkpointed_stages(model) -> Iterator[None]:
 def train_forward(model, batch: Dict[str, torch.Tensor], remat: bool = False
                   ) -> Dict[str, torch.Tensor]:
     """The model's train-mode forward; with remat, each stage (SA, FP and
-    cross stages, heads, ViT blocks) under torch.utils.checkpoint
+    cross stages, PointNet's encoder, DGCNN's EdgeConv blocks, heads, ViT
+    blocks) under torch.utils.checkpoint
     (_checkpointed_stages), so that the backward holds one stage's
     activations at a time besides the stages' outputs."""
     if not remat:

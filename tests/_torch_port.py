@@ -61,7 +61,7 @@ def jax_uniform_crops(monkeypatch):
     monkeypatch.setattr(tcrops, "_crop_uniforms", uniforms)
 
 
-# ---- training parity: one init on both sides, knobs on -----------------------
+# ---- training parity: one init on both sides, knobs on ----------------------
 
 KNOBS = dict(knn_method="pallas", attention="linear-pallas")
 # jax.jit(f).lower(*a).compile(compiler_options=NO_ALGSIMP): on this CPU
@@ -265,3 +265,88 @@ def flat_grads(grads: dict) -> np.ndarray:
     """A {leaf: gradient} dict as one vector, in key order."""
     return np.concatenate([np.asarray(v, np.float64).ravel()
                            for _, v in sorted(grads.items())])
+
+
+# ---- one train step of a leaf against JAX -----------------------------------
+
+LEAF_USE = dict(match=True, triplet=True)
+LEAF_SCHED = dict(lr=3e-4, max_epochs=2, grad_clip_norm=35.0)
+# the port in float64 against JAX's float64 step: the logs, weights and
+# running statistics, relative to max(1, |JAX|) (JAX keeps float32 pieces,
+# its learning-rate schedule among them, which show at 1e-9 in the
+# weights); the port as it trains, in float32, against the same step: the
+# losses and grad_norm (the point-transformer backbone's float32 gradient
+# norm lies 1.1e-4 from the float64 one on these crops). update_norm and
+# the weights are not compared in float32: Adam's first update is about
+# lr * sign(g), and a gradient entry that is zero but for rounding (a bias
+# in front of a BatchNorm) takes the rounding's sign.
+LEAF_STEP64_TOL = 1e-6
+LEAF_STEP32_TOL = 1e-3
+
+
+def port_step(tmodel, batch: dict, dtype, neg, remat: bool = False):
+    """One optimizer step of a copy of `tmodel` in `dtype` on a numpy
+    batch with the triplet negatives `neg`: (logs, {state-dict key: array}
+    after the step)."""
+    import copy
+    from point_cloud_reid_tpu_torch.train import (ScheduleConfig, TrainState,
+                                                  make_train_step)
+    model = copy.deepcopy(tmodel).to(dtype)
+    state = TrainState.create(model, ScheduleConfig(**LEAF_SCHED), 3)
+    step = make_train_step(model, LEAF_USE, {}, monitor=True, remat=remat)
+    tb = {k: v.to(dtype) if v.is_floating_point() else v
+          for k, v in torch_batch(batch).items()}
+    _, log = step(state, tb, None, neg)
+    return ({k: float(v) for k, v in log.items()},
+            {k: v.double().numpy() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")})
+
+
+def check_leaf_step(cfg: dict, seed: int = 30, pairs: int = 4) -> None:
+    """One step of the model `cfg` (losses match + triplet) from the port's
+    seeded init on `pairs` pairs of crops with duplicated points, against
+    the JAX package's jitted step in float64 with XLA's algebraic
+    simplifier off, the triplet negatives JAX's own draw."""
+    import copy
+    import jax
+    import jax.numpy as jnp
+    from point_cloud_reid_tpu.models import build_model as jax_build
+    from point_cloud_reid_tpu.train.loop import make_train_step as j_step
+    from point_cloud_reid_tpu.train.schedules import (
+        ScheduleConfig as JScheduleConfig, build_optimizer)
+    from point_cloud_reid_tpu.train.state import TrainState as JTrainState
+    from point_cloud_reid_tpu_torch.models import build_model
+    tmodel = build_model(copy.deepcopy(cfg),
+                         generator=torch.Generator().manual_seed(0))
+    batch = pair_batch(seed, B=pairs)
+    key = jax.random.PRNGKey(7)
+    with jax.enable_x64():
+        # the negatives JAX's step draws, drawn as it draws them (with x64)
+        neg = torch.from_numpy(jax_negatives(key, batch["id_1"],
+                                             batch["id_2"], 5))
+        jvars = jax.tree_util.tree_map(lambda a: jnp.asarray(a, np.float64),
+                                       to_jax_tree(tmodel))
+        tx = build_optimizer(JScheduleConfig(**LEAF_SCHED), 3)
+        jstate = JTrainState(params=jvars["params"],
+                             batch_stats=jvars["batch_stats"],
+                             opt_state=tx.init(jvars["params"]),
+                             step=jnp.zeros((), jnp.int32))
+        jb = jax_batch(batch, np.float64)
+        step = j_step(jax_build(copy.deepcopy(cfg), dtype=np.float64), tx,
+                      LEAF_USE, {}, donate=False, monitor=True).lower(
+            jstate, jb, key).compile(compiler_options=NO_ALGSIMP)
+        jstate, jlog = step(jstate, jb, key)
+        jlog = {k: float(v) for k, v in jlog.items()}
+        want = dict(port_flat(jstate.params), **port_flat(jstate.batch_stats))
+    log64, weights = port_step(tmodel, batch, torch.float64, neg)
+    assert set(log64) == set(jlog)
+    for k, w in jlog.items():
+        assert abs(log64[k] - w) <= LEAF_STEP64_TOL * max(1.0, abs(w)), (
+            k, log64[k], w)
+    assert set(weights) == set(want)
+    for k, w in want.items():
+        assert_close_scaled(weights[k], w, LEAF_STEP64_TOL, k)
+    log32, _ = port_step(tmodel, batch, torch.float32, neg)
+    for k in ("reid_loss", "match_loss", "triplet_loss", "grad_norm"):
+        assert abs(log32[k] - jlog[k]) <= LEAF_STEP32_TOL * max(
+            1.0, abs(jlog[k])), (k, log32[k], jlog[k])

@@ -118,7 +118,8 @@ NEW_MODULES = {
     "data.pipeline", "data.samplers", "data.import_reference", "native",
     "native.plain", "tools.test", "tools.make_synthetic_data",
     "tools.dump_val_pairs", "tools.import_reference_store",
-    "tools.profile_loader", "utils.cache", "utils.profiling"}
+    "tools.profile_loader", "utils.cache", "utils.profiling",
+    "models.pointnet", "models.dgcnn"}
 # the CUDA sources the bf16 serving path adds beside the float32 ones
 BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 

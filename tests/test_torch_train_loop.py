@@ -235,7 +235,8 @@ def test_flagship_experiment_and_overrides_match_jax():
     with pytest.raises(AttributeError):
         tcfg.get_experiment(FLAGSHIP, set_options=["schedule.nope=1"])
     with pytest.raises(KeyError, match="unknown experiment"):
-        tcfg.get_experiment("pts_pointnet_point-cat_nus_det_4x256_500e")
+        # a name neither package registers
+        tcfg.get_experiment("pts_no-such-net_point-cat_nus_det_4x256_500e")
 
 
 # ---- eval step ---------------------------------------------------------------
