@@ -139,6 +139,25 @@ Phases, each of which raises on failure:
      same crops (BF16_LOGIT_TOL); each baseline
      frame's logits against match_logits on all its pairs (MATCH_TOL); the
      grid kernel's and the embed's ms on the dense frames' inputs.
+ 13. the tracker-era zoo (configs/zoo.py, the JAX CLIs' --set heads and
+     backbones), with every count at 0: xcorr with its local stages on the
+     linear-attention kernel, ReIDNetCosine, LoFTR ('full'), VN-DGCNN and
+     the 'add' combine at full width, float32 (xcorr and cosine at bf16
+     too), behind TrackingManager.step over TRACKER_ZOO_FRAMES frames of
+     the serving scene, sparse ('auto') and dense ('never', the 128 x 128
+     grid; xcorr's in chunks of pairs): step ms, the last frame's device
+     ms under the profiler, peak GiB and launches, where the match kernels
+     (rows 2-4) take VN-DGCNN's head alone (fused_head_ok, as JAX's
+     _pallas_grid_ok) and read 0 for the rest; one train step of 256 pairs
+     of each with the knobs on (step ms, peak GiB, loss against the knobs
+     off to TRAIN_TOL); tools/track.py serving xcorr and cosine through
+     --set. Then the checks: each float32 frame's logits against the
+     model's own plain scoring (MATCH_TOL), each bf16 frame's against the
+     float32 port's (BF16_LOGIT_TOL; BF16_XCORR_LOGIT_TOL for the xcorr
+     head), and the attention kernel at the local
+     stages' shape (one query, 32 keys; LOCAL_ATTN_ROWS rows) against its
+     plain version, forward and gradients (ATTN_TOL), with its times and
+     bound: the kernels line's row `linear_attention/one_query`.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -276,6 +295,28 @@ BASELINES = {
     "xcorr-baseline": "pts_point-transformer_baseline-stnet_nus_det_4x256_500e"}
 ZOO_ABLATION = "pts_pointnet_point-cat_waymo_det_4x256_400e_2048pts"
 ZOO_FRAMES, ZOO_TRAIN_STEPS = 4, 3
+# phase 13, the tracker-era zoo (point_cloud_reid_tpu_torch/configs/zoo.py):
+# the heads and backbones the JAX CLIs reach through --set, at full width.
+# 'xcorr-pallas' runs its local stages on the linear-attention kernel (one
+# query and 32 keys a point); its training twin is 'xcorr' with the knobs
+TRACKER_ZOO = ("xcorr-pallas", "cosine", "loftr", "vn_dgcnn", "add")
+TRACKER_ZOO_BF16 = ("xcorr-pallas", "cosine")
+TRACKER_ZOO_CLI = ("xcorr-pallas", "cosine")
+TRACKER_ZOO_FRAMES = 3
+# the pairs of a dense frame held against one batch of match_logits
+TRACKER_ZOO_CHECK_PAIRS = 256
+# the local stages' shape of the linear-attention kernel, (rows, keys) at
+# one query a row and d_model 64 in two heads: 256 pairs of 128-point crops
+# (a train step, and a chunk of a dense frame) and all 16,384 pairs of a
+# 128 x 128 dense frame at once
+LOCAL_ATTN_ROWS, LOCAL_ATTN_KEYS = (256 * 128, 16384 * 128), 32
+# the xcorr head's bf16 frames against the float32 port's: its local stages
+# pick neighbours by bf16 feature distances, and the JAX package's own bf16
+# logits of the head lie 0.053 from its float32 ones on 144 pairs at full
+# width (`python -m tests._torch_zoo_bf16_gap`), against 0.030 for the
+# flagship's head (BF16_LOGIT_TOL); a 128 x 128 frame takes the max over
+# 16,384 pairs
+BF16_XCORR_LOGIT_TOL = 1e-1
 
 
 def nbytes(*tensors) -> int:
@@ -755,6 +796,9 @@ def all_counters() -> dict:
                 fused_image_match_pairs=mg.fused_image_match_pairs,
                 fps=kf.fps,
                 **{"knn/scan": TierCount(kk.knn, ("shared", "global")),
+                   "linear_attention/one_query": TierCount(
+                       la.linear_attention_forward, ("one_query",),
+                       "shape_launches"),
                    "fused_match_grid/rows": TierCount(mg.fused_match_grid,
                                                       ("rows",)),
                    "fused_match_pairs/rows": TierCount(mg.fused_match_pairs,
@@ -2440,9 +2484,10 @@ def phase_bf16_kernels(model, image, scaled, ablation):
     return rows
 
 
-def bf16_point_gap(model32, rec, label: str) -> float:
+def bf16_point_gap(model32, rec, label: str,
+                   tol: float = BF16_LOGIT_TOL) -> float:
     """A bf16 point frame's logits against the float32 port's on the same
-    crops (a frame's xyz are its crops)."""
+    crops (a frame's xyz are its crops), to `tol`."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     with torch.no_grad():
@@ -2453,7 +2498,7 @@ def bf16_point_gap(model32, rec, label: str) -> float:
         else:
             want = mg.pair_logits(model32, h_t, xyz_t, h_d, xyz_d,
                                   *rec["pairs"])
-    return bf16_logit_gap(rec["logits"], want, label)
+    return bf16_logit_gap(rec["logits"], want, label, tol)
 
 
 def bf16_image_gap(image16, image32, frame, label: str) -> float:
@@ -2478,16 +2523,17 @@ def bf16_image_gap(image16, image32, frame, label: str) -> float:
     return bf16_logit_gap(got, want, label)
 
 
-def bf16_logit_gap(got, want, label: str) -> float:
+def bf16_logit_gap(got, want, label: str,
+                   tol: float = BF16_LOGIT_TOL) -> float:
     import torch
     if got.dtype != torch.bfloat16 or want.dtype != torch.float32:
         raise RuntimeError(f"{label}: logits {got.dtype}, float32 port's "
                            f"{want.dtype}")
     err, rel = rel_err(got.float(), want)
     print(f"[bf16:{label}] logits vs the float32 port on the same crops: "
-          f"max_abs_err={err:.4f} rel={rel:.4f} (bar {BF16_LOGIT_TOL}; "
+          f"max_abs_err={err:.4f} rel={rel:.4f} (bar {tol}; "
           f"|logits| up to {want.abs().max().item():.3f})", flush=True)
-    if not rel <= BF16_LOGIT_TOL:
+    if not rel <= tol:
         raise RuntimeError(f"{label}: bf16 logits {rel} from float32")
     return rel
 
@@ -3051,6 +3097,344 @@ def phase_zoo(card: str):
     return launches, summary
 
 
+def tracker_zoo_model(name: str, dtype):
+    """A zoo config (configs/zoo.py: a leaf and its --set list) at full
+    width with seeded weights."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.configs.zoo import ZOO as TRACKER
+    from point_cloud_reid_tpu_torch.models import build_model
+    leaf, sets = TRACKER[name]
+    return build_model(get_experiment(leaf, set_options=sets)["model"],
+                       device=DEVICE, dtype=dtype,
+                       generator=torch.Generator().manual_seed(SEED))
+
+
+def tracker_zoo_serve(model, sparse: str, label: str, card: str,
+                      every: dict) -> dict:
+    """TRACKER_ZOO_FRAMES frames of the serving scene behind
+    TrackingManager.step, the last one under torch.profiler: step ms,
+    device ms and busy share of the profiled frame, peak memory, the
+    kernels' launches, the scorer (which holds the last frame)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.tools.profile_tracker import _busy_us
+    from point_cloud_reid_tpu_torch.tools.scenes import bench_scene
+    from point_cloud_reid_tpu_torch.tracking import TrackingManager
+    before = {k: fn.launches for k, fn in every.items()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scorer = PairScorer(model)
+    mgr = TrackingManager(scorer, subsample_number=128, match_threshold=1.0,
+                          seed=SEED, sparse_scoring=sparse)
+    frames = list(bench_scene(N_OBJ, PTS_PER_OBJ, TRACKER_ZOO_FRAMES, SEED))
+    times = []
+
+    def step(frame):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.step(*frame)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+
+    for frame in frames[:-1]:
+        step(frame)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(frames[-1])
+        window_us = (time.perf_counter() - t0) * 1e6
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_tracker_zoo.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    os.remove(trace)
+    spans = [(ev["ts"], ev["dur"]) for ev in events
+             if ev.get("cat") == "kernel"]
+    if not spans:
+        raise RuntimeError(f"{label}: the profiler recorded no device kernels")
+    rec = scorer.last_frame
+    if not bool(torch.isfinite(rec["logits"]).all()):
+        raise RuntimeError(f"{label}: non-finite logits")
+    used = {k: fn.launches - before[k] for k, fn in every.items()}
+    out = dict(step_ms=times, device_ms=sum(d for _, d in spans) / 1e3,
+               busy=_busy_us(spans) / window_us,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               fused=scorer.fused, pairs=None if rec["pairs"] is None
+               else int(rec["pairs"][0].shape[0]),
+               grid=tuple(rec["logits"].shape),
+               launches={k: v for k, v in used.items() if v})
+    print(f"[tracker_zoo] {label}: {len(mgr.store.active())} active tracks, "
+          f"logits {out['grid']}; steps {[round(x, 1) for x in times]} ms, "
+          f"the last frame {out['device_ms']:.2f} device ms (busy "
+          f"{100 * out['busy']:.1f} %), peak {out['peak_gib']:.2f} GiB; "
+          f"launches {out['launches']} on {card}", flush=True)
+    return dict(out, scorer=scorer)
+
+
+def tracker_zoo_rows_used(launches: dict) -> int:
+    """Launches of the match kernels (kernel rows 2-4) in a launch dict."""
+    return sum(v for k, v in launches.items()
+               if k.startswith(("fused_match_", "fused_image_match_")))
+
+
+def tracker_zoo_check(model, model32, rec, label: str) -> dict:
+    """A frame's logits against the model's own plain scoring on the same
+    crops: a fused head's against match_logits_grid / match_logits on the
+    card (MATCH_TOL); any other head's (the frame then ran the model's own
+    chunked scoring) against one unchunked batch of match_logits over the
+    frame's listed pairs, or TRACKER_ZOO_CHECK_PAIRS pairs of a dense grid;
+    a bf16 frame's against the float32 port's (BF16_LOGIT_TOL)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    if model.dtype == torch.bfloat16:
+        return dict(logit_gap=bf16_point_gap(
+            model32, rec, label, BF16_XCORR_LOGIT_TOL
+            if model.match_type == "xcorr" else BF16_LOGIT_TOL))
+    h_t, xyz_t, h_d, xyz_d = (rec[k] for k in ("h_t", "xyz_t", "h_d",
+                                               "xyz_d"))
+    got = rec["logits"].reshape(-1)
+    with torch.no_grad():
+        if mg.fused_head_ok(model):
+            want = model_plain_logits(model, rec).reshape(-1)
+        else:
+            if rec["pairs"] is None:
+                nt, nd = rec["logits"].shape
+                gen = torch.Generator().manual_seed(SEED + 13)
+                pick = torch.randperm(nt * nd, generator=gen)[
+                    :TRACKER_ZOO_CHECK_PAIRS].to(DEVICE)
+                ti, di = pick // nd, pick % nd
+                got = got[pick]
+            else:
+                ti, di = (p.long() for p in rec["pairs"])
+            want = model.match_logits(h_t[ti], xyz_t[ti], h_d[di],
+                                      xyz_d[di])[0]
+    err, rel = rel_err(got, want)
+    print(f"[tracker_zoo:{label}] {got.numel()} logits against the model's "
+          f"plain scoring: max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{MATCH_TOL:g})", flush=True)
+    if not rel <= MATCH_TOL:
+        raise RuntimeError(f"{label}: off plain scoring ({rel})")
+    return dict(max_abs_err=err, rel_err=rel)
+
+
+def tracker_zoo_train(card: str, name: str, every: dict) -> dict:
+    """One step of 256 pairs with the kernel knobs on (profile_train.
+    model_knobs: kNN, and the cross and local stages' attention where
+    'linear-pallas' names the kernel), step ms and peak memory, and its
+    loss against the same step with the knobs off."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs.zoo import ZOO as TRACKER
+    from point_cloud_reid_tpu_torch.tools.profile_train import (
+        train_setup, train_spec)
+    leaf, sets = TRACKER["xcorr" if name == "xcorr-pallas" else name]
+    logs, out = {}, {}
+    for kernels in (True, False):
+        before = {k: fn.launches for k, fn in every.items()}
+        run = train_setup(train_spec(leaf, kernels, sets),
+                          torch.device(DEVICE), TRAIN_PAIRS, 1)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, log = run["step"](run["state"], run["batches"][0],
+                             run["generator"])
+        logs[kernels] = {k: float(v) for k, v in log.items()}
+        torch.cuda.synchronize()
+        if kernels:
+            used = {k: fn.launches - before[k] for k, fn in every.items()}
+            out = dict(step_ms=(time.perf_counter() - t0) * 1e3,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       launches={k: v for k, v in used.items() if v})
+        del run
+        torch.cuda.empty_cache()
+    on, off = logs[True]["reid_loss"], logs[False]["reid_loss"]
+    rel = abs(on - off) / max(1.0, abs(off))
+    out.update(loss=on, loss_knobs_off=off, rel=rel,
+               grad_norm=logs[True]["grad_norm"])
+    print(f"[tracker_zoo:train] {name}, {TRAIN_PAIRS} pairs, knobs on: step "
+          f"{out['step_ms']:.1f} ms (cold), peak {out['peak_gib']:.2f} GiB, "
+          f"loss {on:.6f} against {off:.6f} knobs off (rel {rel:.2e}, tol "
+          f"{TRAIN_TOL:g}); launches {out['launches']} on {card}",
+          flush=True)
+    want_attn = name in ("xcorr-pallas", "vn_dgcnn", "add")
+    if not (all(np.isfinite(v) for v in logs[True].values())
+            and rel <= TRAIN_TOL
+            and (out["launches"].get("linear_attention", 0) > 0)
+            == want_attn):
+        raise RuntimeError(f"{name} training: {logs}, {out['launches']}")
+    if name == "xcorr-pallas" and not out["launches"].get(
+            "linear_attention/one_query"):
+        raise RuntimeError("xcorr training ran its local stages off the "
+                           "kernel")
+    return out
+
+
+def tracker_zoo_cli(card: str, name: str, every: dict) -> dict:
+    """tools/track.py serves a zoo config through --set over a small
+    synthetic scene. Returns its headline and launches."""
+    import contextlib
+    import io
+    import shutil
+    from point_cloud_reid_tpu_torch.configs.zoo import ZOO as TRACKER
+    from point_cloud_reid_tpu_torch.tools import track
+    leaf, sets = TRACKER[name]
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_tracker_zoo")
+    shutil.rmtree(work, ignore_errors=True)
+    before = {k: fn.launches for k, fn in every.items()}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        track.main([leaf, "--scenes", "1", "--frames", "4", "--objects",
+                    "16", "--match-threshold", "1.0", "--work-dir", work]
+                   + [a for s in sets for a in ("--set", s)])
+    headline = json.loads(out.getvalue().strip().splitlines()[-1])
+    used = {k: fn.launches - before[k] for k, fn in every.items()}
+    used = {k: v for k, v in used.items() if v}
+    print(f"[tracker_zoo:cli] tools/track.py {leaf} ({name} through --set): "
+          f"launches {used}; headline {json.dumps(headline)} on {card}",
+          flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    if headline.get("frames") != 4 or not used.get("fused_sa_convmax") or (
+            name == "xcorr-pallas"
+            and not used.get("linear_attention/one_query")):
+        raise RuntimeError(f"tools/track.py {name}: {headline}, {used}")
+    return dict(headline=headline, launches=used)
+
+
+def local_attention_row(card: str) -> dict:
+    """The linear-attention kernel at the local stages' shape (one query,
+    LOCAL_ATTN_KEYS keys a row, two heads of 32) against its plain
+    version: forward and gradients at the first row count, forward at the
+    second (the plain version there in chunks of the first's rows, its
+    times summed). Returns the kernels-line row (launches from the
+    phase's path)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    H, D, S = 2, 32, LOCAL_ATTN_KEYS
+    shapes, err_max = [], 0.0
+    for R in LOCAL_ATTN_ROWS:
+        q = torch.randn((R, 1, H, D), generator=gen, device=DEVICE)
+        k = torch.randn((R, S, H, D), generator=gen, device=DEVICE)
+        v = torch.randn((R, S, H, D), generator=gen, device=DEVICE)
+        chunk = LOCAL_ATTN_ROWS[0]
+        g_rel = None
+        if R == chunk:
+            q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+            got = la.fused_linear_attention(q, k, v)
+            want = la.linear_attention_reference(q, k, v)
+            go = torch.randn(got.shape, generator=gen, device=DEVICE)
+            g_got = torch.autograd.grad(got, (q, k, v), go)
+            g_want = torch.autograd.grad(want, (q, k, v), go)
+            g_rel = max(rel_err(a, b)[1] for a, b in zip(g_got, g_want))
+            got, want = got.detach(), want.detach()
+            q, k, v = (t.detach() for t in (q, k, v))
+            del g_got, g_want, go
+        with torch.no_grad():
+            if R != chunk:
+                got = la.linear_attention_forward(q, k, v)
+                want = torch.cat([la.linear_attention_reference(
+                    q[a:a + chunk], k[a:a + chunk], v[a:a + chunk])
+                    for a in range(0, R, chunk)])
+            err, rel = rel_err(got, want)
+            iters = 20 if R == chunk else 3
+            ms = time_ms(lambda: la.linear_attention_forward(q, k, v), iters)
+            device = graph_ms(lambda: la.linear_attention_forward(q, k, v),
+                              iters)
+            plain = sum(time_ms(lambda: la.linear_attention_reference(
+                q[a:a + chunk], k[a:a + chunk], v[a:a + chunk]), 3)
+                for a in range(0, R, chunk))
+        flops = R * H * (2.0 * S * D * D + 2.0 * D * D + 2.0 * D + S * D)
+        b_ms, b_by = bound_ms(flops, nbytes(q, k, v, got))
+        print(f"[tracker_zoo:linear_attention] rows={R} L=1 S={S} H={H} "
+              f"D={D}: max_abs_err={err:.3e} rel={rel:.3e}, gradients rel="
+              f"{g_rel if g_rel is None else format(g_rel, '.3e')} (tol "
+              f"{ATTN_TOL:g}); kernel {ms:.4f} ms (device {device:.4f}), "
+              f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) on {card}",
+              flush=True)
+        if not (rel <= ATTN_TOL and (g_rel is None or g_rel <= ATTN_TOL)):
+            raise RuntimeError(f"linear_attention at one query disagrees: "
+                               f"{rel}, {g_rel}")
+        err_max = max(err_max, err)
+        shapes.append(dict(rows=R, L=1, S=S, H=H, D=D, V=D, max_abs_err=err,
+                           grad_rel=g_rel, ms=ms, device_ms=device,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    first = shapes[0]
+    return dict(name="linear_attention/one_query", route="cuda",
+                source="point_cloud_reid_tpu_torch/csrc/linear_attention.cu",
+                replaces="point_cloud_reid_tpu/ops/pallas/linear_attention.py"
+                         ":107",
+                max_abs_err=err_max, ms=first["ms"],
+                device_ms=first["device_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                library_ms=None, shapes=shapes)
+
+
+def phase_tracker_zoo(card: str):
+    """Phase 13: the tracker-era zoo. Returns (the path's launches, the
+    kernels-line row of the attention kernel's local shape, a summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    every = zero_counters()
+    summary = dict(frames={}, train={}, cli={})
+    records = []
+    models32 = {}
+    for name in TRACKER_ZOO:
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if name in TRACKER_ZOO_BF16 else (torch.float32,)):
+            model = tracker_zoo_model(name, dtype)
+            if dtype == torch.float32:
+                models32[name] = model
+            kind = "bf16" if dtype == torch.bfloat16 else "float32"
+            for sparse, mode in (("auto", "sparse"), ("never", "dense")):
+                label = f"{name} {kind} {mode}"
+                got = tracker_zoo_serve(model, sparse, label, card, every)
+                scorer = got.pop("scorer")
+                # the match kernels take vn_dgcnn's head alone, as JAX's
+                # _pallas_grid_ok; rows 2-4 read 0 for every other head
+                rows24 = tracker_zoo_rows_used(got["launches"])
+                if scorer.fused != (name == "vn_dgcnn") or (
+                        (rows24 > 0) != scorer.fused) or (
+                        name != "vn_dgcnn"
+                        and not got["launches"].get("fused_sa_convmax", 0)
+                        + got["launches"].get("fused_sa_convmax/bf16", 0)):
+                    raise RuntimeError(f"{label}: gate {scorer.fused}, "
+                                       f"launches {got['launches']}")
+                if name == "xcorr-pallas" and not got["launches"].get(
+                        "linear_attention/one_query"):
+                    raise RuntimeError(f"{label}: the local stages ran off "
+                                       "the kernel")
+                got["match_kernel_launches"] = rows24
+                summary["frames"][label] = got
+                records.append((label, name, model, scorer.last_frame))
+            if dtype == torch.bfloat16:
+                del model
+    for name in TRACKER_ZOO:
+        summary["train"][name] = tracker_zoo_train(card, name, every)
+    for name in TRACKER_ZOO_CLI:
+        summary["cli"][name] = tracker_zoo_cli(card, name, every)
+    launches = {name: fn.launches for name, fn in every.items()}
+    # the comparisons, after the launches were read
+    for label, name, model, rec in records:
+        summary["frames"][label].update(tracker_zoo_check(
+            model, models32[name], rec, label))
+    records.clear()
+    models32.clear()
+    torch.cuda.empty_cache()
+    row = local_attention_row(card)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[tracker_zoo] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase took "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return launches, [row], summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -3085,18 +3469,23 @@ def main():
     bf16_training, bf16_training_summary = phase_bf16_training(card)
     torch.cuda.empty_cache()
     zoo, zoo_summary = phase_zoo(card)
+    torch.cuda.empty_cache()
+    tracker_zoo, tracker_zoo_rows, tracker_zoo_summary = phase_tracker_zoo(
+        card)
+    rows += tracker_zoo_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path, family, bf16_path, bf16_training, zoo))
+            data_path, family, bf16_path, bf16_training, zoo, tracker_zoo))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
     print(json.dumps({"kernels": rows, "data_path": data_summary,
                       "family": family_summary, "bf16": bf16_summary,
                       "bf16_training": bf16_training_summary,
-                      "zoo": zoo_summary}))
+                      "zoo": zoo_summary,
+                      "tracker_zoo": tracker_zoo_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

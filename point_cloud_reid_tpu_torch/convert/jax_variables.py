@@ -17,11 +17,19 @@ rewrite plus a layout change:
     feat/(f)stn/fc1|fc2/bn           -> feat.(f)stn.bn4|bn5
     feat/conv1|2/conv, feat/conv1|2/bn -> feat.conv1|2, feat.bn1|2
     backbone/convK/conv|bn (K <= 4)  -> backbone.convK.0, backbone.bnK (DGCNN)
-    backbone/conv5                   -> backbone.conv5.0
+    backbone/conv5 (DGCNN's Dense)   -> backbone.conv5.0
+    pos_mlp_knn/fc1|fc2, mlp_knn_fc1|2 -> pos_mlp_knn.0|2, mlp_knn.0|2
+                                        (local self-attention)
+    <stage>/loftr/layers_{i}/mlp_0|2 -> <stage>.loftr.layers.{i}.mlp.0|2
+    downsample_conv|downsample_norm  -> downsample.0|1   (PostRes, Res1d)
+    hgate_node_0, hgate_edge_0,
+    poolingLayer_0                   -> hgate_node.0, ...   (gated pooling)
+    (the vector-neuron layers' names are the same on both sides)
     <name>_head/{j}_<Type>           -> <name>_head.{j}   (match, cls, fp,
                                                           shape, vis)
     downsample/{j}_<Type>            -> downsample.{j}
     Conv kernel (k, in, out)         -> Conv1d weight (out, in, k)
+    Conv kernel (h, w, in, out)      -> Conv2d weight (out, in, h, w)
     transform_linear|transform_norm  -> transform.0|1
 
 and for the image model's ViT (the rules above cover its Dense and
@@ -62,10 +70,15 @@ _RULES = (
     (r"^backbone/block_(\d+)/", r"backbone/blocks/\1/"),
     (r"^((?:match|cls|fp|shape|vis)_head|downsample)/(\d+)_[A-Za-z0-9]+/",
      r"\1/\2/"),
-    (r"pos_mlp(2?)/fc1/", r"pos_mlp\1/0/"),
-    (r"pos_mlp(2?)/fc2/", r"pos_mlp\1/2/"),
-    (r"(^|/)mlp_fc1/", r"\1mlp/0/"),
-    (r"(^|/)mlp_fc2/", r"\1mlp/2/"),
+    (r"pos_mlp(2?|_knn)/fc1/", r"pos_mlp\1/0/"),
+    (r"pos_mlp(2?|_knn)/fc2/", r"pos_mlp\1/2/"),
+    (r"(^|/)mlp(_knn)?_fc1/", r"\1mlp\2/0/"),
+    (r"(^|/)mlp(_knn)?_fc2/", r"\1mlp\2/2/"),
+    (r"(^|/)loftr/layers_(\d+)/mlp_([02])/", r"\1loftr/layers/\2/mlp/\3/"),
+    (r"(^|/)loftr/layers_(\d+)/", r"\1loftr/layers/\2/"),
+    (r"/downsample_conv/", r"/downsample/0/"),
+    (r"/downsample_norm/", r"/downsample/1/"),
+    (r"(^|/)(hgate_node|hgate_edge|poolingLayer)_0/", r"\1\2/0/"),
     (r"/transform_linear/", r"/transform/0/"),
     (r"/transform_norm/", r"/transform/1/"),
     # the inverse of the JAX converter's PointNet and DGCNN prefix rules
@@ -79,7 +92,7 @@ _RULES = (
     (r"/feat/conv([12])/bn/", r"/feat/bn\1/"),
     (r"^backbone/conv([1-4])/conv/", r"backbone/conv\1/0/"),
     (r"^backbone/conv([1-4])/bn/", r"backbone/bn\1/"),
-    (r"^backbone/conv5/", r"backbone/conv5/0/"),
+    (r"^backbone/conv5/kernel$", r"backbone/conv5/0/kernel"),
 )
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "mean": "running_mean", "var": "running_var"}
@@ -219,10 +232,17 @@ _INVERSE = (
     (r"^backbone\.SA_modules\.(\d+)\.", r"backbone/sa_\1/"),
     (r"^backbone\.FP_modules\.(\d+)\.", r"backbone/fp_\1/"),
     (r"^backbone\.blocks\.(\d+)\.", r"backbone/block_\1/"),
-    (r"pos_mlp(2?)\.0\.", r"pos_mlp\1/fc1/"),
-    (r"pos_mlp(2?)\.2\.", r"pos_mlp\1/fc2/"),
-    (r"(^|[./])mlp\.0\.", r"\1mlp_fc1/"),
-    (r"(^|[./])mlp\.2\.", r"\1mlp_fc2/"),
+    (r"pos_mlp(2?|_knn)\.0\.", r"pos_mlp\1/fc1/"),
+    (r"pos_mlp(2?|_knn)\.2\.", r"pos_mlp\1/fc2/"),
+    # a LoFTR layer's FFN keeps the reference's indices; before mlp.0 / 2
+    (r"(^|\.)loftr\.layers\.(\d+)\.mlp\.([02])\.",
+     r"\1loftr.layers_\2.mlp_\3."),
+    (r"(^|\.)loftr\.layers\.(\d+)\.", r"\1loftr.layers_\2."),
+    (r"(^|[./])mlp(_knn)?\.0\.", r"\1mlp\2_fc1/"),
+    (r"(^|[./])mlp(_knn)?\.2\.", r"\1mlp\2_fc2/"),
+    (r"/downsample\.0\.", r"/downsample_conv/"),
+    (r"/downsample\.1\.", r"/downsample_norm/"),
+    (r"(^|\.)(hgate_node|hgate_edge|poolingLayer)\.0\.", r"\1\2_0/"),
     (r"(^|[./])transform\.0\.", r"\1transform_linear/"),
     (r"(^|[./])transform\.1\.", r"\1transform_norm/"),
     # PointNet and DGCNN; a transform's convK / fcK first, so that the

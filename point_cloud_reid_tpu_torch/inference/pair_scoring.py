@@ -194,10 +194,12 @@ class PairScorer:
             The frame's tensors live on its device: CUDA runs the kernels,
             the CPU their plain versions. A ReIDNet whose match head the
             fused kernels compute (kernels.match_grid.fused_head_ok: the
-            xcorr_eff heads of the point-transformer, PointNet and DGCNN
-            leaves) is scored through them; any other (the concat and
-            xcorr-baseline leaves, or another attention primitive) by its
-            own match_logits_grid / match_logits, as JAX's scorer does.
+            xcorr_eff heads of the point-transformer, PointNet, DGCNN and
+            VN-DGCNN backbones) is scored through them; any other (the
+            concat, xcorr-baseline and xcorr heads, the other combines and
+            pools, LoFTR stages, another attention primitive,
+            ReIDNetCosine) by its own match_logits_grid /
+            match_logits_pairs, as JAX's scorer does.
         image_mode: score camera crops; no xyz anywhere. The model's match
             head must be the chain the image kernel computes
             (kernels.match_grid.check_image_head raises otherwise: nothing

@@ -35,15 +35,21 @@ def linear_attention_forward(queries: torch.Tensor, keys: torch.Tensor,
     -> (B, L, H, V). No autograd graph is recorded."""
     if queries.device.type == "cpu":
         with torch.no_grad():
-            return linear_attention_reference(queries, keys, values, eps)
+            return linear_attention_reference(queries, keys, values,
+                                              eps=eps)
     if queries.device.type != "cuda":
         raise RuntimeError(f"linear_attention: no kernel for {queries.device}")
     out = launch(queries, keys, values, eps)
     linear_attention_forward.launches += 1
+    if queries.shape[1] == 1:
+        linear_attention_forward.shape_launches["one_query"] += 1
     return out
 
 
 linear_attention_forward.launches = 0
+# launches at one query a row (the local self-attention stages' shape),
+# beside the total
+linear_attention_forward.shape_launches = {"one_query": 0}
 
 
 def launch(queries: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
@@ -93,16 +99,24 @@ class _LinearAttention(torch.autograd.Function):
     def backward(ctx, grad_out):
         q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
         with torch.enable_grad():
-            out = linear_attention_reference(q, k, v, ctx.eps)
+            out = linear_attention_reference(q, k, v, eps=ctx.eps)
         dq, dk, dv = torch.autograd.grad(
             out, (q, k, v), grad_out.to(q.dtype).contiguous())
         return dq, dk, dv, None
 
 
 def fused_linear_attention(queries: torch.Tensor, keys: torch.Tensor,
-                           values: torch.Tensor, eps: float = 1e-6
-                           ) -> torch.Tensor:
-    """Drop-in for ops.attention.linear_attention (no masks), usable in
-    training; bf16 / float16 inputs run the kernel in float32 and return
-    their dtype, and their gradients are the composite's in that dtype."""
+                           values: torch.Tensor,
+                           q_mask: Optional[torch.Tensor] = None,
+                           kv_mask: Optional[torch.Tensor] = None,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """Drop-in for ops.attention.linear_attention, usable in training;
+    bf16 / float16 inputs run the kernel in float32 and return their
+    dtype, and their gradients are the composite's in that dtype. The
+    kernel takes no masks: with a mask the composite runs, as the JAX
+    package's 'linear-pallas' attention falls back
+    (models/attention_blocks._attn_fn)."""
+    if q_mask is not None or kv_mask is not None:
+        return linear_attention_reference(queries, keys, values, q_mask,
+                                          kv_mask, eps)
     return _LinearAttention.apply(queries, keys, values, eps)

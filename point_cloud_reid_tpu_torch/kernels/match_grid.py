@@ -849,11 +849,9 @@ def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
     """Gated sparse scoring: (P,) logits of the listed (track, det) pairs,
     equal to grid_logits(...)[t_idx, d_idx]; a head fused_head_ok refuses
     is scored by match_logits over the gathered pairs, as JAX's
-    xla_pair_logits."""
+    xla_pair_logits (in chunks: ReIDNet.match_logits_pairs)."""
     if not fused_head_ok(model):
-        t_idx, d_idx = t_idx.long(), d_idx.long()
-        return model.match_logits(h_t[t_idx], xyz_t[t_idx], h_d[d_idx],
-                                  xyz_d[d_idx])[0]
+        return model.match_logits_pairs(h_t, xyz_t, h_d, xyz_d, t_idx, d_idx)
     t, d, w1, w2, nhead = match_factors(model, h_t, xyz_t, h_d, xyz_d)
     pooled = fused_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]

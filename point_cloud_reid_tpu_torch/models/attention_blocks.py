@@ -1,12 +1,14 @@
-"""Attention blocks of the flagship model (port of models/attention_blocks.py).
+"""Attention blocks of the ReID models (port of models/attention_blocks.py).
 
   SelfAttentionBlock   <- Self_Attention        (pointnet2_utils.py:55-114)
   CrossAttentionBlock  <- corss_attention [sic] (attention.py:157-219)
+  LocalSelfAttention   <- local_self_attention  (attention.py:221-296)
   CrossLinAttn         <- cross_lin_attn        (attention.py:312-370)
   FPSA                 <- FP_SA                 (pointnet2_utils.py:362-437)
 
 Attribute names are the reference state-dict names (pos_mlp.{0,2},
-q_proj, k_proj, v_proj, merge, mlp.{0,2}, norm1, norm2).
+q_proj, k_proj, v_proj, merge, mlp.{0,2}, norm1, norm2; the local block's
+carry the suffix _knn).
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.attention import elu_feature_map, linear_attention
+from ..ops.attention import (elu_feature_map, full_attention,
+                             linear_attention)
+from ..ops.geometry import index_points, knn_feature_space
 from .layers import Dense, LayerNorm, pos_mlp
 
 
@@ -23,19 +27,15 @@ def _attn_fn(kind: str):
     """The attention primitive of a config string: 'linear' is the plain
     composite; 'linear-pallas' (the JAX package's name for its fused kernel,
     kept so one config drives both packages) is the hand-written CUDA kernel
-    of kernels/linear_attention.py. No block of the point path passes masks;
-    nor does the image head's; they and 'full' (softmax attention) come
-    with the models that use them."""
+    of kernels/linear_attention.py, which runs the composite when masks are
+    given; every other string is softmax attention ('full'), as the JAX
+    dispatch's catch-all."""
     if kind == "linear":
         return linear_attention
     if kind == "linear-pallas":
         from ..kernels.linear_attention import fused_linear_attention
         return fused_linear_attention
-    if kind == "full":
-        raise NotImplementedError(
-            "attention 'full' (softmax) is not ported yet: it comes with "
-            "the rest of the model zoo (M7)")
-    raise ValueError(f"unknown attention {kind!r}")
+    return full_attention
 
 
 def _split_heads(x: torch.Tensor, nhead: int) -> torch.Tensor:
@@ -94,7 +94,7 @@ class _CrossDecomposable(nn.Module):
                  attention: str = "linear", with_pos: bool = False):
         super().__init__()
         d = d_model
-        self.nhead = nhead
+        self.d_model, self.nhead = d, nhead
         self.attention = attention
         self.attn = _attn_fn(attention)
         if with_pos:     # first, so a seeded init draws in the same order
@@ -184,6 +184,54 @@ class CrossLinAttn(_CrossDecomposable):
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         """KV (B, H, D, V) with the 1/S value pre-scale, Ksum (B, H, D)."""
         return self._summary(template_feat, template_feat)
+
+
+class LocalSelfAttention(nn.Module):
+    """Attention of each point over its knum nearest neighbours in feature
+    space (the 'xcorr' match type's local stages): (B, N, d) features and
+    xyz -> (B, N, d), as B * N problems of one query and knum keys. The
+    neighbours are knn_feature_space's (the lower index first among equal
+    distances); the pos-MLP is added to the centre and to each
+    neighbour."""
+
+    def __init__(self, d_model: int, nhead: int = 2, knum: int = 32,
+                 pos_size: Optional[int] = None, attention: str = "linear"):
+        super().__init__()
+        if pos_size is not None and pos_size != d_model:
+            raise ValueError(
+                f"local_self_attention pos_size={pos_size} must equal "
+                f"d_model={d_model}: the positional encoding is added to the "
+                "features (reference attention.py:62-63)")
+        d = d_model
+        self.d_model, self.nhead, self.knum = d, nhead, knum
+        self.attention = attention
+        self.attn = _attn_fn(attention)
+        self.pos_mlp_knn = pos_mlp(d)
+        self.q_proj_knn = Dense(d, d, bias=False)
+        self.k_proj_knn = Dense(d, d, bias=False)
+        self.v_proj_knn = Dense(d, d, bias=False)
+        self.merge_knn = Dense(d, d, bias=False)
+        self.mlp_knn = _ffn_mlp(2 * d, 2 * d, d)
+        self.norm1_knn = LayerNorm(d, eps=1e-5)
+        self.norm2_knn = LayerNorm(d, eps=1e-5)
+
+    def forward(self, search_feat: torch.Tensor, search_xyz: torch.Tensor
+                ) -> torch.Tensor:
+        B, N, C = search_feat.shape
+        k, d = self.knum, self.d_model
+        kidx = knn_feature_space(search_feat.transpose(-1, -2), k)
+        fea_knn = index_points(search_feat, kidx)               # (B, N, k, C)
+        xyz_knn = index_points(search_xyz, kidx)                # (B, N, k, 3)
+        center = search_feat + self.pos_mlp_knn(search_xyz)
+        neigh = fea_knn + self.pos_mlp_knn(xyz_knn)
+        q = self.q_proj_knn(center).reshape(B * N, 1, self.nhead, -1)
+        kk = self.k_proj_knn(neigh).reshape(B * N, k, self.nhead, -1)
+        vv = self.v_proj_knn(neigh).reshape(B * N, k, self.nhead, -1)
+        msg = self.attn(q, kk, vv).reshape(B * N, 1, d)
+        msg = self.norm1_knn(self.merge_knn(msg))
+        center_flat = search_feat.reshape(B * N, 1, C)
+        msg = self.norm2_knn(self.mlp_knn(torch.cat([center_flat, msg], -1)))
+        return (center_flat + msg).reshape(B, N, d)
 
 
 class FPSA(nn.Module):

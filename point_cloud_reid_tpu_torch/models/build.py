@@ -1,7 +1,7 @@
 """Model factory: config dict -> eval-mode nn.Module on a device.
 
-Port of point_cloud_reid_tpu/models/build.py for the types 'ReIDNet' (points)
-and 'ImageReIDNet' (camera crops). Weights
+Port of point_cloud_reid_tpu/models/build.py for the types 'ReIDNet' and
+'ReIDNetCosine' (points) and 'ImageReIDNet' (camera crops). Weights
 are drawn from an explicit torch.Generator on the CPU and then moved, so a
 seed gives the same model on every device.
 """
@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 
 from .image_reid import ImageReIDNet
-from .reid_net import ReIDNet
+from .reid_net import ReIDNet, ReIDNetCosine
 from .vit import ViT
 
 
@@ -35,7 +35,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                            dtype=t.dtype)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.copy_(uniform(m.weight, -bound, bound))
             if m.bias is not None:
@@ -53,7 +53,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 m.running_var.copy_(uniform(m.running_var, 0.5, 1.5))
 
 
-_TYPES = {"ReIDNet": ReIDNet, "ImageReIDNet": ImageReIDNet}
+_TYPES = {"ReIDNet": ReIDNet, "ReIDNetCosine": ReIDNetCosine,
+          "ImageReIDNet": ImageReIDNet}
 
 
 def build_model(cfg: Dict[str, Any], device: Optional[torch.device] = None,

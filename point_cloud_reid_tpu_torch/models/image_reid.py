@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import pooled_feats, set_compute_dtype
+from .layers import combine_features, pooled_feats, set_compute_dtype
 from .registry import build_head, build_stage
 from .vit import build_vit
 
@@ -87,22 +87,13 @@ class ImageReIDNet(nn.Module):
 
     # ---- match -------------------------------------------------------------
 
-    def _combine(self, o1, o2):
-        if self.combine == "add":
-            return o1 + o2
-        if self.combine == "minus":
-            return o1 - o2
-        if self.combine == "cat":
-            return torch.cat([o1, o2], dim=-1)
-        return torch.cat([o1, o2], dim=1)               # point-cat
-
     def xcorr_eff(self, o1, o2):
         """Symmetric two-stage cross attention, no positions."""
         o1_a = self.cross_stage1(o1, o2)
         o2_a = self.cross_stage1(o2, o1)
         o1_b = self.cross_stage2(o1_a, o2_a)
         o2_b = self.cross_stage2(o2_a, o1_a)
-        return self._combine(o1_b, o2_b)
+        return combine_features(o1_b, o2_b, self.combine)
 
     def match_logits(self, h1d, h2d, train: bool = False) -> torch.Tensor:
         """(B,) raw match logits of aligned pairs of downsampled tokens."""
@@ -143,7 +134,8 @@ class ImageReIDNet(nn.Module):
         o2_a = s1.finish_from_summary(h2, q2, kv1, ks1, stoks)
         o1_b = s2(o1_a, o2_a)
         o2_b = s2(o2_a, o1_a)
-        pooled = pooled_feats(self._combine(o1_b, o2_b), self.pool_type)
+        pooled = pooled_feats(combine_features(o1_b, o2_b, self.combine),
+                              self.pool_type)
         return self.match_head(pooled, train)[..., 0].reshape(nt, nd)
 
     # ---- full forward ------------------------------------------------------

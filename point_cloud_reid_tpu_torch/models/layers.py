@@ -86,6 +86,37 @@ class Conv2d(nn.Conv2d):
                                            None), self.bias, dim=-3)
 
 
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d as flax's Conv(dtype=compute_dtype), as Dense."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return add_bias(self._conv_forward(x.to(dt), cast(self.weight, dt),
+                                           None), self.bias, dim=-2)
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple:
+    """(before, after) padding of flax's padding='SAME' along an axis of
+    `size`: ceil(size / stride) outputs, the odd pixel after."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_channel_last(conv: nn.Module, x: torch.Tensor, pads) -> torch.Tensor:
+    """A channel-first Conv1d / Conv2d over a channel-last (B, L, C) or
+    (B, H, W, C) input, with explicit (before, after) pads per spatial axis
+    (the conv's own padding is 0)."""
+    h = x.movedim(-1, 1)
+    flat = [p for axis in reversed(pads) for p in axis]   # last axis first
+    if any(flat):
+        h = F.pad(h, flat)
+    return conv(h).movedim(1, -1)
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm as flax's LayerNorm(dtype=compute_dtype): float32
     statistics, the result in the compute dtype."""
@@ -180,44 +211,117 @@ def _group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return norm(x.movedim(-1, 1)).movedim(1, -1)
 
 
+def norm_channel_last(norm: nn.Module, x: torch.Tensor,
+                      train: bool) -> torch.Tensor:
+    """A BatchNorm or a GroupNorm of a channel-last tensor."""
+    if isinstance(norm, BatchNorm):
+        return norm(x, train)
+    return group_norm(norm, x)
+
+
+def make_norm(norm: str, n_out: int, ng: int = 32) -> nn.Module:
+    """The residual blocks' norms: 'GN' (gcd(ng, n_out) groups) or 'BN',
+    eps 1e-5."""
+    if norm == "GN":
+        return GroupNorm(math.gcd(ng, n_out), n_out, eps=1e-5)
+    if norm == "BN":
+        return BatchNorm(n_out)
+    raise ValueError(f"norm {norm}")
+
+
 class LinearRes(nn.Module):
     """y = relu(norm(W2 relu(norm(W1 x))) + T(x)), biasless linears, GN or
     BN with eps 1e-5 (reference lanegcn_nets.py:193-241)."""
 
     def __init__(self, n_in: int, n_out: int, norm: str = "GN", ng: int = 32):
         super().__init__()
-        if norm not in ("GN", "BN"):
-            raise ValueError(f"LinearRes norm {norm}")
-
-        def make_norm():
-            if norm == "GN":
-                return GroupNorm(math.gcd(ng, n_out), n_out, eps=1e-5)
-            return BatchNorm(n_out)
-
         self.linear1 = Dense(n_in, n_out, bias=False)
-        self.norm1 = make_norm()
+        self.norm1 = make_norm(norm, n_out, ng)
         self.linear2 = Dense(n_out, n_out, bias=False)
-        self.norm2 = make_norm()
+        self.norm2 = make_norm(norm, n_out, ng)
         if n_in != n_out:
             self.transform = nn.Sequential(
-                Dense(n_in, n_out, bias=False), make_norm())
+                Dense(n_in, n_out, bias=False), make_norm(norm, n_out, ng))
         else:
             self.transform = None
 
-    @staticmethod
-    def _norm(norm: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
-        if isinstance(norm, BatchNorm):
-            return norm(x, train)
-        return group_norm(norm, x)
-
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        out = torch.relu(self._norm(self.norm1, self.linear1(x), train))
-        out = self._norm(self.norm2, self.linear2(out), train)
+        out = torch.relu(norm_channel_last(self.norm1, self.linear1(x),
+                                           train))
+        out = norm_channel_last(self.norm2, self.linear2(out), train)
         if self.transform is not None:
-            sc = self._norm(self.transform[1], self.transform[0](x), train)
+            sc = norm_channel_last(self.transform[1], self.transform[0](x),
+                                   train)
         else:
             sc = x
         return torch.relu(out + sc)
+
+
+class _ConvRes(nn.Module):
+    """What PostRes and Res1d share: conv1 (stride) -> bn1 -> ReLU -> conv2
+    -> bn2, plus the input, through downsample.{0: 1x1 conv with the
+    stride, 1: norm} when the stride or the width changes, then ReLU when
+    `act`. Biasless convs over channel-last inputs; names are the
+    reference's (lanegcn_nets.py; flax: downsample_conv, downsample_norm)."""
+
+    def _build(self, conv, n_in, n_out, k, stride, norm, ng, act):
+        self.stride, self.act = stride, act
+        self.conv1 = conv(n_in, n_out, k, stride=stride, bias=False)
+        self.bn1 = make_norm(norm, n_out, ng)
+        self.conv2 = conv(n_out, n_out, k, bias=False)
+        self.bn2 = make_norm(norm, n_out, ng)
+        if stride != 1 or n_in != n_out:
+            self.downsample = nn.Sequential(
+                conv(n_in, n_out, 1, stride=stride, bias=False),
+                make_norm(norm, n_out, ng))
+        else:
+            self.downsample = None
+
+    def _pads(self, x: torch.Tensor, k: int, stride: int):
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        k = self.conv1.kernel_size[0]
+        out = conv_channel_last(self.conv1, x, self._pads(x, k, self.stride))
+        out = torch.relu(norm_channel_last(self.bn1, out, train))
+        out = conv_channel_last(self.conv2, out, self._pads(out, k, 1))
+        out = norm_channel_last(self.bn2, out, train)
+        if self.downsample is not None:
+            x = conv_channel_last(self.downsample[0], x,
+                                  self._pads(x, 1, self.stride))
+            x = norm_channel_last(self.downsample[1], x, train)
+        out = out + x
+        return torch.relu(out) if self.act else out
+
+
+class PostRes(_ConvRes):
+    """3x3 conv residual block over NHWC (B, H, W, C) inputs, flax's 'SAME'
+    padding (at stride 2 the odd row and column pad after), GN or BN
+    (lanegcn_nets.py:91-139)."""
+
+    def __init__(self, n_in: int, n_out: int, stride: int = 1,
+                 norm: str = "GN", ng: int = 32, act: bool = True):
+        super().__init__()
+        self._build(Conv2d, n_in, n_out, 3, stride, norm, ng, act)
+
+    def _pads(self, x, k, stride):
+        return [same_pads(x.shape[1], k, stride),
+                same_pads(x.shape[2], k, stride)]
+
+
+class Res1d(_ConvRes):
+    """1-D conv residual block over (B, L, C) inputs: kernel_size convs
+    padded (k - 1) // 2 on both sides, the 1-wide downsample unpadded
+    (lanegcn_nets.py:142-191)."""
+
+    def __init__(self, n_in: int, n_out: int, kernel_size: int = 3,
+                 stride: int = 1, norm: str = "GN", ng: int = 32,
+                 act: bool = True):
+        super().__init__()
+        self._build(Conv1d, n_in, n_out, kernel_size, stride, norm, ng, act)
+
+    def _pads(self, x, k, stride):
+        return [((k - 1) // 2, (k - 1) // 2)]
 
 
 def pos_mlp(d_model: int, d_out: int | None = None) -> nn.Sequential:
@@ -225,6 +329,22 @@ def pos_mlp(d_model: int, d_out: int | None = None) -> nn.Sequential:
     (reference Self_Attention.pos_mlp, pointnet2_utils.py:66-70)."""
     return nn.Sequential(Dense(3, d_model), nn.ReLU(),
                          Dense(d_model, d_out or d_model))
+
+
+def combine_features(o1: torch.Tensor, o2: torch.Tensor,
+                     combine: str) -> torch.Tensor:
+    """The match heads' combine of the two sides' (B, N, C) features:
+    'add', 'minus', 'cat' (channels, (B, N, 2C)) or 'point-cat' (points,
+    (B, 2N, C)); reference ReIDNet.py:244-249."""
+    if combine == "add":
+        return o1 + o2
+    if combine == "minus":
+        return o1 - o2
+    if combine == "cat":
+        return torch.cat([o1, o2], dim=-1)
+    if combine == "point-cat":
+        return torch.cat([o1, o2], dim=1)
+    raise NotImplementedError(combine)
 
 
 def pooled_feats(h: torch.Tensor, pool_type: str = "both") -> torch.Tensor:

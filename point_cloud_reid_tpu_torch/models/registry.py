@@ -1,11 +1,8 @@
 """Config dicts -> modules (port of point_cloud_reid_tpu/models/registry.py).
 
 Head configs are lists of dicts like [{'type': 'LinearRes', ...}, {'type':
-'Linear', ...}], as in the reidentifier config files. The point backbones of
-the registered leaves (point-transformer, PointNet, DGCNN) and the stage
-types of the point and image heads are ported; VNDGCNN, the
-local_self_attention and loftr stages and the PostRes / Res1d head layers
-raise and wait for the rest of the model zoo (M7).
+'Linear', ...}], as in the reidentifier config files. Every backbone, stage
+and head layer type of the JAX registry is here.
 """
 from __future__ import annotations
 
@@ -14,31 +11,25 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 import torch.nn as nn
 
-from ..utils.cache import cast
 from .attention_blocks import (CrossAttentionBlock, CrossLinAttn,
-                               SelfAttentionBlock)
+                               LocalSelfAttention, SelfAttentionBlock)
 from .dgcnn import DGCNNBackbone
-from .layers import (BatchNorm, Dense, GroupNorm, LayerNorm, LinearRes,
-                     add_bias, group_norm)
+from .layers import (BatchNorm, Conv1d, Dense, GroupNorm, LayerNorm,
+                     LinearRes, PostRes, Res1d, group_norm)
+from .loftr import LoFTRStage
 from .point_transformer import PointTransformerBackbone
 from .pointnet import PointNetBackbone
+from .vector_neurons import VNDGCNNBackbone
 
 Spec = Dict[str, Any]
 
 
-class _Conv1d(nn.Conv1d):
+class _Conv1d(Conv1d):
     """Conv1d over a channel-last (B, L, C) input, stride 1, no padding;
     with a compute dtype, as flax's Conv(dtype=...)."""
 
-    compute_dtype = None
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.transpose(1, 2)
-        dt = self.compute_dtype
-        if dt is None:
-            return super().forward(x).transpose(1, 2)
-        return add_bias(self._conv_forward(x.to(dt), cast(self.weight, dt),
-                                           None).transpose(1, 2), self.bias)
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
 
 
 class SequentialHead(nn.ModuleList):
@@ -46,9 +37,9 @@ class SequentialHead(nn.ModuleList):
     BatchNorm layers. Layer j is `{j}` in the state dict and
     `{j}_{type}` in the JAX package's variable tree.
 
-    Types: LinearRes, Linear, Conv1d (real 1-D conv, no padding),
-    BatchNorm1d, GroupNorm, LayerNorm, ReLU, Sigmoid. PostRes and Res1d
-    (conv residual blocks no point-model head uses) wait for M7."""
+    Types: LinearRes, PostRes (3x3 conv block over NHWC inputs), Res1d
+    (1-D conv block over (B, L, C)), Linear, Conv1d (real 1-D conv, no
+    padding), BatchNorm1d, GroupNorm, LayerNorm, ReLU, Sigmoid."""
 
     def __init__(self, specs: Sequence[Spec], n_in: int):
         layers: List[nn.Module] = []
@@ -59,6 +50,14 @@ class SequentialHead(nn.ModuleList):
                 layers.append(LinearRes(spec["n_in"], spec["n_out"],
                                         norm=spec.get("norm", "GN"),
                                         ng=spec.get("ng", 32)))
+                width = spec["n_out"]
+            elif t in ("PostRes", "Res1d"):
+                kw = dict(stride=spec.get("stride", 1),
+                          norm=spec.get("norm", "GN"), ng=spec.get("ng", 32))
+                if t == "Res1d":
+                    kw["kernel_size"] = spec.get("kernel_size", 3)
+                block = PostRes if t == "PostRes" else Res1d
+                layers.append(block(width, spec["n_out"], **kw))
                 width = spec["n_out"]
             elif t == "Linear":
                 layers.append(Dense(width, spec["out_features"]))
@@ -78,9 +77,6 @@ class SequentialHead(nn.ModuleList):
                 layers.append(nn.ReLU())
             elif t == "Sigmoid":
                 layers.append(nn.Sigmoid())
-            elif t in ("PostRes", "Res1d"):
-                raise NotImplementedError(
-                    f"SequentialHead type {t} is not ported yet (M7)")
             else:
                 raise NotImplementedError(f"SequentialHead type {t}")
         super().__init__(layers)
@@ -89,7 +85,7 @@ class SequentialHead(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for layer in self:
-            if isinstance(layer, (LinearRes, BatchNorm)):
+            if isinstance(layer, (LinearRes, PostRes, Res1d, BatchNorm)):
                 x = layer(x, train)
             elif isinstance(layer, nn.GroupNorm):
                 x = group_norm(layer, x)
@@ -121,7 +117,10 @@ def build_backbone(cfg: Spec, knn_method: str = "argsort") -> nn.Module:
     if t in ("dgcnn", "DGCNN"):
         return DGCNNBackbone(emb_dims=cfg.get("emb_dims", 1024),
                              k=cfg.get("k", 20))
-    raise NotImplementedError(f"backbone type {t} is not ported yet (M7)")
+    if t in ("vn_dgcnn", "VNDGCNN"):
+        return VNDGCNNBackbone(n_knn=cfg.get("n_knn", 20),
+                               pooling=cfg.get("pooling", "max"))
+    raise NotImplementedError(f"backbone type {t}")
 
 
 def build_stage(cfg: Optional[Spec]) -> Optional[nn.Module]:
@@ -135,9 +134,14 @@ def build_stage(cfg: Optional[Spec]) -> Optional[nn.Module]:
         return CrossAttentionBlock(**kw)
     if t == "cross_lin_attn":
         return CrossLinAttn(**kw)
+    if t == "local_self_attention":
+        return LocalSelfAttention(knum=cfg.get("knum", 32),
+                                  pos_size=cfg.get("pos_size"), **kw)
     if t == "Self_Attention":
         return SelfAttentionBlock(**kw)
-    raise NotImplementedError(f"stage type {t} is not ported yet (M7)")
+    if t == "loftr":
+        return LoFTRStage(n_layers=cfg.get("n_layers", 2), **kw)
+    raise NotImplementedError(f"stage type {t}")
 
 
 def build_head(cfg: Union[None, Spec, List[Spec]], n_in: int

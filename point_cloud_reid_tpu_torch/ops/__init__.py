@@ -1,4 +1,4 @@
-from .attention import elu_feature_map, linear_attention
+from .attention import elu_feature_map, full_attention, linear_attention
 from .bev_feat import grid_sample_bilinear, interpolate_bev
 from .boxes import (box_corners_3d, boxes_iou_3d, boxes_iou_bev,
                     boxes_overlap_bev, nms_bev, points_in_rboxes,
@@ -10,7 +10,8 @@ from .geometry import (conv1_edge_factors, edge_features,
                        square_distance)
 
 __all__ = [
-    "elu_feature_map", "linear_attention", "grid_sample_bilinear",
+    "elu_feature_map", "full_attention", "linear_attention",
+    "grid_sample_bilinear",
     "interpolate_bev", "box_corners_3d", "boxes_iou_3d", "boxes_iou_bev",
     "boxes_overlap_bev", "nms_bev", "points_in_rboxes", "points_to_box_frame",
     "conv1_edge_factors", "edge_features", "farthest_point_sample",

@@ -37,7 +37,6 @@ import numpy as np
 import torch
 
 from ..utils.profiling import StepTimer
-from .profile_loader import KNOBS
 from .profile_tracker import _busy_us
 from .scenes import card_name
 
@@ -56,28 +55,40 @@ def flagship_train_cfg(kernels: bool) -> dict:
 
 
 def model_knobs(model_cfg: dict) -> list:
-    """The KNOBS a point model config takes: the cross stages' only where
-    it has them (the concat baseline has none). knn_method reaches the
-    point-transformer's SA stages alone; PointNet and DGCNN ignore it."""
-    return [k for k in KNOBS if not k.startswith("model.cross_stage")
-            or model_cfg.get(k.split(".")[1])]
+    """The kernel knobs a point model config takes: knn_method 'pallas',
+    and 'linear-pallas' attention on each stage where that names the
+    kernel: the cross stages of type corss_attention (the concat baseline
+    has none; LoFTR's 'linear-pallas' is softmax) and the 'xcorr' head's
+    local stages. knn_method reaches the point-transformer's SA stages
+    alone; PointNet, DGCNN and VN-DGCNN ignore it."""
+    knobs = ["model.knn_method=pallas"]
+    stages = [("cross_stage1", "corss_attention"),
+              ("cross_stage2", "corss_attention")]
+    if model_cfg.get("match_type") == "xcorr":
+        stages += [("local_stage1", "local_self_attention"),
+                   ("local_stage2", "local_self_attention")]
+    for stage, kind in stages:
+        if (model_cfg.get(stage) or {}).get("type") == kind:
+            knobs.append(f"model.{stage}.attention=linear-pallas")
+    return knobs
 
 
-def train_spec(experiment, kernels: bool) -> dict:
+def train_spec(experiment, kernels: bool, sets=()) -> dict:
     """What one profiled configuration trains: the model config, losses,
     loss weights, triplet margin and the synthetic batches' shape (points
     a crop, classes, image side or 0). `experiment` None is the flagship
-    with LOSSES."""
+    with LOSSES; `sets` are --set overrides of the leaf (configs/zoo.py).
+    A point leaf takes its kernel knobs on or off (model_knobs)."""
     if experiment is None:
         return dict(model=flagship_train_cfg(kernels), losses=LOSSES,
                     alpha={}, triplet_margin=0.2, num_points=128,
                     num_classes=10, image_size=0)
     from point_cloud_reid_tpu_torch.configs import get_experiment
-    cfg = get_experiment(experiment)
+    cfg = get_experiment(experiment, set_options=list(sets))
     image = cfg["model"].get("type") == "ImageReIDNet"
     if kernels and not image:
-        cfg = get_experiment(experiment,
-                             set_options=model_knobs(cfg["model"]))
+        cfg = get_experiment(experiment, set_options=list(sets) + model_knobs(
+            cfg["model"]))
     data = cfg["dataset"]
     return dict(model=cfg["model"], losses=cfg["losses_to_use"],
                 alpha=cfg["alpha"],

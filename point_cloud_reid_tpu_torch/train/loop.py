@@ -31,13 +31,16 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..evaluation import evaluate_results
-from ..models.attention_blocks import CrossAttentionBlock, CrossLinAttn
+from ..models.attention_blocks import (CrossAttentionBlock, CrossLinAttn,
+                                       LocalSelfAttention)
 from ..models.dgcnn import EdgeConv
 from ..models.layers import frozen_statistics
+from ..models.loftr import LoFTREncoderLayer
 from ..models.point_transformer import (FeaturePropagationSA,
                                         SetAbstractionEdgeSA)
 from ..models.pointnet import PointNetEncoder
 from ..models.registry import SequentialHead
+from ..models.vector_neurons import VNLinearLeakyReLU
 from ..models.vit import Block
 from ..utils.logging import MetricLogger
 from .losses import reid_losses
@@ -79,8 +82,9 @@ def pin_batch(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 # refuses it (seen with torch 2.13), so PointNet's transforms (STN) are
 # recomputed with their encoder
 _REMAT_STAGES = (SetAbstractionEdgeSA, FeaturePropagationSA,
-                 PointNetEncoder, EdgeConv, CrossAttentionBlock, CrossLinAttn,
-                 Block, SequentialHead)
+                 PointNetEncoder, EdgeConv, VNLinearLeakyReLU,
+                 CrossAttentionBlock, CrossLinAttn, LocalSelfAttention,
+                 LoFTREncoderLayer, Block, SequentialHead)
 
 
 @contextlib.contextmanager
@@ -104,9 +108,10 @@ def _checkpointed_stages(model) -> Iterator[None]:
 
 def train_forward(model, batch: Dict[str, torch.Tensor], remat: bool = False
                   ) -> Dict[str, torch.Tensor]:
-    """The model's train-mode forward; with remat, each stage (SA, FP and
-    cross stages, PointNet's encoder, DGCNN's EdgeConv blocks, heads, ViT
-    blocks) under torch.utils.checkpoint
+    """The model's train-mode forward; with remat, each stage (SA, FP,
+    cross and local stages, LoFTR layers, PointNet's encoder, DGCNN's
+    EdgeConv blocks, VN-DGCNN's VN layers, heads, ViT blocks) under
+    torch.utils.checkpoint
     (_checkpointed_stages), so that the backward holds one stage's
     activations at a time besides the stages' outputs."""
     if not remat:

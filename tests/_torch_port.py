@@ -302,11 +302,16 @@ def port_step(tmodel, batch: dict, dtype, neg, remat: bool = False):
              if not k.endswith("num_batches_tracked")})
 
 
-def check_leaf_step(cfg: dict, seed: int = 30, pairs: int = 4) -> None:
+def check_leaf_step(cfg: dict, seed: int = 30, pairs: int = 4,
+                    weights: bool = True) -> None:
     """One step of the model `cfg` (losses match + triplet) from the port's
     seeded init on `pairs` pairs of crops with duplicated points, against
     the JAX package's jitted step in float64 with XLA's algebraic
-    simplifier off, the triplet negatives JAX's own draw."""
+    simplifier off, the triplet negatives JAX's own draw. weights=False
+    compares the logs alone: with an attention knob on, JAX's Pallas
+    kernel computes in float32 at every dtype, and Adam's first update
+    turns that rounding of a near-zero gradient entry into a move of the
+    learning rate's size."""
     import copy
     import jax
     import jax.numpy as jnp
@@ -338,14 +343,15 @@ def check_leaf_step(cfg: dict, seed: int = 30, pairs: int = 4) -> None:
         jstate, jlog = step(jstate, jb, key)
         jlog = {k: float(v) for k, v in jlog.items()}
         want = dict(port_flat(jstate.params), **port_flat(jstate.batch_stats))
-    log64, weights = port_step(tmodel, batch, torch.float64, neg)
+    log64, moved = port_step(tmodel, batch, torch.float64, neg)
     assert set(log64) == set(jlog)
     for k, w in jlog.items():
         assert abs(log64[k] - w) <= LEAF_STEP64_TOL * max(1.0, abs(w)), (
             k, log64[k], w)
-    assert set(weights) == set(want)
-    for k, w in want.items():
-        assert_close_scaled(weights[k], w, LEAF_STEP64_TOL, k)
+    if weights:
+        assert set(moved) == set(want)
+        for k, w in want.items():
+            assert_close_scaled(moved[k], w, LEAF_STEP64_TOL, k)
     log32, _ = port_step(tmodel, batch, torch.float32, neg)
     for k in ("reid_loss", "match_loss", "triplet_loss", "grad_norm"):
         assert abs(log32[k] - jlog[k]) <= LEAF_STEP32_TOL * max(

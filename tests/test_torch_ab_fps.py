@@ -8,6 +8,7 @@ torch = pytest.importorskip("torch")
 
 from point_cloud_reid_tpu_torch.kernels import fps as kf  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import ab_fps  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 
 def test_inputs_are_seeded_clouds_of_every_kind():

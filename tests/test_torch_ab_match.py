@@ -6,6 +6,7 @@ torch = pytest.importorskip("torch")
 
 from point_cloud_reid_tpu_torch.kernels import _lib  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import ab_match  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("head,parts", [("point", 5), ("image", 4)])

@@ -8,6 +8,7 @@ torch = pytest.importorskip("torch")
 
 from point_cloud_reid_tpu_torch.kernels import sa_stage as sa  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import ab_sa  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 
 def test_stage_inputs_are_the_flagship_stages():

@@ -11,6 +11,7 @@ from point_cloud_reid_tpu_torch.kernels import (  # noqa: E402
     linear_attention as la)
 from point_cloud_reid_tpu_torch.tools import (  # noqa: E402
     ab_train_kernels as ab)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 
 def test_knn_inputs_are_the_flagship_stages():

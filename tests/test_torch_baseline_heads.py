@@ -42,6 +42,7 @@ from point_cloud_reid_tpu_torch.models import build_model  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.scenes import bench_scene  # noqa: E402
 from point_cloud_reid_tpu_torch.tracking import TrackingManager  # noqa: E402
 from tests._torch_port import assert_close_scaled, check_leaf_step  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 CONCAT = "pts_point-transformer_baseline_nus_det_4x256_500e"
 STNET = "pts_point-transformer_baseline-stnet_nus_det_4x256_500e"

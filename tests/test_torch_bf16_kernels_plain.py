@@ -22,6 +22,7 @@ from point_cloud_reid_tpu_torch.kernels import match_grid as tmg  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import sa_stage as tsa  # noqa: E402
 from tests._torch_port import TINY, crops, to_jax_tree  # noqa: E402
 from tests.test_torch_kernels_plain import _stage_weights  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = torch.bfloat16
 JBF16 = jnp.bfloat16

@@ -15,6 +15,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tests._torch_port import TINY, crops, to_jax_tree  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = jnp.bfloat16
 # the JAX suite's own bf16 bar (tests/test_ops_pallas.py, the fused SA stage

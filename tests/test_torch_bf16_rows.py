@@ -12,6 +12,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from point_cloud_reid_tpu.ops.pallas import match_grid as jmg  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import match_grid as tmg  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = torch.bfloat16
 JBF16 = jnp.bfloat16

@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 from point_cloud_reid_tpu_torch.configs.experiments import (  # noqa: E402
     EXPERIMENTS, get_experiment)
 from point_cloud_reid_tpu_torch.kernels import sa_stage as sa  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
 LEAVES = {

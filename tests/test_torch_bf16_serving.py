@@ -28,6 +28,7 @@ from point_cloud_reid_tpu.inference import PairScorer as JaxScorer  # noqa: E402
 from point_cloud_reid_tpu_torch.inference import PairScorer  # noqa: E402
 from tests._torch_port import crops, jax_uniform_crops, to_jax_tree  # noqa: E402
 from tests.test_torch_tracking import _sweep  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16, JBF16 = torch.bfloat16, jnp.bfloat16
 EMBED_TOL = 3e-2

@@ -34,6 +34,7 @@ from tests._torch_port import (BF16_TOL, F32_LEAF_FLOOR, KNOBS,  # noqa: E402
                                assert_close_scaled, assert_grads_close,
                                jax_negatives, pair_batch, port_flat,
                                tiny_cfg, to_jax_tree, torch_batch)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = jnp.bfloat16
 USE = dict(match=True, kl=True, triplet=True, cls=True, fp=True)

@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from point_cloud_reid_tpu.ops import boxes as jb  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import boxes as tb  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # float32 polygon clipping on both sides; only the rounding differs
 TOL = 1e-5

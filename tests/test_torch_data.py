@@ -19,6 +19,7 @@ from point_cloud_reid_tpu_torch import data as td  # noqa: E402
 from point_cloud_reid_tpu_torch.data import import_reference as tir  # noqa: E402
 from point_cloud_reid_tpu_torch.data import store as tstore  # noqa: E402
 from tests.test_import_reference import _make_reference_tree  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 pytestmark = pytest.mark.quick
 

@@ -37,6 +37,7 @@ from point_cloud_reid_tpu_torch.tools import train as train_cli  # noqa: E402
 from point_cloud_reid_tpu_torch.train import to_device  # noqa: E402
 from tests._torch_image import jax_variables_of, tiny_image_cfg  # noqa: E402
 from tests.test_torch_track_cli import TINY_SET as MODEL_SET  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
 IMAGE_LEAF = "testing_rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"

@@ -35,6 +35,7 @@ from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud  # noqa: E402
 from tests._torch_port import TINY, crops, jax_uniform_crops  # noqa: E402
 from tests.test_torch_track_cli import (HEADLINE, TINY_SET,  # noqa: E402
                                         _jax_cli, _write_scenes)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the JAX suite's bars: the full model through a converter
 # (tests/test_convert_full_model.py), the grid and pair chains against

@@ -23,6 +23,7 @@ from point_cloud_reid_tpu_torch.models.build import init_weights  # noqa: E402
 from point_cloud_reid_tpu_torch.models.point_transformer import (  # noqa: E402
     SetAbstractionEdgeSA)
 from point_cloud_reid_tpu_torch.ops import geometry as tgeo  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 TOL = 1e-4
 

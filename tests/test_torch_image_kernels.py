@@ -14,6 +14,7 @@ from point_cloud_reid_tpu.ops.pallas.match_grid import (  # noqa: E402
 from point_cloud_reid_tpu_torch.inference import PairScorer  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import match_grid as mg  # noqa: E402
 from tests._torch_image import tiny_image_models, tokens  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the JAX suite's own bar for the kernel against the XLA path
 # (tests/test_pair_grid.py)

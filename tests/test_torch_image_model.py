@@ -19,6 +19,7 @@ from point_cloud_reid_tpu_torch.models import build_model  # noqa: E402
 from tests._torch_image import (DIM, DS, TINY_PRESETS, images,  # noqa: E402
                                 jax_variables_of, tiny_image_cfg,
                                 tiny_image_models, tokens)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # float32 on both sides, a different summation order
 TOL = 1e-4

@@ -15,6 +15,7 @@ from point_cloud_reid_tpu_torch.inference import PairScorer  # noqa: E402
 from point_cloud_reid_tpu_torch.tracking import TrackingManager  # noqa: E402
 from point_cloud_reid_tpu_torch.tracking import image_crops as tcrops  # noqa: E402
 from tests._torch_image import IMAGE_SIZE, tiny_image_models  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 W, H = 160, 90
 

@@ -45,6 +45,7 @@ from tests._torch_port import (F32_LEAF_FLOOR, NO_ALGSIMP,  # noqa: E402
                                assert_bf16_logs_close, assert_grads_close,
                                flat_grads, jax_batch, jax_negatives,
                                port_flat, torch_batch)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 VARIANT = "deit-test"
 LEAF = "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"

@@ -15,7 +15,12 @@ import pytest
 
 pytest.importorskip("torch")
 
+from tests._torch_threads import TEST_THREADS, few_threads  # noqa: E402,F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# each fresh interpreter takes the test files' thread count
+# (tests/_torch_threads.py)
+ENV = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(TEST_THREADS))
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -119,14 +124,14 @@ NEW_MODULES = {
     "native.plain", "tools.test", "tools.make_synthetic_data",
     "tools.dump_val_pairs", "tools.import_reference_store",
     "tools.profile_loader", "utils.cache", "utils.profiling",
-    "models.pointnet", "models.dgcnn"}
+    "models.pointnet", "models.dgcnn", "models.loftr",
+    "models.vector_neurons", "models.node_pooling", "configs.zoo"}
 # the CUDA sources the bf16 serving path adds beside the float32 ones
 BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 
 
 def _run(code: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=ENV,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
@@ -273,9 +278,8 @@ def test_reading_a_store_the_jax_package_wrote_imports_no_jax(tmp_path):
         "car", "truck", "pedestrian"]).save(str(tmp_path))
     with open(tmp_path / "objects.pkl", "rb") as f:
         assert b"point_cloud_reid_tpu.data.store" in f.read()
-    env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _READ_JAX_STORE,
-                           str(tmp_path)], cwd=REPO, env=env,
+                           str(tmp_path)], cwd=REPO, env=ENV,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -323,7 +327,7 @@ def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
-    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env = dict(ENV, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0

@@ -586,6 +586,29 @@ def test_linear_attention_kernel_matches_plain(cuda, B, L, S, H, D, V):
         _close(a, b)
 
 
+@pytest.mark.parametrize("rows", [256 * 128, 3 * 50])
+def test_linear_attention_kernel_at_the_local_stages_shape(cuda, rows):
+    """LocalSelfAttention's shape: one query and 32 keys a row (a point and
+    its feature-space neighbours), two heads of 32, for 256 pairs of
+    128-point crops and a small batch; forward and gradients, and the
+    launch counted at one query."""
+    from point_cloud_reid_tpu_torch.kernels import linear_attention as la
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((rows, n, 2, 32), generator=g, device=cuda,
+                           requires_grad=True) for n in (1, 32, 32))
+    before = la.linear_attention_forward.launches
+    one = la.linear_attention_forward.shape_launches["one_query"]
+    got = la.fused_linear_attention(q, k, v)
+    assert la.linear_attention_forward.launches == before + 1
+    assert la.linear_attention_forward.shape_launches["one_query"] == one + 1
+    want = la.linear_attention_reference(q, k, v)
+    _close(got.detach(), want.detach())
+    go = torch.randn(got.shape, generator=g, device=cuda)
+    for a, b in zip(torch.autograd.grad(got, (q, k, v), go),
+                    torch.autograd.grad(want, (q, k, v), go)):
+        _close(a, b)
+
+
 def test_kernel_wrappers_raise_on_bad_input(cuda):
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la

@@ -12,6 +12,7 @@ from point_cloud_reid_tpu.ops.pallas import sa_stage as jsa  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import match_grid as tmg  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import sa_stage as tsa  # noqa: E402
 from tests._torch_port import crops, tiny_models  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the bar of tests/test_pair_grid.py for the grid and pair kernels
 GRID_RTOL, GRID_ATOL = 2e-4, 2e-5

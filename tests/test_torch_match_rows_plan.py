@@ -14,6 +14,7 @@ from point_cloud_reid_tpu_torch.configs.experiments import (  # noqa: E402
     EXPERIMENTS, get_experiment)
 from point_cloud_reid_tpu_torch.kernels import match_grid as mg  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.ab_match import inputs  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = torch.bfloat16
 LEAVES = {

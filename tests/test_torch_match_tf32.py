@@ -17,6 +17,7 @@ from point_cloud_reid_tpu_torch.kernels import match_grid as mg  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.ab_match import inputs  # noqa: E402
 from tests._tf32 import (mm_one_pass, mm_three_pass, rel,  # noqa: E402
                          tf32_round, tf32_truncate)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the kernel's bar against the plain version, chip_smoke.py's MATCH_TOL:
 # float32 level

@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 from point_cloud_reid_tpu_torch.convert import from_jax_variables  # noqa: E402
 from tests._torch_port import (N_PTS, crops, tiny_models,  # noqa: E402
                                tiny_torch_model, to_jax_tree)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the JAX suite's bar for the full model through a converter
 # (tests/test_convert_full_model.py)

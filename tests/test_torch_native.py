@@ -14,6 +14,7 @@ pytest.importorskip("torch")
 from point_cloud_reid_tpu import native as jnative  # noqa: E402
 from point_cloud_reid_tpu_torch import native  # noqa: E402
 from point_cloud_reid_tpu_torch.native import plain  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 pytestmark = pytest.mark.quick
 

@@ -12,6 +12,7 @@ from point_cloud_reid_tpu.ops import geometry as jgeo  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import attention as tattn  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import boxes as tboxes  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import geometry as tgeo  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

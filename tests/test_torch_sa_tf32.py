@@ -18,6 +18,7 @@ from point_cloud_reid_tpu_torch.kernels import sa_stage as sa  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.ab_sa import stage_inputs  # noqa: E402
 from tests._tf32 import (mm_one_pass, mm_three_pass, rel,  # noqa: E402
                          tf32_truncate)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the kernel's bar against the plain version is chip_smoke.py's SA_TOL;
 # three passes must stay at the float32 level, one pass 10x above them

@@ -23,6 +23,7 @@ from point_cloud_reid_tpu_torch.convert import to_jax_variables  # noqa: E402
 from point_cloud_reid_tpu_torch.models import build_model  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import track  # noqa: E402
 from tests._torch_port import TINY, jax_uniform_crops  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 jax_manager = importlib.import_module("point_cloud_reid_tpu.tracking.manager")
 FLAGSHIP = track.FLAGSHIP

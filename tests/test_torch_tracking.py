@@ -19,6 +19,7 @@ from point_cloud_reid_tpu_torch.tracking.crops import (  # noqa: E402
     extract_box_crops)
 from tests._torch_port import (N_PTS, crops, jax_uniform_crops,  # noqa: E402
                                tiny_models)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 # the full model's bar (tests/test_convert_full_model.py)
 TOL = 1e-3

@@ -22,6 +22,7 @@ from point_cloud_reid_tpu_torch.convert import (  # noqa: E402
     from_jax_variables, to_jax_variables)
 from point_cloud_reid_tpu_torch.evaluation import (  # noqa: E402
     TrackingEvalAccumulator)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 TOL = 1e-5         # float32 on both sides; the LSTM and the losses
 GEOM_TOL = 1e-6    # box arithmetic

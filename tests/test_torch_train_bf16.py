@@ -48,6 +48,7 @@ from tests._torch_port import (BF16_TOL, KNOBS, NO_ALGSIMP,  # noqa: E402
                                flat_grads, jax_batch, jax_negatives,
                                pair_batch, port_flat, tiny_cfg, to_jax_tree,
                                torch_batch)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = jnp.bfloat16
 USE = dict(match=True, kl=True, triplet=True, cls=True, fp=True)

@@ -31,6 +31,7 @@ from tests._torch_image import images, tiny_image_cfg  # noqa: E402
 from tests._torch_port import (KNOBS, pair_batch, tiny_cfg,  # noqa: E402
                                torch_batch)
 from tests.test_torch_track_cli import TINY_SET  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
 IMAGE_LEAF = "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"

@@ -27,6 +27,7 @@ from point_cloud_reid_tpu_torch.train import (ScheduleConfig,  # noqa: E402
 from point_cloud_reid_tpu_torch.train import losses as tl  # noqa: E402
 from tests._torch_port import (KNOBS, jax_negatives, pair_batch,  # noqa: E402
                                tiny_cfg, torch_batch, train_models)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 LOSS_TOL = 1e-5
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"

@@ -19,13 +19,24 @@ from point_cloud_reid_tpu_torch.convert import (from_jax_variables,  # noqa: E40
 from point_cloud_reid_tpu_torch.models import build_model, init_weights  # noqa: E402
 from point_cloud_reid_tpu_torch.models.layers import LinearRes  # noqa: E402
 from point_cloud_reid_tpu_torch.models.registry import build_head  # noqa: E402
-from tests._torch_port import (F32_LEAF_FLOOR, KNOBS, N_PTS, TINY,  # noqa: E402
-                               assert_close_scaled, assert_grads_close,
-                               pair_batch, port_flat, tiny_cfg, torch_batch,
-                               train_models)
+from tests._torch_port import (F32_LEAF_FLOOR, KNOBS, N_PTS,  # noqa: E402
+                               NO_ALGSIMP, TINY, assert_close_scaled,
+                               assert_grads_close, pair_batch, port_flat,
+                               tiny_cfg, torch_batch, train_models)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 STAGE_TOL = 1e-4       # one stage / the backbone: float32, other sum orders
 MODEL_TOL = 1e-3       # the full model (tests/test_convert_full_model.py)
+
+
+def _compiled(fn, *args):
+    """fn(*args) through one XLA compilation with the algebraic simplifier
+    off (tests/_torch_port.NO_ALGSIMP: the CPU backend's default
+    compilation of these gradients is wrong), instead of op by op: the
+    same numbers, without running each op (and each interpreted Pallas
+    grid step) on its own."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=NO_ALGSIMP)(
+        *args)
 
 
 def _sub(tree, *path):
@@ -86,10 +97,14 @@ def test_train_mode_sa_stage_matches_jax(stage, dups):
             return jnp.sum(h * jnp.asarray(cot, dt)), (nx, h,
                                                        mut["batch_stats"])
 
-        out = jax.value_and_grad(
-            jloss, argnums=(0, 1, 2) if stage else (0, 1), has_aux=True)(
-                jv["params"], jnp.asarray(xyz, dt),
+        grad = jax.value_and_grad(
+            jloss, argnums=(0, 1, 2) if stage else (0, 1), has_aux=True)
+        args = (jv["params"], jnp.asarray(xyz, dt),
                 None if pts is None else jnp.asarray(pts, dt))
+        if pts is None:
+            out = _compiled(lambda p, x: grad(p, x, None), *args[:2])
+        else:
+            out = _compiled(grad, *args)
         return jax.tree_util.tree_map(np.asarray, out)
 
     if dups:
@@ -142,8 +157,8 @@ def test_train_mode_backbone_matches_jax():
             return jnp.sum(h * cot), (h, mut["batch_stats"])
 
         (_, (jh, jstats)), jg = jax.tree_util.tree_map(
-            np.asarray, jax.value_and_grad(jloss, has_aux=True)(
-                {"backbone": jvars["params"]["backbone"]}))
+            np.asarray, _compiled(jax.value_and_grad(jloss, has_aux=True),
+                                  {"backbone": jvars["params"]["backbone"]}))
     tx = torch.from_numpy(x)
     tmodel.requires_grad_(True)
     before = _bn_stats(tmodel)
@@ -171,7 +186,8 @@ def test_train_forward_with_aux_heads_matches_jax(knobs):
     jmodel, jvars, tmodel = train_models(**knobs)
     batch = pair_batch(7)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    jout, _ = jmodel.apply(jvars, jbatch, train=True, mutable=["batch_stats"])
+    jout, _ = jax.jit(lambda v, b: jmodel.apply(
+        v, b, train=True, mutable=["batch_stats"]))(jvars, jbatch)
     with torch.no_grad():
         tout = tmodel(torch_batch(batch), train=True)
     assert set(tout) == set(jout) == {
@@ -204,7 +220,8 @@ def test_non_linear_attention_scores_the_grid_without_the_kernel():
         pairs = mg.pair_logits(tmodel, ht, xt, hd, xd,
                                torch.tensor([1, 0]), torch.tensor([2, 1]))
     j = [jnp.asarray(a.numpy()) for a in (ht, xt, hd, xd)]
-    jgrid = jmodel.apply(jvars, *j, train=False, method="match_logits_grid")
+    jgrid = jax.jit(lambda v, *a: jmodel.apply(
+        v, *a, train=False, method="match_logits_grid"))(jvars, *j)
     np.testing.assert_allclose(grid.numpy(), np.asarray(jgrid),
                                rtol=MODEL_TOL, atol=MODEL_TOL)
     np.testing.assert_allclose(pairs.numpy(), grid.numpy()[[1, 0], [2, 1]],
@@ -255,9 +272,13 @@ def test_sequential_head_types_match_jax(specs, shape):
 
 
 def test_sequential_head_unported_types_raise():
+    """PostRes and Res1d build since the tracker-era zoo (held to JAX in
+    tests/test_torch_zoo_modules.py); a type neither package has raises."""
     for t in ("PostRes", "Res1d"):
-        with pytest.raises(NotImplementedError, match="M7"):
-            build_head([dict(type=t, n_out=8)], 8)
+        head = build_head([dict(type=t, n_out=8)], 8)
+        assert head.types == [t] and head.out_width == 8
+    with pytest.raises(NotImplementedError, match="Unknown"):
+        build_head([dict(type="Unknown", n_out=8)], 8)
 
 
 def test_linear_res_group_norm_on_token_rows_matches_jax():

@@ -16,6 +16,7 @@ from point_cloud_reid_tpu_torch.kernels import knn as kk  # noqa: E402
 from point_cloud_reid_tpu_torch.kernels import linear_attention as la  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import attention as tatt  # noqa: E402
 from point_cloud_reid_tpu_torch.ops import geometry as tgeo  # noqa: E402
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 
 def _cloud(kind: str, B=3, N=40, seed=0) -> np.ndarray:
@@ -97,14 +98,13 @@ def test_fused_linear_attention_takes_strided_views():
 
 def test_attention_config_strings():
     """'linear' and 'linear-pallas' name the plain composite and the
-    kernel's Function; 'full' is not ported and says with what it comes."""
+    kernel's Function; 'full', like every other string, is softmax
+    attention, as the JAX package's dispatch has it."""
     from point_cloud_reid_tpu_torch.models.attention_blocks import _attn_fn
     assert _attn_fn("linear") is tatt.linear_attention
     assert _attn_fn("linear-pallas") is la.fused_linear_attention
-    with pytest.raises(NotImplementedError, match="M7"):
-        _attn_fn("full")
-    with pytest.raises(ValueError, match="unknown attention"):
-        _attn_fn("softmax")
+    assert _attn_fn("full") is tatt.full_attention
+    assert _attn_fn("softmax") is tatt.full_attention
 
 
 @pytest.mark.parametrize("with_points", [False, True])

@@ -15,6 +15,7 @@ from point_cloud_reid_tpu_torch.tools import track  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import train as train_cli  # noqa: E402
 from point_cloud_reid_tpu_torch.tools.profile_train import (  # noqa: E402
     train_spec)
+from tests._torch_threads import few_threads  # noqa: E402,F401
 
 CONCAT = "pts_point-transformer_baseline_nus_det_4x256_500e"
 STNET = "pts_point-transformer_baseline-stnet_nus_det_4x256_500e"
