@@ -317,6 +317,27 @@ LOCAL_ATTN_ROWS, LOCAL_ATTN_KEYS = (256 * 128, 16384 * 128), 32
 # flagship's head (BF16_LOGIT_TOL); a 128 x 128 frame takes the max over
 # 16,384 pairs
 BF16_XCORR_LOGIT_TOL = 1e-1
+# phase 14, the reference-checkpoint path: the flagship testing leaf at full
+# width from a seeded reference .pth, evaluated with the kernel knobs on a
+# SyntheticStore of REF_OBJECTS objects (525 train samples, so the CLIs keep
+# batches of REF_BATCH pairs; 10,500 val pairs, 41 batches); parity_eval's
+# bar (BASELINE.md)
+REF_LEAF = "testing_" + FLAGSHIP
+REF_OBJECTS, REF_BATCH = 1000, 256
+REF_TOLERANCE = 0.5
+# the op library at realistic sizes: a 10-sweep nuScenes cloud's size at
+# the lidar voxelization of BEVFusion's nuScenes TransFusion-L config
+# (voxel 0.075 x 0.075 x 0.2 m, range [-54, -54, -5, 54, 54, 3] m, 10
+# points a voxel, 120,000 voxels), 16 channels on the voxels, the
+# flagship's SA1 shape at OPS_CROPS crops; card against CPU, floats within
+# OPS_TOL of max(1, |CPU|), indices equal
+OPS_POINTS = 300_000
+OPS_VOXEL = (0.075, 0.075, 0.2)
+OPS_RANGE = (-54.0, -54.0, -5.0, 54.0, 54.0, 3.0)
+OPS_MAX_PTS, OPS_MAX_VOXELS, OPS_CHANNELS = 10, 120_000, 16
+OPS_CROPS, OPS_RADIUS = 256, 0.4
+OPS_TOL = 1e-5
+OPS_ITERS = 3
 
 
 def nbytes(*tensors) -> int:
@@ -3435,6 +3456,432 @@ def phase_tracker_zoo(card: str):
     return launches, [row], summary
 
 
+# ---- phase 14: the reference-checkpoint path and the rest of the ops -------
+
+def write_reference_pth(model, path: str) -> None:
+    """The model's weights as a released reference checkpoint would hold
+    them: reference names and layouts (Conv2d SA convs, a Conv1d
+    cov_final), BatchNorm's num_batches_tracked, the FP modules' convs and
+    BatchNorms that the reference builds and never runs, DDP's 'module.'
+    prefixes, mmcv's envelope."""
+    import torch
+    from point_cloud_reid_tpu_torch.convert import reference_state_dict
+    sd = {k: v.cpu() for k, v in reference_state_dict(model).items()}
+    g = torch.Generator().manual_seed(SEED)
+    for i in range(3):
+        sd[f"backbone.FP_modules.{i}.mlp_convs.0.weight"] = torch.randn(
+            64, 64, 1, generator=g)
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"backbone.FP_modules.{i}.mlp_bns.0.{leaf}"] = torch.rand(
+                64, generator=g)
+        sd[f"backbone.FP_modules.{i}.mlp_bns.0.num_batches_tracked"] = \
+            torch.tensor(0)
+    torch.save({"meta": {"epoch": 500}, "state_dict": {
+        "module." + k: v for k, v in sd.items()}}, path)
+
+
+def timed_evaluations():
+    """Time each Trainer.evaluate (synchronised) and its pairs; returns
+    (the list of (seconds, pairs), undo)."""
+    import torch
+    from point_cloud_reid_tpu_torch.train import loop
+    saved = loop.Trainer.evaluate
+    runs = []
+
+    def evaluate(self, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved(self, state)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0,
+                     len(self.val_loader) * self.val_loader.batch_size))
+        return out
+
+    loop.Trainer.evaluate = evaluate
+
+    def undo():
+        loop.Trainer.evaluate = saved
+    return runs, undo
+
+
+def parity_call(*argv) -> tuple:
+    """tools.parity_eval in this process: (exit code, its JSON)."""
+    import contextlib
+    import io
+    from point_cloud_reid_tpu_torch.tools import parity_eval
+    buf = io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            parity_eval.main(list(argv))
+        except SystemExit as e:
+            code = e.code
+    text = buf.getvalue()
+    return code, json.loads(text[text.rfind("{\n"):])
+
+
+def reference_flagship(card: str, every: dict, work: str) -> dict:
+    """The flagship testing leaf at full width from a seeded reference
+    .pth: tools.convert_checkpoint, the loaded model's logits on an eval
+    batch against the seeded model's (equal bit for bit), tools.test from
+    the converted checkpoint, and tools.parity_eval --pth at tools.test's
+    accuracy (delta 0, exit 0) and past the tolerance (exit 1)."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.data import (BatchLoader, SyntheticStore,
+                                                 build_pair_dataset)
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.tools import convert_checkpoint
+    from point_cloud_reid_tpu_torch.tools import test as test_cli
+    from point_cloud_reid_tpu_torch.train import to_device
+
+    cfg = get_experiment(REF_LEAF, set_options=list(KNOBS))
+    seeded = build_model(cfg["model"], device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED + 14))
+    pth = os.path.join(work, "reference.pth")
+    write_reference_pth(seeded, pth)
+    t0 = time.perf_counter()
+    ckpt = quiet(convert_checkpoint.main, [pth, REF_LEAF,
+                                           os.path.join(work, "converted")])
+    convert_s = time.perf_counter() - t0
+    loaded = build_model(cfg["model"], device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED + 15))
+    loaded.load_state_dict(torch.load(ckpt, map_location=DEVICE,
+                                      weights_only=True)["model"])
+    dcfg = cfg["dataset"]
+    store = SyntheticStore(num_objects=REF_OBJECTS, crop_size=(32, 32),
+                           class_names=list(dcfg["train"]["classes"]))
+    val = build_pair_dataset(dcfg["val"], store, store)
+    batch = to_device(next(iter(BatchLoader(val, REF_BATCH, shuffle=False))),
+                      DEVICE)
+    with torch.no_grad():
+        want = seeded(batch)["match_logits"]
+        got = loaded(batch)["match_logits"]
+    if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+        raise RuntimeError("reference path: the converted flagship's logits "
+                           "are not the seeded model's")
+    del seeded, loaded
+    torch.cuda.empty_cache()
+
+    data = ["--synthetic-objects", str(REF_OBJECTS), "--batch-size",
+            str(REF_BATCH), "--device", DEVICE]
+    for s in KNOBS:
+        data += ["--set", s]
+    runs, undo = timed_evaluations()
+    zero_counters()
+    try:
+        metrics = quiet(test_cli.main, [REF_LEAF, "--checkpoint", ckpt,
+                                        "--work-dir",
+                                        os.path.join(work, "test"), *data])
+        acc = 100.0 * metrics["val_match_acc"]
+        code, out = parity_call(REF_LEAF, "--pth", pth, "--expected-acc",
+                                repr(acc), "--work-dir",
+                                os.path.join(work, "parity"), *data)
+        bad_code, bad = parity_call(REF_LEAF, "--pth", pth, "--expected-acc",
+                                    repr(acc + 2 * REF_TOLERANCE), *data)
+    finally:
+        undo()
+    launches = {k: every[k].launches for k in ("fused_sa_convmax", "knn",
+                                               "linear_attention")}
+    if code != 0 or out.get("delta_pct") != 0.0 or not out.get("parity"):
+        raise RuntimeError(f"parity_eval at tools.test's accuracy: exit "
+                           f"{code}, {out}")
+    if bad_code != 1 or bad.get("parity") is not False:
+        raise RuntimeError(f"parity_eval past the tolerance: exit "
+                           f"{bad_code}, {bad}")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"reference path: a kernel was not launched "
+                           f"{launches}")
+    seconds = [s for s, _ in runs]
+    pairs = runs[0][1]
+    summary = dict(val_pairs=pairs, val_match_acc_pct=out["val_match_acc_pct"],
+                   delta_pct=out["delta_pct"], exit=code,
+                   exit_past_tolerance=bad_code,
+                   eval_seconds=seconds,
+                   eval_pairs_per_s=[pairs / s for s in seconds],
+                   convert_seconds=convert_s, launches=launches)
+    print(f"[reference] flagship from a reference .pth: logits equal the "
+          f"seeded model's on {REF_BATCH} pairs; tools.test "
+          f"{acc:.3f} %, parity_eval delta {out['delta_pct']} (exit {code}), "
+          f"past the tolerance exit {bad_code}; eval {pairs} pairs, "
+          f"{[round(pairs / s, 1) for s in seconds]} pairs/s (tools.test, "
+          f"parity_eval x2); convert {convert_s:.2f} s; launches {launches} "
+          f"on {card}", flush=True)
+    return summary
+
+
+def reference_deit(card: str) -> dict:
+    """DeiT-tiny at full width from a seeded HF-named state dict under
+    backbone.deit. (with the teacher's classifier and pooler and the cross
+    stages' dead pos_mlp): load_image_reference_state_dict, then the
+    loaded model's logits against the seeded model's, bit for bit."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import get_experiment
+    from point_cloud_reid_tpu_torch.convert import (
+        load_image_reference_state_dict, reference_state_dict)
+    from point_cloud_reid_tpu_torch.models import build_model
+    cfg = get_experiment(IMAGE_LEAF)["model"]
+    seeded = build_model(cfg, device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED + 16))
+    sd = {k.replace("backbone.", "backbone.deit.", 1): v.cpu().numpy()
+          for k, v in reference_state_dict(seeded).items()}
+    rs = np.random.RandomState(SEED)
+    dim, d = 192, cfg["cross_lin_attn"]["d_model"]
+    for name, shape in (("cls_classifier.weight", (1000, dim)),
+                        ("cls_classifier.bias", (1000,)),
+                        ("distillation_classifier.weight", (1000, dim)),
+                        ("distillation_classifier.bias", (1000,)),
+                        ("deit.pooler.dense.weight", (dim, dim))):
+        sd["backbone." + name] = rs.randn(*shape).astype(np.float32)
+    for i in (1, 2):
+        sd[f"cross_stage{i}.pos_mlp.0.weight"] = rs.randn(d, 3).astype(
+            np.float32)
+        sd[f"cross_stage{i}.pos_mlp.2.weight"] = rs.randn(d, d).astype(
+            np.float32)
+    loaded = build_model(cfg, device=DEVICE,
+                         generator=torch.Generator().manual_seed(SEED + 17))
+    t0 = time.perf_counter()
+    report = load_image_reference_state_dict(loaded, sd)
+    load_s = time.perf_counter() - t0
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    size = cfg.get("image_size", 224)
+    batch = {k: torch.randn((IMAGE_PAIRS, 3, size, size), generator=g,
+                            device=DEVICE) for k in ("sparse_1", "sparse_2")}
+    with torch.no_grad():
+        want = seeded(batch)["match_logits"]
+        got = loaded(batch)["match_logits"]
+    if report != {"unmatched_torch": [], "unfilled_flax": []} or not (
+            torch.equal(got, want) and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"reference path: DeiT-tiny from HF names: "
+                           f"report {report}, logits equal "
+                           f"{torch.equal(got, want)}")
+    print(f"[reference] DeiT-tiny from {len(sd)} HF-named tensors: logits "
+          f"equal the seeded model's on {IMAGE_PAIRS} pairs; load "
+          f"{load_s:.2f} s on {card}", flush=True)
+    return dict(tensors=len(sd), pairs=IMAGE_PAIRS, load_seconds=load_s)
+
+
+def lidar_cloud(n: int, seed: int) -> np.ndarray:
+    """(n, 5) x, y, z, intensity, sweep lag of ten aggregated sweeps: half
+    the points are a static scene seen in every sweep (each sweep's return
+    within 1 cm of the last, so a voxel collects up to ten returns of a
+    point and more of its neighbours'), half are seen once (moving objects,
+    new returns). Ground returns are denser near the sensor (some past the
+    range), the rest fall in 300 car-sized clusters, a few above and below
+    the z range."""
+    rs = np.random.RandomState(seed)
+
+    def scene(m):
+        n_obj = m * 3 // 10
+        r = 1.5 + 60.0 * rs.rand(m - n_obj) ** 1.6
+        a = rs.rand(m - n_obj) * 2 * np.pi
+        ground = np.stack([r * np.cos(a), r * np.sin(a),
+                           -1.8 + 0.05 * rs.randn(m - n_obj)], 1)
+        centers = rs.uniform(-50, 50, (300, 2))
+        obj = np.concatenate([centers[rs.randint(0, 300, n_obj)],
+                              np.full((n_obj, 1), -0.95)], 1) \
+            + (rs.rand(n_obj, 3) - 0.5) * [4.5, 2.0, 1.7]
+        return np.concatenate([ground, obj])
+
+    sweeps = 10
+    static = scene(n // 2 // sweeps)
+    xyz = np.concatenate(
+        [static + 0.01 * rs.randn(*static.shape) for _ in range(sweeps)]
+        + [scene(n - sweeps * len(static))])
+    lag = np.concatenate([np.full(len(static), k * 0.05)
+                          for k in range(sweeps)]
+                         + [rs.randint(0, sweeps, n - sweeps * len(static))
+                            * 0.05])
+    xyz[rs.randint(0, n, 200), 2] = rs.choice([-6.0, 4.0], 200)
+    return np.concatenate([xyz, np.stack([rs.rand(n), lag], 1)],
+                          1).astype(np.float32)
+
+
+def op_check(label: str, fn, cpu_args, dev_args, results: dict) -> tuple:
+    """fn on the CPU and on the card on the same inputs: every output equal
+    (integer and bool) or within OPS_TOL of max(1, |CPU|) (float); the
+    card's call timed (CUDA events around calls from Python). Returns
+    (the CPU outputs, the card's outputs)."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    want = fn(*cpu_args)
+    got = fn(*dev_args)
+    many = isinstance(want, tuple)
+    pairs = zip(want, got) if many else [(want, got)]
+    err = 0.0
+    for w, g in pairs:
+        g = g.cpu()
+        if w.shape != g.shape or w.dtype != g.dtype:
+            raise RuntimeError(f"ops: {label}: {tuple(g.shape)} {g.dtype} "
+                               f"against {tuple(w.shape)} {w.dtype}")
+        if w.dtype.is_floating_point:
+            e = ((g.double() - w.double()).abs()
+                 / w.double().abs().clamp(min=1.0))
+            e = e.max().item() if e.numel() else 0.0
+            if not e <= OPS_TOL:
+                raise RuntimeError(f"ops: {label}: error {e:.3g} > {OPS_TOL}")
+            err = max(err, e)
+        elif not torch.equal(g, w):
+            raise RuntimeError(f"ops: {label}: indices differ from the CPU's")
+    ms = time_ms(lambda: fn(*dev_args), OPS_ITERS, warmup=1)
+    results[label] = dict(ms=ms, max_rel_err=err)
+    return want, got
+
+
+def reference_ops(card: str) -> dict:
+    """The ops of items 4-8 at realistic sizes on the card against the
+    same call on the CPU."""
+    import torch
+    from point_cloud_reid_tpu_torch import ops
+    results: dict = {}
+    dev = torch.device(DEVICE)
+
+    def both(*arrays):
+        cpu = [torch.from_numpy(np.ascontiguousarray(a)) if isinstance(
+            a, np.ndarray) else a for a in arrays]
+        return cpu, [a.to(dev) if torch.is_tensor(a) else a for a in cpu]
+
+    # voxels: a 10-sweep cloud at TransFusion-L's nuScenes lidar settings
+    pts = lidar_cloud(OPS_POINTS, SEED)
+    c, d = both(pts)
+    vox, vox_dev = op_check("voxelize_hard", ops.voxelize_hard,
+                            c + [OPS_VOXEL, OPS_RANGE, OPS_MAX_PTS,
+                                 OPS_MAX_VOXELS],
+                            d + [OPS_VOXEL, OPS_RANGE, OPS_MAX_PTS,
+                                 OPS_MAX_VOXELS], results)
+    voxels, coords, num_points, num_voxels = vox
+    pts_t = torch.from_numpy(pts)
+    lo = torch.tensor(OPS_RANGE[:3])
+    hi = torch.tensor(OPS_RANGE[3:])
+    vs = torch.tensor(OPS_VOXEL)
+    grid = torch.floor((hi - lo) / vs).long()
+    cell = torch.floor((pts_t[:, :3] - lo) / vs).long()
+    inside = ((cell >= 0) & (cell < grid)).all(1)
+    lin = (cell[:, 2] * grid[1] + cell[:, 1]) * grid[0] + cell[:, 0]
+    uniq, inv = torch.unique(lin[inside], return_inverse=True)
+    ids = torch.full((OPS_POINTS,), -1, dtype=torch.long)
+    ids[inside] = inv
+    c, d = both(pts, ids)
+    op_check("dynamic_scatter_mean", ops.dynamic_scatter_mean,
+             c + [uniq.numel()], d + [uniq.numel()], results)
+    occupied = int(uniq.numel())
+
+    # sparse convs on those voxels, 16 channels
+    rs = np.random.RandomState(SEED + 1)
+    valid = num_points > 0
+    feats = torch.from_numpy(rs.randn(OPS_MAX_VOXELS, OPS_CHANNELS).astype(
+        np.float32)) * valid[:, None]
+    w_sub, w_str = (
+        (rs.randn(27, OPS_CHANNELS, OPS_CHANNELS) / np.sqrt(
+            27 * OPS_CHANNELS)).astype(np.float32) for _ in range(2))
+    bias = rs.randn(OPS_CHANNELS).astype(np.float32)
+    shape = tuple(int(v) for v in grid.flip(0))             # (z, y, x)
+    c, d = both(feats, coords, valid, w_sub, bias)
+    op_check("submanifold_conv3d", ops.submanifold_conv3d, c, d, results)
+    c, d = both(feats, coords, valid, w_str)
+    strided, strided_dev = op_check(
+        "sparse_conv3d", lambda f, co, v, w: ops.sparse_conv3d(
+            f, co, v, w, stride=2, padding=1, spatial_shape=shape), c, d,
+        results)
+    op_check("sparse_maxpool3d", lambda f, co, v: ops.sparse_maxpool3d(
+        f, co, v, 2), c[:3], d[:3], results)
+    pooled = ops.sparse_maxpool3d(*c[:3], 8)
+    pooled_dev = ops.sparse_maxpool3d(*d[:3], 8)
+    dense_shape = tuple((s - 1) // 8 + 1 for s in shape)
+    op_check("to_dense", lambda f, co, v: ops.to_dense(f, co, v, dense_shape),
+             list(pooled), list(pooled_dev), results)
+    ranks = torch.where(valid, coords[:, 1].long() * shape[2]
+                        + coords[:, 2].long(), -1)
+    c, d = both(feats, ranks)
+    op_check("bev_pool", ops.bev_pool, c + [shape[1] * shape[2]],
+             d + [shape[1] * shape[2]], results)
+
+    # the flagship's SA1 shape at OPS_CROPS crops of 128 points, on a grid
+    # of 1/8 m: squared distances are exact on both sides, so ties and the
+    # radius test decide alike
+    crops = np.round(rs.randn(OPS_CROPS, 128, 3) * 0.6 * 8) / 8
+    crops = crops.astype(np.float32)
+    feats64 = rs.randn(OPS_CROPS, 128, 64).astype(np.float32)
+    c, d = both(crops)
+    idx, idx_dev = op_check(
+        "query_ball_point", lambda x: ops.query_ball_point(
+            OPS_RADIUS, 32, x, x), c, d, results)
+    c, d = both(feats64, idx)
+    c[1], d[1] = idx, idx_dev
+    op_check("group_points", ops.group_points, c, d, results)
+    c, d = both(crops, np.ascontiguousarray(crops[:, :64]))
+    (dist, nn), (dist_dev, nn_dev) = op_check("three_nn", ops.three_nn, c, d,
+                                              results)
+    inv_d = 1.0 / (dist * dist + 1e-8)
+    weight = inv_d / inv_d.sum(-1, keepdim=True)
+    feats128 = rs.randn(OPS_CROPS, 64, 128).astype(np.float32)
+    c, d = both(feats128, nn, weight)
+    c[1], d[1], d[2] = nn, nn_dev, weight.to(dev)
+    op_check("three_interpolate", ops.three_interpolate, c, d, results)
+
+    # the shape loss's shape: 2 x 256 crops of 128 predicted points against
+    # 2048-point dense targets
+    x = (np.round(rs.randn(2 * OPS_CROPS, 128, 3) * 8) / 8).astype(np.float32)
+    y = (np.round(rs.randn(2 * OPS_CROPS, 2048, 3) * 8) / 8).astype(np.float32)
+    c, d = both(x, y)
+    op_check("chamfer_distance", ops.chamfer_distance, c, d, results)
+
+    # Boxes3D at 512 boxes
+    boxes = np.concatenate([rs.uniform(-50, 50, (512, 2)),
+                            rs.uniform(-2, 0, (512, 1)),
+                            rs.uniform(1, 5, (512, 3)),
+                            rs.uniform(-np.pi, np.pi, (512, 1))], 1)
+    boxes[256:, :2] = boxes[:256, :2] + rs.randn(256, 2)   # overlaps
+    scores = rs.rand(512).astype(np.float32)
+    c, d = both(boxes.astype(np.float32), scores)
+    op_check("Boxes3D.iou_bev", lambda b: ops.Boxes3D(b).iou_bev(
+        ops.Boxes3D(b)), c[:1], d[:1], results)
+    op_check("Boxes3D.iou_3d", lambda b: ops.Boxes3D(b).iou_3d(
+        ops.Boxes3D(b)), c[:1], d[:1], results)
+    op_check("Boxes3D.nms", lambda b, s: ops.Boxes3D(b).nms(s, 0.5), c, d,
+             results)
+
+    summary = dict(points=OPS_POINTS, occupied_voxels=occupied,
+                   kept_voxels=int(num_voxels),
+                   full_voxels=int((num_points == OPS_MAX_PTS).sum()),
+                   strided_sites=int(strided[2].sum()), ops=results)
+    print(f"[reference] ops on {card} against the CPU (ms on the card): "
+          f"{OPS_POINTS} points, {occupied} occupied voxels, "
+          f"{int(num_voxels)} kept, {summary['full_voxels']} full, "
+          f"{summary['strided_sites']} strided sites; "
+          + ", ".join(f"{k} {v['ms']:.3f}" for k, v in results.items()),
+          flush=True)
+    return summary
+
+
+def phase_reference(card: str):
+    """Phase 14: the reference-checkpoint path and the rest of the op
+    library. Returns (the path's launches, a summary)."""
+    import shutil
+    import torch
+    t_phase = time.perf_counter()
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_reference")
+    os.makedirs(work, exist_ok=True)
+    every = zero_counters()
+    try:
+        flagship = reference_flagship(card, every, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {name: fn.launches for name, fn in every.items()}
+    torch.cuda.empty_cache()
+    deit = reference_deit(card)
+    torch.cuda.empty_cache()
+    op_summary = reference_ops(card)
+    torch.cuda.empty_cache()
+    summary = dict(flagship=flagship, deit=deit, ops=op_summary,
+                   seconds=time.perf_counter() - t_phase)
+    print(f"[reference] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase took "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -3473,11 +3920,14 @@ def main():
     tracker_zoo, tracker_zoo_rows, tracker_zoo_summary = phase_tracker_zoo(
         card)
     rows += tracker_zoo_rows
+    torch.cuda.empty_cache()
+    reference, reference_summary = phase_reference(card)
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
-            data_path, family, bf16_path, bf16_training, zoo, tracker_zoo))
+            data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
+            reference))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -3485,7 +3935,8 @@ def main():
                       "family": family_summary, "bf16": bf16_summary,
                       "bf16_training": bf16_training_summary,
                       "zoo": zoo_summary,
-                      "tracker_zoo": tracker_zoo_summary}))
+                      "tracker_zoo": tracker_zoo_summary,
+                      "reference": reference_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ HF-named weights under the 'backbone.' prefix:
 Both sides are torch layouts, so nothing is transposed; q, k and v are
 concatenated into the fused projection in that order (BEiT has no key bias:
 zeros). The relative-position index and the pooler are not weights of the
-port and are skipped.
+port and are skipped. hf_vit_state_dict is the inverse: a port ViT's
+weights under the HF names, what a dry run of the reference-checkpoint
+path writes in place of a released file.
 """
 from __future__ import annotations
 
@@ -113,3 +115,38 @@ def convert_hf_vit_state_dict(sd: Dict[str, np.ndarray], vit: torch.nn.Module,
         put(f"blocks.{i}.attn.qkv.weight", tag, torch.cat(weights, dim=0))
         put(f"blocks.{i}.attn.qkv.bias", tag, torch.cat(biases, dim=0))
     return unmatched
+
+
+_SHARED_REL_TABLE = "encoder.relative_position_bias.relative_position_bias_table"
+
+
+def hf_vit_state_dict(vit: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The port ViT's weights under HF DeiT / BEiT names (copies): the
+    inverse of convert_hf_vit_state_dict, the fused q, k, v projection
+    split into query / key / value (a zero key bias included)."""
+    direct = {v: k for k, v in _DIRECT.items()}
+    layer = {v: k for k, v in _LAYER.items()}
+    out: Dict[str, torch.Tensor] = {}
+    for name, value in vit.state_dict().items():
+        value = value.detach().clone()
+        m = re.match(r"blocks\.(\d+)\.(.*)\.(weight|bias)$", name)
+        g = re.match(r"blocks\.(\d+)\.gamma_([12])$", name)
+        if name in direct:
+            out[direct[name]] = value
+        elif name in ("norm.weight", "norm.bias"):
+            out["layernorm." + name.split(".")[1]] = value
+        elif name == "rel_pos_table":
+            out[_SHARED_REL_TABLE] = value
+        elif g:
+            out[f"encoder.layer.{g.group(1)}.lambda_{g.group(2)}"] = value
+        elif m and m.group(2) == "attn.qkv":
+            pre = f"encoder.layer.{m.group(1)}.attention.attention."
+            for part, v in zip(("query", "key", "value"),
+                               value.chunk(3, dim=0)):
+                out[pre + f"{part}.{m.group(3)}"] = v.clone()
+        elif m and m.group(2) in layer:
+            out[f"encoder.layer.{m.group(1)}.{layer[m.group(2)]}."
+                f"{m.group(3)}"] = value
+        else:
+            raise ValueError(f"no HF name for the ViT tensor {name}")
+    return out

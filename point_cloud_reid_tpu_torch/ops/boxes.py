@@ -142,14 +142,27 @@ def _polygon_area(verts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 def boxes_overlap_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor
                       ) -> torch.Tensor:
     """Exact rotated BEV overlap areas, (N, 7) x (M, 7) -> (N, M): every
-    pair's corner quads clipped in one batched pass."""
+    pair's corner quads clipped in one batched pass.
+
+    Each pair is clipped about box a's centre: corners about their own
+    centres, b's placed at the difference of the centres, which float32
+    gives exactly for boxes near enough to overlap. (The JAX package clips
+    in lidar coordinates, where the edge lines' cross products cancel: at
+    50 m from the sensor its IoU moves by 5e-5 with the rounding of the
+    corners.)"""
     N, M = boxes_a.shape[0], boxes_b.shape[0]
     if N == 0 or M == 0:
         return boxes_a.new_zeros((N, M))
-    ca = box_corners_bev(boxes_a)                                # (N,4,2)
-    cb = box_corners_bev(boxes_b)                                # (M,4,2)
+
+    def local_corners(boxes):
+        return box_corners_bev(torch.cat([torch.zeros_like(boxes[:, :2]),
+                                          boxes[:, 2:]], dim=1))
+
+    ca = local_corners(boxes_a)                                  # (N,4,2)
+    cb = local_corners(boxes_b)                                  # (M,4,2)
+    rel = boxes_b[None, :, :2] - boxes_a[:, None, :2]            # (N,M,2)
     sub = ca[:, None].expand(N, M, 4, 2).reshape(N * M, 4, 2)
-    clp = cb[None].expand(N, M, 4, 2).reshape(N * M, 4, 2)
+    clp = (cb[None] + rel[:, :, None, :]).reshape(N * M, 4, 2)
     verts, n = _polygon_clip(sub, clp)
     return _polygon_area(verts, n).reshape(N, M)
 

@@ -1,11 +1,12 @@
-"""Point-set ops on the tracker's path.
+"""Point-set ops, the port of point_cloud_reid_tpu/ops/geometry.py.
 
-Port of the parts of point_cloud_reid_tpu/ops/geometry.py the point models
-use: squared distances, stable-argsort kNN, RANDOM (first-n) and FPS
-(farthest point) centre sampling, the gather, the SA stage's conv1 factors,
-and DGCNN's feature-space kNN and edge features. The JAX
-package's one-hot-matmul gather is a TPU workaround; here the gather is
-torch.gather.
+Squared distances, stable-argsort kNN, RANDOM (first-n) and FPS (farthest
+point) centre sampling, the gather, the SA stage's conv1 factors, DGCNN's
+feature-space kNN and edge features, and the rest of the reference's point
+utilities in plain PyTorch: FPS over a distance matrix, the ball query and
+grouping, three-NN inverse-distance interpolation, the single global group,
+the device-side resample and the chamfer distance. The JAX package's
+one-hot-matmul gather is a TPU workaround; here the gather is torch.gather.
 """
 from __future__ import annotations
 
@@ -175,21 +176,24 @@ def sample_and_group_edge(nsample: int, xyz: torch.Tensor,
                           points: Optional[torch.Tensor], numpoints: int,
                           sampling: str = "RANDOM", use_knn: bool = True,
                           knn_method: str = "argsort",
-                          fps_start: Optional[torch.Tensor] = None
+                          fps_start: Optional[torch.Tensor] = None,
+                          radius: float = 0.0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample centres, group kNN neighbourhoods and build the edge features
+    """Sample centres, group kNN (or ball-query) neighbourhoods and build
+    the edge features
     [grouped_xyz - centre_xyz || centre_feat || grouped_feat - centre_feat].
 
     xyz (B, N, 3); points (B, N, D) or None -> new_xyz (B, S, 3),
     new_points (B, S, K, 3 [+ 2D]). sampling is 'RANDOM' (first-n) or 'FPS'
     (from fps_start (B,), or from point 0, as the JAX function without a
-    key); the ball query waits for the rest of the ops (M7).
+    key); use_knn=False groups by query_ball_point(radius).
     """
-    if not use_knn:
-        raise NotImplementedError("ball query is not ported yet (M7)")
     fps_idx = sample_centers(xyz, numpoints, sampling, fps_start)
     new_xyz = index_points(xyz, fps_idx)
-    idx = knn_indices(nsample, xyz, new_xyz, method=knn_method)
+    if use_knn:
+        idx = knn_indices(nsample, xyz, new_xyz, method=knn_method)
+    else:
+        idx = query_ball_point(radius, nsample, xyz, new_xyz)
     grouped_xyz_norm = index_points(xyz, idx) - new_xyz[:, :, None, :]
     if points is None:
         return new_xyz, grouped_xyz_norm
@@ -199,3 +203,122 @@ def sample_and_group_edge(nsample: int, xyz: torch.Tensor,
         [grouped_xyz_norm, center[:, :, None, :].expand_as(grouped),
          grouped - center[:, :, None, :]], dim=-1)
     return new_xyz, new_points
+
+
+def farthest_point_sample_with_dist(dist: torch.Tensor, npoint: int,
+                                    start: Optional[torch.Tensor] = None
+                                    ) -> torch.Tensor:
+    """FPS over a precomputed (B, N, N) distance matrix -> (B, npoint) int64
+    indices (the reference's FurthestPointSamplingWithDist): from `start`
+    (B,) or point 0, each step takes the first of the points farthest from
+    the chosen set."""
+    B, N, _ = dist.shape
+    farthest = (torch.zeros((B,), dtype=torch.int64, device=dist.device)
+                if start is None else start.long())
+    running = torch.full((B, N), 1e10, dtype=dist.dtype, device=dist.device)
+    centroids = torch.empty((B, npoint), dtype=torch.int64,
+                            device=dist.device)
+    rows = torch.arange(B, device=dist.device)
+    for i in range(npoint):
+        centroids[:, i] = farthest
+        running = torch.minimum(running, dist[rows, farthest])
+        farthest = torch.argmax(running, dim=-1)
+    return centroids
+
+
+def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """Fixed-radius neighbours with first-k fill: (B, S, nsample) int64
+    indices of the in-radius points of each query in index order; the slots
+    past the in-radius count repeat the first one, and a query with no
+    point in radius gets N (the JAX function's sentinel, which index_points
+    clamps to the last point)."""
+    N = xyz.shape[1]
+    d = square_distance(new_xyz, xyz)
+    arange = torch.arange(N, device=xyz.device).expand_as(d)
+    group_idx = torch.where(d > radius * radius, N, arange)
+    group_idx = torch.sort(group_idx, dim=-1).values[..., :nsample]
+    first = group_idx[..., :1].expand_as(group_idx)
+    return torch.where(group_idx == N, first, group_idx)
+
+
+def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbour features: (B, N, C), (B, S, K) -> (B, S, K, C)."""
+    return index_points(points, idx)
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3 nearest `known` points (B, M, 3) of each `unknown` query
+    (B, N, 3): (dist (B, N, 3) euclidean, idx (B, N, 3) int64), nearest
+    first, the lower index first among equal distances (lax.top_k's
+    order)."""
+    d = square_distance(unknown, known)
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return torch.sqrt(torch.clamp(vals[..., :3], min=0.0)), idx[..., :3]
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of three neighbours' features: features (B, M, C), idx
+    and weight (B, N, 3) -> (B, N, C)."""
+    return torch.sum(index_points(features, idx) * weight[..., None], dim=2)
+
+
+def interpolate_idw(unknown: torch.Tensor, known: torch.Tensor,
+                    features: torch.Tensor, eps: float = 1e-8
+                    ) -> torch.Tensor:
+    """3-NN inverse-squared-distance interpolation of `features` (B, M, C)
+    at the `unknown` points (B, N, 3) -> (B, N, C)."""
+    dist, idx = three_nn(unknown, known)
+    inv = 1.0 / (dist * dist + eps)
+    weight = inv / torch.sum(inv, dim=-1, keepdim=True)
+    return three_interpolate(features, idx, weight)
+
+
+def sample_and_group_all(xyz: torch.Tensor, points: Optional[torch.Tensor]
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One global group: new_xyz (B, 1, C) zeros, new_points (B, 1, N,
+    C [+ D]) = [xyz || points]."""
+    B, _, C = xyz.shape
+    new_xyz = torch.zeros((B, 1, C), dtype=xyz.dtype, device=xyz.device)
+    grouped_xyz = xyz[:, None]
+    if points is None:
+        return new_xyz, grouped_xyz
+    return new_xyz, torch.cat([grouped_xyz, points[:, None]], dim=-1)
+
+
+def subsample_pc(generator: Optional[torch.Generator], pc: torch.Tensor,
+                 num_valid, subsample_number: int) -> torch.Tensor:
+    """Resample-with-replacement on the device: `subsample_number` rows
+    drawn uniformly from the first num_valid rows of the padded cloud pc
+    (N_max, 3); a cloud of fewer than 3 valid points becomes zeros. The
+    draw is torch's (generator on pc's device), not jax.random's stream."""
+    n = max(int(num_valid), 1)
+    idx = torch.randint(0, n, (subsample_number,), generator=generator,
+                        device=pc.device)
+    out = pc[idx]
+    return out if int(num_valid) >= 3 else torch.zeros_like(out)
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor,
+                     x_mask: Optional[torch.Tensor] = None,
+                     y_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Symmetric squared chamfer distance, mean over the batch: x (B, N, 3),
+    y (B, M, 3), optional boolean masks (B, N) / (B, M) of the points that
+    count (pytorch3d's chamfer_distance, as the reference's shape loss)."""
+    d = square_distance(x, y)
+    big = torch.tensor(1e10, dtype=d.dtype, device=d.device)
+    if y_mask is not None:
+        d = torch.where(y_mask[:, None, :], d, big)
+    d_t = d if x_mask is None else torch.where(x_mask[:, :, None], d, big)
+    min_xy = d.amin(dim=-1)
+    min_yx = d_t.amin(dim=-2)
+
+    def mean(v, mask):
+        if mask is None:
+            return v.mean(dim=-1)
+        m = mask.to(v.dtype)
+        return (v * m).sum(-1) / torch.clamp(m.sum(-1), min=1)
+
+    return torch.mean(mean(min_xy, x_mask) + mean(min_yx, y_mask))

@@ -31,6 +31,7 @@ for n in names:
 print(json.dumps(dict(n=len(names), names=names, jax='jax' in sys.modules,
                       flax='flax' in sys.modules,
                       optax='optax' in sys.modules,
+                      matplotlib='matplotlib' in sys.modules,
                       jax_pkg=any(m.startswith('point_cloud_reid_tpu.')
                                   for m in sys.modules))))
 """
@@ -125,7 +126,10 @@ NEW_MODULES = {
     "tools.dump_val_pairs", "tools.import_reference_store",
     "tools.profile_loader", "utils.cache", "utils.profiling",
     "models.pointnet", "models.dgcnn", "models.loftr",
-    "models.vector_neurons", "models.node_pooling", "configs.zoo"}
+    "models.vector_neurons", "models.node_pooling", "configs.zoo",
+    "convert.torch_checkpoint", "ops.voxel", "ops.sparse", "ops.boxes3d",
+    "tools.convert_checkpoint", "tools.parity_eval", "tools.acc_plots",
+    "tools.tracking_plots", "tools.launcher"}
 # the CUDA sources the bf16 serving path adds beside the float32 ones
 BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 
@@ -143,6 +147,9 @@ def test_port_imports_no_jax_or_flax():
     have = {n.split(".", 1)[1] for n in out["names"]}
     assert NEW_MODULES <= have, NEW_MODULES - have
     assert not (out["jax"] or out["flax"] or out["optax"] or out["jax_pkg"])
+    # the plot tools import matplotlib when they draw: the card's machine
+    # has none
+    assert not out["matplotlib"]
 
 
 def test_bf16_kernel_sources_are_built_with_the_others():
@@ -319,10 +326,13 @@ def test_cpu_wrappers_never_touch_the_cuda_library():
      "--bf16"],
     ["-m", "point_cloud_reid_tpu_torch.tools.profile_train", "--bf16",
      "--experiment", "rgb_deit-tiny_point-cat_r_nus_det_4x60_200e"],
+    ["-m", "point_cloud_reid_tpu_torch.tools.parity_eval",
+     "testing_" + FLAGSHIP, "--pth", "no-such-file.pth"],
 ], ids=["train", "profile_train", "track", "profile_tracker", "chip_smoke",
         "track_image", "profile_tracker_image", "test", "train_root",
         "profile_loader", "track_bf16", "track_image_bf16",
-        "train_image_bf16", "test_bf16", "profile_train_image_bf16"])
+        "train_image_bf16", "test_bf16", "profile_train_image_bf16",
+        "parity_eval"])
 def test_entry_points_default_to_cuda_and_stop_without_a_card(argv):
     import torch
     if torch.cuda.is_available():

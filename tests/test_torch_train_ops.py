@@ -125,10 +125,19 @@ def test_sample_and_group_edge_matches_jax(with_points):
 
 
 @pytest.mark.parametrize("kw,err", [
-    (dict(sampling="FPS", use_knn=False), NotImplementedError),
-    (dict(use_knn=False), NotImplementedError),
+    (dict(sampling="FPS", use_knn=False, radius=0.8), None),
+    (dict(use_knn=False, radius=0.8), None),
     (dict(sampling="GRID"), ValueError)])
 def test_sample_and_group_edge_unported_modes_raise(kw, err):
-    x = torch.zeros((1, 8, 3))
-    with pytest.raises(err):
-        tgeo.sample_and_group_edge(4, x, None, 4, **kw)
+    """An unknown sampling raises; the ball-query modes compute as JAX's
+    (FPS from point 0, as the JAX function without a key)."""
+    x = np.random.RandomState(5).randn(1, 8, 3).astype(np.float32)
+    if err is not None:
+        with pytest.raises(err):
+            tgeo.sample_and_group_edge(4, torch.from_numpy(x), None, 4, **kw)
+        return
+    jx, jp = jgeo.sample_and_group_edge(4, jnp.asarray(x), None, 4, **kw)
+    tx, tp = tgeo.sample_and_group_edge(4, torch.from_numpy(x), None, 4, **kw)
+    np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+    np.testing.assert_allclose(tp.numpy(), np.asarray(jp), rtol=1e-6,
+                               atol=1e-6)
