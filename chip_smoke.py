@@ -158,6 +158,32 @@ Phases, each of which raises on failure:
      stages' shape (one query, 32 keys; LOCAL_ATTN_ROWS rows) against its
      plain version, forward and gradients (ATTN_TOL), with its times and
      bound: the kernels line's row `linear_attention/one_query`.
+ 14. the reference-checkpoint path: the flagship testing leaf from a
+     seeded reference .pth through tools/convert_checkpoint.py, tools/
+     test.py and tools/parity_eval.py, DeiT-tiny from HF names, and the op
+     library at realistic sizes against the same calls on the CPU;
+ 15. multi-GPU on one card, with every count at 0: (a) two gloo ranks on
+     cuda:0 (torch.multiprocessing.spawn, a FileStore in a temporary
+     directory, DP_TIMEOUT on init and join) train the flagship with the
+     knobs on through Trainer.fit, DP_PAIRS pairs a rank, DP_STEPS steps,
+     against one process on the same global batches (step 1's loss and
+     grad_norm to TRAIN_TOL, the running statistics after step 1 to
+     DP_STAT_TOL; after the last step the weights' updates to
+     DP_UPDATE_TOL, the SA convs' biases to 2 x the learning rates spent,
+     the running variances to DP_VAR_TOL); rank 0 alone writes
+     the checkpoint; the two ranks' eval of it against one process's
+     (EVAL_TOL, the same pair count); each rank's kNN, attention and SA
+     launches; (b) tools/train.py under torchrun --standalone
+     --nproc_per_node 1 for one epoch on phase 8's store: its process
+     group is NCCL; (c) a scorer on a two-entry mesh (cuda:0 twice) behind
+     TrackingManager.step, point scene dense and sparse at float32 and
+     bf16, image scene dense and sparse: each frame's logits against the
+     unsharded scoring of the frame's own inputs (MATCH_TOL, BF16_TOL at
+     bf16), the sharded embed against the unsharded one, step ms beside the
+     unsharded scorer's, launches per mesh entry; (d) fused_train and
+     remat_stages [0, 1, 2] steps of the flagship at TRAIN_PAIRS pairs,
+     step 1 against phase 4's (TRAIN_TOL; REMAT_TOL for remat_stages), step
+     ms and peak GiB beside phase 4's.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -176,6 +202,7 @@ Without a CUDA device it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -236,6 +263,8 @@ DATA_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 EVAL_TOL = 1e-4
 # median train-step ms of phase 4, by phase_training
 TRAIN_MS = {}
+# phase 8's tools/train.py run: median step ms and mean loader wait ms
+DATA_MS = {}
 DEVICE = "cuda"
 PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 PEAK_TF32 = 495e12     # H100 SXM, TF32 on the tensor cores, dense
@@ -338,6 +367,36 @@ OPS_MAX_PTS, OPS_MAX_VOXELS, OPS_CHANNELS = 10, 120_000, 16
 OPS_CROPS, OPS_RADIUS = 256, 0.4
 OPS_TOL = 1e-5
 OPS_ITERS = 3
+# phase 15, multi-GPU on one card. Two gloo ranks share cuda:0 (NCCL does
+# not put two ranks of one communicator on one card): DP_PAIRS pairs a rank
+# a step, the flagship at full width with the kernel knobs on. Against one
+# process on the same global batches, in float32 (dp_gaps): step 1's loss
+# and grad_norm at TRAIN_TOL, the running statistics after step 1 at
+# DP_STAT_TOL of max(1, |one process|). After the last step, every weight
+# but the SA convs' biases through the updates' gap (the 2-norm of the two
+# runs' difference over that of one process's update) at DP_UPDATE_TOL,
+# and the running variances at DP_VAR_TOL of max(1, |one process|). Adam
+# moves an entry by about lr a step whatever its gradient's size, so an
+# entry whose gradient is mostly rounding may move either way: one entry in
+# a thousand does (7.3e-3 of max(1, |w|) at most), as much in a world-1
+# group (the data-parallel step on one rank, no collective that can be
+# wrong: gap 2.1e-2, running variances 4.5e-4) as on two ranks (2.9e-2,
+# 4.6e-4), and one process against itself, which is not bit-reproducible,
+# gives 2.2e-3 (H100, 700 W). A wrong shard or reduction moves most
+# entries: rank 0's rows alone with no reduction give a gap of 0.94 (4.8M of
+# 7.3M entries off by more than lr spent / 10, running variances 3.9e-2).
+# The SA convs' biases each feed a BatchNorm, which
+# cancels them, so all of their gradient is rounding: they are held within
+# 2 x the learning rates spent, and the running means, which such a move
+# shifts, are printed.
+DP_RANKS, DP_PAIRS, DP_STEPS, DP_EVAL_BATCHES = 2, 128, 3, 2
+DP_TIMEOUT = 240        # s, each rank's process-group init and the join
+DP_STAT_TOL = 1e-4
+DP_UPDATE_TOL = 0.1     # measured 2.9e-2; no reduction 0.94
+DP_VAR_TOL = 1e-3       # measured 4.6e-4, a world-1 group 4.5e-4
+DP_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_dp")
+MESH_ENTRIES = 2
 
 
 def nbytes(*tensors) -> int:
@@ -1787,6 +1846,8 @@ def phase_data_path(card: str):
                  loader_wait_ms=waits,
                  mean_loader_wait_ms=float(np.mean(waits)),
                  phase4_median_step_ms=TRAIN_MS.get("median"))
+    DATA_MS.update(step=train["median_step_ms"],
+                   wait=train["mean_loader_wait_ms"])
     print(f"[data:train] median step {train['median_step_ms']:.1f} ms (steps "
           f"3-{n_steps}; all {[round(x, 1) for x in step_ms]}) against phase "
           f"4's {TRAIN_MS.get('median', float('nan')):.1f} ms on synthetic "
@@ -2748,7 +2809,9 @@ def cli_bf16_runs(every: dict, card: str) -> dict:
     if not (steps and all(np.isfinite(r["vis_loss"])
                           and np.isfinite(r["triplet_loss"]) for r in steps)):
         raise RuntimeError(f"the image leaf's CLI run logged {steps}")
-    shutil.rmtree(DATA_WORK, ignore_errors=True)
+    # the store stays for phase 15's torchrun run, which removes it
+    for name in ("train_bf16", "test_bf16", "image_store", "train_image"):
+        shutil.rmtree(os.path.join(DATA_WORK, name), ignore_errors=True)
     return out
 
 
@@ -3882,6 +3945,480 @@ def phase_reference(card: str):
     return launches, summary
 
 
+# ---- phase 15: multi-GPU on one card -------------------------------------------
+
+def _dp_trainer(model, work_dir, loader, val_loader):
+    from point_cloud_reid_tpu_torch.tools.profile_train import LOSSES
+    from point_cloud_reid_tpu_torch.train import Trainer
+    from point_cloud_reid_tpu_torch.utils.logging import MetricLogger
+    runtime = dict(work_dir=work_dir, seed=SEED, max_epochs=1,
+                   eval_interval=0, checkpoint_interval=0, log_interval=1,
+                   losses_to_use=LOSSES, alpha={}, triplet_margin=0.2)
+    return Trainer(model, loader, val_loader, runtime,
+                   logger=MetricLogger(work_dir, quiet=True))
+
+
+def dp_run(work_dir: str, rank: int = 0, world: int = 1) -> dict:
+    """DP_STEPS flagship steps through Trainer.fit (knobs on) on the global
+    batches of DP_PAIRS x world pairs, this process's shard of each, then
+    the eval of the final checkpoint in a fresh model: the step logs and
+    ms, the launches, the eval metrics and its pair count. The same code
+    serves one process and each of the ranks."""
+    import torch
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.tools.profile_train import (
+        flagship_train_cfg)
+    from point_cloud_reid_tpu_torch.train import (ScheduleConfig,
+                                                  SyntheticPairLoader,
+                                                  TrainState, loop)
+    every = zero_counters()
+    pairs = DP_PAIRS * DP_RANKS
+
+    def loader(n, seed):
+        return SyntheticPairLoader(pairs, n, num_points=128, seed=seed,
+                                   shard_id=rank, num_shards=world)
+
+    def model():
+        return build_model(flagship_train_cfg(True), device=DEVICE,
+                           generator=torch.Generator().manual_seed(SEED))
+
+    net = model()
+    init = {k: v.detach().cpu().clone() for k, v in net.state_dict().items()}
+    trainer = _dp_trainer(net, work_dir, loader(DP_STEPS, SEED),
+                          loader(DP_EVAL_BATCHES, SEED + 1))
+    state = TrainState.create(net, ScheduleConfig(max_epochs=1), DP_STEPS)
+    times, logs, step, stats1 = [], [], trainer.train_step, {}
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        logs.append({k: float(v) for k, v in out[1].items()})
+        if not stats1:
+            stats1.update({k: v.detach().cpu().clone() for k, v in
+                           net.state_dict().items() if "running_" in k})
+        return out
+    trainer.train_step = timed_step
+    state = trainer.fit(state)
+    trained = {k: every[k].launches for k in ("knn", "linear_attention")}
+    lr_spent = sum(state.optimizer.lr_fn(i) for i in range(DP_STEPS))
+
+    # the eval of the written checkpoint, in a fresh model
+    net = model()
+    evaluator = _dp_trainer(net, None, None, loader(DP_EVAL_BATCHES,
+                                                    SEED + 1))
+    fresh = TrainState.create(net, ScheduleConfig(max_epochs=1), 1)
+    evaluator.load_weights(fresh, os.path.join(work_dir, "ckpt_final.pt"))
+    seen = []
+    gather = loop.allgather_results
+
+    def counted(results):
+        out = gather(results)
+        seen.append(len(out["val_match_gt"]))
+        return out
+    loop.allgather_results = counted
+    sa0 = every["fused_sa_convmax"].launches
+    try:
+        metrics = evaluator.evaluate(fresh)
+    finally:
+        loop.allgather_results = gather
+    trained["fused_sa_convmax"] = every["fused_sa_convmax"].launches - sa0
+    return dict(step_ms=times, launches=trained, lr_spent=lr_spent,
+                stats1=stats1, init=init, logs=logs,
+                metrics={k: v for k, v in metrics.items()
+                         if not isinstance(v, dict)}, eval_pairs=seen[0],
+                state={k: v.detach().cpu() for k, v in
+                       state.model.state_dict().items()})
+
+
+def dp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 15 (a): join the gloo group through the FileStore
+    at `store`, run dp_run on this rank's shards, save what it returns to
+    out_dir/rank{rank}.pt."""
+    import datetime
+
+    import torch
+    from point_cloud_reid_tpu_torch.parallel import init_distributed
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = init_distributed(backend="gloo", init_method="file://" + store,
+                            world_size=world, rank=rank, device="cuda",
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT))
+    out = dp_run(os.path.join(out_dir, "fit"), rank, world)
+    out["info"] = info
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def dp_gaps(run: dict, one: dict) -> dict:
+    """How far a data-parallel dp_run lies from one process's: the running
+    statistics after step 1 (stat1) and after the last step (var, mean),
+    as max |diff| over max(1, |one process|); over every weight but the
+    SA convs' biases, the updates' gap (|run's update - one process's| /
+    |one process's update|, the 2-norms over all entries), the entries off
+    by more than lr spent / 10 (far of entries), the largest entry gap
+    (weight, of max(1, |w|)) and the tensors that hold it (worst); the SA
+    convs' biases' max |diff| (sa_bias); each step's reid_loss gap, rel."""
+    def gap(a, want):
+        return (a.double() - want.double()).abs().max().item() / max(
+            1.0, want.abs().max().item())
+    out = dict(stat1=0.0, var=0.0, mean=0.0, sa_bias=0.0, far=0, entries=0)
+    errs, upd = {}, [0.0, 0.0]
+    for k, want in one["state"].items():
+        if not want.is_floating_point():
+            continue
+        a = run["state"][k]
+        if "running_" in k:
+            out["stat1"] = max(out["stat1"], gap(run["stats1"][k],
+                                                 one["stats1"][k]))
+            key = "var" if k.endswith("running_var") else "mean"
+            out[key] = max(out[key], gap(a, want))
+            continue
+        diff = (a.double() - want.double()).abs()
+        if "mlp_convs" in k and k.endswith(".bias"):
+            out["sa_bias"] = max(out["sa_bias"], diff.max().item())
+            continue
+        errs[k] = gap(a, want)
+        step = want.double() - one["init"][k].double()
+        upd[0] += float((diff ** 2).sum())
+        upd[1] += float((step ** 2).sum())
+        out["far"] += int((diff > one["lr_spent"] / 10).sum())
+        out["entries"] += a.numel()
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    out.update(update_gap=(upd[0] / upd[1]) ** 0.5, weight=worst[0][1],
+               worst=[k for k, _ in worst],
+               losses=[abs(a["reid_loss"] - b["reid_loss"])
+                       / abs(b["reid_loss"])
+                       for a, b in zip(run["logs"], one["logs"])])
+    return out
+
+
+def multi_gpu_ranks(card: str) -> dict:
+    """Phase 15 (a): two gloo ranks on cuda:0 against one process."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+    from point_cloud_reid_tpu_torch.tools.profile_train import LOSSES
+    one_dir = os.path.join(DP_WORK, "one")
+    one = dp_run(one_dir)
+    # the ranks share the card with this process: give its cache back
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(DP_WORK, "ranks")
+    os.makedirs(out_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(dp_rank, args=(DP_RANKS,
+                                                os.path.join(tmp, "store"),
+                                                out_dir),
+                                 nprocs=DP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 2 * DP_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.terminate()
+                raise RuntimeError(f"the {DP_RANKS} ranks did not finish "
+                                   f"in {2 * DP_TIMEOUT} s")
+        ranks_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                      weights_only=False) for r in range(DP_RANKS)]
+    fit_dir = os.path.join(out_dir, "fit")
+    files = sorted(os.listdir(fit_dir))
+    with open(os.path.join(fit_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    with open(os.path.join(one_dir, "metrics.jsonl")) as f:
+        one_records = [json.loads(line) for line in f]
+    # rank 0 alone wrote: one record a step and the epoch's, one checkpoint
+    if not (files == sorted(os.listdir(one_dir))
+            and "ckpt_final.pt" in files
+            and len(records) == len(one_records) == DP_STEPS + 1):
+        raise RuntimeError(f"the ranks wrote {files} and {len(records)} "
+                           f"records; one process {len(one_records)}")
+    rel = train_rel(records[0], one_records[0])
+    for k, want in one["state"].items():
+        if not torch.equal(got[0]["state"][k], got[1]["state"][k]):
+            raise RuntimeError(f"the ranks hold different {k}")
+    gaps = dp_gaps(got[0], one)
+    b_tol = 2 * one["lr_spent"]
+    m_err = max(abs(got[0]["metrics"][k] - v) for k, v in
+                one["metrics"].items())
+    launches = [g["launches"] for g in got]
+    summary = dict(
+        step1_rel=rel, gaps=gaps, sa_bias_tol=b_tol, eval_err=m_err,
+        eval_pairs=[g["eval_pairs"] for g in got],
+        one_eval_pairs=one["eval_pairs"], launches=launches,
+        one_launches=one["launches"], files=files,
+        step_ms=got[0]["step_ms"], one_step_ms=one["step_ms"],
+        median_step_ms=float(np.median(got[0]["step_ms"][1:])),
+        one_median_step_ms=float(np.median(one["step_ms"][1:])),
+        ranks_s=ranks_s, info=[g["info"] for g in got])
+    print(f"[multi-gpu:a] {DP_RANKS} gloo ranks on cuda:0, {DP_PAIRS} pairs "
+          f"a rank, {DP_STEPS} steps (losses {sorted(LOSSES)}), against one "
+          f"process on the same {DP_PAIRS * DP_RANKS}-pair batches: step 1 "
+          f"rel {rel} (tol {TRAIN_TOL:g}); running statistics after step "
+          f"1 {gaps['stat1']:.3e} (tol {DP_STAT_TOL:g}); after step "
+          f"{DP_STEPS} the updates' gap {gaps['update_gap']:.3e} (tol "
+          f"{DP_UPDATE_TOL:g}), {gaps['far']} of {gaps['entries']} weight "
+          f"entries off by more than lr spent / 10, the largest "
+          f"{gaps['weight']:.3e} of max(1, |w|) in {gaps['worst']}, the SA "
+          f"convs' biases {gaps['sa_bias']:.3e} (tol {b_tol:.3e}, 2 x lr "
+          f"spent), running variances {gaps['var']:.3e} (tol "
+          f"{DP_VAR_TOL:g}), running means {gaps['mean']:.3e}, losses of "
+          f"steps 1-{DP_STEPS} {[f'{x:.1e}' for x in gaps['losses']]} rel; "
+          f"eval of the checkpoint {m_err:.3e} "
+          f"(tol {EVAL_TOL:g}), pairs {summary['eval_pairs']} against "
+          f"{one['eval_pairs']}; launches per rank {launches} (one process "
+          f"{one['launches']}); step ms ranks {summary['median_step_ms']:.1f}"
+          f" (all {[round(x, 1) for x in got[0]['step_ms']]}) against one "
+          f"process {summary['one_median_step_ms']:.1f} (all "
+          f"{[round(x, 1) for x in one['step_ms']]}); the ranks took "
+          f"{ranks_s:.1f} s, start-up included, on {card}", flush=True)
+    want_launch = dict(knn=3 * DP_STEPS, linear_attention=4 * DP_STEPS)
+    if not (all(v <= TRAIN_TOL for v in rel.values())
+            and gaps["stat1"] <= DP_STAT_TOL
+            and gaps["update_gap"] <= DP_UPDATE_TOL
+            and gaps["sa_bias"] <= b_tol and gaps["var"] <= DP_VAR_TOL
+            and m_err <= EVAL_TOL
+            and all(g["eval_pairs"] == one["eval_pairs"] for g in got)
+            and all(all(lc[k] == n for k, n in want_launch.items())
+                    and lc["fused_sa_convmax"] == 3 * DP_EVAL_BATCHES
+                    for lc in launches)):
+        raise RuntimeError("the two ranks' training or eval is not the one "
+                           "process's")
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    return summary
+
+
+def multi_gpu_torchrun(card: str) -> dict:
+    """Phase 15 (b): tools/train.py under torchrun, one NCCL rank, one
+    epoch on phase 8's store."""
+    import shutil
+    import subprocess
+    root = os.path.join(DATA_WORK, "store")
+    work = os.path.join(DATA_WORK, "torchrun")
+    sets = [a for knob in KNOBS for a in ("--set", knob)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m",
+           "point_cloud_reid_tpu_torch.tools.train", FLAGSHIP, "--root", root,
+           "--epochs", "1", "--work-dir", work, *sets, "--set",
+           "runtime.log_interval=1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun tools.train exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    with open(os.path.join(work, "config.json")) as f:
+        group = json.load(f)["process_group"]
+    with open(os.path.join(work, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    steps = [r for r in records if r["kind"] == "train"
+             and "epoch_time_s" not in r]
+    walls = [r["wall_s"] for r in steps]
+    step_ms = [1e3 * (b - a) for a, b in zip(walls, walls[1:])]
+    metrics = json.loads(proc.stdout[proc.stdout.index("{"):])
+    summary = dict(process_group=group, steps=len(steps), seconds=seconds,
+                   step_ms=step_ms,
+                   median_step_ms=float(np.median(step_ms[1:])),
+                   phase8_step_and_wait_ms=DATA_MS.get("step", np.nan)
+                   + DATA_MS.get("wait", np.nan),
+                   val_match_acc=metrics["val_match_acc"])
+    print(f"[multi-gpu:b] torchrun --standalone --nproc_per_node 1 "
+          f"tools.train on phase 8's store: process group {group}; "
+          f"{len(steps)} steps of {DATA_PAIRS} pairs, ms between steps (the "
+          f"log's clock, loader waits included) "
+          f"{[round(x, 1) for x in step_ms]} against phase 8's step + wait "
+          f"{summary['phase8_step_and_wait_ms']:.1f}; val_match_acc "
+          f"{metrics['val_match_acc']:.4f}; {seconds:.1f} s in all on "
+          f"{card}", flush=True)
+    shutil.rmtree(DATA_WORK, ignore_errors=True)
+    if not (group == dict(backend="nccl", world=1, rank=0)
+            and len(steps) == STORE_STEPS
+            and all(np.isfinite(r["reid_loss"]) for r in steps)):
+        raise RuntimeError(f"the torchrun run logged {group} and {steps}")
+    return summary
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside the block (a check's reference scoring) leave
+    every count as it was."""
+    fns = {id(c.fn if hasattr(c, "fn") else c): (c.fn if hasattr(c, "fn")
+                                                 else c)
+           for c in all_counters().values()}
+    names = ("launches", "bf16_launches", "tier_launches", "bf16_tiers",
+             "shape_launches")
+    saved = {k: {n: copy.deepcopy(getattr(f, n)) for n in names
+                 if hasattr(f, n)} for k, f in fns.items()}
+    try:
+        yield
+    finally:
+        for k, f in fns.items():
+            for n, v in saved[k].items():
+                setattr(f, n, v)
+
+
+def _mesh_scene(model, image: bool, sparse: str, mesh):
+    """The serving (or image) scene behind TrackingManager.step with a
+    scorer on `mesh` (None: unsharded); with a mesh each frame with tracks
+    is checked against the unsharded scoring of its own inputs. Returns
+    (step ms, the worst logit gap, the worst embed gap, frames checked)."""
+    import torch
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.scenes import (bench_scene,
+                                                         image_scene)
+    from point_cloud_reid_tpu_torch.tracking import TrackingManager
+    scorer = PairScorer(model, image_mode=image, mesh=mesh)
+    if image:
+        mgr = TrackingManager(scorer, match_threshold=1.0, seed=SEED,
+                              sparse_scoring=sparse)
+        frames = image_scene(IMG_OBJ, IMG_FRAMES, SEED)
+    else:
+        mgr = TrackingManager(scorer, subsample_number=128,
+                              match_threshold=1.0, seed=SEED,
+                              sparse_scoring=sparse)
+        frames = bench_scene(N_OBJ, PTS_PER_OBJ, FRAMES, SEED)
+    times, gap, e_gap, checked = [], 0.0, 0.0, 0
+    for frame in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.step(*frame)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rec = scorer.last_frame
+        if mesh is None or rec is None:
+            continue
+        with torch.no_grad(), uncounted():
+            if image:
+                want = mg.image_grid_logits(model, rec["h_t"], rec["h_d"])
+            else:
+                want = mg.grid_logits(model, rec["h_t"], rec["xyz_t"],
+                                      rec["h_d"], rec["xyz_d"])
+                # the crops are the embed's xyz: the unsharded embed of them
+                _, h_d = model.embed(rec["xyz_d"])
+                e_gap = max(e_gap, ((h_d.float() - rec["h_d"].float()).abs()
+                                    .max().item()) / max(
+                    1.0, h_d.float().abs().max().item()))
+            if rec["pairs"] is not None:
+                pt, pd = rec["pairs"]
+                want = want[pt.long(), pd.long()]
+        got = rec["logits"].float()
+        gap = max(gap, (got - want.float()).abs().max().item() / max(
+            1.0, want.float().abs().max().item()))
+        checked += 1
+    return times, gap, e_gap, checked
+
+
+def multi_gpu_mesh(card: str) -> dict:
+    """Phase 15 (c): a two-entry mesh on cuda:0 behind TrackingManager."""
+    import torch
+    from point_cloud_reid_tpu_torch.configs import point_transformer_point_cat
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.parallel import make_mesh
+    out = {}
+    point = {dt: build_model(point_transformer_point_cat(), device=DEVICE,
+                             generator=torch.Generator().manual_seed(SEED),
+                             dtype=dt)
+             for dt in (torch.float32, torch.bfloat16)}
+    cases = [(f"point/{name}/{sparse}", m, False, sparse)
+             for name, m in (("float32", point[torch.float32]),
+                             ("bf16", point[torch.bfloat16]))
+             for sparse in ("never", "auto")]
+    image = image_model("deit-tiny-no-pt")
+    cases += [(f"image/float32/{sparse}", image, True, sparse)
+              for sparse in ("never", "always")]
+    for label, model, is_image, sparse in cases:
+        mesh = make_mesh(data=MESH_ENTRIES,
+                         devices=[torch.device("cuda", 0)] * MESH_ENTRIES)
+        ms, gap, e_gap, checked = _mesh_scene(model, is_image, sparse, mesh)
+        plain_ms, *_ = _mesh_scene(model, is_image, sparse, None)
+        tol = BF16_TOL if "bf16" in label else MATCH_TOL
+        out[label] = dict(
+            max_rel_gap=gap, embed_rel_gap=e_gap, tol=tol, frames=checked,
+            median_step_ms=float(np.median(ms[3:])),
+            unsharded_median_step_ms=float(np.median(plain_ms[3:])),
+            launches_per_entry=mesh.launches)
+        print(f"[multi-gpu:c] {label}: {MESH_ENTRIES}-entry mesh on cuda:0, "
+              f"{checked} frames; logits against unsharded scoring of the "
+              f"same inputs {gap:.3e}, embed {e_gap:.3e} (tol {tol:g}); "
+              f"median step {out[label]['median_step_ms']:.2f} ms against "
+              f"unsharded {out[label]['unsharded_median_step_ms']:.2f} ms; "
+              f"launches per entry {mesh.launches} on {card}", flush=True)
+        if not (checked == FRAMES - 1 and gap <= tol and e_gap <= tol
+                and all(e["match"] > 0 and (is_image or e["sa"] > 0)
+                        for e in mesh.launches)):
+            raise RuntimeError(f"{label}: the sharded frames are not the "
+                               "unsharded ones, or an entry ran no kernel")
+    del point, image
+    torch.cuda.empty_cache()
+    return out
+
+
+def multi_gpu_knobs(card: str, every: dict) -> dict:
+    """Phase 15 (d): fused_train and remat_stages steps of the flagship."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools.profile_train import (
+        flagship_train_cfg)
+    pairs = TRAIN_MS["pairs"]
+    out = {}
+    for label, knobs, tol in (
+            ("fused_train", dict(fused_train=True), TRAIN_TOL),
+            ("remat_stages=[0,1,2]", dict(remat_stages=[0, 1, 2]),
+             REMAT_TOL)):
+        cfg = flagship_train_cfg(True)
+        cfg["backbone"] = dict(cfg["backbone"], **knobs)
+        knn0 = every["knn"].launches
+        torch.cuda.empty_cache()
+        logs, times, changed, peak = train_flagship(True, pairs, 3, None,
+                                                    cfg=cfg)
+        check_trained(label, logs, changed,
+                      ("running_var", "q_proj.weight", "mlp_convs"))
+        rel = train_rel(logs[0], TRAIN_MS["step1"])
+        out[label] = dict(step1_rel=rel, step_ms=times,
+                          median_step_ms=float(np.median(times[1:])),
+                          peak_gib=peak / 2 ** 30,
+                          knn_launches=every["knn"].launches - knn0)
+        print(f"[multi-gpu:d] {label}: 3 steps of {pairs} pairs, step ms "
+              f"{[round(x, 1) for x in times]} against phase 4's median "
+              f"{TRAIN_MS['median']:.1f}; peak {peak / 2 ** 30:.2f} GiB "
+              f"against {TRAIN_MS['peak_gib']:.2f}; step 1 rel to phase 4 "
+              f"{rel} (tol {tol:g}); kNN launches "
+              f"{out[label]['knn_launches']} on {card}", flush=True)
+        if not all(v <= tol for v in rel.values()):
+            raise RuntimeError(f"{label}: step 1 is not phase 4's")
+    return out
+
+
+def phase_multi_gpu(card: str):
+    """Phase 15: multi-GPU on one card, with every count at 0. Returns (the
+    path's launches, the ranks' included, and a summary)."""
+    t_phase = time.perf_counter()
+    every = zero_counters()
+    summary = dict(ranks=multi_gpu_ranks(card))
+    summary["torchrun"] = multi_gpu_torchrun(card)
+    summary["mesh"] = multi_gpu_mesh(card)
+    summary["knobs"] = multi_gpu_knobs(card, every)
+    launches = {name: fn.launches for name, fn in every.items()}
+    # the ranks launched in their own processes
+    for rank in summary["ranks"]["launches"]:
+        for name, n in rank.items():
+            launches[name] += n
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"[multi-gpu] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; phase took "
+          f"{summary['seconds']:.1f} s", flush=True)
+    return launches, summary
+
+
 def main():
     import torch
     card = phase_device()
@@ -3922,12 +4459,14 @@ def main():
     rows += tracker_zoo_rows
     torch.cuda.empty_cache()
     reference, reference_summary = phase_reference(card)
+    torch.cuda.empty_cache()
+    multi_gpu, multi_gpu_summary = phase_multi_gpu(card)
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
-            reference))
+            reference, multi_gpu))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -3936,7 +4475,8 @@ def main():
                       "bf16_training": bf16_training_summary,
                       "zoo": zoo_summary,
                       "tracker_zoo": tracker_zoo_summary,
-                      "reference": reference_summary}))
+                      "reference": reference_summary,
+                      "multi_gpu": multi_gpu_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,14 @@ between processes). The kernels run whenever the tensors are on CUDA
 (kernels/). The frame functions take their shapes from their
 arguments, which TrackingManager pads to static buckets; unlike JAX's they
 need no bucket sizes of their own until frames are captured as CUDA graphs.
+
+With a mesh (parallel.make_mesh) every frame is scored shard by shard, as
+JAX's scorer under a mesh: the detections' crops are embedded in
+contiguous shards through the SA kernel (point branch), the grid's
+detections or the pair list go in contiguous shards through the match
+kernels (kernels/match_grid.sharded_*), each shard on its mesh entry's
+device; the results are concatenated on the first entry's device. A
+TrackingManager scores sharded when its scorer has a mesh.
 """
 from __future__ import annotations
 
@@ -34,7 +42,12 @@ import torch
 
 from ..kernels.match_grid import (check_image_head, fused_head_ok,
                                   grid_logits, image_grid_logits,
-                                  image_pair_logits, pair_logits)
+                                  image_pair_logits, pair_logits,
+                                  run_sharded, sharded_grid_logits,
+                                  sharded_image_grid_logits,
+                                  sharded_image_pair_logits,
+                                  sharded_pair_logits)
+from ..utils.cache import model_on
 
 
 def host(x):
@@ -204,11 +217,16 @@ class PairScorer:
             head must be the chain the image kernel computes
             (kernels.match_grid.check_image_head raises otherwise: nothing
             is rerouted).
+        mesh: a parallel.make_mesh grid: score every frame in one shard a
+            mesh entry (the module docstring), on any count of detections
+            or pairs. A head that fused_head_ok refuses is scored by the
+            model's own path over the same shards.
     """
 
-    def __init__(self, model, image_mode: bool = False):
+    def __init__(self, model, image_mode: bool = False, mesh=None):
         self.model = model
         self.image_mode = image_mode
+        self.mesh = mesh
         if image_mode:
             check_image_head(model)
         # whether frames run the fused match kernels (grid_logits and
@@ -225,10 +243,46 @@ class PairScorer:
     def embed(self, crops: torch.Tensor):
         """(B, N, 3) crops -> (xyz (B, N, 3), h (B, N, C)); image mode:
         (B, 3, H, W) crops -> (None, h (B, S, C)), the ViT's tokens through
-        the per-token downsample."""
+        the per-token downsample. With a mesh the point crops are embedded
+        in contiguous shards, one on each entry's device."""
         if self.image_mode:
             return None, self.model.downsample_tokens(self.model.embed(crops))
-        return self.model.embed(crops)
+        if self.mesh is None:
+            return self.model.embed(crops)
+        first = self.mesh.flat[0]
+
+        def shard(dev, lo, hi):
+            xyz, h = model_on(self.model, dev).embed(crops[lo:hi].to(dev))
+            return xyz.to(first), h.to(first)
+        parts = run_sharded(self.mesh, crops.shape[0], shard)
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
+
+    # ---- scoring, whole or sharded ----------------------------------------
+
+    def _grid(self, h_t, xyz_t, h_d, xyz_d):
+        if self.mesh is None:
+            return grid_logits(self.model, h_t, xyz_t, h_d, xyz_d)
+        return sharded_grid_logits(self.model, h_t, xyz_t, h_d, xyz_d,
+                                   self.mesh)
+
+    def _pairs(self, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx):
+        if self.mesh is None:
+            return pair_logits(self.model, h_t, xyz_t, h_d, xyz_d, t_idx,
+                               d_idx)
+        return sharded_pair_logits(self.model, h_t, xyz_t, h_d, xyz_d,
+                                   t_idx, d_idx, self.mesh)
+
+    def _image_grid(self, h_t, h_d):
+        if self.mesh is None:
+            return image_grid_logits(self.model, h_t, h_d)
+        return sharded_image_grid_logits(self.model, h_t, h_d, self.mesh)
+
+    def _image_pairs(self, h_t, h_d, t_idx, d_idx):
+        if self.mesh is None:
+            return image_pair_logits(self.model, h_t, h_d, t_idx, d_idx)
+        return sharded_image_pair_logits(self.model, h_t, h_d, t_idx, d_idx,
+                                         self.mesh)
 
     @torch.no_grad()
     def cost_matrix(self, h_tracks, xyz_tracks, h_dets, xyz_dets,
@@ -251,9 +305,9 @@ class PairScorer:
         h_t, h_d = pad0(h_tracks, nt_p), pad0(h_dets, nd_p)
         x_t, x_d = pad0(xyz_tracks, nt_p), pad0(xyz_dets, nd_p)
         if self.image_mode:
-            grid = image_grid_logits(self.model, h_t, h_d)
+            grid = self._image_grid(h_t, h_d)
         else:
-            grid = grid_logits(self.model, h_t, x_t, h_d, x_d)
+            grid = self._grid(h_t, x_t, h_d, x_d)
         self.last_frame = dict(h_t=h_t, xyz_t=x_t, h_d=h_d, xyz_d=x_d,
                                logits=grid, pairs=None)
         mat = grid[:nt, :nd]
@@ -278,7 +332,6 @@ class PairScorer:
         raises."""
         if self.image_mode and crop_points:
             raise ValueError("on-device box crops are a point-branch path")
-        model = self.model
 
         @torch.no_grad()
         def frame(h_t, xyz_t, dets):
@@ -298,9 +351,9 @@ class PairScorer:
                     f"({h_t.shape[0]}, {det_crops.shape[0]})")
             xyz_d, h_d = self.embed(det_crops)
             if self.image_mode:
-                logits = image_grid_logits(model, h_t, h_d)
+                logits = self._image_grid(h_t, h_d)
             else:
-                logits = grid_logits(model, h_t, xyz_t, h_d, xyz_d)
+                logits = self._grid(h_t, xyz_t, h_d, xyz_d)
             self.last_frame = dict(h_t=h_t, xyz_t=xyz_t, h_d=h_d,
                                    xyz_d=xyz_d, logits=logits, pairs=None)
             return logits, h_d, xyz_d
@@ -335,7 +388,7 @@ class PairScorer:
         xyz_t = xyz_buf[slot_idx]
         gen = torch.Generator(device=pts.device).manual_seed(int(seed))
         det_crops, _ = extract_box_crops(gen, pts, boxes, crop_points)
-        xyz_d, h_d = self.model.embed(det_crops)
+        xyz_d, h_d = self.embed(det_crops)
         return h_t, xyz_t, h_d, xyz_d
 
     def _record(self, inputs, logits, pairs):
@@ -348,7 +401,6 @@ class PairScorer:
         Returns fn(h_buf, xyz_buf, prev_h, prev_xyz, upd_src (d_prev_pad,),
         upd_dst, slot_idx (t_pad,), seed, pts, boxes (d_pad, 7)) ->
         (h_buf, xyz_buf, logits (t_pad, d_pad), h_dets, xyz_dets)."""
-        model = self.model
 
         @torch.no_grad()
         def frame(h_buf, xyz_buf, prev_h, prev_xyz, upd_src, upd_dst,
@@ -356,7 +408,7 @@ class PairScorer:
             inputs = self._frame_inputs(
                 h_buf, xyz_buf, prev_h, prev_xyz, upd_src, upd_dst,
                 slot_idx, seed, pts, boxes, crop_points)
-            logits = grid_logits(model, *inputs)
+            logits = self._grid(*inputs)
             self._record(inputs, logits, None)
             return h_buf, xyz_buf, logits, inputs[2], inputs[3]
         return frame
@@ -367,7 +419,6 @@ class PairScorer:
         upd_src, upd_dst, slot_idx, pair_t (p_pad,), pair_d (p_pad,), seed,
         pts, boxes) -> (h_buf, xyz_buf, logits (p_pad,), h_dets,
         xyz_dets). Padded pairs point at (0, 0); the caller drops them."""
-        model = self.model
 
         @torch.no_grad()
         def frame(h_buf, xyz_buf, prev_h, prev_xyz, upd_src, upd_dst,
@@ -375,7 +426,7 @@ class PairScorer:
             inputs = self._frame_inputs(
                 h_buf, xyz_buf, prev_h, prev_xyz, upd_src, upd_dst,
                 slot_idx, seed, pts, boxes, crop_points)
-            logits = pair_logits(model, *inputs, pair_t, pair_d)
+            logits = self._pairs(*inputs, pair_t, pair_d)
             self._record(inputs, logits, (pair_t, pair_d))
             return h_buf, xyz_buf, logits, inputs[2], inputs[3]
         return frame
@@ -431,7 +482,7 @@ class PairScorer:
             h_t, h_d = self._image_frame_inputs(
                 h_buf, prev_h, upd_src, upd_dst, slot_idx, images, l2cams,
                 intrins, boxes, *sizes)
-            logits = image_grid_logits(self.model, h_t, h_d)
+            logits = self._image_grid(h_t, h_d)
             self._record_image(h_t, h_d, logits, None)
             return h_buf, logits, h_d
         return frame
@@ -452,7 +503,7 @@ class PairScorer:
             h_t, h_d = self._image_frame_inputs(
                 h_buf, prev_h, upd_src, upd_dst, slot_idx, images, l2cams,
                 intrins, boxes, *sizes)
-            logits = image_pair_logits(self.model, h_t, h_d, pair_t, pair_d)
+            logits = self._image_pairs(h_t, h_d, pair_t, pair_d)
             self._record_image(h_t, h_d, logits, (pair_t, pair_d))
             return h_buf, logits, h_d
         return frame

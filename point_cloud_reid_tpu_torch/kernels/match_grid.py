@@ -27,6 +27,17 @@ instantiation scores it over the true token count S. The TPU kernel's
 8-row token padding and its in-kernel mask (_pad_tokens, n_true) are
 Mosaic workarounds and are dropped.
 
+Sharded scoring (sharded_grid_logits, sharded_pair_logits,
+sharded_image_grid_logits, sharded_image_pair_logits; ports of the JAX
+shard_map wrappers): the detections (grid) or the pair list (pairs) go in
+contiguous shards, one a mesh entry (parallel.make_mesh), and each shard's
+factors, kernel and match head run on its entry's device with that
+device's copy of the weights (utils.cache.model_on); the tracks, or both
+sides of a pair list, are copied to every entry. No collective: pairs are
+independent. The TPU wrappers' tiling contracts (nd a multiple of 8 mesh
+entries, P of 16, det blocks) are dropped: the kernels take any count, so
+any count shards, a count below the mesh size over fewer entries.
+
 On CPU tensors the wrappers run `match_pooled_reference`, the plain version
 of the kernel; on CUDA tensors they launch the kernel; any other device
 raises. The 1/N value pre-scale and the xN message rescale of
@@ -57,9 +68,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..utils.cache import derived
+from ..utils.cache import derived, model_on
 from . import _lib
-from .sa_stage import BF16, rounded_mm
+from .sa_stage import BF16, fused_sa_convmax, rounded_mm
 
 EPS = 1e-6
 LN_EPS = 1e-5
@@ -902,3 +913,92 @@ def image_pair_logits(model, h_t, h_d, t_idx, d_idx) -> torch.Tensor:
     t, d, w1, w2, nhead = image_match_factors(model, h_t, h_d)
     pooled = fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]
+
+
+# ---- sharded scoring -------------------------------------------------------------
+
+def kernel_launches() -> Dict[str, int]:
+    """Match-kernel and SA-kernel launches so far, both dtypes."""
+    match = sum(fn.launches + fn.bf16_launches for fn in (
+        fused_match_grid, fused_match_pairs, fused_image_match_grid,
+        fused_image_match_pairs))
+    return dict(match=match, sa=fused_sa_convmax.launches
+                + fused_sa_convmax.bf16_launches)
+
+
+def shard_bounds(n: int, parts: int):
+    """[(lo, hi)] of `parts` contiguous shards of n rows (the first n %
+    parts one row longer)."""
+    q, r = divmod(n, parts)
+    out, lo = [], 0
+    for i in range(parts):
+        hi = lo + q + (i < r)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def run_sharded(mesh, n: int, fn):
+    """fn(model device, lo, hi) for each non-empty contiguous shard of n
+    rows, entry by entry (one shard, on the first entry, when n is 0);
+    returns the results in entry order. Each entry's kernel launches are
+    added to mesh.launches."""
+    shards = [(i, dev, lo, hi) for i, (dev, (lo, hi)) in enumerate(
+        zip(mesh.flat, shard_bounds(n, mesh.size))) if hi > lo]
+    out = []
+    for i, dev, lo, hi in shards or [(0, mesh.flat[0], 0, 0)]:
+        before = kernel_launches()
+        out.append(fn(dev, lo, hi))
+        for k, v in kernel_launches().items():
+            mesh.launches[i][k] += v - before[k]
+    return out
+
+
+def sharded_grid_logits(model, h_t, xyz_t, h_d, xyz_d, mesh) -> torch.Tensor:
+    """grid_logits with the detections in contiguous shards over the mesh
+    entries and the tracks copied to each; the (nt, nd) logits on the
+    first entry's device."""
+    first = mesh.flat[0]
+
+    def shard(dev, lo, hi):
+        return grid_logits(model_on(model, dev), h_t.to(dev), xyz_t.to(dev),
+                           h_d[lo:hi].to(dev), xyz_d[lo:hi].to(dev)).to(first)
+    return torch.cat(run_sharded(mesh, h_d.shape[0], shard), dim=1)
+
+
+def sharded_pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx, mesh
+                        ) -> torch.Tensor:
+    """pair_logits with the pair list in contiguous shards over the mesh
+    entries, every entry computing the factors of both sides; the (P,)
+    logits on the first entry's device."""
+    first = mesh.flat[0]
+
+    def shard(dev, lo, hi):
+        return pair_logits(model_on(model, dev), h_t.to(dev), xyz_t.to(dev),
+                           h_d.to(dev), xyz_d.to(dev), t_idx[lo:hi].to(dev),
+                           d_idx[lo:hi].to(dev)).to(first)
+    return torch.cat(run_sharded(mesh, t_idx.shape[0], shard))
+
+
+def sharded_image_grid_logits(model, h_t, h_d, mesh) -> torch.Tensor:
+    """image_grid_logits with the detections' tokens in contiguous shards
+    over the mesh entries."""
+    first = mesh.flat[0]
+
+    def shard(dev, lo, hi):
+        return image_grid_logits(model_on(model, dev), h_t.to(dev),
+                                 h_d[lo:hi].to(dev)).to(first)
+    return torch.cat(run_sharded(mesh, h_d.shape[0], shard), dim=1)
+
+
+def sharded_image_pair_logits(model, h_t, h_d, t_idx, d_idx, mesh
+                              ) -> torch.Tensor:
+    """image_pair_logits with the pair list in contiguous shards over the
+    mesh entries."""
+    first = mesh.flat[0]
+
+    def shard(dev, lo, hi):
+        return image_pair_logits(model_on(model, dev), h_t.to(dev),
+                                 h_d.to(dev), t_idx[lo:hi].to(dev),
+                                 d_idx[lo:hi].to(dev)).to(first)
+    return torch.cat(run_sharded(mesh, t_idx.shape[0], shard))

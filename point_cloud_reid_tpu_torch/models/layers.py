@@ -23,12 +23,15 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..parallel.distributed import (dp_active, dp_group, global_sum,
+                                    group_total, recording, replaying)
 from ..utils.cache import cast
 
 
@@ -138,13 +141,79 @@ class GroupNorm(nn.GroupNorm):
     compute_dtype = None
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of (M, C) rows on the statistics of the
+    data-parallel group's rows, through batch norm's fused kernels.
+
+    Forward: this rank's mean and biased variance (one pass), one
+    all-reduce of the sums, the sums of squares and the counts (global_sum,
+    which a checkpoint's recompute replays), the global mean and flax's
+    variance E[x^2] - E[x]^2 clamped at 0, and the eval-mode kernel with
+    them (one pass). Backward, with r = rsqrt(var + eps), a = gamma r,
+    xhat = (x - mean) r and N the global count: S = sum(dy) and T =
+    sum(dy xhat) over this rank's rows (one pass), one all-reduce of S and
+    T, then
+
+        dx = a (dy - S / N - xhat T / N),
+
+    SyncBatchNorm's two kernels on the card (batch_norm_backward_reduce,
+    batch_norm_backward_elemt: one pass each); on the CPU the eval-mode
+    backward kernel and two elementwise passes. dgamma = T and dbeta = S
+    stay this rank's: the train step's all-reduce of the gradients sums
+    them."""
+
+    @staticmethod
+    def forward(ctx, flat, weight, bias, eps):
+        C = flat.shape[1]
+        var_l, mean_l = torch.var_mean(flat, 0, correction=0)
+        n = flat.shape[0]
+        sums = global_sum(torch.cat([mean_l * n,
+                                     (var_l + mean_l * mean_l) * n,
+                                     mean_l.new_full((1,), n)]))
+        count = sums[-1:]
+        mean = sums[:C] / count
+        var = (sums[C:2 * C] / count - mean * mean).clamp(min=0.0)
+        y = F.batch_norm(flat, mean, var, weight, bias, False, 0.0, eps)
+        ctx.eps, ctx.group = eps, dp_group()
+        ctx.save_for_backward(flat, weight, mean, var, count)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        flat, weight, mean, var, count = ctx.saved_tensors
+        dy = dy.contiguous()
+        C = flat.shape[1]
+        r = torch.rsqrt(var + ctx.eps)
+        if flat.is_cuda:
+            s_sum, xmu_sum, t_sum, _ = torch.batch_norm_backward_reduce(
+                dy, flat, mean, r, weight, True, True, False)
+            both = group_total(torch.cat([s_sum, xmu_sum]), ctx.group)
+            n = torch.round(count).to(torch.int32)
+            dx = torch.batch_norm_backward_elemt(dy, flat, mean, r, weight,
+                                                 both[:C], both[C:], n)
+            return dx, t_sum, s_sum, None
+        none = flat.new_empty(0)
+        dx, t_sum, s_sum = torch.ops.aten.native_batch_norm_backward(
+            dy, flat, weight, mean, var, none, none, False, ctx.eps,
+            [True, True, True])
+        both = group_total(torch.cat([s_sum, t_sum]), ctx.group) / count
+        a = weight * r
+        k1 = -a * r * both[C:]
+        dx.addcmul_(flat, k1).sub_(a * both[:C] + k1 * mean)
+        return dx, t_sum, s_sum, None
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over all leading axes of a channel-last (..., C) tensor,
     with flax's running statistics: ra = 0.9 ra + 0.1 batch, where the batch
     variance is the BIASED one (torch.nn.BatchNorm1d stores the unbiased
     one), eps 1e-5. State-dict names are BatchNorm1d's. A train-mode call
     updates the running statistics unless `update_stats` is False
-    (frozen_statistics)."""
+    (frozen_statistics). In a data-parallel step (parallel.distributed.
+    data_parallel) the statistics are the global batch's (_GlobalBatchNorm:
+    the sums, sums of squares and counts of every rank reduced in one
+    all-reduce, flax's variance E[x^2] - E[x]^2 clamped at 0)."""
 
     compute_dtype = None
     update_stats = True
@@ -164,6 +233,8 @@ class BatchNorm(nn.BatchNorm1d):
             y = F.batch_norm(flat, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.reshape(x.shape)
+        if dp_active():
+            return self._global_batch_norm(flat).reshape(x.shape)
         n = flat.shape[0]
         # momentum 1 makes the kernel write the batch mean and the unbiased
         # batch variance into these buffers
@@ -179,21 +250,59 @@ class BatchNorm(nn.BatchNorm1d):
             self.running_var.mul_(1 - m).add_(var, alpha=m * (n - 1) / n)
         return y.reshape(x.shape)
 
+    def _global_batch_norm(self, flat: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _GlobalBatchNorm.apply(flat, self.weight, self.bias,
+                                              self.eps)
+        self.update_running(mean, var)
+        return y
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """ra = 0.9 ra + 0.1 batch from a batch mean and BIASED variance
+        (JAX's ConvBNReLU.update_stats, for paths that compute their own
+        statistics); nothing while update_stats is False."""
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var, alpha=m)
+
 
 @contextlib.contextmanager
-def frozen_statistics(model: nn.Module) -> Iterator[None]:
+def frozen_statistics(model: nn.Module, tape: Optional[list] = None
+                      ) -> Iterator[None]:
     """Train-mode BatchNorm calls of `model` inside the block normalise
     with batch statistics but leave the running statistics as they are:
     the recompute of a checkpointed forward (train/loop.py, remat) must not
-    move them a second time."""
+    move them a second time. In a data-parallel step the global statistics
+    come from `tape`, the forward's record (stage_checkpoint), and no
+    collective is issued."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for m in bns:
         m.update_stats = False
     try:
-        yield
+        with (contextlib.nullcontext() if tape is None
+              else replaying(list(tape))):
+            yield
     finally:
         for m in bns:
             del m.update_stats
+
+
+def stage_contexts(module: nn.Module):
+    """torch.utils.checkpoint's context_fn for a forward of `module`: the
+    forward records a data-parallel step's global statistics, the
+    recompute replays them with `module`'s BatchNorm running statistics
+    frozen."""
+    tape: list = []
+    return recording(tape), frozen_statistics(module, tape)
+
+
+def stage_checkpoint(module: nn.Module, fn, *args, **kwargs):
+    """fn(*args, **kwargs), a forward of `module`, under non-reentrant
+    torch.utils.checkpoint: only its inputs and outputs are kept, and the
+    backward runs it again (stage_contexts)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: stage_contexts(module), **kwargs)
 
 
 def group_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:

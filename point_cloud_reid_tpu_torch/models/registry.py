@@ -101,16 +101,14 @@ def build_backbone(cfg: Spec, knn_method: str = "argsort") -> nn.Module:
     lax.top_k."""
     t = cfg["type"]
     if t in ("Pointnet_Backbone", "point_transformer"):
-        for knob in ("fused_train", "remat_stages"):
-            if cfg.get(knob):
-                raise NotImplementedError(
-                    f"backbone {knob} is not ported (measured negative in "
-                    "the JAX package)")
         return PointTransformerBackbone(
             input_channels=cfg.get("input_channels", 0),
             conv_out=cfg.get("conv_out", 32), mul=cfg.get("mul", 1),
             nsample=tuple(cfg.get("nsample", (32, 48, 48))),
-            knn_method=knn_method)
+            knn_method=knn_method,
+            fused_train=bool(cfg.get("fused_train", False)),
+            fused_train_vjp=bool(cfg.get("fused_train_vjp", True)),
+            remat_stages=tuple(cfg.get("remat_stages", ())))
     if t in ("PointNet", "pointnet"):
         return PointNetBackbone(
             channel=6 if cfg.get("normal_channel", True) else 3)

@@ -121,9 +121,16 @@ def main(argv=None):
         state = trainer.load_weights(state, args.ckpt)
 
     if args.pairs:
+        if trainer.distributed:
+            raise SystemExit("--pairs is one process's list: run it "
+                             "without torchrun")
         trainer.val_loader = _frozen_val_loader(trainer, args.pairs)
 
     metrics = trainer.evaluate(state)
+    from .train import finish
+    finish()
+    if not trainer.writer:          # under torchrun rank 0 reports
+        return None
     acc = 100.0 * float(metrics["val_match_acc"])
     out = dict(experiment=args.experiment,
                checkpoint=args.pth or args.ckpt,

@@ -21,7 +21,7 @@ import json
 import os
 import sys
 
-from .train import build_all, parse_args, scalars, select_device
+from .train import build_all, finish, parse_args, scalars, select_device
 
 
 def main(argv=None):
@@ -32,6 +32,9 @@ def main(argv=None):
     device = select_device(args.device, "tools.test")
     trainer, state = build_all(cfg, args, device)
     metrics = trainer.evaluate(state)
+    finish()
+    if not trainer.writer:          # under torchrun rank 0 reports
+        return metrics
     out_path = os.path.join(args.work_dir or ".", "eval_results_full.json")
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "w") as f:

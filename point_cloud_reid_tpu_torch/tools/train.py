@@ -33,6 +33,19 @@ loads other weights). The JAX CLI's flags:
              cross stages, heads, ViT blocks; torch.utils.checkpoint):
              one stage's activations live at a time, for a second forward;
   --profile DIR  a torch.profiler trace of Trainer.fit, DIR/trace.json.
+
+On N cards, data parallel, as the JAX CLI under JAX_* (one step over the
+global batch; train/loop.py):
+
+    torchrun --standalone --nproc_per_node N -m \
+        point_cloud_reid_tpu_torch.tools.train EXPERIMENT ...
+
+Each process joins the group from torchrun's environment
+(parallel.init_distributed: NCCL on cards, gloo with --device cpu), trains
+on cuda:LOCAL_RANK and loads its shard of every global batch; the global
+batch is samples_per_device x N (--batch-size sets it, rounded down to a
+multiple of N). Rank 0 writes the checkpoints, the logs and the printed
+metrics. tools/test.py and tools/parity_eval.py evaluate the same way.
 """
 from __future__ import annotations
 
@@ -85,14 +98,18 @@ def parse_args(argv=None):
 
 
 def select_device(name: str, tool: str) -> torch.device:
-    """The run's device, with TF32 off; without a card, a run that did not
-    ask for the CPU exits."""
+    """The run's device, with TF32 off: under torchrun the card of
+    LOCAL_RANK; without a card, a run that did not ask for the CPU
+    exits."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit(f"{tool} needs a CUDA device (--device cpu "
                              "runs the plain versions on the CPU)")
-        print(f"device: {torch.cuda.get_device_name(0)}", file=sys.stderr)
+        from point_cloud_reid_tpu_torch.parallel.distributed import local_rank
+        device = torch.device("cuda", local_rank())
+        print(f"device: {torch.cuda.get_device_name(device)}",
+              file=sys.stderr)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
@@ -104,12 +121,18 @@ def is_image(cfg) -> bool:
 
 def build_all(cfg, args, device):
     """(trainer, state) of an experiment dict on `device`: the JAX CLI's
-    build_all (stores, samplers, loaders, model, trainer) on one device."""
+    build_all (stores, samplers, loaders, model, trainer). Under torchrun
+    it joins the process group first (parallel.init_distributed), sizes
+    the global batch by the world size and shards the loaders by rank."""
     from point_cloud_reid_tpu_torch.data import (BatchLoader, CompleteStore,
                                                  CropStore, SyntheticStore,
                                                  build_pair_dataset)
     from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.parallel import init_distributed
     from point_cloud_reid_tpu_torch.train import Trainer, TrainState, pin_batch
+
+    dist_info = init_distributed(device=device.type)
+    world = dist_info["process_count"]
 
     dcfg = cfg["dataset"]
     losses = cfg.get("losses_to_use", {})
@@ -131,10 +154,14 @@ def build_all(cfg, args, device):
     train_ds = build_pair_dataset(dcfg["train"], store, complete_store)
     val_ds = build_pair_dataset(dcfg["val"], store, complete_store)
 
-    batch = args.batch_size or dcfg["samples_per_device"]
-    batch = max(1, min(batch, max(len(train_ds) // 2, 1)))
-    loader = dict(batch_size=batch, num_threads=args.loader_threads,
-                  transform=pin_batch if device.type == "cuda" else None)
+    # the global batch: samples_per_device a process, a multiple of the
+    # world size (the JAX CLI's sizing by device count)
+    batch = args.batch_size or dcfg["samples_per_device"] * world
+    batch = max(world, min(batch, max(len(train_ds) // 2, world)))
+    batch -= batch % world
+    loader = dict(batch_size=batch, num_threads=max(1, args.loader_threads),
+                  transform=pin_batch if device.type == "cuda" else None,
+                  shard_id=dist_info["process_index"], num_shards=world)
     train_loader = BatchLoader(train_ds, shuffle=True, seed=args.seed,
                                **loader)
     val_loader = BatchLoader(val_ds, shuffle=False, drop_last=True, **loader)
@@ -169,6 +196,23 @@ def scalars(metrics) -> str:
                        if not isinstance(v, dict)}, indent=1)
 
 
+def process_group() -> dict:
+    """The run's process group as the logs record it (backend None and
+    world 1 without one)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return dict(backend=None, world=1, rank=0)
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                rank=dist.get_rank())
+
+
+def finish() -> None:
+    """Leave the process group, if the run joined one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def main(argv=None):
     args = parse_args(argv)
     from point_cloud_reid_tpu_torch.configs import get_experiment
@@ -176,15 +220,19 @@ def main(argv=None):
     train = not (args.eval_only or cfg["runtime"].get("eval_only"))
     device = select_device(args.device, "tools.train")
     trainer, state = build_all(cfg, args, device)
+    group = process_group()
+    print(f"process group: {json.dumps(group)}", file=sys.stderr)
     trainer.logger.log_config(dict(experiment=args.experiment, seed=args.seed,
                                    schedule=str(cfg["schedule"]),
-                                   model=cfg["model"]))
+                                   model=cfg["model"], process_group=group))
     if train:
         from point_cloud_reid_tpu_torch.utils.profiling import trace_context
         with trace_context(args.profile):
             state = trainer.fit(state)
     metrics = trainer.evaluate(state)
-    print(scalars(metrics))
+    if trainer.writer:
+        print(scalars(metrics))
+    finish()
     return metrics
 
 

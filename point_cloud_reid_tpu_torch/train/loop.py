@@ -13,7 +13,15 @@
                         checkpoints (torch.save / torch.load), metric
                         logging (utils/logging.py).
 
-One device, no mesh: data-parallel training waits for the multi-GPU slice.
+Data parallel: in a torch.distributed group (parallel.init_distributed,
+one process a card under torchrun) the Trainer's step is one step over the
+global batch, as the JAX step over a mesh: each process trains on its rows
+(the loaders' shard), BatchNorm statistics, masked means, the triplet
+negatives and the logged values are taken over the global batch
+(parallel/distributed.py), and the ranks' gradients are summed in one
+all-reduce a step. The initial state is broadcast from rank 0, rank 0
+alone writes checkpoints and logs, and evaluation gathers every rank's
+per-pair results.
 A model built at a bf16 compute dtype (models.build_model(dtype=...))
 trains as the JAX package's does: float32 parameters, gradients, AdamW
 moments and accumulator, bf16 compute where flax casts.
@@ -34,7 +42,7 @@ from ..evaluation import evaluate_results
 from ..models.attention_blocks import (CrossAttentionBlock, CrossLinAttn,
                                        LocalSelfAttention)
 from ..models.dgcnn import EdgeConv
-from ..models.layers import frozen_statistics
+from ..models.layers import stage_contexts
 from ..models.loftr import LoFTREncoderLayer
 from ..models.point_transformer import (FeaturePropagationSA,
                                         SetAbstractionEdgeSA)
@@ -42,6 +50,10 @@ from ..models.pointnet import PointNetEncoder
 from ..models.registry import SequentialHead
 from ..models.vector_neurons import VNLinearLeakyReLU
 from ..models.vit import Block
+from ..parallel import allgather_results, barrier, replicated
+from ..parallel import distributed as pdist
+from ..parallel.distributed import (is_distributed, process_index,
+                                    reduce_gradients, reduce_logs)
 from ..utils.logging import MetricLogger
 from .losses import reid_losses
 from .schedules import global_norm
@@ -92,13 +104,16 @@ def _checkpointed_stages(model) -> Iterator[None]:
     """Inside the block, each stage of `model` runs under non-reentrant
     torch.utils.checkpoint: it keeps its inputs and outputs, and the
     backward recomputes its forward when it reaches the stage, with the
-    BatchNorm running statistics frozen (the forward moved them)."""
-    stages = [m for m in model.modules() if isinstance(m, _REMAT_STAGES)]
+    BatchNorm running statistics frozen (the forward moved them) and a
+    data-parallel step's global statistics replayed
+    (models.layers.stage_contexts). An SA stage that the backbone's
+    remat_stages already checkpoints is left to it."""
+    stages = [m for m in model.modules() if isinstance(m, _REMAT_STAGES)
+              and not getattr(m, "remat", False)]
     for m in stages:
         m.forward = functools.partial(
             checkpoint, m.forward, use_reentrant=False,
-            context_fn=lambda: (contextlib.nullcontext(),
-                                frozen_statistics(model)))
+            context_fn=functools.partial(stage_contexts, model))
     try:
         yield
     finally:
@@ -131,14 +146,25 @@ def make_train_step(model, losses_to_use: Dict[str, bool],
     log_vars are 0-d tensors (no host sync); `grad_norm` is the global norm
     of this step's raw gradients.
 
+    In a torch.distributed group the step is data parallel: `batch` is
+    this process's rows of the global batch, and the step is the step over
+    the global batch (the module docstring): every rank gets the same logs,
+    `grad_norm` that of the global gradient, which is all-reduced once a
+    step. With gradient accumulation the all-reduce comes once, at the
+    update, of the accumulated gradient; the micro-steps' raw gradients
+    are never reduced, so their logs carry no `grad_norm`. `generator`
+    must stand in the same state on every rank; a given neg_idx is the
+    global draw.
+
     remat=True is the JAX step's jax.checkpoint: the backward runs the
     forward again (train_forward), for less memory at the cost of a second
     forward. The recompute leaves the BatchNorm running statistics where
     the forward moved them (frozen_statistics), and the triplet negatives
     are drawn outside it, from `generator`."""
     need_dense = losses_to_use.get("dense", False)
+    dp = is_distributed()
 
-    def train_step(state: TrainState, batch, generator=None, neg_idx=None):
+    def forward_backward(state: TrainState, batch, generator, neg_idx):
         out = train_forward(model, batch, remat)
         dense_feats = None
         if need_dense:
@@ -155,14 +181,33 @@ def make_train_step(model, losses_to_use: Dict[str, bool],
             triplet_sample_num=triplet_sample_num,
             triplet_margin=triplet_margin, pool_type=model.pool_type,
             neg_idx=neg_idx)
-        opt = state.optimizer
-        opt.zero_grad()
+        state.optimizer.zero_grad()
         loss.backward()
-        log = {k: v.detach() for k, v in log.items()}
-        log["grad_norm"] = global_norm(opt.gradients())
+        return {k: v.detach() for k, v in log.items()}
+
+    def train_step(state: TrainState, batch, generator=None, neg_idx=None):
+        opt = state.optimizer
+        if not dp:
+            log = forward_backward(state, batch, generator, neg_idx)
+            log["grad_norm"] = global_norm(opt.gradients())
+            reduce = None
+        else:
+            # the backward recomputes checkpointed stages: it replays
+            # their statistics inside the same block
+            with pdist.data_parallel():
+                log = reduce_logs(forward_backward(state, batch, generator,
+                                                   neg_idx))
+            reduce = reduce_gradients
+            if opt.cfg.cumulative_iters == 1:
+                grads = opt.gradients()
+                reduce_gradients(grads)
+                for p, g in zip(opt.params, grads):
+                    p.grad = g
+                log["grad_norm"] = global_norm(grads)
+                reduce = None
         before = ([p.detach().clone() for p in opt.params] if monitor
                   else None)
-        opt.step()
+        opt.step(reduce=reduce)
         if monitor:
             log["param_norm"] = global_norm([p.detach() for p in opt.params])
             log["update_norm"] = global_norm(
@@ -177,15 +222,23 @@ def make_eval_step(model, losses_to_use: Dict[str, bool],
                    alpha: Dict[str, float], fp_label_threshold: int = 9
                    ) -> Callable:
     """Eval forward: (state, batch, generator) -> per-pair tensors for the
-    host-side stratified evaluator."""
+    host-side stratified evaluator. In a torch.distributed group `batch` is
+    this process's rows, and each val_*_loss is the global batch's (the
+    same on every rank), as in the JAX eval step over a mesh."""
+    data_parallel = is_distributed()
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch, generator=None):
         out = model(batch, train=False)
-        _, log = reid_losses(out, batch, losses_to_use=losses_to_use,
-                             alpha=alpha, generator=generator,
-                             fp_label_threshold=fp_label_threshold,
-                             pool_type=model.pool_type)
+        with (pdist.data_parallel() if data_parallel
+              else contextlib.nullcontext()):
+            _, log = reid_losses(out, batch, losses_to_use=losses_to_use,
+                                 alpha=alpha, generator=generator,
+                                 fp_label_threshold=fp_label_threshold,
+                                 pool_type=model.pool_type)
+        if data_parallel:
+            log = reduce_logs({k: v for k, v in log.items()
+                               if k.endswith("_loss")})
         labels_cat = torch.cat([batch["label_1"], batch["label_2"]], 0)
         res = dict(
             val_match_preds=out["match_logits"],
@@ -230,6 +283,11 @@ class Trainer:
             seed, losses_to_use, alpha, cls_to_idx, num_classes,
             fp_label_threshold, use_o, triplet_sample_num, triplet_margin,
             monitor, remat.
+
+    In a torch.distributed group the Trainer trains data parallel (the
+    module docstring): the loaders are this process's shards of the
+    global batches (data.BatchLoader's shard_id / num_shards), and on
+    every rank but 0 the logger is silent and nothing is written.
     """
 
     def __init__(self, model, train_loader, val_loader, cfg: Dict[str, Any],
@@ -239,6 +297,10 @@ class Trainer:
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.cfg = cfg
+        self.distributed = is_distributed()
+        self.writer = process_index() == 0
+        if not self.writer:
+            logger = MetricLogger(None, quiet=True)
         self.logger = logger or MetricLogger(cfg.get("work_dir"))
         lcfg = cfg.get("losses_to_use", dict(match=True))
         alpha = cfg.get("alpha", {})
@@ -258,14 +320,17 @@ class Trainer:
     # ---- checkpoints ---------------------------------------------------------
 
     def save_checkpoint(self, state: TrainState, tag: str = "last"):
-        """Write {work_dir}/ckpt_{tag}.pt: model, optimizer and step."""
+        """Write {work_dir}/ckpt_{tag}.pt: model, optimizer and step. In a
+        group rank 0 writes it, and every rank waits until it has."""
         work_dir = self.cfg.get("work_dir")
         if not work_dir:
             return None
-        os.makedirs(work_dir, exist_ok=True)
         path = os.path.join(work_dir, f"ckpt_{tag}.pt")
-        torch.save(state.state_dict(), path + ".tmp")
-        os.replace(path + ".tmp", path)
+        if self.writer:
+            os.makedirs(work_dir, exist_ok=True)
+            torch.save(state.state_dict(), path + ".tmp")
+            os.replace(path + ".tmp", path)
+        barrier("checkpoint")
         return path
 
     def _save_interval_checkpoint(self, state: TrainState, epoch: int):
@@ -282,7 +347,7 @@ class Trainer:
             while len(self._kept_epochs) > max_keep:
                 old = self._kept_epochs.pop(0)
                 path = os.path.join(work_dir, f"ckpt_epoch_{old}.pt")
-                if os.path.exists(path):
+                if self.writer and os.path.exists(path):
                     os.remove(path)
         if self.cfg.get("save_last", True):
             self.save_checkpoint(state, tag="last")
@@ -323,6 +388,7 @@ class Trainer:
         generator = self._generator()
         self._kept_epochs = []
         best_acc = float("-inf")
+        replicated(state.model, state.optimizer)
 
         def host(log):
             return {k: float(v) for k, v in log.items()}
@@ -362,7 +428,9 @@ class Trainer:
 
     def evaluate(self, state: TrainState) -> Dict[str, Any]:
         """Eval forward over the val loader, host-side aggregation; writes
-        {work_dir}/eval_results.json."""
+        {work_dir}/eval_results.json. In a group each rank evaluates its
+        shard of the val batches and every rank aggregates the per-pair
+        results of all (allgather_results); rank 0 writes the file."""
         generator = self._generator()
         accum: Dict[str, list] = {}
         for batch in self.val_loader:
@@ -372,12 +440,13 @@ class Trainer:
                 accum.setdefault(k, []).append(v)
         # numpy has no bf16: a bf16 model's logits go to the host in
         # float32, which holds each bf16 value exactly
-        results = {k: _numpy(torch.cat(v, dim=0)) for k, v in accum.items()}
+        results = allgather_results(
+            {k: _numpy(torch.cat(v, dim=0)) for k, v in accum.items()})
         metrics = evaluate_results(
             results, cls_to_idx=self.cfg.get("cls_to_idx", {}),
             num_classes=self.cfg.get("num_classes", 10))
         work_dir = self.cfg.get("work_dir")
-        if work_dir:
+        if work_dir and self.writer:
             with open(os.path.join(work_dir, "eval_results.json"), "w") as f:
                 json.dump(metrics, f, indent=1)
         return metrics

@@ -11,6 +11,13 @@ tensor's dtype). So bce_with_logits of bf16 logits computes max(x, 0) and
 log1p(exp(-|x|)) in bf16 and x * t in float32; softmax_ce, kl_pair_loss and
 triplet_loss of bf16 inputs run and return bf16; the total in reid_losses
 starts float32.
+
+In a data-parallel step (parallel.distributed.data_parallel) each rank
+returns its SHARE of every loss and logged value: the numerator over its
+own rows divided by the global denominator, so that the shares of the
+ranks sum to the value over the global batch (the train step sums them,
+and the gradients). The triplet loss draws its negatives from the global
+batch, the same draw on every rank.
 """
 from __future__ import annotations
 
@@ -21,13 +28,20 @@ import torch.nn.functional as F
 
 from ..models.layers import pooled_feats
 from ..ops.geometry import square_distance
+from ..parallel.distributed import (dp_size, gather_rows, global_total,
+                                    local_rows)
 
 
 def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The mean of x over the mask's rows (all rows without one); in a
+    data-parallel step this rank's share: its numerator over the global
+    denominator. Without a mask the sum is taken wide and rounded once, as
+    x.mean() does."""
     if mask is None:
-        return x.mean()
+        wide = torch.promote_types(x.dtype, torch.float32)
+        return (x.sum(dtype=wide) / (x.numel() * dp_size())).to(x.dtype)
     m = mask.to(x.dtype)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+    return (x * m).sum() / global_total(m.sum()).clamp(min=1.0)
 
 
 def bce_with_logits(logits, targets, weights=None) -> torch.Tensor:
@@ -97,13 +111,21 @@ def triplet_loss(h1, h2, id1, id2, match, sample_num: int = 5,
     """Triplet margin loss with per-pair negative mining: for every positive
     pair, anchor h1[i], positive h2[i] and `sample_num` negatives among the
     2B embeddings whose id differs. The negatives come from `generator`
-    (draw_negatives) unless `neg_idx` (B, sample_num) supplies them."""
+    (draw_negatives) unless `neg_idx` (B, sample_num) supplies them.
+
+    In a data-parallel step the 2B embeddings are the global batch's
+    ([h1 of every rank; h2 of every rank], gather_rows), the negatives are
+    drawn over the global ids (the same generator state on every rank
+    gives every rank the same draw), and a rank keeps its anchors' rows;
+    a given neg_idx is the global (W B, sample_num) draw."""
     B = h1.shape[0]
     a = h1.reshape(B, -1)
     p = h2.reshape(B, -1)
-    all_h = torch.cat([a, p], dim=0)
+    all_h = torch.cat([gather_rows(a), gather_rows(p)], dim=0)
     if neg_idx is None:
-        neg_idx = draw_negatives(id1, id2, sample_num, generator)
+        neg_idx = draw_negatives(gather_rows(id1), gather_rows(id2),
+                                 sample_num, generator)
+    neg_idx = local_rows(neg_idx)
     n = all_h[neg_idx.reshape(-1).long()].reshape(B, neg_idx.shape[1], -1)
     d_ap = torch.linalg.norm(a - p, dim=-1)
     d_an = torch.linalg.norm(a[:, None, :] - n, dim=-1)
@@ -123,7 +145,7 @@ def match_metrics(logits, match, prefix: str = "") -> Dict[str, torch.Tensor]:
     """The reference's per-iteration match summary."""
     preds = (torch.sigmoid(logits) > 0.5).float()
     return {
-        prefix + "match_acc": (preds == match).float().mean(),
+        prefix + "match_acc": _masked_mean((preds == match).float(), None),
         prefix + "num_gt_1": match.sum(),
         prefix + "num_gt_0": (1.0 - match).sum(),
         prefix + "num_preds_1": preds.sum(),
@@ -168,16 +190,17 @@ def reid_losses(outputs: Dict[str, torch.Tensor],
     if use["cls"]:
         closs = a["cls"] * softmax_ce(outputs["cls_logits"], labels_cat)
         log["cls_loss"] = closs
-        log["cls_acc"] = (outputs["cls_logits"].argmax(-1)
-                          == labels_cat).float().mean()
+        log["cls_acc"] = _masked_mean(
+            (outputs["cls_logits"].argmax(-1) == labels_cat).float(), None)
         total = total + closs
 
     if use["fp"]:
         fp_target = (labels_cat > fp_label_threshold).float()
         fploss = a["fp"] * bce_with_logits(outputs["fp_logits"], fp_target)
         log["fp_loss"] = fploss
-        log["fp_acc"] = ((torch.sigmoid(outputs["fp_logits"]) > 0.5).float()
-                         == fp_target).float().mean()
+        log["fp_acc"] = _masked_mean(
+            ((torch.sigmoid(outputs["fp_logits"]) > 0.5).float()
+             == fp_target).float(), None)
         total = total + fploss
 
     if use["shape"]:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -107,9 +107,13 @@ class ScheduledAdamW:
         return [p.grad if p.grad is not None else torch.zeros_like(p)
                 for p in self.params]
 
-    def step(self) -> bool:
+    def step(self, reduce: Optional[Callable[[List[torch.Tensor]], None]]
+             = None) -> bool:
         """One training step's gradients. Returns True if the parameters
-        were updated (every `cumulative_iters`-th call)."""
+        were updated (every `cumulative_iters`-th call). `reduce` (in
+        place, on a list of gradients) runs once on the gradient an update
+        applies: a data-parallel step's all-reduce of the accumulated
+        gradient."""
         grads = self.gradients()
         k = self.cfg.cumulative_iters
         if k > 1:
@@ -124,6 +128,8 @@ class ScheduledAdamW:
                 self.zero_grad()
                 return False
             grads, self._acc, self.mini_step = self._acc, None, 0
+        if reduce is not None:
+            reduce(grads)
         clip = self.cfg.grad_clip_norm
         if clip is not None:
             norm = global_norm(grads)

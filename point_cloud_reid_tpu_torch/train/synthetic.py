@@ -21,11 +21,17 @@ class SyntheticPairLoader:
     image_size, (B, 3, image_size, image_size) images), id_1/2, label_1/2,
     size_1/2, vis_1/2 (B,) int32, dist_1/2 (B,) float32 and, with
     dense_points, dense_1/2 (B, dense_points, 3). set_epoch reseeds the
-    draw; the same (seed, epoch) gives the same batches."""
+    draw; the same (seed, epoch) gives the same batches. With num_shards >
+    1, batch_size is the global batch and the loader yields shard
+    `shard_id`'s contiguous rows of each, as data.BatchLoader does."""
 
     def __init__(self, batch_size: int, num_batches: int, num_points: int = 128,
                  num_objects: int = 60, num_classes: int = 10,
-                 dense_points: int = 0, seed: int = 0, image_size: int = 0):
+                 dense_points: int = 0, seed: int = 0, image_size: int = 0,
+                 shard_id: int = 0, num_shards: int = 1):
+        if batch_size % num_shards or not 0 <= shard_id < num_shards:
+            raise ValueError((batch_size, shard_id, num_shards))
+        self.shard_id, self.num_shards = shard_id, num_shards
         self.batch_size = batch_size
         self.num_batches = num_batches
         self.num_points = num_points
@@ -80,4 +86,6 @@ class SyntheticPairLoader:
             if self.dense_points:
                 batch["dense_1"] = self._crops(rs, id_1, self.dense_points)
                 batch["dense_2"] = self._crops(rs, id_2, self.dense_points)
-            yield batch
+            n = B // self.num_shards
+            yield {k: v[self.shard_id * n:(self.shard_id + 1) * n]
+                   for k, v in batch.items()}

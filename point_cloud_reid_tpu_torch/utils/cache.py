@@ -13,6 +13,7 @@ cached: the copy must stay in the graph.
 """
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 from typing import Callable, Sequence
 
@@ -52,3 +53,19 @@ def cast(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if t.dtype == dtype:
         return t
     return derived((t,), ("cast", dtype), lambda: t.to(dtype))
+
+
+def model_on(model: torch.nn.Module, device) -> torch.nn.Module:
+    """`model` on `device`: the model itself on its own device, else a
+    copy made once per set of weights (see `derived`: an update of any
+    parameter or buffer makes the next call copy again). The sharded
+    scorer's weights for each mesh entry."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    own = next(model.parameters()).device
+    if device == own:
+        return model
+    sources = tuple(model.parameters()) + tuple(model.buffers())
+    return derived(sources, ("model_on", str(device)),
+                   lambda: copy.deepcopy(model).to(device))

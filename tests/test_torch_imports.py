@@ -129,7 +129,8 @@ NEW_MODULES = {
     "models.vector_neurons", "models.node_pooling", "configs.zoo",
     "convert.torch_checkpoint", "ops.voxel", "ops.sparse", "ops.boxes3d",
     "tools.convert_checkpoint", "tools.parity_eval", "tools.acc_plots",
-    "tools.tracking_plots", "tools.launcher"}
+    "tools.tracking_plots", "tools.launcher", "parallel", "parallel.mesh",
+    "parallel.distributed", "ops.sa_train"}
 # the CUDA sources the bf16 serving path adds beside the float32 ones
 BF16_SOURCES = {"sa_stage_bf16.cu", "match_grid_bf16.cu"}
 

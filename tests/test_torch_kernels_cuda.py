@@ -858,3 +858,25 @@ def test_match_bf16_layouts_equal_the_plan(cuda):
             assert mg.plan(N, C, 2, dtype=torch.bfloat16) == mg.Plan(
                 mg.CLUSTER, want)
     _rows_layouts_equal_the_plan(lib, torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,C", [(3000, 64), (65_536, 128)])
+def test_global_batch_norm_on_the_card_matches_the_cpu(cuda, M, C):
+    """The data-parallel BatchNorm (models/layers._GlobalBatchNorm) in one
+    process, float64: its card path (SyncBatchNorm's backward kernels)
+    against its CPU path, outputs and the gradients of x, gamma, beta."""
+    from point_cloud_reid_tpu_torch.models.layers import _GlobalBatchNorm
+    g = torch.Generator().manual_seed(0)
+    x, dy = (torch.randn(M, C, generator=g, dtype=torch.float64) * 2 + 1
+             for _ in range(2))
+    w, b = (torch.randn(C, generator=g, dtype=torch.float64)
+            for _ in range(2))
+    out = []
+    for dev in ("cpu", cuda):
+        args = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        y = _GlobalBatchNorm.apply(*args, 1e-5)[0]
+        grads = torch.autograd.grad(y, args, dy.to(dev))
+        out.append([t.detach().cpu() for t in (y,) + grads])
+    for got, want in zip(out[1], out[0]):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-9 * max(1.0, want.abs().max().item()), err
