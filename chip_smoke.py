@@ -184,6 +184,25 @@ Phases, each of which raises on failure:
      remat_stages [0, 1, 2] steps of the flagship at TRAIN_PAIRS pairs,
      step 1 against phase 4's (TRAIN_TOL; REMAT_TOL for remat_stages), step
      ms and peak GiB beside phase 4's.
+ 16. the widths (ROADMAP.md K6, K3): the match kernels in the padded layout
+     (kernels/match_grid.pad_side) at both dtypes against their plain
+     versions at the true width (MATCH_TOL, BF16_TOL; pairs equal to their
+     grid cells bit for bit): the point head at WIDTH_POINT (C = 32 and 48
+     on the cluster tier's C = 64; C = 96 in 2 and 3 heads, at N = 128 and
+     2048, and C = 120 in 8 heads on the rows tier's C = 128), the image
+     head at WIDTH_IMAGE (C = 96 at S = 197 and C = 64 at S = 256, past the
+     cluster tier's rows, on the rows tier's padded entry point), each with
+     its tier, time, plain time and bound at the true and the padded width;
+     FPS over 6 channels (csrc/fps.cu's channel kernels) at three clouds,
+     indices equal to the plain loop's. Then, with every count at 0: the
+     three --set models of point_cloud_reid_tpu_torch/configs/widths.py
+     (the flagship at conv_out 96 and 32, DeiT-tiny at downsample_dim 96)
+     through tools/track.py at float32 and --bf16, dense ('never') and
+     sparse ('always'), every frame's pooled features against the chain's
+     plain version on its padded inputs, its logits equal to them through
+     the head and, at float32, against the model's own plain scoring
+     (FRAME_TOL), the launches by tier; FPS of points with normals through
+     ops.geometry.farthest_point_sample.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -397,6 +416,21 @@ DP_VAR_TOL = 1e-3       # measured 4.6e-4, a world-1 group 4.5e-4
 DP_WORK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "chip_smoke_dp")
 MESH_ENTRIES = 2
+# phase 16, the widths (ROADMAP.md K6, K3): the match chain at head widths
+# the kernels' tiles have no instantiation for, in the padded layout
+# (kernels/match_grid.pad_side), point head (C, heads, N) and image head
+# (C, heads, S), the first of each tier the dense frame's shape (a 128 x 128
+# grid of 128-point crops; DeiT's 128 x 64 grid at S = 197), the rest on
+# WIDTH_SMALL x WIDTH_SMALL grids (8 x 8 at N = 2048); the three --set models
+# of point_cloud_reid_tpu_torch/configs/widths.py through tools/track.py,
+# WIDTH_FRAMES frames a run; FPS over (B, N, npoint, C) points with normals
+WIDTH_POINT = {"cluster": ((32, 2, 128), (48, 4, 128)),
+               "rows": ((96, 2, 128), (96, 3, 128), (96, 2, 2048),
+                        (120, 8, 128))}
+WIDTH_IMAGE = ((96, 2, 197), (64, 2, 256))
+WIDTH_SMALL, WIDTH_PAIRS = 16, 512
+WIDTH_FRAMES = 3
+WIDTH_FPS = (128, 1024, 256, 6)
 
 
 def nbytes(*tensors) -> int:
@@ -896,7 +930,16 @@ def all_counters() -> dict:
                               mg.fused_image_match_grid,
                               mg.fused_image_match_pairs)},
                 **{f"{fn.__name__}/rows_bf16": TierCount(fn, ("rows_bf16",))
-                   for fn in (mg.fused_match_grid, mg.fused_match_pairs)})
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs)},
+                # the padded layout's launches by tier and dtype (phase 16)
+                **{f"{fn.__name__}/padded_{t}{b}": TierCount(
+                    fn, (f"{t}{b}",), "padded_launches")
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs,
+                              mg.fused_image_match_grid,
+                              mg.fused_image_match_pairs)
+                   for t in ("cluster", "rows") for b in ("", "_bf16")},
+                **{"fps/channels": TierCount(kf.fps, ("channels",),
+                                             "shape_launches")})
 
 
 def zero_counters() -> dict:
@@ -2320,14 +2363,17 @@ def train_leaf(card: str, name: str) -> dict:
                 peak_gib=peak / 2 ** 30, step1_rel=rels)
 
 
-def rows_kernel_usage(C: int, nhead: int, bf16: bool) -> dict:
+def rows_kernel_usage(C: int, nhead: int, bf16: bool, pad: bool = False
+                      ) -> dict:
     """ptxas's registers and spills of the wgmma rows tier's instantiation
     for width C in nhead heads (csrc/match_rows_wg.cuh rows_wg_kernel<policy,
-    C, KVN>), from the kernels' build log."""
+    C, KVN, PAD>; `pad`: the padded layout's, KVN = C), from the kernels'
+    build log."""
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
-    kvn = mg.rows_layout(C, nhead).kvn
-    want = f"rows_wg_kernelINS_4{'Bf16' if bf16 else 'Tf32'}ELi{C}ELi{kvn}E"
+    kvn = mg.rows_layout(C, 1 if pad else nhead).kvn
+    want = (f"rows_wg_kernelINS_4{'Bf16' if bf16 else 'Tf32'}ELi{C}ELi{kvn}"
+            f"ELb{int(pad)}E")
     found = [v for k, v in _lib.ptxas_usage(_lib.LIBRARY.build_log).items()
              if want in k]
     if len(found) != 1:
@@ -4419,6 +4465,331 @@ def phase_multi_gpu(card: str):
     return launches, summary
 
 
+# ---- phase 16: the widths -------------------------------------------------------
+
+def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
+               P: int, gen) -> dict:
+    """The match kernels at one shape of the padded layout: an nt x nd grid
+    and a P-pair list against the plain version at the true width
+    (MATCH_TOL; bf16: BF16_TOL), pairs equal to their grid cells bit for
+    bit; ms, plain ms, the bound at the true C and at the padded W, the
+    tier. Returns the grid's and the pairs' measurements."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    bf16 = dtype == torch.bfloat16
+    t, d, w1, w2, H = inputs(head, nt, nd, N, C, H, seed=C + N, device=DEVICE,
+                             dtype=dtype)
+    point = head == "point"
+    grid_fn = mg.fused_match_grid if point else mg.fused_image_match_grid
+    pair_fn = mg.fused_match_pairs if point else mg.fused_image_match_pairs
+    how = mg.plan(N, C, H, pos=point, dtype=dtype)
+    W = mg.kernel_width(C, how.tier)
+    tol = BF16_TOL if bf16 else MATCH_TOL
+    weights = list(w1.values()) + list(w2.values())
+    ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+    di = torch.arange(nd, device=DEVICE).repeat(nt)
+    key = mg.tier_key(how.tier, bf16)
+    before = grid_fn.padded_launches[key]
+    grid = grid_fn(t, d, w1, w2, H)
+    if grid_fn.padded_launches[key] != before + 1:
+        raise RuntimeError(f"{head} C={C}: no padded {key} launch")
+    want = mg.match_pooled_reference(t, d, w1, w2, H, ti, di).reshape(
+        nt, nd, -1)
+    torch.cuda.synchronize()
+    g_err, g_rel = rel_err(grid.float(), want.float())
+    del want
+    g_ms = time_ms(lambda: grid_fn(t, d, w1, w2, H), 2, warmup=1)
+    g_plain = time_ms(lambda: mg.match_pooled_reference(t, d, w1, w2, H, ti,
+                                                        di), 1, warmup=0)
+    t_idx = torch.randint(0, nt, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    d_idx = torch.randint(0, nd, (P,), generator=gen, device=DEVICE,
+                          dtype=torch.int32)
+    pairs = pair_fn(t, d, w1, w2, H, t_idx, d_idx)
+    want = mg.match_pooled_reference(t, d, w1, w2, H, t_idx, d_idx)
+    torch.cuda.synchronize()
+    p_err, p_rel = rel_err(pairs.float(), want.float())
+    same = torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+    p_ms = time_ms(lambda: pair_fn(t, d, w1, w2, H, t_idx, d_idx), 3,
+                   warmup=1)
+    p_plain = time_ms(lambda: mg.match_pooled_reference(t, d, w1, w2, H,
+                                                        t_idx, d_idx), 1,
+                      warmup=0)
+
+    def bound(pairs_n, width, nbyte):
+        flops = 80.0 * pairs_n * N * width * width
+        return (bf16_bound(flops, nbyte) if bf16
+                else match_bound(pairs_n, N, width, nbyte)[:2])
+    g_nbyte = nbytes(*t, *d, *weights, grid)
+    p_nbyte = nbytes(*t, *d, *weights, t_idx, d_idx, pairs)
+    g_bound, g_pad = bound(nt * nd, C, g_nbyte), bound(nt * nd, W, g_nbyte)
+    p_bound, p_pad = bound(P, C, p_nbyte), bound(P, W, p_nbyte)
+    tier = mg.TIER_NAMES[how.tier]
+    usage = (rows_kernel_usage(W, 1, bf16, pad=True) if how.tier == mg.ROWS
+             else None)
+    print(f"[widths:kernels] {head} C={C} nhead={H} N={N} "
+          f"{'bf16' if bf16 else 'float32'}: tier {tier} at W={W} (padded "
+          f"layout), {how.smem} shared bytes a block; grid {nt}x{nd} "
+          f"max_abs_err={g_err:.3e} rel={g_rel:.3e}, pairs P={P} "
+          f"max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol {tol:g}), pairs "
+          f"equal to their grid cells: {same}; grid {g_ms:.3f} ms (plain "
+          f"{g_plain:.3f}, bound {g_bound[0]:.4f} {g_bound[1]} at C, "
+          f"{g_pad[0]:.4f} at W), pairs {p_ms:.3f} ms (plain {p_plain:.3f}, "
+          f"bound {p_bound[0]:.4f} at C, {p_pad[0]:.4f} at W)"
+          + (f"; ptxas {usage}" if usage else ""), flush=True)
+    if not (g_rel <= tol and p_rel <= tol and same):
+        raise RuntimeError(f"the padded {tier} tier disagrees at {head} "
+                           f"C={C} H={H} N={N}: {g_rel}, {p_rel}, {same}")
+    shape = dict(head=head, C=C, nhead=H, N=N, W=W, tier=tier,
+                 smem_bytes=how.smem, **({"ptxas": usage} if usage else {}))
+    return dict(
+        grid=dict(shape, grid=f"{nt}x{nd}", max_abs_err=g_err, ms=g_ms,
+                  plain_ms=g_plain, bound_ms=g_bound[0], bound_by=g_bound[1],
+                  bound_padded_ms=g_pad[0], library_ms=None),
+        pairs=dict(shape, P=P, max_abs_err=p_err, ms=p_ms, plain_ms=p_plain,
+                   bound_ms=p_bound[0], bound_by=p_bound[1],
+                   bound_padded_ms=p_pad[0], library_ms=None))
+
+
+def width_fps_row() -> dict:
+    """FPS over C channels (csrc/fps.cu's channel kernels) at WIDTH_FPS and
+    a small and a large cloud: indices equal to the plain loop's; ms,
+    device ms, plain ms and bound; the kernels line's row `fps/channels`."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    shapes = {}
+    for i, (B, N, npoint, C) in enumerate((WIDTH_FPS, (128, 128, 64, 6),
+                                           (4, 20000, 256, 6))):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + i)
+        pts = torch.randn((B, N, C), generator=gen, device=DEVICE)
+        start = torch.randint(0, N, (B,), generator=gen, device=DEVICE)
+        got = kf.fps(pts, npoint, start)
+        want = kf.fps_reference(pts, npoint, start)
+        bad = int((got != want).sum().item())
+        k_ms = time_ms(lambda: kf.fps(pts, npoint, start), 10)
+        d_ms = graph_ms(lambda: kf.fps(pts, npoint, start), 10)
+        p_ms = time_ms(lambda: kf.fps_reference(pts, npoint, start), 1,
+                       warmup=1)
+        # 3 C - 1 flops a distance (C differences, squares, C - 1 sums)
+        b_ms, b_by = bound_ms((3.0 * C - 1) * B * npoint * N,
+                              nbytes(pts, start) + B * npoint * 8)
+        plan = kf.plan(N, C=C)
+        shapes[f"B{B}_N{N}_np{npoint}_C{C}"] = dict(
+            tier=kf.TIER_NAMES[plan.tier], smem_bytes=plan.smem, ms=k_ms,
+            device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+            mismatches=bad)
+        print(f"[widths:fps] B={B} N={N} npoint={npoint} C={C} (tier "
+              f"{kf.TIER_NAMES[plan.tier]}, {plan.smem} shared bytes): "
+              f"{bad} indices differ from the plain loop; a call {k_ms:.4f} "
+              f"ms, device {d_ms:.5f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})", flush=True)
+        if bad:
+            raise RuntimeError(f"fps over C={C} channels disagrees")
+    head = shapes["B{}_N{}_np{}_C{}".format(*WIDTH_FPS)]
+    return dict(name="fps/channels", route="cuda",
+                source="point_cloud_reid_tpu_torch/csrc/fps.cu",
+                replaces="point_cloud_reid_tpu/ops/pallas/fps.py:58",
+                max_abs_err=0.0, **{k: head[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+                library_ms=None, shapes=shapes)
+
+
+def width_rows() -> list:
+    """The kernels-line rows of the padded layout, both dtypes: the point
+    head's cluster and rows tiers and the image head's rows tier, grid and
+    pairs, each row's numbers its first shape's, every shape listed."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    plans = [("fused_match", "point", tier, shapes)
+             for tier, shapes in WIDTH_POINT.items()]
+    plans.append(("fused_image_match", "image", "rows", WIDTH_IMAGE))
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        for prefix, head, tier, shapes in plans:
+            cases = []
+            for i, (C, H, N) in enumerate(shapes):
+                if i == 0:
+                    nt, nd = (128, 128) if head == "point" else (128, 64)
+                else:
+                    nt = nd = WIDTH_SMALL if N < 2048 else 8
+                cases.append(width_case(head, C, H, N, dtype, nt, nd,
+                                        WIDTH_PAIRS if i == 0 else 64, gen))
+            src = ("match_grid_pad" if tier == "cluster"
+                   else "match_rows_pad") + sfx + ".cu"
+            for kind, line in (("grid", "250" if head == "point" else "686"),
+                               ("pairs", "355" if head == "point"
+                                else "514")):
+                first = cases[0][kind]
+                rows.append(dict(
+                    name=f"{prefix}_{kind}/padded_{tier}{sfx}", route="cuda",
+                    source=f"point_cloud_reid_tpu_torch/csrc/{src}",
+                    replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
+                             + line,
+                    **{k: first[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bound_padded_ms", "library_ms")},
+                    shapes=[c[kind] for c in cases]))
+    return rows
+
+
+def width_frame_check(model, rec, label: str) -> dict:
+    """One tracker frame against the chain's plain version on its padded
+    inputs: the kernel's pooled features again (a comparison launch)
+    against match_pooled_reference (MATCH_TOL; bf16: BF16_TOL), the frame's
+    logits equal to them through the head bit for bit, and at float32 the
+    logits against the model's own plain scoring (FRAME_TOL)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    image = rec["xyz_t"] is None
+    h_t, h_d = rec["h_t"], rec["h_d"]
+    nt, nd = h_t.shape[0], h_d.shape[0]
+    bf16 = h_t.dtype == torch.bfloat16
+    with torch.no_grad():
+        if image:
+            t, d, w1, w2, H = mg.image_match_factors(model, h_t, h_d)
+            grid_fn, pair_fn = (mg.fused_image_match_grid,
+                                mg.fused_image_match_pairs)
+        else:
+            t, d, w1, w2, H = mg.match_factors(model, h_t, rec["xyz_t"], h_d,
+                                               rec["xyz_d"])
+            grid_fn, pair_fn = mg.fused_match_grid, mg.fused_match_pairs
+        if rec["pairs"] is None:
+            ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
+            di = torch.arange(nd, device=DEVICE).repeat(nt)
+            pooled = grid_fn(t, d, w1, w2, H).reshape(nt * nd, -1)
+        else:
+            ti, di = rec["pairs"]
+            pooled = pair_fn(t, d, w1, w2, H, ti, di)
+        plain = mg.match_pooled_reference(t, d, w1, w2, H, ti, di)
+        logits = model.match_head(pooled)[:, 0]
+        same = torch.equal(logits, rec["logits"].reshape(-1))
+        err, rel = rel_err(pooled.float(), plain.float())
+        own_err = own_bound = 0.0
+        if not bf16:
+            if image:
+                own = model.match_logits_grid(h_t, h_d).reshape(-1)
+                if rec["pairs"] is not None:
+                    own = own.reshape(nt, nd)[ti.long(), di.long()]
+            else:
+                own = model_plain_logits(model, rec).reshape(-1)
+            own_err = (rec["logits"].reshape(-1) - own).abs().max().item()
+            own_bound = FRAME_TOL * (1.0 + own.abs().max().item())
+    tol = BF16_TOL if bf16 else MATCH_TOL
+    ok = rel <= tol and same and own_err <= own_bound and bool(
+        torch.isfinite(rec["logits"]).all())
+    if not ok:
+        raise RuntimeError(f"{label}: pooled rel {rel} (tol {tol}), logits "
+                           f"through the head equal {same}, against the "
+                           f"model's plain scoring {own_err} (bound "
+                           f"{own_bound})")
+    return dict(rel=rel, own_err=own_err)
+
+
+def width_cli(card: str, name: str, bf16: bool, sparse: str,
+              every: dict) -> dict:
+    """tools/track.py serves configs/widths.py's `name` through its --set
+    lines (WIDTH_FRAMES frames of a synthetic scene, 16 objects; sparse
+    'never' or 'always'; --bf16): its launches by tier, then every frame
+    against the chain's plain version (width_frame_check)."""
+    import contextlib
+    import io
+    import shutil
+    from point_cloud_reid_tpu_torch.configs.widths import WIDTHS
+    from point_cloud_reid_tpu_torch.inference import PairScorer
+    from point_cloud_reid_tpu_torch.tools import track
+    leaf, sets = WIDTHS[name]
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_widths")
+    shutil.rmtree(work, ignore_errors=True)
+    frames, scorers = [], []
+
+    def kept(self, value):      # every frame the scorer scores, kept
+        self.__dict__["_kept_frame"] = value
+        if value is not None:
+            frames.append(value)
+        elif self not in scorers:
+            scorers.append(self)
+    before = {k: fn.launches for k, fn in every.items()}
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    PairScorer.last_frame = property(
+        lambda self: self.__dict__.get("_kept_frame"), kept)
+    try:
+        with contextlib.redirect_stdout(out):
+            track.main([leaf, "--scenes", "1", "--frames", str(WIDTH_FRAMES),
+                        "--objects", "16", "--sparse", sparse,
+                        "--match-threshold", "1.0", "--work-dir", work]
+                       + (["--bf16"] if bf16 else [])
+                       + [a for x in sets for a in ("--set", x)])
+    finally:
+        del PairScorer.last_frame
+    seconds = time.perf_counter() - t0
+    used = {k: fn.launches - before[k] for k, fn in every.items()}
+    headline = json.loads(out.getvalue().strip().splitlines()[-1])
+    label = f"{name}{' --bf16' if bf16 else ''} --sparse {sparse}"
+    checks = [width_frame_check(scorers[-1].model, rec, label)
+              for rec in frames]
+    padded = {k: v for k, v in used.items() if v and "/padded_" in k}
+    print(f"[widths:cli] tools/track.py {leaf} ({label}): {len(frames)} "
+          f"frames scored, each against the plain chain: pooled rel <= "
+          f"{max(c['rel'] for c in checks):.3e}, logits against the model's "
+          f"plain scoring <= {max(c['own_err'] for c in checks):.3e}; "
+          f"launches by tier {padded}; {seconds:.1f} s, headline "
+          f"{json.dumps(headline)} on {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    if not frames or not padded or headline.get("frames") != WIDTH_FRAMES:
+        raise RuntimeError(f"tools/track.py {label}: {len(frames)} frames, "
+                           f"padded launches {padded}, {headline}")
+    return used
+
+
+def phase_widths(card: str):
+    """Phase 16: the match chain at head widths the kernels' tiles have no
+    instantiation for (the padded layout) and FPS over C channels; the
+    kernels against their plain versions, then, with every count at 0, the
+    three --set models of configs/widths.py through tools/track.py at
+    float32 and --bf16, dense ('never') and sparse ('always'), and FPS of
+    points with normals through ops.geometry.farthest_point_sample.
+    Returns (the kernels-line rows, the path's launches, a summary)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    from point_cloud_reid_tpu_torch.ops.geometry import farthest_point_sample
+    t_phase = time.perf_counter()
+    rows = width_rows() + [width_fps_row()]
+    t_kernels = time.perf_counter() - t_phase
+    every = zero_counters()
+    launches = {k: 0 for k in every}
+    for name in ("conv_out96", "conv_out32", "image96"):
+        for bf16 in (False, True):
+            for sparse in ("never", "always"):
+                used = width_cli(card, name, bf16, sparse, every)
+                for k, v in used.items():
+                    launches[k] += v
+                torch.cuda.empty_cache()
+    B, N, npoint, C = WIDTH_FPS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    xyz = torch.randn((B, N, 3), generator=gen, device=DEVICE)
+    normals = torch.nn.functional.normalize(
+        torch.randn((B, N, 3), generator=gen, device=DEVICE), dim=-1)
+    pts = torch.cat([xyz, normals], dim=-1)
+    before = every["fps/channels"].launches
+    idx = farthest_point_sample(pts, npoint)
+    launches["fps/channels"] += every["fps/channels"].launches - before
+    launches["fps"] += every["fps/channels"].launches - before
+    if not torch.equal(idx, kf.fps_reference(
+            pts, npoint, torch.zeros(B, dtype=torch.long, device=DEVICE))):
+        raise RuntimeError("FPS of points with normals disagrees")
+    seconds = time.perf_counter() - t_phase
+    print(f"[widths] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; kernels "
+          f"{t_kernels:.1f} s, phase took {seconds:.1f} s", flush=True)
+    return rows, launches, dict(seconds=seconds, kernels_seconds=t_kernels)
+
+
 def main():
     import torch
     card = phase_device()
@@ -4461,12 +4832,15 @@ def main():
     reference, reference_summary = phase_reference(card)
     torch.cuda.empty_cache()
     multi_gpu, multi_gpu_summary = phase_multi_gpu(card)
+    torch.cuda.empty_cache()
+    width_kernel_rows, widths, widths_summary = phase_widths(card)
+    rows += width_kernel_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
-            reference, multi_gpu))
+            reference, multi_gpu, widths))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -4476,7 +4850,8 @@ def main():
                       "zoo": zoo_summary,
                       "tracker_zoo": tracker_zoo_summary,
                       "reference": reference_summary,
-                      "multi_gpu": multi_gpu_summary}))
+                      "multi_gpu": multi_gpu_summary,
+                      "widths": widths_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,6 +50,18 @@
 //           No upper limit on N. (Coordinates kept in shared memory as well
 //           timed no faster at 12,000 points.)
 //
+// Any other channel count C (fps_pallas takes (B, N, C); entry point
+// pcr_fps_channels): the distance is the sum over the C channels of the
+// squared differences, left to right, and the same rounds, in two kernels
+// that read the coordinates by channel loop; C = 3 keeps the kernels above:
+//   WARP    (fps_warp_c) a warp a cloud, `clouds` clouds a block, each
+//           cloud's N x C coordinates staged in shared memory (4 N C bytes
+//           a cloud), P distances a lane in registers; N <= 32 P.
+//   BLOCK   (fps_stream_c) a block a cloud, the coordinates staged in
+//   L2      shared memory (BLOCK) or read from the input (L2, SCRATCH), the
+//   SCRATCH running distances in shared memory (BLOCK, L2) or in the
+//           scratch (SCRATCH).
+//
 // Rounding: the squared distance is dx*dx + dy*dy + dz*dz, left to right,
 // written with the round-to-nearest intrinsics so that nothing is
 // contracted into an FMA; the plain PyTorch version writes out the same
@@ -256,6 +268,101 @@ fps_stream(const float* __restrict__ xyz, const void* __restrict__ start,
   }
 }
 
+// ---- any channel count C ----------------------------------------------
+
+// sum over c < C of (p[c] - q[c])^2, left to right, round to nearest
+__device__ __forceinline__ float sqdist_c(const float* p, const float* q,
+                                          int C) {
+  float d = 0.f;                           // +0 + x = x for every x >= +0
+  for (int c = 0; c < C; ++c) {
+    const float e = __fsub_rn(p[c], q[c]);
+    d = __fadd_rn(d, __fmul_rn(e, e));
+  }
+  return d;
+}
+
+// Tier WARP at C channels: one warp a cloud, its points staged in shared
+// memory, P distances a lane (point n = lane + 32 s)
+template <int P>
+__global__ void __launch_bounds__(128)
+fps_warp_c(const float* __restrict__ xyz, const void* __restrict__ start,
+           int start64, long long* __restrict__ out, int B, int N, int C,
+           int npoint) {
+  extern __shared__ float staged[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + w;
+  if (b >= B) return;                      // the whole warp leaves
+  const float* cloud = xyz + (size_t)b * N * C;
+  float* pts = staged + (size_t)w * N * C;
+  for (int e = lane; e < N * C; e += 32) pts[e] = cloud[e];
+  __syncwarp();
+  float d[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) d[s] = lane + 32 * s < N ? FAR : 0.f;
+  unsigned far = first_index(start, start64, b, N);
+  long long* o = out + (size_t)b * npoint;
+  for (int i = 0;; ++i) {
+    if (lane == 0) o[i] = far;
+    if (i == npoint - 1) break;
+    const float* cen = pts + (size_t)far * C;
+    float best = -1.f;
+    unsigned bi = NONE;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {          // ascending n: strict > keeps
+      const int n = lane + 32 * s;         // the first
+      if (n < N) d[s] = fminf(d[s], sqdist_c(pts + (size_t)n * C, cen, C));
+      const bool r = d[s] > best;
+      best = r ? d[s] : best;
+      bi = r ? (unsigned)n : bi;
+    }
+    unsigned key = __float_as_uint(best);
+    far = warp_best(key, bi);
+  }
+}
+
+// Tiers BLOCK, L2 and SCRATCH at C channels: one block a cloud, the
+// coordinates staged in shared memory after the distances (BLOCK) or read
+// each round from the input (L2, SCRATCH), the running distances in shared
+// memory (BLOCK, L2) or in the scratch (SCRATCH)
+__global__ void __launch_bounds__(1024)
+fps_stream_c(const float* __restrict__ xyz, const void* __restrict__ start,
+             int start64, long long* __restrict__ out,
+             float* __restrict__ scratch, int N, int C, int npoint,
+             int tier) {
+  extern __shared__ unsigned smem[];
+  unsigned* slots = smem;
+  const int b = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+  const float* cloud = xyz + (size_t)b * N * C;
+  float* D = tier == SCRATCH ? scratch + (size_t)b * N
+                             : reinterpret_cast<float*>(smem + 2 * SLOTS);
+  const float* pts = cloud;
+  if (tier == BLOCK) {
+    float* st = reinterpret_cast<float*>(smem + 2 * SLOTS) + N;
+    for (int e = tid; e < N * C; e += T) st[e] = cloud[e];
+    pts = st;
+  }
+  for (int n = tid; n < N; n += T) D[n] = FAR;
+  __syncthreads();
+  unsigned far = first_index(start, start64, b, N);
+  long long* o = out + (size_t)b * npoint;
+  for (int i = 0;; ++i) {
+    if (tid == 0) o[i] = far;
+    if (i == npoint - 1) break;
+    const float* cen = pts + (size_t)far * C;
+    float best = -1.f;
+    unsigned bi = NONE;
+    for (int n = tid; n < N; n += T) {
+      const float dn = fminf(D[n], sqdist_c(pts + (size_t)n * C, cen, C));
+      D[n] = dn;
+      const bool r = dn > best;
+      best = r ? dn : best;
+      bi = r ? (unsigned)n : bi;
+    }
+    far = block_best(bi == NONE ? 0u : __float_as_uint(best), bi, slots,
+                     i & 1);
+  }
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory (above 48 KB it must
 // be asked for); remembered per kernel, so asked once.
 template <typename K>
@@ -335,5 +442,62 @@ extern "C" int pcr_fps_plan(const void* xyz, const void* start, void* out,
   if (err != cudaSuccess) return (int)err;
   fps_stream<<<B, threads, smem, st>>>(x, start, start64, o, (float*)scratch,
                                        N, npoint, tier);
+  return (int)cudaGetLastError();
+}
+
+// The same for xyz (B, N, C) float32 contiguous at any C >= 1 (C = 3 too,
+// though the wrapper sends it to pcr_fps_plan), with kernels/fps.py
+// plan(N, C)'s launch: tier WARP stages `clouds` clouds of 4 N C bytes,
+// BLOCK 2 KB of winners (SLOT_BYTES), N distances and the N C coordinates,
+// L2 the winners and the distances, SCRATCH the winners.
+extern "C" int pcr_fps_channels(const void* xyz, const void* start, void* out,
+                                void* scratch, int B, int N, int C,
+                                int npoint, int start64, int tier,
+                                int points, int threads, int clouds,
+                                int smem, void* stream) {
+  if (B <= 0 || N <= 0 || C <= 0 || npoint <= 0 || npoint > N
+      || threads <= 0 || threads > 1024 || threads % 32 || smem < 0
+      || smem > MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  const float* x = (const float*)xyz;
+  long long* o = (long long*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long cloud_bytes = 4LL * N * C;
+  if (tier == WARP) {
+    if (threads != 32 * clouds || clouds < 1 || clouds > 4
+        || smem < clouds * cloud_bytes || (long long)32 * points < N)
+      return (int)cudaErrorInvalidValue;
+    const int grid = (B + clouds - 1) / clouds;
+#define PCR_FPS_WARP_C(PP)                                                   \
+  case PP: {                                                                 \
+    static int granted = 48 * 1024;                                          \
+    const cudaError_t err = allow_smem(fps_warp_c<PP>, smem, granted);       \
+    if (err != cudaSuccess) return (int)err;                                 \
+    fps_warp_c<PP><<<grid, threads, smem, st>>>(x, start, start64, o, B, N,  \
+                                                C, npoint);                  \
+    return (int)cudaGetLastError();                                          \
+  }
+    switch (points) {
+      PCR_FPS_WARP_C(1)
+      PCR_FPS_WARP_C(2)
+      PCR_FPS_WARP_C(4)
+      PCR_FPS_WARP_C(8)
+      PCR_FPS_WARP_C(16)
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef PCR_FPS_WARP_C
+  }
+  const long long need = tier == BLOCK ? SLOT_BYTES + 4LL * N + cloud_bytes
+                         : tier == L2  ? SLOT_BYTES + 4LL * N
+                                       : SLOT_BYTES;
+  if ((tier != BLOCK && tier != L2 && tier != SCRATCH) || clouds != 1
+      || smem < need || (tier == SCRATCH && scratch == nullptr)
+      || (long long)threads * points < N)
+    return (int)cudaErrorInvalidValue;
+  static int granted = 48 * 1024;
+  const cudaError_t err = allow_smem(fps_stream_c, smem, granted);
+  if (err != cudaSuccess) return (int)err;
+  fps_stream_c<<<B, threads, smem, st>>>(x, start, start64, o,
+                                         (float*)scratch, N, C, npoint, tier);
   return (int)cudaGetLastError();
 }

@@ -41,6 +41,14 @@
 // same layout as the point head's N=128: one tiling, POS the only switch
 // besides the channel count C (64, the released heads' width, and 16, the
 // tiny test models': the register tiles are sized at compile time).
+// Any other width up to 64 runs at the next of the two in the padded layout
+// (kernels/match_grid.pad_side: the true ct channels first, zeros in every
+// factor, weight and LayerNorm lane past them): the PAD instantiations,
+// compiled in csrc/match_grid_pad.cu, take ct and mask what zeros alone get
+// wrong, elu+1 of a padded stage-2 q or k lane (1, not 0: it would add to
+// q . sum k and to k^T v) and the LayerNorm statistics (over ct). The heads
+// keep ct / H channels each, so the head masks read D = ct / H; a padded
+// lane's message is 0 / (0 + eps) = 0.
 //
 // Products: mma.sync m16n8k8 TF32 with f32 accumulation, three passes per
 // product (a = hi + lo with hi = a truncated to TF32's 10 mantissa bits and
@@ -274,12 +282,14 @@ __device__ __forceinline__ void a_from_acc(const float (&acc)[NN][4], int kk, fl
 }
 
 // LayerNorm of the 16 rows of a C-wide accumulator, in registers: a row's
-// columns lie in one quad, so two xor-shuffles finish each sum.
-template <int NT>
+// columns lie in one quad, so two xor-shuffles finish each sum. PAD (the
+// padded layout): the statistics over the true ct columns; the padded
+// columns hold zeros, so the sum needs no mask, the deviations do.
+template <bool PAD, int NT>
 __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
                                                const float* __restrict__ s,
-                                               const float* __restrict__ b) {
-  constexpr float invC = 1.f / (8 * NT);
+                                               const float* __restrict__ b, int ct) {
+  const float invC = PAD ? 1.f / ct : 1.f / (8 * NT);
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {   // rows g and g + 8
@@ -292,7 +302,11 @@ __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
     float var = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const float d0 = acc[j][2 * half] - mu, d1 = acc[j][2 * half + 1] - mu;
+      float d0 = acc[j][2 * half] - mu, d1 = acc[j][2 * half + 1] - mu;
+      if (PAD) {
+        d0 = j * 8 + 2 * t < ct ? d0 : 0.f;
+        d1 = j * 8 + 2 * t + 1 < ct ? d1 : 0.f;
+      }
       var += d0 * d0 + d1 * d1;
     }
     var += __shfl_xor_sync(0xffffffffu, var, 1);
@@ -335,17 +349,17 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
 // y = LN2(relu(hid + LN1(msg @ merge) @ fc1[krow:krow+C]) @ fc2) for a slab,
 // where hid arrives holding the search half of the FFN's first layer (a1 or
 // search @ fc1[:C]). merge, fc1 and fc2 are swizzled in shared memory.
-template <int C>
+template <int C, bool PAD>
 __device__ __forceinline__ void ffn_tail(const float (&msg)[C / 8][4],
                                          float (&hid)[C / 4][4], const Tail& w,
                                          const float* merge, const float* fc1, int krow,
-                                         const float* fc2, float (&y)[C / 8][4]) {
+                                         const float* fc2, float (&y)[C / 8][4], int ct) {
   constexpr int NT = C / 8;
   float m[NT][4];
   zero(m);
   warp_gemm<NT, NT, C>(m, [&](int kk, float (&a)[4]) { a_from_acc(msg, kk, a); },
                        merge, 0, 0);
-  layer_norm_acc(m, w.ln1s, w.ln1b);
+  layer_norm_acc<PAD>(m, w.ln1s, w.ln1b, ct);
   warp_gemm<NT, 2 * NT, 2 * C>(hid, [&](int kk, float (&a)[4]) { a_from_acc(m, kk, a); },
                                fc1, krow, 0);
 #pragma unroll
@@ -355,7 +369,7 @@ __device__ __forceinline__ void ffn_tail(const float (&msg)[C / 8][4],
   zero(y);
   warp_gemm<2 * NT, NT, C>(y, [&](int kk, float (&a)[4]) { a_from_acc(hid, kk, a); },
                            fc2, 0, 0);
-  layer_norm_acc(y, w.ln2s, w.ln2b);
+  layer_norm_acc<PAD>(y, w.ln2s, w.ln2b, ct);
 }
 
 // msg[j] = mz[j] / (mz[NT + j] + eps): column c and C + c sit in the same
@@ -381,11 +395,16 @@ struct RowsA {
 
 // ---- the kernel ---------------------------------------------------------------------
 
-template <int C, bool POS>
+// PAD: the padded layout (kernels/match_grid.pad_side): the true channels
+// are the first ct of C, in H heads of ct / H; the wrapper zeroes every
+// factor, weight and LayerNorm lane past ct, and the kernel masks what zeros
+// alone get wrong: elu+1 of a padded stage-2 q or k lane and the LayerNorm
+// statistics. Without PAD, ct is C.
+template <int C, bool POS, bool PAD>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
 match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
                     const int* __restrict__ d_idx, float* __restrict__ out,
-                    int nt, int nd, int N, int H) {
+                    int nt, int nd, int N, int H, int ct) {
   using L = Layout<C>;
   constexpr int NT = C / 8;
   extern __shared__ __align__(16) float smem[];
@@ -394,7 +413,7 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int Np = (N + 15) / 16 * 16;
   const int slabs = Np / 16;
-  const int D = C / H;
+  const int D = (PAD ? ct : C) / H;
 
   float* Wr = smem;                            // weight region
   float* O = smem + L::WFLOATS;                // [Np][C + 4] own stage-1 output
@@ -461,7 +480,7 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
       hid[j][0] = x0.x; hid[j][1] = x0.y; hid[j][2] = x1.x; hid[j][3] = x1.y;
     }
     float y[NT][4];
-    ffn_tail<C>(msg, hid, w.s1, Wr + L::MERGE1, Wr + L::FC1B1, 0, Wr + L::FC2_1, y);
+    ffn_tail<C, PAD>(msg, hid, w.s1, Wr + L::MERGE1, Wr + L::FC1B1, 0, Wr + L::FC2_1, y, ct);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = j * 8 + 2 * t;
@@ -512,6 +531,8 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
         if (j < NT) {
           e0 = make_float2(elu1(kvr[j][0]), elu1(kvr[j][1]));
           e1 = make_float2(elu1(kvr[j][2]), elu1(kvr[j][3]));
+          if (PAD && c >= ct) e0.x = e1.x = 0.f;   // a padded k lane
+          if (PAD && c + 1 >= ct) e0.y = e1.y = 0.f;
         } else {
           e0 = make_float2(kvr[j][0], kvr[j][1]);
           e1 = make_float2(kvr[j][2], kvr[j][3]);
@@ -625,7 +646,8 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) q[j][i] = elu1(q[j][i]);
+      for (int i = 0; i < 4; ++i)
+        q[j][i] = PAD && j * 8 + 2 * t + (i & 1) >= ct ? 0.f : elu1(q[j][i]);
     float mz[2 * NT][4];
     zero(mz);
     warp_gemm<NT, 2 * NT, 2 * C>(mz, [&](int kk, float (&a)[4]) { a_from_acc(q, kk, a); },
@@ -636,7 +658,7 @@ match_pooled_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
     zero(hid);
     warp_gemm<NT, 2 * NT, 2 * C>(hid, rowsO, Wr + L::FC1_2, 0, 0);
     float y[NT][4];
-    ffn_tail<C>(msg, hid, w.s2, Wr + L::MERGE2, Wr + L::FC1_2, C, Wr + L::FC2_2, y);
+    ffn_tail<C, PAD>(msg, hid, w.s2, Wr + L::MERGE2, Wr + L::FC1_2, C, Wr + L::FC2_2, y, ct);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int c = j * 8 + 2 * t;
@@ -732,38 +754,44 @@ int layout_status(int N, int C, int H) {
   return smem_bytes(N, C) > SMEM_LIMIT ? 2 : 0;
 }
 
-template <int C, bool POS>
+template <int C, bool POS, bool PAD>
 int launch_c(const Side& T, const Side& Dt, const Weights& w, const int* t_idx,
-             const int* d_idx, float* out, int nt, int nd, int P, int N, int H,
+             const int* d_idx, float* out, int nt, int nd, int P, int N, int H, int ct,
              cudaStream_t stream) {
   const size_t smem = smem_bytes(N, C);
   cudaError_t err = cudaFuncSetAttribute(
-      match_pooled_kernel<C, POS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      match_pooled_kernel<C, POS, PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  match_pooled_kernel<C, POS><<<2 * P, THREADS, smem, stream>>>(
-      T, Dt, w, t_idx, d_idx, out, nt, nd, N, H);
+  match_pooled_kernel<C, POS, PAD><<<2 * P, THREADS, smem, stream>>>(
+      T, Dt, w, t_idx, d_idx, out, nt, nd, N, H, ct);
   return (int)cudaGetLastError();
 }
 
 // Refuses (cudaErrorInvalidValue) a shape the kernel does not take; the
-// wrapper raises.
-template <bool POS>
+// wrapper raises. PAD: ct true channels of the C (16 or 64) the layout
+// has, in H heads (the layout does not depend on the heads).
+template <bool POS, bool PAD>
 int launch(const Side& T, const Side& Dt, const void* const* ws, const void* t_idx,
-           const void* d_idx, void* out, int nt, int nd, int P, int N, int C, int H,
+           const void* d_idx, void* out, int nt, int nd, int P, int N, int C, int H, int ct,
            void* stream) {
-  if (P <= 0 || layout_status(N, C, H) != 0) return (int)cudaErrorInvalidValue;
+  const bool ok = PAD ? layout_status(N, C, 1) == 0 && H >= 1 && ct >= 1 && ct <= C &&
+                            ct % H == 0
+                      : layout_status(N, C, H) == 0;
+  if (P <= 0 || !ok) return (int)cudaErrorInvalidValue;
   const Weights w = make_weights(ws);
   const int* ti = (const int*)t_idx;
   const int* di = (const int*)d_idx;
   float* o = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 16: return launch_c<16, POS>(T, Dt, w, ti, di, o, nt, nd, P, N, H, s);
-    default: return launch_c<64, POS>(T, Dt, w, ti, di, o, nt, nd, P, N, H, s);
+    case 16: return launch_c<16, POS, PAD>(T, Dt, w, ti, di, o, nt, nd, P, N, H, ct, s);
+    default: return launch_c<64, POS, PAD>(T, Dt, w, ti, di, o, nt, nd, P, N, H, ct, s);
   }
 }
 
 }  // namespace
+
+#ifndef MATCH_GRID_PAD_UNIT
 
 // The layout check the wrappers make before a launch: writes the bytes of
 // shared memory the shape needs and the most a block may take, and returns
@@ -789,8 +817,9 @@ extern "C" int pcr_match_pooled(
     int nt, int nd, int P, int N, int C, int H, void* stream) {
   const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
                         merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
-  return launch<true>(make_side(ht, qt, kvzt, at, pvt), make_side(hd, qd, kvzd, ad, pvd),
-                      ws, t_idx, d_idx, out, nt, nd, P, N, C, H, stream);
+  return launch<true, false>(make_side(ht, qt, kvzt, at, pvt),
+                             make_side(hd, qd, kvzd, ad, pvd), ws, t_idx, d_idx, out, nt, nd, P,
+                             N, C, H, C, stream);
 }
 
 // Image head: 4 factors a side (h, q, kvz, a1), no position term; N is the
@@ -806,7 +835,45 @@ extern "C" int pcr_match_pooled_image(
     int nt, int nd, int P, int N, int C, int H, void* stream) {
   const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
                         merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
-  return launch<false>(make_side(ht, qt, kvzt, at, nullptr),
-                       make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out,
-                       nt, nd, P, N, C, H, stream);
+  return launch<false, false>(make_side(ht, qt, kvzt, at, nullptr),
+                              make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out, nt,
+                              nd, P, N, C, H, C, stream);
 }
+
+#else   // MATCH_GRID_PAD_UNIT: the padded instantiations (csrc/match_grid_pad.cu)
+
+// The padded layout (kernels/match_grid.pad_side) of both heads: the same
+// arguments, C the layout's width (16 or 64) and ct the true channels after
+// H.
+extern "C" int pcr_match_pooled_pad(
+    const void* ht, const void* qt, const void* kvzt, const void* at, const void* pvt,
+    const void* hd, const void* qd, const void* kvzd, const void* ad, const void* pvd,
+    const void* merge1, const void* ln1s1, const void* ln1b1, const void* fc1_1,
+    const void* fc2_1, const void* ln2s1, const void* ln2b1, const void* q2,
+    const void* kv2, const void* merge2, const void* ln1s2, const void* ln1b2,
+    const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
+    const void* t_idx, const void* d_idx, void* out,
+    int nt, int nd, int P, int N, int C, int H, int ct, void* stream) {
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<true, true>(make_side(ht, qt, kvzt, at, pvt), make_side(hd, qd, kvzd, ad, pvd),
+                            ws, t_idx, d_idx, out, nt, nd, P, N, C, H, ct, stream);
+}
+
+extern "C" int pcr_match_pooled_image_pad(
+    const void* ht, const void* qt, const void* kvzt, const void* at,
+    const void* hd, const void* qd, const void* kvzd, const void* ad,
+    const void* merge1, const void* ln1s1, const void* ln1b1, const void* fc1_1,
+    const void* fc2_1, const void* ln2s1, const void* ln2b1, const void* q2,
+    const void* kv2, const void* merge2, const void* ln1s2, const void* ln1b2,
+    const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
+    const void* t_idx, const void* d_idx, void* out,
+    int nt, int nd, int P, int N, int C, int H, int ct, void* stream) {
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<false, true>(make_side(ht, qt, kvzt, at, nullptr),
+                             make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out, nt,
+                             nd, P, N, C, H, ct, stream);
+}
+
+#endif  // MATCH_GRID_PAD_UNIT

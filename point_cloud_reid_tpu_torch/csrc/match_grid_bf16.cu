@@ -80,7 +80,8 @@
 // Grid and pair mode run the same per-pair code, and no sum depends on the
 // cluster or order a pair is scored in, so a pair's result is its grid
 // cell's bit for bit. Without POS (the image head) there is no position term
-// and N is the true token count.
+// and N is the true token count. Other widths up to 64 run in the padded
+// layout as in csrc/match_grid.cu (PAD, csrc/match_grid_bf16_pad.cu).
 //
 // Layout, bytes a block, C = 64, Np = N rounded up to 16:
 //   1,024 alignment, weights 122,880, mask 8,192, the peer's KV^T 8,192,
@@ -181,12 +182,14 @@ __device__ __forceinline__ int ocol(int r, int c) {
 }
 
 // LayerNorm of the rows of a C-wide accumulator (rows g and g + 8 of the
-// warp), in registers: a row's columns lie in one quad.
-template <int NT>
+// warp), in registers: a row's columns lie in one quad. PAD (the padded
+// layout): the statistics over the true ct columns (the padded ones hold
+// zeros: the sum needs no mask, the deviations do).
+template <bool PAD, int NT>
 __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
                                                const float* __restrict__ s,
-                                               const float* __restrict__ b) {
-  constexpr float invC = 1.f / (8 * NT);
+                                               const float* __restrict__ b, int ct) {
+  const float invC = PAD ? 1.f / ct : 1.f / (8 * NT);
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -199,7 +202,11 @@ __device__ __forceinline__ void layer_norm_acc(float (&acc)[NT][4],
     float var = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const float d0 = acc[j][2 * half] - mu, d1 = acc[j][2 * half + 1] - mu;
+      float d0 = acc[j][2 * half] - mu, d1 = acc[j][2 * half + 1] - mu;
+      if (PAD) {
+        d0 = j * 8 + 2 * t < ct ? d0 : 0.f;
+        d1 = j * 8 + 2 * t + 1 < ct ? d1 : 0.f;
+      }
       var += d0 * d0 + d1 * d1;
     }
     var += __shfl_xor_sync(0xffffffffu, var, 1);
@@ -303,11 +310,15 @@ __device__ __forceinline__ void load_rows(uint32_t (&x)[W / 8][2], const bf16* p
 
 // ---- the kernel ---------------------------------------------------------------------
 
-template <int C, bool POS>
+// PAD: the padded layout (kernels/match_grid.pad_side), as in
+// csrc/match_grid.cu: the true channels are the first ct of C in H heads of
+// ct / H, the wrapper zeroes the lanes past ct, the kernel masks elu+1 of a
+// padded stage-2 q or k lane and the LayerNorm statistics.
+template <int C, bool POS, bool PAD>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
 match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_idx,
                          const int* __restrict__ d_idx, bf16* __restrict__ out,
-                         int nt, int nd, int P, int N, int H) {
+                         int nt, int nd, int P, int N, int H, int ct) {
   using L = Layout<C>;
   constexpr int NT = C / 8, KS = C / 16;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -322,7 +333,7 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
   const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
   const int wq = __shfl_sync(0xffffffffu, warp & 3, 0);
   const int Np = (N + 15) / 16 * 16, ntiles = (N + TILE - 1) / TILE;
-  const int D = C / H;
+  const int D = (PAD ? ct : C) / H;
   const size_t nc = (size_t)N * C;
 
   float* O = reinterpret_cast<float*>(smem + L::O);                 // [Np][C]
@@ -429,7 +440,7 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
       wg_fence();
       issue<C, KS>(m, am, sb + L::MERGE1, C, 0);
       finish<C>(m);
-      layer_norm_acc(m, w.s1.ln1s, w.s1.ln1b);
+      layer_norm_acc<PAD>(m, w.s1.ln1s, w.s1.ln1b, ct);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) a_from_acc(m, kk, am[kk]);
       float hid[2 * NT][4];                    // a1, then + bf16(m) @ fc1[C:]
@@ -453,7 +464,7 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
       wg_fence();
       issue<C, 2 * KS>(y, ah, sb + L::FC2_1, C, 0);
       finish<C>(y);
-      layer_norm_acc(y, w.s1.ln2s, w.s1.ln2b);
+      layer_norm_acc<PAD>(y, w.s1.ln2s, w.s1.ln2b, ct);
       if (held) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
@@ -495,7 +506,8 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
         float e[4];
         if (j < NT) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) e[i] = elu1(kvr[j][i]);
+          for (int i = 0; i < 4; ++i)   // a padded k lane is 0
+            e[i] = PAD && j * 8 + 2 * t + (i & 1) >= ct ? 0.f : elu1(kvr[j][i]);
         } else {
           e[0] = kvr[j][0]; e[1] = kvr[j][1]; e[2] = kvr[j][2]; e[3] = kvr[j][3];
           if (POS) {
@@ -618,7 +630,8 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) q[j][i] = elu1(q[j][i]);
+        for (int i = 0; i < 4; ++i)
+          q[j][i] = PAD && j * 8 + 2 * t + (i & 1) >= ct ? 0.f : elu1(q[j][i]);
       uint32_t aq[KS][4], az[KS][4];
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
@@ -659,7 +672,7 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
       wg_wait<0>();
       wg_pin(m);
       wg_pin(hid);
-      layer_norm_acc(m, w.s2.ln1s, w.s2.ln1b);
+      layer_norm_acc<PAD>(m, w.s2.ln1s, w.s2.ln1b, ct);
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) a_from_acc(m, kk, am[kk]);
       wg_fence();
@@ -677,7 +690,7 @@ match_pooled_bf16_kernel(Side T, Side Dt, Weights w, const int* __restrict__ t_i
       wg_fence();
       issue<C, 2 * KS>(y, ah, sb + L::FC2_2, C, 0);
       finish<C>(y);
-      layer_norm_acc(y, w.s2.ln2s, w.s2.ln2b);
+      layer_norm_acc<PAD>(y, w.s2.ln2s, w.s2.ln2b, ct);
       if (held) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
@@ -778,12 +791,12 @@ int layout_status(int N, int C, int H) {
   return smem_bytes(N, C) > SMEM_LIMIT ? 2 : 0;
 }
 
-template <int C, bool POS>
+template <int C, bool POS, bool PAD>
 int launch_c(const Side& T, const Side& Dt, const Weights& w, const int* t_idx,
-             const int* d_idx, bf16* out, int nt, int nd, int P, int N, int H,
+             const int* d_idx, bf16* out, int nt, int nd, int P, int N, int H, int ct,
              cudaStream_t stream) {
   const size_t smem = smem_bytes(N, C);
-  auto kernel = match_pooled_bf16_kernel<C, POS>;
+  auto kernel = match_pooled_bf16_kernel<C, POS, PAD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -798,28 +811,34 @@ int launch_c(const Side& T, const Side& Dt, const Weights& w, const int* t_idx,
   if (err != cudaSuccess) return (int)err;
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
   clusters = clusters < P ? clusters : P;
-  match_pooled_bf16_kernel<C, POS><<<2 * clusters, THREADS, smem, stream>>>(
-      T, Dt, w, t_idx, d_idx, out, nt, nd, P, N, H);
+  kernel<<<2 * clusters, THREADS, smem, stream>>>(T, Dt, w, t_idx, d_idx, out, nt, nd, P, N, H,
+                                                  ct);
   return (int)cudaGetLastError();
 }
 
-template <bool POS>
+// PAD: ct true channels of the layout's C (16 or 64) in H heads.
+template <bool POS, bool PAD>
 int launch(const Side& T, const Side& Dt, const void* const* ws, const void* t_idx,
-           const void* d_idx, void* out, int nt, int nd, int P, int N, int C, int H,
+           const void* d_idx, void* out, int nt, int nd, int P, int N, int C, int H, int ct,
            void* stream) {
-  if (P <= 0 || layout_status(N, C, H) != 0) return (int)cudaErrorInvalidValue;
+  const bool ok = PAD ? layout_status(N, C, 1) == 0 && H >= 1 && ct >= 1 && ct <= C &&
+                            ct % H == 0
+                      : layout_status(N, C, H) == 0;
+  if (P <= 0 || !ok) return (int)cudaErrorInvalidValue;
   const Weights w = make_weights(ws);
   const int* ti = (const int*)t_idx;
   const int* di = (const int*)d_idx;
   bf16* o = (bf16*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (C) {
-    case 16: return launch_c<16, POS>(T, Dt, w, ti, di, o, nt, nd, P, N, H, s);
-    default: return launch_c<64, POS>(T, Dt, w, ti, di, o, nt, nd, P, N, H, s);
+    case 16: return launch_c<16, POS, PAD>(T, Dt, w, ti, di, o, nt, nd, P, N, H, ct, s);
+    default: return launch_c<64, POS, PAD>(T, Dt, w, ti, di, o, nt, nd, P, N, H, ct, s);
   }
 }
 
 }  // namespace
+
+#ifndef MATCH_GRID_PAD_UNIT
 
 // The layout check of the bf16 cluster tier: writes the bytes of shared
 // memory the shape needs and the most a block may take, and returns
@@ -846,8 +865,9 @@ extern "C" int pcr_match_pooled_bf16(
     int nt, int nd, int P, int N, int C, int H, void* stream) {
   const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
                         merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
-  return launch<true>(make_side(ht, qt, kvzt, at, pvt), make_side(hd, qd, kvzd, ad, pvd),
-                      ws, t_idx, d_idx, out, nt, nd, P, N, C, H, stream);
+  return launch<true, false>(make_side(ht, qt, kvzt, at, pvt),
+                             make_side(hd, qd, kvzd, ad, pvd), ws, t_idx, d_idx, out, nt, nd, P,
+                             N, C, H, C, stream);
 }
 
 // Image head at bf16: 4 factors a side (h, q, kvz transposed, a1), no
@@ -863,7 +883,45 @@ extern "C" int pcr_match_pooled_image_bf16(
     int nt, int nd, int P, int N, int C, int H, void* stream) {
   const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
                         merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
-  return launch<false>(make_side(ht, qt, kvzt, at, nullptr),
-                       make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out,
-                       nt, nd, P, N, C, H, stream);
+  return launch<false, false>(make_side(ht, qt, kvzt, at, nullptr),
+                              make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out, nt,
+                              nd, P, N, C, H, C, stream);
 }
+
+#else   // MATCH_GRID_PAD_UNIT: the padded instantiations (csrc/match_grid_bf16_pad.cu)
+
+// The padded layout (kernels/match_grid.pad_side) of both heads at bf16:
+// the same arguments, C the layout's width (16 or 64) and ct the true
+// channels after H.
+extern "C" int pcr_match_pooled_pad_bf16(
+    const void* ht, const void* qt, const void* kvzt, const void* at, const void* pvt,
+    const void* hd, const void* qd, const void* kvzd, const void* ad, const void* pvd,
+    const void* merge1, const void* ln1s1, const void* ln1b1, const void* fc1_1,
+    const void* fc2_1, const void* ln2s1, const void* ln2b1, const void* q2,
+    const void* kv2, const void* merge2, const void* ln1s2, const void* ln1b2,
+    const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
+    const void* t_idx, const void* d_idx, void* out,
+    int nt, int nd, int P, int N, int C, int H, int ct, void* stream) {
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<true, true>(make_side(ht, qt, kvzt, at, pvt), make_side(hd, qd, kvzd, ad, pvd),
+                            ws, t_idx, d_idx, out, nt, nd, P, N, C, H, ct, stream);
+}
+
+extern "C" int pcr_match_pooled_image_pad_bf16(
+    const void* ht, const void* qt, const void* kvzt, const void* at,
+    const void* hd, const void* qd, const void* kvzd, const void* ad,
+    const void* merge1, const void* ln1s1, const void* ln1b1, const void* fc1_1,
+    const void* fc2_1, const void* ln2s1, const void* ln2b1, const void* q2,
+    const void* kv2, const void* merge2, const void* ln1s2, const void* ln1b2,
+    const void* fc1_2, const void* fc2_2, const void* ln2s2, const void* ln2b2,
+    const void* t_idx, const void* d_idx, void* out,
+    int nt, int nd, int P, int N, int C, int H, int ct, void* stream) {
+  const void* ws[16] = {merge1, ln1s1, ln1b1, fc1_1, fc2_1, ln2s1, ln2b1, q2, kv2,
+                        merge2, ln1s2, ln1b2, fc1_2, fc2_2, ln2s2, ln2b2};
+  return launch<false, true>(make_side(ht, qt, kvzt, at, nullptr),
+                             make_side(hd, qd, kvzd, ad, nullptr), ws, t_idx, d_idx, out, nt,
+                             nd, P, N, C, H, ct, stream);
+}
+
+#endif  // MATCH_GRID_PAD_UNIT

@@ -12,6 +12,15 @@
 // past the cluster layout's rows (the point-count ablations served at their
 // crop size, N up to 2048). kernels/match_grid.plan picks the tier; C = 16
 // stays on the first version (tier "rows_mma" in those files).
+// Every other width up to 128, heads of any width (up to 8 heads), and the
+// image head (no position term: pv null) run through the PAD instantiations
+// (csrc/match_rows_pad.cu, csrc/match_rows_pad_bf16.cu) in the padded
+// layout of kernels/match_grid.pad_side at C = 64 or 128: the true a.ct
+// channels first in a.H heads of a.D, zeros past them; one KV band of all C
+// columns (KVN = C: a head may cross a 64-column band); the head of a
+// column read as (c hm) >> 16 (head_of), the normaliser a head at a time;
+// elu+1 of a padded stage-2 q or k lane masked to 0, the LayerNorm
+// statistics over a.ct. The exact widths' instantiations are unchanged.
 //
 // What bounds it on the H100: 80 N C^2 operations a pair; three TF32
 // passes at 495 TFLOP/s (16.7 ms for the 7M model's 128 x 128 grid at
@@ -372,18 +381,28 @@ struct Args {
   unsigned char* scratch;     // blocks x scratch_stride bytes
   long long scratch_stride;
   int nt, nd, P, N, H;
+  // the padded layout (PAD): ct true channels of C in H heads of D, and
+  // hm = ceil(2^16 / D), so that c / D = (c hm) >> 16 for every column
+  int ct, D, hm;
 };
 
 // ---- helpers on the accumulators -------------------------------------------------
 
 __device__ __forceinline__ float elu1(float x) { return x > 0.f ? x + 1.f : expf(x); }
 
+// The head of column c in the padded layout (heads of D channels from
+// column 0; a padded column's is past the true heads, at most HMAX - 1:
+// every factor of a padded column is 0, so its head changes nothing).
+__device__ __forceinline__ int head_of(int c, int hm) { return min((c * hm) >> 16, HMAX - 1); }
+
 // LayerNorm of the rows of a C-wide accumulator (rows g and g + 8 of the
-// warp), in registers: a row's columns lie in one quad.
-template <int NT>
+// warp), in registers: a row's columns lie in one quad. PAD: the statistics
+// over the true ct columns (the padded ones hold zeros: the sum needs no
+// mask, the deviations do).
+template <bool PAD, int NT>
 __device__ __forceinline__ void layer_norm(float (&x)[NT][4], const float* __restrict__ s,
-                                           const float* __restrict__ b) {
-  constexpr float inv_c = 1.f / (8 * NT);
+                                           const float* __restrict__ b, int ct) {
+  const float inv_c = PAD ? 1.f / ct : 1.f / (8 * NT);
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -396,7 +415,11 @@ __device__ __forceinline__ void layer_norm(float (&x)[NT][4], const float* __res
     float var = 0.f;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      const float d0 = x[j][2 * half] - mu, d1 = x[j][2 * half + 1] - mu;
+      float d0 = x[j][2 * half] - mu, d1 = x[j][2 * half + 1] - mu;
+      if (PAD) {
+        d0 = 8 * j + 2 * t < ct ? d0 : 0.f;
+        d1 = 8 * j + 2 * t + 1 < ct ? d1 : 0.f;
+      }
       var += d0 * d0 + d1 * d1;
     }
     var += __shfl_xor_sync(0xffffffffu, var, 1);
@@ -466,11 +489,40 @@ __device__ __forceinline__ void store_scratch(float* p, int ld, int r, const flo
 // The message normaliser of the warp's rows (local rows rl, rl + 8 of the
 // m-tile): per head (of 2^dsh channels), the sum over its channels of
 // R(q . ks) (R: the bf16 rounding of JAX's q * ksum operand in stage 2,
-// none in stage 1); den[row][head] = 1 / (that + eps).
-template <class M, int NT>
+// none in stage 1); den[row][head] = 1 / (that + eps). PAD: heads of any
+// width (head_of), a head at a time over the thread's columns.
+template <class M, bool PAD, int NT>
 __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], const float* ks,
-                                           int dsh, bool rnd, int rl) {
+                                           int dsh, bool rnd, int rl, int hm) {
   const int t = threadIdx.x & 3;
+  if constexpr (PAD) {
+#pragma unroll 1
+    for (int hh = 0; hh < HMAX; ++hh) {
+      float p0 = 0.f, p1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float k = ks[c];
+          const float u0 = rnd ? M::round(q[j][e] * k) : q[j][e] * k;
+          const float u1 = rnd ? M::round(q[j][2 + e] * k) : q[j][2 + e] * k;
+          const bool in = head_of(c, hm) == hh;
+          p0 += in ? u0 : 0.f;
+          p1 += in ? u1 : 0.f;
+        }
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+      if (t == 0) {
+        den[rl * HMAX + hh] = 1.f / (p0 + EPS);
+        den[(rl + 8) * HMAX + hh] = 1.f / (p1 + EPS);
+      }
+    }
+    __syncwarp();
+    return;
+  }
   if (t == 0)
 #pragma unroll
     for (int hh = 0; hh < HMAX; ++hh) den[rl * HMAX + hh] = den[(rl + 8) * HMAX + hh] = 0.f;
@@ -569,10 +621,10 @@ __device__ __forceinline__ void skip(Ring<RING, SB>& ring) {
 // warpgroup 1's; each warpgroup takes both and reads its own), times the
 // row's 1 / (den + eps) of the column's head, then mg += msg_j @
 // merge[:, chunk j].
-template <class M, class G, int RING>
+template <class M, class G, bool PAD, int RING>
 __device__ __forceinline__ void message(Ring<RING, M::SB>& ring, float (&mg)[G::NTC][4],
                                         const float (&q)[G::NTC][4], const float* den, int dsh,
-                                        int wg, int rl) {
+                                        int wg, int rl, int hm) {
 #pragma unroll
   for (int j = 0; j < G::NB; ++j) {
     constexpr int BP = G::BP;
@@ -588,6 +640,15 @@ __device__ __forceinline__ void message(Ring<RING, M::SB>& ring, float (&mg)[G::
     }
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
+      if constexpr (PAD) {   // the two columns' heads may differ
+        const int c = 64 * j + 8 * jj + 2 * (threadIdx.x & 3);
+        const int h0 = head_of(c, hm), h1 = head_of(c + 1, hm);
+        mz[jj][0] *= den[rl * HMAX + h0];
+        mz[jj][1] *= den[rl * HMAX + h1];
+        mz[jj][2] *= den[(rl + 8) * HMAX + h0];
+        mz[jj][3] *= den[(rl + 8) * HMAX + h1];
+        continue;
+      }
       const int hh = (64 * j + 8 * jj) >> dsh;
       const float d0 = den[rl * HMAX + hh], d1 = den[(rl + 8) * HMAX + hh];
       mz[jj][0] *= d0;
@@ -630,7 +691,13 @@ __device__ __forceinline__ void pair_of(const Args<M>& a, int p, int& ti, int& d
 
 // ---- the kernel ----------------------------------------------------------------------
 
-template <class M, int C, int KVN>
+// PAD: the padded layout (kernels/match_grid.pad_side), and the image head
+// (pv null): the true channels are the first a.ct of C, in a.H heads of
+// a.D each (any width; KVN = C: a head's block may cross a 64-column band);
+// the wrapper zeroes every factor, weight and LayerNorm lane past a.ct and
+// the kernel masks elu+1 of a padded stage-2 q or k lane and the LayerNorm
+// statistics.
+template <class M, int C, int KVN, bool PAD>
 __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
   using G = Cfg<M, C, KVN>;
   using T = typename M::T;
@@ -737,7 +804,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
     const T* hX = X.h + own * nc;
     const T* qX = X.q + own * nc;
     const T* aX = X.a1 + own * 2 * nc;
-    const T* pvX = X.pv + own * nc;
+    const T* pvX = PAD && X.pv == nullptr ? nullptr : X.pv + own * nc;
     for (int c = lane; c < C; c += 32) {
       part[c] = -__int_as_float(0x7f800000);
       part[C + c] = 0.f;
@@ -753,17 +820,17 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
       {
         float q[NTC][4];
         load_rows<M>(q, qX, C, 0, r0, N);
-        normaliser<M>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl);
+        normaliser<M, PAD>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl, a.hm);
         zero(mg);
-        message<M, G>(ring, mg, q, den, dsh, wg, rl);
+        message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm);
       }
-      layer_norm(mg, a.ln[0].s1, a.ln[0].b1);
+      layer_norm<PAD>(mg, a.ln[0].s1, a.ln[0].b1, a.ct);
       float y[NTC][4];
       zero(y);
       ffn<M, G>(ring, y, mg, [&](int h, float (&hid)[8][4]) {
         load_rows<M>(hid, aX, 2 * C, 64 * h, r0, N);
       });
-      layer_norm(y, a.ln[0].s2, a.ln[0].b2);
+      layer_norm<PAD>(y, a.ln[0].s2, a.ln[0].b2, a.ct);
       float hr[NTC][4];
       load_rows<M>(hr, hX, C, 0, r0, N);
 #pragma unroll
@@ -795,7 +862,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
           product<M, 1, G::PPC, G::RING, NTC>(ring, e, o, 0);
           const bool is_k = i < G::NB;
           float pv[8][4];
-          if (is_k) {
+          if (is_k || (PAD && X.pv == nullptr)) {   // the image head: no position term
             zero(pv);
           } else {
             load_rows<M>(pv, pvX, C, 64 * (i - G::NB), r0, N);
@@ -804,7 +871,8 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
           for (int j = 0; j < 8; ++j)
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
-              const float x = is_k ? elu1(e[j][k]) : e[j][k] + pv[j][k];
+              float x = is_k ? elu1(e[j][k]) : e[j][k] + pv[j][k];
+              if (PAD && is_k && 64 * i + 8 * j + 2 * t + (k & 1) >= a.ct) x = 0.f;   // a padded k lane
               e[j][k] = (k < 2 ? v0 : v1) ? x : 0.f;   // rows past N add nothing
             }
           if (is_k) {
@@ -847,8 +915,9 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
           for (int i = 0; i < 4; ++i) {
             const int m = 64 * mi + rl + 8 * (i >> 1), n = vlo + 8 * j + 2 * t + (i & 1);
             const int jj = n >> 6, klo = KVN == 64 ? 64 * jj : 0, kk = m - klo;
+            const bool same = PAD ? head_of(m, a.hm) == head_of(n, a.hm) : (m >> dsh) == (n >> dsh);
             M::put_b(kvo + (size_t)(jj * G::BP + kk / M::PK) * SB, n & 63, kk % M::PK,
-                     (m >> dsh) == (n >> dsh) ? kv[mi][j][i] : 0.f);
+                     same ? kv[mi][j][i] : 0.f);
           }
       }
     }
@@ -886,18 +955,19 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
 #pragma unroll
       for (int j = 0; j < NTC; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) q[j][i] = elu1(q[j][i]);
-      normaliser<M>(den, q, ksY, dsh, true, rl);
+        for (int i = 0; i < 4; ++i)
+          q[j][i] = PAD && 8 * j + 2 * t + (i & 1) >= a.ct ? 0.f : elu1(q[j][i]);
+      normaliser<M, PAD>(den, q, ksY, dsh, true, rl, a.hm);
       float mg[NTC][4];
       zero(mg);
-      message<M, G>(ring, mg, q, den, dsh, wg, rl);
-      layer_norm(mg, a.ln[1].s1, a.ln[1].b1);
+      message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm);
+      layer_norm<PAD>(mg, a.ln[1].s1, a.ln[1].b1, a.ct);
       float y[NTC][4];
       zero(y);
       ffn<M, G>(ring, y, mg, [&](int h, float (&hid)[8][4]) {
         load_scratch(hid, A2 + 64 * h, 2 * C, rl, true);
       });
-      layer_norm(y, a.ln[1].s2, a.ln[1].b2);
+      layer_norm<PAD>(y, a.ln[1].s2, a.ln[1].b2, a.ct);
       // pooling of O + y over the valid rows: the warp's 16 rows, then its
       // running max / sum (lanes with g = 0 own two columns an n-tile)
 #pragma unroll
@@ -966,10 +1036,10 @@ long long scratch_need(int N, int C, int H) {
   return C / H > 64 ? scratch_bytes<M, 128, 128>(N) : scratch_bytes<M, 128, 64>(N);
 }
 
-template <class M, int C, int KVN>
+template <class M, int C, int KVN, bool PAD>
 int launch_c(const Args<M>& a, int blocks, cudaStream_t stream) {
   using G = Cfg<M, C, KVN>;
-  auto kernel = rows_wg_kernel<M, C, KVN>;
+  auto kernel = rows_wg_kernel<M, C, KVN, PAD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -982,15 +1052,27 @@ int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
   if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 ||
       a.scratch_stride < scratch_need<M>(a.N, C, a.H))
     return (int)cudaErrorInvalidValue;
-  if (C == 64) return launch_c<M, 64, 64>(a, blocks, stream);
-  if (C / a.H > 64) return launch_c<M, 128, 128>(a, blocks, stream);
-  return launch_c<M, 128, 64>(a, blocks, stream);
+  if (C == 64) return launch_c<M, 64, 64, false>(a, blocks, stream);
+  if (C / a.H > 64) return launch_c<M, 128, 128, false>(a, blocks, stream);
+  return launch_c<M, 128, 64, false>(a, blocks, stream);
+}
+
+// The padded layout (and the image head, pv null): a.ct true channels of
+// C (64 or 128) in a.H <= HMAX heads; the layout and the scratch are those
+// of one head (KVN = C).
+template <class M>
+int launch_pad(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
+  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, 1) != 0 || a.H < 1 || a.H > HMAX ||
+      a.ct < 1 || a.ct > C || a.ct % a.H != 0 || a.scratch_stride < scratch_need<M>(a.N, C, 1))
+    return (int)cudaErrorInvalidValue;
+  if (C == 64) return launch_c<M, 64, 64, true>(a, blocks, stream);
+  return launch_c<M, 128, 128, true>(a, blocks, stream);
 }
 
 template <class M>
 Args<M> make_args(const void* const* sides, const void* w, const void* const* ln,
                   const void* t_idx, const void* d_idx, void* out, void* scratch,
-                  long long stride, int nt, int nd, int P, int N, int H) {
+                  long long stride, int nt, int nd, int P, int N, int H, int ct) {
   typedef const typename M::T* TP;
   Args<M> a;
   for (int s = 0; s < 2; ++s) {
@@ -1012,6 +1094,9 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
   a.P = P;
   a.N = N;
   a.H = H;
+  a.ct = ct;
+  a.D = H >= 1 && ct % H == 0 ? ct / H : 1;
+  a.hm = (65536 + a.D - 1) / a.D;
   return a;
 }
 
@@ -1048,6 +1133,28 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
     const void* ln[8] = {ln1s1, ln1b1, ln2s1, ln2b1, ln1s2, ln1b2, ln2s2, ln2b2};                 \
     return rowswg::launch<POLICY>(                                                                \
         rowswg::make_args<POLICY>(sides, w, ln, t_idx, d_idx, out, scratch, scratch_stride, nt,   \
-                                  nd, P, N, H),                                                   \
+                                  nd, P, N, H, C),                                                \
+        C, blocks, (cudaStream_t)stream);                                                         \
+  }
+
+// The padded layout's entry point (ROWS_WG_PAD_ENTRIES(policy, suffix), in
+// a .cu file of its own): pcr_match_rows_wg_pad<suffix>, the arguments of
+// pcr_match_rows_wg<suffix> with the true channels ct after H and C the
+// layout's width (64 or 128); the pv pointers null for the image head. Its
+// layout check is pcr_match_rows_wg<suffix>_layout(N, C, 1, ...).
+#define ROWS_WG_PAD_ENTRIES(POLICY, SUFFIX)                                                       \
+  extern "C" int ROWS_WG_CAT(pcr_match_rows_wg_pad, SUFFIX)(                                      \
+      const void* ht, const void* qt, const void* at, const void* pvt, const void* kvst,          \
+      const void* kst, const void* hd, const void* qd, const void* ad, const void* pvd,          \
+      const void* kvsd, const void* ksd, const void* w, const void* ln1s1, const void* ln1b1,     \
+      const void* ln2s1, const void* ln2b1, const void* ln1s2, const void* ln1b2,                \
+      const void* ln2s2, const void* ln2b2, const void* t_idx, const void* d_idx, void* out,     \
+      void* scratch, int nt, int nd, int P, int N, int C, int H, int ct, int blocks,              \
+      long long scratch_stride, void* stream) {                                                   \
+    const void* sides[12] = {ht, qt, at, pvt, kvst, kst, hd, qd, ad, pvd, kvsd, ksd};             \
+    const void* ln[8] = {ln1s1, ln1b1, ln2s1, ln2b1, ln1s2, ln1b2, ln2s2, ln2b2};                 \
+    return rowswg::launch_pad<POLICY>(                                                            \
+        rowswg::make_args<POLICY>(sides, w, ln, t_idx, d_idx, out, scratch, scratch_stride, nt,   \
+                                  nd, P, N, H, ct),                                               \
         C, blocks, (cudaStream_t)stream);                                                         \
   }

@@ -213,10 +213,11 @@ class PairScorer:
             pools, LoFTR stages, another attention primitive,
             ReIDNetCosine) by its own match_logits_grid /
             match_logits_pairs, as JAX's scorer does.
-        image_mode: score camera crops; no xyz anywhere. The model's match
-            head must be the chain the image kernel computes
-            (kernels.match_grid.check_image_head raises otherwise: nothing
-            is rerouted).
+        image_mode: score camera crops; no xyz anywhere. The model must be
+            an ImageReIDNet (kernels.match_grid.check_image_head); a head
+            the image kernel computes (fused_head_ok with image_mode) runs
+            through it, any other through ImageReIDNet.match_logits_grid /
+            match_logits over the gathered pairs, as JAX's scorer does.
         mesh: a parallel.make_mesh grid: score every frame in one shard a
             mesh entry (the module docstring), on any count of detections
             or pairs. A head that fused_head_ok refuses is scored by the

@@ -71,6 +71,20 @@ _SIGNATURES = {
     "pcr_match_rows_wg_bf16": [_P] * 12 + [_P] * 9 + [_P] * 4 + [_I] * 7
                               + [_L] + [_P],
     "pcr_match_rows_wg_bf16_layout": [_I] * 3 + [ctypes.POINTER(_L)] * 2,
+    # the padded layout's entry points (kernels/match_grid.pad_side): the
+    # arguments above with the true channels ct after H
+    "pcr_match_pooled_pad": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 7
+                            + [_P],
+    "pcr_match_pooled_image_pad": [_P] * 8 + [_P] * 16 + [_P] * 3 + [_I] * 7
+                                  + [_P],
+    "pcr_match_pooled_pad_bf16": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 7
+                                 + [_P],
+    "pcr_match_pooled_image_pad_bf16": [_P] * 8 + [_P] * 16 + [_P] * 3
+                                       + [_I] * 7 + [_P],
+    "pcr_match_rows_wg_pad": [_P] * 12 + [_P] * 9 + [_P] * 4 + [_I] * 8
+                             + [_L] + [_P],
+    "pcr_match_rows_wg_pad_bf16": [_P] * 12 + [_P] * 9 + [_P] * 4 + [_I] * 8
+                                  + [_L] + [_P],
     # q, db, out (int64), B, S, N, k, stream
     "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
     # the same, then the plan: tier, points, warps, smem; stream
@@ -82,6 +96,9 @@ _SIGNATURES = {
     # xyz, start, out, scratch, B, N, npoint, start64, then the plan: tier,
     # points, threads, clouds, smem; stream
     "pcr_fps_plan": [_P] * 4 + [_I] * 9 + [_P],
+    # the same at any channel count: xyz, start, out, scratch, B, N, C,
+    # npoint, start64, the plan; stream
+    "pcr_fps_channels": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 

@@ -11,13 +11,27 @@ features stays plain torch, as in JAX.
 
 `plan(N, C, H)` picks the float32 kernel's tier: CLUSTER (csrc/match_grid.cu,
 a two-block cluster a pair with the weights and a side's rows in shared
-memory: C = 16 or 64, as many rows as fit, 224 at C = 64) wherever it fits,
-else, for the point head only, ROWS (csrc/match_rows.cu instantiating
-csrc/match_rows_wg.cuh: C = 64 or 128, any N; two warpgroups on wgmma, a
-side each, the weights streamed through a ring of shared-memory stages from
-a stage copy made once, `rows_stage_weights`, the stage-1 outputs in a
-device scratch) or, at C = 16, ROWS_MMA (the first rows kernel, kept in the
-same file: a block a pair at a time on mma.sync).
+memory: C up to 64, as many rows as fit, 224 at C = 64) wherever it fits,
+else ROWS (csrc/match_rows.cu instantiating csrc/match_rows_wg.cuh: C up to
+128, any N; two warpgroups on wgmma, a side each, the weights streamed
+through a ring of shared-memory stages from a stage copy made once,
+`rows_stage_weights`, the stage-1 outputs in a device scratch) or, for the
+point head at C = 16, ROWS_MMA (the first rows kernel, kept in the same
+file: a block a pair at a time on mma.sync).
+
+The kernels' tiles are instantiated at the widths W = 16 and 64 (cluster)
+and 64 and 128 (rows). A head of another width C <= 128 (a model built
+with --set model.backbone.conv_out=96, say) runs at the smallest W of its
+tier that holds it, in the padded layout (`pad_side`, `pad_weights`): the
+true channels first, zeros in lanes C .. W - 1 of every factor, weight and
+LayerNorm vector, the FFN's hidden 2C of 2W the same way; the heads keep
+their C / H channels each, contiguous. The kernels' padded instantiations
+(the `_pad` entry points, given the true C) mask what zeros alone would
+get wrong: elu+1 of a padded stage-2 q or k lane (1, not 0) and the
+LayerNorm statistics (over the true C). The pooled output is sliced back
+to [max | avg] of the true C. `padded_reference` is the CPU model of that
+layout. Past 128 channels, or 8 heads where the rows tier is needed, the
+plan raises (ROADMAP.md K6b).
 
 The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
 image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
@@ -49,15 +63,15 @@ float32 and every product of the chain multiplies bf16-rounded operands with
 float32 accumulation, the pooled output in bf16 (the TPU kernel's _make_dot).
 On CUDA `plan(..., dtype=torch.bfloat16)` picks the bf16 tiers:
 CLUSTER (csrc/match_grid_bf16.cu: a persistent two-block cluster on wgmma
-with the weights resident in shared memory, C = 16 or 64, up to 208 rows at
-C = 64), else for the point head ROWS (csrc/match_rows_bf16.cu: the same
-wgmma structure as the float32 rows tier, one bf16 pass a product, C = 64
-or 128 at any N) or ROWS_MMA at C = 16; a bf16 model never runs a float32
+with the weights resident in shared memory, C up to 64, up to 208 rows at
+C = 64), else ROWS (csrc/match_rows_bf16.cu: the same wgmma structure as
+the float32 rows tier, one bf16 pass a product, C up to 128 at any N) or
+ROWS_MMA for the point head at C = 16; a bf16 model never runs a float32
 kernel. The wrapper hands the kernels bf16 copies of the weights made once
 (utils/cache.py): the rows tier's in its stage layout. bf16 launches count
 in each wrapper's `bf16_launches`, float32 ones in `launches`; both count
 by tier in `tier_launches` (keys "cluster", "rows", "rows_mma", each also
-with "_bf16").
+with "_bf16"), and those in the padded layout also in `padded_launches`.
 """
 from __future__ import annotations
 
@@ -182,35 +196,55 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-def _layer_norm(x, scale, bias):
-    return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
+def _lane_mask(W: int, ct: int, device) -> torch.Tensor:
+    """1.0 on the true lanes 0 .. ct - 1 of a W-wide padded row, else 0."""
+    return (torch.arange(W, device=device) < ct).float()
 
 
-def _ffn(search, msg, a, w, mm=None):
+def _layer_norm(x, scale, bias, ct=None):
+    """LayerNorm over the last dim; with `ct` (the padded layout, lanes ct
+    .. W - 1 holding zeros) its statistics over the true ct lanes, as the
+    kernels' padded instantiations take them: the mean from the sum of
+    every lane, the variance from the true lanes' deviations."""
+    if ct is None or ct == x.shape[-1]:
+        return F.layer_norm(x, (x.shape[-1],), scale, bias, LN_EPS)
+    mu = x.sum(dim=-1, keepdim=True) / ct
+    dev = (x - mu) * _lane_mask(x.shape[-1], ct, x.device)
+    var = (dev * dev).sum(dim=-1, keepdim=True) / ct
+    return (x - mu) * torch.rsqrt(var + LN_EPS) * scale + bias
+
+
+def _ffn(search, msg, a, w, mm=None, ct=None):
     """merge -> LN -> FFN([search || msg]) -> LN -> residual, with the FFN's
     first layer split into search and message halves; `mm` the products
-    (_mm by default)."""
+    (_mm by default), `ct` the true width of a padded layout."""
     mm = mm or _mm
     C = search.shape[-1]
-    m = _layer_norm(mm(msg, w["merge"]), w["ln1_scale"], w["ln1_bias"])
+    m = _layer_norm(mm(msg, w["merge"]), w["ln1_scale"], w["ln1_bias"], ct)
     if a is None:
         a = mm(search, w["fc1"][:C])
     h = torch.relu(a + mm(m, w["fc1"][C:]))
     return search + _layer_norm(mm(h, w["fc2"]), w["ln2_scale"],
-                                w["ln2_bias"])
+                                w["ln2_bias"], ct)
 
 
 def _split_norm(mz, C):
     return mz[..., :C] / (mz[..., C:] + EPS)
 
 
-def _stage2(search, template, pv, w, nhead, mm=None):
+def _stage2(search, template, pv, w, nhead, mm=None, ct=None):
+    """Stage 2's message; in a padded layout (`ct` true lanes of C) the
+    heads are the true ct / nhead channels each from lane 0 and elu+1 of a
+    padded q or k lane is masked to 0."""
     mm = mm or _mm
     C = search.shape[-1]
-    D = C // nhead
+    D = (ct or C) // nhead
     q = _elu1(mm(search, w["q"]))
     tkv = mm(template, w["kv"])
     k = _elu1(tkv[..., :C])
+    if ct is not None and ct < C:
+        lane = _lane_mask(C, ct, search.device)
+        q, k = q * lane, k * lane
     v = tkv[..., C:] if pv is None else tkv[..., C:] + pv
     heads = torch.arange(C, device=search.device) // D
     gmask = (heads[:, None] == heads[None, :]).to(search.dtype)
@@ -219,10 +253,12 @@ def _stage2(search, template, pv, w, nhead, mm=None):
     return mm(q, kv) / (mm(q * ks, gmask) + EPS)
 
 
-def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
+def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int,
+                  ct: Optional[int] = None) -> torch.Tensor:
     """The chain in the factors' dtype: float32, or bf16 factors whose
     chain runs in float32 with bf16 operands to every product and a bf16
-    result (the TPU kernel under a bf16 model)."""
+    result (the TPU kernel under a bf16 model). `ct`: the true width of
+    sides and weights in the padded layout (pad_side, pad_weights)."""
     dt = t[0].dtype
     mm = _mm
     if dt == BF16:
@@ -233,10 +269,12 @@ def _pooled_pairs(t: Side, d: Side, w1, w2, nhead: int) -> torch.Tensor:
     pvt = t[4] if len(t) == 5 else None      # image head: no position term
     pvd = d[4] if len(d) == 5 else None
     C = ht.shape[-1]
-    o1a = _ffn(ht, _split_norm(mm(qt, kvzd), C), at, w1, mm)
-    o2a = _ffn(hd, _split_norm(mm(qd, kvzt), C), ad, w1, mm)
-    o1b = _ffn(o1a, _stage2(o1a, o2a, pvd, w2, nhead, mm), None, w2, mm)
-    o2b = _ffn(o2a, _stage2(o2a, o1a, pvt, w2, nhead, mm), None, w2, mm)
+    o1a = _ffn(ht, _split_norm(mm(qt, kvzd), C), at, w1, mm, ct)
+    o2a = _ffn(hd, _split_norm(mm(qd, kvzt), C), ad, w1, mm, ct)
+    o1b = _ffn(o1a, _stage2(o1a, o2a, pvd, w2, nhead, mm, ct), None, w2, mm,
+               ct)
+    o2b = _ffn(o2a, _stage2(o2a, o1a, pvt, w2, nhead, mm, ct), None, w2, mm,
+               ct)
     mx = torch.maximum(o1b.amax(dim=1), o2b.amax(dim=1))
     av = 0.5 * (o1b.mean(dim=1) + o2b.mean(dim=1))
     return torch.cat([mx, av], dim=-1).to(dt)
@@ -265,11 +303,12 @@ _PLAIN_CHUNK = 2048
 
 
 def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
-                           t_idx: torch.Tensor, d_idx: torch.Tensor
-                           ) -> torch.Tensor:
+                           t_idx: torch.Tensor, d_idx: torch.Tensor,
+                           ct: Optional[int] = None) -> torch.Tensor:
     """Plain version of the kernel: (P, 2C) pooled [max || avg] features of
     the pairs (t_idx[p], d_idx[p]), computed in chunks of pairs. Sides of
-    five tensors are the point head's, sides of four the image head's."""
+    five tensors are the point head's, sides of four the image head's.
+    `ct`: sides and weights in the padded layout of true width ct."""
     if len(t) != len(d) or len(t) not in (4, 5):
         raise ValueError(f"sides of {len(t)} and {len(d)} tensors: want 5 "
                          "(point head) or 4 (image head) on both")
@@ -279,8 +318,80 @@ def match_pooled_reference(t: Side, d: Side, w1, w2, nhead: int,
         ti = t_idx[lo:lo + _PLAIN_CHUNK].long()
         di = d_idx[lo:lo + _PLAIN_CHUNK].long()
         outs.append(_pooled_pairs(tuple(x[ti] for x in t),
-                                  tuple(x[di] for x in d), w1, w2, nhead))
+                                  tuple(x[di] for x in d), w1, w2, nhead, ct))
     return torch.cat(outs, dim=0)
+
+
+# ---- the padded layout -------------------------------------------------------
+
+def _lanes(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x with zeros appended to its last dim up to `width`."""
+    return F.pad(x, (0, width - x.shape[-1]))
+
+
+def pad_side(side: Side, W: int) -> Side:
+    """A side's factors of true width C in the padded layout of width W:
+    h, q (and pv) (n, N, W), a1 (n, N, 2W: the hidden 2C first), [KV | Z]
+    (n, W, 2W: KV at [:C, :C], Z at [:C, W:W + C]), zeros elsewhere."""
+    C = side[0].shape[-1]
+    if W == C:
+        return side
+    h, q, kvz, a1 = side[:4]
+    kvzp = kvz.new_zeros((kvz.shape[0], W, 2 * W))
+    kvzp[:, :C, :C] = kvz[:, :, :C]
+    kvzp[:, :C, W:W + C] = kvz[:, :, C:]
+    return ((_lanes(h, W), _lanes(q, W), kvzp, _lanes(a1, 2 * W))
+            + tuple(_lanes(x, W) for x in side[4:]))
+
+
+def pad_weights(w1, w2, W: int):
+    """stage_weights' dicts of true width C in the padded layout of width
+    W (made once per weight set): every vector and matrix zero past C on
+    each side, fc1's rows as [search W | message W] and kv's columns as
+    [Wk W | Wv W], the hidden 2C of 2W first."""
+    C = w1["merge"].shape[0]
+    if W == C:
+        return w1, w2
+    srcs = [w1[k] for k in sorted(w1)] + [w2[k] for k in sorted(w2)]
+    return derived(srcs, ("match_pad", W),
+                   lambda: (_pad_weights(w1, C, W), _pad_weights(w2, C, W)))
+
+
+def _pad_weights(w, C: int, W: int):
+    def mat(x, rows, cols):
+        return F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+    out = {k: _lanes(x, W) for k, x in w.items() if x.dim() == 1}
+    out["merge"] = mat(w["merge"], W, W)
+    out["fc1"] = torch.cat([mat(w["fc1"][:C], W, 2 * W),
+                            mat(w["fc1"][C:], W, 2 * W)])
+    out["fc2"] = mat(w["fc2"], 2 * W, W)
+    if "q" in w:
+        out["q"] = mat(w["q"], W, W)
+        out["kv"] = torch.cat([mat(w["kv"][:, :C], W, W),
+                               mat(w["kv"][:, C:], W, W)], dim=1)
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def unpad_pooled(pooled: torch.Tensor, C: int) -> torch.Tensor:
+    """[max | avg] of the true C channels from a (..., 2W) pooled output of
+    the padded layout."""
+    W = pooled.shape[-1] // 2
+    if W == C:
+        return pooled
+    return torch.cat([pooled[..., :C], pooled[..., W:W + C]], dim=-1)
+
+
+def padded_reference(t: Side, d: Side, w1, w2, nhead: int,
+                     t_idx: torch.Tensor, d_idx: torch.Tensor, W: int
+                     ) -> torch.Tensor:
+    """The CPU model of a padded launch: the sides and weights laid out at
+    width W, the chain with the kernels' masks (match_pooled_reference with
+    ct), the pooled output sliced back: (P, 2C)."""
+    C = t[0].shape[-1]
+    pw1, pw2 = pad_weights(w1, w2, W)
+    out = match_pooled_reference(pad_side(t, W), pad_side(d, W), pw1, pw2,
+                                 nhead, t_idx, d_idx, ct=C)
+    return unpad_pooled(out, C)
 
 
 # ---- kernel wrappers ------------------------------------------------------------
@@ -430,38 +541,50 @@ def rows_mma_bytes_bf16(C: int) -> int:
             + 2 * 64 * 72 * 2)
 
 
+MAX_C = 128             # widest head the kernels serve (past it: K6b)
+K6B = "ROADMAP.md K6b"
+
+
+def kernel_width(C: int, tier: int) -> int:
+    """The width W of the tier's instantiation that serves a head of C
+    channels: C itself where the tier has one, else the smallest that
+    holds it (the padded layout)."""
+    widths = {CLUSTER: CLUSTER_WIDTHS, ROWS: ROWS_WIDTHS,
+              ROWS_MMA: ROWS_MMA_WIDTHS}[tier]
+    return next(w for w in widths if w >= C)
+
+
 def plan(N: int, C: int, H: int, pos: bool = True,
          dtype: torch.dtype = torch.float32) -> Plan:
-    """The tier for sides of N rows and C channels in H heads: CLUSTER where
-    its layout fits in a block's shared memory, else for the point head
-    (`pos`) ROWS at C = 64 or 128 and ROWS_MMA at C = 16; the image head (no
-    position term) has the cluster tier only. Raises ValueError for a shape
-    that none takes. Each dtype has its own kernels: at bf16 the cluster
-    tier's layout is cluster_bytes_bf16 (up to 208 rows at C = 64) and the
-    rows tiers' rows_bytes_bf16 / rows_mma_bytes_bf16; the rows tiers take
-    the same widths and heads at both."""
+    """The tier for sides of N rows and C channels in H heads, point head
+    (`pos`) or image head: CLUSTER where its layout at width
+    kernel_width(C, CLUSTER) fits in a block's shared memory (C <= 64, any
+    heads), else ROWS_MMA for the point head at C = 16, else ROWS (C <=
+    128, at most 8 heads). Raises ValueError for a shape that none takes,
+    past 128 channels or 8 heads naming ROADMAP.md's K6b. Each dtype has its
+    own kernels: at bf16 the cluster tier's layout is cluster_bytes_bf16 (up
+    to 208 rows at C = 64) and the rows tiers' rows_bytes_bf16 /
+    rows_mma_bytes_bf16; the rows tiers take the same widths and heads at
+    both. The bytes are those of the width the tier runs at."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
-    widths = ROWS_MMA_WIDTHS + ROWS_WIDTHS if pos else CLUSTER_WIDTHS
-    if C not in widths:
-        raise ValueError(f"N={N}, C={C}, nhead={H}: the kernel's tensor-core "
-                         f"tiles take C in {widths}")
+    if C > MAX_C:
+        raise ValueError(f"N={N}, C={C}, nhead={H}: the kernels take at most "
+                         f"{MAX_C} channels ({K6B})")
     bf16 = dtype == BF16
-    cluster = (cluster_bytes_bf16 if bf16 else cluster_bytes)(N, C)
-    if C in CLUSTER_WIDTHS and cluster <= MAX_SMEM:
-        return Plan(CLUSTER, cluster)
-    if not pos:
-        raise ValueError(
-            f"{N} rows x {C} channels need {cluster} bytes of shared memory "
-            f"a block{' at bf16' if bf16 else ''}, more than the {MAX_SMEM} "
-            "the kernel may take (the image head has no rows tier)")
+    if C <= CLUSTER_WIDTHS[-1]:
+        cluster = (cluster_bytes_bf16 if bf16 else cluster_bytes)(
+            N, kernel_width(C, CLUSTER))
+        if cluster <= MAX_SMEM:
+            return Plan(CLUSTER, cluster)
     if H > ROWS_MAX_HEADS:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
-                         f"most {ROWS_MAX_HEADS} heads")
-    if C in ROWS_WIDTHS:
-        return Plan(ROWS, rows_layout(C, H, dtype).smem)
-    return Plan(ROWS_MMA, (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
+                         f"most {ROWS_MAX_HEADS} heads ({K6B})")
+    if pos and C in ROWS_MMA_WIDTHS:
+        return Plan(ROWS_MMA,
+                    (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
+    return Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dtype).smem)
 
 
 def rows_blocks(P: int, smem: int, device) -> int:
@@ -632,12 +755,18 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     tier takes its weights as rows_stage_weights lays them out and each
     side's [KV | Z] as message_stages; the others the matrices in (out, in)
     layout at bf16, (in, out) at float32.
+    A width C the tier has no instantiation for runs at kernel_width(C,
+    tier) in the padded layout (pad_side, pad_weights) through the tier's
+    `_pad` entry point, which is given the true C and masks the padded
+    lanes; so does the image head on the rows tier (its `_pad` entry takes
+    no position term). Such a launch also counts in
+    `counter.padded_launches` by tier; the output is sliced back to 2C.
     `library` is another build of the kernels' entry points, as
     tools/ab_match.py times versions of them; it passes no counter. A build
     without the rows tier's entry points (an earlier csrc/match_rows*.cu)
     is launched through the first rows kernel's, at its own layout. `tier`
-    (ROWS) drives the rows tier at a shape the plan gives the cluster tier,
-    as the card's tests and tools/ab_match.py do; the wrappers never pass
+    (ROWS) drives the rows tier at a shape the plan gives another tier, as
+    the card's tests and tools/ab_match.py do; the wrappers never pass
     it."""
     device = t[0].device
     N, C = t[0].shape[1], t[0].shape[2]
@@ -647,26 +776,40 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     nt = _check_side(t, N, C, device, "track", dt)
     nd = _check_side(d, N, C, device, "det", dt)
     how = plan(N, C, nhead, pos=parts == 5, dtype=dt)
-    if tier == ROWS and how.tier == CLUSTER and C in ROWS_WIDTHS and parts == 5:
-        how = Plan(ROWS, rows_layout(C, nhead, dt).smem)
+    if tier == ROWS and how.tier != ROWS:
+        if nhead > ROWS_MAX_HEADS:
+            raise ValueError(f"N={N}, C={C}, nhead={nhead}: the rows tier "
+                             f"takes at most {ROWS_MAX_HEADS} heads ({K6B})")
+        how = Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dt).smem)
     elif tier not in (None, how.tier):
         raise ValueError(f"N={N}, C={C}, nhead={nhead}: the {TIER_NAMES[tier]}"
                          f" tier does not take this shape")
     lib = (library or _lib.LIBRARY).get()
     tier = how.tier
+    W = kernel_width(C, tier)
+    padded = W != C or (tier == ROWS and parts == 4)
     if tier == ROWS and not hasattr(lib, layout_entry(ROWS, bf16)):
         tier = ROWS_MMA     # an earlier build: its one rows kernel
+    entry = (_ENTRIES[tier] + ("_image" if tier == CLUSTER and parts == 4
+                               else "") + ("_pad" if padded else "") + sfx)
+    if not hasattr(lib, entry):
+        raise ValueError(f"N={N}, C={C}, nhead={nhead}: this build has no "
+                         f"{entry}")
+    # the padded entries take the heads apart from the layout, which does
+    # not depend on them (the rows tier's KV band then spans every column)
+    hl = 1 if padded else nhead
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    entry = ((("pcr_match_pooled" if parts == 5 else "pcr_match_pooled_image")
-              if tier == CLUSTER else _ENTRIES[tier]) + sfx)
     status = getattr(lib, layout_entry(tier, bf16))(
-        N, C, nhead, ctypes.byref(smem), ctypes.byref(limit))
+        N, W, hl, ctypes.byref(smem), ctypes.byref(limit))
     if status or (tier == how.tier and smem.value != how.smem):
         # a build whose layout differs from the plan's
         raise ValueError(
             f"{TIER_NAMES[tier]} tier, N={N}, C={C}, nhead={nhead}: the "
             f"kernel's layout check says {status} ({smem.value} bytes of "
             f"{limit.value}; the plan's {how.smem})")
+    if padded:
+        t, d = pad_side(t, W), pad_side(d, W)
+        w1, w2 = pad_weights(w1, w2, W)
     ws = {"w1": w1, "w2": w2}
     weights = [ws[g][k] for g, k in _WEIGHT_ORDER]
     for (g, k), x in zip(_WEIGHT_ORDER, weights):
@@ -676,7 +819,7 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
                              f"float32 on {device}")
     if t_idx is None:
         P = nt * nd
-        out = torch.empty((nt, nd, 2 * C), dtype=dt, device=device)
+        out = torch.empty((nt, nd, 2 * W), dtype=dt, device=device)
         idx_ptrs = [None, None]
     else:
         P = t_idx.shape[0]
@@ -686,27 +829,29 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
                 raise ValueError("pair indices: want contiguous int32 (P,) "
                                  f"on {device}")
         check_pair_range(t_idx, d_idx, nt, nd)
-        out = torch.empty((P, 2 * C), dtype=dt, device=device)
+        out = torch.empty((P, 2 * W), dtype=dt, device=device)
         idx_ptrs = [t_idx.data_ptr(), d_idx.data_ptr()]
     if P == 0:
-        return out
+        return unpad_pooled(out, C)
     stream = _lib.stream_ptr(device)
+    shape = [nt, nd, P, N, W, nhead] + ([C] if padded else [])
     if tier == ROWS:
-        sides = []
+        sides = []      # the tensors stay referenced until the launch
         for s in (t, d):
-            kvs, ks = message_stages(s[2], nhead, bf16)
-            sides += [s[0], s[1], s[3], s[4], kvs, ks]
+            sides += [s[0], s[1], s[3], s[4] if parts == 5 else None,
+                      *message_stages(s[2], hl, bf16)]
         stages = rows_stage_weights(w1, w2, bf16)
         ln = [w[k] for w in (w1, w2) for k in ("ln1_scale", "ln1_bias",
                                                "ln2_scale", "ln2_bias")]
         blocks = rows_blocks(P, smem.value, device)
-        stride = rows_scratch_bytes(N, C, nhead, dt)
+        stride = rows_scratch_bytes(N, W, hl, dt)
         scratch = torch.empty((blocks, stride), dtype=torch.uint8,
                               device=device)
         err = getattr(lib, entry)(
-            *[x.data_ptr() for x in sides + [stages] + ln], *idx_ptrs,
-            out.data_ptr(), scratch.data_ptr(), nt, nd, P, N, C, nhead,
-            blocks, stride, stream)
+            *[None if x is None else x.data_ptr()
+              for x in sides + [stages] + ln], *idx_ptrs,
+            out.data_ptr(), scratch.data_ptr(), *shape, blocks, stride,
+            stream)
     else:
         if bf16:
             weights = [x if x.dim() == 1 else derived(
@@ -718,14 +863,14 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         ptrs = [*[x.data_ptr() for x in t], *[x.data_ptr() for x in d],
                 *[x.data_ptr() for x in weights], *idx_ptrs, out.data_ptr()]
         if tier == CLUSTER:
-            err = getattr(lib, entry)(*ptrs, nt, nd, P, N, C, nhead, stream)
+            err = getattr(lib, entry)(*ptrs, *shape, stream)
         else:
             blocks = rows_blocks(P, smem.value, device)
             Np = -(-N // 16) * 16
             scratch = torch.empty((blocks, 2, Np, C), dtype=torch.float32,
                                   device=device)
-            err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), nt, nd, P,
-                                      N, C, nhead, blocks, stream)
+            err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), *shape,
+                                      blocks, stream)
     _lib.check(err, entry)
     if counter is not None:
         if bf16:
@@ -733,7 +878,9 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         else:
             counter.launches += 1
         counter.tier_launches[tier_key(tier, bf16)] += 1
-    return out
+        if padded:
+            counter.padded_launches[tier_key(tier, bf16)] += 1
+    return unpad_pooled(out, C)
 
 
 def _check_parts(parts: int, t: Side, d: Side) -> None:
@@ -805,6 +952,9 @@ for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
     # launches by tier and dtype, beside the totals
     _fn.tier_launches = {tier_key(t, b): 0 for b in (False, True)
                          for t in range(len(TIER_NAMES))}
+    # of those, the launches in the padded layout (a width the tier has no
+    # instantiation for, or the image head on the rows tier)
+    _fn.padded_launches = dict(_fn.tier_launches)
     _fn.bf16_launches = 0
 
 
@@ -869,19 +1019,12 @@ def pair_logits(model, h_t, xyz_t, h_d, xyz_d, t_idx, d_idx) -> torch.Tensor:
 
 
 def check_image_head(model) -> None:
-    """Raise unless `model` is an ImageReIDNet whose match head is the chain
-    the kernel computes (fused_head_ok with image_mode)."""
+    """Raise unless `model` is an ImageReIDNet: the image scorers' models.
+    Its head need not be the chain the kernel computes (fused_head_ok with
+    image_mode): any other is scored by the model's own path."""
     if type(model).__name__ != "ImageReIDNet":
         raise TypeError(f"image scoring needs an ImageReIDNet, got "
                         f"{type(model).__name__}")
-    if not fused_head_ok(model, image_mode=True):
-        head = (model.match_type, model.combine, model.pool_type,
-                type(model.cross_stage1).__name__,
-                getattr(model.cross_stage1, "attention", None))
-        want = ("xcorr_eff", "point-cat", "both", "CrossLinAttn", "linear")
-        raise NotImplementedError(
-            f"the image match kernel computes {want}, this model is {head}; "
-            "score it with ImageReIDNet.match_logits_grid")
 
 
 def image_match_factors(model, h_t, h_d):
@@ -898,8 +1041,13 @@ def image_match_factors(model, h_t, h_d):
 def image_grid_logits(model, h_t, h_d) -> torch.Tensor:
     """Factors -> fused image grid kernel -> match head: (nt, nd) logits of
     (nt/nd, S, C) downsampled token features. Drop-in equivalent of
-    ImageReIDNet.match_logits_grid for the head check_image_head accepts."""
+    ImageReIDNet.match_logits_grid; a head fused_head_ok(image_mode=True)
+    refuses (another combine, pooling or match type, another attention
+    primitive) is scored by match_logits_grid itself, as JAX's scorer does,
+    and launches no match kernel."""
     check_image_head(model)
+    if not fused_head_ok(model, image_mode=True):
+        return model.match_logits_grid(h_t, h_d)
     t, d, w1, w2, nhead = image_match_factors(model, h_t, h_d)
     pooled = fused_image_match_grid(t, d, w1, w2, nhead)
     nt, nd = pooled.shape[:2]
@@ -908,8 +1056,13 @@ def image_grid_logits(model, h_t, h_d) -> torch.Tensor:
 
 def image_pair_logits(model, h_t, h_d, t_idx, d_idx) -> torch.Tensor:
     """Gated sparse image scoring: (P,) logits of the listed (track, det)
-    pairs, equal to image_grid_logits(...)[t_idx, d_idx]."""
+    pairs, equal to image_grid_logits(...)[t_idx, d_idx]; a head
+    fused_head_ok refuses is scored by match_logits over the gathered
+    pairs, as JAX's xla_image_pair_logits."""
     check_image_head(model)
+    if not fused_head_ok(model, image_mode=True):
+        t_idx, d_idx = t_idx.long(), d_idx.long()
+        return model.match_logits(h_t[t_idx], h_d[d_idx])
     t, d, w1, w2, nhead = image_match_factors(model, h_t, h_d)
     pooled = fused_image_match_pairs(t, d, w1, w2, nhead, t_idx, d_idx)
     return model.match_head(pooled)[:, 0]

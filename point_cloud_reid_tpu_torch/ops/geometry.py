@@ -105,8 +105,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
                           start: Optional[torch.Tensor] = None,
                           generator: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
-    """Iterative farthest point sampling: xyz (B, N, 3) -> (B, npoint) int64
-    indices, the first of which is the start point.
+    """Iterative farthest point sampling: xyz (B, N, C) -> (B, npoint) int64
+    indices, the first of which is the start point; the distance is over
+    all C channels (xyz, or points with features, as fps_pallas takes).
 
     start: (B,) start indices in [0, N); else, with a generator (on xyz's
     device), a uniform draw per cloud, as the reference's randint start;

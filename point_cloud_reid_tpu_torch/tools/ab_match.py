@@ -22,8 +22,14 @@ image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
 --N N instead the point head alone at that width and row count, a --grid x
 --grid grid and a 512-pair list (the 7M model's dense frame: --C 128 --N
 128; a 2048-point ablation served at its crop size: --C 64 --N 2048 --grid
-16), or several such shapes at once with --shapes C:N:GRID,... (one build
-for all). The versions of csrc/match_rows*.cu from before the wgmma rows
+16), or several such shapes at once with --shapes C:N:GRID[:HEADS],...
+(one build for all; 2 heads unless given). A width the tiles have no
+instantiation for runs in the padded layout (kernels/match_grid.pad_side).
+`--tier rows` drives every shape through the rows tier whatever the plan
+picks (kernels/match_grid.launch(tier=ROWS)); given with `--tier plan` as
+well, each source is timed both ways in turns, one version per (source,
+tier): e.g. C = 16 past its cluster layout on the first rows kernel (the
+plan) against the padded wgmma rows tier. The versions of csrc/match_rows*.cu from before the wgmma rows
 tier export only the first rows kernel's entry points (`pcr_match_rows`,
 `pcr_match_rows_layout`); kernels/match_grid.launch gives them that
 kernel's arguments. Versions are timed
@@ -34,9 +40,13 @@ one JSON line per version with the card's name and power limit, ptxas's
 registers and spills of its kernels and, per shape, the shared bytes a
 block of that version's layout.
 
+A SOURCE may join several files with '+' into one version (a tier with
+its padded entry points: csrc/match_rows.cu+csrc/match_rows_pad.cu).
+
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
         [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
-        [--shapes 128:128:128,64:2048:16] [--bf16]
+        [--shapes 128:128:128,64:2048:16,96:128:128:3] [--bf16]
+        [--tier plan] [--tier rows]
 
 Needs a CUDA device and nvcc. TF32 off.
 """
@@ -93,9 +103,14 @@ def inputs(head: str, nt: int, nd: int, n_rows: int, C: int = 64,
 
 def build(sources):
     """One loaded library per source and the headers beside it, built
-    together; prints ptxas's register and spill lines of each."""
-    libs = [_lib.Library([src, *sorted(Path(src).parent.glob("*.cuh"))])
-            for src in sources]
+    together (a source `A.cu+B.cu` is one version of both files, such as a
+    tier and its padded entry points); prints ptxas's register and spill
+    lines of each."""
+    libs = []
+    for src in sources:
+        files = src.split("+")
+        libs.append(_lib.Library(
+            [*files, *sorted(Path(files[0]).parent.glob("*.cuh"))]))
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.get(), libs))
     for lib, src in zip(libs, sources):
@@ -105,36 +120,44 @@ def build(sources):
     return libs
 
 
-def layout_bytes(lib, t, nhead) -> int:
-    """Shared bytes a block of one version's layout for the tier that
-    kernels/match_grid.plan picks for these factors (a version without the
-    wgmma rows tier: its first rows kernel's)."""
+def layout_bytes(lib, t, nhead, tier=None) -> int:
+    """Shared bytes a block of one version's layout for `tier`, by default
+    the one kernels/match_grid.plan picks for these factors, at the width
+    it runs them (a version without the wgmma rows tier: its first rows
+    kernel's)."""
     N, C = t[0].shape[1], t[0].shape[2]
     bf16 = t[0].dtype == torch.bfloat16
-    how = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype)
-    entry = mg.layout_entry(how.tier, bf16)
-    if not hasattr(lib.get(), entry) and how.tier == mg.ROWS:
+    if tier is None:
+        tier = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype).tier
+    W = mg.kernel_width(C, tier)
+    padded = W != C or (tier == mg.ROWS and len(t) == 4)
+    entry = mg.layout_entry(tier, bf16)
+    if not hasattr(lib.get(), entry) and tier == mg.ROWS:
         entry = mg.layout_entry(mg.ROWS_MMA, bf16)
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    getattr(lib.get(), entry)(N, C, nhead, ctypes.byref(need),
-                              ctypes.byref(limit))
+    getattr(lib.get(), entry)(N, W, 1 if padded else nhead,
+                              ctypes.byref(need), ctypes.byref(limit))
     return need.value
 
 
 def parse_shapes(text: str) -> list:
-    """--shapes "C:N:GRID,..." as [(C, N, GRID), ...]."""
+    """--shapes "C:N:GRID[:HEADS],..." as [(C, N, GRID, HEADS), ...] (2
+    heads unless given)."""
     out = []
     for item in text.split(","):
         parts = [int(x) for x in item.split(":")]
-        if len(parts) != 3 or min(parts) < 1:
-            raise SystemExit(f"ab_match: --shapes wants C:N:GRID, got {item!r}")
-        out.append(tuple(parts))
+        if len(parts) not in (3, 4) or min(parts) < 1:
+            raise SystemExit(f"ab_match: --shapes wants C:N:GRID[:HEADS], "
+                             f"got {item!r}")
+        out.append(tuple(parts) + ((2,) if len(parts) == 3 else ()))
     return out
 
 
-def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None):
-    """(P, 2C) pooled features from one version of the kernel."""
-    out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib)
+def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None, tier=None):
+    """(P, 2C) pooled features from one version of the kernel, through
+    `tier` if given (kernels/match_grid.launch)."""
+    out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib,
+                    tier=tier)
     return out.reshape(-1, out.shape[-1])
 
 
@@ -150,33 +173,43 @@ def main(argv=None):
     ap.add_argument("--grid", type=int, default=128,
                     help="tracks and detections of that shape's grid")
     ap.add_argument("--shapes", default=None,
-                    help="point-head shapes C:N:GRID,... (instead of --C/--N)")
+                    help="point-head shapes C:N:GRID[:HEADS],... (instead of "
+                         "--C/--N)")
+    ap.add_argument("--tier", action="append", choices=("plan", "rows"),
+                    help="the plan's tier (default) or the rows tier; both: "
+                         "each source timed both ways")
     ap.add_argument("--bf16", action="store_true",
                     help="a bf16 model's inputs and the bf16 kernels")
     args = ap.parse_args(argv)
     if (args.C is None) != (args.N is None):
         raise SystemExit("ab_match: give --C and --N together")
-    point = ([(args.C, args.N, args.grid)] if args.C is not None else []) + (
-        parse_shapes(args.shapes) if args.shapes else [])
+    point = ([(args.C, args.N, args.grid, 2)] if args.C is not None
+             else []) + (parse_shapes(args.shapes) if args.shapes else [])
     if not torch.cuda.is_available():
         raise SystemExit("ab_match needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_name()
-    libs = build(args.sources)
+    built = build(args.sources)
+    tiers = [None if x == "plan" else mg.ROWS
+             for x in dict.fromkeys(args.tier or ["plan"])]
+    # a version: (source, its library, the tier it is driven through)
+    versions = [(src, lib, tier) for src, lib in zip(args.sources, built)
+                for tier in tiers]
+    libs = [v[1] for v in versions]
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {}
-    shapes = ((("point_grid_128x128", "point", 128, 128, 128, 64),
-               ("image_grid_128x64", "image", 128, 64, 197, 64))
+    shapes = ((("point_grid_128x128", "point", 128, 128, 128, 64, 2),
+               ("image_grid_128x64", "image", 128, 64, 197, 64, 2))
               if not point else
-              tuple((f"point_C{C}_N{N}_grid_{g}x{g}", "point", g, g, N, C)
-                    for C, N, g in point))
+              tuple((f"point_C{C}_N{N}_H{H}_grid_{g}x{g}", "point", g, g, N,
+                     C, H) for C, N, g, H in point))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     smem = [{} for _ in libs]
-    for label, head, nt, nd, n_rows, C in shapes:
-        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C, dtype=dtype)
-        for i, lib in enumerate(libs):
-            smem[i][label] = layout_bytes(lib, t, nhead)
+    for label, head, nt, nd, n_rows, C, H in shapes:
+        t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C, H, dtype=dtype)
+        for i, (_, lib, tier) in enumerate(versions):
+            smem[i][label] = layout_bytes(lib, t, nhead, tier)
         ti = torch.randint(0, nt, (512,), generator=gen, device="cuda",
                            dtype=torch.int32)
         di = torch.randint(0, nd, (512,), generator=gen, device="cuda",
@@ -195,8 +228,8 @@ def main(argv=None):
         plain = mg.match_pooled_reference(t, d, w1, w2, nhead, ti_all,
                                           di_all)
         first = None
-        for i, lib in enumerate(libs):
-            got = call(lib, t, d, w1, w2, nhead, ti, di)
+        for i, (_, lib, tier) in enumerate(versions):
+            got = call(lib, t, d, w1, w2, nhead, ti, di, tier)
             torch.cuda.synchronize()
             first = got if first is None else first
             scale = max(1.0, plain.float().abs().max().item())
@@ -210,11 +243,12 @@ def main(argv=None):
         for i in order + order[::-1]:
             for label, (t, d, w1, w2, nhead, ti, di) in cases.items():
                 times[i][label].append(time_ms(
-                    lambda: call(libs[i], t, d, w1, w2, nhead, ti, di),
-                    args.iters))
-    for i, src in enumerate(args.sources):
+                    lambda: call(libs[i], t, d, w1, w2, nhead, ti, di,
+                                 versions[i][2]), args.iters))
+    for i, (src, _, tier) in enumerate(versions):
         print(json.dumps(dict(
             source=src, card=card, dtype=str(dtype).split(".")[-1],
+            tier="plan" if tier is None else mg.TIER_NAMES[tier],
             ms={k: float(np.median(v)) for k, v in times[i].items()},
             ms_all=times[i], errors=errs[i], smem_bytes=smem[i],
             ptxas=_lib.ptxas_usage(libs[i].build_log))))

@@ -11,7 +11,8 @@ the clock. It is the `device_ms` beside `ms` where the two differ (kNN,
 linear attention and FPS).
 
 device_kernels: the names of the device kernels one call runs, from
-torch.profiler, as chip_smoke.py and the CUDA tests count FPS's.
+torch.profiler beside a control kernel that proves the trace saw the
+device, as chip_smoke.py and the CUDA tests count FPS's.
 """
 from __future__ import annotations
 
@@ -58,14 +59,28 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(end) / (iters * replays)
 
 
-def device_kernels(fn) -> list:
+def device_kernels(fn, attempts: int = 3) -> list:
     """Names of the device kernels (and copies) that one fn() runs, traced
-    by torch.profiler after one call outside the trace."""
+    by torch.profiler after one call outside the trace.
+
+    Each trace opens with a control kernel (`torch.cuda._sleep`'s
+    spin_kernel). A trace that holds no control kernel saw no device
+    activity at all, as CUPTI's first session in a process sometimes does:
+    it is traced again, up to `attempts` traces, and then raises rather
+    than report that fn ran nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        control = [n for n in names if "spin_kernel" in n]
+        if control:
+            return [n for n in names if "spin_kernel" not in n]
+    raise RuntimeError(f"torch.profiler recorded no device activity in "
+                       f"{attempts} traces, not even the control kernel")

@@ -67,8 +67,8 @@ def test_shapes_name_several_point_shapes(monkeypatch):
     """--shapes C:N:GRID,... names several point-head shapes for one build
     (the four rows-tier shapes of the A/B in two calls); a malformed item
     exits, and without a card the tool exits before it builds."""
-    assert ab_match.parse_shapes("128:128:128,64:2048:16") == [
-        (128, 128, 128), (64, 2048, 16)]
+    assert ab_match.parse_shapes("128:128:128,64:2048:16,96:128:8:3") == [
+        (128, 128, 128, 2), (64, 2048, 16, 2), (96, 128, 8, 3)]
     for bad in ("128:128", "128:0:16", "a:b:c"):
         with pytest.raises((SystemExit, ValueError)):
             ab_match.parse_shapes(bad)

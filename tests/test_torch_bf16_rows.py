@@ -78,9 +78,9 @@ CLUSTER_EDGE = 208
 def test_bf16_plan_picks_the_tier():
     """At bf16: the cluster tier at the serving shapes (the flagship's 128
     rows, DeiT's 197 / 198 tokens, the tiny models' C = 16) up to its edge;
-    the rows tier for the point head at C = 128 and past the edge; the
-    image head past the edge raises. The float32 plan at the same shapes is
-    its own (PR 4's and PR 11's layouts)."""
+    the rows tier at C = 128 and past the edge, for the image head too
+    (its padded entry point). The float32 plan at the same shapes is its
+    own (PR 4's and PR 11's layouts)."""
     for N, C in ((128, 64), (197, 64), (198, 64), (CLUSTER_EDGE, 64),
                  (40, 16)):
         for pos in (True, False):
@@ -93,8 +93,8 @@ def test_bf16_plan_picks_the_tier():
             tmg.ROWS, tmg.rows_bytes_bf16(C))
     assert tmg.rows_bytes_bf16(128) <= tmg.MAX_SMEM
     assert tmg.plan(128, 128, 8, dtype=BF16).tier == tmg.ROWS
-    with pytest.raises(ValueError, match="at bf16.*no rows tier"):
-        tmg.plan(CLUSTER_EDGE + 1, 64, 2, pos=False, dtype=BF16)
+    assert tmg.plan(CLUSTER_EDGE + 1, 64, 2, pos=False, dtype=BF16) == \
+        tmg.Plan(tmg.ROWS, tmg.rows_bytes_bf16(64))
     with pytest.raises(ValueError, match="at most 8 heads"):
         tmg.plan(128, 128, 16, dtype=BF16)
     # float32: the cluster tier holds up to 224 rows at C = 64, C = 128 is

@@ -242,12 +242,17 @@ def test_match_plan_picks_the_tier():
     for N in (2600, 20000):
         assert tmg.plan(N, 16, 2) == tmg.Plan(tmg.ROWS_MMA, 42048)
     assert tmg.plan(128, 128, 8).tier == tmg.ROWS
-    # what still raises: widths no tile takes, the image head past the
-    # cluster tier, more heads than the rows tier holds, bad shapes
-    for args, match in (((10, 12, 2), "tensor-core tiles"),
-                        ((128, 32, 2), "tensor-core tiles"),
-                        ((128, 128, 2, False), "tensor-core tiles"),
-                        ((260, 64, 2, False), "shared memory"),
+    # widths the tiles have no instantiation for, in the padded layout of
+    # the smallest width that holds them, and the image head past the
+    # cluster tier, on the rows tier
+    for args, want in (((10, 12, 2), (tmg.CLUSTER, tmg.cluster_bytes(10, 16))),
+                       ((128, 32, 2), (tmg.CLUSTER, 203520)),
+                       ((128, 128, 2, False), (tmg.ROWS, 231512)),
+                       ((260, 64, 2, False), (tmg.ROWS, 224920))):
+        assert tmg.plan(*args) == tmg.Plan(*want)
+    # what still raises: past 128 channels, more heads than the rows tier
+    # holds, bad shapes
+    for args, match in (((128, 256, 2), "K6b"),
                         ((225, 64, 16), "at most 8 heads"),
                         ((0, 64, 2), "N >= 1"), ((128, 64, 3), "dividing")):
         with pytest.raises(ValueError, match=match):

@@ -186,8 +186,11 @@ def test_fps_start_from_generator_and_bad_input():
         kfps.fps(xyz, 21, torch.zeros(5, dtype=torch.long))
     with pytest.raises(ValueError, match="start"):
         kfps.fps(xyz, 4, torch.zeros(4, dtype=torch.long))
-    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
-        kfps.fps(xyz[..., :2], 4, torch.zeros(5, dtype=torch.long))
+    # any channel count C >= 1 is a cloud (fps_pallas's (B, N, C)); a
+    # tensor of another rank, or of no channels, is not
+    for bad in (xyz[..., 0], xyz[..., :0]):
+        with pytest.raises(ValueError, match=r"\(B, N, C\)"):
+            kfps.fps(bad, 4, torch.zeros(5, dtype=torch.long))
     with pytest.raises(ValueError, match="unknown sampling"):
         tgeo.sample_and_group_edge(4, xyz, None, 4, sampling="GRID")
 

@@ -60,8 +60,9 @@ def test_plain_image_grid_and_pairs_match_pallas_interpret(S):
 
 
 def test_image_factors_and_wrapper_checks():
-    """image_grid_factors' shapes; a side of the wrong number of tensors,
-    out-of-range pairs and a head the kernel does not compute all raise."""
+    """image_grid_factors' shapes; a side of the wrong number of tensors
+    and out-of-range pairs raise; a head the kernel does not compute is
+    scored by the model's own path."""
     _, _, tmodel = tiny_image_models()
     h = torch.from_numpy(tokens(1, 3, 6))
     with torch.no_grad():
@@ -83,13 +84,19 @@ def test_image_factors_and_wrapper_checks():
     assert mg.fused_image_match_grid.launches == 0
     assert mg.fused_image_match_pairs.launches == 0
 
+    # a head the kernel does not compute is scored by the model's own path
+    # (JAX's match_logits_grid / xla_image_pair_logits) and launches nothing
     import copy
     other = copy.deepcopy(tmodel)
     other.combine = "add"
-    with pytest.raises(NotImplementedError, match="image match kernel"):
-        PairScorer(other, image_mode=True)
-    with pytest.raises(NotImplementedError):
-        mg.image_grid_logits(other, h, h)
+    assert not PairScorer(other, image_mode=True).fused
+    with torch.no_grad():
+        got = mg.image_grid_logits(other, h, h)
+        assert torch.equal(got, other.match_logits_grid(h, h))
+        ti, di = torch.tensor([0, 2, 1]), torch.tensor([1, 2, 0])
+        pairs = mg.image_pair_logits(other, h, h, ti, di)
+    torch.testing.assert_close(pairs, got[ti, di], rtol=1e-5, atol=1e-6)
+    assert mg.fused_image_match_grid.launches == 0
     from tests._torch_port import tiny_torch_model
     with pytest.raises(TypeError, match="ImageReIDNet"):
         PairScorer(tiny_torch_model(), image_mode=True)

@@ -262,11 +262,11 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
     """260 tokens x 64 channels need 242,688 bytes of shared memory a block
     in the cluster tier (weights 8 C^2 + 272 padded rows of O at C + 4 + the
     peer's [KV | Z] 2 C^2 + pooling 1,216 floats), more than the 232,448 a
-    block may take. The point head scores such shapes in the rows tier,
-    whose layout does not grow with N; the image head has no rows tier: its
-    wrapper raises and nothing is launched, and so does the C entry point
-    when it is called past the wrapper's own check. The plan's bytes are
-    the layout checks' own."""
+    block may take. Both heads score such shapes in the rows tier, whose
+    layout does not grow with N (the image head through its padded entry
+    point, without the position term); the cluster tier's C entry point
+    refuses the shape when it is called past the wrapper's plan. The plan's
+    bytes are the layout checks' own."""
     import ctypes
 
     from point_cloud_reid_tpu_torch.kernels import _lib
@@ -285,10 +285,13 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
     _rows_layouts_equal_the_plan(lib, torch.float32)
     assert mg.plan(225, 64, 2) == mg.Plan(mg.ROWS, mg.rows_bytes(64))
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 260, 64)
-    before = mg.fused_image_match_grid.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        mg.fused_image_match_grid(t, d, w1, w2, nhead)
-    assert mg.fused_image_match_grid.launches == before
+    before = dict(mg.fused_image_match_grid.padded_launches)
+    grid = mg.fused_image_match_grid(t, d, w1, w2, nhead)
+    assert mg.fused_image_match_grid.padded_launches["rows"] == \
+        before["rows"] + 1
+    ti, di = torch.tensor([0, 0, 1, 1]), torch.tensor([0, 1, 0, 1])
+    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti.to(cuda),
+                                           di.to(cuda)).reshape(2, 2, -1))
     weights = [{"w1": w1, "w2": w2}[g][k] for g, k in mg._WEIGHT_ORDER]
     out = torch.empty((2, 2, 128), device=cuda)
     err = _lib.LIBRARY.get().pcr_match_pooled_image(
@@ -301,14 +304,91 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
 
 
 def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
-    """C=12 is not a multiple of the tensor-core tiles' 8 columns: the
-    wrapper raises before any launch."""
+    """C=12 is not a multiple of the tensor-core tiles' 8 columns: it runs
+    in the padded layout of the cluster tier's C = 16 and meets the plain
+    version; past 128 channels (ROADMAP.md K6b) the wrapper raises before
+    any launch."""
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 12)
+    before = mg.fused_image_match_grid.padded_launches["cluster"]
+    grid = mg.fused_image_match_grid(t, d, w1, w2, nhead)
+    assert mg.fused_image_match_grid.padded_launches["cluster"] == before + 1
+    ti = torch.tensor([0, 0, 1, 1], device=cuda)
+    di = torch.tensor([0, 1, 0, 1], device=cuda)
+    _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
+                                           ).reshape(2, 2, -1))
+    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 136)
     before = mg.fused_image_match_grid.launches
-    with pytest.raises(ValueError, match="tensor-core tiles"):
+    with pytest.raises(ValueError, match="K6b"):
         mg.fused_image_match_grid(t, d, w1, w2, nhead)
     assert mg.fused_image_match_grid.launches == before
+
+
+# every head width up to 128 channels and 8 heads (ROADMAP.md K6) at the
+# shapes chip_smoke.py's phase 16 holds, and the tiers' edges: C = 32 / 48
+# on the cluster tier's C = 64, C = 96 / 120 / 100 on the rows tier's C =
+# 128 (heads of 48, 32, 15 and 20 channels, 3 and 5 heads in 4- and 8-slot
+# widths), N past an m-tile and at the ablation's 2048 rows, the image head
+# on the rows tier (C = 96, and C = 64 past the cluster tier's rows), a
+# ragged C = 12, and C = 16 on the padded rows tier (driven past the plan,
+# which keeps the first rows kernel there)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head,C,H,N", [
+    ("point", 32, 2, 128), ("point", 48, 4, 128), ("point", 96, 2, 128),
+    ("point", 96, 3, 128), ("point", 96, 2, 2048), ("point", 120, 8, 128),
+    ("point", 100, 5, 65), ("point", 12, 3, 40), ("point", 40, 5, 300),
+    ("image", 96, 2, 197), ("image", 64, 2, 256), ("image", 32, 2, 198),
+    ("image", 120, 8, 33)])
+def test_match_widths_match_plain(cuda, head, C, H, N, dtype):
+    """The padded layout on the card: grid and pair list against the plain
+    version at the true width (TOL; bf16: BF16_TOL), pairs equal to their
+    grid cells bit for bit, one padded launch of the plan's tier a call."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    bf16 = dtype == torch.bfloat16
+    nt, nd = 3, 4
+    if N >= 2048:
+        nt, nd = 2, 2
+    t, d, w1, w2, H = inputs(head, nt, nd, N, C, H, device=cuda, dtype=dtype)
+    point = head == "point"
+    grid_fn = mg.fused_match_grid if point else mg.fused_image_match_grid
+    pair_fn = mg.fused_match_pairs if point else mg.fused_image_match_pairs
+    how = mg.plan(N, C, H, pos=point, dtype=dtype)
+    key = mg.tier_key(how.tier, bf16)
+    before = grid_fn.padded_launches[key]
+    grid = grid_fn(t, d, w1, w2, H)
+    assert grid.shape == (nt, nd, 2 * C)
+    assert grid_fn.padded_launches[key] == before + 1
+    t_idx = torch.tensor([2, 0, 1, 1, 0], dtype=torch.int32,
+                         device=cuda) % nt
+    d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32,
+                         device=cuda) % nd
+    pairs = pair_fn(t, d, w1, w2, H, t_idx, d_idx)
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    (_close_bf16 if bf16 else _close)(
+        grid, mg.match_pooled_reference(t, d, w1, w2, H, ti, di
+                                        ).reshape(nt, nd, -1))
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_match_c16_on_the_padded_rows_tier(cuda, dtype):
+    """C = 16 past both cluster layouts (2,900 rows) driven onto the padded
+    wgmma rows tier (C = 64) beside the first rows kernel the plan picks
+    there: both meet the plain version."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    bf16 = dtype == torch.bfloat16
+    t, d, w1, w2, H = inputs("point", 2, 2, 2900, 16, 2, device=cuda,
+                             dtype=dtype)
+    assert mg.plan(2900, 16, H, dtype=dtype).tier == mg.ROWS_MMA
+    ti = torch.tensor([0, 0, 1, 1], device=cuda)
+    di = torch.tensor([0, 1, 0, 1], device=cuda)
+    want = mg.match_pooled_reference(t, d, w1, w2, H, ti, di).reshape(2, 2, -1)
+    for tier in (mg.ROWS, None):
+        got = mg.launch(None, 5, t, d, w1, w2, H, None, None, tier=tier)
+        (_close_bf16 if bf16 else _close)(got.reshape(2, 2, -1), want)
 
 
 def _knn_inputs(kind, B, S, N, seed=0):
@@ -530,6 +610,29 @@ def test_fps_call_is_one_device_kernel(cuda, N):
     assert len(names) == 1 and "fps" in names[0], names
 
 
+# points of C channels (fps_pallas's (B, N, C)) through every tier of the
+# channel kernels, C = 1 to 64, indices equal to the plain loop's
+@pytest.mark.parametrize("kind", ["exact", "random"])
+@pytest.mark.parametrize("C", [1, 2, 6, 64])
+@pytest.mark.parametrize("tier", [None, 0, 1, 2, 3])
+def test_fps_over_channels_equal_plain(cuda, C, tier, kind):
+    from point_cloud_reid_tpu_torch.kernels import fps as kf
+    g = torch.Generator(device=cuda).manual_seed(C)
+    for B, N, npoint in ((5, 37, 20), (3, 600, 64), (2, 1500, 100)):
+        if kind == "exact":
+            x = torch.randint(-2, 3, (B, N, C), generator=g, device=cuda
+                              ).float()
+        else:
+            x = torch.randn((B, N, C), generator=g, device=cuda)
+        start = torch.randint(0, N, (B,), generator=g, device=cuda)
+        try:
+            how = kf.plan(N, tier, C=C)
+        except ValueError:
+            continue                # e.g. tier W past 512 points
+        got = kf.launch(x, npoint, start, how)
+        assert torch.equal(got, kf.fps_reference(x, npoint, start))
+
+
 def test_fps_wrapper_raises_on_bad_input(cuda):
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     x = torch.zeros((2, 8, 3), device=cuda)
@@ -541,8 +644,9 @@ def test_fps_wrapper_raises_on_bad_input(cuda):
         kf.fps(x.double(), 4, start)
     with pytest.raises(ValueError, match="one device"):
         kf.fps(x, 4, start.cpu())
-    with pytest.raises(ValueError, match=r"\(B, N, 3\)"):
-        kf.fps(x[..., :2], 4, start)
+    for bad in (x[..., 0], x[..., :0]):
+        with pytest.raises(ValueError, match=r"\(B, N, C\)"):
+            kf.fps(bad, 4, start)
     with pytest.raises(ValueError, match="start"):
         kf.fps(x, 4, start.float())
     with pytest.raises(ValueError, match="start"):

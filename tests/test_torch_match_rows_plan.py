@@ -85,14 +85,20 @@ def test_layout_geometry(dtype):
 
 def test_c16_keeps_the_first_rows_kernel_and_the_refusals():
     """C = 16 past the cluster layout goes to the first rows kernel (tier
-    rows_mma) at its layout; what no tier takes still raises."""
+    rows_mma) at its layout; other widths and the image head go to the
+    padded cluster or rows tier; what no tier takes still raises."""
     for dtype, nbytes in ((torch.float32, 42048), (BF16, 45120)):
         assert mg.plan(4000, 16, 2, dtype=dtype) == mg.Plan(mg.ROWS_MMA,
                                                             nbytes)
-    for args, kw, match in (((10, 12, 2), {}, "tensor-core tiles"),
-                            ((128, 32, 2), {}, "tensor-core tiles"),
-                            ((128, 128, 2, False), {}, "tensor-core tiles"),
-                            ((260, 64, 2, False), {}, "shared memory"),
+    for args, want in (((10, 12, 2), (mg.CLUSTER, mg.cluster_bytes(10, 16))),
+                       ((128, 32, 2), (mg.CLUSTER, mg.cluster_bytes(128, 64))),
+                       ((128, 128, 2, False), (mg.ROWS, BYTES[128, torch.float32])),
+                       ((260, 64, 2, False), (mg.ROWS, BYTES[64, torch.float32])),
+                       ((4000, 12, 3), (mg.ROWS, BYTES[64, torch.float32]))):
+        assert mg.plan(*args) == mg.Plan(*want)
+    for args, kw, match in (((128, 129, 1), {}, "K6b"),
+                            ((128, 256, 2), dict(dtype=BF16), "K6b"),
+                            ((2048, 96, 12), {}, "K6b"),
                             ((225, 64, 16), {}, "at most 8 heads"),
                             ((128, 128, 16), dict(dtype=BF16),
                              "at most 8 heads"),
