@@ -203,6 +203,20 @@ Phases, each of which raises on failure:
      the head and, at float32, against the model's own plain scoring
      (FRAME_TOL), the launches by tier; FPS of points with normals through
      ops.geometry.farthest_point_sample.
+ 17. the last shape gaps (ROADMAP.md K5, K6b): the SA kernels at both
+     dtypes against their plain versions (SA_TOL, BF16_TOL) at C = 48 (the
+     padded layout at 64), 1,056 and the mul16 model's three SA stages at B
+     = 128 (C = 512, 1024, 2048: the float32 kernel's h1-from-gather layout,
+     the bf16 kernel's mma_sync tier past 1024), and the match kernels at
+     WIDE_MATCH (the point grid 128 x 128 and 512 pairs at C = 256 in 2
+     heads, the wide kernel, and at C = 128 in 16 heads; DeiT's 128 x 64
+     grid and 512 pairs at C = 256), each with its tier, time, plain time
+     and bound at the true and the kernel's width, pairs equal to their
+     grid cells bit for bit. Then, with every count at 0: the four --set
+     models conv_out256, heads16, mul16 and image256 of
+     configs/widths.py through tools/track.py at float32 and --bf16, dense
+     and sparse, each frame held as in phase 16, the launches of the new
+     rows; the phase's seconds on a line of its own.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -431,6 +445,15 @@ WIDTH_IMAGE = ((96, 2, 197), (64, 2, 256))
 WIDTH_SMALL, WIDTH_PAIRS = 16, 512
 WIDTH_FRAMES = 3
 WIDTH_FPS = (128, 1024, 256, 6)
+# phase 17, the last shape gaps (ROADMAP.md K5, K6b): the SA kernels at
+# (C, B, N, S, K) off the first kernels' widths (the mul16 model's stages
+# come from tools/ab_sa.stage_inputs at B = 128), the match kernels at
+# (head, C, heads, N, nt, nd), and the configs/widths.py models served
+WIDE_SA = ((48, 128, 128, 128, 32), (1056, 128, 64, 32, 48))
+WIDE_MATCH = (("point", 256, 2, 128, 128, 128),
+              ("point", 128, 16, 128, 128, 128),
+              ("image", 256, 2, 197, 128, 64))
+WIDE_MODELS = ("conv_out256", "heads16", "mul16", "image256")
 
 
 def nbytes(*tensors) -> int:
@@ -939,7 +962,17 @@ def all_counters() -> dict:
                               mg.fused_image_match_pairs)
                    for t in ("cluster", "rows") for b in ("", "_bf16")},
                 **{"fps/channels": TierCount(kf.fps, ("channels",),
-                                             "shape_launches")})
+                                             "shape_launches")},
+                # phase 17: the rows tier's wide kernel and its launches
+                # past 8 heads, the float32 SA kernel's h1-from-gather layout
+                **{f"{fn.__name__}/{k}{b}": TierCount(
+                    fn, (f"{k}{b}",), "shape_launches")
+                   for fn in (mg.fused_match_grid, mg.fused_match_pairs,
+                              mg.fused_image_match_grid,
+                              mg.fused_image_match_pairs)
+                   for k in ("wide", "many_heads") for b in ("", "_bf16")},
+                **{"fused_sa_convmax/gather_h1": TierCount(
+                    sa.fused_sa_convmax, ("gather_h1",), "f32_layouts")})
 
 
 def zero_counters() -> dict:
@@ -2367,13 +2400,14 @@ def rows_kernel_usage(C: int, nhead: int, bf16: bool, pad: bool = False
                       ) -> dict:
     """ptxas's registers and spills of the wgmma rows tier's instantiation
     for width C in nhead heads (csrc/match_rows_wg.cuh rows_wg_kernel<policy,
-    C, KVN, PAD>; `pad`: the padded layout's, KVN = C), from the kernels'
-    build log."""
+    C, KVN, PAD>; `pad`: the padded layout's, KVN = C; past 128 channels
+    rows_wide_kernel<policy, C>), from the kernels' build log."""
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     kvn = mg.rows_layout(C, 1 if pad else nhead).kvn
-    want = (f"rows_wg_kernelINS_4{'Bf16' if bf16 else 'Tf32'}ELi{C}ELi{kvn}"
-            f"ELb{int(pad)}E")
+    policy = "Bf16" if bf16 else "Tf32"
+    want = (f"rows_wide_kernelINS_4{policy}ELi{C}E" if C > 128 else
+            f"rows_wg_kernelINS_4{policy}ELi{C}ELi{kvn}ELb{int(pad)}E")
     found = [v for k, v in _lib.ptxas_usage(_lib.LIBRARY.build_log).items()
              if want in k]
     if len(found) != 1:
@@ -4469,11 +4503,12 @@ def phase_multi_gpu(card: str):
 
 def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
                P: int, gen) -> dict:
-    """The match kernels at one shape of the padded layout: an nt x nd grid
-    and a P-pair list against the plain version at the true width
-    (MATCH_TOL; bf16: BF16_TOL), pairs equal to their grid cells bit for
-    bit; ms, plain ms, the bound at the true C and at the padded W, the
-    tier. Returns the grid's and the pairs' measurements."""
+    """The match kernels at one shape (phase 16's in the padded layout): an
+    nt x nd grid and a P-pair list against the plain version at the true
+    width (MATCH_TOL; bf16: BF16_TOL), pairs equal to their grid cells bit
+    for bit, one launch of the plan's tier (in the padded layout where the
+    wrapper takes it); ms, plain ms, the bound at the true C and at the
+    kernel's W, the tier. Returns the grid's and the pairs' measurements."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     from point_cloud_reid_tpu_torch.tools.ab_match import inputs
@@ -4491,10 +4526,14 @@ def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
     ti = torch.arange(nt, device=DEVICE).repeat_interleave(nd)
     di = torch.arange(nd, device=DEVICE).repeat(nt)
     key = mg.tier_key(how.tier, bf16)
-    before = grid_fn.padded_launches[key]
+    padded = W != C or (how.tier == mg.ROWS
+                        and mg.rows_padded(C, H, 5 if point else 4))
+    before = (grid_fn.tier_launches[key], grid_fn.padded_launches[key])
     grid = grid_fn(t, d, w1, w2, H)
-    if grid_fn.padded_launches[key] != before + 1:
-        raise RuntimeError(f"{head} C={C}: no padded {key} launch")
+    if (grid_fn.tier_launches[key], grid_fn.padded_launches[key]) != (
+            before[0] + 1, before[1] + padded):
+        raise RuntimeError(f"{head} C={C} nhead={H}: not one {key} launch "
+                           f"(padded: {padded})")
     want = mg.match_pooled_reference(t, d, w1, w2, H, ti, di).reshape(
         nt, nd, -1)
     torch.cuda.synchronize()
@@ -4527,11 +4566,12 @@ def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
     g_bound, g_pad = bound(nt * nd, C, g_nbyte), bound(nt * nd, W, g_nbyte)
     p_bound, p_pad = bound(P, C, p_nbyte), bound(P, W, p_nbyte)
     tier = mg.TIER_NAMES[how.tier]
-    usage = (rows_kernel_usage(W, 1, bf16, pad=True) if how.tier == mg.ROWS
-             else None)
+    usage = (rows_kernel_usage(W, 1 if padded else H, bf16, pad=padded)
+             if how.tier == mg.ROWS else None)
     print(f"[widths:kernels] {head} C={C} nhead={H} N={N} "
-          f"{'bf16' if bf16 else 'float32'}: tier {tier} at W={W} (padded "
-          f"layout), {how.smem} shared bytes a block; grid {nt}x{nd} "
+          f"{'bf16' if bf16 else 'float32'}: tier {tier} at W={W} "
+          f"({'padded layout' if padded else 'exact width'}), {how.smem} "
+          f"shared bytes a block; grid {nt}x{nd} "
           f"max_abs_err={g_err:.3e} rel={g_rel:.3e}, pairs P={P} "
           f"max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol {tol:g}), pairs "
           f"equal to their grid cells: {same}; grid {g_ms:.3f} ms (plain "
@@ -4540,7 +4580,7 @@ def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
           f"bound {p_bound[0]:.4f} at C, {p_pad[0]:.4f} at W)"
           + (f"; ptxas {usage}" if usage else ""), flush=True)
     if not (g_rel <= tol and p_rel <= tol and same):
-        raise RuntimeError(f"the padded {tier} tier disagrees at {head} "
+        raise RuntimeError(f"the {tier} tier disagrees at {head} "
                            f"C={C} H={H} N={N}: {g_rel}, {p_rel}, {same}")
     shape = dict(head=head, C=C, nhead=H, N=N, W=W, tier=tier,
                  smem_bytes=how.smem, **({"ptxas": usage} if usage else {}))
@@ -4690,11 +4730,12 @@ def width_frame_check(model, rec, label: str) -> dict:
 
 
 def width_cli(card: str, name: str, bf16: bool, sparse: str,
-              every: dict) -> dict:
+              every: dict, want=None) -> dict:
     """tools/track.py serves configs/widths.py's `name` through its --set
     lines (WIDTH_FRAMES frames of a synthetic scene, 16 objects; sparse
     'never' or 'always'; --bf16): its launches by tier, then every frame
-    against the chain's plain version (width_frame_check)."""
+    against the chain's plain version (width_frame_check). `want`: the
+    counters that must have launched (by default any padded one)."""
     import contextlib
     import io
     import shutil
@@ -4733,7 +4774,8 @@ def width_cli(card: str, name: str, bf16: bool, sparse: str,
     label = f"{name}{' --bf16' if bf16 else ''} --sparse {sparse}"
     checks = [width_frame_check(scorers[-1].model, rec, label)
               for rec in frames]
-    padded = {k: v for k, v in used.items() if v and "/padded_" in k}
+    padded = {k: v for k, v in used.items()
+              if v and ("/padded_" in k if want is None else k in want)}
     print(f"[widths:cli] tools/track.py {leaf} ({label}): {len(frames)} "
           f"frames scored, each against the plain chain: pooled rel <= "
           f"{max(c['rel'] for c in checks):.3e}, logits against the model's "
@@ -4741,7 +4783,8 @@ def width_cli(card: str, name: str, bf16: bool, sparse: str,
           f"launches by tier {padded}; {seconds:.1f} s, headline "
           f"{json.dumps(headline)} on {card}", flush=True)
     shutil.rmtree(work, ignore_errors=True)
-    if not frames or not padded or headline.get("frames") != WIDTH_FRAMES:
+    if (not frames or not padded or headline.get("frames") != WIDTH_FRAMES
+            or (want is not None and set(padded) != set(want))):
         raise RuntimeError(f"tools/track.py {label}: {len(frames)} frames, "
                            f"padded launches {padded}, {headline}")
     return used
@@ -4790,6 +4833,176 @@ def phase_widths(card: str):
     return rows, launches, dict(seconds=seconds, kernels_seconds=t_kernels)
 
 
+# ---- phase 17: the last shape gaps ----------------------------------------------
+
+def wide_sa_case(args, dtype, label: str) -> dict:
+    """fused_sa_convmax on `args` (a stage of C channels) against its plain
+    version (SA_TOL; bf16: BF16_TOL): ms, plain ms, the bound at the true C
+    and at the kernel's width, the layout or tier the kernel takes."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    from point_cloud_reid_tpu_torch.tools.timing import time_ms
+    bf16 = dtype == torch.bfloat16
+    B, N, C = args[0].shape
+    S, K = args[2].shape[1:]
+    W = sa.kernel_width(C)
+    got = sa.fused_sa_convmax(*args)
+    want = sa.sa_convmax_reference(*args)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got.float(), want.float())
+    del want
+    k_ms = time_ms(lambda: sa.fused_sa_convmax(*args), 3)
+    p_ms = time_ms(lambda: sa.sa_convmax_reference(*args), 1, warmup=1)
+    nbyte = nbytes(*args, got)
+    R = B * S * K
+
+    def bound(width):
+        flops = 4.0 * R * width * width
+        return (bf16_bound(flops, nbyte) if bf16
+                else tensor_core_bound(flops, nbyte)[:2])
+    b_c, b_w = bound(C), bound(W)
+    if bf16:
+        how = sa.plan_bf16(W, K, R)
+        tier, smem = how.tier, how.smem
+    else:
+        how = sa.plan_f32(W, K)
+        tier, smem = how.layout, how.smem
+    tol = BF16_TOL if bf16 else SA_TOL
+    print(f"[wide:sa] {label} B={B} N={N} S={S} K={K} C={C} "
+          f"{'bf16' if bf16 else 'float32'}: {tier} at W={W} ({smem} shared "
+          f"bytes a block): max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{tol:g}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{b_c[0]:.4f} ms ({b_c[1]}) at C, {b_w[0]:.4f} at W", flush=True)
+    if not rel <= tol:
+        raise RuntimeError(f"fused_sa_convmax disagrees at {label}: {rel}")
+    return dict(C=C, W=W, B=B, N=N, S=S, K=K, tier=tier, smem_bytes=smem,
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_c[0],
+                bound_by=b_c[1], bound_padded_ms=b_w[0], library_ms=None)
+
+
+def wide_sa_rows() -> list:
+    """The SA kernels past their first widths at both dtypes: C = 48 (the
+    padded layout), 1,056 and the mul16 model's three stages at B = 128;
+    the kernels-line rows `fused_sa_convmax/gather_h1` (float32) and
+    `fused_sa_convmax/mma_sync_bf16`, each row's numbers its C = 2048
+    stage's, every shape listed."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools.ab_sa import stage_inputs
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        cases = []
+        for C, B, N, S, K in WIDE_SA:
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + C)
+
+            def r(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE)
+            idx = torch.randint(0, N, (B, S, K), generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+            args = (r(B, N, C).to(dtype), r(B, S, C).to(dtype), idx,
+                    r(C, C) / C ** 0.5, r(C, C) / C ** 0.5) + tuple(
+                        r(C) for _ in range(6))
+            cases.append(wide_sa_case(args, dtype, f"random C={C}"))
+            del args
+        for i, args in enumerate(stage_inputs(128, SEED, DEVICE, dtype,
+                                              mul=16)):
+            cases.append(wide_sa_case(args, dtype, f"mul16 SA{i + 1}"))
+        torch.cuda.empty_cache()
+        head = cases[-1]
+        rows.append(dict(
+            name="fused_sa_convmax/" + ("mma_sync_bf16" if bf16
+                                        else "gather_h1"),
+            route="cuda",
+            source="point_cloud_reid_tpu_torch/csrc/sa_stage"
+                   + ("_bf16" if bf16 else "") + ".cu",
+            replaces="point_cloud_reid_tpu/ops/pallas/sa_stage.py:78",
+            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by",
+                                    "bound_padded_ms", "library_ms")},
+            shapes=cases))
+    return rows
+
+
+def wide_match_rows() -> list:
+    """The match kernels at WIDE_MATCH, both dtypes (width_case): the
+    kernels-line rows of the rows tier's wide kernel (point and image,
+    grid and pairs, `.../wide`) and of its launches past 8 heads (point,
+    `.../many_heads`)."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        for head, C, H, N, nt, nd in WIDE_MATCH:
+            case = width_case(head, C, H, N, dtype, nt, nd, WIDTH_PAIRS, gen)
+            torch.cuda.empty_cache()
+            kind_name = "wide" if C > 128 else "many_heads"
+            src = ("match_rows_pad" if C > 128 else "match_rows") + sfx
+            prefix = "fused_match" if head == "point" else "fused_image_match"
+            for kind, line in (("grid", "250" if head == "point" else "686"),
+                               ("pairs", "355" if head == "point"
+                                else "514")):
+                m = case[kind]
+                rows.append(dict(
+                    name=f"{prefix}_{kind}/{kind_name}{sfx}", route="cuda",
+                    source=f"point_cloud_reid_tpu_torch/csrc/{src}.cu",
+                    replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
+                             + line,
+                    **{k: m[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bound_padded_ms", "library_ms")},
+                    shapes=[m]))
+    return rows
+
+
+def wide_want(name: str, bf16: bool, sparse: str) -> list:
+    """The counters a configs/widths.py model of phase 17 must launch
+    through tools/track.py: the match kernels' new rows (the wide kernel,
+    or past 8 heads), or at mul16 the SA kernel's past 1024 channels."""
+    sfx = "_bf16" if bf16 else ""
+    if name == "mul16":
+        return ["fused_sa_convmax/" + ("mma_sync_bf16" if bf16
+                                       else "gather_h1")]
+    fn = (("fused_image_match" if name.startswith("image")
+           else "fused_match") + ("_grid" if sparse == "never" else "_pairs"))
+    return [f"{fn}/{'many_heads' if name == 'heads16' else 'wide'}{sfx}"]
+
+
+def phase_wide(card: str):
+    """Phase 17: the SA kernels past 1024 channels and off the multiples of
+    32, the match chain past 128 channels and 8 heads; the kernels against
+    their plain versions, then, with every count at 0, the four --set
+    models conv_out256, heads16, mul16 and image256 of configs/widths.py
+    through tools/track.py at float32 and --bf16, dense ('never') and
+    sparse ('always'), each frame against the chain's plain version.
+    Returns (the kernels-line rows, the path's launches, a summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    rows = wide_sa_rows() + wide_match_rows()
+    t_kernels = time.perf_counter() - t_phase
+    every = zero_counters()
+    launches = {k: 0 for k in every}
+    runs = {}
+    for name in WIDE_MODELS:
+        for bf16 in (False, True):
+            for sparse in ("never", "always"):
+                t0 = time.perf_counter()
+                used = width_cli(card, name, bf16, sparse, every,
+                                 want=wide_want(name, bf16, sparse))
+                runs[f"{name}{' --bf16' if bf16 else ''} {sparse}"] = (
+                    time.perf_counter() - t0)
+                for k, v in used.items():
+                    launches[k] += v
+                torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[wide] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[wide] phase 17 took {seconds:.1f} s (kernels {t_kernels:.1f} s,"
+          f" tools/track.py runs {seconds - t_kernels:.1f} s)", flush=True)
+    return rows, launches, dict(seconds=seconds, kernels_seconds=t_kernels,
+                                cli_seconds=runs)
+
+
 def main():
     import torch
     card = phase_device()
@@ -4835,12 +5048,15 @@ def main():
     torch.cuda.empty_cache()
     width_kernel_rows, widths, widths_summary = phase_widths(card)
     rows += width_kernel_rows
+    torch.cuda.empty_cache()
+    wide_kernel_rows, wide, wide_summary = phase_wide(card)
+    rows += wide_kernel_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         row["launches"] = sum(path.get(row["name"], 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
-            reference, multi_gpu, widths))
+            reference, multi_gpu, widths, wide))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -4851,7 +5067,7 @@ def main():
                       "tracker_zoo": tracker_zoo_summary,
                       "reference": reference_summary,
                       "multi_gpu": multi_gpu_summary,
-                      "widths": widths_summary}))
+                      "widths": widths_summary, "wide": wide_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

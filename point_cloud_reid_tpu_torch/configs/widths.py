@@ -11,16 +11,26 @@ cross stages' d_model, the match head (LinearRes over the 2C pooled
 features), output_sequence_size and hidden_size. An image leaf at
 downsample_dim D sets downsample_dim, the last downsample layer, the cross
 stage's d_model and the match head. The match kernels serve any such width
-up to 128 channels (kernels/match_grid.plan: the padded layout where the
-tiles have no instantiation).
+up to 256 channels in up to 16 heads (kernels/match_grid.plan: the padded
+layout where the tiles have no instantiation, the wide kernel past 128
+channels), and the SA kernels any stage width up to 2048
+(kernels/sa_stage.kernel_width).
 
   conv_out96   the flagship at conv_out 96: two 48-channel heads;
   conv_out32   the flagship at conv_out 32: two 16-channel heads;
-  image96      DeiT-tiny at downsample_dim 96: two 48-channel heads.
+  image96      DeiT-tiny at downsample_dim 96: two 48-channel heads;
+  conv_out256  the flagship at conv_out 256: two 128-channel heads (the
+               rows tier's wide kernel);
+  heads16      the 7M leaf (conv_out 128) with 16 heads of 8 channels in
+               both cross stages;
+  mul16        the 7M leaf at backbone mul 16: SA widths 512 / 1024 / 2048
+               (the SA kernels past 1024 channels);
+  image256     DeiT-tiny at downsample_dim 256: two 128-channel heads.
 """
 from __future__ import annotations
 
 FLAGSHIP = "pts_point-transformer_point-cat_nus_det_4x256_500e"
+SEVEN_M = "pts_point-transformer-7M_point-cat_nus_det_4x256_500e"
 IMAGE = "rgb_deit-tiny_point-cat_pt_nus_det_4x60_200e"
 
 
@@ -56,4 +66,9 @@ WIDTHS = {
     "conv_out96": (FLAGSHIP, point_width_set(96)),
     "conv_out32": (FLAGSHIP, point_width_set(32)),
     "image96": (IMAGE, image_width_set(96)),
+    "conv_out256": (FLAGSHIP, point_width_set(256)),
+    "heads16": (SEVEN_M, ["model.cross_stage1.nhead=16",
+                          "model.cross_stage2.nhead=16"]),
+    "mul16": (SEVEN_M, ["model.backbone.mul=16"]),
+    "image256": (IMAGE, image_width_set(256)),
 }

@@ -12,7 +12,8 @@
 // past the cluster layout's rows (the point-count ablations served at their
 // crop size, N up to 2048). kernels/match_grid.plan picks the tier; C = 16
 // stays on the first version (tier "rows_mma" in those files).
-// Every other width up to 128, heads of any width (up to 8 heads), and the
+// Every other width up to 128, heads of any width (up to HMAX = 16 heads;
+// the exact instantiations take heads of 8 channels or more), and the
 // image head (no position term: pv null) run through the PAD instantiations
 // (csrc/match_rows_pad.cu, csrc/match_rows_pad_bf16.cu) in the padded
 // layout of kernels/match_grid.pad_side at C = 64 or 128: the true a.ct
@@ -21,6 +22,10 @@
 // column read as (c hm) >> 16 (head_of), the normaliser a head at a time;
 // elu+1 of a padded stage-2 q or k lane masked to 0, the LayerNorm
 // statistics over a.ct. The exact widths' instantiations are unchanged.
+// Widths from 129 to 256 (point and image head, exact or padded) run
+// through the same PAD entry points on the wide kernel (rows_wide_kernel,
+// C = 256, below): the chain's C-wide rows in the device scratch and its
+// outputs in 128-column halves, the summary in units of 64 x 128 channels.
 //
 // What bounds it on the H100: 80 N C^2 operations a pair; three TF32
 // passes at 495 TFLOP/s (16.7 ms for the 7M model's 128 x 128 grid at
@@ -105,7 +110,7 @@ constexpr int WGS = 2;                      // consumer warpgroups: one a side
 constexpr int CWARPS = 4 * WGS;             // consumer warps
 constexpr int THREADS = 128 * (WGS + 1);    // + the producer warpgroup
 constexpr int TILE = 64;                    // rows of an m-tile
-constexpr int HMAX = 8;                     // most heads
+constexpr int HMAX = 16;                    // most heads (the normalisers' rows)
 constexpr int RING_MAX = 16;                // most stages in the ring
 constexpr size_t SMEM_LIMIT = 232448;       // dynamic shared memory a block may take
 // registers a thread after setmaxnreg: 128 x (2 x 232 + 40) <= 65,536. (ptxas
@@ -320,9 +325,11 @@ struct Tf32 {
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 // Width C, heads of D channels: KVN = 64 where D <= 64, else 128 (a head's
-// diagonal block takes an m-tile's whole band). Byte offsets from the
-// 1024-aligned base of shared memory.
-template <class M, int C, int KVN>
+// diagonal block takes an m-tile's whole band; C on the wide kernel). SCH:
+// the channels a warpgroup stages for the summary (k^T and v^T: 2C; a unit
+// of the wide kernel: 64 + 128). Byte offsets from the 1024-aligned base of
+// shared memory.
+template <class M, int C, int KVN, int SCH = 2 * C>
 struct Cfg {
   static constexpr int NB = C / 64;             // 64-column blocks of a C-wide output
   static constexpr int NTC = C / 8;             // n-tiles of C columns
@@ -336,7 +343,7 @@ struct Cfg {
   static constexpr int SSW = CH2 * PPC;                                // [Wk | Wv]
   static constexpr int S2W = PPC * NB + CH2 * PPC + S1W;               // Wq, fc1[:C], the tail
   static constexpr int WSTAGES = S1W + SSW + S2W;
-  static constexpr int STG = M::ARRAYS * C * 128;                      // staging a warpgroup
+  static constexpr int STG = (M::ARRAYS / 2) * SCH * 128;             // staging a warpgroup
   static constexpr int FIXED = 2 * STG + 4 * (2 * C + CWARPS * C + CWARPS * 2 * C + WGS * TILE * HMAX);
   static constexpr int RING =
       cmin(RING_MAX, (int)((SMEM_LIMIT - 1024 - FIXED - 8 * (2 * RING_MAX + 1)) / M::SB));
@@ -390,10 +397,10 @@ struct Args {
 
 __device__ __forceinline__ float elu1(float x) { return x > 0.f ? x + 1.f : expf(x); }
 
-// The head of column c in the padded layout (heads of D channels from
-// column 0; a padded column's is past the true heads, at most HMAX - 1:
-// every factor of a padded column is 0, so its head changes nothing).
-__device__ __forceinline__ int head_of(int c, int hm) { return min((c * hm) >> 16, HMAX - 1); }
+// The head of column c in the padded layout (H heads of D channels from
+// column 0; a padded column's is taken as the last head's: every factor of
+// a padded column is 0, so its head changes nothing).
+__device__ __forceinline__ int head_of(int c, int hm, int H) { return min((c * hm) >> 16, H - 1); }
 
 // LayerNorm of the rows of a C-wide accumulator (rows g and g + 8 of the
 // warp), in registers: a row's columns lie in one quad. PAD: the statistics
@@ -489,15 +496,15 @@ __device__ __forceinline__ void store_scratch(float* p, int ld, int r, const flo
 // The message normaliser of the warp's rows (local rows rl, rl + 8 of the
 // m-tile): per head (of 2^dsh channels), the sum over its channels of
 // R(q . ks) (R: the bf16 rounding of JAX's q * ksum operand in stage 2,
-// none in stage 1); den[row][head] = 1 / (that + eps). PAD: heads of any
+// none in stage 1); den[row][head] = 1 / (that + eps). PAD: H heads of any
 // width (head_of), a head at a time over the thread's columns.
 template <class M, bool PAD, int NT>
 __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], const float* ks,
-                                           int dsh, bool rnd, int rl, int hm) {
+                                           int dsh, bool rnd, int rl, int hm, int H) {
   const int t = threadIdx.x & 3;
   if constexpr (PAD) {
 #pragma unroll 1
-    for (int hh = 0; hh < HMAX; ++hh) {
+    for (int hh = 0; hh < H; ++hh) {
       float p0 = 0.f, p1 = 0.f;
 #pragma unroll
       for (int j = 0; j < NT; ++j)
@@ -507,7 +514,7 @@ __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], 
           const float k = ks[c];
           const float u0 = rnd ? M::round(q[j][e] * k) : q[j][e] * k;
           const float u1 = rnd ? M::round(q[j][2 + e] * k) : q[j][2 + e] * k;
-          const bool in = head_of(c, hm) == hh;
+          const bool in = head_of(c, hm, H) == hh;
           p0 += in ? u0 : 0.f;
           p1 += in ? u1 : 0.f;
         }
@@ -571,12 +578,13 @@ struct Ring {
   }
 };
 
-// d += A's k-panels p0 .. p0 + NP - 1 @ their stages, NB stages (64 output
-// columns each) a panel; up to M::DEPTH panels in flight (a panel's stages
-// are released once its wgmmas are done).
-template <class M, int NB, int NP, int RING, int NTA, int NTD>
-__device__ __forceinline__ void product(Ring<RING, M::SB>& ring, float (&d)[NTD][4],
-                                        const float (&a)[NTA][4], int p0) {
+// d += A's k-panels 0 .. NP - 1 @ their stages, NB stages (64 output
+// columns each) a panel, issue_panel(p, st, f) issuing panel p's wgmmas on
+// stages st with fragments f; up to M::DEPTH panels in flight (a panel's
+// stages are released once its wgmmas are done).
+template <class M, int NB, int NP, int RING, int NTD, class Issue>
+__device__ __forceinline__ void product_panels(Ring<RING, M::SB>& ring, float (&d)[NTD][4],
+                                               Issue issue_panel) {
   constexpr int DEPTH = NP > 1 ? M::DEPTH : 1;
   typename M::Frag f[DEPTH];
   int slot[DEPTH][NB];
@@ -589,7 +597,7 @@ __device__ __forceinline__ void product(Ring<RING, M::SB>& ring, float (&d)[NTD]
       slot[b][rb] = ring.acquire();
       st[rb] = ring.addr(slot[b][rb]);
     }
-    M::template issue<NB>(d, a, p0 + p, st, f[b]);
+    issue_panel(p, st, f[b]);
     bf16mma::wg_commit();
     if (DEPTH == 1 || p > 0) {
       const int q = DEPTH == 1 ? b : b ^ 1;   // the panel now done
@@ -609,6 +617,16 @@ __device__ __forceinline__ void product(Ring<RING, M::SB>& ring, float (&d)[NTD]
   bf16mma::wg_pin(d);
 }
 
+// d += A's k-panels p0 .. p0 + NP - 1 (an accumulator in registers) @ their
+// stages, NB stages a panel.
+template <class M, int NB, int NP, int RING, int NTA, int NTD>
+__device__ __forceinline__ void product(Ring<RING, M::SB>& ring, float (&d)[NTD][4],
+                                        const float (&a)[NTA][4], int p0) {
+  product_panels<M, NB, NP>(ring, d, [&](int p, const uint32_t (&st)[NB], typename M::Frag& f) {
+    M::template issue<NB>(d, a, p0 + p, st, f);
+  });
+}
+
 // Stages that belong to the other warpgroup: taken and released unread.
 template <int N, int RING, int SB>
 __device__ __forceinline__ void skip(Ring<RING, SB>& ring) {
@@ -624,7 +642,7 @@ __device__ __forceinline__ void skip(Ring<RING, SB>& ring) {
 template <class M, class G, bool PAD, int RING>
 __device__ __forceinline__ void message(Ring<RING, M::SB>& ring, float (&mg)[G::NTC][4],
                                         const float (&q)[G::NTC][4], const float* den, int dsh,
-                                        int wg, int rl, int hm) {
+                                        int wg, int rl, int hm, int H) {
 #pragma unroll
   for (int j = 0; j < G::NB; ++j) {
     constexpr int BP = G::BP;
@@ -642,7 +660,7 @@ __device__ __forceinline__ void message(Ring<RING, M::SB>& ring, float (&mg)[G::
     for (int jj = 0; jj < 8; ++jj) {
       if constexpr (PAD) {   // the two columns' heads may differ
         const int c = 64 * j + 8 * jj + 2 * (threadIdx.x & 3);
-        const int h0 = head_of(c, hm), h1 = head_of(c + 1, hm);
+        const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
         mz[jj][0] *= den[rl * HMAX + h0];
         mz[jj][1] *= den[rl * HMAX + h1];
         mz[jj][2] *= den[(rl + 8) * HMAX + h0];
@@ -820,9 +838,9 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
       {
         float q[NTC][4];
         load_rows<M>(q, qX, C, 0, r0, N);
-        normaliser<M, PAD>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl, a.hm);
+        normaliser<M, PAD>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl, a.hm, a.H);
         zero(mg);
-        message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm);
+        message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm, a.H);
       }
       layer_norm<PAD>(mg, a.ln[0].s1, a.ln[0].b1, a.ct);
       float y[NTC][4];
@@ -915,7 +933,8 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
           for (int i = 0; i < 4; ++i) {
             const int m = 64 * mi + rl + 8 * (i >> 1), n = vlo + 8 * j + 2 * t + (i & 1);
             const int jj = n >> 6, klo = KVN == 64 ? 64 * jj : 0, kk = m - klo;
-            const bool same = PAD ? head_of(m, a.hm) == head_of(n, a.hm) : (m >> dsh) == (n >> dsh);
+            const bool same =
+                PAD ? head_of(m, a.hm, a.H) == head_of(n, a.hm, a.H) : (m >> dsh) == (n >> dsh);
             M::put_b(kvo + (size_t)(jj * G::BP + kk / M::PK) * SB, n & 63, kk % M::PK,
                      same ? kv[mi][j][i] : 0.f);
           }
@@ -957,10 +976,10 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           q[j][i] = PAD && 8 * j + 2 * t + (i & 1) >= a.ct ? 0.f : elu1(q[j][i]);
-      normaliser<M, PAD>(den, q, ksY, dsh, true, rl, a.hm);
+      normaliser<M, PAD>(den, q, ksY, dsh, true, rl, a.hm, a.H);
       float mg[NTC][4];
       zero(mg);
-      message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm);
+      message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm, a.H);
       layer_norm<PAD>(mg, a.ln[1].s1, a.ln[1].b1, a.ct);
       float y[NTC][4];
       zero(y);
@@ -1011,15 +1030,608 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
   }
 }
 
+// ---- the wide kernel: C = 256 (any multiple of 128) in column halves ----------------
+//
+// A 64-row m-tile of a C-wide accumulator takes C / 2 registers a thread:
+// 128 at C = 256, where the chain above holds two of them at once (q and
+// the merge's sum, m and the FFN's sum) against the launch's 168. So past
+// 128 channels every C-wide row of the chain lives in the device scratch
+// (float32, row-major: each thread writes and reads back its own rows g,
+// g + 8 and columns 2t, 2t + 1 of every n-tile, the accumulator layout,
+// which is also the A-fragment layout of csrc/tf32_mma.cuh a_from_acc and
+// bf16mma::a_from_acc), every product reads its A operand from there (or
+// from a factor) a k-panel at a time (product_m), and every C-wide output
+// is computed in halves of 128 columns (64 registers), a half's raw sums
+// parked in the scratch until LayerNorm has the whole row:
+//   stage 1:  the message (q from the factor, one KV band of all C columns)
+//             a 64-column chunk at a time into MSG; merge in halves into
+//             MID (raw), LN1 in place; the FFN's hidden chunks relu(a1 +
+//             MID fc1[C:]) into HID; fc2 in halves, LN2, + h into O;
+//   summary:  in units of a 64-channel k chunk x a 128-channel v half (2 x
+//             NB units; a unit's k chunk and v half recomputed from O for
+//             each), staged as in the chain above (k^T and v^T, 64 + 128
+//             channels x 128 bytes, TF32 hi and lo), KV's unit block
+//             accumulated over the summary tiles (64 registers), then put
+//             as the other side's message stages;
+//   stage 2:  q = elu1(O Wq) in halves into MID, a = O fc1[:C] into A2, the
+//             message from MID, the tail as in stage 1, and the pooling of
+//             O + y a half at a time.
+// The heads are always read as head_of (any H <= HMAX of any width) and
+// the LayerNorm statistics over a.ct (C at the exact width): the padded
+// layout's code serves the exact widths too, at ct = C. The weight stages
+// come in the order of kernels/match_grid.weight_blocks at C > 128.
+// Shared memory: the ring, two warpgroups' staging (TF32: 2 x 2 x 192 x
+// 128 = 98,304 bytes; bf16 49,152), sum k and its partials, the pooling
+// partials, the normalisers: 216,152 bytes TF32 (5 stages), 216,328 bf16
+// (16). At C = 256 the scratch adds MSG, MID (64 x C) and HID (64 x 2C)
+// a side to the chain's. What bounds it: the same 80 N C^2 operations a
+// pair; measured on the H100 (PERF.md section 6) the 128 x 128
+// grid at N = 128 takes 4.4x its three-pass bound at TF32 and 15x its
+// one-pass bound at bf16, where the scratch's rows, written and re-read
+// for every product, weigh more beside one pass of products.
+
+template <class M, int C>
+struct WideCfg : Cfg<M, C, C, 64 + 128> {
+  static constexpr int NH = C / 128;               // 128-column halves
+  static constexpr int LO = (64 + 128) * 128;      // TF32: the lo arrays of the staging
+  static_assert(C % 128 == 0, "halves of 128 columns");
+};
+
+// The device scratch of a block: the chain's (both sides' KV stages, A2,
+// O) and a side's MSG, MID (64 x C) and HID (64 x 2C).
+template <class M, int C>
+__host__ __device__ constexpr long long wide_scratch_bytes(int N) {
+  return 2LL * WideCfg<M, C>::KVST * M::SB + 2LL * TILE * 2 * C * 4 +
+         2LL * ((N + TILE - 1) / TILE) * TILE * C * 4 + 2LL * TILE * 4 * C * 4;
+}
+
+// A-operand sources of product_m: the thread's rows r, r + 8 of a row-major
+// matrix, n-tiles from column c0. A float32 scratch matrix (read through
+// L2) ...
+struct ScrRows {
+  const float* p;   // row r
+  int ld;
+  bool held;        // false: zeros (a summary tile's rows the warp does not feed)
+  template <class M, int NT>
+  __device__ __forceinline__ void load(float (&x)[NT][4], int c0) const {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 a = __ldcg(reinterpret_cast<const float2*>(p + c0 + 8 * j + 2 * t));
+      const float2 b = __ldcg(reinterpret_cast<const float2*>(p + (size_t)8 * ld + c0 + 8 * j + 2 * t));
+      x[j][0] = held ? a.x : 0.f;
+      x[j][1] = held ? a.y : 0.f;
+      x[j][2] = held ? b.x : 0.f;
+      x[j][3] = held ? b.y : 0.f;
+    }
+  }
+};
+
+// ... or a factor of the side ((N, ld) in the model's dtype; rows past N
+// read as 0, as load_rows).
+template <class T>
+struct FacRows {
+  const T* p;       // the factor's row 0
+  int ld, r0, N;
+  template <class M, int NT>
+  __device__ __forceinline__ void load(float (&x)[NT][4], int c0) const {
+    load_rows<M>(x, p, ld, c0, r0, N);
+  }
+};
+
+// d += A's k-panels p0 .. p0 + NP - 1, each loaded from `src` as it is
+// issued, @ their stages, NB stages a panel.
+template <class M, int NB, int NP, int RING, int NTD, class Src>
+__device__ __forceinline__ void product_m(Ring<RING, M::SB>& ring, float (&d)[NTD][4],
+                                          const Src& src, int p0) {
+  product_panels<M, NB, NP>(ring, d, [&](int p, const uint32_t (&st)[NB], typename M::Frag& f) {
+    float x[M::PK / 8][4];   // the k-panel's n-tiles
+    src.template load<M>(x, (p0 + p) * M::PK);
+    M::template issue<NB>(d, x, 0, st, f);
+  });
+}
+
+// The normaliser of the warp's rows (local rl, rl + 8) from q in memory: H
+// heads of D channels, a head at a time over its n-tiles; den as normaliser.
+template <class M, class Src>
+__device__ __forceinline__ void normaliser_m(float* den, const Src& q, const float* ks, bool rnd,
+                                             int rl, int D, int H) {
+  const int t = threadIdx.x & 3;
+#pragma unroll 1
+  for (int hh = 0; hh < H; ++hh) {
+    const int lo = hh * D, hi = lo + D;
+    float p0 = 0.f, p1 = 0.f;
+#pragma unroll 1
+    for (int j = lo >> 3; 8 * j < hi; ++j) {
+      float x[1][4];
+      q.template load<M>(x, 8 * j);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * t + e;
+        const float k = ks[c];
+        const float u0 = rnd ? M::round(x[0][e] * k) : x[0][e] * k;
+        const float u1 = rnd ? M::round(x[0][2 + e] * k) : x[0][2 + e] * k;
+        const bool in = c >= lo && c < hi;
+        p0 += in ? u0 : 0.f;
+        p1 += in ? u1 : 0.f;
+      }
+    }
+    p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+    p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+    p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+    if (t == 0) {
+      den[rl * HMAX + hh] = 1.f / (p0 + EPS);
+      den[(rl + 8) * HMAX + hh] = 1.f / (p1 + EPS);
+    }
+  }
+  __syncwarp();
+}
+
+// The message of the warpgroup's rows into msg (64 x C): for each 64-column
+// chunk j, q (all C columns: one band) . the chunk's KV stages (warpgroup
+// 0's, then 1's; each takes both and reads its own), times 1 / (den + eps)
+// of the column's head.
+template <class M, class G, int RING, class Src>
+__device__ __forceinline__ void message_m(Ring<RING, M::SB>& ring, float* msg, int ld, int rl,
+                                          const Src& q, const float* den, int wg, int hm, int H) {
+  const int t = threadIdx.x & 3;
+#pragma unroll 1
+  for (int j = 0; j < G::NB; ++j) {
+    float mz[8][4];
+    zero(mz);
+#pragma unroll
+    for (int x = 0; x < WGS; ++x) {
+      if (x == wg)
+        product_m<M, 1, G::BP, RING>(ring, mz, q, 0);
+      else
+        skip<G::BP>(ring);
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 64 * j + 8 * jj + 2 * t;
+      const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
+      mz[jj][0] *= den[rl * HMAX + h0];
+      mz[jj][1] *= den[rl * HMAX + h1];
+      mz[jj][2] *= den[(rl + 8) * HMAX + h0];
+      mz[jj][3] *= den[(rl + 8) * HMAX + h1];
+    }
+    store_scratch(msg + 64 * j, ld, rl, mz);
+  }
+}
+
+// LayerNorm of the C-wide rows rl, rl + 8 whose halves 0 .. NH - 2 lie raw
+// in `raw` (row-major, ld) and whose last half is y: the statistics over
+// the true ct columns, then each half normalised (the last first, from y;
+// then the others loaded into y) and handed to fin(half, y).
+template <int NH, class Fin>
+__device__ __forceinline__ void ln_halves(float (&y)[16][4], const float* raw, int ld, int rl,
+                                          const float* __restrict__ s, const float* __restrict__ b,
+                                          int ct, Fin fin) {
+  const int t = threadIdx.x & 3;
+  const float inv_c = 1.f / ct;
+  float mu[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* rr = raw + (size_t)(rl + 8 * h) * ld;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) sum += y[j][2 * h] + y[j][2 * h + 1];
+#pragma unroll 1
+    for (int hf = 0; hf < NH - 1; ++hf)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(rr + 128 * hf + 8 * j + 2 * t));
+        sum += v.x + v.y;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    mu[h] = sum * inv_c;
+    float var = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * (NH - 1) + 8 * j + 2 * t;
+      const float d0 = c < ct ? y[j][2 * h] - mu[h] : 0.f;
+      const float d1 = c + 1 < ct ? y[j][2 * h + 1] - mu[h] : 0.f;
+      var += d0 * d0 + d1 * d1;
+    }
+#pragma unroll 1
+    for (int hf = 0; hf < NH - 1; ++hf)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 128 * hf + 8 * j + 2 * t;
+        const float2 v = __ldcg(reinterpret_cast<const float2*>(rr + c));
+        const float d0 = c < ct ? v.x - mu[h] : 0.f, d1 = c + 1 < ct ? v.y - mu[h] : 0.f;
+        var += d0 * d0 + d1 * d1;
+      }
+    var += __shfl_xor_sync(0xffffffffu, var, 1);
+    var += __shfl_xor_sync(0xffffffffu, var, 2);
+    inv[h] = rsqrtf(var * inv_c + LN_EPS);
+  }
+#pragma unroll 1
+  for (int hh = NH - 1; hh >= 0; --hh) {
+    if (hh < NH - 1) load_scratch(y, raw + 128 * hh, ld, rl, true);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * hh + 8 * j + 2 * t;
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(s + c));
+      const float2 bi = __ldg(reinterpret_cast<const float2*>(b + c));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        y[j][2 * h] = (y[j][2 * h] - mu[h]) * inv[h] * sc.x + bi.x;
+        y[j][2 * h + 1] = (y[j][2 * h + 1] - mu[h]) * inv[h] * sc.y + bi.y;
+      }
+    }
+    fin(hh, y);
+  }
+}
+
+// dst = LN(src @ W) (W's output in halves: each half's stages k-panel by
+// k-panel, two 64-column blocks a panel; NP k-panels), fin(half, y) given
+// each normalised half; `raw` (64 x C) parks the raw halves.
+template <class M, class G, int NP, int RING, class Src, class Fin>
+__device__ __forceinline__ void halves_ln(Ring<RING, M::SB>& ring, const Src& src, float* raw,
+                                          int rl, const float* s, const float* b, int ct,
+                                          Fin fin) {
+  float y[16][4];
+#pragma unroll 1
+  for (int hf = 0; hf < G::NH; ++hf) {
+    zero(y);
+    product_m<M, 2, NP, RING>(ring, y, src, 0);
+    if (hf < G::NH - 1) store_scratch(raw + 128 * hf, 128 * G::NH, rl, y);
+  }
+  ln_halves<G::NH>(y, raw, 128 * G::NH, rl, s, b, ct, fin);
+}
+
+// The FFN's hidden chunks: hid = relu(init(h) + m @ fc1[C:][:, chunk h])
+// into HID (64 x 2C) a 64-column chunk at a time.
+template <class M, class G, int RING, class Init>
+__device__ __forceinline__ void hidden_m(Ring<RING, M::SB>& ring, const float* mid, float* hid_out,
+                                         int rl, Init init) {
+  constexpr int C = G::NB * 64;
+  const ScrRows m{mid + (size_t)rl * C, C, true};
+#pragma unroll 1
+  for (int h = 0; h < G::CH2; ++h) {
+    float hid[8][4];
+    init(h, hid);
+    product_m<M, 1, G::PPC, RING>(ring, hid, m, 0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
+    store_scratch(hid_out + 64 * h, 2 * C, rl, hid);
+  }
+}
+
+template <class M, int C>
+__global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) {
+  using G = WideCfg<M, C>;
+  using T = typename M::T;
+  constexpr int SB = M::SB, NB = G::NB, NH = G::NH, PPC = G::PPC, CH2 = G::CH2, BP = G::BP;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(smem);
+  const uint32_t full = sb + G::BAR_OFF, empty = full + 8 * G::RING, kvready = empty + 8 * G::RING;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int N = a.N, ntiles = (N + TILE - 1) / TILE, nsum = (N + M::SUM_ROWS - 1) / M::SUM_ROWS;
+  const int Np = ntiles * TILE;
+  unsigned char* scr = a.scratch + (size_t)blockIdx.x * a.scratch_stride;
+  unsigned char* kvscr = scr;                                       // [2][KVST stages]
+  float* a2scr = reinterpret_cast<float*>(scr + 2 * G::KVST * SB);  // [2][64][2C]
+  float* oscr = a2scr + 2 * TILE * 2 * C;                           // [2][Np][C]
+  float* wscr = oscr + 2 * (size_t)Np * C;                          // [2][MSG, MID, HID]
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < G::RING; ++i) {
+      bf16mma::mbar_init(full + 8 * i, 1);
+      bf16mma::mbar_init(empty + 8 * i, CWARPS);
+    }
+    bf16mma::mbar_init(kvready, CWARPS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CWARPS) {
+    // ---- the producer: the consumers' stage order (weight_blocks at C > 128)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 128 * WGS) return;
+    int it = 0;
+    auto emit = [&](const unsigned char* src) {
+      const int slot = it % G::RING;
+      if (it >= G::RING) bf16mma::mbar_wait(empty + 8 * slot, (uint32_t)(((it / G::RING) - 1) & 1));
+      bf16mma::mbar_expect_tx(full + 8 * slot, SB);
+      bf16mma::bulk_load(sb + slot * SB, src, SB, full + 8 * slot);
+      ++it;
+    };
+    // a tile's tail: the message stages of each warpgroup a chunk, then
+    // merge, fc1[C:] and fc2
+    auto tail = [&](const unsigned char* w, const unsigned char* const (&kv)[2]) {
+      for (int j = 0; j < NB; ++j)
+        for (int x = 0; x < WGS; ++x)
+          for (int b = 0; b < BP; ++b) emit(kv[x] + (size_t)(j * BP + b) * SB);
+      for (int s = 0; s < G::S1W; ++s, w += SB) emit(w);
+    };
+    int round = 0;
+    for (int p = blockIdx.x; p < a.P; p += gridDim.x, ++round) {
+      int ti, dj;
+      pair_of(a, p, ti, dj);
+      const unsigned char* const kin[2] = {a.side[1].kvs + (size_t)dj * G::KVST * SB,
+                                           a.side[0].kvs + (size_t)ti * G::KVST * SB};
+      for (int tile = 0; tile < ntiles; ++tile) tail(a.w, kin);
+      // the summary's units: k chunk mi, v chunks NB + 2 vh, NB + 2 vh + 1
+      for (int mi = 0; mi < NB; ++mi)
+        for (int vh = 0; vh < NH; ++vh)
+          for (int st = 0; st < nsum; ++st)
+            for (int u = 0; u < 3; ++u) {
+              const int i = u == 0 ? mi : NB + 2 * vh + u - 1;
+              const unsigned char* w = a.w + (size_t)(G::S1W + i * PPC) * SB;
+              for (int s = 0; s < PPC; ++s, w += SB) emit(w);
+            }
+      const unsigned char* const kout[2] = {kvscr + (size_t)G::KVST * SB, kvscr};
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const unsigned char* w = a.w + (size_t)(G::S1W + G::SSW) * SB;
+        for (int s = 0; s < PPC * NB + CH2 * PPC; ++s, w += SB) emit(w);
+        if (tile == 0) bf16mma::mbar_wait(kvready, (uint32_t)(round & 1));
+        tail(w, kout);
+      }
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: side wg of each pair
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int wq = __shfl_sync(0xffffffffu, warp & 3, 0);
+  const int g = lane >> 2, t = lane & 3, rl = 16 * wq + g;
+  Ring<G::RING, SB> ring{sb, full, empty, 0};
+  unsigned char* stg = smem + G::STG_OFF + wg * G::STG;
+  const uint32_t stg_a = smem_addr(stg);
+  float* ks_sm = reinterpret_cast<float*>(smem + G::KS_OFF);
+  float* ksp = reinterpret_cast<float*>(smem + G::KSP_OFF) + warp * C;
+  float* part = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * 2 * C;
+  float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * HMAX;
+  float* O = oscr + (size_t)wg * Np * C;
+  float* A2 = a2scr + wg * TILE * 2 * C;
+  float* MSG = wscr + (size_t)wg * TILE * 4 * C;   // 64 x C
+  float* MID = MSG + TILE * C;                      // 64 x C
+  float* HID = MID + TILE * C;                      // 64 x 2C
+  const Side<M> X = wg ? a.side[1] : a.side[0];
+  const Side<M> Y = wg ? a.side[0] : a.side[1];
+  const size_t nc = (size_t)N * C;
+  const uint32_t wg_bar = 1 + wg;
+  auto bar_wg = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory"); };
+  auto bar_both = [&]() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); };
+  const int H = a.H, D = a.D, hm = a.hm, ct = a.ct;
+  const ScrRows msg_rows{MSG + (size_t)rl * C, C, true};
+  const ScrRows mid_rows{MID + (size_t)rl * C, C, true};
+  const ScrRows hid_rows{HID + (size_t)rl * 2 * C, 2 * C, true};
+
+  for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
+    int ti, dj;
+    pair_of(a, p, ti, dj);
+    const int own = wg ? dj : ti, oth = wg ? ti : dj;
+    const T* hX = X.h + own * nc;
+    const T* qX = X.q + own * nc;
+    const T* aX = X.a1 + own * 2 * nc;
+    const T* pvX = X.pv == nullptr ? nullptr : X.pv + own * nc;
+    for (int c = lane; c < C; c += 32) {
+      part[c] = -__int_as_float(0x7f800000);
+      part[C + c] = 0.f;
+      ksp[c] = 0.f;
+    }
+    __syncwarp();
+
+    // ---- stage 1: O = h + LN2(relu(a1 + LN1(msg @ merge) @ fc1[C:]) @ fc2)
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = tile * TILE + rl;
+      const FacRows<T> q{qX, C, r0, N};
+      normaliser_m<M>(den, q, Y.ks + (size_t)oth * C, false, rl, D, H);
+      message_m<M, G>(ring, MSG, C, rl, q, den, wg, hm, H);
+      halves_ln<M, G, PPC>(ring, msg_rows, MID, rl, a.ln[0].s1, a.ln[0].b1, ct,
+                           [&](int hf, float (&y)[16][4]) { store_scratch(MID + 128 * hf, C, rl, y); });
+      hidden_m<M, G>(ring, MID, HID, rl, [&](int h, float (&hid)[8][4]) {
+        load_rows<M>(hid, aX, 2 * C, 64 * h, r0, N);
+      });
+      halves_ln<M, G, 2 * PPC>(ring, hid_rows, MSG, rl, a.ln[0].s2, a.ln[0].b2, ct,
+                               [&](int hf, float (&y)[16][4]) {
+#pragma unroll
+                                 for (int j = 0; j < 16; ++j) {
+                                   float hr[1][4];
+                                   load_rows<M>(hr, hX, C, 128 * hf + 8 * j, r0, N);
+#pragma unroll
+                                   for (int i = 0; i < 4; ++i) y[j][i] += hr[0][i];
+                                 }
+                                 store_scratch(O + (size_t)tile * TILE * C + 128 * hf, C, rl, y);
+                               });
+    }
+    bar_wg();                       // O is written (a TF32 summary tile reads other warps' rows)
+
+    // ---- the summary: KV (the heads' blocks of k^T v over all C columns)
+    // a unit (64-channel k chunk mi, 128-channel v half vh) at a time, put
+    // as the other side's message stages; sum k
+    unsigned char* kvo = kvscr + (size_t)wg * G::KVST * SB;
+#pragma unroll 1
+    for (int mi = 0; mi < NB; ++mi) {
+#pragma unroll 1
+      for (int vh = 0; vh < NH; ++vh) {
+        float kv[16][4];
+        zero(kv);
+#pragma unroll 1
+        for (int st = 0; st < nsum; ++st) {
+          const bool held = rl < M::SUM_ROWS;
+          const int r0 = st * M::SUM_ROWS + rl;
+          const bool v0 = held && r0 < N, v1 = held && r0 + 8 < N;
+          const ScrRows o{O + (size_t)(held ? r0 : 0) * C, C, held};
+#pragma unroll 1
+          for (int u = 0; u < 3; ++u) {
+            const bool is_k = u == 0;
+            const int i = is_k ? mi : NB + 2 * vh + u - 1;   // the chunk of [k | v]
+            float e[8][4];
+            zero(e);
+            product_m<M, 1, PPC, G::RING>(ring, e, o, 0);
+            float pv[8][4];
+            if (is_k || pvX == nullptr) {   // the image head: no position term
+              zero(pv);
+            } else {
+              load_rows<M>(pv, pvX, C, 64 * (i - NB), r0, N);
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                float x = is_k ? elu1(e[j][k]) : e[j][k] + pv[j][k];
+                if (is_k && 64 * i + 8 * j + 2 * t + (k & 1) >= ct) x = 0.f;   // a padded k lane
+                e[j][k] = (k < 2 ? v0 : v1) ? x : 0.f;   // rows past N add nothing
+              }
+            if (is_k && vh == 0) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                float s0 = e[j][0] + e[j][2], s1 = e[j][1] + e[j][3];
+#pragma unroll
+                for (int off = 4; off < 32; off <<= 1) {
+                  s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+                  s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+                }
+                if (g == 0) {
+                  const int c = 64 * i + 8 * j + 2 * t;
+                  ksp[c] += s0;
+                  ksp[c + 1] += s1;
+                }
+              }
+            }
+            M::stage_chunk(stg + (is_k ? 0 : 64 * 128), G::LO, is_k ? 0 : 64 * (u - 1), e, wq,
+                           lane);
+          }
+          bf16mma::fence_async_shared();
+          bar_wg();                 // the unit's k^T and v^T are staged
+          M::template summary<128>(kv, stg_a, stg_a + 64 * 128, G::LO);
+          bar_wg();                 // the staging is free again
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int m = 64 * mi + rl + 8 * (i >> 1), n = 128 * vh + 8 * j + 2 * t + (i & 1);
+            const bool same = head_of(m, hm, H) == head_of(n, hm, H);
+            M::put_b(kvo + (size_t)((n >> 6) * BP + m / M::PK) * SB, n & 63, m % M::PK,
+                     same ? kv[j][i] : 0.f);
+          }
+      }
+    }
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");   // for the producer's bulk copies
+    __syncwarp();
+    if (lane == 0) bf16mma::mbar_arrive(kvready);
+    bar_wg();                       // the warps' sum k partials are complete
+    for (int c = threadIdx.x & 127; c < C; c += 128) {
+      const float* k4 = reinterpret_cast<const float*>(smem + G::KSP_OFF) + 4 * wg * C;
+      ks_sm[wg * C + c] = ((k4[c] + k4[C + c]) + k4[2 * C + c]) + k4[3 * C + c];
+    }
+    bar_both();                     // both sides' sum k
+
+    // ---- stage 2: O searches the other side's summary, then the pooling
+    const float* ksY = ks_sm + (1 - wg) * C;
+#pragma unroll 1
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = tile * TILE + rl;
+      const bool v0 = r0 < N, v1 = r0 + 8 < N;
+      float* Ot = O + (size_t)tile * TILE * C;
+      const ScrRows o{Ot + (size_t)rl * C, C, true};
+      // q = elu1(O Wq) in halves into MID; a = O fc1[:C] into A2
+#pragma unroll 1
+      for (int hf = 0; hf < NH; ++hf) {
+        float q[16][4];
+        zero(q);
+        product_m<M, 2, PPC, G::RING>(ring, q, o, 0);
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            q[j][i] = 128 * hf + 8 * j + 2 * t + (i & 1) >= ct ? 0.f : elu1(q[j][i]);
+        store_scratch(MID + 128 * hf, C, rl, q);
+      }
+#pragma unroll 1
+      for (int h = 0; h < CH2; ++h) {
+        float e[8][4];
+        zero(e);
+        product_m<M, 1, PPC, G::RING>(ring, e, o, 0);
+        store_scratch(A2 + 64 * h, 2 * C, rl, e);
+      }
+      normaliser_m<M>(den, mid_rows, ksY, true, rl, D, H);
+      message_m<M, G>(ring, MSG, C, rl, mid_rows, den, wg, hm, H);
+      halves_ln<M, G, PPC>(ring, msg_rows, MID, rl, a.ln[1].s1, a.ln[1].b1, ct,
+                           [&](int hf, float (&y)[16][4]) { store_scratch(MID + 128 * hf, C, rl, y); });
+      hidden_m<M, G>(ring, MID, HID, rl, [&](int h, float (&hid)[8][4]) {
+        load_scratch(hid, A2 + 64 * h, 2 * C, rl, true);
+      });
+      // pooling of O + y over the valid rows, a half at a time
+      halves_ln<M, G, 2 * PPC>(
+          ring, hid_rows, MSG, rl, a.ln[1].s2, a.ln[1].b2, ct, [&](int hf, float (&y)[16][4]) {
+#pragma unroll
+            for (int j = 0; j < 16; ++j) {
+              const int c = 128 * hf + 8 * j + 2 * t;
+              const float2 o0 = __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)rl * C + c));
+              const float2 o1 = __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)(rl + 8) * C + c));
+              const float ninf = -__int_as_float(0x7f800000);
+              const float a0 = o0.x + y[j][0], a1 = o0.y + y[j][1];
+              const float b0 = o1.x + y[j][2], b1 = o1.y + y[j][3];
+              float m0 = fmaxf(v0 ? a0 : ninf, v1 ? b0 : ninf), m1 = fmaxf(v0 ? a1 : ninf, v1 ? b1 : ninf);
+              float s0 = (v0 ? a0 : 0.f) + (v1 ? b0 : 0.f), s1 = (v0 ? a1 : 0.f) + (v1 ? b1 : 0.f);
+#pragma unroll
+              for (int off = 4; off < 32; off <<= 1) {
+                m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+                m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+                s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+                s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+              }
+              if (g == 0) {
+                part[c] = fmaxf(part[c], m0);
+                part[c + 1] = fmaxf(part[c + 1], m1);
+                part[C + c] += s0;
+                part[C + c + 1] += s1;
+              }
+            }
+          });
+    }
+    bar_both();                     // every warp's pooling partials
+    for (int c = threadIdx.x; c < C; c += 128 * WGS) {
+      const float* pb = reinterpret_cast<const float*>(smem + G::PART_OFF);
+      float mx = pb[c], sm = pb[C + c];
+      for (int w = 1; w < CWARPS; ++w) {
+        mx = fmaxf(mx, pb[w * 2 * C + c]);
+        sm += pb[w * 2 * C + C + c];
+      }
+      T* o = a.out + (size_t)p * 2 * C;
+      M::store(o + c, mx);
+      M::store(o + C + c, sm * (1.f / (2.f * N)));
+    }
+    bar_both();                     // the partials and sum k are free
+  }
+}
+
+template <class M, int C>
+int launch_wide(const Args<M>& a, int blocks, cudaStream_t stream) {
+  using G = WideCfg<M, C>;
+  auto kernel = rows_wide_kernel<M, C>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, THREADS, G::BYTES, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---- host side -------------------------------------------------------------------------
 
-// 0: the tier takes the shape; 1: C is not 64 or 128, H does not divide C
-// or is above HMAX, or N < 1; 2: the layout exceeds a block's shared memory.
+// 0: the tier takes the shape; 1: C is not 64, 128 or 256, H does not
+// divide C or is above HMAX, or N < 1; 2: the layout exceeds a block's
+// shared memory. C = 256 is the wide kernel's (the padded entry point's
+// only).
 template <class M>
 size_t smem_bytes(int C) {
   switch (C) {
     case 64: return Cfg<M, 64, 64>::BYTES;
     case 128: return Cfg<M, 128, 64>::BYTES;
+    case 256: return WideCfg<M, 256>::BYTES;
     default: return 0;
   }
 }
@@ -1032,6 +1644,7 @@ int layout_status(int N, int C, int H) {
 
 template <class M>
 long long scratch_need(int N, int C, int H) {
+  if (C == 256) return wide_scratch_bytes<M, 256>(N);
   if (C == 64) return scratch_bytes<M, 64, 64>(N);
   return C / H > 64 ? scratch_bytes<M, 128, 128>(N) : scratch_bytes<M, 128, 64>(N);
 }
@@ -1049,23 +1662,26 @@ int launch_c(const Args<M>& a, int blocks, cudaStream_t stream) {
 
 template <class M>
 int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
-  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 ||
-      a.scratch_stride < scratch_need<M>(a.N, C, a.H))
+  // heads of fewer than 8 channels, and C = 256, take the padded entry
+  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 || C == 256 ||
+      C / a.H < 8 || a.scratch_stride < scratch_need<M>(a.N, C, a.H))
     return (int)cudaErrorInvalidValue;
   if (C == 64) return launch_c<M, 64, 64, false>(a, blocks, stream);
   if (C / a.H > 64) return launch_c<M, 128, 128, false>(a, blocks, stream);
   return launch_c<M, 128, 64, false>(a, blocks, stream);
 }
 
-// The padded layout (and the image head, pv null): a.ct true channels of
-// C (64 or 128) in a.H <= HMAX heads; the layout and the scratch are those
-// of one head (KVN = C).
+// The padded layout (and the image head, pv null, heads of fewer than 8
+// channels, and C = 256 at any width): a.ct true channels of C (64, 128 or
+// 256) in a.H <= HMAX heads; the layout and the scratch are those of one
+// head (KVN = C).
 template <class M>
 int launch_pad(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
   if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, 1) != 0 || a.H < 1 || a.H > HMAX ||
       a.ct < 1 || a.ct > C || a.ct % a.H != 0 || a.scratch_stride < scratch_need<M>(a.N, C, 1))
     return (int)cudaErrorInvalidValue;
   if (C == 64) return launch_c<M, 64, 64, true>(a, blocks, stream);
+  if (C == 256) return launch_wide<M, 256>(a, blocks, stream);
   return launch_c<M, 128, 128, true>(a, blocks, stream);
 }
 

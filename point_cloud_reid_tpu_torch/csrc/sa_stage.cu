@@ -44,20 +44,37 @@
 //                  blocks a SM;
 //   C = 512 (SA3): 16 warps, NT 4, M 48 (1 centre), 198 KB, one block;
 //   C = 1024:      16 warps, NT 4, M 16, 132 KB; each warp takes two column
-//                  chunks in turn.
+//                  chunks in turn;
+//   C = 1,056 ... 1,792: the same at M 16, up to 230 KB.
+// Past 1,792 channels two buffers of one 16-row m-tile no longer fit (at
+// C = 2048: 2 x 16 x 2,052 x 4 = 262,656 bytes against 232,448), and the
+// h1-from-gather layout takes the stage (sa_convmax_gather_kernel, any
+// multiple of 32 up to 2048): 16 warps, NT 4, M 16; conv2 forms its A
+// fragments straight from the gather (BN1 + ReLU of A[idx] + Ct is
+// elementwise: each lane reads its rows g, g + 8 at columns 8 kk + t, + 4
+// through L1 / L2, every warp the whole 16 rows) into the h2 buffer, 16 x
+// (C + 4) floats; conv3's 16 x 32 columns of a job go into the warp's strip
+// (16 warps x 16 x 32 floats, 32 KB), from which each lane takes its
+// column's max over each centre's rows. 131,328 + 32,768 = 164,096 bytes
+// at C = 2048. The gather is read once a warp instead of once a block:
+// 16 x the A / Ct bytes of the block's rows, from L1 / L2. Measured on the
+// H100 (PERF.md section 6): the mul16 model's SA3 at B = 128 takes
+// 5.6x its bound, slower than the plain version: every 16-row block reads
+// both weights, 32 MB at C = 2048, from L2.
 // Weight reads per call at B = 128: 1.07 / 4.3 / 8.6 GB for SA1/2/3, from
 // L2 (the SIMT kernel before this one read 4.3 / 12.9 / 25.8 GB). Larger
 // tiles with one 8-warp block a SM (M = 128 / 96 / 48, up to 236
 // registers) read half as much and were 1.4x / 1.1x slower at SA1 / SA2:
 // with one block a SM nothing overlaps its gather and its barriers.
-// Any C that is a multiple of 32, 32 to 1024, is taken: NT is 1, 2 or 4,
+// Any C that is a multiple of 32, 32 to 2048, is taken (kernels/sa_stage
+// pads any other width, up to 2048, to the next one): NT is 1, 2 or 4,
 // the largest that still gives every warp a chunk of columns (C = 32: two
 // row groups of 4 warps, each reading the weights); where the chunks do not
 // divide among the warps, some warps take one more.
 // The max: every h3 is a ReLU output >= 0, so 0 is the identity and the
 // float order is the order of the bits as integers. Where M is a multiple
 // of K every centre lies whole in one block and its max is stored plainly;
-// otherwise (C = 1024 at K = 48, or K = 12 at M = 128) a block's edge
+// otherwise (C >= 1024 at K = 48, or K = 12 at M = 128) a block's edge
 // centres are partial and go out by atomicMax on the bits into an `out`
 // that the entry point zero-fills first. The max is exact, so the result
 // does not depend on the order.
@@ -82,6 +99,7 @@ namespace {
 constexpr int WARPS = 8;      // warps a block; 16 where there are 16 column chunks
 constexpr int PF = 4;         // k-steps a warp's B fragments are loaded ahead
 constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
+constexpr int MAX_C = 2048;             // widest stage (kernels/sa_stage.MAX_C)
 
 struct Args {
   const float* A;     // (B, N, C)
@@ -100,17 +118,121 @@ struct Args {
 // that a thread stays within 128 registers.
 constexpr int max_mt(int nt) { return nt == 1 ? 8 : nt == 2 ? 4 : 3; }
 
-// dst[r][c] = relu((src @ w)[r][c] * sc[c] + sh[c]) for the block's rows, a
-// warp per (row group, column chunk) job; src and dst padded to C + 4.
-template <int NT, int MT, int W>
-__device__ __forceinline__ void conv_layer(const float* src, float* dst,
+// The A fragments of a product from a row buffer in shared memory (src,
+// rows padded to C + 4): ldmatrix .x4, lanes 0-7 / 8-15 / 16-23 / 24-31
+// giving the rows of the four 8 x 4 float blocks a[0] (rows 0-7, cols 0-3),
+// a[1] (8-15, 0-3), a[2] (0-7, 4-7), a[3] (8-15, 4-7); lane 4g + t
+// receives (g, t) of each.
+struct SmemA {
+  const float* src;
+  int LD;
+  struct At {
+    uint32_t base;
+    int LD;
+    // m-tile i, k-step kk
+    __device__ __forceinline__ void frag(int i, int kk, float (&av)[4]) const {
+      uint32_t r[4];
+      asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+                   : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                   : "r"(base + (uint32_t)(i * 16 * LD + kk * 8) * 4u));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) av[q] = __uint_as_float(r[q]);
+    }
+  };
+  // the fragments of the job whose rows start at row0
+  __device__ __forceinline__ At at(int row0) const {
+    const int lane = threadIdx.x & 31;
+    return At{(uint32_t)__cvta_generic_to_shared(src + (row0 + (lane & 15)) * LD + (lane >> 4) * 4),
+              LD};
+  }
+};
+
+// conv2's A fragments formed straight from the gather (the h1-from-gather
+// layout: one m-tile of 16 rows a block): h1 = relu((A[src] + Ct[ctr]) s1
+// + t1) at rows g and g + 8 (src < 0: a row past R, h1 = 0), columns
+// 8 kk + t and 8 kk + t + 4.
+struct GatherA {
+  const float* A;
+  const float* Ct;
+  const float* s1;
+  const float* t1;
+  long long src[2], ctr[2];
+  __device__ __forceinline__ const GatherA& at(int) const { return *this; }
+  __device__ __forceinline__ float h1(int r, int c, float s, float h) const {
+    return src[r] < 0 ? 0.f : fmaxf((__ldg(A + src[r] + c) + __ldg(Ct + ctr[r] + c)) * s + h, 0.f);
+  }
+  __device__ __forceinline__ void frag(int, int kk, float (&av)[4]) const {
+    const int c0 = 8 * kk + (threadIdx.x & 3), c1 = c0 + 4;
+    const float sa = __ldg(s1 + c0), ha = __ldg(t1 + c0), sb = __ldg(s1 + c1), hb = __ldg(t1 + c1);
+    av[0] = h1(0, c0, sa, ha);
+    av[1] = h1(1, c0, sa, ha);
+    av[2] = h1(0, c1, sb, hb);
+    av[3] = h1(1, c1, sb, hb);
+  }
+};
+
+// A product's output into a row buffer (rows padded to C + 4).
+struct BufOut {
+  float* dst;
+  int LD;
+  __device__ __forceinline__ void put(int row, int col, float2 v) const {
+    *reinterpret_cast<float2*>(dst + row * LD + col) = v;
+  }
+  __device__ __forceinline__ void done(int) const {}
+};
+
+constexpr int STRIP = 32;   // columns of a warp's conv3 strip (NT = 4)
+
+// conv3's output of the h1-from-gather layout: a job's 16 x 32 columns into
+// the warp's strip, then each lane's column's max over the rows of each
+// centre in the block: stored where the centre lies whole in the block,
+// else an atomicMax on the bits into the zero-filled `out` (values >= 0).
+struct MaxOut {
+  float* strip;
+  float* out;
+  int r0, rows, K, C;
+  __device__ __forceinline__ void put(int row, int col, float2 v) const {
+    *reinterpret_cast<float2*>(strip + row * STRIP + (col & (STRIP - 1))) = v;
+  }
+  __device__ __forceinline__ void emit(int centre, int c, float m) const {
+    float* o = out + (size_t)centre * C + c;
+    if (centre * K >= r0 && (centre + 1) * K <= r0 + rows)
+      *o = m;
+    else
+      atomicMax(reinterpret_cast<int*>(o), __float_as_int(m));
+  }
+  __device__ __forceinline__ void done(int col0) const {
+    __syncwarp();
+    const int lane = threadIdx.x & 31, c = col0 + lane;
+    int centre = r0 / K;
+    float m = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const int ce = (r0 + r) / K;
+      if (ce != centre) {
+        emit(centre, c, m);
+        centre = ce;
+        m = 0.f;
+      }
+      m = fmaxf(m, strip[r * STRIP + lane]);
+    }
+    emit(centre, c, m);
+    __syncwarp();
+  }
+};
+
+// out(r, c) = relu((A @ w)[r][c] * sc[c] + sh[c]) for the block's rows, a
+// warp per (row group, column chunk) job: the A fragments from `asrc` (a
+// row buffer, or the gather), the results to `out` (a row buffer, or the
+// strip and the max).
+template <int NT, int MT, int W, class ASrc, class Out>
+__device__ __forceinline__ void conv_layer(const ASrc& asrc, const Out& out,
                                            const float* __restrict__ w,
                                            const float* __restrict__ sc,
                                            const float* __restrict__ sh,
                                            const Args& p) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int C = p.C, LD = C + 4, ksteps = C / 8, mt = p.mt;
+  const int C = p.C, ksteps = C / 8, mt = p.mt;
   for (int job = warp; job < p.groups * p.chunks; job += W) {
     const int row0 = (job / p.chunks) * mt * 16;
     const int col0 = (job % p.chunks) * NT * 8;
@@ -131,11 +253,7 @@ __device__ __forceinline__ void conv_layer(const float* src, float* dst,
         bn[q][j][0] = __ldg(wp + (size_t)q * 8 * C + 8 * j);
         bn[q][j][1] = __ldg(wp + (size_t)q * 8 * C + 4 * C + 8 * j);
       }
-    // ldmatrix .x4: lanes 0-7 / 8-15 / 16-23 / 24-31 give the rows of the
-    // four 8 x 4 float blocks a[0] (rows 0-7, cols 0-3), a[1] (8-15, 0-3),
-    // a[2] (0-7, 4-7), a[3] (8-15, 4-7); lane 4g + t receives (g, t) of each
-    const uint32_t abase = (uint32_t)__cvta_generic_to_shared(
-        src + (row0 + (lane & 15)) * LD + (lane >> 4) * 4);
+    const auto a = asrc.at(row0);
     for (int k0 = 0; k0 < ksteps; k0 += PF) {
 #pragma unroll
       for (int q = 0; q < PF; ++q) {
@@ -154,12 +272,8 @@ __device__ __forceinline__ void conv_layer(const float* src, float* dst,
 #pragma unroll
         for (int i = 0; i < MT; ++i) {
           if (i < mt) {
-            uint32_t r[4];
-            asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-                         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                         : "r"(abase + (uint32_t)(i * 16 * LD + kk * 8) * 4u));
-            const float av[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]),
-                                 __uint_as_float(r[2]), __uint_as_float(r[3])};
+            float av[4];
+            a.frag(i, kk, av);
             const tf32::AFrag af = tf32::split_a(av);
 #pragma unroll
             for (int j = 0; j < NT; ++j) tf32::mma3(acc[i][j], af, bf[j]);
@@ -175,14 +289,15 @@ __device__ __forceinline__ void conv_layer(const float* src, float* dst,
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (i < mt) {
-          float* d = dst + (row0 + 16 * i + g) * LD + col;
-          *reinterpret_cast<float2*>(d) = make_float2(
-              fmaxf(acc[i][j][0] * s.x + h.x, 0.f), fmaxf(acc[i][j][1] * s.y + h.y, 0.f));
-          *reinterpret_cast<float2*>(d + 8 * LD) = make_float2(
-              fmaxf(acc[i][j][2] * s.x + h.x, 0.f), fmaxf(acc[i][j][3] * s.y + h.y, 0.f));
+          const int row = row0 + 16 * i + g;
+          out.put(row, col, make_float2(fmaxf(acc[i][j][0] * s.x + h.x, 0.f),
+                                        fmaxf(acc[i][j][1] * s.y + h.y, 0.f)));
+          out.put(row + 8, col, make_float2(fmaxf(acc[i][j][2] * s.x + h.x, 0.f),
+                                            fmaxf(acc[i][j][3] * s.y + h.y, 0.f)));
         }
       }
     }
+    out.done(col0);
   }
 }
 
@@ -231,9 +346,9 @@ __global__ void __launch_bounds__(32 * W, 16 / W) sa_convmax_kernel(const Args p
   }
   __syncthreads();
   // 2, 3. the two convs, each warp its own columns
-  conv_layer<NT, MT, W>(buf1, buf2, p.w2, p.s2, p.t2, p);
+  conv_layer<NT, MT, W>(SmemA{buf1, LD}, BufOut{buf2, LD}, p.w2, p.s2, p.t2, p);
   __syncthreads();
-  conv_layer<NT, MT, W>(buf2, buf1, p.w3, p.s3, p.t3, p);
+  conv_layer<NT, MT, W>(SmemA{buf2, LD}, BufOut{buf1, LD}, p.w3, p.s3, p.t3, p);
   __syncthreads();
 
   // 4. max over each centre's rows in this block
@@ -261,6 +376,44 @@ int launch(const Args& p, size_t smem, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The h1-from-gather layout (C past 1,792, where two buffers of one m-tile
+// do not fit): a block of W warps owns 16 rows; conv2's A fragments come
+// straight from the gather into the h2 buffer, conv3's columns go through
+// each warp's strip into the max.
+template <int NT, int W>
+__global__ void __launch_bounds__(32 * W, 16 / W) sa_convmax_gather_kernel(const Args p) {
+  extern __shared__ __align__(16) float smem[];
+  const int C = p.C, LD = C + 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * 16;
+  const int rows = min(16, p.R - r0);
+  GatherA ga{p.A, p.Ct, p.s1, p.t1, {-1, -1}, {0, 0}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + (lane >> 2) + 8 * h;
+    if (row < p.R) {
+      const int centre = row / p.K;
+      ga.src[h] = ((long long)(centre / p.S) * p.N + __ldg(p.idx + row)) * C;
+      ga.ctr[h] = (long long)centre * C;
+    }
+  }
+  conv_layer<NT, 1, W>(ga, BufOut{smem, LD}, p.w2, p.s2, p.t2, p);
+  __syncthreads();
+  conv_layer<NT, 1, W>(SmemA{smem, LD},
+                       MaxOut{smem + 16 * LD + warp * 16 * STRIP, p.out, r0, rows, p.K, C},
+                       p.w3, p.s3, p.t3, p);
+}
+
+template <int NT, int W>
+int launch_gather(const Args& p, size_t smem, int blocks, cudaStream_t stream) {
+  static_assert(NT * 8 == STRIP, "a warp's strip is one column chunk");
+  cudaError_t err = cudaFuncSetAttribute(
+      sa_convmax_gather_kernel<NT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  sa_convmax_gather_kernel<NT, W><<<blocks, 32 * W, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
@@ -269,7 +422,7 @@ extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
                               const void* s3, const void* t3, void* out,
                               int B, int N, int S, int K, int C, void* stream) {
   const long long R = (long long)B * S * K;
-  if (C < 32 || C > 1024 || C % 32 != 0 || K < 1 || R >= (1LL << 31))
+  if (C < 32 || C > MAX_C || C % 32 != 0 || K < 1 || R >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   // NT: the largest of 1, 2, 4 that leaves at least 8 column chunks
@@ -287,14 +440,18 @@ extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
   p.mt = max_mt(nt);
   while (p.mt > 1 && (size_t)2 * p.groups * p.mt * 16 * (C + 4) * sizeof(float) > SMEM_LIMIT)
     --p.mt;
+  // two buffers of even one m-tile too large (C > 1,792): the h1-from-gather layout
+  const bool gather = (size_t)2 * 16 * (C + 4) * sizeof(float) > SMEM_LIMIT;
   const int M = p.groups * p.mt * 16;
-  const size_t smem = (size_t)2 * M * (C + 4) * sizeof(float);
+  const size_t smem = gather ? (size_t)16 * (C + 4) * sizeof(float) + (size_t)warps * 16 * STRIP * sizeof(float)
+                             : (size_t)2 * M * (C + 4) * sizeof(float);
   cudaStream_t st = (cudaStream_t)stream;
   if (M % K != 0) {     // partial centres: atomicMax into zeros
     cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R / K * C * sizeof(float), st);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (int)((R + M - 1) / M);
+  if (gather) return launch_gather<4, 2 * WARPS>(p, smem, blocks, st);
   if (warps == 2 * WARPS) return launch<4, 2 * WARPS>(p, smem, blocks, st);
   switch (nt) {
     case 1: return launch<1, WARPS>(p, smem, blocks, st);

@@ -74,14 +74,20 @@
 // Measured on the H100 (PERF.md section 6): about 2x the one-pass bound at
 // C = 256 ... 1024 and 3x at C = 128, against the first version's 8.7x.
 //
-// The mma_sync tier (the first version, kept for C = 96, 160, ..., 992: the
-// multiples of 32 the wgmma tier does not take, which no registered leaf
-// reaches): the float32 kernel's (csrc/sa_stage.cu) row tiles with one
+// The mma_sync tier (the first version, kept for C = 96, 160, ..., 992 and
+// 1,056 ... 2048: the multiples of 32 the wgmma tier does not take; of the
+// registered leaves none reaches it, the `mul16` width's SA3 at 2048 does):
+// the float32 kernel's (csrc/sa_stage.cu) row tiles with one
 // mma.sync m16n8k16 bf16 pass per product. A block of W warps owns M
 // consecutive rows: it gathers them into buffer 1, runs conv2 into buffer 2
 // and conv3 back into buffer 1 (B fragments straight from L2) and takes each
 // centre's max; where M is not a multiple of K a block's edge centres go
 // out by a compare-and-swap max on the bf16 bits into a zero-filled `out`.
+// Past 1024 channels the wgmma tier would need h2 (C / 4 registers a thread
+// over a 64-row m-tile) split across more warpgroups than a block holds;
+// the row tiles' two bf16 buffers of one 16-row m-tile, 2 x 16 x (C + 8) x
+// 2 bytes, take 131,584 bytes at C = 2048, so this tier serves C > 1024 as
+// it stands (M = 16, 16 warps, NT 4).
 //
 // pcr_sa_bf16_layout returns the launch plan the kernel takes for (C, K);
 // kernels/sa_stage.plan_bf16 reckons the same, and the wrapper checks that
@@ -783,7 +789,7 @@ void wgmma_plan(long long* plan) {
 // Fills plan[FIELDS] for width C and K neighbours; 0, or
 // cudaErrorInvalidValue for a shape neither tier takes.
 int make_plan(int C, int K, long long* plan) {
-  if (C < 32 || C > 1024 || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  if (C < 32 || C > 2048 || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
   switch (C) {
     case 32: wgmma_plan<32>(plan); return 0;
     case 64: wgmma_plan<64>(plan); return 0;
@@ -815,7 +821,7 @@ extern "C" int pcr_sa_bf16_layout(int C, int K, long long* plan) {
 }
 
 // A, Ct, out bf16; w2, w3 bf16 (C, C) in (out, in) layout; the affines
-// float32. The same shapes as pcr_sa_convmax: C a multiple of 32, 32 to 1024.
+// float32. The same shapes as pcr_sa_convmax: C a multiple of 32, 32 to 2048.
 extern "C" int pcr_sa_convmax_bf16(const void* A, const void* Ct, const void* idx,
                                    const void* w2, const void* w3, const void* s1,
                                    const void* t1, const void* s2, const void* t2,

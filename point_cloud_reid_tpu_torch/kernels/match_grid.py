@@ -13,14 +13,16 @@ features stays plain torch, as in JAX.
 a two-block cluster a pair with the weights and a side's rows in shared
 memory: C up to 64, as many rows as fit, 224 at C = 64) wherever it fits,
 else ROWS (csrc/match_rows.cu instantiating csrc/match_rows_wg.cuh: C up to
-128, any N; two warpgroups on wgmma, a side each, the weights streamed
-through a ring of shared-memory stages from a stage copy made once,
-`rows_stage_weights`, the stage-1 outputs in a device scratch) or, for the
-point head at C = 16, ROWS_MMA (the first rows kernel, kept in the same
-file: a block a pair at a time on mma.sync).
+256, up to 16 heads, any N; two warpgroups on wgmma, a side each, the
+weights streamed through a ring of shared-memory stages from a stage copy
+made once, `rows_stage_weights`, the stage-1 outputs in a device scratch;
+past 128 channels its wide kernel, which keeps the chain's C-wide rows in
+the scratch and computes every C-wide output in 128-column halves) or, for
+the point head at C = 16 in up to 8 heads, ROWS_MMA (the first rows kernel,
+kept in the same file: a block a pair at a time on mma.sync).
 
 The kernels' tiles are instantiated at the widths W = 16 and 64 (cluster)
-and 64 and 128 (rows). A head of another width C <= 128 (a model built
+and 64, 128 and 256 (rows). A head of another width C <= 256 (a model built
 with --set model.backbone.conv_out=96, say) runs at the smallest W of its
 tier that holds it, in the padded layout (`pad_side`, `pad_weights`): the
 true channels first, zeros in lanes C .. W - 1 of every factor, weight and
@@ -30,8 +32,10 @@ their C / H channels each, contiguous. The kernels' padded instantiations
 get wrong: elu+1 of a padded stage-2 q or k lane (1, not 0) and the
 LayerNorm statistics (over the true C). The pooled output is sliced back
 to [max | avg] of the true C. `padded_reference` is the CPU model of that
-layout. Past 128 channels, or 8 heads where the rows tier is needed, the
-plan raises (ROADMAP.md K6b).
+layout. The rows tier's padded entry points also serve heads of fewer than
+8 channels, the image head and every width of the wide kernel
+(`rows_padded`). Past 256 channels, or 16 heads where the rows tier is
+needed, the plan raises (ROADMAP.md K7).
 
 The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
 image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
@@ -65,7 +69,7 @@ On CUDA `plan(..., dtype=torch.bfloat16)` picks the bf16 tiers:
 CLUSTER (csrc/match_grid_bf16.cu: a persistent two-block cluster on wgmma
 with the weights resident in shared memory, C up to 64, up to 208 rows at
 C = 64), else ROWS (csrc/match_rows_bf16.cu: the same wgmma structure as
-the float32 rows tier, one bf16 pass a product, C up to 128 at any N) or
+the float32 rows tier, one bf16 pass a product, C up to 256 at any N) or
 ROWS_MMA for the point head at C = 16; a bf16 model never runs a float32
 kernel. The wrapper hands the kernels bf16 copies of the weights made once
 (utils/cache.py): the rows tier's in its stage layout. bf16 launches count
@@ -402,9 +406,10 @@ TIER_NAMES = ("cluster", "rows", "rows_mma")
 MAX_SMEM = 232448       # 227 KB: a block's most dynamic shared memory, sm_90
 SM_SMEM = 233472        # 228 KB: an SM's shared memory, 1 KB of it per block
 CLUSTER_WIDTHS = (16, 64)
-ROWS_WIDTHS = (64, 128)             # the wgmma rows tier
+ROWS_WIDTHS = (64, 128, 256)        # the wgmma rows tier (256: the wide kernel)
 ROWS_MMA_WIDTHS = (16,)             # the first rows kernel
-ROWS_MAX_HEADS = 8
+ROWS_MAX_HEADS = 16                 # the wgmma rows tier's normalisers
+ROWS_MMA_MAX_HEADS = 8              # the first rows kernel's
 ROWS_WARPS = 4                      # warps a block of the first rows kernel
 ROWS_BLOCKS_PER_SM = 4
 
@@ -466,12 +471,20 @@ STAGE_ROWS = 64         # output columns (B rows) a stage
 class RowsLayout(NamedTuple):
     pk: int             # K columns a stage (one 128-byte panel)
     stage_bytes: int    # 64 rows x 128 bytes (bf16), or hi and lo (TF32)
-    kvn: int            # columns of a KV m-tile's band: 64, or 128 where
-                        # a head has 128 channels
+    kvn: int            # columns of a KV m-tile's band: 64, 128 where a
+                        # head has 128 channels, C on the wide kernel
     kv_stages: int      # message stages of a side's KV
     weight_stages: Tuple[int, int, int]   # a tile of stage 1, summary, stage 2
     ring: int           # stages in shared memory
     smem: int           # shared bytes a block
+
+
+def rows_kvn(C: int, H: int) -> int:
+    """The KV band of the rows tier for width C in H heads: 64 columns an
+    m-tile of channels where a head has at most 64 channels, 128 where it
+    has 128, and all C on the wide kernel (C > 128)."""
+    D = C // H
+    return C if C > 128 else (64 if D <= 64 else 128)
 
 
 def rows_layout(C: int, H: int, dtype: torch.dtype = torch.float32
@@ -480,16 +493,18 @@ def rows_layout(C: int, H: int, dtype: torch.dtype = torch.float32
     (bf16: one pass, 8 KB stages; float32: TF32 hi and lo, 16 KB): 1 KB to
     align the base, the ring, the summary staging of two warpgroups (C
     channels x 128 bytes of rows, k^T and v^T, at TF32 each with its lo
-    array), sum k of each side and its partials (8 warps), the pooling
-    partials (8 x 2C) and the normalisers (2 x 64 rows x 8 heads), float32,
-    and the ring's mbarriers with one more for the summary's hand-off."""
+    array; on the wide kernel, C > 128, a unit's 64 + 128 channels), sum k
+    of each side and its partials (8 warps), the pooling partials (8 x 2C)
+    and the normalisers (2 x 64 rows x 16 heads), float32, and the ring's
+    mbarriers with one more for the summary's hand-off. The weight stages'
+    counts are the same on both kernels; their order is weight_blocks'."""
     bf16 = dtype == BF16
     pk, sb, arrays = (64, 8192, 2) if bf16 else (32, 16384, 4)
-    kvn = 64 if C // H <= 64 else 128
+    kvn = rows_kvn(C, H)
     nb, ch2, ppc, pph = C // 64, 2 * C // 64, C // pk, 64 // pk
     s1 = nb * pph * nb + ch2 * (ppc + pph * nb)
-    fixed = 2 * arrays * C * 128 + 4 * (2 * C + 8 * C + 8 * 2 * C
-                                        + 2 * 64 * ROWS_MAX_HEADS)
+    staging = arrays * (64 + 128) * 128 if C > 128 else 2 * arrays * C * 128
+    fixed = staging + 4 * (2 * C + 8 * C + 8 * 2 * C + 2 * 64 * ROWS_MAX_HEADS)
     ring = min(RING_MAX, (MAX_SMEM - 1024 - fixed - 8 * (2 * RING_MAX + 1))
                // sb)
     return RowsLayout(pk, sb, kvn, nb * (kvn // pk),
@@ -513,11 +528,14 @@ def rows_scratch_bytes(N: int, C: int, H: int,
     """Device scratch a block of the rows tier: both sides' KV as message
     stages, the stage-2 a = O fc1[:C] of an m-tile a side (2 x 64 x 2C
     float32) and both sides' stage-1 outputs O (2 x Np x C float32, Np = N
-    rounded up to 64)."""
+    rounded up to 64); on the wide kernel (C > 128) also a side's message,
+    its LayerNorm'd merge and its FFN hidden rows (64 x (C + C + 2C)
+    float32 a side)."""
     lay = rows_layout(C, H, dtype)
     Np = -(-N // 64) * 64
+    wide = 2 * 64 * 4 * C * 4 if C > 128 else 0
     return (2 * lay.kv_stages * lay.stage_bytes + 2 * 64 * 2 * C * 4
-            + 2 * Np * C * 4)
+            + 2 * Np * C * 4 + wide)
 
 
 def rows_mma_bytes(C: int) -> int:
@@ -526,7 +544,7 @@ def rows_mma_bytes(C: int) -> int:
     4)) strips, the summary C x (C + 8), ksum C, denominators 4 x 16 x 8,
     pooling 4 x 2C, two weight tiles of 32 x 72."""
     return 4 * (ROWS_WARPS * 16 * (4 * C + 12) + C * (C + 8) + C
-                + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C
+                + ROWS_WARPS * 16 * ROWS_MMA_MAX_HEADS + ROWS_WARPS * 2 * C
                 + 2 * 32 * 72)
 
 
@@ -537,12 +555,12 @@ def rows_mma_bytes_bf16(C: int) -> int:
     denominators 4 x 16 x 8, pooling 4 x 2C; two bf16 weight tiles of 64 x
     72."""
     return (4 * (ROWS_WARPS * 16 * (4 * C + 24) + C * (C + 8) + C
-                 + ROWS_WARPS * 16 * ROWS_MAX_HEADS + ROWS_WARPS * 2 * C)
+                 + ROWS_WARPS * 16 * ROWS_MMA_MAX_HEADS + ROWS_WARPS * 2 * C)
             + 2 * 64 * 72 * 2)
 
 
-MAX_C = 128             # widest head the kernels serve (past it: K6b)
-K6B = "ROADMAP.md K6b"
+MAX_C = 256             # widest head the kernels serve (past it: K7)
+K7 = "ROADMAP.md K7"
 
 
 def kernel_width(C: int, tier: int) -> int:
@@ -559,19 +577,20 @@ def plan(N: int, C: int, H: int, pos: bool = True,
     """The tier for sides of N rows and C channels in H heads, point head
     (`pos`) or image head: CLUSTER where its layout at width
     kernel_width(C, CLUSTER) fits in a block's shared memory (C <= 64, any
-    heads), else ROWS_MMA for the point head at C = 16, else ROWS (C <=
-    128, at most 8 heads). Raises ValueError for a shape that none takes,
-    past 128 channels or 8 heads naming ROADMAP.md's K6b. Each dtype has its
-    own kernels: at bf16 the cluster tier's layout is cluster_bytes_bf16 (up
-    to 208 rows at C = 64) and the rows tiers' rows_bytes_bf16 /
-    rows_mma_bytes_bf16; the rows tiers take the same widths and heads at
-    both. The bytes are those of the width the tier runs at."""
+    heads), else ROWS_MMA for the point head at C = 16 in at most 8 heads,
+    else ROWS (C <= 256: the wide kernel past 128; at most 16 heads).
+    Raises ValueError for a shape that none takes, past 256 channels or 16
+    heads naming ROADMAP.md's K7. Each dtype has its own kernels: at bf16
+    the cluster tier's layout is cluster_bytes_bf16 (up to 208 rows at C =
+    64) and the rows tiers' rows_bytes_bf16 / rows_mma_bytes_bf16; the rows
+    tiers take the same widths and heads at both. The bytes are those of
+    the width the tier runs at."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
     if C > MAX_C:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the kernels take at most "
-                         f"{MAX_C} channels ({K6B})")
+                         f"{MAX_C} channels ({K7})")
     bf16 = dtype == BF16
     if C <= CLUSTER_WIDTHS[-1]:
         cluster = (cluster_bytes_bf16 if bf16 else cluster_bytes)(
@@ -580,11 +599,21 @@ def plan(N: int, C: int, H: int, pos: bool = True,
             return Plan(CLUSTER, cluster)
     if H > ROWS_MAX_HEADS:
         raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
-                         f"most {ROWS_MAX_HEADS} heads ({K6B})")
-    if pos and C in ROWS_MMA_WIDTHS:
+                         f"most {ROWS_MAX_HEADS} heads ({K7})")
+    if pos and C in ROWS_MMA_WIDTHS and H <= ROWS_MMA_MAX_HEADS:
         return Plan(ROWS_MMA,
                     (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
     return Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dtype).smem)
+
+
+def rows_padded(C: int, H: int, parts: int) -> bool:
+    """Whether the rows tier serves a head of C channels in H heads through
+    its padded entry point (kernels' PAD instantiations): a width without an
+    instantiation of its own, the image head (`parts` 4), heads of fewer
+    than 8 channels (the exact instantiations read a head per 8-column
+    n-tile) and every width of the wide kernel (C > 128)."""
+    W = kernel_width(C, ROWS)
+    return W != C or parts == 4 or C // H < 8 or W > 128
 
 
 def rows_blocks(P: int, smem: int, device) -> int:
@@ -659,19 +688,43 @@ def _tail_blocks(C: int, pk: int, merge: str, fc1b: str, fc2: str) -> list:
     return seq
 
 
+def _halves(name: str, C: int, K: int, pk: int) -> list:
+    """The stages of a C-wide product over K in the wide kernel's order:
+    each 128-column half of the output, k-panel by k-panel, its two
+    64-column blocks a panel."""
+    return [(name, 128 * hf + 64 * rb, p * pk) for hf in range(C // 128)
+            for p in range(K // pk) for rb in range(2)]
+
+
+def _wide_tail_blocks(C: int, pk: int, merge: str, fc1b: str,
+                      fc2: str) -> list:
+    """A tile's weight stages of the chain's tail on the wide kernel (C >
+    128): merge in halves, fc1[C:] by hidden chunk x k-panel, fc2 in
+    halves over the 2C hidden columns."""
+    return (_halves(merge, C, C, pk)
+            + [(fc1b, 64 * h, p * pk) for h in range(2 * C // 64)
+               for p in range(C // pk)]
+            + _halves(fc2, C, 2 * C, pk))
+
+
 def weight_blocks(C: int, pk: int) -> list:
     """(matrix, row0, k0) of every weight stage of the rows tier in the
     order its producer streams them (csrc/match_rows_wg.cuh): a stage-1
     tile (the tail of stage 1), a summary tile ([Wk | Wv], 64-column chunks
     x k-panels), a stage-2 tile (Wq by k-panel x output block, fc1[:C] by
-    hidden chunk x k-panel, the tail of stage 2)."""
+    hidden chunk x k-panel, the tail of stage 2). On the wide kernel (C >
+    128) every C-wide output comes in 128-column halves (_halves); its
+    summary re-reads the [Wk | Wv] chunks of each unit from the same
+    copy."""
     nb, ch2, ppc = C // 64, 2 * C // 64, C // pk
-    seq = _tail_blocks(C, pk, "merge1", "fc1b1", "fc2_1")
+    tail = _wide_tail_blocks if C > 128 else _tail_blocks
+    seq = tail(C, pk, "merge1", "fc1b1", "fc2_1")
     seq += [("kv2", 64 * i, p * pk) for i in range(ch2) for p in range(ppc)]
-    seq += [("q2", 64 * rb, p * pk) for p in range(ppc) for rb in range(nb)]
+    seq += (_halves("q2", C, C, pk) if C > 128 else
+            [("q2", 64 * rb, p * pk) for p in range(ppc) for rb in range(nb)])
     seq += [("fc1a2", 64 * h, p * pk) for h in range(ch2)
             for p in range(ppc)]
-    return seq + _tail_blocks(C, pk, "merge2", "fc1b2", "fc2_2")
+    return seq + tail(C, pk, "merge2", "fc1b2", "fc2_2")
 
 
 def _weight_matrices(w1, w2) -> Dict[str, torch.Tensor]:
@@ -710,10 +763,11 @@ def _rows_stage_weights(w1, w2, bf16: bool) -> torch.Tensor:
 
 def message_blocks(C: int, H: int, pk: int) -> list:
     """(row0, k0) of a side's KV message stages: for each 64-column output
-    chunk j, the k-panels of its heads' band (64 columns from 64 j, or all
-    128 where a head has 128 channels)."""
-    kvn = 64 if C // H <= 64 else 128
-    return [(64 * j, (64 * j if kvn == 64 else 0) + b * pk)
+    chunk j, the k-panels of its heads' band (rows_kvn columns from the
+    band's start: 64 from 64 j, 128 from 0 at C = 128 in 128-channel heads,
+    all C on the wide kernel)."""
+    kvn = rows_kvn(C, H)
+    return [(64 * j, 64 * j // kvn * kvn + b * pk)
             for j in range(C // 64) for b in range(kvn // pk)]
 
 
@@ -761,6 +815,9 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     lanes; so does the image head on the rows tier (its `_pad` entry takes
     no position term). Such a launch also counts in
     `counter.padded_launches` by tier; the output is sliced back to 2C.
+    The rows tier's launches on the wide kernel (W > 128) and with more
+    than 8 heads also count in `counter.shape_launches` ("wide",
+    "many_heads", each also with "_bf16").
     `library` is another build of the kernels' entry points, as
     tools/ab_match.py times versions of them; it passes no counter. A build
     without the rows tier's entry points (an earlier csrc/match_rows*.cu)
@@ -779,7 +836,7 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     if tier == ROWS and how.tier != ROWS:
         if nhead > ROWS_MAX_HEADS:
             raise ValueError(f"N={N}, C={C}, nhead={nhead}: the rows tier "
-                             f"takes at most {ROWS_MAX_HEADS} heads ({K6B})")
+                             f"takes at most {ROWS_MAX_HEADS} heads ({K7})")
         how = Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dt).smem)
     elif tier not in (None, how.tier):
         raise ValueError(f"N={N}, C={C}, nhead={nhead}: the {TIER_NAMES[tier]}"
@@ -787,7 +844,7 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     lib = (library or _lib.LIBRARY).get()
     tier = how.tier
     W = kernel_width(C, tier)
-    padded = W != C or (tier == ROWS and parts == 4)
+    padded = W != C or (tier == ROWS and rows_padded(C, nhead, parts))
     if tier == ROWS and not hasattr(lib, layout_entry(ROWS, bf16)):
         tier = ROWS_MMA     # an earlier build: its one rows kernel
     entry = (_ENTRIES[tier] + ("_image" if tier == CLUSTER and parts == 4
@@ -880,6 +937,10 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         counter.tier_launches[tier_key(tier, bf16)] += 1
         if padded:
             counter.padded_launches[tier_key(tier, bf16)] += 1
+        if tier == ROWS and W > 128:
+            counter.shape_launches["wide" + sfx] += 1
+        if tier == ROWS and nhead > 8:
+            counter.shape_launches["many_heads" + sfx] += 1
     return unpad_pooled(out, C)
 
 
@@ -953,8 +1014,13 @@ for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
     _fn.tier_launches = {tier_key(t, b): 0 for b in (False, True)
                          for t in range(len(TIER_NAMES))}
     # of those, the launches in the padded layout (a width the tier has no
-    # instantiation for, or the image head on the rows tier)
+    # instantiation for; on the rows tier also the image head, heads of
+    # fewer than 8 channels and the wide kernel: rows_padded)
     _fn.padded_launches = dict(_fn.tier_launches)
+    # of those, the rows tier's on its wide kernel (C > 128) and with more
+    # than 8 heads
+    _fn.shape_launches = {k + b: 0 for k in ("wide", "many_heads")
+                          for b in ("", "_bf16")}
     _fn.bf16_launches = 0
 
 

@@ -8,19 +8,35 @@ device raises. `sa_stage_inference` folds BatchNorm into per-channel affines
 exactly as the JAX wrapper does (conv1's bias enters Ct through
 conv1_edge_factors; conv2/conv3's biases enter t2/t3) and calls it.
 
+Widths. The kernels take C a multiple of 32 from 32 to MAX_C = 2048 (the
+float32 kernel's layout for each, `plan_f32`: two row buffers up to 1,792
+channels, the h1-from-gather layout past them). Any other C up to 2048 runs
+at kernel_width(C), the next multiple of 32 (at least 32), in the padded
+layout of `pad_args`: zeros in lanes C .. W - 1 of A, Ct, w2, w3 (rows and
+columns) and the six affines, the output sliced back to C. Zeros are exact
+there: a padded lane is relu(0 * s + 0) = 0 through all three convs, it
+adds exact zeros to every real lane's sums, and the max of zeros is 0, so
+no lane needs a mask (tests/test_torch_wide_widths.py holds the padded
+plain version equal to the unpadded one bit for bit). Past 2048 channels
+the wrapper raises naming ROADMAP_SA_WIDTHS.
+
 Under a bf16 model (the JAX kernel with A and Ct in the model dtype) A, Ct
 and the output are bf16 and the weights and affines float32; each product
 multiplies bf16-rounded operands with float32 accumulation. On CUDA that is
-csrc/sa_stage_bf16.cu, whose tier `plan_bf16(C, K, R)` names: "wgmma" (C =
+csrc/sa_stage_bf16.cu, whose tier `plan_bf16(W, K, R)` names: "wgmma" (W =
 32, 64, 128, 256, 512, 1024: a persistent grid, weights through a
 shared-memory ring, every product on wgmma) or "mma_sync" (the first
-version's row tiles, for the other multiples of 32 up to 1024, which no
-registered leaf reaches). The wrapper converts w2 and w3 to bf16 once per
+version's row tiles, for the other multiples of 32 up to 2048: the wgmma
+tier keeps h2 in registers over 64-row m-tiles and so stops at 1024, while
+the row tiles' two bf16 buffers of 16 x (W + 8) take 131,584 bytes at W =
+2048). The wrapper converts w2 and w3 to bf16 once per
 weight tensor (utils/cache.py): into the wgmma tier's stage layout
 (stage_weights), or (out, in) for the mma_sync tier. bf16 launches count in
 `fused_sa_convmax.bf16_launches` and by tier in
 `fused_sa_convmax.bf16_tiers`, the float32 kernel's in
-`fused_sa_convmax.launches`.
+`fused_sa_convmax.launches` and by layout in `fused_sa_convmax.f32_layouts`;
+launches in the padded layout also in `fused_sa_convmax.padded_launches`
+("float32", "bf16").
 """
 from __future__ import annotations
 
@@ -29,6 +45,7 @@ import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.geometry import conv1_edge_factors
 from ..utils.cache import derived
@@ -36,13 +53,102 @@ from . import _lib
 
 BF16 = torch.bfloat16
 # where the SA kernels' missing widths are queued
-ROADMAP_SA_WIDTHS = ("ROADMAP.md section 2, 'K5. Row 1 at widths neither SA "
-                     "kernel takes'")
+ROADMAP_SA_WIDTHS = "ROADMAP.md K7"
+MAX_C = 2048            # widest SA stage the kernels take
+MAX_SMEM = 232448       # dynamic shared memory a block may take
+
+
+def kernel_width(C: int) -> int:
+    """The width the SA kernels run a stage of C channels at: C where it is
+    a multiple of 32 from 32 to MAX_C, else the next one (the padded
+    layout). Raises ValueError past MAX_C."""
+    if not 1 <= C <= MAX_C:
+        raise ValueError(f"fused_sa_convmax: C={C}; the kernels take 1 to "
+                         f"{MAX_C} channels ({ROADMAP_SA_WIDTHS})")
+    return max(32, -(-C // 32) * 32)
+
+
+def _lanes(x: torch.Tensor, W: int) -> torch.Tensor:
+    return F.pad(x, (0, W - x.shape[-1]))
+
+
+def _weight(w: torch.Tensor, W: int, contiguous: bool) -> torch.Tensor:
+    """w (C, C) (in, out) float32 as the kernels take it at width W: zero
+    rows and columns past C, contiguous where the float32 kernel needs it
+    or padded; made once per weight tensor. The bf16 kernel's own copy
+    (launch) takes any strides."""
+    if W == w.shape[0] and (w.is_contiguous() or not contiguous):
+        return w
+    return derived((w,), ("sa_stage_w", W),
+                   lambda: F.pad(w, (0, W - w.shape[1], 0, W - w.shape[0]))
+                   .contiguous())
+
+
+def pad_args(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, W: int) -> tuple:
+    """fused_sa_convmax's arguments of width C in the padded layout of
+    width W >= C: zeros in lanes C .. W - 1 of A, Ct and the affines, and
+    in w2's and w3's rows and columns past C (the weights padded once per
+    weight tensor, contiguous)."""
+    C = A.shape[-1]
+    vecs = (s1, t1, s2, t2, s3, t3)
+    if W != C:
+        A, Ct = _lanes(A, W), _lanes(Ct, W)
+        vecs = tuple(_lanes(v, W) for v in vecs)
+    contiguous = A.dtype != BF16
+    return (A, Ct, idx, _weight(w2, W, contiguous),
+            _weight(w3, W, contiguous)) + vecs
+
+
+# ---- the float32 kernel's layout (csrc/sa_stage.cu, pcr_sa_convmax) ----
+
+F32_WARPS = 8           # warps a block; 16 where there are 16 column chunks
+TWO_BUFFERS, GATHER_H1 = "two_buffers", "gather_h1"
+
+
+class SaF32Plan(NamedTuple):
+    layout: str          # TWO_BUFFERS or GATHER_H1
+    warps: int           # warps a block
+    nt: int              # n-tiles (8 columns) a warp's column chunk
+    tile_rows: int       # rows M a block
+    smem: int            # shared bytes a block
+    whole_centres: bool  # every centre's K rows lie in one block
+
+
+@functools.lru_cache(maxsize=None)
+def plan_f32(W: int, K: int) -> SaF32Plan:
+    """The float32 kernel's launch for width W (a multiple of 32, 32 to
+    MAX_C) and K neighbours, as csrc/sa_stage.cu's pcr_sa_convmax: NT the
+    largest of 1, 2, 4 leaving 8 column chunks, 16 warps where there are
+    16 chunks, M = groups x MT x 16 rows with MT the most m-tiles (8 / 4 /
+    3 for NT 1 / 2 / 4) whose two row buffers of M x (W + 4) floats fit a
+    block's shared memory. Where even one m-tile's two buffers do not fit
+    (W > 1,792), the h1-from-gather layout: M = 16, conv2's A fragments
+    formed from the gather, one buffer (h2) and a 16 x 32 strip a warp for
+    conv3's columns before the max."""
+    if W % 32 or not 32 <= W <= MAX_C or K < 1:
+        raise ValueError(f"plan_f32: W={W}, K={K}; want W a multiple of 32 "
+                         f"from 32 to {MAX_C} and K >= 1")
+    ntiles = W // 8
+    nt = 1
+    for d in (2, 4):
+        if ntiles % d == 0 and ntiles // d >= F32_WARPS:
+            nt = d
+    chunks = ntiles // nt
+    warps = 2 * F32_WARPS if chunks >= 2 * F32_WARPS else F32_WARPS
+    groups = warps // chunks if chunks < warps else 1
+    mt = {1: 8, 2: 4}.get(nt, 3)
+    while mt > 1 and 2 * groups * mt * 16 * (W + 4) * 4 > MAX_SMEM:
+        mt -= 1
+    M = groups * mt * 16
+    if 2 * M * (W + 4) * 4 <= MAX_SMEM:
+        return SaF32Plan(TWO_BUFFERS, warps, nt, M, 2 * M * (W + 4) * 4,
+                         M % K == 0)
+    return SaF32Plan(GATHER_H1, warps, nt, 16,
+                     16 * (W + 4) * 4 + warps * 16 * 32 * 4, 16 % K == 0)
 
 
 # ---- the bf16 kernel's launch plan (csrc/sa_stage_bf16.cu, make_plan) ----
 
-MAX_SMEM = 232448               # dynamic shared memory a block may take
 WGMMA, MMA_SYNC = "wgmma", "mma_sync"
 BF16_TIERS = (WGMMA, MMA_SYNC)
 WGMMA_WIDTHS = (32, 64, 128, 256, 512, 1024)
@@ -112,12 +218,16 @@ def plan_bf16(C: int, K: int, R: int = 0) -> SaPlan:
     """The bf16 kernel's launch plan for width C, K neighbours and R = B S K
     rows, as csrc/sa_stage_bf16.cu's make_plan: the wgmma tier at C in
     WGMMA_WIDTHS, the mma_sync tier at the other multiples of 32 up to
-    1024. Raises NotImplementedError on a width neither takes and
-    ValueError on K < 1 or R >= 2^31."""
-    if C % 32 or not 32 <= C <= 1024:
+    MAX_C (past 1024 the wgmma tier's h2, C / 4 registers a thread over a
+    64-row m-tile, does not fit; the row tiles' two buffers do, at one
+    m-tile of 16 rows from 1,088 channels on). C is the kernel's width
+    (kernel_width of the model's). Raises NotImplementedError on a width
+    neither tier takes and ValueError on K < 1 or R >= 2^31."""
+    if C % 32 or not 32 <= C <= MAX_C:
         raise NotImplementedError(
             f"fused_sa_convmax at bf16: C={C}; the bf16 kernel takes C "
-            f"a multiple of 32 from 32 to 1024 ({ROADMAP_SA_WIDTHS})")
+            f"a multiple of 32 from 32 to {MAX_C} (other widths run padded "
+            f"to kernel_width; past it {ROADMAP_SA_WIDTHS})")
     if K < 1 or R >= 2 ** 31:
         raise ValueError(f"fused_sa_convmax at bf16: K={K}, R={R}; want "
                          "K >= 1 and B * S * K below 2^31")
@@ -223,29 +333,36 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
 
     A (B, N, C) per-point conv1 factor; Ct (B, S, C) per-centre term;
     idx (B, S, K) neighbour indices into N; w2/w3 (C, C) in (in, out)
-    layout; s*/t* (C,) folded BN affines. Returns (B, S, C) in A's dtype:
-    float32, or bf16 (A and Ct bf16, the rest float32). On CUDA, C must be
-    a multiple of 32 from 32 to 1024 (ValueError at float32,
-    NotImplementedError at bf16).
+    layout (any strides); s*/t* (C,) folded BN affines. Returns (B, S, C)
+    in A's dtype: float32, or bf16 (A and Ct bf16, the rest float32). On
+    CUDA any C up to MAX_C (a width off the kernels' multiples of 32 in the
+    padded layout, pad_args); past it ValueError.
     """
     if A.device.type == "cpu":
         return sa_convmax_reference(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
     if A.device.type != "cuda":
         raise RuntimeError(f"fused_sa_convmax: no kernel for {A.device}")
-    out = launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
-    if A.dtype == BF16:
+    C = A.shape[-1]
+    W = kernel_width(C)
+    out = launch(*pad_args(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, W))
+    bf16 = A.dtype == BF16
+    if bf16:
         fused_sa_convmax.bf16_launches += 1
-        fused_sa_convmax.bf16_tiers[plan_bf16(
-            A.shape[2], idx.shape[2]).tier] += 1
+        fused_sa_convmax.bf16_tiers[plan_bf16(W, idx.shape[2]).tier] += 1
     else:
         fused_sa_convmax.launches += 1
+        fused_sa_convmax.f32_layouts[plan_f32(W, idx.shape[2]).layout] += 1
+    if W != C:
+        fused_sa_convmax.padded_launches["bf16" if bf16 else "float32"] += 1
+        out = out[..., :C].contiguous()
     return out
 
 
 def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
            library: Optional[_lib.Library] = None) -> torch.Tensor:
-    """Check CUDA inputs as fused_sa_convmax takes them and launch the
-    kernel of their dtype: csrc/sa_stage.cu (float32), or
+    """Check CUDA inputs at a width the kernels take (a multiple of 32, 32
+    to MAX_C: pad_args lays out any other) and launch the kernel of their
+    dtype: csrc/sa_stage.cu (float32; w2, w3 contiguous), or
     csrc/sa_stage_bf16.cu (A and Ct bf16; w2, w3 float32 in any strides,
     handed to the kernel converted once, bf16 in (out, in) layout; the tier
     plan_bf16 names, which must be the build's own plan).
@@ -267,11 +384,11 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
     for t in (Ct, idx, w2, w3) + vecs:
         if t.device != A.device:
             raise ValueError("fused_sa_convmax: inputs on different devices")
+    if kernel_width(C) != C:
+        raise ValueError(f"fused_sa_convmax: C={C}; the kernels take C a "
+                         f"multiple of 32 from 32 to {MAX_C} (pad_args lays "
+                         "out any other width)")
     how = plan_bf16(C, K, B * S * K) if bf16 else None
-    if C % 32 or not 32 <= C <= 1024:
-        raise ValueError(f"fused_sa_convmax: C={C}; the kernel takes C a "
-                         "multiple of 32 from 32 to 1024 (the widths 32, 64 "
-                         "and 128 x mul of the port's configs)")
     if B * S * K >= 2 ** 31:
         raise ValueError("fused_sa_convmax: B * S * K must be below 2^31")
     lib = (library or _lib.LIBRARY).get()
@@ -301,6 +418,10 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
 fused_sa_convmax.launches = 0
 fused_sa_convmax.bf16_launches = 0
 fused_sa_convmax.bf16_tiers = dict.fromkeys(BF16_TIERS, 0)
+# of those, the launches in the padded layout, by dtype
+fused_sa_convmax.padded_launches = {"float32": 0, "bf16": 0}
+# the float32 kernel's launches by layout (plan_f32)
+fused_sa_convmax.f32_layouts = dict.fromkeys((TWO_BUFFERS, GATHER_H1), 0)
 
 
 def _expect(t: torch.Tensor, shape, dtype, name: str,
@@ -335,8 +456,9 @@ def sa_stage_args(xyz: torch.Tensor, points: Optional[torch.Tensor],
     xyz (B, N, 3); points (B, N, D) or None; idx (B, S, K) kNN indices with
     centres = the first S points (clamped when S > N); convs: three
     (weight (out, in), bias) pairs; bns: three (gamma, beta, mean, var).
-    dtype: the model's compute dtype (bf16: A and Ct in it, and w2, w3 as
-    transposed views of the weights, which the bf16 kernel converts once).
+    dtype: the model's compute dtype (bf16: A and Ct in it). w2, w3 are
+    transposed views of the weights, which the wrappers copy into the
+    kernels' layout once per weight tensor.
     """
     B, S, K = idx.shape
     N = xyz.shape[1]
@@ -348,11 +470,8 @@ def sa_stage_args(xyz: torch.Tensor, points: Optional[torch.Tensor],
     s1, t1 = bn_affine(bns[0], eps)
     s2, t2 = bn_affine(bns[1], eps, b2)
     s3, t3 = bn_affine(bns[2], eps, b3)
-    w2, w3 = w2.t(), w3.t()
-    if dtype is None:
-        w2, w3 = w2.contiguous(), w3.contiguous()
     return (A.contiguous(), Ct.contiguous(), idx.to(torch.int32).contiguous(),
-            w2, w3, s1, t1, s2, t2, s3, t3)
+            w2.t(), w3.t(), s1, t1, s2, t2, s3, t3)
 
 
 def sa_stage_inference(xyz, points, idx, convs, bns, eps: float = 1e-5,

@@ -25,6 +25,12 @@ image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
 16), or several such shapes at once with --shapes C:N:GRID[:HEADS],...
 (one build for all; 2 heads unless given). A width the tiles have no
 instantiation for runs in the padded layout (kernels/match_grid.pad_side).
+The rows tier past 128 channels and 8 heads (--shapes 256:128:128:2 for
+conv_out256's two 128-channel heads, 128:128:128:16 for heads16's 16 heads
+of 8) runs from csrc/match_rows.cu (16 heads) and, past 128 channels, the
+wide kernel of csrc/match_rows_pad.cu: give such a version as
+csrc/match_rows.cu+csrc/match_rows_pad.cu (or their _bf16 files with
+--bf16).
 `--tier rows` drives every shape through the rows tier whatever the plan
 picks (kernels/match_grid.launch(tier=ROWS)); given with `--tier plan` as
 well, each source is timed both ways in turns, one version per (source,
@@ -45,7 +51,8 @@ its padded entry points: csrc/match_rows.cu+csrc/match_rows_pad.cu).
 
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
         [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
-        [--shapes 128:128:128,64:2048:16,96:128:128:3] [--bf16]
+        [--shapes 128:128:128,64:2048:16,96:128:128:3,256:128:128:2,
+                  128:128:128:16] [--bf16]
         [--tier plan] [--tier rows]
 
 Needs a CUDA device and nvcc. TF32 off.
@@ -130,7 +137,7 @@ def layout_bytes(lib, t, nhead, tier=None) -> int:
     if tier is None:
         tier = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype).tier
     W = mg.kernel_width(C, tier)
-    padded = W != C or (tier == mg.ROWS and len(t) == 4)
+    padded = W != C or (tier == mg.ROWS and mg.rows_padded(C, nhead, len(t)))
     entry = mg.layout_entry(tier, bf16)
     if not hasattr(lib.get(), entry) and tier == mg.ROWS:
         entry = mg.layout_entry(mg.ROWS_MMA, bf16)

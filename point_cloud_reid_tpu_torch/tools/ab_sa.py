@@ -12,7 +12,9 @@ to kernels/sa_stage.plan_bf16). Every version runs the three eval SA stages
 on 128 seeded crops of 128 points, at the flagship's widths (SA1 / SA2 /
 SA3: N, S, K, C = 128, 128, 32, 128 / 128, 64, 48, 256 / 64, 32, 48, 512)
 or with --mul 8 the 7M model's (C = 256 / 512 / 1024; its SA stages are the
-flagship's at mul 8); seed-0 weights of a model of that dtype; each stage
+flagship's at mul 8), or with --mul 16 the `mul16` width's (C = 512 / 1024
+/ 2048: SA3 on the float32 kernel's h1-from-gather layout and the bf16
+kernel's mma_sync tier); seed-0 weights of a model of that dtype; each stage
 fed by the one before, as in the backbone. Versions are timed in turns
 (first to last, then last to first, `--rounds` times) with CUDA events,
 each output is compared with the plain version and with the first
@@ -25,7 +27,7 @@ and, at bf16, the plan the build reports (null for a build without
 `pcr_sa_bf16_layout`).
 
     python -m point_cloud_reid_tpu_torch.tools.ab_sa SOURCE [SOURCE ...]
-        [--rounds 5] [--iters 10] [--bf16] [--mul 8]
+        [--rounds 5] [--iters 10] [--bf16] [--mul 8|16]
 
 Needs a CUDA device and nvcc. TF32 off.
 """
@@ -46,9 +48,11 @@ from .timing import time_ms
 
 def stage_inputs(B: int = 128, seed: int = 0, device="cuda",
                  dtype: torch.dtype = torch.float32, mul: int = 4) -> list:
-    """fused_sa_convmax's arguments for the three eval SA stages of the
-    flagship at `mul` (4: its own widths; 8: the 7M model's) on B seeded
-    crops of 128 points, a model of `dtype` (bf16: A and Ct bf16)."""
+    """kernels/sa_stage.launch's arguments for the three eval SA stages of
+    the flagship at `mul` (4: its own widths; 8: the 7M model's; 16: SA
+    widths 512 / 1024 / 2048) on B seeded crops of 128 points, a model of
+    `dtype` (bf16: A and Ct bf16), laid out as the wrapper hands them to
+    the kernel (sa_stage.pad_args at kernel_width)."""
     from ..configs import point_transformer_point_cat
     from ..models import build_model
     from ..ops.geometry import knn_indices
@@ -63,11 +67,13 @@ def stage_inputs(B: int = 128, seed: int = 0, device="cuda",
         for mod, S in zip(model.backbone.SA_modules, model.backbone_list):
             cidx = torch.arange(S, device=device).clamp(max=xyz.shape[1] - 1)
             idx = knn_indices(mod.nsample, xyz, xyz[:, cidx])
-            stages.append(sa.sa_stage_args(
+            args = sa.sa_stage_args(
                 xyz, points, idx, [(c.weight, c.bias) for c in mod.mlp_convs],
                 [(b.weight, b.bias, b.running_mean, b.running_var)
                  for b in mod.mlp_bns], mod.mlp_bns[0].eps,
-                dtype if bf16 else None))
+                dtype if bf16 else None)
+            stages.append(sa.pad_args(*args, sa.kernel_width(
+                args[0].shape[-1])))
             xyz, points = mod(xyz, points, S)
     return stages
 
@@ -80,7 +86,8 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true",
                     help="versions of csrc/sa_stage_bf16.cu on bf16 inputs")
     ap.add_argument("--mul", type=int, default=4,
-                    help="width multiplier: 4 the flagship, 8 the 7M model")
+                    help="width multiplier: 4 the flagship, 8 the 7M model, "
+                    "16 SA widths 512 / 1024 / 2048")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_sa needs a CUDA device")

@@ -10,6 +10,7 @@ traced.
 from __future__ import annotations
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -70,6 +71,17 @@ KNOBS = dict(knn_method="pallas", attention="linear-pallas")
 # passes); with XLA's algebraic simplifier off it is right.
 # `python -m tests._torch_grad_reference` shows both.
 NO_ALGSIMP = {"xla_disable_hlo_passes": "algsimp"}
+
+
+def compile_together(*lowered):
+    """The compiled programs of jax.jit(...).lower(...) results, each with
+    NO_ALGSIMP, compiled at once, a thread each: XLA's compiler releases
+    the GIL, so a test's gradient and train step (the same model's forward
+    and backward, each compiled for tens of seconds) compile side by
+    side."""
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        return list(pool.map(
+            lambda low: low.compile(compiler_options=NO_ALGSIMP), lowered))
 
 
 def tiny_cfg(knn_method="argsort", attention="linear", aux=True) -> dict:

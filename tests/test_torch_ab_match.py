@@ -5,6 +5,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from point_cloud_reid_tpu_torch.kernels import _lib  # noqa: E402
+from point_cloud_reid_tpu_torch.kernels import match_grid as mg  # noqa: E402
 from point_cloud_reid_tpu_torch.tools import ab_match  # noqa: E402
 from tests._torch_threads import few_threads  # noqa: E402,F401
 
@@ -76,6 +77,24 @@ def test_shapes_name_several_point_shapes(monkeypatch):
     with pytest.raises(SystemExit, match="CUDA"):
         ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu",
                        "--shapes", "128:128:128,64:2048:16", "--bf16"])
+
+
+def test_shapes_take_the_wide_kernel_and_16_heads(monkeypatch):
+    """--shapes 256:128:128:2 (conv_out256: the rows tier's wide kernel,
+    through the padded entry point) and 128:128:128:16 (heads16: the exact
+    C = 128 instantiation at 16 heads), at both dtypes; without a card the
+    tool exits before it builds."""
+    shapes = ab_match.parse_shapes("256:128:128:2,128:128:128:16")
+    assert shapes == [(256, 128, 128, 2), (128, 128, 128, 16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, N, _, H in shapes:
+            assert mg.plan(N, C, H, dtype=dtype).tier == mg.ROWS
+            assert mg.rows_padded(C, H, 5) == (C > 128)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu+"
+                       "point_cloud_reid_tpu_torch/csrc/match_rows_pad.cu",
+                       "--shapes", "256:128:128:2,128:128:128:16", "--bf16"])
 
 
 def test_ptxas_usage_reads_a_build_log():

@@ -26,9 +26,10 @@ def test_stage_inputs_are_the_flagship_stages():
 
 
 @pytest.mark.parametrize("mul,widths", [(4, (128, 256, 512)),
-                                        (8, (256, 512, 1024))])
+                                        (8, (256, 512, 1024)),
+                                        (16, (512, 1024, 2048))])
 def test_bf16_stage_inputs_at_both_widths(mul, widths):
-    """--bf16 [--mul 8]: A and Ct bf16, idx int32, the weights and affines
+    """--bf16 [--mul 8 | 16]: A and Ct bf16, idx int32, the weights and affines
     float32 (the bf16 kernel's arguments), the same bits from the same
     seed, and the plain version's bf16 output."""
     stages = ab_sa.stage_inputs(2, device="cpu", dtype=torch.bfloat16,

@@ -95,8 +95,8 @@ def test_bf16_plan_picks_the_tier():
     assert tmg.plan(128, 128, 8, dtype=BF16).tier == tmg.ROWS
     assert tmg.plan(CLUSTER_EDGE + 1, 64, 2, pos=False, dtype=BF16) == \
         tmg.Plan(tmg.ROWS, tmg.rows_bytes_bf16(64))
-    with pytest.raises(ValueError, match="at most 8 heads"):
-        tmg.plan(128, 128, 16, dtype=BF16)
+    with pytest.raises(ValueError, match="at most 16 heads"):
+        tmg.plan(128, 128, 32, dtype=BF16)
     # float32: the cluster tier holds up to 224 rows at C = 64, C = 128 is
     # the rows tier's
     for N, C, tier in ((128, 64, tmg.CLUSTER), (197, 64, tmg.CLUSTER),

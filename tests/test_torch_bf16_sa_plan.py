@@ -70,15 +70,19 @@ def test_plan_at_the_served_widths(C, want):
 def test_plan_takes_any_k_and_refuses_what_no_tier_takes():
     """The wgmma tier's plan does not depend on K (a centre's rows fill
     ceil(K / 16) m-tiles of one warp); the mma_sync tier's centres are
-    whole where K divides its M rows. Widths off the multiples of 32, K < 1
-    and B S K >= 2^31 raise."""
+    whole where K divides its M rows; past 1024 channels the mma_sync tier
+    takes every multiple of 32 to 2048. Kernel widths off the multiples of
+    32 (the wrapper pads them to kernel_width) or past 2048, K < 1 and
+    B S K >= 2^31 raise."""
     for K in (1, 7, 16, 33, 200):
         assert sa.plan_bf16(256, K) == sa.plan_bf16(256, 48)
     assert sa.plan_bf16(96, 16).whole_centres
     assert not sa.plan_bf16(96, 20).whole_centres
     assert {sa.plan_bf16(C, 32).tier for C in range(32, 1025, 32)} == {
         sa.WGMMA, sa.MMA_SYNC}
-    for C in (16, 48, 1056):
+    assert {sa.plan_bf16(C, 32).tier for C in range(1056, 2049, 32)} == {
+        sa.MMA_SYNC}
+    for C in (16, 48, 2080):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sa.plan_bf16(C, 8)
     with pytest.raises(ValueError, match="K=0"):

@@ -41,10 +41,10 @@ from point_cloud_reid_tpu_torch.train import (ScheduleConfig,  # noqa: E402
                                               make_train_step)
 from point_cloud_reid_tpu_torch.train.losses import reid_losses  # noqa: E402
 from tests._torch_image import jax_variables_of, tiny_image_cfg  # noqa: E402
-from tests._torch_port import (F32_LEAF_FLOOR, NO_ALGSIMP,  # noqa: E402
+from tests._torch_port import (F32_LEAF_FLOOR,  # noqa: E402
                                assert_bf16_logs_close, assert_grads_close,
-                               flat_grads, jax_batch, jax_negatives,
-                               port_flat, torch_batch)
+                               compile_together, flat_grads, jax_batch,
+                               jax_negatives, port_flat, torch_batch)
 from tests._torch_threads import few_threads  # noqa: E402,F401
 
 VARIANT = "deit-test"
@@ -91,10 +91,6 @@ def image_batch(i: int) -> dict:
     batch = {k: v.copy() for k, v in _pipeline_batches()[i].items()}
     batch["vis_1"][1] = -1
     return batch
-
-
-def _compile(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=NO_ALGSIMP)
 
 
 def _run(dtype, jax_dtype, steps: int, freeze: bool = False):
@@ -151,7 +147,11 @@ def _run_on(dtype, jax_dtype, steps, freeze):
                                              batch["id_2"], 5))
         rec = {"start": start}
         if i == 0:
-            jgrad = _compile(jax_grads, jstate.params, jbatch, key)
+            jgrad, jstep = compile_together(
+                jax.jit(jax_grads).lower(jstate.params, jbatch, key),
+                j_train_step(jmodel, tx, USE, {}, donate=False, monitor=True,
+                             triplet_margin=MARGIN).lower(jstate, jbatch,
+                                                          key))
         rec["jgrads"] = port_flat(jgrad(jstate.params, jbatch, key))
         if i == 0:
             probe = copy.deepcopy(tmodel)
@@ -162,9 +162,6 @@ def _run_on(dtype, jax_dtype, steps, freeze):
             rec["tgrads"] = {k: (p.grad if p.grad is not None
                                  else torch.zeros_like(p)).double().numpy()
                              for k, p in probe.named_parameters()}
-            jstep = j_train_step(jmodel, tx, USE, {}, donate=False,
-                                 monitor=True, triplet_margin=MARGIN).lower(
-                jstate, jbatch, key).compile(compiler_options=NO_ALGSIMP)
         jstate, jlog = jstep(jstate, jbatch, key)
         state, tlog = tstep(state, tbatch, None, neg)
         rec["jlog"] = {k: float(v) for k, v in jlog.items()}

@@ -72,13 +72,16 @@ def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
 
 
 def test_sa_convmax_kernel_refuses_other_widths(cuda):
-    """The kernel takes C a multiple of 32 from 32 to 1024; the wrapper
-    raises before any launch on another width."""
+    """The kernels take any C up to 2048 (the wrapper pads a width off the
+    multiples of 32); past 2048 (ROADMAP.md K7) the wrapper raises before
+    any launch, and kernels/sa_stage.launch refuses an unpadded width."""
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     before = sa.fused_sa_convmax.launches
-    for C in (48, 16, 1056):
-        with pytest.raises(ValueError, match="multiple of 32"):
+    for C in (2080, 4096):
+        with pytest.raises(ValueError, match="K7"):
             sa.fused_sa_convmax(*_sa_args(cuda, 1, 8, 4, 4, C))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        sa.launch(*_sa_args(cuda, 1, 8, 4, 4, 48))
     assert sa.fused_sa_convmax.launches == before
 
 
@@ -198,7 +201,9 @@ def test_match_rows_tier_matches_plain(cuda, N, C, nhead):
 @pytest.mark.parametrize("N,C,dtype", [(240, 64, torch.float32),
                                        (130, 128, torch.float32),
                                        (240, 64, torch.bfloat16),
-                                       (130, 128, torch.bfloat16)])
+                                       (130, 128, torch.bfloat16),
+                                       (130, 256, torch.float32),
+                                       (130, 256, torch.bfloat16)])
 def test_match_rows_tier_walks_more_pairs_than_blocks(cuda, N, C, dtype):
     """More pairs than the card's blocks at once: each block scores pairs
     in turn in its own slot of the scratch, and a pair list in reverse
@@ -306,7 +311,7 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
 def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
     """C=12 is not a multiple of the tensor-core tiles' 8 columns: it runs
     in the padded layout of the cluster tier's C = 16 and meets the plain
-    version; past 128 channels (ROADMAP.md K6b) the wrapper raises before
+    version; past 256 channels (ROADMAP.md K7) the wrapper raises before
     any launch."""
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 12)
@@ -317,9 +322,9 @@ def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
     di = torch.tensor([0, 1, 0, 1], device=cuda)
     _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
                                            ).reshape(2, 2, -1))
-    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 136)
+    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 264)
     before = mg.fused_image_match_grid.launches
-    with pytest.raises(ValueError, match="K6b"):
+    with pytest.raises(ValueError, match="K7"):
         mg.fused_image_match_grid(t, d, w1, w2, nhead)
     assert mg.fused_image_match_grid.launches == before
 
@@ -801,22 +806,24 @@ def test_sa_bf16_layout_equals_the_plan(cuda):
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     lib = _lib.LIBRARY.get()
-    for C in range(32, 1025, 32):
+    for C in range(32, 2049, 32):
         for K in (1, 7, 16, 32, 48, 200):
             want = sa.plan_bf16(C, K)
             assert sa.kernel_plan_bf16(C, K, lib) == want, (C, K)
             assert want.smem <= sa.MAX_SMEM
     assert sa.plan_bf16(128, 32) == sa.SaPlan(sa.WGMMA, 192, 3, 1, 4,
                                               121920, True)
-    for C, K in ((16, 8), (48, 8), (1056, 8), (128, 0)):
+    for C, K in ((16, 8), (48, 8), (2080, 8), (128, 0)):
         assert sa.kernel_plan_bf16(C, K, lib) is None
 
 
 def test_sa_convmax_bf16_kernel_refuses_other_widths(cuda):
+    """At bf16 as at float32: past 2048 channels (ROADMAP.md K7) the
+    wrapper raises before any launch."""
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     before = sa.fused_sa_convmax.bf16_launches
-    for C in (48, 16, 1056):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for C in (2080, 4096):
+        with pytest.raises(ValueError, match="K7"):
             sa.fused_sa_convmax(*_sa_args_bf16(cuda, 1, 8, 4, 4, C))
     assert sa.fused_sa_convmax.bf16_launches == before
 
@@ -898,8 +905,9 @@ def test_match_rows_bf16_matches_plain(cuda, N, C, nhead):
 
 def _rows_layouts_equal_the_plan(lib, dtype):
     """The rows tiers' layout entry points at `dtype` give the status and
-    the bytes plan reckons: the wgmma tier at C = 64 / 128 (1 to 8 heads,
-    any N), the first rows kernel at C = 16; what neither takes is 1."""
+    the bytes plan reckons: the wgmma tier at C = 64 / 128 / 256 (1 to 16
+    heads, any N), the first rows kernel at C = 16 (up to 8 heads); what
+    neither takes is 1."""
     import ctypes
 
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
@@ -908,7 +916,8 @@ def _rows_layouts_equal_the_plan(lib, dtype):
     for (N, C, H), (wg, mma) in {
             (225, 64, 2): (0, 1), (1, 64, 1): (0, 1), (2048, 64, 8): (0, 1),
             (1, 128, 2): (0, 1), (128, 128, 8): (0, 1), (129, 128, 1): (0, 1),
-            (2849, 16, 2): (1, 0), (128, 128, 16): (1, 1),
+            (2849, 16, 2): (1, 0), (128, 128, 16): (0, 1),
+            (128, 128, 32): (1, 1), (1, 256, 1): (0, 1), (300, 256, 16): (0, 1),
             (128, 32, 2): (1, 1), (128, 128, 3): (1, 1),
             (0, 64, 2): (1, 1)}.items():
         assert getattr(lib, f"pcr_match_rows_wg{sfx}_layout")(
@@ -984,3 +993,87 @@ def test_global_batch_norm_on_the_card_matches_the_cpu(cuda, M, C):
     for got, want in zip(out[1], out[0]):
         err = (got - want).abs().max().item()
         assert err <= 1e-9 * max(1.0, want.abs().max().item()), err
+
+
+# ---- ROADMAP.md K5 and K6b: the SA stage at any width up to 2048 and the
+# match chain past 128 channels and 8 heads
+
+# C = 16 and 48 in the padded layout (32, 64), 1,056 and 1,824 on the float32
+# kernel's two buffers of one m-tile, 2,000 (padded to 2,016) and 2048 on its
+# h1-from-gather layout (the mul16 model's SA3), with K dividing 16 (K = 16,
+# 48), not dividing it (5, 20) and a ragged last block; the bf16 kernel's
+# mma_sync tier past 1024
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (3, 40, 20, 12, 16), (2, 50, 25, 20, 48), (2, 64, 32, 48, 1056),
+    (2, 64, 32, 48, 1824), (2, 64, 32, 5, 2000), (4, 64, 32, 48, 2048),
+    (3, 64, 25, 20, 2048), (2, 40, 7, 16, 2048), (16, 64, 32, 48, 2048)])
+def test_sa_wide_and_padded_widths_match_plain(cuda, B, N, S, K, C, dtype):
+    """fused_sa_convmax at widths past the first kernels' (ROADMAP.md K5):
+    one launch of the dtype's kernel (in the padded layout where C is off
+    the multiples of 32), against the plain version at the true width."""
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    bf16 = dtype == torch.bfloat16
+    args = (_sa_args_bf16 if bf16 else _sa_args)(cuda, B, N, S, K, C)
+    fn = sa.fused_sa_convmax
+    W = sa.kernel_width(C)
+    key = "bf16" if bf16 else "float32"
+    before = (fn.bf16_launches if bf16 else fn.launches,
+              fn.padded_launches[key])
+    got = fn(*args)
+    assert got.shape == (B, S, C) and got.dtype == dtype
+    assert (fn.bf16_launches if bf16 else fn.launches) == before[0] + 1
+    assert fn.padded_launches[key] == before[1] + (W != C)
+    if bf16:
+        assert sa.plan_bf16(W, K).tier == (sa.WGMMA if W in sa.WGMMA_WIDTHS
+                                           else sa.MMA_SYNC)
+        _close_bf16(got, sa.sa_convmax_reference(*args))
+    else:
+        assert sa.plan_f32(W, K).layout == (sa.GATHER_H1 if W > 1792
+                                            else sa.TWO_BUFFERS)
+        _close(got, sa.sa_convmax_reference(*args))
+
+
+# C = 256 in 2 heads of 128 (conv_out256), in 16 of 16 and in one, at one
+# m-tile, a ragged second one and past two; 129 .. 255 channels padded to
+# 256 (heads crossing the halves); C = 128 in 16 heads of 8 (heads16) on the
+# exact instantiation; C = 64 in 16 heads of 4 and C = 96 in 12 heads of 8
+# on the padded one; the image head at 256 channels and at 197 / 198 tokens
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head,C,H,N", [
+    ("point", 256, 2, 128), ("point", 256, 2, 65), ("point", 256, 16, 40),
+    ("point", 256, 1, 17), ("point", 200, 2, 70), ("point", 136, 8, 33),
+    ("point", 128, 16, 128), ("point", 128, 16, 1), ("point", 64, 16, 300),
+    ("point", 96, 12, 130), ("image", 256, 2, 197), ("image", 192, 3, 198),
+    ("image", 128, 16, 197)])
+def test_match_wide_and_many_heads_match_plain(cuda, head, C, H, N, dtype):
+    """The rows tier past 128 channels (the wide kernel) and past 8 heads:
+    grid and pair list against the plain version at the true width (TOL;
+    bf16: BF16_TOL), pairs equal to their grid cells bit for bit, one
+    launch of the rows tier a call, in the padded layout as rows_padded
+    says."""
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.tools.ab_match import inputs
+    bf16 = dtype == torch.bfloat16
+    nt, nd = 3, 4
+    t, d, w1, w2, H = inputs(head, nt, nd, N, C, H, device=cuda, dtype=dtype)
+    point = head == "point"
+    grid_fn = mg.fused_match_grid if point else mg.fused_image_match_grid
+    pair_fn = mg.fused_match_pairs if point else mg.fused_image_match_pairs
+    how = mg.plan(N, C, H, pos=point, dtype=dtype)
+    assert how.tier == mg.ROWS
+    key = mg.tier_key(mg.ROWS, bf16)
+    before = (grid_fn.tier_launches[key], grid_fn.padded_launches[key])
+    grid = grid_fn(t, d, w1, w2, H)
+    assert grid.shape == (nt, nd, 2 * C)
+    assert (grid_fn.tier_launches[key], grid_fn.padded_launches[key]) == (
+        before[0] + 1, before[1] + mg.rows_padded(C, H, 5 if point else 4))
+    t_idx = torch.tensor([2, 0, 1, 1, 0], dtype=torch.int32, device=cuda)
+    d_idx = torch.tensor([3, 1, 0, 3, 3], dtype=torch.int32, device=cuda)
+    pairs = pair_fn(t, d, w1, w2, H, t_idx, d_idx)
+    ti = torch.arange(nt, device=cuda).repeat_interleave(nd)
+    di = torch.arange(nd, device=cuda).repeat(nt)
+    (_close_bf16 if bf16 else _close)(
+        grid, mg.match_pooled_reference(t, d, w1, w2, H, ti, di
+                                        ).reshape(nt, nd, -1))
+    assert torch.equal(pairs, grid[t_idx.long(), d_idx.long()])

@@ -184,8 +184,9 @@ def test_padded_stage_copies_read_back(C, H, dtype):
 def test_plan_takes_every_width_to_128_channels(pos, dtype):
     """A tier for every C <= 128 and H <= 8 dividing it, point and image
     head, at both dtypes and any N, with the bytes of the width it runs at;
-    past 128 channels, or 8 heads where the rows tier is needed, ValueError
-    naming ROADMAP.md's K6b."""
+    past 256 channels, or 16 heads where the rows tier is needed, ValueError
+    naming ROADMAP.md's K7 (tests/test_torch_wide_widths.py takes the
+    widths and heads between)."""
     bf16 = dtype == BF16
     for C in range(1, 129):
         for H in (h for h in range(1, 9) if C % h == 0):
@@ -200,9 +201,9 @@ def test_plan_takes_every_width_to_128_channels(pos, dtype):
                     assert how.smem == mg.rows_layout(W, 1, dtype).smem
                 else:
                     assert (how.tier, C, pos) == (mg.ROWS_MMA, 16, True)
-    for args in ((128, 129, 1), (128, 256, 2), (2048, 96, 12),
-                 (300, 64, 16), (5000, 16, 16)):
-        with pytest.raises(ValueError, match="K6b"):
+    for args in ((128, 257, 1), (128, 512, 2), (2048, 96, 24),
+                 (300, 64, 32), (5000, 32, 32)):
+        with pytest.raises(ValueError, match="K7"):
             mg.plan(*args, pos=pos, dtype=dtype)
 
 
@@ -300,6 +301,19 @@ def _shapes(tree, prefix=""):
     return out
 
 
+def _width_config(name: str) -> dict:
+    """The model config a point entry of configs/widths.py stands for: the
+    flagship at conv_out C, or the 7M model (conv_out 128, mul 8) with 16
+    heads in both cross stages or at mul 16."""
+    if name.startswith("conv_out"):
+        return tcfg.point_transformer_point_cat(conv_out=int(name[8:]))
+    cfg = tcfg.point_transformer_point_cat(
+        conv_out=128, mul=16 if name == "mul16" else 8)
+    if name == "heads16":
+        cfg["cross_stage1"]["nhead"] = cfg["cross_stage2"]["nhead"] = 16
+    return cfg
+
+
 @pytest.mark.parametrize("name", sorted(WIDTHS))
 def test_width_set_lines_build_the_same_tree(name):
     """Both packages read a width's --set lines into the same model config,
@@ -308,14 +322,13 @@ def test_width_set_lines_build_the_same_tree(name):
     leaf, sets = WIDTHS[name]
     cfg = tcfg.get_experiment(leaf, sets)["model"]
     assert cfg == jexp.get_experiment(leaf, sets)["model"]
-    if name.startswith("conv_out"):
-        assert cfg == tcfg.point_transformer_point_cat(
-            conv_out=int(name[len("conv_out"):]))
-        x = jnp.zeros((1, 32, 3))
-    else:
+    if name.startswith("image"):
         assert cfg["downsample_dim"] == cfg["cross_lin_attn"]["d_model"] \
-            == cfg["downsample"][-1]["out_features"] == 96
+            == cfg["downsample"][-1]["out_features"] == int(name[5:])
         x = jnp.zeros((1, 3, 224, 224))
+    else:
+        assert cfg == _width_config(name)
+        x = jnp.zeros((1, 32, 3))
     tmodel = build_model(copy.deepcopy(cfg),
                          generator=torch.Generator().manual_seed(0))
     jmodel = jax_build(copy.deepcopy(cfg))

@@ -43,11 +43,11 @@ from point_cloud_reid_tpu_torch.models import build_model  # noqa: E402
 from point_cloud_reid_tpu_torch.train import (ScheduleConfig,  # noqa: E402
                                               TrainState, make_train_step)
 from point_cloud_reid_tpu_torch.train import losses as tl  # noqa: E402
-from tests._torch_port import (BF16_TOL, KNOBS, NO_ALGSIMP,  # noqa: E402
+from tests._torch_port import (BF16_TOL, KNOBS,  # noqa: E402
                                assert_bf16_logs_close, assert_close_scaled,
-                               flat_grads, jax_batch, jax_negatives,
-                               pair_batch, port_flat, tiny_cfg, to_jax_tree,
-                               torch_batch)
+                               compile_together, flat_grads, jax_batch,
+                               jax_negatives, pair_batch, port_flat,
+                               tiny_cfg, to_jax_tree, torch_batch)
 from tests._torch_threads import few_threads  # noqa: E402,F401
 
 BF16 = jnp.bfloat16
@@ -70,10 +70,6 @@ def _models(dtype, **knobs):
 
 
 # ---- the train step ----------------------------------------------------------
-
-def _compile(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=NO_ALGSIMP)
-
 
 @functools.lru_cache(maxsize=None)
 def _port_run(dtype, steps: int = 3):
@@ -137,10 +133,11 @@ def bf16_run():
 
     jbatch = jax_batch(pair_batch(30))
     args = (jstate.params, jstate.batch_stats, jbatch, keys[0])
-    jgrads = port_flat(_compile(jax_grads, *args)(*args))
-    jstep = j_train_step(jmodel, tx, USE, ALPHA, donate=False,
-                         monitor=True).lower(
-        jstate, jbatch, keys[0]).compile(compiler_options=NO_ALGSIMP)
+    jgrad, jstep = compile_together(
+        jax.jit(jax_grads).lower(*args),
+        j_train_step(jmodel, tx, USE, ALPHA, donate=False,
+                     monitor=True).lower(jstate, jbatch, keys[0]))
+    jgrads = port_flat(jgrad(*args))
     jrecs = []
     for i, key in enumerate(keys):
         jstate, log = jstep(jstate, jax_batch(pair_batch(30 + i)), key)

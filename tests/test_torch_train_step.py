@@ -36,10 +36,11 @@ from point_cloud_reid_tpu_torch.train import (ScheduleConfig, TrainState,  # noq
                                               cyclic_schedule,
                                               make_train_step)
 from point_cloud_reid_tpu_torch.train.losses import reid_losses  # noqa: E402
-from tests._torch_port import (F32_LEAF_FLOOR, KNOBS, NO_ALGSIMP,  # noqa: E402
+from tests._torch_port import (F32_LEAF_FLOOR, KNOBS,  # noqa: E402
                                assert_close_scaled, assert_grads_close,
-                               jax_batch, jax_negatives, pair_batch,
-                               port_flat, torch_batch, train_models)
+                               compile_together, jax_batch, jax_negatives,
+                               pair_batch, port_flat, torch_batch,
+                               train_models)
 
 USE = dict(match=True, kl=True, triplet=True, cls=True, fp=True)
 ALPHA = dict(kl=0.1, cls=0.5)
@@ -62,10 +63,9 @@ MODES = {
 }
 NOISE = 1e-5    # float32: an applied gradient below this share of the
 #                 largest one is rounding, see _check
-
-
-def _compile(fn, *args):
-    return jax.jit(fn).lower(*args).compile(compiler_options=NO_ALGSIMP)
+# a mode's compiled JAX gradient: the same program whatever the optimizer,
+# so the plain and the accumulated runs of a mode share it
+_GRADS = {}
 
 
 def _run(mode: str, cumulative_iters: int, clip: float, steps: int):
@@ -73,7 +73,8 @@ def _run(mode: str, cumulative_iters: int, clip: float, steps: int):
     the weights and the running statistics of the JAX side ('j') and of the
     port ('t'), and the weights at the start."""
     with jax.enable_x64():
-        return _run_x64(MODES[mode], cumulative_iters, clip, steps)
+        return _run_x64(dict(MODES[mode], name=mode), cumulative_iters, clip,
+                        steps)
 
 
 def _run_x64(mode, cumulative_iters, clip, steps):
@@ -122,10 +123,14 @@ def _run_x64(mode, cumulative_iters, clip, steps):
         rec = {"start": start}
         args = (jstate.params, jstate.batch_stats, jbatch, key)
         if i == 0:
-            jgrad = _compile(jax_grads, *args)
-            jstep = j_train_step(jmodel, tx, USE, ALPHA, donate=False,
-                                 monitor=True).lower(
-                jstate, jbatch, key).compile(compiler_options=NO_ALGSIMP)
+            lowered = [j_train_step(jmodel, tx, USE, ALPHA, donate=False,
+                                    monitor=True).lower(jstate, jbatch, key)]
+            if mode["name"] not in _GRADS:
+                lowered.append(jax.jit(jax_grads).lower(*args))
+            jstep, *fresh = compile_together(*lowered)
+            if fresh:
+                _GRADS[mode["name"]] = fresh[0]
+            jgrad = _GRADS[mode["name"]]
             probe = copy.deepcopy(tmodel)
             loss, _ = reid_losses(probe(tbatch, train=True), tbatch, USE,
                                   ALPHA, pool_type=probe.pool_type,
