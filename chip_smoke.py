@@ -2400,14 +2400,16 @@ def rows_kernel_usage(C: int, nhead: int, bf16: bool, pad: bool = False
                       ) -> dict:
     """ptxas's registers and spills of the wgmma rows tier's instantiation
     for width C in nhead heads (csrc/match_rows_wg.cuh rows_wg_kernel<policy,
-    C, KVN, PAD>; `pad`: the padded layout's, KVN = C; past 128 channels
+    C, KVN, PAD, HD>; `pad`: the padded layout's, KVN = C; HD the
+    normalisers' heads, 16 padded or past 8 heads, else 8; past 128 channels
     rows_wide_kernel<policy, C>), from the kernels' build log."""
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     kvn = mg.rows_layout(C, 1 if pad else nhead).kvn
+    hd = mg.ROWS_MAX_HEADS if pad or nhead > 8 else 8
     policy = "Bf16" if bf16 else "Tf32"
     want = (f"rows_wide_kernelINS_4{policy}ELi{C}E" if C > 128 else
-            f"rows_wg_kernelINS_4{policy}ELi{C}ELi{kvn}ELb{int(pad)}E")
+            f"rows_wg_kernelINS_4{policy}ELi{C}ELi{kvn}ELb{int(pad)}ELi{hd}E")
     found = [v for k, v in _lib.ptxas_usage(_lib.LIBRARY.build_log).items()
              if want in k]
     if len(found) != 1:
@@ -4576,8 +4578,9 @@ def width_case(head: str, C: int, H: int, N: int, dtype, nt: int, nd: int,
           f"max_abs_err={p_err:.3e} rel={p_rel:.3e} (tol {tol:g}), pairs "
           f"equal to their grid cells: {same}; grid {g_ms:.3f} ms (plain "
           f"{g_plain:.3f}, bound {g_bound[0]:.4f} {g_bound[1]} at C, "
-          f"{g_pad[0]:.4f} at W), pairs {p_ms:.3f} ms (plain {p_plain:.3f}, "
-          f"bound {p_bound[0]:.4f} at C, {p_pad[0]:.4f} at W)"
+          f"{g_pad[0]:.4f} at W, {g_ms / g_bound[0]:.2f}x the bound), pairs "
+          f"{p_ms:.3f} ms (plain {p_plain:.3f}, bound {p_bound[0]:.4f} at C, "
+          f"{p_pad[0]:.4f} at W, {p_ms / p_bound[0]:.2f}x the bound)"
           + (f"; ptxas {usage}" if usage else ""), flush=True)
     if not (g_rel <= tol and p_rel <= tol and same):
         raise RuntimeError(f"the {tier} tier disagrees at {head} "

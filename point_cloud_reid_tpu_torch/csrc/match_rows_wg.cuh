@@ -24,8 +24,11 @@
 // statistics over a.ct. The exact widths' instantiations are unchanged.
 // Widths from 129 to 256 (point and image head, exact or padded) run
 // through the same PAD entry points on the wide kernel (rows_wide_kernel,
-// C = 256, below): the chain's C-wide rows in the device scratch and its
-// outputs in 128-column halves, the summary in units of 64 x 128 channels.
+// C = 256, below): the chain's C-wide rows in the device scratch in the
+// operand stage layout, streamed through the ring as A stages of products
+// that read both operands from shared memory, its outputs in 128-column
+// halves, the summary's k and v once a tile and KV over the heads' diagonal
+// units only.
 //
 // What bounds it on the H100: 80 N C^2 operations a pair; three TF32
 // passes at 495 TFLOP/s (16.7 ms for the 7M model's 128 x 128 grid at
@@ -220,6 +223,52 @@ struct Bf16 {
     *reinterpret_cast<bf16*>(stage + row * 128 + (((pos >> 3) ^ (row & 7)) << 4) + (pos & 7) * 2) =
         __float2bfloat16_rn(x);
   }
+
+  // ---- the wide kernel's operands, K in its natural order (A from shared
+  // memory too) ----
+  // Element (row, k) of a stage, k < PK: x rounded to bf16.
+  static __device__ __forceinline__ void put_n(unsigned char* stage, int row, int k, float x) {
+    put_b(stage, row, k, x);
+  }
+  // A 128-column group of the warp's rows (m-tile rows rl, rl + 8) into an
+  // A buffer, columns c0 ..: n-tiles 2k, 2k + 1 of a row are one 32-byte
+  // sector (the swizzle keeps the pair of 16-byte units together), so the
+  // lanes of rows g and g ^ 1 trade a value (shfl.xor 4) and each store
+  // writes whole sectors of 4 rows.
+  static __device__ __forceinline__ void put_group(unsigned char* buf, int rl, int c0,
+                                                   const float (&y)[16][4]) {
+    const int t = threadIdx.x & 3, odd = (threadIdx.x >> 2) & 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = rl + 8 * h;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t v0 = bf16mma::pack_bf16(y[2 * k][2 * h], y[2 * k][2 * h + 1]);
+        const uint32_t v1 = bf16mma::pack_bf16(y[2 * k + 1][2 * h], y[2 * k + 1][2 * h + 1]);
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const int c = c0 + 8 * (2 * k + odd) + 2 * t;   // this lane's n-tile of the pair
+        unsigned char* st = buf + (size_t)(c >> 6) * SB;
+        const int ra = row - odd, rb = row + 1 - odd;      // the pair's rows
+        *reinterpret_cast<uint32_t*>(st + ra * 128 + ((((c & 63) >> 3) ^ (ra & 7)) << 4) +
+                                     (c & 7) * 2) = odd ? got : v0;
+        *reinterpret_cast<uint32_t*>(st + rb * 128 + ((((c & 63) >> 3) ^ (rb & 7)) << 4) +
+                                     (c & 7) * 2) = odd ? v1 : got;
+      }
+    }
+  }
+  // d[8 rb ..] += A stage a @ B stage b[rb], rb = 0, 1 (both from shared
+  // memory); issued, not committed.
+  static __device__ __forceinline__ void issue_ss(float (&d)[16][4], uint32_t a, uint32_t b0,
+                                                  uint32_t b1) {
+    bf16mma::wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      bf16mma::Wgmma<64>::ss(*reinterpret_cast<float(*)[8][4]>(&d[0][0]), desc_sw128(a + 32 * s),
+                             desc_sw128(b0 + 32 * s));
+      bf16mma::Wgmma<64>::ss(*reinterpret_cast<float(*)[8][4]>(&d[8][0]), desc_sw128(a + 32 * s),
+                             desc_sw128(b1 + 32 * s));
+    }
+  }
 };
 
 // Three TF32 passes a product (a float32 model).
@@ -318,6 +367,53 @@ struct Tf32 {
     *reinterpret_cast<uint32_t*>(q) = h;
     *reinterpret_cast<uint32_t*>(q + HALF) = l;
   }
+
+  // ---- the wide kernel's operands, K in its natural order ----
+  static __device__ __forceinline__ void put_n(unsigned char* stage, int row, int k, float x) {
+    unsigned char* q = stage + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4;
+    uint32_t h, l;
+    tf32::split_tf32(x, h, l);
+    *reinterpret_cast<uint32_t*>(q) = h;
+    *reinterpret_cast<uint32_t*>(q + HALF) = l;
+  }
+  static __device__ __forceinline__ void put_a(unsigned char* stage, int row, int k, float x0,
+                                               float x1) {
+    unsigned char* q = stage + row * 128 + (((k >> 2) ^ (row & 7)) << 4) + (k & 3) * 4;
+    uint32_t h0, l0, h1, l1;
+    tf32::split_tf32(x0, h0, l0);
+    tf32::split_tf32(x1, h1, l1);
+    *reinterpret_cast<uint2*>(q) = make_uint2(h0, h1);
+    *reinterpret_cast<uint2*>(q + HALF) = make_uint2(l0, l1);
+  }
+  // A 128-column group of the warp's rows into an A buffer: a quad's hi
+  // (and lo) of an n-tile row is one whole 32-byte sector already.
+  static __device__ __forceinline__ void put_group(unsigned char* buf, int rl, int c0,
+                                                   const float (&y)[16][4]) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = c0 + 8 * j + 2 * t;
+      unsigned char* st = buf + (size_t)(c / PK) * SB;
+      put_a(st, rl, c % PK, y[j][0], y[j][1]);
+      put_a(st, rl + 8, c % PK, y[j][2], y[j][3]);
+    }
+  }
+  // Three passes a k-step, the small terms first: A.lo B.hi, A.hi B.lo,
+  // A.hi B.hi.
+  static __device__ __forceinline__ void issue_ss(float (&d)[16][4], uint32_t a, uint32_t b0,
+                                                  uint32_t b1) {
+    bf16mma::wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+#pragma unroll
+      for (int rb = 0; rb < 2; ++rb) {
+        float(&dd)[8][4] = *reinterpret_cast<float(*)[8][4]>(&d[8 * rb][0]);
+        const uint32_t b = rb ? b1 : b0;
+        tf32::Wgmma<64>::ss(dd, desc_sw128(a + HALF + 32 * s), desc_sw128(b + 32 * s));
+        tf32::Wgmma<64>::ss(dd, desc_sw128(a + 32 * s), desc_sw128(b + HALF + 32 * s));
+        tf32::Wgmma<64>::ss(dd, desc_sw128(a + 32 * s), desc_sw128(b + 32 * s));
+      }
+  }
 };
 
 // ---- the layout ---------------------------------------------------------------------
@@ -325,12 +421,13 @@ struct Tf32 {
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 // Width C, heads of D channels: KVN = 64 where D <= 64, else 128 (a head's
-// diagonal block takes an m-tile's whole band; C on the wide kernel). SCH:
-// the channels a warpgroup stages for the summary (k^T and v^T: 2C; a unit
-// of the wide kernel: 64 + 128). Byte offsets from the 1024-aligned base of
+// diagonal block takes an m-tile's whole band; C in the padded layout); HD
+// normaliser entries a row: 8 for a launch of at most 8 heads, else HMAX
+// (the padded layout always). Byte offsets from the 1024-aligned base of
 // shared memory.
-template <class M, int C, int KVN, int SCH = 2 * C>
+template <class M, int C, int KVN, int HD = HMAX>
 struct Cfg {
+  static constexpr int HEADS = HD;
   static constexpr int NB = C / 64;             // 64-column blocks of a C-wide output
   static constexpr int NTC = C / 8;             // n-tiles of C columns
   static constexpr int CH2 = 2 * C / 64;        // 64-column chunks of a 2C-wide output
@@ -343,16 +440,16 @@ struct Cfg {
   static constexpr int SSW = CH2 * PPC;                                // [Wk | Wv]
   static constexpr int S2W = PPC * NB + CH2 * PPC + S1W;               // Wq, fc1[:C], the tail
   static constexpr int WSTAGES = S1W + SSW + S2W;
-  static constexpr int STG = (M::ARRAYS / 2) * SCH * 128;             // staging a warpgroup
-  static constexpr int FIXED = 2 * STG + 4 * (2 * C + CWARPS * C + CWARPS * 2 * C + WGS * TILE * HMAX);
+  static constexpr int STG = (M::ARRAYS / 2) * 2 * C * 128;           // staging a warpgroup
+  static constexpr int FIXED = 2 * STG + 4 * (2 * C + CWARPS * C + CWARPS * 2 * C + WGS * TILE * HD);
   static constexpr int RING =
       cmin(RING_MAX, (int)((SMEM_LIMIT - 1024 - FIXED - 8 * (2 * RING_MAX + 1)) / M::SB));
   static constexpr int STG_OFF = RING * M::SB;
   static constexpr int KS_OFF = STG_OFF + 2 * STG;          // sum k of each side [2][C]
   static constexpr int KSP_OFF = KS_OFF + 4 * 2 * C;        // sum k partials [8 warps][C]
   static constexpr int PART_OFF = KSP_OFF + 4 * CWARPS * C; // pooling partials [8][2C]
-  static constexpr int DEN_OFF = PART_OFF + 4 * CWARPS * 2 * C;   // [2][64 rows][HMAX]
-  static constexpr int BAR_OFF = DEN_OFF + 4 * WGS * TILE * HMAX;
+  static constexpr int DEN_OFF = PART_OFF + 4 * CWARPS * 2 * C;   // [2][64 rows][HD]
+  static constexpr int BAR_OFF = DEN_OFF + 4 * WGS * TILE * HD;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 * RING + 1);
   static_assert(RING >= 4 && BYTES <= (int)SMEM_LIMIT, "shared memory");
 };
@@ -496,9 +593,10 @@ __device__ __forceinline__ void store_scratch(float* p, int ld, int r, const flo
 // The message normaliser of the warp's rows (local rows rl, rl + 8 of the
 // m-tile): per head (of 2^dsh channels), the sum over its channels of
 // R(q . ks) (R: the bf16 rounding of JAX's q * ksum operand in stage 2,
-// none in stage 1); den[row][head] = 1 / (that + eps). PAD: H heads of any
-// width (head_of), a head at a time over the thread's columns.
-template <class M, bool PAD, int NT>
+// none in stage 1); den[row][head] = 1 / (that + eps), HD entries a row.
+// PAD: H heads of any width (head_of), a head at a time over the thread's
+// columns.
+template <class M, bool PAD, int HD, int NT>
 __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], const float* ks,
                                            int dsh, bool rnd, int rl, int hm, int H) {
   const int t = threadIdx.x & 3;
@@ -523,8 +621,8 @@ __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], 
       p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
       p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
       if (t == 0) {
-        den[rl * HMAX + hh] = 1.f / (p0 + EPS);
-        den[(rl + 8) * HMAX + hh] = 1.f / (p1 + EPS);
+        den[rl * HD + hh] = 1.f / (p0 + EPS);
+        den[(rl + 8) * HD + hh] = 1.f / (p1 + EPS);
       }
     }
     __syncwarp();
@@ -532,7 +630,7 @@ __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], 
   }
   if (t == 0)
 #pragma unroll
-    for (int hh = 0; hh < HMAX; ++hh) den[rl * HMAX + hh] = den[(rl + 8) * HMAX + hh] = 0.f;
+    for (int hh = 0; hh < HD; ++hh) den[rl * HD + hh] = den[(rl + 8) * HD + hh] = 0.f;
   __syncwarp();
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -545,15 +643,15 @@ __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], 
     p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
     p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
     if (t == 0) {
-      den[rl * HMAX + (8 * j >> dsh)] += p0;
-      den[(rl + 8) * HMAX + (8 * j >> dsh)] += p1;
+      den[rl * HD + (8 * j >> dsh)] += p0;
+      den[(rl + 8) * HD + (8 * j >> dsh)] += p1;
     }
   }
   if (t == 0)
 #pragma unroll
-    for (int hh = 0; hh < HMAX; ++hh) {
-      den[rl * HMAX + hh] = 1.f / (den[rl * HMAX + hh] + EPS);
-      den[(rl + 8) * HMAX + hh] = 1.f / (den[(rl + 8) * HMAX + hh] + EPS);
+    for (int hh = 0; hh < HD; ++hh) {
+      den[rl * HD + hh] = 1.f / (den[rl * HD + hh] + EPS);
+      den[(rl + 8) * HD + hh] = 1.f / (den[(rl + 8) * HD + hh] + EPS);
     }
   __syncwarp();
 }
@@ -563,6 +661,7 @@ __device__ __forceinline__ void normaliser(float* den, const float (&q)[NT][4], 
 // A consumer warpgroup's place in the ring (both take every stage in order).
 template <int RING, int SB>
 struct Ring {
+  static constexpr int SLOTS = RING;
   uint32_t base, full, empty;
   int pos;
   __device__ __forceinline__ int acquire() {
@@ -661,14 +760,14 @@ __device__ __forceinline__ void message(Ring<RING, M::SB>& ring, float (&mg)[G::
       if constexpr (PAD) {   // the two columns' heads may differ
         const int c = 64 * j + 8 * jj + 2 * (threadIdx.x & 3);
         const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
-        mz[jj][0] *= den[rl * HMAX + h0];
-        mz[jj][1] *= den[rl * HMAX + h1];
-        mz[jj][2] *= den[(rl + 8) * HMAX + h0];
-        mz[jj][3] *= den[(rl + 8) * HMAX + h1];
+        mz[jj][0] *= den[rl * G::HEADS + h0];
+        mz[jj][1] *= den[rl * G::HEADS + h1];
+        mz[jj][2] *= den[(rl + 8) * G::HEADS + h0];
+        mz[jj][3] *= den[(rl + 8) * G::HEADS + h1];
         continue;
       }
       const int hh = (64 * j + 8 * jj) >> dsh;
-      const float d0 = den[rl * HMAX + hh], d1 = den[(rl + 8) * HMAX + hh];
+      const float d0 = den[rl * G::HEADS + hh], d1 = den[(rl + 8) * G::HEADS + hh];
       mz[jj][0] *= d0;
       mz[jj][1] *= d0;
       mz[jj][2] *= d1;
@@ -715,9 +814,9 @@ __device__ __forceinline__ void pair_of(const Args<M>& a, int p, int& ti, int& d
 // the wrapper zeroes every factor, weight and LayerNorm lane past a.ct and
 // the kernel masks elu+1 of a padded stage-2 q or k lane and the LayerNorm
 // statistics.
-template <class M, int C, int KVN, bool PAD>
+template <class M, int C, int KVN, bool PAD, int HD>
 __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
-  using G = Cfg<M, C, KVN>;
+  using G = Cfg<M, C, KVN, HD>;
   using T = typename M::T;
   constexpr int SB = M::SB, NTC = G::NTC;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -805,7 +904,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
   float* ks_sm = reinterpret_cast<float*>(smem + G::KS_OFF);
   float* ksp = reinterpret_cast<float*>(smem + G::KSP_OFF) + warp * C;
   float* part = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * 2 * C;
-  float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * HMAX;
+  float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * HD;
   float* O = oscr + (size_t)wg * Np * C;
   float* A2 = a2scr + wg * TILE * 2 * C;
   const Side<M> X = wg ? a.side[1] : a.side[0];
@@ -838,7 +937,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
       {
         float q[NTC][4];
         load_rows<M>(q, qX, C, 0, r0, N);
-        normaliser<M, PAD>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl, a.hm, a.H);
+        normaliser<M, PAD, HD>(den, q, Y.ks + (size_t)oth * C, dsh, false, rl, a.hm, a.H);
         zero(mg);
         message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm, a.H);
       }
@@ -976,7 +1075,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           q[j][i] = PAD && 8 * j + 2 * t + (i & 1) >= a.ct ? 0.f : elu1(q[j][i]);
-      normaliser<M, PAD>(den, q, ksY, dsh, true, rl, a.hm, a.H);
+      normaliser<M, PAD, HD>(den, q, ksY, dsh, true, rl, a.hm, a.H);
       float mg[NTC][4];
       zero(mg);
       message<M, G, PAD>(ring, mg, q, den, dsh, wg, rl, a.hm, a.H);
@@ -1033,346 +1132,514 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
 // ---- the wide kernel: C = 256 (any multiple of 128) in column halves ----------------
 //
 // A 64-row m-tile of a C-wide accumulator takes C / 2 registers a thread:
-// 128 at C = 256, where the chain above holds two of them at once (q and
-// the merge's sum, m and the FFN's sum) against the launch's 168. So past
-// 128 channels every C-wide row of the chain lives in the device scratch
-// (float32, row-major: each thread writes and reads back its own rows g,
-// g + 8 and columns 2t, 2t + 1 of every n-tile, the accumulator layout,
-// which is also the A-fragment layout of csrc/tf32_mma.cuh a_from_acc and
-// bf16mma::a_from_acc), every product reads its A operand from there (or
-// from a factor) a k-panel at a time (product_m), and every C-wide output
-// is computed in halves of 128 columns (64 registers), a half's raw sums
-// parked in the scratch until LayerNorm has the whole row:
-//   stage 1:  the message (q from the factor, one KV band of all C columns)
-//             a 64-column chunk at a time into MSG; merge in halves into
-//             MID (raw), LN1 in place; the FFN's hidden chunks relu(a1 +
-//             MID fc1[C:]) into HID; fc2 in halves, LN2, + h into O;
-//   summary:  in units of a 64-channel k chunk x a 128-channel v half (2 x
-//             NB units; a unit's k chunk and v half recomputed from O for
-//             each), staged as in the chain above (k^T and v^T, 64 + 128
-//             channels x 128 bytes, TF32 hi and lo), KV's unit block
-//             accumulated over the summary tiles (64 registers), then put
-//             as the other side's message stages;
-//   stage 2:  q = elu1(O Wq) in halves into MID, a = O fc1[:C] into A2, the
-//             message from MID, the tail as in stage 1, and the pooling of
-//             O + y a half at a time.
-// The heads are always read as head_of (any H <= HMAX of any width) and
-// the LayerNorm statistics over a.ct (C at the exact width): the padded
+// 128 at C = 256, where the chain above holds two of them at once against
+// the launch's 168. So past 128 channels the chain's C-wide rows live in the
+// device scratch, every C-wide output is made in 128-column groups (two
+// 64-column blocks, 64 registers), and every product takes BOTH operands
+// from shared memory (wgmma ss): the epilogue that makes a row an operand
+// writes it to the scratch in the stage layout (a 64-row x 128-byte k-panel
+// a stage: bf16, or TF32 hi then lo; K in its natural order), and the
+// producer streams those A stages through the ring beside the weights, so
+// the ring's depth hides their latency as it hides the weights'. A panel's
+// stages in the ring: the A stage of warpgroup 0, of warpgroup 1, then its
+// B stages, two shared weight blocks, or two a warpgroup (the KV message
+// stages, the summary's v^T); each warpgroup reads its own and releases the
+// other's at once. The producer issues an A stage only after its rows are
+// written: the consumers' warps arrive on one mbarrier (aready) after
+// fence.proxy.async.global at each event of a pair, and the producer waits
+// each event, in the consumers' order, right before the first stage that
+// needs it:
+//   stage 1, a tile at a time:  q (the factor) into QS, and the normaliser
+//       from it in registers [event]; the message, a 128-column half at a
+//       time over its heads' band of K only, x 1 / den, into MSG [event];
+//       merge in halves, LN1 into MID [event]; the FFN's hidden groups
+//       relu(a1 + MID fc1[C:]) into HID [event]; fc2 in halves, LN2, + h
+//       into O (float32, for the pooling) and OS (its stages);
+//   [event: O] the summary: [k | v] = OS [Wk | Wv] once a tile, 2C columns
+//       in groups (elu+1, + pv), written transposed (channels x rows) into
+//       KT, VT [event]; KV = k^T v over units of a 64-channel k block x a
+//       128-channel v half, only the units that meet a head's diagonal
+//       band, both operands streamed (KT, VT) over the rows' k-panels, put
+//       as the other side's message stages [event: KV]; sum k;
+//   stage 2, a tile at a time:  q = elu1(OS Wq) in halves into QS (the
+//       normaliser from it in registers) [event]; the tail as in stage 1,
+//       a hidden group's a = OS fc1[:C] accumulated with MID fc1[C:] (no
+//       buffer for a), and the pooling of O + y.
+// LayerNorm: each half's count, mean and sum of squared deviations in
+// registers as the half is made, merged by Chan's formula over the true ct
+// columns; the raw halves but the last parked (float32) and read once to
+// normalise. The heads are always read as head_of (any H <= HMAX of any
+// width) and the statistics over a.ct (C at the exact width): the padded
 // layout's code serves the exact widths too, at ct = C. The weight stages
 // come in the order of kernels/match_grid.weight_blocks at C > 128.
-// Shared memory: the ring, two warpgroups' staging (TF32: 2 x 2 x 192 x
-// 128 = 98,304 bytes; bf16 49,152), sum k and its partials, the pooling
-// partials, the normalisers: 216,152 bytes TF32 (5 stages), 216,328 bf16
-// (16). At C = 256 the scratch adds MSG, MID (64 x C) and HID (64 x 2C)
-// a side to the chain's. What bounds it: the same 80 N C^2 operations a
-// pair; measured on the H100 (PERF.md section 6) the 128 x 128
-// grid at N = 128 takes 4.4x its three-pass bound at TF32 and 15x its
-// one-pass bound at bf16, where the scratch's rows, written and re-read
-// for every product, weigh more beside one pass of products.
+// Shared memory at C = 256: the ring (12 TF32 / 24 bf16 stages), sum k,
+// the pooling partials (the sum k partials in their bytes until stage 2),
+// the normalisers: 224,456 bytes TF32, 224,648 bf16 (WideCfg). What bounds it: the same 80 N C^2 operations a
+// pair; each ss product reads A and B from shared memory (4 KB a k-step of
+// m64n64, the tensor core's 32 cycles at 128 bytes a cycle).
+
+constexpr int WIDE_RING_MAX = 32;           // most stages in the wide kernel's ring
 
 template <class M, int C>
-struct WideCfg : Cfg<M, C, C, 64 + 128> {
-  static constexpr int NH = C / 128;               // 128-column halves
-  static constexpr int LO = (64 + 128) * 128;      // TF32: the lo arrays of the staging
+struct WideCfg {
   static_assert(C % 128 == 0, "halves of 128 columns");
+  static constexpr int SB = M::SB, PK = M::PK;
+  static constexpr int NB = C / 64;             // 64-column blocks of a C-wide output
+  static constexpr int NH = C / 128;            // 128-column halves
+  static constexpr int PPC = C / PK;            // k-panels over C
+  static constexpr int KVST = NB * PPC;         // message stages of a side's KV (one band)
+  // weight stages of a stage-1 tile (merge, fc1[C:], fc2: two 64-column
+  // blocks a panel) and of a summary tile ([Wk | Wv])
+  static constexpr int S1W = 2 * PPC * (NH + 2 * NH + 2 * NH);
+  static constexpr int SSW = 2 * PPC * 2 * NH;
+  // sum k of each side, the pooling partials (the sum k partials [8 warps]
+  // [C] before them, in the same bytes), the normalisers
+  static constexpr int FIXED = 4 * (2 * C + CWARPS * 2 * C + WGS * TILE * HMAX);
+  static constexpr int RING =
+      cmin(WIDE_RING_MAX, (int)((SMEM_LIMIT - 1024 - FIXED - 8 * (2 * WIDE_RING_MAX + 1)) / SB));
+  static constexpr int KS_OFF = RING * SB;                  // sum k of each side [2][C]
+  static constexpr int PART_OFF = KS_OFF + 4 * 2 * C;       // pooling partials [8][2C]
+  static constexpr int DEN_OFF = PART_OFF + 4 * CWARPS * 2 * C;   // [2][64 rows][HMAX]
+  static constexpr int BAR_OFF = DEN_OFF + 4 * WGS * TILE * HMAX;
+  static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 * RING + 1);
+  // a product holds a panel's stages (4 shared, 6 per side) while it
+  // takes the next panel's: the ring must hold two panels
+  static_assert(RING >= 12 && BYTES <= (int)SMEM_LIMIT, "shared memory");
 };
 
-// The device scratch of a block: the chain's (both sides' KV stages, A2,
-// O) and a side's MSG, MID (64 x C) and HID (64 x 2C).
+// The device scratch of a block: both sides' KV as message stages, then a
+// side's buffers for each side: OS (O's stages, ntiles x PPC), KT and VT
+// (k^T and v^T: NB channel blocks x Np / PK row panels each), QS, MSG (PPC
+// stages), HID (2 PPC), O (Np x C float32) and the parked halves (64 x (C
+// - 128) float32).
 template <class M, int C>
-__host__ __device__ constexpr long long wide_scratch_bytes(int N) {
-  return 2LL * WideCfg<M, C>::KVST * M::SB + 2LL * TILE * 2 * C * 4 +
-         2LL * ((N + TILE - 1) / TILE) * TILE * C * 4 + 2LL * TILE * 4 * C * 4;
-}
-
-// A-operand sources of product_m: the thread's rows r, r + 8 of a row-major
-// matrix, n-tiles from column c0. A float32 scratch matrix (read through
-// L2) ...
-struct ScrRows {
-  const float* p;   // row r
-  int ld;
-  bool held;        // false: zeros (a summary tile's rows the warp does not feed)
-  template <class M, int NT>
-  __device__ __forceinline__ void load(float (&x)[NT][4], int c0) const {
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float2 a = __ldcg(reinterpret_cast<const float2*>(p + c0 + 8 * j + 2 * t));
-      const float2 b = __ldcg(reinterpret_cast<const float2*>(p + (size_t)8 * ld + c0 + 8 * j + 2 * t));
-      x[j][0] = held ? a.x : 0.f;
-      x[j][1] = held ? a.y : 0.f;
-      x[j][2] = held ? b.x : 0.f;
-      x[j][3] = held ? b.y : 0.f;
+struct WideScratch {
+  using G = WideCfg<M, C>;
+  static __host__ __device__ constexpr long long side_bytes(int N) {
+    return (long long)G::SB * G::PPC * (3 * ((N + TILE - 1) / TILE) + 4) +
+           4LL * (((N + TILE - 1) / TILE) * TILE * C + TILE * (C - 128));
+  }
+  static __host__ __device__ constexpr long long bytes(int N) {
+    return 2LL * G::KVST * G::SB + 2 * side_bytes(N);
+  }
+  unsigned char *kv[2], *os[2], *kt[2], *vt[2], *qs[2], *msg[2], *hid[2];
+  float *of[2], *park[2];
+  int nrp;   // row panels of KT and VT (Np / PK)
+  __device__ WideScratch(unsigned char* base, int N) {
+    const int ntiles = (N + TILE - 1) / TILE, Np = ntiles * TILE;
+    nrp = Np / G::PK;
+    unsigned char* p = base;
+    for (int s = 0; s < 2; ++s, p += (size_t)G::KVST * G::SB) kv[s] = p;
+    for (int s = 0; s < 2; ++s) {
+      os[s] = p;
+      kt[s] = os[s] + (size_t)ntiles * G::PPC * G::SB;
+      vt[s] = kt[s] + (size_t)ntiles * G::PPC * G::SB;   // NB x nrp stages
+      qs[s] = vt[s] + (size_t)ntiles * G::PPC * G::SB;
+      msg[s] = qs[s] + (size_t)G::PPC * G::SB;
+      hid[s] = msg[s] + (size_t)G::PPC * G::SB;
+      of[s] = reinterpret_cast<float*>(hid[s] + (size_t)2 * G::PPC * G::SB);
+      park[s] = of[s] + (size_t)Np * C;
+      p = reinterpret_cast<unsigned char*>(park[s] + TILE * (C - 128));
     }
   }
 };
 
-// ... or a factor of the side ((N, ld) in the model's dtype; rows past N
-// read as 0, as load_rows).
-template <class T>
-struct FacRows {
-  const T* p;       // the factor's row 0
-  int ld, r0, N;
-  template <class M, int NT>
-  __device__ __forceinline__ void load(float (&x)[NT][4], int c0) const {
-    load_rows<M>(x, p, ld, c0, r0, N);
+// An mbarrier wait that traps (a launch failure the wrapper reports) once it
+// has spun for 2^34 cycles, seconds past any wait of a working pair, so
+// that a fault in the wide kernel's hand-offs cannot hang the card.
+__device__ __forceinline__ void wait_or_trap(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (int n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((n & 4095) == 0) {
+      if (t0 == 0) t0 = clock64();
+      else if (clock64() - t0 > (1LL << 34)) __trap();
+    }
+  }
+}
+
+// The wide kernel's place in the ring (Ring, its waits bounded).
+template <int RING, int SB>
+struct WideRing : Ring<RING, SB> {
+  __device__ __forceinline__ int acquire() {
+    const int slot = this->pos % RING;
+    wait_or_trap(this->full + 8 * slot, (uint32_t)((this->pos / RING) & 1));
+    ++this->pos;
+    return slot;
   }
 };
 
-// d += A's k-panels p0 .. p0 + NP - 1, each loaded from `src` as it is
-// issued, @ their stages, NB stages a panel.
-template <class M, int NB, int NP, int RING, int NTD, class Src>
-__device__ __forceinline__ void product_m(Ring<RING, M::SB>& ring, float (&d)[NTD][4],
-                                          const Src& src, int p0) {
-  product_panels<M, NB, NP>(ring, d, [&](int p, const uint32_t (&st)[NB], typename M::Frag& f) {
-    float x[M::PK / 8][4];   // the k-panel's n-tiles
-    src.template load<M>(x, (p0 + p) * M::PK);
-    M::template issue<NB>(d, x, 0, st, f);
-  });
+// The k-panels [p0, p0 + np) of the heads' band of the 128-column half vh:
+// the channels of the heads that meet the half's true columns (none past
+// ct).
+template <int PK>
+__device__ __forceinline__ void band(int vh, int ct, int D, int hm, int H, int& p0, int& np) {
+  const int c0 = 128 * vh;
+  if (c0 >= ct) {
+    p0 = np = 0;
+    return;
+  }
+  const int klo = head_of(c0, hm, H) * D;
+  const int khi = min(ct, (head_of(min(c0 + 127, ct - 1), hm, H) + 1) * D);
+  p0 = klo / PK;
+  np = (khi + PK - 1) / PK - p0;
 }
 
-// The normaliser of the warp's rows (local rl, rl + 8) from q in memory: H
-// heads of D channels, a head at a time over its n-tiles; den as normaliser.
-template <class M, class Src>
-__device__ __forceinline__ void normaliser_m(float* den, const Src& q, const float* ks, bool rnd,
-                                             int rl, int D, int H) {
+// Whether the summary's unit (64-channel k block mi, 128-channel v half vh)
+// meets a head's diagonal band.
+__device__ __forceinline__ bool unit_on(int mi, int vh, int ct, int hm, int H) {
+  if (64 * mi >= ct || 128 * vh >= ct) return false;
+  const int ma = head_of(64 * mi, hm, H), mb = head_of(min(64 * mi + 63, ct - 1), hm, H);
+  const int va = head_of(128 * vh, hm, H), vb = head_of(min(128 * vh + 127, ct - 1), hm, H);
+  return ma <= vb && va <= mb;
+}
+
+// d (two 64-column blocks) += own A @ own B over np panels of the ring,
+// each panel's stages A of warpgroup 0, A of warpgroup 1, then two shared B
+// stages (SHARED) or two of warpgroup 0 and two of 1. Two panels in flight
+// where the ring holds three panels' stages (a warpgroup keeps a panel's
+// own stages until its products are done, while the next panel's arrive
+// and the one after is loaded), else one.
+template <class M, bool SHARED, class R>
+__device__ __forceinline__ void product_ss(R& ring, float (&d)[16][4], int np, int wg) {
+  constexpr bool DEEP = R::SLOTS >= 3 * (SHARED ? 4 : 6);
+  int prev0 = 0, prev1 = 0, prev2 = 0;
+#pragma unroll 1
+  for (int p = 0; p < np; ++p) {
+    const int s0 = ring.acquire(), s1 = ring.acquire();
+    const int a = wg ? s1 : s0;
+    ring.release(wg ? s0 : s1);
+    int b0, b1;
+    if (SHARED) {
+      b0 = ring.acquire();
+      b1 = ring.acquire();
+    } else {
+      const int x0 = ring.acquire(), x1 = ring.acquire(), y0 = ring.acquire(), y1 = ring.acquire();
+      b0 = wg ? y0 : x0;
+      b1 = wg ? y1 : x1;
+      ring.release(wg ? x0 : y0);
+      ring.release(wg ? x1 : y1);
+    }
+    M::issue_ss(d, ring.addr(a), ring.addr(b0), ring.addr(b1));
+    bf16mma::wg_commit();
+    if (!DEEP) {
+      bf16mma::wg_wait<0>();
+      ring.release(a);
+      ring.release(b0);
+      ring.release(b1);
+      continue;
+    }
+    if (p > 0) {
+      bf16mma::wg_wait<1>();
+      ring.release(prev0);
+      ring.release(prev1);
+      ring.release(prev2);
+    }
+    prev0 = a;
+    prev1 = b0;
+    prev2 = b1;
+  }
+  bf16mma::wg_wait<0>();
+  if (DEEP && np > 0) {
+    ring.release(prev0);
+    ring.release(prev1);
+    ring.release(prev2);
+  }
+  bf16mma::wg_pin(d);
+}
+
+// The same group transposed (channel c0 + c a stage row, the m-tile's row
+// r0 + r its k) into a buffer of NB channel blocks x nrp row panels (KT, VT).
+template <class M>
+__device__ __forceinline__ void put_cols(unsigned char* buf, int nrp, int r0, int c0,
+                                         const float (&y)[16][4]) {
   const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = c0 + 8 * j + 2 * t + (i & 1), r = r0 + 8 * (i >> 1);
+      M::put_n(buf + (size_t)((c >> 6) * nrp + r / M::PK) * M::SB, c & 63, r % M::PK, y[j][i]);
+    }
+}
+
+// The normaliser's sums of the warp's rows over a 128-column group (from c0)
+// in registers: den[row][head] += R(q . ks) over the group's columns of each
+// head (R as normaliser's).
+template <class M>
+__device__ __forceinline__ void den_add(float* den, const float (&x)[16][4], int c0, const float* ks,
+                                        bool rnd, int rl, int hm, int H) {
+  const int t = threadIdx.x & 3;
+  float k[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    k[j][0] = ks[c0 + 8 * j + 2 * t];
+    k[j][1] = ks[c0 + 8 * j + 2 * t + 1];
+  }
+  const int ha = head_of(c0, hm, H), hb = head_of(c0 + 127, hm, H);
 #pragma unroll 1
-  for (int hh = 0; hh < H; ++hh) {
-    const int lo = hh * D, hi = lo + D;
+  for (int hh = ha; hh <= hb; ++hh) {
     float p0 = 0.f, p1 = 0.f;
-#pragma unroll 1
-    for (int j = lo >> 3; 8 * j < hi; ++j) {
-      float x[1][4];
-      q.template load<M>(x, 8 * j);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * t + e;
-        const float k = ks[c];
-        const float u0 = rnd ? M::round(x[0][e] * k) : x[0][e] * k;
-        const float u1 = rnd ? M::round(x[0][2 + e] * k) : x[0][2 + e] * k;
-        const bool in = c >= lo && c < hi;
+        const bool in = head_of(c0 + 8 * j + 2 * t + e, hm, H) == hh;
+        const float u0 = rnd ? M::round(x[j][e] * k[j][e]) : x[j][e] * k[j][e];
+        const float u1 = rnd ? M::round(x[j][2 + e] * k[j][e]) : x[j][2 + e] * k[j][e];
         p0 += in ? u0 : 0.f;
         p1 += in ? u1 : 0.f;
       }
-    }
     p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
     p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
     p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
     p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
     if (t == 0) {
-      den[rl * HMAX + hh] = 1.f / (p0 + EPS);
-      den[(rl + 8) * HMAX + hh] = 1.f / (p1 + EPS);
+      den[rl * HMAX + hh] += p0;
+      den[(rl + 8) * HMAX + hh] += p1;
     }
   }
   __syncwarp();
 }
 
-// The message of the warpgroup's rows into msg (64 x C): for each 64-column
-// chunk j, q (all C columns: one band) . the chunk's KV stages (warpgroup
-// 0's, then 1's; each takes both and reads its own), times 1 / (den + eps)
-// of the column's head.
-template <class M, class G, int RING, class Src>
-__device__ __forceinline__ void message_m(Ring<RING, M::SB>& ring, float* msg, int ld, int rl,
-                                          const Src& q, const float* den, int wg, int hm, int H) {
-  const int t = threadIdx.x & 3;
-#pragma unroll 1
-  for (int j = 0; j < G::NB; ++j) {
-    float mz[8][4];
-    zero(mz);
+__device__ __forceinline__ void den_zero(float* den, int rl) {
+  if ((threadIdx.x & 3) == 0)
 #pragma unroll
-    for (int x = 0; x < WGS; ++x) {
-      if (x == wg)
-        product_m<M, 1, G::BP, RING>(ring, mz, q, 0);
-      else
-        skip<G::BP>(ring);
-    }
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int c = 64 * j + 8 * jj + 2 * t;
-      const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
-      mz[jj][0] *= den[rl * HMAX + h0];
-      mz[jj][1] *= den[rl * HMAX + h1];
-      mz[jj][2] *= den[(rl + 8) * HMAX + h0];
-      mz[jj][3] *= den[(rl + 8) * HMAX + h1];
-    }
-    store_scratch(msg + 64 * j, ld, rl, mz);
-  }
+    for (int hh = 0; hh < HMAX; ++hh) den[rl * HMAX + hh] = den[(rl + 8) * HMAX + hh] = 0.f;
+  __syncwarp();
 }
 
-// LayerNorm of the C-wide rows rl, rl + 8 whose halves 0 .. NH - 2 lie raw
-// in `raw` (row-major, ld) and whose last half is y: the statistics over
-// the true ct columns, then each half normalised (the last first, from y;
-// then the others loaded into y) and handed to fin(half, y).
-template <int NH, class Fin>
-__device__ __forceinline__ void ln_halves(float (&y)[16][4], const float* raw, int ld, int rl,
-                                          const float* __restrict__ s, const float* __restrict__ b,
-                                          int ct, Fin fin) {
-  const int t = threadIdx.x & 3;
-  const float inv_c = 1.f / ct;
-  float mu[2], inv[2];
+__device__ __forceinline__ void den_invert(float* den, int rl) {
+  if ((threadIdx.x & 3) == 0)
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float* rr = raw + (size_t)(rl + 8 * h) * ld;
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) sum += y[j][2 * h] + y[j][2 * h + 1];
-#pragma unroll 1
-    for (int hf = 0; hf < NH - 1; ++hf)
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 v = __ldcg(reinterpret_cast<const float2*>(rr + 128 * hf + 8 * j + 2 * t));
-        sum += v.x + v.y;
-      }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    mu[h] = sum * inv_c;
-    float var = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = 128 * (NH - 1) + 8 * j + 2 * t;
-      const float d0 = c < ct ? y[j][2 * h] - mu[h] : 0.f;
-      const float d1 = c + 1 < ct ? y[j][2 * h + 1] - mu[h] : 0.f;
-      var += d0 * d0 + d1 * d1;
+    for (int hh = 0; hh < HMAX; ++hh) {
+      den[rl * HMAX + hh] = 1.f / (den[rl * HMAX + hh] + EPS);
+      den[(rl + 8) * HMAX + hh] = 1.f / (den[(rl + 8) * HMAX + hh] + EPS);
     }
-#pragma unroll 1
-    for (int hf = 0; hf < NH - 1; ++hf)
+  __syncwarp();
+}
+
+// A LayerNorm's running statistics of the warp's two rows (h = 0: row rl,
+// 1: rl + 8): count, mean and sum of squared deviations over the true
+// columns seen so far.
+struct LnStats {
+  float n = 0.f, mean[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+  // merge the 128-column group from c0 (columns past ct masked), by Chan's
+  // formula
+  __device__ __forceinline__ void add(const float (&y)[16][4], int c0, int ct) {
+    const int t = threadIdx.x & 3;
+    const float nb = (float)max(0, min(128, ct - c0));
+    if (nb == 0.f) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const int c = 128 * hf + 8 * j + 2 * t;
-        const float2 v = __ldcg(reinterpret_cast<const float2*>(rr + c));
-        const float d0 = c < ct ? v.x - mu[h] : 0.f, d1 = c + 1 < ct ? v.y - mu[h] : 0.f;
-        var += d0 * d0 + d1 * d1;
+        const int c = c0 + 8 * j + 2 * t;
+        s += (c < ct ? y[j][2 * h] : 0.f) + (c + 1 < ct ? y[j][2 * h + 1] : 0.f);
       }
-    var += __shfl_xor_sync(0xffffffffu, var, 1);
-    var += __shfl_xor_sync(0xffffffffu, var, 2);
-    inv[h] = rsqrtf(var * inv_c + LN_EPS);
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      const float mb = s / nb;
+      float q = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = c0 + 8 * j + 2 * t;
+        const float d0 = c < ct ? y[j][2 * h] - mb : 0.f, d1 = c + 1 < ct ? y[j][2 * h + 1] - mb : 0.f;
+        q += d0 * d0 + d1 * d1;
+      }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      const float nn = n + nb, delta = mb - mean[h];
+      mean[h] += delta * (nb / nn);
+      m2[h] += q + delta * delta * (n * nb / nn);
+    }
+    n += nb;
   }
-#pragma unroll 1
-  for (int hh = NH - 1; hh >= 0; --hh) {
-    if (hh < NH - 1) load_scratch(y, raw + 128 * hh, ld, rl, true);
+  // normalise the group from c0 in place: (y - mean) / sqrt(m2 / n + eps) * s + b
+  __device__ __forceinline__ void apply(float (&y)[16][4], int c0, const float* __restrict__ s,
+                                        const float* __restrict__ b) const {
+    const int t = threadIdx.x & 3;
+    const float inv0 = rsqrtf(m2[0] / n + LN_EPS), inv1 = rsqrtf(m2[1] / n + LN_EPS);
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const int c = 128 * hh + 8 * j + 2 * t;
+      const int c = c0 + 8 * j + 2 * t;
       const float2 sc = __ldg(reinterpret_cast<const float2*>(s + c));
       const float2 bi = __ldg(reinterpret_cast<const float2*>(b + c));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        y[j][2 * h] = (y[j][2 * h] - mu[h]) * inv[h] * sc.x + bi.x;
-        y[j][2 * h + 1] = (y[j][2 * h + 1] - mu[h]) * inv[h] * sc.y + bi.y;
-      }
+      y[j][0] = (y[j][0] - mean[0]) * inv0 * sc.x + bi.x;
+      y[j][1] = (y[j][1] - mean[0]) * inv0 * sc.y + bi.y;
+      y[j][2] = (y[j][2] - mean[1]) * inv1 * sc.x + bi.x;
+      y[j][3] = (y[j][3] - mean[1]) * inv1 * sc.y + bi.y;
     }
-    fin(hh, y);
   }
-}
+};
 
-// dst = LN(src @ W) (W's output in halves: each half's stages k-panel by
-// k-panel, two 64-column blocks a panel; NP k-panels), fin(half, y) given
-// each normalised half; `raw` (64 x C) parks the raw halves.
-template <class M, class G, int NP, int RING, class Src, class Fin>
-__device__ __forceinline__ void halves_ln(Ring<RING, M::SB>& ring, const Src& src, float* raw,
-                                          int rl, const float* s, const float* b, int ct,
-                                          Fin fin) {
+// dst = LN(A @ W) of a C-wide output in NH halves (each half's product over
+// np panels of the ring, shared B), fin(half, y) given each normalised half
+// (the last first); the halves but the last parked raw in `park` (64 x (C -
+// 128)), read once to normalise.
+template <class M, int NH, class R, class Fin>
+__device__ __forceinline__ void halves_ln(R& ring, int np, int wg, float* park, int rl,
+                                          const float* s, const float* b, int ct, Fin fin) {
   float y[16][4];
+  LnStats st;
 #pragma unroll 1
-  for (int hf = 0; hf < G::NH; ++hf) {
+  for (int hf = 0; hf < NH; ++hf) {
     zero(y);
-    product_m<M, 2, NP, RING>(ring, y, src, 0);
-    if (hf < G::NH - 1) store_scratch(raw + 128 * hf, 128 * G::NH, rl, y);
+    product_ss<M, true>(ring, y, np, wg);
+    st.add(y, 128 * hf, ct);
+    if (hf < NH - 1) store_scratch(park + 128 * hf, 128 * (NH - 1), rl, y);
   }
-  ln_halves<G::NH>(y, raw, 128 * G::NH, rl, s, b, ct, fin);
+  st.apply(y, 128 * (NH - 1), s, b);
+  fin(NH - 1, y);
+#pragma unroll 1
+  for (int hf = 0; hf < NH - 1; ++hf) {
+    load_scratch(y, park + 128 * hf, 128 * (NH - 1), rl, true);
+    st.apply(y, 128 * hf, s, b);
+    fin(hf, y);
+  }
 }
 
-// The FFN's hidden chunks: hid = relu(init(h) + m @ fc1[C:][:, chunk h])
-// into HID (64 x 2C) a 64-column chunk at a time.
-template <class M, class G, int RING, class Init>
-__device__ __forceinline__ void hidden_m(Ring<RING, M::SB>& ring, const float* mid, float* hid_out,
-                                         int rl, Init init) {
-  constexpr int C = G::NB * 64;
-  const ScrRows m{mid + (size_t)rl * C, C, true};
-#pragma unroll 1
-  for (int h = 0; h < G::CH2; ++h) {
-    float hid[8][4];
-    init(h, hid);
-    product_m<M, 1, G::PPC, RING>(ring, hid, m, 0);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
-    store_scratch(hid_out + 64 * h, 2 * C, rl, hid);
-  }
+// The consumers' side of an event: this warp's writes of the scratch are
+// done (and visible to the producer's bulk copies).
+__device__ __forceinline__ void written(uint32_t aready) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) bf16mma::mbar_arrive(aready);
 }
 
 template <class M, int C>
 __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) {
   using G = WideCfg<M, C>;
   using T = typename M::T;
-  constexpr int SB = M::SB, NB = G::NB, NH = G::NH, PPC = G::PPC, CH2 = G::CH2, BP = G::BP;
+  constexpr int SB = M::SB, NB = G::NB, NH = G::NH, PPC = G::PPC, PK = M::PK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_addr(smem);
-  const uint32_t full = sb + G::BAR_OFF, empty = full + 8 * G::RING, kvready = empty + 8 * G::RING;
+  const uint32_t full = sb + G::BAR_OFF, empty = full + 8 * G::RING, aready = empty + 8 * G::RING;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int N = a.N, ntiles = (N + TILE - 1) / TILE, nsum = (N + M::SUM_ROWS - 1) / M::SUM_ROWS;
-  const int Np = ntiles * TILE;
-  unsigned char* scr = a.scratch + (size_t)blockIdx.x * a.scratch_stride;
-  unsigned char* kvscr = scr;                                       // [2][KVST stages]
-  float* a2scr = reinterpret_cast<float*>(scr + 2 * G::KVST * SB);  // [2][64][2C]
-  float* oscr = a2scr + 2 * TILE * 2 * C;                           // [2][Np][C]
-  float* wscr = oscr + 2 * (size_t)Np * C;                          // [2][MSG, MID, HID]
+  const int N = a.N, ntiles = (N + TILE - 1) / TILE;
+  const int H = a.H, D = a.D, hm = a.hm, ct = a.ct;
+  const WideScratch<M, C> S(a.scratch + (size_t)blockIdx.x * a.scratch_stride, N);
+  const int nrows = (N + PK - 1) / PK;   // row panels the summary's units take
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < G::RING; ++i) {
       bf16mma::mbar_init(full + 8 * i, 1);
       bf16mma::mbar_init(empty + 8 * i, CWARPS);
     }
-    bf16mma::mbar_init(kvready, CWARPS);
+    bf16mma::mbar_init(aready, CWARPS);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (warp >= CWARPS) {
-    // ---- the producer: the consumers' stage order (weight_blocks at C > 128)
+    // ---- the producer: the consumers' stage order, an event's wait before
+    // the first stage that needs it
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
     if (threadIdx.x != 128 * WGS) return;
-    int it = 0;
+    int it = 0, ev = 0;
     auto emit = [&](const unsigned char* src) {
       const int slot = it % G::RING;
-      if (it >= G::RING) bf16mma::mbar_wait(empty + 8 * slot, (uint32_t)(((it / G::RING) - 1) & 1));
+      if (it >= G::RING) wait_or_trap(empty + 8 * slot, (uint32_t)(((it / G::RING) - 1) & 1));
       bf16mma::mbar_expect_tx(full + 8 * slot, SB);
       bf16mma::bulk_load(sb + slot * SB, src, SB, full + 8 * slot);
       ++it;
     };
-    // a tile's tail: the message stages of each warpgroup a chunk, then
-    // merge, fc1[C:] and fc2
-    auto tail = [&](const unsigned char* w, const unsigned char* const (&kv)[2]) {
-      for (int j = 0; j < NB; ++j)
-        for (int x = 0; x < WGS; ++x)
-          for (int b = 0; b < BP; ++b) emit(kv[x] + (size_t)(j * BP + b) * SB);
-      for (int s = 0; s < G::S1W; ++s, w += SB) emit(w);
+    auto event = [&]() {
+      wait_or_trap(aready, (uint32_t)(ev & 1));
+      ++ev;
     };
-    int round = 0;
-    for (int p = blockIdx.x; p < a.P; p += gridDim.x, ++round) {
+    // a product of np panels from p0 of the sides' A buffers, its weight
+    // blocks (two a panel) from w onwards
+    auto prod_w = [&](unsigned char* const (&A)[2], int np, const unsigned char*& w) {
+      for (int p = 0; p < np; ++p, w += 2 * SB) {
+        emit(A[0] + (size_t)p * SB);
+        emit(A[1] + (size_t)p * SB);
+        emit(w);
+        emit(w + SB);
+      }
+    };
+    // the message of each half over its band, B the KV message stages of
+    // chunks 2 vh, 2 vh + 1 each warpgroup reads
+    auto message = [&](unsigned char* const (&A)[2], const unsigned char* const (&kv)[2]) {
+      for (int vh = 0; vh < NH; ++vh) {
+        int p0, np;
+        band<PK>(vh, ct, D, hm, H, p0, np);
+        for (int p = p0; p < p0 + np; ++p) {
+          emit(A[0] + (size_t)p * SB);
+          emit(A[1] + (size_t)p * SB);
+          for (int x = 0; x < WGS; ++x) {
+            emit(kv[x] + (size_t)((2 * vh) * PPC + p) * SB);
+            emit(kv[x] + (size_t)((2 * vh + 1) * PPC + p) * SB);
+          }
+        }
+      }
+    };
+    // merge, LN1, the hidden groups, fc2 (each after the event of its A);
+    // in stage 2 (os: the tile's O stages) a hidden group's O fc1[:C]
+    // panels before its MID fc1[C:] ones, the first group's ahead of MID
+    auto tail = [&](const unsigned char*& w, unsigned char* const (*os)[2]) {
+      event();                                          // MSG
+      for (int hf = 0; hf < NH; ++hf) prod_w(S.msg, PPC, w);
+      for (int g = 0; g < 2 * NH; ++g) {
+        if (os != nullptr) prod_w(*os, PPC, w);
+        if (g == 0) event();                            // MID
+        prod_w(S.qs, PPC, w);
+      }
+      event();                                          // HID
+      for (int hf = 0; hf < NH; ++hf) prod_w(S.hid, 2 * PPC, w);
+    };
+    for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
       int ti, dj;
       pair_of(a, p, ti, dj);
+      // warpgroup 0 (the track side) reads the det side's summary, 1 the track's
       const unsigned char* const kin[2] = {a.side[1].kvs + (size_t)dj * G::KVST * SB,
                                            a.side[0].kvs + (size_t)ti * G::KVST * SB};
-      for (int tile = 0; tile < ntiles; ++tile) tail(a.w, kin);
-      // the summary's units: k chunk mi, v chunks NB + 2 vh, NB + 2 vh + 1
+      const unsigned char* const kout[2] = {S.kv[1], S.kv[0]};
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const unsigned char* w = a.w;
+        event();                                        // QS
+        message(S.qs, kin);
+        tail(w, nullptr);
+      }
+      event();                                          // O
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const unsigned char* w = a.w + (size_t)G::S1W * SB;
+        unsigned char* const os[2] = {S.os[0] + (size_t)tile * PPC * SB,
+                                      S.os[1] + (size_t)tile * PPC * SB};
+        for (int g = 0; g < 2 * NH; ++g) prod_w(os, PPC, w);
+      }
+      event();                                          // KT, VT
       for (int mi = 0; mi < NB; ++mi)
-        for (int vh = 0; vh < NH; ++vh)
-          for (int st = 0; st < nsum; ++st)
-            for (int u = 0; u < 3; ++u) {
-              const int i = u == 0 ? mi : NB + 2 * vh + u - 1;
-              const unsigned char* w = a.w + (size_t)(G::S1W + i * PPC) * SB;
-              for (int s = 0; s < PPC; ++s, w += SB) emit(w);
+        for (int vh = 0; vh < NH; ++vh) {
+          if (!unit_on(mi, vh, ct, hm, H)) continue;
+          for (int r = 0; r < nrows; ++r) {
+            emit(S.kt[0] + (size_t)(mi * S.nrp + r) * SB);
+            emit(S.kt[1] + (size_t)(mi * S.nrp + r) * SB);
+            for (int x = 0; x < WGS; ++x) {
+              emit(S.vt[x] + (size_t)((2 * vh) * S.nrp + r) * SB);
+              emit(S.vt[x] + (size_t)((2 * vh + 1) * S.nrp + r) * SB);
             }
-      const unsigned char* const kout[2] = {kvscr + (size_t)G::KVST * SB, kvscr};
+          }
+        }
+      event();                                          // KV
       for (int tile = 0; tile < ntiles; ++tile) {
         const unsigned char* w = a.w + (size_t)(G::S1W + G::SSW) * SB;
-        for (int s = 0; s < PPC * NB + CH2 * PPC; ++s, w += SB) emit(w);
-        if (tile == 0) bf16mma::mbar_wait(kvready, (uint32_t)(round & 1));
-        tail(w, kout);
+        unsigned char* const os[2] = {S.os[0] + (size_t)tile * PPC * SB,
+                                      S.os[1] + (size_t)tile * PPC * SB};
+        for (int g = 0; g < NH; ++g) prod_w(os, PPC, w);   // Wq
+        event();                                        // QS (q)
+        message(S.qs, kout);
+        tail(w, &os);
       }
     }
     return;
@@ -1382,29 +1649,67 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   const int wq = __shfl_sync(0xffffffffu, warp & 3, 0);
-  const int g = lane >> 2, t = lane & 3, rl = 16 * wq + g;
-  Ring<G::RING, SB> ring{sb, full, empty, 0};
-  unsigned char* stg = smem + G::STG_OFF + wg * G::STG;
-  const uint32_t stg_a = smem_addr(stg);
+  const int g = lane >> 2, t = lane & 3, rl = 16 * wq + g;   // the thread's rows in an m-tile
+  WideRing<G::RING, SB> ring{{sb, full, empty, 0}};
   float* ks_sm = reinterpret_cast<float*>(smem + G::KS_OFF);
-  float* ksp = reinterpret_cast<float*>(smem + G::KSP_OFF) + warp * C;
+  float* ksp = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * C;   // until stage 2
   float* part = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * 2 * C;
   float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * HMAX;
-  float* O = oscr + (size_t)wg * Np * C;
-  float* A2 = a2scr + wg * TILE * 2 * C;
-  float* MSG = wscr + (size_t)wg * TILE * 4 * C;   // 64 x C
-  float* MID = MSG + TILE * C;                      // 64 x C
-  float* HID = MID + TILE * C;                      // 64 x 2C
+  unsigned char* OS = S.os[wg];
+  unsigned char* QS = S.qs[wg];
+  unsigned char* MSG = S.msg[wg];
+  unsigned char* HID = S.hid[wg];
+  float* O = S.of[wg];
+  float* PARK = S.park[wg];
   const Side<M> X = wg ? a.side[1] : a.side[0];
   const Side<M> Y = wg ? a.side[0] : a.side[1];
   const size_t nc = (size_t)N * C;
-  const uint32_t wg_bar = 1 + wg;
-  auto bar_wg = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(wg_bar) : "memory"); };
+  auto bar_wg = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
   auto bar_both = [&]() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); };
-  const int H = a.H, D = a.D, hm = a.hm, ct = a.ct;
-  const ScrRows msg_rows{MSG + (size_t)rl * C, C, true};
-  const ScrRows mid_rows{MID + (size_t)rl * C, C, true};
-  const ScrRows hid_rows{HID + (size_t)rl * 2 * C, 2 * C, true};
+
+  // the message of the rows (their normaliser in den) into MSG, a half at a
+  // time over its heads' band
+  auto message = [&]() {
+#pragma unroll 1
+    for (int vh = 0; vh < NH; ++vh) {
+      int p0, np;
+      band<PK>(vh, ct, D, hm, H, p0, np);
+      float mz[16][4];
+      zero(mz);
+      product_ss<M, false>(ring, mz, np, wg);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 128 * vh + 8 * j + 2 * t;
+        const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
+        mz[j][0] *= den[rl * HMAX + h0];
+        mz[j][1] *= den[rl * HMAX + h1];
+        mz[j][2] *= den[(rl + 8) * HMAX + h0];
+        mz[j][3] *= den[(rl + 8) * HMAX + h1];
+      }
+      M::put_group(MSG, rl, 128 * vh, mz);
+    }
+    written(aready);
+  };
+  // merge, LN1 into QS (as MID), the hidden groups relu(init + MID fc1[C:])
+  // into HID, fc2, LN2, handed to fin by half
+  auto tail = [&](const Ln& ln, auto init, auto fin) {
+    halves_ln<M, NH>(ring, PPC, wg, PARK, rl, ln.s1, ln.b1, ct,
+                     [&](int hf, float (&y)[16][4]) { M::put_group(QS, rl, 128 * hf, y); });
+    written(aready);
+#pragma unroll 1
+    for (int gh = 0; gh < 2 * NH; ++gh) {
+      float hid[16][4];
+      init(gh, hid);
+      product_ss<M, true>(ring, hid, PPC, wg);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) hid[j][i] = fmaxf(hid[j][i], 0.f);
+      M::put_group(HID, rl, 128 * gh, hid);
+    }
+    written(aready);
+    halves_ln<M, NH>(ring, 2 * PPC, wg, PARK, rl, ln.s2, ln.b2, ct, fin);
+  };
 
   for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
     int ti, dj;
@@ -1414,120 +1719,119 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
     const T* qX = X.q + own * nc;
     const T* aX = X.a1 + own * 2 * nc;
     const T* pvX = X.pv == nullptr ? nullptr : X.pv + own * nc;
-    for (int c = lane; c < C; c += 32) {
-      part[c] = -__int_as_float(0x7f800000);
-      part[C + c] = 0.f;
-      ksp[c] = 0.f;
-    }
+    const float* ksX = Y.ks + (size_t)oth * C;
+    for (int c = lane; c < C; c += 32) ksp[c] = 0.f;
     __syncwarp();
 
     // ---- stage 1: O = h + LN2(relu(a1 + LN1(msg @ merge) @ fc1[C:]) @ fc2)
 #pragma unroll 1
     for (int tile = 0; tile < ntiles; ++tile) {
       const int r0 = tile * TILE + rl;
-      const FacRows<T> q{qX, C, r0, N};
-      normaliser_m<M>(den, q, Y.ks + (size_t)oth * C, false, rl, D, H);
-      message_m<M, G>(ring, MSG, C, rl, q, den, wg, hm, H);
-      halves_ln<M, G, PPC>(ring, msg_rows, MID, rl, a.ln[0].s1, a.ln[0].b1, ct,
-                           [&](int hf, float (&y)[16][4]) { store_scratch(MID + 128 * hf, C, rl, y); });
-      hidden_m<M, G>(ring, MID, HID, rl, [&](int h, float (&hid)[8][4]) {
-        load_rows<M>(hid, aX, 2 * C, 64 * h, r0, N);
-      });
-      halves_ln<M, G, 2 * PPC>(ring, hid_rows, MSG, rl, a.ln[0].s2, a.ln[0].b2, ct,
-                               [&](int hf, float (&y)[16][4]) {
+      den_zero(den, rl);
+#pragma unroll 1
+      for (int hf = 0; hf < NH; ++hf) {
+        float q[16][4];
+        load_rows<M>(q, qX, C, 128 * hf, r0, N);
+        den_add<M>(den, q, 128 * hf, ksX, false, rl, hm, H);
+        M::put_group(QS, rl, 128 * hf, q);
+      }
+      den_invert(den, rl);
+      written(aready);
+      message();
+      tail(a.ln[0],
+           [&](int gh, float (&hid)[16][4]) { load_rows<M>(hid, aX, 2 * C, 128 * gh, r0, N); },
+           [&](int hf, float (&y)[16][4]) {
 #pragma unroll
-                                 for (int j = 0; j < 16; ++j) {
-                                   float hr[1][4];
-                                   load_rows<M>(hr, hX, C, 128 * hf + 8 * j, r0, N);
+             for (int j = 0; j < 16; ++j) {
+               float hr[1][4];
+               load_rows<M>(hr, hX, C, 128 * hf + 8 * j, r0, N);
 #pragma unroll
-                                   for (int i = 0; i < 4; ++i) y[j][i] += hr[0][i];
-                                 }
-                                 store_scratch(O + (size_t)tile * TILE * C + 128 * hf, C, rl, y);
-                               });
+               for (int i = 0; i < 4; ++i) y[j][i] += hr[0][i];
+             }
+             store_scratch(O + (size_t)tile * TILE * C + 128 * hf, C, rl, y);
+             M::put_group(OS + (size_t)tile * PPC * SB, rl, 128 * hf, y);
+           });
     }
-    bar_wg();                       // O is written (a TF32 summary tile reads other warps' rows)
+    written(aready);                // O
 
-    // ---- the summary: KV (the heads' blocks of k^T v over all C columns)
-    // a unit (64-channel k chunk mi, 128-channel v half vh) at a time, put
-    // as the other side's message stages; sum k
-    unsigned char* kvo = kvscr + (size_t)wg * G::KVST * SB;
+    // ---- the summary: [k | v] = O [Wk | Wv] once a tile, transposed into
+    // KT, VT; KV over the units on the heads' diagonal, as the other side's
+    // message stages; sum k
 #pragma unroll 1
-    for (int mi = 0; mi < NB; ++mi) {
+    for (int tile = 0; tile < ntiles; ++tile) {
+      const int r0 = tile * TILE + rl;
+      const bool v0 = r0 < N, v1 = r0 + 8 < N;
 #pragma unroll 1
-      for (int vh = 0; vh < NH; ++vh) {
-        float kv[16][4];
-        zero(kv);
-#pragma unroll 1
-        for (int st = 0; st < nsum; ++st) {
-          const bool held = rl < M::SUM_ROWS;
-          const int r0 = st * M::SUM_ROWS + rl;
-          const bool v0 = held && r0 < N, v1 = held && r0 + 8 < N;
-          const ScrRows o{O + (size_t)(held ? r0 : 0) * C, C, held};
-#pragma unroll 1
-          for (int u = 0; u < 3; ++u) {
-            const bool is_k = u == 0;
-            const int i = is_k ? mi : NB + 2 * vh + u - 1;   // the chunk of [k | v]
-            float e[8][4];
-            zero(e);
-            product_m<M, 1, PPC, G::RING>(ring, e, o, 0);
-            float pv[8][4];
-            if (is_k || pvX == nullptr) {   // the image head: no position term
-              zero(pv);
-            } else {
-              load_rows<M>(pv, pvX, C, 64 * (i - NB), r0, N);
-            }
+      for (int gk = 0; gk < 2 * NH; ++gk) {
+        const bool is_k = gk < NH;
+        const int c0 = 128 * (is_k ? gk : gk - NH);
+        float e[16][4];
+        zero(e);
+        product_ss<M, true>(ring, e, PPC, wg);
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                float x = is_k ? elu1(e[j][k]) : e[j][k] + pv[j][k];
-                if (is_k && 64 * i + 8 * j + 2 * t + (k & 1) >= ct) x = 0.f;   // a padded k lane
-                e[j][k] = (k < 2 ? v0 : v1) ? x : 0.f;   // rows past N add nothing
-              }
-            if (is_k && vh == 0) {
-#pragma unroll
-              for (int j = 0; j < 8; ++j) {
-                float s0 = e[j][0] + e[j][2], s1 = e[j][1] + e[j][3];
-#pragma unroll
-                for (int off = 4; off < 32; off <<= 1) {
-                  s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-                  s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-                }
-                if (g == 0) {
-                  const int c = 64 * i + 8 * j + 2 * t;
-                  ksp[c] += s0;
-                  ksp[c + 1] += s1;
-                }
-              }
-            }
-            M::stage_chunk(stg + (is_k ? 0 : 64 * 128), G::LO, is_k ? 0 : 64 * (u - 1), e, wq,
-                           lane);
-          }
-          bf16mma::fence_async_shared();
-          bar_wg();                 // the unit's k^T and v^T are staged
-          M::template summary<128>(kv, stg_a, stg_a + 64 * 128, G::LO);
-          bar_wg();                 // the staging is free again
-        }
-#pragma unroll
-        for (int j = 0; j < 16; ++j)
+        for (int j = 0; j < 16; ++j) {
+          float pv[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+          if (!is_k && pvX != nullptr) load_rows<M>(pv, pvX, C, c0 + 8 * j, r0, N);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int m = 64 * mi + rl + 8 * (i >> 1), n = 128 * vh + 8 * j + 2 * t + (i & 1);
-            const bool same = head_of(m, hm, H) == head_of(n, hm, H);
-            M::put_b(kvo + (size_t)((n >> 6) * BP + m / M::PK) * SB, n & 63, m % M::PK,
-                     same ? kv[j][i] : 0.f);
+            float x = is_k ? elu1(e[j][i]) : e[j][i] + pv[0][i];
+            if (is_k && c0 + 8 * j + 2 * t + (i & 1) >= ct) x = 0.f;   // a padded k lane
+            e[j][i] = (i < 2 ? v0 : v1) ? x : 0.f;   // rows past N add nothing
           }
+        }
+        if (is_k) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            float s0 = e[j][0] + e[j][2], s1 = e[j][1] + e[j][3];
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) {
+              s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+              s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            }
+            if (g == 0) {
+              const int c = c0 + 8 * j + 2 * t;
+              ksp[c] += s0;
+              ksp[c + 1] += s1;
+            }
+          }
+        }
+        put_cols<M>(is_k ? S.kt[wg] : S.vt[wg], S.nrp, r0, c0, e);
       }
     }
-    asm volatile("fence.proxy.async.global;\n" ::: "memory");   // for the producer's bulk copies
-    __syncwarp();
-    if (lane == 0) bf16mma::mbar_arrive(kvready);
+    written(aready);                // KT, VT
+    {
+      unsigned char* kvo = S.kv[wg];
+#pragma unroll 1
+      for (int mi = 0; mi < NB; ++mi)
+#pragma unroll 1
+        for (int vh = 0; vh < NH; ++vh) {
+          if (!unit_on(mi, vh, ct, hm, H)) continue;
+          float kv[16][4];
+          zero(kv);
+          product_ss<M, false>(ring, kv, nrows, wg);
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int m = 64 * mi + rl + 8 * (i >> 1), n = 128 * vh + 8 * j + 2 * t + (i & 1);
+              const bool same = head_of(m, hm, H) == head_of(n, hm, H);
+              M::put_n(kvo + (size_t)((n >> 6) * PPC + m / PK) * SB, n & 63, m % PK,
+                       same ? kv[j][i] : 0.f);
+            }
+        }
+    }
+    written(aready);                // KV
     bar_wg();                       // the warps' sum k partials are complete
     for (int c = threadIdx.x & 127; c < C; c += 128) {
-      const float* k4 = reinterpret_cast<const float*>(smem + G::KSP_OFF) + 4 * wg * C;
+      const float* k4 = reinterpret_cast<const float*>(smem + G::PART_OFF) + 4 * wg * C;
       ks_sm[wg * C + c] = ((k4[c] + k4[C + c]) + k4[2 * C + c]) + k4[3 * C + c];
     }
-    bar_both();                     // both sides' sum k
+    bar_both();                     // both sides' sum k; the partials' bytes are free
+    for (int c = lane; c < C; c += 32) {
+      part[c] = -__int_as_float(0x7f800000);
+      part[C + c] = 0.f;
+    }
+    __syncwarp();
 
     // ---- stage 2: O searches the other side's summary, then the pooling
     const float* ksY = ks_sm + (1 - wg) * C;
@@ -1536,62 +1840,57 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       const int r0 = tile * TILE + rl;
       const bool v0 = r0 < N, v1 = r0 + 8 < N;
       float* Ot = O + (size_t)tile * TILE * C;
-      const ScrRows o{Ot + (size_t)rl * C, C, true};
-      // q = elu1(O Wq) in halves into MID; a = O fc1[:C] into A2
+      // q = elu1(O Wq) in halves into QS, its normaliser in registers
+      den_zero(den, rl);
 #pragma unroll 1
-      for (int hf = 0; hf < NH; ++hf) {
-        float q[16][4];
-        zero(q);
-        product_m<M, 2, PPC, G::RING>(ring, q, o, 0);
+      for (int gq = 0; gq < NH; ++gq) {
+        float e[16][4];
+        zero(e);
+        product_ss<M, true>(ring, e, PPC, wg);
 #pragma unroll
         for (int j = 0; j < 16; ++j)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            q[j][i] = 128 * hf + 8 * j + 2 * t + (i & 1) >= ct ? 0.f : elu1(q[j][i]);
-        store_scratch(MID + 128 * hf, C, rl, q);
+            e[j][i] = 128 * gq + 8 * j + 2 * t + (i & 1) >= ct ? 0.f : elu1(e[j][i]);
+        den_add<M>(den, e, 128 * gq, ksY, true, rl, hm, H);
+        M::put_group(QS, rl, 128 * gq, e);
       }
-#pragma unroll 1
-      for (int h = 0; h < CH2; ++h) {
-        float e[8][4];
-        zero(e);
-        product_m<M, 1, PPC, G::RING>(ring, e, o, 0);
-        store_scratch(A2 + 64 * h, 2 * C, rl, e);
-      }
-      normaliser_m<M>(den, mid_rows, ksY, true, rl, D, H);
-      message_m<M, G>(ring, MSG, C, rl, mid_rows, den, wg, hm, H);
-      halves_ln<M, G, PPC>(ring, msg_rows, MID, rl, a.ln[1].s1, a.ln[1].b1, ct,
-                           [&](int hf, float (&y)[16][4]) { store_scratch(MID + 128 * hf, C, rl, y); });
-      hidden_m<M, G>(ring, MID, HID, rl, [&](int h, float (&hid)[8][4]) {
-        load_scratch(hid, A2 + 64 * h, 2 * C, rl, true);
-      });
-      // pooling of O + y over the valid rows, a half at a time
-      halves_ln<M, G, 2 * PPC>(
-          ring, hid_rows, MSG, rl, a.ln[1].s2, a.ln[1].b2, ct, [&](int hf, float (&y)[16][4]) {
+      den_invert(den, rl);
+      written(aready);
+      message();
+      tail(a.ln[1],
+           [&](int, float (&hid)[16][4]) {   // a = O fc1[:C] of the group first
+             zero(hid);
+             product_ss<M, true>(ring, hid, PPC, wg);
+           },
+           [&](int hf, float (&y)[16][4]) {   // the pooling of O + y over the valid rows
 #pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const int c = 128 * hf + 8 * j + 2 * t;
-              const float2 o0 = __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)rl * C + c));
-              const float2 o1 = __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)(rl + 8) * C + c));
-              const float ninf = -__int_as_float(0x7f800000);
-              const float a0 = o0.x + y[j][0], a1 = o0.y + y[j][1];
-              const float b0 = o1.x + y[j][2], b1 = o1.y + y[j][3];
-              float m0 = fmaxf(v0 ? a0 : ninf, v1 ? b0 : ninf), m1 = fmaxf(v0 ? a1 : ninf, v1 ? b1 : ninf);
-              float s0 = (v0 ? a0 : 0.f) + (v1 ? b0 : 0.f), s1 = (v0 ? a1 : 0.f) + (v1 ? b1 : 0.f);
+             for (int j = 0; j < 16; ++j) {
+               const int c = 128 * hf + 8 * j + 2 * t;
+               const float2 o0 = __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)rl * C + c));
+               const float2 o1 =
+                   __ldcg(reinterpret_cast<const float2*>(Ot + (size_t)(rl + 8) * C + c));
+               const float ninf = -__int_as_float(0x7f800000);
+               const float a0 = o0.x + y[j][0], a1 = o0.y + y[j][1];
+               const float b0 = o1.x + y[j][2], b1 = o1.y + y[j][3];
+               float m0 = fmaxf(v0 ? a0 : ninf, v1 ? b0 : ninf);
+               float m1 = fmaxf(v0 ? a1 : ninf, v1 ? b1 : ninf);
+               float s0 = (v0 ? a0 : 0.f) + (v1 ? b0 : 0.f), s1 = (v0 ? a1 : 0.f) + (v1 ? b1 : 0.f);
 #pragma unroll
-              for (int off = 4; off < 32; off <<= 1) {
-                m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-                m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-                s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-                s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-              }
-              if (g == 0) {
-                part[c] = fmaxf(part[c], m0);
-                part[c + 1] = fmaxf(part[c + 1], m1);
-                part[C + c] += s0;
-                part[C + c + 1] += s1;
-              }
-            }
-          });
+               for (int off = 4; off < 32; off <<= 1) {
+                 m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+                 m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+                 s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+                 s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+               }
+               if (g == 0) {
+                 part[c] = fmaxf(part[c], m0);
+                 part[c + 1] = fmaxf(part[c + 1], m1);
+                 part[C + c] += s0;
+                 part[C + c + 1] += s1;
+               }
+             }
+           });
     }
     bar_both();                     // every warp's pooling partials
     for (int c = threadIdx.x; c < C; c += 128 * WGS) {
@@ -1627,10 +1926,10 @@ int launch_wide(const Args<M>& a, int blocks, cudaStream_t stream) {
 // shared memory. C = 256 is the wide kernel's (the padded entry point's
 // only).
 template <class M>
-size_t smem_bytes(int C) {
+size_t smem_bytes(int C, int H) {
   switch (C) {
-    case 64: return Cfg<M, 64, 64>::BYTES;
-    case 128: return Cfg<M, 128, 64>::BYTES;
+    case 64: return H <= 8 ? Cfg<M, 64, 64, 8>::BYTES : Cfg<M, 64, 64, HMAX>::BYTES;
+    case 128: return H <= 8 ? Cfg<M, 128, 64, 8>::BYTES : Cfg<M, 128, 64, HMAX>::BYTES;
     case 256: return WideCfg<M, 256>::BYTES;
     default: return 0;
   }
@@ -1638,21 +1937,21 @@ size_t smem_bytes(int C) {
 
 template <class M>
 int layout_status(int N, int C, int H) {
-  if (N < 1 || H < 1 || H > HMAX || C % H != 0 || smem_bytes<M>(C) == 0) return 1;
-  return smem_bytes<M>(C) > SMEM_LIMIT ? 2 : 0;
+  if (N < 1 || H < 1 || H > HMAX || C % H != 0 || smem_bytes<M>(C, H) == 0) return 1;
+  return smem_bytes<M>(C, H) > SMEM_LIMIT ? 2 : 0;
 }
 
 template <class M>
 long long scratch_need(int N, int C, int H) {
-  if (C == 256) return wide_scratch_bytes<M, 256>(N);
+  if (C == 256) return WideScratch<M, 256>::bytes(N);
   if (C == 64) return scratch_bytes<M, 64, 64>(N);
   return C / H > 64 ? scratch_bytes<M, 128, 128>(N) : scratch_bytes<M, 128, 64>(N);
 }
 
-template <class M, int C, int KVN, bool PAD>
+template <class M, int C, int KVN, bool PAD, int HD>
 int launch_c(const Args<M>& a, int blocks, cudaStream_t stream) {
-  using G = Cfg<M, C, KVN>;
-  auto kernel = rows_wg_kernel<M, C, KVN, PAD>;
+  using G = Cfg<M, C, KVN, HD>;
+  auto kernel = rows_wg_kernel<M, C, KVN, PAD, HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -1666,9 +1965,11 @@ int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
   if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 || C == 256 ||
       C / a.H < 8 || a.scratch_stride < scratch_need<M>(a.N, C, a.H))
     return (int)cudaErrorInvalidValue;
-  if (C == 64) return launch_c<M, 64, 64, false>(a, blocks, stream);
-  if (C / a.H > 64) return launch_c<M, 128, 128, false>(a, blocks, stream);
-  return launch_c<M, 128, 64, false>(a, blocks, stream);
+  // (heads of 8 channels or more: at most 8 heads but at C = 128 in 64-column bands)
+  if (C == 64) return launch_c<M, 64, 64, false, 8>(a, blocks, stream);
+  if (C / a.H > 64) return launch_c<M, 128, 128, false, 8>(a, blocks, stream);
+  if (a.H <= 8) return launch_c<M, 128, 64, false, 8>(a, blocks, stream);
+  return launch_c<M, 128, 64, false, HMAX>(a, blocks, stream);
 }
 
 // The padded layout (and the image head, pv null, heads of fewer than 8
@@ -1677,12 +1978,12 @@ int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
 // head (KVN = C).
 template <class M>
 int launch_pad(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
-  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, 1) != 0 || a.H < 1 || a.H > HMAX ||
+  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, HMAX) != 0 || a.H < 1 || a.H > HMAX ||
       a.ct < 1 || a.ct > C || a.ct % a.H != 0 || a.scratch_stride < scratch_need<M>(a.N, C, 1))
     return (int)cudaErrorInvalidValue;
-  if (C == 64) return launch_c<M, 64, 64, true>(a, blocks, stream);
+  if (C == 64) return launch_c<M, 64, 64, true, HMAX>(a, blocks, stream);
   if (C == 256) return launch_wide<M, 256>(a, blocks, stream);
-  return launch_c<M, 128, 128, true>(a, blocks, stream);
+  return launch_c<M, 128, 128, true, HMAX>(a, blocks, stream);
 }
 
 template <class M>
@@ -1733,7 +2034,7 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
 #define ROWS_WG_ENTRIES(POLICY, SUFFIX)                                                           \
   extern "C" int ROWS_WG_CAT(ROWS_WG_CAT(pcr_match_rows_wg, SUFFIX), _layout)(                   \
       int N, int C, int H, long long* bytes, long long* limit) {                                  \
-    *bytes = (long long)rowswg::smem_bytes<POLICY>(C);                                            \
+    *bytes = (long long)rowswg::smem_bytes<POLICY>(C, H);                                            \
     *limit = (long long)rowswg::SMEM_LIMIT;                                                       \
     return rowswg::layout_status<POLICY>(N, C, H);                                                \
   }                                                                                               \
@@ -1757,7 +2058,8 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
 // a .cu file of its own): pcr_match_rows_wg_pad<suffix>, the arguments of
 // pcr_match_rows_wg<suffix> with the true channels ct after H and C the
 // layout's width (64 or 128); the pv pointers null for the image head. Its
-// layout check is pcr_match_rows_wg<suffix>_layout(N, C, 1, ...).
+// layout check is pcr_match_rows_wg<suffix>_layout(N, C, HMAX, ...): the
+// padded layout's normalisers hold HMAX heads.
 #define ROWS_WG_PAD_ENTRIES(POLICY, SUFFIX)                                                       \
   extern "C" int ROWS_WG_CAT(pcr_match_rows_wg_pad, SUFFIX)(                                      \
       const void* ht, const void* qt, const void* at, const void* pvt, const void* kvst,          \

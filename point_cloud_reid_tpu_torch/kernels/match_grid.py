@@ -17,7 +17,8 @@ else ROWS (csrc/match_rows.cu instantiating csrc/match_rows_wg.cuh: C up to
 weights streamed through a ring of shared-memory stages from a stage copy
 made once, `rows_stage_weights`, the stage-1 outputs in a device scratch;
 past 128 channels its wide kernel, which keeps the chain's C-wide rows in
-the scratch and computes every C-wide output in 128-column halves) or, for
+the scratch as operand stages it streams through the ring beside the
+weights, and computes every C-wide output in 128-column halves) or, for
 the point head at C = 16 in up to 8 heads, ROWS_MMA (the first rows kernel,
 kept in the same file: a block a pair at a time on mma.sync).
 
@@ -465,6 +466,7 @@ def cluster_bytes_bf16(N: int, C: int) -> int:
 # ---- the wgmma rows tier's layout (csrc/match_rows_wg.cuh Cfg) ----
 
 RING_MAX = 16           # most weight stages in shared memory
+WIDE_RING_MAX = 32      # the wide kernel's (C > 128)
 STAGE_ROWS = 64         # output columns (B rows) a stage
 
 
@@ -493,34 +495,43 @@ def rows_layout(C: int, H: int, dtype: torch.dtype = torch.float32
     (bf16: one pass, 8 KB stages; float32: TF32 hi and lo, 16 KB): 1 KB to
     align the base, the ring, the summary staging of two warpgroups (C
     channels x 128 bytes of rows, k^T and v^T, at TF32 each with its lo
-    array; on the wide kernel, C > 128, a unit's 64 + 128 channels), sum k
-    of each side and its partials (8 warps), the pooling partials (8 x 2C)
-    and the normalisers (2 x 64 rows x 16 heads), float32, and the ring's
-    mbarriers with one more for the summary's hand-off. The weight stages'
-    counts are the same on both kernels; their order is weight_blocks'."""
+    array; none on the wide kernel, C > 128, whose summary streams its
+    operands through the ring, up to WIDE_RING_MAX stages), sum k of each
+    side and its partials (8 warps; on the wide kernel in the bytes of the
+    pooling partials), the pooling partials (8 x 2C) and the normalisers
+    (2 x 64 rows x 8 heads where H <= 8 at C <= 128, else 16; the padded
+    layout's are given H = ROWS_MAX_HEADS, layout_heads), float32, and the
+    ring's mbarriers
+    with one more for the summary's hand-off (the wide kernel's: for its
+    scratch rows). The weight stages' counts are the same on both kernels;
+    their order is weight_blocks'."""
     bf16 = dtype == BF16
     pk, sb, arrays = (64, 8192, 2) if bf16 else (32, 16384, 4)
     kvn = rows_kvn(C, H)
     nb, ch2, ppc, pph = C // 64, 2 * C // 64, C // pk, 64 // pk
     s1 = nb * pph * nb + ch2 * (ppc + pph * nb)
-    staging = arrays * (64 + 128) * 128 if C > 128 else 2 * arrays * C * 128
-    fixed = staging + 4 * (2 * C + 8 * C + 8 * 2 * C + 2 * 64 * ROWS_MAX_HEADS)
-    ring = min(RING_MAX, (MAX_SMEM - 1024 - fixed - 8 * (2 * RING_MAX + 1))
-               // sb)
+    most = WIDE_RING_MAX if C > 128 else RING_MAX
+    staging = 0 if C > 128 else 2 * arrays * C * 128
+    heads = 8 if C <= 128 and H <= 8 else ROWS_MAX_HEADS
+    # sum k, its partials (in the pooling partials' bytes on the wide
+    # kernel), the pooling partials, the normalisers
+    fixed = staging + 4 * (2 * C + (0 if C > 128 else 8 * C) + 8 * 2 * C
+                           + 2 * 64 * heads)
+    ring = min(most, (MAX_SMEM - 1024 - fixed - 8 * (2 * most + 1)) // sb)
     return RowsLayout(pk, sb, kvn, nb * (kvn // pk),
                       (s1, ch2 * ppc, ppc * nb + ch2 * ppc + s1), ring,
                       1024 + ring * sb + fixed + 8 * (2 * ring + 1))
 
 
-def rows_bytes(C: int) -> int:
+def rows_bytes(C: int, H: int = 1) -> int:
     """Shared bytes of the float32 rows tier's layout (rows_layout; the
-    heads do not change them)."""
-    return rows_layout(C, 1).smem
+    heads change only the normalisers' rows, past 8)."""
+    return rows_layout(C, H).smem
 
 
-def rows_bytes_bf16(C: int) -> int:
+def rows_bytes_bf16(C: int, H: int = 1) -> int:
     """Shared bytes of the bf16 rows tier's layout (rows_layout)."""
-    return rows_layout(C, 1, BF16).smem
+    return rows_layout(C, H, BF16).smem
 
 
 def rows_scratch_bytes(N: int, C: int, H: int,
@@ -528,14 +539,20 @@ def rows_scratch_bytes(N: int, C: int, H: int,
     """Device scratch a block of the rows tier: both sides' KV as message
     stages, the stage-2 a = O fc1[:C] of an m-tile a side (2 x 64 x 2C
     float32) and both sides' stage-1 outputs O (2 x Np x C float32, Np = N
-    rounded up to 64); on the wide kernel (C > 128) also a side's message,
-    its LayerNorm'd merge and its FFN hidden rows (64 x (C + C + 2C)
-    float32 a side)."""
+    rounded up to 64); on the wide kernel (C > 128, csrc/match_rows_wg.cuh
+    WideScratch) no a (its FFN accumulates O fc1[:C]) but a side's operands
+    in the stage layout, O's (Np / 64 x C / pk stages), k^T's and v^T's (as
+    many each), q or the LayerNorm'd merge (C / pk), the message (C / pk)
+    and the FFN's hidden rows (2C / pk), and its parked LayerNorm halves
+    (64 x (C - 128) float32)."""
     lay = rows_layout(C, H, dtype)
     Np = -(-N // 64) * 64
-    wide = 2 * 64 * 4 * C * 4 if C > 128 else 0
-    return (2 * lay.kv_stages * lay.stage_bytes + 2 * 64 * 2 * C * 4
-            + 2 * Np * C * 4 + wide)
+    kv_o = 2 * lay.kv_stages * lay.stage_bytes + 2 * Np * C * 4
+    if C <= 128:
+        return kv_o + 2 * 64 * 2 * C * 4
+    ppc = C // lay.pk
+    return kv_o + 2 * (lay.stage_bytes * ppc * (3 * Np // 64 + 4)
+                       + 4 * 64 * (C - 128))
 
 
 def rows_mma_bytes(C: int) -> int:
@@ -603,7 +620,8 @@ def plan(N: int, C: int, H: int, pos: bool = True,
     if pos and C in ROWS_MMA_WIDTHS and H <= ROWS_MMA_MAX_HEADS:
         return Plan(ROWS_MMA,
                     (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
-    return Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dtype).smem)
+    return Plan(ROWS, rows_layout(kernel_width(C, ROWS), layout_heads(
+        C, H, 5 if pos else 4), dtype).smem)
 
 
 def rows_padded(C: int, H: int, parts: int) -> bool:
@@ -616,6 +634,14 @@ def rows_padded(C: int, H: int, parts: int) -> bool:
     return W != C or parts == 4 or C // H < 8 or W > 128
 
 
+def layout_heads(C: int, H: int, parts: int) -> int:
+    """The heads the rows tier's layout is sized for (its normalisers' rows;
+    the H its layout check is given): H on the exact instantiations, whose
+    normalisers hold 8 heads up to 8 and 16 past them, ROWS_MAX_HEADS in
+    the padded layout, whose normalisers always hold 16."""
+    return ROWS_MAX_HEADS if rows_padded(C, H, parts) else H
+
+
 def rows_blocks(P: int, smem: int, device) -> int:
     """Blocks of a rows-tier launch: as many as the card holds at once (by
     shared memory, at most ROWS_BLOCKS_PER_SM an SM), at most one a pair."""
@@ -626,38 +652,44 @@ def rows_blocks(P: int, smem: int, device) -> int:
 
 # ---- the rows tier's stage copies ----
 
-def _k_order(pk: int) -> torch.Tensor:
-    """The real K column at each k position of a stage: identity at bf16;
-    at TF32 columns 2t, 2t + 1 of each 8-group at positions t, t + 4 (the A
-    fragments of csrc/tf32_mma.cuh a_from_acc)."""
+def _k_order(pk: int, natural: bool = False) -> torch.Tensor:
+    """The real K column at each k position of a stage: identity at bf16
+    and where A comes from shared memory too (`natural`: the wide kernel);
+    else at TF32 columns 2t, 2t + 1 of each 8-group at positions t, t + 4
+    (the A fragments of csrc/tf32_mma.cuh a_from_acc)."""
     p = torch.arange(pk)
-    if pk == 64:
+    if pk == 64 or natural:
         return p
     q = p % 8
     return p - q + torch.where(q < 4, 2 * q, 2 * (q - 4) + 1)
 
 
 @functools.lru_cache(maxsize=64)
-def _stage_index(blocks: Tuple[Tuple[int, int], ...], pk: int, device):
+def _stage_index(blocks: Tuple[Tuple[int, int], ...], pk: int, device,
+                 natural: bool = False):
     rows = torch.tensor([b[0] for b in blocks])[:, None] + torch.arange(
         STAGE_ROWS)
-    cols = torch.tensor([b[1] for b in blocks])[:, None] + _k_order(pk)
+    cols = torch.tensor([b[1] for b in blocks])[:, None] + _k_order(
+        pk, natural)
     # unit u (16 bytes) of row r lies at unit u ^ (r % 8): read unit v ^ (r % 8)
     swz = torch.arange(8)[None, :] ^ (torch.arange(STAGE_ROWS)[:, None] % 8)
     return rows.to(device), cols.to(device), swz.to(device)
 
 
-def b_stages(mat: torch.Tensor, blocks, bf16: bool) -> torch.Tensor:
+def b_stages(mat: torch.Tensor, blocks, bf16: bool,
+             natural: bool = False) -> torch.Tensor:
     """B-operand stages of the rows tier cut from mat (..., R, K) float32,
     R the product's output columns and K its contraction: block (r0, k0)
     is rows r0 .. r0 + 63 and one k-panel from k0 (64 columns at bf16, 32
     at TF32), K-major with the 128-byte swizzle of csrc/bf16_mma.cuh (16-byte
     unit u of row r at u ^ (r % 8)). bf16: the panel rounded to bf16, 4,096
-    values a stage. TF32: K in the order of _k_order, then hi (the value
-    with TF32's low 13 mantissa bits cleared) and lo = value - hi, 2,048
-    floats each. Returns (..., blocks x 4,096) in bf16 or float32."""
+    values a stage. TF32: K in the order of _k_order (`natural`: the wide
+    kernel's), then hi (the value with TF32's low 13 mantissa bits cleared)
+    and lo = value - hi, 2,048 floats each. The wide kernel's A stages of
+    its scratch rows lie the same way (R its 64 rows). Returns (...,
+    blocks x 4,096) in bf16 or float32."""
     pk = 64 if bf16 else 32
-    rows, cols, swz = _stage_index(tuple(blocks), pk, mat.device)
+    rows, cols, swz = _stage_index(tuple(blocks), pk, mat.device, natural)
     x = mat[..., rows[:, :, None], cols[:, None, :]]   # (..., nb, 64, pk)
     unit = 8 if bf16 else 4
     x = x.reshape(*x.shape[:-1], 8, unit)
@@ -688,23 +720,21 @@ def _tail_blocks(C: int, pk: int, merge: str, fc1b: str, fc2: str) -> list:
     return seq
 
 
-def _halves(name: str, C: int, K: int, pk: int) -> list:
-    """The stages of a C-wide product over K in the wide kernel's order:
-    each 128-column half of the output, k-panel by k-panel, its two
-    64-column blocks a panel."""
-    return [(name, 128 * hf + 64 * rb, p * pk) for hf in range(C // 128)
+def _groups(name: str, R: int, K: int, pk: int) -> list:
+    """The stages of an R-wide product over K in the wide kernel's order:
+    each 128-column group of the output (a half of a C-wide one), k-panel
+    by k-panel, its two 64-column blocks a panel."""
+    return [(name, 128 * g + 64 * rb, p * pk) for g in range(R // 128)
             for p in range(K // pk) for rb in range(2)]
 
 
 def _wide_tail_blocks(C: int, pk: int, merge: str, fc1b: str,
                       fc2: str) -> list:
     """A tile's weight stages of the chain's tail on the wide kernel (C >
-    128): merge in halves, fc1[C:] by hidden chunk x k-panel, fc2 in
-    halves over the 2C hidden columns."""
-    return (_halves(merge, C, C, pk)
-            + [(fc1b, 64 * h, p * pk) for h in range(2 * C // 64)
-               for p in range(C // pk)]
-            + _halves(fc2, C, 2 * C, pk))
+    128): merge in halves, fc1[C:] in 128-column groups of the 2C hidden
+    columns, fc2 in halves over them."""
+    return (_groups(merge, C, C, pk) + _groups(fc1b, 2 * C, C, pk)
+            + _groups(fc2, C, 2 * C, pk))
 
 
 def weight_blocks(C: int, pk: int) -> list:
@@ -713,18 +743,28 @@ def weight_blocks(C: int, pk: int) -> list:
     tile (the tail of stage 1), a summary tile ([Wk | Wv], 64-column chunks
     x k-panels), a stage-2 tile (Wq by k-panel x output block, fc1[:C] by
     hidden chunk x k-panel, the tail of stage 2). On the wide kernel (C >
-    128) every C-wide output comes in 128-column halves (_halves); its
-    summary re-reads the [Wk | Wv] chunks of each unit from the same
-    copy."""
+    128) every product comes in 128-column groups (_groups), [Wk | Wv]
+    streamed once a summary tile, stage 2's hidden groups taking fc1[:C]'s
+    group (over O) before fc1[C:]'s, and the kernel's producer puts the A
+    stages of its scratch rows between them."""
     nb, ch2, ppc = C // 64, 2 * C // 64, C // pk
-    tail = _wide_tail_blocks if C > 128 else _tail_blocks
-    seq = tail(C, pk, "merge1", "fc1b1", "fc2_1")
+    if C > 128:
+        hidden2 = []
+        for g in range(2 * C // 128):
+            hidden2 += (_groups("fc1a2", 2 * C, C, pk)[g * 2 * ppc:
+                                                       (g + 1) * 2 * ppc]
+                        + _groups("fc1b2", 2 * C, C, pk)[g * 2 * ppc:
+                                                         (g + 1) * 2 * ppc])
+        return (_wide_tail_blocks(C, pk, "merge1", "fc1b1", "fc2_1")
+                + _groups("kv2", 2 * C, C, pk) + _groups("q2", C, C, pk)
+                + _groups("merge2", C, C, pk) + hidden2
+                + _groups("fc2_2", C, 2 * C, pk))
+    seq = _tail_blocks(C, pk, "merge1", "fc1b1", "fc2_1")
     seq += [("kv2", 64 * i, p * pk) for i in range(ch2) for p in range(ppc)]
-    seq += (_halves("q2", C, C, pk) if C > 128 else
-            [("q2", 64 * rb, p * pk) for p in range(ppc) for rb in range(nb)])
+    seq += [("q2", 64 * rb, p * pk) for p in range(ppc) for rb in range(nb)]
     seq += [("fc1a2", 64 * h, p * pk) for h in range(ch2)
             for p in range(ppc)]
-    return seq + tail(C, pk, "merge2", "fc1b2", "fc2_2")
+    return seq + _tail_blocks(C, pk, "merge2", "fc1b2", "fc2_2")
 
 
 def _weight_matrices(w1, w2) -> Dict[str, torch.Tensor]:
@@ -751,7 +791,7 @@ def _rows_stage_weights(w1, w2, bf16: bool) -> torch.Tensor:
     mats = _weight_matrices(w1, w2)
     seq = weight_blocks(C, 64 if bf16 else 32)
     cut = {name: b_stages(m.float(), [(r, k) for n, r, k in seq if n == name],
-                          bf16).reshape(-1, 4096)
+                          bf16, natural=C > 128).reshape(-1, 4096)
            for name, m in mats.items()}
     taken = dict.fromkeys(mats, 0)
     out = []
@@ -773,11 +813,13 @@ def message_blocks(C: int, H: int, pk: int) -> list:
 
 def message_stages(kvz: torch.Tensor, H: int, bf16: bool):
     """The stage-1 message operands of a side from its [KV | Z] factor (n,
-    C, 2C): KV^T's band as message stages (n, stages x 4,096) and sum k,
-    Z's diagonal, (n, C) float32."""
+    C, 2C): KV^T's band as message stages (n, stages x 4,096; K in the
+    wide kernel's natural order past 128 channels) and sum k, Z's
+    diagonal, (n, C) float32."""
     C = kvz.shape[1]
     kvt = kvz[:, :, :C].transpose(1, 2).float()
-    stages = b_stages(kvt, message_blocks(C, H, 64 if bf16 else 32), bf16)
+    stages = b_stages(kvt, message_blocks(C, H, 64 if bf16 else 32), bf16,
+                      natural=C > 128)
     ks = torch.diagonal(kvz[:, :, C:], dim1=1, dim2=2).float().contiguous()
     return stages.contiguous(), ks
 
@@ -837,7 +879,8 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         if nhead > ROWS_MAX_HEADS:
             raise ValueError(f"N={N}, C={C}, nhead={nhead}: the rows tier "
                              f"takes at most {ROWS_MAX_HEADS} heads ({K7})")
-        how = Plan(ROWS, rows_layout(kernel_width(C, ROWS), 1, dt).smem)
+        how = Plan(ROWS, rows_layout(kernel_width(C, ROWS), layout_heads(
+            C, nhead, parts), dt).smem)
     elif tier not in (None, how.tier):
         raise ValueError(f"N={N}, C={C}, nhead={nhead}: the {TIER_NAMES[tier]}"
                          f" tier does not take this shape")
@@ -852,12 +895,13 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     if not hasattr(lib, entry):
         raise ValueError(f"N={N}, C={C}, nhead={nhead}: this build has no "
                          f"{entry}")
-    # the padded entries take the heads apart from the layout, which does
-    # not depend on them (the rows tier's KV band then spans every column)
+    # the padded entries take the heads apart from the layout (the rows
+    # tier's KV band then spans every column; its normalisers hold 16 heads)
     hl = 1 if padded else nhead
     smem, limit = ctypes.c_longlong(), ctypes.c_longlong()
     status = getattr(lib, layout_entry(tier, bf16))(
-        N, W, hl, ctypes.byref(smem), ctypes.byref(limit))
+        N, W, layout_heads(C, nhead, parts) if tier == ROWS else hl,
+        ctypes.byref(smem), ctypes.byref(limit))
     if status or (tier == how.tier and smem.value != how.smem):
         # a build whose layout differs from the plan's
         raise ValueError(

@@ -22,8 +22,11 @@ image grid 128 x 64 (S=197), and 512-pair lists of both; with --C C and
 --N N instead the point head alone at that width and row count, a --grid x
 --grid grid and a 512-pair list (the 7M model's dense frame: --C 128 --N
 128; a 2048-point ablation served at its crop size: --C 64 --N 2048 --grid
-16), or several such shapes at once with --shapes C:N:GRID[:HEADS],...
-(one build for all; 2 heads unless given). A width the tiles have no
+16), or several such shapes at once with --shapes
+C:N:GRID[:HEADS][:image],... (one build for all; 2 heads unless given;
+GRID is tracks x detections, NTxND, or one number for a square grid;
+`image` takes the image head, N its tokens: 256:197:128x64:2:image is
+image256's dense frame). A width the tiles have no
 instantiation for runs in the padded layout (kernels/match_grid.pad_side).
 The rows tier past 128 channels and 8 heads (--shapes 256:128:128:2 for
 conv_out256's two 128-channel heads, 128:128:128:16 for heads16's 16 heads
@@ -48,11 +51,17 @@ block of that version's layout.
 
 A SOURCE may join several files with '+' into one version (a tier with
 its padded entry points: csrc/match_rows.cu+csrc/match_rows_pad.cu).
+Each version is launched through the kernels/match_grid.py of the tree
+its first file lies in (SOURCE's csrc/../kernels), imported under a name of
+its own when that is not this package: an earlier commit's sources from
+its `git archive` run with that commit's stage copies and layout checks
+(an earlier wide kernel, whose weight order and scratch differ from this
+one's).
 
     python -m point_cloud_reid_tpu_torch.tools.ab_match SOURCE [SOURCE ...]
         [--rounds 2] [--iters 5] [--C 128 --N 128 [--grid 128]]
         [--shapes 128:128:128,64:2048:16,96:128:128:3,256:128:128:2,
-                  128:128:128:16] [--bf16]
+                  128:128:128:16,256:197:128x64:2:image] [--bf16]
         [--tier plan] [--tier rows]
 
 Needs a CUDA device and nvcc. TF32 off.
@@ -61,7 +70,11 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
+import importlib
+import importlib.util
 import json
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -127,44 +140,93 @@ def build(sources):
     return libs
 
 
-def layout_bytes(lib, t, nhead, tier=None) -> int:
+def wrapper(source: str):
+    """The kernels/match_grid module that launches a version: this
+    package's for a source in its csrc/ (or outside any tree of the
+    package), else that of the tree the source's first file lies in,
+    imported once under a name of its own."""
+    pkg = Path(source.split("+")[0]).resolve().parent.parent
+    if (pkg == Path(mg.__file__).resolve().parent.parent
+            or not (pkg / "kernels" / "match_grid.py").is_file()):
+        return mg
+    name = "ab_match_" + hashlib.sha1(str(pkg).encode()).hexdigest()[:12]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(name + ".kernels.match_grid")
+
+
+def layout_bytes(lib, t, nhead, tier=None, wrap=mg) -> int:
     """Shared bytes a block of one version's layout for `tier`, by default
-    the one kernels/match_grid.plan picks for these factors, at the width
-    it runs them (a version without the wgmma rows tier: its first rows
-    kernel's)."""
+    the one its wrapper's plan (`wrap`, kernels/match_grid) picks for these
+    factors, at the width it runs them (a version without the wgmma rows
+    tier: its first rows kernel's)."""
     N, C = t[0].shape[1], t[0].shape[2]
     bf16 = t[0].dtype == torch.bfloat16
     if tier is None:
-        tier = mg.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype).tier
-    W = mg.kernel_width(C, tier)
-    padded = W != C or (tier == mg.ROWS and mg.rows_padded(C, nhead, len(t)))
-    entry = mg.layout_entry(tier, bf16)
+        tier = wrap.plan(N, C, nhead, pos=len(t) == 5, dtype=t[0].dtype).tier
+    W = wrap.kernel_width(C, tier)
+    # a wrapper from before rows_padded pads the image head alone
+    padded = W != C or (tier == mg.ROWS and (
+        wrap.rows_padded(C, nhead, len(t)) if hasattr(wrap, "rows_padded")
+        else len(t) == 4))
+    entry = wrap.layout_entry(tier, bf16)
     if not hasattr(lib.get(), entry) and tier == mg.ROWS:
-        entry = mg.layout_entry(mg.ROWS_MMA, bf16)
+        entry = wrap.layout_entry(mg.ROWS_MMA, bf16)
+    heads = 1 if padded else nhead
+    if tier == mg.ROWS and hasattr(wrap, "layout_heads"):
+        heads = wrap.layout_heads(C, nhead, len(t))
     need, limit = ctypes.c_longlong(), ctypes.c_longlong()
-    getattr(lib.get(), entry)(N, W, 1 if padded else nhead,
-                              ctypes.byref(need), ctypes.byref(limit))
+    getattr(lib.get(), entry)(N, W, heads, ctypes.byref(need),
+                              ctypes.byref(limit))
     return need.value
 
 
 def parse_shapes(text: str) -> list:
-    """--shapes "C:N:GRID[:HEADS],..." as [(C, N, GRID, HEADS), ...] (2
-    heads unless given)."""
+    """--shapes "C:N:GRID[:HEADS][:image],..." as [(C, N, GRID, HEADS),
+    ...] (2 heads unless given; GRID an int for a square grid, (NT, ND)
+    for NTxND), an image shape with "image" as a fifth element."""
     out = []
     for item in text.split(","):
-        parts = [int(x) for x in item.split(":")]
-        if len(parts) not in (3, 4) or min(parts) < 1:
-            raise SystemExit(f"ab_match: --shapes wants C:N:GRID[:HEADS], "
-                             f"got {item!r}")
-        out.append(tuple(parts) + ((2,) if len(parts) == 3 else ()))
+        fields = item.split(":")
+        image = fields[-1] == "image"
+        fields = fields[:-1] if image else fields
+        try:
+            if len(fields) not in (3, 4):
+                raise ValueError(item)
+            parts = [int(x) for x in fields[:2] + fields[3:]]
+            grid = [int(x) for x in fields[2].split("x")]
+        except ValueError:
+            parts, grid = [0], []
+        if len(grid) not in (1, 2) or min(parts + grid) < 1:
+            raise SystemExit(f"ab_match: --shapes wants C:N:GRID[:HEADS]"
+                             f"[:image], got {item!r}")
+        shape = (parts[0], parts[1], grid[0] if len(grid) == 1
+                 else tuple(grid), parts[2] if len(parts) == 3 else 2)
+        out.append(shape + (("image",) if image else ()))
     return out
 
 
-def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None, tier=None):
+def shape_cases(shapes) -> tuple:
+    """(label, head, nt, nd, rows, C, heads) of each parsed --shapes item."""
+    cases = []
+    for C, N, grid, H, *image in shapes:
+        head = "image" if image else "point"
+        nt, nd = (grid, grid) if isinstance(grid, int) else grid
+        cases.append((f"{head}_C{C}_N{N}_H{H}_grid_{nt}x{nd}", head, nt, nd,
+                      N, C, H))
+    return tuple(cases)
+
+
+def call(lib, t, d, w1, w2, nhead, t_idx=None, d_idx=None, tier=None,
+         wrap=mg):
     """(P, 2C) pooled features from one version of the kernel, through
-    `tier` if given (kernels/match_grid.launch)."""
-    out = mg.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib,
-                    tier=tier)
+    `tier` if given (its wrapper's kernels/match_grid.launch)."""
+    out = wrap.launch(None, len(t), t, d, w1, w2, nhead, t_idx, d_idx, lib,
+                      tier=tier)
     return out.reshape(-1, out.shape[-1])
 
 
@@ -180,7 +242,7 @@ def main(argv=None):
     ap.add_argument("--grid", type=int, default=128,
                     help="tracks and detections of that shape's grid")
     ap.add_argument("--shapes", default=None,
-                    help="point-head shapes C:N:GRID[:HEADS],... (instead of "
+                    help="shapes C:N:GRID[:HEADS][:image],... (instead of "
                          "--C/--N)")
     ap.add_argument("--tier", action="append", choices=("plan", "rows"),
                     help="the plan's tier (default) or the rows tier; both: "
@@ -204,19 +266,18 @@ def main(argv=None):
     versions = [(src, lib, tier) for src, lib in zip(args.sources, built)
                 for tier in tiers]
     libs = [v[1] for v in versions]
+    wraps = [wrapper(v[0]) for v in versions]
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {}
     shapes = ((("point_grid_128x128", "point", 128, 128, 128, 64, 2),
                ("image_grid_128x64", "image", 128, 64, 197, 64, 2))
-              if not point else
-              tuple((f"point_C{C}_N{N}_H{H}_grid_{g}x{g}", "point", g, g, N,
-                     C, H) for C, N, g, H in point))
+              if not point else shape_cases(point))
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     smem = [{} for _ in libs]
     for label, head, nt, nd, n_rows, C, H in shapes:
         t, d, w1, w2, nhead = inputs(head, nt, nd, n_rows, C, H, dtype=dtype)
         for i, (_, lib, tier) in enumerate(versions):
-            smem[i][label] = layout_bytes(lib, t, nhead, tier)
+            smem[i][label] = layout_bytes(lib, t, nhead, tier, wraps[i])
         ti = torch.randint(0, nt, (512,), generator=gen, device="cuda",
                            dtype=torch.int32)
         di = torch.randint(0, nd, (512,), generator=gen, device="cuda",
@@ -236,7 +297,7 @@ def main(argv=None):
                                           di_all)
         first = None
         for i, (_, lib, tier) in enumerate(versions):
-            got = call(lib, t, d, w1, w2, nhead, ti, di, tier)
+            got = call(lib, t, d, w1, w2, nhead, ti, di, tier, wraps[i])
             torch.cuda.synchronize()
             first = got if first is None else first
             scale = max(1.0, plain.float().abs().max().item())
@@ -251,7 +312,7 @@ def main(argv=None):
             for label, (t, d, w1, w2, nhead, ti, di) in cases.items():
                 times[i][label].append(time_ms(
                     lambda: call(libs[i], t, d, w1, w2, nhead, ti, di,
-                                 versions[i][2]), args.iters))
+                                 versions[i][2], wraps[i]), args.iters))
     for i, (src, _, tier) in enumerate(versions):
         print(json.dumps(dict(
             source=src, card=card, dtype=str(dtype).split(".")[-1],

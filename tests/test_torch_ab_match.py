@@ -81,15 +81,33 @@ def test_shapes_name_several_point_shapes(monkeypatch):
 
 def test_shapes_take_the_wide_kernel_and_16_heads(monkeypatch):
     """--shapes 256:128:128:2 (conv_out256: the rows tier's wide kernel,
-    through the padded entry point) and 128:128:128:16 (heads16: the exact
-    C = 128 instantiation at 16 heads), at both dtypes; without a card the
-    tool exits before it builds."""
+    through the padded entry point), 128:128:128:16 (heads16: the exact
+    C = 128 instantiation at 16 heads) and 256:197:128x64:2:image
+    (image256's dense frame: the image head on the wide kernel, a 128 x 64
+    grid of 197 tokens a side), at both dtypes; without a card the tool
+    exits before it builds."""
     shapes = ab_match.parse_shapes("256:128:128:2,128:128:128:16")
     assert shapes == [(256, 128, 128, 2), (128, 128, 128, 16)]
     for dtype in (torch.float32, torch.bfloat16):
         for C, N, _, H in shapes:
             assert mg.plan(N, C, H, dtype=dtype).tier == mg.ROWS
             assert mg.rows_padded(C, H, 5) == (C > 128)
+    image = ab_match.parse_shapes("256:197:128x64:2:image")
+    assert image == [(256, 197, (128, 64), 2, "image")]
+    assert ab_match.shape_cases(image + shapes[:1]) == (
+        ("image_C256_N197_H2_grid_128x64", "image", 128, 64, 197, 256, 2),
+        ("point_C256_N128_H2_grid_128x128", "point", 128, 128, 128, 256, 2))
+    t, d, w1, w2, H = ab_match.inputs("image", 2, 1, 5, 256, 2, device="cpu")
+    assert len(t) == 4
+    for dtype in (torch.float32, torch.bfloat16):
+        assert mg.plan(197, 256, 2, pos=False, dtype=dtype) == mg.Plan(
+            mg.ROWS, mg.rows_layout(256, 1, dtype).smem)
+    assert mg.kernel_width(256, mg.ROWS) == 256
+    assert mg.rows_padded(256, 2, len(t))
+    for bad in ("256:197:128x:2:image", "256:197:128x64x2:2:image",
+                "256:197:image"):
+        with pytest.raises(SystemExit):
+            ab_match.parse_shapes(bad)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         ab_match.main(["point_cloud_reid_tpu_torch/csrc/match_rows.cu+"
@@ -112,3 +130,24 @@ ptxas info    : Used 40 registers"""
         "_Z1kv": dict(registers=168, stack=568, spill_stores=1140,
                       spill_loads=1440),
         "_Z1jv": dict(registers=40, stack=0, spill_stores=0, spill_loads=0)}
+
+
+def test_a_version_launches_through_its_own_tree(tmp_path):
+    """A source in this package's csrc/ (or outside any tree of it) is
+    launched through this kernels/match_grid; one in another tree of the
+    package (an earlier commit's `git archive`) through that tree's own,
+    imported once under a name of its own, so that its stage copies and
+    layout checks are that commit's."""
+    here = "point_cloud_reid_tpu_torch/csrc/match_rows.cu"
+    assert ab_match.wrapper(here) is mg
+    assert ab_match.wrapper(str(tmp_path / "older.cu")) is mg
+    pkg = tmp_path / "tree" / "point_cloud_reid_tpu_torch"
+    (pkg / "kernels").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    (pkg / "__init__.py").write_text("")
+    (pkg / "kernels" / "__init__.py").write_text("")
+    (pkg / "kernels" / "match_grid.py").write_text("TREE = 'older'\n")
+    src = str(pkg / "csrc" / "match_rows.cu")
+    older = ab_match.wrapper(src + "+" + str(pkg / "csrc" / "x.cu"))
+    assert older is not mg and older.TREE == "older"
+    assert ab_match.wrapper(src) is older

@@ -94,7 +94,7 @@ def test_bf16_plan_picks_the_tier():
     assert tmg.rows_bytes_bf16(128) <= tmg.MAX_SMEM
     assert tmg.plan(128, 128, 8, dtype=BF16).tier == tmg.ROWS
     assert tmg.plan(CLUSTER_EDGE + 1, 64, 2, pos=False, dtype=BF16) == \
-        tmg.Plan(tmg.ROWS, tmg.rows_bytes_bf16(64))
+        tmg.Plan(tmg.ROWS, tmg.rows_bytes_bf16(64, tmg.ROWS_MAX_HEADS))
     with pytest.raises(ValueError, match="at most 16 heads"):
         tmg.plan(128, 128, 32, dtype=BF16)
     # float32: the cluster tier holds up to 224 rows at C = 64, C = 128 is

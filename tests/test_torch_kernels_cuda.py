@@ -203,7 +203,8 @@ def test_match_rows_tier_matches_plain(cuda, N, C, nhead):
                                        (240, 64, torch.bfloat16),
                                        (130, 128, torch.bfloat16),
                                        (130, 256, torch.float32),
-                                       (130, 256, torch.bfloat16)])
+                                       (130, 256, torch.bfloat16),
+                                       (70, 200, torch.bfloat16)])
 def test_match_rows_tier_walks_more_pairs_than_blocks(cuda, N, C, dtype):
     """More pairs than the card's blocks at once: each block scores pairs
     in turn in its own slot of the scratch, and a pair list in reverse

@@ -24,9 +24,12 @@ LEAVES = {
 }
 # shared bytes of the layout (csrc/match_rows_wg.cuh Cfg::BYTES): 1,024 to
 # align, the ring, two warpgroups' staging, sum k, partials, normalisers and
-# the mbarriers
-BYTES = {(64, torch.float32): 229016, (128, torch.float32): 219208,
-         (64, BF16): 179976, (128, BF16): 219400}
+# the mbarriers; the normalisers hold 8 heads for a launch of at most 8
+# (BYTES), 16 past them and in the padded layout (PADDED)
+BYTES = {(64, torch.float32): 224920, (128, torch.float32): 231512,
+         (64, BF16): 175880, (128, BF16): 215304}
+PADDED = {(64, torch.float32): 229016, (128, torch.float32): 219208,
+          (64, BF16): 179976, (128, BF16): 219400}
 
 
 def _match_shape(name: str):
@@ -75,7 +78,11 @@ def test_layout_geometry(dtype):
         assert 4 <= lay.ring <= mg.RING_MAX
         assert len(mg.weight_blocks(C, lay.pk)) == sum(lay.weight_stages)
     assert [mg.rows_layout(C, 2, dtype).ring for C in (64, 128)] == (
-        [16, 16] if bf16 else [9, 4])
+        [16, 16] if bf16 else [9, 5])
+    # 16 heads' normalisers: the float32 C = 128 ring's fifth stage
+    assert [mg.rows_layout(C, 16, dtype).smem for C in (64, 128)] == [
+        PADDED[64, dtype], PADDED[128, dtype]]
+    assert mg.rows_layout(128, 16, dtype).ring == (16 if bf16 else 4)
     # scratch: both KV message sets, a = O fc1[:C] of an m-tile a side, O
     assert mg.rows_scratch_bytes(65, 64, 2, dtype) == (
         2 * mg.rows_layout(64, 2, dtype).kv_stages
@@ -92,9 +99,9 @@ def test_c16_keeps_the_first_rows_kernel_and_the_refusals():
                                                             nbytes)
     for args, want in (((10, 12, 2), (mg.CLUSTER, mg.cluster_bytes(10, 16))),
                        ((128, 32, 2), (mg.CLUSTER, mg.cluster_bytes(128, 64))),
-                       ((128, 128, 2, False), (mg.ROWS, BYTES[128, torch.float32])),
-                       ((260, 64, 2, False), (mg.ROWS, BYTES[64, torch.float32])),
-                       ((4000, 12, 3), (mg.ROWS, BYTES[64, torch.float32]))):
+                       ((128, 128, 2, False), (mg.ROWS, PADDED[128, torch.float32])),
+                       ((260, 64, 2, False), (mg.ROWS, PADDED[64, torch.float32])),
+                       ((4000, 12, 3), (mg.ROWS, PADDED[64, torch.float32]))):
         assert mg.plan(*args) == mg.Plan(*want)
     for args, kw, match in (((128, 257, 1), {}, "K7"),
                             ((128, 512, 2), dict(dtype=BF16), "K7"),
@@ -133,27 +140,31 @@ def _k_pos(r: int) -> int:
     return (r >> 1) + 4 * (r & 1)
 
 
-def _offset(row: int, pos: int, bf16: bool) -> int:
+def _offset(row: int, pos: int, bf16: bool, natural: bool = False) -> int:
     """Index of element (row, real k pos) in a stage's values: byte row *
     128 + (its 16-byte unit ^ (row % 8)) * 16 + its place in the unit (the
     128-byte swizzle of csrc/bf16_mma.cuh sw128), at TF32 after the k
-    position of tf32::k_pos; over the element size."""
+    position of tf32::k_pos (not where `natural`: the wide kernel's
+    operands, put_n / put_a); over the element size."""
     if bf16:
         return (row * 128 + (((pos >> 3) ^ (row & 7)) << 4)
                 + (pos & 7) * 2) // 2
-    p = (pos & ~7) | _k_pos(pos & 7)
+    p = pos if natural else (pos & ~7) | _k_pos(pos & 7)
     return (row * 128 + (((p >> 2) ^ (row & 7)) << 4) + (p & 3) * 4) // 4
 
 
-_OFFSETS = {b: torch.tensor([[_offset(r, k, b) for k in range(64 if b else 32)]
-                             for r in range(64)]) for b in (False, True)}
+_OFFSETS = {(b, n): torch.tensor([[_offset(r, k, b, n)
+                                   for k in range(64 if b else 32)]
+                                  for r in range(64)])
+            for b in (False, True) for n in (False, True)}
 
 
-def read_stage(stage: torch.Tensor, bf16: bool) -> torch.Tensor:
+def read_stage(stage: torch.Tensor, bf16: bool,
+               natural: bool = False) -> torch.Tensor:
     """A stage (4,096 values) as the kernel reads it: (64 rows, k-panel) in
     real K order, float64; at TF32 hi + lo (lo 2,048 values on)."""
     flat = stage.double()
-    idx = _OFFSETS[bf16]
+    idx = _OFFSETS[bf16, natural]
     return flat[idx] if bf16 else flat[idx] + flat[2048 + idx]
 
 

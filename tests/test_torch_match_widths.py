@@ -197,8 +197,9 @@ def test_plan_takes_every_width_to_128_channels(pos, dtype):
                 if how.tier == mg.CLUSTER:
                     assert how.smem == (mg.cluster_bytes_bf16 if bf16 else
                                         mg.cluster_bytes)(N, W)
-                elif how.tier == mg.ROWS:
-                    assert how.smem == mg.rows_layout(W, 1, dtype).smem
+                elif how.tier == mg.ROWS:   # 16 heads' normalisers padded
+                    assert how.smem == mg.rows_layout(W, mg.layout_heads(
+                        C, H, 5 if pos else 4), dtype).smem
                 else:
                     assert (how.tier, C, pos) == (mg.ROWS_MMA, 16, True)
     for args in ((128, 257, 1), (128, 512, 2), (2048, 96, 24),

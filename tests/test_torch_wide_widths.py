@@ -12,12 +12,15 @@ Here:
   - kernels/match_grid.plan at every new width, head count, head and
     dtype, and its refusal past the new bound naming ROADMAP.md's K7;
   - the rows tier's wide kernel (C = 256, csrc/match_rows_wg.cuh
-    rows_wide_kernel): its stage copies read back byte for byte, and a
-    model of its walk (the producer's stage order, the merge / FFN / Wq
-    outputs in 128-column halves, the summary in units of a 64-channel k
-    chunk x a 128-channel v half, written as the other side's message
-    stages) against the plain chain, exact and padded, at both dtypes; the
-    exact C = 128 instantiation's walk at 16 heads of 8 channels;
+    rows_wide_kernel): its stage copies (weights, and the A stages of its
+    scratch rows) read back byte for byte, and a model of its walk (the
+    producer's stage order, each scratch stage read as it stood at the
+    event the producer waited for, every output in 128-column groups, the
+    message over its heads' band, LayerNorm from Chan-merged halves, the
+    summary's k and v once a tile and KV over the diagonal units only,
+    written as the other side's message stages) against the plain chain,
+    exact and padded, at both dtypes; the exact C = 128 instantiation's
+    walk at 16 heads of 8 channels;
   - the port at configs/widths.py's conv_out256, heads16, mul16 and
     image256 (at the tiny test widths of their other dimensions) against
     JAX's model.apply and its scorers' grid and pairs, with the same
@@ -52,7 +55,7 @@ from tests._torch_image import images, jax_variables_of  # noqa: E402
 from tests._torch_port import TINY, crops  # noqa: E402
 from tests._torch_threads import few_threads  # noqa: E402,F401
 from tests.test_torch_match_rows_plan import (  # noqa: E402
-    _kernel_model, _kv_stages, _Ring, read_stage)
+    _kernel_model, _offset, read_stage)
 from tests.test_torch_match_widths import _image_cfg  # noqa: E402
 
 BF16 = torch.bfloat16
@@ -202,7 +205,7 @@ def test_plan_takes_every_width_to_256_channels_and_16_heads(pos, dtype):
                             N, mg.kernel_width(C, mg.CLUSTER))
                     continue
                 W = mg.kernel_width(C, mg.ROWS)
-                assert how == mg.Plan(mg.ROWS, mg.rows_layout(W, 1, dtype)
+                assert how == mg.Plan(mg.ROWS, mg.rows_layout(W, H, dtype)
                                       .smem)
                 assert mg.rows_padded(C, H, 5 if pos else 4) == (
                     not pos or W != C or C // H < 8)
@@ -215,72 +218,271 @@ def test_plan_takes_every_width_to_256_channels_and_16_heads(pos, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_wide_layout_and_stage_copies(dtype):
-    """The wide kernel's layout (C = 256: the staging of a unit's 64 + 128
-    channels, a KV band of all 256 columns, a ring of 5 TF32 / 16 bf16
-    stages) and its weight stage copy, read back as the kernel reads it:
-    stage i holds rows r0 .. r0 + 63 and one k-panel from k0 of
-    weight_blocks' i-th matrix, the C-wide outputs in 128-column halves."""
+    """The wide kernel's layout (C = 256: no summary staging, a KV band of
+    all 256 columns, a ring of 12 TF32 / 24 bf16 stages, its scratch of
+    operand stages) and its stage copies, read back as the kernel reads
+    them, K in its natural order (A from shared memory too): stage i of
+    the weight copy holds rows r0 .. r0 + 63 and one k-panel from k0 of
+    weight_blocks' i-th matrix, every product in 128-column groups; the A
+    stages of a scratch buffer (put_a) hold its 64 rows a k-panel, and
+    k^T / v^T (put_n) a 64-channel block x a k-panel of the rows."""
     bf16 = dtype == BF16
     lay = mg.rows_layout(256, 2, dtype)
     pk = 64 if bf16 else 32
     assert (lay.kvn, lay.kv_stages, lay.ring, lay.smem) == (
-        (256, 16, 16, 216328) if bf16 else (256, 32, 5, 216152))
+        (256, 16, 24, 224648) if bf16 else (256, 32, 12, 224456))
+    ppc = 256 // pk
     assert mg.rows_scratch_bytes(130, 256, 2, dtype) == (
-        2 * lay.kv_stages * lay.stage_bytes + 2 * 64 * 512 * 4
-        + 2 * 192 * 256 * 4 + 2 * 64 * 1024 * 4)
+        2 * lay.kv_stages * lay.stage_bytes + 2 * 192 * 256 * 4
+        + 2 * (lay.stage_bytes * ppc * (3 * 3 + 4) + 4 * 64 * 128))
     t, d, w1, w2, _ = inputs("point", 1, 1, 3, 256, device="cpu")
     stages = mg.rows_stage_weights(w1, w2, bf16).reshape(-1, 4096)
     seq = mg.weight_blocks(256, pk)
     assert stages.shape[0] == len(seq) == sum(lay.weight_stages)
-    s1w = lay.weight_stages[0]
-    # the stage-1 tail: merge by half, then k-panel, then block
+    s1w, ssw, _ = lay.weight_stages
+    # the stage-1 tail: merge by half, then k-panel, then block; fc1[C:] by
+    # 128-column group of the hidden columns
     assert seq[:4] == [("merge1", 0, 0), ("merge1", 64, 0),
                        ("merge1", 0, pk), ("merge1", 64, pk)]
-    assert seq[256 // pk * 2] == ("merge1", 128, 0)
+    assert seq[ppc * 2] == ("merge1", 128, 0)
+    assert seq[ppc * 4:ppc * 4 + 3] == [("fc1b1", 0, 0), ("fc1b1", 64, 0),
+                                        ("fc1b1", 0, pk)]
     assert seq[s1w - 1] == ("fc2_1", 192, 512 - pk)
+    # [Wk | Wv] once a summary tile, in groups; stage 2's hidden groups
+    # take fc1[:C]'s group (over O) before fc1[C:]'s
+    assert seq[s1w:s1w + ssw] == mg._groups("kv2", 512, 256, pk)
+    h2 = s1w + ssw + 8 * ppc          # after Wq and merge, in halves
+    assert [seq[h2 + i * 2 * ppc][0] for i in range(8)] == [
+        "fc1a2", "fc1b2"] * 4
     mats = mg._weight_matrices(w1, w2)
     for i in range(0, len(seq), 7):
         name, r0, k0 = seq[i]
         want = mats[name][r0:r0 + 64, k0:k0 + pk]
         want = want.to(BF16).double() if bf16 else want.double()
-        assert torch.equal(read_stage(stages[i], bf16), want), (i, name)
+        assert torch.equal(read_stage(stages[i], bf16, natural=True),
+                           want), (i, name)
     # every block of every matrix once
     assert sorted(seq) == sorted(set(seq))
     # the message stages: one band of all C columns a 64-column chunk
     assert mg.message_blocks(256, 16, pk) == [
         (64 * j, b * pk) for j in range(4) for b in range(256 // pk)]
+    kvz = t[2]
+    ms, _ = mg.message_stages(kvz, 1, bf16)
+    kvt = kvz[0, :, :256].t().double()
+    for i, (r0, k0) in enumerate(mg.message_blocks(256, 1, pk)):
+        got = read_stage(ms[0, i * 4096:(i + 1) * 4096], bf16, natural=True)
+        want = kvt[r0:r0 + 64, k0:k0 + pk]
+        assert torch.equal(got, want.float().to(dtype).double()), i
+    # a scratch buffer's A stages and k^T's, element by element where the
+    # kernel's put_a / put_n put them
+    g = torch.Generator().manual_seed(1)
+    rows = torch.randn(64, 256, generator=g)
+    got = _a_stages(rows, bf16)
+    for p in range(ppc):
+        for r, k in ((0, 0), (9, 3), (63, pk - 1), (17, pk // 2)):
+            x = got[p][_offset(r, k, bf16, True)].double()
+            if not bf16:
+                x = x + got[p][2048 + _offset(r, k, bf16, True)].double()
+            assert x == rows[r, p * pk + k].to(dtype).double(), (p, r, k)
+        assert torch.equal(read_stage(got[p], bf16, natural=True),
+                           rows[:, p * pk:(p + 1) * pk].to(dtype).double())
+    kt = _a_stages(rows.t().contiguous(), bf16, nrp=1)   # 256 channels x 64 rows
+    for blk in range(4):
+        assert torch.equal(
+            read_stage(kt[blk], bf16, natural=True)[:, :pk],
+            rows[:pk, 64 * blk:64 * blk + 64].t().to(dtype).double())
 
 
-def _ln(x, s, b, ct):
-    """LayerNorm of the kernels' padded layout (statistics over ct lanes)."""
-    mu = x.sum(-1, keepdim=True) / ct
-    dev = (x - mu) * (torch.arange(x.shape[-1]) < ct).double()
-    var = (dev * dev).sum(-1, keepdim=True) / ct
-    return (x - mu) / torch.sqrt(var + 1e-5) * s.double() + b.double()
+def _a_stages(x, bf16, nrp=None):
+    """A matrix (R rows, K) as the wide kernel's epilogues write it into a
+    scratch buffer: stages of 64 rows x one k-panel, natural K order, the
+    64-row blocks in turn with nrp k-panels each (all of K by default)
+    (put_a; transposed, KT / VT, put_n). Returns (stages, 4,096)."""
+    pk = 64 if bf16 else 32
+    R, K = x.shape
+    nrp = K // pk if nrp is None else nrp
+    blocks = [(64 * b, p * pk) for b in range(R // 64) for p in range(nrp)]
+    return mg.b_stages(x.float(), blocks, bf16, natural=True).reshape(
+        -1, 4096)
+
+
+def _band(vh, ct, D, pk):
+    """The k-panels (p0, np) of the heads' band of the 128-column half vh
+    (csrc/match_rows_wg.cuh band)."""
+    c0 = 128 * vh
+    if c0 >= ct:
+        return 0, 0
+    klo = c0 // D * D
+    khi = min(ct, (min(c0 + 127, ct - 1) // D + 1) * D)
+    return klo // pk, -(-khi // pk) - klo // pk
+
+
+def _unit_on(mi, vh, ct, D):
+    """Whether the summary's unit (k block mi, v half vh) meets a head's
+    diagonal band (unit_on)."""
+    if 64 * mi >= ct or 128 * vh >= ct:
+        return False
+    ma, mb = 64 * mi // D, min(64 * mi + 63, ct - 1) // D
+    va, vb = 128 * vh // D, min(128 * vh + 127, ct - 1) // D
+    return ma <= vb and va <= mb
+
+
+def _wide_seq(N, C, H, ct, bf16):
+    """The wide kernel's producer sequence for one pair
+    (csrc/match_rows_wg.cuh rows_wide_kernel), in the ring's order: (the
+    events the producer has waited for before it, stage), a stage ("w", i)
+    the weight copy's i-th, ("kin", x, i) stage i of the stage-1 message
+    stages warpgroup x reads, or (buffer, side, i) stage i of a side's
+    scratch buffer ("qs", "msg", "hid", "os", "kt", "vt", "kv")."""
+    pk = 64 if bf16 else 32
+    nh, nb, ppc = C // 128, C // 64, C // pk
+    ntiles = -(-N // 64)
+    nrp, nrows = ntiles * 64 // pk, -(-N // pk)
+    D = ct // H
+    s1w, ssw = 10 * nh * ppc, 4 * nh * ppc
+    seq, ev, w = [], [0], [0]
+
+    def emit(x):
+        seq.append((ev[0], x))
+
+    def event():
+        ev[0] += 1
+
+    def prod_w(buf, np, off=0):
+        for p in range(np):
+            emit((buf, 0, off + p))
+            emit((buf, 1, off + p))
+            emit(("w", w[0]))
+            emit(("w", w[0] + 1))
+            w[0] += 2
+
+    def message(kv):
+        for vh in range(nh):
+            p0, np = _band(vh, ct, D, pk)
+            for p in range(p0, p0 + np):
+                emit(("qs", 0, p))
+                emit(("qs", 1, p))
+                for x in range(2):
+                    emit(kv(x, 2 * vh * ppc + p))
+                    emit(kv(x, (2 * vh + 1) * ppc + p))
+
+    def tail(tile=None):
+        event()
+        for _ in range(nh):
+            prod_w("msg", ppc)
+        for g in range(2 * nh):
+            if tile is not None:    # stage 2: O fc1[:C] ahead of MID
+                prod_w("os", ppc, tile * ppc)
+            if g == 0:
+                event()
+            prod_w("qs", ppc)
+        event()
+        for _ in range(nh):
+            prod_w("hid", 2 * ppc)
+
+    for tile in range(ntiles):
+        w[0] = 0
+        event()
+        message(lambda x, i: ("kin", x, i))
+        tail()
+    event()
+    for tile in range(ntiles):
+        w[0] = s1w
+        for _ in range(2 * nh):
+            prod_w("os", ppc, tile * ppc)
+    event()
+    for mi in range(nb):
+        for vh in range(nh):
+            if not _unit_on(mi, vh, ct, D):
+                continue
+            for r in range(nrows):
+                emit(("kt", 0, mi * nrp + r))
+                emit(("kt", 1, mi * nrp + r))
+                for x in range(2):
+                    emit(("vt", x, 2 * vh * nrp + r))
+                    emit(("vt", x, (2 * vh + 1) * nrp + r))
+    event()
+    for tile in range(ntiles):
+        w[0] = s1w + ssw
+        for _ in range(nh):
+            prod_w("os", ppc, tile * ppc)
+        event()
+        message(lambda x, i: ("kv", 1 - x, i))
+        tail(tile)
+    return seq
+
+
+class _WideRing:
+    """The producer's sequence of a pair, taken in order by the consumers'
+    model; a scratch stage is read as its buffer stood at the event the
+    producer waited for before issuing it, and only once the consumers
+    have reached that event."""
+
+    def __init__(self, seq, weights, kin, bf16):
+        self.seq, self.i, self.bf16 = seq, 0, bf16
+        self.weights, self.kin = weights, kin
+        self.scr = {}           # (buffer, side) -> stages as last written
+        self.snaps = []         # the buffers at each event
+
+    def write(self, buf, side, stages):
+        self.scr[buf, side] = stages
+
+    def arrive(self):
+        self.snaps.append(dict(self.scr))
+
+    def take(self):
+        ev, (kind, *ref) = self.seq[self.i]
+        self.i += 1
+        if kind == "w":
+            return read_stage(self.weights[ref[0]], self.bf16, natural=True)
+        x, i = ref
+        if kind == "kin":
+            st = self.kin[x][i * 4096:(i + 1) * 4096]
+        else:
+            assert len(self.snaps) >= ev > 0, (kind, ev, len(self.snaps))
+            st = self.snaps[ev - 1][kind, x][i]
+        return read_stage(st, self.bf16, natural=True)
+
+
+def _chan(stats, y, ct, c0):
+    """Chan's merge of the 128-column group y (2, 64, 128) from c0 into the
+    running (count, mean, sum of squared deviations) of each row."""
+    n, mean, m2 = stats
+    nb = max(0, min(128, ct - c0))
+    if nb == 0:
+        return stats
+    yb = y[..., :nb]
+    mb = yb.mean(-1, keepdim=True)
+    qb = ((yb - mb) ** 2).sum(-1, keepdim=True)
+    nn = n + nb
+    delta = mb - mean
+    return nn, mean + delta * nb / nn, m2 + qb + delta * delta * n * nb / nn
 
 
 def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
     """One pair through the wide kernel's walk (csrc/match_rows_wg.cuh
     rows_wide_kernel) in float64, sides and weights at W = 256 (ct true
-    channels): every product takes its stages from the producer's sequence
-    (weights from rows_stage_weights, stage 1's messages from
-    message_stages, stage 2's from the summary's units written with
-    put_b), the C-wide outputs in 128-column halves, both sides in step.
+    channels): every product takes both operands from the producer's
+    sequence (_wide_seq: the weight copy, stage 1's messages from
+    message_stages, the scratch rows each epilogue writes as A stages),
+    a scratch stage read as its buffer stood at the event the producer
+    waited for; the outputs in 128-column groups, the message over its
+    heads' band only, LayerNorm from Chan-merged statistics of the halves,
+    the summary's k and v once a tile and KV over the diagonal units only.
     Returns the pooled (2W,)."""
     C, N = t[0].shape[2], t[0].shape[1]
-    dt = BF16 if bf16 else torch.float32
-    lay = mg.rows_layout(C, 1, dt)
-    pk, sr = lay.pk, 64 if bf16 else 32
-    nb, nh, ch2, ppc = C // 64, C // 128, 2 * C // 64, C // pk
+    pk = 64 if bf16 else 32
+    nb, nh, ppc = C // 64, C // 128, C // pk
     D = ct // H
     heads = torch.clamp(torch.arange(C) // D, max=H - 1)
-    rnd = (lambda x: x.to(BF16).double()) if bf16 else (lambda x: x)
     W = mg.rows_stage_weights(w1, w2, bf16).reshape(-1, 4096)
-    s1w, ssw, _ = lay.weight_stages
     side = [tuple(x[i].double() for x in s) for s, i in ((t, ti), (d, dj))]
     kin = [mg.message_stages(s[2][i:i + 1], 1, bf16) for s, i in
            ((d, dj), (t, ti))]          # warpgroup 0 reads the det side's
+    ring = _WideRing(_wide_seq(N, C, H, ct, bf16), W,
+                     [kin[0][0][0], kin[1][0][0]], bf16)
     ntiles = -(-N // 64)
+    Np = ntiles * 64
     lane = (torch.arange(C) < ct).double()
 
     def rows(x, r0, n=64):
@@ -289,105 +491,129 @@ def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
         out[:m] = x[r0:r0 + m]
         return out
 
-    def product(ring, A, nbk, npan):
-        out = torch.zeros(2, 64, 64 * nbk, dtype=torch.float64)
-        for p in range(npan):
-            a = rnd(A[:, :, p * pk:(p + 1) * pk])
-            for rb in range(nbk):
-                out[:, :, 64 * rb:64 * rb + 64] += a @ ring.take().t()
+    def write(buf, x):          # both sides' rows (2, R, K) as A stages
+        for s in range(2):
+            ring.write(buf, s, _a_stages(x[s], bf16))
+
+    def product(npan, shared=True, out=None):
+        """out (2, 64, 128) += own A @ own B over npan panels."""
+        out = torch.zeros(2, 64, 128, dtype=torch.float64) \
+            if out is None else out
+        for _ in range(npan):
+            a = [ring.take(), ring.take()]
+            b = ([ring.take(), ring.take()] * 2 if shared
+                 else [ring.take() for _ in range(4)])
+            for s in range(2):
+                out[s] += a[s] @ torch.cat(b[2 * s:2 * s + 2]).t()
         return out
 
-    def halves(ring, A, npan):
-        return torch.cat([product(ring, A, 2, npan) for _ in range(nh)], -1)
-
-    def tail(ring, q, ks, round_den, init, w):
+    def den_of(q, ks, rnd_den):
         prod = q * ks[:, None, :]
-        prod = rnd(prod) if round_den else prod
-        den = torch.stack([(prod * (heads == h)).sum(-1) for h in range(H)],
-                          -1)
+        prod = prod.to(BF16).double() if rnd_den and bf16 else prod
+        return torch.stack([(prod * (heads == h)).sum(-1)
+                            for h in range(H)], -1)
+
+    def halves_ln(npan, s, b):
+        stats = (0, torch.zeros(2, 64, 1, dtype=torch.float64),
+                 torch.zeros(2, 64, 1, dtype=torch.float64))
+        out = []
+        for hf in range(nh):
+            y = product(npan)
+            stats = _chan(stats, y, ct, 128 * hf)
+            out.append(y)
+        n, mean, m2 = stats
+        assert n == ct
+        y = torch.cat(out, -1)
+        return (y - mean) / torch.sqrt(m2 / n + 1e-5) * s.double() + \
+            b.double()
+
+    def tail(den, init, w):
         msg = torch.zeros(2, 64, C, dtype=torch.float64)
-        for j in range(nb):
-            mz = torch.zeros(2, 64, 64, dtype=torch.float64)
-            for x in range(2):
-                for p in range(C // pk):
-                    mz[x] += rnd(q[x, :, p * pk:(p + 1) * pk]) @ \
-                        ring.take().t()
-            cols = heads[64 * j:64 * j + 64]
-            msg[..., 64 * j:64 * j + 64] = mz / (den[:, :, cols] + 1e-6)
-        m = _ln(halves(ring, msg, ppc), w["ln1_scale"], w["ln1_bias"], ct)
-        hid = torch.cat([torch.relu(init(h) + product(ring, m, 1, ppc))
-                         for h in range(ch2)], -1)
-        return _ln(halves(ring, hid, 2 * ppc), w["ln2_scale"], w["ln2_bias"],
-                   ct)
+        for vh in range(nh):
+            mz = product(_band(vh, ct, D, pk)[1], shared=False)
+            cols = heads[128 * vh:128 * vh + 128]
+            msg[..., 128 * vh:128 * vh + 128] = mz / (den[:, :, cols] + 1e-6)
+        write("msg", msg)
+        ring.arrive()
+        m = halves_ln(ppc, w["ln1_scale"], w["ln1_bias"])
+        write("qs", m)
+        ring.arrive()
+        hid = torch.cat([torch.relu(init(g) + product(ppc))
+                         for g in range(2 * nh)], -1)
+        write("hid", hid)
+        ring.arrive()
+        return halves_ln(2 * ppc, w["ln2_scale"], w["ln2_bias"])
 
-    def kv_seq(kv):
-        """Both sides' message stages a 64-column chunk at a time (one band
-        of all C columns: C / pk stages a chunk)."""
-        return [kv[x][(j * ppc + b) * 4096:(j * ppc + b + 1) * 4096]
-                for j in range(nb) for x in range(2) for b in range(ppc)]
-
-    O = torch.zeros(2, ntiles * 64, C, dtype=torch.float64)
+    O = torch.zeros(2, Np, C, dtype=torch.float64)
     ks_in = torch.stack([kin[0][1][0].double(), kin[1][1][0].double()])
     for tile in range(ntiles):
         r0 = tile * 64
-        ring = _Ring(kv_seq([kin[0][0][0], kin[1][0][0]])
-                     + [W[i] for i in range(s1w)], bf16)
         q = torch.stack([rows(s[1], r0) for s in side])
-        y = tail(ring, q, ks_in, False, lambda h: torch.stack(
-            [rows(s[3], r0)[:, 64 * h:64 * h + 64] for s in side]), w1)
+        den = den_of(q, ks_in, False)
+        write("qs", q)
+        ring.arrive()
+        y = tail(den, lambda g: torch.stack(
+            [rows(s[3], r0)[:, 128 * g:128 * g + 128] for s in side]), w1)
         O[:, r0:r0 + 64] = torch.stack([rows(s[0], r0) for s in side]) + y
-        assert ring.i == len(ring.seq)
-    # the summary in units (k chunk mi, v half vh), each unit's chunks
-    # recomputed from O at every summary tile
-    kv = torch.zeros(2, C, C, dtype=torch.float64)
-    ksum = torch.zeros(2, C, dtype=torch.float64)
-    chunk = [[W[s1w + i * ppc + p] for p in range(ppc)] for i in range(ch2)]
-    for mi in range(nb):
-        for vh in range(nh):
-            for st in range(-(-N // sr)):
-                r0 = st * sr
-                o = torch.zeros(2, 64, C, dtype=torch.float64)
-                o[:, :sr] = O[:, r0:r0 + sr]
-                units = [mi, nb + 2 * vh, nb + 2 * vh + 1]
-                ring = _Ring([s for i in units for s in chunk[i]], bf16)
-                e = [product(ring, o, 1, ppc) for _ in units]
-                valid = ((torch.arange(64) < sr)
-                         & (r0 + torch.arange(64) < N)).double()[None, :,
-                                                                  None]
-                k = torch.where(e[0] > 0, e[0] + 1, torch.exp(e[0]))
-                k = k * lane[64 * mi:64 * mi + 64] * valid
-                v = torch.cat(e[1:], -1)
-                if len(side[0]) == 5:   # the point head's position term
-                    v = v + torch.stack([rows(s[4], r0) for s in side])[
-                        ..., 128 * vh:128 * vh + 128]
-                v = v * valid
-                if vh == 0:
-                    ksum[:, 64 * mi:64 * mi + 64] += k.sum(1)
-                kv[:, 64 * mi:64 * mi + 64, 128 * vh:128 * vh + 128] += \
-                    rnd(k).transpose(1, 2) @ rnd(v)
-                assert ring.i == len(ring.seq)
-    kv *= (heads[:, None] == heads[None, :])
-    kout = [_kv_stages(kv[s], C, bf16) for s in range(2)]
-    out_max = torch.full((C,), -float("inf"), dtype=torch.float64)
-    out_sum = torch.zeros(C, dtype=torch.float64)
+    for s in range(2):
+        ring.write("os", s, _a_stages(O[s], bf16, nrp=ppc))
+    ring.arrive()
+    # the summary: k and v once a tile, transposed; KV over the units on the
+    # heads' diagonal
+    kt = torch.zeros(2, C, Np, dtype=torch.float64)
+    vt = torch.zeros(2, C, Np, dtype=torch.float64)
     for tile in range(ntiles):
         r0 = tile * 64
-        w = s1w + ssw
-        n2 = ppc * nb + ch2 * ppc
-        ring = _Ring([W[w + i] for i in range(n2)]
-                     + kv_seq([kout[1], kout[0]])
-                     + [W[w + n2 + i] for i in range(s1w)], bf16)
+        e = torch.cat([product(ppc) for _ in range(2 * nh)], -1)
+        valid = (r0 + torch.arange(64) < N).double()[None, :, None]
+        k = torch.where(e[..., :C] > 0, e[..., :C] + 1, torch.exp(e[..., :C]))
+        v = e[..., C:]
+        if len(side[0]) == 5:   # the point head's position term
+            v = v + torch.stack([rows(s[4], r0) for s in side])
+        kt[:, :, r0:r0 + 64] = (k * lane * valid).transpose(1, 2)
+        vt[:, :, r0:r0 + 64] = (v * valid).transpose(1, 2)
+    nrp = Np // pk
+    for s in range(2):
+        ring.write("kt", s, _a_stages(kt[s], bf16, nrp=nrp))
+        ring.write("vt", s, _a_stages(vt[s], bf16, nrp=nrp))
+    ring.arrive()
+    ksum = kt.sum(-1)
+    kv = torch.zeros(2, C, C, dtype=torch.float64)
+    for mi in range(nb):
+        for vh in range(nh):
+            if _unit_on(mi, vh, ct, D):
+                kv[:, 64 * mi:64 * mi + 64, 128 * vh:128 * vh + 128] = \
+                    product(-(-N // pk), shared=False)
+    kv *= (heads[:, None] == heads[None, :])
+    # put_n writes the message stages of KV^T's band that the units cover;
+    # the others hold what an earlier pair left (here NaN)
+    put = [(2 * vh + e) * ppc + p for mi in range(nb) for vh in range(nh)
+           if _unit_on(mi, vh, ct, D) for e in range(2)
+           for p in range(64 * mi // pk, (64 * mi + 64) // pk)]
+    stale = torch.ones(nb * ppc, dtype=torch.bool)
+    stale[put] = False
+    for s in range(2):
+        st = _a_stages(kv[s].t().contiguous(), bf16)
+        st[stale] = float("nan")
+        ring.write("kv", s, st)
+    ring.arrive()
+    out_max = torch.full((C,), -float("inf"), dtype=torch.float64)
+    out_sum = torch.zeros(C, dtype=torch.float64)
+    ks = torch.stack([ksum[1], ksum[0]])
+    for tile in range(ntiles):
+        r0 = tile * 64
+        e = torch.cat([product(ppc) for _ in range(nh)], -1)
+        q = torch.where(e > 0, e + 1, torch.exp(e)) * lane
+        den = den_of(q, ks, True)
+        write("qs", q)
+        ring.arrive()
+        # a hidden group starts from its a = O fc1[:C]
+        y = tail(den, lambda g: product(ppc), w2)
         o = O[:, r0:r0 + 64]
-        q = halves(ring, o, ppc)
-        q = torch.where(q > 0, q + 1, torch.exp(q)) * lane
-        a2 = torch.cat([product(ring, o, 1, ppc) for _ in range(ch2)], -1)
-        ks = torch.stack([ksum[1], ksum[0]])
-        y = tail(ring, q, ks, True, lambda h: a2[..., 64 * h:64 * h + 64],
-                 w2)
-        assert ring.i == len(ring.seq)
         res = (o + y)[:, :max(0, min(64, N - r0))]
         out_max = torch.maximum(out_max, res.amax((0, 1)))
         out_sum += res.sum((0, 1))
+    assert ring.i == len(ring.seq) and len(ring.snaps) == ring.seq[-1][0]
     return torch.cat([out_max, out_sum / (2 * N)])
 
 
