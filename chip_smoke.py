@@ -205,15 +205,18 @@ Phases, each of which raises on failure:
      ops.geometry.farthest_point_sample.
  17. the last shape gaps (ROADMAP.md K5, K6b): the SA kernels at both
      dtypes against their plain versions (SA_TOL, BF16_TOL) at C = 48 (the
-     padded layout at 64), 1,056 and the mul16 model's three SA stages at B
-     = 128 (C = 512, 1024, 2048: the float32 kernel's h1-from-gather layout,
-     the bf16 kernel's mma_sync tier past 1024), and the match kernels at
+     padded layout at 64), 992 (at bf16 the mma_sync tier), 1024, 1,056,
+     1,536 and the mul16 model's three SA stages at B = 128 (C = 512,
+     1024, 2048: the wide layout of csrc/sa_wide_wg.cuh from 928 channels
+     at float32 and past 1024 at bf16), each with its time over its bound,
+     and the match kernels at
      WIDE_MATCH (the point grid 128 x 128 and 512 pairs at C = 256 in 2
      heads, the wide kernel, and at C = 128 in 16 heads; DeiT's 128 x 64
      grid and 512 pairs at C = 256), each with its tier, time, plain time
      and bound at the true and the kernel's width, pairs equal to their
-     grid cells bit for bit. Then, with every count at 0: the four --set
-     models conv_out256, heads16, mul16 and image256 of
+     grid cells bit for bit. Then, with every count at 0: the five --set
+     models conv_out256, heads16, mul16, mul6 (SA widths 192 / 384 / 768:
+     the row tiles, at bf16 the mma_sync tier) and image256 of
      configs/widths.py through tools/track.py at float32 and --bf16, dense
      and sparse, each frame held as in phase 16, the launches of the new
      rows; the phase's seconds on a line of its own.
@@ -449,11 +452,13 @@ WIDTH_FPS = (128, 1024, 256, 6)
 # (C, B, N, S, K) off the first kernels' widths (the mul16 model's stages
 # come from tools/ab_sa.stage_inputs at B = 128), the match kernels at
 # (head, C, heads, N, nt, nd), and the configs/widths.py models served
-WIDE_SA = ((48, 128, 128, 128, 32), (1056, 128, 64, 32, 48))
+WIDE_SA = ((48, 128, 128, 128, 32), (992, 128, 64, 32, 48),
+           (1024, 128, 64, 32, 48), (1056, 128, 64, 32, 48),
+           (1536, 128, 64, 32, 48))
 WIDE_MATCH = (("point", 256, 2, 128, 128, 128),
               ("point", 128, 16, 128, 128, 128),
               ("image", 256, 2, 197, 128, 64))
-WIDE_MODELS = ("conv_out256", "heads16", "mul16", "image256")
+WIDE_MODELS = ("conv_out256", "heads16", "mul16", "mul6", "image256")
 
 
 def nbytes(*tensors) -> int:
@@ -559,7 +564,9 @@ def phase_kernels(model):
         sa_bound, sa_simt = sa_bound + b_ms, sa_simt + b_simt
         sa_by.append((b_ms, b_by))
         xyz, points = mod(xyz, points, S)
+    # its launches: the row tiles' alone (the wide layout has its row)
     rows.append(dict(name="fused_sa_convmax", route="cuda",
+                     counter="fused_sa_convmax/two_buffers",
                      source="point_cloud_reid_tpu_torch/csrc/sa_stage.cu",
                      replaces="point_cloud_reid_tpu/ops/pallas/sa_stage.py:78",
                      max_abs_err=sa_err, ms=sa_ms, plain_ms=sa_plain_ms,
@@ -916,10 +923,12 @@ class TierCount:
 def all_counters() -> dict:
     """name in the kernels line -> the wrapper that carries `launches`; the
     tiers past the first kernels' shapes count on their own: kNN past 128
-    points and the match chain's rows tier; the bf16 kernels count apart
-    from the float32 ones, the match chain's by tier (`/bf16` the cluster
-    tier, `/rows_bf16` the rows tier), the SA kernel's in all (`/bf16`) and
-    by tier (`/wgmma_bf16`, `/mma_sync_bf16`)."""
+    points and the match chain's rows tier; the float32 SA kernel counts
+    in all and by layout (`/two_buffers`, `/wide`); the bf16 kernels count
+    apart from the float32 ones, the match chain's by tier (`/bf16` the
+    cluster tier, `/rows_bf16` the rows tier), the SA kernel's in all
+    (`/bf16`) and by tier (`/wgmma_bf16`, `/mma_sync_bf16`,
+    `/wide_bf16`)."""
     from point_cloud_reid_tpu_torch.kernels import fps as kf
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.kernels import linear_attention as la
@@ -964,15 +973,16 @@ def all_counters() -> dict:
                 **{"fps/channels": TierCount(kf.fps, ("channels",),
                                              "shape_launches")},
                 # phase 17: the rows tier's wide kernel and its launches
-                # past 8 heads, the float32 SA kernel's h1-from-gather layout
+                # past 8 heads, the float32 SA kernel's wide layout
                 **{f"{fn.__name__}/{k}{b}": TierCount(
                     fn, (f"{k}{b}",), "shape_launches")
                    for fn in (mg.fused_match_grid, mg.fused_match_pairs,
                               mg.fused_image_match_grid,
                               mg.fused_image_match_pairs)
                    for k in ("wide", "many_heads") for b in ("", "_bf16")},
-                **{"fused_sa_convmax/gather_h1": TierCount(
-                    sa.fused_sa_convmax, ("gather_h1",), "f32_layouts")})
+                **{f"fused_sa_convmax/{lay}": TierCount(
+                    sa.fused_sa_convmax, (lay,), "f32_layouts")
+                   for lay in sa.F32_LAYOUTS})
 
 
 def zero_counters() -> dict:
@@ -4102,11 +4112,14 @@ def dp_run(work_dir: str, rank: int = 0, world: int = 1) -> dict:
         return out
     loop.allgather_results = counted
     sa0 = every["fused_sa_convmax"].launches
+    rows0 = every["fused_sa_convmax/two_buffers"].launches
     try:
         metrics = evaluator.evaluate(fresh)
     finally:
         loop.allgather_results = gather
     trained["fused_sa_convmax"] = every["fused_sa_convmax"].launches - sa0
+    trained["fused_sa_convmax/two_buffers"] = every[
+        "fused_sa_convmax/two_buffers"].launches - rows0
     return dict(step_ms=times, launches=trained, lr_spent=lr_spent,
                 stats1=stats1, init=init, logs=logs,
                 metrics={k: v for k, v in metrics.items()
@@ -4337,7 +4350,7 @@ def uncounted():
                                                  else c)
            for c in all_counters().values()}
     names = ("launches", "bf16_launches", "tier_launches", "bf16_tiers",
-             "shape_launches")
+             "shape_launches", "padded_launches", "f32_layouts")
     saved = {k: {n: copy.deepcopy(getattr(f, n)) for n in names
                  if hasattr(f, n)} for k, f in fns.items()}
     try:
@@ -4848,7 +4861,7 @@ def wide_sa_case(args, dtype, label: str) -> dict:
     bf16 = dtype == torch.bfloat16
     B, N, C = args[0].shape
     S, K = args[2].shape[1:]
-    W = sa.kernel_width(C)
+    W = sa.run_width(C, bf16)
     got = sa.fused_sa_convmax(*args)
     want = sa.sa_convmax_reference(*args)
     torch.cuda.synchronize()
@@ -4871,24 +4884,30 @@ def wide_sa_case(args, dtype, label: str) -> dict:
         how = sa.plan_f32(W, K)
         tier, smem = how.layout, how.smem
     tol = BF16_TOL if bf16 else SA_TOL
+    ratio = k_ms / b_c[0]
     print(f"[wide:sa] {label} B={B} N={N} S={S} K={K} C={C} "
           f"{'bf16' if bf16 else 'float32'}: {tier} at W={W} ({smem} shared "
           f"bytes a block): max_abs_err={err:.3e} rel={rel:.3e} (tol "
           f"{tol:g}) kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-          f"{b_c[0]:.4f} ms ({b_c[1]}) at C, {b_w[0]:.4f} at W", flush=True)
+          f"{b_c[0]:.4f} ms ({b_c[1]}) at C, {b_w[0]:.4f} at W: "
+          f"{ratio:.2f}x the bound", flush=True)
     if not rel <= tol:
         raise RuntimeError(f"fused_sa_convmax disagrees at {label}: {rel}")
     return dict(C=C, W=W, B=B, N=N, S=S, K=K, tier=tier, smem_bytes=smem,
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_c[0],
-                bound_by=b_c[1], bound_padded_ms=b_w[0], library_ms=None)
+                bound_by=b_c[1], bound_padded_ms=b_w[0], bound_ratio=ratio,
+                library_ms=None)
 
 
 def wide_sa_rows() -> list:
-    """The SA kernels past their first widths at both dtypes: C = 48 (the
-    padded layout), 1,056 and the mul16 model's three stages at B = 128;
-    the kernels-line rows `fused_sa_convmax/gather_h1` (float32) and
-    `fused_sa_convmax/mma_sync_bf16`, each row's numbers its C = 2048
-    stage's, every shape listed."""
+    """The SA kernels past their first widths at both dtypes: WIDE_SA (C =
+    48 in the padded layout, 992, 1024, 1,056, 1,536) and the mul16
+    model's three stages at B = 128; the kernels-line rows of the wide
+    layout, `fused_sa_convmax/wide` (float32) and
+    `fused_sa_convmax/wide_bf16`, each row's numbers its C = 2048 stage's,
+    every shape listed with the layout or tier it took, and of the bf16
+    mma_sync tier, `fused_sa_convmax/mma_sync_bf16`, its numbers C =
+    992's."""
     import torch
     from point_cloud_reid_tpu_torch.tools.ab_sa import stage_inputs
     rows = []
@@ -4911,18 +4930,23 @@ def wide_sa_rows() -> list:
                                               mul=16)):
             cases.append(wide_sa_case(args, dtype, f"mul16 SA{i + 1}"))
         torch.cuda.empty_cache()
-        head = cases[-1]
-        rows.append(dict(
-            name="fused_sa_convmax/" + ("mma_sync_bf16" if bf16
-                                        else "gather_h1"),
-            route="cuda",
-            source="point_cloud_reid_tpu_torch/csrc/sa_stage"
-                   + ("_bf16" if bf16 else "") + ".cu",
-            replaces="point_cloud_reid_tpu/ops/pallas/sa_stage.py:78",
-            **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by",
-                                    "bound_padded_ms", "library_ms")},
-            shapes=cases))
+        heads = [("wide", "sa_wide_wg.cuh", cases[-1])]
+        if bf16:
+            heads.append(("mma_sync", "sa_stage_bf16.cu", next(
+                c for c in cases if c["C"] == 992)))
+        for tier, src, head in heads:
+            if head["tier"] != tier:
+                raise RuntimeError(f"fused_sa_convmax at C={head['C']}: "
+                                   f"{head['tier']}, not {tier}")
+            rows.append(dict(
+                name=f"fused_sa_convmax/{tier}" + ("_bf16" if bf16 else ""),
+                route="cuda", source="point_cloud_reid_tpu_torch/csrc/" + src,
+                replaces="point_cloud_reid_tpu/ops/pallas/sa_stage.py:78",
+                **{k: head[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "bound_padded_ms", "bound_ratio",
+                                        "library_ms")},
+                shapes=cases if tier == "wide" else [head]))
     return rows
 
 
@@ -4961,11 +4985,14 @@ def wide_match_rows() -> list:
 def wide_want(name: str, bf16: bool, sparse: str) -> list:
     """The counters a configs/widths.py model of phase 17 must launch
     through tools/track.py: the match kernels' new rows (the wide kernel,
-    or past 8 heads), or at mul16 the SA kernel's past 1024 channels."""
+    or past 8 heads), at mul16 the SA kernel's wide layout, at mul6 its row
+    tiles (at bf16 the mma_sync tier)."""
     sfx = "_bf16" if bf16 else ""
     if name == "mul16":
+        return ["fused_sa_convmax/wide" + sfx]
+    if name == "mul6":
         return ["fused_sa_convmax/" + ("mma_sync_bf16" if bf16
-                                       else "gather_h1")]
+                                       else "two_buffers")]
     fn = (("fused_image_match" if name.startswith("image")
            else "fused_match") + ("_grid" if sparse == "never" else "_pairs"))
     return [f"{fn}/{'many_heads' if name == 'heads16' else 'wide'}{sfx}"]
@@ -4974,8 +5001,8 @@ def wide_want(name: str, bf16: bool, sparse: str) -> list:
 def phase_wide(card: str):
     """Phase 17: the SA kernels past 1024 channels and off the multiples of
     32, the match chain past 128 channels and 8 heads; the kernels against
-    their plain versions, then, with every count at 0, the four --set
-    models conv_out256, heads16, mul16 and image256 of configs/widths.py
+    their plain versions, then, with every count at 0, the five --set
+    models conv_out256, heads16, mul16, mul6 and image256 of configs/widths.py
     through tools/track.py at float32 and --bf16, dense ('never') and
     sparse ('always'), each frame against the chain's plain version.
     Returns (the kernels-line rows, the path's launches, a summary)."""
@@ -5056,7 +5083,8 @@ def main():
     rows += wide_kernel_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
-        row["launches"] = sum(path.get(row["name"], 0) for path in (
+        counter = row.pop("counter", row["name"])
+        row["launches"] = sum(path.get(counter, 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
             reference, multi_gpu, widths, wide))

@@ -25,6 +25,9 @@ channels), and the SA kernels any stage width up to 2048
                both cross stages;
   mul16        the 7M leaf at backbone mul 16: SA widths 512 / 1024 / 2048
                (the SA kernels past 1024 channels);
+  mul6         the 7M leaf at backbone mul 6: SA widths 192 / 384 / 768
+               (the float32 SA kernel's row tiles, the bf16 one's mma_sync
+               tier);
   image256     DeiT-tiny at downsample_dim 256: two 128-channel heads.
 """
 from __future__ import annotations
@@ -70,5 +73,6 @@ WIDTHS = {
     "heads16": (SEVEN_M, ["model.cross_stage1.nhead=16",
                           "model.cross_stage2.nhead=16"]),
     "mul16": (SEVEN_M, ["model.backbone.mul=16"]),
+    "mul6": (SEVEN_M, ["model.backbone.mul=6"]),
     "image256": (IMAGE, image_width_set(256)),
 }

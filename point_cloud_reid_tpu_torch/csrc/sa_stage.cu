@@ -43,38 +43,31 @@
 //   C = 256 (SA2): 8 warps, NT 4, M 48 (1 centre at K = 48), 100 KB, two
 //                  blocks a SM;
 //   C = 512 (SA3): 16 warps, NT 4, M 48 (1 centre), 198 KB, one block;
-//   C = 1024:      16 warps, NT 4, M 16, 132 KB; each warp takes two column
-//                  chunks in turn;
-//   C = 1,056 ... 1,792: the same at M 16, up to 230 KB.
-// Past 1,792 channels two buffers of one 16-row m-tile no longer fit (at
-// C = 2048: 2 x 16 x 2,052 x 4 = 262,656 bytes against 232,448), and the
-// h1-from-gather layout takes the stage (sa_convmax_gather_kernel, any
-// multiple of 32 up to 2048): 16 warps, NT 4, M 16; conv2 forms its A
-// fragments straight from the gather (BN1 + ReLU of A[idx] + Ct is
-// elementwise: each lane reads its rows g, g + 8 at columns 8 kk + t, + 4
-// through L1 / L2, every warp the whole 16 rows) into the h2 buffer, 16 x
-// (C + 4) floats; conv3's 16 x 32 columns of a job go into the warp's strip
-// (16 warps x 16 x 32 floats, 32 KB), from which each lane takes its
-// column's max over each centre's rows. 131,328 + 32,768 = 164,096 bytes
-// at C = 2048. The gather is read once a warp instead of once a block:
-// 16 x the A / Ct bytes of the block's rows, from L1 / L2. Measured on the
-// H100 (PERF.md section 6): the mul16 model's SA3 at B = 128 takes
-// 5.6x its bound, slower than the plain version: every 16-row block reads
-// both weights, 32 MB at C = 2048, from L2.
+// From 928 channels two buffers hold only one 16-row m-tile (132 KB at
+// C = 1024; past 1,792 not even that: 262,656 bytes at 2048), every 16-row
+// block re-reads both weights from L2, and the wide layout takes the stage
+// (csrc/sa_wide_wg.cuh at policy Tf32, entry pcr_sa_convmax_wide, from
+// WIDE_FROM = 928 to 2048, run at the next multiple of 64): a persistent
+// grid whose weight stages each serve 128 rows through a shared-memory
+// ring, h1 and h2 in a device scratch streamed back as A stages, every
+// product on wgmma in three TF32 passes, conv3 fused with the max; about 2x
+// faster than the 16-row tiles at 928-1,792 and 3.1x faster than their
+// first version past 1,792, the h1-from-gather layout (PERF.md section 6).
 // Weight reads per call at B = 128: 1.07 / 4.3 / 8.6 GB for SA1/2/3, from
 // L2 (the SIMT kernel before this one read 4.3 / 12.9 / 25.8 GB). Larger
 // tiles with one 8-warp block a SM (M = 128 / 96 / 48, up to 236
 // registers) read half as much and were 1.4x / 1.1x slower at SA1 / SA2:
 // with one block a SM nothing overlaps its gather and its barriers.
-// Any C that is a multiple of 32, 32 to 2048, is taken (kernels/sa_stage
-// pads any other width, up to 2048, to the next one): NT is 1, 2 or 4,
+// The row tiles take any C that is a multiple of 32, 32 to 896 (from
+// WIDE_FROM their entry refuses; kernels/sa_stage pads any other width to
+// the next multiple of 32): NT is 1, 2 or 4,
 // the largest that still gives every warp a chunk of columns (C = 32: two
 // row groups of 4 warps, each reading the weights); where the chunks do not
 // divide among the warps, some warps take one more.
 // The max: every h3 is a ReLU output >= 0, so 0 is the identity and the
 // float order is the order of the bits as integers. Where M is a multiple
 // of K every centre lies whole in one block and its max is stored plainly;
-// otherwise (C >= 1024 at K = 48, or K = 12 at M = 128) a block's edge
+// otherwise (K = 48 at M = 32, or K = 12 at M = 128) a block's edge
 // centres are partial and go out by atomicMax on the bits into an `out`
 // that the entry point zero-fills first. The max is exact, so the result
 // does not depend on the order.
@@ -92,6 +85,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sa_wide_wg.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -147,30 +141,6 @@ struct SmemA {
   }
 };
 
-// conv2's A fragments formed straight from the gather (the h1-from-gather
-// layout: one m-tile of 16 rows a block): h1 = relu((A[src] + Ct[ctr]) s1
-// + t1) at rows g and g + 8 (src < 0: a row past R, h1 = 0), columns
-// 8 kk + t and 8 kk + t + 4.
-struct GatherA {
-  const float* A;
-  const float* Ct;
-  const float* s1;
-  const float* t1;
-  long long src[2], ctr[2];
-  __device__ __forceinline__ const GatherA& at(int) const { return *this; }
-  __device__ __forceinline__ float h1(int r, int c, float s, float h) const {
-    return src[r] < 0 ? 0.f : fmaxf((__ldg(A + src[r] + c) + __ldg(Ct + ctr[r] + c)) * s + h, 0.f);
-  }
-  __device__ __forceinline__ void frag(int, int kk, float (&av)[4]) const {
-    const int c0 = 8 * kk + (threadIdx.x & 3), c1 = c0 + 4;
-    const float sa = __ldg(s1 + c0), ha = __ldg(t1 + c0), sb = __ldg(s1 + c1), hb = __ldg(t1 + c1);
-    av[0] = h1(0, c0, sa, ha);
-    av[1] = h1(1, c0, sa, ha);
-    av[2] = h1(0, c1, sb, hb);
-    av[3] = h1(1, c1, sb, hb);
-  }
-};
-
 // A product's output into a row buffer (rows padded to C + 4).
 struct BufOut {
   float* dst;
@@ -178,54 +148,13 @@ struct BufOut {
   __device__ __forceinline__ void put(int row, int col, float2 v) const {
     *reinterpret_cast<float2*>(dst + row * LD + col) = v;
   }
-  __device__ __forceinline__ void done(int) const {}
-};
-
-constexpr int STRIP = 32;   // columns of a warp's conv3 strip (NT = 4)
-
-// conv3's output of the h1-from-gather layout: a job's 16 x 32 columns into
-// the warp's strip, then each lane's column's max over the rows of each
-// centre in the block: stored where the centre lies whole in the block,
-// else an atomicMax on the bits into the zero-filled `out` (values >= 0).
-struct MaxOut {
-  float* strip;
-  float* out;
-  int r0, rows, K, C;
-  __device__ __forceinline__ void put(int row, int col, float2 v) const {
-    *reinterpret_cast<float2*>(strip + row * STRIP + (col & (STRIP - 1))) = v;
-  }
-  __device__ __forceinline__ void emit(int centre, int c, float m) const {
-    float* o = out + (size_t)centre * C + c;
-    if (centre * K >= r0 && (centre + 1) * K <= r0 + rows)
-      *o = m;
-    else
-      atomicMax(reinterpret_cast<int*>(o), __float_as_int(m));
-  }
-  __device__ __forceinline__ void done(int col0) const {
-    __syncwarp();
-    const int lane = threadIdx.x & 31, c = col0 + lane;
-    int centre = r0 / K;
-    float m = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const int ce = (r0 + r) / K;
-      if (ce != centre) {
-        emit(centre, c, m);
-        centre = ce;
-        m = 0.f;
-      }
-      m = fmaxf(m, strip[r * STRIP + lane]);
-    }
-    emit(centre, c, m);
-    __syncwarp();
-  }
 };
 
 // out(r, c) = relu((A @ w)[r][c] * sc[c] + sh[c]) for the block's rows, a
-// warp per (row group, column chunk) job: the A fragments from `asrc` (a
-// row buffer, or the gather), the results to `out` (a row buffer, or the
-// strip and the max).
-template <int NT, int MT, int W, class ASrc, class Out>
-__device__ __forceinline__ void conv_layer(const ASrc& asrc, const Out& out,
+// warp per (row group, column chunk) job: the A fragments from the row
+// buffer `asrc`, the results to the row buffer `out`.
+template <int NT, int MT, int W>
+__device__ __forceinline__ void conv_layer(const SmemA& asrc, const BufOut& out,
                                            const float* __restrict__ w,
                                            const float* __restrict__ sc,
                                            const float* __restrict__ sh,
@@ -297,7 +226,6 @@ __device__ __forceinline__ void conv_layer(const ASrc& asrc, const Out& out,
         }
       }
     }
-    out.done(col0);
   }
 }
 
@@ -376,86 +304,119 @@ int launch(const Args& p, size_t smem, int blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The h1-from-gather layout (C past 1,792, where two buffers of one m-tile
-// do not fit): a block of W warps owns 16 rows; conv2's A fragments come
-// straight from the gather into the h2 buffer, conv3's columns go through
-// each warp's strip into the max.
-template <int NT, int W>
-__global__ void __launch_bounds__(32 * W, 16 / W) sa_convmax_gather_kernel(const Args p) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = p.C, LD = C + 4;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * 16;
-  const int rows = min(16, p.R - r0);
-  GatherA ga{p.A, p.Ct, p.s1, p.t1, {-1, -1}, {0, 0}};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r0 + (lane >> 2) + 8 * h;
-    if (row < p.R) {
-      const int centre = row / p.K;
-      ga.src[h] = ((long long)(centre / p.S) * p.N + __ldg(p.idx + row)) * C;
-      ga.ctr[h] = (long long)centre * C;
-    }
-  }
-  conv_layer<NT, 1, W>(ga, BufOut{smem, LD}, p.w2, p.s2, p.t2, p);
-  __syncthreads();
-  conv_layer<NT, 1, W>(SmemA{smem, LD},
-                       MaxOut{smem + 16 * LD + warp * 16 * STRIP, p.out, r0, rows, p.K, C},
-                       p.w3, p.s3, p.t3, p);
+// The row tiles of width C: NT the largest of 1, 2, 4 that leaves at least
+// 8 column chunks, 16 warps where there are 16 chunks, MT the most m-tiles
+// whose two buffers fit a block's shared memory.
+struct Tiles {
+  int nt, chunks, warps, groups, mt;
+  int M() const { return groups * mt * 16; }
+  size_t smem(int C) const { return (size_t)2 * M() * (C + 4) * sizeof(float); }
+};
+
+Tiles tiles(int C) {
+  const int ntiles = C / 8;
+  Tiles tl{1, 0, 0, 0, 0};
+  for (int d = 2; d <= 4; d *= 2)
+    if (ntiles % d == 0 && ntiles / d >= WARPS) tl.nt = d;
+  tl.chunks = ntiles / tl.nt;
+  tl.warps = tl.chunks >= 2 * WARPS ? 2 * WARPS : WARPS;
+  tl.groups = tl.chunks < tl.warps ? tl.warps / tl.chunks : 1;
+  tl.mt = max_mt(tl.nt);
+  while (tl.mt > 1 && tl.smem(C) > SMEM_LIMIT) --tl.mt;
+  return tl;
 }
 
-template <int NT, int W>
-int launch_gather(const Args& p, size_t smem, int blocks, cudaStream_t stream) {
-  static_assert(NT * 8 == STRIP, "a warp's strip is one column chunk");
-  cudaError_t err = cudaFuncSetAttribute(
-      sa_convmax_gather_kernel<NT, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  sa_convmax_gather_kernel<NT, W><<<blocks, 32 * W, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// The plan: the row tiles below WIDE_FROM channels, the wide layout
+// (csrc/sa_wide_wg.cuh) from it (kernels/sa_stage.F32_WIDE_FROM).
+constexpr int WIDE_FROM = 928;
+enum Layout { TWO_BUFFERS = 0, WIDE = 1 };
+enum PlanField { LAYOUT, PLAN_WARPS, NT, TILE_ROWS, SMEM, WHOLE, RING_STAGES, SCRATCH, FIELDS };
+
+// Fills plan[FIELDS] for width C and K neighbours; 0, or
+// cudaErrorInvalidValue for a shape neither layout takes.
+int make_plan(int C, int K, long long* plan) {
+  if (C < 32 || C > MAX_C || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  if (C >= WIDE_FROM) {
+    long long wgs;
+    sawide::plan<sawide::Tf32>(C, plan[TILE_ROWS], wgs, plan[RING_STAGES], plan[SMEM],
+                               plan[SCRATCH]);
+    plan[LAYOUT] = WIDE;
+    plan[PLAN_WARPS] = sawide::THREADS / 32;
+    plan[NT] = 16;                     // n-tiles of a warp's 128-column chunk
+    plan[WHOLE] = 1;                   // a centre's rows lie in one warp
+    return 0;
+  }
+  const Tiles tl = tiles(C);
+  plan[LAYOUT] = TWO_BUFFERS;
+  plan[PLAN_WARPS] = tl.warps;
+  plan[NT] = tl.nt;
+  plan[TILE_ROWS] = tl.M();
+  plan[SMEM] = (long long)tl.smem(C);
+  plan[WHOLE] = tl.M() % K == 0;
+  plan[RING_STAGES] = 0;
+  plan[SCRATCH] = 0;
+  return 0;
 }
 
 }  // namespace
 
+// The float32 kernel's launch plan for width C and K neighbours, 8 values:
+// layout (0 two buffers, 1 wide), warps a block, n-tiles of a warp's column
+// chunk, rows a tile (a weight read serves them at once), shared bytes a
+// block, whether every centre lies whole in a tile, ring slots (wide), the
+// scratch bytes a block (wide). Returns 0, or cudaErrorInvalidValue.
+extern "C" int pcr_sa_f32_layout(int C, int K, long long* plan) {
+  return make_plan(C, K, plan);
+}
+
+// The row tiles (two buffers of M rows), C a multiple of 32 below WIDE_FROM
+// (from it the wide layout's entry below).
 extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
                               const void* w2, const void* w3, const void* s1,
                               const void* t1, const void* s2, const void* t2,
                               const void* s3, const void* t3, void* out,
                               int B, int N, int S, int K, int C, void* stream) {
   const long long R = (long long)B * S * K;
-  if (C < 32 || C > MAX_C || C % 32 != 0 || K < 1 || R >= (1LL << 31))
+  if (C < 32 || C >= WIDE_FROM || C % 32 != 0 || K < 1 || R >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  const Tiles tl = tiles(C);
+  const size_t smem = tl.smem(C);
   if (R == 0) return (int)cudaSuccess;
-  // NT: the largest of 1, 2, 4 that leaves at least 8 column chunks
-  const int ntiles = C / 8;
-  int nt = 1;
-  for (int d = 2; d <= 4; d *= 2)
-    if (ntiles % d == 0 && ntiles / d >= WARPS) nt = d;
   Args p{(const float*)A, (const float*)Ct, (const int*)idx, (const float*)w2,
          (const float*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
          (const float*)t2, (const float*)s3, (const float*)t3, (float*)out,
-         N, S, K, C, (int)R, 0, 0, 0};
-  p.chunks = ntiles / nt;
-  const int warps = p.chunks >= 2 * WARPS ? 2 * WARPS : WARPS;
-  p.groups = p.chunks < warps ? warps / p.chunks : 1;
-  p.mt = max_mt(nt);
-  while (p.mt > 1 && (size_t)2 * p.groups * p.mt * 16 * (C + 4) * sizeof(float) > SMEM_LIMIT)
-    --p.mt;
-  // two buffers of even one m-tile too large (C > 1,792): the h1-from-gather layout
-  const bool gather = (size_t)2 * 16 * (C + 4) * sizeof(float) > SMEM_LIMIT;
-  const int M = p.groups * p.mt * 16;
-  const size_t smem = gather ? (size_t)16 * (C + 4) * sizeof(float) + (size_t)warps * 16 * STRIP * sizeof(float)
-                             : (size_t)2 * M * (C + 4) * sizeof(float);
+         N, S, K, C, (int)R, tl.mt, tl.groups, tl.chunks};
+  const int M = tl.M();
   cudaStream_t st = (cudaStream_t)stream;
   if (M % K != 0) {     // partial centres: atomicMax into zeros
     cudaError_t err = cudaMemsetAsync(out, 0, (size_t)R / K * C * sizeof(float), st);
     if (err != cudaSuccess) return (int)err;
   }
   const int blocks = (int)((R + M - 1) / M);
-  if (gather) return launch_gather<4, 2 * WARPS>(p, smem, blocks, st);
-  if (warps == 2 * WARPS) return launch<4, 2 * WARPS>(p, smem, blocks, st);
-  switch (nt) {
+  if (tl.warps == 2 * WARPS) return launch<4, 2 * WARPS>(p, smem, blocks, st);
+  switch (tl.nt) {
     case 1: return launch<1, WARPS>(p, smem, blocks, st);
     case 2: return launch<2, WARPS>(p, smem, blocks, st);
     default: return launch<4, WARPS>(p, smem, blocks, st);
   }
+}
+
+// The wide layout (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 2048; w2,
+// w3 the wrapper's stage copies (kernels/sa_stage.wide_stage_weights);
+// `blocks` persistent blocks, each with `stride` bytes of `scratch` (at
+// least the plan's scratch bytes).
+extern "C" int pcr_sa_convmax_wide(const void* A, const void* Ct, const void* idx,
+                                   const void* w2, const void* w3, const void* s1,
+                                   const void* t1, const void* s2, const void* t2,
+                                   const void* s3, const void* t3, void* out, void* scratch,
+                                   int B, int N, int S, int K, int C, int blocks,
+                                   long long stride, void* stream) {
+  const long long R = (long long)B * S * K;
+  if (R >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const sawide::Args<sawide::Tf32> a{
+      (const float*)A, (const float*)Ct, (const int*)idx, (const unsigned char*)w2,
+      (const unsigned char*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
+      (const float*)t2, (const float*)s3, (const float*)t3, (float*)out,
+      (unsigned char*)scratch, stride, N, S, K, C, (int)R};
+  return sawide::launch(a, blocks, (cudaStream_t)stream);
 }

@@ -15,7 +15,8 @@
 // The wrapper hands the weights over once converted to bf16 (utils/cache.py
 // keeps the copy per weight tensor): for the wgmma tier in its stage
 // layout (kernels/sa_stage.stage_weights), for the mma_sync tier in (out,
-// in) layout.
+// in) layout, for the wide tier in its stage copy
+// (kernels/sa_stage.wide_stage_weights).
 //
 // What bounds it on the H100: 4 R C^2 operations (R = B S K rows) in one
 // bf16 pass at 989 TFLOP/s (0.035 / 0.104 / 0.208 ms for the flagship's
@@ -74,20 +75,28 @@
 // Measured on the H100 (PERF.md section 6): about 2x the one-pass bound at
 // C = 256 ... 1024 and 3x at C = 128, against the first version's 8.7x.
 //
-// The mma_sync tier (the first version, kept for C = 96, 160, ..., 992 and
-// 1,056 ... 2048: the multiples of 32 the wgmma tier does not take; of the
-// registered leaves none reaches it, the `mul16` width's SA3 at 2048 does):
-// the float32 kernel's (csrc/sa_stage.cu) row tiles with one
-// mma.sync m16n8k16 bf16 pass per product. A block of W warps owns M
-// consecutive rows: it gathers them into buffer 1, runs conv2 into buffer 2
-// and conv3 back into buffer 1 (B fragments straight from L2) and takes each
-// centre's max; where M is not a multiple of K a block's edge centres go
-// out by a compare-and-swap max on the bf16 bits into a zero-filled `out`.
-// Past 1024 channels the wgmma tier would need h2 (C / 4 registers a thread
-// over a 64-row m-tile) split across more warpgroups than a block holds;
-// the row tiles' two bf16 buffers of one 16-row m-tile, 2 x 16 x (C + 8) x
-// 2 bytes, take 131,584 bytes at C = 2048, so this tier serves C > 1024 as
-// it stands (M = 16, 16 warps, NT 4).
+// The mma_sync tier (the first version, kept for C = 96, 160, ..., 992: the
+// multiples of 32 up to 1024 the wgmma tier does not take; none of the
+// registered leaves reaches it, the `mul6` width's SA stages at 192, 384
+// and 768 do): the float32 kernel's (csrc/sa_stage.cu)
+// row tiles with one mma.sync m16n8k16 bf16 pass per product. A block of W
+// warps owns M consecutive rows: it gathers them into buffer 1, runs conv2
+// into buffer 2 and conv3 back into buffer 1 (B fragments straight from L2)
+// and takes each centre's max; where M is not a multiple of K a block's
+// edge centres go out by a compare-and-swap max on the bf16 bits into a
+// zero-filled `out`.
+//
+// The wide tier (every multiple of 32 past 1024, run at the next multiple
+// of 64; the `mul16` width's SA3 at 2048): csrc/sa_wide_wg.cuh at policy
+// Bf16, entry pcr_sa_convmax_wide_bf16. Past 1024 channels the wgmma tier
+// would need h2 (C / 4 registers a thread over a 64-row m-tile) split
+// across more warpgroups than a block holds; there each weight stage
+// serves two warpgroups' m-tiles (128 rows) through a ring of 16 KB slots,
+// h1 and h2 (bf16) lie in a device scratch streamed back as A stages, both
+// operands of every wgmma come from shared memory, and conv3 is fused with
+// the max. The mma_sync tier served these widths in its first version
+// (16-row tiles, each reading both weights from L2: 58.9 ms for the mul16
+// model's SA3 at 17.7x its bound, PERF.md section 6).
 //
 // pcr_sa_bf16_layout returns the launch plan the kernel takes for (C, K);
 // kernels/sa_stage.plan_bf16 reckons the same, and the wrapper checks that
@@ -98,6 +107,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "sa_wide_wg.cuh"
 
 namespace {
 
@@ -558,7 +568,8 @@ struct Tiles {
 constexpr int max_mt(int nt) { return nt == 1 ? 8 : nt == 2 ? 4 : 3; }
 
 // M per C as in the float32 kernel (4 MT NT accumulators a thread, two
-// 8-warp blocks or one 16-warp block a SM); the buffers take half its bytes.
+// 8-warp blocks or one 16-warp block a SM); the buffers take half its bytes,
+// which fit a block at every width the tier takes (192,000 at C = 992).
 Tiles tiles(int C) {
   const int ntiles = C / 8;
   int nt = 1;
@@ -570,7 +581,6 @@ Tiles tiles(int C) {
   tl.warps = tl.chunks >= 2 * WARPS ? 2 * WARPS : WARPS;
   tl.groups = tl.chunks < tl.warps ? tl.warps / tl.chunks : 1;
   tl.mt = max_mt(nt);
-  while (tl.mt > 1 && tl.smem(C) > SMEM_LIMIT) --tl.mt;
   return tl;
 }
 
@@ -771,8 +781,8 @@ int run(const Args& p, cudaStream_t st) {
 
 // ---- the plan -------------------------------------------------------------------
 
-enum Tier { WGMMA = 0, MMA_SYNC = 1 };
-enum PlanField { TIER, TILE_ROWS, WARPGROUPS, CLUSTER, RING_STAGES, SMEM, WHOLE, FIELDS };
+enum Tier { WGMMA = 0, MMA_SYNC = 1, WIDE = 2 };
+enum PlanField { TIER, TILE_ROWS, WARPGROUPS, CLUSTER, RING_STAGES, SMEM, WHOLE, SCRATCH, FIELDS };
 
 template <int C>
 void wgmma_plan(long long* plan) {
@@ -784,10 +794,11 @@ void wgmma_plan(long long* plan) {
   plan[RING_STAGES] = G::RING;
   plan[SMEM] = G::BYTES;
   plan[WHOLE] = 1;                   // a centre's rows lie in one warp
+  plan[SCRATCH] = 0;
 }
 
 // Fills plan[FIELDS] for width C and K neighbours; 0, or
-// cudaErrorInvalidValue for a shape neither tier takes.
+// cudaErrorInvalidValue for a shape no tier takes.
 int make_plan(int C, int K, long long* plan) {
   if (C < 32 || C > 2048 || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
   switch (C) {
@@ -799,29 +810,40 @@ int make_plan(int C, int K, long long* plan) {
     case 1024: wgmma_plan<1024>(plan); return 0;
     default: break;
   }
+  plan[CLUSTER] = 1;
+  if (C > 1024) {
+    plan[TIER] = WIDE;
+    sawide::plan<sawide::Bf16>(C, plan[TILE_ROWS], plan[WARPGROUPS], plan[RING_STAGES],
+                               plan[SMEM], plan[SCRATCH]);
+    plan[WHOLE] = 1;
+    return 0;
+  }
   const mma_sync_tier::Tiles tl = mma_sync_tier::tiles(C);
   plan[TIER] = MMA_SYNC;
   plan[TILE_ROWS] = tl.M();
   plan[WARPGROUPS] = 0;
-  plan[CLUSTER] = 1;
   plan[RING_STAGES] = 0;
   plan[SMEM] = (long long)tl.smem(C);
   plan[WHOLE] = tl.M() % K == 0;
+  plan[SCRATCH] = 0;
   return 0;
 }
 
 }  // namespace
 
-// The launch plan for width C and K neighbours, 7 values: tier (0 wgmma,
-// 1 mma_sync), rows a tile (a weight stage serves them at once), consumer
-// warpgroups, cluster size, ring stages, shared bytes a block, whether
-// every centre lies whole in a tile. Returns 0, or cudaErrorInvalidValue.
+// The launch plan for width C and K neighbours, 8 values: tier (0 wgmma,
+// 1 mma_sync, 2 wide), rows a tile (a weight stage serves them at once),
+// consumer warpgroups, cluster size, ring stages, shared bytes a block,
+// whether every centre lies whole in a tile, the scratch bytes a block
+// (wide). Returns 0, or cudaErrorInvalidValue.
 extern "C" int pcr_sa_bf16_layout(int C, int K, long long* plan) {
   return make_plan(C, K, plan);
 }
 
-// A, Ct, out bf16; w2, w3 bf16 (C, C) in (out, in) layout; the affines
-// float32. The same shapes as pcr_sa_convmax: C a multiple of 32, 32 to 2048.
+// A, Ct, out bf16; w2, w3 bf16 (C, C): the wgmma tier's stage copies
+// (kernels/sa_stage.stage_weights), the mma_sync tier's (out, in) layout;
+// the affines float32. C a multiple of 32 up to 1024 (past it the wide
+// tier's entry below).
 extern "C" int pcr_sa_convmax_bf16(const void* A, const void* Ct, const void* idx,
                                    const void* w2, const void* w3, const void* s1,
                                    const void* t1, const void* s2, const void* t2,
@@ -829,7 +851,8 @@ extern "C" int pcr_sa_convmax_bf16(const void* A, const void* Ct, const void* id
                                    int B, int N, int S, int K, int C, void* stream) {
   const long long R = (long long)B * S * K;
   long long plan[FIELDS];
-  if (make_plan(C, K, plan) != 0 || R >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (make_plan(C, K, plan) != 0 || plan[TIER] == WIDE || R >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   if (R == 0) return (int)cudaSuccess;
   const Args p{(const bf16*)A, (const bf16*)Ct, (const int*)idx, (const bf16*)w2,
                (const bf16*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
@@ -845,4 +868,24 @@ extern "C" int pcr_sa_convmax_bf16(const void* A, const void* Ct, const void* id
     case 1024: return launch_wgmma<1024>(p, st);
     default: return mma_sync_tier::run(p, st);
   }
+}
+
+// The wide tier (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 2048; w2,
+// w3 the wrapper's stage copies (kernels/sa_stage.wide_stage_weights);
+// `blocks` persistent blocks, each with `stride` bytes of `scratch` (at
+// least the plan's scratch bytes).
+extern "C" int pcr_sa_convmax_wide_bf16(const void* A, const void* Ct, const void* idx,
+                                        const void* w2, const void* w3, const void* s1,
+                                        const void* t1, const void* s2, const void* t2,
+                                        const void* s3, const void* t3, void* out,
+                                        void* scratch, int B, int N, int S, int K, int C,
+                                        int blocks, long long stride, void* stream) {
+  const long long R = (long long)B * S * K;
+  if (R >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const sawide::Args<sawide::Bf16> a{
+      (const bf16*)A, (const bf16*)Ct, (const int*)idx, (const unsigned char*)w2,
+      (const unsigned char*)w3, (const float*)s1, (const float*)t1, (const float*)s2,
+      (const float*)t2, (const float*)s3, (const float*)t3, (bf16*)out,
+      (unsigned char*)scratch, stride, N, S, K, C, (int)R};
+  return sawide::launch(a, blocks, (cudaStream_t)stream);
 }

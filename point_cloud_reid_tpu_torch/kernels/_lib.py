@@ -38,8 +38,14 @@ _SIGNATURES = {
     "pcr_sa_convmax": [_P] * 12 + [_I] * 5 + [_P],
     # the same at bf16 (csrc/sa_stage_bf16.cu)
     "pcr_sa_convmax_bf16": [_P] * 12 + [_I] * 5 + [_P],
-    # C, K, the 7-value plan out
+    # C, K, the 8-value plan out (csrc/sa_stage.cu, csrc/sa_stage_bf16.cu)
+    "pcr_sa_f32_layout": [_I] * 2 + [ctypes.POINTER(_L)],
     "pcr_sa_bf16_layout": [_I] * 2 + [ctypes.POINTER(_L)],
+    # the wide layout (csrc/sa_wide_wg.cuh) of either dtype: A, Ct, idx, the
+    # stage copies of w2 and w3, the six affines, out, scratch; B, N, S, K,
+    # C, blocks, the scratch bytes a block, stream
+    "pcr_sa_convmax_wide": [_P] * 13 + [_I] * 6 + [_L] + [_P],
+    "pcr_sa_convmax_wide_bf16": [_P] * 13 + [_I] * 6 + [_L] + [_P],
     # 10 per-object factor pointers (track h,q,kvz,a1,pv then det), 16
     # weight pointers, t_idx, d_idx, out, nt, nd, P, N, C, H, stream
     "pcr_match_pooled": [_P] * 10 + [_P] * 16 + [_P] * 3 + [_I] * 6 + [_P],

@@ -9,29 +9,36 @@ exactly as the JAX wrapper does (conv1's bias enters Ct through
 conv1_edge_factors; conv2/conv3's biases enter t2/t3) and calls it.
 
 Widths. The kernels take C a multiple of 32 from 32 to MAX_C = 2048 (the
-float32 kernel's layout for each, `plan_f32`: two row buffers up to 1,792
-channels, the h1-from-gather layout past them). Any other C up to 2048 runs
-at kernel_width(C), the next multiple of 32 (at least 32), in the padded
-layout of `pad_args`: zeros in lanes C .. W - 1 of A, Ct, w2, w3 (rows and
-columns) and the six affines, the output sliced back to C. Zeros are exact
-there: a padded lane is relu(0 * s + 0) = 0 through all three convs, it
-adds exact zeros to every real lane's sums, and the max of zeros is 0, so
-no lane needs a mask (tests/test_torch_wide_widths.py holds the padded
-plain version equal to the unpadded one bit for bit). Past 2048 channels
-the wrapper raises naming ROADMAP_SA_WIDTHS.
+float32 kernel's layout for each, `plan_f32`: two row buffers below
+F32_WIDE_FROM = 928 channels, where they shrink to one 16-row m-tile, the
+wide layout from it, about 2x faster there on the H100). Any other C up to
+2048 runs at kernel_width(C), the next multiple of 32 (at least 32), in the
+padded layout of `pad_args`: zeros in lanes C .. W - 1 of A, Ct, w2, w3
+(rows and columns) and the six affines, the output sliced back to C. Zeros
+are exact there: a padded lane is relu(0 * s + 0) = 0 through all three
+convs, it adds exact zeros to every real lane's sums, and the max of zeros
+is 0, so no lane needs a mask (tests/test_torch_wide_widths.py holds the
+padded plain version equal to the unpadded one bit for bit). The wide
+layout runs a width at the next multiple of 64 (run_width: the wrapper pads
+once, to it). Past 2048 channels the wrapper raises naming
+ROADMAP_SA_WIDTHS.
 
 Under a bf16 model (the JAX kernel with A and Ct in the model dtype) A, Ct
 and the output are bf16 and the weights and affines float32; each product
 multiplies bf16-rounded operands with float32 accumulation. On CUDA that is
 csrc/sa_stage_bf16.cu, whose tier `plan_bf16(W, K, R)` names: "wgmma" (W =
 32, 64, 128, 256, 512, 1024: a persistent grid, weights through a
-shared-memory ring, every product on wgmma) or "mma_sync" (the first
-version's row tiles, for the other multiples of 32 up to 2048: the wgmma
-tier keeps h2 in registers over 64-row m-tiles and so stops at 1024, while
-the row tiles' two bf16 buffers of 16 x (W + 8) take 131,584 bytes at W =
-2048). The wrapper converts w2 and w3 to bf16 once per
+shared-memory ring, every product on wgmma), "mma_sync" (the first
+version's row tiles, for the other multiples of 32 up to 1024) or "wide"
+(past 1024, where the wgmma tier's h2, C / 4 registers a thread over a
+64-row m-tile, does not fit). The wide layout at both dtypes is
+csrc/sa_wide_wg.cuh: a persistent grid whose weight stages each serve two
+warpgroups' 64-row m-tiles, h1 and h2 in a device scratch the wrapper
+allocates (`wide_scratch_bytes` a block), weights in the stage copy of
+`wide_stage_weights`. The wrapper converts w2 and w3 once per
 weight tensor (utils/cache.py): into the wgmma tier's stage layout
-(stage_weights), or (out, in) for the mma_sync tier. bf16 launches count in
+(stage_weights), (out, in) bf16 for the mma_sync tier, or the wide
+layout's stage copy. bf16 launches count in
 `fused_sa_convmax.bf16_launches` and by tier in
 `fused_sa_convmax.bf16_tiers`, the float32 kernel's in
 `fused_sa_convmax.launches` and by layout in `fused_sa_convmax.f32_layouts`;
@@ -59,13 +66,22 @@ MAX_SMEM = 232448       # dynamic shared memory a block may take
 
 
 def kernel_width(C: int) -> int:
-    """The width the SA kernels run a stage of C channels at: C where it is
-    a multiple of 32 from 32 to MAX_C, else the next one (the padded
-    layout). Raises ValueError past MAX_C."""
+    """The kernels' width for a stage of C channels: C where it is a
+    multiple of 32 from 32 to MAX_C, else the next one (the padded
+    layout); the wide layout runs it at wide_width of it (run_width).
+    Raises ValueError past MAX_C."""
     if not 1 <= C <= MAX_C:
         raise ValueError(f"fused_sa_convmax: C={C}; the kernels take 1 to "
                          f"{MAX_C} channels ({ROADMAP_SA_WIDTHS})")
     return max(32, -(-C // 32) * 32)
+
+
+def run_width(C: int, bf16: bool) -> int:
+    """The width a stage of C channels runs at: kernel_width(C), or where
+    the plan of the dtype gives the wide layout the next multiple of 64
+    (wide_width); fused_sa_convmax pads to it once."""
+    W = kernel_width(C)
+    return wide_width(W) if _takes_wide(W, bf16) else W
 
 
 def _lanes(x: torch.Tensor, W: int) -> torch.Tensor:
@@ -99,35 +115,105 @@ def pad_args(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, W: int) -> tuple:
             _weight(w3, W, contiguous)) + vecs
 
 
-# ---- the float32 kernel's layout (csrc/sa_stage.cu, pcr_sa_convmax) ----
+# ---- the wide layout (csrc/sa_wide_wg.cuh), both dtypes ----
+
+WIDE = "wide"
+WIDE_ROWS = 128         # rows a weight stage serves: two warpgroups' m-tiles
+WIDE_WARPGROUPS = 2     # consumer warpgroups (and a producer warpgroup)
+WIDE_RING = 14          # ring slots of 16 KB
+WIDE_A_STAGE = 8192     # bytes of an A stage: 64 rows x one 128-byte k-panel
+WIDE_SMEM = 1024 + WIDE_RING * 16384 + 8 * (2 * WIDE_RING + 1)
+
+
+def wide_width(W: int) -> int:
+    """The width the wide layout runs W at: the next multiple of 64."""
+    return -(-W // 64) * 64
+
+
+def _takes_wide(W: int, bf16: bool) -> bool:
+    """Whether the plan gives kernel width W the wide layout: past 1024
+    channels at bf16 (plan_bf16), from F32_WIDE_FROM at float32
+    (plan_f32)."""
+    return W > 1024 if bf16 else W >= F32_WIDE_FROM
+
+
+def wide_scratch_bytes(W: int, bf16: bool) -> int:
+    """Device scratch a block of the wide layout at width W (run at
+    wide_width(W)): each consumer warpgroup's h1 and h2 (W / PK A stages
+    each, PK = 64 bf16 / 32 float32 k a stage) and its 4 centres' running
+    maxima (4 x W floats)."""
+    Wd = wide_width(W)
+    return WIDE_WARPGROUPS * (2 * (Wd // (64 if bf16 else 32)) * WIDE_A_STAGE
+                              + 16 * Wd)
+
+
+def wide_stage_weights(w2: torch.Tensor, w3: torch.Tensor,
+                       bf16: bool) -> tuple:
+    """w2, w3 ((in, out) float32, width W a multiple of 64) as the wide
+    layout streams them, made once per weight tensor: for each 128-column
+    output chunk j (64 at the end of a width 64 past a multiple of 128),
+    each k-panel p (PK input columns), the chunk's 64-row blocks b: the B
+    stage of output rows 64 (2 j + b) .. and input columns p PK .. in
+    kernels/match_grid.b_stages' layout (K natural; bf16 8 KB, TF32 hi then
+    lo, 16 KB). At bf16 a chunk's two blocks of a panel are one 128-row
+    operand."""
+    from .match_grid import b_stages      # match_grid imports this module
+    W = w2.shape[0]
+    pk = 64 if bf16 else 32
+    blocks = tuple((64 * (2 * j + b), p * pk) for j in range(-(-W // 128))
+                   for p in range(W // pk)
+                   for b in range(min(2, W // 64 - 2 * j)))
+    return tuple(derived((w,), ("sa_wide_stages", bf16),
+                         lambda w=w: b_stages(w.t().float(), blocks, bf16,
+                                              natural=True))
+                 for w in (w2, w3))
+
+
+def wide_blocks(centres: int, device) -> int:
+    """Blocks of a wide launch: one an SM (its 230,632 shared bytes), at
+    most one a pair of 4-centre groups."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    groups = -(-centres // 4)
+    return max(1, min(-(-groups // 2), sms))
+
+
+# ---- the float32 kernel's layout (csrc/sa_stage.cu, pcr_sa_f32_layout) ----
 
 F32_WARPS = 8           # warps a block; 16 where there are 16 column chunks
-TWO_BUFFERS, GATHER_H1 = "two_buffers", "gather_h1"
+TWO_BUFFERS = "two_buffers"
+F32_LAYOUTS = (TWO_BUFFERS, WIDE)
+F32_WIDE_FROM = 928     # the narrowest width on the wide layout
 
 
 class SaF32Plan(NamedTuple):
-    layout: str          # TWO_BUFFERS or GATHER_H1
+    layout: str          # TWO_BUFFERS or WIDE
     warps: int           # warps a block
     nt: int              # n-tiles (8 columns) a warp's column chunk
-    tile_rows: int       # rows M a block
+    tile_rows: int       # rows a weight read serves
     smem: int            # shared bytes a block
-    whole_centres: bool  # every centre's K rows lie in one block
+    whole_centres: bool  # every centre's K rows lie in one block (or warp)
+    ring: int = 0        # ring slots (wide)
+    scratch: int = 0     # device scratch bytes a block (wide)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_f32(W: int, K: int) -> SaF32Plan:
     """The float32 kernel's launch for width W (a multiple of 32, 32 to
-    MAX_C) and K neighbours, as csrc/sa_stage.cu's pcr_sa_convmax: NT the
-    largest of 1, 2, 4 leaving 8 column chunks, 16 warps where there are
-    16 chunks, M = groups x MT x 16 rows with MT the most m-tiles (8 / 4 /
-    3 for NT 1 / 2 / 4) whose two row buffers of M x (W + 4) floats fit a
-    block's shared memory. Where even one m-tile's two buffers do not fit
-    (W > 1,792), the h1-from-gather layout: M = 16, conv2's A fragments
-    formed from the gather, one buffer (h2) and a 16 x 32 strip a warp for
-    conv3's columns before the max."""
+    MAX_C) and K neighbours, as csrc/sa_stage.cu's pcr_sa_f32_layout: below
+    F32_WIDE_FROM the row tiles, NT the largest of 1, 2, 4 leaving 8 column
+    chunks, 16 warps where there are 16 chunks, M = groups x MT x 16 rows
+    with MT the most m-tiles (8 / 4 / 3 for NT 1 / 2 / 4) whose two row
+    buffers of M x (W + 4) floats fit a block's shared memory; from it the
+    wide layout (12 warps: two consumer warpgroups and the producer's, a
+    128-column chunk a warpgroup, 128 rows a weight stage), at
+    wide_width(W)."""
     if W % 32 or not 32 <= W <= MAX_C or K < 1:
         raise ValueError(f"plan_f32: W={W}, K={K}; want W a multiple of 32 "
                          f"from 32 to {MAX_C} and K >= 1")
+    if _takes_wide(W, False):
+        return SaF32Plan(WIDE, 4 * (WIDE_WARPGROUPS + 1), 16, WIDE_ROWS,
+                         WIDE_SMEM, True, WIDE_RING,
+                         wide_scratch_bytes(W, False))
     ntiles = W // 8
     nt = 1
     for d in (2, 4):
@@ -140,28 +226,26 @@ def plan_f32(W: int, K: int) -> SaF32Plan:
     while mt > 1 and 2 * groups * mt * 16 * (W + 4) * 4 > MAX_SMEM:
         mt -= 1
     M = groups * mt * 16
-    if 2 * M * (W + 4) * 4 <= MAX_SMEM:
-        return SaF32Plan(TWO_BUFFERS, warps, nt, M, 2 * M * (W + 4) * 4,
-                         M % K == 0)
-    return SaF32Plan(GATHER_H1, warps, nt, 16,
-                     16 * (W + 4) * 4 + warps * 16 * 32 * 4, 16 % K == 0)
+    return SaF32Plan(TWO_BUFFERS, warps, nt, M, 2 * M * (W + 4) * 4,
+                     M % K == 0)
 
 
 # ---- the bf16 kernel's launch plan (csrc/sa_stage_bf16.cu, make_plan) ----
 
 WGMMA, MMA_SYNC = "wgmma", "mma_sync"
-BF16_TIERS = (WGMMA, MMA_SYNC)
+BF16_TIERS = (WGMMA, MMA_SYNC, WIDE)
 WGMMA_WIDTHS = (32, 64, 128, 256, 512, 1024)
 
 
 class SaPlan(NamedTuple):
-    tier: str            # WGMMA or MMA_SYNC
+    tier: str            # WGMMA, MMA_SYNC or WIDE
     tile_rows: int       # rows a weight tile serves at once (a block's tile)
     warpgroups: int      # consumer warpgroups a block (0: mma_sync)
     cluster: int         # blocks a cluster
     ring: int            # weight stages in shared memory (0: mma_sync)
     smem: int            # shared bytes a block
     whole_centres: bool  # every centre's K rows lie in one tile
+    scratch: int = 0     # device scratch bytes a block (wide)
 
 
 def _wgmma_tiles(C: int) -> Tuple[int, int, int, int]:
@@ -194,8 +278,9 @@ def _wgmma_plan(C: int) -> SaPlan:
 
 @functools.lru_cache(maxsize=None)
 def _mma_sync_plan(C: int, K: int) -> SaPlan:
-    """The mma_sync tier's row tiles (mma_sync_tier::tiles): M rows a block, two bf16
-    buffers of M x (C + 8)."""
+    """The mma_sync tier's row tiles (mma_sync_tier::tiles): M rows a block,
+    two bf16 buffers of M x (C + 8), within a block's shared memory at every
+    width the tier takes (C <= 992)."""
     ntiles = C // 8
     nt = 1
     for d in (2, 4):
@@ -204,25 +289,19 @@ def _mma_sync_plan(C: int, K: int) -> SaPlan:
     chunks = ntiles // nt
     warps = 16 if chunks >= 16 else 8
     groups = warps // chunks if chunks < warps else 1
-    mt = {1: 8, 2: 4}.get(nt, 3)
-
-    def smem(m):
-        return 2 * groups * m * 16 * (C + 8) * 2
-    while mt > 1 and smem(mt) > MAX_SMEM:
-        mt -= 1
-    M = groups * mt * 16
-    return SaPlan(MMA_SYNC, M, 0, 1, 0, smem(mt), M % K == 0)
+    M = groups * {1: 8, 2: 4}.get(nt, 3) * 16
+    return SaPlan(MMA_SYNC, M, 0, 1, 0, 2 * M * (C + 8) * 2, M % K == 0)
 
 
 def plan_bf16(C: int, K: int, R: int = 0) -> SaPlan:
     """The bf16 kernel's launch plan for width C, K neighbours and R = B S K
     rows, as csrc/sa_stage_bf16.cu's make_plan: the wgmma tier at C in
     WGMMA_WIDTHS, the mma_sync tier at the other multiples of 32 up to
-    MAX_C (past 1024 the wgmma tier's h2, C / 4 registers a thread over a
-    64-row m-tile, does not fit; the row tiles' two buffers do, at one
-    m-tile of 16 rows from 1,088 channels on). C is the kernel's width
-    (kernel_width of the model's). Raises NotImplementedError on a width
-    neither tier takes and ValueError on K < 1 or R >= 2^31."""
+    1024, the wide tier past 1024 (the wgmma tier's h2, C / 4 registers a
+    thread over a 64-row m-tile, does not fit), at wide_width(C). C is the
+    kernel's width (kernel_width of the model's). Raises
+    NotImplementedError on a width no tier takes and ValueError on K < 1
+    or R >= 2^31."""
     if C % 32 or not 32 <= C <= MAX_C:
         raise NotImplementedError(
             f"fused_sa_convmax at bf16: C={C}; the bf16 kernel takes C "
@@ -231,7 +310,12 @@ def plan_bf16(C: int, K: int, R: int = 0) -> SaPlan:
     if K < 1 or R >= 2 ** 31:
         raise ValueError(f"fused_sa_convmax at bf16: K={K}, R={R}; want "
                          "K >= 1 and B * S * K below 2^31")
-    return _wgmma_plan(C) if C in WGMMA_WIDTHS else _mma_sync_plan(C, K)
+    if C in WGMMA_WIDTHS:
+        return _wgmma_plan(C)
+    if _takes_wide(C, True):
+        return SaPlan(WIDE, WIDE_ROWS, WIDE_WARPGROUPS, 1, WIDE_RING,
+                      WIDE_SMEM, True, wide_scratch_bytes(C, True))
+    return _mma_sync_plan(C, K)
 
 
 def stage_layout(w: torch.Tensor, nr: int, kp: int) -> torch.Tensor:
@@ -269,27 +353,40 @@ def stage_weights(w2: torch.Tensor, w3: torch.Tensor) -> tuple:
 def kernel_plan_bf16(C: int, K: int, lib) -> Optional[SaPlan]:
     """The plan csrc/sa_stage_bf16.cu's pcr_sa_bf16_layout reports for
     (C, K) in library `lib`, or None where it refuses the shape."""
-    vals = (ctypes.c_longlong * 7)()
+    vals = (ctypes.c_longlong * 8)()
     if lib.pcr_sa_bf16_layout(C, K, vals):
         return None
-    tier, rows, wgs, cluster, ring, smem, whole = vals
+    tier, rows, wgs, cluster, ring, smem, whole, scratch = vals
     return SaPlan(BF16_TIERS[tier], rows, wgs, cluster, ring, smem,
-                  bool(whole))
+                  bool(whole), scratch)
+
+
+def kernel_plan_f32(C: int, K: int, lib) -> Optional[SaF32Plan]:
+    """The plan csrc/sa_stage.cu's pcr_sa_f32_layout reports for (C, K) in
+    library `lib`, or None where it refuses the shape."""
+    vals = (ctypes.c_longlong * 8)()
+    if lib.pcr_sa_f32_layout(C, K, vals):
+        return None
+    layout, warps, nt, rows, smem, whole, ring, scratch = vals
+    return SaF32Plan(F32_LAYOUTS[layout], warps, nt, rows, smem, bool(whole),
+                     ring, scratch)
 
 
 _CHECKED_PLANS = set()
 
 
-def _check_kernel_plan(how: SaPlan, C: int, K: int, lib) -> None:
-    """Raise where the build's own plan differs from plan_bf16's (once per
-    library and shape)."""
-    key = (id(lib), C, K)
+def _check_kernel_plan(how, C: int, K: int, lib, bf16: bool) -> None:
+    """Raise where the build's own plan (its layout, shared and scratch
+    bytes) differs from plan_bf16's or plan_f32's (once per library, dtype
+    and shape)."""
+    key = (id(lib), how, C, K, bf16)
     if key in _CHECKED_PLANS:
         return
-    got = kernel_plan_bf16(C, K, lib)
+    got = (kernel_plan_bf16 if bf16 else kernel_plan_f32)(C, K, lib)
     if got != how:
-        raise ValueError(f"fused_sa_convmax at bf16, C={C}, K={K}: the "
-                         f"kernel's plan {got} differs from plan_bf16's {how}")
+        raise ValueError(f"fused_sa_convmax at {'bf16' if bf16 else 'float32'}"
+                         f", C={C}, K={K}: the kernel's plan {got} differs "
+                         f"from the wrapper's {how}")
     _CHECKED_PLANS.add(key)
 
 
@@ -335,17 +432,17 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
     idx (B, S, K) neighbour indices into N; w2/w3 (C, C) in (in, out)
     layout (any strides); s*/t* (C,) folded BN affines. Returns (B, S, C)
     in A's dtype: float32, or bf16 (A and Ct bf16, the rest float32). On
-    CUDA any C up to MAX_C (a width off the kernels' multiples of 32 in the
-    padded layout, pad_args); past it ValueError.
+    CUDA any C up to MAX_C (a width off the kernels' own in the padded
+    layout, pad_args at run_width); past it ValueError.
     """
     if A.device.type == "cpu":
         return sa_convmax_reference(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3)
     if A.device.type != "cuda":
         raise RuntimeError(f"fused_sa_convmax: no kernel for {A.device}")
     C = A.shape[-1]
-    W = kernel_width(C)
-    out = launch(*pad_args(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, W))
     bf16 = A.dtype == BF16
+    W = run_width(C, bf16)
+    out = launch(*pad_args(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, W))
     if bf16:
         fused_sa_convmax.bf16_launches += 1
         fused_sa_convmax.bf16_tiers[plan_bf16(W, idx.shape[2]).tier] += 1
@@ -358,20 +455,11 @@ def fused_sa_convmax(A: torch.Tensor, Ct: torch.Tensor, idx: torch.Tensor,
     return out
 
 
-def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
-           library: Optional[_lib.Library] = None) -> torch.Tensor:
-    """Check CUDA inputs at a width the kernels take (a multiple of 32, 32
-    to MAX_C: pad_args lays out any other) and launch the kernel of their
-    dtype: csrc/sa_stage.cu (float32; w2, w3 contiguous), or
-    csrc/sa_stage_bf16.cu (A and Ct bf16; w2, w3 float32 in any strides,
-    handed to the kernel converted once, bf16 in (out, in) layout; the tier
-    plan_bf16 names, which must be the build's own plan).
-    `library` is another build of the entry points, as tools/ab_sa.py times
-    versions of the kernel (an earlier one without pcr_sa_bf16_layout is
-    launched unchecked, with (out, in) weights)."""
+def _checked(A, Ct, idx, w2, w3, vecs) -> bool:
+    """Check the kernels' CUDA inputs (shapes, dtypes, devices, R below
+    2^31); whether they are bf16."""
     B, N, C = A.shape
     S, K = idx.shape[1], idx.shape[2]
-    vecs = (s1, t1, s2, t2, s3, t3)
     bf16 = A.dtype == BF16
     dt = BF16 if bf16 else torch.float32
     _expect(A, (B, N, C), dt, "A")
@@ -384,33 +472,88 @@ def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
     for t in (Ct, idx, w2, w3) + vecs:
         if t.device != A.device:
             raise ValueError("fused_sa_convmax: inputs on different devices")
-    if kernel_width(C) != C:
-        raise ValueError(f"fused_sa_convmax: C={C}; the kernels take C a "
-                         f"multiple of 32 from 32 to {MAX_C} (pad_args lays "
-                         "out any other width)")
-    how = plan_bf16(C, K, B * S * K) if bf16 else None
     if B * S * K >= 2 ** 31:
         raise ValueError("fused_sa_convmax: B * S * K must be below 2^31")
+    return bf16
+
+
+def launch(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
+           library: Optional[_lib.Library] = None) -> torch.Tensor:
+    """Check CUDA inputs at a width the kernels run (run_width: pad_args
+    lays out any other) and launch the kernel of their dtype and plan,
+    which must be the build's own plan (its layout, shared and scratch
+    bytes): csrc/sa_stage.cu (float32; w2, w3 contiguous), or
+    csrc/sa_stage_bf16.cu (A and Ct bf16; w2, w3 float32 in any strides,
+    handed to the kernel converted once); on the wide layout launch_wide.
+    `library` is another build of the entry points, as tools/ab_sa.py
+    times versions of the kernel."""
+    B, N, C = A.shape
+    S, K = idx.shape[1], idx.shape[2]
+    vecs = (s1, t1, s2, t2, s3, t3)
+    bf16 = _checked(A, Ct, idx, w2, w3, vecs)
+    if run_width(C, bf16) != C:
+        raise ValueError(f"fused_sa_convmax: C={C}; the kernels run C a "
+                         f"multiple of 32 from 32 to {MAX_C}, on the wide "
+                         "layout of 64 (pad_args at run_width lays out any "
+                         "other width)")
+    how = plan_bf16(C, K, B * S * K) if bf16 else plan_f32(C, K)
     lib = (library or _lib.LIBRARY).get()
-    # a build with the plan entry takes the wgmma tier's weights in its
-    # stage layout; the mma_sync tier (and an earlier build) in (out, in)
-    staged = bf16 and how.tier == WGMMA and hasattr(lib, "pcr_sa_bf16_layout")
-    if staged:
+    _check_kernel_plan(how, C, K, lib, bf16)
+    if (how.tier if bf16 else how.layout) == WIDE:
+        return _launch_wide(lib, A, Ct, idx, w2, w3, vecs, bf16)
+    if bf16 and C in WGMMA_WIDTHS:
         w2, w3 = stage_weights(w2, w3)
     elif bf16:
         w2, w3 = (derived((w,), "sa_stage_bf16",
                           lambda w=w: w.t().to(BF16).contiguous())
                   for w in (w2, w3))
-    if any(t.data_ptr() % 16 for t in (A, Ct, w2, w3) + vecs):
-        raise ValueError("fused_sa_convmax: float inputs must be 16-byte "
-                         "aligned (the kernel reads them in float4 / float2)")
-    out = torch.empty((B, S, C), dtype=dt, device=A.device)
+    _aligned(A, Ct, w2, w3, *vecs)
+    out = torch.empty((B, S, C), dtype=A.dtype, device=A.device)
     entry = "pcr_sa_convmax_bf16" if bf16 else "pcr_sa_convmax"
-    if bf16 and (library is None or hasattr(lib, "pcr_sa_bf16_layout")):
-        _check_kernel_plan(how, C, K, lib)
     err = getattr(lib, entry)(
         *[t.data_ptr() for t in (A, Ct, idx, w2, w3) + vecs + (out,)],
         B, N, S, K, C, _lib.stream_ptr(A.device))
+    _lib.check(err, entry)
+    return out
+
+
+def launch_wide(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3,
+                library: Optional[_lib.Library] = None) -> torch.Tensor:
+    """The wide layout (csrc/sa_wide_wg.cuh) at C a multiple of 64, whatever
+    layout the plan gives C, as tools/ab_sa.py --layout wide times it below
+    the plan's widths: the inputs checked as launch checks them, the
+    scratch by the kernel (it refuses one smaller than its wide plan's)."""
+    C = A.shape[-1]
+    bf16 = _checked(A, Ct, idx, w2, w3, (s1, t1, s2, t2, s3, t3))
+    if C % 64 or not 64 <= C <= MAX_C:
+        raise ValueError(f"launch_wide: C={C}; the wide layout takes C a "
+                         f"multiple of 64 up to {MAX_C}")
+    lib = (library or _lib.LIBRARY).get()
+    return _launch_wide(lib, A, Ct, idx, w2, w3, (s1, t1, s2, t2, s3, t3),
+                        bf16)
+
+
+def _aligned(*tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("fused_sa_convmax: float inputs must be 16-byte "
+                         "aligned (the kernel reads them in float4 / float2)")
+
+
+def _launch_wide(lib, A, Ct, idx, w2, w3, vecs, bf16: bool) -> torch.Tensor:
+    """The wide layout at C (a multiple of 64): the stage copies of w2 and
+    w3, a scratch of wide_scratch_bytes a block for wide_blocks blocks."""
+    B, N, C = A.shape
+    S, K = idx.shape[1], idx.shape[2]
+    w2, w3 = wide_stage_weights(w2, w3, bf16)
+    _aligned(A, Ct, w2, w3, *vecs)
+    blocks = wide_blocks(B * S, A.device)
+    stride = wide_scratch_bytes(C, bf16)
+    scratch = torch.empty((blocks, stride), dtype=torch.uint8, device=A.device)
+    out = torch.empty((B, S, C), dtype=A.dtype, device=A.device)
+    entry = "pcr_sa_convmax_wide_bf16" if bf16 else "pcr_sa_convmax_wide"
+    err = getattr(lib, entry)(
+        *[t.data_ptr() for t in (A, Ct, idx, w2, w3, *vecs, out, scratch)],
+        B, N, S, K, C, blocks, stride, _lib.stream_ptr(A.device))
     _lib.check(err, entry)
     return out
 
@@ -421,7 +564,7 @@ fused_sa_convmax.bf16_tiers = dict.fromkeys(BF16_TIERS, 0)
 # of those, the launches in the padded layout, by dtype
 fused_sa_convmax.padded_launches = {"float32": 0, "bf16": 0}
 # the float32 kernel's launches by layout (plan_f32)
-fused_sa_convmax.f32_layouts = dict.fromkeys((TWO_BUFFERS, GATHER_H1), 0)
+fused_sa_convmax.f32_layouts = dict.fromkeys(F32_LAYOUTS, 0)
 
 
 def _expect(t: torch.Tensor, shape, dtype, name: str,

@@ -140,23 +140,24 @@ def build(sources):
     return libs
 
 
-def wrapper(source: str):
-    """The kernels/match_grid module that launches a version: this
-    package's for a source in its csrc/ (or outside any tree of the
-    package), else that of the tree the source's first file lies in,
-    imported once under a name of its own."""
+def wrapper(source: str, module: str = "match_grid"):
+    """The kernels/<module> (match_grid, or sa_stage for tools/ab_sa.py)
+    that launches a version: this package's for a source in its csrc/ (or
+    outside any tree of the package), else that of the tree the source's
+    first file lies in, imported once under a name of its own."""
     pkg = Path(source.split("+")[0]).resolve().parent.parent
     if (pkg == Path(mg.__file__).resolve().parent.parent
-            or not (pkg / "kernels" / "match_grid.py").is_file()):
-        return mg
+            or not (pkg / "kernels" / f"{module}.py").is_file()):
+        return importlib.import_module(
+            mg.__name__.rsplit(".", 1)[0] + "." + module)
     name = "ab_match_" + hashlib.sha1(str(pkg).encode()).hexdigest()[:12]
     if name not in sys.modules:
         spec = importlib.util.spec_from_file_location(
             name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
-        module = importlib.util.module_from_spec(spec)
-        sys.modules[name] = module
-        spec.loader.exec_module(module)
-    return importlib.import_module(name + ".kernels.match_grid")
+        tree = importlib.util.module_from_spec(spec)
+        sys.modules[name] = tree
+        spec.loader.exec_module(tree)
+    return importlib.import_module(f"{name}.kernels.{module}")
 
 
 def layout_bytes(lib, t, nhead, tier=None, wrap=mg) -> int:

@@ -1,7 +1,8 @@
 """tools/ab_sa.py on the CPU: its seeded inputs, which are
 fused_sa_convmax's arguments at the flagship's three stages (float32, and
-bf16 at the flagship's and the 7M model's widths), and its refusal to run
-without a card."""
+bf16 at the flagship's and the 7M model's widths) or at --widths, the tree
+whose wrapper launches each version, and its refusal to run without a
+card."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -57,3 +58,75 @@ def test_main_needs_a_card(monkeypatch):
     with pytest.raises(SystemExit, match="CUDA"):
         ab_sa.main(["point_cloud_reid_tpu_torch/csrc/sa_stage_bf16.cu",
                     "--bf16", "--mul", "8"])
+
+
+def test_width_inputs_and_their_parsing(monkeypatch):
+    """--widths C,...: one seeded random stage of SA3's geometry a width,
+    multiples of 32 to 2048 only; without a card the tool exits first."""
+    a = ab_sa.width_inputs(96, device="cpu", dtype=torch.bfloat16,
+                           shape=(2, 8, 3, 5))
+    assert [tuple(x.shape) for x in a[:5]] == [(2, 8, 96), (2, 3, 96),
+                                               (2, 3, 5), (96, 96), (96, 96)]
+    assert a[0].dtype == torch.bfloat16 and a[2].dtype == torch.int32
+    again = ab_sa.width_inputs(96, device="cpu", dtype=torch.bfloat16,
+                               shape=(2, 8, 3, 5))
+    assert all(torch.equal(x, y) for x, y in zip(a, again))
+    assert sa.fused_sa_convmax(*a).shape == (2, 3, 96)
+    assert ab_sa.parse_widths("1024,1056,1536") == [1024, 1056, 1536]
+    for bad in ("1000", "2080", "a,b", ""):
+        with pytest.raises(SystemExit):
+            ab_sa.parse_widths(bad)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        ab_sa.main(["point_cloud_reid_tpu_torch/csrc/sa_stage.cu",
+                    "--widths", "1024,1536", "--layout", "plan",
+                    "--layout", "wide"])
+
+
+def test_a_version_launches_through_its_own_tree(tmp_path):
+    """A source in this package's csrc/ (or outside any tree of it) is
+    launched through this kernels/sa_stage; one in another tree of the
+    package (an earlier commit's `git archive`) through that tree's own,
+    whose entry points, plan and scratch are that commit's. --layout wide
+    takes only versions whose wrapper has the wide layout."""
+    here = "point_cloud_reid_tpu_torch/csrc/sa_stage.cu"
+    assert ab_sa.wrapper(here, "sa_stage") is sa
+    assert ab_sa.wrapper(str(tmp_path / "v1" / "sa_stage.cu"),
+                         "sa_stage") is sa
+    pkg = tmp_path / "tree" / "point_cloud_reid_tpu_torch"
+    (pkg / "kernels").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    (pkg / "__init__.py").write_text("")
+    (pkg / "kernels" / "__init__.py").write_text("")
+    (pkg / "kernels" / "sa_stage.py").write_text(
+        "TREE = 'older'\ndef launch(*a, **k):\n    return 'older'\n")
+    older = str(pkg / "csrc" / "sa_stage.cu")
+    mod = ab_sa.wrapper(older, "sa_stage")
+    assert mod is not sa and mod.TREE == "older"
+    assert ab_sa.versions([older, here], ["plan", "wide"]) == [
+        (older, "plan"), (here, "plan"), (here, "wide")]
+
+
+def test_each_version_pads_as_its_own_wrapper():
+    """laid_out: this wrapper's stage at 1,056 channels padded once to the
+    wide layout's 1,088 (float32 and bf16) and launched by `launch`, at 992
+    to 1024 at float32 and not at bf16 (the mma_sync tier), `--layout wide`
+    to the next multiple of 64 through `launch_wide`; an earlier wrapper
+    without run_width at its own kernel_width."""
+    import types
+    for C, bf16, width in ((1056, False, 1088), (1056, True, 1088),
+                           (992, False, 1024), (992, True, 992)):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        a = ab_sa.width_inputs(C, device="cpu", dtype=dtype,
+                               shape=(1, 4, 2, 3))
+        got, fn = ab_sa.laid_out(sa, a, "plan")
+        assert fn is sa.launch and got[0].shape[-1] == width
+        assert torch.equal(got[0][..., :C], a[0])
+        assert not got[0][..., C:].any() and not got[3][C:].any()
+        wide, fn = ab_sa.laid_out(sa, a, "wide")
+        assert fn is sa.launch_wide
+        assert wide[0].shape[-1] == -(-C // 64) * 64
+    older = types.SimpleNamespace(kernel_width=sa.kernel_width,
+                                  pad_args=sa.pad_args, launch="older")
+    got, fn = ab_sa.laid_out(older, a, "plan")
+    assert fn == "older" and got[0].shape[-1] == 992

@@ -57,31 +57,39 @@ def test_plan_at_every_stage_of_the_leaf(leaf):
     (512, sa.SaPlan(sa.WGMMA, 128, 2, 1, 5, 230480, True)),
     (1024, sa.SaPlan(sa.WGMMA, 64, 2, 1, 5, 230480, True)),
     (992, sa.SaPlan(sa.MMA_SYNC, 48, 0, 1, 0, 192000, True)),
+    (1056, sa.SaPlan(sa.WIDE, 128, 2, 1, 14, 230632, True, 591872)),
+    (1536, sa.SaPlan(sa.WIDE, 128, 2, 1, 14, 230632, True, 835584)),
+    (2048, sa.SaPlan(sa.WIDE, 128, 2, 1, 14, 230632, True, 1114112)),
 ])
 def test_plan_at_the_served_widths(C, want):
     """The flagship's and the 7M model's widths at K = 48: both weights
     resident at C = 128 (every row a block takes shares them), a ring of
     16 KB stages serving two warpgroups' 128 rows at C = 256 and 512, and
     at C = 1024 one 64-row m-tile whose h1 (128 KB) two warpgroups share;
-    a width off the wgmma tier's (992) on the mma_sync tier's row tiles."""
+    a width off the wgmma tier's (992) on the mma_sync tier's row tiles;
+    past 1024 (mul16's SA3 at 2048) the wide tier: 14 slots of 16 KB whose
+    weight stages serve two warpgroups' m-tiles (128 rows), h1, h2 and the
+    running maxima in a scratch of 2 x (2 W / 64 x 8 KB + 16 W) bytes a
+    block at W the next multiple of 64 (1,088 for 1,056)."""
     assert sa.plan_bf16(C, 48, BATCH * 32 * 48) == want
 
 
 def test_plan_takes_any_k_and_refuses_what_no_tier_takes():
-    """The wgmma tier's plan does not depend on K (a centre's rows fill
-    ceil(K / 16) m-tiles of one warp); the mma_sync tier's centres are
-    whole where K divides its M rows; past 1024 channels the mma_sync tier
+    """The wgmma and wide tiers' plans do not depend on K (a centre's rows
+    fill ceil(K / 16) m-tiles of one warp); the mma_sync tier's centres are
+    whole where K divides its M rows; past 1024 channels the wide tier
     takes every multiple of 32 to 2048. Kernel widths off the multiples of
     32 (the wrapper pads them to kernel_width) or past 2048, K < 1 and
     B S K >= 2^31 raise."""
     for K in (1, 7, 16, 33, 200):
         assert sa.plan_bf16(256, K) == sa.plan_bf16(256, 48)
+        assert sa.plan_bf16(1056, K) == sa.plan_bf16(1056, 48)
     assert sa.plan_bf16(96, 16).whole_centres
     assert not sa.plan_bf16(96, 20).whole_centres
     assert {sa.plan_bf16(C, 32).tier for C in range(32, 1025, 32)} == {
         sa.WGMMA, sa.MMA_SYNC}
     assert {sa.plan_bf16(C, 32).tier for C in range(1056, 2049, 32)} == {
-        sa.MMA_SYNC}
+        sa.WIDE}
     for C in (16, 48, 2080):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sa.plan_bf16(C, 8)

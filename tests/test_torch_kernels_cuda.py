@@ -999,11 +999,11 @@ def test_global_batch_norm_on_the_card_matches_the_cpu(cuda, M, C):
 # ---- ROADMAP.md K5 and K6b: the SA stage at any width up to 2048 and the
 # match chain past 128 channels and 8 heads
 
-# C = 16 and 48 in the padded layout (32, 64), 1,056 and 1,824 on the float32
-# kernel's two buffers of one m-tile, 2,000 (padded to 2,016) and 2048 on its
-# h1-from-gather layout (the mul16 model's SA3), with K dividing 16 (K = 16,
-# 48), not dividing it (5, 20) and a ragged last block; the bf16 kernel's
-# mma_sync tier past 1024
+# C = 16 and 48 in the padded layout (32, 64), 1,056, 1,824, 2,000 (padded
+# to 2,016) and 2048 on the float32 kernel's wide layout (the mul16 model's
+# SA3; run at the next multiple of 64), with
+# K dividing 16 (K = 16, 48), not dividing it (5, 20) and a ragged last
+# group; the bf16 kernel's wide tier past 1024
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,S,K,C", [
     (3, 40, 20, 12, 16), (2, 50, 25, 20, 48), (2, 64, 32, 48, 1056),
@@ -1017,7 +1017,7 @@ def test_sa_wide_and_padded_widths_match_plain(cuda, B, N, S, K, C, dtype):
     bf16 = dtype == torch.bfloat16
     args = (_sa_args_bf16 if bf16 else _sa_args)(cuda, B, N, S, K, C)
     fn = sa.fused_sa_convmax
-    W = sa.kernel_width(C)
+    W = sa.run_width(C, bf16)
     key = "bf16" if bf16 else "float32"
     before = (fn.bf16_launches if bf16 else fn.launches,
               fn.padded_launches[key])
@@ -1026,13 +1026,100 @@ def test_sa_wide_and_padded_widths_match_plain(cuda, B, N, S, K, C, dtype):
     assert (fn.bf16_launches if bf16 else fn.launches) == before[0] + 1
     assert fn.padded_launches[key] == before[1] + (W != C)
     if bf16:
-        assert sa.plan_bf16(W, K).tier == (sa.WGMMA if W in sa.WGMMA_WIDTHS
-                                           else sa.MMA_SYNC)
+        assert sa.plan_bf16(W, K).tier == (
+            sa.WGMMA if W in sa.WGMMA_WIDTHS else sa.WIDE if W > 1024
+            else sa.MMA_SYNC)
         _close_bf16(got, sa.sa_convmax_reference(*args))
     else:
-        assert sa.plan_f32(W, K).layout == (sa.GATHER_H1 if W > 1792
-                                            else sa.TWO_BUFFERS)
+        assert sa.plan_f32(W, K).layout == (
+            sa.WIDE if W >= sa.F32_WIDE_FROM else sa.TWO_BUFFERS)
         _close(got, sa.sa_convmax_reference(*args))
+
+
+# The wide layout (csrc/sa_wide_wg.cuh) at both dtypes, through the wrapper's
+# plan where it gives the layout and forced (launch_wide) below it:
+# C = 1,056 (a 64-column last chunk at 1,088), 1,536 and 2048; K = 1, 5, 48
+# and 64 (one to four m-tiles a group, slots past K repeated); B S not a
+# multiple of a group's 4 centres or of a pair of groups; more pairs of
+# groups than resident blocks (B = 128: 512 pairs on 132 blocks).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,S,K,C", [
+    (2, 64, 7, 1, 1056), (3, 64, 25, 5, 1536), (2, 64, 32, 48, 2048),
+    (2, 96, 9, 64, 1056), (3, 50, 25, 20, 1536), (1, 80, 13, 64, 2048),
+    (128, 64, 32, 48, 1056), (4, 64, 32, 48, 1024)])
+def test_sa_wide_layout_matches_plain(cuda, B, N, S, K, C, dtype):
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    bf16 = dtype == torch.bfloat16
+    args = (_sa_args_bf16 if bf16 else _sa_args)(cuda, B, N, S, K, C)
+    want = sa.sa_convmax_reference(*args)
+    fn = sa.fused_sa_convmax
+    how = sa.plan_bf16(C, K) if bf16 else sa.plan_f32(C, K)
+    if (how.tier if bf16 else how.layout) == sa.WIDE:
+        counts = fn.bf16_tiers if bf16 else fn.f32_layouts
+        before = counts[sa.WIDE]
+        got = fn(*args)
+        assert counts[sa.WIDE] == before + 1
+    else:
+        got = sa.launch_wide(*args)
+    assert got.shape == (B, S, C) and got.dtype == dtype
+    (_close_bf16 if bf16 else _close)(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sa_wide_layout_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs (each with its own scratch from the
+    allocator, the second most likely the first's bytes) give bit-equal
+    outputs: no atomics, every centre's max in one warp in one order."""
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    bf16 = dtype == torch.bfloat16
+    args = (_sa_args_bf16 if bf16 else _sa_args)(cuda, 16, 64, 32, 48, 2048)
+    first = sa.fused_sa_convmax(*args)
+    again = sa.fused_sa_convmax(*args)
+    assert torch.equal(first, again)
+
+
+def test_sa_f32_layout_equals_the_plan_and_checks_the_scratch(cuda):
+    """pcr_sa_f32_layout gives the plan that plan_f32 reckons at every width
+    (its layout, shared and scratch bytes), and refuses what neither layout
+    takes; a wrapper plan that differs from the build's raises before any
+    launch, and the wide entry points refuse a scratch smaller than the
+    plan's."""
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    lib = _lib.LIBRARY.get()
+    for C in range(32, 2049, 32):
+        for K in (1, 7, 16, 48, 200):
+            want = sa.plan_f32(C, K)
+            assert sa.kernel_plan_f32(C, K, lib) == want, (C, K)
+            assert want.smem <= sa.MAX_SMEM
+    for C, K in ((16, 8), (48, 8), (2080, 8), (128, 0)):
+        assert sa.kernel_plan_f32(C, K, lib) is None
+    for bf16 in (False, True):
+        how = sa.plan_bf16(2048, 48) if bf16 else sa.plan_f32(2048, 48)
+        with pytest.raises(ValueError, match="differs"):
+            sa._check_kernel_plan(how._replace(scratch=how.scratch - 16),
+                                  2048, 48, lib, bf16)
+    args = _sa_args(cuda, 1, 16, 4, 16, 2048)
+    w2, w3 = sa.wide_stage_weights(args[3], args[4], False)
+    need = sa.wide_scratch_bytes(2048, False)
+    scratch = torch.empty(need, dtype=torch.uint8, device=cuda)
+    out = torch.empty((1, 4, 2048), device=cuda)
+    ptrs = [t.data_ptr() for t in (args[0], args[1], args[2], w2, w3,
+                                   *args[5:], out, scratch)]
+    stream = _lib.stream_ptr(cuda)
+    assert lib.pcr_sa_convmax_wide(*ptrs, 1, 16, 4, 16, 2048, 1, need - 16,
+                                   stream) != 0
+    assert lib.pcr_sa_convmax_wide(*ptrs, 1, 16, 4, 16, 2048, 1, need,
+                                   stream) == 0
+    torch.cuda.synchronize()
+    _close(out, sa.sa_convmax_reference(*args))
+    # the row tiles' entry refuses the wide layout's widths
+    for C in (sa.F32_WIDE_FROM, 1792, 2048):
+        assert lib.pcr_sa_convmax(*ptrs[:12], 1, 16, 4, 16, C, stream) != 0
+    with pytest.raises(ValueError, match="multiple of 64"):
+        sa.launch_wide(*_sa_args(cuda, 1, 16, 4, 16, 992))
+
+
 
 
 # C = 256 in 2 heads of 128 (conv_out256), in 16 of 16 and in one, at one

@@ -305,11 +305,11 @@ def _shapes(tree, prefix=""):
 def _width_config(name: str) -> dict:
     """The model config a point entry of configs/widths.py stands for: the
     flagship at conv_out C, or the 7M model (conv_out 128, mul 8) with 16
-    heads in both cross stages or at mul 16."""
+    heads in both cross stages or at mul 16 or 6."""
     if name.startswith("conv_out"):
         return tcfg.point_transformer_point_cat(conv_out=int(name[8:]))
     cfg = tcfg.point_transformer_point_cat(
-        conv_out=128, mul=16 if name == "mul16" else 8)
+        conv_out=128, mul=int(name[3:]) if name.startswith("mul") else 8)
     if name == "heads16":
         cfg["cross_stage1"]["nhead"] = cfg["cross_stage2"]["nhead"] = 16
     return cfg

@@ -5,10 +5,13 @@ the SA stage at any width up to 2048 channels and the match chain up to
 Here:
   - the SA wrapper's padded layout (kernels/sa_stage.pad_args: zeros in
     the lanes past C) through the plain version equals the unpadded plain
-    version bit for bit, and a model of the float32 kernel's
-    h1-from-gather layout (16-row blocks, each centre's max stored whole or
-    met by a max into zeros) meets the plain version; the plans of both SA
-    kernels at the new widths;
+    version bit for bit; a model of the wide layout's walk
+    (csrc/sa_wide_wg.cuh: centre groups with repeated slots, the
+    producer's stage order with its events, conv2's A stages from the h1
+    scratch, h2 read from the scratch as it stood at the event the
+    producer waited for, the max folded over a group's m-tiles) meets the
+    plain version at both dtypes; its stage copies read back byte for
+    byte; the plans of both SA kernels at the new widths;
   - kernels/match_grid.plan at every new width, head count, head and
     dtype, and its refusal past the new bound naming ROADMAP.md's K7;
   - the rows tier's wide kernel (C = 256, csrc/match_rows_wg.cuh
@@ -55,7 +58,7 @@ from tests._torch_image import images, jax_variables_of  # noqa: E402
 from tests._torch_port import TINY, crops  # noqa: E402
 from tests._torch_threads import few_threads  # noqa: E402,F401
 from tests.test_torch_match_rows_plan import (  # noqa: E402
-    _kernel_model, _offset, read_stage)
+    _OFFSETS, _kernel_model, _offset, read_stage)
 from tests.test_torch_match_widths import _image_cfg  # noqa: E402
 
 BF16 = torch.bfloat16
@@ -107,68 +110,286 @@ def test_sa_padded_layout_is_exact(C, dtype):
     assert sa.pad_args(*args, W)[3] is padded[3]
 
 
-def _gather_model(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3):
-    """The float32 kernel's h1-from-gather layout in float64
-    (csrc/sa_stage.cu sa_convmax_gather_kernel): the R = B S K rows in
-    blocks of 16; conv2 from the gather, conv3 into the strip, each
-    column's max over each centre's rows in the block, stored where the
-    centre lies whole in the block, else a max into the zero-filled out."""
-    B, S, K = idx.shape
-    N, C = A.shape[1:]
-    R = B * S * K
-    rows = torch.arange(R)
-    centre = rows // K
-    src = (centre // S) * N + idx.reshape(-1).long()
-    h = (A.reshape(-1, C)[src].double() + Ct.reshape(-1, C)[centre].double())
-    h = torch.relu(h * s1.double() + t1.double())
-    h = torch.relu(h @ w2.double() * s2.double() + t2.double())
-    h = torch.relu(h @ w3.double() * s3.double() + t3.double())
-    out = torch.zeros(B * S, C, dtype=torch.float64)
-    for r0 in range(0, R, 16):
-        hi = min(r0 + 16, R)
-        for ce in range(r0 // K, (hi - 1) // K + 1):
-            lo_r, hi_r = max(ce * K, r0), min((ce + 1) * K, hi)
-            m = h[lo_r:hi_r].amax(0).clamp(min=0)
-            whole = ce * K >= r0 and (ce + 1) * K <= hi
-            out[ce] = m if whole else torch.maximum(out[ce], m)
+def _a_unit(r, u, bf16):
+    """Index of 16-byte unit u (4 float32 / 8 bf16 values) of row r of the
+    wide layout's A stages in the stage's values, as the kernel's gather
+    stores it (csrc/sa_wide_wg.cuh gather: unit u ^ (r % 8) of its row)."""
+    per = 8 if bf16 else 4
+    return (u >> 3, r * 8 * per + ((u & 7) ^ (r & 7)) * per)
+
+
+def _write_a_units(stages, rows, bf16):
+    """A matrix (64 rows, C) into a buffer's A stages by 16-byte units, the
+    gather's stores."""
+    per = 8 if bf16 else 4
+    for u in range(rows.shape[1] // per):
+        for r in range(64):
+            p, i = _a_unit(r, u, bf16)
+            stages[p][i:i + per] = rows[r, u * per:(u + 1) * per]
+
+
+def _write_a_pairs(stages, rows, c0, bf16):
+    """Columns c0 .. c0 + 127 (or to the width's end) of (64, C) rows into a
+    buffer's A stages value by value where the kernel's put_pair puts them
+    (_offset: the same 128-byte swizzle, K natural)."""
+    pk = 64 if bf16 else 32
+    for c in range(c0, min(c0 + 128, rows.shape[1])):
+        for r in range(64):
+            stages[c // pk][_offset(r, c % pk, bf16, True)] = rows[r, c]
+
+
+def _read_a(stage, bf16):
+    """An A stage (64 rows x one k-panel) as the products read it: float64
+    in real K order (one value a place: the A stages hold no lo)."""
+    return stage.double()[_OFFSETS[bf16, True]]
+
+
+def _sa_wide_seq(C, K, BS, blocks, b, bf16):
+    """The wide layout's producer sequence for block b
+    (csrc/sa_wide_wg.cuh sa_wide_kernel), in the ring's order: (the
+    events the producer has waited for before it, slot), a slot ("a",
+    conv, p) the A stages of k-panel p of the two warpgroups' h1 (conv 0)
+    or h2 (conv 1), or ("w", conv, i, n) n B stages of conv 2 + conv's
+    stage copy from its i-th: per output chunk j of 128 columns (64 at the
+    end) and k-panel p, the A slot then the chunk's blocks."""
+    pk = 64 if bf16 else 32
+    ppc, nch, q = C // pk, -(-C // 128), -(-K // 16)
+    supers = -(-(-(-BS // 4)) // 2)
+    seq, ev = [], 0
+    for _ in range(b, supers, blocks):
+        for _mt in range(q):
+            for conv in range(2):
+                ev += 1
+                for j in range(nch):
+                    nb = min(2, C // 64 - 2 * j)
+                    for p in range(ppc):
+                        seq.append((ev, ("a", conv, p)))
+                        first = 2 * j * ppc + p * nb
+                        seq += ([(ev, ("w", conv, first, nb))] if bf16 else
+                                [(ev, ("w", conv, first + x, 1))
+                                 for x in range(nb)])
+    return seq
+
+
+class _SaRing:
+    """The producer's sequence of a block, taken in order by the
+    consumers' model (both warpgroups take every slot); an A slot holds
+    each warpgroup's stage as its buffer stood at the event the producer
+    waited for before issuing it, and only once the consumers have reached
+    that event."""
+
+    def __init__(self, seq, copies, bf16):
+        self.seq, self.i, self.bf16, self.copies = seq, 0, bf16, copies
+        self.scr = {}
+        self.snaps = []
+
+    def arrive(self):
+        self.snaps.append({k: [x.clone() for x in v]
+                           for k, v in self.scr.items()})
+
+    def take(self, want):
+        ev, item = self.seq[self.i]
+        self.i += 1
+        assert item[:2] == want[:2] and (item[0] == "w" or item == want), (
+            item, want)
+        assert len(self.snaps) >= ev > 0, (item, ev, len(self.snaps))
+        if item[0] == "a":
+            _, conv, p = item
+            return [_read_a(self.snaps[ev - 1][conv, wg][p], self.bf16)
+                    for wg in range(2)]
+        _, conv, first, n = item
+        st = self.copies[conv].reshape(-1, 4096)
+        return [read_stage(st[first + x], self.bf16, natural=True)
+                for x in range(n)]
+
+
+def _sa_wide_model(A, Ct, idx, w2, w3, s1, t1, s2, t2, s3, t3, blocks):
+    """The wide layout's walk in float64 (bf16: h1 and h2 rounded to bf16 as
+    the kernel stores them): each block's two warpgroups take a pair of
+    4-centre groups at a time, ceil(K / 16) m-tiles of 64 rows each (warp
+    w the 16 neighbour slots of centre w, slots past K repeating neighbour
+    K - 1, centres past B S the last centre, not stored); per m-tile the
+    gather into the h1 scratch [event], conv2 chunk by chunk over the
+    ring's slots into the h2 scratch [event], conv3 chunk by chunk, each
+    lane's columns folded into its centre's running max."""
+    bf16 = A.dtype == BF16
+    B, N, C = A.shape
+    S, K = idx.shape[1:]
+    BS, pk = B * S, (64 if bf16 else 32)
+    q, ppc, nch = -(-K // 16), C // pk, -(-C // 128)
+    supers = -(-(-(-BS // 4)) // 2)
+    copies = sa.wide_stage_weights(w2, w3, bf16)
+    vec = [v.double() for v in (s1, t1, s2, t2, s3, t3)]
+    rnd = ((lambda x: x.to(BF16).double()) if bf16 else (lambda x: x))
+    out = torch.full((BS, C), float("nan"), dtype=torch.float64)
+    Af, Ctf = A.reshape(-1, C).double(), Ct.reshape(-1, C).double()
+    src = idx.reshape(BS, K).long() + (torch.arange(BS) // S * N)[:, None]
+    for b in range(blocks):
+        ring = _SaRing(_sa_wide_seq(C, K, BS, blocks, b, bf16), copies, bf16)
+        for sup in range(b, supers, blocks):
+            own = [torch.arange(4) + 4 * (2 * sup + wg) for wg in range(2)]
+            ctr = [o.clamp(max=BS - 1) for o in own]
+            runmax = [torch.zeros(4, C, dtype=torch.float64) for _ in range(2)]
+            for mt in range(q):
+                slots = (torch.arange(16) + 16 * mt).clamp(max=K - 1)
+                for wg in range(2):
+                    rows = src[ctr[wg][:, None], slots[None, :]].reshape(-1)
+                    h1 = torch.relu((Af[rows] + Ctf[ctr[wg]].repeat_interleave(
+                        16, 0)) * vec[0] + vec[1])
+                    ring.scr[0, wg] = [torch.zeros(4096 if bf16 else 2048)
+                                       for _ in range(ppc)]
+                    _write_a_units(ring.scr[0, wg], rnd(h1).float(), bf16)
+                ring.arrive()
+                for conv in range(2):
+                    if conv:
+                        ring.arrive()
+                    for wg in range(2):
+                        ring.scr.setdefault((1, wg), [
+                            torch.zeros(4096 if bf16 else 2048)
+                            for _ in range(ppc)])
+                    for j in range(nch):
+                        nb = min(2, C // 64 - 2 * j)
+                        acc = [torch.zeros(64, 64 * nb, dtype=torch.float64)
+                               for _ in range(2)]
+                        for p in range(ppc):
+                            a = ring.take(("a", conv, p))
+                            wb = []
+                            for _ in range(1 if bf16 else nb):
+                                wb += ring.take(("w", conv))
+                            wt = torch.cat(wb, 0)     # (64 nb out, pk in)
+                            for wg in range(2):
+                                acc[wg] += a[wg] @ wt.t()
+                        cols = slice(128 * j, 128 * j + 64 * nb)
+                        for wg in range(2):
+                            y = acc[wg] * vec[2 + 2 * conv][cols] + vec[
+                                3 + 2 * conv][cols]
+                            if conv == 0:
+                                full = torch.zeros(64, C, dtype=torch.float64)
+                                full[:, cols] = rnd(torch.relu(y))
+                                _write_a_pairs(ring.scr[1, wg], full.float(),
+                                               128 * j, bf16)
+                            else:
+                                m = y.reshape(4, 16, -1).amax(1).clamp(min=0)
+                                runmax[wg][:, cols] = torch.maximum(
+                                    runmax[wg][:, cols], m)
+            for wg in range(2):
+                keep = own[wg] < BS
+                out[own[wg][keep]] = runmax[wg][keep]
+        assert ring.i == len(ring.seq)
+    assert not out.isnan().any()
     return out.reshape(B, S, C)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("B,S,K", [(2, 8, 48), (3, 5, 20), (2, 7, 5),
-                                   (1, 3, 16)])
-def test_sa_gather_layout_model_meets_the_plain_version(B, S, K):
-    """At C = 2048 the float32 kernel takes the h1-from-gather layout (M =
-    16 rows, 16 warps, h2 buffer and strips in 164,096 bytes); a model of
-    its blocks and of its maxima (K = 48 and 16 whole in blocks, K = 20
-    and 5 straddling them, a ragged last block) meets the plain version."""
-    C = 2048
-    how = sa.plan_f32(C, K)
-    assert how == sa.SaF32Plan(sa.GATHER_H1, 16, 4, 16, 164096, K == 16)
-    args = _sa_args(B, 30, S, K, C, seed=K)
+                                   (1, 3, 16), (3, 3, 1), (2, 5, 37)])
+def test_sa_wide_walk_model_meets_the_plain_version(B, S, K, dtype):
+    """A model of the wide layout's walk at a stand-in width of 192 (a
+    128-column chunk and a 64-column one; the kernel's widths are 928 ..
+    2048): the producer's sequence of slots and events, every A slot read
+    from the scratch as it stood at its event, every B stage from the
+    wrapper's stage copy at the producer's offset, one block walking
+    several pairs of groups where there are several (K = 48 and 37: three
+    m-tiles a group; K = 1 and 5: one, slots past K repeated; B S of 16,
+    15, 14, 3, 9, 10 centres: groups and pairs of groups part empty), meets
+    the plain version (float32: WALK_TOL; bf16 with h1 and h2 rounded as
+    the kernel stores them: BF16 WALK_TOL)."""
+    C = 192
+    args = _sa_args(B, 30, S, K, C, seed=K, dtype=dtype)
     want = sa.sa_convmax_reference(*args).double()
-    got = _gather_model(*args)
-    assert (got - want).abs().max() <= SA_MODEL_TOL * max(
+    supers = -(-(-(-B * S // 4)) // 2)
+    got = _sa_wide_model(*args, blocks=max(1, supers - 1))
+    assert (got - want).abs().max() <= WALK_TOL[dtype] * max(
         1.0, want.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_sa_wide_stage_copies_lie_as_the_kernel_reads_them(dtype):
+    """wide_stage_weights: B stage (j, p, b) of the copy, at (2 j PPC + p
+    nb + b) stages (nb the chunk's 64-row blocks, 1 at the end of a width
+    64 past a multiple of 128), holds output rows 64 (2 j + b) .. and input
+    columns p PK .. of w (in, out), K natural, bf16 rounded or TF32 hi +
+    lo exactly, hi with TF32's low 13 mantissa bits clear; made once per
+    weight tensor. The gather's 16-byte units and put_pair's values land
+    where the products read them."""
+    bf16 = dtype == BF16
+    C = 320                                # chunks of 128, 128, 64
+    pk = 64 if bf16 else 32
+    g = torch.Generator().manual_seed(3)
+    w2, w3 = (torch.randn(C, C, generator=g) for _ in range(2))
+    copies = sa.wide_stage_weights(w2, w3, bf16)
+    assert copies[0] is sa.wide_stage_weights(w2, w3, bf16)[0]
+    for w, flat in zip((w2, w3), copies):
+        assert flat.dtype == (BF16 if bf16 else torch.float32)
+        st = flat.reshape(-1, 4096)
+        assert st.shape[0] == (C // 64) * (C // pk)
+        for j in range(3):
+            nb = min(2, C // 64 - 2 * j)
+            for p in range(0, C // pk, 2):
+                for b in range(nb):
+                    got = read_stage(st[2 * j * (C // pk) + p * nb + b], bf16,
+                                     natural=True)
+                    want = w[p * pk:(p + 1) * pk,
+                             64 * (2 * j + b):64 * (2 * j + b + 1)].t()
+                    want = want.to(BF16) if bf16 else want
+                    assert torch.equal(got, want.double()), (j, p, b)
+        if not bf16:
+            assert not (st[:, :2048].contiguous().view(torch.int32)
+                        & 0x1FFF).any()
+    rows = torch.randn(64, C, generator=g).to(dtype).float()
+    units = [torch.zeros(4096 if bf16 else 2048) for _ in range(C // pk)]
+    pairs = [torch.zeros(4096 if bf16 else 2048) for _ in range(C // pk)]
+    _write_a_units(units, rows, bf16)
+    for c0 in range(0, C, 128):
+        _write_a_pairs(pairs, rows, c0, bf16)
+    for p in range(C // pk):
+        assert torch.equal(units[p], pairs[p])
+        assert torch.equal(_read_a(units[p], bf16),
+                           rows[:, p * pk:(p + 1) * pk].double())
+
+
 def test_sa_plans_past_1024_channels():
-    """The float32 kernel: two buffers of M rows to 1,792 channels (M = 16
-    from 1,056), the h1-from-gather layout past them, within a block's
-    shared memory at every multiple of 32; the bf16 kernel: its mma_sync
-    tier past 1024 (the wgmma tier's h2 would not fit), M = 16 at 2048 in
-    131,584 bytes. Past 2048 both raise naming ROADMAP.md's K7."""
+    """The float32 kernel: two buffers of M rows below 928 channels, the
+    wide layout from there (where the buffers hold one 16-row m-tile) to
+    2048; the bf16 kernel: the wgmma tier at 1024, the wide layout past it.
+    The wide layout: 12 warps, 128 rows a weight stage, a ring of 14 16 KB
+    slots in 230,632 shared bytes at every width, a scratch a block of two
+    warpgroups' h1 and h2 stages and running maxima at the next multiple
+    of 64. Past 2048 both raise naming ROADMAP.md's K7."""
     for W in range(32, 2049, 32):
         how = sa.plan_f32(W, 48)
         assert how.smem <= sa.MAX_SMEM
-        assert how.layout == (sa.GATHER_H1 if W > 1792 else sa.TWO_BUFFERS)
+        assert how.layout == (sa.WIDE if W >= 928 else sa.TWO_BUFFERS)
+        if W == 896:
+            assert how.tile_rows == 32
         if W > 1024:
-            assert (how.warps, how.nt, how.tile_rows) == (16, 4, 16)
-            assert sa.plan_bf16(W, 48).tier == sa.MMA_SYNC
-    assert sa.plan_f32(1792, 48).smem == 2 * 16 * 1796 * 4
-    assert sa.plan_bf16(2048, 48) == sa.SaPlan(sa.MMA_SYNC, 16, 0, 1, 0,
-                                               131584, False)
+            assert sa.plan_bf16(W, 48).tier == sa.WIDE
+    for W, f32_scratch, bf16_scratch in ((1024, 1081344, 557056),
+                                         (1056, 1148928, 591872),
+                                         (1536, 1622016, 835584),
+                                         (2048, 2162688, 1114112)):
+        for bf16, scratch in ((False, f32_scratch), (True, bf16_scratch)):
+            Wd = -(-W // 64) * 64
+            pk = 64 if bf16 else 32
+            assert scratch == 2 * (2 * Wd // pk * 8192 + 16 * Wd)
+            assert sa.wide_scratch_bytes(W, bf16) == scratch
+        assert sa.plan_f32(W, 48) == sa.SaF32Plan(
+            sa.WIDE, 12, 16, 128, 230632, True, 14, f32_scratch)
+        if W > 1024:
+            assert sa.plan_bf16(W, 48) == sa.SaPlan(
+                sa.WIDE, 128, 2, 1, 14, 230632, True, bf16_scratch)
+    assert sa.plan_bf16(1024, 48).tier == sa.WGMMA
+    assert sa.plan_f32(896, 48).layout == sa.TWO_BUFFERS
+    assert sa.WIDE_SMEM == 1024 + 14 * 16384 + 8 * 29 <= sa.MAX_SMEM
     assert [sa.kernel_width(C) for C in (1, 16, 33, 1025, 2047, 2048)] == [
         32, 32, 64, 1056, 2048, 2048]
+    assert [sa.wide_width(W) for W in (928, 1024, 1056, 2016)] == [
+        960, 1024, 1088, 2048]
+    # the width the wrapper pads to once: the wide layout's at 64
+    assert [sa.run_width(C, False) for C in (896, 900, 928, 1040, 2000)] == [
+        896, 928 + 32, 960, 1088, 2048]
+    assert [sa.run_width(C, True) for C in (928, 992, 1024, 1025, 1040)] == [
+        928, 992, 1024, 1088, 1088]
     for C in (2049, 4096):
         with pytest.raises(ValueError, match="K7"):
             sa.kernel_width(C)
