@@ -459,6 +459,19 @@ WIDE_MATCH = (("point", 256, 2, 128, 128, 128),
               ("point", 128, 16, 128, 128, 128),
               ("image", 256, 2, 197, 128, 64))
 WIDE_MODELS = ("conv_out256", "heads16", "mul16", "mul6", "image256")
+# phase 18, past the wide layouts' first bounds (ROADMAP.md K7): the SA
+# kernels at (C, B, N, S, K) past 2048 channels (2,080 runs at 2,112), the
+# match chain at (head, C, heads, N, nt, nd) past 256 channels and 16 heads
+# (384 in three heads of 128, 512, 1024, 256 in 32 heads of 8, DeiT's 768
+# in two heads of 384), the configs/widths.py models served, and a sharded
+# launch of the conv_out512 model over a mesh of K7_SHARDS entries
+K7_SA = ((2080, 128, 64, 32, 48), (3072, 128, 64, 32, 48),
+         (4096, 128, 64, 32, 48), (8192, 8, 64, 32, 48))
+K7_MATCH = (("point", 384, 3, 128, 16, 16), ("point", 512, 2, 128, 16, 16),
+            ("point", 1024, 8, 128, 16, 16), ("point", 256, 32, 128, 16, 16),
+            ("image", 768, 2, 197, 16, 16))
+K7_MODELS = ("mul24", "conv_out512", "heads32", "image768")
+K7_SHARDS = 2
 
 
 def nbytes(*tensors) -> int:
@@ -972,14 +985,15 @@ def all_counters() -> dict:
                    for t in ("cluster", "rows") for b in ("", "_bf16")},
                 **{"fps/channels": TierCount(kf.fps, ("channels",),
                                              "shape_launches")},
-                # phase 17: the rows tier's wide kernel and its launches
-                # past 8 heads, the float32 SA kernel's wide layout
+                # phases 17-18: the rows tier's wide kernel, on it past 256
+                # channels, its launches past 8 and past 16 heads, the
+                # float32 SA kernel's wide layout
                 **{f"{fn.__name__}/{k}{b}": TierCount(
                     fn, (f"{k}{b}",), "shape_launches")
                    for fn in (mg.fused_match_grid, mg.fused_match_pairs,
                               mg.fused_image_match_grid,
                               mg.fused_image_match_pairs)
-                   for k in ("wide", "many_heads") for b in ("", "_bf16")},
+                   for k in mg.SHAPE_KEYS for b in ("", "_bf16")},
                 **{f"fused_sa_convmax/{lay}": TierCount(
                     sa.fused_sa_convmax, (lay,), "f32_layouts")
                    for lay in sa.F32_LAYOUTS})
@@ -2412,13 +2426,15 @@ def rows_kernel_usage(C: int, nhead: int, bf16: bool, pad: bool = False
     for width C in nhead heads (csrc/match_rows_wg.cuh rows_wg_kernel<policy,
     C, KVN, PAD, HD>; `pad`: the padded layout's, KVN = C; HD the
     normalisers' heads, 16 padded or past 8 heads, else 8; past 128 channels
-    rows_wide_kernel<policy, C>), from the kernels' build log."""
+    rows_wide_kernel<policy, CC>: CC = 256 at 256, else 0, the width at run
+    time), from the kernels' build log."""
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     kvn = mg.rows_layout(C, 1 if pad else nhead).kvn
     hd = mg.ROWS_MAX_HEADS if pad or nhead > 8 else 8
     policy = "Bf16" if bf16 else "Tf32"
-    want = (f"rows_wide_kernelINS_4{policy}ELi{C}E" if C > 128 else
+    want = (f"rows_wide_kernelINS_4{policy}ELi{C if C == 256 else 0}EE"
+            if C > 128 else
             f"rows_wg_kernelINS_4{policy}ELi{C}ELi{kvn}ELb{int(pad)}ELi{hd}E")
     found = [v for k, v in _lib.ptxas_usage(_lib.LIBRARY.build_log).items()
              if want in k]
@@ -5033,6 +5049,220 @@ def phase_wide(card: str):
                                 cli_seconds=runs)
 
 
+# ---- phase 18: past the wide layouts' first bounds (ROADMAP.md K7) -----------------
+
+def k7_sa_cases() -> dict:
+    """The SA kernels at K7_SA, both dtypes (wide_sa_case: the plain
+    version, ms, plain ms, the bound and its ratio, the layout), with the
+    wide layout's scratch bytes a block and in all. Returns the cases by
+    dtype ("float32", "bf16")."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        cases = []
+        for C, B, N, S, K in K7_SA:
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + C)
+
+            def r(*shape):
+                return torch.randn(shape, generator=gen, device=DEVICE)
+            idx = torch.randint(0, N, (B, S, K), generator=gen,
+                                device=DEVICE, dtype=torch.int32)
+            args = (r(B, N, C).to(dtype), r(B, S, C).to(dtype), idx,
+                    r(C, C) / C ** 0.5, r(C, C) / C ** 0.5) + tuple(
+                        r(C) for _ in range(6))
+            case = wide_sa_case(args, dtype, f"K7 random C={C}")
+            del args
+            torch.cuda.empty_cache()
+            if case["tier"] != sa.WIDE:
+                raise RuntimeError(f"fused_sa_convmax at C={C}: "
+                                   f"{case['tier']}, not the wide layout")
+            stride = sa.wide_scratch_bytes(case["W"], bf16)
+            blocks = sa.wide_blocks(B * S, DEVICE)
+            case.update(scratch_bytes_per_block=stride,
+                        scratch_bytes=stride * blocks, blocks=blocks)
+            print(f"[k7:sa] C={C} {'bf16' if bf16 else 'float32'}: scratch "
+                  f"{stride} bytes a block x {blocks} blocks = "
+                  f"{stride * blocks} bytes", flush=True)
+            cases.append(case)
+        out["bf16" if bf16 else "float32"] = cases
+    return out
+
+
+def k7_match_rows() -> list:
+    """The match kernels at K7_MATCH, both dtypes (width_case: grid and
+    pairs against the plain version, pairs equal to their grid cells bit
+    for bit, ms, plain ms, the bound and the tier, ptxas's account of the
+    wide kernel), with the scratch of the launch (bytes a block, blocks
+    under kernels/match_grid.ROWS_SCRATCH_BUDGET, bytes in all); the
+    kernels-line rows of the wide kernel past 256 channels (point and
+    image, grid and pairs, `.../past_256`) and past 16 heads (point,
+    `.../past_16_heads`), each row's numbers its widest shape's."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    rows, largest = [], (0, None)
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        by_row = {}
+        for head, C, H, N, nt, nd in K7_MATCH:
+            case = width_case(head, C, H, N, dtype, nt, nd, WIDTH_PAIRS, gen)
+            torch.cuda.empty_cache()
+            W = case["grid"]["W"]
+            stride = mg.rows_scratch_bytes(N, W, 1, dtype)
+            for kind, P in (("grid", nt * nd), ("pairs", WIDTH_PAIRS)):
+                blocks = mg.rows_blocks(P, case[kind]["smem_bytes"], DEVICE,
+                                        stride)
+                case[kind].update(scratch_bytes_per_block=stride,
+                                  blocks=blocks,
+                                  scratch_bytes=stride * blocks)
+                print(f"[k7:match] {head} C={C} nhead={H} {kind} {dtype}: "
+                      f"scratch {stride} bytes a block x {blocks} blocks = "
+                      f"{stride * blocks} bytes", flush=True)
+                if stride * blocks > largest[0]:
+                    largest = (stride * blocks, f"{head} C={C} nhead={H} "
+                               f"N={N} {kind} {dtype}")
+            kind_name = "past_16_heads" if H > 16 else "past_256"
+            prefix = "fused_match" if head == "point" else "fused_image_match"
+            for kind, line in (("grid", "250" if head == "point" else "686"),
+                               ("pairs", "355" if head == "point"
+                                else "514")):
+                by_row.setdefault((prefix, kind, kind_name, line), []).append(
+                    case[kind])
+        for (prefix, kind, kind_name, line), shapes in by_row.items():
+            head = max(shapes, key=lambda m: m["C"])
+            rows.append(dict(
+                name=f"{prefix}_{kind}/{kind_name}{sfx}", route="cuda",
+                source=f"point_cloud_reid_tpu_torch/csrc/match_rows_pad{sfx}"
+                       ".cu",
+                replaces="point_cloud_reid_tpu/ops/pallas/match_grid.py:"
+                         + line,
+                **{k: head[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_padded_ms", "library_ms")},
+                shapes=shapes))
+    print(f"[k7:match] the largest launch's scratch: {largest[0]} bytes "
+          f"({largest[1]}; budget {mg.ROWS_SCRATCH_BUDGET})", flush=True)
+    return rows, largest[0]
+
+
+def k7_want(name: str, bf16: bool, sparse: str) -> list:
+    """The counters a configs/widths.py model of phase 18 must launch
+    through tools/track.py: the SA kernel's wide layout at mul24 (SA3 at
+    3,072 channels), the wide match kernel past 256 channels, or past 16
+    heads at heads32."""
+    sfx = "_bf16" if bf16 else ""
+    if name == "mul24":
+        return ["fused_sa_convmax/wide" + sfx]
+    fn = (("fused_image_match" if name.startswith("image")
+           else "fused_match") + ("_grid" if sparse == "never" else "_pairs"))
+    return [f"{fn}/{'past_16_heads' if name == 'heads32' else 'past_256'}"
+            f"{sfx}"]
+
+
+def k7_sharded(card: str) -> dict:
+    """The conv_out512 model's grid and pair scoring through the sharded
+    wrappers (kernels/match_grid.sharded_grid_logits / sharded_pair_logits)
+    on a mesh of K7_SHARDS entries of cuda:0, against the unsharded
+    scoring (MATCH_TOL), each entry past 256 channels at least once."""
+    import torch
+    from point_cloud_reid_tpu_torch import configs as tcfg
+    from point_cloud_reid_tpu_torch.configs.widths import WIDTHS
+    from point_cloud_reid_tpu_torch.kernels import match_grid as mg
+    from point_cloud_reid_tpu_torch.models import build_model
+    from point_cloud_reid_tpu_torch.parallel import make_mesh
+    leaf, sets = WIDTHS["conv_out512"]
+    model = build_model(tcfg.get_experiment(leaf, sets)["model"],
+                        device=DEVICE,
+                        generator=torch.Generator().manual_seed(SEED))
+    model.eval()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    mesh = make_mesh(data=K7_SHARDS,
+                     devices=[torch.device("cuda", 0)] * K7_SHARDS)
+    before = mg.fused_match_grid.shape_launches["past_256"]
+    with torch.no_grad():
+        xt, ht = model.embed(torch.randn((12, 128, 3), generator=gen,
+                                         device=DEVICE))
+        xd, hd = model.embed(torch.randn((10, 128, 3), generator=gen,
+                                         device=DEVICE))
+        ti = torch.randint(0, 12, (64,), generator=gen, device=DEVICE)
+        di = torch.randint(0, 10, (64,), generator=gen, device=DEVICE)
+        grid = mg.sharded_grid_logits(model, ht, xt, hd, xd, mesh)
+        pairs = mg.sharded_pair_logits(model, ht, xt, hd, xd, ti, di, mesh)
+        want = mg.grid_logits(model, ht, xt, hd, xd)
+    g_gap = rel_err(grid, want)[1]
+    p_gap = rel_err(pairs, want[ti, di])[1]
+    wide = mg.fused_match_grid.shape_launches["past_256"] - before
+    print(f"[k7:sharded] conv_out512 on a {K7_SHARDS}-entry mesh of cuda:0: "
+          f"grid 12x10 against unsharded {g_gap:.3e}, 64 pairs {p_gap:.3e} "
+          f"(tol {MATCH_TOL:g}); launches per entry {mesh.launches}; grid "
+          f"launches past 256 channels {wide} on {card}", flush=True)
+    if not (g_gap <= MATCH_TOL and p_gap <= MATCH_TOL and wide >= K7_SHARDS
+            and all(e["match"] > 0 for e in mesh.launches)):
+        raise RuntimeError("the sharded wrappers at 512 channels disagree "
+                           "with unsharded scoring, or an entry ran no "
+                           "kernel")
+    del model
+    torch.cuda.empty_cache()
+    return dict(grid_rel_gap=g_gap, pairs_rel_gap=p_gap,
+                launches_per_entry=mesh.launches)
+
+
+def phase_k7(card: str):
+    """Phase 18: the SA kernels past 2048 channels, the match chain past
+    256 channels and 16 heads (ROADMAP.md K7); the kernels against their
+    plain versions and a sharded launch at 512 channels, then, with every
+    count at 0, the four --set models mul24, conv_out512, heads32 and
+    image768 of configs/widths.py through tools/track.py at float32 and
+    --bf16, dense ('never') and sparse ('always'), each frame against the
+    chain's plain version. Returns (the SA cases by dtype, the kernels-line
+    rows of the match kernels, the path's launches, a summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    sa_cases = k7_sa_cases()
+    rows, scratch = k7_match_rows()
+    sharded = k7_sharded(card)
+    t_kernels = time.perf_counter() - t_phase
+    every = zero_counters()
+    launches = {k: 0 for k in every}
+    runs = {}
+    for name in K7_MODELS:
+        for bf16 in (False, True):
+            for sparse in ("never", "always"):
+                t0 = time.perf_counter()
+                used = width_cli(card, name, bf16, sparse, every,
+                                 want=k7_want(name, bf16, sparse))
+                runs[f"{name}{' --bf16' if bf16 else ''} {sparse}"] = (
+                    time.perf_counter() - t0)
+                for k, v in used.items():
+                    launches[k] += v
+                torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[k7] path launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"[k7] phase 18 took {seconds:.1f} s (kernels {t_kernels:.1f} s, "
+          f"tools/track.py runs {seconds - t_kernels:.1f} s)", flush=True)
+    return sa_cases, rows, launches, dict(
+        seconds=seconds, kernels_seconds=t_kernels, cli_seconds=runs,
+        largest_match_scratch_bytes=scratch, sharded=sharded)
+
+
+def widest_sa(rows: list, sa_cases: dict) -> None:
+    """The kernels line's SA wide-layout rows (phase 17) report their
+    widest stage: phase 18's cases join their shapes and the widest case's
+    numbers become the row's."""
+    for key, cases in sa_cases.items():
+        sfx = "_bf16" if key == "bf16" else ""
+        row = next(r for r in rows if r["name"] == "fused_sa_convmax/wide"
+                   + sfx)
+        row["shapes"] = row["shapes"] + cases
+        widest = max(row["shapes"], key=lambda c: c["C"])
+        row.update({k: widest[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_padded_ms", "bound_ratio", "library_ms")})
+
+
 def main():
     import torch
     card = phase_device()
@@ -5081,13 +5311,17 @@ def main():
     torch.cuda.empty_cache()
     wide_kernel_rows, wide, wide_summary = phase_wide(card)
     rows += wide_kernel_rows
+    torch.cuda.empty_cache()
+    k7_sa, k7_rows, k7, k7_summary = phase_k7(card)
+    widest_sa(rows, k7_sa)
+    rows += k7_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         counter = row.pop("counter", row["name"])
         row["launches"] = sum(path.get(counter, 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
-            reference, multi_gpu, widths, wide))
+            reference, multi_gpu, widths, wide, k7))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -5098,7 +5332,8 @@ def main():
                       "tracker_zoo": tracker_zoo_summary,
                       "reference": reference_summary,
                       "multi_gpu": multi_gpu_summary,
-                      "widths": widths_summary, "wide": wide_summary}))
+                      "widths": widths_summary, "wide": wide_summary,
+                      "k7": k7_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,10 +11,10 @@ cross stages' d_model, the match head (LinearRes over the 2C pooled
 features), output_sequence_size and hidden_size. An image leaf at
 downsample_dim D sets downsample_dim, the last downsample layer, the cross
 stage's d_model and the match head. The match kernels serve any such width
-up to 256 channels in up to 16 heads (kernels/match_grid.plan: the padded
-layout where the tiles have no instantiation, the wide kernel past 128
-channels), and the SA kernels any stage width up to 2048
-(kernels/sa_stage.kernel_width).
+up to 1024 channels, in up to 16 heads up to 128 channels and up to 32
+past them (kernels/match_grid.plan: the padded layout where the tiles have
+no instantiation, the wide kernel past 128 channels), and the SA kernels
+any stage width up to 8192 (kernels/sa_stage.kernel_width).
 
   conv_out96   the flagship at conv_out 96: two 48-channel heads;
   conv_out32   the flagship at conv_out 32: two 16-channel heads;
@@ -28,7 +28,14 @@ channels), and the SA kernels any stage width up to 2048
   mul6         the 7M leaf at backbone mul 6: SA widths 192 / 384 / 768
                (the float32 SA kernel's row tiles, the bf16 one's mma_sync
                tier);
-  image256     DeiT-tiny at downsample_dim 256: two 128-channel heads.
+  image256     DeiT-tiny at downsample_dim 256: two 128-channel heads;
+  mul24        the 7M leaf at backbone mul 24: SA widths 768 / 1,536 /
+               3,072 (the SA kernels past 2048 channels);
+  conv_out512  the flagship at conv_out 512: two 256-channel heads (the
+               wide kernel past 256 channels);
+  heads32      the flagship at conv_out 256 with 32 heads of 8 channels in
+               both cross stages (the wide kernel past 16 heads);
+  image768     DeiT-tiny at downsample_dim 768: two 384-channel heads.
 """
 from __future__ import annotations
 
@@ -75,4 +82,10 @@ WIDTHS = {
     "mul16": (SEVEN_M, ["model.backbone.mul=16"]),
     "mul6": (SEVEN_M, ["model.backbone.mul=6"]),
     "image256": (IMAGE, image_width_set(256)),
+    "mul24": (SEVEN_M, ["model.backbone.mul=24"]),
+    "conv_out512": (FLAGSHIP, point_width_set(512)),
+    "heads32": (FLAGSHIP, point_width_set(256)
+                + ["model.cross_stage1.nhead=32",
+                   "model.cross_stage2.nhead=32"]),
+    "image768": (IMAGE, image_width_set(768)),
 }

@@ -19,15 +19,16 @@
 // layout of kernels/match_grid.pad_side at C = 64 or 128: the true a.ct
 // channels first in a.H heads of a.D, zeros past them; one KV band of all C
 // columns (KVN = C: a head may cross a 64-column band); the head of a
-// column read as (c hm) >> 16 (head_of), the normaliser a head at a time;
+// column read as (c hm) >> 21 (head_of), the normaliser a head at a time;
 // elu+1 of a padded stage-2 q or k lane masked to 0, the LayerNorm
 // statistics over a.ct. The exact widths' instantiations are unchanged.
-// Widths from 129 to 256 (point and image head, exact or padded) run
-// through the same PAD entry points on the wide kernel (rows_wide_kernel,
-// C = 256, below): the chain's C-wide rows in the device scratch in the
-// operand stage layout, streamed through the ring as A stages of products
-// that read both operands from shared memory, its outputs in 128-column
-// halves, the summary's k and v once a tile and KV over the heads' diagonal
+// Widths from 129 to 1024 (point and image head, exact or padded, up to
+// WIDE_HMAX = 32 heads) run through the same PAD entry points on the wide
+// kernel (rows_wide_kernel, below, at the next multiple of 128): the
+// chain's C-wide rows in the device scratch in the operand stage layout,
+// streamed through the ring as A stages of products that read both
+// operands from shared memory, its outputs in 128-column groups, the
+// summary's k and v once a tile and KV over the heads' diagonal
 // units only.
 //
 // What bounds it on the H100: 80 N C^2 operations a pair; three TF32
@@ -486,8 +487,10 @@ struct Args {
   long long scratch_stride;
   int nt, nd, P, N, H;
   // the padded layout (PAD): ct true channels of C in H heads of D, and
-  // hm = ceil(2^16 / D), so that c / D = (c hm) >> 16 for every column
+  // hm = ceil(2^21 / D), so that c / D = (c hm) >> 21 for every column c
+  // below 1024 (exact while C D < 2^21)
   int ct, D, hm;
+  int C;                      // the layout's width (the wide kernel's, at run time)
 };
 
 // ---- helpers on the accumulators -------------------------------------------------
@@ -497,7 +500,9 @@ __device__ __forceinline__ float elu1(float x) { return x > 0.f ? x + 1.f : expf
 // The head of column c in the padded layout (H heads of D channels from
 // column 0; a padded column's is taken as the last head's: every factor of
 // a padded column is 0, so its head changes nothing).
-__device__ __forceinline__ int head_of(int c, int hm, int H) { return min((c * hm) >> 16, H - 1); }
+__device__ __forceinline__ int head_of(int c, int hm, int H) {
+  return min((int)(((unsigned)c * (unsigned)hm) >> 21), H - 1);
+}
 
 // LayerNorm of the rows of a C-wide accumulator (rows g and g + 8 of the
 // warp), in registers: a row's columns lie in one quad. PAD: the statistics
@@ -1129,7 +1134,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
   }
 }
 
-// ---- the wide kernel: C = 256 (any multiple of 128) in column halves ----------------
+// ---- the wide kernel: C a multiple of 128 from 256 to 1024, in column groups --------
 //
 // A 64-row m-tile of a C-wide accumulator takes C / 2 registers a thread:
 // 128 at C = 256, where the chain above holds two of them at once against
@@ -1150,96 +1155,111 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wg_kernel(const Args<M> a) {
 // each event, in the consumers' order, right before the first stage that
 // needs it:
 //   stage 1, a tile at a time:  q (the factor) into QS, and the normaliser
-//       from it in registers [event]; the message, a 128-column half at a
+//       from it in registers [event]; the message, a 128-column group at a
 //       time over its heads' band of K only, x 1 / den, into MSG [event];
-//       merge in halves, LN1 into MID [event]; the FFN's hidden groups
-//       relu(a1 + MID fc1[C:]) into HID [event]; fc2 in halves, LN2, + h
+//       merge in groups, LN1 into MID [event]; the FFN's hidden groups
+//       relu(a1 + MID fc1[C:]) into HID [event]; fc2 in groups, LN2, + h
 //       into O (float32, for the pooling) and OS (its stages);
 //   [event: O] the summary: [k | v] = OS [Wk | Wv] once a tile, 2C columns
 //       in groups (elu+1, + pv), written transposed (channels x rows) into
 //       KT, VT [event]; KV = k^T v over units of a 64-channel k block x a
-//       128-channel v half, only the units that meet a head's diagonal
+//       128-channel v group, only the units that meet a head's diagonal
 //       band, both operands streamed (KT, VT) over the rows' k-panels, put
 //       as the other side's message stages [event: KV]; sum k;
-//   stage 2, a tile at a time:  q = elu1(OS Wq) in halves into QS (the
+//   stage 2, a tile at a time:  q = elu1(OS Wq) in groups into QS (the
 //       normaliser from it in registers) [event]; the tail as in stage 1,
 //       a hidden group's a = OS fc1[:C] accumulated with MID fc1[C:] (no
 //       buffer for a), and the pooling of O + y.
-// LayerNorm: each half's count, mean and sum of squared deviations in
-// registers as the half is made, merged by Chan's formula over the true ct
-// columns; the raw halves but the last parked (float32) and read once to
-// normalise. The heads are always read as head_of (any H <= HMAX of any
-// width) and the statistics over a.ct (C at the exact width): the padded
-// layout's code serves the exact widths too, at ct = C. The weight stages
-// come in the order of kernels/match_grid.weight_blocks at C > 128.
-// Shared memory at C = 256: the ring (12 TF32 / 24 bf16 stages), sum k,
-// the pooling partials (the sum k partials in their bytes until stage 2),
-// the normalisers: 224,456 bytes TF32, 224,648 bf16 (WideCfg). What bounds it: the same 80 N C^2 operations a
-// pair; each ss product reads A and B from shared memory (4 KB a k-step of
-// m64n64, the tensor core's 32 cycles at 128 bytes a cycle).
+// LayerNorm: each group's count, mean and sum of squared deviations in
+// registers as the group is made, merged by Chan's formula over the true ct
+// columns; the raw groups but the last parked (float32) and read once to
+// normalise. The heads are always read as head_of (any H <= WIDE_HMAX of
+// any width) and the statistics over a.ct (C at the exact width): the
+// padded layout's code serves the exact widths too, at ct = C. The weight
+// stages come in the order of kernels/match_grid.weight_blocks at C > 128.
+// The width C is the launch's (a.C): one instantiation a dtype serves every
+// multiple of 128 from 384 to WIDE_MAX_C, and one C = 256 (rows_wide_kernel's
+// CC); the shared memory is sized for WIDE_MAX_C and WIDE_HMAX heads, so it
+// is the same at every width.
+// Sum k and the pooling (max and sum over a side's rows) go through a
+// warpgroup's staging of one 128-column group (4 warps x 128 columns x
+// [max, sum]): each warp's lanes put the warp's 16 rows' reduction there,
+// then thread i of the warpgroup adds the 4 warps' in warp order into
+// column i of the group (sum k into shared memory, the pooling into the
+// warpgroup's row of the device scratch, 2C floats), so the order of every
+// sum is fixed and a pair equals its grid cell bit for bit. (The first
+// layout kept a row a warp, 8 x 2C floats, 64 KB at C = 1024: four ring
+// stages at TF32.)
+// Shared memory at every width: the ring (12 TF32 / 24 bf16 stages), the
+// staging of the two warpgroups, sum k of each side, the normalisers of 64
+// rows x 32 heads a side: 230,600 bytes TF32, 230,792 bf16 (WideCfg). What
+// bounds it: the same 80 N C^2 operations a pair; each ss product reads A
+// and B from shared memory (4 KB a k-step of m64n64, the tensor core's 32
+// cycles at 128 bytes a cycle).
 
 constexpr int WIDE_RING_MAX = 32;           // most stages in the wide kernel's ring
+constexpr int WIDE_MAX_C = 1024;            // widest layout (kernels/match_grid.MAX_C)
+constexpr int WIDE_HMAX = 32;               // most heads on the wide kernel
 
-template <class M, int C>
+template <class M>
 struct WideCfg {
-  static_assert(C % 128 == 0, "halves of 128 columns");
   static constexpr int SB = M::SB, PK = M::PK;
-  static constexpr int NB = C / 64;             // 64-column blocks of a C-wide output
-  static constexpr int NH = C / 128;            // 128-column halves
-  static constexpr int PPC = C / PK;            // k-panels over C
-  static constexpr int KVST = NB * PPC;         // message stages of a side's KV (one band)
-  // weight stages of a stage-1 tile (merge, fc1[C:], fc2: two 64-column
-  // blocks a panel) and of a summary tile ([Wk | Wv])
-  static constexpr int S1W = 2 * PPC * (NH + 2 * NH + 2 * NH);
-  static constexpr int SSW = 2 * PPC * 2 * NH;
-  // sum k of each side, the pooling partials (the sum k partials [8 warps]
-  // [C] before them, in the same bytes), the normalisers
-  static constexpr int FIXED = 4 * (2 * C + CWARPS * 2 * C + WGS * TILE * HMAX);
+  static constexpr int STG = 4 * 128 * 2;       // a warpgroup's staging: [4 warps][128][max, sum]
+  // the staging of both warpgroups, sum k of each side, the normalisers
+  static constexpr int FIXED = 4 * (WGS * STG + 2 * WIDE_MAX_C + WGS * TILE * WIDE_HMAX);
   static constexpr int RING =
       cmin(WIDE_RING_MAX, (int)((SMEM_LIMIT - 1024 - FIXED - 8 * (2 * WIDE_RING_MAX + 1)) / SB));
-  static constexpr int KS_OFF = RING * SB;                  // sum k of each side [2][C]
-  static constexpr int PART_OFF = KS_OFF + 4 * 2 * C;       // pooling partials [8][2C]
-  static constexpr int DEN_OFF = PART_OFF + 4 * CWARPS * 2 * C;   // [2][64 rows][HMAX]
-  static constexpr int BAR_OFF = DEN_OFF + 4 * WGS * TILE * HMAX;
+  static constexpr int STG_OFF = RING * SB;                     // [2][STG] floats
+  static constexpr int KS_OFF = STG_OFF + 4 * WGS * STG;        // sum k of each side [2][C]
+  static constexpr int DEN_OFF = KS_OFF + 4 * 2 * WIDE_MAX_C;   // [2][64 rows][WIDE_HMAX]
+  static constexpr int BAR_OFF = DEN_OFF + 4 * WGS * TILE * WIDE_HMAX;
   static constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 * RING + 1);
   // a product holds a panel's stages (4 shared, 6 per side) while it
   // takes the next panel's: the ring must hold two panels
   static_assert(RING >= 12 && BYTES <= (int)SMEM_LIMIT, "shared memory");
+  // at width C: k-panels over C, message stages of a side's KV (one band
+  // of all C columns), weight stages of a stage-1 tile (merge, fc1[C:],
+  // fc2: two 64-column blocks a panel) and of a summary tile ([Wk | Wv])
+  static __host__ __device__ constexpr int ppc(int C) { return C / PK; }
+  static __host__ __device__ constexpr int kvst(int C) { return C / 64 * ppc(C); }
+  static __host__ __device__ constexpr int s1w(int C) { return 2 * ppc(C) * 5 * (C / 128); }
+  static __host__ __device__ constexpr int ssw(int C) { return 2 * ppc(C) * 2 * (C / 128); }
 };
 
 // The device scratch of a block: both sides' KV as message stages, then a
 // side's buffers for each side: OS (O's stages, ntiles x PPC), KT and VT
 // (k^T and v^T: NB channel blocks x Np / PK row panels each), QS, MSG (PPC
-// stages), HID (2 PPC), O (Np x C float32) and the parked halves (64 x (C
-// - 128) float32).
-template <class M, int C>
+// stages), HID (2 PPC), O (Np x C float32), the parked groups (64 x (C -
+// 128) float32) and the pooling row ([max | sum], 2C float32).
+template <class M>
 struct WideScratch {
-  using G = WideCfg<M, C>;
-  static __host__ __device__ constexpr long long side_bytes(int N) {
-    return (long long)G::SB * G::PPC * (3 * ((N + TILE - 1) / TILE) + 4) +
-           4LL * (((N + TILE - 1) / TILE) * TILE * C + TILE * (C - 128));
+  using G = WideCfg<M>;
+  static __host__ __device__ constexpr long long side_bytes(int N, int C) {
+    return (long long)G::SB * G::ppc(C) * (3 * ((N + TILE - 1) / TILE) + 4) +
+           4LL * (((N + TILE - 1) / TILE) * TILE * C + TILE * (C - 128) + 2 * C);
   }
-  static __host__ __device__ constexpr long long bytes(int N) {
-    return 2LL * G::KVST * G::SB + 2 * side_bytes(N);
+  static __host__ __device__ constexpr long long bytes(int N, int C) {
+    return 2LL * G::kvst(C) * G::SB + 2 * side_bytes(N, C);
   }
   unsigned char *kv[2], *os[2], *kt[2], *vt[2], *qs[2], *msg[2], *hid[2];
-  float *of[2], *park[2];
+  float *of[2], *park[2], *pool[2];
   int nrp;   // row panels of KT and VT (Np / PK)
-  __device__ WideScratch(unsigned char* base, int N) {
-    const int ntiles = (N + TILE - 1) / TILE, Np = ntiles * TILE;
+  __device__ WideScratch(unsigned char* base, int N, int C) {
+    const int ntiles = (N + TILE - 1) / TILE, Np = ntiles * TILE, PPC = G::ppc(C);
     nrp = Np / G::PK;
     unsigned char* p = base;
-    for (int s = 0; s < 2; ++s, p += (size_t)G::KVST * G::SB) kv[s] = p;
+    for (int s = 0; s < 2; ++s, p += (size_t)G::kvst(C) * G::SB) kv[s] = p;
     for (int s = 0; s < 2; ++s) {
       os[s] = p;
-      kt[s] = os[s] + (size_t)ntiles * G::PPC * G::SB;
-      vt[s] = kt[s] + (size_t)ntiles * G::PPC * G::SB;   // NB x nrp stages
-      qs[s] = vt[s] + (size_t)ntiles * G::PPC * G::SB;
-      msg[s] = qs[s] + (size_t)G::PPC * G::SB;
-      hid[s] = msg[s] + (size_t)G::PPC * G::SB;
-      of[s] = reinterpret_cast<float*>(hid[s] + (size_t)2 * G::PPC * G::SB);
+      kt[s] = os[s] + (size_t)ntiles * PPC * G::SB;
+      vt[s] = kt[s] + (size_t)ntiles * PPC * G::SB;   // NB x nrp stages
+      qs[s] = vt[s] + (size_t)ntiles * PPC * G::SB;
+      msg[s] = qs[s] + (size_t)PPC * G::SB;
+      hid[s] = msg[s] + (size_t)PPC * G::SB;
+      of[s] = reinterpret_cast<float*>(hid[s] + (size_t)2 * PPC * G::SB);
       park[s] = of[s] + (size_t)Np * C;
-      p = reinterpret_cast<unsigned char*>(park[s] + TILE * (C - 128));
+      pool[s] = park[s] + (size_t)TILE * (C - 128);
+      p = reinterpret_cast<unsigned char*>(pool[s] + 2 * C);
     }
   }
 };
@@ -1277,8 +1297,8 @@ struct WideRing : Ring<RING, SB> {
   }
 };
 
-// The k-panels [p0, p0 + np) of the heads' band of the 128-column half vh:
-// the channels of the heads that meet the half's true columns (none past
+// The k-panels [p0, p0 + np) of the heads' band of the 128-column group vh:
+// the channels of the heads that meet the group's true columns (none past
 // ct).
 template <int PK>
 __device__ __forceinline__ void band(int vh, int ct, int D, int hm, int H, int& p0, int& np) {
@@ -1293,8 +1313,8 @@ __device__ __forceinline__ void band(int vh, int ct, int D, int hm, int H, int& 
   np = (khi + PK - 1) / PK - p0;
 }
 
-// Whether the summary's unit (64-channel k block mi, 128-channel v half vh)
-// meets a head's diagonal band.
+// Whether the summary's unit (64-channel k block mi, 128-channel v group
+// vh) meets a head's diagonal band.
 __device__ __forceinline__ bool unit_on(int mi, int vh, int ct, int hm, int H) {
   if (64 * mi >= ct || 128 * vh >= ct) return false;
   const int ma = head_of(64 * mi, hm, H), mb = head_of(min(64 * mi + 63, ct - 1), hm, H);
@@ -1403,26 +1423,26 @@ __device__ __forceinline__ void den_add(float* den, const float (&x)[16][4], int
     p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
     p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
     if (t == 0) {
-      den[rl * HMAX + hh] += p0;
-      den[(rl + 8) * HMAX + hh] += p1;
+      den[rl * WIDE_HMAX + hh] += p0;
+      den[(rl + 8) * WIDE_HMAX + hh] += p1;
     }
   }
   __syncwarp();
 }
 
-__device__ __forceinline__ void den_zero(float* den, int rl) {
+__device__ __forceinline__ void den_zero(float* den, int rl, int H) {
   if ((threadIdx.x & 3) == 0)
-#pragma unroll
-    for (int hh = 0; hh < HMAX; ++hh) den[rl * HMAX + hh] = den[(rl + 8) * HMAX + hh] = 0.f;
+#pragma unroll 1
+    for (int hh = 0; hh < H; ++hh) den[rl * WIDE_HMAX + hh] = den[(rl + 8) * WIDE_HMAX + hh] = 0.f;
   __syncwarp();
 }
 
-__device__ __forceinline__ void den_invert(float* den, int rl) {
+__device__ __forceinline__ void den_invert(float* den, int rl, int H) {
   if ((threadIdx.x & 3) == 0)
-#pragma unroll
-    for (int hh = 0; hh < HMAX; ++hh) {
-      den[rl * HMAX + hh] = 1.f / (den[rl * HMAX + hh] + EPS);
-      den[(rl + 8) * HMAX + hh] = 1.f / (den[(rl + 8) * HMAX + hh] + EPS);
+#pragma unroll 1
+    for (int hh = 0; hh < H; ++hh) {
+      den[rl * WIDE_HMAX + hh] = 1.f / (den[rl * WIDE_HMAX + hh] + EPS);
+      den[(rl + 8) * WIDE_HMAX + hh] = 1.f / (den[(rl + 8) * WIDE_HMAX + hh] + EPS);
     }
   __syncwarp();
 }
@@ -1482,27 +1502,28 @@ struct LnStats {
   }
 };
 
-// dst = LN(A @ W) of a C-wide output in NH halves (each half's product over
-// np panels of the ring, shared B), fin(half, y) given each normalised half
-// (the last first); the halves but the last parked raw in `park` (64 x (C -
-// 128)), read once to normalise.
-template <class M, int NH, class R, class Fin>
-__device__ __forceinline__ void halves_ln(R& ring, int np, int wg, float* park, int rl,
+// dst = LN(A @ W) of a C-wide output in nh groups (each group's product
+// over np panels of the ring, shared B), fin(group, y) given each
+// normalised group (the last first); the groups but the last parked raw in
+// `park` (64 x (C - 128)), read once to normalise.
+template <class M, class R, class Fin>
+__device__ __forceinline__ void halves_ln(R& ring, int nh, int np, int wg, float* park, int rl,
                                           const float* s, const float* b, int ct, Fin fin) {
   float y[16][4];
   LnStats st;
+  const int ld = 128 * (nh - 1);
 #pragma unroll 1
-  for (int hf = 0; hf < NH; ++hf) {
+  for (int hf = 0; hf < nh; ++hf) {
     zero(y);
     product_ss<M, true>(ring, y, np, wg);
     st.add(y, 128 * hf, ct);
-    if (hf < NH - 1) store_scratch(park + 128 * hf, 128 * (NH - 1), rl, y);
+    if (hf < nh - 1) store_scratch(park + 128 * hf, ld, rl, y);
   }
-  st.apply(y, 128 * (NH - 1), s, b);
-  fin(NH - 1, y);
+  st.apply(y, 128 * (nh - 1), s, b);
+  fin(nh - 1, y);
 #pragma unroll 1
-  for (int hf = 0; hf < NH - 1; ++hf) {
-    load_scratch(y, park + 128 * hf, 128 * (NH - 1), rl, true);
+  for (int hf = 0; hf < nh - 1; ++hf) {
+    load_scratch(y, park + 128 * hf, ld, rl, true);
     st.apply(y, 128 * hf, s, b);
     fin(hf, y);
   }
@@ -1516,19 +1537,26 @@ __device__ __forceinline__ void written(uint32_t aready) {
   if ((threadIdx.x & 31) == 0) bf16mma::mbar_arrive(aready);
 }
 
-template <class M, int C>
+// CC: the width at compile time, or 0: the launch's (a.C). The kernel is
+// the same code either way; at run time ptxas keeps the values that follow
+// from C in registers and spills (TF32: 1,428 bytes stored, against none
+// at CC = 256), which costs the C = 256 grid ~5 % on the H100 (PERF.md
+// section 6), so C = 256 keeps an instantiation of its own and every other
+// width takes CC = 0.
+template <class M, int CC>
 __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) {
-  using G = WideCfg<M, C>;
+  using G = WideCfg<M>;
   using T = typename M::T;
-  constexpr int SB = M::SB, NB = G::NB, NH = G::NH, PPC = G::PPC, PK = M::PK;
+  constexpr int SB = M::SB, PK = M::PK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const uint32_t sb = smem_addr(smem);
   const uint32_t full = sb + G::BAR_OFF, empty = full + 8 * G::RING, aready = empty + 8 * G::RING;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int C = CC > 0 ? CC : a.C, NB = C / 64, NH = C / 128, PPC = G::ppc(C);
   const int N = a.N, ntiles = (N + TILE - 1) / TILE;
   const int H = a.H, D = a.D, hm = a.hm, ct = a.ct;
-  const WideScratch<M, C> S(a.scratch + (size_t)blockIdx.x * a.scratch_stride, N);
+  const WideScratch<M> S(a.scratch + (size_t)blockIdx.x * a.scratch_stride, N, C);
   const int nrows = (N + PK - 1) / PK;   // row panels the summary's units take
 
   if (threadIdx.x == 0) {
@@ -1568,7 +1596,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
         emit(w + SB);
       }
     };
-    // the message of each half over its band, B the KV message stages of
+    // the message of each group over its band, B the KV message stages of
     // chunks 2 vh, 2 vh + 1 each warpgroup reads
     auto message = [&](unsigned char* const (&A)[2], const unsigned char* const (&kv)[2]) {
       for (int vh = 0; vh < NH; ++vh) {
@@ -1598,12 +1626,13 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       event();                                          // HID
       for (int hf = 0; hf < NH; ++hf) prod_w(S.hid, 2 * PPC, w);
     };
+    const size_t kvst = (size_t)G::kvst(C) * SB;
     for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
       int ti, dj;
       pair_of(a, p, ti, dj);
       // warpgroup 0 (the track side) reads the det side's summary, 1 the track's
-      const unsigned char* const kin[2] = {a.side[1].kvs + (size_t)dj * G::KVST * SB,
-                                           a.side[0].kvs + (size_t)ti * G::KVST * SB};
+      const unsigned char* const kin[2] = {a.side[1].kvs + (size_t)dj * kvst,
+                                           a.side[0].kvs + (size_t)ti * kvst};
       const unsigned char* const kout[2] = {S.kv[1], S.kv[0]};
       for (int tile = 0; tile < ntiles; ++tile) {
         const unsigned char* w = a.w;
@@ -1613,7 +1642,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       }
       event();                                          // O
       for (int tile = 0; tile < ntiles; ++tile) {
-        const unsigned char* w = a.w + (size_t)G::S1W * SB;
+        const unsigned char* w = a.w + (size_t)G::s1w(C) * SB;
         unsigned char* const os[2] = {S.os[0] + (size_t)tile * PPC * SB,
                                       S.os[1] + (size_t)tile * PPC * SB};
         for (int g = 0; g < 2 * NH; ++g) prod_w(os, PPC, w);
@@ -1633,7 +1662,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
         }
       event();                                          // KV
       for (int tile = 0; tile < ntiles; ++tile) {
-        const unsigned char* w = a.w + (size_t)(G::S1W + G::SSW) * SB;
+        const unsigned char* w = a.w + (size_t)(G::s1w(C) + G::ssw(C)) * SB;
         unsigned char* const os[2] = {S.os[0] + (size_t)tile * PPC * SB,
                                       S.os[1] + (size_t)tile * PPC * SB};
         for (int g = 0; g < NH; ++g) prod_w(os, PPC, w);   // Wq
@@ -1650,25 +1679,26 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
   const int wq = __shfl_sync(0xffffffffu, warp & 3, 0);
   const int g = lane >> 2, t = lane & 3, rl = 16 * wq + g;   // the thread's rows in an m-tile
+  const int col = threadIdx.x & 127;     // the group's column this thread adds the warps' sums of
   WideRing<G::RING, SB> ring{{sb, full, empty, 0}};
   float* ks_sm = reinterpret_cast<float*>(smem + G::KS_OFF);
-  float* ksp = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * C;   // until stage 2
-  float* part = reinterpret_cast<float*>(smem + G::PART_OFF) + warp * 2 * C;
-  float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * HMAX;
+  float* stg = reinterpret_cast<float*>(smem + G::STG_OFF) + wg * G::STG;   // [4][128][2]
+  float* den = reinterpret_cast<float*>(smem + G::DEN_OFF) + wg * TILE * WIDE_HMAX;
   unsigned char* OS = S.os[wg];
   unsigned char* QS = S.qs[wg];
   unsigned char* MSG = S.msg[wg];
   unsigned char* HID = S.hid[wg];
   float* O = S.of[wg];
   float* PARK = S.park[wg];
+  float* POOL = S.pool[wg];
   const Side<M> X = wg ? a.side[1] : a.side[0];
   const Side<M> Y = wg ? a.side[0] : a.side[1];
   const size_t nc = (size_t)N * C;
   auto bar_wg = [&]() { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
   auto bar_both = [&]() { asm volatile("bar.sync 3, 256;\n" ::: "memory"); };
 
-  // the message of the rows (their normaliser in den) into MSG, a half at a
-  // time over its heads' band
+  // the message of the rows (their normaliser in den) into MSG, a group at
+  // a time over its heads' band
   auto message = [&]() {
 #pragma unroll 1
     for (int vh = 0; vh < NH; ++vh) {
@@ -1681,20 +1711,20 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       for (int j = 0; j < 16; ++j) {
         const int c = 128 * vh + 8 * j + 2 * t;
         const int h0 = head_of(c, hm, H), h1 = head_of(c + 1, hm, H);
-        mz[j][0] *= den[rl * HMAX + h0];
-        mz[j][1] *= den[rl * HMAX + h1];
-        mz[j][2] *= den[(rl + 8) * HMAX + h0];
-        mz[j][3] *= den[(rl + 8) * HMAX + h1];
+        mz[j][0] *= den[rl * WIDE_HMAX + h0];
+        mz[j][1] *= den[rl * WIDE_HMAX + h1];
+        mz[j][2] *= den[(rl + 8) * WIDE_HMAX + h0];
+        mz[j][3] *= den[(rl + 8) * WIDE_HMAX + h1];
       }
       M::put_group(MSG, rl, 128 * vh, mz);
     }
     written(aready);
   };
   // merge, LN1 into QS (as MID), the hidden groups relu(init + MID fc1[C:])
-  // into HID, fc2, LN2, handed to fin by half
+  // into HID, fc2, LN2, handed to fin by group
   auto tail = [&](const Ln& ln, auto init, auto fin) {
-    halves_ln<M, NH>(ring, PPC, wg, PARK, rl, ln.s1, ln.b1, ct,
-                     [&](int hf, float (&y)[16][4]) { M::put_group(QS, rl, 128 * hf, y); });
+    halves_ln<M>(ring, NH, PPC, wg, PARK, rl, ln.s1, ln.b1, ct,
+                 [&](int hf, float (&y)[16][4]) { M::put_group(QS, rl, 128 * hf, y); });
     written(aready);
 #pragma unroll 1
     for (int gh = 0; gh < 2 * NH; ++gh) {
@@ -1708,7 +1738,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       M::put_group(HID, rl, 128 * gh, hid);
     }
     written(aready);
-    halves_ln<M, NH>(ring, 2 * PPC, wg, PARK, rl, ln.s2, ln.b2, ct, fin);
+    halves_ln<M>(ring, NH, 2 * PPC, wg, PARK, rl, ln.s2, ln.b2, ct, fin);
   };
 
   for (int p = blockIdx.x; p < a.P; p += gridDim.x) {
@@ -1720,14 +1750,15 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
     const T* aX = X.a1 + own * 2 * nc;
     const T* pvX = X.pv == nullptr ? nullptr : X.pv + own * nc;
     const float* ksX = Y.ks + (size_t)oth * C;
-    for (int c = lane; c < C; c += 32) ksp[c] = 0.f;
-    __syncwarp();
+    // (the other side read this side's sum k of the last pair before its
+    // closing barrier)
+    for (int c = col; c < C; c += 128) ks_sm[wg * C + c] = 0.f;
 
     // ---- stage 1: O = h + LN2(relu(a1 + LN1(msg @ merge) @ fc1[C:]) @ fc2)
 #pragma unroll 1
     for (int tile = 0; tile < ntiles; ++tile) {
       const int r0 = tile * TILE + rl;
-      den_zero(den, rl);
+      den_zero(den, rl, H);
 #pragma unroll 1
       for (int hf = 0; hf < NH; ++hf) {
         float q[16][4];
@@ -1735,7 +1766,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
         den_add<M>(den, q, 128 * hf, ksX, false, rl, hm, H);
         M::put_group(QS, rl, 128 * hf, q);
       }
-      den_invert(den, rl);
+      den_invert(den, rl, H);
       written(aready);
       message();
       tail(a.ln[0],
@@ -1756,7 +1787,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
 
     // ---- the summary: [k | v] = O [Wk | Wv] once a tile, transposed into
     // KT, VT; KV over the units on the heads' diagonal, as the other side's
-    // message stages; sum k
+    // message stages; sum k, a tile's 4 warps added in warp order
 #pragma unroll 1
     for (int tile = 0; tile < ntiles; ++tile) {
       const int r0 = tile * TILE + rl;
@@ -1788,12 +1819,16 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
               s0 += __shfl_xor_sync(0xffffffffu, s0, off);
               s1 += __shfl_xor_sync(0xffffffffu, s1, off);
             }
-            if (g == 0) {
-              const int c = c0 + 8 * j + 2 * t;
-              ksp[c] += s0;
-              ksp[c + 1] += s1;
-            }
+            if (g == 0)
+              *reinterpret_cast<float4*>(stg + (wq * 128 + 8 * j + 2 * t) * 2) =
+                  make_float4(0.f, s0, 0.f, s1);
           }
+          bar_wg();                 // the 4 warps' sums of the group
+          {
+            const float2* s4 = reinterpret_cast<const float2*>(stg) + col;
+            ks_sm[wg * C + c0 + col] += ((s4[0].y + s4[128].y) + s4[256].y) + s4[384].y;
+          }
+          bar_wg();                 // the staging is free
         }
         put_cols<M>(is_k ? S.kt[wg] : S.vt[wg], S.nrp, r0, c0, e);
       }
@@ -1821,17 +1856,11 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
         }
     }
     written(aready);                // KV
-    bar_wg();                       // the warps' sum k partials are complete
-    for (int c = threadIdx.x & 127; c < C; c += 128) {
-      const float* k4 = reinterpret_cast<const float*>(smem + G::PART_OFF) + 4 * wg * C;
-      ks_sm[wg * C + c] = ((k4[c] + k4[C + c]) + k4[2 * C + c]) + k4[3 * C + c];
+    bar_both();                     // both sides' sum k
+    for (int c = col; c < C; c += 128) {
+      POOL[c] = -__int_as_float(0x7f800000);
+      POOL[C + c] = 0.f;
     }
-    bar_both();                     // both sides' sum k; the partials' bytes are free
-    for (int c = lane; c < C; c += 32) {
-      part[c] = -__int_as_float(0x7f800000);
-      part[C + c] = 0.f;
-    }
-    __syncwarp();
 
     // ---- stage 2: O searches the other side's summary, then the pooling
     const float* ksY = ks_sm + (1 - wg) * C;
@@ -1840,8 +1869,8 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
       const int r0 = tile * TILE + rl;
       const bool v0 = r0 < N, v1 = r0 + 8 < N;
       float* Ot = O + (size_t)tile * TILE * C;
-      // q = elu1(O Wq) in halves into QS, its normaliser in registers
-      den_zero(den, rl);
+      // q = elu1(O Wq) in groups into QS, its normaliser in registers
+      den_zero(den, rl, H);
 #pragma unroll 1
       for (int gq = 0; gq < NH; ++gq) {
         float e[16][4];
@@ -1855,7 +1884,7 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
         den_add<M>(den, e, 128 * gq, ksY, true, rl, hm, H);
         M::put_group(QS, rl, 128 * gq, e);
       }
-      den_invert(den, rl);
+      den_invert(den, rl, H);
       written(aready);
       message();
       tail(a.ln[1],
@@ -1883,35 +1912,37 @@ __global__ void __launch_bounds__(THREADS, 1) rows_wide_kernel(const Args<M> a) 
                  s0 += __shfl_xor_sync(0xffffffffu, s0, off);
                  s1 += __shfl_xor_sync(0xffffffffu, s1, off);
                }
-               if (g == 0) {
-                 part[c] = fmaxf(part[c], m0);
-                 part[c + 1] = fmaxf(part[c + 1], m1);
-                 part[C + c] += s0;
-                 part[C + c + 1] += s1;
-               }
+               if (g == 0)
+                 *reinterpret_cast<float4*>(stg + (wq * 128 + 8 * j + 2 * t) * 2) =
+                     make_float4(m0, s0, m1, s1);
              }
+             bar_wg();              // the 4 warps' maxima and sums of the group
+             {
+               const float2* s4 = reinterpret_cast<const float2*>(stg) + col;
+               const float2 w0 = s4[0], w1 = s4[128], w2 = s4[256], w3 = s4[384];
+               const int c = 128 * hf + col;
+               POOL[c] = fmaxf(POOL[c], fmaxf(fmaxf(w0.x, w1.x), fmaxf(w2.x, w3.x)));
+               POOL[C + c] += ((w0.y + w1.y) + w2.y) + w3.y;
+             }
+             bar_wg();              // the staging is free
            });
     }
-    bar_both();                     // every warp's pooling partials
+    bar_both();                     // both warpgroups' pooling rows
     for (int c = threadIdx.x; c < C; c += 128 * WGS) {
-      const float* pb = reinterpret_cast<const float*>(smem + G::PART_OFF);
-      float mx = pb[c], sm = pb[C + c];
-      for (int w = 1; w < CWARPS; ++w) {
-        mx = fmaxf(mx, pb[w * 2 * C + c]);
-        sm += pb[w * 2 * C + C + c];
-      }
+      const float* p0 = S.pool[0];
+      const float* p1 = S.pool[1];
       T* o = a.out + (size_t)p * 2 * C;
-      M::store(o + c, mx);
-      M::store(o + C + c, sm * (1.f / (2.f * N)));
+      M::store(o + c, fmaxf(__ldcg(p0 + c), __ldcg(p1 + c)));
+      M::store(o + C + c, (__ldcg(p0 + C + c) + __ldcg(p1 + C + c)) * (1.f / (2.f * N)));
     }
-    bar_both();                     // the partials and sum k are free
+    bar_both();                     // the pooling rows and sum k are free
   }
 }
 
-template <class M, int C>
+template <class M>
 int launch_wide(const Args<M>& a, int blocks, cudaStream_t stream) {
-  using G = WideCfg<M, C>;
-  auto kernel = rows_wide_kernel<M, C>;
+  using G = WideCfg<M>;
+  auto kernel = a.C == 256 ? rows_wide_kernel<M, 256> : rows_wide_kernel<M, 0>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -1921,29 +1952,31 @@ int launch_wide(const Args<M>& a, int blocks, cudaStream_t stream) {
 
 // ---- host side -------------------------------------------------------------------------
 
-// 0: the tier takes the shape; 1: C is not 64, 128 or 256, H does not
-// divide C or is above HMAX, or N < 1; 2: the layout exceeds a block's
-// shared memory. C = 256 is the wide kernel's (the padded entry point's
-// only).
+// 0: the tier takes the shape; 1: C is not 64, 128 or a multiple of 128
+// from 256 to WIDE_MAX_C, H does not divide C or is above HMAX (WIDE_HMAX
+// on the wide kernel), or N < 1; 2: the layout exceeds a block's shared
+// memory. C > 128 is the wide kernel's (the padded entry point's only).
 template <class M>
 size_t smem_bytes(int C, int H) {
+  if (C > 128) return C % 128 == 0 && C <= WIDE_MAX_C ? WideCfg<M>::BYTES : 0;
   switch (C) {
     case 64: return H <= 8 ? Cfg<M, 64, 64, 8>::BYTES : Cfg<M, 64, 64, HMAX>::BYTES;
     case 128: return H <= 8 ? Cfg<M, 128, 64, 8>::BYTES : Cfg<M, 128, 64, HMAX>::BYTES;
-    case 256: return WideCfg<M, 256>::BYTES;
     default: return 0;
   }
 }
 
 template <class M>
 int layout_status(int N, int C, int H) {
-  if (N < 1 || H < 1 || H > HMAX || C % H != 0 || smem_bytes<M>(C, H) == 0) return 1;
+  if (N < 1 || H < 1 || H > (C > 128 ? WIDE_HMAX : HMAX) || C % H != 0 ||
+      smem_bytes<M>(C, H) == 0)
+    return 1;
   return smem_bytes<M>(C, H) > SMEM_LIMIT ? 2 : 0;
 }
 
 template <class M>
 long long scratch_need(int N, int C, int H) {
-  if (C == 256) return WideScratch<M, 256>::bytes(N);
+  if (C > 128) return WideScratch<M>::bytes(N, C);
   if (C == 64) return scratch_bytes<M, 64, 64>(N);
   return C / H > 64 ? scratch_bytes<M, 128, 128>(N) : scratch_bytes<M, 128, 64>(N);
 }
@@ -1961,8 +1994,8 @@ int launch_c(const Args<M>& a, int blocks, cudaStream_t stream) {
 
 template <class M>
 int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
-  // heads of fewer than 8 channels, and C = 256, take the padded entry
-  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 || C == 256 ||
+  // heads of fewer than 8 channels, and the wide kernel, take the padded entry
+  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, a.H) != 0 || C > 128 ||
       C / a.H < 8 || a.scratch_stride < scratch_need<M>(a.N, C, a.H))
     return (int)cudaErrorInvalidValue;
   // (heads of 8 channels or more: at most 8 heads but at C = 128 in 64-column bands)
@@ -1973,23 +2006,26 @@ int launch(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
 }
 
 // The padded layout (and the image head, pv null, heads of fewer than 8
-// channels, and C = 256 at any width): a.ct true channels of C (64, 128 or
-// 256) in a.H <= HMAX heads; the layout and the scratch are those of one
-// head (KVN = C).
+// channels, and the wide kernel at any width): a.ct true channels of C (64,
+// 128, or a multiple of 128 up to WIDE_MAX_C) in a.H heads (up to HMAX; up
+// to WIDE_HMAX past 128 channels); the layout and the scratch are those of
+// one head (KVN = C).
 template <class M>
 int launch_pad(const Args<M>& a, int C, int blocks, cudaStream_t stream) {
-  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, HMAX) != 0 || a.H < 1 || a.H > HMAX ||
-      a.ct < 1 || a.ct > C || a.ct % a.H != 0 || a.scratch_stride < scratch_need<M>(a.N, C, 1))
+  const int hmax = C > 128 ? WIDE_HMAX : HMAX;
+  if (a.P <= 0 || blocks <= 0 || layout_status<M>(a.N, C, hmax) != 0 || a.H < 1 ||
+      a.H > hmax || a.ct < 1 || a.ct > C || a.ct % a.H != 0 ||
+      a.scratch_stride < scratch_need<M>(a.N, C, 1))
     return (int)cudaErrorInvalidValue;
   if (C == 64) return launch_c<M, 64, 64, true, HMAX>(a, blocks, stream);
-  if (C == 256) return launch_wide<M, 256>(a, blocks, stream);
+  if (C > 128) return launch_wide<M>(a, blocks, stream);
   return launch_c<M, 128, 128, true, HMAX>(a, blocks, stream);
 }
 
 template <class M>
 Args<M> make_args(const void* const* sides, const void* w, const void* const* ln,
                   const void* t_idx, const void* d_idx, void* out, void* scratch,
-                  long long stride, int nt, int nd, int P, int N, int H, int ct) {
+                  long long stride, int nt, int nd, int P, int N, int H, int ct, int C) {
   typedef const typename M::T* TP;
   Args<M> a;
   for (int s = 0; s < 2; ++s) {
@@ -2013,7 +2049,8 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
   a.H = H;
   a.ct = ct;
   a.D = H >= 1 && ct % H == 0 ? ct / H : 1;
-  a.hm = (65536 + a.D - 1) / a.D;
+  a.hm = ((1 << 21) + a.D - 1) / a.D;
+  a.C = C;
   return a;
 }
 
@@ -2050,16 +2087,18 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
     const void* ln[8] = {ln1s1, ln1b1, ln2s1, ln2b1, ln1s2, ln1b2, ln2s2, ln2b2};                 \
     return rowswg::launch<POLICY>(                                                                \
         rowswg::make_args<POLICY>(sides, w, ln, t_idx, d_idx, out, scratch, scratch_stride, nt,   \
-                                  nd, P, N, H, C),                                                \
+                                  nd, P, N, H, C, C),                                             \
         C, blocks, (cudaStream_t)stream);                                                         \
   }
 
 // The padded layout's entry point (ROWS_WG_PAD_ENTRIES(policy, suffix), in
 // a .cu file of its own): pcr_match_rows_wg_pad<suffix>, the arguments of
 // pcr_match_rows_wg<suffix> with the true channels ct after H and C the
-// layout's width (64 or 128); the pv pointers null for the image head. Its
-// layout check is pcr_match_rows_wg<suffix>_layout(N, C, HMAX, ...): the
-// padded layout's normalisers hold HMAX heads.
+// layout's width (64, 128, or a multiple of 128 to WIDE_MAX_C); the pv
+// pointers null for the image head. Its layout check is
+// pcr_match_rows_wg<suffix>_layout(N, C, HMAX, ...) (past 128 channels
+// WIDE_HMAX): the padded layout's normalisers hold HMAX heads, the wide
+// kernel's WIDE_HMAX.
 #define ROWS_WG_PAD_ENTRIES(POLICY, SUFFIX)                                                       \
   extern "C" int ROWS_WG_CAT(pcr_match_rows_wg_pad, SUFFIX)(                                      \
       const void* ht, const void* qt, const void* at, const void* pvt, const void* kvst,          \
@@ -2073,6 +2112,6 @@ Args<M> make_args(const void* const* sides, const void* w, const void* const* ln
     const void* ln[8] = {ln1s1, ln1b1, ln2s1, ln2b1, ln1s2, ln1b2, ln2s2, ln2b2};                 \
     return rowswg::launch_pad<POLICY>(                                                            \
         rowswg::make_args<POLICY>(sides, w, ln, t_idx, d_idx, out, scratch, scratch_stride, nt,   \
-                                  nd, P, N, H, ct),                                               \
+                                  nd, P, N, H, ct, C),                                            \
         C, blocks, (cudaStream_t)stream);                                                         \
   }

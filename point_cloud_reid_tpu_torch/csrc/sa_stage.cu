@@ -47,7 +47,7 @@
 // C = 1024; past 1,792 not even that: 262,656 bytes at 2048), every 16-row
 // block re-reads both weights from L2, and the wide layout takes the stage
 // (csrc/sa_wide_wg.cuh at policy Tf32, entry pcr_sa_convmax_wide, from
-// WIDE_FROM = 928 to 2048, run at the next multiple of 64): a persistent
+// WIDE_FROM = 928 to 8192, run at the next multiple of 64): a persistent
 // grid whose weight stages each serve 128 rows through a shared-memory
 // ring, h1 and h2 in a device scratch streamed back as A stages, every
 // product on wgmma in three TF32 passes, conv3 fused with the max; about 2x
@@ -93,7 +93,7 @@ namespace {
 constexpr int WARPS = 8;      // warps a block; 16 where there are 16 column chunks
 constexpr int PF = 4;         // k-steps a warp's B fragments are loaded ahead
 constexpr size_t SMEM_LIMIT = 232448;   // dynamic shared memory a block may take
-constexpr int MAX_C = 2048;             // widest stage (kernels/sa_stage.MAX_C)
+constexpr int MAX_C = sawide::MAX_C;   // widest stage (kernels/sa_stage.MAX_C)
 
 struct Args {
   const float* A;     // (B, N, C)
@@ -401,7 +401,7 @@ extern "C" int pcr_sa_convmax(const void* A, const void* Ct, const void* idx,
   }
 }
 
-// The wide layout (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 2048; w2,
+// The wide layout (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 8192; w2,
 // w3 the wrapper's stage copies (kernels/sa_stage.wide_stage_weights);
 // `blocks` persistent blocks, each with `stride` bytes of `scratch` (at
 // least the plan's scratch bytes).

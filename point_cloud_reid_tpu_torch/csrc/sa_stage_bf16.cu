@@ -800,7 +800,7 @@ void wgmma_plan(long long* plan) {
 // Fills plan[FIELDS] for width C and K neighbours; 0, or
 // cudaErrorInvalidValue for a shape no tier takes.
 int make_plan(int C, int K, long long* plan) {
-  if (C < 32 || C > 2048 || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
+  if (C < 32 || C > sawide::MAX_C || C % 32 != 0 || K < 1) return (int)cudaErrorInvalidValue;
   switch (C) {
     case 32: wgmma_plan<32>(plan); return 0;
     case 64: wgmma_plan<64>(plan); return 0;
@@ -870,7 +870,7 @@ extern "C" int pcr_sa_convmax_bf16(const void* A, const void* Ct, const void* id
   }
 }
 
-// The wide tier (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 2048; w2,
+// The wide tier (csrc/sa_wide_wg.cuh): C a multiple of 64 up to 8192; w2,
 // w3 the wrapper's stage copies (kernels/sa_stage.wide_stage_weights);
 // `blocks` persistent blocks, each with `stride` bytes of `scratch` (at
 // least the plan's scratch bytes).

@@ -13,7 +13,7 @@
 //
 // It replaces point_cloud_reid_tpu/ops/pallas/sa_stage.py fused_sa_convmax
 // (:78) at the widths kernels/sa_stage.plan_f32 and plan_bf16 give it (C a
-// multiple of 64 up to 2048; the wrapper pads a multiple of 32 to the next
+// multiple of 64 up to 8192; the wrapper pads a multiple of 32 to the next
 // one with zero lanes, which are exact).
 //
 // What bounds it on the H100: 4 R C^2 operations (R = B S K rows), three
@@ -61,7 +61,12 @@
 //    store max(0, running max) once a centre.
 // Shared memory: 1024 (alignment) + 14 x 16,384 + the barriers = 230,632
 // bytes at any C; the scratch a block: 2 x (2 C / PK x 8,192 + 16 C) bytes
-// (PK: 32 TF32 / 64 bf16 k a stage), 2,162,688 / 1,114,112 at C = 2048.
+// (PK: 32 TF32 / 64 bf16 k a stage), 2,162,688 / 1,114,112 at C = 2048,
+// 4,325,376 / 2,228,224 at 4096, 8,650,752 / 4,456,448 at 8192 (1.14 GB
+// over 132 blocks at float32). Every offset that can pass 2^31 at 8192
+// channels is 64-bit: the gather's row offsets (B N C), the stage copies
+// (2 C^2 x 4 bytes a weight at TF32, 512 MB) and the scratch (the block
+// index times its stride); R = B S K < 2^31 is the wrapper's bound.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,7 +91,7 @@ constexpr int SLOT = 16384;                 // bytes of a ring slot
 constexpr int RING = 14;                    // slots
 constexpr int BAR_OFF = RING * SLOT;        // full, empty, aready
 constexpr int BYTES = 1024 + BAR_OFF + 8 * (2 * RING + 1);
-constexpr int MAX_C = 2048;
+constexpr int MAX_C = 8192;                 // widest stage (kernels/sa_stage.MAX_C)
 constexpr size_t SMEM_LIMIT = 232448;
 static_assert(BYTES <= (int)SMEM_LIMIT, "shared memory");
 // registers a thread after setmaxnreg: 128 x (2 x 232 + 40) <= 65,536

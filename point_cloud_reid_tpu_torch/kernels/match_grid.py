@@ -9,34 +9,37 @@ cross linear attention in both directions, point-cat max+avg pooling -- is
 one CUDA kernel that serves both index modes. The match head on the pooled
 features stays plain torch, as in JAX.
 
-`plan(N, C, H)` picks the float32 kernel's tier: CLUSTER (csrc/match_grid.cu,
-a two-block cluster a pair with the weights and a side's rows in shared
-memory: C up to 64, as many rows as fit, 224 at C = 64) wherever it fits,
-else ROWS (csrc/match_rows.cu instantiating csrc/match_rows_wg.cuh: C up to
-256, up to 16 heads, any N; two warpgroups on wgmma, a side each, the
-weights streamed through a ring of shared-memory stages from a stage copy
-made once, `rows_stage_weights`, the stage-1 outputs in a device scratch;
-past 128 channels its wide kernel, which keeps the chain's C-wide rows in
-the scratch as operand stages it streams through the ring beside the
-weights, and computes every C-wide output in 128-column halves) or, for
-the point head at C = 16 in up to 8 heads, ROWS_MMA (the first rows kernel,
-kept in the same file: a block a pair at a time on mma.sync).
+`plan(N, C, H)` picks the float32 kernel's tier: CLUSTER
+(csrc/match_grid.cu, a two-block cluster a pair with the weights and a
+side's rows in shared memory: C up to 64, as many rows as fit, 224 at C =
+64) wherever it fits, else ROWS (csrc/match_rows.cu instantiating
+csrc/match_rows_wg.cuh: C up to 1024, up to 16 heads (32 past 128 channels),
+any N; two warpgroups on wgmma, a side each, the weights streamed through a
+ring of shared-memory stages from a stage copy made once,
+`rows_stage_weights`, the stage-1 outputs in a device scratch; past 128
+channels its wide kernel, which keeps the chain's C-wide rows in the scratch
+as operand stages it streams through the ring beside the weights, and
+computes every C-wide output in 128-column groups) or, for the point head at
+C = 16 in up to 8 heads, ROWS_MMA (the first rows kernel, kept in the same
+file: a block a pair at a time on mma.sync).
 
 The kernels' tiles are instantiated at the widths W = 16 and 64 (cluster)
-and 64, 128 and 256 (rows). A head of another width C <= 256 (a model built
-with --set model.backbone.conv_out=96, say) runs at the smallest W of its
-tier that holds it, in the padded layout (`pad_side`, `pad_weights`): the
-true channels first, zeros in lanes C .. W - 1 of every factor, weight and
-LayerNorm vector, the FFN's hidden 2C of 2W the same way; the heads keep
-their C / H channels each, contiguous. The kernels' padded instantiations
-(the `_pad` entry points, given the true C) mask what zeros alone would
-get wrong: elu+1 of a padded stage-2 q or k lane (1, not 0) and the
-LayerNorm statistics (over the true C). The pooled output is sliced back
+and 64, 128 and every multiple of 128 from 256 to 1024 (rows: the wide
+kernel takes its width at run time). A head of another width C <= 1024 (a
+model built with --set model.backbone.conv_out=96, say) runs at the smallest
+W of its tier that holds it, in the padded layout (`pad_side`,
+`pad_weights`): the true channels first, zeros in lanes C .. W - 1 of every
+factor, weight and LayerNorm vector, the FFN's hidden 2C of 2W the same way;
+the heads keep their C / H channels each, contiguous. The kernels' padded
+instantiations (the `_pad` entry points, given the true C) mask what zeros
+alone would get wrong: elu+1 of a padded stage-2 q or k lane (1, not 0) and
+the LayerNorm statistics (over the true C). The pooled output is sliced back
 to [max | avg] of the true C. `padded_reference` is the CPU model of that
-layout. The rows tier's padded entry points also serve heads of fewer than
-8 channels, the image head and every width of the wide kernel
-(`rows_padded`). Past 256 channels, or 16 heads where the rows tier is
-needed, the plan raises (ROADMAP.md K7).
+layout. The rows tier's padded entry points also serve heads of fewer than 8
+channels, the image head and every width of the wide kernel (`rows_padded`).
+Past 1024 channels, or past 16 heads where the rows tier is needed at 128
+channels or fewer, or past 32 on the wide kernel, the plan raises
+(ROADMAP.md K7).
 
 The image head (CrossLinAttn; image_grid_factors, image_grid_logits,
 image_pair_logits, ports of image_grid_factors, pallas_image_grid_logits and
@@ -70,7 +73,7 @@ On CUDA `plan(..., dtype=torch.bfloat16)` picks the bf16 tiers:
 CLUSTER (csrc/match_grid_bf16.cu: a persistent two-block cluster on wgmma
 with the weights resident in shared memory, C up to 64, up to 208 rows at
 C = 64), else ROWS (csrc/match_rows_bf16.cu: the same wgmma structure as
-the float32 rows tier, one bf16 pass a product, C up to 256 at any N) or
+the float32 rows tier, one bf16 pass a product, C up to 1024 at any N) or
 ROWS_MMA for the point head at C = 16; a bf16 model never runs a float32
 kernel. The wrapper hands the kernels bf16 copies of the weights made once
 (utils/cache.py): the rows tier's in its stage layout. bf16 launches count
@@ -407,9 +410,11 @@ TIER_NAMES = ("cluster", "rows", "rows_mma")
 MAX_SMEM = 232448       # 227 KB: a block's most dynamic shared memory, sm_90
 SM_SMEM = 233472        # 228 KB: an SM's shared memory, 1 KB of it per block
 CLUSTER_WIDTHS = (16, 64)
-ROWS_WIDTHS = (64, 128, 256)        # the wgmma rows tier (256: the wide kernel)
+# the wgmma rows tier: 64, 128, and the wide kernel's multiples of 128
+ROWS_WIDTHS = (64, 128) + tuple(range(256, 1025, 128))
 ROWS_MMA_WIDTHS = (16,)             # the first rows kernel
 ROWS_MAX_HEADS = 16                 # the wgmma rows tier's normalisers
+WIDE_MAX_HEADS = 32                 # the wide kernel's (C > 128)
 ROWS_MMA_MAX_HEADS = 8              # the first rows kernel's
 ROWS_WARPS = 4                      # warps a block of the first rows kernel
 ROWS_BLOCKS_PER_SM = 4
@@ -493,30 +498,35 @@ def rows_layout(C: int, H: int, dtype: torch.dtype = torch.float32
                 ) -> RowsLayout:
     """The wgmma rows tier's layout for width C in H heads at `dtype`
     (bf16: one pass, 8 KB stages; float32: TF32 hi and lo, 16 KB): 1 KB to
-    align the base, the ring, the summary staging of two warpgroups (C
-    channels x 128 bytes of rows, k^T and v^T, at TF32 each with its lo
-    array; none on the wide kernel, C > 128, whose summary streams its
-    operands through the ring, up to WIDE_RING_MAX stages), sum k of each
-    side and its partials (8 warps; on the wide kernel in the bytes of the
-    pooling partials), the pooling partials (8 x 2C) and the normalisers
-    (2 x 64 rows x 8 heads where H <= 8 at C <= 128, else 16; the padded
-    layout's are given H = ROWS_MAX_HEADS, layout_heads), float32, and the
-    ring's mbarriers
-    with one more for the summary's hand-off (the wide kernel's: for its
-    scratch rows). The weight stages' counts are the same on both kernels;
-    their order is weight_blocks'."""
+    align the base, the ring, and the ring's mbarriers with one more for
+    the summary's hand-off (the wide kernel's: for its scratch rows). At C
+    <= 128: the summary staging of two warpgroups (C channels x 128 bytes
+    of rows, k^T and v^T, at TF32 each with its lo array), sum k of each
+    side and its partials (8 warps), the pooling partials (8 x 2C) and the
+    normalisers (2 x 64 rows x 8 heads where H <= 8, else 16; the padded
+    layout's are given H = ROWS_MAX_HEADS, layout_heads), float32, up to
+    RING_MAX stages. On the wide kernel (C > 128, up to WIDE_RING_MAX
+    stages) one layout at every width and head count, sized for MAX_C and
+    WIDE_MAX_HEADS: the staging of a 128-column group's sum k or pooling
+    (2 warpgroups x 4 warps x 128 x 2 floats), sum k of each side (2 x
+    MAX_C) and the normalisers (2 x 64 rows x WIDE_MAX_HEADS); the summary
+    streams its operands through the ring. The weight stages' counts are
+    the same on both kernels; their order is weight_blocks'."""
     bf16 = dtype == BF16
     pk, sb, arrays = (64, 8192, 2) if bf16 else (32, 16384, 4)
     kvn = rows_kvn(C, H)
     nb, ch2, ppc, pph = C // 64, 2 * C // 64, C // pk, 64 // pk
     s1 = nb * pph * nb + ch2 * (ppc + pph * nb)
-    most = WIDE_RING_MAX if C > 128 else RING_MAX
-    staging = 0 if C > 128 else 2 * arrays * C * 128
-    heads = 8 if C <= 128 and H <= 8 else ROWS_MAX_HEADS
-    # sum k, its partials (in the pooling partials' bytes on the wide
-    # kernel), the pooling partials, the normalisers
-    fixed = staging + 4 * (2 * C + (0 if C > 128 else 8 * C) + 8 * 2 * C
-                           + 2 * 64 * heads)
+    if C > 128:
+        most = WIDE_RING_MAX
+        fixed = 4 * (2 * 4 * 128 * 2 + 2 * MAX_C + 2 * 64 * WIDE_MAX_HEADS)
+    else:
+        most = RING_MAX
+        heads = 8 if H <= 8 else ROWS_MAX_HEADS
+        # the staging, sum k, its partials, the pooling partials, the
+        # normalisers
+        fixed = 2 * arrays * C * 128 + 4 * (2 * C + 8 * C + 8 * 2 * C
+                                            + 2 * 64 * heads)
     ring = min(most, (MAX_SMEM - 1024 - fixed - 8 * (2 * most + 1)) // sb)
     return RowsLayout(pk, sb, kvn, nb * (kvn // pk),
                       (s1, ch2 * ppc, ppc * nb + ch2 * ppc + s1), ring,
@@ -543,8 +553,8 @@ def rows_scratch_bytes(N: int, C: int, H: int,
     WideScratch) no a (its FFN accumulates O fc1[:C]) but a side's operands
     in the stage layout, O's (Np / 64 x C / pk stages), k^T's and v^T's (as
     many each), q or the LayerNorm'd merge (C / pk), the message (C / pk)
-    and the FFN's hidden rows (2C / pk), and its parked LayerNorm halves
-    (64 x (C - 128) float32)."""
+    and the FFN's hidden rows (2C / pk), its parked LayerNorm groups (64 x
+    (C - 128) float32) and its pooling row (2C float32)."""
     lay = rows_layout(C, H, dtype)
     Np = -(-N // 64) * 64
     kv_o = 2 * lay.kv_stages * lay.stage_bytes + 2 * Np * C * 4
@@ -552,7 +562,7 @@ def rows_scratch_bytes(N: int, C: int, H: int,
         return kv_o + 2 * 64 * 2 * C * 4
     ppc = C // lay.pk
     return kv_o + 2 * (lay.stage_bytes * ppc * (3 * Np // 64 + 4)
-                       + 4 * 64 * (C - 128))
+                       + 4 * 64 * (C - 128) + 4 * 2 * C)
 
 
 def rows_mma_bytes(C: int) -> int:
@@ -576,7 +586,9 @@ def rows_mma_bytes_bf16(C: int) -> int:
             + 2 * 64 * 72 * 2)
 
 
-MAX_C = 256             # widest head the kernels serve (past it: K7)
+MAX_C = 1024            # widest head the kernels serve (past it: K7)
+# the rows tier's launches counted by shape (a wrapper's shape_launches)
+SHAPE_KEYS = ("wide", "past_256", "many_heads", "past_16_heads")
 K7 = "ROADMAP.md K7"
 
 
@@ -589,19 +601,26 @@ def kernel_width(C: int, tier: int) -> int:
     return next(w for w in widths if w >= C)
 
 
+def max_heads(C: int) -> int:
+    """The most heads the rows tier takes for a head of C channels:
+    ROWS_MAX_HEADS up to 128 channels, WIDE_MAX_HEADS on the wide kernel."""
+    return WIDE_MAX_HEADS if C > 128 else ROWS_MAX_HEADS
+
+
 def plan(N: int, C: int, H: int, pos: bool = True,
          dtype: torch.dtype = torch.float32) -> Plan:
     """The tier for sides of N rows and C channels in H heads, point head
     (`pos`) or image head: CLUSTER where its layout at width
     kernel_width(C, CLUSTER) fits in a block's shared memory (C <= 64, any
     heads), else ROWS_MMA for the point head at C = 16 in at most 8 heads,
-    else ROWS (C <= 256: the wide kernel past 128; at most 16 heads).
-    Raises ValueError for a shape that none takes, past 256 channels or 16
-    heads naming ROADMAP.md's K7. Each dtype has its own kernels: at bf16
-    the cluster tier's layout is cluster_bytes_bf16 (up to 208 rows at C =
-    64) and the rows tiers' rows_bytes_bf16 / rows_mma_bytes_bf16; the rows
-    tiers take the same widths and heads at both. The bytes are those of
-    the width the tier runs at."""
+    else ROWS (C <= 1024: the wide kernel past 128 at the next multiple of
+    128; at most 16 heads up to 128 channels, 32 past them). Raises
+    ValueError for a shape that none takes, past 1024 channels or past the
+    heads max_heads(C) gives naming ROADMAP.md's K7. Each dtype has its own
+    kernels: at bf16 the cluster tier's layout is cluster_bytes_bf16 (up to
+    208 rows at C = 64) and the rows tiers' rows_bytes_bf16 /
+    rows_mma_bytes_bf16; the rows tiers take the same widths and heads at
+    both. The bytes are those of the width the tier runs at."""
     if N < 1 or H < 1 or C % H:
         raise ValueError(f"N={N}, C={C}, nhead={H}: want N >= 1 and nhead "
                          "dividing C")
@@ -614,14 +633,18 @@ def plan(N: int, C: int, H: int, pos: bool = True,
             N, kernel_width(C, CLUSTER))
         if cluster <= MAX_SMEM:
             return Plan(CLUSTER, cluster)
-    if H > ROWS_MAX_HEADS:
-        raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
-                         f"most {ROWS_MAX_HEADS} heads ({K7})")
+    _check_rows_heads(N, C, H)
     if pos and C in ROWS_MMA_WIDTHS and H <= ROWS_MMA_MAX_HEADS:
         return Plan(ROWS_MMA,
                     (rows_mma_bytes_bf16 if bf16 else rows_mma_bytes)(C))
     return Plan(ROWS, rows_layout(kernel_width(C, ROWS), layout_heads(
         C, H, 5 if pos else 4), dtype).smem)
+
+
+def _check_rows_heads(N: int, C: int, H: int) -> None:
+    if H > max_heads(C):
+        raise ValueError(f"N={N}, C={C}, nhead={H}: the rows tier takes at "
+                         f"most {max_heads(C)} heads at {C} channels ({K7})")
 
 
 def rows_padded(C: int, H: int, parts: int) -> bool:
@@ -638,16 +661,29 @@ def layout_heads(C: int, H: int, parts: int) -> int:
     """The heads the rows tier's layout is sized for (its normalisers' rows;
     the H its layout check is given): H on the exact instantiations, whose
     normalisers hold 8 heads up to 8 and 16 past them, ROWS_MAX_HEADS in
-    the padded layout, whose normalisers always hold 16."""
+    the padded layout, whose normalisers always hold 16, and
+    WIDE_MAX_HEADS on the wide kernel."""
+    if kernel_width(C, ROWS) > 128:
+        return WIDE_MAX_HEADS
     return ROWS_MAX_HEADS if rows_padded(C, H, parts) else H
 
 
-def rows_blocks(P: int, smem: int, device) -> int:
+# device scratch bytes a rows-tier launch may take
+ROWS_SCRATCH_BUDGET = 4 << 30
+
+
+def rows_blocks(P: int, smem: int, device, scratch: int = 0) -> int:
     """Blocks of a rows-tier launch: as many as the card holds at once (by
-    shared memory, at most ROWS_BLOCKS_PER_SM an SM), at most one a pair."""
+    shared memory, at most ROWS_BLOCKS_PER_SM an SM), at most one a pair,
+    and no more than ROWS_SCRATCH_BUDGET holds at `scratch` bytes a block
+    (the wide kernel's scratch grows with C and N: ~28 MB a block at C =
+    1024, N = 128 float32, ~139 MB at N = 2048)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = max(1, min(ROWS_BLOCKS_PER_SM, SM_SMEM // (smem + 1024)))
-    return max(1, min(P, sms * per_sm))
+    most = sms * per_sm
+    if scratch > 0:
+        most = min(most, ROWS_SCRATCH_BUDGET // scratch)
+    return max(1, min(P, most))
 
 
 # ---- the rows tier's stage copies ----
@@ -857,9 +893,10 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     lanes; so does the image head on the rows tier (its `_pad` entry takes
     no position term). Such a launch also counts in
     `counter.padded_launches` by tier; the output is sliced back to 2C.
-    The rows tier's launches on the wide kernel (W > 128) and with more
-    than 8 heads also count in `counter.shape_launches` ("wide",
-    "many_heads", each also with "_bf16").
+    The rows tier's launches on the wide kernel (W > 128), on it past 256
+    channels, with more than 8 heads and with more than 16 also count in
+    `counter.shape_launches` ("wide", "past_256", "many_heads",
+    "past_16_heads", each also with "_bf16").
     `library` is another build of the kernels' entry points, as
     tools/ab_match.py times versions of them; it passes no counter. A build
     without the rows tier's entry points (an earlier csrc/match_rows*.cu)
@@ -876,9 +913,7 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
     nd = _check_side(d, N, C, device, "det", dt)
     how = plan(N, C, nhead, pos=parts == 5, dtype=dt)
     if tier == ROWS and how.tier != ROWS:
-        if nhead > ROWS_MAX_HEADS:
-            raise ValueError(f"N={N}, C={C}, nhead={nhead}: the rows tier "
-                             f"takes at most {ROWS_MAX_HEADS} heads ({K7})")
+        _check_rows_heads(N, C, nhead)
         how = Plan(ROWS, rows_layout(kernel_width(C, ROWS), layout_heads(
             C, nhead, parts), dt).smem)
     elif tier not in (None, how.tier):
@@ -944,8 +979,8 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         stages = rows_stage_weights(w1, w2, bf16)
         ln = [w[k] for w in (w1, w2) for k in ("ln1_scale", "ln1_bias",
                                                "ln2_scale", "ln2_bias")]
-        blocks = rows_blocks(P, smem.value, device)
         stride = rows_scratch_bytes(N, W, hl, dt)
+        blocks = rows_blocks(P, smem.value, device, stride)
         scratch = torch.empty((blocks, stride), dtype=torch.uint8,
                               device=device)
         err = getattr(lib, entry)(
@@ -981,10 +1016,11 @@ def launch(counter, parts: int, t: Side, d: Side, w1, w2, nhead: int,
         counter.tier_launches[tier_key(tier, bf16)] += 1
         if padded:
             counter.padded_launches[tier_key(tier, bf16)] += 1
-        if tier == ROWS and W > 128:
-            counter.shape_launches["wide" + sfx] += 1
-        if tier == ROWS and nhead > 8:
-            counter.shape_launches["many_heads" + sfx] += 1
+        for key, on in (("wide", W > 128), ("past_256", W > 256),
+                        ("many_heads", nhead > 8),
+                        ("past_16_heads", nhead > 16)):
+            if tier == ROWS and on:
+                counter.shape_launches[key + sfx] += 1
     return unpad_pooled(out, C)
 
 
@@ -1061,9 +1097,9 @@ for _fn in (fused_match_grid, fused_match_pairs, fused_image_match_grid,
     # instantiation for; on the rows tier also the image head, heads of
     # fewer than 8 channels and the wide kernel: rows_padded)
     _fn.padded_launches = dict(_fn.tier_launches)
-    # of those, the rows tier's on its wide kernel (C > 128) and with more
-    # than 8 heads
-    _fn.shape_launches = {k + b: 0 for k in ("wide", "many_heads")
+    # of those, the rows tier's on its wide kernel (C > 128), on it past
+    # 256 channels, and with more than 8 and more than 16 heads
+    _fn.shape_launches = {k + b: 0 for k in SHAPE_KEYS
                           for b in ("", "_bf16")}
     _fn.bf16_launches = 0
 

@@ -8,11 +8,11 @@ device raises. `sa_stage_inference` folds BatchNorm into per-channel affines
 exactly as the JAX wrapper does (conv1's bias enters Ct through
 conv1_edge_factors; conv2/conv3's biases enter t2/t3) and calls it.
 
-Widths. The kernels take C a multiple of 32 from 32 to MAX_C = 2048 (the
+Widths. The kernels take C a multiple of 32 from 32 to MAX_C = 8192 (the
 float32 kernel's layout for each, `plan_f32`: two row buffers below
 F32_WIDE_FROM = 928 channels, where they shrink to one 16-row m-tile, the
 wide layout from it, about 2x faster there on the H100). Any other C up to
-2048 runs at kernel_width(C), the next multiple of 32 (at least 32), in the
+8192 runs at kernel_width(C), the next multiple of 32 (at least 32), in the
 padded layout of `pad_args`: zeros in lanes C .. W - 1 of A, Ct, w2, w3
 (rows and columns) and the six affines, the output sliced back to C. Zeros
 are exact there: a padded lane is relu(0 * s + 0) = 0 through all three
@@ -20,8 +20,8 @@ convs, it adds exact zeros to every real lane's sums, and the max of zeros
 is 0, so no lane needs a mask (tests/test_torch_wide_widths.py holds the
 padded plain version equal to the unpadded one bit for bit). The wide
 layout runs a width at the next multiple of 64 (run_width: the wrapper pads
-once, to it). Past 2048 channels the wrapper raises naming
-ROADMAP_SA_WIDTHS.
+once, to it). Past 8192 channels (the backbone's mul 64) the wrapper
+raises naming ROADMAP_SA_WIDTHS.
 
 Under a bf16 model (the JAX kernel with A and Ct in the model dtype) A, Ct
 and the output are bf16 and the weights and affines float32; each product
@@ -61,7 +61,7 @@ from . import _lib
 BF16 = torch.bfloat16
 # where the SA kernels' missing widths are queued
 ROADMAP_SA_WIDTHS = "ROADMAP.md K7"
-MAX_C = 2048            # widest SA stage the kernels take
+MAX_C = 8192            # widest SA stage the kernels take
 MAX_SMEM = 232448       # dynamic shared memory a block may take
 
 

@@ -88,9 +88,9 @@ def test_plan_takes_any_k_and_refuses_what_no_tier_takes():
     assert not sa.plan_bf16(96, 20).whole_centres
     assert {sa.plan_bf16(C, 32).tier for C in range(32, 1025, 32)} == {
         sa.WGMMA, sa.MMA_SYNC}
-    assert {sa.plan_bf16(C, 32).tier for C in range(1056, 2049, 32)} == {
+    assert {sa.plan_bf16(C, 32).tier for C in range(1056, 8193, 32)} == {
         sa.WIDE}
-    for C in (16, 48, 2080):
+    for C in (16, 48, 8224):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             sa.plan_bf16(C, 8)
     with pytest.raises(ValueError, match="K=0"):

@@ -251,9 +251,9 @@ def test_match_plan_picks_the_tier():
                        ((128, 128, 2, False), (tmg.ROWS, 219208)),
                        ((260, 64, 2, False), (tmg.ROWS, 229016))):
         assert tmg.plan(*args) == tmg.Plan(*want)
-    # what still raises: past 256 channels, more heads than the rows tier
+    # what still raises: past 1024 channels, more heads than the rows tier
     # holds, bad shapes
-    for args, match in (((128, 264, 2), "K7"),
+    for args, match in (((128, 1032, 2), "K7"),
                         ((225, 64, 32), "at most 16 heads"),
                         ((0, 64, 2), "N >= 1"), ((128, 64, 3), "dividing")):
         with pytest.raises(ValueError, match=match):

@@ -72,12 +72,12 @@ def test_sa_convmax_kernel_matches_plain(cuda, B, N, S, K, C):
 
 
 def test_sa_convmax_kernel_refuses_other_widths(cuda):
-    """The kernels take any C up to 2048 (the wrapper pads a width off the
-    multiples of 32); past 2048 (ROADMAP.md K7) the wrapper raises before
+    """The kernels take any C up to 8192 (the wrapper pads a width off the
+    multiples of 32); past 8192 (ROADMAP.md K7) the wrapper raises before
     any launch, and kernels/sa_stage.launch refuses an unpadded width."""
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     before = sa.fused_sa_convmax.launches
-    for C in (2080, 4096):
+    for C in (8224, 8256):
         with pytest.raises(ValueError, match="K7"):
             sa.fused_sa_convmax(*_sa_args(cuda, 1, 8, 4, 4, C))
     with pytest.raises(ValueError, match="multiple of 32"):
@@ -312,7 +312,7 @@ def test_match_kernels_refuse_a_shape_that_does_not_fit(cuda):
 def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
     """C=12 is not a multiple of the tensor-core tiles' 8 columns: it runs
     in the padded layout of the cluster tier's C = 16 and meets the plain
-    version; past 256 channels (ROADMAP.md K7) the wrapper raises before
+    version; past 1024 channels (ROADMAP.md K7) the wrapper raises before
     any launch."""
     from point_cloud_reid_tpu_torch.kernels import match_grid as mg
     t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 12)
@@ -323,7 +323,7 @@ def test_match_kernels_refuse_channels_the_tiles_cannot_take(cuda):
     di = torch.tensor([0, 1, 0, 1], device=cuda)
     _close(grid, mg.match_pooled_reference(t, d, w1, w2, nhead, ti, di
                                            ).reshape(2, 2, -1))
-    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 264)
+    t, d, w1, w2, nhead = _image_factors(cuda, 2, 2, 10, 1032)
     before = mg.fused_image_match_grid.launches
     with pytest.raises(ValueError, match="K7"):
         mg.fused_image_match_grid(t, d, w1, w2, nhead)
@@ -807,23 +807,23 @@ def test_sa_bf16_layout_equals_the_plan(cuda):
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     lib = _lib.LIBRARY.get()
-    for C in range(32, 2049, 32):
+    for C in range(32, 8193, 32):
         for K in (1, 7, 16, 32, 48, 200):
             want = sa.plan_bf16(C, K)
             assert sa.kernel_plan_bf16(C, K, lib) == want, (C, K)
             assert want.smem <= sa.MAX_SMEM
     assert sa.plan_bf16(128, 32) == sa.SaPlan(sa.WGMMA, 192, 3, 1, 4,
                                               121920, True)
-    for C, K in ((16, 8), (48, 8), (2080, 8), (128, 0)):
+    for C, K in ((16, 8), (48, 8), (8224, 8), (128, 0)):
         assert sa.kernel_plan_bf16(C, K, lib) is None
 
 
 def test_sa_convmax_bf16_kernel_refuses_other_widths(cuda):
-    """At bf16 as at float32: past 2048 channels (ROADMAP.md K7) the
+    """At bf16 as at float32: past 8192 channels (ROADMAP.md K7) the
     wrapper raises before any launch."""
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     before = sa.fused_sa_convmax.bf16_launches
-    for C in (2080, 4096):
+    for C in (8224, 8256):
         with pytest.raises(ValueError, match="K7"):
             sa.fused_sa_convmax(*_sa_args_bf16(cuda, 1, 8, 4, 4, C))
     assert sa.fused_sa_convmax.bf16_launches == before
@@ -906,8 +906,9 @@ def test_match_rows_bf16_matches_plain(cuda, N, C, nhead):
 
 def _rows_layouts_equal_the_plan(lib, dtype):
     """The rows tiers' layout entry points at `dtype` give the status and
-    the bytes plan reckons: the wgmma tier at C = 64 / 128 / 256 (1 to 16
-    heads, any N), the first rows kernel at C = 16 (up to 8 heads); what
+    the bytes plan reckons: the wgmma tier at C = 64 / 128 (1 to 16 heads,
+    any N) and its wide kernel at the multiples of 128 from 256 to 1024 (1
+    to 32 heads), the first rows kernel at C = 16 (up to 8 heads); what
     neither takes is 1."""
     import ctypes
 
@@ -919,6 +920,9 @@ def _rows_layouts_equal_the_plan(lib, dtype):
             (1, 128, 2): (0, 1), (128, 128, 8): (0, 1), (129, 128, 1): (0, 1),
             (2849, 16, 2): (1, 0), (128, 128, 16): (0, 1),
             (128, 128, 32): (1, 1), (1, 256, 1): (0, 1), (300, 256, 16): (0, 1),
+            (128, 256, 32): (0, 1), (128, 384, 3): (0, 1), (65, 512, 32): (0, 1),
+            (197, 768, 2): (0, 1), (2048, 1024, 8): (0, 1), (128, 256, 64): (1, 1),
+            (128, 1152, 2): (1, 1), (128, 320, 2): (1, 1),
             (128, 32, 2): (1, 1), (128, 128, 3): (1, 1),
             (0, 64, 2): (1, 1)}.items():
         assert getattr(lib, f"pcr_match_rows_wg{sfx}_layout")(
@@ -1008,7 +1012,11 @@ def test_global_batch_norm_on_the_card_matches_the_cpu(cuda, M, C):
 @pytest.mark.parametrize("B,N,S,K,C", [
     (3, 40, 20, 12, 16), (2, 50, 25, 20, 48), (2, 64, 32, 48, 1056),
     (2, 64, 32, 48, 1824), (2, 64, 32, 5, 2000), (4, 64, 32, 48, 2048),
-    (3, 64, 25, 20, 2048), (2, 40, 7, 16, 2048), (16, 64, 32, 48, 2048)])
+    (3, 64, 25, 20, 2048), (2, 40, 7, 16, 2048), (16, 64, 32, 48, 2048),
+    # ROADMAP.md K7: past 2048 channels, the mul24 model's SA3 (3,072), a
+    # width padded to 4,032, and the widest, 8192
+    (2, 64, 32, 48, 2080), (4, 64, 32, 48, 3072), (2, 64, 9, 20, 4000),
+    (1, 64, 32, 48, 4096), (1, 40, 5, 48, 8192)])
 def test_sa_wide_and_padded_widths_match_plain(cuda, B, N, S, K, C, dtype):
     """fused_sa_convmax at widths past the first kernels' (ROADMAP.md K5):
     one launch of the dtype's kernel (in the padded layout where C is off
@@ -1087,12 +1095,12 @@ def test_sa_f32_layout_equals_the_plan_and_checks_the_scratch(cuda):
     from point_cloud_reid_tpu_torch.kernels import _lib
     from point_cloud_reid_tpu_torch.kernels import sa_stage as sa
     lib = _lib.LIBRARY.get()
-    for C in range(32, 2049, 32):
+    for C in range(32, 8193, 32):
         for K in (1, 7, 16, 48, 200):
             want = sa.plan_f32(C, K)
             assert sa.kernel_plan_f32(C, K, lib) == want, (C, K)
             assert want.smem <= sa.MAX_SMEM
-    for C, K in ((16, 8), (48, 8), (2080, 8), (128, 0)):
+    for C, K in ((16, 8), (48, 8), (8224, 8), (128, 0)):
         assert sa.kernel_plan_f32(C, K, lib) is None
     for bf16 in (False, True):
         how = sa.plan_bf16(2048, 48) if bf16 else sa.plan_f32(2048, 48)
@@ -1133,7 +1141,13 @@ def test_sa_f32_layout_equals_the_plan_and_checks_the_scratch(cuda):
     ("point", 256, 1, 17), ("point", 200, 2, 70), ("point", 136, 8, 33),
     ("point", 128, 16, 128), ("point", 128, 16, 1), ("point", 64, 16, 300),
     ("point", 96, 12, 130), ("image", 256, 2, 197), ("image", 192, 3, 198),
-    ("image", 128, 16, 197)])
+    ("image", 128, 16, 197),
+    # ROADMAP.md K7: the wide kernel past 256 channels (C = 320 padded to
+    # 384, 512, 1000 in two heads of 500 padded to 1024, 1024 at two
+    # m-tiles) and past 16 heads (256 in 32 heads of 8), the image head at
+    # 768 in two heads of 384
+    ("point", 320, 5, 70), ("point", 512, 2, 128), ("point", 1000, 2, 20),
+    ("point", 1024, 8, 65), ("point", 256, 32, 40), ("image", 768, 2, 197)])
 def test_match_wide_and_many_heads_match_plain(cuda, head, C, H, N, dtype):
     """The rows tier past 128 channels (the wide kernel) and past 8 heads:
     grid and pair list against the plain version at the true width (TOL;

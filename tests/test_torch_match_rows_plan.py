@@ -103,8 +103,8 @@ def test_c16_keeps_the_first_rows_kernel_and_the_refusals():
                        ((260, 64, 2, False), (mg.ROWS, PADDED[64, torch.float32])),
                        ((4000, 12, 3), (mg.ROWS, PADDED[64, torch.float32]))):
         assert mg.plan(*args) == mg.Plan(*want)
-    for args, kw, match in (((128, 257, 1), {}, "K7"),
-                            ((128, 512, 2), dict(dtype=BF16), "K7"),
+    for args, kw, match in (((128, 1025, 1), {}, "K7"),
+                            ((128, 2048, 2), dict(dtype=BF16), "K7"),
                             ((2048, 96, 24), {}, "K7"),
                             ((225, 64, 32), {}, "at most 16 heads"),
                             ((128, 128, 32), dict(dtype=BF16),

@@ -184,9 +184,10 @@ def test_padded_stage_copies_read_back(C, H, dtype):
 def test_plan_takes_every_width_to_128_channels(pos, dtype):
     """A tier for every C <= 128 and H <= 8 dividing it, point and image
     head, at both dtypes and any N, with the bytes of the width it runs at;
-    past 256 channels, or 16 heads where the rows tier is needed, ValueError
-    naming ROADMAP.md's K7 (tests/test_torch_wide_widths.py takes the
-    widths and heads between)."""
+    past 1024 channels, or 16 heads where the rows tier is needed at 128
+    channels or fewer, ValueError naming ROADMAP.md's K7
+    (tests/test_torch_wide_widths.py and tests/test_torch_k7_widths.py take
+    the widths and heads between)."""
     bf16 = dtype == BF16
     for C in range(1, 129):
         for H in (h for h in range(1, 9) if C % h == 0):
@@ -202,7 +203,7 @@ def test_plan_takes_every_width_to_128_channels(pos, dtype):
                         C, H, 5 if pos else 4), dtype).smem
                 else:
                     assert (how.tier, C, pos) == (mg.ROWS_MMA, 16, True)
-    for args in ((128, 257, 1), (128, 512, 2), (2048, 96, 24),
+    for args in ((128, 1025, 1), (128, 2048, 2), (2048, 96, 24),
                  (300, 64, 32), (5000, 32, 32)):
         with pytest.raises(ValueError, match="K7"):
             mg.plan(*args, pos=pos, dtype=dtype)
@@ -304,10 +305,15 @@ def _shapes(tree, prefix=""):
 
 def _width_config(name: str) -> dict:
     """The model config a point entry of configs/widths.py stands for: the
-    flagship at conv_out C, or the 7M model (conv_out 128, mul 8) with 16
-    heads in both cross stages or at mul 16 or 6."""
+    flagship at conv_out C (heads32: at 256 with 32 heads in both cross
+    stages), or the 7M model (conv_out 128, mul 8) with 16 heads in both
+    cross stages or at mul 16, 6 or 24."""
     if name.startswith("conv_out"):
         return tcfg.point_transformer_point_cat(conv_out=int(name[8:]))
+    if name == "heads32":
+        cfg = tcfg.point_transformer_point_cat(conv_out=256)
+        cfg["cross_stage1"]["nhead"] = cfg["cross_stage2"]["nhead"] = 32
+        return cfg
     cfg = tcfg.point_transformer_point_cat(
         conv_out=128, mul=int(name[3:]) if name.startswith("mul") else 8)
     if name == "heads16":

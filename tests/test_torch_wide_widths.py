@@ -1,6 +1,9 @@
-"""The last shape gaps of the TPU kernels on the CPU (ROADMAP.md K5, K6b):
-the SA stage at any width up to 2048 channels and the match chain up to
-256 channels and 16 heads.
+"""The shape gaps of the TPU kernels on the CPU (ROADMAP.md K5, K6b): the
+SA stage at any width up to 2048 channels and the match chain up to 256
+channels and 16 heads, the bounds of the layouts they brought in. (The
+wider shapes they serve since, to 8192 SA channels and 1024 match channels
+in 32 heads (K7), are tests/test_torch_k7_widths.py's, which reuses the
+walk models here; the refusals below moved to those bounds.)
 
 Here:
   - the SA wrapper's padded layout (kernels/sa_stage.pad_args: zeros in
@@ -13,7 +16,7 @@ Here:
     plain version at both dtypes; its stage copies read back byte for
     byte; the plans of both SA kernels at the new widths;
   - kernels/match_grid.plan at every new width, head count, head and
-    dtype, and its refusal past the new bound naming ROADMAP.md's K7;
+    dtype, and its refusal past the bound naming ROADMAP.md's K7;
   - the rows tier's wide kernel (C = 256, csrc/match_rows_wg.cuh
     rows_wide_kernel): its stage copies (weights, and the A stages of its
     scratch rows) read back byte for byte, and a model of its walk (the
@@ -21,7 +24,8 @@ Here:
     event the producer waited for, every output in 128-column groups, the
     message over its heads' band, LayerNorm from Chan-merged halves, the
     summary's k and v once a tile and KV over the diagonal units only,
-    written as the other side's message stages) against the plain chain,
+    written as the other side's message stages, sum k and the pooling
+    through a warpgroup's staging) against the plain chain,
     exact and padded, at both dtypes; the exact C = 128 instantiation's
     walk at 16 heads of 8 channels;
   - the port at configs/widths.py's conv_out256, heads16, mul16 and
@@ -355,7 +359,8 @@ def test_sa_plans_past_1024_channels():
     The wide layout: 12 warps, 128 rows a weight stage, a ring of 14 16 KB
     slots in 230,632 shared bytes at every width, a scratch a block of two
     warpgroups' h1 and h2 stages and running maxima at the next multiple
-    of 64. Past 2048 both raise naming ROADMAP.md's K7."""
+    of 64. Past 8192 both raise naming ROADMAP.md's K7 (the bound was 2048
+    before; tests/test_torch_k7_widths.py takes the widths between)."""
     for W in range(32, 2049, 32):
         how = sa.plan_f32(W, 48)
         assert how.smem <= sa.MAX_SMEM
@@ -390,11 +395,11 @@ def test_sa_plans_past_1024_channels():
         896, 928 + 32, 960, 1088, 2048]
     assert [sa.run_width(C, True) for C in (928, 992, 1024, 1025, 1040)] == [
         928, 992, 1024, 1088, 1088]
-    for C in (2049, 4096):
+    for C in (8193, 16384):
         with pytest.raises(ValueError, match="K7"):
             sa.kernel_width(C)
     with pytest.raises(NotImplementedError, match="K7"):
-        sa.plan_bf16(2080, 48)
+        sa.plan_bf16(8224, 48)
 
 
 # ---- the match chain to 256 channels and 16 heads (K6b) ---------------------------
@@ -406,8 +411,9 @@ def test_plan_takes_every_width_to_256_channels_and_16_heads(pos, dtype):
     wide kernel, at 256, its bytes those of one head's layout), and for 9
     to 16 heads at every width they divide (the rows tier wherever the
     cluster tier's layout does not fit); the padded entry points where
-    rows_padded says. Past 256 channels, or 16 heads where the rows tier
-    is needed, ValueError naming ROADMAP.md's K7."""
+    rows_padded says. Past 1024 channels (256 before), or 16 heads where
+    the rows tier is needed at 128 channels or fewer, ValueError naming
+    ROADMAP.md's K7."""
     wide = mg.rows_layout(256, 1, dtype).smem
     for C in range(129, 257):
         for H in (h for h in range(1, 17) if C % h == 0):
@@ -431,7 +437,7 @@ def test_plan_takes_every_width_to_256_channels_and_16_heads(pos, dtype):
                 assert mg.rows_padded(C, H, 5 if pos else 4) == (
                     not pos or W != C or C // H < 8)
     assert not mg.rows_padded(128, 16, 5)
-    for args in ((128, 257, 1), (128, 512, 2), (2048, 96, 24),
+    for args in ((128, 1025, 1), (128, 2048, 2), (2048, 96, 24),
                  (300, 64, 32), (5000, 32, 32)):
         with pytest.raises(ValueError, match="K7"):
             mg.plan(*args, pos=pos, dtype=dtype)
@@ -440,8 +446,8 @@ def test_plan_takes_every_width_to_256_channels_and_16_heads(pos, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 def test_wide_layout_and_stage_copies(dtype):
     """The wide kernel's layout (C = 256: no summary staging, a KV band of
-    all 256 columns, a ring of 12 TF32 / 24 bf16 stages, its scratch of
-    operand stages) and its stage copies, read back as the kernel reads
+    all 256 columns, a ring of 12 TF32 / 24 bf16 stages in the shared bytes
+    of every width, its scratch of operand stages and its pooling row) and its stage copies, read back as the kernel reads
     them, K in its natural order (A from shared memory too): stage i of
     the weight copy holds rows r0 .. r0 + 63 and one k-panel from k0 of
     weight_blocks' i-th matrix, every product in 128-column groups; the A
@@ -451,11 +457,12 @@ def test_wide_layout_and_stage_copies(dtype):
     lay = mg.rows_layout(256, 2, dtype)
     pk = 64 if bf16 else 32
     assert (lay.kvn, lay.kv_stages, lay.ring, lay.smem) == (
-        (256, 16, 24, 224648) if bf16 else (256, 32, 12, 224456))
+        (256, 16, 24, 230792) if bf16 else (256, 32, 12, 230600))
     ppc = 256 // pk
     assert mg.rows_scratch_bytes(130, 256, 2, dtype) == (
         2 * lay.kv_stages * lay.stage_bytes + 2 * 192 * 256 * 4
-        + 2 * (lay.stage_bytes * ppc * (3 * 3 + 4) + 4 * 64 * 128))
+        + 2 * (lay.stage_bytes * ppc * (3 * 3 + 4) + 4 * 64 * 128
+               + 4 * 2 * 256))
     t, d, w1, w2, _ = inputs("point", 1, 1, 3, 256, device="cpu")
     stages = mg.rows_stage_weights(w1, w2, bf16).reshape(-1, 4096)
     seq = mg.weight_blocks(256, pk)
@@ -680,17 +687,39 @@ def _chan(stats, y, ct, c0):
     return nn, mean + delta * nb / nn, m2 + qb + delta * delta * n * nb / nn
 
 
+def _staged(x, op, start=0.0):
+    """The wide kernel's reduction of a side's rows x (2, R, C) into one
+    row a side (warpgroup): for each 64-row m-tile, each warp's 16 rows
+    reduced, the 4 warps' results combined in warp order through the
+    warpgroup's staging, then into the side's running row, tile by tile
+    (sum k, and the pooling's max and sum)."""
+    run = torch.full((2, x.shape[-1]), start, dtype=x.dtype)
+    for r0 in range(0, x.shape[1], 64):
+        warps = [x[:, r0 + 16 * w:r0 + 16 * w + 16] for w in range(4)]
+        warps = [w for w in warps if w.shape[1]]
+        if op is torch.add:
+            red = [w.sum(1) for w in warps]
+        else:
+            red = [w.amax(1) for w in warps]
+        tile = red[0]
+        for w in red[1:]:
+            tile = op(tile, w)
+        run = op(run, tile)
+    return run
+
+
 def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
     """One pair through the wide kernel's walk (csrc/match_rows_wg.cuh
-    rows_wide_kernel) in float64, sides and weights at W = 256 (ct true
-    channels): every product takes both operands from the producer's
-    sequence (_wide_seq: the weight copy, stage 1's messages from
-    message_stages, the scratch rows each epilogue writes as A stages),
-    a scratch stage read as its buffer stood at the event the producer
-    waited for; the outputs in 128-column groups, the message over its
-    heads' band only, LayerNorm from Chan-merged statistics of the halves,
-    the summary's k and v once a tile and KV over the diagonal units only.
-    Returns the pooled (2W,)."""
+    rows_wide_kernel) in float64, sides and weights at the kernel's width
+    W, a multiple of 128 (ct true channels): every product takes both
+    operands from the producer's sequence (_wide_seq: the weight copy,
+    stage 1's messages from message_stages, the scratch rows each epilogue
+    writes as A stages), a scratch stage read as its buffer stood at the
+    event the producer waited for; the outputs in 128-column groups, the
+    message over its heads' band only, LayerNorm from Chan-merged
+    statistics of the groups, the summary's k and v once a tile and KV
+    over the diagonal units only; sum k and the pooling through each
+    warpgroup's staging (_staged). Returns the pooled (2W,)."""
     C, N = t[0].shape[2], t[0].shape[1]
     pk = 64 if bf16 else 32
     nb, nh, ppc = C // 64, C // 128, C // pk
@@ -798,7 +827,7 @@ def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
         ring.write("kt", s, _a_stages(kt[s], bf16, nrp=nrp))
         ring.write("vt", s, _a_stages(vt[s], bf16, nrp=nrp))
     ring.arrive()
-    ksum = kt.sum(-1)
+    ksum = _staged(kt.transpose(1, 2), torch.add)
     kv = torch.zeros(2, C, C, dtype=torch.float64)
     for mi in range(nb):
         for vh in range(nh):
@@ -818,8 +847,7 @@ def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
         st[stale] = float("nan")
         ring.write("kv", s, st)
     ring.arrive()
-    out_max = torch.full((C,), -float("inf"), dtype=torch.float64)
-    out_sum = torch.zeros(C, dtype=torch.float64)
+    pooled = []
     ks = torch.stack([ksum[1], ksum[0]])
     for tile in range(ntiles):
         r0 = tile * 64
@@ -830,12 +858,13 @@ def _wide_model(t, d, w1, w2, H, ti, dj, bf16, ct):
         ring.arrive()
         # a hidden group starts from its a = O fc1[:C]
         y = tail(den, lambda g: product(ppc), w2)
-        o = O[:, r0:r0 + 64]
-        res = (o + y)[:, :max(0, min(64, N - r0))]
-        out_max = torch.maximum(out_max, res.amax((0, 1)))
-        out_sum += res.sum((0, 1))
+        pooled.append(O[:, r0:r0 + 64] + y)
     assert ring.i == len(ring.seq) and len(ring.snaps) == ring.seq[-1][0]
-    return torch.cat([out_max, out_sum / (2 * N)])
+    rows_ = torch.cat(pooled, 1)[:, :N]
+    pmax = _staged(rows_, torch.maximum, -float("inf"))
+    psum = _staged(rows_, torch.add)
+    return torch.cat([torch.maximum(pmax[0], pmax[1]),
+                      (psum[0] + psum[1]) / (2 * N)])
 
 
 @pytest.mark.parametrize("head,C,H,N", [("point", 256, 2, 70),
@@ -912,7 +941,13 @@ def test_point_width_matches_jax(name, kw):
     at the configs/widths.py entry's widths (conv_out 256 in two
     128-channel heads; 16 heads of 8 channels; SA widths 512 / 1024 / 2048
     at mul 16), the port against JAX."""
-    jmodel, jvars, tmodel = _point_models(len(name), **kw)
+    point_width_against_jax(name, kw)
+
+
+def point_width_against_jax(name, kw):
+    """test_point_width_matches_jax at one width (also
+    tests/test_torch_k7_widths.py's)."""
+    jmodel, jvars, tmodel = _point_models(len(name), **dict(kw))
     a, b = crops(70, 3), crops(71, 4)
     with torch.no_grad():
         xt, ht = tmodel.embed(torch.from_numpy(a))
@@ -939,16 +974,22 @@ def test_image_width_256_matches_jax():
     """Tokens, the scorer's grid and a pair list of the tiny image model at
     downsample_dim 256 (two 128-channel heads, image256), the port against
     JAX."""
-    cfg = _image_cfg(256)
+    image_width_against_jax(256)
+
+
+def image_width_against_jax(dim: int):
+    """test_image_width_256_matches_jax at downsample_dim `dim` (also
+    tests/test_torch_k7_widths.py's)."""
+    cfg = _image_cfg(dim)
     tmodel = build_model(copy.deepcopy(cfg),
-                         generator=torch.Generator().manual_seed(256))
+                         generator=torch.Generator().manual_seed(dim))
     jmodel, jvars = jax_build(copy.deepcopy(cfg)), jax_variables_of(
         tmodel, "deit-test")
     ia, ib = images(72, 3), images(73, 4)
     with torch.no_grad():
         ht = tmodel.downsample_tokens(tmodel.embed(torch.from_numpy(ia)))
         hd = tmodel.downsample_tokens(tmodel.embed(torch.from_numpy(ib)))
-    assert ht.shape[-1] == 256
+    assert ht.shape[-1] == dim
     jt = jmodel.apply(jvars, jmodel.apply(jvars, jnp.asarray(ia), train=False,
                                           method="embed"),
                       train=False, method="downsample_tokens")
