@@ -220,6 +220,23 @@ Phases, each of which raises on failure:
      configs/widths.py through tools/track.py at float32 and --bf16, dense
      and sparse, each frame held as in phase 16, the launches of the new
      rows; the phase's seconds on a line of its own.
+ 18. past the wide layouts' first bounds (ROADMAP.md K7): the SA kernels
+     at 2,080-8192 channels and the match chain at 384-1024 channels and
+     32 heads against their plain versions, a sharded launch at 512
+     channels, then the four --set models of configs/widths.py K7_MODELS
+     through tools/track.py at float32 and --bf16, dense and sparse.
+ 19. the DGCNN 2048-point ablations at their registered 256 pairs: the
+     kNN kernel's channel tier (csrc/knn_channels.cu) at KNN_CHANNELS,
+     float32 and bf16, indices equal to the plain version's on exact and
+     duplicated inputs, near-ties only on random ones (their count and
+     largest gap), with its time, device time, plain and cdist + topk times
+     and bound; then, with every count at 0, DGCNN_ABLATION's train step
+     at 256 pairs through tools/profile_train.py (float32 and bf16, each
+     with and without --remat: step ms, peak GiB, the kNN launches a step
+     by tier), one eval batch of 256 pairs at both dtypes, and the chunked
+     EdgeConv step against one chunk at CHUNK_PAIRS pairs (loss, grad_norm,
+     gradients and the weights after the step); rows `knn/channels` and
+     `knn/channels_bf16`.
 Each kernel's bound is the least time the card could take for the call: the
 larger of its bytes (inputs once, outputs once) over 3.35 TB/s and its
 operations over the peak of the unit that runs them, the H100's published
@@ -472,6 +489,31 @@ K7_MATCH = (("point", 384, 3, 128, 16, 16), ("point", 512, 2, 128, 16, 16),
             ("image", 768, 2, 197, 16, 16))
 K7_MODELS = ("mul24", "conv_out512", "heads32", "image768")
 K7_SHARDS = 2
+# phase 19, the DGCNN 2048-point ablations at their registered 256 pairs
+# (ROADMAP.md section 1 item 5): the kNN kernel's channel tier (tier C,
+# csrc/knn_channels.cu) at (B, S, N, C, k): DGCNN's feature-space kNN of
+# blocks 2-3 and 4 at 256 pairs of 2048-point crops (512 clouds, every
+# point a query), the 1024-point ablation's, a cloud past shared memory
+# and small shapes off the kernel's tiles (C = 5 element by element, k past
+# 32), float32 and bf16; the leaf's train step through
+# tools/profile_train.py, an eval batch, and the chunked EdgeConv step
+# against one chunk at CHUNK_PAIRS pairs (float32 summation order alone:
+# loss, grad_norm and gradients at CHUNK_TOL, the weights after the step
+# through the updates' gap at DP_UPDATE_TOL, as phase 15 holds them)
+DGCNN_ABLATION = "pts_dgcnn_point-cat_waymo_det_4x256_400e_2048pts"
+KNN_CHANNELS = ((512, 2048, 2048, 64, 20), (512, 2048, 2048, 128, 20),
+                (512, 1024, 1024, 64, 20), (4, 2048, 20000, 64, 20),
+                (3, 70, 130, 5, 7), (2, 33, 97, 64, 40))
+# a bf16 swap needs plain distances this close (relative): each pick's
+# float32 sums may round to the neighbouring bf16 value twice
+KNN_BF16_TIE = 2 ** -5
+DGCNN_STEPS, DGCNN_WARMUP, CHUNK_PAIRS = 2, 1, 32
+# relative: the card read 3.0e-7 (loss), 1.05e-6 (grad_norm) and 2.7e-5
+# (gradients) between the chunked step and one chunk, and 0, 0 and 1.3e-7
+# between one chunk and itself
+CHUNK_TOL = 1e-4
+DGCNN_TRACES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_dgcnn")
 
 
 def nbytes(*tensors) -> int:
@@ -955,6 +997,10 @@ def all_counters() -> dict:
                 fused_image_match_pairs=mg.fused_image_match_pairs,
                 fps=kf.fps,
                 **{"knn/scan": TierCount(kk.knn, ("shared", "global")),
+                   "knn/channels": TierCount(kk.knn, ("channels",),
+                                             "f32_launches"),
+                   "knn/channels_bf16": TierCount(kk.knn, ("channels",),
+                                                  "bf16_launches"),
                    "linear_attention/one_query": TierCount(
                        la.linear_attention_forward, ("one_query",),
                        "shape_launches"),
@@ -3182,8 +3228,9 @@ def zoo_train(card: str, every: dict) -> dict:
             knn_n = every["knn"].launches - knn0
             attn_n = every["linear_attention"].launches - attn0
             # the point-transformer backbone (the baselines) runs kNN, and
-            # every leaf but concat has cross stages
-            want_knn = family in BASELINES
+            # DGCNN its feature-space kNN (tiers S and C); every leaf but
+            # concat has cross stages
+            want_knn = family in BASELINES or family == "DGCNN"
             want_attn = family != "concat"
             if not (all(np.isfinite(v) for log in logs for v in log.values())
                     and (knn_n > 0) == want_knn
@@ -4365,8 +4412,8 @@ def uncounted():
     fns = {id(c.fn if hasattr(c, "fn") else c): (c.fn if hasattr(c, "fn")
                                                  else c)
            for c in all_counters().values()}
-    names = ("launches", "bf16_launches", "tier_launches", "bf16_tiers",
-             "shape_launches", "padded_launches", "f32_layouts")
+    names = ("launches", "bf16_launches", "f32_launches", "tier_launches",
+             "bf16_tiers", "shape_launches", "padded_launches", "f32_layouts")
     saved = {k: {n: copy.deepcopy(getattr(f, n)) for n in names
                  if hasattr(f, n)} for k, f in fns.items()}
     try:
@@ -5263,6 +5310,303 @@ def widest_sa(rows: list, sa_cases: dict) -> None:
             "bound_padded_ms", "bound_ratio", "library_ms")})
 
 
+def knn_channel_case(B, S, N, C, k, dtype, seed: int) -> dict:
+    """Tier C against its plain version (kernels/knn.knn_reference in the
+    inputs' dtype) on exact, duplicated (indices equal) and random inputs
+    (near-ties only: KNN_TIE, KNN_BF16_TIE), then timed on the random ones:
+    a call from Python, the device time of a CUDA graph of calls, the plain
+    version, torch.cdist + topk in float32 (not tie-stable) and the bound
+    (2 B S N C flops over the peak of their type: 67 TFLOP/s at float32,
+    989 at bf16, whose float32-accumulated products the tensor cores could
+    run, with the FFMA bound the tier runs at kept as
+    `simt_fp32_bound_ms`; or the inputs and int64 indices over 3.35
+    TB/s)."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud as cloud
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    swaps, gap = 0, 0.0
+    for kind in ("exact", "duplicates", "random"):
+        xyz = torch.from_numpy(cloud(kind, B, N, seed, C)).to(DEVICE, dtype)
+        q = xyz[:, :S]
+        got = kk.knn(q, xyz, k, keep_dtype=True)
+        want = kk.knn_reference(q, xyz, k)
+        bad = got != want
+        n_bad = int(bad.sum().item())
+        if kind != "random":
+            if n_bad:
+                raise RuntimeError(f"knn/channels {kind} {dtype} B={B} S={S} "
+                                   f"N={N} C={C} k={k}: {n_bad} indices "
+                                   "differ")
+            continue
+        d = kk.square_distance(q, xyz).float()
+        diff = (d.gather(-1, got) - d.gather(-1, want)).abs()[bad]
+        scale = d.gather(-1, want)[bad].abs().clamp(min=1.0)
+        del d
+        tie = KNN_TIE if dtype == torch.float32 else KNN_BF16_TIE
+        if bool((diff > tie * scale).any()):
+            raise RuntimeError(f"knn/channels random {dtype} B={B} N={N} "
+                               f"C={C}: indices differ beyond a near-tie")
+        swaps = n_bad
+        gap = float((diff / scale).max()) if n_bad else 0.0
+    ms = time_ms(lambda: kk.knn(q, xyz, k, keep_dtype=True), 5)
+    device = graph_ms(lambda: kk.knn(q, xyz, k, keep_dtype=True), 5, 2)
+    plain = time_ms(lambda: kk.knn_reference(q, xyz, k), 2, 1)
+    qf, xf = q.float(), xyz.float()
+    lib = time_ms(lambda: torch.cdist(qf, xf).topk(
+        k, dim=-1, largest=False).indices, 2, 1)
+    del qf, xf
+    flops, nbyte = 2.0 * B * S * N * C, nbytes(q, xyz) + 8 * B * S * k
+    b_ms, b_by = bound_ms(flops, nbyte, PEAK_FLOPS if dtype == torch.float32
+                          else PEAK_BF16)
+    simt = bound_ms(flops, nbyte)[0]
+    torch.cuda.empty_cache()
+    case = dict(B=B, S=S, N=N, C=C, k=k, dtype=str(dtype).split(".")[-1],
+                width=kk.plan(N, k, C=C, bf16=dtype == torch.bfloat16).points,
+                near_tie_swaps=swaps, indices=got.numel(), max_gap_rel=gap,
+                ms=ms, device_ms=device, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by, bound_ratio=device / b_ms,
+                simt_fp32_bound_ms=simt)
+    print(f"[dgcnn:knn] {case['dtype']} B={B} S={S} N={N} C={C} k={k} "
+          f"(stage {case['width']} channels): indices equal on exact and "
+          f"duplicated inputs; random: {swaps} of {got.numel()} near-tie "
+          f"swaps (largest gap {gap:.2e} rel.); kernel {ms:.3f} ms (device "
+          f"{device:.3f}), plain {plain:.3f} ms, cdist+topk {lib:.3f} ms, "
+          f"bound {b_ms:.3f} ms ({b_by}), {device / b_ms:.2f}x (FFMA bound "
+          f"{simt:.3f} ms, {device / simt:.2f}x)", flush=True)
+    return case
+
+
+def knn_channel_rows() -> tuple:
+    """The kernels line's rows of tier C, float32 and bf16: each summed over
+    a DGCNN forward's three feature-space calls at 256 pairs (C = 64 twice,
+    128 once), the other shapes under `shapes`."""
+    import torch
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # the plain bf16 path's products summed in float32 alone, as the kernel
+    # sums them
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rows, cases = [], []
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            mine = [knn_channel_case(*shape, dtype, SEED + i)
+                    for i, shape in enumerate(KNN_CHANNELS)]
+            cases += mine
+            path = [mine[0], mine[0], mine[1]]
+            sfx = "" if dtype == torch.float32 else "_bf16"
+            rows.append(dict(
+                name="knn/channels" + sfx, route="cuda",
+                source="point_cloud_reid_tpu_torch/csrc/knn_channels.cu",
+                replaces="point_cloud_reid_tpu/ops/pallas/knn.py:51",
+                max_abs_err=max(c["max_gap_rel"] for c in mine),
+                near_tie_swaps=sum(c["near_tie_swaps"] for c in mine),
+                mismatches_exact=0,
+                **{key: sum(c[key] for c in path) for key in (
+                    "ms", "device_ms", "plain_ms", "bound_ms",
+                    "simt_fp32_bound_ms", "library_ms")},
+                bound_by=path[-1]["bound_by"], shapes=mine))
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            flag)
+    return rows, cases
+
+
+def dgcnn_train_runs(card: str) -> dict:
+    """The ablation leaf's train step at 256 pairs through
+    tools/profile_train.py (its kernel knobs on; DGCNN takes none):
+    float32 and bf16, each with and without remat."""
+    import argparse
+    import torch
+    from point_cloud_reid_tpu_torch.tools import profile_train as pt
+    runs = {}
+    for bf16 in (False, True):
+        for remat in (False, True):
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            args = argparse.Namespace(
+                experiment=DGCNN_ABLATION, batch=TRAIN_PAIRS,
+                steps=DGCNN_STEPS, warmup=DGCNN_WARMUP,
+                trace_dir=DGCNN_TRACES, bf16=bf16, remat=remat)
+            res = pt.profile_config(True, args)
+            label = ("bf16" if bf16 else "float32") + (" --remat" * remat)
+            if not all(np.isfinite([res["loss"], res["grad_norm"]])):
+                raise RuntimeError(f"dgcnn {label}: loss {res['loss']}, "
+                                   f"grad_norm {res['grad_norm']}")
+            knn_tiers = {t: v for t, v in res["knn_launches_per_step"].items()
+                         if v}
+            print(f"[dgcnn:train] {DGCNN_ABLATION} {label}, {TRAIN_PAIRS} "
+                  f"pairs: step {res['median_step_ms']:.1f} ms (steps "
+                  f"{[round(x, 1) for x in res['step_ms']]}), forward "
+                  f"{res['forward_ms']:.1f} / backward "
+                  f"{res['backward_ms']:.1f} / optimizer "
+                  f"{res['optimizer_ms']:.1f} ms, peak "
+                  f"{res['peak_memory_gib']:.2f} GiB ("
+                  f"{res['peak_memory_gib'] - held:.2f} above the {held:.2f} "
+                  f"GiB held before the run), device busy "
+                  f"{res['device_busy_share']:.1%}, kNN launches a step "
+                  f"{knn_tiers}, loss {res['loss']:.4f}, grad_norm "
+                  f"{res['grad_norm']:.4f} on {card}", flush=True)
+            runs[label] = {k: res[k] for k in (
+                "median_step_ms", "step_ms", "forward_ms", "backward_ms",
+                "optimizer_ms", "peak_memory_gib", "device_busy_share",
+                "knn_launches_per_step", "hand_kernels_ms_per_step", "loss",
+                "grad_norm")}
+            runs[label]["held_gib"] = held
+            torch.cuda.empty_cache()
+    return runs
+
+
+def dgcnn_eval_batches(card: str) -> dict:
+    """One eval batch (train/loop.make_eval_step) of the leaf at 256 pairs,
+    float32 and bf16: ms (host clock around a synchronised call, the second
+    of two) and peak GiB; finite logits, one a pair."""
+    import torch
+    from point_cloud_reid_tpu_torch.tools import profile_train as pt
+    from point_cloud_reid_tpu_torch.train.loop import make_eval_step
+    out = {}
+    spec = pt.train_spec(DGCNN_ABLATION, True)
+    for bf16 in (False, True):
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        run = pt.train_setup(spec, torch.device(DEVICE), TRAIN_PAIRS, 1,
+                             bf16=bf16)
+        step = make_eval_step(run["model"], spec["losses"], spec["alpha"])
+        batch = run["batches"][0]
+        step(run["state"], batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = step(run["state"], batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        logits = res["val_match_preds"]
+        if logits.shape[0] != TRAIN_PAIRS or not bool(
+                torch.isfinite(logits.float()).all()):
+            raise RuntimeError(f"dgcnn eval: logits {tuple(logits.shape)}")
+        label = "bf16" if bf16 else "float32"
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[dgcnn:eval] {DGCNN_ABLATION} {label}, one batch of "
+              f"{TRAIN_PAIRS} pairs: {ms:.1f} ms, peak {peak:.2f} GiB "
+              f"({peak - held:.2f} above the {held:.2f} GiB held before), "
+              f"logits finite on {card}", flush=True)
+        out[label] = dict(ms=ms, peak_memory_gib=peak, held_gib=held)
+        del run, step, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def dgcnn_chunk_check(card: str) -> dict:
+    """One float32 train step of the leaf at CHUNK_PAIRS pairs with
+    EdgeConv's chunks as the shapes give them, against the same step with
+    each block in one chunk (the whole edge tensor, as before chunking),
+    run twice: float32 summation order alone separates them (the sums over
+    chunks, cuBLAS's and index_add_'s atomics, which also separate one
+    chunk from itself). Loss, grad_norm and the gradients (the 2-norm of
+    the difference over the one-chunk gradient's) at CHUNK_TOL, the
+    weights after the step through the updates' gap (|chunked - one
+    chunk| / |one chunk's update|, 2-norms over every weight) at
+    DP_UPDATE_TOL, as phase 15 holds two routes of a step (Adam moves an
+    entry by about lr whatever its gradient's size, so an entry whose
+    gradient is rounding may move either way); the one chunk's gaps to
+    itself printed beside them."""
+    import torch
+    from point_cloud_reid_tpu_torch.models import dgcnn
+    from point_cloud_reid_tpu_torch.tools import profile_train as pt
+    spec = pt.train_spec(DGCNN_ABLATION, True)
+    default = dgcnn.EDGE_CHUNK_BYTES
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    got = []
+    try:
+        for budget in (default, 1 << 62, 1 << 62):
+            dgcnn.EDGE_CHUNK_BYTES = budget
+            run = pt.train_setup(spec, torch.device(DEVICE), CHUNK_PAIRS, 1)
+            model = run["model"]
+            chunks = [len(dgcnn.edge_chunks(
+                2 * CHUNK_PAIRS * spec["num_points"], m.k,
+                m[0].out_features))
+                for m in model.modules() if isinstance(m, dgcnn.EdgeConv)]
+            opt = run["state"].optimizer
+            before = [p.detach().clone() for p in opt.params]
+            seen = {}
+            apply = opt.step
+
+            def step(reduce=None):
+                # the step's raw gradients, before the update clears them
+                seen["grads"] = [g.detach().clone() for g in opt.gradients()]
+                return apply(reduce)
+            opt.step = step
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, log = run["step"](run["state"], run["batches"][0],
+                                 run["generator"])
+            torch.cuda.synchronize()
+            got.append(dict(
+                loss=float(log["reid_loss"]),
+                grad_norm=float(log["grad_norm"]), chunks=chunks,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                grads=seen["grads"],
+                update=[p.detach() - b for p, b in zip(opt.params, before)]))
+            del run, model, opt, before, seen
+            torch.cuda.empty_cache()
+    finally:
+        dgcnn.EDGE_CHUNK_BYTES = default
+
+    def gaps(a, b):
+        rel = {k: abs(a[k] - b[k]) / max(1.0, abs(b[k]))
+               for k in ("loss", "grad_norm")}
+        for key in ("grads", "update"):
+            num = sum(float(((u - w) ** 2).sum())
+                      for u, w in zip(a[key], b[key]))
+            den = sum(float((w ** 2).sum()) for w in b[key])
+            rel[key] = (num / den) ** 0.5
+        return rel
+    rel, noise = gaps(got[0], got[1]), gaps(got[2], got[1])
+    a, b = got[0], got[1]
+    print(f"[dgcnn:chunks] {CHUNK_PAIRS} pairs, float32: chunks a block "
+          f"{a['chunks']} against {b['chunks']}: loss {a['loss']:.6f} / "
+          f"{b['loss']:.6f}, grad_norm {a['grad_norm']:.6f} / "
+          f"{b['grad_norm']:.6f}; rel loss {rel['loss']:.2e}, grad_norm "
+          f"{rel['grad_norm']:.2e}, gradients {rel['grads']:.2e} (tol "
+          f"{CHUNK_TOL:g}), updates' gap {rel['update']:.2e} (tol "
+          f"{DP_UPDATE_TOL:g}); one chunk against itself: loss "
+          f"{noise['loss']:.2e}, grad_norm {noise['grad_norm']:.2e}, "
+          f"gradients {noise['grads']:.2e}, updates' gap "
+          f"{noise['update']:.2e}; peak {a['peak']:.2f} against "
+          f"{b['peak']:.2f} GiB (each with the {held:.2f} GiB held before) "
+          f"on {card}", flush=True)
+    if (max(rel["loss"], rel["grad_norm"], rel["grads"]) > CHUNK_TOL
+            or rel["update"] > DP_UPDATE_TOL):
+        raise RuntimeError(f"dgcnn: the chunked step differs: {rel}")
+    return dict(chunks=a["chunks"], one_chunk=b["chunks"], rel=rel,
+                one_chunk_noise=noise, peak_gib=[a["peak"], b["peak"]],
+                held_gib=held)
+
+
+def phase_dgcnn_ablation(card: str):
+    """Phase 19: tier C of the kNN kernel against its plain version, then,
+    with every count at 0, the DGCNN 2048-point ablation's train step at 256
+    pairs (float32, bf16, each with and without remat), an eval batch of
+    256 pairs and the chunked step against one chunk. Returns (the kernels
+    line's rows, the path's launches, a summary)."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows, cases = knn_channel_rows()
+    t_kernels = time.perf_counter() - t_phase
+    every = zero_counters()
+    train = dgcnn_train_runs(card)
+    evals = dgcnn_eval_batches(card)
+    chunks = dgcnn_chunk_check(card)
+    launches = {k: fn.launches for k, fn in every.items()}
+    if not launches["knn/channels"] or not launches["knn/channels_bf16"]:
+        raise RuntimeError(f"dgcnn: tier C not launched: {launches}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[dgcnn] path launches {({k: v for k, v in launches.items() if v})}"
+          f"; phase 19 took {seconds:.1f} s (kernel checks {t_kernels:.1f} s)",
+          flush=True)
+    return rows, launches, dict(seconds=seconds, kernels_seconds=t_kernels,
+                                knn_cases=cases, train=train, eval=evals,
+                                chunks=chunks)
+
+
 def main():
     import torch
     card = phase_device()
@@ -5315,13 +5659,16 @@ def main():
     k7_sa, k7_rows, k7, k7_summary = phase_k7(card)
     widest_sa(rows, k7_sa)
     rows += k7_rows
+    torch.cuda.empty_cache()
+    dgcnn_rows, dgcnn, dgcnn_summary = phase_dgcnn_ablation(card)
+    rows += dgcnn_rows
     for row in rows:
         # each path was driven with every count at 0 just before it
         counter = row.pop("counter", row["name"])
         row["launches"] = sum(path.get(counter, 0) for path in (
             serving, training, image_path, tracker_host, fps_path,
             data_path, family, bf16_path, bf16_training, zoo, tracker_zoo,
-            reference, multi_gpu, widths, wide, k7))
+            reference, multi_gpu, widths, wide, k7, dgcnn))
         if row["launches"] <= 0:
             raise RuntimeError(f"{row['name']} was never launched on a "
                                "main path")
@@ -5333,7 +5680,7 @@ def main():
                       "reference": reference_summary,
                       "multi_gpu": multi_gpu_summary,
                       "widths": widths_summary, "wide": wide_summary,
-                      "k7": k7_summary}))
+                      "k7": k7_summary, "dgcnn_ablation": dgcnn_summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

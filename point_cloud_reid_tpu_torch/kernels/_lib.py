@@ -95,6 +95,9 @@ _SIGNATURES = {
     "pcr_knn_i64": [_P] * 3 + [_I] * 4 + [_P],
     # the same, then the plan: tier, points, warps, smem; stream
     "pcr_knn_plan": [_P] * 3 + [_I] * 8 + [_P],
+    # tier C (csrc/knn_channels.cu): q, db, out, B, S, N, C, k, channels a
+    # stage, smem, bf16; stream
+    "pcr_knn_channels": [_P] * 3 + [_I] * 8 + [_P],
     # q, k, v, out, B, L, S, H, D, V, 9 strides (q, k, v: batch, row, head,
     # in elements), eps, stream
     "pcr_linear_attention": [_P] * 4 + [_I] * 6 + [_L] * 9

@@ -68,10 +68,13 @@ def knn_feature_space(x: torch.Tensor, k: int) -> torch.Tensor:
     the order is lax.top_k's (the lower index first among equal
     distances), which a stable ascending sort gives and torch.topk does not
     promise. Resampled crops repeat points, so exact ties are the normal
-    case."""
+    case. One route for every caller (DGCNN, VN-DGCNN, the local stages):
+    kernels/knn.knn with the distances in x's dtype, on the card its
+    kernel (no (B, N, N) tensor; tier C past 3 channels or at bf16), on the
+    CPU its plain version, this sort."""
+    from ..kernels.knn import knn
     xt = x.transpose(-1, -2)
-    d = square_distance(xt, xt)
-    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    return knn(xt, xt, k, keep_dtype=True)
 
 
 def edge_features(xt: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,23 +1,28 @@
-"""A/B timing of versions of the kNN kernel (csrc/knn.cu) and the
-linear-attention kernel (csrc/linear_attention.cu) in one process on one
-card.
+"""A/B timing of versions of the kNN kernel (csrc/knn.cu, or its channel
+tier csrc/knn_channels.cu) and the linear-attention kernel
+(csrc/linear_attention.cu) in one process on one card.
 
-Each SOURCE is a version of one of the two files, for example the parent
+Each SOURCE is a version of one of the three files, for example the parent
 commit's from `git show`. Each is built as a kernels/_lib.Library of its own
 from that one source (seconds; all built together, ptxas's register and
 spill lines printed) and launched as the wrapper launches it:
 kernels/knn.launch for a version with the int64 entry point
-`pcr_knn_i64`, and for an older one with the int32 `pcr_knn` its launch
-plus the wrapper's cast to int64, which is then inside the clock;
-kernels/linear_attention.launch for attention. The training path's shapes:
-kNN at the flagship's three SA stages on 512 crops (S, N, k = 128, 128, 32
-/ 64, 128, 48 / 32, 64, 48) on exact-arithmetic, duplicated and random
-seeded clouds, timed on the random ones; attention at the cross stages'
-(B, L, S, H, D, V) = (256, 128, 128, 2, 32, 32), q and k / v views of
-fused projections as the model hands them over, three input sets (more
-than the 50 MB L2) in rotation. `--N` sets the crop size (SA1's kNN over N
-points, attention at L = S = N: a point-count ablation's shapes; kNN
-versions from before the tiers take N <= 128 only) and `--C` the cross
+`pcr_knn_i64` or the channel tier's `pcr_knn_channels`, and for an older
+one with the int32 `pcr_knn` its launch plus the wrapper's cast to int64,
+which is then inside the clock; kernels/linear_attention.launch for
+attention. The training path's shapes: kNN at the flagship's three SA
+stages on 512 crops (S, N, k = 128, 128, 32 / 64, 128, 48 / 32, 64, 48);
+the channel tier at DGCNN's feature-space kNN at 256 pairs of 2048-point
+crops (512 clouds, every point a query; C = 64 and 128, k = 20, float32
+and bf16), then at float32 with k (1, 8, 48) and C (16, 32, 256) apart,
+the running top-k's share of the time against the products'; both on
+exact-arithmetic, duplicated and random seeded clouds, timed on the random
+ones; attention at the cross stages' (B, L, S, H, D, V) = (256, 128, 128,
+2, 32, 32), q and k / v views of fused projections as the model hands them
+over, three input sets (more than the 50 MB L2) in rotation. `--N` sets
+the crop size (SA1's kNN over N points, attention at L = S = N: a
+point-count ablation's shapes; kNN versions from before the tiers take N
+<= 128 only; the channel tier keeps DGCNN's 2048) and `--C` the cross
 stages' width (D = V = C / 2: --C 128 for the 1.5M and 7M models).
 Versions are timed in turns (first to last,
 then last to first, `--rounds` times), as chip_smoke.py times them
@@ -33,7 +38,9 @@ the card's name and power limit.
         [--knn SOURCE ...] [--attention SOURCE ...] [--rounds 5]
         [--iters 20] [--N 128] [--C 64]
 
-Needs a CUDA device and nvcc. Float32, TF32 off.
+Needs a CUDA device and nvcc. Float32, TF32 off; bf16 products summed in
+float32 (cuBLAS's reduced-precision bf16 reduction off), as the channel
+tier and JAX sum them.
 """
 from __future__ import annotations
 
@@ -54,6 +61,15 @@ from .timing import graph_ms, time_ms
 
 KNN_KINDS = ("exact", "duplicates", "random")
 KNN_TIE = 1e-6         # a swap needs plain distances this close (relative)
+KNN_BF16_TIE = 2 ** -5  # at bf16: two roundings to the neighbouring value
+# the channel tier's (C, k, dtype) on 512 clouds of 2048 points: DGCNN's
+# blocks 2-4 at both dtypes, then k and C apart
+CHANNEL_CLOUDS, CHANNEL_POINTS = 512, 2048
+CHANNEL_STAGES = ((64, 20, "float32"), (128, 20, "float32"),
+                  (64, 20, "bfloat16"), (128, 20, "bfloat16"),
+                  (64, 1, "float32"), (64, 8, "float32"), (64, 48, "float32"),
+                  (16, 20, "float32"), (32, 20, "float32"),
+                  (256, 20, "float32"))
 
 
 def knn_stages(crop: int = 128):
@@ -81,6 +97,22 @@ def knn_inputs(B: int = 512, seed: int = 0, device="cuda",
     return out
 
 
+def channel_inputs(B: int = CHANNEL_CLOUDS, N: int = CHANNEL_POINTS,
+                   seed: int = 0, device="cuda") -> list:
+    """Per CHANNEL_STAGES entry (name, k, {kind: (queries, points)}): B
+    seeded clouds of N points of C channels in the stage's dtype, every
+    point a query."""
+    out = []
+    for i, (C, k, dtype) in enumerate(CHANNEL_STAGES):
+        clouds = {}
+        for kind in KNN_KINDS:
+            x = torch.from_numpy(knn_cloud(kind, B, N, seed + i, C)).to(
+                device, getattr(torch, dtype))
+            clouds[kind] = (x, x)
+        out.append((f"C{C}_k{k}_{dtype}", k, clouds))
+    return out
+
+
 def attention_inputs(B: int = 256, L: int = 128, S: int = 128, H: int = 2,
                      D: int = 32, V: int = 32, sets: int = 3, seed: int = 0,
                      device="cuda") -> list:
@@ -102,7 +134,7 @@ def knn_call(lib):
     with `pcr_knn_i64`; from an older int32 `pcr_knn`, its launch and the
     cast the wrapper then made."""
     handle = lib.get()
-    if hasattr(handle, "pcr_knn_i64"):
+    if hasattr(handle, "pcr_knn_i64") or hasattr(handle, "pcr_knn_channels"):
         return lambda q, xyz, k: kk.launch(q, xyz, k, library=lib)
     fn = handle.pcr_knn
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
@@ -118,40 +150,54 @@ def knn_call(lib):
     return call
 
 
-def knn_check(got, q, xyz, k) -> tuple:
+def knn_check(got, q, xyz, k, clouds: int = 64) -> tuple:
     """(mismatches, swaps beyond a near-tie, largest plain-distance gap)
-    against the plain stable argsort."""
-    want = kk.knn_reference(q, xyz, k)
-    bad = got != want
-    dist = kk.square_distance(q, xyz)
-    dg, dw = dist.gather(-1, got), dist.gather(-1, want)
-    gap = (dg - dw).abs()
-    far = gap[bad] > KNN_TIE * dw.abs()[bad].clamp(min=1.0)
-    return int(bad.sum()), int(far.sum()), float(gap.max())
+    against the plain stable argsort (in the inputs' dtype), `clouds`
+    clouds at a time."""
+    tie = KNN_BF16_TIE if q.dtype == torch.bfloat16 else KNN_TIE
+    n_bad = n_far = 0
+    gap = 0.0
+    for b in range(0, q.shape[0], clouds):
+        qb, xb, gb = q[b:b + clouds], xyz[b:b + clouds], got[b:b + clouds]
+        want = kk.knn_reference(qb, xb, k)
+        bad = gb != want
+        dist = kk.square_distance(qb, xb).float()
+        dg, dw = dist.gather(-1, gb), dist.gather(-1, want)
+        del dist
+        diff = (dg - dw).abs()
+        n_bad += int(bad.sum())
+        n_far += int((diff[bad] > tie * dw.abs()[bad].clamp(min=1.0)).sum())
+        gap = max(gap, float(diff.max()))
+    return n_bad, n_far, gap
 
 
 def run_knn(sources, rounds: int, iters: int, card: str,
             crop: int = 128) -> None:
     libs = build(sources)
     calls = [knn_call(lib) for lib in libs]
-    stages = knn_inputs(crop=crop)
+    if hasattr(libs[0].get(), "pcr_knn_channels"):
+        stages = channel_inputs()
+    else:
+        stages = [(f"S{S}_N{N}_k{k}", k, clouds)
+                  for S, N, k, clouds in knn_inputs(crop=crop)]
     checks = []
     for call in calls:
         res = {}
-        for S, N, k, clouds in stages:
+        for name, k, clouds in stages:
             for kind, (q, xyz) in clouds.items():
                 got = call(q, xyz, k)
                 torch.cuda.synchronize()
-                if got.dtype != torch.int64 or got.shape != (q.shape[0], S, k):
+                if got.dtype != torch.int64 or got.shape != (*q.shape[:2], k):
                     raise RuntimeError(f"knn gave {got.dtype} {got.shape}")
-                res[f"S{S}_N{N}_k{k}_{kind}"] = knn_check(got, q, xyz, k)
+                res[f"{name}_{kind}"] = knn_check(got, q, xyz, k)
+                del got
         checks.append(res)
     times = [[[] for _ in stages] for _ in libs]
     device = [[[] for _ in stages] for _ in libs]
     for r in range(rounds):
         order = list(range(len(libs)))
         for i in (order if r % 2 == 0 else order[::-1]):
-            for j, (S, N, k, clouds) in enumerate(stages):
+            for j, (_, k, clouds) in enumerate(stages):
                 q, xyz = clouds["random"]
                 times[i][j].append(time_ms(
                     lambda: calls[i](q, xyz, k), iters))
@@ -163,7 +209,7 @@ def run_knn(sources, rounds: int, iters: int, card: str,
         res = checks[i]
         print(json.dumps(dict(
             kernel="knn", source=src, card=card, crops=512,
-            stages=[f"S{S}_N{N}_k{k}" for S, N, k, _ in stages],
+            stages=[name for name, _, _ in stages],
             median_ms=med, sum_ms=sum(med), all_ms=times[i],
             device_ms=dev, device_sum_ms=sum(dev), device_all_ms=device[i],
             exact_mismatches=sum(v[0] for key, v in res.items()
@@ -227,6 +273,7 @@ def main(argv=None):
         raise SystemExit("give --knn and/or --attention sources")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     card = card_name()
     if args.knn:
         run_knn(args.knn, args.rounds, args.iters, card, args.N)

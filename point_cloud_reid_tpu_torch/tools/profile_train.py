@@ -8,7 +8,8 @@ attention), in one process on one card. For each it prints one JSON line:
 median step ms (host clock around a synchronised step), forward / backward /
 optimizer ms (CUDA events), peak memory, and from one torch.profiler window
 the device time per kernel name (the 14 longest, and the training path's
-two hand-written kernels, kNN and attention, apart) and the share of the
+two hand-written kernels, kNN and attention, apart), the kNN kernel's
+launches a step by tier (kernels/knn.TIER_NAMES) and the share of the
 window the device was busy; with the card's name and power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.profile_train
@@ -165,8 +166,14 @@ def profile_config(kernels: bool, args) -> dict:
         timer.stop()
         return log
 
-    for batch in batches[:args.warmup + args.steps]:
+    from ..kernels import knn as kk
+    for batch in batches[:args.warmup]:
         log = step(batch)
+    tiers = dict(kk.knn.tier_launches)
+    for batch in batches[args.warmup:args.warmup + args.steps]:
+        log = step(batch)
+    knn_tiers = {t: (kk.knn.tier_launches[t] - tiers[t]) / args.steps
+                 for t in kk.TIER_NAMES}
     phases = _phases_ms(run, batches[args.warmup + args.steps])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -206,10 +213,12 @@ def profile_config(kernels: bool, args) -> dict:
         device_ms_per_step=sum(per_kernel.values()),
         device_kernels_per_step=len(intervals) / args.steps,
         device_busy_share=_busy_us(intervals) / window_us,
+        knn_launches_per_step=knn_tiers,
         kernels_ms_per_step={k: v for k, v in top},
         hand_kernels_ms_per_step={
             k: v for k, v in per_kernel.items()
-            if "knn_kernel" in k or "lin_attn_kernel" in k})
+            if "knn_kernel" in k or "knn_channels" in k
+            or "lin_attn_kernel" in k})
 
 
 def main(argv=None):

@@ -24,16 +24,18 @@ def bench_scene(n_obj: int, pts_per_obj: int, frames: int, seed: int = 0):
         yield pts, boxes, np.ones(n_obj, np.float32), np.zeros(n_obj, np.int64)
 
 
-def knn_cloud(kind: str, B: int, N: int, seed: int) -> np.ndarray:
-    """(B, N, 3) float32 crops for the kNN and FPS checks. 'exact':
-    multiples of 1/64 in [-2, 2), so every product and sum is exact in
-    float32 and the kernel and the plain version see identical distances,
-    full of ties; 'duplicates': 'exact' points resampled with replacement,
-    as crops are; 'random': Gaussian floats."""
+def knn_cloud(kind: str, B: int, N: int, seed: int, C: int = 3
+              ) -> np.ndarray:
+    """(B, N, C) float32 crops (or features) for the kNN and FPS checks.
+    'exact': multiples of 1/64 in [-2, 2), so every product and sum of a
+    squared distance (to C = 256) is exact in float32 and the kernel and
+    the plain version see identical distances, full of ties;
+    'duplicates': 'exact' points resampled with replacement, as crops
+    are; 'random': Gaussian floats."""
     rs = np.random.RandomState(seed)
     if kind == "random":
-        return (rs.randn(B, N, 3) * 0.6).astype(np.float32)
-    xyz = rs.randint(-128, 128, (B, N, 3)).astype(np.float32) / 64.0
+        return (rs.randn(B, N, C) * 0.6).astype(np.float32)
+    xyz = rs.randint(-128, 128, (B, N, C)).astype(np.float32) / 64.0
     if kind == "duplicates":
         xyz = xyz[np.arange(B)[:, None], rs.randint(0, N // 3, (B, N))]
     return xyz

@@ -90,3 +90,74 @@ def test_knn_stages_take_the_crop_size():
     S, N, k, clouds = ab.knn_inputs(2, device="cpu", crop=300)[0]
     assert (S, N, k) == (128, 300, 32)
     assert clouds["random"][1].shape == (2, 300, 3)
+
+
+def test_channel_stages_are_dgcnn_feature_knn():
+    """The channel tier's stages: DGCNN's blocks 2-4 at 256 pairs of
+    2048-point crops at both dtypes, then k and C apart; each a tier C
+    launch."""
+    assert (ab.CHANNEL_CLOUDS, ab.CHANNEL_POINTS) == (512, 2048)
+    assert {(64, 20, "float32"), (128, 20, "float32"), (64, 20, "bfloat16"),
+            (128, 20, "bfloat16")} <= set(ab.CHANNEL_STAGES)
+    assert {k for C, k, _ in ab.CHANNEL_STAGES if C == 64} == {1, 8, 20, 48}
+    assert {C for C, k, _ in ab.CHANNEL_STAGES if k == 20} == {
+        16, 32, 64, 128, 256}
+    for C, k, dtype in ab.CHANNEL_STAGES:
+        how = kk.plan(ab.CHANNEL_POINTS, k, C=C, bf16=dtype == "bfloat16")
+        assert how.tier == kk.CHANNELS
+
+
+def test_channel_inputs_are_seeded_features():
+    stages = ab.channel_inputs(2, 30, device="cpu")
+    again = ab.channel_inputs(2, 30, device="cpu")
+    assert [name for name, _, _ in stages] == [
+        f"C{C}_k{k}_{d}" for C, k, d in ab.CHANNEL_STAGES]
+    for (name, k, clouds), (_, k2, clouds2), (C, want_k, dtype) in zip(
+            stages, again, ab.CHANNEL_STAGES):
+        assert k == k2 == want_k and set(clouds) == set(ab.KNN_KINDS)
+        for kind, (q, xyz) in clouds.items():
+            assert q is xyz and q.shape == (2, 30, C)
+            assert q.dtype == getattr(torch, dtype)
+            assert torch.equal(q, clouds2[kind][0])
+        dup = clouds["duplicates"][1].float()
+        assert len(torch.unique(dup[0], dim=0)) < 30
+
+
+def test_knn_check_takes_clouds_in_chunks():
+    """knn_check sums its counts over chunks of clouds as over the whole
+    batch, and at bf16 takes a near-tie as two bf16 roundings."""
+    _, k, clouds = ab.channel_inputs(5, 40, device="cpu")[0]
+    q, xyz = clouds["duplicates"]
+    want = kk.knn_reference(q, xyz, k)
+    wrong = want.flip(-1)
+    whole = ab.knn_check(wrong, q, xyz, k)
+    assert whole[0] > 0 and whole[1] > 0 and whole[2] > 0
+    assert ab.knn_check(wrong, q, xyz, k, clouds=2) == whole
+    assert ab.knn_check(want, q, xyz, k, clouds=1) == (0, 0, 0.0)
+    # bf16: a swap of two picks one bf16 ulp apart is a near-tie
+    x = torch.tensor([[[0.0], [1.0], [1.0078125], [3.0]]]).bfloat16()
+    got = torch.tensor([[[0, 2, 1]]])
+    bad, far, gap = ab.knn_check(got, x[:, :1], x, 3)
+    assert (bad, far) == (2, 0) and gap > 0
+
+
+def test_knn_call_launches_channel_versions(monkeypatch):
+    """A version with the channel tier's entry point is launched through
+    kernels/knn.launch with this package's plan: its arguments as the
+    wrapper passes them."""
+    seen = []
+
+    class Handle:
+        def pcr_knn_channels(self, *args):
+            seen.append(args)
+            return 0
+
+    class Lib:
+        def get(self):
+            return Handle()
+    monkeypatch.setattr(kk._lib, "stream_ptr", lambda device: 0)
+    x = torch.zeros(2, 70, 64, dtype=torch.bfloat16)
+    out = ab.knn_call(Lib())(x, x, 20)
+    assert out.shape == (2, 70, 20) and out.dtype == torch.int64
+    how = kk.plan(70, 20, C=64, bf16=True)
+    assert seen[0][3:] == (2, 70, 70, 64, 20, how.points, how.smem, 1, 0)

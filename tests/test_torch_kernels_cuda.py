@@ -511,6 +511,145 @@ def test_knn_every_tier_equal_plain(cuda, kind, tier):
     assert torch.equal(got, kk.knn_reference(q, xyz, 40))
 
 
+@pytest.fixture
+def bf16_full_sums(cuda):
+    """cuBLAS's bf16 products summed in float32 alone, as tier C and JAX
+    sum them (restored after the test). PyTorch's default lets cuBLAS
+    reduce bf16 products at reduced precision, which tier C does not
+    reproduce: the indices equal those of the float32-summed bf16 path."""
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+def _channel_cloud(cuda, kind, B, N, C, seed, dtype=torch.float32):
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud
+    return torch.from_numpy(knn_cloud(kind, B, N, seed, C)).to(cuda, dtype)
+
+
+def _knn_near_ties(kk, q, xyz, got, want, tol):
+    """Every index that differs from the plain version's is a near-tie: the
+    plain distances of the two picks within tol of max(1, |d|)."""
+    d = kk.square_distance(q, xyz).float()
+    dg, dw = d.gather(-1, got), d.gather(-1, want)
+    bad = got != want
+    assert ((dg - dw).abs()[bad] <= tol * dw.abs()[bad].clamp(min=1.0)).all()
+
+
+# tier C (csrc/knn_channels.cu): DGCNN's feature-space shapes (C = 64, 128,
+# every point a query), channel counts off the 4-element groups (1, 5, 6),
+# one stage a tile and 64-channel stages (256), k past 32 and k = N, S and
+# N off the 64-row tiles, a cloud past shared memory (20,000 x 16 floats);
+# xyz (C = 3) at bf16 in test_knn_feature_space_bf16_route
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
+@pytest.mark.parametrize("B,S,N,C,k", [
+    (4, 256, 256, 64, 20), (2, 2048, 2048, 64, 20), (2, 2048, 2048, 128, 20),
+    (2, 100, 300, 5, 7), (3, 64, 97, 6, 40), (1, 5, 64, 1, 64),
+    (2, 33, 1000, 256, 48), (2, 9, 20000, 16, 32)])
+def test_knn_channels_match_plain(bf16_full_sums, dtype, kind, B, S, N, C,
+                                  k):
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    cuda, dt = bf16_full_sums, getattr(torch, dtype)
+    xyz = _channel_cloud(cuda, kind, B, N, C, N + C + k, dt)
+    q = xyz[:, :S].contiguous()
+    # counted in all, by tier, and by tier for its dtype alone
+    by_dtype = (kk.knn.bf16_launches if dtype == "bfloat16"
+                else kk.knn.f32_launches)
+    other = (kk.knn.f32_launches if dtype == "bfloat16"
+             else kk.knn.bf16_launches)
+
+    def counts():
+        return (kk.knn.launches, kk.knn.tier_launches["channels"],
+                by_dtype["channels"], other["channels"])
+    before = counts()
+    got = kk.knn(q, xyz, k, keep_dtype=True)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 1,
+                        before[3])
+    want = kk.knn_reference(q, xyz, k)
+    assert got.dtype == torch.int64 and got.shape == (B, S, k)
+    if kind != "random":
+        assert torch.equal(got, want)
+        return
+    # float32: the matmul's rounding is not the kernel's; bf16: a float32
+    # sum taken in another order may round to the neighbouring bf16 value,
+    # in the inner product and in the distance (two ulps a pick)
+    _knn_near_ties(kk, q, xyz, got, want, 1e-6 if dtype == "float32"
+                   else 2 ** -5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,width", [(64, 16), (64, 48), (40, 16),
+                                     (130, 64), (129, 32)])
+def test_knn_channel_stages_equal_plain(bf16_full_sums, dtype, C, width):
+    """Stages narrower than C, forced (the last stage ragged at 40, 130
+    and 129 channels; 129 and 130 element by element): exact and
+    duplicated inputs give the plain version's indices."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    cuda = bf16_full_sums
+    dt = getattr(torch, dtype)
+    for kind in ("exact", "duplicates"):
+        xyz = _channel_cloud(cuda, kind, 3, 150, C, C, dt)
+        q = xyz[:, :70].contiguous()
+        how = kk.plan(150, 24, C=C, bf16=dtype == "bfloat16", width=width)
+        assert how.tier == kk.CHANNELS and how.points == width
+        got = kk.launch(q, xyz, 24, how)
+        assert torch.equal(got, kk.knn_reference(q, xyz, 24)), kind
+
+
+@pytest.mark.parametrize("C,dtype", [(64, "float32"), (128, "float32"),
+                                     (6, "float32"), (64, "bfloat16")])
+def test_knn_channels_one_kernel_a_call(cuda, C, dtype):
+    """Tier C writes the int64 indices itself: one device kernel a call,
+    no cast, no copy."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.timing import device_kernels
+    xyz = _channel_cloud(cuda, "random", 2, 300, C, 0, getattr(torch, dtype))
+    names = device_kernels(lambda: kk.knn(xyz, xyz, 20, keep_dtype=True))
+    assert len(names) == 1 and "knn_channels" in names[0], names
+
+
+@pytest.mark.parametrize("C", [3, 64, 128])
+def test_knn_feature_space_bf16_route(bf16_full_sums, C):
+    """knn_feature_space at bf16 on the card: tier C with the plain bf16
+    path's roundings (indices equal to the bf16 sort on exact and
+    duplicated features, C = 3 included), while knn() without keep_dtype
+    casts bf16 to float32 as knn_pallas does; float32 features of 64 and
+    128 channels take tier C, of 3 the xyz tiers."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.ops.geometry import (knn_feature_space,
+                                                         square_distance)
+    cuda = bf16_full_sums
+    for kind in ("exact", "duplicates"):
+        x = _channel_cloud(cuda, kind, 4, 500, C, C, torch.bfloat16)
+        d = square_distance(x, x)
+        assert d.dtype == torch.bfloat16
+        want = torch.sort(d, dim=-1, stable=True).indices[..., :20]
+        before = dict(kk.knn.tier_launches)
+        got = knn_feature_space(x.transpose(1, 2), 20)
+        assert torch.equal(got, want), kind
+        assert kk.knn.tier_launches["channels"] == before["channels"] + 1
+        cast = kk.knn(x, x, 20)
+        assert torch.equal(cast, kk.knn_reference(x.float(), x.float(), 20))
+        f32 = x.float()
+        before = dict(kk.knn.tier_launches)
+        got = knn_feature_space(f32.transpose(1, 2), 20)
+        assert torch.equal(got, kk.knn_reference(f32, f32, 20))
+        tier = "channels" if C != 3 else "shared"
+        assert kk.knn.tier_launches[tier] == before[tier] + 1
+
+
+def test_knn_channels_all_points_identical(cuda):
+    """An all-way tie over 64 channels: every query's neighbours are
+    0 .. k-1 in order, in both dtypes."""
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    for dt in (torch.float32, torch.bfloat16):
+        xyz = torch.full((3, 200, 64), 0.37, device=cuda, dtype=dt)
+        want = torch.arange(48, device=cuda).expand(3, 7, 48)
+        assert torch.equal(kk.knn(xyz[:, :7], xyz, 48, keep_dtype=True), want)
+
+
 def _f32(x):
     """The float32 nearest the exact rational x, ties to even."""
     from fractions import Fraction
