@@ -230,10 +230,14 @@ Phases, each of which raises on failure:
      float32 and bf16, indices equal to the plain version's on exact and
      duplicated inputs, near-ties only on random ones (their count and
      largest gap), with its time, device time, plain and cdist + topk times
-     and bound; then, with every count at 0, DGCNN_ABLATION's train step
-     at 256 pairs through tools/profile_train.py (float32 and bf16, each
-     with and without --remat: step ms, peak GiB, the kNN launches a step
-     by tier), one eval batch of 256 pairs at both dtypes, and the chunked
+     and the bound of its products' route (bf16 or FFMA), ptxas's registers and spills of every instantiation, the shared bytes
+     of each plan; DGCNN conv1's kNN over xyz (C = 3) through tier S as
+     routed and tier C forced, both against plain and both timed; then,
+     with every count at 0, DGCNN_ABLATION's train step at 256 pairs
+     through tools/profile_train.py (float32 and bf16, each with and
+     without --remat: step ms, peak GiB, the kNN launches a step by tier,
+     the kNN's device ms a step and its share of the step), one eval batch
+     of 256 pairs at both dtypes, and the chunked
      EdgeConv step against one chunk at CHUNK_PAIRS pairs (loss, grad_norm,
      gradients and the weights after the step); rows `knn/channels` and
      `knn/channels_bf16`.
@@ -5316,11 +5320,10 @@ def knn_channel_case(B, S, N, C, k, dtype, seed: int) -> dict:
     (near-ties only: KNN_TIE, KNN_BF16_TIE), then timed on the random ones:
     a call from Python, the device time of a CUDA graph of calls, the plain
     version, torch.cdist + topk in float32 (not tie-stable) and the bound
-    (2 B S N C flops over the peak of their type: 67 TFLOP/s at float32,
-    989 at bf16, whose float32-accumulated products the tensor cores could
-    run, with the FFMA bound the tier runs at kept as
-    `simt_fp32_bound_ms`; or the inputs and int64 indices over 3.35
-    TB/s)."""
+    of the products the tier runs: 2 B S N C flops at one bf16 pass over
+    989 TFLOP/s at bf16, on FFMA over 67 at float32; the FFMA bound kept
+    as `simt_fp32_bound_ms`; or the inputs and int64 indices over 3.35
+    TB/s."""
     import torch
     from point_cloud_reid_tpu_torch.kernels import knn as kk
     from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud as cloud
@@ -5357,18 +5360,21 @@ def knn_channel_case(B, S, N, C, k, dtype, seed: int) -> dict:
         k, dim=-1, largest=False).indices, 2, 1)
     del qf, xf
     flops, nbyte = 2.0 * B * S * N * C, nbytes(q, xyz) + 8 * B * S * k
-    b_ms, b_by = bound_ms(flops, nbyte, PEAK_FLOPS if dtype == torch.float32
-                          else PEAK_BF16)
+    how = kk.plan(N, k, C=C, bf16=dtype == torch.bfloat16)
+    route = "bf16" if dtype == torch.bfloat16 else "ffma"
+    b_ms, b_by = bound_ms(flops, nbyte, PEAK_BF16 if route == "bf16"
+                          else PEAK_FLOPS)
     simt = bound_ms(flops, nbyte)[0]
     torch.cuda.empty_cache()
     case = dict(B=B, S=S, N=N, C=C, k=k, dtype=str(dtype).split(".")[-1],
-                width=kk.plan(N, k, C=C, bf16=dtype == torch.bfloat16).points,
+                width=how.points, route=route, smem_bytes=how.smem,
                 near_tie_swaps=swaps, indices=got.numel(), max_gap_rel=gap,
                 ms=ms, device_ms=device, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by, bound_ratio=device / b_ms,
                 simt_fp32_bound_ms=simt)
     print(f"[dgcnn:knn] {case['dtype']} B={B} S={S} N={N} C={C} k={k} "
-          f"(stage {case['width']} channels): indices equal on exact and "
+          f"(stage {case['width']} channels, {route} products, "
+          f"{how.smem} shared bytes): indices equal on exact and "
           f"duplicated inputs; random: {swaps} of {got.numel()} near-tie "
           f"swaps (largest gap {gap:.2e} rel.); kernel {ms:.3f} ms (device "
           f"{device:.3f}), plain {plain:.3f} ms, cdist+topk {lib:.3f} ms, "
@@ -5377,16 +5383,98 @@ def knn_channel_case(B, S, N, C, k, dtype, seed: int) -> dict:
     return case
 
 
+def knn_conv1_case(seed: int) -> dict:
+    """DGCNN's first kNN, over xyz (512 clouds of 2048 points, C = 3, k =
+    20, float32): tier S as kernels/knn routes it, and tier C forced
+    through plan(..., tier=CHANNELS), each against the plain version on
+    exact, duplicated (indices equal) and random inputs (near-ties only),
+    each timed (a call from Python and a CUDA graph's device time). The
+    routing does not change."""
+    import torch
+    from point_cloud_reid_tpu_torch.kernels import knn as kk
+    from point_cloud_reid_tpu_torch.tools.scenes import knn_cloud as cloud
+    from point_cloud_reid_tpu_torch.tools.timing import graph_ms, time_ms
+    B, N, C, k = 512, 2048, 3, 20
+    routed = kk.plan(N, k, C=C)
+    forced = kk.plan(N, k, C=C, tier=kk.CHANNELS)
+    out = {}
+    for name, how in (("routed", routed), ("channels", forced)):
+        swaps = 0
+        for kind in ("exact", "duplicates", "random"):
+            xyz = torch.from_numpy(cloud(kind, B, N, seed, C)).to(DEVICE)
+            got = kk.launch(xyz, xyz, k, how)
+            want = kk.knn_reference(xyz, xyz, k)
+            bad = got != want
+            n_bad = int(bad.sum().item())
+            if kind != "random" and n_bad:
+                raise RuntimeError(f"knn conv1 {name} {kind}: {n_bad} "
+                                   "indices differ")
+            if kind == "random" and n_bad:
+                d = kk.square_distance(xyz, xyz)
+                diff = (d.gather(-1, got) - d.gather(-1, want)).abs()[bad]
+                scale = d.gather(-1, want)[bad].abs().clamp(min=1.0)
+                del d
+                if bool((diff > KNN_TIE * scale).any()):
+                    raise RuntimeError(f"knn conv1 {name}: indices differ "
+                                       "beyond a near-tie")
+                swaps = n_bad
+        ms = time_ms(lambda: kk.launch(xyz, xyz, k, how), 5)
+        device = graph_ms(lambda: kk.launch(xyz, xyz, k, how), 5, 2)
+        out[name] = dict(tier=kk.TIER_NAMES[how.tier], smem_bytes=how.smem,
+                         near_tie_swaps=swaps, ms=ms, device_ms=device)
+    plain = time_ms(lambda: kk.knn_reference(xyz, xyz, k), 2, 1)
+    b_ms, b_by = bound_ms(2.0 * B * N * N * C, nbytes(xyz) + 8 * B * N * k)
+    case = dict(B=B, S=N, N=N, C=C, k=k, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, **out)
+    print(f"[dgcnn:knn] conv1 xyz B={B} N={N} k={k}: routed tier "
+          f"{out['routed']['tier']} {out['routed']['ms']:.3f} ms (device "
+          f"{out['routed']['device_ms']:.3f}), tier C forced "
+          f"{out['channels']['ms']:.3f} ms (device "
+          f"{out['channels']['device_ms']:.3f}); both equal to plain on "
+          f"exact and duplicated inputs, near-tie swaps "
+          f"{out['routed']['near_tie_swaps']} / "
+          f"{out['channels']['near_tie_swaps']}; plain {plain:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    return case
+
+
+def knn_channel_usage() -> dict:
+    """ptxas's registers and spills of every tier C instantiation
+    (knn_channels_kernel<T, multi, two lists, vector copies>), from the
+    kernels' build log, by a short name."""
+    import re
+    from point_cloud_reid_tpu_torch.kernels import _lib
+    out = {}
+    for entry, use in _lib.ptxas_usage(_lib.LIBRARY.build_log).items():
+        m = re.search(r"knn_channels_kernelI(f|13__nv_bfloat16)Lb(\d)ELb(\d)"
+                      r"ELb(\d)E", entry)
+        if m:
+            name = ("float32/ffma" if m.group(1) == "f" else "bf16/bf16") + (
+                "/stages" * (m.group(2) == "1")) + (
+                "/k>32" * (m.group(3) == "1")) + ("/vec" * (m.group(4) == "1"))
+            out[name] = use
+    if not out:
+        raise RuntimeError("no ptxas account of knn_channels_kernel")
+    spilled = {k: v for k, v in out.items() if v["spill_stores"]}
+    print(f"[dgcnn:knn] ptxas: {len(out)} instantiations, registers "
+          f"{sorted({v['registers'] for v in out.values()})}, spilled "
+          f"{spilled or 'none'}", flush=True)
+    return out
+
+
 def knn_channel_rows() -> tuple:
     """The kernels line's rows of tier C, float32 and bf16: each summed over
     a DGCNN forward's three feature-space calls at 256 pairs (C = 64 twice,
-    128 once), the other shapes under `shapes`."""
+    128 once), the other shapes under `shapes`, ptxas's account of the
+    dtype's instantiations under `ptxas`."""
     import torch
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     # the plain bf16 path's products summed in float32 alone, as the kernel
     # sums them
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     rows, cases = [], []
+    usage = knn_channel_usage()
     try:
         for dtype in (torch.float32, torch.bfloat16):
             mine = [knn_channel_case(*shape, dtype, SEED + i)
@@ -5404,7 +5492,9 @@ def knn_channel_rows() -> tuple:
                 **{key: sum(c[key] for c in path) for key in (
                     "ms", "device_ms", "plain_ms", "bound_ms",
                     "simt_fp32_bound_ms", "library_ms")},
-                bound_by=path[-1]["bound_by"], shapes=mine))
+                bound_by=path[-1]["bound_by"], shapes=mine,
+                ptxas={key: v for key, v in usage.items()
+                       if key.startswith(sfx[1:] or "float32")}))
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
             flag)
@@ -5433,6 +5523,8 @@ def dgcnn_train_runs(card: str) -> dict:
                                    f"grad_norm {res['grad_norm']}")
             knn_tiers = {t: v for t, v in res["knn_launches_per_step"].items()
                          if v}
+            knn_ms = sum(v for name, v in res["hand_kernels_ms_per_step"]
+                         .items() if "knn" in name)
             print(f"[dgcnn:train] {DGCNN_ABLATION} {label}, {TRAIN_PAIRS} "
                   f"pairs: step {res['median_step_ms']:.1f} ms (steps "
                   f"{[round(x, 1) for x in res['step_ms']]}), forward "
@@ -5443,7 +5535,9 @@ def dgcnn_train_runs(card: str) -> dict:
                   f"{res['peak_memory_gib'] - held:.2f} above the {held:.2f} "
                   f"GiB held before the run), device busy "
                   f"{res['device_busy_share']:.1%}, kNN launches a step "
-                  f"{knn_tiers}, loss {res['loss']:.4f}, grad_norm "
+                  f"{knn_tiers}, kNN device {knn_ms:.2f} ms a step ("
+                  f"{knn_ms / res['median_step_ms']:.1%} of the step), loss "
+                  f"{res['loss']:.4f}, grad_norm "
                   f"{res['grad_norm']:.4f} on {card}", flush=True)
             runs[label] = {k: res[k] for k in (
                 "median_step_ms", "step_ms", "forward_ms", "backward_ms",
@@ -5451,6 +5545,8 @@ def dgcnn_train_runs(card: str) -> dict:
                 "knn_launches_per_step", "hand_kernels_ms_per_step", "loss",
                 "grad_norm")}
             runs[label]["held_gib"] = held
+            runs[label]["knn_ms_per_step"] = knn_ms
+            runs[label]["knn_share"] = knn_ms / res["median_step_ms"]
             torch.cuda.empty_cache()
     return runs
 
@@ -5590,6 +5686,7 @@ def phase_dgcnn_ablation(card: str):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     rows, cases = knn_channel_rows()
+    conv1 = knn_conv1_case(SEED)
     t_kernels = time.perf_counter() - t_phase
     every = zero_counters()
     train = dgcnn_train_runs(card)
@@ -5603,7 +5700,9 @@ def phase_dgcnn_ablation(card: str):
           f"; phase 19 took {seconds:.1f} s (kernel checks {t_kernels:.1f} s)",
           flush=True)
     return rows, launches, dict(seconds=seconds, kernels_seconds=t_kernels,
-                                knn_cases=cases, train=train, eval=evals,
+                                knn_cases=cases, knn_conv1=conv1,
+                                knn_ptxas=rows[0]["ptxas"] | rows[1]["ptxas"],
+                                train=train, eval=evals,
                                 chunks=chunks)
 
 

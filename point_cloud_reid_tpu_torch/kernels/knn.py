@@ -31,11 +31,13 @@ POINT_BYTES = 16        # a point staged as (x, y, z, |p|^2)
 REG_WARPS = 8           # query rows a block in tier R
 SCAN_WARPS = 16         # query rows a block in tiers S and G
 REG_MAX_N = 128         # tier R holds 2 or 4 points a lane
-# tier C (csrc/knn_channels.cu): 64 queries a block against tiles of 64
-# points, a key row of 80 words, k <= 64 (two list entries a lane); a
-# width whose stage would not leave shared memory for two blocks an SM
-# streams CH_STAGE channels a stage
-CH_ROWS, CH_WARPS, CH_KEY_STRIDE, CH_MAX_K = 64, 8, 80, 64
+# tier C (csrc/knn_channels.cu): 64 queries a block on 8 warps against
+# tiles of 64 points, a key row of 72 words, a pending buffer of CH_PENDING
+# candidates a query, k <= 64 (two list entries a lane); a width whose
+# stage would not leave shared memory for two blocks an SM streams CH_STAGE
+# channels a stage
+CH_ROWS, CH_WARPS, CH_KEY_STRIDE, CH_MAX_K = 64, 8, 72, 64
+CH_PENDING = 32
 CH_TWO_BLOCKS = 113664  # a block's dynamic shared bytes, two an SM
 CH_STAGE = 64
 
@@ -47,19 +49,25 @@ class Plan(NamedTuple):
     smem: int           # dynamic shared bytes a block
 
 
-def channel_stride(width: int) -> int:
-    """Elements of a staged row in tier C: the width rounded up to an odd
-    number of 4-element groups (no bank conflicts)."""
-    return 4 * (-(-width // 4) | 1)
+def channel_stride(width: int, bf16: bool = False) -> int:
+    """Elements of a staged row in tier C: the width padded to the
+    tensor-core k-step (8 float32, 16 bf16), then to an odd number of
+    16-byte groups (bf16: of 16-byte pairs), so no fragment read conflicts."""
+    if bf16:
+        return 8 * ((-(-width // 16) * 16 // 8) | 1)
+    return 4 * ((-(-width // 8) * 8 // 4) | 1)
 
 
 def channel_smem(C: int, width: int, bf16: bool = False) -> int:
-    """Tier C's dynamic shared bytes: the key rows, two norm rows and the
-    staged rows (queries resident and two point buffers at one stage a
-    tile; two buffers of points and queries when `width` < C)."""
+    """Tier C's dynamic shared bytes: the key rows, two norm rows, the
+    queries' pending buffers and their counts, and the staged rows (queries
+    resident and two point buffers at one stage a tile; two buffers of
+    points and queries when `width` < C)."""
     tiles = 4 if width < C else 3
     return (CH_ROWS * CH_KEY_STRIDE * 4 + 2 * CH_ROWS * 4
-            + tiles * CH_ROWS * channel_stride(width) * (2 if bf16 else 4))
+            + CH_ROWS * (CH_PENDING * 8 + 4)
+            + tiles * CH_ROWS * channel_stride(width, bf16)
+            * (2 if bf16 else 4))
 
 
 def plan(N: int, k: int, tier: Optional[int] = None, C: int = 3,

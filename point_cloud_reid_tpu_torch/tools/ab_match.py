@@ -141,10 +141,11 @@ def build(sources):
 
 
 def wrapper(source: str, module: str = "match_grid"):
-    """The kernels/<module> (match_grid, or sa_stage for tools/ab_sa.py)
-    that launches a version: this package's for a source in its csrc/ (or
-    outside any tree of the package), else that of the tree the source's
-    first file lies in, imported once under a name of its own."""
+    """The kernels/<module> (match_grid, sa_stage for tools/ab_sa.py, knn
+    for tools/ab_train_kernels.py) that launches a version: this package's
+    for a source in its csrc/ (or outside any tree of the package), else
+    that of the tree the source's first file lies in, imported once under a
+    name of its own."""
     pkg = Path(source.split("+")[0]).resolve().parent.parent
     if (pkg == Path(mg.__file__).resolve().parent.parent
             or not (pkg / "kernels" / f"{module}.py").is_file()):

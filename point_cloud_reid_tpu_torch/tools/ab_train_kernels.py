@@ -3,27 +3,30 @@ tier csrc/knn_channels.cu) and the linear-attention kernel
 (csrc/linear_attention.cu) in one process on one card.
 
 Each SOURCE is a version of one of the three files, for example the parent
-commit's from `git show`. Each is built as a kernels/_lib.Library of its own
-from that one source (seconds; all built together, ptxas's register and
-spill lines printed) and launched as the wrapper launches it:
-kernels/knn.launch for a version with the int64 entry point
-`pcr_knn_i64` or the channel tier's `pcr_knn_channels`, and for an older
-one with the int32 `pcr_knn` its launch plus the wrapper's cast to int64,
-which is then inside the clock; kernels/linear_attention.launch for
-attention. The training path's shapes: kNN at the flagship's three SA
-stages on 512 crops (S, N, k = 128, 128, 32 / 64, 128, 48 / 32, 64, 48);
-the channel tier at DGCNN's feature-space kNN at 256 pairs of 2048-point
-crops (512 clouds, every point a query; C = 64 and 128, k = 20, float32
-and bf16), then at float32 with k (1, 8, 48) and C (16, 32, 256) apart,
-the running top-k's share of the time against the products'; both on
-exact-arithmetic, duplicated and random seeded clouds, timed on the random
-ones; attention at the cross stages' (B, L, S, H, D, V) = (256, 128, 128,
-2, 32, 32), q and k / v views of fused projections as the model hands them
-over, three input sets (more than the 50 MB L2) in rotation. `--N` sets
-the crop size (SA1's kNN over N points, attention at L = S = N: a
-point-count ablation's shapes; kNN versions from before the tiers take N
-<= 128 only; the channel tier keeps DGCNN's 2048) and `--C` the cross
-stages' width (D = V = C / 2: --C 128 for the 1.5M and 7M models).
+commit's from `git show`, or a version of csrc/knn_channels.cu unpacked
+with its tree from `git archive`. Each is built as a kernels/_lib.Library
+of its own from that one source (seconds; all built together, ptxas's
+register and spill lines printed) and launched as the wrapper launches it: through the kernels/knn.launch of the source's own
+tree (tools/ab_match.wrapper; this package's for a source outside one) for
+a version with the int64 entry point `pcr_knn_i64` or the channel tier's
+`pcr_knn_channels`, so each version of the channel tier runs under its own
+plan and shared bytes; for an older one with the int32 `pcr_knn` its
+launch plus the wrapper's cast to int64, which is then inside the clock;
+kernels/linear_attention.launch for attention. The training path's
+shapes: kNN at the flagship's three SA stages on 512 crops (S, N, k = 128,
+128, 32 / 64, 128, 48 / 32, 64, 48); the channel tier at DGCNN's
+feature-space kNN at 256 pairs of 2048-point crops (512 clouds, every
+point a query; C = 64 and 128, k = 20, float32 and bf16), then at float32
+with k (1, 8, 48) and C (16, 32, 256) apart, the running top-k's share of
+the time against the products'; both on exact-arithmetic, duplicated and
+random seeded clouds, timed on the random ones; attention at the cross
+stages' (B, L, S, H, D, V) = (256, 128, 128, 2, 32, 32), q and k / v views
+of fused projections as the model hands them over, three input sets (more
+than the 50 MB L2) in rotation. `--N` sets the crop size (SA1's kNN over N
+points, attention at L = S = N: a point-count ablation's shapes; kNN
+versions from before the tiers take N <= 128 only; the channel tier keeps
+DGCNN's 2048) and `--C` the cross stages' width (D = V = C / 2: --C 128 for
+the 1.5M and 7M models).
 Versions are timed in turns (first to last,
 then last to first, `--rounds` times), as chip_smoke.py times them
 (tools/timing): `median_ms` by CUDA events around `--iters` calls made one
@@ -31,8 +34,11 @@ after another from Python, which the host can pace, and `device_ms` by a
 CUDA graph of as many calls. Every output is
 compared with the plain version: kNN index mismatches on exact and
 duplicated inputs (want 0) and near-tie swaps on random ones, attention's
-error relative to max(1, |plain|). Prints one JSON line per version with
-the card's name and power limit.
+error relative to max(1, |plain|); and each kNN version's indices against
+the first version's on every input (`equal_to_first`: want every float32
+input equal, as a redesign of the channel tier keeps the first version's
+float32 order). Prints one JSON line per version with the card's name and
+power limit.
 
     python -m point_cloud_reid_tpu_torch.tools.ab_train_kernels
         [--knn SOURCE ...] [--attention SOURCE ...] [--rounds 5]
@@ -55,7 +61,7 @@ import torch
 from ..kernels import _lib
 from ..kernels import knn as kk
 from ..kernels import linear_attention as la
-from .ab_match import build
+from .ab_match import build, wrapper
 from .scenes import card_name, knn_cloud
 from .timing import graph_ms, time_ms
 
@@ -129,13 +135,15 @@ def attention_inputs(B: int = 256, L: int = 128, S: int = 128, H: int = 2,
     return out
 
 
-def knn_call(lib):
+def knn_call(lib, source: str = None):
     """kNN as the wrapper calls one version: int64 straight from a kernel
-    with `pcr_knn_i64`; from an older int32 `pcr_knn`, its launch and the
-    cast the wrapper then made."""
+    with `pcr_knn_i64` or `pcr_knn_channels`, through the kernels/knn.launch
+    of the source's tree (this package's without a source); from an older
+    int32 `pcr_knn`, its launch and the cast the wrapper then made."""
     handle = lib.get()
     if hasattr(handle, "pcr_knn_i64") or hasattr(handle, "pcr_knn_channels"):
-        return lambda q, xyz, k: kk.launch(q, xyz, k, library=lib)
+        tree = kk if source is None else wrapper(source, "knn")
+        return lambda q, xyz, k: tree.launch(q, xyz, k, library=lib)
     fn = handle.pcr_knn
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
@@ -174,24 +182,28 @@ def knn_check(got, q, xyz, k, clouds: int = 64) -> tuple:
 def run_knn(sources, rounds: int, iters: int, card: str,
             crop: int = 128) -> None:
     libs = build(sources)
-    calls = [knn_call(lib) for lib in libs]
+    calls = [knn_call(lib, src) for lib, src in zip(libs, sources)]
     if hasattr(libs[0].get(), "pcr_knn_channels"):
         stages = channel_inputs()
     else:
         stages = [(f"S{S}_N{N}_k{k}", k, clouds)
                   for S, N, k, clouds in knn_inputs(crop=crop)]
-    checks = []
-    for call in calls:
-        res = {}
-        for name, k, clouds in stages:
-            for kind, (q, xyz) in clouds.items():
+    checks = [{} for _ in calls]
+    same = [{} for _ in calls]
+    for name, k, clouds in stages:
+        for kind, (q, xyz) in clouds.items():
+            first = None
+            for i, call in enumerate(calls):
                 got = call(q, xyz, k)
                 torch.cuda.synchronize()
                 if got.dtype != torch.int64 or got.shape != (*q.shape[:2], k):
                     raise RuntimeError(f"knn gave {got.dtype} {got.shape}")
-                res[f"{name}_{kind}"] = knn_check(got, q, xyz, k)
+                checks[i][f"{name}_{kind}"] = knn_check(got, q, xyz, k)
+                if first is None:
+                    first = got
+                same[i][f"{name}_{kind}"] = bool(torch.equal(got, first))
                 del got
-        checks.append(res)
+            del first
     times = [[[] for _ in stages] for _ in libs]
     device = [[[] for _ in stages] for _ in libs]
     for r in range(rounds):
@@ -207,6 +219,7 @@ def run_knn(sources, rounds: int, iters: int, card: str,
         med = [statistics.median(t) for t in times[i]]
         dev = [statistics.median(t) for t in device[i]]
         res = checks[i]
+        f32 = [key for key in same[i] if "bfloat16" not in key]
         print(json.dumps(dict(
             kernel="knn", source=src, card=card, crops=512,
             stages=[name for name, _, _ in stages],
@@ -217,7 +230,9 @@ def run_knn(sources, rounds: int, iters: int, card: str,
             random_swaps=sum(v[0] for key, v in res.items()
                              if key.endswith("random")),
             beyond_near_tie=sum(v[1] for v in res.values()),
-            max_gap=max(v[2] for v in res.values()), checks=res)),
+            max_gap=max(v[2] for v in res.values()),
+            f32_equal_to_first=all(same[i][key] for key in f32),
+            equal_to_first=same[i], checks=res)),
             flush=True)
 
 

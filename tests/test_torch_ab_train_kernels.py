@@ -161,3 +161,29 @@ def test_knn_call_launches_channel_versions(monkeypatch):
     assert out.shape == (2, 70, 20) and out.dtype == torch.int64
     how = kk.plan(70, 20, C=64, bf16=True)
     assert seen[0][3:] == (2, 70, 70, 64, 20, how.points, how.smem, 1, 0)
+
+
+def test_knn_call_launches_through_the_sources_tree(tmp_path):
+    """A channel-tier source inside another tree of the package is launched
+    by that tree's kernels/knn.launch (its own plan and shared bytes)."""
+    pkg = tmp_path / "point_cloud_reid_tpu_torch"
+    (pkg / "kernels").mkdir(parents=True)
+    (pkg / "csrc").mkdir()
+    (pkg / "__init__.py").write_text("")
+    (pkg / "kernels" / "__init__.py").write_text("")
+    (pkg / "kernels" / "knn.py").write_text(
+        "def launch(q, xyz, k, how=None, library=None):\n"
+        "    return ('that tree', k, library)\n")
+    src = pkg / "csrc" / "knn_channels.cu"
+    src.write_text("")
+
+    class Handle:
+        def pcr_knn_channels(self, *args):
+            raise AssertionError("launched past the tree's wrapper")
+
+    class Lib:
+        def get(self):
+            return Handle()
+    lib = Lib()
+    x = torch.zeros(1, 5, 8)
+    assert ab.knn_call(lib, str(src))(x, x, 4) == ("that tree", 4, lib)

@@ -540,14 +540,17 @@ def _knn_near_ties(kk, q, xyz, got, want, tol):
 # tier C (csrc/knn_channels.cu): DGCNN's feature-space shapes (C = 64, 128,
 # every point a query), channel counts off the 4-element groups (1, 5, 6),
 # one stage a tile and 64-channel stages (256), k past 32 and k = N, S and
-# N off the 64-row tiles, a cloud past shared memory (20,000 x 16 floats);
-# xyz (C = 3) at bf16 in test_knn_feature_space_bf16_route
+# N off the 64-row tiles, a cloud past shared memory (20,000 x 16 floats),
+# k = 1, 32 (one list entry a lane, full) and 33 (two), at one stage a
+# tile (C = 64) and in 64-channel stages (C = 128 float32); xyz (C = 3) at
+# bf16 in test_knn_feature_space_bf16_route
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["exact", "duplicates", "random"])
 @pytest.mark.parametrize("B,S,N,C,k", [
     (4, 256, 256, 64, 20), (2, 2048, 2048, 64, 20), (2, 2048, 2048, 128, 20),
     (2, 100, 300, 5, 7), (3, 64, 97, 6, 40), (1, 5, 64, 1, 64),
-    (2, 33, 1000, 256, 48), (2, 9, 20000, 16, 32)])
+    (2, 33, 1000, 256, 48), (2, 9, 20000, 16, 32), (2, 300, 700, 64, 1),
+    (2, 257, 700, 64, 32), (2, 130, 333, 128, 33), (2, 200, 500, 128, 1)])
 def test_knn_channels_match_plain(bf16_full_sums, dtype, kind, B, S, N, C,
                                   k):
     from point_cloud_reid_tpu_torch.kernels import knn as kk

@@ -71,13 +71,13 @@ def test_knn_reference_equals_knn_pallas(C, kind):
 
 
 def test_plan_picks_tier_c_past_three_channels():
-    # one stage a tile while three tiles and the keys leave two blocks an
-    # SM: DGCNN's C = 64 at float32, C = 128 at bf16
-    assert kk.plan(2048, 20, C=64) == kk.Plan(kk.CHANNELS, 64, 8, 73216)
+    # one stage a tile while three tiles, the keys and the pending buffers
+    # leave two blocks an SM: DGCNN's C = 64 at float32, C = 128 at bf16
+    assert kk.plan(2048, 20, C=64) == kk.Plan(kk.CHANNELS, 64, 8, 87808)
     assert kk.plan(2048, 20, C=128, bf16=True) == kk.Plan(
-        kk.CHANNELS, 128, 8, 71680)
+        kk.CHANNELS, 128, 8, 87808)
     # past that, 64 channels a stage (queries staged too): C = 128 float32
-    assert kk.plan(2048, 20, C=128) == kk.Plan(kk.CHANNELS, 64, 8, 90624)
+    assert kk.plan(2048, 20, C=128) == kk.Plan(kk.CHANNELS, 64, 8, 105216)
     # xyz at bf16 keeps the bf16 roundings: tier C; float32 xyz the others
     assert kk.plan(2048, 20, C=3, bf16=True).tier == kk.CHANNELS
     assert kk.plan(2048, 20).tier == kk.SHARED
@@ -90,9 +90,12 @@ def test_plan_picks_tier_c_past_three_channels():
             assert how.points == C or how.points == kk.CH_STAGE
             if how.points == C:
                 assert how.smem <= kk.CH_TWO_BLOCKS
-    # rows padded to an odd number of 4-element groups
+            else:
+                assert kk.channel_smem(C, C, bf16) > kk.CH_TWO_BLOCKS
+    # rows padded to the k-step (8), then to an odd number of 4-element
+    # groups
     assert [kk.channel_stride(w) for w in (1, 4, 5, 8, 64, 128)] == [
-        4, 4, 12, 12, 68, 132]
+        12, 12, 12, 12, 68, 132]
     # a forced stage: C or a multiple of 16 below it
     assert kk.plan(100, 8, C=64, width=16).points == 16
     for kw in (dict(C=64, width=24), dict(C=64, width=80),
